@@ -2,19 +2,21 @@
 
 A second package beside the JAX one (which stays the reference): the
 same N^3 sparse voxel octree with an int32 index table into a per-frame
-feature pool, and the serving path on an NVIDIA Hopper GPU: re-point the
-tree at this frame's point cloud (`N3Tree.construct_tree`) and render
-with this frame's feature pool (`VolumeRenderer.forward` /
-`render_persp`). Both hot loops are hand-written CUDA kernels under
-`csrc/`, built by nvcc at first use; on CPU tensors their plain PyTorch
-versions run instead.
+feature pool, serving and training on an NVIDIA Hopper GPU. Serving
+re-points the tree at this frame's point cloud (`N3Tree.construct_tree`)
+and renders with this frame's feature pool (`VolumeRenderer.forward` /
+`render_persp`). Training takes gradients of those renders, and of the
+point query `N3Tree.forward`, with respect to the feature pool, and
+collects per-leaf weights for pruning (`N3Tree.accumulate_weights`). The
+hot loops are hand-written CUDA kernels under `csrc/`, built by nvcc at
+first use; on CPU tensors their plain PyTorch versions run instead.
 
 Names follow `svox_t_tpu/__init__.py`; what is not ported yet is absent.
 """
 
 __version__ = "0.1.0"
 
-from .models.tree import N3Tree
+from .models.tree import N3Tree, WeightAccumulator
 from .models.renderer import VolumeRenderer, convert_to_ndc
 from .utils.spec import (NDCConfig, Rays, RenderOptions, TreeSpec,
                          CameraSpec, DATA_SENTINEL, make_tree_spec)
@@ -25,6 +27,7 @@ from .utils.convert import tree_from_numpy, tree_state
 
 __all__ = [
     "N3Tree",
+    "WeightAccumulator",
     "VolumeRenderer",
     "NDCConfig",
     "Rays",

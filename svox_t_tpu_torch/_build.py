@@ -1,7 +1,8 @@
 """Build and bind the package's CUDA kernels.
 
 The kernels (`csrc/*.cu`, sharing `csrc/common.cuh`) are compiled by
-``nvcc`` into one shared library with a plain C interface and loaded with
+``nvcc``, one process per source file, all started together, and linked
+into one shared library with a plain C interface, loaded with
 ``ctypes``. The build runs at the first launch, never at import, so the
 package imports on machines without CUDA. The library lands in
 ``build/svox_t_tpu_torch/`` beside the package, named by a hash of the
@@ -27,10 +28,11 @@ from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "svox_t_tpu_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
+    *ARCH_FLAGS,
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -68,23 +70,46 @@ class Build(NamedTuple):
 
 
 def build() -> Build:
-    """Compile the kernels unless a library for these sources exists."""
+    """Compile the kernels unless a library for these sources exists:
+    one nvcc per source file, run in parallel, then one link."""
     path = library_path()
     if path.exists():
         return Build(path, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    stem = f"{path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, obj, proc))
+    logs, failed = [], []
+    for src, obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
         )
-    os.replace(tmp, path)
-    return Build(path, seconds, proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, path)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return Build(path, time.perf_counter() - t0, "".join(logs))
 
 
 _LIB = None

@@ -1,10 +1,12 @@
-// Shared device functions of the octree kernels (K1).
+// Shared device functions of the octree kernels (K1) and the spherical
+// bases of the two march kernels.
 //
 // Replaces: svox_t_tpu/ops/traversal.py `descend` (the batched
 // fixed-trip-count descent), `dda_unit`, `get_delta_scale` and
-// `clamp_coord`. On the TPU the descent was n_levels rounds of one
-// batched gather; here it is a per-thread pointer chase that stops at the
-// leaf, as in the CUDA reference's query_single_from_root.
+// `clamp_coord`, and svox_t_tpu/ops/sh.py `eval_basis` (SH, SG, ASG). On
+// the TPU the descent was n_levels rounds of one batched gather; here it
+// is a per-thread pointer chase that stops at the leaf, as in the CUDA
+// reference's query_single_from_root.
 //
 // Bound on an H100: latency. Each level is one dependent 4-byte load from
 // the child table (9.5 MB at depth 9, so it lives in the 50 MB L2 after
@@ -97,6 +99,137 @@ __device__ __forceinline__ float delta_scale(const float* __restrict__ scaling,
   dy = dy * ds;
   dz = dz * ds;
   return ds;
+}
+
+// ---------------------------------------------------------------------
+// Spherical bases (ops/sh.py), evaluated at a view direction as passed.
+
+// Feature formats, as utils/spec.py numbers them.
+constexpr int kRGBA = 0;
+constexpr int kSH = 1;
+constexpr int kSG = 2;
+constexpr int kASG = 3;
+// Largest basis a kernel holds in registers.
+constexpr int kMaxBasis = 25;
+
+// Basis capacity of the kernel instance that runs a basis of nb terms:
+// the smallest SH size (1, 4, 9, 16, 25) that holds nb, or 0 when nb is
+// out of range or (for SH) not an SH size. SG and ASG of any size run on
+// that instance with nb a run-time value; SH runs on its own size.
+__host__ __device__ constexpr int basis_capacity(int fmt, int nb) {
+  if (nb < 1 || nb > kMaxBasis) return 0;
+  const int cap = nb <= 1 ? 1 : nb <= 4 ? 4 : nb <= 9 ? 9 : nb <= 16 ? 16 : 25;
+  return fmt == kSH && cap != nb ? 0 : cap;
+}
+
+constexpr float C0 = 0.28209479177387814f;
+constexpr float C1 = 0.4886025119029199f;
+constexpr float C2_0 = 1.0925484305920792f;
+constexpr float C2_1 = -1.0925484305920792f;
+constexpr float C2_2 = 0.31539156525252005f;
+constexpr float C2_3 = -1.0925484305920792f;
+constexpr float C2_4 = 0.5462742152960396f;
+constexpr float C3_0 = -0.5900435899266435f;
+constexpr float C3_1 = 2.890611442640554f;
+constexpr float C3_2 = -0.4570457994644658f;
+constexpr float C3_3 = 0.3731763325901154f;
+constexpr float C3_4 = -0.4570457994644658f;
+constexpr float C3_5 = 1.445305721320277f;
+constexpr float C3_6 = -0.5900435899266435f;
+constexpr float C4_0 = 2.5033429417967046f;
+constexpr float C4_1 = -1.7701307697799304f;
+constexpr float C4_2 = 0.9461746957575601f;
+constexpr float C4_3 = -0.6690465435572892f;
+constexpr float C4_4 = 0.10578554691520431f;
+constexpr float C4_5 = -0.6690465435572892f;
+constexpr float C4_6 = 0.47308734787878004f;
+constexpr float C4_7 = -1.7701307697799304f;
+constexpr float C4_8 = 0.6258357354491761f;
+
+// SH basis of BD = (deg+1)^2 terms; expressions keep the association
+// order of ops/sh.py.
+template <int BD>
+__device__ __forceinline__ void sh_basis(float x, float y, float z, float* b) {
+  b[0] = C0;
+  if constexpr (BD > 1) {
+    b[1] = -C1 * y;
+    b[2] = C1 * z;
+    b[3] = -C1 * x;
+  }
+  if constexpr (BD > 4) {
+    const float xx = x * x, yy = y * y, zz = z * z;
+    const float xy = x * y, yz = y * z, xz = x * z;
+    b[4] = C2_0 * xy;
+    b[5] = C2_1 * yz;
+    b[6] = C2_2 * (2.f * zz - xx - yy);
+    b[7] = C2_3 * xz;
+    b[8] = C2_4 * (xx - yy);
+    if constexpr (BD > 9) {
+      b[9] = C3_0 * y * (3.f * xx - yy);
+      b[10] = C3_1 * xy * z;
+      b[11] = C3_2 * y * (4.f * zz - xx - yy);
+      b[12] = C3_3 * z * (2.f * zz - 3.f * xx - 3.f * yy);
+      b[13] = C3_4 * x * (4.f * zz - xx - yy);
+      b[14] = C3_5 * z * (xx - yy);
+      b[15] = C3_6 * x * (xx - 3.f * yy);
+    }
+    if constexpr (BD > 16) {
+      b[16] = C4_0 * xy * (xx - yy);
+      b[17] = C4_1 * yz * (3.f * xx - yy);
+      b[18] = C4_2 * xy * (7.f * zz - 1.f);
+      b[19] = C4_3 * yz * (7.f * zz - 3.f);
+      b[20] = C4_4 * (zz * (35.f * zz - 30.f) + 3.f);
+      b[21] = C4_5 * xz * (7.f * zz - 3.f);
+      b[22] = C4_6 * (xx - yy) * (7.f * zz - 1.f);
+      b[23] = C4_7 * xz * (xx - 3.f * yy);
+      b[24] = C4_8 * (xx * (xx - 3.f * yy) - yy * (3.f * xx - yy));
+    }
+  }
+}
+
+// (x, y, z) . (a[0], a[1], a[2]), summed as ops/sh.py `_dot` sums.
+__device__ __forceinline__ float dot3(float x, float y, float z, const float* a) {
+  return (x * __ldg(a) + y * __ldg(a + 1)) + z * __ldg(a + 2);
+}
+
+// Basis of format FMT (kSH, kSG or kASG) and size nb at (x, y, z),
+// windowed to [lo, hi], into b[0, nb). BD is the instance's capacity
+// (basis_capacity; SH: BD == nb). SG rows of `extra` (stride ld) are
+// [lambda, mu_xyz]: exp(lambda * (dot - 1)) / nb. ASG rows are
+// [a, b, x(3), y(3), z(3)]: s * exp(-a * dx^2 - b * dy^2) / nb with s,
+// dx, dy the dots with the z, x and y axes.
+template <int FMT, int BD>
+__device__ __forceinline__ void eval_basis(float x, float y, float z,
+                                           const float* __restrict__ extra,
+                                           int ld, int nb, int lo, int hi,
+                                           float* b) {
+  if constexpr (FMT == kSH) {
+    sh_basis<BD>(x, y, z, b);
+  } else {
+    const float fnb = static_cast<float>(nb);
+#pragma unroll
+    for (int k = 0; k < BD; ++k) {
+      if (k < nb) {
+        const float* e = extra + static_cast<size_t>(k) * ld;
+        if constexpr (FMT == kSG) {
+          b[k] = expf(__ldg(e) * (dot3(x, y, z, e + 1) - 1.f)) / fnb;
+        } else {
+          const float s = dot3(x, y, z, e + 8);
+          const float dx = dot3(x, y, z, e + 2);
+          const float dy = dot3(x, y, z, e + 5);
+          b[k] = s * expf((-__ldg(e)) * dx * dx - __ldg(e + 1) * dy * dy) / fnb;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < BD; ++k) {
+    if (k < nb && (k < lo || k > hi)) b[k] = 0.f;
+  }
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.f / (1.f + expf(-x));
 }
 
 }  // namespace svox

@@ -1,0 +1,108 @@
+// K8b (query part): the differentiable point query, forward and backward.
+//
+// Replaces: svox_t_tpu/ops/query.py `query` / `_query_impl` (a batched
+// descent, then a row gather with zeros for empty space) and `_query_bwd`
+// (a re-descent, then `zeros((M, D)).at[row].add(g)`).
+//
+// Forward: one thread per point descends from the root (common.cuh),
+// writes the leaf's packed cell id and its data-table entry, and copies
+// the feature row when the entry is < M, else zeros. Backward: one thread
+// per (point, column) adds the output gradient into row data_idx with
+// float atomicAdd when data_idx < M; duplicate points in one leaf sum.
+// The wrapper zeroes the gradient buffer.
+//
+// Bound on an H100: the forward is latency bound by the dependent
+// child-table loads of the descent (depth levels per point), then
+// bandwidth bound by the row copy; the backward is bound by its atomics
+// into the (M, D) buffer (157 MB at depth 9 SH9). The design answer is a
+// tiny per-thread footprint so that many warps hide the descent, and a
+// backward laid out column-fastest, so that a warp's atomics fall on
+// neighbouring addresses of a few rows.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void query_fwd_kernel(const float* __restrict__ points, int Q,
+                                 int world, const int32_t* __restrict__ child,
+                                 const int32_t* __restrict__ data, int N,
+                                 int n_levels, const float* __restrict__ offset,
+                                 const float* __restrict__ scaling,
+                                 const float* __restrict__ features, int M,
+                                 int D, float* __restrict__ values,
+                                 int32_t* __restrict__ node_flat,
+                                 int32_t* __restrict__ data_idx) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  float x = points[3 * i + 0], y = points[3 * i + 1], z = points[3 * i + 2];
+  if (world) {  // world2tree: offset + scaling * pos
+    x = offset[0] + scaling[0] * x;
+    y = offset[1] + scaling[1] * y;
+    z = offset[2] + scaling[2] * z;
+  }
+  const svox::Leaf leaf = svox::descend(child, N, n_levels, x, y, z);
+  const int32_t idx = __ldg(data + leaf.flat);
+  node_flat[i] = leaf.flat;
+  data_idx[i] = idx;
+  float* v = values + static_cast<size_t>(i) * D;
+  if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(M)) {
+    const float* row = features + static_cast<size_t>(idx) * D;
+    for (int j = 0; j < D; ++j) v[j] = __ldg(row + j);
+  } else {
+    for (int j = 0; j < D; ++j) v[j] = 0.f;
+  }
+}
+
+__global__ void query_bwd_kernel(const int32_t* __restrict__ data_idx,
+                                 const float* __restrict__ grad_values,
+                                 int Q, int M, int D,
+                                 float* __restrict__ grad) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<int64_t>(Q) * D) return;
+  const int i = static_cast<int>(e / D);
+  const int j = static_cast<int>(e - static_cast<int64_t>(i) * D);
+  const int32_t idx = __ldg(data_idx + i);
+  if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(M)) {
+    atomicAdd(grad + static_cast<size_t>(idx) * D + j, __ldg(grad_values + e));
+  }
+}
+
+}  // namespace
+
+// points (Q, 3) f32 (world space when world != 0, else tree space);
+// child/data (capacity * N^3,) i32; offset/scaling (3,) f32; features
+// (M, D) f32; values (Q, D) f32, node_flat and data_idx (Q,) i32 out. All
+// pointers are device pointers. Returns a cudaError_t.
+extern "C" int svox_query_fwd(const float* points, int Q, int world,
+                              const int32_t* child, const int32_t* data,
+                              int N, int n_levels, const float* offset,
+                              const float* scaling, const float* features,
+                              int M, int D, float* values, int32_t* node_flat,
+                              int32_t* data_idx, int device,
+                              cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (Q <= 0) return cudaSuccess;
+  query_fwd_kernel<<<(Q + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      points, Q, world, child, data, N, n_levels, offset, scaling, features,
+      M, D, values, node_flat, data_idx);
+  return cudaGetLastError();
+}
+
+// data_idx (Q,) i32 from the forward; grad_values (Q, D) f32; grad (M, D)
+// f32, zeroed by the caller. Returns a cudaError_t.
+extern "C" int svox_query_bwd(const int32_t* data_idx, const float* grad_values,
+                              int Q, int M, int D, float* grad, int device,
+                              cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int64_t n = static_cast<int64_t>(Q) * D;
+  if (n <= 0 || M <= 0) return cudaSuccess;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  query_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      data_idx, grad_values, Q, M, D, grad);
+  return cudaGetLastError();
+}

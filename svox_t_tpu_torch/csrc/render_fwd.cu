@@ -1,36 +1,42 @@
-// K2: the forward ray march (exact and thresholded), RGBA and SH.
+// K2: the forward ray march (exact and thresholded), RGBA, SH, SG and ASG,
+// with optional per-leaf weight accumulation.
 //
 // Replaces: svox_t_tpu/ops/render.py `_volume_render_fwd_impl` with
 // `_ray_setup`, `_clip_to_occupied` (a no-op on tree specs),
-// `_march_round`, `_lookup_leaf_xyz`, `_phase2_radiometry`,
-// `_round_sigma`, `_round_colors`, `_step_basis` and `_colors`. The TPU
-// version marched all rays in chunks of K-sample rounds; this kernel is
-// shaped like the CUDA reference's trace_ray instead: one thread per ray,
-// one sample at a time, leaving the loop when the ray leaves the cube,
-// reaches max_steps samples or stops early.
+// `_march_round`, `_lookup_leaf_xyz`, `_phase2_radiometry` (including its
+// weight accumulation), `_round_sigma`, `_round_colors`, `_step_basis`
+// and `_colors`. The TPU version marched all rays in chunks of K-sample
+// rounds; this kernel is shaped like the CUDA reference's trace_ray
+// instead: one thread per ray, one sample at a time, leaving the loop
+// when the ray leaves the cube, reaches max_steps samples or stops early.
 //
 // Per sample: descend to the leaf (common.cuh), step
 // delta_t = (sub_tmax - sub_tmin) / cube_sz + step_size from the in-leaf
 // DDA, read the leaf's feature row, and composite only when
 // sigma > sigma_thresh: att = exp(-dt * delta_scale * sigma),
 // weight = L * (1 - att), colors sigmoid(feat) (RGBA) or
-// sigmoid(sum_k basis_k * feat[c * basis_dim + k]) (SH, channel-major).
-// The SH basis comes from the view direction as passed, windowed to
-// [min_comp, max_comp]; with per-voxel transformation matrices the view
-// direction is rotated by the row's 3x3 block and the basis re-evaluated
-// per sample. With stop_thresh > 0 the sample that brings L to or below
-// stop_thresh still counts, then the color is renormalized by 1/(1-L) and
-// no background is added.
+// sigmoid(sum_k basis_k * feat[c * basis_dim + k]) (SH/SG/ASG,
+// channel-major). The basis comes from the view direction as passed,
+// windowed to [min_comp, max_comp]; with per-voxel transformation
+// matrices the view direction is rotated by the row's 3x3 block and the
+// basis re-evaluated per sample. With stop_thresh > 0 the sample that
+// brings L to or below stop_thresh still counts, then the color is
+// renormalized by 1/(1-L) and no background is added. With a weight
+// buffer, every compositing sample (the stop sample included) adds its
+// weight to its leaf cell's slot with atomicAdd.
 //
 // Bound on an H100: latency. A sample is a dependent chain of depth
 // child-table loads, one data-table load and one feature-row load, then a
 // few dozen flops; the tables of the depth-9 scene (9.5 MB child, 9.5 MB
 // data, 157 MB pool) are mostly L2 and HBM reads with no reuse inside a
 // thread. The design answer is occupancy: a ray per thread, the basis and
-// the color sums held in registers (basis size and rotation are template
-// parameters, so every basis index is a compile-time constant), and small
-// blocks, so enough warps are resident to hide the chains. Rays in a warp
-// are neighbouring pixels, so their descents touch the same nodes.
+// the color sums held in registers (format, rotation and the basis
+// capacity are template parameters, so every basis index is a
+// compile-time constant; SG/ASG sizes between capacities run behind a
+// run-time bound), and small blocks, so enough warps are resident to
+// hide the chains. Rays in a warp are neighbouring pixels, so their
+// descents touch the same nodes. The weight atomics are one per
+// compositing sample into a 9.5 MB buffer that stays in L2.
 //
 // Arithmetic follows the plain PyTorch version (ops/render.py) operation
 // for operation, and the library is built with -fmad=false, so the sample
@@ -42,30 +48,6 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kMaxColor = 16;
-
-constexpr float C0 = 0.28209479177387814f;
-constexpr float C1 = 0.4886025119029199f;
-constexpr float C2_0 = 1.0925484305920792f;
-constexpr float C2_1 = -1.0925484305920792f;
-constexpr float C2_2 = 0.31539156525252005f;
-constexpr float C2_3 = -1.0925484305920792f;
-constexpr float C2_4 = 0.5462742152960396f;
-constexpr float C3_0 = -0.5900435899266435f;
-constexpr float C3_1 = 2.890611442640554f;
-constexpr float C3_2 = -0.4570457994644658f;
-constexpr float C3_3 = 0.3731763325901154f;
-constexpr float C3_4 = -0.4570457994644658f;
-constexpr float C3_5 = 1.445305721320277f;
-constexpr float C3_6 = -0.5900435899266435f;
-constexpr float C4_0 = 2.5033429417967046f;
-constexpr float C4_1 = -1.7701307697799304f;
-constexpr float C4_2 = 0.9461746957575601f;
-constexpr float C4_3 = -0.6690465435572892f;
-constexpr float C4_4 = 0.10578554691520431f;
-constexpr float C4_5 = -0.6690465435572892f;
-constexpr float C4_6 = 0.47308734787878004f;
-constexpr float C4_7 = -1.7701307697799304f;
-constexpr float C4_8 = 0.6258357354491761f;
 
 struct Params {
   const float* origins;
@@ -82,6 +64,9 @@ struct Params {
   int M;
   int D;
   const float* tmats;
+  const float* extra;
+  int ld_extra;
+  int basis_dim;
   int min_comp;
   int max_comp;
   int n_color;
@@ -91,65 +76,21 @@ struct Params {
   float stop_thresh;
   int max_steps;
   float* out;
+  float* waccum;
 };
 
-// SH basis of BD = (deg+1)^2 terms, windowed to [lo, hi]; expressions
-// keep the association order of ops/sh.py.
-template <int BD>
-__device__ __forceinline__ void sh_basis(float x, float y, float z, int lo,
-                                         int hi, float* b) {
-  b[0] = C0;
-  if constexpr (BD > 1) {
-    b[1] = -C1 * y;
-    b[2] = C1 * z;
-    b[3] = -C1 * x;
-  }
-  if constexpr (BD > 4) {
-    const float xx = x * x, yy = y * y, zz = z * z;
-    const float xy = x * y, yz = y * z, xz = x * z;
-    b[4] = C2_0 * xy;
-    b[5] = C2_1 * yz;
-    b[6] = C2_2 * (2.f * zz - xx - yy);
-    b[7] = C2_3 * xz;
-    b[8] = C2_4 * (xx - yy);
-    if constexpr (BD > 9) {
-      b[9] = C3_0 * y * (3.f * xx - yy);
-      b[10] = C3_1 * xy * z;
-      b[11] = C3_2 * y * (4.f * zz - xx - yy);
-      b[12] = C3_3 * z * (2.f * zz - 3.f * xx - 3.f * yy);
-      b[13] = C3_4 * x * (4.f * zz - xx - yy);
-      b[14] = C3_5 * z * (xx - yy);
-      b[15] = C3_6 * x * (xx - 3.f * yy);
-    }
-    if constexpr (BD > 16) {
-      b[16] = C4_0 * xy * (xx - yy);
-      b[17] = C4_1 * yz * (3.f * xx - yy);
-      b[18] = C4_2 * xy * (7.f * zz - 1.f);
-      b[19] = C4_3 * yz * (7.f * zz - 3.f);
-      b[20] = C4_4 * (zz * (35.f * zz - 30.f) + 3.f);
-      b[21] = C4_5 * xz * (7.f * zz - 3.f);
-      b[22] = C4_6 * (xx - yy) * (7.f * zz - 1.f);
-      b[23] = C4_7 * xz * (xx - 3.f * yy);
-      b[24] = C4_8 * (xx * (xx - 3.f * yy) - yy * (3.f * xx - yy));
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < BD; ++k) {
-    if (k < lo || k > hi) b[k] = 0.f;
-  }
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.f / (1.f + expf(-x));
-}
-
-// BD = 0: RGBA; BD in {1, 4, 9, 16, 25}: SH. kRot: per-voxel rotation of
-// the view direction by tmats[row][:3, :3].
-template <int BD, bool kRot>
+// FMT: svox::kRGBA / kSH / kSG / kASG. BD: basis capacity (0 for RGBA;
+// svox::basis_capacity). kRot: per-voxel rotation of the view direction by
+// tmats[row][:3, :3]. kWeights: accumulate weights into p.waccum (a
+// template parameter, so that the plain render keeps the leaf id out of
+// its live registers).
+template <int FMT, int BD, bool kRot, bool kWeights>
 __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params p) {
+  constexpr int kB = FMT == svox::kRGBA ? 1 : BD;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
   const int nc = p.n_color;
+  const int nb = FMT == svox::kSH ? BD : p.basis_dim;
   float* out = p.out + static_cast<size_t>(i) * (nc + 1);
 
   // Ray setup (render.py _ray_setup).
@@ -172,8 +113,11 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params p) {
   const float vx = p.vdirs[3 * i + 0];
   const float vy = p.vdirs[3 * i + 1];
   const float vz = p.vdirs[3 * i + 2];
-  float basis[BD > 0 ? BD : 1];
-  if constexpr (BD > 0 && !kRot) sh_basis<BD>(vx, vy, vz, p.min_comp, p.max_comp, basis);
+  float basis[kB];
+  if constexpr (FMT != svox::kRGBA && !kRot) {
+    svox::eval_basis<FMT, BD>(vx, vy, vz, p.extra, p.ld_extra, nb, p.min_comp,
+                              p.max_comp, basis);
+  }
 
   float acc[kMaxColor];
 #pragma unroll
@@ -197,28 +141,32 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params p) {
       if (sigma > p.sigma_thresh) {
         const float att = expf((-dt * ds) * sigma);
         const float weight = L * (1.f - att);
-        if constexpr (BD > 0 && kRot) {
+        if constexpr (FMT != svox::kRGBA && kRot) {
           const float* m = p.tmats + static_cast<size_t>(idx) * 16;
           const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
           const float ry = (m[4] * vx + m[5] * vy) + m[6] * vz;
           const float rz = (m[8] * vx + m[9] * vy) + m[10] * vz;
-          sh_basis<BD>(rx, ry, rz, p.min_comp, p.max_comp, basis);
+          svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb,
+                                    p.min_comp, p.max_comp, basis);
         }
 #pragma unroll
         for (int c = 0; c < kMaxColor; ++c) {
           if (c < nc) {
             float s;
-            if constexpr (BD == 0) {
+            if constexpr (FMT == svox::kRGBA) {
               s = __ldg(row + c);
             } else {
-              const float* coef = row + c * BD;
+              const float* coef = row + c * nb;
               s = basis[0] * __ldg(coef);
 #pragma unroll
-              for (int k = 1; k < BD; ++k) s = s + basis[k] * __ldg(coef + k);
+              for (int k = 1; k < kB; ++k) {
+                if (k < nb) s = s + basis[k] * __ldg(coef + k);
+              }
             }
-            acc[c] = acc[c] + weight * sigmoid(s);
+            acc[c] = acc[c] + weight * svox::sigmoid(s);
           }
         }
+        if constexpr (kWeights) atomicAdd(p.waccum + leaf.flat, weight);
         L = L * att;
         if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
           stopped = true;
@@ -243,48 +191,67 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params p) {
   out[nc] = 1.f - L;
 }
 
-template <int BD>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <int FMT, int BD, bool kRot>
+cudaError_t launch_weights(const Params& p, cudaStream_t stream) {
   const dim3 grid((p.B + kThreads - 1) / kThreads);
-  if constexpr (BD > 0) {
-    if (p.tmats != nullptr) {
-      render_fwd_kernel<BD, true><<<grid, kThreads, 0, stream>>>(p);
-      return cudaGetLastError();
-    }
+  if (p.waccum != nullptr) {
+    render_fwd_kernel<FMT, BD, kRot, true><<<grid, kThreads, 0, stream>>>(p);
+  } else {
+    render_fwd_kernel<FMT, BD, kRot, false><<<grid, kThreads, 0, stream>>>(p);
   }
-  render_fwd_kernel<BD, false><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <int FMT, int BD>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  if constexpr (FMT != svox::kRGBA) {
+    if (p.tmats != nullptr) return launch_weights<FMT, BD, true>(p, stream);
+  }
+  return launch_weights<FMT, BD, false>(p, stream);
+}
+
+// Basis instances hold 1, 4, 9, 16 or 25 terms (svox::basis_capacity).
+template <int FMT>
+cudaError_t launch_basis(const Params& p, cudaStream_t stream) {
+  switch (svox::basis_capacity(FMT, p.basis_dim)) {
+    case 1: return launch<FMT, 1>(p, stream);
+    case 4: return launch<FMT, 4>(p, stream);
+    case 9: return launch<FMT, 9>(p, stream);
+    case 16: return launch<FMT, 16>(p, stream);
+    case 25: return launch<FMT, 25>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // Rays (B, 3) f32: origins, dirs, vdirs (world space); child/data
 // (capacity * N^3,) i32; offset/scaling (3,) f32; features (M, D) f32;
-// tmats (M, 4, 4) f32 or null; out (B, n_color + 1) f32. basis_dim 0
-// means RGBA. All pointers are device pointers. Returns a cudaError_t.
+// tmats (M, 4, 4) f32 or null; extra (basis_dim, ld_extra) f32 for SG/ASG
+// (else null); out (B, n_color + 1) f32; waccum (capacity * N^3,) f32 or
+// null. format: 0 RGBA, 1 SH, 2 SG, 3 ASG. All pointers are device
+// pointers. Returns a cudaError_t.
 extern "C" int svox_render_fwd(
     const float* origins, const float* dirs, const float* vdirs, int B,
     const int32_t* child, const int32_t* data, int N, int n_levels,
     const float* offset, const float* scaling, const float* features, int M,
-    int D, const float* tmats, int basis_dim, int min_comp, int max_comp,
-    int n_color, float step_size, float bg, float sigma_thresh,
-    float stop_thresh, int max_steps, float* out, int device,
-    cudaStream_t stream) {
+    int D, const float* tmats, int format, const float* extra, int ld_extra,
+    int basis_dim, int min_comp, int max_comp, int n_color, float step_size,
+    float bg, float sigma_thresh, float stop_thresh, int max_steps,
+    float* out, float* waccum, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B <= 0) return cudaSuccess;
   if (n_color < 0 || n_color > kMaxColor) return cudaErrorInvalidValue;
   const Params p{origins, dirs, vdirs, B, child, data, N, n_levels,
-                 offset, scaling, features, M, D, tmats, min_comp, max_comp,
-                 n_color, step_size, bg, sigma_thresh, stop_thresh, max_steps,
-                 out};
-  switch (basis_dim) {
-    case 0: return launch<0>(p, stream);
-    case 1: return launch<1>(p, stream);
-    case 4: return launch<4>(p, stream);
-    case 9: return launch<9>(p, stream);
-    case 16: return launch<16>(p, stream);
-    case 25: return launch<25>(p, stream);
+                 offset, scaling, features, M, D, tmats, extra, ld_extra,
+                 basis_dim, min_comp, max_comp, n_color, step_size, bg,
+                 sigma_thresh, stop_thresh, max_steps, out, waccum};
+  switch (format) {
+    case svox::kRGBA: return launch<svox::kRGBA, 0>(p, stream);
+    case svox::kSH: return launch_basis<svox::kSH>(p, stream);
+    case svox::kSG: return launch_basis<svox::kSG>(p, stream);
+    case svox::kASG: return launch_basis<svox::kASG>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,20 +1,23 @@
 """VolumeRenderer — the user-facing renderer, the counterpart of
-`svox_t_tpu/models/renderer.py` for the serving path:
+`svox_t_tpu/models/renderer.py` for the serving and training paths:
 
   forward(features, rays, transformation_matrices=None, fast=False)
   render_persp(features, c2w, width, height, fx, fy, fast=False)
 
-`fast=True` sets sigma_thresh = stop_thresh = 1e-2; the attribute
-overrides ``self.sigma_thresh`` / ``self.stop_thresh`` are honored.
-Rendering runs on the device of the tree and the feature pool: on CUDA
-through the forward-march kernel, on the CPU through its plain version.
+Both are differentiable with respect to ``features``. `fast=True` sets
+sigma_thresh = stop_thresh = 1e-2; the attribute overrides
+``self.sigma_thresh`` / ``self.stop_thresh`` are honored. Rendering runs
+on the device of the tree and the feature pool: on CUDA through the
+forward- and backward-march kernels, on the CPU through their plain
+versions. Inside ``tree.accumulate_weights()`` every render also adds
+its per-leaf weights to the tree's accumulator.
 
 This package walks the octree (``backend="tree"``), whose exact outputs
 equal the JAX package's baked backend. The baked structure, trilinear
-interpolation, quantized pools and weight accumulation raise
-NotImplementedError until the ROADMAP items that bring them land. Image
-renders march rays in pixel order: the JAX package's tile and cost
-orders only schedule work and do not change the image.
+interpolation and quantized pools raise NotImplementedError until the
+ROADMAP items that bring them land. Image renders march rays in pixel
+order: the JAX package's tile and cost orders only schedule work and do
+not change the image.
 """
 
 from __future__ import annotations
@@ -105,32 +108,35 @@ class VolumeRenderer(nn.Module):
         if self.max_comp < 0:
             self.max_comp += self.data_format.basis_dim
 
-    def _check_serving(self):
-        if self.tree._weight_accum is not None:
-            raise NotImplementedError(
-                "weight accumulation waits for ROADMAP.md §1 item 9 (WeightAccumulator)"
-            )
+    def _render(self, spec, features, origins, dirs, vdirs, opt):
+        """Render, adding per-leaf weights into an active accumulator."""
+        if self.tree._weight_accum is None:
+            return render_ops.volume_render(spec, features, origins, dirs, vdirs, opt)
+        out, waccum = render_ops.volume_render_with_weight_accum(
+            spec, features, origins, dirs, vdirs, opt
+        )
+        self.tree._weight_accum.add_(waccum.reshape(self.tree._weight_accum.shape))
+        return out
 
     def forward(self, features, rays: Rays, transformation_matrices=None,
                 cuda=True, fast=False):
-        """Render a batch of rays, forward only.
+        """Render a batch of rays; differentiable with respect to
+        ``features``.
 
         :param rays: Rays(origins (B,3), dirs (B,3), viewdirs (B,3)) on the
             tree's device
         :return: (B, n_color + 1) colors + alpha
         """
         del cuda
-        self._check_serving()
         spec = self.tree._spec(transformation_matrices)
-        return render_ops.volume_render(
-            spec, features, rays.origins, rays.dirs, rays.viewdirs,
-            self._get_options(fast),
-        )
+        return self._render(spec, features, rays.origins, rays.dirs,
+                            rays.viewdirs, self._get_options(fast))
 
     def render_persp(self, features, c2w, width=800, height=800,
                      fx=1111.111, fy=None, cuda=True, fast=False,
                      schedule="tile"):
-        """Render a perspective image, forward only.
+        """Render a perspective image; differentiable with respect to
+        ``features``.
 
         :param c2w: (3,4) or (4,4) camera-to-world matrix
         :param schedule: "tile" or "cost"; both render the same image, and
@@ -140,7 +146,6 @@ class VolumeRenderer(nn.Module):
         del cuda
         if schedule not in ("tile", "cost"):
             raise ValueError(f"unknown schedule {schedule!r}")
-        self._check_serving()
         if fy is None:
             fy = fx
         opt = self._get_options(fast)
@@ -150,10 +155,8 @@ class VolumeRenderer(nn.Module):
         vdirs = dirs
         if opt.ndc_width >= 0:
             dirs, origins = render_ops.world2ndc(opt, dirs, origins)
-        out = render_ops.volume_render(
-            self.tree._spec(), features, origins.contiguous(), dirs.contiguous(),
-            vdirs, opt,
-        )
+        out = self._render(self.tree._spec(), features, origins.contiguous(),
+                           dirs.contiguous(), vdirs, opt)
         return out.reshape(int(height), int(width), -1)
 
     def _get_options(self, fast=False) -> RenderOptions:

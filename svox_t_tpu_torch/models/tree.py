@@ -1,6 +1,6 @@
 """N^3-branching sparse voxel octree with an indirected feature pool: the
-counterpart of `svox_t_tpu/models/tree.py`, as far as the serving path
-needs it.
+counterpart of `svox_t_tpu/models/tree.py`, as far as the serving and
+training paths need it.
 
 The tree is three separate arrays, as in the JAX package: structure
 (`child`, `parent_depth`), an int32 index table (`data`) and a dense
@@ -9,7 +9,9 @@ feature pool that the caller passes to every render. Structure edits
 the index table on ``device`` and leaves it there until a structure edit
 needs it on the host. `.npz` files are interchangeable with the JAX
 package's `save`/`load`, including legacy files whose `data` holds float
-leaf features.
+leaf features. `forward` is the differentiable point query, and
+`accumulate_weights` collects per-leaf render weights while it locks the
+structure.
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ class N3Tree:
         self.data_format = DataFormat(data_format) if data_format is not None else None
         self.extra_data = extra_data
         self._weight_accum = None
+        self._lock_tree_structure = False
         self._invalidate()
         self.filled = self._n_internal
         self.refine(repeats=init_refine)
@@ -156,6 +159,48 @@ class N3Tree:
         self._cached_spec = spec.with_(data_flat=new_data_flat)
 
     # ------------------------------------------------------------------
+    # Differentiable point query
+
+    def forward(self, features, indices, cuda=True, want_node_ids=False,
+                world=True, want_data_ids=False, want_leaf_node=False):
+        """Differentiable point query of ``features`` (M, D) at (Q, 3)
+        points, on ``device``.
+
+        :return: values (Q, D); plus packed node ids and/or data ids when
+            requested. Empty leaves give zero values.
+        """
+        del cuda
+        if want_leaf_node:
+            raise NotImplementedError(
+                "want_leaf_node needs unique_leaf_nodes, which waits for the "
+                "rest of K8b (ROADMAP.md §2)"
+            )
+        indices = torch.as_tensor(indices, dtype=torch.float32, device=self.device)
+        if indices.ndim != 2:
+            raise ValueError(f"indices must be (Q, 3), got {tuple(indices.shape)}")
+        values, node_ids, data_ids = query_ops.query(self._spec(), features, indices, world)
+        if not (want_node_ids or want_data_ids):
+            return values
+        ret = [values]
+        if want_node_ids:
+            ret.append(node_ids)
+        if want_data_ids:
+            ret.append(data_ids)
+        return ret
+
+    def __call__(self, *args, **kwargs):
+        return self.forward(*args, **kwargs)
+
+    def accumulate_weights(self):
+        """Context manager collecting per-leaf render contribution
+        weights; see `WeightAccumulator`."""
+        return WeightAccumulator(self)
+
+    def _check_unlocked(self):
+        if self._lock_tree_structure:
+            raise RuntimeError("Tree locked")
+
+    # ------------------------------------------------------------------
     # Refinement & memory management
 
     def _node_cells(self, nodes: np.ndarray) -> np.ndarray:
@@ -182,6 +227,7 @@ class N3Tree:
         :param leaf_node: optional (L, 4) array equivalent of `sel`.
         :return: True iff buffers were resized.
         """
+        self._check_unlocked()
         self._ensure_host_data()
         resized = False
         mutated = False
@@ -230,6 +276,7 @@ class N3Tree:
     def shrink_to_fit(self):
         """Defragment and trim the node buffers to the live node count.
         Returns True if the buffers changed."""
+        self._check_unlocked()
         self._ensure_host_data()
         n_nodes = self.n_internal
         live = n_nodes - self._n_free
@@ -411,3 +458,40 @@ class N3Tree:
             f"capacity:{self.n_internal - self._n_free}/{self.capacity}, "
             f"data_format:{self.data_format or 'RGBA'}, device={self.device})"
         )
+
+
+class WeightAccumulator:
+    """Context manager for per-leaf render weight accumulation. While it
+    is active the tree's structure is locked (`refine` and
+    `shrink_to_fit` raise), and every `VolumeRenderer.forward` and
+    `render_persp` adds each compositing sample's weight to its leaf
+    cell."""
+
+    def __init__(self, tree: N3Tree):
+        self.tree = tree
+        self.weight_accum = None
+
+    def __enter__(self):
+        self.tree._lock_tree_structure = True
+        self.tree._weight_accum = torch.zeros(
+            self.tree._child.shape, dtype=torch.float32, device=self.tree.device
+        )
+        return self
+
+    def __exit__(self, type, value, traceback):
+        self.weight_accum = self.tree._weight_accum
+        self.tree._weight_accum = None
+        self.tree._lock_tree_structure = False
+
+    @property
+    def value(self) -> torch.Tensor:
+        """(capacity, N, N, N) summed weights per cell."""
+        wa = self.tree._weight_accum
+        return wa if wa is not None else self.weight_accum
+
+    def __call__(self) -> torch.Tensor:
+        """(n_leaves,) summed weights, one per leaf in `_all_leaves()`
+        order (the order of the JAX package's ``t[:].aux``)."""
+        leaves = torch.as_tensor(self.tree._all_leaves(), dtype=torch.long,
+                                 device=self.value.device)
+        return self.value[leaves[:, 0], leaves[:, 1], leaves[:, 2], leaves[:, 3]]

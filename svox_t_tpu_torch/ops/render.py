@@ -1,36 +1,47 @@
-"""Volume rendering over the sparse voxel octree, forward only: the
-counterpart of `svox_t_tpu/ops/render.py`.
+"""Volume rendering over the sparse voxel octree, forward and backward:
+the counterpart of `svox_t_tpu/ops/render.py`.
 
-`volume_render` dispatches on the device of its tensors. On CUDA it
-launches the forward-march kernel (`csrc/render_fwd.cu`) or raises; on
-the CPU it runs `volume_render_plain`, a step loop vectorized over rays
-that the kernel follows operation for operation. The march semantics are
-the JAX package's, sample for sample:
+`volume_render` and `volume_render_with_weight_accum` are differentiable
+with respect to the feature pool (`torch.autograd.Function`s, the
+counterparts of the JAX package's two `custom_vjp`s). Every op dispatches
+on the device of its tensors: on CUDA it launches its kernel
+(`csrc/render_fwd.cu`, `csrc/render_bwd.cu`) or raises; on the CPU it
+runs its plain PyTorch version, a step loop vectorized over rays that the
+kernel follows operation for operation. The march semantics are the JAX
+package's, sample for sample:
 
   * ray setup: ``o = world2tree(origins)``, unit tree-space dirs and
     ``delta_scale`` (`get_delta_scale`), ``invdir = 1/(d + 1e-9)``, unit
     cube DDA; a ray hits unless ``tmax < 0`` or ``tmin > tmax``;
-  * a hit ray takes its first sample at ``tmin`` (even if tmin == tmax),
-    then ``t += delta_t`` and stays active while ``t < tmax``, for at
-    most ``max_steps`` samples;
+  * forward: a hit ray takes its first sample at ``tmin`` (even if
+    tmin == tmax), then ``t += delta_t`` and stays active while
+    ``t < tmax``, for at most ``max_steps`` samples;
   * ``delta_t = (sub_tmax - sub_tmin) / cube_sz + step_size`` from the
     in-leaf DDA; rows >= M are empty space (sigma 0);
-  * a sample composites only if ``sigma > sigma_thresh``:
+  * a forward sample composites only if ``sigma > sigma_thresh``:
     ``att = exp(-dt * delta_scale * sigma)``, ``weight = L * (1 - att)``;
+    with weight accumulation, that weight is added to the sample's leaf
+    cell;
   * colors are ``sigmoid(feat[:n_color])`` (RGBA) or
-    ``sigmoid(sum_k basis_k * feat[c * basis_dim + k])`` with the basis
-    from the view direction, windowed to [min_comp, max_comp], rotated
-    per voxel by ``transformation_matrices[row][:3, :3]`` when given;
+    ``sigmoid(sum_k basis_k * feat[c * basis_dim + k])`` with the SH, SG
+    or ASG basis from the view direction, windowed to
+    [min_comp, max_comp], rotated per voxel by
+    ``transformation_matrices[row][:3, :3]`` when given;
   * early stop (``stop_thresh > 0``): the sample that brings L to or
     below the threshold counts, then colors scale by ``1/(1 - L)`` and
     no background is added;
   * a missed ray is background with alpha 0; any other ray gets
-    ``out + L * bg`` and alpha ``1 - L``.
+    ``out + L * bg`` and alpha ``1 - L``;
+  * the backward marches under its own rules (see
+    `volume_render_backward_plain`): samples while ``t < tmax``, a
+    sample contributes where ``sigma > 0`` whatever ``sigma_thresh`` is,
+    no early stop; one pass in exact mode with the forward output, two
+    passes otherwise.
 
-The JAX package forms L as a per-round cumulative product while this
-port multiplies per sample, so the two agree to a few ulps, not bit for
-bit. Rendering is forward only in this package: a feature pool that
-requires grad raises until the backward march (K3) lands.
+The JAX package forms L as a per-round cumulative product and scatters
+gradients deterministically, while this port multiplies per sample and
+the kernels add gradients with float atomics, so the two agree to a few
+ulps, not bit for bit.
 """
 
 from __future__ import annotations
@@ -41,22 +52,36 @@ import numpy as np
 import torch
 
 from .._build import Kernel
-from ..utils.spec import (FORMAT_RGBA, FORMAT_SH, RenderOptions, TreeSpec,
-                          get_out_data_dim)
+from ..utils.spec import (FORMAT_ASG, FORMAT_RGBA, FORMAT_SG, FORMAT_SH,
+                          RenderOptions, TreeSpec, get_out_data_dim)
 from .sh import SH_DIM_TO_DEG, eval_basis
 from .traversal import dda_unit, descend, get_delta_scale, world2tree
 
+# Arguments the two march kernels share, in order.
+_MARCH_ARGS = [
+    c_void_p, c_void_p, c_void_p, c_int,            # origins, dirs, vdirs, B
+    c_void_p, c_void_p, c_int, c_int,               # child, data, N, n_levels
+    c_void_p, c_void_p, c_void_p, c_int, c_int,     # offset, scaling, features, M, D
+    c_void_p, c_int, c_void_p, c_int,               # tmats, format, extra, ld_extra
+    c_int, c_int, c_int, c_int,                     # basis_dim, min/max_comp, n_color
+    c_float, c_float,                               # step, bg
+]
 RENDER_FWD = Kernel(
     "svox_render_fwd",
-    [c_void_p, c_void_p, c_void_p, c_int,            # origins, dirs, vdirs, B
-     c_void_p, c_void_p, c_int, c_int,               # child, data, N, n_levels
-     c_void_p, c_void_p, c_void_p, c_int, c_int,     # offset, scaling, features, M, D
-     c_void_p, c_int, c_int, c_int, c_int,           # tmats, basis_dim, min/max_comp, n_color
-     c_float, c_float, c_float, c_float, c_int,      # step, bg, sigma/stop thresh, max_steps
-     c_void_p, c_int, c_void_p],                     # out, device, stream
+    _MARCH_ARGS + [c_float, c_float, c_int,         # sigma/stop thresh, max_steps
+                   c_void_p, c_void_p, c_int, c_void_p],  # out, waccum, device, stream
 )
-# Color channels the kernel accumulates in registers.
+RENDER_BWD = Kernel(
+    "svox_render_bwd",
+    _MARCH_ARGS + [c_int,                           # max_steps
+                   c_void_p, c_void_p, c_void_p,    # grad_out, out_res, grad
+                   c_int, c_void_p],                # device, stream
+)
+# Color channels the kernels hold in registers, and the largest basis.
 KERNEL_MAX_COLORS = 16
+KERNEL_MAX_BASIS = 25
+# Columns of an extra_data row that SG and ASG read.
+_EXTRA_WIDTH = {FORMAT_SG: 4, FORMAT_ASG: 11}
 
 
 def _basis_window(opt: RenderOptions) -> np.ndarray:
@@ -89,12 +114,6 @@ def _check_supported(spec: TreeSpec, features, origins, dirs, vdirs,
         raise NotImplementedError(
             "sharded rendering waits for ROADMAP.md §1 item 17"
         )
-    if features.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "volume_render is forward only: the backward march (K3) lands "
-            "next as a torch.autograd.Function with a kernel backward; "
-            "render under torch.no_grad() or detach the features"
-        )
     if features.ndim != 2:
         raise ValueError(f"features must be (M, D), got {tuple(features.shape)}")
     for name, r in (("origins", origins), ("dirs", dirs), ("vdirs", vdirs)):
@@ -105,22 +124,115 @@ def _check_supported(spec: TreeSpec, features, origins, dirs, vdirs,
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
 
 
+def _check_ray_grads(features, opt: RenderOptions, origins, grad_out, out_res):
+    n_out = get_out_data_dim(opt.format, opt.basis_dim, features.shape[1])
+    for name, g in (("grad_out", grad_out), ("out_res", out_res)):
+        if g is not None and tuple(g.shape) != (origins.shape[0], n_out):
+            raise ValueError(f"{name} must be (B, {n_out}), got {tuple(g.shape)}")
+        if g is not None and g.device != features.device:
+            raise ValueError(f"{name} on {g.device}, features on {features.device}")
+
+
 def volume_render(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
                   dirs: torch.Tensor, vdirs: torch.Tensor,
                   opt: RenderOptions) -> torch.Tensor:
-    """Per-ray volume render, forward only.
+    """Per-ray volume render, differentiable with respect to ``features``.
 
     :return: (B, n_color + 1) colors + alpha.
     """
-    _check_supported(spec, features, origins, dirs, vdirs, opt)
-    if features.is_cuda:
-        return volume_render_cuda(spec, features, origins, dirs, vdirs, opt)
-    return volume_render_plain(spec, features, origins, dirs, vdirs, opt)
+    return _VolumeRenderFn.apply(spec, features, origins, dirs, vdirs, opt)
+
+
+def volume_render_with_weight_accum(spec: TreeSpec, features: torch.Tensor,
+                                    origins: torch.Tensor, dirs: torch.Tensor,
+                                    vdirs: torch.Tensor, opt: RenderOptions):
+    """Render that also returns the summed compositing weight of every
+    leaf cell. Differentiable with respect to ``features`` through the
+    colors; the weights carry no gradient.
+
+    :return: (out (B, n_color + 1), waccum (capacity * N^3,) float32)
+    """
+    return _VolumeRenderWeightsFn.apply(spec, features, origins, dirs, vdirs, opt)
+
+
+def volume_render_backward(spec: TreeSpec, features: torch.Tensor,
+                           origins: torch.Tensor, dirs: torch.Tensor,
+                           vdirs: torch.Tensor, grad_out: torch.Tensor,
+                           opt: RenderOptions, out_res=None) -> torch.Tensor:
+    """Gradient of a render with respect to the feature pool, (M, D).
+
+    With ``out_res`` (the forward output) and exact options
+    (``sigma_thresh == 0``, ``stop_thresh <= 0``) the backward takes one
+    pass; otherwise two.
+    """
+    if origins.is_cuda:
+        return volume_render_backward_cuda(spec, features, origins, dirs, vdirs,
+                                           grad_out, opt, out_res)
+    return volume_render_backward_plain(spec, features, origins, dirs, vdirs,
+                                        grad_out, opt, out_res)
+
+
+def _render(spec, features, origins, dirs, vdirs, opt, want_weights):
+    if origins.is_cuda:
+        return _march_cuda(spec, features, origins, dirs, vdirs, opt, want_weights)
+    return _march_plain(spec, features, origins, dirs, vdirs, opt, want_weights)
+
+
+def _grad_features(ctx, grad_out):
+    """Backward of both render Functions: the feature-pool gradient
+    under the spec and options captured at forward time."""
+    if not ctx.needs_input_grad[1]:
+        return None
+    features, origins, dirs, vdirs, out = ctx.saved_tensors
+    return volume_render_backward(ctx.spec, features, origins, dirs, vdirs,
+                                  grad_out.contiguous(), ctx.opt, out_res=out)
+
+
+class _VolumeRenderFn(torch.autograd.Function):
+    """`volume_render` with its backward march (JAX: `volume_render`'s
+    custom_vjp). The spec, rays and options get no gradient."""
+
+    @staticmethod
+    def forward(ctx, spec, features, origins, dirs, vdirs, opt):
+        out, _ = _render(spec, features, origins, dirs, vdirs, opt, False)
+        ctx.save_for_backward(features, origins, dirs, vdirs, out)
+        ctx.spec, ctx.opt = spec, opt
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return None, _grad_features(ctx, grad_out), None, None, None, None
+
+
+class _VolumeRenderWeightsFn(torch.autograd.Function):
+    """`volume_render_with_weight_accum` (JAX: its custom_vjp): the
+    weights are not differentiable."""
+
+    @staticmethod
+    def forward(ctx, spec, features, origins, dirs, vdirs, opt):
+        out, waccum = _render(spec, features, origins, dirs, vdirs, opt, True)
+        ctx.mark_non_differentiable(waccum)
+        ctx.save_for_backward(features, origins, dirs, vdirs, out)
+        ctx.spec, ctx.opt = spec, opt
+        return out, waccum
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_waccum):
+        del grad_waccum
+        return None, _grad_features(ctx, grad_out), None, None, None, None
 
 
 def _sigmoid(x):
     # Written out as the kernel writes it.
     return 1.0 / (1.0 + torch.exp(-x))
+
+
+def _sum_cols(x):
+    """Row sums over the last axis, column by column, as the kernels sum."""
+    s = x[:, 0]
+    for c in range(1, x.shape[1]):
+        s = s + x[:, c]
+    return s
 
 
 def _colors(feat, basis, opt: RenderOptions, n_color: int):
@@ -147,25 +259,55 @@ def _rotated_basis(spec: TreeSpec, opt: RenderOptions, vdirs, rows, window):
     return eval_basis(opt.format, opt.basis_dim, rd, spec.extra_data) * window
 
 
+class _Basis:
+    """Per-ray basis, or per-sample when per-voxel matrices rotate the
+    view direction (None for RGBA)."""
+
+    def __init__(self, spec: TreeSpec, opt: RenderOptions, vdirs):
+        self.spec, self.opt, self.vdirs = spec, opt, vdirs
+        rgba = opt.format == FORMAT_RGBA
+        self.rotate = not rgba and spec.transformation_matrices is not None
+        self.window = self.base = None
+        if not rgba:
+            self.window = torch.as_tensor(_basis_window(opt), device=vdirs.device)
+            if not self.rotate:
+                self.base = eval_basis(opt.format, opt.basis_dim, vdirs,
+                                       spec.extra_data) * self.window
+
+    def at(self, rows):
+        if self.rotate:
+            return _rotated_basis(self.spec, self.opt, self.vdirs, rows, self.window)
+        return self.base
+
+
 def volume_render_plain(spec: TreeSpec, features: torch.Tensor,
                         origins: torch.Tensor, dirs: torch.Tensor,
                         vdirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
     """Plain PyTorch version of the forward-march kernel: one sample per
     ray per iteration, vectorized over rays (SH, SG, ASG and RGBA)."""
+    return _march_plain(spec, features, origins, dirs, vdirs, opt, False)[0]
+
+
+def volume_render_with_weight_accum_plain(spec: TreeSpec, features: torch.Tensor,
+                                          origins: torch.Tensor, dirs: torch.Tensor,
+                                          vdirs: torch.Tensor, opt: RenderOptions):
+    """Plain PyTorch version of the weight-accumulating forward march:
+    (out, waccum)."""
+    return _march_plain(spec, features, origins, dirs, vdirs, opt, True)
+
+
+def _march_plain(spec, features, origins, dirs, vdirs, opt, want_weights):
+    _check_supported(spec, features, origins, dirs, vdirs, opt)
     B = origins.shape[0]
     M, D = features.shape
-    dev, dtype = origins.device, origins.dtype
+    dev = origins.device
+    dtype = torch.promote_types(features.dtype, origins.dtype)
     n_color = get_out_data_dim(opt.format, opt.basis_dim, D) - 1
     o, d, invdir, delta_scale, tmin, tmax, hit = _ray_setup(spec, origins, dirs)
-    rgba = opt.format == FORMAT_RGBA
-    rotate = not rgba and spec.transformation_matrices is not None
-    window = base_basis = None
-    if not rgba:
-        window = torch.as_tensor(_basis_window(opt), device=dev)
-        if not rotate:
-            base_basis = eval_basis(opt.format, opt.basis_dim, vdirs,
-                                    spec.extra_data) * window
+    basis = _Basis(spec, opt, vdirs)
     can_stop = opt.stop_thresh > 0.0
+    waccum = (torch.zeros(spec.child_flat.numel(), dtype=torch.float32, device=dev)
+              if want_weights else None)
 
     t = tmin
     L = torch.ones(B, dtype=dtype, device=dev)
@@ -187,10 +329,11 @@ def volume_render_plain(spec: TreeSpec, features: torch.Tensor,
         contrib = valid & (sigma > opt.sigma_thresh)
         att = torch.exp(-dt * delta_scale * sigma)
         weight = L * (1.0 - att)
-        basis = (_rotated_basis(spec, opt, vdirs, rows, window)
-                 if rotate else base_basis)
-        col = _colors(feat, basis, opt, n_color)
+        col = _colors(feat, basis.at(rows), opt, n_color)
         out_c = torch.where(contrib[:, None], out_c + weight[:, None] * col, out_c)
+        if want_weights:
+            waccum.index_add_(0, leaf.node_flat[contrib].long(),
+                              weight[contrib].to(waccum.dtype))
         L = torch.where(contrib, L * att, L)
         if can_stop:
             stop = contrib & (L <= opt.stop_thresh)
@@ -204,7 +347,111 @@ def volume_render_plain(spec: TreeSpec, features: torch.Tensor,
     out_c = torch.where(stopped[:, None], out_c, out_c + (L * bg)[:, None])
     out_c = torch.where(hit[:, None], out_c, torch.full_like(out_c, bg))
     alpha = torch.where(hit, 1.0 - L, torch.zeros_like(L))
-    return torch.cat([out_c, alpha[:, None]], dim=-1)
+    return torch.cat([out_c, alpha[:, None]], dim=-1), waccum
+
+
+def volume_render_backward_plain(spec: TreeSpec, features: torch.Tensor,
+                                 origins: torch.Tensor, dirs: torch.Tensor,
+                                 vdirs: torch.Tensor, grad_out: torch.Tensor,
+                                 opt: RenderOptions, out_res=None) -> torch.Tensor:
+    """Plain PyTorch version of the backward-march kernel: the gradient of
+    a render with respect to the feature pool, (M, D).
+
+    The backward marches under its own rules: a ray takes samples while
+    hit and ``t < tmax`` (a ray with tmin == tmax takes none), up to
+    ``max_steps``; a sample contributes where its row is < M and
+    ``sigma > 0``, whatever ``sigma_thresh`` is; there is no early stop.
+    Per contributing sample, with ``weight = L * (1 - att)``,
+    ``s`` the sigmoid colors and ``total_color = sum_c s_c g_c``:
+
+      * coefficient column ``c * basis_dim + k`` (RGBA: ``c``) gets
+        ``(weight * s_c (1 - s_c)) * g_c * basis_k``;
+      * column ``D - 1`` gets ``dt*ds * (total_color * L_after -
+        acc_after) + dt*ds * (g_alpha * L_ray)``; columns between get 0.
+
+    Single pass (``sigma_thresh == 0``, ``stop_thresh <= 0`` and
+    ``out_res`` given): ``acc`` starts at ``sum_c out_c g_c`` and falls by
+    ``weight * total_color`` per sample, ``L_ray = 1 - out_alpha``. Two
+    passes otherwise: pass 1 adds the coefficient rows and sums
+    ``accum``, then ``accum += L_ray * bg * sum_c g_c`` with ``L_ray``
+    pass 1's final L; pass 2 re-marches and adds the sigma column.
+    """
+    _check_supported(spec, features, origins, dirs, vdirs, opt)
+    _check_ray_grads(features, opt, origins, grad_out, out_res)
+    B = origins.shape[0]
+    M, D = features.shape
+    grad = torch.zeros(M, D, dtype=features.dtype, device=features.device)
+    if M == 0 or B == 0:
+        return grad
+    n_color = get_out_data_dim(opt.format, opt.basis_dim, D) - 1
+    rays = _ray_setup(spec, origins, dirs)
+    basis = _Basis(spec, opt, vdirs)
+    g = grad_out[:, :n_color]
+    g_alpha = grad_out[:, n_color]
+    march = dict(spec=spec, features=features, opt=opt, rays=rays, basis=basis,
+                 g=g, g_alpha=g_alpha, grad=grad)
+    if opt.sigma_thresh == 0.0 and opt.stop_thresh <= 0.0 and out_res is not None:
+        acc = _sum_cols(out_res[:, :n_color] * g)
+        _march_bwd_plain(**march, color=True, sigma=True, acc=acc,
+                         L_ray=1.0 - out_res[:, n_color])
+        return grad
+    L_ray, accum = _march_bwd_plain(**march, color=True, sigma=False,
+                                    acc=torch.zeros_like(g_alpha), L_ray=None)
+    accum = accum + (L_ray * opt.background_brightness) * _sum_cols(g)
+    _march_bwd_plain(**march, color=False, sigma=True, acc=accum, L_ray=L_ray)
+    return grad
+
+
+def _march_bwd_plain(spec, features, opt, rays, basis, g, g_alpha, grad,
+                     color, sigma, acc, L_ray):
+    """One backward march, adding into ``grad``. ``color``: coefficient
+    rows, with ``acc`` summed upward; ``sigma``: the sigma column, with
+    ``acc`` falling. Returns (final L, final acc)."""
+    o, d, invdir, delta_scale, tmin, tmax, hit = rays
+    M, D = features.shape
+    B = o.shape[0]
+    n_color = g.shape[1]
+    n_cc = n_color * opt.basis_dim if opt.format != FORMAT_RGBA else n_color
+    t = tmin
+    L = torch.ones(B, dtype=grad.dtype, device=grad.device)
+    for _ in range(opt.max_steps):
+        active = hit & (t < tmax)
+        if not bool(active.any()):
+            break
+        leaf = descend(spec, o + t[:, None] * d)
+        sub_tmin, sub_tmax = dda_unit(leaf.frac, invdir)
+        dt = (sub_tmax - sub_tmin) / leaf.cube_sz + opt.step_size
+        idx = leaf.data_idx
+        valid = active & (idx >= 0) & (idx < M)
+        rows = torch.where(valid, idx, 0).long()
+        feat = features[rows]
+        sig = torch.where(valid, feat[:, -1], 0.0)
+        contrib = valid & (sig > 0.0)
+        att = torch.exp(-dt * delta_scale * sig)
+        weight = L * (1.0 - att)
+        b = basis.at(rows)
+        s = _colors(feat, b, opt, n_color)
+        total_color = _sum_cols(s * g)
+        L_after = L * att
+        rows_full = torch.zeros(B, D, dtype=grad.dtype, device=grad.device)
+        if color:
+            a = (weight[:, None] * (s * (1.0 - s))) * g
+            if opt.format == FORMAT_RGBA:
+                rows_full[:, :n_cc] = a
+            else:
+                rows_full[:, :n_cc] = (a[:, :, None] * b[:, None, :]).reshape(B, n_cc)
+        if sigma:
+            acc_after = acc - weight * total_color
+            dts = dt * delta_scale
+            rows_full[:, D - 1] = (dts * (total_color * L_after - acc_after)
+                                   + dts * (g_alpha * L_ray))
+        else:
+            acc_after = acc + weight * total_color
+        grad.index_add_(0, rows[contrib], rows_full[contrib])
+        acc = torch.where(contrib, acc_after, acc)
+        L = torch.where(contrib, L_after, L)
+        t = torch.where(active, t + dt, t)
+    return L, acc
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -212,57 +459,125 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def volume_render_cuda(spec: TreeSpec, features: torch.Tensor,
-                       origins: torch.Tensor, dirs: torch.Tensor,
-                       vdirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
-    """Launch the forward-march kernel (csrc/render_fwd.cu): RGBA and SH
-    (basis_dim 1, 4, 9, 16, 25), exact and thresholded, with optional
-    per-voxel rotation matrices."""
+def _kernel_args(spec: TreeSpec, features, origins, dirs, vdirs,
+                 opt: RenderOptions, name: str):
+    """Check a march kernel's inputs and return (the shared leading
+    arguments of `_MARCH_ARGS`, n_color). The checks on formats and sizes
+    come first, then devices, types and layouts."""
     _check_supported(spec, features, origins, dirs, vdirs, opt)
-    if opt.format not in (FORMAT_RGBA, FORMAT_SH):
-        raise NotImplementedError(
-            "the forward-march kernel takes RGBA and SH; SG/ASG render "
-            "through volume_render_plain until their kernel lands"
-        )
-    if opt.format == FORMAT_SH and opt.basis_dim not in SH_DIM_TO_DEG:
+    fmt, bd = opt.format, opt.basis_dim
+    if fmt == FORMAT_SH and bd not in SH_DIM_TO_DEG:
         raise ValueError(f"SH basis_dim must be one of {sorted(SH_DIM_TO_DEG)}")
+    if fmt in (FORMAT_SG, FORMAT_ASG):
+        _require(1 <= bd <= KERNEL_MAX_BASIS, f"SG/ASG basis_dim must be in [1, {KERNEL_MAX_BASIS}]")
+        ex = spec.extra_data
+        _require(ex is not None and ex.ndim == 2 and ex.shape[0] >= bd
+                 and ex.shape[1] >= _EXTRA_WIDTH[fmt],
+                 f"SG/ASG need extra_data of at least ({bd}, {_EXTRA_WIDTH[fmt]})")
+    elif fmt not in (FORMAT_RGBA, FORMAT_SH):
+        raise ValueError(f"unknown format {fmt}")
+    B = origins.shape[0]
+    M, D = features.shape
+    n_color = get_out_data_dim(fmt, bd, D) - 1
+    if n_color > KERNEL_MAX_COLORS:
+        raise NotImplementedError(
+            f"the march kernels take at most {KERNEL_MAX_COLORS} color channels, got {n_color}"
+        )
     rays = (origins, dirs, vdirs)
     tables = (spec.child_flat, spec.data_flat, spec.offset, spec.scaling)
     dev = features.device
     for t in (features, *rays, *tables):
-        _require(t.is_cuda and t.device == dev, "volume_render_cuda needs all tensors on one CUDA device")
-        _require(t.is_contiguous(), "volume_render_cuda needs contiguous tensors")
+        _require(t.is_cuda and t.device == dev, f"{name} needs all tensors on one CUDA device")
+        _require(t.is_contiguous(), f"{name} needs contiguous tensors")
     for t in (features, *rays, spec.offset, spec.scaling):
         _require(t.dtype == torch.float32, "rays, features, offset and scaling must be float32")
     for t in tables[:2]:
         _require(t.dtype == torch.int32, "child/data tables must be int32")
-    B = origins.shape[0]
-    M, D = features.shape
     _require(B < 2 ** 31 and spec.child_flat.numel() < 2 ** 31, "too many rays or cells")
-    n_color = get_out_data_dim(opt.format, opt.basis_dim, D) - 1
-    if n_color > KERNEL_MAX_COLORS:
-        raise NotImplementedError(
-            f"the forward-march kernel takes at most {KERNEL_MAX_COLORS} color channels"
-        )
-    tm = spec.transformation_matrices if opt.format == FORMAT_SH else None
+    tm = spec.transformation_matrices if fmt != FORMAT_RGBA else None
     if tm is not None:
         _require(tm.is_cuda and tm.device == dev and tm.is_contiguous()
                  and tm.dtype == torch.float32, "transformation_matrices must be contiguous float32 on the features' device")
         _require(tm.ndim == 3 and tuple(tm.shape[1:]) == (4, 4) and tm.shape[0] >= M,
                  "transformation_matrices must be (M, 4, 4)")
-    out = torch.empty(B, n_color + 1, dtype=torch.float32, device=dev)
-    RENDER_FWD(
+    ex = spec.extra_data if fmt in (FORMAT_SG, FORMAT_ASG) else None
+    if ex is not None:
+        _require(ex.is_cuda and ex.device == dev and ex.is_contiguous()
+                 and ex.dtype == torch.float32, "extra_data must be contiguous float32 on the features' device")
+    args = (
         origins.data_ptr(), dirs.data_ptr(), vdirs.data_ptr(), B,
         spec.child_flat.data_ptr(), spec.data_flat.data_ptr(), spec.N, spec.n_levels,
         spec.offset.data_ptr(), spec.scaling.data_ptr(), features.data_ptr(), M, D,
-        None if tm is None else tm.data_ptr(),
-        0 if opt.format == FORMAT_RGBA else opt.basis_dim,
-        opt.min_comp, opt.max_comp, n_color,
-        opt.step_size, opt.background_brightness, opt.sigma_thresh,
-        opt.stop_thresh, opt.max_steps,
-        out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        None if tm is None else tm.data_ptr(), fmt,
+        None if ex is None else ex.data_ptr(), 0 if ex is None else ex.shape[1],
+        0 if fmt == FORMAT_RGBA else bd, opt.min_comp, opt.max_comp, n_color,
+        opt.step_size, opt.background_brightness,
     )
-    return out
+    return args, n_color
+
+
+def _stream(dev: torch.device):
+    return dev.index, torch.cuda.current_stream(dev).cuda_stream
+
+
+def volume_render_cuda(spec: TreeSpec, features: torch.Tensor,
+                       origins: torch.Tensor, dirs: torch.Tensor,
+                       vdirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
+    """Launch the forward-march kernel (csrc/render_fwd.cu): RGBA, SH
+    (basis_dim 1, 4, 9, 16, 25), SG and ASG (basis_dim 1-25), exact and
+    thresholded, with optional per-voxel rotation matrices."""
+    return _march_cuda(spec, features, origins, dirs, vdirs, opt, False)[0]
+
+
+def volume_render_with_weight_accum_cuda(spec: TreeSpec, features: torch.Tensor,
+                                         origins: torch.Tensor, dirs: torch.Tensor,
+                                         vdirs: torch.Tensor, opt: RenderOptions):
+    """Launch the forward-march kernel with weight accumulation:
+    (out, waccum (capacity * N^3,))."""
+    return _march_cuda(spec, features, origins, dirs, vdirs, opt, True)
+
+
+def _march_cuda(spec, features, origins, dirs, vdirs, opt, want_weights):
+    args, n_color = _kernel_args(spec, features, origins, dirs, vdirs, opt,
+                                 "volume_render_cuda")
+    dev = features.device
+    out = torch.empty(origins.shape[0], n_color + 1, dtype=torch.float32, device=dev)
+    waccum = (torch.zeros(spec.child_flat.numel(), dtype=torch.float32, device=dev)
+              if want_weights else None)
+    if out.shape[0] == 0:
+        return out, waccum
+    RENDER_FWD(
+        *args, opt.sigma_thresh, opt.stop_thresh, opt.max_steps,
+        out.data_ptr(), None if waccum is None else waccum.data_ptr(), *_stream(dev),
+    )
+    return out, waccum
+
+
+def volume_render_backward_cuda(spec: TreeSpec, features: torch.Tensor,
+                                origins: torch.Tensor, dirs: torch.Tensor,
+                                vdirs: torch.Tensor, grad_out: torch.Tensor,
+                                opt: RenderOptions, out_res=None) -> torch.Tensor:
+    """Launch the backward-march kernel (csrc/render_bwd.cu) into a zeroed
+    (M, D) gradient; single pass when `volume_render_backward_plain`
+    takes one. An empty pool or ray batch returns zeros without a launch."""
+    args, n_color = _kernel_args(spec, features, origins, dirs, vdirs, opt,
+                                 "volume_render_backward_cuda")
+    _check_ray_grads(features, opt, origins, grad_out, out_res)
+    single = opt.sigma_thresh == 0.0 and opt.stop_thresh <= 0.0 and out_res is not None
+    for t in (grad_out, out_res if single else None):
+        if t is not None:
+            _require(t.is_contiguous() and t.dtype == torch.float32,
+                     "grad_out and out_res must be contiguous float32")
+    M, D = features.shape
+    dev = features.device
+    grad = torch.zeros(M, D, dtype=torch.float32, device=dev)
+    if M == 0 or origins.shape[0] == 0:
+        return grad
+    RENDER_BWD(
+        *args, opt.max_steps, grad_out.data_ptr(),
+        out_res.data_ptr() if single else None, grad.data_ptr(), *_stream(dev),
+    )
+    return grad
 
 
 def cam2world_rays(c2w, width: int, height: int, fx: float, fy: float):

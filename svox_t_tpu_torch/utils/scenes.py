@@ -136,6 +136,24 @@ def build_opaque_tree(depth: int = 7, data_format: str = "SH9",
     return state, feats, centers
 
 
+def random_lobes(data_format: str, basis_dim: int, seed: int = 0) -> np.ndarray:
+    """Seeded ``extra_data`` for an SG or ASG pool: (basis_dim, 4) rows
+    [lambda, mu_xyz] with unit mu, or (basis_dim, 11) rows
+    [a, b, x(3), y(3), z(3)] with an orthonormal frame."""
+    rng = np.random.RandomState(seed)
+    if data_format == "SG":
+        mu = rng.randn(basis_dim, 3)
+        mu /= np.linalg.norm(mu, axis=1, keepdims=True)
+        lam = rng.uniform(1.0, 8.0, (basis_dim, 1))
+        return np.concatenate([lam, mu], axis=1).astype(np.float32)
+    if data_format == "ASG":
+        frames = np.linalg.qr(rng.randn(basis_dim, 3, 3))[0]  # columns x, y, z
+        ab = rng.uniform(1.0, 8.0, (basis_dim, 2))
+        axes = frames.transpose(0, 2, 1).reshape(basis_dim, 9)
+        return np.concatenate([ab, axes], axis=1).astype(np.float32)
+    raise ValueError(f"no lobes for {data_format!r}")
+
+
 def orbit_camera(theta: float = 0.5, phi: float = 0.4, dist: float = 2.2):
     """c2w matrix orbiting the unit-cube center, looking at it."""
     eye = 0.5 + dist * np.array(

@@ -7,10 +7,13 @@ JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: construct_tree must agree exactly. The forward march agrees
-to atol 2e-5: the library is built without fused multiply-adds, so
-sample positions and descents match the plain version bit for bit, and
-only the last ulps of exp and of the color sums can differ.
+Tolerances: construct_tree and the query forward must agree exactly.
+The forward march agrees to atol 2e-5: the library is built without
+fused multiply-adds, so sample positions and descents match the plain
+version bit for bit, and only the last ulps of exp and of the color sums
+can differ. Gradients and accumulated weights agree to
+``1e-5 * max(1, max|plain|)``: the kernels add them with float atomics,
+in an order that changes from run to run.
 """
 
 import numpy as np
@@ -20,7 +23,7 @@ import torch
 import svox_t_tpu_torch as stt
 from svox_t_tpu_torch.ops import query as tquery
 from svox_t_tpu_torch.ops import render as trender
-from svox_t_tpu_torch.utils.scenes import build_shell_tree, orbit_camera
+from svox_t_tpu_torch.utils.scenes import build_shell_tree, orbit_camera, random_lobes
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -36,6 +39,9 @@ def cuda():
 
 def _shell(cuda, depth=5, fmt="SH9", ddim=28, seed=0):
     state, feats, centers = build_shell_tree(depth=depth, data_format=fmt, data_dim=ddim, seed=seed)
+    if fmt.startswith(("SG", "ASG")):
+        kind = fmt.rstrip("0123456789")
+        state["extra_data"] = random_lobes(kind, int(fmt[len(kind):]), seed)
     tree = stt.tree_from_numpy(state, device=cuda)
     return tree, torch.from_numpy(feats).to(cuda), torch.from_numpy(centers).to(cuda)
 
@@ -155,18 +161,159 @@ def test_render_persp_on_cuda_uses_kernel(cuda):
     torch.testing.assert_close(img.reshape(-1, 4), want, atol=ATOL, rtol=0)
 
 
+def _assert_atomic_close(got, want):
+    atol = 1e-5 * max(1.0, float(want.abs().max()) if want.numel() else 1.0)
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("fmt,ddim", [("SG9", 28), ("ASG9", 28), ("SG4", 13), ("ASG7", 22),
+                                      ("SG20", 61)])
+@pytest.mark.parametrize("fast", [False, True])
+def test_render_kernel_sg_asg_matches_plain(cuda, fmt, ddim, fast):
+    """SG and ASG in both march kernels; bases 7 and 20 run on the
+    instances that hold 9 and 25 terms, below their capacity."""
+    tree, feats, _ = _shell(cuda, fmt=fmt, ddim=ddim, seed=5)
+    o, d = _rays(cuda, 1024, seed=3)
+    r = stt.VolumeRenderer(tree)
+    opt = r._get_options(fast)
+    f = feats.clone().requires_grad_()
+    got = r(f, stt.Rays(o, d, d), fast=fast)
+    want = trender.volume_render_plain(tree._spec(), feats, o, d, d, opt)
+    torch.testing.assert_close(got.detach(), want, atol=ATOL, rtol=0)
+    g_out = torch.randn(got.shape, generator=torch.Generator().manual_seed(6)).to(cuda)
+    (g,) = torch.autograd.grad((got * g_out).sum(), f)
+    g_plain = trender.volume_render_backward_plain(tree._spec(), feats, o, d, d, g_out, opt,
+                                                   out_res=want)
+    _assert_atomic_close(g, g_plain)
+    assert float(g.abs().max()) > 0
+
+
+@pytest.mark.parametrize("fmt,ddim", [("RGBA", 4), ("SH1", 4), ("SH9", 28), ("SH25", 76)])
+@pytest.mark.parametrize("fast", [False, True])
+def test_backward_kernel_matches_plain(cuda, fmt, ddim, fast):
+    """Single pass in exact mode, two passes in fast mode and without
+    out_res."""
+    tree, feats, _ = _shell(cuda, fmt=fmt, ddim=ddim, seed=ddim + 1)
+    o, d = _rays(cuda, 2048, seed=4)
+    r = stt.VolumeRenderer(tree)
+    opt = r._get_options(fast)
+    out = trender.volume_render_cuda(tree._spec(), feats, o, d, d, opt)
+    g_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(cuda)
+    for out_res in (out, None):
+        before = trender.RENDER_BWD.launches
+        got = trender.volume_render_backward(tree._spec(), feats, o, d, d, g_out, opt, out_res=out_res)
+        torch.cuda.synchronize()
+        assert trender.RENDER_BWD.launches == before + 1
+        want = trender.volume_render_backward_plain(tree._spec(), feats, o, d, d, g_out, opt,
+                                                    out_res=out_res)
+        _assert_atomic_close(got, want)
+        assert float(got[:, -1].abs().max()) > 0 and float(got[:, :-1].abs().max()) > 0
+
+
+def test_backward_kernel_rotation_window_and_options(cuda):
+    tree, feats, _ = _shell(cuda, fmt="SH9", ddim=28, seed=8)
+    M = feats.shape[0]
+    q = torch.randn(M, 3, 3, generator=torch.Generator().manual_seed(8))
+    rot = torch.eye(4).repeat(M, 1, 1)
+    rot[:, :3, :3] = torch.linalg.qr(q)[0]
+    rot = rot.to(cuda)
+    o, d = _rays(cuda, 1024, seed=5)
+    vd = torch.roll(d, 1, dims=1).contiguous()
+    for kw in (dict(), dict(min_comp=2, max_comp=6, background_brightness=0.25, max_steps=37)):
+        r = stt.VolumeRenderer(tree, **kw)
+        for fast in (False, True):
+            opt = r._get_options(fast)
+            spec = tree._spec(rot)
+            f = feats.clone().requires_grad_()
+            out = r(f, stt.Rays(o, d, vd), rot, fast=fast)
+            g_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)).to(cuda)
+            (g,) = torch.autograd.grad((out * g_out).sum(), f)
+            want = trender.volume_render_backward_plain(spec, feats, o, d, vd, g_out, opt,
+                                                        out_res=out.detach())
+            _assert_atomic_close(g, want)
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_weight_accum_kernel_matches_plain(cuda, fast):
+    tree, feats, _ = _shell(cuda, fmt="SH9", ddim=28, seed=10)
+    o, d = _rays(cuda, 2048, seed=6)
+    r = stt.VolumeRenderer(tree)
+    opt = r._get_options(fast)
+    out, w = trender.volume_render_with_weight_accum_cuda(tree._spec(), feats, o, d, d, opt)
+    out_p, w_p = trender.volume_render_with_weight_accum_plain(tree._spec(), feats, o, d, d, opt)
+    torch.testing.assert_close(out, out_p, atol=ATOL, rtol=0)
+    _assert_atomic_close(w, w_p)
+    if not fast:
+        torch.testing.assert_close(w.sum(), out[:, -1].sum(), rtol=1e-4, atol=0)
+    with tree.accumulate_weights() as acc:
+        r(feats, stt.Rays(o, d, d), fast=fast)
+    _assert_atomic_close(acc.value.reshape(-1), w_p)
+    assert acc().shape == (tree.n_leaves,) and float(acc().sum()) > 0
+
+
+def test_query_kernels_match_plain(cuda):
+    tree, feats, centers = _shell(cuda, fmt="SH9", ddim=28, seed=11)
+    spec = tree._spec()
+    g = torch.Generator().manual_seed(11)
+    pts = torch.cat([centers[torch.randperm(len(centers), generator=g).to(cuda)],
+                     centers[:300], torch.rand(500, 3, generator=g).to(cuda)])
+    f = feats[: int(len(feats) * 0.9)].contiguous()
+    for world in (True, False):
+        p = pts if world else tree.world2tree(pts).contiguous()
+        before = (tquery.QUERY_FWD.launches, tquery.QUERY_BWD.launches)
+        x = f.clone().requires_grad_()
+        v, n, di = tquery.query(spec, x, p, world)
+        gv = torch.randn(v.shape, generator=g).to(cuda)
+        (gx,) = torch.autograd.grad((v * gv).sum(), x)
+        torch.cuda.synchronize()
+        assert (tquery.QUERY_FWD.launches, tquery.QUERY_BWD.launches) == (before[0] + 1, before[1] + 1)
+        vp, np_, dp = tquery.query_forward_plain(spec, f, p, world)
+        assert torch.equal(v.detach(), vp) and torch.equal(n, np_) and torch.equal(di, dp)
+        _assert_atomic_close(gx, tquery.query_backward_plain(dp, gv, f.shape[0]))
+        assert float(gx.abs().max()) > 0
+        vt = tree(f, p, world=world)
+        assert torch.equal(vt, vp)
+
+
+def test_training_steps_use_the_kernels(cuda):
+    """A few Adam steps through render_persp: each backward launches the
+    backward kernel once, and the loss falls."""
+    tree, feats, centers = _shell(cuda, depth=6, fmt="SH4", ddim=13, seed=12)
+    r = stt.VolumeRenderer(tree)
+    with torch.no_grad():
+        target = r.render_persp(feats, orbit_camera(), 64, 64, fx=80.0)
+    g = torch.Generator().manual_seed(12)
+    pool = (feats + 0.3 * torch.randn(feats.shape, generator=g).to(cuda)).requires_grad_()
+    opt = torch.optim.Adam([pool], lr=1e-2)
+    before = trender.RENDER_BWD.launches
+    losses = []
+    for _ in range(5):
+        opt.zero_grad()
+        loss = ((r.render_persp(pool, orbit_camera(), 64, 64, fx=80.0) - target) ** 2).mean()
+        loss.backward()
+        opt.step()
+        losses.append(loss.item())
+    assert trender.RENDER_BWD.launches == before + 5
+    assert losses[-1] < losses[0] and bool(torch.isfinite(pool.grad).all())
+
+
 def test_cuda_paths_raise_instead_of_falling_back(cuda):
     tree, feats, _ = _shell(cuda, depth=4)
     o, d = _rays(cuda, 16)
     r = stt.VolumeRenderer(tree)
-    with pytest.raises(NotImplementedError, match="backward march"):
-        r(feats.clone().requires_grad_(), stt.Rays(o, d, d))
-    sg = stt.RenderOptions(format=stt.utils.spec.FORMAT_SG, basis_dim=9)
-    with pytest.raises(NotImplementedError, match="SG"):
-        trender.volume_render(tree._spec(), feats, o, d, d, sg)
+    wide = torch.zeros(feats.shape[0], 18, device=cuda)
+    rgba = stt.RenderOptions(format=stt.utils.spec.FORMAT_RGBA, basis_dim=-1)
+    with pytest.raises(NotImplementedError, match="16 color channels"):
+        trender.volume_render(tree._spec(), wide, o, d, d, rgba)
+    with pytest.raises(NotImplementedError, match="16 color channels"):
+        trender.volume_render_backward(tree._spec(), wide, o, d, d,
+                                       torch.zeros(o.shape[0], 18, device=cuda), rgba)
     with pytest.raises(ValueError, match="device"):
         trender.volume_render_cuda(tree._spec(), feats.cpu(), o.cpu(), d.cpu(), d.cpu(), r._get_options())
     with pytest.raises(ValueError, match="several devices"):
         trender.volume_render(tree._spec(), feats, o.cpu(), d, d, r._get_options())
-    with pytest.raises(NotImplementedError, match="K8b"):
-        tquery.query(tree._spec(), feats, o[:4])
+    with pytest.raises(ValueError, match="features on cpu"):
+        tquery.query_forward_cuda(tree._spec(), feats.cpu(), o[:4])
+    with pytest.raises(ValueError, match="float32"):
+        tquery.query_backward_cuda(torch.zeros(4, dtype=torch.int32, device=cuda),
+                                   torch.zeros(4, 3, dtype=torch.float64, device=cuda), 5)

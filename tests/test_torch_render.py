@@ -232,13 +232,19 @@ def test_golden_scenes_march_matches_jax_oracle(depth, fmt, ddim, size):
 
 
 def test_requires_grad_raises():
+    """Named for the raise it once pinned: a pool that requires grad now
+    trains. Gradients flow through forward and render_persp, and no_grad
+    renders stay detached."""
     rng, jt, pt, feats, rays = _scene(9)
     f = _t(feats).requires_grad_()
     r = stt.VolumeRenderer(pt)
-    with pytest.raises(NotImplementedError, match="backward march"):
-        r(f, _trays(rays))
-    with pytest.raises(NotImplementedError, match="backward march"):
-        r.render_persp(f, orbit_camera(), 8, 8, fx=8.0)
+    out = r(f, _trays(rays))
+    assert out.requires_grad and out.grad_fn is not None
+    (g,) = torch.autograd.grad(out.sum(), f)
+    assert g.shape == f.shape and bool(torch.isfinite(g).all()) and g.abs().max() > 0
+    img = r.render_persp(f, orbit_camera(), 8, 8, fx=8.0)
+    (gi,) = torch.autograd.grad(img[..., :3].sum(), f)
+    assert gi.abs().max() > 0
     with torch.no_grad():
         out = r(f, _trays(rays))
     assert out.shape == (200, 4) and not out.requires_grad
@@ -255,18 +261,30 @@ def test_unported_options_raise():
     qf = Quantized(torch.zeros(len(feats), 4, dtype=torch.int8), torch.ones(4), torch.zeros(4))
     with pytest.raises(NotImplementedError, match="K5"):
         r(qf, _trays(rays))
-    pt._weight_accum = torch.zeros(1)
-    with pytest.raises(NotImplementedError, match="WeightAccumulator"):
-        r(_t(feats), _trays(rays))
+    # Weight accumulation, which raised here before, now collects weights.
+    with pt.accumulate_weights() as acc:
+        out = r(_t(feats), _trays(rays))
+    np.testing.assert_array_equal(out.numpy(), r(_t(feats), _trays(rays)).numpy())
+    assert acc().shape == (pt.n_leaves,) and float(acc().sum()) > 0
 
 
 def test_kernel_wrapper_rejects_cpu_and_sg():
-    """The kernel wrapper launches or raises; it never runs the plain
-    version in its place."""
+    """The kernel wrappers launch or raise; they never run the plain
+    version in their place. An SG render needs its lobes (extra_data),
+    and more than 16 color channels (here an RGBA pool of 18 columns) are
+    past what the kernels hold in registers."""
     rng, jt, pt, feats, rays = _scene(11, "SH4", 13)
     opt = stt.VolumeRenderer(pt)._get_options(False)
+    trays = [_t(r) for r in rays]
     with pytest.raises(ValueError, match="CUDA"):
-        trender.volume_render_cuda(pt._spec(), _t(feats), *(_t(r) for r in rays), opt)
+        trender.volume_render_cuda(pt._spec(), _t(feats), *trays, opt)
     sg = stt.RenderOptions(format=stt.utils.spec.FORMAT_SG, basis_dim=4)
-    with pytest.raises(NotImplementedError, match="SG"):
-        trender.volume_render_cuda(pt._spec(), _t(feats), *(_t(r) for r in rays), sg)
+    with pytest.raises(ValueError, match="extra_data"):
+        trender.volume_render_cuda(pt._spec(), _t(feats), *trays, sg)
+    wide = torch.zeros(len(feats), 18)
+    rgba = stt.RenderOptions(format=stt.utils.spec.FORMAT_RGBA, basis_dim=-1)
+    for call in (trender.volume_render_cuda, trender.volume_render_with_weight_accum_cuda):
+        with pytest.raises(NotImplementedError, match="16 color channels"):
+            call(pt._spec(), wide, *trays, rgba)
+    with pytest.raises(NotImplementedError, match="16 color channels"):
+        trender.volume_render_backward_cuda(pt._spec(), wide, *trays, torch.zeros(len(trays[0]), 18), rgba)

@@ -137,6 +137,55 @@ def test_query_matches_jax():
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
 
 
+@pytest.mark.parametrize("world", [True, False])
+def test_query_grad_matches_jax(world):
+    """The query's backward adds each point's value gradient into its
+    row; rows past M and empty leaves take nothing."""
+    rng = np.random.RandomState(13)
+    jt, feats, _ = build_tree(rng, data_format="SH4", data_dim=13)
+    pt = _port(jt)
+    f = np.array(feats)[: int(len(feats) * 0.8)]
+    centers = _leaf_centers(jt)
+    local = np.array(jt.world2tree(centers)) if not world else centers
+    pts = np.concatenate([local, local[::4], rng.rand(50, 3).astype(np.float32)]).astype(np.float32)
+    G = rng.randn(len(pts), 13).astype(np.float32)
+    gj = jax.grad(lambda x: jnp.sum(jquery.query(jt._spec(), x, jnp.asarray(pts), world)[0] * G))(
+        jnp.asarray(f))
+    x = torch.from_numpy(f).requires_grad_()
+    vals = tquery.query(pt._spec(), x, torch.from_numpy(pts), world)[0]
+    (gt,) = torch.autograd.grad((vals * torch.from_numpy(G)).sum(), x)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=0,
+                               atol=1e-5 * max(1.0, float(np.abs(gj).max())))
+    assert np.abs(np.asarray(gj)).max() > 0
+
+
+def test_tree_forward_matches_jax():
+    rng = np.random.RandomState(14)
+    jt, feats, _ = build_tree(rng, data_format="SH1", data_dim=4)
+    pt = _port(jt)
+    pts = rng.rand(120, 3).astype(np.float32)
+    f = np.array(feats)
+    jv, jn, jd = jt(jnp.asarray(f), jnp.asarray(pts), want_node_ids=True, want_data_ids=True)
+    tv, tn, td = pt(torch.from_numpy(f), pts, want_node_ids=True, want_data_ids=True)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tn.numpy(), np.asarray(jn))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    local = np.array(jt.world2tree(pts))
+    np.testing.assert_array_equal(pt(torch.from_numpy(f), local, world=False).numpy(),
+                                  np.asarray(jt(jnp.asarray(f), jnp.asarray(local), world=False)))
+    assert pt.forward(torch.from_numpy(f), pts, want_node_ids=True)[1].dtype == torch.int32
+
+
+def test_query_cuda_wrappers_reject_cpu_tensors():
+    """The query kernel wrappers never run their plain versions in their
+    place."""
+    pt = _port(build_tree(np.random.RandomState(15))[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        tquery.query_forward_cuda(pt._spec(), torch.zeros(5, 4), torch.zeros(4, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        tquery.query_backward_cuda(torch.zeros(4, dtype=torch.int32), torch.zeros(4, 4), 5)
+
+
 def test_save_port_load_jax(tmp_path):
     rng = np.random.RandomState(9)
     jt, feats, _ = build_tree(rng, data_format="SH1", data_dim=4)
