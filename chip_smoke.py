@@ -6,9 +6,11 @@ Builds the package's CUDA kernels from `svox_t_tpu_torch/csrc`, holds
 each kernel against its plain PyTorch version at the main paths' shapes
 (construct_tree; the forward march in RGBA, SH9, SH9 with rotations,
 SG9 and ASG9, with weight accumulation; the backward march in five
-cases; the point query forward and backward), then drives the two main
-paths through the public entry points on the depth-9 SH9 shell scene at
-800x800:
+cases; the point query forward and backward; the aux kernels, exact and
+fast: the opacity VJP, the first hit, the motion-feature forward and
+backward), then drives four main paths through the public entry points
+on the depth-9 SH9 shell scene at 800x800, with a seeded 32-joint
+skeleton for the aux paths:
 
   * serving: three frames of `N3Tree.construct_tree` with the frame's
     point cloud and `VolumeRenderer.render_persp` (exact and fast) with
@@ -16,10 +18,16 @@ paths through the public entry points on the depth-9 SH9 shell scene at
   * training: five Adam steps on a feature pool, each re-pointing the
     tree, rendering with `render_persp`, taking an image loss plus a
     density prior through the point query `N3Tree.forward`, and calling
-    `backward()`; one step runs inside `N3Tree.accumulate_weights()`.
+    `backward()`; one step runs inside `N3Tree.accumulate_weights()`;
+  * aux serving: three frames of `construct_tree`, `render_persp`,
+    `opacity_render`, `render_depth` and `motion_render`;
+  * aux training: five Adam steps over the pool and the joint features,
+    each taking an image MSE of `render_persp`, an opacity mask loss of
+    `opacity_render` and an MSE of `motion_feature_render`.
 
-It prints kernel and plain-version times with the card's name and power
-limit, one JSON line describing the kernels, and as its last line
+Each path's launch counts are read from zero around it. It prints kernel
+and plain-version times and each kernel's bound with the card's name and
+power limit, one JSON line describing the kernels, and as its last line
 {"ok": true, "device": {...}}. Any failed phase raises and the script
 exits nonzero. It needs a CUDA GPU and does not fall back to the CPU.
 """
@@ -40,6 +48,8 @@ import svox_t_tpu_torch as stt
 from svox_t_tpu_torch import _build
 from svox_t_tpu_torch.ops import query as query_ops
 from svox_t_tpu_torch.ops import render as render_ops
+from svox_t_tpu_torch.ops import render_aux as aux_ops
+from svox_t_tpu_torch.ops import traversal
 from svox_t_tpu_torch.utils.scenes import build_shell_tree, orbit_camera, random_lobes
 
 DEPTH = 9
@@ -56,6 +66,31 @@ N_PRIOR_POINTS = 65536
 RENDER_ATOL = 2e-5  # fma-free builds on both sides; covers expf ulps
 ATOMIC_RTOL = 1e-5  # float atomics sum in another order: 1e-5 * max(1, max|plain|)
 KERNEL_REPS = 10
+# The aux path's skeleton, made from a seed: joint positions (the tree's
+# extra_data), joint features, and per pool row N_BONES skinning weights
+# and joint indices.
+N_JOINTS = 32
+JOINT_DIM = 16
+N_BONES = 4
+MASK_WEIGHT = 0.1  # weight of the opacity mask loss in the aux training loss
+# The bound of a kernel: the larger of its bytes over the H100 SXM's HBM
+# rate and its float32 operations over its peak non-tensor rate
+# (NVIDIA's data sheet, at the full 700 W).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Float operations counted per unit of work for the bounds: a descent
+# level (3 scalings, 3 floors, 3 clamps, 3 fraction subtractions); a
+# sample's position, clamps, in-leaf DDA and step; and a contributing
+# sample's own math in each kernel (SH9 colors, compositing, blends of
+# N_BONES joint rows of JOINT_DIM, sigmoids as 3 operations).
+OPS_LEVEL = 12
+OPS_SAMPLE = 30
+OPS_RAY = 40
+OPS_FWD_SH9 = 75
+OPS_BWD_SH9 = 115
+OPS_OPACITY_BWD = 7
+OPS_MF_FWD = 2 * N_BONES * JOINT_DIM + 5 * JOINT_DIM + 5
+OPS_MF_BWD = 4 * N_BONES * JOINT_DIM + 7 * JOINT_DIM + 5
 
 
 def card_line() -> str:
@@ -137,18 +172,133 @@ def camera_rays(device):
     return origins.contiguous(), dirs.contiguous()
 
 
+COUNTERS = {
+    "construct_tree": query_ops.CONSTRUCT_TREE,
+    "render_fwd": render_ops.RENDER_FWD,
+    "render_bwd": render_ops.RENDER_BWD,
+    "query_fwd": query_ops.QUERY_FWD,
+    "query_bwd": query_ops.QUERY_BWD,
+    "opacity_bwd": aux_ops.OPACITY_BWD,
+    "first_hit": aux_ops.FIRST_HIT,
+    "mf_fwd": aux_ops.MF_FWD,
+    "mf_bwd": aux_ops.MF_BWD,
+}
+
+
 def reset_counts() -> None:
-    for k in (query_ops.CONSTRUCT_TREE, query_ops.QUERY_FWD, query_ops.QUERY_BWD,
-              render_ops.RENDER_FWD, render_ops.RENDER_BWD):
+    for k in COUNTERS.values():
         k.launches = 0
 
 
 def read_counts() -> dict:
-    return {"construct_tree": query_ops.CONSTRUCT_TREE.launches,
-            "render_fwd": render_ops.RENDER_FWD.launches,
-            "render_bwd": render_ops.RENDER_BWD.launches,
-            "query_fwd": query_ops.QUERY_FWD.launches,
-            "query_bwd": query_ops.QUERY_BWD.launches}
+    return {name: k.launches for name, k in COUNTERS.items()}
+
+
+def skeleton(rng: np.random.RandomState, M: int, device):
+    """(joints (N_JOINTS, 3) inside the shell, joint features
+    (N_JOINTS, JOINT_DIM), skinning weights (M, N_BONES) whose rows sum to
+    1 with some bones 0, joint indices (M, N_BONES) int32)."""
+    joints = (0.3 + 0.4 * rng.rand(N_JOINTS, 3)).astype(np.float32)
+    jf = rng.randn(N_JOINTS, JOINT_DIM).astype(np.float32)
+    w = rng.rand(M, N_BONES).astype(np.float32)
+    w[w < 0.25] = 0.0
+    w /= np.maximum(w.sum(axis=1, keepdims=True), 1e-6)
+    ji = rng.randint(0, N_JOINTS, (M, N_BONES)).astype(np.int32)
+    return joints, torch.from_numpy(jf).to(device), torch.from_numpy(w).to(device), \
+        torch.from_numpy(ji).to(device)
+
+
+def march_census(spec, feats, origins, dirs, opt) -> dict:
+    """What this run's data makes a march do, under the forward's rules
+    with exact options: rays that hit the cube, samples, descent levels,
+    contributing samples (resident, sigma > 0) and the distinct rows and
+    leaf cells they touch; the same up to each ray's first hit. Only the
+    bounds read it."""
+    o = traversal.world2tree(origins, spec.offset, spec.scaling)
+    d, _ = traversal.get_delta_scale(spec.scaling, dirs)
+    invdir = 1.0 / (d + 1e-9)
+    tmin, tmax = traversal.dda_unit(o, invdir)
+    hit = ~((tmax < 0) | (tmin > tmax))
+    M = feats.shape[0]
+    n_cells = spec.data_flat.numel()
+    dev = origins.device
+    cells, cells_fh = (torch.zeros(n_cells, dtype=torch.bool, device=dev) for _ in range(2))
+    rows, rows_fh = (torch.zeros(M, dtype=torch.bool, device=dev) for _ in range(2))
+    n = {k: torch.zeros((), dtype=torch.float64, device=dev)
+         for k in ("samples", "levels", "contrib", "fh_samples", "fh_levels")}
+    t, active, searching = tmin, hit.clone(), hit.clone()
+    log_n = float(np.log2(spec.N))
+    for _ in range(opt.max_steps):
+        if not bool(active.any()):
+            break
+        leaf = traversal.descend(spec, o + t[:, None] * d)
+        sub_tmin, sub_tmax = traversal.dda_unit(leaf.frac, invdir)
+        dt = (sub_tmax - sub_tmin) / leaf.cube_sz + opt.step_size
+        idx = leaf.data_idx
+        res = active & (idx >= 0) & (idx < M)
+        sigma = torch.where(res, feats[torch.where(res, idx, 0).long(), -1], 0.0)
+        contrib = res & (sigma > 0)
+        levels = torch.round(torch.log2(leaf.cube_sz) / log_n)
+        fh = searching & active
+        n["samples"] += active.sum()
+        n["levels"] += levels[active].sum()
+        n["contrib"] += contrib.sum()
+        n["fh_samples"] += fh.sum()
+        n["fh_levels"] += levels[fh].sum()
+        cells[leaf.node_flat[active].long()] = True
+        cells_fh[leaf.node_flat[fh].long()] = True
+        rows[idx[contrib].long()] = True
+        rows_fh[idx[fh & contrib].long()] = True
+        searching = searching & ~contrib
+        t = torch.where(active, t + dt, t)
+        active = active & (t < tmax)
+    out = {k: int(v.item()) for k, v in n.items()}
+    out.update(rays=origins.shape[0], hits=int(hit.sum()), cells=int(cells.sum()),
+               rows=int(rows.sum()), cells_fh=int(cells_fh.sum()), rows_fh=int(rows_fh.sum()))
+    return out
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time of the work on the card."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_bounds(c: dict, M: int, D: int, n_cells: int, Q: int, q_levels: int) -> dict:
+    """bound_ms and bound_by of every kernel at the main path's shapes,
+    from the census `c` of the SH9 camera march and Q points that descend
+    q_levels levels in all (construct_tree and query). Each input is read
+    once and each output written once: rays 12 bytes per vector; a
+    march reads the rows and leaf cells (a data and a child entry) that
+    its samples touch; gradients of the pool are (M, D) outputs."""
+    B, R, C = c["rays"], c["rows"], c["cells"]
+    march_ops = OPS_RAY * c["hits"] + OPS_LEVEL * c["levels"] + OPS_SAMPLE * c["samples"]
+    fh_ops = OPS_RAY * c["hits"] + OPS_LEVEL * c["fh_levels"] + OPS_SAMPLE * c["fh_samples"]
+    lbs_row = 4 + N_BONES * 8  # sigma, skinning weights and joint indices
+    jtab = N_JOINTS * JOINT_DIM * 4
+    work = {
+        "construct_tree": (Q * 12 + Q * 4 + 2 * n_cells * 4, OPS_LEVEL * q_levels),
+        "render_fwd": (B * 36 + B * 16 + R * D * 4 + C * 8,
+                       march_ops + OPS_FWD_SH9 * c["contrib"]),
+        "render_bwd": (B * 36 + 2 * B * 16 + R * D * 4 + C * 8 + M * D * 4,
+                       march_ops + OPS_BWD_SH9 * c["contrib"]),
+        "query_fwd": (Q * 12 + Q * 8 + min(Q, M) * D * 4 + Q * D * 4 + Q * 8,
+                      OPS_LEVEL * q_levels),
+        "query_bwd": (Q * 4 + Q * D * 4 + M * D * 4, Q * D),
+        "opacity_bwd": (B * 24 + 2 * B * 4 + R * 4 + C * 8 + M * D * 4,
+                        march_ops + OPS_OPACITY_BWD * c["contrib"]),
+        "first_hit": (B * 24 + c["rows_fh"] * 4 + c["cells_fh"] * 8 + B * 21, fh_ops),
+        "mf_fwd": (B * 24 + R * lbs_row + C * 8 + jtab + B * JOINT_DIM * 4,
+                   march_ops + OPS_MF_FWD * c["contrib"]),
+        "mf_bwd": (B * 24 + B * JOINT_DIM * 4 + R * lbs_row + C * 8 + 2 * jtab,
+                   march_ops + OPS_MF_BWD * c["contrib"]),
+    }
+    out = {}
+    for name, (n_bytes, n_ops) in work.items():
+        ms, by = bound(n_bytes, n_ops)
+        out[name] = dict(bound_ms=ms, bound_by=by, bound_bytes=n_bytes, bound_ops=n_ops)
+    return out
 
 
 def train(tree, true_pool, pool0, centers, perms, prior_points, steps,
@@ -198,6 +348,48 @@ def train(tree, true_pool, pool0, centers, perms, prior_points, steps,
     return pool, losses, image_losses, step_ms, weights
 
 
+def train_aux(tree, true_pool, pool0, true_jf, jf0, sw, ji, centers, perms, rays, steps,
+              width=WIDTH, height=HEIGHT, fx=FX):
+    """`steps` Adam steps over a copy of ``pool0`` and of ``jf0`` on the aux
+    path: each step re-points the tree at ``centers[perms[k]]`` and takes
+    an image MSE of `render_persp`, an opacity mask loss of
+    `opacity_render` and an MSE of `motion_feature_render` on ``rays``,
+    against targets that ``true_pool`` and ``true_jf`` give with the tree
+    pointed at ``centers``. ``sw``/``ji`` are per canonical row.
+
+    :return: (pool, joint features, losses, host ms per step)
+    """
+    renderer = stt.VolumeRenderer(tree)
+    c2w = orbit_camera()
+    tree.construct_tree(centers)
+    with torch.no_grad():
+        t_img = renderer.render_persp(true_pool, c2w, width, height, fx=fx)
+        t_alpha = renderer.opacity_render(true_pool, rays)
+        t_mf = renderer.motion_feature_render(true_pool, true_jf, sw, ji, rays)
+    pool = pool0.clone().requires_grad_()
+    jf = jf0.clone().requires_grad_()
+    opt = torch.optim.Adam([pool, jf], lr=LR)
+    losses, step_ms = [], []
+    for k in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        perm = perms[k]
+        tree.construct_tree(centers[perm])
+        frame_pool = pool[perm]
+        img = renderer.render_persp(frame_pool, c2w, width, height, fx=fx)
+        alpha = renderer.opacity_render(frame_pool, rays)
+        mf = renderer.motion_feature_render(frame_pool, jf, sw[perm], ji[perm], rays)
+        loss = (((img - t_img) ** 2).mean() + MASK_WEIGHT * ((alpha - t_alpha) ** 2).mean()
+                + ((mf - t_mf) ** 2).mean())
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    return pool, jf, losses, step_ms
+
+
 def main() -> None:
     # 1. Device
     if not torch.cuda.is_available():
@@ -213,7 +405,7 @@ def main() -> None:
     b = _build.build()
     print(f"build: {b.seconds:.1f} s -> {b.path.name}")
     for line in b.log.splitlines():
-        if "Compiling entry" in line or "Used" in line:
+        if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
     # Scenes (NumPy, seeded) and device tables
@@ -238,6 +430,14 @@ def main() -> None:
                           replaces="svox_t_tpu/ops/query.py:46"),
         "query_bwd": dict(route="cuda", source="svox_t_tpu_torch/csrc/query.cu",
                           replaces="svox_t_tpu/ops/query.py:76"),
+        "opacity_bwd": dict(route="cuda", source="svox_t_tpu_torch/csrc/render_bwd.cu",
+                            replaces="svox_t_tpu/ops/render_aux.py:58"),
+        "first_hit": dict(route="cuda", source="svox_t_tpu_torch/csrc/render_aux.cu",
+                          replaces="svox_t_tpu/ops/render_aux.py:217"),
+        "mf_fwd": dict(route="cuda", source="svox_t_tpu_torch/csrc/render_aux.cu",
+                       replaces="svox_t_tpu/ops/render_aux.py:403"),
+        "mf_bwd": dict(route="cuda", source="svox_t_tpu_torch/csrc/render_aux.cu",
+                       replaces="svox_t_tpu/ops/render_aux.py:526"),
     }
 
     # 3. Kernel vs plain
@@ -360,6 +560,74 @@ def main() -> None:
     print(f"query: {q_points.shape[0]} points ({empty} in empty space), values and ids equal, "
           f"grad max_abs_err {q_err:.3g}")
 
+    # 3b. Aux kernels against plain on the same scene, with the aux path's
+    # seeded skeleton: joints as the tree's extra_data, LBS tables per row.
+    joints, jf_true, sw, ji = skeleton(rng, M, dev)
+    aux_state = dict(state, extra_data=joints)
+    aux_spec = stt.tree_from_numpy(aux_state, device=dev)._spec(
+        joint_features=jf_true, skinning_weights=sw, joint_index=ji)
+    aux_err = dict(opacity_bwd=0.0, first_hit=0.0, mf_fwd=0.0, mf_bwd=0.0)
+    _, ds = traversal.get_delta_scale(aux_spec.scaling, dirs)
+    o_tree = traversal.world2tree(origins, aux_spec.offset, aux_spec.scaling)
+    d_tree = traversal.get_delta_scale(aux_spec.scaling, dirs)[0]
+    for fast in (False, True):
+        opt = sh_renderer._get_options(fast)
+        mode = "fast" if fast else "exact"
+        with torch.no_grad():
+            alpha = aux_ops.opacity_render(aux_spec, feats, origins, dirs, opt)
+            full = render_ops.volume_render_cuda(aux_spec, feats, origins, dirs, dirs, opt)
+        check(torch.equal(alpha, full[:, -1:]), "opacity forward is not the render's alpha")
+        g_a = torch.from_numpy(rng.randn(B, 1).astype(np.float32)).to(dev)
+        g_k = aux_ops.opacity_backward_cuda(aux_spec, feats, origins, dirs, g_a, opt, out_res=alpha)
+        g_p, p_ms = timed_once_ms(lambda: aux_ops.opacity_backward_plain(
+            aux_spec, feats, origins, dirs, g_a, opt, out_res=alpha))
+        err = atomic_err(g_k, g_p, f"opacity_bwd {mode}")
+        check(not bool(g_k[:, :-1].any()), "opacity VJP wrote a color column")
+        check(float(g_k[:, -1].abs().max()) > 0, "opacity VJP: zero gradient")
+        aux_err["opacity_bwd"] = max(aux_err["opacity_bwd"], err)
+        print(f"opacity {mode}: forward equal to the render's alpha; VJP "
+              f"({'two passes' if fast else 'one pass'}) max_abs_err {err:.3g} "
+              f"(max|g| {float(g_p.abs().max()):.4g}), plain {p_ms:.1f} ms")
+
+        h_k = aux_ops.first_hit_cuda(aux_spec, feats, origins, dirs, opt)
+        h_p, p_ms = timed_once_ms(lambda: aux_ops.first_hit_plain(aux_spec, feats, origins, dirs, opt))
+        check(torch.equal(h_k[0], h_p[0]) and torch.equal(h_k[2], h_p[2]),
+              "first hit: found or rows differ")
+        depth_k = torch.where(h_k[0], h_k[1] * ds, 0.0)
+        depth_p = torch.where(h_p[0], h_p[1] * ds, 0.0)
+        check(torch.equal(depth_k, depth_p), "first hit: depths differ")
+        hp_err = float((o_tree + h_k[1][:, None] * d_tree - (o_tree + h_p[1][:, None] * d_tree))
+                       .abs().max())
+        frac_err = float((h_k[3] - h_p[3]).abs().max())
+        check(hp_err <= RENDER_ATOL and frac_err <= RENDER_ATOL,
+              f"first hit: hit point {hp_err} or compat frac {frac_err} > {RENDER_ATOL}")
+        n_found = int(h_k[0].sum())
+        check(n_found > 0, "first hit found nothing")
+        aux_err["first_hit"] = max(aux_err["first_hit"], hp_err, frac_err)
+        print(f"first hit {mode}: found, rows and depths equal ({n_found} hits), hit point "
+              f"max_abs_err {hp_err:.3g}, frac {frac_err:.3g}, plain {p_ms:.1f} ms")
+
+        with torch.no_grad():
+            m_k = aux_ops.motion_feature_forward_cuda(aux_spec, jf_true, feats, origins, dirs, opt)
+        m_p, p_ms = timed_once_ms(lambda: aux_ops.motion_feature_render_plain(
+            aux_spec, jf_true, feats, origins, dirs, opt))
+        err = float((m_k - m_p).abs().max())
+        check(bool(torch.isfinite(m_k).all()), "mf_fwd: non-finite output")
+        check(err <= RENDER_ATOL, f"mf_fwd {mode}: kernel vs plain {err} > {RENDER_ATOL}")
+        aux_err["mf_fwd"] = max(aux_err["mf_fwd"], err)
+        g_m = torch.from_numpy(rng.randn(B, JOINT_DIM).astype(np.float32)).to(dev)
+        b_k = aux_ops.motion_feature_backward_cuda(aux_spec, jf_true, feats, origins, dirs, g_m, opt)
+        b_p, bp_ms = timed_once_ms(lambda: aux_ops.motion_feature_backward_plain(
+            aux_spec, jf_true, feats, origins, dirs, g_m, opt))
+        b_err = atomic_err(b_k, b_p, f"mf_bwd {mode}")
+        check(float(b_k.abs().max()) > 0, "mf_bwd: zero gradient")
+        aux_err["mf_bwd"] = max(aux_err["mf_bwd"], b_err)
+        print(f"motion features {mode}: forward max_abs_err {err:.3g}, plain {p_ms:.1f} ms; "
+              f"VJP max_abs_err {b_err:.3g} (max|g| {float(b_p.abs().max()):.4g}), "
+              f"plain {bp_ms:.1f} ms")
+    for k, v in aux_err.items():
+        kernels[k]["max_abs_err"] = v
+
     # 4. Main path, serving: three frames through the public entry points
     frame_points = [centers[torch.from_numpy(rng.permutation(M)).to(dev)] for _ in range(N_FRAMES)]
     frame_feats = [seeded_pool(rng, M, 28, dev) for _ in range(N_FRAMES)]
@@ -436,8 +704,76 @@ def main() -> None:
     check(bool(torch.isfinite(weights).all()) and float(weights.sum()) > 0, "bad accumulated weights")
     print(f"accumulated weights: {weights.shape[0]} leaves, sum {float(weights.sum()):.6g}, "
           f"{int((weights > 0).sum())} leaves with weight")
+
+    # 4c. Main path, aux serving: per frame, render_persp and then
+    # opacity_render, render_depth and motion_render on the same camera
+    # rays, through the public entry points.
+    aux_tree = stt.tree_from_numpy(aux_state, device=dev)
+    aux_renderer = stt.VolumeRenderer(aux_tree)
+    cam_rays = stt.Rays(origins, dirs, dirs)
+    reset_counts()
+    aux_frames, aux_frame_s = [], []
+    with torch.no_grad():
+        for i in range(N_FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            aux_tree.construct_tree(frame_points[i])
+            img = aux_renderer.render_persp(frame_feats[i], c2w, WIDTH, HEIGHT, fx=FX)
+            alpha = aux_renderer.opacity_render(frame_feats[i], cam_rays)
+            depth = aux_renderer.render_depth(frame_feats[i], cam_rays)
+            motion = aux_renderer.motion_render(frame_feats[i], cam_rays)
+            torch.cuda.synchronize()
+            aux_frame_s.append(time.perf_counter() - t0)
+            aux_frames.append((img, alpha, depth, motion))
+    aux_serve_counts = read_counts()
+    print(f"main path, aux serving: {N_FRAMES} frames, launches {aux_serve_counts}, host ms per "
+          f"frame (construct + render + opacity + depth + motion) "
+          f"{[round(x * 1e3, 3) for x in aux_frame_s]}")
+    check(aux_serve_counts["construct_tree"] == N_FRAMES, "construct_tree not launched per frame")
+    check(aux_serve_counts["render_fwd"] == 2 * N_FRAMES, "render_fwd not launched by render + opacity")
+    check(aux_serve_counts["first_hit"] == 2 * N_FRAMES, "first_hit not launched by depth + motion")
+    with torch.no_grad():
+        for img, alpha, depth, (motion, depth_m, hit_pt, didx) in aux_frames:
+            check(torch.equal(alpha[:, 0], img.reshape(B, -1)[:, -1]), "opacity is not the image's alpha")
+            check(torch.equal(depth, depth_m), "render_depth and motion_render disagree")
+            found = depth[:, 0] > 0
+            check(bool(found.any()) and bool((~found).any()), "no hit or no miss ray")
+            check(not bool((found & (alpha[:, 0] == 0)).any()), "a hit ray with alpha 0")
+            check(tuple(motion.shape) == (B, N_JOINTS) and bool(torch.isfinite(motion).all()),
+                  "bad motion features")
+            check(not bool(motion[~found].any()) and not bool(hit_pt[~found].any()), "a miss with a hit")
+            check(bool((didx[found] < M).all()), "data_idx outside the pool")
+        ref = aux_ops.first_hit_plain(aux_tree._spec(), frame_feats[-1], origins[sample],
+                                      dirs[sample], aux_renderer._get_options(False))
+        ref_depth = torch.where(ref[0], ref[1] * ds[sample], 0.0)
+        check(torch.equal(aux_frames[-1][2][sample, 0], ref_depth),
+              "served depth disagrees with the plain version")
+        print(f"aux frames: hit share {float((aux_frames[-1][2] > 0).float().mean()):.4f}; last frame "
+              f"depth equal to plain on {sample.numel()} pixels")
+
+    # 4d. Main path, aux training: five Adam steps over the pool and the
+    # joint features (image MSE + opacity mask loss + motion-feature MSE).
+    aux_train_tree = stt.tree_from_numpy(aux_state, device=dev)
+    jf_init = torch.from_numpy(rng.randn(N_JOINTS, JOINT_DIM).astype(np.float32)).to(dev)
+    reset_counts()
+    a_pool, a_jf, a_losses, a_step_ms = train_aux(
+        aux_train_tree, true_pool, pool0, jf_true, jf_init, sw, ji, centers, perms, cam_rays, N_STEPS)
+    aux_train_counts = read_counts()
+    print(f"main path, aux training: {N_STEPS} steps, launches {aux_train_counts}, "
+          f"loss {[round(x, 8) for x in a_losses]}, host ms per step {[round(x, 3) for x in a_step_ms]}")
+    want = dict(construct_tree=N_STEPS + 1, render_fwd=2 * (N_STEPS + 1), render_bwd=N_STEPS,
+                opacity_bwd=N_STEPS, mf_fwd=N_STEPS + 1, mf_bwd=N_STEPS)
+    for k, n in want.items():
+        check(aux_train_counts[k] == n, f"aux training: {k} launched {aux_train_counts[k]} times, not {n}")
+    check(a_losses[-1] < a_losses[0], "the aux loss did not fall")
+    for name, x in (("pool", a_pool), ("joint features", a_jf)):
+        check(x.grad is not None and bool(torch.isfinite(x.grad).all())
+              and float(x.grad.abs().max()) > 0, f"bad {name} gradient")
+    phases = (serve_counts, train_counts, aux_serve_counts, aux_train_counts)
     for k in kernels:
-        kernels[k]["launches"] = serve_counts[k] + train_counts[k]
+        kernels[k]["launches"] = sum(c[k] for c in phases)
+    for k in ("opacity_bwd", "first_hit", "mf_fwd", "mf_bwd"):
+        check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
 
     # 5. Times (CUDA events, after one warm-up)
     spec_t = serve_tree._spec()
@@ -485,10 +821,46 @@ def main() -> None:
         g_v = torch.from_numpy(rng.randn(M, 28).astype(np.float32)).to(dev)
         qb_ms = time_ms(lambda: query_ops.query_backward_cuda(didx, g_v, M), KERNEL_REPS)
         qb_plain_ms = time_ms(lambda: query_ops.query_backward_plain(didx, g_v, M), 3)
+        check(bool((didx < M).all()), "a leaf centre in empty space")
+        didx_l = didx.long()
+        qb_lib_ms = time_ms(lambda: torch.zeros(M, 28, device=dev).index_add_(0, didx_l, g_v),
+                            KERNEL_REPS)
         kernels["query_fwd"].update(ms=qf_ms, plain_ms=qf_plain_ms)
-        kernels["query_bwd"].update(ms=qb_ms, plain_ms=qb_plain_ms)
+        kernels["query_bwd"].update(ms=qb_ms, plain_ms=qb_plain_ms, library_ms=qb_lib_ms)
         print(f"time query ({M} points, D 28): forward kernel {qf_ms:.4f} ms, plain {qf_plain_ms:.4f} ms; "
-              f"backward kernel {qb_ms:.4f} ms, plain {qb_plain_ms:.4f} ms [{card}]")
+              f"backward kernel {qb_ms:.4f} ms, plain {qb_plain_ms:.4f} ms, "
+              f"index_add_ {qb_lib_ms:.4f} ms [{card}]")
+
+        # The aux kernels, on the aux scene pointed at the canonical rows.
+        for fast in (False, True):
+            opt = sh_renderer._get_options(fast)
+            mode = "fast" if fast else "exact"
+            alpha = aux_ops.opacity_render(aux_spec, f0, origins, dirs, opt)
+            g_a = torch.from_numpy(rng.randn(B, 1).astype(np.float32)).to(dev)
+            g_m = torch.from_numpy(rng.randn(B, JOINT_DIM).astype(np.float32)).to(dev)
+            runs = {
+                "opacity_bwd": (lambda: aux_ops.opacity_backward_cuda(
+                                    aux_spec, f0, origins, dirs, g_a, opt, out_res=alpha),
+                                lambda: aux_ops.opacity_backward_plain(
+                                    aux_spec, f0, origins, dirs, g_a, opt, out_res=alpha)),
+                "first_hit": (lambda: aux_ops.first_hit_cuda(aux_spec, f0, origins, dirs, opt),
+                              lambda: aux_ops.first_hit_plain(aux_spec, f0, origins, dirs, opt)),
+                "mf_fwd": (lambda: aux_ops.motion_feature_forward_cuda(
+                               aux_spec, jf_true, f0, origins, dirs, opt),
+                           lambda: aux_ops.motion_feature_render_plain(
+                               aux_spec, jf_true, f0, origins, dirs, opt)),
+                "mf_bwd": (lambda: aux_ops.motion_feature_backward_cuda(
+                               aux_spec, jf_true, f0, origins, dirs, g_m, opt),
+                           lambda: aux_ops.motion_feature_backward_plain(
+                               aux_spec, jf_true, f0, origins, dirs, g_m, opt)),
+            }
+            for name, (run_k, run_p) in runs.items():
+                k_ms = time_ms(run_k, KERNEL_REPS)
+                p_ms = time_ms(run_p, 1)
+                print(f"time {name} SH9 {mode} {WIDTH}x{HEIGHT} (J {N_JOINTS}, Kd {JOINT_DIM}, "
+                      f"{N_BONES} bones): kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms [{card}]")
+                if not fast:
+                    kernels[name].update(ms=k_ms, plain_ms=p_ms)
 
     # Forward + backward of a render loss, as bench.py names it:
     # fwd_bwd_ms sustained (CUDA events over KERNEL_REPS calls),
@@ -515,9 +887,26 @@ def main() -> None:
     print(f"time training step (construct_tree + render_persp + loss + query prior + backward + Adam), "
           f"host clock: median {step_med:.3f} ms of {[round(s, 3) for s in step_ms]} [{card}]")
 
-    # 6. Result lines
+    # 6. Bounds: the least time of each kernel's work at these shapes,
+    # from what this run's data makes the march do (exact SH9 camera).
+    census = march_census(spec, feats, origins, dirs, sh_renderer._get_options(False))
+    leaf = traversal.descend(spec, traversal.world2tree(pts, spec.offset, spec.scaling))
+    q_levels = int(torch.round(torch.log2(leaf.cube_sz) / float(np.log2(spec.N))).sum())
+    bounds = kernel_bounds(census, M, 28, spec.data_flat.numel(), pts.shape[0], q_levels)
+    print(f"census (SH9 exact, {WIDTH}x{HEIGHT}): {census}")
+    for k, b in bounds.items():
+        kernels[k].update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+        kernels[k].setdefault("library_ms", None)
+        print(f"bound {k}: {b['bound_bytes'] / 1e6:.2f} MB, {b['bound_ops'] / 1e9:.4f} Gop -> "
+              f"{b['bound_ms']:.5f} ms ({b['bound_by']}); kernel {kernels[k]['ms']:.4f} ms, "
+              f"{b['bound_ms'] / kernels[k]['ms']:.3f} of the bound [{card}]")
+
+    # 7. Result lines
+    keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms")
     print(card)
-    print(json.dumps({"kernels": [dict(name=k, **v) for k, v in kernels.items()]}))
+    print(json.dumps({"kernels": [dict(name=k, **{key: v[key] for key in keys})
+                                  for k, v in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
 
 

@@ -8,6 +8,9 @@ and renders with this frame's feature pool (`VolumeRenderer.forward` /
 `render_persp`). Training takes gradients of those renders, and of the
 point query `N3Tree.forward`, with respect to the feature pool, and
 collects per-leaf weights for pruning (`N3Tree.accumulate_weights`). The
+aux passes (`VolumeRenderer.opacity_render`, `render_depth`,
+`motion_render`, `motion_feature_render`) give opacity, first-hit depth
+and skeleton distances, and LBS-blended joint features. The
 hot loops are hand-written CUDA kernels under `csrc/`, built by nvcc at
 first use; on CPU tensors their plain PyTorch versions run instead.
 
@@ -24,6 +27,8 @@ from .utils.dataformat import DataFormat, LocalIndex
 from .ops.sh import eval_sh, eval_sh_bases
 from .utils.builders import tree_from_occupancy, tree_structure_from_occupancy
 from .utils.convert import tree_from_numpy, tree_state
+from .ops.render_aux import (motion_feature_render, motion_render,
+                             opacity_render, render_depth)
 
 __all__ = [
     "N3Tree",
@@ -43,6 +48,10 @@ __all__ = [
     "tree_structure_from_occupancy",
     "tree_from_numpy",
     "tree_state",
+    "opacity_render",
+    "render_depth",
+    "motion_render",
+    "motion_feature_render",
     "make_tree_spec",
     "DATA_SENTINEL",
     "__version__",

@@ -101,6 +101,33 @@ __device__ __forceinline__ float delta_scale(const float* __restrict__ scaling,
   return ds;
 }
 
+// A camera ray in tree space (render.py _ray_setup): origin, unit
+// direction, its inverse, delta_scale and the cube's [tmin, tmax].
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, ds, tmin, tmax;
+};
+
+// Set up ray i of the world-space (B, 3) origins and dirs. False for a
+// ray that misses the cube.
+__device__ __forceinline__ bool setup_ray(const float* __restrict__ origins,
+                                          const float* __restrict__ dirs,
+                                          const float* __restrict__ offset,
+                                          const float* __restrict__ scaling, int i,
+                                          Ray& r) {
+  r.ox = offset[0] + scaling[0] * origins[3 * i + 0];
+  r.oy = offset[1] + scaling[1] * origins[3 * i + 1];
+  r.oz = offset[2] + scaling[2] * origins[3 * i + 2];
+  r.dx = dirs[3 * i + 0];
+  r.dy = dirs[3 * i + 1];
+  r.dz = dirs[3 * i + 2];
+  r.ds = delta_scale(scaling, r.dx, r.dy, r.dz);
+  r.ivx = 1.f / (r.dx + 1e-9f);
+  r.ivy = 1.f / (r.dy + 1e-9f);
+  r.ivz = 1.f / (r.dz + 1e-9f);
+  dda_unit(r.ox, r.oy, r.oz, r.ivx, r.ivy, r.ivz, r.tmin, r.tmax);
+  return !(r.tmax < 0.f || r.tmin > r.tmax);
+}
+
 // ---------------------------------------------------------------------
 // Spherical bases (ops/sh.py), evaluated at a view direction as passed.
 

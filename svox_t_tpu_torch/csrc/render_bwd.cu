@@ -49,6 +49,19 @@
 // `volume_render_backward_plain`) operation for operation, and the
 // library is built with -fmad=false, so the samples are the plain
 // version's; only the order in which atomics sum differs.
+//
+// K9a, the opacity VJP (svox_opacity_bwd, `opacity_bwd_kernel`), runs the
+// sigma-only instance of this kernel's march (kSigmaOnly). Replaces: svox_t_tpu/ops/render_aux.py
+// `_opacity_bwd_impl`, the gradient of `opacity_render` (the forward is
+// K2's alpha column). A thread reads only the sigma column of a row: no
+// basis, no colors, no color gradients. Per contributing sample
+// (row < M, sigma > 0) it adds dt*ds * (g_alpha * L_ray) into column
+// D - 1. Single pass with the forward alpha (L_ray = 1 - alpha, exact
+// options); otherwise pass A forms L_ray under the backward's sigma > 0
+// rule and writes nothing, then pass B adds. This equals K3's sigma
+// column with zero color gradients (ops/render_aux.py
+// `opacity_backward_plain`). Bound on an H100: as K3, the descent chain
+// per sample; one 4-byte atomic per contributing sample.
 
 #include "common.cuh"
 
@@ -86,14 +99,16 @@ struct Params {
   float* grad;
 };
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, ivx, ivy, ivz, ds, tmin, tmax, vx, vy, vz;
+// The tree-space ray and its view direction.
+struct Ray : svox::Ray {
+  float vx, vy, vz;
 };
 
 // One backward march. kColor: add the coefficient rows and sum accum
 // upward; kSigma: add the sigma column, with acc falling from its start.
-// Returns the final L in L.
-template <int FMT, int BD, bool kRot, bool kColor, bool kSigma>
+// kSigmaOnly: read only sigma and add dt*ds * (g_alpha * L_ray) (with
+// kSigma) or nothing (pass A). Returns the final L in L.
+template <int FMT, int BD, bool kRot, bool kColor, bool kSigma, bool kSigmaOnly>
 __device__ __forceinline__ void march(const Params& p, const Ray& r,
                                       float* basis, const float* g,
                                       float g_alpha, float L_ray, float& L,
@@ -117,6 +132,12 @@ __device__ __forceinline__ void march(const Params& p, const Ray& r,
       const float sigma = __ldg(row + p.D - 1);
       if (sigma > 0.f) {
         const float att = expf((-dt * r.ds) * sigma);
+        if constexpr (kSigmaOnly) {
+          if constexpr (kSigma) atomicAdd(grow + p.D - 1, (dt * r.ds) * (g_alpha * L_ray));
+          L = L * att;
+          t = t + dt;
+          continue;
+        }
         const float weight = L * (1.f - att);
         if constexpr (FMT != svox::kRGBA && kRot) {
           const float* m = p.tmats + static_cast<size_t>(idx) * 16;
@@ -180,20 +201,9 @@ __global__ void __launch_bounds__(kThreads) render_bwd_kernel(const Params p) {
   if (i >= p.B) return;
   const int nc = p.n_color;
 
-  // Ray setup (render.py _ray_setup), as in K2. Rays that miss add nothing.
+  // Rays that miss add nothing.
   Ray r;
-  r.ox = p.offset[0] + p.scaling[0] * p.origins[3 * i + 0];
-  r.oy = p.offset[1] + p.scaling[1] * p.origins[3 * i + 1];
-  r.oz = p.offset[2] + p.scaling[2] * p.origins[3 * i + 2];
-  r.dx = p.dirs[3 * i + 0];
-  r.dy = p.dirs[3 * i + 1];
-  r.dz = p.dirs[3 * i + 2];
-  r.ds = svox::delta_scale(p.scaling, r.dx, r.dy, r.dz);
-  r.ivx = 1.f / (r.dx + 1e-9f);
-  r.ivy = 1.f / (r.dy + 1e-9f);
-  r.ivz = 1.f / (r.dz + 1e-9f);
-  svox::dda_unit(r.ox, r.oy, r.oz, r.ivx, r.ivy, r.ivz, r.tmin, r.tmax);
-  if (r.tmax < 0.f || r.tmin > r.tmax) return;
+  if (!svox::setup_ray(p.origins, p.dirs, p.offset, p.scaling, i, r)) return;
   r.vx = p.vdirs[3 * i + 0];
   r.vy = p.vdirs[3 * i + 1];
   r.vz = p.vdirs[3 * i + 2];
@@ -221,10 +231,10 @@ __global__ void __launch_bounds__(kThreads) render_bwd_kernel(const Params p) {
       if (c < nc) acc = acc + o[c] * g[c];
     }
     const float L_ray = 1.f - o[nc];
-    march<FMT, BD, kRot, true, true>(p, r, basis, g, g_alpha, L_ray, L, acc);
+    march<FMT, BD, kRot, true, true, false>(p, r, basis, g, g_alpha, L_ray, L, acc);
   } else {
     acc = 0.f;
-    march<FMT, BD, kRot, true, false>(p, r, basis, g, g_alpha, 0.f, L, acc);
+    march<FMT, BD, kRot, true, false, false>(p, r, basis, g, g_alpha, 0.f, L, acc);
     const float L_ray = L;
     float total_grad = g[0];
 #pragma unroll
@@ -232,7 +242,7 @@ __global__ void __launch_bounds__(kThreads) render_bwd_kernel(const Params p) {
       if (c < nc) total_grad = total_grad + g[c];
     }
     acc = acc + (L_ray * p.bg) * total_grad;
-    march<FMT, BD, kRot, false, true>(p, r, basis, g, g_alpha, L_ray, L, acc);
+    march<FMT, BD, kRot, false, true, false>(p, r, basis, g, g_alpha, L_ray, L, acc);
   }
 }
 
@@ -247,6 +257,24 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   }
   render_bwd_kernel<FMT, BD, false><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// K9a: the sigma-only instance. grad_out and out_res are (B, 1): g_alpha
+// and the forward alpha (single pass), or out_res is null (two passes).
+__global__ void __launch_bounds__(kThreads) opacity_bwd_kernel(const Params p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.B) return;
+  Ray r;
+  if (!svox::setup_ray(p.origins, p.dirs, p.offset, p.scaling, i, r)) return;
+  float L, acc = 0.f, L_ray;
+  if (p.out_res != nullptr) {
+    L_ray = 1.f - p.out_res[i];
+  } else {
+    march<svox::kRGBA, 0, false, false, false, true>(p, r, nullptr, nullptr, 0.f, 0.f, L, acc);
+    L_ray = L;
+  }
+  march<svox::kRGBA, 0, false, false, true, true>(p, r, nullptr, nullptr, p.grad_out[i], L_ray,
+                                                  L, acc);
 }
 
 // Basis instances hold 1, 4, 9, 16 or 25 terms (svox::basis_capacity).
@@ -291,4 +319,27 @@ extern "C" int svox_render_bwd(
     case svox::kASG: return launch_basis<svox::kASG>(p, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// K9a. Rays (B, 3) f32: origins, dirs; tables as svox_render_fwd;
+// grad_out (B, 1) f32; out_res (B, 1) f32 (the forward alpha: single
+// pass) or null (two passes); grad (M, D) f32, zeroed by the caller, of
+// which only column D - 1 is written. All pointers are device pointers.
+// Returns a cudaError_t.
+extern "C" int svox_opacity_bwd(
+    const float* origins, const float* dirs, int B, const int32_t* child,
+    const int32_t* data, int N, int n_levels, const float* offset,
+    const float* scaling, const float* features, int M, int D,
+    float step_size, int max_steps, const float* grad_out,
+    const float* out_res, float* grad, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (B <= 0 || M <= 0) return cudaSuccess;
+  const Params p{origins, dirs, dirs, B, child, data, N, n_levels,
+                 offset, scaling, features, M, D, nullptr, nullptr, 0,
+                 0, 0, 0, 0, step_size, 0.f,
+                 max_steps, grad_out, out_res, grad};
+  const dim3 grid((B + kThreads - 1) / kThreads);
+  opacity_bwd_kernel<<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
 }

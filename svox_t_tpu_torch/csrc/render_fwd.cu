@@ -93,18 +93,8 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params p) {
   const int nb = FMT == svox::kSH ? BD : p.basis_dim;
   float* out = p.out + static_cast<size_t>(i) * (nc + 1);
 
-  // Ray setup (render.py _ray_setup).
-  const float ox = p.offset[0] + p.scaling[0] * p.origins[3 * i + 0];
-  const float oy = p.offset[1] + p.scaling[1] * p.origins[3 * i + 1];
-  const float oz = p.offset[2] + p.scaling[2] * p.origins[3 * i + 2];
-  float dx = p.dirs[3 * i + 0], dy = p.dirs[3 * i + 1], dz = p.dirs[3 * i + 2];
-  const float ds = svox::delta_scale(p.scaling, dx, dy, dz);
-  const float ivx = 1.f / (dx + 1e-9f);
-  const float ivy = 1.f / (dy + 1e-9f);
-  const float ivz = 1.f / (dz + 1e-9f);
-  float tmin, tmax;
-  svox::dda_unit(ox, oy, oz, ivx, ivy, ivz, tmin, tmax);
-  if (tmax < 0.f || tmin > tmax) {
+  svox::Ray r;
+  if (!svox::setup_ray(p.origins, p.dirs, p.offset, p.scaling, i, r)) {
     for (int c = 0; c < nc; ++c) out[c] = p.bg;
     out[nc] = 0.f;
     return;
@@ -122,14 +112,14 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params p) {
   float acc[kMaxColor];
 #pragma unroll
   for (int c = 0; c < kMaxColor; ++c) acc[c] = 0.f;
-  float t = tmin;
+  float t = r.tmin;
   float L = 1.f;
   bool stopped = false;
   for (int step = 0; step < p.max_steps; ++step) {
-    const float px = ox + t * dx, py = oy + t * dy, pz = oz + t * dz;
+    const float px = r.ox + t * r.dx, py = r.oy + t * r.dy, pz = r.oz + t * r.dz;
     const svox::Leaf leaf = svox::descend(p.child, p.N, p.n_levels, px, py, pz);
     float sub_tmin, sub_tmax;
-    svox::dda_unit(leaf.fx, leaf.fy, leaf.fz, ivx, ivy, ivz, sub_tmin, sub_tmax);
+    svox::dda_unit(leaf.fx, leaf.fy, leaf.fz, r.ivx, r.ivy, r.ivz, sub_tmin, sub_tmax);
     const float dt = (sub_tmax - sub_tmin) / leaf.cube_sz + p.step_size;
     const int32_t idx = __ldg(p.data + leaf.flat);
     // Rows >= M (and negative rows) are empty space. Their sigma is 0 and
@@ -139,7 +129,7 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params p) {
       const float* row = p.features + static_cast<size_t>(idx) * p.D;
       const float sigma = __ldg(row + p.D - 1);
       if (sigma > p.sigma_thresh) {
-        const float att = expf((-dt * ds) * sigma);
+        const float att = expf((-dt * r.ds) * sigma);
         const float weight = L * (1.f - att);
         if constexpr (FMT != svox::kRGBA && kRot) {
           const float* m = p.tmats + static_cast<size_t>(idx) * 16;
@@ -175,7 +165,7 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params p) {
       }
     }
     t = t + dt;
-    if (!(t < tmax)) break;
+    if (!(t < r.tmax)) break;
   }
 
 #pragma unroll

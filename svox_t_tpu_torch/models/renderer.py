@@ -1,10 +1,19 @@
 """VolumeRenderer — the user-facing renderer, the counterpart of
-`svox_t_tpu/models/renderer.py` for the serving and training paths:
+`svox_t_tpu/models/renderer.py` for the serving and training paths and
+the aux passes:
 
   forward(features, rays, transformation_matrices=None, fast=False)
   render_persp(features, c2w, width, height, fx, fy, fast=False)
+  opacity_render(features, rays, fast=False)
+  render_depth(features, rays, fast=False)
+  motion_render(features, rays, fast=False)
+  motion_feature_render(features, joint_features, skinning_weights,
+                        joint_index, rays, fast=False)
 
-Both are differentiable with respect to ``features``. `fast=True` sets
+`forward`, `render_persp` and `opacity_render` are differentiable with
+respect to ``features``, `motion_feature_render` with respect to
+``joint_features``; the first-hit passes are not differentiable. The aux
+passes never add into an active weight accumulator. `fast=True` sets
 sigma_thresh = stop_thresh = 1e-2; the attribute overrides
 ``self.sigma_thresh`` / ``self.stop_thresh`` are honored. Rendering runs
 on the device of the tree and the feature pool: on CUDA through the
@@ -26,6 +35,7 @@ import torch
 from torch import nn
 
 from ..ops import render as render_ops
+from ..ops import render_aux as aux_ops
 from ..utils.dataformat import DataFormat
 from ..utils.spec import NDCConfig, Rays, RenderOptions
 
@@ -158,6 +168,40 @@ class VolumeRenderer(nn.Module):
         out = self._render(self.tree._spec(), features, origins.contiguous(),
                            dirs.contiguous(), vdirs, opt)
         return out.reshape(int(height), int(width), -1)
+
+    def opacity_render(self, features, rays: Rays, cuda=True, fast=False):
+        """Alpha-only render, (B, 1); differentiable with respect to
+        ``features``."""
+        del cuda
+        return aux_ops.opacity_render(self.tree._spec(), features, rays.origins,
+                                      rays.dirs, self._get_options(fast))
+
+    def render_depth(self, features, rays: Rays, cuda=True, fast=False):
+        """First-hit depth map, (B, 1)."""
+        del cuda
+        return aux_ops.render_depth(self.tree._spec(), features, rays.origins,
+                                    rays.dirs, self._get_options(fast))
+
+    def motion_render(self, features, rays: Rays, cuda=True, fast=False):
+        """First-hit pass: (motion_feature (B, n_joints), depth (B, 1),
+        hit_point (B, 3), data_idx (B, 1)). The tree's ``extra_data``
+        holds the joint positions. Not differentiable."""
+        del cuda
+        if self.tree.extra_data is None:
+            raise ValueError("motion_render needs the skeleton's joint positions "
+                             "in the tree's extra_data")
+        return aux_ops.motion_render(self.tree._spec(), features, rays.origins,
+                                     rays.dirs, self._get_options(fast))
+
+    def motion_feature_render(self, features, joint_features, skinning_weights,
+                              joint_index, rays: Rays, cuda=True, fast=False):
+        """Volumetric LBS-feature render, (B, joint_feature_dim);
+        differentiable with respect to ``joint_features``."""
+        del cuda
+        spec = self.tree._spec(joint_features=joint_features,
+                               skinning_weights=skinning_weights, joint_index=joint_index)
+        return aux_ops.motion_feature_render(spec, joint_features, features, rays.origins,
+                                             rays.dirs, self._get_options(fast))
 
     def _get_options(self, fast=False) -> RenderOptions:
         """Build the RenderOptions of a call."""

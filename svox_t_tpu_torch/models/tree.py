@@ -121,9 +121,13 @@ class N3Tree:
     # ------------------------------------------------------------------
     # Spec marshaling
 
-    def _spec(self, transformation_matrices=None) -> TreeSpec:
+    def _spec(self, transformation_matrices=None, joint_features=None,
+              skinning_weights=None, joint_index=None) -> TreeSpec:
         """The device TreeSpec (cached until the tree changes).
-        ``transformation_matrices`` (M, 4, 4) are attached per call."""
+
+        ``transformation_matrices`` (M, 4, 4), ``joint_features`` (J, Kd),
+        ``skinning_weights`` and ``joint_index`` (M, n_bones) are attached
+        per call, not cached."""
         if self._cached_spec is None:
             rows = self._parent_depth[: max(self.filled, 1), 1]
             self._cached_spec = make_tree_spec(
@@ -139,11 +143,13 @@ class N3Tree:
                 device=self.device,
             )
         spec = self._cached_spec
-        if transformation_matrices is not None:
-            spec = spec.with_(transformation_matrices=torch.as_tensor(
-                transformation_matrices, dtype=torch.float32, device=self.device
-            ).contiguous())
-        return spec
+        per_call = dict(joint_features=(joint_features, torch.float32),
+                        skinning_weights=(skinning_weights, torch.float32),
+                        joint_index=(joint_index, torch.int32),
+                        transformation_matrices=(transformation_matrices, torch.float32))
+        attach = {k: torch.as_tensor(v, dtype=dt, device=self.device).contiguous()
+                  for k, (v, dt) in per_call.items() if v is not None}
+        return spec.with_(**attach) if attach else spec
 
     # ------------------------------------------------------------------
     # Real-time octree (re)pointing

@@ -459,6 +459,22 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _check_kernel_tensors(spec: TreeSpec, features, rays, name: str) -> None:
+    """Devices, layouts and types of a march kernel's rays, pool and
+    tables."""
+    tables = (spec.child_flat, spec.data_flat, spec.offset, spec.scaling)
+    dev = features.device
+    for t in (features, *rays, *tables):
+        _require(t.is_cuda and t.device == dev, f"{name} needs all tensors on one CUDA device")
+        _require(t.is_contiguous(), f"{name} needs contiguous tensors")
+    for t in (features, *rays, spec.offset, spec.scaling):
+        _require(t.dtype == torch.float32, "rays, features, offset and scaling must be float32")
+    for t in tables[:2]:
+        _require(t.dtype == torch.int32, "child/data tables must be int32")
+    _require(rays[0].shape[0] < 2 ** 31 and spec.child_flat.numel() < 2 ** 31,
+             "too many rays or cells")
+
+
 def _kernel_args(spec: TreeSpec, features, origins, dirs, vdirs,
                  opt: RenderOptions, name: str):
     """Check a march kernel's inputs and return (the shared leading
@@ -483,17 +499,8 @@ def _kernel_args(spec: TreeSpec, features, origins, dirs, vdirs,
         raise NotImplementedError(
             f"the march kernels take at most {KERNEL_MAX_COLORS} color channels, got {n_color}"
         )
-    rays = (origins, dirs, vdirs)
-    tables = (spec.child_flat, spec.data_flat, spec.offset, spec.scaling)
+    _check_kernel_tensors(spec, features, (origins, dirs, vdirs), name)
     dev = features.device
-    for t in (features, *rays, *tables):
-        _require(t.is_cuda and t.device == dev, f"{name} needs all tensors on one CUDA device")
-        _require(t.is_contiguous(), f"{name} needs contiguous tensors")
-    for t in (features, *rays, spec.offset, spec.scaling):
-        _require(t.dtype == torch.float32, "rays, features, offset and scaling must be float32")
-    for t in tables[:2]:
-        _require(t.dtype == torch.int32, "child/data tables must be int32")
-    _require(B < 2 ** 31 and spec.child_flat.numel() < 2 ** 31, "too many rays or cells")
     tm = spec.transformation_matrices if fmt != FORMAT_RGBA else None
     if tm is not None:
         _require(tm.is_cuda and tm.device == dev and tm.is_contiguous()

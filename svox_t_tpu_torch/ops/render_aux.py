@@ -1,0 +1,598 @@
+"""Auxiliary render passes, the counterpart of
+`svox_t_tpu/ops/render_aux.py`: opacity (with its sigma-only VJP), the
+first-hit passes `render_depth` and `motion_render`, and volumetric LBS
+motion-feature rendering (with its corrected VJP).
+
+Each march dispatches on the device of its tensors, as `ops/render.py`
+does: on CUDA it launches its kernel or raises; on the CPU it runs its
+plain PyTorch version, a step loop vectorized over rays that the kernel
+follows operation for operation. The kernels:
+
+  * opacity forward: K2 (`csrc/render_fwd.cu`) with ``dirs`` as view
+    directions, keeping its alpha column, so `opacity_render` equals the
+    render's alpha bit for bit;
+  * opacity backward (K9a): the sigma-only instance of K3
+    (`csrc/render_bwd.cu`, `OPACITY_BWD`);
+  * first hit (K9b), motion-feature forward (K9c) and backward (K9d):
+    `csrc/render_aux.cu` (`FIRST_HIT`, `MF_FWD`, `MF_BWD`).
+
+The march rules are those of `ops/render.py` (the forward's for the
+forward passes, the backward's for the VJPs); the module docstring of
+`csrc/render_aux.cu` states what each pass adds to them. Joint indices
+are clamped to [0, J) where the motion-feature passes read or add a
+joint row, as a JAX gather clamps. `interp`, quantized pools and sharded
+options raise NotImplementedError, as in `ops/render.py`.
+
+State carried across from the JAX package: the tree (with its
+``extra_data`` joints) moves with `tree_state`/`tree_from_numpy`; joint
+features, skinning weights and joint indices are plain arrays that both
+packages take, so NumPy copies of them serve both.
+"""
+
+from __future__ import annotations
+
+from ctypes import c_float, c_int, c_void_p
+from typing import NamedTuple
+
+import torch
+
+from .._build import Kernel
+from ..utils.spec import RenderOptions, TreeSpec
+from . import render as render_ops
+from .render import _check_kernel_tensors, _ray_setup, _require, _sigmoid, _stream
+from .traversal import LeafInfo, dda_unit, descend, tree2world
+
+# Leading arguments of the four aux entry points, in order.
+_AUX_ARGS = [
+    c_void_p, c_void_p, c_int,                      # origins, dirs, B
+    c_void_p, c_void_p, c_int, c_int,               # child, data, N, n_levels
+    c_void_p, c_void_p, c_void_p, c_int, c_int,     # offset, scaling, features, M, D
+    c_float, c_int,                                 # step, max_steps
+]
+OPACITY_BWD = Kernel(
+    "svox_opacity_bwd",
+    _AUX_ARGS + [c_void_p, c_void_p, c_void_p,      # grad_out, out_res, grad
+                 c_int, c_void_p],                  # device, stream
+)
+FIRST_HIT = Kernel(
+    "svox_first_hit",
+    _AUX_ARGS + [c_float,                           # sigma_thresh
+                 c_void_p, c_void_p, c_void_p, c_void_p,  # found, t_hit, row, frac
+                 c_int, c_void_p],
+)
+_MF_ARGS = _AUX_ARGS + [c_void_p, c_int, c_int,     # joint_features, J, Kd
+                        c_void_p, c_void_p, c_int]  # skinning_weights, joint_index, nb
+MF_FWD = Kernel(
+    "svox_mf_fwd",
+    _MF_ARGS + [c_float, c_float, c_float,          # sigma/stop thresh, bg
+                c_void_p, c_int, c_void_p],         # out, device, stream
+)
+MF_BWD = Kernel(
+    "svox_mf_bwd",
+    _MF_ARGS + [c_void_p, c_void_p, c_int, c_void_p],  # grad_out, grad, device, stream
+)
+# Joint-feature columns the motion-feature kernels hold in registers, and
+# the largest joint table the backward sums in 48 KB of shared memory, in
+# floats: J * (Kd | 1), its rows padded to an odd stride.
+KERNEL_MAX_JOINT_DIM = 32
+KERNEL_MAX_JOINT_TABLE = 12288
+
+
+def _check(spec: TreeSpec, features, origins, dirs, opt: RenderOptions) -> None:
+    render_ops._check_supported(spec, features, origins, dirs, dirs, opt)
+
+
+def _aux_args(spec: TreeSpec, features, origins, dirs, opt: RenderOptions, name: str):
+    """Check an aux kernel's inputs and return the leading arguments
+    (`_AUX_ARGS`)."""
+    _check(spec, features, origins, dirs, opt)
+    _check_kernel_tensors(spec, features, (origins, dirs), name)
+    M, D = features.shape
+    return (
+        origins.data_ptr(), dirs.data_ptr(), origins.shape[0],
+        spec.child_flat.data_ptr(), spec.data_flat.data_ptr(), spec.N, spec.n_levels,
+        spec.offset.data_ptr(), spec.scaling.data_ptr(), features.data_ptr(), M, D,
+        opt.step_size, opt.max_steps,
+    )
+
+
+class _Sample(NamedTuple):
+    leaf: LeafInfo
+    dt: torch.Tensor
+    idx: torch.Tensor
+    resident: torch.Tensor  # row < M
+    rows: torch.Tensor      # idx where resident, else 0 (int64)
+    sigma: torch.Tensor     # 0 in empty space
+
+
+def _sample(spec: TreeSpec, features, opt: RenderOptions, rays, t) -> _Sample:
+    """One sample of every ray at t (plain): its leaf, step, row and sigma."""
+    o, d, invdir = rays[:3]
+    leaf = descend(spec, o + t[:, None] * d)
+    sub_tmin, sub_tmax = dda_unit(leaf.frac, invdir)
+    dt = (sub_tmax - sub_tmin) / leaf.cube_sz + opt.step_size
+    idx = leaf.data_idx
+    resident = (idx >= 0) & (idx < features.shape[0])
+    rows = torch.where(resident, idx, 0).long()
+    sigma = torch.where(resident, features[rows, -1], 0.0)
+    return _Sample(leaf, dt, idx, resident, rows, sigma)
+
+
+# ---------------------------------------------------------------------------
+# Opacity
+# ---------------------------------------------------------------------------
+
+
+def opacity_render(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
+                   dirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
+    """Alpha-only render, (B, 1) = 1 - transmittance; differentiable with
+    respect to ``features`` (the gradient lands in column D - 1)."""
+    return _OpacityFn.apply(spec, features, origins, dirs, opt)
+
+
+class _OpacityFn(torch.autograd.Function):
+    """`opacity_render` with the sigma-only VJP (JAX: its custom_vjp).
+    The spec and options are captured at forward time."""
+
+    @staticmethod
+    def forward(ctx, spec, features, origins, dirs, opt):
+        out, _ = render_ops._render(spec, features, origins, dirs, dirs, opt, False)
+        alpha = out[:, -1:].contiguous()
+        ctx.save_for_backward(features, origins, dirs, alpha)
+        ctx.spec, ctx.opt = spec, opt
+        return alpha
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if not ctx.needs_input_grad[1]:
+            return None, None, None, None, None
+        features, origins, dirs, alpha = ctx.saved_tensors
+        grad = opacity_backward(ctx.spec, features, origins, dirs,
+                                grad_out.contiguous(), ctx.opt, out_res=alpha)
+        return None, grad, None, None, None
+
+
+def _single_pass(opt: RenderOptions, out_res) -> bool:
+    return opt.sigma_thresh == 0.0 and opt.stop_thresh <= 0.0 and out_res is not None
+
+
+def _check_alpha_grads(features, origins, grad_out, out_res) -> None:
+    for name, g in (("grad_out", grad_out), ("out_res", out_res)):
+        if g is not None and tuple(g.shape) != (origins.shape[0], 1):
+            raise ValueError(f"{name} must be (B, 1), got {tuple(g.shape)}")
+        if g is not None and g.device != features.device:
+            raise ValueError(f"{name} on {g.device}, features on {features.device}")
+
+
+def opacity_backward(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
+                     dirs: torch.Tensor, grad_out: torch.Tensor, opt: RenderOptions,
+                     out_res=None) -> torch.Tensor:
+    """Gradient of `opacity_render` with respect to the pool, (M, D), zero
+    but in column D - 1. With ``out_res`` (the forward alpha) and exact
+    options it takes one pass, otherwise two."""
+    if origins.is_cuda:
+        return opacity_backward_cuda(spec, features, origins, dirs, grad_out, opt, out_res)
+    return opacity_backward_plain(spec, features, origins, dirs, grad_out, opt, out_res)
+
+
+def opacity_backward_plain(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
+                           dirs: torch.Tensor, grad_out: torch.Tensor, opt: RenderOptions,
+                           out_res=None) -> torch.Tensor:
+    """Plain PyTorch version of the opacity VJP kernel (K9a).
+
+    The backward's rules: samples while hit and ``t < tmax``, a sample
+    contributes where its row is < M and ``sigma > 0``, no early stop.
+    Each contributing sample adds ``dt*ds * (g * L_ray)`` into column
+    D - 1, with ``L_ray = 1 - alpha`` (single pass) or the final L of a
+    first march under the same rules (two passes)."""
+    _check(spec, features, origins, dirs, opt)
+    _check_alpha_grads(features, origins, grad_out, out_res)
+    M, D = features.shape
+    grad = torch.zeros(M, D, dtype=features.dtype, device=features.device)
+    if M == 0 or origins.shape[0] == 0:
+        return grad
+    rays = _ray_setup(spec, origins, dirs)
+    g = grad_out[:, 0]
+    if _single_pass(opt, out_res):
+        L_ray = 1.0 - out_res[:, 0]
+    else:
+        L_ray = _opacity_march_plain(spec, features, opt, rays, None, None)
+    _opacity_march_plain(spec, features, opt, rays, g * L_ray, grad)
+    return grad
+
+
+def _opacity_march_plain(spec, features, opt, rays, gL, grad):
+    """One sigma-only backward march; adds ``dt*ds * gL`` into column
+    D - 1 of ``grad`` when given. Returns the final L."""
+    o, d, invdir, delta_scale, tmin, tmax, hit = rays
+    t = tmin
+    L = torch.ones_like(tmin)
+    col = torch.zeros(features.shape[0], dtype=L.dtype, device=L.device)
+    for _ in range(opt.max_steps):
+        active = hit & (t < tmax)
+        if not bool(active.any()):
+            break
+        s = _sample(spec, features, opt, rays, t)
+        contrib = active & s.resident & (s.sigma > 0.0)
+        att = torch.exp(-s.dt * delta_scale * s.sigma)
+        if grad is not None:
+            col.index_add_(0, s.rows[contrib], ((s.dt * delta_scale) * gL)[contrib])
+        L = torch.where(contrib, L * att, L)
+        t = torch.where(active, t + s.dt, t)
+    if grad is not None:
+        grad[:, -1] = col
+    return L
+
+
+def opacity_backward_cuda(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
+                          dirs: torch.Tensor, grad_out: torch.Tensor, opt: RenderOptions,
+                          out_res=None) -> torch.Tensor:
+    """Launch the opacity VJP kernel (K9a, `csrc/render_bwd.cu`) into a
+    zeroed (M, D) gradient. An empty pool or ray batch returns zeros
+    without a launch."""
+    args = _aux_args(spec, features, origins, dirs, opt, "opacity_backward_cuda")
+    _check_alpha_grads(features, origins, grad_out, out_res)
+    single = _single_pass(opt, out_res)
+    for t in (grad_out, out_res if single else None):
+        if t is not None:
+            _require(t.is_contiguous() and t.dtype == torch.float32,
+                     "grad_out and out_res must be contiguous float32")
+    M, D = features.shape
+    dev = features.device
+    grad = torch.zeros(M, D, dtype=torch.float32, device=dev)
+    if M == 0 or origins.shape[0] == 0:
+        return grad
+    OPACITY_BWD(*args, grad_out.data_ptr(), out_res.data_ptr() if single else None,
+                grad.data_ptr(), *_stream(dev))
+    return grad
+
+
+# ---------------------------------------------------------------------------
+# First-hit passes: depth and motion features
+# ---------------------------------------------------------------------------
+
+
+def first_hit(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
+              dirs: torch.Tensor, opt: RenderOptions):
+    """March to the first sample with sigma > sigma_thresh in a resident
+    leaf.
+
+    :return: (found (B,) bool, t_hit (B,) float32 — the t of the first
+        sample over the threshold —, row (B,) int32 and frac (B, 3), the
+        in-leaf fraction of the point o + t_hit * d, both 0 where not
+        found)
+    """
+    if origins.is_cuda:
+        return first_hit_cuda(spec, features, origins, dirs, opt)
+    return first_hit_plain(spec, features, origins, dirs, opt)
+
+
+def first_hit_plain(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
+                    dirs: torch.Tensor, opt: RenderOptions):
+    """Plain PyTorch version of the first-hit kernel (K9b)."""
+    _check(spec, features, origins, dirs, opt)
+    B = origins.shape[0]
+    M = features.shape[0]
+    dev = origins.device
+    rays = _ray_setup(spec, origins, dirs)
+    o, d, _, _, tmin, tmax, hit = rays
+    found = torch.zeros(B, dtype=torch.bool, device=dev)
+    found_t = torch.zeros_like(found)
+    same = torch.zeros_like(found)
+    t_hit = torch.zeros(B, dtype=torch.float32, device=dev)
+    row = torch.zeros(B, dtype=torch.int32, device=dev)
+    frac = torch.zeros(B, 3, dtype=torch.float32, device=dev)
+    t = tmin
+    # With an empty pool no sample is resident: nothing is found.
+    active = hit.clone() if M > 0 else torch.zeros_like(hit)
+    for _ in range(opt.max_steps):
+        if not bool(active.any()):
+            break
+        s = _sample(spec, features, opt, rays, t)
+        over = active & (s.sigma > opt.sigma_thresh)
+        first = over & ~found_t
+        t_hit = torch.where(first, t, t_hit)
+        found_t = found_t | over
+        now = over & s.resident
+        found = found | now
+        same = torch.where(now, first, same)
+        row = torch.where(now, s.idx, row)
+        frac = torch.where(now[:, None], s.leaf.frac, frac)
+        active = active & ~now
+        t = torch.where(active, t + s.dt, t)
+        active = active & (t < tmax)
+    redo = found & ~same
+    if bool(redo.any()):
+        # sigma_thresh < 0: t_hit lies before the resident sample.
+        frac[redo] = descend(spec, o[redo] + t_hit[redo][:, None] * d[redo]).frac
+    return found, t_hit, row, frac
+
+
+def first_hit_cuda(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
+                   dirs: torch.Tensor, opt: RenderOptions):
+    """Launch the first-hit kernel (K9b, `csrc/render_aux.cu`)."""
+    args = _aux_args(spec, features, origins, dirs, opt, "first_hit_cuda")
+    B = origins.shape[0]
+    dev = features.device
+    found = torch.zeros(B, dtype=torch.bool, device=dev)
+    t_hit = torch.zeros(B, dtype=torch.float32, device=dev)
+    row = torch.zeros(B, dtype=torch.int32, device=dev)
+    frac = torch.zeros(B, 3, dtype=torch.float32, device=dev)
+    if B == 0 or features.shape[0] == 0:
+        return found, t_hit, row, frac
+    FIRST_HIT(*args, opt.sigma_thresh, found.data_ptr(), t_hit.data_ptr(),
+              row.data_ptr(), frac.data_ptr(), *_stream(dev))
+    return found, t_hit, row, frac
+
+
+def render_depth(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
+                 dirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
+    """First-hit depth ``t_hit * delta_scale``, (B, 1); 0 where no hit."""
+    found, t_hit, _, _ = first_hit(spec, features, origins, dirs, opt)
+    delta_scale = _ray_setup(spec, origins, dirs)[3]
+    return torch.where(found, t_hit * delta_scale, 0.0)[:, None]
+
+
+def motion_render(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
+                  dirs: torch.Tensor, opt: RenderOptions):
+    """First-hit skeleton-distance features.
+
+    ``spec.extra_data`` rows hold joint positions (first 3 columns). With
+    ``opt.compat_hit_point`` the hit point is the world transform of the
+    in-leaf fraction at the hit, as in the CUDA reference, instead of the
+    sample position.
+
+    :return: (motion_feature (B, n_joints), depth (B, 1), hit_point world
+        (B, 3), data_idx (B, 1) int32), all 0 where no hit
+    """
+    if spec.extra_data is None:
+        raise ValueError("motion_render needs extra_data joints")
+    found, t_hit, row, frac = first_hit(spec, features, origins, dirs, opt)
+    o, d, _, delta_scale = _ray_setup(spec, origins, dirs)[:4]
+    pos = frac if opt.compat_hit_point else o + t_hit[:, None] * d
+    pos = torch.where(found[:, None], pos, 0.0)
+    world = torch.where(found[:, None], tree2world(pos, spec.offset, spec.scaling), 0.0)
+    joints = spec.extra_data[:, :3]
+    dist = torch.linalg.norm(world[:, None, :] - joints[None, :, :], dim=-1)
+    motion = torch.where(found[:, None], dist, 0.0)
+    depth = torch.where(found, t_hit * delta_scale, 0.0)[:, None]
+    data_idx = torch.where(found, row, 0)[:, None]
+    return motion, depth, world, data_idx
+
+
+# ---------------------------------------------------------------------------
+# Volumetric LBS motion-feature rendering
+# ---------------------------------------------------------------------------
+
+
+def motion_feature_render(spec: TreeSpec, joint_features: torch.Tensor,
+                          features: torch.Tensor, origins: torch.Tensor,
+                          dirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
+    """Volumetric LBS-feature render, (B, Kd), differentiable with respect
+    to ``joint_features`` (J, Kd); ``spec.skinning_weights`` and
+    ``spec.joint_index`` (M, n_bones) give each pool row its bones. The
+    gradient is the JAX package's corrected one: exact for
+    ``stop_thresh == 0``; under fast options it ignores early stop, as
+    the JAX package's does."""
+    return _MotionFeatureFn.apply(spec, joint_features, features, origins, dirs, opt)
+
+
+class _MotionFeatureFn(torch.autograd.Function):
+    """`motion_feature_render` (JAX: its custom_vjp): a gradient for the
+    joint features only, none for the pool. The spec and options are
+    captured at forward time."""
+
+    @staticmethod
+    def forward(ctx, spec, joint_features, features, origins, dirs, opt):
+        if origins.is_cuda:
+            out = motion_feature_forward_cuda(spec, joint_features, features, origins, dirs, opt)
+        else:
+            out = motion_feature_render_plain(spec, joint_features, features, origins, dirs, opt)
+        ctx.save_for_backward(joint_features, features, origins, dirs)
+        ctx.spec, ctx.opt = spec, opt
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if not ctx.needs_input_grad[1]:
+            return None, None, None, None, None, None
+        joint_features, features, origins, dirs = ctx.saved_tensors
+        grad = motion_feature_backward(ctx.spec, joint_features, features, origins, dirs,
+                                       grad_out.contiguous(), ctx.opt)
+        return None, grad, None, None, None, None
+
+
+def _lbs_tables(spec: TreeSpec, joint_features, features):
+    """Check the LBS inputs; return (skinning_weights, joint_index)."""
+    sw, ji = spec.skinning_weights, spec.joint_index
+    if sw is None or ji is None:
+        raise ValueError("motion_feature_render needs skinning_weights and joint_index")
+    M = features.shape[0]
+    if sw.ndim != 2 or tuple(ji.shape) != tuple(sw.shape) or sw.shape[0] < M:
+        raise ValueError(f"skinning_weights and joint_index must be (M, n_bones) with M >= "
+                         f"{M}, got {tuple(sw.shape)} and {tuple(ji.shape)}")
+    if joint_features.ndim != 2 or joint_features.shape[0] < 1:
+        raise ValueError(f"joint_features must be (J, Kd), got {tuple(joint_features.shape)}")
+    for t in (sw, ji, joint_features):
+        if t.device != features.device:
+            raise ValueError(f"LBS tables on {t.device}, features on {features.device}")
+    return sw, ji
+
+
+def _blend(sw_r, ji_r, joint_features, ok):
+    """LBS blend per sample, (B, Kd): bones in order, weight sw where
+    sw > 0 and the sample is ``ok``, else 0."""
+    J = joint_features.shape[0]
+    b = torch.zeros(sw_r.shape[0], joint_features.shape[1], dtype=joint_features.dtype,
+                    device=joint_features.device)
+    for n in range(sw_r.shape[1]):
+        w = torch.where(ok & (sw_r[:, n] > 0), sw_r[:, n], 0.0)
+        b = b + w[:, None] * joint_features[ji_r[:, n].clamp(0, J - 1).long()]
+    return b
+
+
+def motion_feature_render_plain(spec: TreeSpec, joint_features: torch.Tensor,
+                                features: torch.Tensor, origins: torch.Tensor,
+                                dirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
+    """Plain PyTorch version of the motion-feature forward kernel (K9c):
+    attenuation where sigma > sigma_thresh, contribution where also the
+    row is < M, early stop as the main render, misses 0."""
+    _check(spec, features, origins, dirs, opt)
+    sw, ji = _lbs_tables(spec, joint_features, features)
+    B = origins.shape[0]
+    M = features.shape[0]
+    rays = _ray_setup(spec, origins, dirs)
+    delta_scale, tmin, tmax, hit = rays[3:]
+    can_stop = opt.stop_thresh > 0.0
+    out = torch.zeros(B, joint_features.shape[1], dtype=joint_features.dtype, device=origins.device)
+    L = torch.ones_like(tmin)
+    stopped = torch.zeros_like(hit)
+    t = tmin
+    # With an empty pool no sample attenuates or contributes.
+    active = hit.clone() if M > 0 else torch.zeros_like(hit)
+    for _ in range(opt.max_steps):
+        if not bool(active.any()):
+            break
+        s = _sample(spec, features, opt, rays, t)
+        gate = active & (s.sigma > opt.sigma_thresh)
+        contrib = gate & s.resident
+        att = torch.exp(-s.dt * delta_scale * s.sigma)
+        weight = L * (1.0 - att)
+        col = _sigmoid(_blend(sw[s.rows], ji[s.rows], joint_features, contrib))
+        out = torch.where(contrib[:, None], out + weight[:, None] * col, out)
+        L = torch.where(gate, L * att, L)
+        if can_stop:
+            stop = gate & (L <= opt.stop_thresh)
+            out = torch.where(stop[:, None], out * (1.0 / (1.0 - L))[:, None], out)
+            stopped = stopped | stop
+            active = active & ~stop
+        t = torch.where(active, t + s.dt, t)
+        active = active & (t < tmax)
+    out = torch.where(stopped[:, None], out, out + (L * opt.background_brightness)[:, None])
+    return torch.where(hit[:, None], out, 0.0)
+
+
+def _mf_kernel_args(spec, joint_features, features, origins, dirs, opt, name, backward):
+    """Check a motion-feature kernel's inputs, sizes first, and return
+    its arguments up to nb (`_MF_ARGS`)."""
+    sw, ji = _lbs_tables(spec, joint_features, features)
+    J, Kd = joint_features.shape
+    if Kd > KERNEL_MAX_JOINT_DIM:
+        raise NotImplementedError(
+            f"the motion-feature kernels take at most {KERNEL_MAX_JOINT_DIM} joint-feature "
+            f"columns, got {Kd}"
+        )
+    if backward and J * (Kd | 1) > KERNEL_MAX_JOINT_TABLE:
+        raise NotImplementedError(
+            f"the motion-feature backward kernel holds at most {KERNEL_MAX_JOINT_TABLE} "
+            f"joint-table floats (48 KB of shared memory), got J * (Kd | 1) = {J * (Kd | 1)}"
+        )
+    args = _aux_args(spec, features, origins, dirs, opt, name)
+    for t in (sw, ji, joint_features):
+        _require(t.is_cuda and t.is_contiguous(), f"{name} needs contiguous CUDA LBS tables")
+    _require(sw.dtype == torch.float32 and joint_features.dtype == torch.float32,
+             "skinning_weights and joint_features must be float32")
+    _require(ji.dtype == torch.int32, "joint_index must be int32")
+    return args + (joint_features.data_ptr(), J, Kd, sw.data_ptr(), ji.data_ptr(), sw.shape[1])
+
+
+def motion_feature_forward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
+                                features: torch.Tensor, origins: torch.Tensor,
+                                dirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
+    """Launch the motion-feature forward kernel (K9c, `csrc/render_aux.cu`)."""
+    args = _mf_kernel_args(spec, joint_features, features, origins, dirs, opt,
+                           "motion_feature_forward_cuda", backward=False)
+    dev = features.device
+    out = torch.empty(origins.shape[0], joint_features.shape[1], dtype=torch.float32, device=dev)
+    if out.shape[0] == 0:
+        return out
+    MF_FWD(*args, opt.sigma_thresh, opt.stop_thresh, opt.background_brightness,
+           out.data_ptr(), *_stream(dev))
+    return out
+
+
+def motion_feature_backward(spec: TreeSpec, joint_features: torch.Tensor,
+                            features: torch.Tensor, origins: torch.Tensor,
+                            dirs: torch.Tensor, grad_out: torch.Tensor,
+                            opt: RenderOptions) -> torch.Tensor:
+    """Gradient of `motion_feature_render` with respect to the joint
+    features, (J, Kd)."""
+    if origins.is_cuda:
+        return motion_feature_backward_cuda(spec, joint_features, features, origins, dirs,
+                                            grad_out, opt)
+    return motion_feature_backward_plain(spec, joint_features, features, origins, dirs,
+                                         grad_out, opt)
+
+
+def _check_mf_grad(joint_features, origins, grad_out) -> None:
+    want = (origins.shape[0], joint_features.shape[1])
+    if tuple(grad_out.shape) != want:
+        raise ValueError(f"grad_out must be {want}, got {tuple(grad_out.shape)}")
+    if grad_out.device != origins.device:
+        raise ValueError(f"grad_out on {grad_out.device}, rays on {origins.device}")
+
+
+def motion_feature_backward_plain(spec: TreeSpec, joint_features: torch.Tensor,
+                                  features: torch.Tensor, origins: torch.Tensor,
+                                  dirs: torch.Tensor, grad_out: torch.Tensor,
+                                  opt: RenderOptions) -> torch.Tensor:
+    """Plain PyTorch version of the motion-feature VJP kernel (K9d): the
+    backward's rules (samples while ``t < tmax``, gate ``sigma > 0``, no
+    early stop); per contributing sample and bone with ``sw > 0`` it adds
+    ``sw * ((weight * s) * (1 - s)) * g`` into the bone's joint row.
+
+    Every joint entry sums the terms of many rays and samples (~10^5 on
+    an 800x800 image), so the terms, computed as the kernel computes
+    them, are summed in float64: this version is then the exact sum the
+    kernel's float32 atomics approximate."""
+    _check(spec, features, origins, dirs, opt)
+    sw, ji = _lbs_tables(spec, joint_features, features)
+    _check_mf_grad(joint_features, origins, grad_out)
+    J = joint_features.shape[0]
+    grad = torch.zeros_like(joint_features, dtype=torch.float64)
+    if features.shape[0] == 0 or origins.shape[0] == 0:
+        return grad.to(joint_features.dtype)
+    rays = _ray_setup(spec, origins, dirs)
+    delta_scale, tmin, tmax, hit = rays[3:]
+    t = tmin
+    L = torch.ones_like(tmin)
+    for _ in range(opt.max_steps):
+        active = hit & (t < tmax)
+        if not bool(active.any()):
+            break
+        s = _sample(spec, features, opt, rays, t)
+        contrib = active & s.resident & (s.sigma > 0.0)
+        att = torch.exp(-s.dt * delta_scale * s.sigma)
+        weight = L * (1.0 - att)
+        sw_r, ji_r = sw[s.rows], ji[s.rows]
+        col = _sigmoid(_blend(sw_r, ji_r, joint_features, contrib))
+        gb = ((weight[:, None] * col) * (1.0 - col)) * grad_out
+        for n in range(sw.shape[1]):
+            ok = contrib & (sw_r[:, n] > 0)
+            grad.index_add_(0, ji_r[ok, n].clamp(0, J - 1).long(),
+                            (sw_r[ok, n, None] * gb[ok]).double())
+        L = torch.where(contrib, L * att, L)
+        t = torch.where(active, t + s.dt, t)
+    return grad.to(joint_features.dtype)
+
+
+def motion_feature_backward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
+                                 features: torch.Tensor, origins: torch.Tensor,
+                                 dirs: torch.Tensor, grad_out: torch.Tensor,
+                                 opt: RenderOptions) -> torch.Tensor:
+    """Launch the motion-feature VJP kernel (K9d, `csrc/render_aux.cu`)
+    into a zeroed (J, Kd) gradient. Each block sums its rays into a copy
+    of the joint table in shared memory, so J * (Kd | 1) is at most
+    `KERNEL_MAX_JOINT_TABLE`."""
+    args = _mf_kernel_args(spec, joint_features, features, origins, dirs, opt,
+                           "motion_feature_backward_cuda", backward=True)
+    _check_mf_grad(joint_features, origins, grad_out)
+    J, Kd = joint_features.shape
+    _require(grad_out.is_contiguous() and grad_out.dtype == torch.float32,
+             "grad_out must be contiguous float32")
+    dev = features.device
+    grad = torch.zeros(J, Kd, dtype=torch.float32, device=dev)
+    if features.shape[0] == 0 or origins.shape[0] == 0:
+        return grad
+    MF_BWD(*args, grad_out.data_ptr(), grad.data_ptr(), *_stream(dev))
+    return grad

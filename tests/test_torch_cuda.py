@@ -16,6 +16,8 @@ can differ. Gradients and accumulated weights agree to
 in an order that changes from run to run.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ import torch
 import svox_t_tpu_torch as stt
 from svox_t_tpu_torch.ops import query as tquery
 from svox_t_tpu_torch.ops import render as trender
+from svox_t_tpu_torch.ops import render_aux as taux
 from svox_t_tpu_torch.utils.scenes import build_shell_tree, orbit_camera, random_lobes
 
 pytestmark = pytest.mark.requires_cuda
@@ -317,3 +320,125 @@ def test_cuda_paths_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="float32"):
         tquery.query_backward_cuda(torch.zeros(4, dtype=torch.int32, device=cuda),
                                    torch.zeros(4, 3, dtype=torch.float64, device=cuda), 5)
+
+
+def _lbs(cuda, M, J, kd, nb, seed):
+    """Seeded joint features (J, kd), skinning weights (M, nb) with some
+    zero or negative bones, and joint indices (M, nb)."""
+    rng = np.random.RandomState(seed)
+    jf = torch.from_numpy(rng.randn(J, kd).astype(np.float32)).to(cuda)
+    sw = torch.from_numpy((rng.rand(M, nb) - 0.2).astype(np.float32)).to(cuda)
+    ji = torch.from_numpy(rng.randint(0, J, (M, nb)).astype(np.int32)).to(cuda)
+    return jf, sw, ji
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_opacity_kernels_match_plain(cuda, fast):
+    """Forward: the render's alpha bit for bit. VJP (single pass exact, two
+    passes fast) against its plain version; a pool with large color
+    columns shows that nothing but column D - 1 is written."""
+    tree, feats, _ = _shell(cuda, seed=21)
+    feats = feats.clone()
+    feats[:, :-1] *= 100.0
+    o, d = _rays(cuda, 2048)
+    r = stt.VolumeRenderer(tree)
+    opt = r._get_options(fast)
+    spec = tree._spec()
+    f = feats.clone().requires_grad_()
+    g = torch.randn(o.shape[0], 1, generator=torch.Generator().manual_seed(21)).to(cuda)
+    before = taux.OPACITY_BWD.launches
+    alpha = r.opacity_render(f, stt.Rays(o, d, d), fast=fast)
+    (gf,) = torch.autograd.grad((alpha * g).sum(), f)
+    torch.cuda.synchronize()
+    assert taux.OPACITY_BWD.launches == before + 1
+    assert torch.equal(alpha.detach(), trender.volume_render_cuda(spec, feats, o, d, d, opt)[:, -1:])
+    want = taux.opacity_backward_plain(spec, feats, o, d, g, opt, out_res=alpha.detach())
+    _assert_atomic_close(gf, want)
+    assert not gf[:, :-1].any() and float(gf[:, -1].abs().max()) > 0
+
+
+@pytest.mark.parametrize("sigma_thresh", [0.0, 1e-2, -1.0])
+def test_first_hit_kernel_matches_plain(cuda, sigma_thresh):
+    tree, feats, _ = _shell(cuda, seed=22)
+    o, d = _rays(cuda, 2048)
+    r = stt.VolumeRenderer(tree)
+    opt = dataclasses.replace(r._get_options(), sigma_thresh=sigma_thresh)
+    spec = tree._spec()
+    before = taux.FIRST_HIT.launches
+    got = taux.first_hit(spec, feats, o, d, opt)
+    torch.cuda.synchronize()
+    assert taux.FIRST_HIT.launches == before + 1
+    want = taux.first_hit_plain(spec, feats, o, d, opt)
+    for name, g, w in zip(("found", "t_hit", "row"), got[:3], want[:3]):
+        assert torch.equal(g, w), name
+    torch.testing.assert_close(got[3], want[3], atol=ATOL, rtol=0)
+    assert bool(got[0].any()) and not bool(got[0].all())
+
+
+@pytest.mark.parametrize("kd", [3, 8, 13, 32])
+@pytest.mark.parametrize("nb", [1, 4])
+@pytest.mark.parametrize("fast", [False, True])
+def test_motion_feature_kernels_match_plain(cuda, kd, nb, fast):
+    """Each Kd capacity (4, 8, 16, 32), below and at it, with one and four
+    bones: the forward at ATOL, the VJP at the atomic tolerance."""
+    tree, feats, _ = _shell(cuda, seed=23)
+    o, d = _rays(cuda, 2048)
+    r = stt.VolumeRenderer(tree)
+    opt = r._get_options(fast)
+    jf, sw, ji = _lbs(cuda, feats.shape[0], 7, kd, nb, seed=kd + nb)
+    spec = tree._spec(joint_features=jf, skinning_weights=sw, joint_index=ji)
+    before = (taux.MF_FWD.launches, taux.MF_BWD.launches)
+    x = jf.clone().requires_grad_()
+    out = r.motion_feature_render(feats, x, sw, ji, stt.Rays(o, d, d), fast=fast)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(kd)).to(cuda)
+    (gx,) = torch.autograd.grad((out * g).sum(), x)
+    torch.cuda.synchronize()
+    assert (taux.MF_FWD.launches, taux.MF_BWD.launches) == (before[0] + 1, before[1] + 1)
+    want = taux.motion_feature_render_plain(spec, jf, feats, o, d, opt)
+    torch.testing.assert_close(out.detach(), want, atol=ATOL, rtol=0)
+    _assert_atomic_close(gx, taux.motion_feature_backward_plain(spec, jf, feats, o, d, g, opt))
+    assert float(gx.abs().max()) > 0
+
+
+def test_motion_feature_backward_at_the_shared_table_limit(cuda):
+    """J * (Kd | 1) just under KERNEL_MAX_JOINT_TABLE: the padded joint
+    table fills 48 KB of shared memory."""
+    tree, feats, _ = _shell(cuda, seed=25)
+    o, d = _rays(cuda, 2048)
+    opt = stt.VolumeRenderer(tree)._get_options()
+    J = taux.KERNEL_MAX_JOINT_TABLE // 33
+    jf, sw, ji = _lbs(cuda, feats.shape[0], J, 32, 4, seed=25)
+    spec = tree._spec(joint_features=jf, skinning_weights=sw, joint_index=ji)
+    g = torch.randn(o.shape[0], 32, generator=torch.Generator().manual_seed(25)).to(cuda)
+    got = taux.motion_feature_backward_cuda(spec, jf, feats, o, d, g, opt)
+    want = taux.motion_feature_backward_plain(spec, jf, feats, o, d, g, opt)
+    _assert_atomic_close(got, want)
+    assert int((got != 0).any(dim=1).sum()) > J // 2
+
+
+def test_aux_entry_points_use_the_kernels(cuda):
+    """The four VolumeRenderer aux methods launch their kernels; misses
+    give depth 0 and motion features 0."""
+    tree, feats, _ = _shell(cuda, seed=24)
+    state = stt.tree_state(tree)
+    state["extra_data"] = np.random.RandomState(24).rand(6, 3).astype(np.float32)
+    tree = stt.tree_from_numpy(state, device=cuda)
+    o, d = _rays(cuda, 256)
+    rays = stt.Rays(o, d, d)
+    r = stt.VolumeRenderer(tree)
+    jf, sw, ji = _lbs(cuda, feats.shape[0], 6, 16, 4, seed=24)
+    counts = lambda: (trender.RENDER_FWD.launches, taux.FIRST_HIT.launches, taux.MF_FWD.launches)
+    before = counts()
+    alpha = r.opacity_render(feats, rays)
+    depth = r.render_depth(feats, rays)
+    motion, depth_m, hit, didx = r.motion_render(feats, rays)
+    mf = r.motion_feature_render(feats, jf, sw, ji, rays)
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 2, before[2] + 1)
+    assert torch.equal(depth, depth_m)
+    miss = alpha[:, 0] == 0
+    assert bool(miss.any()) and bool((depth[:, 0] > 0).any())
+    assert not depth[miss].any() and not motion[miss].any()
+    cube_miss = ~trender._ray_setup(tree._spec(), o, d)[-1]
+    assert bool(cube_miss.any()) and not mf[cube_miss].any()
+    assert bool((didx[depth[:, 0] > 0] < feats.shape[0]).all())

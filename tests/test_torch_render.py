@@ -231,10 +231,9 @@ def test_golden_scenes_march_matches_jax_oracle(depth, fmt, ddim, size):
     _compare(got, want)
 
 
-def test_requires_grad_raises():
-    """Named for the raise it once pinned: a pool that requires grad now
-    trains. Gradients flow through forward and render_persp, and no_grad
-    renders stay detached."""
+def test_requires_grad_flows():
+    """A pool that requires grad trains: gradients flow through forward
+    and render_persp, and no_grad renders stay detached."""
     rng, jt, pt, feats, rays = _scene(9)
     f = _t(feats).requires_grad_()
     r = stt.VolumeRenderer(pt)
@@ -268,7 +267,7 @@ def test_unported_options_raise():
     assert acc().shape == (pt.n_leaves,) and float(acc().sum()) > 0
 
 
-def test_kernel_wrapper_rejects_cpu_and_sg():
+def test_kernel_wrapper_rejects_cpu_and_wide_colors():
     """The kernel wrappers launch or raise; they never run the plain
     version in their place. An SG render needs its lobes (extra_data),
     and more than 16 color channels (here an RGBA pool of 18 columns) are
