@@ -8,9 +8,10 @@ each kernel against its plain PyTorch version at the main paths' shapes
 SG9 and ASG9, with weight accumulation; the backward march in five
 cases; the point query forward and backward; the aux kernels, exact and
 fast: the opacity VJP, the first hit, the motion-feature forward and
-backward), then drives four main paths through the public entry points
-on the depth-9 SH9 shell scene at 800x800, with a seeded 32-joint
-skeleton for the aux paths:
+backward; the LBS warp forward and backward, also at 2 joints and 2
+bones; the voxelize splat forward and backward), then drives the main
+paths through the public entry points on the depth-9 SH9 shell scene at
+800x800, with a seeded 32-joint skeleton for the aux and dynamic paths:
 
   * serving: three frames of `N3Tree.construct_tree` with the frame's
     point cloud and `VolumeRenderer.render_persp` (exact and fast) with
@@ -23,7 +24,19 @@ skeleton for the aux paths:
     `opacity_render`, `render_depth` and `motion_render`;
   * aux training: five Adam steps over the pool and the joint features,
     each taking an image MSE of `render_persp`, an opacity mask loss of
-    `opacity_render` and an MSE of `motion_feature_render`.
+    `opacity_render` and an MSE of `motion_feature_render`;
+  * dynamic serving: `VolumeRenderer.render_dynamic_frames` over three
+    poses of the leaf-centre cloud skinned to the skeleton (LBS warp,
+    re-pointing, render with per-voxel rotations and first-hit depth),
+    fast and exact, checked against the eager loop of the public calls,
+    and `voxelize` of each frame's warped cloud into a 257^3 grid;
+  * dynamic training: three Adam steps on a two-frame pool stack through
+    `render_dynamic_frames`;
+  * pose fit: three Adam steps on the joints' transforms through
+    `warp_vertices` and `voxelize` (the two backward kernels);
+  * bench.py's dynamic configuration: a 20,000-point Gaussian cloud on a
+    depth-5 RGBA tree, four frames of `render_dynamic_frames`, timed as
+    bench.py times them (`dynamic_fused_frame_ms`, `dynamic_fast_frame_ms`).
 
 Each path's launch counts are read from zero around it. It prints kernel
 and plain-version times and each kernel's bound with the card's name and
@@ -46,11 +59,15 @@ import torch
 
 import svox_t_tpu_torch as stt
 from svox_t_tpu_torch import _build
+from svox_t_tpu_torch.ops import p2v as p2v_ops
 from svox_t_tpu_torch.ops import query as query_ops
 from svox_t_tpu_torch.ops import render as render_ops
 from svox_t_tpu_torch.ops import render_aux as aux_ops
 from svox_t_tpu_torch.ops import traversal
-from svox_t_tpu_torch.utils.scenes import build_shell_tree, orbit_camera, random_lobes
+from svox_t_tpu_torch.ops import warp as warp_ops
+from svox_t_tpu_torch.utils.scenes import (bench_dynamic_cloud, build_shell_tree,
+                                           joint_pose_sequence, orbit_camera, random_lobes,
+                                           skin_to_nearest_joints)
 
 DEPTH = 9
 WIDTH = HEIGHT = 800
@@ -73,6 +90,17 @@ N_JOINTS = 32
 JOINT_DIM = 16
 N_BONES = 4
 MASK_WEIGHT = 0.1  # weight of the opacity mask loss in the aux training loss
+# The dynamic paths: the leaf centres skinned to the skeleton's N_BONES
+# nearest joints, posed by `joint_pose_sequence`; a voxel grid at benchmarks/configs.py's
+# config_5 ratios scaled to depth 9 (voxel ~2 leaves, k ~0.93 voxel, cr
+# ~1.86 voxel). The sizes are the port's choice, not a published rig.
+P2V_N, P2V_KR, P2V_CR = 257, 0.00363, 0.00727
+DYN_TRAIN_FRAMES = 2
+DYN_STEPS = 3
+POSE_LR = 1e-4
+WARP_ATOL = 1e-6  # the warp follows its plain version operation for operation
+EXACT_RTOL = 1e-6  # deterministic sums in the plain version's order: 1e-6 * max(1, max|plain|)
+BENCH_FX = 880.0  # bench.py: fx = W * 1.1
 # The bound of a kernel: the larger of its bytes over the H100 SXM's HBM
 # rate and its float32 operations over its peak non-tensor rate
 # (NVIDIA's data sheet, at the full 700 W).
@@ -91,6 +119,23 @@ OPS_BWD_SH9 = 115
 OPS_OPACITY_BWD = 7
 OPS_MF_FWD = 2 * N_BONES * JOINT_DIM + 5 * JOINT_DIM + 5
 OPS_MF_BWD = 4 * N_BONES * JOINT_DIM + 7 * JOINT_DIM + 5
+# The warp per point: a blend of nb rows of 12 (24 per bone) and the
+# transform (18); its backward: G (24), dx (15), per bone dw (24) and the
+# dT terms and adds (24). Voxelize, each term formed once where it
+# varies: per point its window (two subtractions, a division, a rounding
+# and two clamps, for each end of each axis: 36); per kept window index of
+# an axis the centre, the offset and its square (4); per (x, y) row of the
+# window dx^2 + dy^2 (1); per window voxel r^2 and its gate (2); per voxel
+# within the radius an exp, a division and a product or atomic add (6)
+# forward, and 17 backward.
+OPS_WARP_FWD = 24 * N_BONES + 18
+OPS_WARP_BWD = 39 + 48 * N_BONES
+OPS_P2V_POINT = 36
+OPS_P2V_AXIS = 4
+OPS_P2V_ROW = 1
+OPS_P2V_VOXEL = 2
+OPS_P2V_FWD = 6
+OPS_P2V_BWD = 17
 
 
 def card_line() -> str:
@@ -182,6 +227,10 @@ COUNTERS = {
     "first_hit": aux_ops.FIRST_HIT,
     "mf_fwd": aux_ops.MF_FWD,
     "mf_bwd": aux_ops.MF_BWD,
+    "warp_fwd": warp_ops.WARP_FWD,
+    "warp_bwd": warp_ops.WARP_BWD,
+    "voxelize_fwd": p2v_ops.VOXELIZE_FWD,
+    "voxelize_bwd": p2v_ops.VOXELIZE_BWD,
 }
 
 
@@ -293,6 +342,43 @@ def kernel_bounds(c: dict, M: int, D: int, n_cells: int, Q: int, q_levels: int) 
                    march_ops + OPS_MF_FWD * c["contrib"]),
         "mf_bwd": (B * 24 + B * JOINT_DIM * 4 + R * lbs_row + C * 8 + 2 * jtab,
                    march_ops + OPS_MF_BWD * c["contrib"]),
+    }
+    out = {}
+    for name, (n_bytes, n_ops) in work.items():
+        ms, by = bound(n_bytes, n_ops)
+        out[name] = dict(bound_ms=ms, bound_by=by, bound_bytes=n_bytes, bound_ops=n_ops)
+    return out
+
+
+def p2v_census(points, grid) -> dict:
+    """What this run's cloud makes a voxelize do, summed over all points:
+    kept window indices per axis, (x, y) rows and voxels of the window
+    walked, and voxels within the radius; only the bounds read it."""
+    lo, hi = p2v_ops._windows(points, grid)
+    kept = torch.clamp(hi - lo + 1, max=grid.W)
+    within = sum(int(valid.sum()) for _, _, valid, _, _ in p2v_ops._walk(points, grid))
+    return dict(points=points.shape[0], axis=int(kept.sum()),
+                rows=int((kept[:, 0] * kept[:, 1]).sum()), walked=int(kept.prod(dim=1).sum()),
+                within=within)
+
+
+def dynamic_bounds(Q: int, nb: int, J: int, F: int, n: int, c: dict, touched: int) -> dict:
+    """bound_ms and bound_by of the warp and voxelize kernels for Q points
+    of nb bones over J joints, an n^3 grid, the census ``c`` and the
+    ``touched`` voxels of a splat. Bytes: the warp forward reads x, w and
+    j and writes the warped point and the blend (T is J x 64 bytes); its
+    backward also reads both output gradients and writes dx and dw (the
+    dT table is J x 64 bytes); voxelize reads each point and its density
+    and writes the grid; its backward reads the gradient at the touched
+    voxels and writes both input gradients, d_features (Q, F) whole."""
+    walk_ops = (OPS_P2V_POINT * c["points"] + OPS_P2V_AXIS * c["axis"]
+                + OPS_P2V_ROW * c["rows"] + OPS_P2V_VOXEL * c["walked"])
+    work = {
+        "warp_fwd": (Q * (12 + 8 * nb) + Q * 76 + J * 64, Q * OPS_WARP_FWD),
+        "warp_bwd": (Q * (12 + 8 * nb + 76) + Q * (12 + 4 * nb) + 2 * J * 64, Q * OPS_WARP_BWD),
+        "voxelize_fwd": (Q * 16 + n ** 3 * 4, walk_ops + OPS_P2V_FWD * c["within"]),
+        "voxelize_bwd": (Q * 16 + touched * 4 + Q * 12 + Q * F * 4,
+                         walk_ops + OPS_P2V_BWD * c["within"]),
     }
     out = {}
     for name, (n_bytes, n_ops) in work.items():
@@ -438,6 +524,14 @@ def main() -> None:
                        replaces="svox_t_tpu/ops/render_aux.py:403"),
         "mf_bwd": dict(route="cuda", source="svox_t_tpu_torch/csrc/render_aux.cu",
                        replaces="svox_t_tpu/ops/render_aux.py:526"),
+        "warp_fwd": dict(route="cuda", source="svox_t_tpu_torch/csrc/warp.cu",
+                         replaces="svox_t_tpu/ops/warp.py:53"),
+        "warp_bwd": dict(route="cuda", source="svox_t_tpu_torch/csrc/warp.cu",
+                         replaces="svox_t_tpu/ops/warp.py:53"),
+        "voxelize_fwd": dict(route="cuda", source="svox_t_tpu_torch/csrc/p2v.cu",
+                             replaces="svox_t_tpu/ops/p2v.py:37"),
+        "voxelize_bwd": dict(route="cuda", source="svox_t_tpu_torch/csrc/p2v.cu",
+                             replaces="svox_t_tpu/ops/p2v.py:37"),
     }
 
     # 3. Kernel vs plain
@@ -628,6 +722,83 @@ def main() -> None:
     for k, v in aux_err.items():
         kernels[k]["max_abs_err"] = v
 
+    # 3c. The LBS warp (K10) and the voxelize splat (K11) against their
+    # plain versions on the deep dynamic configuration: the canonical
+    # cloud is the leaf centres in row order (point i owns pool row i),
+    # skinned to the skeleton's N_BONES nearest joints, posed by a seeded
+    # sequence; the grid is P2V_N^3 over the unit cube.
+    drng = np.random.RandomState(4)
+    t0 = time.perf_counter()
+    rig_np = skin_to_nearest_joints(centers_np, joints, N_BONES)
+    poses = torch.from_numpy(joint_pose_sequence(joints, N_FRAMES, seed=4)).to(dev)
+    src = torch.eye(4, device=dev).repeat(N_JOINTS, 1, 1)
+    rig_sw, rig_ji = (torch.from_numpy(a).to(dev) for a in rig_np)
+    print(f"rig: {N_JOINTS} joints, {N_BONES} nearest per point, {N_FRAMES} poses, "
+          f"{time.perf_counter() - t0:.1f} s to build")
+    T1 = stt.get_transformation_matrix(src, poses[1])
+    wk = warp_ops.warp_forward_cuda(T1, centers, rig_sw, rig_ji)
+    wp, warp_fwd_plain_ms = timed_once_ms(
+        lambda: warp_ops.warp_forward_plain(T1, centers, rig_sw, rig_ji))
+    w_err = max(float((a - b).abs().max()) for a, b in zip(wk, wp))
+    check(bool(torch.isfinite(wk[0]).all()), "warp: non-finite points")
+    check(w_err <= WARP_ATOL, f"warp_fwd: kernel vs plain {w_err} > {WARP_ATOL}")
+    moved = (wk[0] - centers).norm(dim=1)
+    print(f"warp_fwd ({M} points, J {N_JOINTS}, {N_BONES} bones): max_abs_err {w_err:.3g} "
+          f"(atol {WARP_ATOL}); points move up to {float(moved.max()):.5f} "
+          f"(mean {float(moved.mean()):.5f}), plain {warp_fwd_plain_ms:.2f} ms")
+    kernels["warp_fwd"]["max_abs_err"] = w_err
+    g_x = torch.from_numpy(drng.randn(M, 3).astype(np.float32)).to(dev)
+    g_M = torch.from_numpy(drng.randn(M, 4, 4).astype(np.float32)).to(dev)
+
+    def warp_bwd_check(T, sw_, ji_, what):
+        got = warp_ops.warp_backward_cuda(T, centers, sw_, ji_, g_x, g_M)
+        want, ms = timed_once_ms(
+            lambda: warp_ops.warp_backward_plain(T, centers, sw_, ji_, g_x, g_M))
+        errs = [atomic_err(got[0], want[0], f"warp_bwd {what} dT")]
+        for name, a, b in (("dx", got[1], want[1]), ("dw", got[2], want[2])):
+            e = float((a - b).abs().max())
+            check(e <= EXACT_RTOL * max(1.0, float(b.abs().max())), f"warp_bwd {what} {name}: {e}")
+            errs.append(e)
+        check(float(got[0].abs().max()) > 0 and not bool(got[0][:, 3].any()), "warp_bwd: bad dT")
+        print(f"warp_bwd {what}: max_abs_err dT {errs[0]:.3g} (max|dT| "
+              f"{float(want[0].abs().max()):.4g}), dx {errs[1]:.3g}, dw {errs[2]:.3g}, "
+              f"plain {ms:.2f} ms")
+        return max(errs), ms
+
+    e32, warp_bwd_plain_ms = warp_bwd_check(T1, rig_sw, rig_ji, f"J {N_JOINTS} nb {N_BONES}")
+    # J = 2, nb = 2 (bench.py's rig): every point adds into the same 24 floats.
+    z = centers[:, 2]
+    sw2 = torch.stack([1.0 - z, z], dim=1).contiguous()
+    ji2 = torch.tensor([0, 1], dtype=torch.int32, device=dev).repeat(M, 1)
+    T2 = T1[:2].contiguous()
+    e2, _ = warp_bwd_check(T2, sw2, ji2, "J 2 nb 2")
+    kernels["warp_bwd"]["max_abs_err"] = max(e32, e2)
+
+    grid = p2v_ops.grid_consts(0.0, 1.0, P2V_N, P2V_KR, P2V_CR)
+    check(grid.W == 6, f"p2v window {grid.W}, expected 6")
+    warped1 = wk[0]
+    vk = p2v_ops.voxelize_forward_cuda(warped1, feats, grid)
+    vp, vox_fwd_plain_ms = timed_once_ms(lambda: p2v_ops.voxelize_forward_plain(warped1, feats, grid))
+    v_err = atomic_err(vk, vp, "voxelize_fwd")
+    touched = int((vk != 0).sum())
+    g_vol = torch.from_numpy(drng.randn(P2V_N, P2V_N, P2V_N, 1).astype(np.float32)).to(dev)
+    dk = p2v_ops.voxelize_backward_cuda(warped1, feats, grid, g_vol)
+    dpl, vox_bwd_plain_ms = timed_once_ms(
+        lambda: p2v_ops.voxelize_backward_plain(warped1, feats, grid, g_vol))
+    vb_err = 0.0
+    for name, a, b in (("d_points", dk[0], dpl[0]), ("d_features", dk[1], dpl[1])):
+        e = float((a - b).abs().max())
+        check(bool(torch.isfinite(a).all()), f"voxelize_bwd {name}: non-finite")
+        check(e <= EXACT_RTOL * max(1.0, float(b.abs().max())), f"voxelize_bwd {name}: {e}")
+        vb_err = max(vb_err, e)
+    check(not bool(dk[1][:, :-1].any()) and float(dk[0].abs().max()) > 0,
+          "voxelize_bwd: gradient outside the density column, or none")
+    kernels["voxelize_fwd"]["max_abs_err"] = v_err
+    kernels["voxelize_bwd"]["max_abs_err"] = vb_err
+    print(f"voxelize ({M} points, {P2V_N}^3 grid, W {grid.W}): forward max_abs_err {v_err:.3g} "
+          f"(max {float(vp.max()):.4g}, {touched} voxels touched), plain {vox_fwd_plain_ms:.1f} ms; "
+          f"backward max_abs_err {vb_err:.3g}, plain {vox_bwd_plain_ms:.1f} ms")
+
     # 4. Main path, serving: three frames through the public entry points
     frame_points = [centers[torch.from_numpy(rng.permutation(M)).to(dev)] for _ in range(N_FRAMES)]
     frame_feats = [seeded_pool(rng, M, 28, dev) for _ in range(N_FRAMES)]
@@ -769,10 +940,214 @@ def main() -> None:
     for name, x in (("pool", a_pool), ("joint features", a_jf)):
         check(x.grad is not None and bool(torch.isfinite(x.grad).all())
               and float(x.grad.abs().max()) > 0, f"bad {name} gradient")
-    phases = (serve_counts, train_counts, aux_serve_counts, aux_train_counts)
+
+    # 4e. Main path, dynamic serving: render_dynamic_frames over the pose
+    # sequence (warp, re-point with the table carried, render with the
+    # blended matrices as rotations, first-hit depth), fast with the tree
+    # left untouched, then exact leaving it at the last frame; then one
+    # voxelize of each frame's warped cloud.
+    dyn_tree = stt.tree_from_numpy(state, device=dev)
+    dyn_r = stt.VolumeRenderer(dyn_tree)
+    table0 = dyn_tree._spec().data_flat.clone()
+    dyn_kw = dict(c2w=c2w, width=WIDTH, height=HEIGHT, fx=FX, viewdir_rotation=True,
+                  with_depth=True)
+    dyn_keys = {True: "dynamic_deep9_fast_frame_ms", False: "dynamic_deep9_frame_ms"}
+
+    def dyn_call(fast):
+        return dyn_r.render_dynamic_frames(feats, poses, src, centers, rig_sw, rig_ji,
+                                           fast=fast, update_tree=not fast, **dyn_kw)
+
+    dyn_counts, dyn_out = [], {}
+    with torch.no_grad():
+        for fast in (True, False):
+            reset_counts()
+            cols, deps = dyn_call(fast)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            dyn_counts.append(counts)
+            print(f"main path, dynamic serving {'fast' if fast else 'exact'}: {N_FRAMES} frames, "
+                  f"launches {counts}")
+            for k in ("warp_fwd", "construct_tree", "render_fwd", "first_hit"):
+                check(counts[k] == N_FRAMES, f"dynamic serving: {k} launched {counts[k]} times")
+            check(tuple(cols.shape) == (N_FRAMES, HEIGHT, WIDTH, 4)
+                  and tuple(deps.shape) == (N_FRAMES, HEIGHT, WIDTH, 1), "dynamic output shapes")
+            check(bool(torch.isfinite(cols).all() and torch.isfinite(deps).all()), "non-finite frame")
+            a = cols[..., 3]
+            check(bool((a >= 0).all() and (a <= 1).all() and (a > 0).any() and (a == 0).any()),
+                  "dynamic frames: alpha outside [0, 1], or no hit or no miss")
+            check(bool(((deps[..., 0] > 0) <= (a > 0)).all()), "a depth where alpha is 0")
+            if fast:
+                check(torch.equal(dyn_tree._spec().data_flat, table0), "update_tree=False moved the table")
+            dyn_out[fast] = (cols, deps)
+        carried = dyn_tree._spec().data_flat.clone()
+        # Frame times: the calls above warmed both modes up; then three
+        # rounds of exact and fast in turn, the least of each per frame.
+        dyn_dts = {True: [], False: []}
+        for _ in range(3):
+            for fast in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dyn_call(fast)
+                torch.cuda.synchronize()
+                dyn_dts[fast].append((time.perf_counter() - t0) * 1e3 / N_FRAMES)
+        dyn_ms = {dyn_keys[fast]: min(dts) for fast, dts in dyn_dts.items()}
+        print("main path, dynamic serving: host ms per frame (least of 3 calls) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in dyn_ms.items())
+              + f"; all calls {({dyn_keys[f]: [round(x, 4) for x in d] for f, d in dyn_dts.items()})}")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vols = []
+        for k in range(N_FRAMES):
+            tk = stt.get_transformation_matrix(src, poses[k])
+            warped, _ = stt.warp_vertices(tk, centers, rig_sw, rig_ji)
+            vols.append(stt.voxelize(warped, feats, 0.0, 1.0, P2V_N, P2V_KR, P2V_CR))
+        torch.cuda.synchronize()
+        p2v_frame_ms = (time.perf_counter() - t0) * 1e3 / N_FRAMES
+        vox_counts = read_counts()
+        check(vox_counts["voxelize_fwd"] == N_FRAMES, "voxelize not launched per frame")
+        mass = [float(v.sum()) for v in vols]
+        check(all(np.isfinite(mass)) and min(mass) > 0, f"bad voxel grids {mass}")
+        print(f"main path, p2v: warp + voxelize of {N_FRAMES} frames, launches {vox_counts}, "
+              f"host ms per frame {p2v_frame_ms:.4f}, grid mass {[round(m, 2) for m in mass]}")
+
+        # The fused loop against the eager loop of the public calls:
+        # warp_vertices -> construct_tree -> forward with the mats.
+        eager_tree = stt.tree_from_numpy(state, device=dev)
+        eager_r = stt.VolumeRenderer(eager_tree)
+        tables = []
+        for k in range(N_FRAMES):
+            tk = stt.get_transformation_matrix(src, poses[k])
+            warped, mats = stt.warp_vertices(tk, centers, rig_sw, rig_ji)
+            eager_tree.construct_tree(warped)
+            tables.append(eager_tree._spec().data_flat.clone())
+        check(torch.equal(tables[-1], carried), "carried table differs from eager")
+        check(all(not torch.equal(tables[i - 1], tables[i]) for i in range(1, N_FRAMES)),
+              "the index table did not change per frame")
+        rays_s = stt.Rays(origins[sample], dirs[sample], dirs[sample])
+        ref = eager_r(feats, rays_s, transformation_matrices=mats)
+        err = float((dyn_out[False][0][-1].reshape(B, 4)[sample] - ref).abs().max())
+        check(err <= RENDER_ATOL, f"dynamic frame vs the eager loop: {err}")
+        ref_d = eager_r.render_depth(feats, rays_s)
+        check(torch.equal(dyn_out[False][1][-1].reshape(B, 1)[sample], ref_d), "dynamic depth differs")
+        print(f"dynamic last frame vs the eager loop on {sample.numel()} pixels: max_abs_err "
+              f"{err:.3g}, depths equal, tables equal; hit share "
+              f"{float((dyn_out[False][0][-1][..., 3] > 0).float().mean()):.4f}")
+
+    # 4f. Main path, dynamic training: Adam steps on a per-frame pool stack
+    # through render_dynamic_frames, toward frames the true stack renders.
+    tr_r = stt.VolumeRenderer(stt.tree_from_numpy(state, device=dev))
+    true_stack = torch.stack([seeded_pool(drng, M, 28, dev) for _ in range(DYN_TRAIN_FRAMES)])
+    stack = torch.stack([seeded_pool(drng, M, 28, dev) for _ in range(DYN_TRAIN_FRAMES)])
+    tr_args = (poses[:DYN_TRAIN_FRAMES], src, centers, rig_sw, rig_ji)
+    tr_kw = dict(c2w=c2w, width=WIDTH, height=HEIGHT, fx=FX, update_tree=False)
+    with torch.no_grad():
+        targets = tr_r.render_dynamic_frames(true_stack, *tr_args, **tr_kw)
+    stack.requires_grad_()
+    adam = torch.optim.Adam([stack], lr=LR)
+    dyn_losses, dyn_step_ms = [], []
+    reset_counts()
+    for _ in range(DYN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adam.zero_grad(set_to_none=True)
+        loss = ((tr_r.render_dynamic_frames(stack, *tr_args, **tr_kw) - targets) ** 2).mean()
+        loss.backward()
+        adam.step()
+        torch.cuda.synchronize()
+        dyn_step_ms.append((time.perf_counter() - t0) * 1e3)
+        dyn_losses.append(loss.item())
+    dyn_train_counts = read_counts()
+    print(f"main path, dynamic training: {DYN_STEPS} steps of {DYN_TRAIN_FRAMES} frames, launches "
+          f"{dyn_train_counts}, loss {[round(x, 8) for x in dyn_losses]}, host ms per step "
+          f"{[round(x, 3) for x in dyn_step_ms]}")
+    n_fr = DYN_STEPS * DYN_TRAIN_FRAMES
+    for k in ("warp_fwd", "construct_tree", "render_fwd", "render_bwd"):
+        check(dyn_train_counts[k] == n_fr, f"dynamic training: {k} launched {dyn_train_counts[k]} times")
+    check(dyn_losses[-1] < dyn_losses[0], "the dynamic training loss did not fall")
+    check(bool(torch.isfinite(stack.grad).all()) and float(stack.grad.abs().max()) > 0,
+          "bad pool-stack gradient")
+
+    # 4g. Main path, pose fit: Adam steps on the joints' transforms toward
+    # the grid the true pose splats, through warp_vertices and voxelize
+    # (their backward kernels).
+    with torch.no_grad():
+        t_true = stt.get_transformation_matrix(src, poses[1])
+        target_vol = stt.voxelize(stt.warp_vertices(t_true, centers, rig_sw, rig_ji)[0], feats,
+                                  0.0, 1.0, P2V_N, P2V_KR, P2V_CR)
+    t_fit = src.clone().requires_grad_()
+    adam = torch.optim.Adam([t_fit], lr=POSE_LR)
+    pose_losses, pose_step_ms, pose_grads = [], [], []
+    reset_counts()
+    for _ in range(DYN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        adam.zero_grad(set_to_none=True)
+        warped, _ = stt.warp_vertices(t_fit, centers, rig_sw, rig_ji)
+        vol = stt.voxelize(warped, feats, 0.0, 1.0, P2V_N, P2V_KR, P2V_CR)
+        loss = ((vol - target_vol) ** 2).mean()
+        loss.backward()
+        pose_grads.append(t_fit.grad.clone())
+        adam.step()
+        torch.cuda.synchronize()
+        pose_step_ms.append((time.perf_counter() - t0) * 1e3)
+        pose_losses.append(loss.item())
+    pose_counts = read_counts()
+    print(f"main path, pose fit: {DYN_STEPS} steps, launches {pose_counts}, loss "
+          f"{[round(x, 6) for x in pose_losses]}, max|dT| "
+          f"{[float(f'{float(g.abs().max()):.4g}') for g in pose_grads]}, host ms per step "
+          f"{[round(x, 3) for x in pose_step_ms]}")
+    for k in ("warp_fwd", "warp_bwd", "voxelize_fwd", "voxelize_bwd"):
+        check(pose_counts[k] == DYN_STEPS, f"pose fit: {k} launched {pose_counts[k]} times")
+    for g in pose_grads:
+        check(bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0 and not bool(g[:, 3].any()),
+              "bad transform gradient")
+    check(pose_losses[-1] < pose_losses[0], "the pose-fit loss did not fall")
+
+    # 4h. bench.py's dynamic configuration (bench.py:676-732), with this
+    # package's N3Tree: per frame warp, re-point and an 800x800 RGBA
+    # render; min over three calls of four frames, per frame.
+    bd = bench_dynamic_cloud()
+    bench_tree = stt.N3Tree(N=2, data_dim=4, depth_limit=6, device=dev)
+    bench_tree.refine(repeats=5)
+    bench_tree.construct_tree(bd["points"])
+    bench_r = stt.VolumeRenderer(bench_tree)
+    bench_feats = torch.from_numpy(bd["features"]).to(dev)
+    bench_args = [torch.from_numpy(bd[k]).to(dev)
+                  for k in ("poses", "src_pose", "points", "skinning_weights", "joint_index")]
+    n_bench = bench_args[0].shape[0]
+
+    def bench_run(i, fast):
+        outs = bench_r.render_dynamic_frames(bench_feats * (1.0 + 1e-3 * i), *bench_args, c2w=c2w,
+                                             width=WIDTH, height=HEIGHT, fx=BENCH_FX,
+                                             update_tree=False, fast=fast)
+        return float(outs.sum())
+
+    bench_ms = {}
+    reset_counts()
+    with torch.no_grad():
+        for fast, key in ((False, "dynamic_fused_frame_ms"), (True, "dynamic_fast_frame_ms")):
+            total = bench_run(0, fast)
+            check(np.isfinite(total), "bench dynamic frames: non-finite")
+            dts = []
+            for i in range(3):
+                t0 = time.perf_counter()
+                bench_run(i + 1, fast)
+                dts.append(time.perf_counter() - t0)
+            bench_ms[key] = min(dts) * 1e3 / n_bench
+    bench_counts = read_counts()
+    check(bench_counts["warp_fwd"] == 8 * n_bench and bench_counts["render_fwd"] == 8 * n_bench,
+          "bench dynamic: kernels not launched per frame")
+    print(f"main path, bench.py dynamic ({bd['points'].shape[0]} points, depth 5 RGBA, {n_bench} "
+          f"frames, fx {BENCH_FX}): launches {bench_counts}, "
+          + ", ".join(f"{k} {v:.4f}" for k, v in bench_ms.items()))
+
+    phases = (serve_counts, train_counts, aux_serve_counts, aux_train_counts, *dyn_counts,
+              vox_counts, dyn_train_counts, pose_counts, bench_counts)
     for k in kernels:
         kernels[k]["launches"] = sum(c[k] for c in phases)
-    for k in ("opacity_bwd", "first_hit", "mf_fwd", "mf_bwd"):
+    for k in ("opacity_bwd", "first_hit", "mf_fwd", "mf_bwd", "warp_fwd", "warp_bwd",
+              "voxelize_fwd", "voxelize_bwd"):
         check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
 
     # 5. Times (CUDA events, after one warm-up)
@@ -862,6 +1237,29 @@ def main() -> None:
                 if not fast:
                     kernels[name].update(ms=k_ms, plain_ms=p_ms)
 
+        # The warp and voxelize kernels at the deep configuration's shapes
+        # (the warp backward forms all three gradients); plain: one call,
+        # phase 3c.
+        runs = {
+            "warp_fwd": lambda: warp_ops.warp_forward_cuda(T1, centers, rig_sw, rig_ji),
+            "warp_bwd": lambda: warp_ops.warp_backward_cuda(T1, centers, rig_sw, rig_ji, g_x, g_M),
+            "voxelize_fwd": lambda: p2v_ops.voxelize_forward_cuda(warped1, feats, grid),
+            "voxelize_bwd": lambda: p2v_ops.voxelize_backward_cuda(warped1, feats, grid, g_vol),
+        }
+        plain_once = dict(warp_fwd=warp_fwd_plain_ms, warp_bwd=warp_bwd_plain_ms,
+                          voxelize_fwd=vox_fwd_plain_ms, voxelize_bwd=vox_bwd_plain_ms)
+        for name, run_k in runs.items():
+            k_ms = time_ms(run_k, KERNEL_REPS)
+            kernels[name].update(ms=k_ms, plain_ms=plain_once[name])
+            print(f"time {name} ({M} points, J {N_JOINTS}, {N_BONES} bones, {P2V_N}^3 grid): "
+                  f"kernel {k_ms:.4f} ms, plain {plain_once[name]:.2f} ms (one call) [{card}]")
+        w2_ms = time_ms(lambda: warp_ops.warp_backward_cuda(T2, centers, sw2, ji2, g_x, g_M),
+                        KERNEL_REPS)
+        w2_dt_ms = time_ms(lambda: warp_ops.warp_backward_cuda(T2, centers, sw2, ji2, g_x, None,
+                                                               True, False, False), KERNEL_REPS)
+        print(f"time warp_bwd J 2 nb 2 ({M} points): kernel {w2_ms:.4f} ms, dT only "
+              f"{w2_dt_ms:.4f} ms [{card}]")
+
     # Forward + backward of a render loss, as bench.py names it:
     # fwd_bwd_ms sustained (CUDA events over KERNEL_REPS calls),
     # fwd_bwd_single_call_ms one synchronized call on the host clock (min of 3).
@@ -886,6 +1284,11 @@ def main() -> None:
           f"fwd_bwd_single_call_ms {min(single):.4f}, fwd_bwd_mrays_s {B / fwd_bwd_ms / 1e3:.2f} [{card}]")
     print(f"time training step (construct_tree + render_persp + loss + query prior + backward + Adam), "
           f"host clock: median {step_med:.3f} ms of {[round(s, 3) for s in step_ms]} [{card}]")
+    print(f"time dynamic frames (render_dynamic_frames, host clock, synchronized): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in {**dyn_ms, **bench_ms}.items())
+          + f"; dynamic training step median {statistics.median(dyn_step_ms):.3f} ms, pose-fit step "
+          f"median {statistics.median(pose_step_ms):.3f} ms, warp + voxelize per frame "
+          f"{p2v_frame_ms:.4f} ms [{card}]")
 
     # 6. Bounds: the least time of each kernel's work at these shapes,
     # from what this run's data makes the march do (exact SH9 camera).
@@ -894,6 +1297,9 @@ def main() -> None:
     q_levels = int(torch.round(torch.log2(leaf.cube_sz) / float(np.log2(spec.N))).sum())
     bounds = kernel_bounds(census, M, 28, spec.data_flat.numel(), pts.shape[0], q_levels)
     print(f"census (SH9 exact, {WIDTH}x{HEIGHT}): {census}")
+    p2v_c = p2v_census(warped1, grid)
+    bounds.update(dynamic_bounds(M, N_BONES, N_JOINTS, 28, P2V_N, p2v_c, touched))
+    print(f"census (voxelize, {P2V_N}^3, W {grid.W}): {p2v_c}, {touched} voxels touched")
     for k, b in bounds.items():
         kernels[k].update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
         kernels[k].setdefault("library_ms", None)

@@ -10,7 +10,12 @@ point query `N3Tree.forward`, with respect to the feature pool, and
 collects per-leaf weights for pruning (`N3Tree.accumulate_weights`). The
 aux passes (`VolumeRenderer.opacity_render`, `render_depth`,
 `motion_render`, `motion_feature_render`) give opacity, first-hit depth
-and skeleton distances, and LBS-blended joint features. The
+and skeleton distances, and LBS-blended joint features. The dynamic
+frame loop (`VolumeRenderer.render_dynamic_frames`) LBS-warps the
+canonical cloud per frame (`warp_vertices`), re-points the tree and
+renders; `voxelize` splats a cloud into a density grid, and
+`render_frames` / `render_persp_frames` render a stack of pools. Entry
+points run on the CUDA card unless the caller names another device. The
 hot loops are hand-written CUDA kernels under `csrc/`, built by nvcc at
 first use; on CPU tensors their plain PyTorch versions run instead.
 
@@ -29,6 +34,9 @@ from .utils.builders import tree_from_occupancy, tree_structure_from_occupancy
 from .utils.convert import tree_from_numpy, tree_state
 from .ops.render_aux import (motion_feature_render, motion_render,
                              opacity_render, render_depth)
+from .ops.warp import (blend_transformation_matrix, get_transformation_matrix,
+                       warp_vertices)
+from .ops.p2v import voxelize
 
 __all__ = [
     "N3Tree",
@@ -52,6 +60,10 @@ __all__ = [
     "render_depth",
     "motion_render",
     "motion_feature_render",
+    "get_transformation_matrix",
+    "blend_transformation_matrix",
+    "warp_vertices",
+    "voxelize",
     "make_tree_spec",
     "DATA_SENTINEL",
     "__version__",

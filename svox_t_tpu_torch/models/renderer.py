@@ -9,10 +9,18 @@ the aux passes:
   motion_render(features, rays, fast=False)
   motion_feature_render(features, joint_features, skinning_weights,
                         joint_index, rays, fast=False)
+  render_frames(features_frames, rays, transformation_matrices_frames=None)
+  render_persp_frames(features_frames, c2w, width, height, fx, fy, ...)
+  render_dynamic_frames(features, tgt_poses, src_pose, points,
+                        skinning_weights, joint_index, rays | c2w, ...)
 
-`forward`, `render_persp` and `opacity_render` are differentiable with
-respect to ``features``, `motion_feature_render` with respect to
-``joint_features``; the first-hit passes are not differentiable. The aux
+`forward`, `render_persp`, `opacity_render` and the three frame loops
+are differentiable with respect to ``features``, `motion_feature_render`
+with respect to ``joint_features``; the first-hit passes are not
+differentiable. The frame loops are Python loops over frames (the JAX
+package's `lax.scan`s); `render_dynamic_frames` is the Artemis frame:
+LBS-warp the canonical cloud (`ops/warp.py`), re-point the tree at it
+(`construct_tree`, the table carried from frame to frame) and render. The aux
 passes never add into an active weight accumulator. `fast=True` sets
 sigma_thresh = stop_thresh = 1e-2; the attribute overrides
 ``self.sigma_thresh`` / ``self.stop_thresh`` are honored. Rendering runs
@@ -34,8 +42,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops import query as query_ops
 from ..ops import render as render_ops
 from ..ops import render_aux as aux_ops
+from ..ops import warp as warp_ops
 from ..utils.dataformat import DataFormat
 from ..utils.spec import NDCConfig, Rays, RenderOptions
 
@@ -156,18 +166,21 @@ class VolumeRenderer(nn.Module):
         del cuda
         if schedule not in ("tile", "cost"):
             raise ValueError(f"unknown schedule {schedule!r}")
-        if fy is None:
-            fy = fx
         opt = self._get_options(fast)
+        rays = self._camera_rays(c2w, width, height, fx, fy, opt)
+        out = self._render(self.tree._spec(), features, *rays, opt)
+        return out.reshape(int(height), int(width), -1)
+
+    def _camera_rays(self, c2w, width, height, fx, fy, opt):
+        """(origins, dirs, viewdirs) of every pixel of a (3|4, 4) camera,
+        NDC-warped when the renderer has an NDC config."""
         c2w = torch.as_tensor(c2w, dtype=torch.float32, device=self.tree.device)
-        origins, dirs = render_ops.cam2world_rays(c2w, int(width), int(height),
-                                                  float(fx), float(fy))
+        origins, dirs = render_ops.cam2world_rays(c2w, int(width), int(height), float(fx),
+                                                  float(fx if fy is None else fy))
         vdirs = dirs
         if opt.ndc_width >= 0:
             dirs, origins = render_ops.world2ndc(opt, dirs, origins)
-        out = self._render(self.tree._spec(), features, origins.contiguous(),
-                           dirs.contiguous(), vdirs, opt)
-        return out.reshape(int(height), int(width), -1)
+        return origins.contiguous(), dirs.contiguous(), vdirs
 
     def opacity_render(self, features, rays: Rays, cuda=True, fast=False):
         """Alpha-only render, (B, 1); differentiable with respect to
@@ -202,6 +215,163 @@ class VolumeRenderer(nn.Module):
                                skinning_weights=skinning_weights, joint_index=joint_index)
         return aux_ops.motion_feature_render(spec, joint_features, features, rays.origins,
                                              rays.dirs, self._get_options(fast))
+
+    def _check_no_accumulator(self, entry: str) -> None:
+        if self.tree._weight_accum is not None:
+            raise RuntimeError(f"weight accumulation is per-render: {entry} cannot run inside "
+                               "accumulate_weights(); use forward() or render_persp() there")
+
+    def _pool(self, features):
+        return torch.as_tensor(features, dtype=torch.float32, device=self.tree.device)
+
+    def render_frames(self, features_frames, rays: Rays,
+                      transformation_matrices_frames=None, fast=False):
+        """Render T animation frames over one ray batch: frame k is
+        ``forward(features_frames[k], rays, transformation_matrices_frames[k])``.
+        Differentiable with respect to the stack.
+
+        :param features_frames: (T, M, data_dim) per-frame feature pools
+        :param rays: Rays with (B, 3) components, shared by all frames
+        :param transformation_matrices_frames: optional (T, M, 4, 4)
+            per-frame per-voxel view-direction rotations
+        :return: (T, B, n_color + 1)
+        """
+        self._check_no_accumulator("render_frames")
+        opt = self._get_options(fast)
+        features_frames = self._pool(features_frames)
+        tms = self._frame_mats(transformation_matrices_frames, features_frames)
+        outs = [render_ops.volume_render(self.tree._spec(tm), f, rays.origins, rays.dirs,
+                                         rays.viewdirs, opt)
+                for f, tm in zip(features_frames.unbind(0), tms)]
+        return torch.stack(outs)
+
+    def render_persp_frames(self, features_frames, c2w, width=800, height=800,
+                            fx=1111.111, fy=None, transformation_matrices_frames=None,
+                            fast=False, schedule="tile"):
+        """Render T perspective frames (see `render_frames`). ``c2w`` is one
+        (3|4, 4) camera shared by every frame, whose rays are made once, or
+        a (T, 3|4, 4) camera path.
+
+        :param schedule: "tile" or "cost"; both render the same images, and
+            this package marches in pixel order for either
+        :return: (T, height, width, n_color + 1)
+        """
+        if schedule not in ("tile", "cost"):
+            raise ValueError(f"unknown schedule {schedule!r}")
+        self._check_no_accumulator("render_persp_frames")
+        opt = self._get_options(fast)
+        features_frames = self._pool(features_frames)
+        tms = self._frame_mats(transformation_matrices_frames, features_frames)
+        rays = self._frame_rays(c2w, features_frames.shape[0], width, height, fx, fy, opt)
+        outs = [render_ops.volume_render(self.tree._spec(tm), f, *r, opt)
+                for f, tm, r in zip(features_frames.unbind(0), tms, rays)]
+        return torch.stack(outs).reshape(len(outs), int(height), int(width), -1)
+
+    def _frame_mats(self, tms, features_frames):
+        """Per-frame rotation stacks (or Nones) for a (T, M, D) pool stack."""
+        if features_frames.ndim != 3:
+            raise ValueError(f"features_frames must be (T, M, D), got "
+                             f"{tuple(features_frames.shape)}")
+        T = features_frames.shape[0]
+        if tms is None:
+            return [None] * T
+        tms = torch.as_tensor(tms, dtype=torch.float32, device=self.tree.device)
+        if tms.ndim != 4 or tms.shape[0] != T:
+            raise ValueError(f"transformation_matrices_frames must be (T, M, 4, 4) with T = "
+                             f"{T}, got {tuple(tms.shape)}")
+        return list(tms.unbind(0))
+
+    def _frame_rays(self, c2w, T, width, height, fx, fy, opt):
+        """T (origins, dirs, viewdirs) triples: one camera's rays made once
+        and shared, or one per frame of a (T, 3|4, 4) path."""
+        c2w = torch.as_tensor(c2w, dtype=torch.float32, device=self.tree.device)
+        if c2w.ndim == 2:
+            return [self._camera_rays(c2w, width, height, fx, fy, opt)] * T
+        if c2w.ndim != 3 or c2w.shape[0] != T:
+            raise ValueError(f"a c2w path must be (T, 3|4, 4) with T = {T}, got "
+                             f"{tuple(c2w.shape)}")
+        return [self._camera_rays(cam, width, height, fx, fy, opt) for cam in c2w]
+
+    def render_dynamic_frames(self, features, tgt_poses, src_pose, points,
+                              skinning_weights, joint_index, rays: Rays = None,
+                              c2w=None, width=800, height=800, fx=1111.111,
+                              fy=None, fast=False, viewdir_rotation=True,
+                              update_tree=True, with_depth=False,
+                              schedule="tile"):
+        """The Artemis frame loop: per frame k, LBS-warp the canonical
+        cloud by pose k (`get_transformation_matrix`, `warp_vertices`),
+        re-point the octree at the warped points (`construct_tree`, on the
+        table the previous frame left: stale pointers persist) and render
+        this frame's pool, with the blended matrices as per-voxel
+        view-direction rotations when ``viewdir_rotation``. Equal to the
+        eager loop of those public calls. Differentiable with respect to
+        ``features``; poses, points and skinning get no gradient.
+
+        :param features: (Q, data_dim) shared or (T, Q, data_dim) per-frame
+            feature pool (row i belongs to point i)
+        :param tgt_poses: (T, J, 4, 4) per-frame joint poses
+        :param src_pose: (J, 4, 4) canonical pose
+        :param points: (Q, 3) canonical point cloud
+        :param skinning_weights / joint_index: (Q, n_bones)
+        :param rays: shared Rays (B, 3), or else ``c2w``: a (3|4, 4) camera
+            (rays made once) or a (T, 3|4, 4) camera path
+        :param update_tree: leave the tree pointed at the last frame; False
+            leaves its table untouched
+        :param with_depth: also return per-frame first-hit depths
+        :param schedule: "tile", "cost" or "union"; with a camera all three
+            march in pixel order and render the same images; raw rays take
+            "tile" only
+        :return: (T, B, n_color + 1) for rays, (T, H, W, n_color + 1) for a
+            camera; with_depth returns (colors, depths), depths (T, B, 1) /
+            (T, H, W, 1)
+        """
+        if (rays is None) == (c2w is None):
+            raise ValueError("pass exactly one of rays and c2w")
+        if schedule not in ("tile", "cost", "union"):
+            raise ValueError(f"unknown schedule {schedule!r}")
+        if rays is not None and schedule != "tile":
+            raise ValueError(f"schedule={schedule!r} requires c2w; raw rays take "
+                             "schedule='tile'")
+        self._check_no_accumulator("render_dynamic_frames")
+        opt = self._get_options(fast)
+        dev = self.tree.device
+        features = self._pool(features)
+        tgt_poses = torch.as_tensor(tgt_poses, dtype=torch.float32, device=dev)
+        T = tgt_poses.shape[0]
+        if features.ndim == 3 and features.shape[0] != T:
+            raise ValueError(f"a per-frame pool stack must have T = {T} frames, got "
+                             f"{features.shape[0]}")
+        pools = features.unbind(0) if features.ndim == 3 else [features] * T
+        if rays is not None:
+            frame_rays = [(rays.origins, rays.dirs, rays.viewdirs)] * T
+        else:
+            frame_rays = self._frame_rays(c2w, T, width, height, fx, fy, opt)
+        src_pose = torch.as_tensor(src_pose, dtype=torch.float32, device=dev)
+        points = torch.as_tensor(points, dtype=torch.float32, device=dev)
+        sw = torch.as_tensor(skinning_weights, dtype=torch.float32, device=dev)
+        ji = torch.as_tensor(joint_index, dtype=torch.int32, device=dev)
+        spec = self.tree._spec()
+        colors, depths = [], []
+        for k in range(T):
+            with torch.no_grad():
+                tk = warp_ops.get_transformation_matrix(src_pose, tgt_poses[k])
+                warped, mats = warp_ops.warp_vertices(tk, points, sw, ji)
+                spec = spec.with_(data_flat=query_ops.construct_tree(spec, warped))
+            sp = spec.with_(transformation_matrices=mats) if viewdir_rotation else spec
+            o, d, v = frame_rays[k]
+            colors.append(render_ops.volume_render(sp, pools[k], o, d, v, opt))
+            if with_depth:
+                depths.append(aux_ops.render_depth(sp, pools[k], o, d, opt))
+        if update_tree:
+            self.tree._adopt_data_flat(spec, spec.data_flat)
+
+        def _finish(outs):
+            out = torch.stack(outs)
+            return out if rays is not None else out.reshape(T, int(height), int(width), -1)
+
+        if with_depth:
+            return _finish(colors), _finish(depths)
+        return _finish(colors)
 
     def _get_options(self, fast=False) -> RenderOptions:
         """Build the RenderOptions of a call."""

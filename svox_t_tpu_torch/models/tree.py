@@ -28,7 +28,8 @@ from ..utils.spec import DATA_SENTINEL, TreeSpec, make_tree_spec
 class N3Tree:
     """N^3 tree: 3D tree with branching factor N per interior node
     (N=2 is the familiar octree). Its tables live on the host; its specs
-    and re-pointed index table on ``device``."""
+    and re-pointed index table on ``device``, the CUDA card unless the
+    caller names another device (without a card it raises)."""
 
     def __init__(
         self,
@@ -42,7 +43,7 @@ class N3Tree:
         center=[0.5, 0.5, 0.5],
         data_format="RGBA",
         extra_data=None,
-        device="cpu",
+        device="cuda",
         dtype=torch.float32,
     ):
         if N < 2 or depth_limit < 0:
@@ -160,7 +161,12 @@ class N3Tree:
         until a host-side structure op needs it."""
         spec = self._spec()
         points = torch.as_tensor(indices, dtype=torch.float32, device=self.device)
-        new_data_flat = query_ops.construct_tree(spec, points)
+        self._adopt_data_flat(spec, query_ops.construct_tree(spec, points))
+
+    def _adopt_data_flat(self, spec: TreeSpec, new_data_flat: torch.Tensor):
+        """Adopt a re-pointed flat index table (from `construct_tree` or a
+        frame loop) produced from ``spec``: it becomes the tree's table, on
+        ``device``, and the cached spec points at it."""
         self._data = new_data_flat
         self._cached_spec = spec.with_(data_flat=new_data_flat)
 
@@ -411,7 +417,7 @@ class N3Tree:
         (np.savez_compressed if compress else np.savez)(path, **data)
 
     @classmethod
-    def load(cls, path, device="cpu"):
+    def load(cls, path, device="cuda"):
         """Load from .npz: int32-index files (with or without a
         `features` key) and legacy files with float leaf features in
         `data`, which become a feature pool plus an identity index

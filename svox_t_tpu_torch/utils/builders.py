@@ -130,7 +130,7 @@ def tree_from_occupancy(
     radius=0.5,
     center=(0.5, 0.5, 0.5),
     extra_data=None,
-    device="cpu",
+    device="cuda",
 ):
     """Build an N3Tree from a dense occupancy grid (see
     tree_structure_from_occupancy). Returns (tree, n_occupied); occupied

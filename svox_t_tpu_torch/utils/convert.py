@@ -41,7 +41,7 @@ def _default_data_dim(fmt: DataFormat | None) -> int:
     return 3 * fmt.basis_dim + 1
 
 
-def tree_from_numpy(state: dict, device="cpu") -> N3Tree:
+def tree_from_numpy(state: dict, device="cuda") -> N3Tree:
     """Build this package's N3Tree on ``device`` from NumPy arrays.
 
     :param state: ``child`` (n, N, N, N) or (n, N^3) int32, ``data``

@@ -171,3 +171,79 @@ def orbit_camera(theta: float = 0.5, phi: float = 0.4, dist: float = 2.2):
     c2w[:3, 2] = -fwd
     c2w[:3, 3] = eye
     return c2w
+
+
+# Degrees a joint turns at most in `joint_pose_sequence`.
+POSE_AMPLITUDE_DEG = 3.0
+
+
+def skin_to_nearest_joints(points: np.ndarray, joints: np.ndarray, n_bones: int):
+    """Skinning of a spatially coherent rig: each point's ``n_bones``
+    nearest joints, weights proportional to 1 / distance and normalised.
+
+    :return: (skinning weights (Q, n_bones) float32, joint ids (Q,
+        n_bones) int32), nearest joint first
+    """
+    Q = points.shape[0]
+    sw = np.empty((Q, n_bones), np.float32)
+    ji = np.empty((Q, n_bones), np.int32)
+    chunk = 1 << 18  # points per distance table, to bound host memory
+    for s in range(0, Q, chunk):
+        p = points[s:s + chunk].astype(np.float64)
+        dist = np.linalg.norm(p[:, None, :] - joints[None].astype(np.float64), axis=-1)
+        near = np.argsort(dist, axis=1)[:, :n_bones]
+        inv = 1.0 / np.maximum(np.take_along_axis(dist, near, axis=1), 1e-6)
+        sw[s:s + chunk] = inv / inv.sum(axis=1, keepdims=True)
+        ji[s:s + chunk] = near
+    return sw, ji
+
+
+def joint_pose_sequence(joints: np.ndarray, n_frames: int, seed: int) -> np.ndarray:
+    """(n_frames, J, 4, 4) float32 poses: in frame k joint j rotates about
+    its own position by ``POSE_AMPLITUDE_DEG * sin(2 pi k / n_frames +
+    phi_j)`` degrees around a seeded axis, with a seeded phase phi_j. The
+    canonical pose is the identity."""
+    rng = np.random.RandomState(seed)
+    J = joints.shape[0]
+    axes = rng.randn(J, 3)
+    axes /= np.linalg.norm(axes, axis=1, keepdims=True)
+    phase = rng.uniform(0.0, 2.0 * np.pi, J)
+    K = np.zeros((J, 3, 3))
+    K[:, 0, 1], K[:, 0, 2], K[:, 1, 2] = -axes[:, 2], axes[:, 1], -axes[:, 0]
+    K -= K.transpose(0, 2, 1)
+    out = np.tile(np.eye(4), (n_frames, J, 1, 1))
+    for k in range(n_frames):
+        a = np.deg2rad(POSE_AMPLITUDE_DEG) * np.sin(2.0 * np.pi * k / n_frames + phase)
+        R = (np.eye(3) + np.sin(a)[:, None, None] * K
+             + (1.0 - np.cos(a))[:, None, None] * (K @ K))  # Rodrigues
+        out[k, :, :3, :3] = R
+        out[k, :, :3, 3] = joints - np.einsum("jab,jb->ja", R, joints)
+    return out.astype(np.float32)
+
+
+def bench_dynamic_cloud() -> dict:
+    """The dynamic configuration of `bench.py` (its ``dynamic_fused`` and
+    ``dynamic_fast`` keys), in NumPy: 20,000 Gaussian points (seed 1)
+    clipped to [0.2, 0.8], an RGBA pool with densities 8-9, two joints
+    (the second rotating about z by 0.5 sin(2 pi i / 4) in frame i of 4)
+    with weights from the z coordinate. The tree it runs on is
+    ``N3Tree(N=2, data_dim=4, depth_limit=6)`` refined 5 times.
+
+    :return: dict of points, features, skinning_weights, joint_index,
+        poses (4, 2, 4, 4) and src_pose (2, 4, 4)
+    """
+    n_points, n_frames = 20000, 4
+    rng = np.random.RandomState(1)
+    pts = np.clip(0.5 + 0.15 * rng.randn(n_points, 3), 0.2, 0.8).astype(np.float32)
+    feats = np.concatenate([rng.rand(n_points, 3), 8.0 + rng.rand(n_points, 1)],
+                           axis=1).astype(np.float32)
+    sw = np.stack([1.0 - pts[:, 2], pts[:, 2]], axis=1).astype(np.float32)
+    ji = np.tile(np.array([0, 1], np.int32), (n_points, 1))
+    poses = []
+    for i in range(n_frames):
+        a = 0.5 * np.sin(2 * np.pi * i / n_frames)
+        c, s = np.cos(a), np.sin(a)
+        rot = np.array([[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+        poses.append(np.stack([np.eye(4, dtype=np.float32), rot]))
+    return dict(points=pts, features=feats, skinning_weights=sw, joint_index=ji,
+                poses=np.stack(poses), src_pose=np.stack([np.eye(4, dtype=np.float32)] * 2))

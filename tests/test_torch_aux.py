@@ -53,7 +53,7 @@ def _scene(seed, fmt="RGBA", ddim=4, n_rays=160, occupy=None):
         sw=(rng.rand(M, NB) - 0.2).astype(np.float32),
         ji=rng.randint(0, J, (M, NB)).astype(np.int32),
     )
-    pt = stt.tree_from_numpy(stt.tree_state(jt))
+    pt = stt.tree_from_numpy(stt.tree_state(jt), device="cpu")
     return rng, jt, pt, feats, rays, lbs, joints
 
 
@@ -298,7 +298,7 @@ def test_unsupported_inputs_raise():
     tr = stt.VolumeRenderer(pt)
     trays = _trays(rays)
     with pytest.raises(ValueError, match="extra_data"):
-        stt.VolumeRenderer(stt.tree_from_numpy(dict(stt.tree_state(jt), extra_data=None))).motion_render(
+        stt.VolumeRenderer(stt.tree_from_numpy(dict(stt.tree_state(jt), extra_data=None), device="cpu")).motion_render(
             _t(feats), trays)
     interp = dataclasses.replace(tr._get_options(), interp=1)
     spec = pt._spec(skinning_weights=lbs["sw"], joint_index=lbs["ji"])

@@ -62,7 +62,7 @@ def _scene(seed, fmt="RGBA", ddim=4, toward_center=True, extra=None, N=2):
     jt, feats, centers = build_tree(rng, N=N, data_format=fmt, data_dim=ddim,
                                     depth_limit=4, sigma_scale=20.0, extra_data=extra)
     rays = make_rays(rng, N_RAYS, toward_center=toward_center)
-    pt = stt.tree_from_numpy(stt.tree_state(jt))
+    pt = stt.tree_from_numpy(stt.tree_state(jt), device="cpu")
     return rng, jt, pt, np.array(feats), rays, centers
 
 
@@ -286,7 +286,7 @@ def test_gradcheck_plain_float64(fmt, ddim):
     rng = np.random.RandomState(60 + ddim)
     jt, feats, centers = build_tree(rng, data_format=fmt, data_dim=ddim,
                                     n_random_refines=1, sigma_scale=5.0)
-    pt = stt.tree_from_numpy(stt.tree_state(jt))
+    pt = stt.tree_from_numpy(stt.tree_state(jt), device="cpu")
     rays = _trays(make_rays(rng, 24))
     f64 = torch.from_numpy(np.array(feats, np.float64)).requires_grad_()
     r = stt.VolumeRenderer(pt)

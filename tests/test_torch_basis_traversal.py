@@ -32,7 +32,7 @@ def _t(x):
 
 
 def _port(tree):
-    return stt.tree_from_numpy(stt.tree_state(tree))
+    return stt.tree_from_numpy(stt.tree_state(tree), device="cpu")
 
 
 def _unit_dirs(rng, n):

@@ -13,7 +13,11 @@ fused multiply-adds, so sample positions and descents match the plain
 version bit for bit, and only the last ulps of exp and of the color sums
 can differ. Gradients and accumulated weights agree to
 ``1e-5 * max(1, max|plain|)``: the kernels add them with float atomics,
-in an order that changes from run to run.
+in an order that changes from run to run. So does the voxelize forward
+(its splat is atomic). The warp forward and the warp's point and weight
+gradients follow their plain versions operation for operation (1e-6),
+as does the voxelize backward, which sums each point's window in order
+(``1e-6 * max(1, max|plain|)``).
 """
 
 import dataclasses
@@ -23,10 +27,13 @@ import pytest
 import torch
 
 import svox_t_tpu_torch as stt
+from svox_t_tpu_torch.ops import p2v as tp2v
 from svox_t_tpu_torch.ops import query as tquery
 from svox_t_tpu_torch.ops import render as trender
 from svox_t_tpu_torch.ops import render_aux as taux
-from svox_t_tpu_torch.utils.scenes import build_shell_tree, orbit_camera, random_lobes
+from svox_t_tpu_torch.ops import warp as twarp
+from svox_t_tpu_torch.utils.scenes import (build_shell_tree, joint_pose_sequence, orbit_camera,
+                                           random_lobes, skin_to_nearest_joints)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -442,3 +449,153 @@ def test_aux_entry_points_use_the_kernels(cuda):
     cube_miss = ~trender._ray_setup(tree._spec(), o, d)[-1]
     assert bool(cube_miss.any()) and not mf[cube_miss].any()
     assert bool((didx[depth[:, 0] > 0] < feats.shape[0]).all())
+
+
+def _warp_rig(cuda, Q, J, nb, seed):
+    """Transforms near the identity, points, weights with zero and
+    negative bones, and ids with some outside [0, J) (-1, J + 3)."""
+    rng = np.random.RandomState(seed)
+    T = np.tile(np.eye(4, dtype=np.float32), (J, 1, 1)) + rng.randn(J, 4, 4).astype(np.float32) * 0.1
+    x = rng.rand(Q, 3).astype(np.float32)
+    w = rng.uniform(-0.3, 1.0, (Q, nb)).astype(np.float32)
+    w[::7, 0] = 0.0
+    ji = rng.randint(0, J, (Q, nb)).astype(np.int32)
+    ji[1::11, -1] = -1
+    ji[2::13, 0] = J + 3
+    return tuple(torch.from_numpy(a).to(cuda) for a in (T, x, w, ji))
+
+
+@pytest.mark.parametrize("J", [1, 2, 32])
+@pytest.mark.parametrize("nb", [1, 2, 4])
+def test_warp_kernels_match_plain(cuda, J, nb):
+    T, x, w, ji = _warp_rig(cuda, 20000, J, nb, seed=30 + J + nb)
+    before = (twarp.WARP_FWD.launches, twarp.WARP_BWD.launches)
+    got = twarp.warp_forward_cuda(T, x, w, ji)
+    want = twarp.warp_forward_plain(T, x, w, ji)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_, atol=1e-6, rtol=0)
+    gen = torch.Generator().manual_seed(J * nb)
+    g_x = torch.randn(x.shape, generator=gen).to(cuda)
+    g_M = torch.randn(x.shape[0], 4, 4, generator=gen).to(cuda)
+    for gx, gm in ((g_x, g_M), (g_x, None), (None, g_M)):
+        dT, dx, dw = twarp.warp_backward_cuda(T, x, w, ji, gx, gm)
+        pT, px, pw = twarp.warp_backward_plain(T, x, w, ji, gx, gm)
+        _assert_atomic_close(dT, pT)
+        torch.testing.assert_close(dx, px, atol=1e-6 * max(1.0, float(px.abs().max())), rtol=0)
+        torch.testing.assert_close(dw, pw, atol=1e-6 * max(1.0, float(pw.abs().max())), rtol=0)
+        assert float(dT.abs().max()) > 0 and not dT[:, 3].any()
+    torch.cuda.synchronize()
+    assert (twarp.WARP_FWD.launches, twarp.WARP_BWD.launches) == (before[0] + 1, before[1] + 3)
+
+
+def test_warp_entry_point_uses_the_kernels_and_only_wanted_grads(cuda):
+    T, x, w, ji = _warp_rig(cuda, 5000, 4, 2, seed=41)
+    Tg = T.clone().requires_grad_()
+    before = (twarp.WARP_FWD.launches, twarp.WARP_BWD.launches)
+    warped, mats = stt.warp_vertices(Tg, x, w, ji.long())
+    (warped.sum() + (mats ** 2).sum()).backward()
+    torch.cuda.synchronize()
+    assert (twarp.WARP_FWD.launches, twarp.WARP_BWD.launches) == (before[0] + 1, before[1] + 1)
+    pT, _, _ = twarp.warp_backward_plain(T, x, w, ji, torch.ones_like(x), 2 * mats.detach(),
+                                        True, False, False)
+    _assert_atomic_close(Tg.grad, pT)
+    blend = stt.blend_transformation_matrix(T, w, ji)
+    torch.testing.assert_close(blend, mats.detach(), atol=0, rtol=0)
+
+
+def test_warp_backward_at_the_shared_table_limit(cuda):
+    J = twarp.kernel_max_joints()
+    T, x, w, ji = _warp_rig(cuda, 50000, J, 4, seed=42)
+    g_x = torch.randn(x.shape, generator=torch.Generator().manual_seed(42)).to(cuda)
+    dT, _, _ = twarp.warp_backward_cuda(T, x, w, ji, g_x, None, True, False, False)
+    _assert_atomic_close(dT, twarp.warp_backward_plain(T, x, w, ji, g_x, None, True, False, False)[0])
+    with pytest.raises(NotImplementedError, match="joints"):
+        T2 = torch.eye(4, device=cuda).repeat(J + 1, 1, 1)
+        twarp.warp_backward_cuda(T2, x, w, ji, g_x, None)
+
+
+def _p2v_cloud(cuda, Q, F, seed):
+    rng = np.random.RandomState(seed)
+    pts = rng.rand(Q, 3).astype(np.float32)
+    pts[0] = [10.0, 10.0, 10.0]    # outside: deposits nothing
+    pts[1] = [-0.03, 0.5, 1.01]    # just outside two faces: a clipped window
+    feats = (np.abs(rng.rand(Q, F)) + 0.1).astype(np.float32)
+    return torch.from_numpy(pts).to(cuda), torch.from_numpy(feats).to(cuda)
+
+
+@pytest.mark.parametrize("F", [1, 3])
+@pytest.mark.parametrize("n,kr,cr", [(33, 0.04, 0.0625), (17, 0.1, 0.2), (64, 0.02, 0.05)])
+def test_voxelize_kernels_match_plain(cuda, F, n, kr, cr):
+    """cr = 0.0625 is exactly one voxel of the 33-grid."""
+    pts, feats = _p2v_cloud(cuda, 30000, F, seed=n + F)
+    c = tp2v.grid_consts([0, 0, 0], [1, 1, 1], n, kr, cr)
+    before = (tp2v.VOXELIZE_FWD.launches, tp2v.VOXELIZE_BWD.launches)
+    vol = tp2v.voxelize_forward_cuda(pts, feats, c)
+    want = tp2v.voxelize_forward_plain(pts, feats, c)
+    _assert_atomic_close(vol, want)
+    assert float(vol.max()) > 0
+    g = torch.randn(vol.shape, generator=torch.Generator().manual_seed(n)).to(cuda)
+    dp, df = tp2v.voxelize_backward_cuda(pts, feats, c, g)
+    pp, pf = tp2v.voxelize_backward_plain(pts, feats, c, g)
+    for got, ref in ((dp, pp), (df, pf)):
+        torch.testing.assert_close(got, ref, atol=1e-6 * max(1.0, float(ref.abs().max())), rtol=0)
+    assert not df[:, :-1].any() and not dp[0].any() and float(dp.abs().max()) > 0
+    torch.cuda.synchronize()
+    assert (tp2v.VOXELIZE_FWD.launches, tp2v.VOXELIZE_BWD.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_voxelize_entry_point_uses_the_kernels(cuda):
+    pts, feats = _p2v_cloud(cuda, 4000, 2, seed=7)
+    p, f = pts.clone().requires_grad_(), feats.clone().requires_grad_()
+    before = (tp2v.VOXELIZE_FWD.launches, tp2v.VOXELIZE_BWD.launches)
+    vol = stt.voxelize(p, f, [0, 0, 0], [1, 1, 1], 24, 0.05, 0.1)
+    (vol ** 2).sum().backward()
+    torch.cuda.synchronize()
+    assert (tp2v.VOXELIZE_FWD.launches, tp2v.VOXELIZE_BWD.launches) == (before[0] + 1, before[1] + 1)
+    assert vol.shape == (24, 24, 24, 1) and float(p.grad.abs().max()) > 0
+
+
+def test_trees_default_to_the_card(cuda, tmp_path):
+    tree = stt.N3Tree(N=2, data_dim=4, depth_limit=3)
+    assert tree.device.type == "cuda" and tree._spec().child_flat.is_cuda
+    path = str(tmp_path / "t.npz")
+    tree.save(path)
+    assert stt.N3Tree.load(path).device.type == "cuda"
+    assert stt.tree_from_numpy(stt.tree_state(tree)).device.type == "cuda"
+    occ = np.zeros((4, 4, 4), bool)
+    occ[1, 2, 3] = True
+    assert stt.tree_from_occupancy(occ)[0].device.type == "cuda"
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_dynamic_frames_use_the_kernels_and_equal_the_eager_loop(cuda, fast):
+    """render_dynamic_frames on the shell scene with a 6-joint rig: one
+    warp, construct_tree, forward march and first hit per frame, and the
+    same images and index table as the eager loop of the public calls."""
+    state, feats_np, centers_np = build_shell_tree(depth=6, data_format="SH4", data_dim=13, seed=5)
+    joints = np.random.RandomState(5).uniform(0.3, 0.7, (6, 3)).astype(np.float32)
+    sw, ji = skin_to_nearest_joints(centers_np, joints, 4)
+    poses = joint_pose_sequence(joints, 3, seed=5)
+    src = np.tile(np.eye(4, dtype=np.float32), (6, 1, 1))
+    feats = torch.from_numpy(feats_np).to(cuda)
+    tree = stt.tree_from_numpy(state, device=cuda)
+    r = stt.VolumeRenderer(tree)
+    counters = (twarp.WARP_FWD, tquery.CONSTRUCT_TREE, trender.RENDER_FWD, taux.FIRST_HIT)
+    before = [k.launches for k in counters]
+    cols, deps = r.render_dynamic_frames(feats, poses, src, centers_np, sw, ji, c2w=orbit_camera(),
+                                         width=64, height=48, fx=70.0, fast=fast, with_depth=True)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [3, 3, 3, 3]
+    eager = stt.tree_from_numpy(state, device=cuda)
+    re = stt.VolumeRenderer(eager)
+    o, d = trender.cam2world_rays(torch.as_tensor(orbit_camera(), device=cuda), 64, 48, 70.0, 70.0)
+    rays = stt.Rays(o.contiguous(), d.contiguous(), d.contiguous())
+    for k in range(3):
+        tk = stt.get_transformation_matrix(torch.from_numpy(src).to(cuda), torch.from_numpy(poses[k]).to(cuda))
+        warped, mats = stt.warp_vertices(tk, torch.from_numpy(centers_np).to(cuda),
+                                         torch.from_numpy(sw).to(cuda), torch.from_numpy(ji).to(cuda))
+        eager.construct_tree(warped)
+        img = re(feats, rays, transformation_matrices=mats, fast=fast).reshape(48, 64, -1)
+        assert torch.equal(cols[k], img)
+        assert torch.equal(deps[k], re.render_depth(feats, rays, fast=fast).reshape(48, 64, 1))
+    assert torch.equal(tree._spec().data_flat, eager._spec().data_flat)

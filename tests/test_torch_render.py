@@ -49,7 +49,7 @@ def _scene(seed, fmt="RGBA", ddim=4, n_rays=200, toward_center=True, N=2):
     jt, feats, _ = build_tree(rng, N=N, data_format=fmt, data_dim=ddim,
                               depth_limit=5, sigma_scale=20.0)
     rays = make_rays(rng, n_rays, toward_center=toward_center)
-    return rng, jt, stt.tree_from_numpy(stt.tree_state(jt)), np.array(feats), rays
+    return rng, jt, stt.tree_from_numpy(stt.tree_state(jt), device="cpu"), np.array(feats), rays
 
 
 def _trays(rays):
@@ -110,7 +110,7 @@ def test_forward_sg_asg_plain_match_jax(fmt, width):
     for a in range(1 if width == 4 else 2, width, 3):
         extra[:, a:a + 3] /= np.linalg.norm(extra[:, a:a + 3], axis=1, keepdims=True)
     jt, feats, _ = build_tree(rng, data_format=f"{fmt}4", data_dim=13, extra_data=extra)
-    pt = stt.tree_from_numpy(stt.tree_state(jt))
+    pt = stt.tree_from_numpy(stt.tree_state(jt), device="cpu")
     rays = make_rays(rng, 100)
     want = st.VolumeRenderer(jt, backend="tree")(feats, rays)
     got = stt.VolumeRenderer(pt)(_t(feats), _trays(rays))
@@ -211,7 +211,7 @@ def test_render_persp_matches_jax_and_forward():
 def test_golden_images_through_port(name, depth, fmt, ddim, size):
     z = np.load(os.path.join(FIX, f"{name}.npz"))
     state, feats, _ = build_shell_tree(depth=depth, data_format=fmt, data_dim=ddim)
-    tree = stt.tree_from_numpy(state)
+    tree = stt.tree_from_numpy(state, device="cpu")
     img = stt.VolumeRenderer(tree).render_persp(
         torch.from_numpy(feats), orbit_camera(), width=size, height=size, fx=float(size)
     ).numpy()
@@ -223,7 +223,7 @@ def test_golden_scenes_march_matches_jax_oracle(depth, fmt, ddim, size):
     """On the golden scenes and the JAX package's own camera rays, the
     port's march holds ATOL against the JAX sample-at-a-time oracle."""
     jt, jf = jscenes.build_shell_tree(depth=depth, data_format=fmt, data_dim=ddim)
-    pt = stt.tree_from_numpy(stt.tree_state(jt))
+    pt = stt.tree_from_numpy(stt.tree_state(jt), device="cpu")
     o, d = jrender.cam2world_rays(jnp.asarray(orbit_camera()), size, size, float(size), float(size))
     opt = st.VolumeRenderer(jt, backend="tree")._get_options(False)
     want = volume_render_oracle(jt._spec(), jf, o, d, d, opt)

@@ -30,7 +30,7 @@ FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 
 
 def _port(tree):
-    return stt.tree_from_numpy(stt.tree_state(tree))
+    return stt.tree_from_numpy(stt.tree_state(tree), device="cpu")
 
 
 def _leaf_centers(tree):
@@ -54,7 +54,7 @@ def _assert_same_structure(port, tree):
 def test_refine_buffers_match_jax(N, init_refine):
     kw = dict(N=N, data_dim=4, depth_limit=4, init_refine=init_refine,
               radius=[0.7, 0.5, 0.9], center=[0.1, 0.2, 0.3])
-    jt, pt = st.N3Tree(**kw), stt.N3Tree(**kw)
+    jt, pt = st.N3Tree(**kw), stt.N3Tree(**kw, device="cpu")
     _assert_same_structure(pt, jt)
     assert jt.refine(repeats=2) == pt.refine(repeats=2)
     _assert_same_structure(pt, jt)
@@ -76,7 +76,7 @@ def test_tree_state_roundtrip_and_spec():
     pt = _port(jt)
     _assert_same_structure(pt, jt)
     assert repr(pt.data_format) == "SH4" and pt.data_dim == 13
-    again = stt.tree_from_numpy(stt.tree_state(pt))
+    again = stt.tree_from_numpy(stt.tree_state(pt), device="cpu")
     _assert_same_structure(again, jt)
     js, ps = jt._spec(), pt._spec()
     assert (ps.N, ps.n_levels, ps.n_internal) == (js.N, js.n_levels, js.n_internal)
@@ -205,7 +205,7 @@ def test_save_jax_load_port(tmp_path):
     jt.features = feats
     p = os.path.join(tmp_path, "jax.npz")
     jt.save(p)
-    pt = stt.N3Tree.load(p)
+    pt = stt.N3Tree.load(p, device="cpu")
     _assert_same_structure(pt, jt)
     np.testing.assert_array_equal(pt.features.numpy(), np.asarray(feats))
     np.testing.assert_array_equal(pt.invradius, jt.invradius)
@@ -214,7 +214,7 @@ def test_save_jax_load_port(tmp_path):
 
 def test_load_reference_schema_fixture():
     path = os.path.join(FIX, "reference_schema.npz")
-    jt, pt = st.N3Tree.load(path), stt.N3Tree.load(path)
+    jt, pt = st.N3Tree.load(path), stt.N3Tree.load(path, device="cpu")
     _assert_same_structure(pt, jt)
     assert str(pt.data_format) == "SH1" and pt.data_dim == 4 and pt.N == 2
     probe = np.load(os.path.join(FIX, "reference_schema_probe.npz"))
@@ -232,7 +232,7 @@ def test_load_legacy_float_data(tmp_path):
     np.savez(p, data_dim=4, child=t.child, parent_depth=t.parent_depth,
              n_internal=1, invradius=1.0, offset=np.zeros(3, np.float32),
              depth_limit=4, geom_resize_fact=1.5, data=raw)
-    jt, pt = st.N3Tree.load(p), stt.N3Tree.load(p)
+    jt, pt = st.N3Tree.load(p), stt.N3Tree.load(p, device="cpu")
     np.testing.assert_array_equal(pt.features.numpy(), np.asarray(jt.features))
     np.testing.assert_array_equal(pt.data, np.asarray(jt.data))
     np.testing.assert_array_equal(pt.data.ravel(), np.arange(8))
@@ -250,7 +250,7 @@ def test_scenes_match_benchmark_scenes(depth, fmt, ddim):
     assert state["n_internal"] == jt.n_internal and state["depth_limit"] == jt.depth_limit
     np.testing.assert_array_equal(feats, np.asarray(jf))
     # centers[i] is the centre of the leaf pointing at row i
-    pt = stt.tree_from_numpy(state)
+    pt = stt.tree_from_numpy(state, device="cpu")
     rows = descend(pt._spec(), torch.from_numpy(centers)).data_idx.numpy()
     np.testing.assert_array_equal(rows, np.arange(len(centers)))
     _, jof = jscenes.build_opaque_tree(depth=3)
@@ -263,7 +263,29 @@ def test_tree_from_occupancy_matches_jax():
     rng = np.random.RandomState(12)
     occ = rng.rand(8, 8, 8) < 0.1
     jt, jn = st.tree_from_occupancy(occ, data_dim=13, data_format="SH4", radius=0.8)
-    pt, pn = stt.tree_from_occupancy(occ, data_dim=13, data_format="SH4", radius=0.8)
+    pt, pn = stt.tree_from_occupancy(occ, data_dim=13, data_format="SH4", radius=0.8,
+                                     device="cpu")
     assert jn == pn
     _assert_same_structure(pt, jt)
     np.testing.assert_array_equal(pt.invradius, jt.invradius)
+
+
+@pytest.mark.parametrize("entry", ["N3Tree", "load", "tree_from_occupancy", "tree_from_numpy"])
+def test_entry_points_default_to_the_card(entry, tmp_path):
+    """Trees land on CUDA unless the caller names a device: without a card
+    the default raises instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: tests/test_torch_cuda.py checks the default there")
+    path = str(tmp_path / "t.npz")
+    stt.N3Tree(N=2, data_dim=4, depth_limit=2, device="cpu").save(path)
+    state = stt.tree_state(stt.N3Tree(N=2, data_dim=4, depth_limit=2, device="cpu"))
+    occ = np.zeros((4, 4, 4), bool)
+    occ[1, 2, 3] = True
+    make = {
+        "N3Tree": lambda: stt.N3Tree(N=2, data_dim=4, depth_limit=2),
+        "load": lambda: stt.N3Tree.load(path),
+        "tree_from_occupancy": lambda: stt.tree_from_occupancy(occ),
+        "tree_from_numpy": lambda: stt.tree_from_numpy(state),
+    }[entry]
+    with pytest.raises((AssertionError, RuntimeError)):
+        make()
