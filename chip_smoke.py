@@ -9,40 +9,58 @@ SG9 and ASG9, with weight accumulation; the backward march in five
 cases; the point query forward and backward; the aux kernels, exact and
 fast: the opacity VJP, the first hit, the motion-feature forward and
 backward; the LBS warp forward and backward, also at 2 joints and 2
-bones; the voxelize splat forward and backward), then drives the main
-paths through the public entry points on the depth-9 SH9 shell scene at
-800x800, with a seeded 32-joint skeleton for the aux and dynamic paths:
+bones; the voxelize splat forward and backward; then the bake: the
+depth-9 shell baked on the host, the K6 point lookup on every leaf centre
+and 1M seeded points, K7a refresh after a re-point and points_leaf_aabb,
+exactly, K7b skip-box regrowth on bench.py's dynamic tree, exactly, the
+baked forward march on one of bench.py's fast frames, whose march steps
+across those skip boxes, the baked instances of the forward march (SH9,
+SH9 with rotations, with weights), of the backward and of the four aux
+kernels, exact and fast;
+and the baked and tree-walk kernels bit for bit in exact mode), then
+drives the main paths through the public entry points on the depth-9 SH9
+shell scene at 800x800, with a seeded 32-joint skeleton for the aux and
+dynamic paths, each on the default baked backend and on the tree walk
+(`backend="tree"`):
 
   * serving: three frames of `N3Tree.construct_tree` with the frame's
     point cloud and `VolumeRenderer.render_persp` (exact and fast) with
-    the frame's feature pool;
-  * training: five Adam steps on a feature pool, each re-pointing the
-    tree, rendering with `render_persp`, taking an image loss plus a
-    density prior through the point query `N3Tree.forward`, and calling
-    `backward()`; one step runs inside `N3Tree.accumulate_weights()`;
+    the frame's feature pool (on the bake, each re-point refreshes it);
+  * training: Adam steps on a feature pool (five on the bake, two on the
+    tree walk), each re-pointing the tree, rendering with `render_persp`,
+    taking an image loss plus a density prior through the point query
+    `N3Tree.forward`, and calling `backward()`; one step runs inside
+    `N3Tree.accumulate_weights()`;
   * aux serving: three frames of `construct_tree`, `render_persp`,
-    `opacity_render`, `render_depth` and `motion_render`;
-  * aux training: five Adam steps over the pool and the joint features,
-    each taking an image MSE of `render_persp`, an opacity mask loss of
-    `opacity_render` and an MSE of `motion_feature_render`;
+    `opacity_render`, `render_depth` and `motion_render` (with the CUDA
+    reference's hit point: on the bake, one K6 lookup per frame);
+  * aux training: Adam steps (five, two) over the pool and the joint
+    features, each taking an image MSE of `render_persp`, an opacity mask
+    loss of `opacity_render` and an MSE of `motion_feature_render`;
   * dynamic serving: `VolumeRenderer.render_dynamic_frames` over three
     poses of the leaf-centre cloud skinned to the skeleton (LBS warp,
-    re-pointing, render with per-voxel rotations and first-hit depth),
-    fast and exact, checked against the eager loop of the public calls,
-    and `voxelize` of each frame's warped cloud into a 257^3 grid;
-  * dynamic training: three Adam steps on a two-frame pool stack through
-    `render_dynamic_frames`;
+    re-pointing, on the bake the box union and refresh, render with
+    per-voxel rotations and first-hit depth), fast and exact, checked
+    against the eager loop of the public calls, and `voxelize` of each
+    frame's warped cloud into a 257^3 grid;
+  * dynamic training: Adam steps (three, two) on a two-frame pool stack
+    through `render_dynamic_frames`;
   * pose fit: three Adam steps on the joints' transforms through
     `warp_vertices` and `voxelize` (the two backward kernels);
   * bench.py's dynamic configuration: a 20,000-point Gaussian cloud on a
     depth-5 RGBA tree, four frames of `render_dynamic_frames`, timed as
-    bench.py times them (`dynamic_fused_frame_ms`, `dynamic_fast_frame_ms`).
+    bench.py times them, on the default baked backend as bench.py renders
+    (`dynamic_fused_frame_ms`, `dynamic_fast_frame_ms`; the fast frames
+    regrow the skip boxes), and on the tree walk
+    (`dynamic_fused_frame_tree_ms`, `dynamic_fast_frame_tree_ms`).
 
-Each path's launch counts are read from zero around it. It prints kernel
-and plain-version times and each kernel's bound with the card's name and
-power limit, one JSON line describing the kernels, and as its last line
-{"ok": true, "device": {...}}. Any failed phase raises and the script
-exits nonzero. It needs a CUDA GPU and does not fall back to the CPU.
+The two backends' exact outputs are checked equal bit for bit on every
+serving path. Each path's launch counts are read from zero around it. It
+prints kernel and plain-version times and each kernel's bound with the
+card's name and power limit, the whole run's seconds, one JSON line
+describing the kernels, and as its last line {"ok": true, "device":
+{...}}. Any failed phase raises and the script exits nonzero. It needs a
+CUDA GPU and does not fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -59,6 +77,7 @@ import torch
 
 import svox_t_tpu_torch as stt
 from svox_t_tpu_torch import _build
+from svox_t_tpu_torch.ops import bake as bake_ops
 from svox_t_tpu_torch.ops import p2v as p2v_ops
 from svox_t_tpu_torch.ops import query as query_ops
 from svox_t_tpu_torch.ops import render as render_ops
@@ -74,6 +93,12 @@ WIDTH = HEIGHT = 800
 FX = 1111.111
 N_FRAMES = 3
 N_STEPS = 5
+# Training steps of the tree backend, which the default baked backend
+# runs N_STEPS (DYN_STEPS) of: the tree walk is the second backend, and
+# its steps are cut to keep the smoke's time.
+N_TREE_STEPS = 2
+BACKENDS = ("baked", "tree")  # the default first
+N_LOOKUP_POINTS = 1 << 20
 LR = 0.05
 # Weight of the density prior (mean |sigma| at sampled leaf centres,
 # through the point query) in the training loss; small beside the image
@@ -112,6 +137,9 @@ F32_OPS_PER_S = 67e12
 # sample's own math in each kernel (SH9 colors, compositing, blends of
 # N_BONES joint rows of JOINT_DIM, sigmoids as 3 operations).
 OPS_LEVEL = 12
+# The baked lookup per sample or point: clamps, the finest-grid floor, the
+# cube, the scaled point, its floor and the fraction.
+OPS_LOOKUP = 24
 OPS_SAMPLE = 30
 OPS_RAY = 40
 OPS_FWD_SH9 = 75
@@ -231,7 +259,39 @@ COUNTERS = {
     "warp_bwd": warp_ops.WARP_BWD,
     "voxelize_fwd": p2v_ops.VOXELIZE_FWD,
     "voxelize_bwd": p2v_ops.VOXELIZE_BWD,
+    "render_fwd_baked": render_ops.RENDER_FWD_BAKED,
+    "render_bwd_baked": render_ops.RENDER_BWD_BAKED,
+    "opacity_bwd_baked": aux_ops.OPACITY_BWD_BAKED,
+    "first_hit_baked": aux_ops.FIRST_HIT_BAKED,
+    "mf_fwd_baked": aux_ops.MF_FWD_BAKED,
+    "mf_bwd_baked": aux_ops.MF_BWD_BAKED,
+    "bake_lookup": bake_ops.LOOKUP,
+    "bake_refresh": bake_ops.REFRESH,
+    "grow_boxes": bake_ops.GROW_BOXES,
+    "points_aabb": query_ops.POINTS_AABB,
 }
+
+
+# The kernel-name suffix and the label of each backend in the output.
+SUFFIX = {"baked": "_baked", "tree": ""}
+LABEL = {"baked": "baked, the default", "tree": "tree walk"}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def check_bake_counts(counts: dict, backend: str, n: int) -> None:
+    """On the baked backend every re-point refreshes the bake with the
+    points' leaf box (n times); the tree walk launches no baked kernel."""
+    if backend == "baked":
+        check(counts["points_aabb"] == n and counts["bake_refresh"] == n,
+              f"the bake refreshed {counts['bake_refresh']} times and its box grown "
+              f"{counts['points_aabb']} times, not {n}")
+    else:
+        check(not any(v for k, v in counts.items()
+                      if k.endswith("_baked") or k in ("bake_refresh", "points_aabb", "bake_lookup")),
+              "the tree backend launched a baked kernel")
 
 
 def reset_counts() -> None:
@@ -259,17 +319,18 @@ def skeleton(rng: np.random.RandomState, M: int, device):
 
 def march_census(spec, feats, origins, dirs, opt) -> dict:
     """What this run's data makes a march do, under the forward's rules
-    with exact options: rays that hit the cube, samples, descent levels,
-    contributing samples (resident, sigma > 0) and the distinct rows and
-    leaf cells they touch; the same up to each ray's first hit. Only the
-    bounds read it."""
-    o = traversal.world2tree(origins, spec.offset, spec.scaling)
-    d, _ = traversal.get_delta_scale(spec.scaling, dirs)
-    invdir = 1.0 / (d + 1e-9)
-    tmin, tmax = traversal.dda_unit(o, invdir)
-    hit = ~((tmax < 0) | (tmin > tmax))
+    with exact options: rays that hit, samples, table loads, contributing
+    samples (resident, sigma > 0) and the distinct rows and structure
+    entries they touch; the same up to each ray's first hit. On the tree
+    a sample's loads are its descent levels and an entry is a leaf cell
+    (a child and a data entry); on a bake the rays are culled as its
+    march culls them, a sample loads its top entry and, under a brick
+    pointer, its brick entry, and an entry is one int32 of the tables.
+    Only the bounds read it."""
+    baked = isinstance(spec, bake_ops.BakedTree)
+    o, d, invdir, _, tmin, tmax, hit = render_ops._ray_setup(spec, origins, dirs, opt)
     M = feats.shape[0]
-    n_cells = spec.data_flat.numel()
+    n_cells = spec.src_map.numel() if baked else spec.data_flat.numel()
     dev = origins.device
     cells, cells_fh = (torch.zeros(n_cells, dtype=torch.bool, device=dev) for _ in range(2))
     rows, rows_fh = (torch.zeros(M, dtype=torch.bool, device=dev) for _ in range(2))
@@ -280,22 +341,35 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
     for _ in range(opt.max_steps):
         if not bool(active.any()):
             break
-        leaf = traversal.descend(spec, o + t[:, None] * d)
-        sub_tmin, sub_tmax = traversal.dda_unit(leaf.frac, invdir)
-        dt = (sub_tmax - sub_tmin) / leaf.cube_sz + opt.step_size
+        pos = render_ops.sample_position(o, t, d)
+        leaf = render_ops._locate(spec, pos)
+        dt = render_ops._step(leaf, invdir, opt.step_size, 0)
         idx = leaf.data_idx
         res = active & (idx >= 0) & (idx < M)
         sigma = torch.where(res, feats[torch.where(res, idx, 0).long(), -1], 0.0)
         contrib = res & (sigma > 0)
-        levels = torch.round(torch.log2(leaf.cube_sz) / log_n)
+        if baked:
+            # the top entry of every sample, plus the entry the pointer leads to
+            p = traversal.clamp_coord(pos)
+            R = spec.R
+            tc = torch.clamp((p * R).to(torch.int32), max=R - 1)
+            top = (tc[:, 0] * R + tc[:, 1]) * R + tc[:, 2]
+            deep = leaf.node_flat >= spec.top.numel()
+            levels = 1.0 + deep.double() + (leaf.node_flat >= spec.top.numel() + spec.n_mid).double() * (
+                spec.mid is not None)
+            for mark, m in ((cells, active), (cells_fh, searching & active)):
+                mark[top[m].long()] = True
+                mark[leaf.node_flat[m & deep].long()] = True
+        else:
+            levels = torch.round(torch.log2(leaf.cube_sz) / log_n)
+            cells[leaf.node_flat[active].long()] = True
+            cells_fh[leaf.node_flat[searching & active].long()] = True
         fh = searching & active
         n["samples"] += active.sum()
         n["levels"] += levels[active].sum()
         n["contrib"] += contrib.sum()
         n["fh_samples"] += fh.sum()
         n["fh_levels"] += levels[fh].sum()
-        cells[leaf.node_flat[active].long()] = True
-        cells_fh[leaf.node_flat[fh].long()] = True
         rows[idx[contrib].long()] = True
         rows_fh[idx[fh & contrib].long()] = True
         searching = searching & ~contrib
@@ -303,8 +377,32 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
         active = active & (t < tmax)
     out = {k: int(v.item()) for k, v in n.items()}
     out.update(rays=origins.shape[0], hits=int(hit.sum()), cells=int(cells.sum()),
-               rows=int(rows.sum()), cells_fh=int(cells_fh.sum()), rows_fh=int(rows_fh.sum()))
+               rows=int(rows.sum()), cells_fh=int(cells_fh.sum()), rows_fh=int(rows_fh.sum()),
+               baked=baked)
     return out
+
+
+def skip_exits(spec, feats, origins, dirs, opt) -> int:
+    """Samples of a march on a bake, up to each ray's first sample with
+    density, whose leaf is a skip-box code of nonzero extent: samples
+    that the march steps across a skip box. Only a check reads it."""
+    skip_base = render_ops.effective_skip_base(spec, opt)
+    o, d, invdir, _, tmin, tmax, hit = render_ops._ray_setup(spec, origins, dirs, opt)
+    M = feats.shape[0]
+    t, active = tmin, hit.clone()
+    n = torch.zeros((), dtype=torch.int64, device=origins.device)
+    for _ in range(opt.max_steps):
+        if not bool(active.any()):
+            break
+        leaf = render_ops._locate(spec, render_ops.sample_position(o, t, d))
+        idx = leaf.data_idx
+        bits = idx - skip_base
+        n += (active & (bits > 0) & (bits < bake_ops._SKIP_BITS_SPAN)).sum()
+        res = (idx >= 0) & (idx < M)
+        sigma = torch.where(res, feats[torch.where(res, idx, 0).long(), -1], 0.0)
+        t = torch.where(active, t + render_ops._step(leaf, invdir, opt.step_size, skip_base), t)
+        active = active & ~(res & (sigma > 0)) & (t < tmax)
+    return int(n)
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -314,40 +412,79 @@ def bound(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_bounds(c: dict, M: int, D: int, n_cells: int, Q: int, q_levels: int) -> dict:
-    """bound_ms and bound_by of every kernel at the main path's shapes,
-    from the census `c` of the SH9 camera march and Q points that descend
-    q_levels levels in all (construct_tree and query). Each input is read
-    once and each output written once: rays 12 bytes per vector; a
-    march reads the rows and leaf cells (a data and a child entry) that
-    its samples touch; gradients of the pool are (M, D) outputs."""
-    B, R, C = c["rays"], c["rows"], c["cells"]
-    march_ops = OPS_RAY * c["hits"] + OPS_LEVEL * c["levels"] + OPS_SAMPLE * c["samples"]
-    fh_ops = OPS_RAY * c["hits"] + OPS_LEVEL * c["fh_levels"] + OPS_SAMPLE * c["fh_samples"]
-    lbs_row = 4 + N_BONES * 8  # sigma, skinning weights and joint indices
-    jtab = N_JOINTS * JOINT_DIM * 4
-    work = {
-        "construct_tree": (Q * 12 + Q * 4 + 2 * n_cells * 4, OPS_LEVEL * q_levels),
-        "render_fwd": (B * 36 + B * 16 + R * D * 4 + C * 8,
-                       march_ops + OPS_FWD_SH9 * c["contrib"]),
-        "render_bwd": (B * 36 + 2 * B * 16 + R * D * 4 + C * 8 + M * D * 4,
-                       march_ops + OPS_BWD_SH9 * c["contrib"]),
-        "query_fwd": (Q * 12 + Q * 8 + min(Q, M) * D * 4 + Q * D * 4 + Q * 8,
-                      OPS_LEVEL * q_levels),
-        "query_bwd": (Q * 4 + Q * D * 4 + M * D * 4, Q * D),
-        "opacity_bwd": (B * 24 + 2 * B * 4 + R * 4 + C * 8 + M * D * 4,
-                        march_ops + OPS_OPACITY_BWD * c["contrib"]),
-        "first_hit": (B * 24 + c["rows_fh"] * 4 + c["cells_fh"] * 8 + B * 21, fh_ops),
-        "mf_fwd": (B * 24 + R * lbs_row + C * 8 + jtab + B * JOINT_DIM * 4,
-                   march_ops + OPS_MF_FWD * c["contrib"]),
-        "mf_bwd": (B * 24 + B * JOINT_DIM * 4 + R * lbs_row + C * 8 + 2 * jtab,
-                   march_ops + OPS_MF_BWD * c["contrib"]),
-    }
+def _bounds(work: dict) -> dict:
     out = {}
     for name, (n_bytes, n_ops) in work.items():
         ms, by = bound(n_bytes, n_ops)
         out[name] = dict(bound_ms=ms, bound_by=by, bound_bytes=n_bytes, bound_ops=n_ops)
     return out
+
+
+def march_bounds(c: dict, M: int, D: int) -> dict:
+    """bound_ms and bound_by of the march kernels at the main path's
+    shapes, from the census `c` of the SH9 camera march on one structure
+    (the tree's kernels, or with ``c["baked"]`` their baked instances).
+    Each input is read once and each output written once: rays 12 bytes
+    per vector; a march reads the rows and structure entries that its
+    samples touch (a tree cell is a child and a data entry, 8 bytes; a
+    baked entry 4); gradients of the pool are (M, D) outputs."""
+    B, R, C = c["rays"], c["rows"], c["cells"]
+    if c["baked"]:
+        cell_b, sfx = 4, "_baked"
+        march_ops = OPS_RAY * c["hits"] + (OPS_LOOKUP + OPS_SAMPLE) * c["samples"]
+        fh_ops = OPS_RAY * c["hits"] + (OPS_LOOKUP + OPS_SAMPLE) * c["fh_samples"]
+    else:
+        cell_b, sfx = 8, ""
+        march_ops = OPS_RAY * c["hits"] + OPS_LEVEL * c["levels"] + OPS_SAMPLE * c["samples"]
+        fh_ops = OPS_RAY * c["hits"] + OPS_LEVEL * c["fh_levels"] + OPS_SAMPLE * c["fh_samples"]
+    lbs_row = 4 + N_BONES * 8  # sigma, skinning weights and joint indices
+    jtab = N_JOINTS * JOINT_DIM * 4
+    return _bounds({
+        "render_fwd" + sfx: (B * 36 + B * 16 + R * D * 4 + C * cell_b,
+                             march_ops + OPS_FWD_SH9 * c["contrib"]),
+        "render_bwd" + sfx: (B * 36 + 2 * B * 16 + R * D * 4 + C * cell_b + M * D * 4,
+                             march_ops + OPS_BWD_SH9 * c["contrib"]),
+        "opacity_bwd" + sfx: (B * 24 + 2 * B * 4 + R * 4 + C * cell_b + M * D * 4,
+                              march_ops + OPS_OPACITY_BWD * c["contrib"]),
+        "first_hit" + sfx: (B * 24 + c["rows_fh"] * 4 + c["cells_fh"] * cell_b + B * 21, fh_ops),
+        "mf_fwd" + sfx: (B * 24 + R * lbs_row + C * cell_b + jtab + B * JOINT_DIM * 4,
+                         march_ops + OPS_MF_FWD * c["contrib"]),
+        "mf_bwd" + sfx: (B * 24 + B * JOINT_DIM * 4 + R * lbs_row + C * cell_b + 2 * jtab,
+                         march_ops + OPS_MF_BWD * c["contrib"]),
+    })
+
+
+def kernel_bounds(M: int, D: int, n_cells: int, Q: int, q_levels: int) -> dict:
+    """bound_ms and bound_by of the point kernels for Q points that
+    descend q_levels levels in all (construct_tree, query and
+    points_leaf_aabb, which reads the child table and writes 24 bytes)."""
+    return _bounds({
+        "construct_tree": (Q * 12 + Q * 4 + 2 * n_cells * 4, OPS_LEVEL * q_levels),
+        "query_fwd": (Q * 12 + Q * 8 + min(Q, M) * D * 4 + Q * D * 4 + Q * 8,
+                      OPS_LEVEL * q_levels),
+        "query_bwd": (Q * 4 + Q * D * 4 + M * D * 4, Q * D),
+        "points_aabb": (Q * 12 + n_cells * 4 + 24, OPS_LEVEL * q_levels + 9 * Q),
+    })
+
+
+def bake_bounds(n_points: int, n_baked: int, n_top_mid: int, R_grow: int) -> dict:
+    """bound_ms and bound_by of the bake's kernels: the lookup of
+    n_points points (12 bytes in, 24 out: row, cube, fraction, cell; the
+    entries it reads are counted with the points' tables, not here),
+    refresh of n_baked cells (src_map, depth_parts and one gathered index
+    entry in, the new entry out, and the old top or mid entry of the
+    n_top_mid cells that may point at bricks), and the skip-box regrowth
+    on an R_grow^3 top grid (the grid in and out, 8 bytes per cell). The
+    regrowth is a Chebyshev distance transform capped at 15 cells, which
+    a linear-time separable transform computes in a forward and a
+    backward scan per axis at about 10 operations per cell each, plus the
+    pack's ~10: 70 per cell, below the bytes."""
+    n3 = R_grow ** 3
+    return _bounds({
+        "bake_lookup": (n_points * 36, n_points * OPS_LOOKUP),
+        "bake_refresh": (n_baked * 16 + n_top_mid * 4, n_baked * 3),
+        "grow_boxes": (n3 * 8, n3 * (3 * 2 * 10 + 10)),
+    })
 
 
 def p2v_census(points, grid) -> dict:
@@ -388,19 +525,23 @@ def dynamic_bounds(Q: int, nb: int, J: int, F: int, n: int, c: dict, touched: in
 
 
 def train(tree, true_pool, pool0, centers, perms, prior_points, steps,
-          width=WIDTH, height=HEIGHT, fx=FX, accumulate_at=-1, after_step=None):
+          width=WIDTH, height=HEIGHT, fx=FX, accumulate_at=-1, after_step=None,
+          backend="baked"):
     """`steps` Adam steps on a copy of ``pool0`` (canonical leaf order)
     toward the image that ``true_pool`` renders with the tree pointed at
     ``centers``. Step k points the tree at ``centers[perms[k]]``, so that
     frame's pool is ``pool[perms[k]]``: every frame shows each leaf its
     own canonical row. Step ``accumulate_at`` renders inside
     `N3Tree.accumulate_weights()`; ``after_step()``, if given, is called
-    after every step.
+    after every step. On the baked backend the tree is baked first, as at
+    load, so that every re-point refreshes the bake.
 
     :return: (pool, losses, image losses, host ms per step, weights from
         the accumulated step)
     """
-    renderer = stt.VolumeRenderer(tree)
+    renderer = stt.VolumeRenderer(tree, backend=backend)
+    if backend == "baked":
+        tree._baked_spec()
     c2w = orbit_camera()
     tree.construct_tree(centers)
     with torch.no_grad():
@@ -435,7 +576,7 @@ def train(tree, true_pool, pool0, centers, perms, prior_points, steps,
 
 
 def train_aux(tree, true_pool, pool0, true_jf, jf0, sw, ji, centers, perms, rays, steps,
-              width=WIDTH, height=HEIGHT, fx=FX):
+              width=WIDTH, height=HEIGHT, fx=FX, backend="baked"):
     """`steps` Adam steps over a copy of ``pool0`` and of ``jf0`` on the aux
     path: each step re-points the tree at ``centers[perms[k]]`` and takes
     an image MSE of `render_persp`, an opacity mask loss of
@@ -445,7 +586,9 @@ def train_aux(tree, true_pool, pool0, true_jf, jf0, sw, ji, centers, perms, rays
 
     :return: (pool, joint features, losses, host ms per step)
     """
-    renderer = stt.VolumeRenderer(tree)
+    renderer = stt.VolumeRenderer(tree, backend=backend)
+    if backend == "baked":
+        tree._baked_spec()
     c2w = orbit_camera()
     tree.construct_tree(centers)
     with torch.no_grad():
@@ -478,6 +621,7 @@ def train_aux(tree, true_pool, pool0, true_jf, jf0, sw, ji, centers, perms, rays
 
 def main() -> None:
     # 1. Device
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA GPU; none is available")
     dev = torch.device("cuda", 0)
@@ -489,7 +633,8 @@ def main() -> None:
 
     # 2. Build
     b = _build.build()
-    print(f"build: {b.seconds:.1f} s -> {b.path.name}")
+    build_s = b.seconds
+    print(f"build: {build_s:.1f} s -> {b.path.name}")
     for line in b.log.splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -532,6 +677,26 @@ def main() -> None:
                              replaces="svox_t_tpu/ops/p2v.py:37"),
         "voxelize_bwd": dict(route="cuda", source="svox_t_tpu_torch/csrc/p2v.cu",
                              replaces="svox_t_tpu/ops/p2v.py:37"),
+        "render_fwd_baked": dict(route="cuda", source="svox_t_tpu_torch/csrc/render_fwd_baked.cu",
+                                 replaces="svox_t_tpu/ops/render.py:851"),
+        "render_bwd_baked": dict(route="cuda", source="svox_t_tpu_torch/csrc/render_bwd_baked.cu",
+                                 replaces="svox_t_tpu/ops/render.py:1296"),
+        "opacity_bwd_baked": dict(route="cuda", source="svox_t_tpu_torch/csrc/render_bwd_baked.cu",
+                                  replaces="svox_t_tpu/ops/render_aux.py:58"),
+        "first_hit_baked": dict(route="cuda", source="svox_t_tpu_torch/csrc/render_aux_baked.cu",
+                                replaces="svox_t_tpu/ops/render_aux.py:217"),
+        "mf_fwd_baked": dict(route="cuda", source="svox_t_tpu_torch/csrc/render_aux_baked.cu",
+                             replaces="svox_t_tpu/ops/render_aux.py:403"),
+        "mf_bwd_baked": dict(route="cuda", source="svox_t_tpu_torch/csrc/render_aux_baked.cu",
+                             replaces="svox_t_tpu/ops/render_aux.py:526"),
+        "bake_lookup": dict(route="cuda", source="svox_t_tpu_torch/csrc/bake.cu",
+                            replaces="svox_t_tpu/ops/bake.py:948"),
+        "bake_refresh": dict(route="cuda", source="svox_t_tpu_torch/csrc/bake.cu",
+                             replaces="svox_t_tpu/ops/bake.py:646"),
+        "grow_boxes": dict(route="cuda", source="svox_t_tpu_torch/csrc/bake.cu",
+                           replaces="svox_t_tpu/ops/bake.py:695"),
+        "points_aabb": dict(route="cuda", source="svox_t_tpu_torch/csrc/query.cu",
+                            replaces="svox_t_tpu/ops/query.py:142"),
     }
 
     # 3. Kernel vs plain
@@ -799,201 +964,501 @@ def main() -> None:
           f"(max {float(vp.max()):.4g}, {touched} voxels touched), plain {vox_fwd_plain_ms:.1f} ms; "
           f"backward max_abs_err {vb_err:.3g}, plain {vox_bwd_plain_ms:.1f} ms")
 
-    # 4. Main path, serving: three frames through the public entry points
+    # 3d. The bake (the default backend's structure): the depth-9 shell
+    # baked on the host; the K6 point lookup, K7a refresh after a re-point
+    # and points_leaf_aabb against their plain versions, exactly; K7b
+    # skip-box regrowth on bench.py's dynamic tree (whose bake has skip
+    # boxes); the baked instances of the march kernels against their plain
+    # versions; and the two backends, kernel against kernel, bit for bit in
+    # exact mode.
+    brng = np.random.RandomState(5)
+    t0 = time.perf_counter()
+    baked = tree._baked_spec()
+    bake_s = time.perf_counter() - t0
+    n_brick = baked.brick.numel() // baked.B ** 3
+    mb = lambda t: 0.0 if t is None else t.numel() * 4 / 1e6  # noqa: E731
+    print(f"bake: {bake_s:.2f} s on the host; top_levels {baked.top_levels} ({baked.R}^3 top grid, "
+          f"{mb(baked.top):.2f} MB), mid_levels {baked.mid_levels} ({mb(baked.mid):.2f} MB), "
+          f"brick_levels {baked.brick_levels} ({n_brick} bricks of {baked.B ** 3} cells, "
+          f"{mb(baked.brick):.2f} MB), src_map and depth_parts {mb(baked.src_map):.2f} MB each, "
+          f"skip_base {baked.skip_base}, occupied box {baked.aabb_lo.tolist()} - "
+          f"{baked.aabb_hi.tolist()}")
+    leaf_pts = traversal.world2tree(centers, spec.offset, spec.scaling)
+    lk_pts = torch.cat([leaf_pts, torch.from_numpy(
+        (brng.rand(N_LOOKUP_POINTS, 3) * 1.2 - 0.1).astype(np.float32)).to(dev)]).contiguous()
+    lk_k = bake_ops.lookup_cuda(baked, lk_pts)
+    lk_p, lookup_plain_ms = timed_once_ms(lambda: bake_ops.lookup_plain(baked, lk_pts))
+    for name, a, b_ in zip(("row", "cube", "frac", "cell"), lk_k, lk_p):
+        check(torch.equal(a, b_), f"lookup: kernel and plain {name} differ")
+    leaf_ref = traversal.descend(spec, lk_pts)
+    occ = leaf_ref.data_idx < M
+    check(torch.equal(lk_k[0][occ], leaf_ref.data_idx[occ]) and torch.equal(lk_k[2], leaf_ref.frac)
+          and torch.equal(lk_k[1], leaf_ref.cube_sz), "lookup: rows or fractions differ from the descent")
+    check(torch.equal(baked.src_map[lk_k[3].long()], leaf_ref.node_flat), "lookup: cells differ")
+    kernels["bake_lookup"]["max_abs_err"] = 0.0
+    print(f"lookup: {lk_pts.shape[0]} points ({M} leaf centres), row, cube, fraction and cell equal "
+          f"to plain and to the descent, plain {lookup_plain_ms:.1f} ms")
+
+    new_flat = query_ops.construct_tree_cuda(spec, points)
+    box_k = query_ops.points_leaf_aabb_cuda(spec, points)
+    box_p, aabb_plain_ms = timed_once_ms(lambda: query_ops.points_leaf_aabb_plain(spec, points))
+    check(torch.equal(box_k[0], box_p[0]) and torch.equal(box_k[1], box_p[1]),
+          "points_leaf_aabb: kernel and plain differ")
+    lo, hi = query_ops.points_leaf_aabb_cuda(spec, points, union=(baked.aabb_lo, baked.aabb_hi))
+    check(torch.equal(lo, torch.minimum(box_k[0], baked.aabb_lo))
+          and torch.equal(hi, torch.maximum(box_k[1], baked.aabb_hi)),
+          "points_leaf_aabb: the union with the bake's box differs")
+    ref_k = bake_ops.refresh_cuda(baked, new_flat, lo, hi)
+    ref_p, refresh_plain_ms = timed_once_ms(lambda: bake_ops.refresh_plain(baked, new_flat, lo, hi))
+    for name in ("top", "mid", "brick"):
+        a, b_ = getattr(ref_k, name), getattr(ref_p, name)
+        check((a is None and b_ is None) or torch.equal(a, b_), f"refresh: kernel and plain {name} differ")
+    check(not torch.equal(ref_k.brick, baked.brick), "refresh changed no brick entry")
+    kernels["bake_refresh"]["max_abs_err"] = 0.0
+    kernels["points_aabb"]["max_abs_err"] = 0.0
+    print(f"points_leaf_aabb ({M} points): {box_k[0].tolist()} - {box_k[1].tolist()}, equal to plain "
+          f"(plain {aabb_plain_ms:.1f} ms); refresh ({ref_k.src_map.numel()} baked cells) equal to "
+          f"plain (plain {refresh_plain_ms:.1f} ms)")
+
+    # bench.py's dynamic configuration (bench.py:676-732): a depth-5 RGBA
+    # tree pointed at a 20,000-point cloud; its bake has skip boxes.
+    bd = bench_dynamic_cloud()
+    bench_args = [torch.from_numpy(bd[k]).to(dev)
+                  for k in ("poses", "src_pose", "points", "skinning_weights", "joint_index")]
+    n_bench = bench_args[0].shape[0]
+    bench_feats = torch.from_numpy(bd["features"]).to(dev)
+
+    def bench_tree_on_card():
+        t = stt.N3Tree(N=2, data_dim=4, depth_limit=6, device=dev)
+        t.refine(repeats=5)
+        t.construct_tree(bd["points"])
+        return t
+
+    gb_tree = bench_tree_on_card()
+    gb = gb_tree._baked_spec()
+    check(gb.skip_base != 0, "bench.py's tree bakes without skip boxes")
+    # Frame 1 of bench.py's fast frames, as render_dynamic_frames makes it:
+    # re-point, the union of the box with the points' leaf box, refresh,
+    # regrow.
+    tk = stt.get_transformation_matrix(bench_args[1], bench_args[0][1])
+    gb_warped, gb_mats = stt.warp_vertices(tk, *bench_args[2:])
+    gb_spec = gb_tree._spec()
+    gb_lo, gb_hi = query_ops.points_leaf_aabb_cuda(gb_spec, gb_warped, union=(gb.aabb_lo, gb.aabb_hi))
+    gb_ref = bake_ops.refresh_cuda(gb, query_ops.construct_tree_cuda(gb_spec, gb_warped), gb_lo, gb_hi)
+    grow_k = bake_ops.grow_boxes_cuda(gb_ref)
+    grow_p, grow_plain_ms = timed_once_ms(lambda: bake_ops.grow_boxes_plain(gb_ref))
+    check(torch.equal(grow_k.top, grow_p.top), "grow_boxes: kernel and plain differ")
+    code = (grow_k.top & bake_ops.ROW_MASK) - bake_ops.SKIP_BASE
+    n_boxes = int(((grow_k.top >= 0) & (code > 0) & (code < bake_ops._SKIP_BITS_SPAN)).sum())
+    check(n_boxes > 0, "grow_boxes grew no box")
+    kernels["grow_boxes"]["max_abs_err"] = 0.0
+    print(f"grow_boxes (bench.py's tree, {gb.R}^3 top grid): equal to plain, {n_boxes} top cells with "
+          f"a box, plain {grow_plain_ms:.1f} ms")
+
+    # That frame's fast render, whose march steps across the skip boxes
+    # (the depth-9 shell bakes without them), against its plain version.
+    gb_r = stt.VolumeRenderer(gb_tree)
+    gb_opt = gb_r._get_options(True)
+    gb_o, gb_d, gb_v = gb_r._camera_rays(orbit_camera(), WIDTH, HEIGHT, BENCH_FX, None, gb_opt)
+    gb_sp = grow_k.with_(transformation_matrices=gb_mats)
+    with torch.no_grad():
+        skip_k = render_ops.volume_render_cuda(gb_sp, bench_feats, gb_o, gb_d, gb_v, gb_opt)
+        skip_p = render_ops.volume_render_plain(gb_sp, bench_feats, gb_o, gb_d, gb_v, gb_opt)
+    skip_err = float((skip_k - skip_p).abs().max())
+    n_exits = skip_exits(gb_sp, bench_feats, gb_o, gb_d, gb_opt)
+    check(bool(torch.isfinite(skip_k).all()) and skip_err <= RENDER_ATOL,
+          f"baked fast frame with skip boxes: kernel vs plain {skip_err} > {RENDER_ATOL}")
+    check(n_exits > 0, "baked fast frame: no sample stepped across a skip box")
+    print(f"render_fwd_baked RGBA fast on bench.py's frame 1 (skip boxes, {WIDTH}x{HEIGHT}, fx {BENCH_FX}): "
+          f"max_abs_err {skip_err:.3g}, {n_exits} samples before the first hit step across a skip box")
+
+    # The baked march instances against their plain versions.
+    baked_rot = tree._baked_spec(transformation_matrices=rot)
+    worst = dict(render_fwd_baked=skip_err, render_bwd_baked=0.0)
+    baked_plain_ms = {}
+    with torch.no_grad():
+        for name, bspec in (("SH9", baked), ("SH9+rot", baked_rot)):
+            for fast in (False, True):
+                opt = sh_renderer._get_options(fast)
+                out_k = render_ops.volume_render_cuda(bspec, feats, origins, dirs, dirs, opt)
+                out_p, baked_plain_ms[(name, fast)] = timed_once_ms(
+                    lambda: render_ops.volume_render_plain(bspec, feats, origins, dirs, dirs, opt))
+                err = float((out_k - out_p).abs().max())
+                check(bool(torch.isfinite(out_k).all()), f"baked {name}: non-finite output")
+                check(err <= RENDER_ATOL, f"baked {name} fast={fast}: kernel vs plain {err}")
+                worst["render_fwd_baked"] = max(worst["render_fwd_baked"], err)
+                print(f"render_fwd_baked {name} {'fast' if fast else 'exact'}: max_abs_err {err:.3g}, "
+                      f"plain {baked_plain_ms[(name, fast)]:.1f} ms")
+        for fast in (False, True):
+            opt = sh_renderer._get_options(fast)
+            out_k, w_k = render_ops.volume_render_with_weight_accum_cuda(
+                baked, feats, origins, dirs, dirs, opt)
+            out_p, w_p = render_ops.volume_render_with_weight_accum_plain(
+                baked, feats, origins, dirs, dirs, opt)
+            err = float((out_k - out_p).abs().max())
+            check(err <= RENDER_ATOL, f"baked weight-accumulating march: outputs differ by {err}")
+            w_err = atomic_err(w_k, w_p, f"baked waccum fast={fast}")
+            worst["render_fwd_baked"] = max(worst["render_fwd_baked"], err, w_err)
+            total = float(w_k.sum())
+            check(total > 0, "baked: no weight accumulated")
+            if not fast:
+                alpha_sum = float(out_k[:, -1].sum())
+                check(abs(total - alpha_sum) <= 1e-4 * abs(alpha_sum),
+                      f"baked exact waccum sum {total} != alpha sum {alpha_sum}")
+            print(f"render_fwd_baked+waccum SH9 {'fast' if fast else 'exact'}: out max_abs_err "
+                  f"{err:.3g}, waccum max_abs_err {w_err:.3g}, sum {total:.6g}")
+    for fast in (False, True):
+        opt = sh_renderer._get_options(fast)
+        with torch.no_grad():
+            out = render_ops.volume_render_cuda(baked, feats, origins, dirs, dirs, opt)
+        g_out = torch.from_numpy(brng.randn(*out.shape).astype(np.float32)).to(dev)
+        g_k = render_ops.volume_render_backward_cuda(baked, feats, origins, dirs, dirs, g_out, opt,
+                                                     out_res=out)
+        g_p, baked_plain_ms[("bwd", fast)] = timed_once_ms(lambda: render_ops.volume_render_backward_plain(
+            baked, feats, origins, dirs, dirs, g_out, opt, out_res=out))
+        err = atomic_err(g_k, g_p, f"render_bwd_baked fast={fast}")
+        check(float(g_k.abs().max()) > 0, "render_bwd_baked: zero gradient")
+        worst["render_bwd_baked"] = max(worst["render_bwd_baked"], err)
+        print(f"render_bwd_baked SH9 {'fast' if fast else 'exact'}: max_abs_err {err:.3g} "
+              f"(max|g| {float(g_p.abs().max()):.4g}), plain {baked_plain_ms[('bwd', fast)]:.1f} ms")
+    for k_, v in worst.items():
+        kernels[k_]["max_abs_err"] = v
+
+    aux_baked_tree = stt.tree_from_numpy(aux_state, device=dev)
+    aux_baked = aux_baked_tree._baked_spec(skinning_weights=sw, joint_index=ji)
+    aux_err_b = dict(opacity_bwd_baked=0.0, first_hit_baked=0.0, mf_fwd_baked=0.0, mf_bwd_baked=0.0)
+    for fast in (False, True):
+        opt = sh_renderer._get_options(fast)
+        mode = "fast" if fast else "exact"
+        with torch.no_grad():
+            alpha = aux_ops.opacity_render(aux_baked, feats, origins, dirs, opt)
+        g_a = torch.from_numpy(brng.randn(B, 1).astype(np.float32)).to(dev)
+        g_k = aux_ops.opacity_backward_cuda(aux_baked, feats, origins, dirs, g_a, opt, out_res=alpha)
+        g_p, baked_plain_ms[("opacity_bwd", fast)] = timed_once_ms(lambda: aux_ops.opacity_backward_plain(
+            aux_baked, feats, origins, dirs, g_a, opt, out_res=alpha))
+        e_o = atomic_err(g_k, g_p, f"opacity_bwd_baked {mode}")
+        h_k = aux_ops.first_hit_cuda(aux_baked, feats, origins, dirs, opt)
+        h_p, baked_plain_ms[("first_hit", fast)] = timed_once_ms(
+            lambda: aux_ops.first_hit_plain(aux_baked, feats, origins, dirs, opt))
+        check(all(torch.equal(a, b_) for a, b_ in zip(h_k[:3], h_p[:3])),
+              "first_hit_baked: found, t_hit or rows differ")
+        e_h = float((h_k[3] - h_p[3]).abs().max())
+        check(e_h <= RENDER_ATOL and int(h_k[0].sum()) > 0, f"first_hit_baked: frac {e_h}, or no hit")
+        with torch.no_grad():
+            m_k = aux_ops.motion_feature_forward_cuda(aux_baked, jf_true, feats, origins, dirs, opt)
+        m_p, baked_plain_ms[("mf_fwd", fast)] = timed_once_ms(lambda: aux_ops.motion_feature_render_plain(
+            aux_baked, jf_true, feats, origins, dirs, opt))
+        e_m = float((m_k - m_p).abs().max())
+        check(bool(torch.isfinite(m_k).all()) and e_m <= RENDER_ATOL, f"mf_fwd_baked {mode}: {e_m}")
+        g_m = torch.from_numpy(brng.randn(B, JOINT_DIM).astype(np.float32)).to(dev)
+        b_k = aux_ops.motion_feature_backward_cuda(aux_baked, jf_true, feats, origins, dirs, g_m, opt)
+        b_p, baked_plain_ms[("mf_bwd", fast)] = timed_once_ms(lambda: aux_ops.motion_feature_backward_plain(
+            aux_baked, jf_true, feats, origins, dirs, g_m, opt))
+        e_b = atomic_err(b_k, b_p, f"mf_bwd_baked {mode}")
+        check(float(b_k.abs().max()) > 0, "mf_bwd_baked: zero gradient")
+        for k_, e in (("opacity_bwd_baked", e_o), ("first_hit_baked", e_h), ("mf_fwd_baked", e_m),
+                      ("mf_bwd_baked", e_b)):
+            aux_err_b[k_] = max(aux_err_b[k_], e)
+        print(f"baked aux {mode}: opacity VJP max_abs_err {e_o:.3g}, first hit equal "
+              f"({int(h_k[0].sum())} hits, frac {e_h:.3g}), motion features {e_m:.3g}, "
+              f"VJP {e_b:.3g}")
+    for k_, v in aux_err_b.items():
+        kernels[k_]["max_abs_err"] = v
+
+    # The backends kernel against kernel: exact mode, bit for bit.
+    with torch.no_grad():
+        opt_x = sh_renderer._get_options(False)
+        for name, bspec, tspec in (("SH9", baked, spec),
+                                   ("SH9+rot", baked_rot, tree._spec(transformation_matrices=rot))):
+            out_b = render_ops.volume_render_cuda(bspec, feats, origins, dirs, dirs, opt_x)
+            out_t = render_ops.volume_render_cuda(tspec, feats, origins, dirs, dirs, opt_x)
+            check(torch.equal(out_b, out_t), f"{name}: baked and tree exact outputs differ")
+        dep_b = aux_ops.render_depth(baked, feats, origins, dirs, opt_x)
+        dep_t = aux_ops.render_depth(spec, feats, origins, dirs, opt_x)
+        check(torch.equal(dep_b, dep_t), "baked and tree exact depths differ")
+    print("backends: exact colors, alpha and depth of the baked and tree kernels equal bit for bit "
+          f"on {B} rays (SH9, SH9+rot)")
+
+    # 4. Main path, serving: three frames through the public entry points,
+    # on the default baked backend (baked once, as at load; every re-point
+    # then refreshes the bake) and on the tree walk.
     frame_points = [centers[torch.from_numpy(rng.permutation(M)).to(dev)] for _ in range(N_FRAMES)]
     frame_feats = [seeded_pool(rng, M, 28, dev) for _ in range(N_FRAMES)]
-    serve_tree = stt.tree_from_numpy(state, device=dev)
-    renderer = stt.VolumeRenderer(serve_tree)
     c2w = orbit_camera()
     sample = torch.arange(0, B, 97, device=dev)
-    reset_counts()
-    frame_s = []
-    images = []
-    tables = []
-    with torch.no_grad():
-        for i in range(N_FRAMES):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            serve_tree.construct_tree(frame_points[i])
-            img_exact = renderer.render_persp(frame_feats[i], c2w, WIDTH, HEIGHT, fx=FX)
-            img_fast = renderer.render_persp(frame_feats[i], c2w, WIDTH, HEIGHT, fx=FX, fast=True)
-            torch.cuda.synchronize()
-            frame_s.append(time.perf_counter() - t0)
-            images.append((img_exact, img_fast))
-            tables.append(serve_tree._spec().data_flat.clone())
-    serve_counts = read_counts()
-    print(f"main path, serving: {N_FRAMES} frames, launches {serve_counts}, "
-          f"host ms per frame (construct + exact + fast) {[round(s * 1e3, 3) for s in frame_s]}")
-    check(serve_counts["construct_tree"] == N_FRAMES, "construct_tree kernel not launched per frame")
-    check(serve_counts["render_fwd"] == 2 * N_FRAMES, "render kernel not launched per render")
+    serve_trees, serve_counts, serve_images = {}, {}, {}
+    for backend in BACKENDS:
+        sfx = SUFFIX[backend]
+        serve_tree = stt.tree_from_numpy(state, device=dev)
+        renderer = stt.VolumeRenderer(serve_tree, backend=backend)
+        if backend == "baked":
+            serve_tree._baked_spec()
+        reset_counts()
+        frame_s, images, tables = [], [], []
+        with torch.no_grad():
+            for i in range(N_FRAMES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serve_tree.construct_tree(frame_points[i])
+                img_exact = renderer.render_persp(frame_feats[i], c2w, WIDTH, HEIGHT, fx=FX)
+                img_fast = renderer.render_persp(frame_feats[i], c2w, WIDTH, HEIGHT, fx=FX, fast=True)
+                torch.cuda.synchronize()
+                frame_s.append(time.perf_counter() - t0)
+                images.append((img_exact, img_fast))
+                tables.append(serve_tree._spec().data_flat.clone())
+        counts = read_counts()
+        print(f"main path, serving ({LABEL[backend]}): {N_FRAMES} frames, launches {nonzero(counts)}, "
+              f"host ms per frame (construct + exact + fast) {[round(x * 1e3, 3) for x in frame_s]}")
+        check(counts["construct_tree"] == N_FRAMES, "construct_tree kernel not launched per frame")
+        check(counts["render_fwd" + sfx] == 2 * N_FRAMES, "render kernel not launched per render")
+        check_bake_counts(counts, backend, N_FRAMES)
+        # Outputs are right: shape, finite, alpha in [0, 1], hits and misses,
+        # and a strided pixel sample equal to the plain version on the same
+        # frame state.
+        with torch.no_grad():
+            for img_exact, img_fast in images:
+                for img in (img_exact, img_fast):
+                    check(tuple(img.shape) == (HEIGHT, WIDTH, 4), f"image shape {tuple(img.shape)}")
+                    check(bool(torch.isfinite(img).all()), "non-finite image")
+                    a = img[..., 3]
+                    check(bool((a >= 0).all() and (a <= 1).all()), "alpha outside [0, 1]")
+                    check(bool((a > 0).any() and (a == 0).any()), "no hit or no miss pixels")
+            opt_e = renderer._get_options(False)
+            ref = render_ops.volume_render_plain(renderer._render_spec(), frame_feats[-1],
+                                                 origins[sample], dirs[sample], dirs[sample], opt_e)
+            err = float((images[-1][0].reshape(B, 4)[sample] - ref).abs().max())
+            print(f"last frame exact vs plain on {sample.numel()} pixels: max_abs_err {err:.3g}")
+            check(err <= RENDER_ATOL, f"served frame disagrees with plain version: {err}")
+            for i in range(1, N_FRAMES):
+                check(not torch.equal(tables[i - 1], tables[i]), "index table did not change per frame")
+        serve_trees[backend], serve_counts[backend], serve_images[backend] = serve_tree, counts, images
+    fast_diff = 0.0
+    for (e_b, f_b), (e_t, f_t) in zip(serve_images["baked"], serve_images["tree"]):
+        check(torch.equal(e_b, e_t), "the backends' exact frames differ")
+        fast_diff = max(fast_diff, float((f_b - f_t).abs().max()))
+    print(f"serving: the backends' exact frames equal bit for bit; their fast frames differ by up to "
+          f"{fast_diff:.3g} (the bake's box advance)")
 
-    # Outputs are right: shape, finite, alpha in [0, 1], hits and misses,
-    # and a strided pixel sample equal to the plain version on the same
-    # frame state.
-    with torch.no_grad():
-        for i, (img_exact, img_fast) in enumerate(images):
-            for fast, img in ((False, img_exact), (True, img_fast)):
-                check(tuple(img.shape) == (HEIGHT, WIDTH, 4), f"image shape {tuple(img.shape)}")
-                check(bool(torch.isfinite(img).all()), "non-finite image")
-                a = img[..., 3]
-                check(bool((a >= 0).all() and (a <= 1).all()), "alpha outside [0, 1]")
-                check(bool((a > 0).any() and (a == 0).any()), "no hit or no miss pixels")
-        spec_last = serve_tree._spec()
-        opt_e = renderer._get_options(False)
-        ref = render_ops.volume_render_plain(spec_last, frame_feats[-1], origins[sample],
-                                             dirs[sample], dirs[sample], opt_e)
-        err = float((images[-1][0].reshape(B, 4)[sample] - ref).abs().max())
-        print(f"last frame exact vs plain on {sample.numel()} pixels: max_abs_err {err:.3g}")
-        check(err <= RENDER_ATOL, f"served frame disagrees with plain version: {err}")
-        for i in range(1, N_FRAMES):
-            check(not torch.equal(tables[i - 1], tables[i]), "index table did not change per frame")
-
-    # 4b. Main path, training: five Adam steps through the public entry points
-    train_tree = stt.tree_from_numpy(state, device=dev)
+    # 4b. Main path, training: Adam steps through the public entry points
+    # (N_STEPS on the default backend, N_TREE_STEPS on the tree walk).
     true_pool = seeded_pool(rng, M, 28, dev)
     pool0 = seeded_pool(rng, M, 28, dev)
     perms = [torch.from_numpy(rng.permutation(M)).to(dev) for _ in range(N_STEPS)]
     prior_points = centers[torch.from_numpy(rng.choice(M, N_PRIOR_POINTS, replace=False)).to(dev)]
-    reset_counts()
-    pool, losses, image_losses, step_ms, weights = train(
-        train_tree, true_pool, pool0, centers, perms, prior_points, N_STEPS,
-        accumulate_at=N_STEPS // 2)
-    train_counts = read_counts()
-    print(f"main path, training: {N_STEPS} steps, launches {train_counts}, "
-          f"loss {[round(x, 8) for x in losses]}, image loss {[round(x, 8) for x in image_losses]}, "
-          f"host ms per step {[round(s, 3) for s in step_ms]}")
-    # construct_tree runs once more per call of train(): the target's pointing.
-    check(train_counts["construct_tree"] == N_STEPS + 1, "construct_tree not launched per step")
-    check(train_counts["render_fwd"] == N_STEPS + 1, "render_fwd not launched per step")
-    check(train_counts["render_bwd"] == N_STEPS, "render_bwd not launched once per step")
-    check(train_counts["query_fwd"] == N_STEPS and train_counts["query_bwd"] == N_STEPS,
-          "query kernels not launched per step")
-    check(losses[-1] < losses[0] and image_losses[-1] < image_losses[0], "the loss did not fall")
-    check(pool.grad is not None and bool(torch.isfinite(pool.grad).all()), "non-finite gradient")
-    check(float(pool.grad.abs().max()) > 0, "zero gradient")
-    check(weights is not None and weights.shape == (train_tree.n_leaves,), "no accumulated weights")
-    check(bool(torch.isfinite(weights).all()) and float(weights.sum()) > 0, "bad accumulated weights")
-    print(f"accumulated weights: {weights.shape[0]} leaves, sum {float(weights.sum()):.6g}, "
-          f"{int((weights > 0).sum())} leaves with weight")
+    train_counts, step_ms = {}, {}
+    for backend in BACKENDS:
+        sfx = SUFFIX[backend]
+        steps = N_STEPS if backend == "baked" else N_TREE_STEPS
+        train_tree = stt.tree_from_numpy(state, device=dev)
+        reset_counts()
+        pool, losses, image_losses, step_ms[backend], weights = train(
+            train_tree, true_pool, pool0, centers, perms, prior_points, steps,
+            accumulate_at=steps // 2, backend=backend)
+        counts = train_counts[backend] = read_counts()
+        print(f"main path, training ({LABEL[backend]}): {steps} steps, launches {nonzero(counts)}, "
+              f"loss {[round(x, 8) for x in losses]}, image loss {[round(x, 8) for x in image_losses]}, "
+              f"host ms per step {[round(x, 3) for x in step_ms[backend]]}")
+        # construct_tree runs once more per call of train(): the target's pointing.
+        check(counts["construct_tree"] == steps + 1, "construct_tree not launched per step")
+        check(counts["render_fwd" + sfx] == steps + 1, "render_fwd not launched per step")
+        check(counts["render_bwd" + sfx] == steps, "render_bwd not launched once per step")
+        check(counts["query_fwd"] == steps and counts["query_bwd"] == steps,
+              "query kernels not launched per step")
+        check_bake_counts(counts, backend, steps + 1)
+        check(losses[-1] < losses[0] and image_losses[-1] < image_losses[0], "the loss did not fall")
+        check(pool.grad is not None and bool(torch.isfinite(pool.grad).all()), "non-finite gradient")
+        check(float(pool.grad.abs().max()) > 0, "zero gradient")
+        check(weights is not None and weights.shape == (train_tree.n_leaves,), "no accumulated weights")
+        check(bool(torch.isfinite(weights).all()) and float(weights.sum()) > 0, "bad accumulated weights")
+        print(f"accumulated weights ({backend}): {weights.shape[0]} leaves, sum "
+              f"{float(weights.sum()):.6g}, {int((weights > 0).sum())} leaves with weight")
 
     # 4c. Main path, aux serving: per frame, render_persp and then
-    # opacity_render, render_depth and motion_render on the same camera
-    # rays, through the public entry points.
-    aux_tree = stt.tree_from_numpy(aux_state, device=dev)
-    aux_renderer = stt.VolumeRenderer(aux_tree)
+    # opacity_render, render_depth and motion_render (with the CUDA
+    # reference's hit point, compat_hit_point: on the bake one K6 lookup at
+    # the hit points) on the same camera rays, on both backends.
     cam_rays = stt.Rays(origins, dirs, dirs)
-    reset_counts()
-    aux_frames, aux_frame_s = [], []
-    with torch.no_grad():
-        for i in range(N_FRAMES):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            aux_tree.construct_tree(frame_points[i])
-            img = aux_renderer.render_persp(frame_feats[i], c2w, WIDTH, HEIGHT, fx=FX)
-            alpha = aux_renderer.opacity_render(frame_feats[i], cam_rays)
-            depth = aux_renderer.render_depth(frame_feats[i], cam_rays)
-            motion = aux_renderer.motion_render(frame_feats[i], cam_rays)
-            torch.cuda.synchronize()
-            aux_frame_s.append(time.perf_counter() - t0)
-            aux_frames.append((img, alpha, depth, motion))
-    aux_serve_counts = read_counts()
-    print(f"main path, aux serving: {N_FRAMES} frames, launches {aux_serve_counts}, host ms per "
-          f"frame (construct + render + opacity + depth + motion) "
-          f"{[round(x * 1e3, 3) for x in aux_frame_s]}")
-    check(aux_serve_counts["construct_tree"] == N_FRAMES, "construct_tree not launched per frame")
-    check(aux_serve_counts["render_fwd"] == 2 * N_FRAMES, "render_fwd not launched by render + opacity")
-    check(aux_serve_counts["first_hit"] == 2 * N_FRAMES, "first_hit not launched by depth + motion")
-    with torch.no_grad():
-        for img, alpha, depth, (motion, depth_m, hit_pt, didx) in aux_frames:
-            check(torch.equal(alpha[:, 0], img.reshape(B, -1)[:, -1]), "opacity is not the image's alpha")
-            check(torch.equal(depth, depth_m), "render_depth and motion_render disagree")
-            found = depth[:, 0] > 0
-            check(bool(found.any()) and bool((~found).any()), "no hit or no miss ray")
-            check(not bool((found & (alpha[:, 0] == 0)).any()), "a hit ray with alpha 0")
-            check(tuple(motion.shape) == (B, N_JOINTS) and bool(torch.isfinite(motion).all()),
-                  "bad motion features")
-            check(not bool(motion[~found].any()) and not bool(hit_pt[~found].any()), "a miss with a hit")
-            check(bool((didx[found] < M).all()), "data_idx outside the pool")
-        ref = aux_ops.first_hit_plain(aux_tree._spec(), frame_feats[-1], origins[sample],
-                                      dirs[sample], aux_renderer._get_options(False))
-        ref_depth = torch.where(ref[0], ref[1] * ds[sample], 0.0)
-        check(torch.equal(aux_frames[-1][2][sample, 0], ref_depth),
-              "served depth disagrees with the plain version")
-        print(f"aux frames: hit share {float((aux_frames[-1][2] > 0).float().mean()):.4f}; last frame "
-              f"depth equal to plain on {sample.numel()} pixels")
-
-    # 4d. Main path, aux training: five Adam steps over the pool and the
-    # joint features (image MSE + opacity mask loss + motion-feature MSE).
-    aux_train_tree = stt.tree_from_numpy(aux_state, device=dev)
-    jf_init = torch.from_numpy(rng.randn(N_JOINTS, JOINT_DIM).astype(np.float32)).to(dev)
-    reset_counts()
-    a_pool, a_jf, a_losses, a_step_ms = train_aux(
-        aux_train_tree, true_pool, pool0, jf_true, jf_init, sw, ji, centers, perms, cam_rays, N_STEPS)
-    aux_train_counts = read_counts()
-    print(f"main path, aux training: {N_STEPS} steps, launches {aux_train_counts}, "
-          f"loss {[round(x, 8) for x in a_losses]}, host ms per step {[round(x, 3) for x in a_step_ms]}")
-    want = dict(construct_tree=N_STEPS + 1, render_fwd=2 * (N_STEPS + 1), render_bwd=N_STEPS,
-                opacity_bwd=N_STEPS, mf_fwd=N_STEPS + 1, mf_bwd=N_STEPS)
-    for k, n in want.items():
-        check(aux_train_counts[k] == n, f"aux training: {k} launched {aux_train_counts[k]} times, not {n}")
-    check(a_losses[-1] < a_losses[0], "the aux loss did not fall")
-    for name, x in (("pool", a_pool), ("joint features", a_jf)):
-        check(x.grad is not None and bool(torch.isfinite(x.grad).all())
-              and float(x.grad.abs().max()) > 0, f"bad {name} gradient")
-
-    # 4e. Main path, dynamic serving: render_dynamic_frames over the pose
-    # sequence (warp, re-point with the table carried, render with the
-    # blended matrices as rotations, first-hit depth), fast with the tree
-    # left untouched, then exact leaving it at the last frame; then one
-    # voxelize of each frame's warped cloud.
-    dyn_tree = stt.tree_from_numpy(state, device=dev)
-    dyn_r = stt.VolumeRenderer(dyn_tree)
-    table0 = dyn_tree._spec().data_flat.clone()
-    dyn_kw = dict(c2w=c2w, width=WIDTH, height=HEIGHT, fx=FX, viewdir_rotation=True,
-                  with_depth=True)
-    dyn_keys = {True: "dynamic_deep9_fast_frame_ms", False: "dynamic_deep9_frame_ms"}
-
-    def dyn_call(fast):
-        return dyn_r.render_dynamic_frames(feats, poses, src, centers, rig_sw, rig_ji,
-                                           fast=fast, update_tree=not fast, **dyn_kw)
-
-    dyn_counts, dyn_out = [], {}
-    with torch.no_grad():
-        for fast in (True, False):
-            reset_counts()
-            cols, deps = dyn_call(fast)
-            torch.cuda.synchronize()
-            counts = read_counts()
-            dyn_counts.append(counts)
-            print(f"main path, dynamic serving {'fast' if fast else 'exact'}: {N_FRAMES} frames, "
-                  f"launches {counts}")
-            for k in ("warp_fwd", "construct_tree", "render_fwd", "first_hit"):
-                check(counts[k] == N_FRAMES, f"dynamic serving: {k} launched {counts[k]} times")
-            check(tuple(cols.shape) == (N_FRAMES, HEIGHT, WIDTH, 4)
-                  and tuple(deps.shape) == (N_FRAMES, HEIGHT, WIDTH, 1), "dynamic output shapes")
-            check(bool(torch.isfinite(cols).all() and torch.isfinite(deps).all()), "non-finite frame")
-            a = cols[..., 3]
-            check(bool((a >= 0).all() and (a <= 1).all() and (a > 0).any() and (a == 0).any()),
-                  "dynamic frames: alpha outside [0, 1], or no hit or no miss")
-            check(bool(((deps[..., 0] > 0) <= (a > 0)).all()), "a depth where alpha is 0")
-            if fast:
-                check(torch.equal(dyn_tree._spec().data_flat, table0), "update_tree=False moved the table")
-            dyn_out[fast] = (cols, deps)
-        carried = dyn_tree._spec().data_flat.clone()
-        # Frame times: the calls above warmed both modes up; then three
-        # rounds of exact and fast in turn, the least of each per frame.
-        dyn_dts = {True: [], False: []}
-        for _ in range(3):
-            for fast in (False, True):
+    aux_serve_counts, aux_outs = {}, {}
+    for backend in BACKENDS:
+        sfx = SUFFIX[backend]
+        aux_tree = stt.tree_from_numpy(aux_state, device=dev)
+        aux_renderer = stt.VolumeRenderer(aux_tree, backend=backend)
+        aux_renderer.compat_hit_point = 1
+        if backend == "baked":
+            aux_tree._baked_spec()
+        reset_counts()
+        aux_frames, aux_frame_s = [], []
+        with torch.no_grad():
+            for i in range(N_FRAMES):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                dyn_call(fast)
+                aux_tree.construct_tree(frame_points[i])
+                img = aux_renderer.render_persp(frame_feats[i], c2w, WIDTH, HEIGHT, fx=FX)
+                alpha = aux_renderer.opacity_render(frame_feats[i], cam_rays)
+                depth = aux_renderer.render_depth(frame_feats[i], cam_rays)
+                motion = aux_renderer.motion_render(frame_feats[i], cam_rays)
                 torch.cuda.synchronize()
-                dyn_dts[fast].append((time.perf_counter() - t0) * 1e3 / N_FRAMES)
-        dyn_ms = {dyn_keys[fast]: min(dts) for fast, dts in dyn_dts.items()}
-        print("main path, dynamic serving: host ms per frame (least of 3 calls) "
-              + ", ".join(f"{k} {v:.4f}" for k, v in dyn_ms.items())
-              + f"; all calls {({dyn_keys[f]: [round(x, 4) for x in d] for f, d in dyn_dts.items()})}")
+                aux_frame_s.append(time.perf_counter() - t0)
+                aux_frames.append((img, alpha, depth, motion))
+        counts = aux_serve_counts[backend] = read_counts()
+        print(f"main path, aux serving ({LABEL[backend]}): {N_FRAMES} frames, launches "
+              f"{nonzero(counts)}, host ms per frame (construct + render + opacity + depth + motion) "
+              f"{[round(x * 1e3, 3) for x in aux_frame_s]}")
+        check(counts["construct_tree"] == N_FRAMES, "construct_tree not launched per frame")
+        check(counts["render_fwd" + sfx] == 2 * N_FRAMES, "render_fwd not launched by render + opacity")
+        check(counts["first_hit" + sfx] == 2 * N_FRAMES, "first_hit not launched by depth + motion")
+        check_bake_counts(counts, backend, N_FRAMES)
+        if backend == "baked":
+            check(counts["bake_lookup"] == N_FRAMES, "the hit points' lookup not launched per frame")
+        with torch.no_grad():
+            for img, alpha, depth, (motion, depth_m, hit_pt, didx) in aux_frames:
+                check(torch.equal(alpha[:, 0], img.reshape(B, -1)[:, -1]), "opacity is not the image's alpha")
+                check(torch.equal(depth, depth_m), "render_depth and motion_render disagree")
+                found = depth[:, 0] > 0
+                check(bool(found.any()) and bool((~found).any()), "no hit or no miss ray")
+                check(not bool((found & (alpha[:, 0] == 0)).any()), "a hit ray with alpha 0")
+                check(tuple(motion.shape) == (B, N_JOINTS) and bool(torch.isfinite(motion).all()),
+                      "bad motion features")
+                check(not bool(motion[~found].any()) and not bool(hit_pt[~found].any()), "a miss with a hit")
+                check(bool((didx[found] < M).all()), "data_idx outside the pool")
+            ref = aux_ops.first_hit_plain(aux_renderer._render_spec(), frame_feats[-1], origins[sample],
+                                          dirs[sample], aux_renderer._get_options(False))
+            ref_depth = torch.where(ref[0], ref[1] * ds[sample], 0.0)
+            check(torch.equal(aux_frames[-1][2][sample, 0], ref_depth),
+                  "served depth disagrees with the plain version")
+            print(f"aux frames ({backend}): hit share {float((aux_frames[-1][2] > 0).float().mean()):.4f}; "
+                  f"last frame depth equal to plain on {sample.numel()} pixels")
+        aux_outs[backend] = aux_frames
+    for fb, ft in zip(aux_outs["baked"], aux_outs["tree"]):
+        check(all(torch.equal(a, b_) for a, b_ in zip(fb[:3] + tuple(fb[3]), ft[:3] + tuple(ft[3]))),
+              "the backends' aux outputs differ")
+    print("aux serving: the backends' images, opacity, depths and motion outputs (compat hit points) "
+          "equal bit for bit")
+
+    # 4d. Main path, aux training: Adam steps over the pool and the joint
+    # features (image MSE + opacity mask loss + motion-feature MSE).
+    jf_init = torch.from_numpy(rng.randn(N_JOINTS, JOINT_DIM).astype(np.float32)).to(dev)
+    aux_train_counts = {}
+    for backend in BACKENDS:
+        sfx = SUFFIX[backend]
+        steps = N_STEPS if backend == "baked" else N_TREE_STEPS
+        aux_train_tree = stt.tree_from_numpy(aux_state, device=dev)
+        reset_counts()
+        a_pool, a_jf, a_losses, a_step_ms = train_aux(
+            aux_train_tree, true_pool, pool0, jf_true, jf_init, sw, ji, centers, perms, cam_rays,
+            steps, backend=backend)
+        counts = aux_train_counts[backend] = read_counts()
+        print(f"main path, aux training ({LABEL[backend]}): {steps} steps, launches {nonzero(counts)}, "
+              f"loss {[round(x, 8) for x in a_losses]}, host ms per step "
+              f"{[round(x, 3) for x in a_step_ms]}")
+        want = {"construct_tree": steps + 1, "render_fwd" + sfx: 2 * (steps + 1),
+                "render_bwd" + sfx: steps, "opacity_bwd" + sfx: steps, "mf_fwd" + sfx: steps + 1,
+                "mf_bwd" + sfx: steps}
+        for k, n in want.items():
+            check(counts[k] == n, f"aux training: {k} launched {counts[k]} times, not {n}")
+        check_bake_counts(counts, backend, steps + 1)
+        check(a_losses[-1] < a_losses[0], "the aux loss did not fall")
+        for name, x in (("pool", a_pool), ("joint features", a_jf)):
+            check(x.grad is not None and bool(torch.isfinite(x.grad).all())
+                  and float(x.grad.abs().max()) > 0, f"bad {name} gradient")
+
+    # 4e. Main path, dynamic serving: render_dynamic_frames over the pose
+    # sequence (warp, re-point with the table carried, on the bake refresh
+    # with the carried box union, render with the blended matrices as
+    # rotations, first-hit depth), fast with the tree left untouched, then
+    # exact leaving it at the last frame, on both backends; then one
+    # voxelize of each frame's warped cloud.
+    dyn_kw = dict(c2w=c2w, width=WIDTH, height=HEIGHT, fx=FX, viewdir_rotation=True,
+                  with_depth=True)
+    # The port's own keys keep their tree-walk meaning; the bake's are new.
+    dyn_keys = {("tree", True): "dynamic_deep9_fast_frame_ms", ("tree", False): "dynamic_deep9_frame_ms",
+                ("baked", True): "dynamic_deep9_baked_fast_frame_ms",
+                ("baked", False): "dynamic_deep9_baked_frame_ms"}
+    dyn_counts, dyn_ms, dyn_first = [], {}, {}
+    rays_s = stt.Rays(origins[sample], dirs[sample], dirs[sample])
+    with torch.no_grad():
+        for backend in BACKENDS:
+            sfx = SUFFIX[backend]
+            dyn_tree = stt.tree_from_numpy(state, device=dev)
+            dyn_r = stt.VolumeRenderer(dyn_tree, backend=backend)
+            table0 = dyn_tree._spec().data_flat.clone()
+
+            def dyn_call(fast):
+                return dyn_r.render_dynamic_frames(feats, poses, src, centers, rig_sw, rig_ji,
+                                                   fast=fast, update_tree=not fast, **dyn_kw)
+
+            dyn_out = {}
+            for fast in (True, False):
+                reset_counts()
+                cols, deps = dyn_call(fast)
+                torch.cuda.synchronize()
+                counts = read_counts()
+                dyn_counts.append(counts)
+                print(f"main path, dynamic serving ({LABEL[backend]}, {'fast' if fast else 'exact'}): "
+                      f"{N_FRAMES} frames, launches {nonzero(counts)}")
+                for k in ("warp_fwd", "construct_tree", "render_fwd" + sfx, "first_hit" + sfx):
+                    check(counts[k] == N_FRAMES, f"dynamic serving: {k} launched {counts[k]} times")
+                if backend == "baked":  # the exact call adopts its last table: one more refresh
+                    check(counts["points_aabb"] == N_FRAMES
+                          and counts["bake_refresh"] == N_FRAMES + (0 if fast else 1),
+                          "dynamic serving: the bake not refreshed per frame")
+                check(tuple(cols.shape) == (N_FRAMES, HEIGHT, WIDTH, 4)
+                      and tuple(deps.shape) == (N_FRAMES, HEIGHT, WIDTH, 1), "dynamic output shapes")
+                check(bool(torch.isfinite(cols).all() and torch.isfinite(deps).all()), "non-finite frame")
+                a = cols[..., 3]
+                check(bool((a >= 0).all() and (a <= 1).all() and (a > 0).any() and (a == 0).any()),
+                      "dynamic frames: alpha outside [0, 1], or no hit or no miss")
+                check(bool(((deps[..., 0] > 0) <= (a > 0)).all()), "a depth where alpha is 0")
+                if fast:
+                    check(torch.equal(dyn_tree._spec().data_flat, table0),
+                          "update_tree=False moved the table")
+                dyn_out[fast] = (cols, deps)
+            carried = dyn_tree._spec().data_flat.clone()
+            dyn_first[backend] = dyn_out[False]
+            # Frame times: the calls above warmed both modes up; then three
+            # rounds of exact and fast in turn, the least of each per frame.
+            dyn_dts = {True: [], False: []}
+            for _ in range(3):
+                for fast in (False, True):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    dyn_call(fast)
+                    torch.cuda.synchronize()
+                    dyn_dts[fast].append((time.perf_counter() - t0) * 1e3 / N_FRAMES)
+            for fast, dts in dyn_dts.items():
+                dyn_ms[dyn_keys[(backend, fast)]] = min(dts)
+            print(f"main path, dynamic serving ({backend}): host ms per frame (least of 3 calls) "
+                  + ", ".join(f"{dyn_keys[(backend, f)]} {min(d):.4f}" for f, d in dyn_dts.items())
+                  + f"; all calls {({dyn_keys[(backend, f)]: [round(x, 4) for x in d] for f, d in dyn_dts.items()})}")
+
+            # The fused loop against the eager loop of the public calls:
+            # warp_vertices -> construct_tree -> forward with the mats.
+            eager_tree = stt.tree_from_numpy(state, device=dev)
+            eager_r = stt.VolumeRenderer(eager_tree, backend=backend)
+            if backend == "baked":
+                eager_tree._baked_spec()
+            tables = []
+            for k in range(N_FRAMES):
+                tk = stt.get_transformation_matrix(src, poses[k])
+                warped, mats = stt.warp_vertices(tk, centers, rig_sw, rig_ji)
+                eager_tree.construct_tree(warped)
+                tables.append(eager_tree._spec().data_flat.clone())
+            check(torch.equal(tables[-1], carried), "carried table differs from eager")
+            check(all(not torch.equal(tables[i - 1], tables[i]) for i in range(1, N_FRAMES)),
+                  "the index table did not change per frame")
+            ref = eager_r(feats, rays_s, transformation_matrices=mats)
+            err = float((dyn_out[False][0][-1].reshape(B, 4)[sample] - ref).abs().max())
+            check(err <= RENDER_ATOL, f"dynamic frame vs the eager loop: {err}")
+            ref_d = eager_r.render_depth(feats, rays_s)
+            check(torch.equal(dyn_out[False][1][-1].reshape(B, 1)[sample], ref_d), "dynamic depth differs")
+            print(f"dynamic last frame ({backend}) vs the eager loop on {sample.numel()} pixels: "
+                  f"max_abs_err {err:.3g}, depths equal, tables equal; hit share "
+                  f"{float((dyn_out[False][0][-1][..., 3] > 0).float().mean()):.4f}")
+        check(torch.equal(dyn_first["baked"][0], dyn_first["tree"][0])
+              and torch.equal(dyn_first["baked"][1], dyn_first["tree"][1]),
+              "the backends' exact dynamic frames differ")
+        print("dynamic serving: the backends' exact frames and depths equal bit for bit")
+
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1008,65 +1473,47 @@ def main() -> None:
         check(vox_counts["voxelize_fwd"] == N_FRAMES, "voxelize not launched per frame")
         mass = [float(v.sum()) for v in vols]
         check(all(np.isfinite(mass)) and min(mass) > 0, f"bad voxel grids {mass}")
-        print(f"main path, p2v: warp + voxelize of {N_FRAMES} frames, launches {vox_counts}, "
+        print(f"main path, p2v: warp + voxelize of {N_FRAMES} frames, launches {nonzero(vox_counts)}, "
               f"host ms per frame {p2v_frame_ms:.4f}, grid mass {[round(m, 2) for m in mass]}")
-
-        # The fused loop against the eager loop of the public calls:
-        # warp_vertices -> construct_tree -> forward with the mats.
-        eager_tree = stt.tree_from_numpy(state, device=dev)
-        eager_r = stt.VolumeRenderer(eager_tree)
-        tables = []
-        for k in range(N_FRAMES):
-            tk = stt.get_transformation_matrix(src, poses[k])
-            warped, mats = stt.warp_vertices(tk, centers, rig_sw, rig_ji)
-            eager_tree.construct_tree(warped)
-            tables.append(eager_tree._spec().data_flat.clone())
-        check(torch.equal(tables[-1], carried), "carried table differs from eager")
-        check(all(not torch.equal(tables[i - 1], tables[i]) for i in range(1, N_FRAMES)),
-              "the index table did not change per frame")
-        rays_s = stt.Rays(origins[sample], dirs[sample], dirs[sample])
-        ref = eager_r(feats, rays_s, transformation_matrices=mats)
-        err = float((dyn_out[False][0][-1].reshape(B, 4)[sample] - ref).abs().max())
-        check(err <= RENDER_ATOL, f"dynamic frame vs the eager loop: {err}")
-        ref_d = eager_r.render_depth(feats, rays_s)
-        check(torch.equal(dyn_out[False][1][-1].reshape(B, 1)[sample], ref_d), "dynamic depth differs")
-        print(f"dynamic last frame vs the eager loop on {sample.numel()} pixels: max_abs_err "
-              f"{err:.3g}, depths equal, tables equal; hit share "
-              f"{float((dyn_out[False][0][-1][..., 3] > 0).float().mean()):.4f}")
 
     # 4f. Main path, dynamic training: Adam steps on a per-frame pool stack
     # through render_dynamic_frames, toward frames the true stack renders.
-    tr_r = stt.VolumeRenderer(stt.tree_from_numpy(state, device=dev))
     true_stack = torch.stack([seeded_pool(drng, M, 28, dev) for _ in range(DYN_TRAIN_FRAMES)])
-    stack = torch.stack([seeded_pool(drng, M, 28, dev) for _ in range(DYN_TRAIN_FRAMES)])
+    stack0 = torch.stack([seeded_pool(drng, M, 28, dev) for _ in range(DYN_TRAIN_FRAMES)])
     tr_args = (poses[:DYN_TRAIN_FRAMES], src, centers, rig_sw, rig_ji)
     tr_kw = dict(c2w=c2w, width=WIDTH, height=HEIGHT, fx=FX, update_tree=False)
-    with torch.no_grad():
-        targets = tr_r.render_dynamic_frames(true_stack, *tr_args, **tr_kw)
-    stack.requires_grad_()
-    adam = torch.optim.Adam([stack], lr=LR)
-    dyn_losses, dyn_step_ms = [], []
-    reset_counts()
-    for _ in range(DYN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        adam.zero_grad(set_to_none=True)
-        loss = ((tr_r.render_dynamic_frames(stack, *tr_args, **tr_kw) - targets) ** 2).mean()
-        loss.backward()
-        adam.step()
-        torch.cuda.synchronize()
-        dyn_step_ms.append((time.perf_counter() - t0) * 1e3)
-        dyn_losses.append(loss.item())
-    dyn_train_counts = read_counts()
-    print(f"main path, dynamic training: {DYN_STEPS} steps of {DYN_TRAIN_FRAMES} frames, launches "
-          f"{dyn_train_counts}, loss {[round(x, 8) for x in dyn_losses]}, host ms per step "
-          f"{[round(x, 3) for x in dyn_step_ms]}")
-    n_fr = DYN_STEPS * DYN_TRAIN_FRAMES
-    for k in ("warp_fwd", "construct_tree", "render_fwd", "render_bwd"):
-        check(dyn_train_counts[k] == n_fr, f"dynamic training: {k} launched {dyn_train_counts[k]} times")
-    check(dyn_losses[-1] < dyn_losses[0], "the dynamic training loss did not fall")
-    check(bool(torch.isfinite(stack.grad).all()) and float(stack.grad.abs().max()) > 0,
-          "bad pool-stack gradient")
+    dyn_train_counts, dyn_step_ms = {}, {}
+    for backend in BACKENDS:
+        sfx = SUFFIX[backend]
+        steps = DYN_STEPS if backend == "baked" else N_TREE_STEPS
+        tr_r = stt.VolumeRenderer(stt.tree_from_numpy(state, device=dev), backend=backend)
+        with torch.no_grad():
+            targets = tr_r.render_dynamic_frames(true_stack, *tr_args, **tr_kw)
+        stack = stack0.clone().requires_grad_()
+        adam = torch.optim.Adam([stack], lr=LR)
+        dyn_losses, dyn_step_ms[backend] = [], []
+        reset_counts()
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            adam.zero_grad(set_to_none=True)
+            loss = ((tr_r.render_dynamic_frames(stack, *tr_args, **tr_kw) - targets) ** 2).mean()
+            loss.backward()
+            adam.step()
+            torch.cuda.synchronize()
+            dyn_step_ms[backend].append((time.perf_counter() - t0) * 1e3)
+            dyn_losses.append(loss.item())
+        counts = dyn_train_counts[backend] = read_counts()
+        print(f"main path, dynamic training ({LABEL[backend]}): {steps} steps of {DYN_TRAIN_FRAMES} "
+              f"frames, launches {nonzero(counts)}, loss {[round(x, 8) for x in dyn_losses]}, host ms "
+              f"per step {[round(x, 3) for x in dyn_step_ms[backend]]}")
+        n_fr = steps * DYN_TRAIN_FRAMES
+        for k in ("warp_fwd", "construct_tree", "render_fwd" + sfx, "render_bwd" + sfx):
+            check(counts[k] == n_fr, f"dynamic training: {k} launched {counts[k]} times")
+        check_bake_counts(counts, backend, n_fr)
+        check(dyn_losses[-1] < dyn_losses[0], "the dynamic training loss did not fall")
+        check(bool(torch.isfinite(stack.grad).all()) and float(stack.grad.abs().max()) > 0,
+              "bad pool-stack gradient")
 
     # 4g. Main path, pose fit: Adam steps on the joints' transforms toward
     # the grid the true pose splats, through warp_vertices and voxelize
@@ -1106,52 +1553,59 @@ def main() -> None:
 
     # 4h. bench.py's dynamic configuration (bench.py:676-732), with this
     # package's N3Tree: per frame warp, re-point and an 800x800 RGBA
-    # render; min over three calls of four frames, per frame.
-    bd = bench_dynamic_cloud()
-    bench_tree = stt.N3Tree(N=2, data_dim=4, depth_limit=6, device=dev)
-    bench_tree.refine(repeats=5)
-    bench_tree.construct_tree(bd["points"])
-    bench_r = stt.VolumeRenderer(bench_tree)
-    bench_feats = torch.from_numpy(bd["features"]).to(dev)
-    bench_args = [torch.from_numpy(bd[k]).to(dev)
-                  for k in ("poses", "src_pose", "points", "skinning_weights", "joint_index")]
-    n_bench = bench_args[0].shape[0]
+    # render; min over three calls of four frames, per frame. bench.py
+    # renders through the JAX package's default backend, the bake: its
+    # keys time the default baked backend here too, and the tree walk's
+    # times get keys of their own.
+    bench_keys = {("baked", False): "dynamic_fused_frame_ms", ("baked", True): "dynamic_fast_frame_ms",
+                  ("tree", False): "dynamic_fused_frame_tree_ms",
+                  ("tree", True): "dynamic_fast_frame_tree_ms"}
+    bench_ms, bench_counts = {}, {}
+    for backend in BACKENDS:
+        sfx = SUFFIX[backend]
+        bench_r = stt.VolumeRenderer(bench_tree_on_card(), backend=backend)
 
-    def bench_run(i, fast):
-        outs = bench_r.render_dynamic_frames(bench_feats * (1.0 + 1e-3 * i), *bench_args, c2w=c2w,
-                                             width=WIDTH, height=HEIGHT, fx=BENCH_FX,
-                                             update_tree=False, fast=fast)
-        return float(outs.sum())
+        def bench_run(i, fast):
+            outs = bench_r.render_dynamic_frames(bench_feats * (1.0 + 1e-3 * i), *bench_args, c2w=c2w,
+                                                 width=WIDTH, height=HEIGHT, fx=BENCH_FX,
+                                                 update_tree=False, fast=fast)
+            return float(outs.sum())
 
-    bench_ms = {}
-    reset_counts()
-    with torch.no_grad():
-        for fast, key in ((False, "dynamic_fused_frame_ms"), (True, "dynamic_fast_frame_ms")):
-            total = bench_run(0, fast)
-            check(np.isfinite(total), "bench dynamic frames: non-finite")
-            dts = []
-            for i in range(3):
-                t0 = time.perf_counter()
-                bench_run(i + 1, fast)
-                dts.append(time.perf_counter() - t0)
-            bench_ms[key] = min(dts) * 1e3 / n_bench
-    bench_counts = read_counts()
-    check(bench_counts["warp_fwd"] == 8 * n_bench and bench_counts["render_fwd"] == 8 * n_bench,
-          "bench dynamic: kernels not launched per frame")
-    print(f"main path, bench.py dynamic ({bd['points'].shape[0]} points, depth 5 RGBA, {n_bench} "
-          f"frames, fx {BENCH_FX}): launches {bench_counts}, "
-          + ", ".join(f"{k} {v:.4f}" for k, v in bench_ms.items()))
+        reset_counts()
+        with torch.no_grad():
+            for fast in (False, True):
+                total = bench_run(0, fast)
+                check(np.isfinite(total), "bench dynamic frames: non-finite")
+                dts = []
+                for i in range(3):
+                    t0 = time.perf_counter()
+                    bench_run(i + 1, fast)
+                    dts.append(time.perf_counter() - t0)
+                bench_ms[bench_keys[(backend, fast)]] = min(dts) * 1e3 / n_bench
+        counts = bench_counts[backend] = read_counts()
+        check(counts["warp_fwd"] == 8 * n_bench and counts["render_fwd" + sfx] == 8 * n_bench,
+              "bench dynamic: kernels not launched per frame")
+        check_bake_counts(counts, backend, 8 * n_bench)
+        if backend == "baked":
+            check(counts["grow_boxes"] == 4 * n_bench, "bench dynamic: skip boxes not regrown per fast frame")
+        print(f"main path, bench.py dynamic ({LABEL[backend]}; {bd['points'].shape[0]} points, depth 5 "
+              f"RGBA, {n_bench} frames, fx {BENCH_FX}): launches {nonzero(counts)}, "
+              + ", ".join(f"{bench_keys[(backend, f)]} {bench_ms[bench_keys[(backend, f)]]:.4f}"
+                          for f in (False, True)))
 
-    phases = (serve_counts, train_counts, aux_serve_counts, aux_train_counts, *dyn_counts,
-              vox_counts, dyn_train_counts, pose_counts, bench_counts)
+    phases = (*serve_counts.values(), *train_counts.values(), *aux_serve_counts.values(),
+              *aux_train_counts.values(), *dyn_counts, vox_counts, *dyn_train_counts.values(),
+              pose_counts, *bench_counts.values())
     for k in kernels:
         kernels[k]["launches"] = sum(c[k] for c in phases)
-    for k in ("opacity_bwd", "first_hit", "mf_fwd", "mf_bwd", "warp_fwd", "warp_bwd",
-              "voxelize_fwd", "voxelize_bwd"):
         check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
 
-    # 5. Times (CUDA events, after one warm-up)
-    spec_t = serve_tree._spec()
+    # 5. Times (CUDA events, after one warm-up), on the serving trees as
+    # the last frame left them: the tree walk's kernels on the tree's
+    # spec, the baked instances on the other tree's bake.
+    spec_t = serve_trees["tree"]._spec()
+    spec_bt = serve_trees["baked"]._baked_spec()
+    renderer = stt.VolumeRenderer(serve_trees["tree"], backend="tree")
     pts = frame_points[0]
     f0 = frame_feats[0]
     with torch.no_grad():
@@ -1183,6 +1637,29 @@ def main() -> None:
                   f"plain {bp_ms:.1f} ms [{card}]")
             if not fast:
                 kernels["render_bwd"].update(ms=b_ms, plain_ms=bp_ms)
+        tree_fwd_ms = {}
+        for fast in (False, True):
+            opt = sh_renderer._get_options(fast)
+            mode = "fast" if fast else "exact"
+            kb_ms = time_ms(lambda: render_ops.volume_render_cuda(spec_bt, f0, origins, dirs, dirs, opt),
+                            KERNEL_REPS)
+            tree_fwd_ms[fast] = time_ms(lambda: render_ops.volume_render_cuda(
+                spec_t, f0, origins, dirs, dirs, opt), KERNEL_REPS)
+            wb_ms = time_ms(lambda: render_ops.volume_render_with_weight_accum_cuda(
+                spec_bt, f0, origins, dirs, dirs, opt), KERNEL_REPS)
+            out = render_ops.volume_render_cuda(spec_bt, f0, origins, dirs, dirs, opt)
+            g_out = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(dev)
+            bb_ms = time_ms(lambda: render_ops.volume_render_backward_cuda(
+                spec_bt, f0, origins, dirs, dirs, g_out, opt, out_res=out), KERNEL_REPS)
+            print(f"time render_fwd_baked SH9 {mode} {WIDTH}x{HEIGHT}: kernel {kb_ms:.4f} ms "
+                  f"({B / kb_ms / 1e3:.2f} Mrays/s; the tree walk's kernel {tree_fwd_ms[fast]:.4f} ms "
+                  f"in the same turn), with weight accumulation {wb_ms:.4f} ms, plain "
+                  f"{baked_plain_ms[('SH9', fast)]:.1f} ms (one call, phase 3d); render_bwd_baked "
+                  f"({'two passes' if fast else 'single pass'}) kernel {bb_ms:.4f} ms, plain "
+                  f"{baked_plain_ms[('bwd', fast)]:.1f} ms (one call, phase 3d) [{card}]")
+            if not fast:
+                kernels["render_fwd_baked"].update(ms=kb_ms, plain_ms=baked_plain_ms[("SH9", False)])
+                kernels["render_bwd_baked"].update(ms=bb_ms, plain_ms=baked_plain_ms[("bwd", False)])
         for name, cspec, cfeats, rend in cases[3:]:
             opt = rend._get_options(False)
             l_ms = time_ms(lambda: render_ops.volume_render_cuda(cspec, cfeats, origins, dirs, dirs, opt),
@@ -1237,6 +1714,45 @@ def main() -> None:
                 if not fast:
                     kernels[name].update(ms=k_ms, plain_ms=p_ms)
 
+        # The baked aux instances, exact, on the aux scene's bake.
+        opt = sh_renderer._get_options(False)
+        alpha = aux_ops.opacity_render(aux_baked, f0, origins, dirs, opt)
+        g_a = torch.from_numpy(rng.randn(B, 1).astype(np.float32)).to(dev)
+        g_m = torch.from_numpy(rng.randn(B, JOINT_DIM).astype(np.float32)).to(dev)
+        runs = {
+            "opacity_bwd_baked": lambda: aux_ops.opacity_backward_cuda(
+                aux_baked, f0, origins, dirs, g_a, opt, out_res=alpha),
+            "first_hit_baked": lambda: aux_ops.first_hit_cuda(aux_baked, f0, origins, dirs, opt),
+            "mf_fwd_baked": lambda: aux_ops.motion_feature_forward_cuda(
+                aux_baked, jf_true, f0, origins, dirs, opt),
+            "mf_bwd_baked": lambda: aux_ops.motion_feature_backward_cuda(
+                aux_baked, jf_true, f0, origins, dirs, g_m, opt),
+        }
+        for name, run_k in runs.items():
+            k_ms = time_ms(run_k, KERNEL_REPS)
+            p_ms = baked_plain_ms[(name[: -len("_baked")], False)]
+            kernels[name].update(ms=k_ms, plain_ms=p_ms)
+            print(f"time {name} SH9 exact {WIDTH}x{HEIGHT}: kernel {k_ms:.4f} ms (tree walk "
+                  f"{kernels[name[: -len('_baked')]]['ms']:.4f} ms), plain {p_ms:.1f} ms "
+                  f"(one call, phase 3d) [{card}]")
+
+        # The bake's kernels at the main path's shapes; plain: one call,
+        # phase 3d.
+        runs = {
+            "bake_lookup": (lambda: bake_ops.lookup_cuda(baked, lk_pts), lookup_plain_ms,
+                            f"{lk_pts.shape[0]} points"),
+            "bake_refresh": (lambda: bake_ops.refresh_cuda(baked, new_flat, lo, hi), refresh_plain_ms,
+                             f"{baked.src_map.numel()} baked cells"),
+            "grow_boxes": (lambda: bake_ops.grow_boxes_cuda(gb_ref), grow_plain_ms,
+                           f"{gb.R}^3 top grid"),
+            "points_aabb": (lambda: query_ops.points_leaf_aabb_cuda(spec, points), aabb_plain_ms,
+                            f"{M} points"),
+        }
+        for name, (run_k, p_ms, what) in runs.items():
+            k_ms = time_ms(run_k, KERNEL_REPS)
+            kernels[name].update(ms=k_ms, plain_ms=p_ms)
+            print(f"time {name} ({what}): kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms (one call) [{card}]")
+
         # The warp and voxelize kernels at the deep configuration's shapes
         # (the warp backward forms all three gradients); plain: one call,
         # phase 3c.
@@ -1279,24 +1795,39 @@ def main() -> None:
         fwd_bwd()
         torch.cuda.synchronize()
         single.append((time.perf_counter() - t0) * 1e3)
-    step_med = statistics.median(step_ms)
-    print(f"time fwd_bwd SH9 exact {WIDTH}x{HEIGHT}: fwd_bwd_ms {fwd_bwd_ms:.4f}, "
-          f"fwd_bwd_single_call_ms {min(single):.4f}, fwd_bwd_mrays_s {B / fwd_bwd_ms / 1e3:.2f} [{card}]")
-    print(f"time training step (construct_tree + render_persp + loss + query prior + backward + Adam), "
-          f"host clock: median {step_med:.3f} ms of {[round(s, 3) for s in step_ms]} [{card}]")
+
+    def fwd_bwd_baked():
+        out = render_ops.volume_render(spec_bt, fb_pool, origins, dirs, dirs, opt_e)
+        return torch.autograd.grad((out * g_img).sum(), fb_pool)[0]
+
+    fwd_bwd_baked_ms = time_ms(fwd_bwd_baked, KERNEL_REPS)
+    print(f"time fwd_bwd SH9 exact {WIDTH}x{HEIGHT} (tree walk): fwd_bwd_ms {fwd_bwd_ms:.4f}, "
+          f"fwd_bwd_single_call_ms {min(single):.4f}, fwd_bwd_mrays_s {B / fwd_bwd_ms / 1e3:.2f}; "
+          f"on the bake fwd_bwd_baked_ms {fwd_bwd_baked_ms:.4f} [{card}]")
+    for backend in BACKENDS:
+        print(f"time training step ({backend}; construct_tree + render_persp + loss + query prior + "
+              f"backward + Adam), host clock: median {statistics.median(step_ms[backend]):.3f} ms of "
+              f"{[round(x, 3) for x in step_ms[backend]]} [{card}]")
     print(f"time dynamic frames (render_dynamic_frames, host clock, synchronized): "
           + ", ".join(f"{k} {v:.4f}" for k, v in {**dyn_ms, **bench_ms}.items())
-          + f"; dynamic training step median {statistics.median(dyn_step_ms):.3f} ms, pose-fit step "
-          f"median {statistics.median(pose_step_ms):.3f} ms, warp + voxelize per frame "
-          f"{p2v_frame_ms:.4f} ms [{card}]")
+          + "; dynamic training step median "
+          + ", ".join(f"{b_} {statistics.median(dyn_step_ms[b_]):.3f} ms" for b_ in BACKENDS)
+          + f"; pose-fit step median {statistics.median(pose_step_ms):.3f} ms, warp + voxelize per "
+          f"frame {p2v_frame_ms:.4f} ms [{card}]")
 
     # 6. Bounds: the least time of each kernel's work at these shapes,
     # from what this run's data makes the march do (exact SH9 camera).
     census = march_census(spec, feats, origins, dirs, sh_renderer._get_options(False))
+    census_b = march_census(baked, feats, origins, dirs, sh_renderer._get_options(False))
     leaf = traversal.descend(spec, traversal.world2tree(pts, spec.offset, spec.scaling))
     q_levels = int(torch.round(torch.log2(leaf.cube_sz) / float(np.log2(spec.N))).sum())
-    bounds = kernel_bounds(census, M, 28, spec.data_flat.numel(), pts.shape[0], q_levels)
-    print(f"census (SH9 exact, {WIDTH}x{HEIGHT}): {census}")
+    bounds = march_bounds(census, M, 28)
+    bounds.update(march_bounds(census_b, M, 28))
+    bounds.update(kernel_bounds(M, 28, spec.data_flat.numel(), pts.shape[0], q_levels))
+    bounds.update(bake_bounds(lk_pts.shape[0], baked.src_map.numel(),
+                              baked.top.numel() + baked.n_mid, gb.R))
+    print(f"census (SH9 exact, {WIDTH}x{HEIGHT}, tree walk): {census}")
+    print(f"census (SH9 exact, {WIDTH}x{HEIGHT}, bake): {census_b}")
     p2v_c = p2v_census(warped1, grid)
     bounds.update(dynamic_bounds(M, N_BONES, N_JOINTS, 28, P2V_N, p2v_c, touched))
     print(f"census (voxelize, {P2V_N}^3, W {grid.W}): {p2v_c}, {touched} voxels touched")
@@ -1306,6 +1837,9 @@ def main() -> None:
         print(f"bound {k}: {b['bound_bytes'] / 1e6:.2f} MB, {b['bound_ops'] / 1e9:.4f} Gop -> "
               f"{b['bound_ms']:.5f} ms ({b['bound_by']}); kernel {kernels[k]['ms']:.4f} ms, "
               f"{b['bound_ms'] / kernels[k]['ms']:.3f} of the bound [{card}]")
+
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s in all, {build_s:.1f} s of it the build "
+          f"[{card}]")
 
     # 7. Result lines
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

@@ -14,10 +14,13 @@ and skeleton distances, and LBS-blended joint features. The dynamic
 frame loop (`VolumeRenderer.render_dynamic_frames`) LBS-warps the
 canonical cloud per frame (`warp_vertices`), re-points the tree and
 renders; `voxelize` splats a cloud into a density grid, and
-`render_frames` / `render_persp_frames` render a stack of pools. Entry
-points run on the CUDA card unless the caller names another device. The
-hot loops are hand-written CUDA kernels under `csrc/`, built by nvcc at
-first use; on CPU tensors their plain PyTorch versions run instead.
+`render_frames` / `render_persp_frames` render a stack of pools. The
+renderer marches the tree's bake by default (`ops/bake.py`: a dense top
+grid and brick atlas, refreshed at every re-point), as the JAX package
+does; `backend="tree"` walks the octree. Entry points run on the CUDA
+card unless the caller names another device. The hot loops are
+hand-written CUDA kernels under `csrc/`, built by nvcc at first use; on
+CPU tensors their plain PyTorch versions run instead.
 
 Names follow `svox_t_tpu/__init__.py`; what is not ported yet is absent.
 """

@@ -1,27 +1,46 @@
-// Shared device functions of the octree kernels (K1) and the spherical
-// bases of the two march kernels.
+// Shared device functions of the octree kernels (K1), the baked lookup
+// (K6), the march step and the spherical bases of the march kernels.
 //
 // Replaces: svox_t_tpu/ops/traversal.py `descend` (the batched
 // fixed-trip-count descent), `dda_unit`, `get_delta_scale` and
-// `clamp_coord`, and svox_t_tpu/ops/sh.py `eval_basis` (SH, SG, ASG). On
-// the TPU the descent was n_levels rounds of one batched gather; here it
-// is a per-thread pointer chase that stops at the leaf, as in the CUDA
-// reference's query_single_from_root.
+// `clamp_coord`; svox_t_tpu/ops/bake.py `lookup_xyz` / `lookup` (with
+// `_descend_chain`); svox_t_tpu/ops/render.py `_clip_to_occupied` and the
+// skip-box exit of `_lookup_leaf_xyz`; and svox_t_tpu/ops/sh.py
+// `eval_basis` (SH, SG, ASG). On the TPU the descent was n_levels rounds
+// of one batched gather; here it is a per-thread pointer chase that stops
+// at the leaf, as in the CUDA reference's query_single_from_root.
 //
 // Bound on an H100: latency. Each level is one dependent 4-byte load from
 // the child table (9.5 MB at depth 9, so it lives in the 50 MB L2 after
-// the first touches), so a descent costs depth x L2 latency. The design
-// answer is occupancy: a thread per point or ray and small register
-// footprints, so enough warps are resident to hide the chase.
+// the first touches), so a descent costs depth x L2 latency. The baked
+// lookup replaces the chase with at most three dependent loads (top grid,
+// mid and fine bricks), computing the in-leaf fraction from one
+// finest-grid floor. The design answer is occupancy: a thread per point or
+// ray and small register footprints, so enough warps are resident to hide
+// the chains.
 //
-// Arithmetic is kept in the order of the plain PyTorch version
-// (ops/traversal.py), and the library is built with -fmad=false, so the
-// same point descends to the same cell with the same fraction.
+// The march kernels take the structure as a template parameter: TreeWalk
+// (the descent) or Baked (the lookup, the occupied-box cull and the skip
+// boxes), each with one lookup(), so a kernel changes in one place.
+//
+// Arithmetic is kept in the order of the plain PyTorch versions
+// (ops/traversal.py, ops/bake.py, ops/render.py), and the library is built
+// with -fmad=false, so the same point finds the same cell with the same
+// fraction. The one fused multiply-add is explicit: a sample lies at
+// o + t * d rounded once (sample_pos, ops/render.py `sample_position`).
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+// Entry-point names of a structure's kernel instances: a source defines
+// SVOX_STRUCTURE and SVOX_SUFFIX (empty for the tree walk, _baked for the
+// bake) and includes a march header, whose entry SVOX_NAME(svox_x) is then
+// svox_x or svox_x_baked.
+#define SVOX_CAT2(a, b) a##b
+#define SVOX_CAT(a, b) SVOX_CAT2(a, b)
+#define SVOX_NAME(base) SVOX_CAT(base, SVOX_SUFFIX)
 
 namespace svox {
 
@@ -33,17 +52,29 @@ __device__ __forceinline__ float clamp_coord(float x) {
 }
 
 struct Leaf {
-  int32_t flat;    // packed leaf cell id, index into child/data tables
+  int32_t flat;    // leaf cell: packed tree cell, or baked cell
   float cube_sz;   // N^(depth+1)
   float fx, fy, fz;  // in-leaf fraction
+  int32_t row;     // feature row (>= M: empty space; set by a lookup())
 };
+
+// One level of the descent on one axis: the child index floor(x * N),
+// clamped to N - 1, with x replaced by the fraction within that child.
+__device__ __forceinline__ int level_step(float& x, float Nf, float hi) {
+  const float xs = x * Nf;
+  const int u = static_cast<int>(fminf(floorf(xs), hi));
+  x = xs - static_cast<float>(u);
+  return u;
+}
 
 // Root-to-leaf walk over relative child offsets: node += child[flat].
 // Runs at most n_levels iterations and stops at the first 0 entry. A point
 // that finds no leaf within n_levels keeps flat 0, as the JAX descent does.
-__device__ __forceinline__ Leaf descend(const int32_t* __restrict__ child,
-                                        int N, int n_levels,
-                                        float x, float y, float z) {
+// Also returns the leaf's integer cell at its own resolution, the cell the
+// per-level floors selected (points_leaf_aabb).
+__device__ __forceinline__ Leaf descend_cell(const int32_t* __restrict__ child,
+                                             int N, int n_levels, float x, float y,
+                                             float z, int& cx, int& cy, int& cz) {
   x = clamp_coord(x);
   y = clamp_coord(y);
   z = clamp_coord(z);
@@ -52,14 +83,14 @@ __device__ __forceinline__ Leaf descend(const int32_t* __restrict__ child,
   int32_t node = 0;
   float cube = Nf;
   int32_t leaf = 0;
+  cx = cy = cz = 0;
   for (int lvl = 0; lvl < n_levels; ++lvl) {
-    const float xs = x * Nf, ys = y * Nf, zs = z * Nf;
-    const int u = static_cast<int>(fminf(floorf(xs), hi));
-    const int v = static_cast<int>(fminf(floorf(ys), hi));
-    const int w = static_cast<int>(fminf(floorf(zs), hi));
-    x = xs - static_cast<float>(u);
-    y = ys - static_cast<float>(v);
-    z = zs - static_cast<float>(w);
+    const int u = level_step(x, Nf, hi);
+    const int v = level_step(y, Nf, hi);
+    const int w = level_step(z, Nf, hi);
+    cx = cx * N + u;
+    cy = cy * N + v;
+    cz = cz * N + w;
     const int32_t flat = ((node * N + u) * N + v) * N + w;
     const int32_t skip = __ldg(child + flat);
     if (skip == 0) {
@@ -70,6 +101,14 @@ __device__ __forceinline__ Leaf descend(const int32_t* __restrict__ child,
     cube *= Nf;
   }
   return Leaf{leaf, cube, x, y, z};
+}
+
+// descend_cell without the cell, whose sums the compiler drops.
+__device__ __forceinline__ Leaf descend(const int32_t* __restrict__ child,
+                                        int N, int n_levels,
+                                        float x, float y, float z) {
+  int cx, cy, cz;
+  return descend_cell(child, N, n_levels, x, y, z, cx, cy, cz);
 }
 
 // Entry/exit of a ray with the unit cube; tmin clamped to >= 0 and tmax to
@@ -126,6 +165,255 @@ __device__ __forceinline__ bool setup_ray(const float* __restrict__ origins,
   r.ivz = 1.f / (r.dz + 1e-9f);
   dda_unit(r.ox, r.oy, r.oz, r.ivx, r.ivy, r.ivz, r.tmin, r.tmax);
   return !(r.tmax < 0.f || r.tmin > r.tmax);
+}
+
+// The sample point o + t * d of a ray, rounded once.
+__device__ __forceinline__ void sample_pos(const Ray& r, float t, float& x, float& y,
+                                           float& z) {
+  x = __fmaf_rn(t, r.dx, r.ox);
+  y = __fmaf_rn(t, r.dy, r.oy);
+  z = __fmaf_rn(t, r.dz, r.oz);
+}
+
+// ---------------------------------------------------------------------
+// The structures a march walks.
+
+// What the host passes (ops/bake.py `StructureDesc`, field for field): the
+// tree's tables, or the bake's tables, occupied box and fast-mode flags.
+struct StructDesc {
+  const int32_t* child;
+  const int32_t* data;
+  int N;
+  int n_levels;
+  const int32_t* top;
+  const int32_t* mid;
+  const int32_t* brick;
+  const int32_t* src_map;
+  int top_levels;
+  int mid_levels;
+  int brick_levels;
+  int n_mid;
+  const float* aabb_lo;
+  const float* aabb_hi;
+  int box_advance;
+  int skip_base;
+};
+
+__host__ __device__ constexpr int ipow(int b, int e) {
+  int r = 1;
+  for (int i = 0; i < e; ++i) r *= b;
+  return r;
+}
+
+// The octree walk: descend, then the leaf's row.
+struct TreeWalk {
+  static constexpr bool kBaked = false;
+  const int32_t* child;
+  const int32_t* data;
+  int N;
+  int n_levels;
+
+  static TreeWalk from(const StructDesc& s) { return {s.child, s.data, s.N, s.n_levels}; }
+
+  __device__ __forceinline__ Leaf lookup(float x, float y, float z) const {
+    Leaf l = descend(child, N, n_levels, x, y, z);
+    l.row = __ldg(data + l.flat);
+    return l;
+  }
+  // The tree cell a leaf's weight adds into.
+  __device__ __forceinline__ int32_t tree_cell(int32_t c) const { return c; }
+  // No occupied box: the cube test stands.
+  __device__ __forceinline__ bool cull(Ray&, bool hit) const { return hit; }
+};
+
+constexpr int kRowBits = 27;
+constexpr int32_t kRowMask = (1 << kRowBits) - 1;
+constexpr int32_t kSkipBitsSpan = 1 << 24;
+
+// The baked structure (ops/bake.py): top grid -> [mid brick ->] brick.
+struct Baked {
+  static constexpr bool kBaked = true;
+  const int32_t* top;
+  const int32_t* mid;
+  const int32_t* brick;
+  const int32_t* src_map;
+  const float* lo;
+  const float* hi;
+  int N, R, M1, Bk, G, D, n_top, n_mid, log2N, mid_levels, brick_levels;
+  // For N a power of two, the stage divisions as shifts: a finest cell's
+  // top cell is g >> sh_top, its brick cell g & (Bk - 1), its mid cell
+  // (g >> sh_brick) & (M1 - 1).
+  int sh_top, sh_brick;
+  int box_advance, skip_base;
+
+  static Baked from(const StructDesc& s) {
+    Baked b;
+    b.top = s.top;
+    b.mid = s.mid;
+    b.brick = s.brick;
+    b.src_map = s.src_map;
+    b.lo = s.aabb_lo;
+    b.hi = s.aabb_hi;
+    b.N = s.N;
+    b.R = ipow(s.N, s.top_levels);
+    b.M1 = ipow(s.N, s.mid_levels);
+    b.Bk = ipow(s.N, s.brick_levels);
+    b.G = b.R * b.M1 * b.Bk;
+    b.D = s.top_levels + s.mid_levels + s.brick_levels;
+    b.n_top = b.R * b.R * b.R;
+    b.n_mid = s.n_mid;
+    b.log2N = (s.N & (s.N - 1)) == 0 ? __builtin_ctz(static_cast<unsigned>(s.N)) : -1;
+    b.sh_top = b.log2N * (s.mid_levels + s.brick_levels);
+    b.sh_brick = b.log2N * s.brick_levels;
+    b.mid_levels = s.mid_levels;
+    b.brick_levels = s.brick_levels;
+    b.box_advance = s.box_advance;
+    b.skip_base = s.skip_base;
+    return b;
+  }
+
+  // One axis of the per-level descent chain over `levels` levels: the
+  // finest-grid cell g and the fraction after the last level.
+  __device__ __forceinline__ float chain(float x, int levels, int& g) const {
+    const float Nf = static_cast<float>(N);
+    const float hi_u = static_cast<float>(N - 1);
+    g = 0;
+    for (int l = 0; l < levels; ++l) g = g * N + level_step(x, Nf, hi_u);
+    return x;
+  }
+
+  // K6: the leaf of a tree-space point. All stage indices come from one
+  // finest-grid floor per axis (integer division up the stages): for N a
+  // power of two the floor of p * G, exact; for other N the descent's own
+  // per-level chain, so floors and fractions are the tree walk's bit for
+  // bit.
+  __device__ __forceinline__ Leaf lookup(float x, float y, float z) const {
+    x = clamp_coord(x);
+    y = clamp_coord(y);
+    z = clamp_coord(z);
+    int gx, gy, gz;
+    // Cells of the finest grid: top (t), mid (m) and brick (b) stages.
+    int tx, ty, tz, mx, my, mz, bx, by, bz;
+    if (log2N >= 0) {
+      const float Gf = static_cast<float>(G);
+      gx = min(static_cast<int>(x * Gf), G - 1);
+      gy = min(static_cast<int>(y * Gf), G - 1);
+      gz = min(static_cast<int>(z * Gf), G - 1);
+      tx = gx >> sh_top, ty = gy >> sh_top, tz = gz >> sh_top;
+      mx = (gx >> sh_brick) & (M1 - 1), my = (gy >> sh_brick) & (M1 - 1);
+      mz = (gz >> sh_brick) & (M1 - 1);
+      bx = gx & (Bk - 1), by = gy & (Bk - 1), bz = gz & (Bk - 1);
+    } else {
+      chain(x, D, gx);
+      chain(y, D, gy);
+      chain(z, D, gz);
+      const int st = G / R;
+      tx = gx / st, ty = gy / st, tz = gz / st;
+      mx = (gx / Bk) % M1, my = (gy / Bk) % M1, mz = (gz / Bk) % M1;
+      bx = gx % Bk, by = gy % Bk, bz = gz % Bk;
+    }
+    int32_t cell = (tx * R + ty) * R + tz;
+    int32_t e = __ldg(top + cell);
+    if (mid_levels > 0) {
+      if (e < 0) {
+        const int32_t m = (((-e - 1) * M1 + mx) * M1 + my) * M1 + mz;
+        e = __ldg(mid + m);
+        cell = n_top + m;
+        if (e < 0) {
+          const int32_t f = (((-e - 1) * Bk + bx) * Bk + by) * Bk + bz;
+          e = __ldg(brick + f);
+          cell = n_top + n_mid + f;
+        }
+      }
+    } else if (brick_levels > 0 && e < 0) {
+      const int32_t b = (((-e - 1) * Bk + bx) * Bk + by) * Bk + bz;
+      e = __ldg(brick + b);
+      cell = n_top + b;
+    }
+    const int depth = static_cast<int>(static_cast<uint32_t>(e) >> kRowBits);
+    Leaf l;
+    l.flat = cell;
+    l.row = e & kRowMask;
+    if (log2N >= 0) {
+      // 2^((depth + 1) log2 N), built from its exponent bits: exact.
+      l.cube_sz = __int_as_float(((depth + 1) * log2N + 127) << 23);
+      const float sx = x * l.cube_sz, sy = y * l.cube_sz, sz = z * l.cube_sz;
+      l.fx = sx - floorf(sx);
+      l.fy = sy - floorf(sy);
+      l.fz = sz - floorf(sz);
+    } else {
+      int g;
+      l.cube_sz = static_cast<float>(ipow(N, depth + 1));
+      l.fx = chain(x, depth + 1, g);
+      l.fy = chain(y, depth + 1, g);
+      l.fz = chain(z, depth + 1, g);
+    }
+    return l;
+  }
+
+  __device__ __forceinline__ int32_t tree_cell(int32_t c) const { return __ldg(src_map + c); }
+
+  // The exact cull against the occupied box: a ray that misses it, or an
+  // inverted (empty) box, renders the background; the march ends at the
+  // box exit; with box_advance (fast mode) it starts at the box entry.
+  // Returns the culled hit.
+  __device__ __forceinline__ bool cull(Ray& r, bool hit) const {
+    const float lx = __ldg(lo), ly = __ldg(lo + 1), lz = __ldg(lo + 2);
+    const float hx = __ldg(hi), hy = __ldg(hi + 1), hz = __ldg(hi + 2);
+    const float t1x = (lx - r.ox) * r.ivx, t2x = (hx - r.ox) * r.ivx;
+    const float t1y = (ly - r.oy) * r.ivy, t2y = (hy - r.oy) * r.ivy;
+    const float t1z = (lz - r.oz) * r.ivz, t2z = (hz - r.oz) * r.ivz;
+    const float a_lo = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+    const float a_hi = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+    const bool valid = lx <= hx && ly <= hy && lz <= hz;
+    hit = hit && valid && a_hi >= fmaxf(a_lo, 0.f) && a_hi >= r.tmin;
+    if (box_advance) r.tmin = fmaxf(r.tmin, a_lo);
+    r.tmax = fminf(r.tmax, a_hi);
+    return hit;
+  }
+};
+
+// The leaf-adaptive step from a sample's leaf: (sub_tmax - sub_tmin) /
+// cube_sz + step from the in-leaf DDA. On a bake with skip codes on (fast
+// mode), an empty leaf whose row is SKIP_BASE + bits exits the packed box
+// instead of its cell; the box form with extent 0 is the cell DDA bit for
+// bit, so the branch only saves work.
+template <class S>
+__device__ __forceinline__ float step_dt(const S& s, const Leaf& l, const Ray& r,
+                                         float step_size) {
+  float sub_tmin, sub_tmax;
+  if constexpr (S::kBaked) {
+    const int32_t bits = l.row - s.skip_base;
+    if (s.skip_base != 0 && bits >= 0 && bits < kSkipBitsSpan) {
+      const float elx = static_cast<float>(bits & 15);
+      const float ely = static_cast<float>((bits >> 8) & 15);
+      const float elz = static_cast<float>((bits >> 16) & 15);
+      const float t1x = -(l.fx + elx) * r.ivx;
+      const float t2x = t1x + ((1.f + static_cast<float>((bits >> 4) & 15)) + elx) * r.ivx;
+      const float t1y = -(l.fy + ely) * r.ivy;
+      const float t2y = t1y + ((1.f + static_cast<float>((bits >> 12) & 15)) + ely) * r.ivy;
+      const float t1z = -(l.fz + elz) * r.ivz;
+      const float t2z = t1z + ((1.f + static_cast<float>((bits >> 20) & 15)) + elz) * r.ivz;
+      sub_tmin = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
+      sub_tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+      sub_tmin = fmaxf(sub_tmin, 0.f);
+      sub_tmax = fminf(sub_tmax, 1e9f);
+      return (sub_tmax - sub_tmin) / l.cube_sz + step_size;
+    }
+  }
+  dda_unit(l.fx, l.fy, l.fz, r.ivx, r.ivy, r.ivz, sub_tmin, sub_tmax);
+  return (sub_tmax - sub_tmin) / l.cube_sz + step_size;
+}
+
+// A ray's sample at t: its leaf (with row) and step.
+template <class S>
+__device__ __forceinline__ Leaf sample_leaf(const S& s, const Ray& r, float t,
+                                            float step_size, float& dt) {
+  float x, y, z;
+  sample_pos(r, t, x, y, z);
+  const Leaf l = s.lookup(x, y, z);
+  dt = step_dt(s, l, r, step_size);
+  return l;
 }
 
 // ---------------------------------------------------------------------

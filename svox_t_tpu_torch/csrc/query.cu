@@ -18,12 +18,97 @@
 // tiny per-thread footprint so that many warps hide the descent, and a
 // backward laid out column-fastest, so that a warp's atomics fall on
 // neighbouring addresses of a few rows.
+//
+// K8b (points_leaf_aabb): the tree-space box of the leaves that hold a
+// point cloud. Replaces: svox_t_tpu/ops/query.py `points_leaf_aabb` (a
+// batched descent with the integer cell, then min/max over the batch).
+// One thread per point descends (descend_cell) and forms its leaf's
+// corners from the descent's own integer cell, cell / cube_sz - 1e-6 and
+// (cell + 1) / cube_sz + 1e-6, over a grid-stride loop of a few blocks per
+// SM; a block reduces them with shuffles and shared memory, and one thread
+// per coordinate folds the block's value into the (6,) box with a float
+// atomic through the ordered-int trick (a non-negative float orders as a
+// signed int, a negative one in reverse as an unsigned int). min and max
+// are exact, so the box equals the plain version's bit for bit. Bound on
+// an H100: the descent's latency, as the forward query. A first version
+// with one atomic per warp and coordinate spent 0.34 ms on 1.4M points
+// serialized on the six addresses (NVIDIA H100 80GB HBM3, 700 W).
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+
+__device__ __forceinline__ void atomic_min_float(float* a, float v) {
+  if (v >= 0.f) {
+    atomicMin(reinterpret_cast<int*>(a), __float_as_int(v));
+  } else {
+    atomicMax(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
+  }
+}
+
+__device__ __forceinline__ void atomic_max_float(float* a, float v) {
+  if (v >= 0.f) {
+    atomicMax(reinterpret_cast<int*>(a), __float_as_int(v));
+  } else {
+    atomicMin(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
+  }
+}
+
+__global__ void points_aabb_kernel(const float* __restrict__ points, int Q, int world,
+                                   const int32_t* __restrict__ child, int N, int n_levels,
+                                   const float* __restrict__ offset,
+                                   const float* __restrict__ scaling,
+                                   float* __restrict__ lohi) {
+  __shared__ float part[kThreads / 32][6];
+  const float inf = __int_as_float(0x7f800000);
+  float lo[3] = {inf, inf, inf}, hi[3] = {-inf, -inf, -inf};
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < Q; i += gridDim.x * blockDim.x) {
+    float x = points[3 * i + 0], y = points[3 * i + 1], z = points[3 * i + 2];
+    if (world) {
+      x = offset[0] + scaling[0] * x;
+      y = offset[1] + scaling[1] * y;
+      z = offset[2] + scaling[2] * z;
+    }
+    int c[3];
+    const svox::Leaf leaf = svox::descend_cell(child, N, n_levels, x, y, z, c[0], c[1], c[2]);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = fminf(lo[a], static_cast<float>(c[a]) / leaf.cube_sz - 1e-6f);
+      hi[a] = fmaxf(hi[a], static_cast<float>(c[a] + 1) / leaf.cube_sz + 1e-6f);
+    }
+  }
+  // Warp, then block, then one set of atomics per block.
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    for (int off = 16; off > 0; off >>= 1) {
+      lo[a] = fminf(lo[a], __shfl_xor_sync(0xffffffffu, lo[a], off));
+      hi[a] = fmaxf(hi[a], __shfl_xor_sync(0xffffffffu, hi[a], off));
+    }
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      part[warp][a] = lo[a];
+      part[warp][3 + a] = hi[a];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 6) {
+    const int a = threadIdx.x;
+    float v = part[0][a];
+    for (int w = 1; w < kThreads / 32; ++w) {
+      v = a < 3 ? fminf(v, part[w][a]) : fmaxf(v, part[w][a]);
+    }
+    if (a < 3) {
+      if (v < inf) atomic_min_float(lohi + a, v);
+    } else if (v > -inf) {
+      atomic_max_float(lohi + a, v);
+    }
+  }
+}
 
 __global__ void query_fwd_kernel(const float* __restrict__ points, int Q,
                                  int world, const int32_t* __restrict__ child,
@@ -104,5 +189,24 @@ extern "C" int svox_query_bwd(const int32_t* data_idx, const float* grad_values,
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   query_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       data_idx, grad_values, Q, M, D, grad);
+  return cudaGetLastError();
+}
+
+// K8b points_leaf_aabb. points (Q, 3) f32 (world space when world, else
+// tree space); child (n_cells,) i32; offset/scaling (3,) f32; lohi (6,)
+// f32, set by the caller to (+inf x 3, -inf x 3), receives (lo, hi). All
+// pointers are device pointers. Returns a cudaError_t.
+extern "C" int svox_points_aabb(const float* points, int Q, int world, const int32_t* child,
+                                int N, int n_levels, const float* offset,
+                                const float* scaling, float* lohi, int device,
+                                cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (Q <= 0) return cudaSuccess;
+  // A grid-stride loop over a few blocks per SM: each block adds its
+  // box once, so the six addresses take a few thousand atomics in all.
+  const int blocks = min((Q + kThreads - 1) / kThreads, 132 * 8);
+  points_aabb_kernel<<<blocks, kThreads, 0, stream>>>(points, Q, world, child, N, n_levels,
+                                                       offset, scaling, lohi);
   return cudaGetLastError();
 }

@@ -20,21 +20,25 @@ with respect to ``joint_features``; the first-hit passes are not
 differentiable. The frame loops are Python loops over frames (the JAX
 package's `lax.scan`s); `render_dynamic_frames` is the Artemis frame:
 LBS-warp the canonical cloud (`ops/warp.py`), re-point the tree at it
-(`construct_tree`, the table carried from frame to frame) and render. The aux
-passes never add into an active weight accumulator. `fast=True` sets
-sigma_thresh = stop_thresh = 1e-2; the attribute overrides
-``self.sigma_thresh`` / ``self.stop_thresh`` are honored. Rendering runs
-on the device of the tree and the feature pool: on CUDA through the
-forward- and backward-march kernels, on the CPU through their plain
-versions. Inside ``tree.accumulate_weights()`` every render also adds
-its per-leaf weights to the tree's accumulator.
+(`construct_tree`, the table carried from frame to frame), refresh the
+bake and render. The aux passes never add into an active weight
+accumulator. `fast=True` sets sigma_thresh = stop_thresh = 1e-2 and turns
+on ``box_advance`` and ``skip_boxes``; the attribute overrides
+``self.sigma_thresh``, ``self.stop_thresh``, ``self.box_advance`` and
+``self.skip_boxes`` are honored. Rendering runs on the device of the tree
+and the feature pool: on CUDA through the march kernels, on the CPU
+through their plain versions. Inside ``tree.accumulate_weights()`` every
+render also adds its per-leaf weights to the tree's accumulator.
 
-This package walks the octree (``backend="tree"``), whose exact outputs
-equal the JAX package's baked backend. The baked structure, trilinear
-interpolation and quantized pools raise NotImplementedError until the
-ROADMAP items that bring them land. Image renders march rays in pixel
-order: the JAX package's tile and cost orders only schedule work and do
-not change the image.
+``backend="baked"``, the default as in the JAX package, renders through
+the tree's bake (`N3Tree._baked_spec`, `ops/bake.py`): a dense top grid
+and brick atlas, the occupied-box cull, and in fast mode the box advance
+and the skip boxes. ``backend="tree"`` walks the octree. The two give the
+same exact-mode outputs bit for bit; fast mode differs between them, as
+in the JAX package. Trilinear interpolation and quantized pools raise
+NotImplementedError until the ROADMAP items that bring them land. Image
+renders march rays in pixel order: the JAX package's tile and cost orders
+only schedule work and do not change the image.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops import bake as bake_ops
 from ..ops import query as query_ops
 from ..ops import render as render_ops
 from ..ops import render_aux as aux_ops
@@ -88,20 +93,16 @@ class VolumeRenderer(nn.Module):
         min_comp: int = 0,
         max_comp: int = -1,
         max_steps: int = 1024,
-        backend: str = "tree",
+        backend: str = "baked",
         chunk_size: int = 1024,
         interp: str = "nearest",
         round_size: int = 0,
     ):
-        """`chunk_size` and `round_size` schedule work on a TPU; they are
-        accepted and ignored."""
+        """`backend`: "baked" (default) renders through the tree's bake,
+        "tree" walks the octree. `chunk_size` and `round_size` schedule
+        work on a TPU; they are accepted and ignored."""
         super().__init__()
-        if backend == "baked":
-            raise NotImplementedError(
-                "backend='baked' waits for the bake kernels K6/K7 "
-                "(ROADMAP.md §1 item 12); use backend='tree'"
-            )
-        if backend != "tree":
+        if backend not in ("baked", "tree"):
             raise ValueError(f"unknown backend {backend!r}")
         if interp in ("trilinear", 1):
             raise NotImplementedError(
@@ -148,9 +149,15 @@ class VolumeRenderer(nn.Module):
         :return: (B, n_color + 1) colors + alpha
         """
         del cuda
-        spec = self.tree._spec(transformation_matrices)
+        spec = self._render_spec(transformation_matrices)
         return self._render(spec, features, rays.origins, rays.dirs,
                             rays.viewdirs, self._get_options(fast))
+
+    def _render_spec(self, transformation_matrices=None):
+        """The structure this renderer marches: the bake or the tree."""
+        if self.backend == "baked":
+            return self.tree._baked_spec(transformation_matrices=transformation_matrices)
+        return self.tree._spec(transformation_matrices)
 
     def render_persp(self, features, c2w, width=800, height=800,
                      fx=1111.111, fy=None, cuda=True, fast=False,
@@ -168,7 +175,7 @@ class VolumeRenderer(nn.Module):
             raise ValueError(f"unknown schedule {schedule!r}")
         opt = self._get_options(fast)
         rays = self._camera_rays(c2w, width, height, fx, fy, opt)
-        out = self._render(self.tree._spec(), features, *rays, opt)
+        out = self._render(self._render_spec(), features, *rays, opt)
         return out.reshape(int(height), int(width), -1)
 
     def _camera_rays(self, c2w, width, height, fx, fy, opt):
@@ -186,13 +193,13 @@ class VolumeRenderer(nn.Module):
         """Alpha-only render, (B, 1); differentiable with respect to
         ``features``."""
         del cuda
-        return aux_ops.opacity_render(self.tree._spec(), features, rays.origins,
+        return aux_ops.opacity_render(self._render_spec(), features, rays.origins,
                                       rays.dirs, self._get_options(fast))
 
     def render_depth(self, features, rays: Rays, cuda=True, fast=False):
         """First-hit depth map, (B, 1)."""
         del cuda
-        return aux_ops.render_depth(self.tree._spec(), features, rays.origins,
+        return aux_ops.render_depth(self._render_spec(), features, rays.origins,
                                     rays.dirs, self._get_options(fast))
 
     def motion_render(self, features, rays: Rays, cuda=True, fast=False):
@@ -203,7 +210,7 @@ class VolumeRenderer(nn.Module):
         if self.tree.extra_data is None:
             raise ValueError("motion_render needs the skeleton's joint positions "
                              "in the tree's extra_data")
-        return aux_ops.motion_render(self.tree._spec(), features, rays.origins,
+        return aux_ops.motion_render(self._render_spec(), features, rays.origins,
                                      rays.dirs, self._get_options(fast))
 
     def motion_feature_render(self, features, joint_features, skinning_weights,
@@ -211,8 +218,12 @@ class VolumeRenderer(nn.Module):
         """Volumetric LBS-feature render, (B, joint_feature_dim);
         differentiable with respect to ``joint_features``."""
         del cuda
-        spec = self.tree._spec(joint_features=joint_features,
-                               skinning_weights=skinning_weights, joint_index=joint_index)
+        if self.backend == "baked":
+            spec = self.tree._baked_spec(skinning_weights=skinning_weights,
+                                         joint_index=joint_index)
+        else:
+            spec = self.tree._spec(joint_features=joint_features,
+                                   skinning_weights=skinning_weights, joint_index=joint_index)
         return aux_ops.motion_feature_render(spec, joint_features, features, rays.origins,
                                              rays.dirs, self._get_options(fast))
 
@@ -240,7 +251,7 @@ class VolumeRenderer(nn.Module):
         opt = self._get_options(fast)
         features_frames = self._pool(features_frames)
         tms = self._frame_mats(transformation_matrices_frames, features_frames)
-        outs = [render_ops.volume_render(self.tree._spec(tm), f, rays.origins, rays.dirs,
+        outs = [render_ops.volume_render(self._render_spec(tm), f, rays.origins, rays.dirs,
                                          rays.viewdirs, opt)
                 for f, tm in zip(features_frames.unbind(0), tms)]
         return torch.stack(outs)
@@ -263,7 +274,7 @@ class VolumeRenderer(nn.Module):
         features_frames = self._pool(features_frames)
         tms = self._frame_mats(transformation_matrices_frames, features_frames)
         rays = self._frame_rays(c2w, features_frames.shape[0], width, height, fx, fy, opt)
-        outs = [render_ops.volume_render(self.tree._spec(tm), f, *r, opt)
+        outs = [render_ops.volume_render(self._render_spec(tm), f, *r, opt)
                 for f, tm, r in zip(features_frames.unbind(0), tms, rays)]
         return torch.stack(outs).reshape(len(outs), int(height), int(width), -1)
 
@@ -301,11 +312,15 @@ class VolumeRenderer(nn.Module):
         """The Artemis frame loop: per frame k, LBS-warp the canonical
         cloud by pose k (`get_transformation_matrix`, `warp_vertices`),
         re-point the octree at the warped points (`construct_tree`, on the
-        table the previous frame left: stale pointers persist) and render
-        this frame's pool, with the blended matrices as per-voxel
-        view-direction rotations when ``viewdir_rotation``. Equal to the
-        eager loop of those public calls. Differentiable with respect to
-        ``features``; poses, points and skinning get no gradient.
+        table the previous frame left: stale pointers persist), on the
+        baked backend refresh the bake from that table with the occupied
+        box grown by the points' leaf box (`points_leaf_aabb`, the union
+        carried from frame to frame) and, in fast mode, regrow its skip
+        boxes, and render this frame's pool, with the blended matrices as
+        per-voxel view-direction rotations when ``viewdir_rotation``.
+        Equal to the eager loop of those public calls. Differentiable with
+        respect to ``features``; poses, points and skinning get no
+        gradient.
 
         :param features: (Q, data_dim) shared or (T, Q, data_dim) per-frame
             feature pool (row i belongs to point i)
@@ -351,19 +366,40 @@ class VolumeRenderer(nn.Module):
         sw = torch.as_tensor(skinning_weights, dtype=torch.float32, device=dev)
         ji = torch.as_tensor(joint_index, dtype=torch.int32, device=dev)
         spec = self.tree._spec()
+        baked = self.tree._baked_spec() if self.backend == "baked" else None
+        # The occupied box is carried only where a bake will take it.
+        keep_box = baked is not None or self.tree._cached_baked is not None
+        if baked is not None:
+            lo, hi = baked.aabb_lo, baked.aabb_hi
+        else:
+            lo, hi = torch.zeros(3, device=dev), torch.ones(3, device=dev)
         colors, depths = [], []
         for k in range(T):
             with torch.no_grad():
                 tk = warp_ops.get_transformation_matrix(src_pose, tgt_poses[k])
                 warped, mats = warp_ops.warp_vertices(tk, points, sw, ji)
-                spec = spec.with_(data_flat=query_ops.construct_tree(spec, warped))
-            sp = spec.with_(transformation_matrices=mats) if viewdir_rotation else spec
+                new_flat = query_ops.construct_tree(spec, warped)
+                if keep_box:
+                    lo, hi = query_ops.points_leaf_aabb(spec, warped, union=(lo, hi))
+                spec = spec.with_(data_flat=new_flat)
+                sp = spec
+                if baked is not None:
+                    sp = bake_ops.refresh(baked, new_flat, lo, hi)
+                    if opt.skip_boxes:
+                        sp = bake_ops.grow_boxes_device(sp)
+            if viewdir_rotation:
+                sp = sp.with_(transformation_matrices=mats)
             o, d, v = frame_rays[k]
             colors.append(render_ops.volume_render(sp, pools[k], o, d, v, opt))
             if with_depth:
                 depths.append(aux_ops.render_depth(sp, pools[k], o, d, opt))
         if update_tree:
-            self.tree._adopt_data_flat(spec, spec.data_flat)
+            if keep_box and self.tree._cached_baked is not None:
+                # the tree's bake keeps its old rows: its box joins the union
+                old = self.tree._cached_baked
+                lo, hi = torch.minimum(lo, old.aabb_lo), torch.maximum(hi, old.aabb_hi)
+            self.tree._adopt_data_flat(spec, spec.data_flat, lo if keep_box else None,
+                                       hi if keep_box else None)
 
         def _finish(outs):
             out = torch.stack(outs)
@@ -383,11 +419,15 @@ class VolumeRenderer(nn.Module):
             ndc_w, ndc_h, ndc_f = -1, -1, -1.0
         sigma_thresh = 1e-2 if fast else 0.0
         stop_thresh = 1e-2 if fast else 0.0
+        # Fast mode also starts at the occupied box (box_advance) and
+        # crosses the bake's skip boxes in one step: both shift samples by
+        # bounded amounts, the license of the thresholds.
+        box_advance = skip_boxes = 1 if fast else 0
         # Attribute overrides, honored like the reference.
-        if hasattr(self, "sigma_thresh"):
-            sigma_thresh = self.sigma_thresh
-        if hasattr(self, "stop_thresh"):
-            stop_thresh = self.stop_thresh
+        sigma_thresh = getattr(self, "sigma_thresh", sigma_thresh)
+        stop_thresh = getattr(self, "stop_thresh", stop_thresh)
+        box_advance = getattr(self, "box_advance", box_advance)
+        skip_boxes = getattr(self, "skip_boxes", skip_boxes)
         return RenderOptions(
             step_size=float(self.step_size),
             background_brightness=float(self.background_brightness),
@@ -404,7 +444,7 @@ class VolumeRenderer(nn.Module):
             chunk_size=int(self.chunk_size),
             round_size=self.round_size or 4,
             interp=int(self.interp),
-            box_advance=1 if fast else 0,
-            skip_boxes=1 if fast else 0,
+            box_advance=int(box_advance),
+            skip_boxes=int(skip_boxes),
             compat_hit_point=int(getattr(self, "compat_hit_point", 0)),
         )

@@ -12,6 +12,13 @@ package's `save`/`load`, including legacy files whose `data` holds float
 leaf features. `forward` is the differentiable point query, and
 `accumulate_weights` collects per-leaf render weights while it locks the
 structure.
+
+`_baked_spec` bakes the tree for the baked render backend
+(`ops/bake.py`) on the host, once, and keeps the bake until the structure,
+the index table or ``extra_data`` is replaced. `construct_tree` keeps a
+cached bake current on ``device``: the points' leaf box joins the
+occupied box, `refresh` re-packs the rows and `grow_boxes_device` regrows
+the skip boxes, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import bake as bake_ops
 from ..ops import query as query_ops
 from ..ops import traversal
 from ..utils.dataformat import DataFormat
@@ -100,6 +108,7 @@ class N3Tree:
     def data(self, value):
         self._data = np.asarray(value, np.int32).reshape(-1, self.N, self.N, self.N, 1)
         self._cached_spec = None
+        self._cached_baked = None
 
     @property
     def child(self) -> np.ndarray:
@@ -118,6 +127,7 @@ class N3Tree:
     def extra_data(self, value):
         self._extra_data = None if value is None else np.asarray(value, np.float32)
         self._cached_spec = None
+        self._cached_baked = None
 
     # ------------------------------------------------------------------
     # Spec marshaling
@@ -143,14 +153,31 @@ class N3Tree:
                 extra_data=self.extra_data,
                 device=self.device,
             )
-        spec = self._cached_spec
-        per_call = dict(joint_features=(joint_features, torch.float32),
-                        skinning_weights=(skinning_weights, torch.float32),
-                        joint_index=(joint_index, torch.int32),
-                        transformation_matrices=(transformation_matrices, torch.float32))
-        attach = {k: torch.as_tensor(v, dtype=dt, device=self.device).contiguous()
-                  for k, (v, dt) in per_call.items() if v is not None}
+        return self._attach(self._cached_spec, transformation_matrices=transformation_matrices,
+                            joint_features=joint_features, skinning_weights=skinning_weights,
+                            joint_index=joint_index)
+
+    def _attach(self, spec, **per_call):
+        """``spec`` with the given per-call tensors attached on ``device``."""
+        dtypes = dict(joint_index=torch.int32)
+        attach = {k: torch.as_tensor(v, dtype=dtypes.get(k, torch.float32),
+                                     device=self.device).contiguous()
+                  for k, v in per_call.items() if v is not None}
         return spec.with_(**attach) if attach else spec
+
+    def _baked_spec(self, transformation_matrices=None, skinning_weights=None,
+                    joint_index=None) -> bake_ops.BakedTree:
+        """The baked render structure (`ops/bake.py`), baked on the host
+        once and kept current by `construct_tree`; the per-call tensors
+        are attached as in `_spec`."""
+        if self._cached_baked is None:
+            self._ensure_host_data()
+            self._cached_baked = bake_ops.bake_arrays(
+                self._child, self._data, self._parent_depth, self.offset, self.invradius,
+                self.filled, extra_data=self.extra_data, device=self.device,
+            )
+        return self._attach(self._cached_baked, transformation_matrices=transformation_matrices,
+                            skinning_weights=skinning_weights, joint_index=joint_index)
 
     # ------------------------------------------------------------------
     # Real-time octree (re)pointing
@@ -161,14 +188,27 @@ class N3Tree:
         until a host-side structure op needs it."""
         spec = self._spec()
         points = torch.as_tensor(indices, dtype=torch.float32, device=self.device)
-        self._adopt_data_flat(spec, query_ops.construct_tree(spec, points))
+        new_data_flat = query_ops.construct_tree(spec, points)
+        lo = hi = None
+        baked = self._cached_baked
+        if baked is not None:
+            # Old cells keep their rows: the box grows by the points' leaves.
+            lo, hi = query_ops.points_leaf_aabb(spec, points,
+                                                union=(baked.aabb_lo, baked.aabb_hi))
+        self._adopt_data_flat(spec, new_data_flat, lo, hi)
 
-    def _adopt_data_flat(self, spec: TreeSpec, new_data_flat: torch.Tensor):
+    def _adopt_data_flat(self, spec: TreeSpec, new_data_flat: torch.Tensor, lo=None, hi=None):
         """Adopt a re-pointed flat index table (from `construct_tree` or a
         frame loop) produced from ``spec``: it becomes the tree's table, on
-        ``device``, and the cached spec points at it."""
+        ``device``, and the cached spec points at it. A cached bake is
+        refreshed from it with the occupied box (lo, hi), which must cover
+        the bake's old box (without it, the whole cube), and its skip boxes
+        regrow."""
         self._data = new_data_flat
         self._cached_spec = spec.with_(data_flat=new_data_flat)
+        if self._cached_baked is not None:
+            baked = bake_ops.refresh(self._cached_baked, new_data_flat, lo, hi)
+            self._cached_baked = bake_ops.grow_boxes_device(baked)
 
     # ------------------------------------------------------------------
     # Differentiable point query
@@ -350,6 +390,7 @@ class N3Tree:
     def _invalidate(self):
         self._last_all_leaves = None
         self._cached_spec = None
+        self._cached_baked = None
 
     # ------------------------------------------------------------------
     # Counts

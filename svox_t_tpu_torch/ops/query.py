@@ -8,9 +8,10 @@ of the JAX package's custom_vjp): values of the points' leaf rows, zeros
 in empty space, and a backward that adds the value gradients into the
 feature rows. On CUDA tensors each op launches its kernel
 (`csrc/construct_tree.cu`, `csrc/query.cu`) or raises; on CPU tensors
-its plain PyTorch version runs. `assign`, `unique_leaf_nodes`,
-`points_leaf_aabb` and `calc_corners` are a later port (K8b, ROADMAP.md
-§2).
+its plain PyTorch version runs. `points_leaf_aabb` (`POINTS_AABB`) bounds
+the leaves of a point cloud, to keep the baked render structure's cull box
+current. `assign`, `unique_leaf_nodes` and `calc_corners` are a later port
+(K8b, ROADMAP.md §2).
 """
 
 from __future__ import annotations
@@ -42,6 +43,13 @@ QUERY_BWD = Kernel(
     "svox_query_bwd",
     [c_void_p, c_void_p, c_int, c_int, c_int,  # data_idx, grad_values, Q, M, D
      c_void_p, c_int, c_void_p],               # grad, device, stream
+)
+POINTS_AABB = Kernel(
+    "svox_points_aabb",
+    [c_void_p, c_int, c_int,                  # points, Q, world
+     c_void_p, c_int, c_int,                  # child, N, n_levels
+     c_void_p, c_void_p,                      # offset, scaling
+     c_void_p, c_int, c_void_p],              # lohi (6,), device, stream
 )
 
 
@@ -227,3 +235,71 @@ def query_backward_cuda(data_idx: torch.Tensor, grad_values: torch.Tensor, M: in
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     return grad
+
+
+def points_leaf_aabb(spec: TreeSpec, points: torch.Tensor, world: bool = True, union=None):
+    """Tree-space box of the leaf cells that hold (Q, 3) points: the
+    occupied box after `construct_tree` points the tree at them.
+
+    The box of a leaf comes from the descent's own integer cell (a
+    one-shot ``floor(pos * cube_sz)`` can land one cell off for N not a
+    power of two), dilated by 1e-6 to absorb the rounding of
+    ``cell / cube_sz``: the cull needs the box to contain, not to be
+    tight.
+
+    :param union: optional (lo, hi) box the result also covers (the
+        occupied box so far: the kernel folds the points into it).
+    :return: (lo (3,), hi (3,)) float32; (+inf, -inf) for no points and
+        no ``union``.
+    """
+    if points.is_cuda:
+        return points_leaf_aabb_cuda(spec, points, world, union)
+    return points_leaf_aabb_plain(spec, points, world, union)
+
+
+def points_leaf_aabb_plain(spec: TreeSpec, points: torch.Tensor, world: bool = True,
+                           union=None):
+    """Plain PyTorch version of the points_leaf_aabb kernel."""
+    _check_points(spec, points)
+    if points.shape[0] == 0:
+        inf = torch.full((3,), float("inf"), device=points.device)
+        lo, hi = inf, -inf
+    else:
+        pos = world2tree(points, spec.offset, spec.scaling) if world else points
+        leaf, cell = descend(spec, pos, with_cell=True)
+        cs = leaf.cube_sz[:, None]
+        lo = (cell.to(torch.float32) / cs - 1e-6).amin(dim=0)
+        hi = ((cell + 1).to(torch.float32) / cs + 1e-6).amax(dim=0)
+    if union is not None:
+        lo, hi = torch.minimum(lo, union[0]), torch.maximum(hi, union[1])
+    return lo, hi
+
+
+def points_leaf_aabb_cuda(spec: TreeSpec, points: torch.Tensor, world: bool = True,
+                          union=None):
+    """Launch the points_leaf_aabb kernel (csrc/query.cu): a grid-stride
+    descent, the box reduced per block, then float atomics on the (6,)
+    box, which starts at ``union`` (else empty)."""
+    _check_points(spec, points)
+    tables = (spec.child_flat, spec.offset, spec.scaling)
+    if not points.is_cuda or any(t.device != points.device for t in tables):
+        raise ValueError("points_leaf_aabb_cuda needs points and tree on one CUDA device")
+    for t, dtype in zip(tables, (torch.int32, torch.float32, torch.float32)):
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError("child must be contiguous int32, offset/scaling float32")
+    Q = points.shape[0]
+    if Q >= 2 ** 31 or spec.child_flat.numel() >= 2 ** 31:
+        raise ValueError("points_leaf_aabb_cuda takes fewer than 2^31 points and cells")
+    points = points.contiguous()
+    dev = points.device
+    if union is not None:
+        lohi = torch.cat([torch.as_tensor(b, dtype=torch.float32, device=dev).reshape(3)
+                          for b in union])
+    else:  # filled on the card: no host copy
+        lohi = torch.full((6,), float("inf"), dtype=torch.float32, device=dev)
+        lohi[3:] = -float("inf")
+    if Q:
+        POINTS_AABB(points.data_ptr(), Q, int(bool(world)), spec.child_flat.data_ptr(),
+                    spec.N, spec.n_levels, spec.offset.data_ptr(), spec.scaling.data_ptr(),
+                    lohi.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    return lohi[:3], lohi[3:]

@@ -15,7 +15,8 @@ package's, sample for sample:
     cube DDA; a ray hits unless ``tmax < 0`` or ``tmin > tmax``;
   * forward: a hit ray takes its first sample at ``tmin`` (even if
     tmin == tmax), then ``t += delta_t`` and stays active while
-    ``t < tmax``, for at most ``max_steps`` samples;
+    ``t < tmax``, for at most ``max_steps`` samples; a sample lies at
+    ``o + t * d`` rounded once (`sample_position`);
   * ``delta_t = (sub_tmax - sub_tmin) / cube_sz + step_size`` from the
     in-leaf DDA; rows >= M are empty space (sigma 0);
   * a forward sample composites only if ``sigma > sigma_thresh``:
@@ -38,6 +39,18 @@ package's, sample for sample:
     no early stop; one pass in exact mode with the forward output, two
     passes otherwise.
 
+Each march walks either structure: a `TreeSpec` (the root-to-leaf
+descent) or a `BakedTree` (the baked lookup, `ops/bake.py`), the default
+of `VolumeRenderer`. On a bake the ray setup also culls against the
+occupied box (``hit`` tightened, ``tmax`` clamped to the box exit: exact),
+fast options move ``tmin`` to the box entry (``box_advance``) and cross
+skip boxes in one step (``skip_boxes``, `effective_skip_base`), and
+weights add into the tree cell ``src_map[cell]``. In exact mode the two
+structures give the same samples, so the same outputs bit for bit. The
+kernels take the structure as a template parameter (`csrc/common.cuh`
+``TreeWalk`` / ``Baked``); the baked instances are their own entry points
+(``RENDER_FWD_BAKED``, ``RENDER_BWD_BAKED``).
+
 The JAX package forms L as a per-round cumulative product and scatters
 gradients deterministically, while this port multiplies per sample and
 the kernels add gradients with float atomics, so the two agree to a few
@@ -46,6 +59,7 @@ ulps, not bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 from ctypes import c_float, c_int, c_void_p
 
 import numpy as np
@@ -54,29 +68,29 @@ import torch
 from .._build import Kernel
 from ..utils.spec import (FORMAT_ASG, FORMAT_RGBA, FORMAT_SG, FORMAT_SH,
                           RenderOptions, TreeSpec, get_out_data_dim)
+from .bake import (_SKIP_BITS_SPAN, BakedTree, StructureDesc, _check_baked, check_structure,
+                   lookup_plain, structure_desc)
 from .sh import SH_DIM_TO_DEG, eval_basis
-from .traversal import dda_unit, descend, get_delta_scale, world2tree
+from .traversal import LeafInfo, dda_unit, descend, get_delta_scale, world2tree
 
 # Arguments the two march kernels share, in order.
 _MARCH_ARGS = [
+    ctypes.POINTER(StructureDesc),                  # tree or bake
     c_void_p, c_void_p, c_void_p, c_int,            # origins, dirs, vdirs, B
-    c_void_p, c_void_p, c_int, c_int,               # child, data, N, n_levels
     c_void_p, c_void_p, c_void_p, c_int, c_int,     # offset, scaling, features, M, D
     c_void_p, c_int, c_void_p, c_int,               # tmats, format, extra, ld_extra
     c_int, c_int, c_int, c_int,                     # basis_dim, min/max_comp, n_color
     c_float, c_float,                               # step, bg
 ]
-RENDER_FWD = Kernel(
-    "svox_render_fwd",
-    _MARCH_ARGS + [c_float, c_float, c_int,         # sigma/stop thresh, max_steps
-                   c_void_p, c_void_p, c_int, c_void_p],  # out, waccum, device, stream
-)
-RENDER_BWD = Kernel(
-    "svox_render_bwd",
-    _MARCH_ARGS + [c_int,                           # max_steps
-                   c_void_p, c_void_p, c_void_p,    # grad_out, out_res, grad
-                   c_int, c_void_p],                # device, stream
-)
+_FWD_ARGS = _MARCH_ARGS + [c_float, c_float, c_int,  # sigma/stop thresh, max_steps
+                           c_void_p, c_void_p, c_int, c_void_p]  # out, waccum, device, stream
+_BWD_ARGS = _MARCH_ARGS + [c_int,                   # max_steps
+                           c_void_p, c_void_p, c_void_p,  # grad_out, out_res, grad
+                           c_int, c_void_p]         # device, stream
+RENDER_FWD = Kernel("svox_render_fwd", _FWD_ARGS)
+RENDER_BWD = Kernel("svox_render_bwd", _BWD_ARGS)
+RENDER_FWD_BAKED = Kernel("svox_render_fwd_baked", _FWD_ARGS)
+RENDER_BWD_BAKED = Kernel("svox_render_bwd_baked", _BWD_ARGS)
 # Color channels the kernels hold in registers, and the largest basis.
 KERNEL_MAX_COLORS = 16
 KERNEL_MAX_BASIS = 25
@@ -90,17 +104,103 @@ def _basis_window(opt: RenderOptions) -> np.ndarray:
     return ((idx >= opt.min_comp) & (idx <= opt.max_comp)).astype(np.float32)
 
 
-def _ray_setup(spec: TreeSpec, origins, dirs):
-    """Rays to tree space: (o, d, invdir, delta_scale, tmin, tmax, hit)."""
+def _ray_setup(spec, origins, dirs, opt: RenderOptions = None, cube_hit: bool = False):
+    """Rays to tree space: (o, d, invdir, delta_scale, tmin, tmax, hit).
+
+    With ``opt`` and a baked spec, the rays are culled against the bake's
+    occupied box: ``hit`` requires the box (a miss renders exactly the
+    background, and an inverted box, lo > hi, culls every ray), ``tmax``
+    stops at the box exit (samples beyond it are empty), and with
+    ``box_advance`` ``tmin`` moves to the box entry (fast mode only: it
+    shifts the samples). ``cube_hit`` keeps ``hit`` the cube test and
+    clamps only (the motion-feature passes output 0 for a cube miss but
+    the background for a hit that finds nothing)."""
     o = world2tree(origins, spec.offset, spec.scaling)
     d, delta_scale = get_delta_scale(spec.scaling, dirs)
     invdir = 1.0 / (d + 1e-9)
     tmin, tmax = dda_unit(o, invdir)
     hit = ~((tmax < 0) | (tmin > tmax))
+    if opt is not None and isinstance(spec, BakedTree):
+        lo, hi = spec.aabb_lo, spec.aabb_hi
+        t1 = (lo - o) * invdir
+        t2 = (hi - o) * invdir
+        a_lo = torch.minimum(t1, t2).amax(dim=-1)
+        a_hi = torch.maximum(t1, t2).amin(dim=-1)
+        if not cube_hit:
+            box_valid = bool((lo <= hi).all())
+            hit = hit & box_valid & (a_hi >= torch.clamp(a_lo, min=0.0)) & (a_hi >= tmin)
+        if opt.box_advance:
+            tmin = torch.maximum(tmin, a_lo)
+        tmax = torch.minimum(tmax, a_hi)
     return o, d, invdir, delta_scale, tmin, tmax, hit
 
 
-def _check_supported(spec: TreeSpec, features, origins, dirs, vdirs,
+def effective_skip_base(spec, opt: RenderOptions) -> int:
+    """The skip-box code base the march honors: the bake's, in fast mode
+    (``opt.skip_boxes``) without interpolation; else 0."""
+    if opt.skip_boxes and not opt.interp:
+        return int(getattr(spec, "skip_base", 0) or 0)
+    return 0
+
+
+def _locate(spec, pos) -> LeafInfo:
+    """The leaves of (B, 3) tree-space points in either structure; a
+    bake's ``node_flat`` is its baked cell."""
+    if isinstance(spec, BakedTree):
+        data_idx, cube_sz, frac, cell = lookup_plain(spec, pos)
+        return LeafInfo(data_idx=data_idx, node_flat=cell, cube_sz=cube_sz, frac=frac)
+    return descend(spec, pos)
+
+
+def _tree_cells(spec, cells):
+    """Tree cells of the cells `_locate` returns (weight accumulation)."""
+    return spec.src_map[cells.long()] if isinstance(spec, BakedTree) else cells
+
+
+def _n_tree_cells(spec) -> int:
+    return spec.n_tree_cells if isinstance(spec, BakedTree) else spec.child_flat.numel()
+
+
+def _step(leaf: LeafInfo, invdir, step_size: float, skip_base: int):
+    """Leaf-adaptive step ``(sub_tmax - sub_tmin) / cube_sz + step_size``
+    from the in-leaf DDA. With ``skip_base``, an empty leaf whose row is a
+    skip-box code exits its box instead of the cell; written so that
+    extent 0 is the plain cell DDA bit for bit."""
+    if skip_base:
+        bits = leaf.data_idx - skip_base
+        bz = torch.where((bits >= 0) & (bits < _SKIP_BITS_SPAN), bits, 0)
+
+        def ext(shifts):
+            return torch.stack([(bz >> k) & 15 for k in shifts], dim=-1).to(invdir.dtype)
+
+        el, eh = ext((0, 8, 16)), ext((4, 12, 20))
+        t1 = -(leaf.frac + el) * invdir
+        t2 = t1 + ((1.0 + eh) + el) * invdir
+        lo, hi = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        sub_tmin = torch.clamp(torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2]), min=0.0)
+        sub_tmax = torch.clamp(torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2]), max=1e9)
+    else:
+        sub_tmin, sub_tmax = dda_unit(leaf.frac, invdir)
+    return (sub_tmax - sub_tmin) / leaf.cube_sz + step_size
+
+
+def sample_position(o, t, d):
+    """``o + t * d`` with one rounding, as a fused multiply-add (the
+    kernels' ``__fmaf_rn``, and what XLA and nvcc's default contraction
+    compute for the JAX package and the CUDA reference): the float32
+    product is exact in float64, so only the sum rounds (twice, which
+    differs from one rounding with probability ~2^-29)."""
+    return (o.double() + t.double()[:, None] * d.double()).to(o.dtype)
+
+
+def _sample_leaf(spec, opt: RenderOptions, rays, t):
+    """The leaf and step of every ray's sample at t (plain)."""
+    o, d, invdir = rays[:3]
+    leaf = _locate(spec, sample_position(o, t, d))
+    return leaf, _step(leaf, invdir, opt.step_size, effective_skip_base(spec, opt))
+
+
+def _check_supported(spec, features, origins, dirs, vdirs,
                      opt: RenderOptions) -> None:
     if hasattr(features, "q") and hasattr(features, "scale"):
         raise NotImplementedError(
@@ -119,9 +219,16 @@ def _check_supported(spec: TreeSpec, features, origins, dirs, vdirs,
     for name, r in (("origins", origins), ("dirs", dirs), ("vdirs", vdirs)):
         if r.ndim != 2 or r.shape[1] != 3 or r.shape[0] != origins.shape[0]:
             raise ValueError(f"{name} must be (B, 3), got {tuple(r.shape)}")
-    devices = {t.device for t in (features, origins, dirs, vdirs, spec.child_flat)}
+    devices = {t.device for t in (features, origins, dirs, vdirs)} | {spec.device}
     if len(devices) != 1:
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    if isinstance(spec, BakedTree):
+        _check_baked(spec)
+        if spec.skip_base and features.shape[0] > spec.skip_base:
+            raise ValueError(
+                f"feature pool has {features.shape[0]} rows but the baked tree packs "
+                f"skip boxes above row {spec.skip_base}; bake with skip_boxes=False"
+            )
 
 
 def _check_ray_grads(features, opt: RenderOptions, origins, grad_out, out_res):
@@ -303,10 +410,11 @@ def _march_plain(spec, features, origins, dirs, vdirs, opt, want_weights):
     dev = origins.device
     dtype = torch.promote_types(features.dtype, origins.dtype)
     n_color = get_out_data_dim(opt.format, opt.basis_dim, D) - 1
-    o, d, invdir, delta_scale, tmin, tmax, hit = _ray_setup(spec, origins, dirs)
+    rays = _ray_setup(spec, origins, dirs, opt)
+    o, d, invdir, delta_scale, tmin, tmax, hit = rays
     basis = _Basis(spec, opt, vdirs)
     can_stop = opt.stop_thresh > 0.0
-    waccum = (torch.zeros(spec.child_flat.numel(), dtype=torch.float32, device=dev)
+    waccum = (torch.zeros(_n_tree_cells(spec), dtype=torch.float32, device=dev)
               if want_weights else None)
 
     t = tmin
@@ -318,9 +426,7 @@ def _march_plain(spec, features, origins, dirs, vdirs, opt, want_weights):
     for _ in range(opt.max_steps):
         if not bool(active.any()):
             break
-        leaf = descend(spec, o + t[:, None] * d)
-        sub_tmin, sub_tmax = dda_unit(leaf.frac, invdir)
-        dt = (sub_tmax - sub_tmin) / leaf.cube_sz + opt.step_size
+        leaf, dt = _sample_leaf(spec, opt, rays, t)
         idx = leaf.data_idx
         valid = active & (idx >= 0) & (idx < M)
         rows = torch.where(valid, idx, 0).long()
@@ -332,7 +438,7 @@ def _march_plain(spec, features, origins, dirs, vdirs, opt, want_weights):
         col = _colors(feat, basis.at(rows), opt, n_color)
         out_c = torch.where(contrib[:, None], out_c + weight[:, None] * col, out_c)
         if want_weights:
-            waccum.index_add_(0, leaf.node_flat[contrib].long(),
+            waccum.index_add_(0, _tree_cells(spec, leaf.node_flat[contrib]).long(),
                               weight[contrib].to(waccum.dtype))
         L = torch.where(contrib, L * att, L)
         if can_stop:
@@ -384,7 +490,7 @@ def volume_render_backward_plain(spec: TreeSpec, features: torch.Tensor,
     if M == 0 or B == 0:
         return grad
     n_color = get_out_data_dim(opt.format, opt.basis_dim, D) - 1
-    rays = _ray_setup(spec, origins, dirs)
+    rays = _ray_setup(spec, origins, dirs, opt)
     basis = _Basis(spec, opt, vdirs)
     g = grad_out[:, :n_color]
     g_alpha = grad_out[:, n_color]
@@ -418,9 +524,7 @@ def _march_bwd_plain(spec, features, opt, rays, basis, g, g_alpha, grad,
         active = hit & (t < tmax)
         if not bool(active.any()):
             break
-        leaf = descend(spec, o + t[:, None] * d)
-        sub_tmin, sub_tmax = dda_unit(leaf.frac, invdir)
-        dt = (sub_tmax - sub_tmin) / leaf.cube_sz + opt.step_size
+        leaf, dt = _sample_leaf(spec, opt, rays, t)
         idx = leaf.data_idx
         valid = active & (idx >= 0) & (idx < M)
         rows = torch.where(valid, idx, 0).long()
@@ -459,23 +563,30 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def _check_kernel_tensors(spec: TreeSpec, features, rays, name: str) -> None:
+def _check_kernel_tensors(spec, features, rays, name: str) -> None:
     """Devices, layouts and types of a march kernel's rays, pool and
     tables."""
-    tables = (spec.child_flat, spec.data_flat, spec.offset, spec.scaling)
     dev = features.device
-    for t in (features, *rays, *tables):
+    for t in (features, *rays):
         _require(t.is_cuda and t.device == dev, f"{name} needs all tensors on one CUDA device")
         _require(t.is_contiguous(), f"{name} needs contiguous tensors")
-    for t in (features, *rays, spec.offset, spec.scaling):
-        _require(t.dtype == torch.float32, "rays, features, offset and scaling must be float32")
-    for t in tables[:2]:
-        _require(t.dtype == torch.int32, "child/data tables must be int32")
-    _require(rays[0].shape[0] < 2 ** 31 and spec.child_flat.numel() < 2 ** 31,
-             "too many rays or cells")
+        _require(t.dtype == torch.float32, "rays and features must be float32")
+    check_structure(spec, dev, name)
+    _require(rays[0].shape[0] < 2 ** 31, "too many rays")
 
 
-def _kernel_args(spec: TreeSpec, features, origins, dirs, vdirs,
+def _kernel_for(spec, tree_kernel: Kernel, baked_kernel: Kernel) -> Kernel:
+    """The kernel instance for the structure ``spec`` is."""
+    return baked_kernel if isinstance(spec, BakedTree) else tree_kernel
+
+
+def _structure_arg(spec, opt: RenderOptions):
+    """The structure argument of a march kernel (kept alive by the
+    returned reference for the call)."""
+    return ctypes.byref(structure_desc(spec, opt.box_advance, effective_skip_base(spec, opt)))
+
+
+def _kernel_args(spec, features, origins, dirs, vdirs,
                  opt: RenderOptions, name: str):
     """Check a march kernel's inputs and return (the shared leading
     arguments of `_MARCH_ARGS`, n_color). The checks on formats and sizes
@@ -512,8 +623,7 @@ def _kernel_args(spec: TreeSpec, features, origins, dirs, vdirs,
         _require(ex.is_cuda and ex.device == dev and ex.is_contiguous()
                  and ex.dtype == torch.float32, "extra_data must be contiguous float32 on the features' device")
     args = (
-        origins.data_ptr(), dirs.data_ptr(), vdirs.data_ptr(), B,
-        spec.child_flat.data_ptr(), spec.data_flat.data_ptr(), spec.N, spec.n_levels,
+        _structure_arg(spec, opt), origins.data_ptr(), dirs.data_ptr(), vdirs.data_ptr(), B,
         spec.offset.data_ptr(), spec.scaling.data_ptr(), features.data_ptr(), M, D,
         None if tm is None else tm.data_ptr(), fmt,
         None if ex is None else ex.data_ptr(), 0 if ex is None else ex.shape[1],
@@ -527,10 +637,11 @@ def _stream(dev: torch.device):
     return dev.index, torch.cuda.current_stream(dev).cuda_stream
 
 
-def volume_render_cuda(spec: TreeSpec, features: torch.Tensor,
+def volume_render_cuda(spec, features: torch.Tensor,
                        origins: torch.Tensor, dirs: torch.Tensor,
                        vdirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
-    """Launch the forward-march kernel (csrc/render_fwd.cu): RGBA, SH
+    """Launch the forward-march kernel (csrc/render_fwd.cu, or its baked
+    instance csrc/render_fwd_baked.cu on a BakedTree): RGBA, SH
     (basis_dim 1, 4, 9, 16, 25), SG and ASG (basis_dim 1-25), exact and
     thresholded, with optional per-voxel rotation matrices."""
     return _march_cuda(spec, features, origins, dirs, vdirs, opt, False)[0]
@@ -540,7 +651,7 @@ def volume_render_with_weight_accum_cuda(spec: TreeSpec, features: torch.Tensor,
                                          origins: torch.Tensor, dirs: torch.Tensor,
                                          vdirs: torch.Tensor, opt: RenderOptions):
     """Launch the forward-march kernel with weight accumulation:
-    (out, waccum (capacity * N^3,))."""
+    (out, waccum (capacity * N^3,), summed per tree cell)."""
     return _march_cuda(spec, features, origins, dirs, vdirs, opt, True)
 
 
@@ -549,11 +660,11 @@ def _march_cuda(spec, features, origins, dirs, vdirs, opt, want_weights):
                                  "volume_render_cuda")
     dev = features.device
     out = torch.empty(origins.shape[0], n_color + 1, dtype=torch.float32, device=dev)
-    waccum = (torch.zeros(spec.child_flat.numel(), dtype=torch.float32, device=dev)
+    waccum = (torch.zeros(_n_tree_cells(spec), dtype=torch.float32, device=dev)
               if want_weights else None)
     if out.shape[0] == 0:
         return out, waccum
-    RENDER_FWD(
+    _kernel_for(spec, RENDER_FWD, RENDER_FWD_BAKED)(
         *args, opt.sigma_thresh, opt.stop_thresh, opt.max_steps,
         out.data_ptr(), None if waccum is None else waccum.data_ptr(), *_stream(dev),
     )
@@ -564,7 +675,8 @@ def volume_render_backward_cuda(spec: TreeSpec, features: torch.Tensor,
                                 origins: torch.Tensor, dirs: torch.Tensor,
                                 vdirs: torch.Tensor, grad_out: torch.Tensor,
                                 opt: RenderOptions, out_res=None) -> torch.Tensor:
-    """Launch the backward-march kernel (csrc/render_bwd.cu) into a zeroed
+    """Launch the backward-march kernel (csrc/render_bwd.cu, or
+    csrc/render_bwd_baked.cu on a BakedTree) into a zeroed
     (M, D) gradient; single pass when `volume_render_backward_plain`
     takes one. An empty pool or ray batch returns zeros without a launch."""
     args, n_color = _kernel_args(spec, features, origins, dirs, vdirs, opt,
@@ -580,7 +692,7 @@ def volume_render_backward_cuda(spec: TreeSpec, features: torch.Tensor,
     grad = torch.zeros(M, D, dtype=torch.float32, device=dev)
     if M == 0 or origins.shape[0] == 0:
         return grad
-    RENDER_BWD(
+    _kernel_for(spec, RENDER_BWD, RENDER_BWD_BAKED)(
         *args, opt.max_steps, grad_out.data_ptr(),
         out_res.data_ptr() if single else None, grad.data_ptr(), *_stream(dev),
     )

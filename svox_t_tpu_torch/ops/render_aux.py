@@ -16,9 +16,13 @@ follows operation for operation. The kernels:
   * first hit (K9b), motion-feature forward (K9c) and backward (K9d):
     `csrc/render_aux.cu` (`FIRST_HIT`, `MF_FWD`, `MF_BWD`).
 
-The march rules are those of `ops/render.py` (the forward's for the
-forward passes, the backward's for the VJPs); the module docstring of
-`csrc/render_aux.cu` states what each pass adds to them. Joint indices
+On a `BakedTree` each pass runs its baked instance
+(`csrc/render_bwd_baked.cu`, `csrc/render_aux_baked.cu`; the counters
+with ``_BAKED``). The march rules are those of `ops/render.py` (the
+forward's for the forward passes, the backward's for the VJPs; on a bake
+the cull, box advance and skip boxes too, except that the motion-feature
+passes keep the cube test as their hit); the header of
+`csrc/render_aux.cuh` states what each pass adds to them. Joint indices
 are clamped to [0, J) where the motion-feature passes read or add a
 joint row, as a JAX gather clamps. `interp`, quantized pools and sharded
 options raise NotImplementedError, as in `ops/render.py`.
@@ -31,6 +35,7 @@ packages take, so NumPy copies of them serve both.
 
 from __future__ import annotations
 
+import ctypes
 from ctypes import c_float, c_int, c_void_p
 from typing import NamedTuple
 
@@ -39,38 +44,38 @@ import torch
 from .._build import Kernel
 from ..utils.spec import RenderOptions, TreeSpec
 from . import render as render_ops
-from .render import _check_kernel_tensors, _ray_setup, _require, _sigmoid, _stream
-from .traversal import LeafInfo, dda_unit, descend, tree2world
+from .bake import BakedTree, StructureDesc
+from .bake import lookup as bake_lookup
+from .render import (_check_kernel_tensors, _kernel_for, _locate, _ray_setup, _require,
+                     _sample_leaf, _sigmoid, _stream, _structure_arg, sample_position)
+from .traversal import LeafInfo, tree2world
 
 # Leading arguments of the four aux entry points, in order.
 _AUX_ARGS = [
+    ctypes.POINTER(StructureDesc),                  # tree or bake
     c_void_p, c_void_p, c_int,                      # origins, dirs, B
-    c_void_p, c_void_p, c_int, c_int,               # child, data, N, n_levels
     c_void_p, c_void_p, c_void_p, c_int, c_int,     # offset, scaling, features, M, D
     c_float, c_int,                                 # step, max_steps
 ]
-OPACITY_BWD = Kernel(
-    "svox_opacity_bwd",
-    _AUX_ARGS + [c_void_p, c_void_p, c_void_p,      # grad_out, out_res, grad
-                 c_int, c_void_p],                  # device, stream
-)
-FIRST_HIT = Kernel(
-    "svox_first_hit",
-    _AUX_ARGS + [c_float,                           # sigma_thresh
-                 c_void_p, c_void_p, c_void_p, c_void_p,  # found, t_hit, row, frac
-                 c_int, c_void_p],
-)
+_OPACITY_ARGS = _AUX_ARGS + [c_void_p, c_void_p, c_void_p,  # grad_out, out_res, grad
+                             c_int, c_void_p]               # device, stream
+_FIRST_HIT_ARGS = _AUX_ARGS + [c_float,                     # sigma_thresh
+                               c_void_p, c_void_p, c_void_p, c_void_p,  # found, t_hit, row, frac
+                               c_int, c_void_p]
 _MF_ARGS = _AUX_ARGS + [c_void_p, c_int, c_int,     # joint_features, J, Kd
                         c_void_p, c_void_p, c_int]  # skinning_weights, joint_index, nb
-MF_FWD = Kernel(
-    "svox_mf_fwd",
-    _MF_ARGS + [c_float, c_float, c_float,          # sigma/stop thresh, bg
-                c_void_p, c_int, c_void_p],         # out, device, stream
-)
-MF_BWD = Kernel(
-    "svox_mf_bwd",
-    _MF_ARGS + [c_void_p, c_void_p, c_int, c_void_p],  # grad_out, grad, device, stream
-)
+_MF_FWD_ARGS = _MF_ARGS + [c_float, c_float, c_float,   # sigma/stop thresh, bg
+                           c_void_p, c_int, c_void_p]   # out, device, stream
+_MF_BWD_ARGS = _MF_ARGS + [c_void_p, c_void_p, c_int, c_void_p]  # grad_out, grad, device, stream
+OPACITY_BWD = Kernel("svox_opacity_bwd", _OPACITY_ARGS)
+FIRST_HIT = Kernel("svox_first_hit", _FIRST_HIT_ARGS)
+MF_FWD = Kernel("svox_mf_fwd", _MF_FWD_ARGS)
+MF_BWD = Kernel("svox_mf_bwd", _MF_BWD_ARGS)
+# The instances on a BakedTree.
+OPACITY_BWD_BAKED = Kernel("svox_opacity_bwd_baked", _OPACITY_ARGS)
+FIRST_HIT_BAKED = Kernel("svox_first_hit_baked", _FIRST_HIT_ARGS)
+MF_FWD_BAKED = Kernel("svox_mf_fwd_baked", _MF_FWD_ARGS)
+MF_BWD_BAKED = Kernel("svox_mf_bwd_baked", _MF_BWD_ARGS)
 # Joint-feature columns the motion-feature kernels hold in registers, and
 # the largest joint table the backward sums in 48 KB of shared memory, in
 # floats: J * (Kd | 1), its rows padded to an odd stride.
@@ -89,8 +94,7 @@ def _aux_args(spec: TreeSpec, features, origins, dirs, opt: RenderOptions, name:
     _check_kernel_tensors(spec, features, (origins, dirs), name)
     M, D = features.shape
     return (
-        origins.data_ptr(), dirs.data_ptr(), origins.shape[0],
-        spec.child_flat.data_ptr(), spec.data_flat.data_ptr(), spec.N, spec.n_levels,
+        _structure_arg(spec, opt), origins.data_ptr(), dirs.data_ptr(), origins.shape[0],
         spec.offset.data_ptr(), spec.scaling.data_ptr(), features.data_ptr(), M, D,
         opt.step_size, opt.max_steps,
     )
@@ -105,12 +109,9 @@ class _Sample(NamedTuple):
     sigma: torch.Tensor     # 0 in empty space
 
 
-def _sample(spec: TreeSpec, features, opt: RenderOptions, rays, t) -> _Sample:
+def _sample(spec, features, opt: RenderOptions, rays, t) -> _Sample:
     """One sample of every ray at t (plain): its leaf, step, row and sigma."""
-    o, d, invdir = rays[:3]
-    leaf = descend(spec, o + t[:, None] * d)
-    sub_tmin, sub_tmax = dda_unit(leaf.frac, invdir)
-    dt = (sub_tmax - sub_tmin) / leaf.cube_sz + opt.step_size
+    leaf, dt = _sample_leaf(spec, opt, rays, t)
     idx = leaf.data_idx
     resident = (idx >= 0) & (idx < features.shape[0])
     rows = torch.where(resident, idx, 0).long()
@@ -191,7 +192,7 @@ def opacity_backward_plain(spec: TreeSpec, features: torch.Tensor, origins: torc
     grad = torch.zeros(M, D, dtype=features.dtype, device=features.device)
     if M == 0 or origins.shape[0] == 0:
         return grad
-    rays = _ray_setup(spec, origins, dirs)
+    rays = _ray_setup(spec, origins, dirs, opt)
     g = grad_out[:, 0]
     if _single_pass(opt, out_res):
         L_ray = 1.0 - out_res[:, 0]
@@ -242,8 +243,9 @@ def opacity_backward_cuda(spec: TreeSpec, features: torch.Tensor, origins: torch
     grad = torch.zeros(M, D, dtype=torch.float32, device=dev)
     if M == 0 or origins.shape[0] == 0:
         return grad
-    OPACITY_BWD(*args, grad_out.data_ptr(), out_res.data_ptr() if single else None,
-                grad.data_ptr(), *_stream(dev))
+    _kernel_for(spec, OPACITY_BWD, OPACITY_BWD_BAKED)(
+        *args, grad_out.data_ptr(), out_res.data_ptr() if single else None,
+        grad.data_ptr(), *_stream(dev))
     return grad
 
 
@@ -274,7 +276,7 @@ def first_hit_plain(spec: TreeSpec, features: torch.Tensor, origins: torch.Tenso
     B = origins.shape[0]
     M = features.shape[0]
     dev = origins.device
-    rays = _ray_setup(spec, origins, dirs)
+    rays = _ray_setup(spec, origins, dirs, opt)
     o, d, _, _, tmin, tmax, hit = rays
     found = torch.zeros(B, dtype=torch.bool, device=dev)
     found_t = torch.zeros_like(found)
@@ -304,7 +306,7 @@ def first_hit_plain(spec: TreeSpec, features: torch.Tensor, origins: torch.Tenso
     redo = found & ~same
     if bool(redo.any()):
         # sigma_thresh < 0: t_hit lies before the resident sample.
-        frac[redo] = descend(spec, o[redo] + t_hit[redo][:, None] * d[redo]).frac
+        frac[redo] = _locate(spec, sample_position(o[redo], t_hit[redo], d[redo])).frac
     return found, t_hit, row, frac
 
 
@@ -320,7 +322,7 @@ def first_hit_cuda(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor
     frac = torch.zeros(B, 3, dtype=torch.float32, device=dev)
     if B == 0 or features.shape[0] == 0:
         return found, t_hit, row, frac
-    FIRST_HIT(*args, opt.sigma_thresh, found.data_ptr(), t_hit.data_ptr(),
+    _kernel_for(spec, FIRST_HIT, FIRST_HIT_BAKED)(*args, opt.sigma_thresh, found.data_ptr(), t_hit.data_ptr(),
               row.data_ptr(), frac.data_ptr(), *_stream(dev))
     return found, t_hit, row, frac
 
@@ -340,7 +342,9 @@ def motion_render(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
     ``spec.extra_data`` rows hold joint positions (first 3 columns). With
     ``opt.compat_hit_point`` the hit point is the world transform of the
     in-leaf fraction at the hit, as in the CUDA reference, instead of the
-    sample position.
+    sample position; on a bake the fraction comes from one more lookup at
+    the hit points (`ops/bake.py` `lookup`, the K6 point kernel on CUDA),
+    as in the JAX package.
 
     :return: (motion_feature (B, n_joints), depth (B, 1), hit_point world
         (B, 3), data_idx (B, 1) int32), all 0 where no hit
@@ -349,8 +353,11 @@ def motion_render(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
         raise ValueError("motion_render needs extra_data joints")
     found, t_hit, row, frac = first_hit(spec, features, origins, dirs, opt)
     o, d, _, delta_scale = _ray_setup(spec, origins, dirs)[:4]
-    pos = frac if opt.compat_hit_point else o + t_hit[:, None] * d
-    pos = torch.where(found[:, None], pos, 0.0)
+    pos = torch.where(found[:, None], sample_position(o, t_hit, d), 0.0)
+    if opt.compat_hit_point:
+        if isinstance(spec, BakedTree):
+            frac = bake_lookup(spec, pos)[2]
+        pos = torch.where(found[:, None], frac, 0.0)
     world = torch.where(found[:, None], tree2world(pos, spec.offset, spec.scaling), 0.0)
     joints = spec.extra_data[:, :3]
     dist = torch.linalg.norm(world[:, None, :] - joints[None, :, :], dim=-1)
@@ -441,7 +448,7 @@ def motion_feature_render_plain(spec: TreeSpec, joint_features: torch.Tensor,
     sw, ji = _lbs_tables(spec, joint_features, features)
     B = origins.shape[0]
     M = features.shape[0]
-    rays = _ray_setup(spec, origins, dirs)
+    rays = _ray_setup(spec, origins, dirs, opt, cube_hit=True)
     delta_scale, tmin, tmax, hit = rays[3:]
     can_stop = opt.stop_thresh > 0.0
     out = torch.zeros(B, joint_features.shape[1], dtype=joint_features.dtype, device=origins.device)
@@ -506,7 +513,7 @@ def motion_feature_forward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
     out = torch.empty(origins.shape[0], joint_features.shape[1], dtype=torch.float32, device=dev)
     if out.shape[0] == 0:
         return out
-    MF_FWD(*args, opt.sigma_thresh, opt.stop_thresh, opt.background_brightness,
+    _kernel_for(spec, MF_FWD, MF_FWD_BAKED)(*args, opt.sigma_thresh, opt.stop_thresh, opt.background_brightness,
            out.data_ptr(), *_stream(dev))
     return out
 
@@ -552,7 +559,7 @@ def motion_feature_backward_plain(spec: TreeSpec, joint_features: torch.Tensor,
     grad = torch.zeros_like(joint_features, dtype=torch.float64)
     if features.shape[0] == 0 or origins.shape[0] == 0:
         return grad.to(joint_features.dtype)
-    rays = _ray_setup(spec, origins, dirs)
+    rays = _ray_setup(spec, origins, dirs, opt, cube_hit=True)
     delta_scale, tmin, tmax, hit = rays[3:]
     t = tmin
     L = torch.ones_like(tmin)
@@ -594,5 +601,5 @@ def motion_feature_backward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
     grad = torch.zeros(J, Kd, dtype=torch.float32, device=dev)
     if features.shape[0] == 0 or origins.shape[0] == 0:
         return grad
-    MF_BWD(*args, grad_out.data_ptr(), grad.data_ptr(), *_stream(dev))
+    _kernel_for(spec, MF_BWD, MF_BWD_BAKED)(*args, grad_out.data_ptr(), grad.data_ptr(), *_stream(dev))
     return grad

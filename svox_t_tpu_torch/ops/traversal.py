@@ -46,11 +46,15 @@ def clamp_coord(pos: torch.Tensor) -> torch.Tensor:
     return torch.clamp(pos, 0.0, 1.0 - 1e-6)
 
 
-def descend(spec: TreeSpec, pos: torch.Tensor) -> LeafInfo:
+def descend(spec: TreeSpec, pos: torch.Tensor, with_cell: bool = False):
     """Root-to-leaf descent for a batch of tree-space points.
 
     :param pos: (B, 3) float32 in [0,1]^3 (clamped here).
-    :return: LeafInfo over the batch.
+    :param with_cell: also return the leaf's integer cell (B, 3) int32 at
+        its own resolution ``cube_sz``, the cell the descent's per-level
+        floors selected.
+    :return: LeafInfo over the batch (``(LeafInfo, cell)`` with
+        ``with_cell``).
     """
     N = spec.N
     child = spec.child_flat
@@ -61,6 +65,7 @@ def descend(spec: TreeSpec, pos: torch.Tensor) -> LeafInfo:
     cube = torch.full((B,), float(N), dtype=pos.dtype, device=dev)
     done = torch.zeros(B, dtype=torch.bool, device=dev)
     leaf_flat = torch.zeros(B, dtype=torch.int32, device=dev)
+    cell = torch.zeros(B, 3, dtype=torch.int32, device=dev)
     for _ in range(spec.n_levels):
         xyz_s = xyz * N
         uvw = torch.clamp(torch.floor(xyz_s), max=N - 1).to(torch.int32)
@@ -70,12 +75,14 @@ def descend(spec: TreeSpec, pos: torch.Tensor) -> LeafInfo:
         term = (skip == 0) & ~done
         cont = ~(done | term)
         leaf_flat = torch.where(term, flat, leaf_flat)
+        cell = torch.where(done[:, None], cell, cell * N + uvw)
         xyz = torch.where(done[:, None], xyz, frac)
         node = torch.where(cont, node + skip, node)
         cube = torch.where(cont, cube * N, cube)
         done = done | term
     data_idx = spec.data_flat[leaf_flat.long()]
-    return LeafInfo(data_idx=data_idx, node_flat=leaf_flat, cube_sz=cube, frac=xyz)
+    leaf = LeafInfo(data_idx=data_idx, node_flat=leaf_flat, cube_sz=cube, frac=xyz)
+    return (leaf, cell) if with_cell else leaf
 
 
 def dda_unit(cen: torch.Tensor, invdir: torch.Tensor):

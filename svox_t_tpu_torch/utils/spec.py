@@ -42,8 +42,9 @@ class RenderOptions:
     Semantic fields: ``step_size``, ``background_brightness``,
     ``format``, ``basis_dim``, ``ndc_*``, ``min_comp``/``max_comp``,
     ``sigma_thresh``, ``stop_thresh``, ``max_steps`` (an exact per-ray
-    sample cap), ``interp``, ``box_advance``/``skip_boxes`` (no-ops on
-    tree specs) and ``compat_hit_point``. The rest only scheduled work on
+    sample cap), ``interp``, ``box_advance``/``skip_boxes`` (fast-mode
+    options of a baked spec: start at the occupied box, cross skip boxes
+    in one step; no-ops on tree specs) and ``compat_hit_point``. The rest only scheduled work on
     a TPU and are ignored.
     """
 

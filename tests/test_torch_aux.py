@@ -58,7 +58,7 @@ def _scene(seed, fmt="RGBA", ddim=4, n_rays=160, occupy=None):
 
 
 def _renderers(jt, pt, **attrs):
-    jr, tr = st.VolumeRenderer(jt, backend="tree"), stt.VolumeRenderer(pt)
+    jr, tr = st.VolumeRenderer(jt, backend="tree"), stt.VolumeRenderer(pt, backend="tree")
     for k, v in attrs.items():
         setattr(jr, k, v)
         setattr(tr, k, v)
@@ -114,7 +114,7 @@ def test_opacity_grad_equals_render_alpha_grad(fast):
     columns shows that pass A writes nothing."""
     rng, jt, pt, feats, rays, _, _ = _scene(4, "SH4", 13)
     feats[:, :-1] *= 100.0
-    tr = stt.VolumeRenderer(pt)
+    tr = stt.VolumeRenderer(pt, backend="tree")
     G = _t(rng.randn(len(rays.origins), 1).astype(np.float32))
     f1 = _t(feats).requires_grad_()
     (tr.opacity_render(f1, _trays(rays), fast=fast) * G).sum().backward()
@@ -262,7 +262,7 @@ def test_gradients_use_the_captured_spec():
     """Re-pointing the tree between forward and backward changes neither
     the opacity nor the motion-feature gradient."""
     rng, jt, pt, feats, rays, lbs, _ = _scene(14, "SH4", 13)
-    tr = stt.VolumeRenderer(pt)
+    tr = stt.VolumeRenderer(pt, backend="tree")
     trays = _trays(rays)
 
     def grads(repoint):
@@ -295,10 +295,10 @@ def test_spec_attaches_lbs_tables_per_call():
 
 def test_unsupported_inputs_raise():
     rng, jt, pt, feats, rays, lbs, _ = _scene(16)
-    tr = stt.VolumeRenderer(pt)
+    tr = stt.VolumeRenderer(pt, backend="tree")
     trays = _trays(rays)
     with pytest.raises(ValueError, match="extra_data"):
-        stt.VolumeRenderer(stt.tree_from_numpy(dict(stt.tree_state(jt), extra_data=None), device="cpu")).motion_render(
+        stt.VolumeRenderer(stt.tree_from_numpy(dict(stt.tree_state(jt), extra_data=None), device="cpu"), backend="tree").motion_render(
             _t(feats), trays)
     interp = dataclasses.replace(tr._get_options(), interp=1)
     spec = pt._spec(skinning_weights=lbs["sw"], joint_index=lbs["ji"])
@@ -321,7 +321,7 @@ def test_kernel_wrappers_reject_cpu_and_oversize_tables():
     """The kernel wrappers launch or raise; they never run the plain
     version in their place."""
     rng, jt, pt, feats, rays, lbs, _ = _scene(17)
-    opt = stt.VolumeRenderer(pt)._get_options()
+    opt = stt.VolumeRenderer(pt, backend="tree")._get_options()
     o, d = _trays(rays)[:2]
     f = _t(feats)
     spec = pt._spec(skinning_weights=lbs["sw"], joint_index=lbs["ji"])

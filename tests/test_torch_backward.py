@@ -76,7 +76,7 @@ def _grads(jt, pt, feats, rays, G, fast=False, rot=None, **kw):
     jrot = None if rot is None else jnp.asarray(rot)
     gj = jax.grad(lambda f: jnp.sum(jr(f, rays, jrot, fast=fast) * G))(jnp.asarray(feats))
     f = _t(feats).requires_grad_()
-    out = stt.VolumeRenderer(pt, **kw)(f, _trays(rays), None if rot is None else _t(rot), fast=fast)
+    out = stt.VolumeRenderer(pt, **kw, backend="tree")(f, _trays(rays), None if rot is None else _t(rot), fast=fast)
     (gt,) = torch.autograd.grad((out * _t(G)).sum(), f)
     return gt.numpy(), np.asarray(gj)
 
@@ -145,7 +145,7 @@ def test_grad_misses_and_empty_pool_match_jax():
     G = _gmat(rng, 4)
     gt, gj = _grads(jt, pt, feats, rays, G)
     _assert_grad_close(gt, gj)
-    out = stt.VolumeRenderer(pt)(_t(feats), _trays(rays)).numpy()
+    out = stt.VolumeRenderer(pt, backend="tree")(_t(feats), _trays(rays)).numpy()
     assert (out[:, -1] == 0).any() and (out[:, -1] > 0).any()  # misses and hits
     empty = np.zeros((0, 13), np.float32)
     gt0, gj0 = _grads(jt, pt, empty, rays, G)
@@ -159,7 +159,7 @@ def test_raw_backward_two_pass_without_out_res_matches_jax(fmt, ddim):
     rng, jt, pt, feats, rays, _ = _scene(53 + ddim, fmt, ddim)
     G = _gmat(rng, 4)
     opt_j = st.VolumeRenderer(jt, backend="tree")._get_options(False)
-    opt_t = stt.VolumeRenderer(pt)._get_options(False)
+    opt_t = stt.VolumeRenderer(pt, backend="tree")._get_options(False)
     gj = jrender.volume_render_backward(jt._spec(), jnp.asarray(feats), *rays, jnp.asarray(G), opt_j)
     gt = trender.volume_render_backward(pt._spec(), _t(feats), *(_t(r) for r in rays), _t(G), opt_t)
     _assert_grad_close(gt.numpy(), np.asarray(gj))
@@ -177,7 +177,7 @@ def test_render_persp_grad_matches_jax():
     jr = st.VolumeRenderer(jt, backend="tree")
     gj = jax.grad(lambda f: jnp.sum(jr.render_persp(f, c2w, 12, 10, fx=14.0) * G))(jnp.asarray(feats))
     f = _t(feats).requires_grad_()
-    tr = stt.VolumeRenderer(pt)
+    tr = stt.VolumeRenderer(pt, backend="tree")
     (gt,) = torch.autograd.grad((tr.render_persp(f, c2w, 12, 10, fx=14.0) * _t(G)).sum(), f)
     _assert_grad_close(gt.numpy(), np.asarray(gj))
     assert np.abs(gt.numpy()).max() > 1e-2
@@ -190,7 +190,7 @@ def test_render_persp_grad_matches_jax():
 @pytest.mark.parametrize("fast", [False, True])
 def test_weight_accumulation_matches_jax(fast):
     rng, jt, pt, feats, rays, _ = _scene(56, "SH4", 13)
-    jr, tr = st.VolumeRenderer(jt, backend="tree"), stt.VolumeRenderer(pt)
+    jr, tr = st.VolumeRenderer(jt, backend="tree"), stt.VolumeRenderer(pt, backend="tree")
     with jt.accumulate_weights() as jacc:
         jout = np.asarray(jr(jnp.asarray(feats), rays, fast=fast))
         with pytest.raises(RuntimeError, match="Tree locked"):
@@ -221,7 +221,7 @@ def test_weight_accumulation_matches_jax(fast):
 def test_volume_render_with_weight_accum_matches_jax():
     rng, jt, pt, feats, rays, _ = _scene(57, "RGBA", 4)
     opt_j = st.VolumeRenderer(jt, backend="tree")._get_options(True)
-    opt_t = stt.VolumeRenderer(pt)._get_options(True)
+    opt_t = stt.VolumeRenderer(pt, backend="tree")._get_options(True)
     jout, jw = jrender.volume_render_with_weight_accum(jt._spec(), jnp.asarray(feats), *rays, opt_j)
     tout, tw = trender.volume_render_with_weight_accum(pt._spec(), _t(feats), *(_t(r) for r in rays), opt_t)
     assert tw.shape == (pt._spec().child_flat.numel(),) and not tw.requires_grad
@@ -259,7 +259,7 @@ def test_captured_spec_survives_construct_tree():
     residuals do: re-pointing the tree in between changes nothing."""
     rng, jt, pt, feats, rays, centers = _scene(59, "SH4", 13)
     G = _t(_gmat(rng, 4))
-    r = stt.VolumeRenderer(pt)
+    r = stt.VolumeRenderer(pt, backend="tree")
     f = _t(feats).requires_grad_()
     (want,) = torch.autograd.grad((r(f, _trays(rays)) * G).sum(), f)
     qpts = centers[::2].copy()
@@ -289,7 +289,7 @@ def test_gradcheck_plain_float64(fmt, ddim):
     pt = stt.tree_from_numpy(stt.tree_state(jt), device="cpu")
     rays = _trays(make_rays(rng, 24))
     f64 = torch.from_numpy(np.array(feats, np.float64)).requires_grad_()
-    r = stt.VolumeRenderer(pt)
+    r = stt.VolumeRenderer(pt, backend="tree")
     torch.manual_seed(60 + ddim)  # fast_mode's random projections
     assert torch.autograd.gradcheck(lambda f: r(f, rays), (f64,), eps=1e-6,
                                     atol=1e-6, rtol=1e-4, fast_mode=True)

@@ -7,11 +7,17 @@ JAX):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
-Tolerances: construct_tree and the query forward must agree exactly.
-The forward march agrees to atol 2e-5: the library is built without
-fused multiply-adds, so sample positions and descents match the plain
-version bit for bit, and only the last ulps of exp and of the color sums
-can differ. Gradients and accumulated weights agree to
+The tests of the tree walk pass ``backend="tree"``; the baked backend
+(the default) has tests of its own at the end of the file, with the same
+tolerances.
+
+Tolerances: construct_tree and the query forward must agree exactly, and
+so must the bake's lookup, refresh and skip-box regrowth and
+points_leaf_aabb. The forward march agrees to atol 2e-5: the library is
+built without contracted multiply-adds (a sample position is one
+explicit fused multiply-add, rounded once on both sides), so sample
+positions and descents match the plain version bit for bit, and only the
+last ulps of exp and of the color sums can differ. Gradients and accumulated weights agree to
 ``1e-5 * max(1, max|plain|)``: the kernels add them with float atomics,
 in an order that changes from run to run. So does the voxelize forward
 (its splat is atomic). The warp forward and the warp's point and weight
@@ -27,10 +33,12 @@ import pytest
 import torch
 
 import svox_t_tpu_torch as stt
+from svox_t_tpu_torch.ops import bake as tbake
 from svox_t_tpu_torch.ops import p2v as tp2v
 from svox_t_tpu_torch.ops import query as tquery
 from svox_t_tpu_torch.ops import render as trender
 from svox_t_tpu_torch.ops import render_aux as taux
+from svox_t_tpu_torch.ops import traversal as ttrav
 from svox_t_tpu_torch.ops import warp as twarp
 from svox_t_tpu_torch.utils.scenes import (build_shell_tree, joint_pose_sequence, orbit_camera,
                                            random_lobes, skin_to_nearest_joints)
@@ -112,7 +120,7 @@ def test_construct_tree_kernel_n3_and_entry_point(cuda):
 def test_render_kernel_matches_plain(cuda, fmt, ddim, fast):
     tree, feats, _ = _shell(cuda, fmt=fmt, ddim=ddim, seed=ddim)
     o, d = _rays(cuda, 2048)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     before = trender.RENDER_FWD.launches
     got = r(feats, stt.Rays(o, d, d), fast=fast)
     torch.cuda.synchronize()
@@ -134,7 +142,7 @@ def test_render_kernel_rotation_window_and_options(cuda, fast):
     o, d = _rays(cuda, 1024, seed=1)
     vd = torch.roll(d, 1, dims=1).contiguous()  # view dirs apart from march dirs
     for kw in (dict(), dict(min_comp=2, max_comp=6, background_brightness=0.25, max_steps=37)):
-        r = stt.VolumeRenderer(tree, **kw)
+        r = stt.VolumeRenderer(tree, backend="tree", **kw)
         r.sigma_thresh = 0.5 if fast else 0.0
         got = r(feats, stt.Rays(o, d, vd), rot, fast=fast)
         opt = r._get_options(fast)
@@ -147,7 +155,7 @@ def test_render_kernel_n3_tree_and_empty_pool(cuda):
     feats = torch.randn(M, 13, generator=torch.Generator().manual_seed(4)).to(cuda)
     feats[:, -1] = feats[:, -1].abs() * 20
     o, d = _rays(cuda, 1024, seed=2)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     opt = r._get_options(False)
     got = r(feats, stt.Rays(o, d, d))
     want = trender.volume_render_plain(tree._spec(), feats, o, d, d, opt)
@@ -160,7 +168,7 @@ def test_render_kernel_n3_tree_and_empty_pool(cuda):
 
 def test_render_persp_on_cuda_uses_kernel(cuda):
     tree, feats, _ = _shell(cuda, depth=6)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     before = trender.RENDER_FWD.launches
     img = r.render_persp(feats, orbit_camera(), 64, 48, fx=70.0, fast=True)
     torch.cuda.synchronize()
@@ -184,7 +192,7 @@ def test_render_kernel_sg_asg_matches_plain(cuda, fmt, ddim, fast):
     instances that hold 9 and 25 terms, below their capacity."""
     tree, feats, _ = _shell(cuda, fmt=fmt, ddim=ddim, seed=5)
     o, d = _rays(cuda, 1024, seed=3)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     opt = r._get_options(fast)
     f = feats.clone().requires_grad_()
     got = r(f, stt.Rays(o, d, d), fast=fast)
@@ -205,7 +213,7 @@ def test_backward_kernel_matches_plain(cuda, fmt, ddim, fast):
     out_res."""
     tree, feats, _ = _shell(cuda, fmt=fmt, ddim=ddim, seed=ddim + 1)
     o, d = _rays(cuda, 2048, seed=4)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     opt = r._get_options(fast)
     out = trender.volume_render_cuda(tree._spec(), feats, o, d, d, opt)
     g_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(7)).to(cuda)
@@ -230,7 +238,7 @@ def test_backward_kernel_rotation_window_and_options(cuda):
     o, d = _rays(cuda, 1024, seed=5)
     vd = torch.roll(d, 1, dims=1).contiguous()
     for kw in (dict(), dict(min_comp=2, max_comp=6, background_brightness=0.25, max_steps=37)):
-        r = stt.VolumeRenderer(tree, **kw)
+        r = stt.VolumeRenderer(tree, backend="tree", **kw)
         for fast in (False, True):
             opt = r._get_options(fast)
             spec = tree._spec(rot)
@@ -247,7 +255,7 @@ def test_backward_kernel_rotation_window_and_options(cuda):
 def test_weight_accum_kernel_matches_plain(cuda, fast):
     tree, feats, _ = _shell(cuda, fmt="SH9", ddim=28, seed=10)
     o, d = _rays(cuda, 2048, seed=6)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     opt = r._get_options(fast)
     out, w = trender.volume_render_with_weight_accum_cuda(tree._spec(), feats, o, d, d, opt)
     out_p, w_p = trender.volume_render_with_weight_accum_plain(tree._spec(), feats, o, d, d, opt)
@@ -289,7 +297,7 @@ def test_training_steps_use_the_kernels(cuda):
     """A few Adam steps through render_persp: each backward launches the
     backward kernel once, and the loss falls."""
     tree, feats, centers = _shell(cuda, depth=6, fmt="SH4", ddim=13, seed=12)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     with torch.no_grad():
         target = r.render_persp(feats, orbit_camera(), 64, 64, fx=80.0)
     g = torch.Generator().manual_seed(12)
@@ -310,7 +318,7 @@ def test_training_steps_use_the_kernels(cuda):
 def test_cuda_paths_raise_instead_of_falling_back(cuda):
     tree, feats, _ = _shell(cuda, depth=4)
     o, d = _rays(cuda, 16)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     wide = torch.zeros(feats.shape[0], 18, device=cuda)
     rgba = stt.RenderOptions(format=stt.utils.spec.FORMAT_RGBA, basis_dim=-1)
     with pytest.raises(NotImplementedError, match="16 color channels"):
@@ -348,7 +356,7 @@ def test_opacity_kernels_match_plain(cuda, fast):
     feats = feats.clone()
     feats[:, :-1] *= 100.0
     o, d = _rays(cuda, 2048)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     opt = r._get_options(fast)
     spec = tree._spec()
     f = feats.clone().requires_grad_()
@@ -368,7 +376,7 @@ def test_opacity_kernels_match_plain(cuda, fast):
 def test_first_hit_kernel_matches_plain(cuda, sigma_thresh):
     tree, feats, _ = _shell(cuda, seed=22)
     o, d = _rays(cuda, 2048)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     opt = dataclasses.replace(r._get_options(), sigma_thresh=sigma_thresh)
     spec = tree._spec()
     before = taux.FIRST_HIT.launches
@@ -390,7 +398,7 @@ def test_motion_feature_kernels_match_plain(cuda, kd, nb, fast):
     bones: the forward at ATOL, the VJP at the atomic tolerance."""
     tree, feats, _ = _shell(cuda, seed=23)
     o, d = _rays(cuda, 2048)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     opt = r._get_options(fast)
     jf, sw, ji = _lbs(cuda, feats.shape[0], 7, kd, nb, seed=kd + nb)
     spec = tree._spec(joint_features=jf, skinning_weights=sw, joint_index=ji)
@@ -412,7 +420,7 @@ def test_motion_feature_backward_at_the_shared_table_limit(cuda):
     table fills 48 KB of shared memory."""
     tree, feats, _ = _shell(cuda, seed=25)
     o, d = _rays(cuda, 2048)
-    opt = stt.VolumeRenderer(tree)._get_options()
+    opt = stt.VolumeRenderer(tree, backend="tree")._get_options()
     J = taux.KERNEL_MAX_JOINT_TABLE // 33
     jf, sw, ji = _lbs(cuda, feats.shape[0], J, 32, 4, seed=25)
     spec = tree._spec(joint_features=jf, skinning_weights=sw, joint_index=ji)
@@ -432,7 +440,7 @@ def test_aux_entry_points_use_the_kernels(cuda):
     tree = stt.tree_from_numpy(state, device=cuda)
     o, d = _rays(cuda, 256)
     rays = stt.Rays(o, d, d)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     jf, sw, ji = _lbs(cuda, feats.shape[0], 6, 16, 4, seed=24)
     counts = lambda: (trender.RENDER_FWD.launches, taux.FIRST_HIT.launches, taux.MF_FWD.launches)
     before = counts()
@@ -579,7 +587,7 @@ def test_dynamic_frames_use_the_kernels_and_equal_the_eager_loop(cuda, fast):
     src = np.tile(np.eye(4, dtype=np.float32), (6, 1, 1))
     feats = torch.from_numpy(feats_np).to(cuda)
     tree = stt.tree_from_numpy(state, device=cuda)
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     counters = (twarp.WARP_FWD, tquery.CONSTRUCT_TREE, trender.RENDER_FWD, taux.FIRST_HIT)
     before = [k.launches for k in counters]
     cols, deps = r.render_dynamic_frames(feats, poses, src, centers_np, sw, ji, c2w=orbit_camera(),
@@ -587,7 +595,7 @@ def test_dynamic_frames_use_the_kernels_and_equal_the_eager_loop(cuda, fast):
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(counters, before)] == [3, 3, 3, 3]
     eager = stt.tree_from_numpy(state, device=cuda)
-    re = stt.VolumeRenderer(eager)
+    re = stt.VolumeRenderer(eager, backend="tree")
     o, d = trender.cam2world_rays(torch.as_tensor(orbit_camera(), device=cuda), 64, 48, 70.0, 70.0)
     rays = stt.Rays(o.contiguous(), d.contiguous(), d.contiguous())
     for k in range(3):
@@ -599,3 +607,252 @@ def test_dynamic_frames_use_the_kernels_and_equal_the_eager_loop(cuda, fast):
         assert torch.equal(cols[k], img)
         assert torch.equal(deps[k], re.render_depth(feats, rays, fast=fast).reshape(48, 64, 1))
     assert torch.equal(tree._spec().data_flat, eager._spec().data_flat)
+
+
+# ---------------------------------------------------------------------------
+# The baked backend: K6 lookup, K7 refresh and regrowth, points_leaf_aabb,
+# and the baked instances of the march kernels.
+
+
+def _has_boxes(top):
+    """Whether a top table packs any skip box (a row in the code space)."""
+    code = (top & tbake.ROW_MASK) - tbake.SKIP_BASE
+    return bool(((top >= 0) & (code >= 0) & (code < tbake._SKIP_BITS_SPAN)).any())
+
+
+def _bakes(tree):
+    """The tree's default bake, a three-stage bake (mid_levels=1) and a
+    bake without skip boxes, with a label each."""
+    spec = tree._spec()
+    return [("default", tree._baked_spec()),
+            ("three-stage", tbake.bake(spec, top_levels=1, mid_levels=1)),
+            ("no skip boxes", tbake.bake(spec, top_levels=2, skip_boxes=False))]
+
+
+def _lookup_points(cuda, tree, n, seed):
+    """Leaf centres, random points and points on cell boundaries and
+    outside the cube, in tree space."""
+    g = torch.Generator().manual_seed(seed)
+    R = tree.N ** 3
+    pts = [torch.rand(n, 3, generator=g),
+           torch.randint(0, R + 1, (n, 3), generator=g).float() / R,
+           torch.rand(64, 3, generator=g) * 1.4 - 0.2]
+    return torch.cat(pts).to(cuda).contiguous()
+
+
+@pytest.mark.parametrize("scene", ["shell", "n3"])
+def test_bake_lookup_kernel_matches_plain(cuda, scene):
+    """Row, cube size, fraction and baked cell bit for bit, on two- and
+    three-stage bakes, for N 2 and 3; the rows and fractions are the
+    descent's."""
+    tree = _shell(cuda, depth=5)[0] if scene == "shell" else _occupancy_tree(cuda, seed=6)[0]
+    pts = _lookup_points(cuda, tree, 20000, seed=7)
+    for label, baked in _bakes(tree):
+        before = tbake.LOOKUP.launches
+        got = tbake.lookup(baked, pts)
+        torch.cuda.synchronize()
+        assert tbake.LOOKUP.launches == before + 1, label
+        want = tbake.lookup_plain(baked, pts)
+        for name, g, w in zip(("row", "cube", "frac", "cell"), got, want):
+            assert torch.equal(g, w), (label, name)
+        leaf = ttrav.descend(tree._spec(), pts)
+        occ = (leaf.data_idx >= 0) & (leaf.data_idx < tbake.SKIP_BASE)
+        assert torch.equal(got[0][occ], leaf.data_idx[occ]), label
+        assert bool((got[0][~occ] >= tbake.SKIP_BASE).all()), label
+        assert torch.equal(got[1], leaf.cube_sz) and torch.equal(got[2], leaf.frac), label
+        assert torch.equal(baked.src_map[got[3].long()], leaf.node_flat), label
+
+
+def test_refresh_and_grow_kernels_match_plain(cuda):
+    """After a re-point (a permutation of the leaf centres, some leaves
+    left empty), refresh and the skip-box regrowth equal their plain
+    versions exactly, and the box union follows construct_tree."""
+    tree, feats, centers = _shell(cuda, depth=5, seed=31)
+    for label, baked in _bakes(tree):
+        perm = torch.randperm(len(centers), generator=torch.Generator().manual_seed(31))
+        new_flat = tquery.construct_tree(tree._spec(), centers[perm[: len(perm) // 2].to(cuda)])
+        before = (tbake.REFRESH.launches, tbake.GROW_BOXES.launches)
+        lo, hi = torch.zeros(3, device=cuda), torch.ones(3, device=cuda)
+        got = tbake.refresh(baked, new_flat, lo, hi)
+        grown = tbake.grow_boxes_device(got)
+        torch.cuda.synchronize()
+        assert tbake.REFRESH.launches == before[0] + 1, label
+        assert tbake.GROW_BOXES.launches == before[1] + (1 if baked.skip_base else 0), label
+        want = tbake.refresh_plain(baked, new_flat, lo, hi)
+        for name in ("top", "mid", "brick"):
+            a, b = getattr(got, name), getattr(want, name)
+            assert (a is None and b is None) or torch.equal(a, b), (label, name)
+        if baked.skip_base:
+            assert torch.equal(grown.top, tbake.grow_boxes_plain(want).top), label
+        if label == "default":  # a top grid with empty leaves: boxes regrow
+            assert _has_boxes(grown.top)
+
+
+@pytest.mark.parametrize("world", [True, False])
+def test_points_aabb_kernel_matches_plain(cuda, world):
+    for tree in (_shell(cuda, depth=5)[0], _occupancy_tree(cuda, seed=8)[0]):
+        pts = _lookup_points(cuda, tree, 30000, seed=9)[:-64]
+        p = tree.tree2world(pts).contiguous() if world else pts
+        before = tquery.POINTS_AABB.launches
+        got = tquery.points_leaf_aabb(tree._spec(), p, world)
+        torch.cuda.synchronize()
+        assert tquery.POINTS_AABB.launches == before + 1
+        want = tquery.points_leaf_aabb_plain(tree._spec(), p, world)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        sub = tquery.points_leaf_aabb(tree._spec(), p[:5], world)
+        assert bool((sub[0] >= got[0]).all()) and bool((sub[1] <= got[1]).all())
+        box = (torch.full((3,), 0.3, device=cuda), torch.full((3,), 0.6, device=cuda))
+        u = tquery.points_leaf_aabb(tree._spec(), p[:5], world, union=box)
+        u_p = tquery.points_leaf_aabb_plain(tree._spec(), p[:5], world, union=box)
+        assert torch.equal(u[0], u_p[0]) and torch.equal(u[1], u_p[1])
+        assert torch.equal(u[0], torch.minimum(sub[0], box[0]))
+
+
+@pytest.mark.parametrize("fmt,ddim", [("RGBA", 4), ("SH9", 28), ("SG9", 28)])
+@pytest.mark.parametrize("fast", [False, True])
+def test_baked_render_kernels_match_plain(cuda, fmt, ddim, fast):
+    """The default renderer launches the baked forward and backward
+    instances; forward, gradient and weights against the plain march on
+    the same bake, on all three bakes."""
+    tree, feats, _ = _shell(cuda, fmt=fmt, ddim=ddim, seed=32)
+    o, d = _rays(cuda, 2048, seed=32)
+    r = stt.VolumeRenderer(tree)
+    opt = r._get_options(fast)
+    before = (trender.RENDER_FWD_BAKED.launches, trender.RENDER_BWD_BAKED.launches)
+    f = feats.clone().requires_grad_()
+    out = r(f, stt.Rays(o, d, d), fast=fast)
+    g_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(32)).to(cuda)
+    (g,) = torch.autograd.grad((out * g_out).sum(), f)
+    torch.cuda.synchronize()
+    assert (trender.RENDER_FWD_BAKED.launches, trender.RENDER_BWD_BAKED.launches) == (
+        before[0] + 1, before[1] + 1)
+    for label, baked in _bakes(tree):
+        got = trender.volume_render_cuda(baked, feats, o, d, d, opt)
+        want = trender.volume_render_plain(baked, feats, o, d, d, opt)
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=0, msg=label)
+        gk = trender.volume_render_backward_cuda(baked, feats, o, d, d, g_out, opt, out_res=got)
+        gp = trender.volume_render_backward_plain(baked, feats, o, d, d, g_out, opt, out_res=want)
+        _assert_atomic_close(gk, gp)
+        ok, wk = trender.volume_render_with_weight_accum_cuda(baked, feats, o, d, d, opt)
+        op, wp = trender.volume_render_with_weight_accum_plain(baked, feats, o, d, d, opt)
+        torch.testing.assert_close(ok, op, atol=ATOL, rtol=0, msg=label)
+        _assert_atomic_close(wk, wp)
+    assert float(g.abs().max()) > 0
+
+
+@pytest.mark.parametrize("scene", ["shell", "n3"])
+def test_baked_kernels_equal_tree_kernels_in_exact_mode(cuda, scene):
+    """Exact mode: the baked instances give the tree walk's outputs bit
+    for bit (colors, alpha, depths), for N 2 and 3 and a three-stage
+    bake."""
+    if scene == "shell":
+        tree, feats, _ = _shell(cuda, depth=6, fmt="SH4", ddim=13, seed=33)
+    else:
+        tree, M, _ = _occupancy_tree(cuda, seed=33)
+        feats = torch.randn(M, 13, generator=torch.Generator().manual_seed(33)).to(cuda)
+        feats[:, -1] = feats[:, -1].abs() * 20
+    o, d = _rays(cuda, 4096, seed=33)
+    opt = stt.VolumeRenderer(tree)._get_options(False)
+    want = trender.volume_render_cuda(tree._spec(), feats, o, d, d, opt)
+    want_depth = taux.render_depth(tree._spec(), feats, o, d, opt)
+    for label, baked in _bakes(tree):
+        assert torch.equal(trender.volume_render_cuda(baked, feats, o, d, d, opt), want), label
+        assert torch.equal(taux.render_depth(baked, feats, o, d, opt), want_depth), label
+    assert float(want[:, -1].max()) > 0.5
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_baked_aux_kernels_match_plain(cuda, fast):
+    """The aux instances on the bake: opacity VJP, first hit, and the
+    motion-feature forward and VJP, each launched once through the
+    renderer and held against its plain version."""
+    tree, feats, _ = _shell(cuda, seed=34)
+    o, d = _rays(cuda, 2048, seed=34)
+    rays = stt.Rays(o, d, d)
+    r = stt.VolumeRenderer(tree)
+    opt = r._get_options(fast)
+    jf, sw, ji = _lbs(cuda, feats.shape[0], 7, 16, 4, seed=34)
+    counts = lambda: (taux.OPACITY_BWD_BAKED.launches, taux.FIRST_HIT_BAKED.launches,  # noqa: E731
+                      taux.MF_FWD_BAKED.launches, taux.MF_BWD_BAKED.launches)
+    before = counts()
+    f = feats.clone().requires_grad_()
+    alpha = r.opacity_render(f, rays, fast=fast)
+    g = torch.randn(alpha.shape, generator=torch.Generator().manual_seed(34)).to(cuda)
+    (gf,) = torch.autograd.grad((alpha * g).sum(), f)
+    depth = r.render_depth(feats, rays, fast=fast)
+    x = jf.clone().requires_grad_()
+    mf = r.motion_feature_render(feats, x, sw, ji, rays, fast=fast)
+    gm = torch.randn(mf.shape, generator=torch.Generator().manual_seed(35)).to(cuda)
+    (gx,) = torch.autograd.grad((mf * gm).sum(), x)
+    torch.cuda.synchronize()
+    assert counts() == tuple(b + 1 for b in before)
+    spec = tree._baked_spec(skinning_weights=sw, joint_index=ji)
+    _assert_atomic_close(gf, taux.opacity_backward_plain(spec, feats, o, d, g, opt,
+                                                         out_res=alpha.detach()))
+    hit = taux.first_hit(spec, feats, o, d, opt)
+    want_hit = taux.first_hit_plain(spec, feats, o, d, opt)
+    for name, a, b in zip(("found", "t_hit", "row"), hit[:3], want_hit[:3]):
+        assert torch.equal(a, b), name
+    torch.testing.assert_close(hit[3], want_hit[3], atol=ATOL, rtol=0)
+    assert torch.equal(depth, taux.render_depth(spec, feats, o, d, opt))
+    torch.testing.assert_close(mf.detach(), taux.motion_feature_render_plain(spec, jf, feats, o, d, opt),
+                               atol=ATOL, rtol=0)
+    _assert_atomic_close(gx, taux.motion_feature_backward_plain(spec, jf, feats, o, d, gm, opt))
+    assert float(gf.abs().max()) > 0 and float(gx.abs().max()) > 0
+
+
+@pytest.mark.parametrize("fast", [False, True])
+def test_baked_dynamic_frames_use_the_kernels_and_equal_the_eager_loop(cuda, fast):
+    """render_dynamic_frames on the default backend: per frame one
+    points_leaf_aabb and one refresh (and in fast mode one skip-box
+    regrowth, the depth-5 shell bakes with boxes), and the images, the
+    table and the bake's box of the eager loop."""
+    state, feats_np, centers_np = build_shell_tree(depth=5, data_format="SH4", data_dim=13, seed=5)
+    joints = np.random.RandomState(5).uniform(0.3, 0.7, (6, 3)).astype(np.float32)
+    sw, ji = skin_to_nearest_joints(centers_np, joints, 4)
+    poses = joint_pose_sequence(joints, 3, seed=5)
+    src = np.tile(np.eye(4, dtype=np.float32), (6, 1, 1))
+    feats = torch.from_numpy(feats_np).to(cuda)
+    tree = stt.tree_from_numpy(state, device=cuda)
+    r = stt.VolumeRenderer(tree)
+    assert tree._baked_spec().skip_base
+    counters = (tquery.POINTS_AABB, tbake.REFRESH, tbake.GROW_BOXES, trender.RENDER_FWD_BAKED)
+    before = [k.launches for k in counters]
+    cols = r.render_dynamic_frames(feats, poses, src, centers_np, sw, ji, c2w=orbit_camera(),
+                                   width=64, height=48, fx=70.0, fast=fast)
+    torch.cuda.synchronize()
+    grows = 3 + 1 if fast else 1  # the tree adopts the last table: one more regrowth
+    assert [k.launches - b for k, b in zip(counters, before)] == [3, 4, grows, 3]
+    eager = stt.tree_from_numpy(state, device=cuda)
+    re = stt.VolumeRenderer(eager)
+    eager._baked_spec()
+    o, d = trender.cam2world_rays(torch.as_tensor(orbit_camera(), device=cuda), 64, 48, 70.0, 70.0)
+    rays = stt.Rays(o.contiguous(), d.contiguous(), d.contiguous())
+    for k in range(3):
+        tk = stt.get_transformation_matrix(torch.from_numpy(src).to(cuda), torch.from_numpy(poses[k]).to(cuda))
+        warped, mats = stt.warp_vertices(tk, torch.from_numpy(centers_np).to(cuda),
+                                         torch.from_numpy(sw).to(cuda), torch.from_numpy(ji).to(cuda))
+        eager.construct_tree(warped)
+        img = re(feats, rays, transformation_matrices=mats, fast=fast).reshape(48, 64, -1)
+        assert torch.equal(cols[k], img)
+    assert torch.equal(tree._spec().data_flat, eager._spec().data_flat)
+    for name in ("aabb_lo", "aabb_hi", "top"):
+        assert torch.equal(getattr(tree._baked_spec(), name), getattr(eager._baked_spec(), name))
+
+
+def test_bake_wrappers_raise_on_cpu_tensors(cuda):
+    """The bake's kernel wrappers launch or raise; given CPU tensors they
+    raise instead of running the plain version."""
+    tree, _, centers = _shell(cuda, depth=4)
+    baked = tree._baked_spec()
+    cpu_baked = tbake.bake(stt.tree_from_numpy(stt.tree_state(tree), device="cpu")._spec())
+    with pytest.raises(ValueError, match="CUDA"):
+        tbake.lookup_cuda(baked, centers.cpu())
+    with pytest.raises(ValueError, match="CUDA"):
+        tbake.lookup_cuda(cpu_baked, centers.cpu().cuda())
+    with pytest.raises(ValueError, match="CUDA"):
+        tbake.refresh_cuda(cpu_baked, cpu_baked.src_map.new_zeros(cpu_baked.n_tree_cells))
+    with pytest.raises(ValueError, match="CUDA"):
+        tbake.grow_boxes_cuda(cpu_baked)
+    with pytest.raises(ValueError, match="on cpu"):
+        tquery.points_leaf_aabb_cuda(tree._spec(), centers.cpu())

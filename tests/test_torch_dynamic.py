@@ -185,7 +185,7 @@ def test_dynamic_matches_jax_and_carries_the_table(scene, jax_out):
     s = scene
     tree = s.port_tree()
     table0 = tree._spec().data_flat.clone()
-    out = stt.VolumeRenderer(tree).render_dynamic_frames(_t(s.rgba), *s.lbs(), rays=s.port_rays())
+    out = stt.VolumeRenderer(tree, backend="tree").render_dynamic_frames(_t(s.rgba), *s.lbs(), rays=s.port_rays())
     assert out.shape == (T_FRAMES, 48, 4)
     np.testing.assert_allclose(out.detach().numpy(), jax_out["shared"], atol=ATOL)
     assert (out[..., 3] > 0.5).any() and (out[..., 3] == 0).any()
@@ -206,9 +206,9 @@ def test_dynamic_equals_the_eager_loop(scene):
     warp_vertices -> construct_tree -> forward with the blended mats."""
     s = scene
     tree = s.port_tree("SH4")
-    fused = stt.VolumeRenderer(tree).render_dynamic_frames(_t(s.sh4), *s.lbs(), rays=s.port_rays())
+    fused = stt.VolumeRenderer(tree, backend="tree").render_dynamic_frames(_t(s.sh4), *s.lbs(), rays=s.port_rays())
     eager_tree = s.port_tree("SH4")
-    r = stt.VolumeRenderer(eager_tree)
+    r = stt.VolumeRenderer(eager_tree, backend="tree")
     for k in range(T_FRAMES):
         tk = stt.get_transformation_matrix(_t(s.src), _t(s.poses[k]))
         warped, mats = stt.warp_vertices(tk, _t(s.pts), _t(s.sw), _t(s.ji))
@@ -221,7 +221,7 @@ def test_dynamic_per_frame_features_with_depth_and_no_update(scene, jax_out):
     s = scene
     tree = s.port_tree()
     before = tree.data.copy()
-    cols, deps = stt.VolumeRenderer(tree).render_dynamic_frames(
+    cols, deps = stt.VolumeRenderer(tree, backend="tree").render_dynamic_frames(
         _t(s.stack), *s.lbs(), rays=s.port_rays(), update_tree=False, with_depth=True)
     np.testing.assert_array_equal(tree.data, before)
     assert deps.shape == (T_FRAMES, 48, 1)
@@ -235,7 +235,7 @@ def test_dynamic_viewdir_rotation(scene, jax_out, rot):
     """SH4 (degree-1) colours turn with the blended matrices; without the rotation
     they do not."""
     s = scene
-    out = stt.VolumeRenderer(s.port_tree("SH4")).render_dynamic_frames(
+    out = stt.VolumeRenderer(s.port_tree("SH4"), backend="tree").render_dynamic_frames(
         _t(s.sh4), *s.lbs(), rays=s.port_rays(), viewdir_rotation=rot, update_tree=False)
     np.testing.assert_allclose(out.numpy(), jax_out[f"sh4_rot{rot}"], atol=ATOL)
     assert np.abs(jax_out["sh4_rotTrue"] - jax_out["sh4_rotFalse"]).max() > 1e-3
@@ -245,7 +245,7 @@ def test_dynamic_viewdir_rotation(scene, jax_out, rot):
 def test_dynamic_cameras(scene, jax_out, cam):
     s = scene
     c2w = s.c2w if cam == "fixed" else s.path
-    out = stt.VolumeRenderer(s.port_tree()).render_dynamic_frames(
+    out = stt.VolumeRenderer(s.port_tree(), backend="tree").render_dynamic_frames(
         _t(s.rgba), *s.lbs(), c2w=c2w, width=W, height=H, fx=FX, update_tree=False)
     assert out.shape == (T_FRAMES, H, W, 4)
     np.testing.assert_allclose(out.numpy(), jax_out[f"cam_{cam}"], atol=IMG_ATOL)
@@ -255,7 +255,7 @@ def test_dynamic_cameras(scene, jax_out, cam):
 @pytest.mark.parametrize("schedule", ["cost", "union"])
 def test_dynamic_schedules_render_the_same_images(scene, schedule):
     s = scene
-    r = stt.VolumeRenderer(s.port_tree())
+    r = stt.VolumeRenderer(s.port_tree(), backend="tree")
     kw = dict(c2w=s.c2w, width=W, height=H, fx=FX, update_tree=False)
     base = r.render_dynamic_frames(_t(s.rgba), *s.lbs(), **kw)
     other = r.render_dynamic_frames(_t(s.rgba), *s.lbs(), schedule=schedule, **kw)
@@ -265,7 +265,7 @@ def test_dynamic_schedules_render_the_same_images(scene, schedule):
 @pytest.mark.parametrize("schedule", ["cost", "union", "bogus"])
 def test_dynamic_raw_rays_take_only_tile(scene, schedule):
     s = scene
-    r = stt.VolumeRenderer(s.port_tree())
+    r = stt.VolumeRenderer(s.port_tree(), backend="tree")
     with pytest.raises(ValueError, match="schedule"):
         r.render_dynamic_frames(_t(s.rgba), *s.lbs(), rays=s.port_rays(), schedule=schedule)
 
@@ -273,7 +273,7 @@ def test_dynamic_raw_rays_take_only_tile(scene, schedule):
 def test_dynamic_argument_errors(scene):
     s = scene
     tree = s.port_tree()
-    r = stt.VolumeRenderer(tree)
+    r = stt.VolumeRenderer(tree, backend="tree")
     with pytest.raises(ValueError, match="exactly one"):
         r.render_dynamic_frames(_t(s.rgba), *s.lbs())
     with pytest.raises(ValueError, match="exactly one"):
@@ -291,7 +291,7 @@ def test_dynamic_argument_errors(scene):
 def test_dynamic_feature_grads_match_jax(scene, jax_out, which):
     s = scene
     f = _t(s.sh4 if which == "shared" else s.sh_stack).requires_grad_()
-    out = stt.VolumeRenderer(s.port_tree("SH4")).render_dynamic_frames(
+    out = stt.VolumeRenderer(s.port_tree("SH4"), backend="tree").render_dynamic_frames(
         f, *s.lbs(), rays=s.port_rays(), update_tree=False)
     (out[..., :4] * _t(s.G)).sum().backward()
     want = jax_out[f"grad_{which}"]
@@ -303,7 +303,7 @@ def test_dynamic_feature_grads_match_jax(scene, jax_out, which):
 @pytest.mark.parametrize("tm", [False, True])
 def test_render_frames_matches_jax(scene, jax_out, tm):
     s = scene
-    r = stt.VolumeRenderer(s.port_tree("SH4", pointed=True))
+    r = stt.VolumeRenderer(s.port_tree("SH4", pointed=True), backend="tree")
     out = r.render_frames(_t(s.sh_stack), s.port_rays(), _t(s.tms) if tm else None)
     np.testing.assert_allclose(out.numpy(), jax_out[f"frames_tm{tm}"], atol=ATOL)
     assert (out[..., 3] > 0.5).any()
@@ -314,7 +314,7 @@ def test_render_frames_matches_jax(scene, jax_out, tm):
 
 def test_render_frames_grads_equal_per_frame(scene):
     s = scene
-    r = stt.VolumeRenderer(s.port_tree("SH4", pointed=True))
+    r = stt.VolumeRenderer(s.port_tree("SH4", pointed=True), backend="tree")
     stack = _t(s.sh_stack).requires_grad_()
     (r.render_frames(stack, s.port_rays()) ** 2).sum().backward()
     for k in range(T_FRAMES):
@@ -326,7 +326,7 @@ def test_render_frames_grads_equal_per_frame(scene):
 @pytest.mark.parametrize("cam", ["fixed", "path_tm"])
 def test_render_persp_frames_matches_jax(scene, jax_out, cam):
     s = scene
-    r = stt.VolumeRenderer(s.port_tree("SH4", pointed=True))
+    r = stt.VolumeRenderer(s.port_tree("SH4", pointed=True), backend="tree")
     if cam == "fixed":
         out = r.render_persp_frames(_t(s.sh_stack), s.c2w, W, H, FX)
         want = jax_out["persp_fixed"]

@@ -14,8 +14,9 @@ scenes, the JAX package's own sample-at-a-time oracle and its production
 march already differ by up to 1.7e-5 (the jitted ray setup rounds
 1/|d| differently from IEEE division), and the goldens carry the
 production march's rounding; the port's IEEE arithmetic lands within
-2.3e-5 of them. On the JAX package's own camera rays the port's march is
-within 8.3e-6 of the oracle, and that is held at ATOL.
+2.3e-5 of them. On the JAX package's own camera rays each ray of the
+port's march is within ATOL of the nearer of the oracle and the
+production march (see test_golden_scenes_march_matches_jax_oracle).
 """
 
 import collections
@@ -72,7 +73,7 @@ def _compare(got, want, stop_thresh=0.0):
 def test_forward_matches_jax(fmt, ddim, fast):
     rng, jt, pt, feats, rays = _scene(1 + ddim, fmt, ddim)
     want = st.VolumeRenderer(jt, backend="tree")(jnp.asarray(feats), rays, fast=fast)
-    got = stt.VolumeRenderer(pt)(_t(feats), _trays(rays), fast=fast)
+    got = stt.VolumeRenderer(pt, backend="tree")(_t(feats), _trays(rays), fast=fast)
     _compare(got, want, 1e-2 if fast else 0.0)
     assert np.asarray(want)[:, -1].max() > 0.5  # rays really composite
 
@@ -85,9 +86,9 @@ def test_forward_matrices_match_jax(fast):
     rot = np.tile(np.eye(4, dtype=np.float32), (M, 1, 1))
     rot[:, :3, :3] = np.linalg.qr(q)[0]
     want = st.VolumeRenderer(jt, backend="tree")(jnp.asarray(feats), rays, jnp.asarray(rot), fast=fast)
-    got = stt.VolumeRenderer(pt)(_t(feats), _trays(rays), _t(rot), fast=fast)
+    got = stt.VolumeRenderer(pt, backend="tree")(_t(feats), _trays(rays), _t(rot), fast=fast)
     _compare(got, want, 1e-2 if fast else 0.0)
-    plain = stt.VolumeRenderer(pt)(_t(feats), _trays(rays), fast=fast)
+    plain = stt.VolumeRenderer(pt, backend="tree")(_t(feats), _trays(rays), fast=fast)
     assert np.abs(got.numpy() - plain.numpy()).max() > 1e-3  # the rotation matters
 
 
@@ -97,9 +98,9 @@ def test_forward_window_background_max_steps_match_jax():
     rng, jt, pt, feats, rays = _scene(3, "SH9", 28)
     kw = dict(min_comp=1, max_comp=5, background_brightness=0.3, max_steps=37)
     want = st.VolumeRenderer(jt, backend="tree", **kw)(jnp.asarray(feats), rays)
-    got = stt.VolumeRenderer(pt, **kw)(_t(feats), _trays(rays))
+    got = stt.VolumeRenderer(pt, **kw, backend="tree")(_t(feats), _trays(rays))
     _compare(got, want)
-    full = stt.VolumeRenderer(pt)(_t(feats), _trays(rays))
+    full = stt.VolumeRenderer(pt, backend="tree")(_t(feats), _trays(rays))
     assert np.abs(got.numpy() - full.numpy()).max() > 1e-3
 
 
@@ -113,13 +114,13 @@ def test_forward_sg_asg_plain_match_jax(fmt, width):
     pt = stt.tree_from_numpy(stt.tree_state(jt), device="cpu")
     rays = make_rays(rng, 100)
     want = st.VolumeRenderer(jt, backend="tree")(feats, rays)
-    got = stt.VolumeRenderer(pt)(_t(feats), _trays(rays))
+    got = stt.VolumeRenderer(pt, backend="tree")(_t(feats), _trays(rays))
     _compare(got, want)
 
 
 def test_forward_misses_and_empty_pool_match_jax():
     rng, jt, pt, feats, rays = _scene(5, "SH4", 13, toward_center=False)
-    jr, tr = st.VolumeRenderer(jt, backend="tree"), stt.VolumeRenderer(pt)
+    jr, tr = st.VolumeRenderer(jt, backend="tree"), stt.VolumeRenderer(pt, backend="tree")
     want = np.asarray(jr(jnp.asarray(feats), rays))
     got = tr(_t(feats), _trays(rays)).numpy()
     _compare(got, want)
@@ -138,7 +139,7 @@ def test_forward_n3_tree_matches_oracle():
     rng, jt, pt, feats, rays = _scene(6, "SH4", 13, N=3)
     opt = st.VolumeRenderer(jt, backend="tree")._get_options(False)
     want = volume_render_oracle(jt._spec(), jnp.asarray(feats), rays.origins, rays.dirs, rays.viewdirs, opt)
-    got = stt.VolumeRenderer(pt)(_t(feats), _trays(rays))
+    got = stt.VolumeRenderer(pt, backend="tree")(_t(feats), _trays(rays))
     _compare(got, want)
 
 
@@ -172,7 +173,7 @@ def test_ndc_render_matches_jax():
     c2w = np.eye(4, dtype=np.float32)
     c2w[:3, 3] = [0.5, 0.5, 0.2]
     jr = st.VolumeRenderer(jt, backend="tree", ndc=ndc)
-    tr = stt.VolumeRenderer(pt, ndc=stt.NDCConfig(*ndc))
+    tr = stt.VolumeRenderer(pt, ndc=stt.NDCConfig(*ndc), backend="tree")
     opt = jr._get_options(False)
     o, d = jrender.cam2world_rays(jnp.asarray(c2w), 12, 12, 12.0, 12.0)
     nd, no = jrender.world2ndc(opt, d, o)
@@ -191,7 +192,7 @@ def test_render_persp_matches_jax_and_forward():
     c2w = orbit_camera(0.2, 0.5, 2.0)
     want = np.asarray(st.VolumeRenderer(jt, backend="tree").render_persp(
         jnp.asarray(feats), c2w, 20, 16, fx=24.0, fast=True))
-    tr = stt.VolumeRenderer(pt)
+    tr = stt.VolumeRenderer(pt, backend="tree")
     got = tr.render_persp(_t(feats), c2w, 20, 16, fx=24.0, fast=True).numpy()
     assert got.shape == (16, 20, 4)
     # Each package generates its rays in its own program (see the module
@@ -220,15 +221,32 @@ def test_golden_images_through_port(name, depth, fmt, ddim, size):
 
 @pytest.mark.parametrize("depth,fmt,ddim,size", [(3, "RGBA", 4, 100), (7, "SH9", 28, 96)])
 def test_golden_scenes_march_matches_jax_oracle(depth, fmt, ddim, size):
-    """On the golden scenes and the JAX package's own camera rays, the
-    port's march holds ATOL against the JAX sample-at-a-time oracle."""
+    """On the golden scenes and the JAX package's own camera rays, every
+    ray of the port's march holds ATOL against the nearer of the JAX
+    package's two marches: its sample-at-a-time oracle and its production
+    march, which themselves disagree beyond ATOL on at most one ray of
+    each scene.
+
+    The two JAX marches round differently: the production march forms L
+    as a per-round cumulative product (up to 1.68e-5 from the oracle on
+    the SH9 scene), and XLA contracts its sample position ``o + t * d``
+    into one fused multiply-add where the oracle rounds the product and
+    the sum apart (1.04e-5 on the RGBA scene). The port multiplies L per
+    sample, as the oracle does, and rounds its sample position once, as
+    the production march does (`ops/render.py` `sample_position`): the
+    baked backend's fast mode starts rays on the occupied box's faces,
+    where that rounding picks the cell."""
     jt, jf = jscenes.build_shell_tree(depth=depth, data_format=fmt, data_dim=ddim)
     pt = stt.tree_from_numpy(stt.tree_state(jt), device="cpu")
     o, d = jrender.cam2world_rays(jnp.asarray(orbit_camera()), size, size, float(size), float(size))
     opt = st.VolumeRenderer(jt, backend="tree")._get_options(False)
-    want = volume_render_oracle(jt._spec(), jf, o, d, d, opt)
-    got = trender.volume_render(pt._spec(), _t(jf), _t(o), _t(d), _t(d), stt.VolumeRenderer(pt)._get_options(False))
-    _compare(got, want)
+    oracle = np.asarray(volume_render_oracle(jt._spec(), jf, o, d, d, opt))
+    prod = np.asarray(jrender.volume_render(jt._spec(), jf, o, d, d, opt))
+    assert (np.abs(prod - oracle).max(axis=1) > ATOL).sum() <= 1
+    got = trender.volume_render(pt._spec(), _t(jf), _t(o), _t(d), _t(d),
+                                stt.VolumeRenderer(pt, backend="tree")._get_options(False)).numpy()
+    nearer_oracle = np.abs(got - oracle).max(axis=1) <= np.abs(got - prod).max(axis=1)
+    _compare(got, np.where(nearer_oracle[:, None], oracle, prod))
 
 
 def test_requires_grad_flows():
@@ -236,7 +254,7 @@ def test_requires_grad_flows():
     and render_persp, and no_grad renders stay detached."""
     rng, jt, pt, feats, rays = _scene(9)
     f = _t(feats).requires_grad_()
-    r = stt.VolumeRenderer(pt)
+    r = stt.VolumeRenderer(pt, backend="tree")
     out = r(f, _trays(rays))
     assert out.requires_grad and out.grad_fn is not None
     (g,) = torch.autograd.grad(out.sum(), f)
@@ -251,11 +269,9 @@ def test_requires_grad_flows():
 
 def test_unported_options_raise():
     rng, jt, pt, feats, rays = _scene(10)
-    with pytest.raises(NotImplementedError, match="K6/K7"):
-        stt.VolumeRenderer(pt, backend="baked")
     with pytest.raises(NotImplementedError, match="K4"):
-        stt.VolumeRenderer(pt, interp="trilinear")
-    r = stt.VolumeRenderer(pt)
+        stt.VolumeRenderer(pt, interp="trilinear", backend="tree")
+    r = stt.VolumeRenderer(pt, backend="tree")
     Quantized = collections.namedtuple("QuantizedFeatures", ["q", "scale", "zero"])
     qf = Quantized(torch.zeros(len(feats), 4, dtype=torch.int8), torch.ones(4), torch.zeros(4))
     with pytest.raises(NotImplementedError, match="K5"):
@@ -273,7 +289,7 @@ def test_kernel_wrapper_rejects_cpu_and_wide_colors():
     and more than 16 color channels (here an RGBA pool of 18 columns) are
     past what the kernels hold in registers."""
     rng, jt, pt, feats, rays = _scene(11, "SH4", 13)
-    opt = stt.VolumeRenderer(pt)._get_options(False)
+    opt = stt.VolumeRenderer(pt, backend="tree")._get_options(False)
     trays = [_t(r) for r in rays]
     with pytest.raises(ValueError, match="CUDA"):
         trender.volume_render_cuda(pt._spec(), _t(feats), *trays, opt)

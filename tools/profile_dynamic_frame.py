@@ -3,7 +3,8 @@
     python3 tools/profile_dynamic_frame.py
 
 Drives `VolumeRenderer.render_dynamic_frames` as `chip_smoke.py`'s
-dynamic phases do, in three cases:
+dynamic phases do, in three cases, each on the default baked backend and
+on the tree walk (`backend="tree"`):
 
   * deep serving: the depth-9 SH9 shell, its leaf centres skinned to a
     seeded 32-joint rig (4 nearest joints), three poses, 800x800, exact,
@@ -11,7 +12,10 @@ dynamic phases do, in three cases:
   * deep training: one step on a two-frame pool stack (render, image
     MSE, `backward()`, Adam);
   * bench.py's dynamic configuration: 20,000 points on a depth-5 RGBA
-    tree, four frames, 800x800.
+    tree, four frames, 800x800, exact and fast.
+
+Then, for deep serving and bench.py's configuration, exact and fast,
+PAIRS alternating pairs of one call per backend, host clock only.
 
 For each it prints, with the card's name and power limit, the host ms
 per synchronized call (CALLS calls after a warm-up, and their median),
@@ -44,6 +48,7 @@ from svox_t_tpu_torch.utils.scenes import (bench_dynamic_cloud, build_shell_tree
 CALLS = 5
 ACTIVE = 3
 TOP = 14
+PAIRS = 10
 
 
 def profile(name: str, fn, frames: int, card: str) -> None:
@@ -81,6 +86,31 @@ def profile(name: str, fn, frames: int, card: str) -> None:
         print(f"  {ms:8.4f} ms/call {ms / busy:7.2%}  {kname[:100]}")
 
 
+def alternating_pairs(name: str, calls: dict, frames: int, card: str) -> None:
+    """PAIRS pairs of one synchronized call per backend (``calls`` maps
+    "baked" and "tree" to a call of ``frames`` frames), alternating which
+    runs first, after a warm-up call each: host ms per frame."""
+    def timed(fn):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / frames
+
+    for fn in calls.values():
+        timed(fn)
+    per_frame = {b: [] for b in calls}
+    for i in range(PAIRS):
+        for b in (("baked", "tree") if i % 2 == 0 else ("tree", "baked")):
+            per_frame[b].append(timed(calls[b]))
+    wins = sum(a < t for a, t in zip(per_frame["baked"], per_frame["tree"]))
+    stats = {b: (statistics.median(v), *statistics.quantiles(v, n=4)[::2])
+             for b, v in per_frame.items()}
+    print(f"{name}, {PAIRS} alternating pairs, ms per frame (median, quartiles): " + ", ".join(
+        f"{b} {m:.4f} ({q1:.4f}-{q3:.4f})" for b, (m, q1, q3) in stats.items())
+        + f"; the bake faster in {wins} of {PAIRS} [{card}]")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_dynamic_frame.py needs a CUDA GPU; none is available")
@@ -101,48 +131,75 @@ def main() -> None:
     feats = torch.from_numpy(feats_np).to(dev)
     c2w = orbit_camera()
     cam = dict(c2w=c2w, width=chip_smoke.WIDTH, height=chip_smoke.HEIGHT, fx=chip_smoke.FX)
-    r = stt.VolumeRenderer(stt.tree_from_numpy(state, device=dev))
-
-    def serve():
-        with torch.no_grad():
-            r.render_dynamic_frames(feats, poses, src, centers, sw, ji, update_tree=False,
-                                    with_depth=True, **cam)
-
-    profile("deep serving (3 frames, exact, rotations, depth)", serve, chip_smoke.N_FRAMES, card)
-
     T = chip_smoke.DYN_TRAIN_FRAMES
-    stack = torch.stack([chip_smoke.seeded_pool(rng, M, 28, dev) for _ in range(T)])
-    with torch.no_grad():
-        targets = r.render_dynamic_frames(
-            torch.stack([chip_smoke.seeded_pool(rng, M, 28, dev) for _ in range(T)]),
-            poses[:T], src, centers, sw, ji, update_tree=False, **cam)
-    stack.requires_grad_()
-    adam = torch.optim.Adam([stack], lr=chip_smoke.LR)
-
-    def train_step():
-        adam.zero_grad(set_to_none=True)
-        out = r.render_dynamic_frames(stack, poses[:T], src, centers, sw, ji, update_tree=False,
-                                      **cam)
-        ((out - targets) ** 2).mean().backward()
-        adam.step()
-
-    profile(f"deep training step ({T} frames)", train_step, T, card)
-
+    stack0 = torch.stack([chip_smoke.seeded_pool(rng, M, 28, dev) for _ in range(T)])
+    true_stack = torch.stack([chip_smoke.seeded_pool(rng, M, 28, dev) for _ in range(T)])
     bd = bench_dynamic_cloud()
-    bench_tree = stt.N3Tree(N=2, data_dim=4, depth_limit=6, device=dev)
-    bench_tree.refine(repeats=5)
-    bench_tree.construct_tree(bd["points"])
-    br = stt.VolumeRenderer(bench_tree)
     bargs = [torch.from_numpy(bd[k]).to(dev)
              for k in ("features", "poses", "src_pose", "points", "skinning_weights", "joint_index")]
 
-    def bench():
-        with torch.no_grad():
-            br.render_dynamic_frames(*bargs, c2w=c2w, width=chip_smoke.WIDTH,
-                                     height=chip_smoke.HEIGHT, fx=chip_smoke.BENCH_FX,
-                                     update_tree=False)
+    for backend in ("baked", "tree"):
+        r = stt.VolumeRenderer(stt.tree_from_numpy(state, device=dev), backend=backend)
 
-    profile("bench.py dynamic (4 frames, exact)", bench, bargs[1].shape[0], card)
+        def serve():
+            with torch.no_grad():
+                r.render_dynamic_frames(feats, poses, src, centers, sw, ji, update_tree=False,
+                                        with_depth=True, **cam)
+
+        profile(f"deep serving ({backend}; 3 frames, exact, rotations, depth)", serve,
+                chip_smoke.N_FRAMES, card)
+
+        stack = stack0.clone().requires_grad_()
+        with torch.no_grad():
+            targets = r.render_dynamic_frames(true_stack, poses[:T], src, centers, sw, ji,
+                                              update_tree=False, **cam)
+        adam = torch.optim.Adam([stack], lr=chip_smoke.LR)
+
+        def train_step():
+            adam.zero_grad(set_to_none=True)
+            out = r.render_dynamic_frames(stack, poses[:T], src, centers, sw, ji,
+                                          update_tree=False, **cam)
+            ((out - targets) ** 2).mean().backward()
+            adam.step()
+
+        profile(f"deep training step ({backend}; {T} frames)", train_step, T, card)
+
+        bench_tree = stt.N3Tree(N=2, data_dim=4, depth_limit=6, device=dev)
+        bench_tree.refine(repeats=5)
+        bench_tree.construct_tree(bd["points"])
+        br = stt.VolumeRenderer(bench_tree, backend=backend)
+        for fast in (False, True):
+
+            def bench():
+                with torch.no_grad():
+                    br.render_dynamic_frames(*bargs, c2w=c2w, width=chip_smoke.WIDTH,
+                                             height=chip_smoke.HEIGHT, fx=chip_smoke.BENCH_FX,
+                                             update_tree=False, fast=fast)
+
+            profile(f"bench.py dynamic ({backend}; 4 frames, {'fast' if fast else 'exact'})",
+                    bench, bargs[1].shape[0], card)
+
+    # Host-clock frame times spread between calls and machines more than
+    # the backends differ: alternating pairs of calls settle their order.
+    deep = {b: stt.VolumeRenderer(stt.tree_from_numpy(state, device=dev), backend=b)
+            for b in ("baked", "tree")}
+    bench_r = {}
+    for backend in ("baked", "tree"):
+        t = stt.N3Tree(N=2, data_dim=4, depth_limit=6, device=dev)
+        t.refine(repeats=5)
+        t.construct_tree(bd["points"])
+        bench_r[backend] = stt.VolumeRenderer(t, backend=backend)
+    for fast in (False, True):
+        mode = "fast" if fast else "exact"
+        alternating_pairs(f"deep serving, {mode}", {
+            b: (lambda r=r, fast=fast: r.render_dynamic_frames(
+                feats, poses, src, centers, sw, ji, update_tree=False, with_depth=True, fast=fast,
+                **cam)) for b, r in deep.items()}, chip_smoke.N_FRAMES, card)
+        alternating_pairs(f"bench.py dynamic, {mode}", {
+            b: (lambda r=r, fast=fast: r.render_dynamic_frames(
+                *bargs, c2w=c2w, width=chip_smoke.WIDTH, height=chip_smoke.HEIGHT,
+                fx=chip_smoke.BENCH_FX, update_tree=False, fast=fast)) for b, r in bench_r.items()},
+            bargs[1].shape[0], card)
 
 
 if __name__ == "__main__":
