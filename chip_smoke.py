@@ -52,7 +52,14 @@ dynamic paths, each on the default baked backend and on the tree walk
     bench.py times them, on the default baked backend as bench.py renders
     (`dynamic_fused_frame_ms`, `dynamic_fast_frame_ms`; the fast frames
     regrow the skip boxes), and on the tree walk
-    (`dynamic_fused_frame_tree_ms`, `dynamic_fast_frame_tree_ms`).
+    (`dynamic_fused_frame_tree_ms`, `dynamic_fast_frame_tree_ms`);
+  * tree editing (`edit_path`): the corners of every leaf (the K8b
+    calc_corners kernel), `N3Tree.set` at the leaf centres (assign), the
+    point query with ``want_leaf_node`` (unique_leaf_nodes), each kernel
+    equal to its plain version; then a weighted frame, `merge` of idle
+    frontier nodes and `shrink_to_fit`, and `refine` of the leaves with
+    the most weight, each edit re-baked and rendered exact on both
+    backends, bit for bit equal.
 
 The two backends' exact outputs are checked equal bit for bit on every
 serving path. Each path's launch counts are read from zero around it. It
@@ -269,6 +276,9 @@ COUNTERS = {
     "bake_refresh": bake_ops.REFRESH,
     "grow_boxes": bake_ops.GROW_BOXES,
     "points_aabb": query_ops.POINTS_AABB,
+    "assign": query_ops.ASSIGN,
+    "unique_leaf": query_ops.UNIQUE_LEAF,
+    "calc_corners": query_ops.CALC_CORNERS,
 }
 
 
@@ -454,16 +464,28 @@ def march_bounds(c: dict, M: int, D: int) -> dict:
     })
 
 
-def kernel_bounds(M: int, D: int, n_cells: int, Q: int, q_levels: int) -> dict:
+def kernel_bounds(M: int, D: int, n_cells: int, Q: int, q_levels: int, e: dict) -> dict:
     """bound_ms and bound_by of the point kernels for Q points that
     descend q_levels levels in all (construct_tree, query and
-    points_leaf_aabb, which reads the child table and writes 24 bytes)."""
+    points_leaf_aabb, which reads the child table and writes 24 bytes),
+    and of the tree-editing kernels on the editing path's work ``e``:
+    calc_corners of e["rows"] (Q, 4) rows (16 bytes in, 12 out) walking
+    e["steps"] steps in all through the parent links of e["nodes"] nodes (8
+    bytes each), 6 operations a step (3 adds, 3 divisions); assign of
+    e["points"] points descending e["levels"] levels (a point and its
+    leaf's child and data entries in; each element of the new (M, D)
+    pool reads one of its old value and its winner's value, and is
+    written once); unique_leaf_nodes of e["ids"] ids into as many 16-byte rows
+    (its flags are scratch, and it does no float operation)."""
     return _bounds({
         "construct_tree": (Q * 12 + Q * 4 + 2 * n_cells * 4, OPS_LEVEL * q_levels),
         "query_fwd": (Q * 12 + Q * 8 + min(Q, M) * D * 4 + Q * D * 4 + Q * 8,
                       OPS_LEVEL * q_levels),
         "query_bwd": (Q * 4 + Q * D * 4 + M * D * 4, Q * D),
         "points_aabb": (Q * 12 + n_cells * 4 + 24, OPS_LEVEL * q_levels + 9 * Q),
+        "calc_corners": (e["rows"] * 28 + e["nodes"] * 8, 6 * e["steps"]),
+        "assign": (e["points"] * (12 + 8) + 2 * M * D * 4, OPS_LEVEL * e["levels"]),
+        "unique_leaf": (e["ids"] * 4 + e["ids"] * 16 + 4, 0),
     })
 
 
@@ -619,6 +641,142 @@ def train_aux(tree, true_pool, pool0, true_jf, jf0, sw, ji, centers, perms, rays
     return pool, jf, losses, step_ms
 
 
+def edit_path(tree, pool, rng, width=WIDTH, height=HEIGHT, fx=FX) -> dict:
+    """The tree-editing main path through the public entry points (the
+    prune/refine half of training), on ``tree`` with the pool ``pool``:
+
+      1. ``t[:].corners_local`` and ``t[:].lengths_local`` of every leaf;
+      2. `N3Tree.set` of a seeded pool block at the leaf centres, read back
+         through the point query;
+      3. the point query with ``want_leaf_node`` on the centres plus a
+         seeded duplicated fifth of them, in a seeded order;
+      4. a frame rendered inside `accumulate_weights()`, `merge` of a
+         seeded choice among the frontier nodes that took no weight (a
+         tenth of the frontier, or all of them if fewer), and
+         `shrink_to_fit`; then, from a second weighted frame,
+         ``t[mask].refine()`` of the ~1% of leaves with the most weight.
+
+    The kernels' results are held against their plain versions (which
+    launch nothing), exactly. After each edit of step 4 the tree is baked
+    again and a frame rendered exact on both backends, bit for bit equal,
+    and every leaf centre must find its own leaf again.
+
+    :return: dict: host ms per step (``ms``), the plain versions' device
+        ms (``plain_ms``), the kernels' arguments at the main path's shapes
+        and the work counts of the bounds.
+    """
+    dev = pool.device
+    sync = torch.cuda.synchronize if pool.is_cuda else (lambda: None)
+    ms = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def plain_ms(fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    c2w = orbit_camera()
+    tree.features = pool
+    spec = tree._spec()
+    L, N3 = tree.n_leaves, tree.N ** 3
+    leaves = torch.as_tensor(tree._all_leaves(), dtype=torch.int32, device=dev)
+    res = dict(ms=ms, plain_ms={})
+
+    # 1. Corners and lengths of every leaf.
+    corners, lengths = timed("corners", lambda: (tree[:].corners_local, tree[:].lengths_local))
+    want, res["plain_ms"]["calc_corners"] = plain_ms(lambda: query_ops.calc_corners_plain(spec, leaves))
+    check(torch.equal(corners, want), "calc_corners: kernel and plain differ")
+    centres = tree.tree2world(corners + 0.5 * lengths[:, None]).contiguous()
+    depth = spec.parent_depth[leaves[:, 0].long(), 1]
+    res["calc_corners_args"] = (spec, leaves)
+    res["corner_steps"] = int((depth + 1).sum())
+
+    # 2. set at the leaf centres, and the values read back.
+    vals = seeded_pool(rng, L, pool.shape[1], dev)
+    old = tree.features
+    timed("set", lambda: tree.set(centres, vals))
+    want, res["plain_ms"]["assign"] = plain_ms(lambda: query_ops.assign_plain(spec, old, centres, vals))
+    check(torch.equal(tree.features, want), "assign: kernel and plain differ")
+    back, rows = tree(tree.features, centres, want_data_ids=True)
+    occ = rows < tree.features.shape[0]
+    check(bool(occ.any()) and torch.equal(back[occ], vals[occ]) and not bool(back[~occ].any()),
+          "set: the values do not read back")
+    leaf = traversal.descend(spec, traversal.world2tree(centres, spec.offset, spec.scaling))
+    res["assign_args"] = (spec, old, centres, vals)
+    res["assign_levels"] = int(torch.round(torch.log2(leaf.cube_sz) / float(np.log2(tree.N))).sum())
+    res["occupied"] = int(occ.sum())
+
+    # 3. The distinct leaves of the centres plus a duplicated fifth.
+    dup = centres[torch.from_numpy(rng.choice(L, L // 5, replace=False)).to(dev)]
+    pts = torch.cat([centres, dup])[torch.from_numpy(rng.permutation(L + L // 5)).to(dev)]
+    _, ids, found = timed("unique", lambda: tree(tree.features, pts, want_node_ids=True,
+                                                 want_leaf_node=True))
+    n_cells = spec.data_flat.numel()
+    (want, count), res["plain_ms"]["unique_leaf"] = plain_ms(
+        lambda: query_ops.unique_leaf_nodes_plain(ids, tree.N, n_cells=n_cells))
+    check(int(count) == L and torch.equal(found, want[:L]), "unique_leaf_nodes: kernel and plain differ")
+    check(np.array_equal(found.cpu().numpy(), tree._all_leaves()),
+          "the unique leaves of the centres are not every leaf in packed-id order")
+    res["unique_args"] = (ids, tree.N, n_cells)
+
+    # 4. Prune and refine, with a re-bake and renders after each edit.
+    def weighted_frame():
+        with torch.no_grad(), tree.accumulate_weights() as acc:
+            stt.VolumeRenderer(tree).render_persp(tree.features, c2w, width, height, fx=fx)
+        return acc
+
+    def check_edit(what):
+        timed(f"bake after {what}", tree._baked_spec)
+        with torch.no_grad():
+            imgs = {b: stt.VolumeRenderer(tree, backend=b).render_persp(
+                tree.features, c2w, width, height, fx=fx) for b in BACKENDS}
+        img = imgs["baked"]
+        check(torch.equal(img, imgs["tree"]), f"after {what}: the backends' exact frames differ")
+        a = img[..., 3]
+        check(bool(torch.isfinite(img).all() and (a >= 0).all() and (a <= 1).all()
+                   and (a > 0).any() and (a == 0).any()), f"after {what}: bad frame")
+        cen = tree.tree2world(tree.corners_local + 0.5 * tree.lengths_local[:, None])
+        _, lf = tree(tree.features, cen, want_leaf_node=True)
+        check(np.array_equal(lf.cpu().numpy(), tree._all_leaves()), f"after {what}: a centre left its leaf")
+        res[f"hits after {what}"] = float((a > 0).float().mean())
+
+    tree._baked_spec()
+    acc = weighted_frame()
+    w = acc()
+    check(tuple(w.shape) == (L,) and float(w.sum()) > 0, "no accumulated weight")
+    front = tree._frontier
+    fw = acc.value[torch.as_tensor(front, device=dev)].reshape(len(front), -1).sum(dim=1)
+    idle = np.flatnonzero((fw == 0).cpu().numpy())
+    check(len(idle) > 0, "every frontier node took weight")
+    sel = np.sort(rng.choice(idle, min(len(idle), max(1, len(front) // 10)), replace=False))
+    before = tree.n_leaves
+    check(timed("merge", lambda: tree.merge(sel)) and tree._n_free == len(sel), "merge freed no node")
+    check(timed("shrink_to_fit", tree.shrink_to_fit) and tree._n_free == 0, "shrink_to_fit kept freed nodes")
+    check(tree.n_leaves == before - len(sel) * (N3 - 1), "merge: wrong leaf count")
+    res.update(merged=len(sel), frontier=len(front), idle_frontier=len(idle))
+    check_edit("merge + shrink_to_fit")
+
+    w = weighted_frame()()
+    k = min(tree.n_leaves // 100, int((w > 0).sum()))
+    mask = torch.zeros(tree.n_leaves, dtype=torch.bool, device=dev)
+    mask[torch.topk(w, k).indices] = True
+    before = tree.n_leaves
+    timed("refine", lambda: tree[mask].refine())
+    check(tree.n_leaves == before + k * (N3 - 1), "refine: wrong leaf count")
+    res.update(refined=k, leaves_after=tree.n_leaves)
+    check_edit("refine")
+    return res
+
+
 def main() -> None:
     # 1. Device
     t_start = time.perf_counter()
@@ -697,6 +855,12 @@ def main() -> None:
                            replaces="svox_t_tpu/ops/bake.py:695"),
         "points_aabb": dict(route="cuda", source="svox_t_tpu_torch/csrc/query.cu",
                             replaces="svox_t_tpu/ops/query.py:142"),
+        "assign": dict(route="cuda", source="svox_t_tpu_torch/csrc/edit.cu",
+                       replaces="svox_t_tpu/ops/query.py:112"),
+        "unique_leaf": dict(route="cuda", source="svox_t_tpu_torch/csrc/edit.cu",
+                            replaces="svox_t_tpu/ops/query.py:92"),
+        "calc_corners": dict(route="cuda", source="svox_t_tpu_torch/csrc/edit.cu",
+                             replaces="svox_t_tpu/ops/query.py:167"),
     }
 
     # 3. Kernel vs plain
@@ -1593,9 +1757,31 @@ def main() -> None:
               + ", ".join(f"{bench_keys[(backend, f)]} {bench_ms[bench_keys[(backend, f)]]:.4f}"
                           for f in (False, True)))
 
+    # 4i. Main path, tree editing (the prune/refine half of training) on
+    # the depth-9 SH9 shell: corners, set, the unique-leaf query, merge +
+    # shrink_to_fit and refine, each edit re-baked and rendered exact on
+    # both backends (`edit_path`); the kernels equal their plain versions.
+    edit_tree = stt.tree_from_numpy(state, device=dev)
+    reset_counts()
+    edit = edit_path(edit_tree, feats.clone(), np.random.RandomState(6))
+    edit_counts = read_counts()
+    print(f"main path, tree editing ({edit_tree.N}^3 tree, {M} rows): launches {nonzero(edit_counts)}; "
+          f"calc_corners, assign and unique_leaf_nodes equal to plain; {edit['occupied']} of "
+          f"{len(edit['calc_corners_args'][1])} leaves occupied; merged "
+          f"{edit['merged']} of {edit['frontier']} frontier nodes ({edit['idle_frontier']} took no weight), "
+          f"refined {edit['refined']} leaves -> {edit['leaves_after']}; hit share "
+          f"{edit['hits after merge + shrink_to_fit']:.4f} / {edit['hits after refine']:.4f}; baked and "
+          f"tree exact frames equal bit for bit after each edit; host ms "
+          f"{ {k: round(v, 3) for k, v in edit['ms'].items()} }")
+    for k in ("calc_corners", "assign", "unique_leaf"):
+        check(edit_counts[k] > 0, f"tree editing: {k} not launched")
+        kernels[k]["max_abs_err"] = 0.0
+    check(edit_counts["render_fwd_baked"] >= 4 and edit_counts["render_fwd"] >= 2,
+          "tree editing: the renders did not run on both backends")
+
     phases = (*serve_counts.values(), *train_counts.values(), *aux_serve_counts.values(),
               *aux_train_counts.values(), *dyn_counts, vox_counts, *dyn_train_counts.values(),
-              pose_counts, *bench_counts.values())
+              pose_counts, *bench_counts.values(), edit_counts)
     for k in kernels:
         kernels[k]["launches"] = sum(c[k] for c in phases)
         check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
@@ -1769,6 +1955,25 @@ def main() -> None:
             kernels[name].update(ms=k_ms, plain_ms=plain_once[name])
             print(f"time {name} ({M} points, J {N_JOINTS}, {N_BONES} bones, {P2V_N}^3 grid): "
                   f"kernel {k_ms:.4f} ms, plain {plain_once[name]:.2f} ms (one call) [{card}]")
+        # The tree-editing kernels at the editing path's shapes (the depth-9
+        # shell before its edits); plain: one call, phase 4i.
+        e_ids, e_N, e_cells = edit["unique_args"]
+        runs = {
+            "calc_corners": (lambda: query_ops.calc_corners_cuda(*edit["calc_corners_args"]),
+                             f"{len(edit['calc_corners_args'][1])} leaves"),
+            "assign": (lambda: query_ops.assign_cuda(*edit["assign_args"]),
+                       f"{edit['assign_args'][2].shape[0]} points into a ({M}, 28) pool"),
+            "unique_leaf": (lambda: query_ops.unique_leaf_nodes_cuda(e_ids, e_N, n_cells=e_cells),
+                            f"{e_ids.shape[0]} ids over {e_cells} cells"),
+        }
+        for name, (run_k, what) in runs.items():
+            k_ms = time_ms(run_k, KERNEL_REPS)
+            kernels[name].update(ms=k_ms, plain_ms=edit["plain_ms"][name])
+            print(f"time {name} ({what}): kernel {k_ms:.4f} ms, plain {edit['plain_ms'][name]:.2f} ms "
+                  f"(one call) [{card}]")
+        uq_lib_ms = time_ms(lambda: torch.unique(e_ids, sorted=True), KERNEL_REPS)
+        kernels["unique_leaf"]["library_ms"] = uq_lib_ms
+        print(f"time torch.unique (sorted) of the same ids: {uq_lib_ms:.4f} ms [{card}]")
         w2_ms = time_ms(lambda: warp_ops.warp_backward_cuda(T2, centers, sw2, ji2, g_x, g_M),
                         KERNEL_REPS)
         w2_dt_ms = time_ms(lambda: warp_ops.warp_backward_cuda(T2, centers, sw2, ji2, g_x, None,
@@ -1823,7 +2028,11 @@ def main() -> None:
     q_levels = int(torch.round(torch.log2(leaf.cube_sz) / float(np.log2(spec.N))).sum())
     bounds = march_bounds(census, M, 28)
     bounds.update(march_bounds(census_b, M, 28))
-    bounds.update(kernel_bounds(M, 28, spec.data_flat.numel(), pts.shape[0], q_levels))
+    e_spec, e_leaves = edit["calc_corners_args"]
+    bounds.update(kernel_bounds(M, 28, spec.data_flat.numel(), pts.shape[0], q_levels, dict(
+        rows=e_leaves.shape[0], steps=edit["corner_steps"], nodes=e_spec.n_internal,
+        points=edit["assign_args"][2].shape[0], levels=edit["assign_levels"],
+        ids=edit["unique_args"][0].shape[0])))
     bounds.update(bake_bounds(lk_pts.shape[0], baked.src_map.numel(),
                               baked.top.numel() + baked.n_mid, gb.R))
     print(f"census (SH9 exact, {WIDTH}x{HEIGHT}, tree walk): {census}")

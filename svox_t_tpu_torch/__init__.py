@@ -7,10 +7,14 @@ re-points the tree at this frame's point cloud (`N3Tree.construct_tree`)
 and renders with this frame's feature pool (`VolumeRenderer.forward` /
 `render_persp`). Training takes gradients of those renders, and of the
 point query `N3Tree.forward`, with respect to the feature pool, and
-collects per-leaf weights for pruning (`N3Tree.accumulate_weights`). The
-aux passes (`VolumeRenderer.opacity_render`, `render_depth`,
-`motion_render`, `motion_feature_render`) give opacity, first-hit depth
-and skeleton distances, and LBS-blended joint features. The dynamic
+collects per-leaf weights for pruning (`N3Tree.accumulate_weights`);
+`tree[key]` is an `N3TreeView` of leaves (values, corners, in-place
+edits, `refine`), and `N3Tree.set`, `merge`, `shrink_to_fit` and the
+frontier reductions edit the tree (`unique_leaf_nodes`, `assign` and
+`calc_corners` run as kernels). The aux passes
+(`VolumeRenderer.opacity_render`, `render_depth`, `motion_render`,
+`motion_feature_render`) give opacity, first-hit depth and skeleton
+distances, and LBS-blended joint features. The dynamic
 frame loop (`VolumeRenderer.render_dynamic_frames`) LBS-warps the
 canonical cloud per frame (`warp_vertices`), re-points the tree and
 renders; `voxelize` splats a cloud into a density grid, and
@@ -28,6 +32,7 @@ Names follow `svox_t_tpu/__init__.py`; what is not ported yet is absent.
 __version__ = "0.1.0"
 
 from .models.tree import N3Tree, WeightAccumulator
+from .models.view import N3TreeView
 from .models.renderer import VolumeRenderer, convert_to_ndc
 from .utils.spec import (NDCConfig, Rays, RenderOptions, TreeSpec,
                          CameraSpec, DATA_SENTINEL, make_tree_spec)
@@ -43,6 +48,7 @@ from .ops.p2v import voxelize
 
 __all__ = [
     "N3Tree",
+    "N3TreeView",
     "WeightAccumulator",
     "VolumeRenderer",
     "NDCConfig",

@@ -1,17 +1,24 @@
 """N^3-branching sparse voxel octree with an indirected feature pool: the
-counterpart of `svox_t_tpu/models/tree.py`, as far as the serving and
-training paths need it.
+counterpart of `svox_t_tpu/models/tree.py`.
 
 The tree is three separate arrays, as in the JAX package: structure
 (`child`, `parent_depth`), an int32 index table (`data`) and a dense
 feature pool that the caller passes to every render. Structure edits
-(`refine`, `shrink_to_fit`) are host NumPy; `construct_tree` re-points
-the index table on ``device`` and leaves it there until a structure edit
-needs it on the host. `.npz` files are interchangeable with the JAX
-package's `save`/`load`, including legacy files whose `data` holds float
-leaf features. `forward` is the differentiable point query, and
-`accumulate_weights` collects per-leaf render weights while it locks the
-structure.
+(`refine`, `_refine_at`, `merge`, `shrink_to_fit`) are host NumPy;
+`construct_tree` re-points the index table on ``device`` and leaves it
+there until a structure edit needs it on the host. `.npz` files are
+interchangeable with the JAX package's `save`/`load`, including legacy
+files whose `data` holds float leaf features. `forward` is the
+differentiable point query (with ``want_leaf_node``, also the distinct
+hit leaves), `set` writes pool rows at points, and `accumulate_weights`
+collects per-leaf render weights while it locks the structure.
+``tree[key]`` is an `N3TreeView` of leaves (`models/view.py`): their
+values, geometry and in-place edits; ``tree.corners`` and the other
+leaf properties are those of ``tree[:]``. `merge` reduces each selected
+frontier node's children into one leaf on the pool's device and frees
+the node; `shrink_to_fit` then compacts the freed nodes away. The
+frontier reductions come as tensors (``grad=True``, differentiable with
+respect to the pool) or as NumPy.
 
 `_baked_spec` bakes the tree for the baked render backend
 (`ops/bake.py`) on the host, once, and keeps the bake until the structure,
@@ -31,6 +38,22 @@ from ..ops import query as query_ops
 from ..ops import traversal
 from ..utils.dataformat import DataFormat
 from ..utils.spec import DATA_SENTINEL, TreeSpec, make_tree_spec
+from .view import N3TreeView
+
+
+def _resolve_device(device, map_location) -> torch.device:
+    """``device``, or its alias ``map_location`` (the JAX package's and
+    svox's name); the CUDA card when neither is given."""
+    if device is not None and map_location is not None:
+        if torch.device(device) != torch.device(map_location):
+            raise ValueError(f"device={device!r} and map_location={map_location!r} disagree")
+    chosen = device if device is not None else map_location
+    return torch.device("cuda" if chosen is None else chosen)
+
+
+def _first(x):
+    """A reduction's value: the first item of a (values, indices) result."""
+    return x[0] if isinstance(x, tuple) else x
 
 
 class N3Tree:
@@ -51,15 +74,16 @@ class N3Tree:
         center=[0.5, 0.5, 0.5],
         data_format="RGBA",
         extra_data=None,
-        device="cuda",
+        map_location=None,
         dtype=torch.float32,
+        device=None,
     ):
         if N < 2 or depth_limit < 0:
             raise ValueError("N must be >= 2 and depth_limit >= 0")
         self.N: int = int(N)
         self.data_dim: int = int(data_dim)
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = _resolve_device(device, map_location)
 
         if init_refine > 0:
             for i in range(1, init_refine + 1):
@@ -82,9 +106,14 @@ class N3Tree:
         self.depth_limit = int(depth_limit)
         self.geom_resize_fact = float(geom_resize_fact)
         self.data_format = DataFormat(data_format) if data_format is not None else None
+        # _ver counts layout changes (views check it); _occ_ver also counts
+        # re-pointings of the index table.
+        self._ver = 0
+        self._occ_ver = 0
         self.extra_data = extra_data
         self._weight_accum = None
         self._lock_tree_structure = False
+        self._rng = np.random.RandomState(0)
         self._invalidate()
         self.filled = self._n_internal
         self.refine(repeats=init_refine)
@@ -107,8 +136,7 @@ class N3Tree:
     @data.setter
     def data(self, value):
         self._data = np.asarray(value, np.int32).reshape(-1, self.N, self.N, self.N, 1)
-        self._cached_spec = None
-        self._cached_baked = None
+        self._invalidate_spec()
 
     @property
     def child(self) -> np.ndarray:
@@ -126,8 +154,7 @@ class N3Tree:
     @extra_data.setter
     def extra_data(self, value):
         self._extra_data = None if value is None else np.asarray(value, np.float32)
-        self._cached_spec = None
-        self._cached_baked = None
+        self._invalidate_spec()
 
     # ------------------------------------------------------------------
     # Spec marshaling
@@ -204,6 +231,7 @@ class N3Tree:
         refreshed from it with the occupied box (lo, hi), which must cover
         the bake's old box (without it, the whole cube), and its skip boxes
         regrow."""
+        self._occ_ver += 1
         self._data = new_data_flat
         self._cached_spec = spec.with_(data_flat=new_data_flat)
         if self._cached_baked is not None:
@@ -218,27 +246,83 @@ class N3Tree:
         """Differentiable point query of ``features`` (M, D) at (Q, 3)
         points, on ``device``.
 
-        :return: values (Q, D); plus packed node ids and/or data ids when
-            requested. Empty leaves give zero values.
+        :return: values (Q, D); plus packed node ids, data ids and/or the
+            distinct hit leaves (n_hit, 4) [node, x, y, z] in ascending
+            packed-id order when requested. Empty leaves give zero values.
         """
         del cuda
-        if want_leaf_node:
-            raise NotImplementedError(
-                "want_leaf_node needs unique_leaf_nodes, which waits for the "
-                "rest of K8b (ROADMAP.md §2)"
-            )
         indices = torch.as_tensor(indices, dtype=torch.float32, device=self.device)
         if indices.ndim != 2:
             raise ValueError(f"indices must be (Q, 3), got {tuple(indices.shape)}")
-        values, node_ids, data_ids = query_ops.query(self._spec(), features, indices, world)
-        if not (want_node_ids or want_data_ids):
+        spec = self._spec()
+        values, node_ids, data_ids = query_ops.query(spec, features, indices, world)
+        if not (want_node_ids or want_data_ids or want_leaf_node):
             return values
         ret = [values]
         if want_node_ids:
             ret.append(node_ids)
         if want_data_ids:
             ret.append(data_ids)
+        if want_leaf_node:
+            # Compacted on the device; only the count comes to the host.
+            leaf_node, count = query_ops.unique_leaf_nodes(
+                node_ids, self.N, n_cells=spec.data_flat.numel())
+            ret.append(leaf_node[: int(count)])
         return ret
+
+    def set(self, indices, values, cuda=True):
+        """Write ``values`` (Q, data_dim) into the feature rows that world
+        points ``indices`` (Q, 3) address (`ops/query.py` `assign`);
+        ``features`` becomes the new pool."""
+        del cuda
+        self.features = query_ops.assign(
+            self._spec(), self.features,
+            torch.as_tensor(indices, dtype=torch.float32, device=self.device),
+            torch.as_tensor(values, dtype=self.dtype, device=self.device),
+        )
+
+    def construct_tree_device(self, spec: TreeSpec, indices) -> TreeSpec:
+        """``spec`` re-pointed at the (Q, 3) points, as a new spec; the
+        tree itself is left as it was."""
+        return spec.with_(data_flat=query_ops.construct_tree(spec, indices))
+
+    def snap(self, indices):
+        """Lower corners (world space) of the distinct leaves that the
+        points fall in, in ascending packed-id order."""
+        return self[torch.as_tensor(indices, dtype=torch.float32)].corners
+
+    def partial(self, data_sel=None, device=None):
+        """Copy of the tree with the channels ``data_sel`` of the feature
+        pool, on ``device`` (default: this tree's)."""
+        if data_sel is None:
+            sel = None
+            new_data_dim = self.data_dim
+        else:
+            sel = np.atleast_1d(np.arange(self.data_dim)[data_sel])
+            new_data_dim = sel.size
+        t2 = N3Tree(N=self.N, data_dim=int(new_data_dim), depth_limit=self.depth_limit,
+                    geom_resize_fact=self.geom_resize_fact,
+                    device=self.device if device is None else device)
+        self._ensure_host_data()
+        t2.invradius = self.invradius.copy()
+        t2.offset = self.offset.copy()
+        t2._child = self._child.copy()
+        t2._parent_depth = self._parent_depth.copy()
+        t2._data = self._data.copy()
+        t2._n_internal = self._n_internal
+        t2._n_free = self._n_free
+        t2.filled = self.filled
+        t2.extra_data = None if self.extra_data is None else self.extra_data.copy()
+        t2.data_format = self.data_format
+        feats = self.features.detach()
+        if sel is not None:
+            feats = feats[:, torch.as_tensor(sel, device=feats.device)]
+        t2.features = feats.to(t2.device, copy=True)
+        t2._invalidate()
+        return t2
+
+    def clone(self, device=None):
+        return self.partial(device=device)
 
     def __call__(self, *args, **kwargs):
         return self.forward(*args, **kwargs)
@@ -251,6 +335,129 @@ class N3Tree:
     def _check_unlocked(self):
         if self._lock_tree_structure:
             raise RuntimeError("Tree locked")
+
+    # ------------------------------------------------------------------
+    # Frontier ops
+
+    def _pool(self, features=None) -> torch.Tensor:
+        """``features`` (default: the tree's pool) as a tensor on ``device``."""
+        return torch.as_tensor(self.features if features is None else features, device=self.device)
+
+    def _child_rows(self, nid: np.ndarray) -> np.ndarray:
+        """(len(nid), N^3) index-table entries of each node's cells."""
+        self._ensure_host_data()
+        return self._data[nid, ..., 0].reshape(len(nid), -1)
+
+    def _leaf_feature_values(self, features, nid: np.ndarray) -> np.ndarray:
+        """(len(nid), N^3, data_dim) feature values of each node's cells
+        (empty cells: zeros), as NumPy."""
+        return self._leaf_feature_values_torch(self._pool(features), nid).detach().cpu().numpy()
+
+    def _leaf_feature_values_torch(self, features: torch.Tensor, nid: np.ndarray) -> torch.Tensor:
+        """The same as a tensor on the pool's device, differentiable with
+        respect to ``features``."""
+        idx = torch.as_tensor(self._child_rows(nid).astype(np.int64), device=features.device)
+        valid = (idx >= 0) & (idx < features.shape[0])
+        if not features.shape[0]:
+            return features.new_zeros(idx.shape + (features.shape[1],))
+        return torch.where(valid[..., None], features[torch.where(valid, idx, 0)], 0.0)
+
+    def merge(self, frontier_sel=None, op=torch.mean, features=None):
+        """Merge the children of selected frontier nodes (nodes whose cells
+        are all leaves) into their parent cell, which becomes a leaf
+        pointing at the node's first non-empty cell's row. With ``op``
+        (default the mean) that row becomes op over the node's occupied
+        cells' rows (empty cells take no part), on the pool's device, and
+        ``features`` (default the tree's pool) is stored back as the tree's
+        pool; ``op=None`` keeps the row as it is. ``op`` is a torch
+        reduction called as ``op(rows, axis=0)`` (a tuple result gives its
+        first item); the mean (``torch.mean`` or ``np.mean``) runs for all
+        nodes at once. The nodes are freed; `shrink_to_fit` compacts them
+        away. Returns False when nothing is selected."""
+        self._check_unlocked()
+        self._ensure_host_data()
+        if self.n_internal - self._n_free <= 1:
+            raise RuntimeError("Cannot merge root node")
+        nid = self._frontier if frontier_sel is None else self._frontier[frontier_sel]
+        nid = np.atleast_1d(np.asarray(nid))
+        if nid.size == 0:
+            return False
+        feats = self._pool(features)
+        M = feats.shape[0]
+        child_idx = self._child_rows(nid)
+        valid = child_idx < M
+        occupied = valid.any(axis=1)
+        first = np.where(occupied, np.argmax(valid, axis=1), 0)
+        parent_row = np.where(occupied, child_idx[np.arange(len(nid)), first], DATA_SENTINEL)
+        if op is not None:
+            with torch.no_grad():
+                # empty cells read as zeros: the sum leaves them out
+                vals = self._leaf_feature_values_torch(feats, nid)
+                ok = np.flatnonzero(occupied)
+                mask = torch.as_tensor(valid, device=vals.device)
+                if op is torch.mean or op is np.mean:
+                    okt = torch.as_tensor(ok, device=vals.device)
+                    reduced = vals[okt].sum(dim=1) / mask[okt].sum(dim=1, keepdim=True)
+                else:
+                    reduced = torch.stack([_first(op(vals[i][mask[i]], axis=0)) for i in ok]) \
+                        if ok.size else vals.new_zeros((0, vals.shape[2]))
+                rows = torch.as_tensor(parent_row[ok].astype(np.int64), device=vals.device)
+                self.features = query_ops.write_rows(feats, rows, reduced)
+        parent_sel = tuple(self._unpack_index_np(self._parent_depth[nid, 0]).T)
+        self._data[parent_sel + (0,)] = parent_row
+        self._child[parent_sel] = 0
+        self._parent_depth[nid] = -1
+        self._n_free += nid.shape[0]
+        self._invalidate()
+        return True
+
+    def reduce_frontier(self, op=None, dim=None, grad=False, features=None):
+        """Reduce each frontier node's cell values (empty cells: zeros) with
+        ``op(vals, axis=1)``, vals (n_frontier, N^3, data_dim) (or the
+        channel ``dim``); default the mean. ``grad=True`` reduces a tensor
+        on the pool's device, differentiable with respect to the pool
+        (``op`` a torch function); ``grad=False`` reduces NumPy."""
+        feats = self._pool(features)
+        if grad:
+            vals = self._leaf_feature_values_torch(feats, self._frontier)
+            op = torch.mean if op is None else op
+        else:
+            vals = self._leaf_feature_values(feats, self._frontier)
+            op = np.mean if op is None else op
+        if dim is not None:
+            vals = vals[..., dim]
+        return op(vals, axis=1)
+
+    def max_frontier(self, dim=None, grad=False, features=None):
+        return self.reduce_frontier(op=torch.amax if grad else np.max, dim=dim, grad=grad,
+                                    features=features)
+
+    def diam_frontier(self, dim=None, grad=False, scale=1.0, features=None):
+        """The largest distance between two cell values of each frontier
+        node (tensor with ``grad=True``, else NumPy)."""
+        feats = self._pool(features)
+        if grad:
+            vals = self._leaf_feature_values_torch(feats, self._frontier)
+        else:
+            vals = self._leaf_feature_values(feats, self._frontier)
+        if dim is not None:
+            vals = vals[..., dim]
+        if vals.ndim == 2:
+            vals = vals[:, :, None]
+        delta = (vals[:, :, None, :] - vals[:, None, :, :]) * scale
+        if grad:
+            return torch.amax(torch.linalg.norm(delta, dim=-1), dim=(1, 2))
+        return np.max(np.linalg.norm(delta, axis=-1), axis=(1, 2))
+
+    @property
+    def _frontier(self) -> np.ndarray:
+        """Nodes in use whose cells are all leaves."""
+        if self._last_frontier is None:
+            ni = self.n_internal
+            sel = (self._child[:ni] == 0).reshape(ni, -1).all(axis=1)
+            sel &= self._parent_depth[:ni, 0] != -1
+            self._last_frontier = np.nonzero(sel)[0]
+        return self._last_frontier
 
     # ------------------------------------------------------------------
     # Refinement & memory management
@@ -325,8 +532,41 @@ class N3Tree:
             self._invalidate()
         return resized
 
+    def _refine_at(self, intnode_idx, xyzi):
+        """Refine the one leaf cell (intnode_idx, *xyzi): its new node's
+        cells take the cell's index entry, and the cell's own entry becomes
+        0, as in the JAX package. A no-op at depth_limit or on an internal
+        cell; returns True iff the buffers grew."""
+        self._check_unlocked()
+        self._ensure_host_data()
+        if min(xyzi) < 0 or max(xyzi) >= self.N:
+            raise ValueError(f"cell {tuple(xyzi)} outside 0..{self.N - 1}")
+        if self._parent_depth[intnode_idx, 1] >= self.depth_limit:
+            return
+        xi, yi, zi = xyzi
+        if self._child[intnode_idx, xi, yi, zi] != 0:
+            return
+        resized = False
+        filled = self.n_internal
+        if filled >= self.capacity:
+            self._grow_buffers(1)
+            resized = True
+        self._child[filled] = 0
+        self._child[intnode_idx, xi, yi, zi] = filled - intnode_idx
+        self._parent_depth[filled, 0] = self._pack_index_np(
+            np.array([[intnode_idx, xi, yi, zi]], dtype=np.int32))[0]
+        self._parent_depth[filled, 1] = self._parent_depth[intnode_idx, 1] + 1
+        self._data[filled, :, :, :] = self._data[intnode_idx, xi, yi, zi]
+        self._data[intnode_idx, xi, yi, zi] = 0
+        self._n_internal += 1
+        self.filled += 1
+        self._invalidate()
+        return resized
+
     def shrink_to_fit(self):
-        """Defragment and trim the node buffers to the live node count.
+        """Defragment and trim the node buffers to the live node count:
+        the nodes that `merge` freed are compacted away, each kept node's
+        child offsets and packed parent link re-expressed in the new ids.
         Returns True if the buffers changed."""
         self._check_unlocked()
         self._ensure_host_data()
@@ -387,8 +627,56 @@ class N3Tree:
         N = self.N
         return ((txyz[:, 0] * N + txyz[:, 1]) * N + txyz[:, 2]) * N + txyz[:, 3]
 
+    def _unpack_index_np(self, flat: np.ndarray) -> np.ndarray:
+        """(Q,) packed ids -> (Q, 4) int64 [node, x, y, z]."""
+        N = self.N
+        flat = np.asarray(flat).astype(np.int64)
+        z = flat % N
+        flat = flat // N
+        y = flat % N
+        flat = flat // N
+        x = flat % N
+        return np.stack([flat // N, x, y, z], axis=-1)
+
+    def _pack_index(self, txyz: torch.Tensor) -> torch.Tensor:
+        return traversal.pack_index(torch.as_tensor(txyz), self.N)
+
+    def _unpack_index(self, flat) -> np.ndarray:
+        """(Q,) packed ids (a tensor or an array) -> (Q, 4) NumPy."""
+        if isinstance(flat, torch.Tensor):
+            flat = flat.cpu().numpy()
+        return self._unpack_index_np(flat)
+
+    def _calc_corners(self, nodes) -> torch.Tensor:
+        """Tree-space lower corners of (Q, 4) [node, x, y, z] cells (the
+        `calc_corners` kernel on ``device``)."""
+        idx = torch.as_tensor(np.asarray(nodes, np.int32).reshape(-1, 4), device=self.device)
+        return query_ops.calc_corners(self._spec(), idx)
+
+    def _make_val_tensor(self, val) -> torch.Tensor:
+        """A scalar or (..., 1)-channel value broadcast to (Q, data_dim)."""
+        val = torch.as_tensor(val, dtype=self.dtype, device=self.device)
+        while val.ndim < 2:
+            val = val[None]
+        if val.shape[-1] == 1:
+            return val.expand(*val.shape[:-1], self.data_dim)
+        if val.shape[-1] != self.data_dim:
+            raise ValueError(f"value has {val.shape[-1]} channels, the tree {self.data_dim}")
+        return val
+
     def _invalidate(self):
+        """The layout changed: views, leaf lists, specs and the bake go."""
+        self._ver += 1
+        self._occ_ver += 1
         self._last_all_leaves = None
+        self._last_frontier = None
+        self._cached_spec = None
+        self._cached_baked = None
+
+    def _invalidate_spec(self):
+        """The index table or extra data changed: leaf views stay valid,
+        the specs and the bake go."""
+        self._occ_ver += 1
         self._cached_spec = None
         self._cached_baked = None
 
@@ -408,13 +696,25 @@ class N3Tree:
         return self._parent_depth.shape[0]
 
     @property
-    def depths(self) -> np.ndarray:
-        """Leaf depths (root children = 0), (n_leaves,) int32."""
-        return self._parent_depth[self._all_leaves()[:, 0], 1]
+    def max_depth(self):
+        return int(self._parent_depth[self._all_leaves()[:, 0], 1].max())
 
     @property
-    def max_depth(self):
-        return int(self.depths.max())
+    def ndim(self):
+        return 2
+
+    @property
+    def shape(self):
+        return (self.n_leaves, self.data_dim)
+
+    def size(self, dim):
+        return self.data_dim if dim == 1 else self.n_leaves
+
+    def numel(self):
+        return self.data_dim * self.n_leaves
+
+    def __len__(self):
+        return self.n_leaves
 
     def world2tree(self, indices):
         return traversal.world2tree(
@@ -458,15 +758,16 @@ class N3Tree:
         (np.savez_compressed if compress else np.savez)(path, **data)
 
     @classmethod
-    def load(cls, path, device="cuda"):
+    def load(cls, path, map_location=None, device=None):
         """Load from .npz: int32-index files (with or without a
         `features` key) and legacy files with float leaf features in
         `data`, which become a feature pool plus an identity index
-        table."""
+        table. ``map_location`` is an alias of ``device`` (default: the
+        CUDA card)."""
         with np.load(path) as z:
             tree = cls(
                 extra_data=z["extra_data"] if "extra_data" in z.files else None,
-                device=device,
+                device=_resolve_device(device, map_location),
             )
             tree.data_dim = int(z["data_dim"])
             tree._child = np.asarray(z["child"], np.int32)
@@ -512,6 +813,86 @@ class N3Tree:
             f"data_format:{self.data_format or 'RGBA'}, device={self.device})"
         )
 
+    def __getitem__(self, key) -> N3TreeView:
+        return N3TreeView(self, key)
+
+    def __setitem__(self, key, val):
+        N3TreeView(self, key).set(val)
+
+    def __iadd__(self, val):
+        self[:] += val
+        return self
+
+    def __isub__(self, val):
+        self[:] -= val
+        return self
+
+    def __imul__(self, val):
+        self[:] *= val
+        return self
+
+    def __itruediv__(self, val):
+        self[:] /= val
+        return self
+
+    __idiv__ = __itruediv__
+
+    # The leaves' view, as properties and methods of the tree.
+    @property
+    def depths(self):
+        return self[:].depths
+
+    @property
+    def lengths(self):
+        return self[:].lengths
+
+    @property
+    def lengths_local(self):
+        return self[:].lengths_local
+
+    @property
+    def corners(self):
+        return self[:].corners
+
+    @property
+    def corners_local(self):
+        return self[:].corners_local
+
+    @property
+    def values(self):
+        return self[:].values
+
+    @property
+    def values_local(self):
+        return self[:].values_local
+
+    def sample(self, n_samples, device=None):
+        return self[:].sample(n_samples, device=device)
+
+    def sample_local(self, n_samples):
+        return self[:].sample_local(n_samples)
+
+    def aux(self, arr):
+        return self[:].aux(arr)
+
+    def normal_(self, mean=0.0, std=1.0):
+        return self[:].normal_(mean, std)
+
+    def clamp_(self, min=None, max=None):
+        return self[:].clamp_(min, max)
+
+    def uniform_(self, min=0.0, max=1.0):
+        return self[:].uniform_(min, max)
+
+    def relu_(self):
+        return self[:].relu_()
+
+    def sigmoid_(self):
+        return self[:].sigmoid_()
+
+    def nan_to_num_(self, inf_val=2e4):
+        return self[:].nan_to_num_(inf_val)
+
 
 class WeightAccumulator:
     """Context manager for per-leaf render weight accumulation. While it
@@ -544,7 +925,5 @@ class WeightAccumulator:
 
     def __call__(self) -> torch.Tensor:
         """(n_leaves,) summed weights, one per leaf in `_all_leaves()`
-        order (the order of the JAX package's ``t[:].aux``)."""
-        leaves = torch.as_tensor(self.tree._all_leaves(), dtype=torch.long,
-                                 device=self.value.device)
-        return self.value[leaves[:, 0], leaves[:, 1], leaves[:, 2], leaves[:, 3]]
+        order (``tree.aux`` of the weights)."""
+        return self.tree.aux(self.value)

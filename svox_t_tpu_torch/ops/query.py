@@ -1,4 +1,4 @@
-"""Point query and octree re-pointing, the counterpart of
+"""Point query, octree re-pointing and tree editing, the counterpart of
 `svox_t_tpu/ops/query.py`.
 
 `construct_tree` is the per-frame "attach this frame's point cloud" op:
@@ -7,11 +7,15 @@ differentiable point query (a `torch.autograd.Function`, the counterpart
 of the JAX package's custom_vjp): values of the points' leaf rows, zeros
 in empty space, and a backward that adds the value gradients into the
 feature rows. On CUDA tensors each op launches its kernel
-(`csrc/construct_tree.cu`, `csrc/query.cu`) or raises; on CPU tensors
-its plain PyTorch version runs. `points_leaf_aabb` (`POINTS_AABB`) bounds
-the leaves of a point cloud, to keep the baked render structure's cull box
-current. `assign`, `unique_leaf_nodes` and `calc_corners` are a later port
-(K8b, ROADMAP.md §2).
+(`csrc/construct_tree.cu`, `csrc/query.cu`, `csrc/edit.cu`) or raises; on
+CPU tensors its plain PyTorch version runs. `points_leaf_aabb`
+(`POINTS_AABB`) bounds the leaves of a point cloud, to keep the baked
+render structure's cull box current. The tree-editing ops: `assign`
+(`ASSIGN`) writes values into the pool rows that points address and
+returns the new pool; `unique_leaf_nodes` (`UNIQUE_LEAF`) lists the
+distinct leaves of packed ids in ascending order, padded with -1;
+`calc_corners` (`CALC_CORNERS`) gives leaf cells' lower corners in tree
+space.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 
 from .._build import Kernel
 from ..utils.spec import TreeSpec
-from .traversal import descend, world2tree
+from .traversal import descend, unpack_index, world2tree
 
 CONSTRUCT_TREE = Kernel(
     "svox_construct_tree",
@@ -51,6 +55,27 @@ POINTS_AABB = Kernel(
      c_void_p, c_void_p,                      # offset, scaling
      c_void_p, c_int, c_void_p],              # lohi (6,), device, stream
 )
+ASSIGN = Kernel(
+    "svox_assign",
+    [c_void_p, c_int, c_int,                  # points, Q, world
+     c_void_p, c_void_p, c_int, c_int,        # child, data, N, n_levels
+     c_void_p, c_void_p,                      # offset, scaling
+     c_void_p, c_int, c_int, c_void_p,        # features, M, D, values
+     c_void_p, c_void_p, c_int, c_void_p],    # winner, out, device, stream
+)
+UNIQUE_LEAF = Kernel(
+    "svox_unique_leaf",
+    [c_void_p, c_int, c_int, c_int, c_int,    # ids, Q, n_cells, N, size
+     c_void_p, c_void_p, c_void_p,            # flags, tile_sums, tile_offsets
+     c_void_p, c_void_p, c_int, c_void_p],    # out, count, device, stream
+)
+CALC_CORNERS = Kernel(
+    "svox_calc_corners",
+    [c_void_p, c_int, c_void_p, c_int, c_int, c_int,  # indexer, Q, parent_depth, capacity, N, steps
+     c_void_p, c_int, c_void_p],                       # out, device, stream
+)
+# Flags per tile of the unique_leaf_nodes scan (kTile in csrc/edit.cu).
+_UNIQUE_TILE = 4096
 
 
 def _check_points(spec: TreeSpec, points: torch.Tensor) -> None:
@@ -303,3 +328,207 @@ def points_leaf_aabb_cuda(spec: TreeSpec, points: torch.Tensor, world: bool = Tr
                     spec.N, spec.n_levels, spec.offset.data_ptr(), spec.scaling.data_ptr(),
                     lohi.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     return lohi[:3], lohi[3:]
+
+
+def _check_assign(spec: TreeSpec, features: torch.Tensor, points: torch.Tensor,
+                  values: torch.Tensor) -> None:
+    _check_query(spec, features, points)
+    if tuple(values.shape) != (points.shape[0], features.shape[1]):
+        raise ValueError(f"values must be ({points.shape[0]}, {features.shape[1]}), "
+                         f"got {tuple(values.shape)}")
+    if values.device != points.device:
+        raise ValueError(f"values on {values.device}, points on {points.device}")
+
+
+def assign(spec: TreeSpec, features: torch.Tensor, points: torch.Tensor, values: torch.Tensor,
+           world: bool = True) -> torch.Tensor:
+    """Write ``values`` (Q, D) into the feature rows that ``points`` (Q, 3)
+    address, as a new pool; ``features`` is left as it was. Points in
+    empty leaves or at rows >= M write nothing. Where several points
+    address one row, the largest point id wins. Not differentiable.
+
+    :return: the new (M, D) feature pool.
+    """
+    if points.is_cuda:
+        return assign_cuda(spec, features, points, values, world)
+    return assign_plain(spec, features, points, values, world)
+
+
+def assign_plain(spec: TreeSpec, features: torch.Tensor, points: torch.Tensor,
+                 values: torch.Tensor, world: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the assign kernel."""
+    _check_assign(spec, features, points, values)
+    pos = world2tree(points, spec.offset, spec.scaling) if world else points
+    row = descend(spec, pos).data_idx
+    ok = (row >= 0) & (row < features.shape[0])
+    return write_rows(features, row[ok], values[ok])
+
+
+def write_rows(pool: torch.Tensor, rows: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``pool`` with ``pool[rows[i]] = values[i]``, as a new tensor. Where
+    rows repeat, the last occurrence wins (as a NumPy fancy assignment);
+    for the points of `assign`, in id order, that is the largest id."""
+    out = pool.detach().clone()
+    if rows.numel() == 0:
+        return out
+    pos = torch.arange(rows.shape[0], device=rows.device)
+    last = torch.full((pool.shape[0],), -1, dtype=torch.int64, device=rows.device)
+    last.scatter_reduce_(0, rows.long(), pos, reduce="amax")
+    hit = torch.nonzero(last >= 0).squeeze(1)
+    out[hit] = values.detach().to(out.dtype)[last[hit]]
+    return out
+
+
+def assign_cuda(spec: TreeSpec, features: torch.Tensor, points: torch.Tensor,
+                values: torch.Tensor, world: bool = True) -> torch.Tensor:
+    """Launch the assign kernel (csrc/edit.cu): the winners' rows, then
+    the new pool in one pass over it."""
+    _check_assign(spec, features, points, values)
+    tables = (spec.child_flat, spec.data_flat, spec.offset, spec.scaling)
+    if not points.is_cuda or any(t.device != points.device for t in (features, values, *tables)):
+        raise ValueError("assign_cuda needs points, pool, values and tree on one CUDA device")
+    for t, dtype in zip((*tables, features, values), (torch.int32, torch.int32, *[torch.float32] * 4)):
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError("child/data must be contiguous int32, offset/scaling/features/values float32")
+    Q = points.shape[0]
+    M, D = features.shape
+    if Q >= 2 ** 31 or M >= 2 ** 31 or spec.child_flat.numel() >= 2 ** 31:
+        raise ValueError("assign_cuda takes fewer than 2^31 points, rows and cells")
+    points = points.contiguous()
+    dev = points.device
+    out = torch.empty_like(features)
+    winner = torch.empty(M, dtype=torch.int32, device=dev)
+    ASSIGN(
+        points.data_ptr(), Q, int(bool(world)),
+        spec.child_flat.data_ptr(), spec.data_flat.data_ptr(), spec.N, spec.n_levels,
+        spec.offset.data_ptr(), spec.scaling.data_ptr(),
+        features.data_ptr(), M, D, values.data_ptr(),
+        winner.data_ptr(), out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return out
+
+
+def _unique_args(node_ids: torch.Tensor, size, n_cells):
+    if node_ids.dtype != torch.int32 or node_ids.ndim != 1:
+        raise ValueError(f"node_ids must be (Q,) int32, got {tuple(node_ids.shape)} {node_ids.dtype}")
+    Q = node_ids.shape[0]
+    size = Q if size is None else int(size)
+    if n_cells is None:
+        n_cells = int(node_ids.max()) + 1 if Q else 0
+    if size < 0 or n_cells < 0:
+        raise ValueError(f"size {size} and n_cells {n_cells} must be >= 0")
+    return size, int(n_cells)
+
+
+def unique_leaf_nodes(node_ids: torch.Tensor, N: int, size: int = None, n_cells: int = None):
+    """The distinct leaves among packed leaf ids (the query's node ids).
+
+    :param node_ids: (Q,) int32 packed leaf ids.
+    :param N: the tree's branching factor, to unpack them.
+    :param size: rows of the output (default Q, always enough).
+    :param n_cells: the packed-id range, capacity * N^3; ids outside
+        [0, n_cells) are left out. By default the largest id + 1, which
+        waits for the card: the tree passes its own.
+    :return: (leaf_node (size, 4) int32 [node, x, y, z] in ascending
+        packed-id order, -1 rows after the last, count () int32, the
+        number of rows filled: min(distinct ids, size)). Nothing is copied
+        to the host.
+    """
+    if node_ids.is_cuda:
+        return unique_leaf_nodes_cuda(node_ids, N, size, n_cells)
+    return unique_leaf_nodes_plain(node_ids, N, size, n_cells)
+
+
+def unique_leaf_nodes_plain(node_ids: torch.Tensor, N: int, size: int = None, n_cells: int = None):
+    """Plain PyTorch version of the unique_leaf_nodes kernels."""
+    size, n_cells = _unique_args(node_ids, size, n_cells)
+    dev = node_ids.device
+    uniq = torch.unique(node_ids[(node_ids >= 0) & (node_ids < n_cells)], sorted=True)[:size]
+    out = torch.full((size, 4), -1, dtype=torch.int32, device=dev)
+    out[: uniq.numel()] = unpack_index(uniq, N).to(torch.int32)
+    return out, torch.tensor(uniq.numel(), dtype=torch.int32, device=dev)
+
+
+def unique_leaf_nodes_cuda(node_ids: torch.Tensor, N: int, size: int = None, n_cells: int = None):
+    """Launch the unique_leaf_nodes kernels (csrc/edit.cu): mark, count
+    per tile, scan the tile counts, compact."""
+    if not node_ids.is_cuda:
+        raise ValueError("unique_leaf_nodes_cuda needs node_ids on a CUDA device")
+    size, n_cells = _unique_args(node_ids, size, n_cells)
+    Q = node_ids.shape[0]
+    if Q >= 2 ** 31 or n_cells >= 2 ** 31 - _UNIQUE_TILE or size >= 2 ** 29:
+        raise ValueError("unique_leaf_nodes_cuda takes fewer than 2^31 ids and cells, 2^29 rows")
+    node_ids = node_ids.contiguous()
+    dev = node_ids.device
+    n_tiles = -(-n_cells // _UNIQUE_TILE)
+    # flags first, so that their 16-byte loads are aligned; then the tile
+    # sums and offsets
+    scratch = torch.empty(n_cells + 2 * n_tiles, dtype=torch.int32, device=dev)
+    out = torch.empty((size, 4), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    UNIQUE_LEAF(
+        node_ids.data_ptr(), Q, n_cells, N, size,
+        scratch.data_ptr(), scratch[n_cells:].data_ptr(), scratch[n_cells + n_tiles:].data_ptr(),
+        out.data_ptr(), count.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    return out, count
+
+
+def _check_indexer(spec: TreeSpec, indexer: torch.Tensor) -> None:
+    if indexer.ndim != 2 or indexer.shape[1] != 4:
+        raise ValueError(f"indexer must be (Q, 4), got {tuple(indexer.shape)}")
+    if indexer.device != spec.device:
+        raise ValueError(f"indexer on {indexer.device}, tree on {spec.device}")
+
+
+def calc_corners(spec: TreeSpec, indexer: torch.Tensor) -> torch.Tensor:
+    """Lower corners of leaf cells in tree coordinates [0, 1]^3: each
+    (node, x, y, z) row walks its parent links to the root, at most
+    ``n_levels + 1`` steps, folding ``out = (out + xyz) / N`` in float32.
+
+    :param indexer: (Q, 4) integer [node, x, y, z].
+    :return: (Q, 3) float32.
+    """
+    if indexer.is_cuda:
+        return calc_corners_cuda(spec, indexer)
+    return calc_corners_plain(spec, indexer)
+
+
+def calc_corners_plain(spec: TreeSpec, indexer: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the calc_corners kernel."""
+    _check_indexer(spec, indexer)
+    N = spec.N
+    parent = spec.parent_depth[:, 0]
+    curr = indexer.to(torch.int32)
+    out = torch.zeros((curr.shape[0], 3), dtype=torch.float32, device=curr.device)
+    done = torch.zeros(curr.shape[0], dtype=torch.bool, device=curr.device)
+    # A tensor divisor: on CUDA, PyTorch divides by a Python scalar as a
+    # multiply by its reciprocal, which for N = 3 is not the division.
+    n = torch.full((1, 3), float(N), device=curr.device)
+    for _ in range(spec.n_levels + 1):
+        out = torch.where(done[:, None], out, (out + curr[:, 1:].to(torch.float32)) / n)
+        at_root = curr[:, 0] == 0
+        nxt = unpack_index(parent[curr[:, 0].clamp(0, parent.shape[0] - 1).long()], N)
+        curr = torch.where((done | at_root)[:, None], curr, nxt)
+        done = done | at_root
+    return out
+
+
+def calc_corners_cuda(spec: TreeSpec, indexer: torch.Tensor) -> torch.Tensor:
+    """Launch the calc_corners kernel (csrc/edit.cu)."""
+    _check_indexer(spec, indexer)
+    pd = spec.parent_depth
+    if not indexer.is_cuda:
+        raise ValueError("calc_corners_cuda needs the indexer and tree on one CUDA device")
+    if indexer.dtype != torch.int32 or pd.dtype != torch.int32 or not pd.is_contiguous():
+        raise ValueError("indexer and parent_depth must be int32")
+    Q = indexer.shape[0]
+    if Q >= 2 ** 29 or pd.shape[0] == 0:
+        raise ValueError("calc_corners_cuda takes fewer than 2^29 rows and a non-empty tree")
+    indexer = indexer.contiguous()
+    dev = indexer.device
+    out = torch.empty((Q, 3), dtype=torch.float32, device=dev)
+    if Q:
+        CALC_CORNERS(indexer.data_ptr(), Q, pd.data_ptr(), pd.shape[0], spec.N, spec.n_levels + 1,
+                     out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    return out

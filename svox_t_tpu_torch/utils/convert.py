@@ -27,6 +27,7 @@ def tree_state(tree) -> dict:
         "offset": np.array(tree.offset, np.float32),
         "invradius": np.array(tree.invradius, np.float32),
         "n_internal": int(tree.n_internal),
+        "n_free": int(getattr(tree, "_n_free", 0)),
         "filled": int(tree.filled),
         "depth_limit": int(tree.depth_limit),
         "data_dim": int(tree.data_dim),
@@ -47,7 +48,8 @@ def tree_from_numpy(state: dict, device="cuda") -> N3Tree:
     :param state: ``child`` (n, N, N, N) or (n, N^3) int32, ``data``
         (n, N, N, N[, 1]) int32, ``parent_depth`` (n, 2) int32,
         ``offset`` and ``invradius`` (3,) float32, ``n_internal`` (and
-        optionally ``filled``), ``depth_limit``, ``data_format`` (string
+        optionally ``filled`` and ``n_free``, the nodes freed by a merge
+        and not yet compacted), ``depth_limit``, ``data_format`` (string
         or None), ``extra_data`` (or None) and optionally ``data_dim``
         (default: 4 for RGBA, 3 * basis_dim + 1 otherwise).
     """
@@ -70,6 +72,7 @@ def tree_from_numpy(state: dict, device="cuda") -> N3Tree:
     tree._data = np.asarray(state["data"], np.int32).reshape(n, N, N, N, 1).copy()
     tree._parent_depth = np.asarray(state["parent_depth"], np.int32).copy()
     tree._n_internal = int(state["n_internal"])
+    tree._n_free = int(state.get("n_free", 0))
     tree.filled = int(state.get("filled", tree._n_internal))
     tree.offset = np.asarray(state["offset"], np.float32).copy()
     tree.invradius = np.asarray(state["invradius"], np.float32).copy()

@@ -250,8 +250,11 @@ def test_query_values_and_grads_match_jax_with_duplicates():
     _assert_grad_close(gt.numpy(), np.asarray(gj))
     rows = np.asarray(jd)
     assert np.bincount(rows[rows < len(f)]).max() >= 3  # duplicates summed
-    with pytest.raises(NotImplementedError, match="unique_leaf_nodes"):
-        pt(x, pts, want_leaf_node=True)
+    # The distinct hit leaves of the duplicated cloud, as the JAX package lists them.
+    _, jl = jt(jnp.asarray(f), jnp.asarray(pts), want_leaf_node=True)
+    _, tl = pt(x, pts, want_leaf_node=True)
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    assert len(tl) < len(pts)
 
 
 def test_captured_spec_survives_construct_tree():

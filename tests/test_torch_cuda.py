@@ -12,8 +12,10 @@ The tests of the tree walk pass ``backend="tree"``; the baked backend
 tolerances.
 
 Tolerances: construct_tree and the query forward must agree exactly, and
-so must the bake's lookup, refresh and skip-box regrowth and
-points_leaf_aabb. The forward march agrees to atol 2e-5: the library is
+so must the bake's lookup, refresh and skip-box regrowth,
+points_leaf_aabb and the tree-editing kernels (assign, unique_leaf_nodes,
+calc_corners; the plain calc_corners divides by a tensor, since on CUDA
+PyTorch divides by a Python scalar through its reciprocal). The forward march agrees to atol 2e-5: the library is
 built without contracted multiply-adds (a sample position is one
 explicit fused multiply-add, rounded once on both sides), so sample
 positions and descents match the plain version bit for bit, and only the
@@ -856,3 +858,166 @@ def test_bake_wrappers_raise_on_cpu_tensors(cuda):
         tbake.grow_boxes_cuda(cpu_baked)
     with pytest.raises(ValueError, match="on cpu"):
         tquery.points_leaf_aabb_cuda(tree._spec(), centers.cpu())
+
+
+# ---------------------------------------------------------------------
+# Tree editing: K8b assign, unique_leaf_nodes and calc_corners, exactly.
+
+
+@pytest.mark.parametrize("scene", ["shell", "n3"])
+def test_calc_corners_kernel_matches_plain(cuda, scene):
+    tree = _shell(cuda)[0] if scene == "shell" else _occupancy_tree(cuda)[0]
+    spec = tree._spec()
+    leaves = torch.as_tensor(tree._all_leaves(), dtype=torch.int32, device=cuda)
+    before = tquery.CALC_CORNERS.launches
+    got = tquery.calc_corners(spec, leaves)
+    torch.cuda.synchronize()
+    assert tquery.CALC_CORNERS.launches == before + 1
+    assert torch.equal(got, tquery.calc_corners_plain(spec, leaves))
+    # through the view: every leaf centre descends to its own leaf again
+    cen = tree.corners_local + 0.5 * tree.lengths_local[:, None]
+    flat = ttrav.descend(spec, cen).node_flat.cpu().numpy()
+    assert np.array_equal(flat, tree._pack_index_np(tree._all_leaves()))
+
+
+def test_calc_corners_kernel_walks_freed_nodes(cuda):
+    """Until shrink_to_fit a merged node's cells stay leaves, with parent
+    link -1: the kernel unpacks it with floor division, as the plain version."""
+    tree, feats, _ = _shell(cuda, depth=4)
+    tree.features = feats
+    tree.merge(np.arange(0, len(tree._frontier), 7))
+    spec = tree._spec()
+    leaves = torch.as_tensor(tree._all_leaves(), dtype=torch.int32, device=cuda)
+    assert bool((spec.parent_depth[:, 0] == -1).any())
+    assert torch.equal(tquery.calc_corners_cuda(spec, leaves), tquery.calc_corners_plain(spec, leaves))
+
+
+@pytest.mark.parametrize("world", [True, False])
+def test_assign_kernel_matches_plain(cuda, world):
+    tree, feats, centers = _shell(cuda)
+    spec = tree._spec()
+    g = torch.Generator().manual_seed(3)
+    L = len(centers)
+    # every leaf once, 700 twice (duplicates: the largest point id wins),
+    # points in empty space, and rows >= M (the pool is cut short)
+    idx = torch.cat([torch.randperm(L, generator=g), torch.randperm(L, generator=g)[:700]]).to(cuda)
+    rand = torch.rand(500, 3, generator=g).to(cuda)
+    pts = torch.cat([centers[idx], rand]).contiguous()
+    if not world:
+        pts = ttrav.world2tree(pts, spec.offset, spec.scaling).contiguous()
+    vals = torch.randn(len(pts), feats.shape[1], generator=g).to(cuda)
+    pool = feats[: feats.shape[0] * 3 // 4].contiguous()
+    before = tquery.ASSIGN.launches
+    got = tquery.assign(spec, pool, pts, vals, world)
+    torch.cuda.synchronize()
+    assert tquery.ASSIGN.launches == before + 1
+    assert torch.equal(got, tquery.assign_plain(spec, pool, pts, vals, world))
+    # the second point of each duplicated leaf wrote its row, where the
+    # row is < M and no later (random) point hit it
+    rows = tquery.query_forward_cuda(spec, pool, centers[idx[L:]])[2].long()
+    late = tquery.query_forward_cuda(spec, pool, rand)[2].long()
+    kept = (rows < pool.shape[0]) & ~torch.isin(rows, late)
+    assert bool(kept.any()) and torch.equal(got[rows[kept]], vals[L:L + 700][kept])
+    assert not torch.equal(got, pool) and torch.equal(pool, feats[: pool.shape[0]])
+
+
+def test_assign_kernel_n3_and_entry_point(cuda):
+    tree, M, centers = _occupancy_tree(cuda)
+    g = torch.Generator().manual_seed(4)
+    tree.features = torch.randn(M, 13, generator=g).to(cuda)
+    pts = centers[torch.randperm(M, generator=g)[: M // 2].to(cuda)]
+    vals = torch.randn(len(pts), 13, generator=g).to(cuda)
+    want = tquery.assign_plain(tree._spec(), tree.features, pts, vals)
+    tree.set(pts, vals)
+    assert torch.equal(tree.features, want)
+    assert torch.equal(tree(tree.features, pts), vals)
+
+
+def _query_ids(cuda, tree, feats, centers, seed):
+    g = torch.Generator().manual_seed(seed)
+    L = len(centers)
+    idx = torch.cat([torch.randperm(L, generator=g), torch.randperm(L, generator=g)[: L // 3]])
+    pts = torch.cat([centers[idx.to(cuda)], torch.rand(2000, 3, generator=g).to(cuda)]).contiguous()
+    return tquery.query_forward_cuda(tree._spec(), feats, pts)[1], pts
+
+
+@pytest.mark.parametrize("pad", [None, 0, 37, -100])
+def test_unique_leaf_kernel_matches_plain(cuda, pad):
+    tree, feats, centers = _shell(cuda)
+    ids, _ = _query_ids(cuda, tree, feats, centers, 5)
+    n_cells = tree._spec().data_flat.numel()
+    n_uniq = int(torch.unique(ids).numel())
+    size = None if pad is None else n_uniq + pad
+    before = tquery.UNIQUE_LEAF.launches
+    leaf_k, count_k = tquery.unique_leaf_nodes(ids, 2, size=size, n_cells=n_cells)
+    torch.cuda.synchronize()
+    assert tquery.UNIQUE_LEAF.launches == before + 1
+    leaf_p, count_p = tquery.unique_leaf_nodes_plain(ids, 2, size=size, n_cells=n_cells)
+    assert torch.equal(leaf_k, leaf_p) and int(count_k) == int(count_p)
+    assert int(count_k) == min(n_uniq, size if size is not None else len(ids))
+
+
+def test_unique_leaf_kernel_many_tiles_and_n3(cuda):
+    """Over 1024 tiles (the offsets scan runs in two chunks), a range that
+    is not a multiple of 4, ids out of range, and an N = 3 tree."""
+    g = torch.Generator().manual_seed(6)
+    n_cells = 5_000_003
+    ids = torch.randint(-5, n_cells + 5, (300_000,), generator=g, dtype=torch.int32).to(cuda)
+    ids[:3] = torch.tensor([0, n_cells - 1, n_cells - 1], dtype=torch.int32)
+    got = tquery.unique_leaf_nodes_cuda(ids, 2, n_cells=n_cells)
+    want = tquery.unique_leaf_nodes_plain(ids, 2, n_cells=n_cells)
+    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+    tree, M, centers = _occupancy_tree(cuda)
+    tree.features = torch.zeros(M, 13, device=cuda)
+    ids, pts = _query_ids(cuda, tree, tree.features, centers, 7)
+    n3 = tree._spec().data_flat.numel()
+    got = tquery.unique_leaf_nodes_cuda(ids, 3, n_cells=n3)
+    want = tquery.unique_leaf_nodes_plain(ids, 3, n_cells=n3)
+    assert torch.equal(got[0], want[0]) and int(got[1]) == int(want[1])
+    before = tquery.UNIQUE_LEAF.launches
+    _, leaf = tree(tree.features, pts, want_leaf_node=True)
+    assert tquery.UNIQUE_LEAF.launches == before + 1
+    assert torch.equal(leaf, want[0][: int(want[1])])
+
+
+def test_edit_wrappers_raise_on_cpu_tensors(cuda):
+    tree, feats, centers = _shell(cuda, depth=3)
+    spec = tree._spec()
+    with pytest.raises(ValueError):
+        tquery.assign_cuda(spec, feats, centers.cpu(), torch.zeros(len(centers), feats.shape[1]))
+    with pytest.raises(ValueError, match="CUDA"):
+        tquery.unique_leaf_nodes_cuda(torch.zeros(4, dtype=torch.int32), 2, n_cells=8)
+    with pytest.raises(ValueError):
+        tquery.calc_corners_cuda(spec, torch.zeros(4, 4, dtype=torch.int32))
+
+
+def test_tree_editing_entry_points_use_the_kernels(cuda):
+    """The smoke's tree-editing path at a small size: corners, set, the
+    unique-leaf view, merge + shrink_to_fit and refine, each followed by
+    exact renders on both backends that agree bit for bit."""
+    tree, feats, centers = _shell(cuda, depth=5)
+    tree.features = feats
+    counts = {k: k.launches for k in (tquery.CALC_CORNERS, tquery.ASSIGN, tquery.UNIQUE_LEAF)}
+    cen = tree.tree2world(tree.corners_local + 0.5 * tree.lengths_local[:, None])
+    tree.set(cen, feats[torch.arange(len(cen), device=cuda) % feats.shape[0]])
+    view = tree[cen[::3]]
+    assert len(view) == len(cen[::3])
+    for k, n in counts.items():
+        assert k.launches > n
+    o, d = _rays(cuda, 512)
+    rays = stt.Rays(o, d, d)
+
+    def renders_agree():
+        a = stt.VolumeRenderer(tree)(tree.features, rays)
+        b = stt.VolumeRenderer(tree, backend="tree")(tree.features, rays)
+        assert torch.equal(a, b) and bool((a[:, -1] > 0).any())
+
+    renders_agree()
+    assert tree.merge(np.arange(0, len(tree._frontier), 5))
+    assert tree.shrink_to_fit()
+    renders_agree()
+    tree[: tree.n_leaves // 50].refine()
+    renders_agree()
+    cen = tree.tree2world(tree.corners_local + 0.5 * tree.lengths_local[:, None])
+    _, leaf = tree(tree.features, cen, want_leaf_node=True)
+    assert np.array_equal(leaf.cpu().numpy(), tree._all_leaves())

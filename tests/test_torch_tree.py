@@ -6,6 +6,15 @@ buffers. `construct_tree` is compared on clouds with one point per leaf
 (the JAX scatter leaves the winner among duplicates unspecified; the port
 picks the largest point id, tested separately). `.npz` files move both
 ways between the packages.
+
+The editing half of the tree (set, snap, merge + shrink_to_fit, the
+frontier reductions and their gradients, partial/clone, _refine_at) is
+applied in both packages to trees carried across with `tree_state`:
+structure arrays exact, pools after a merge's mean to 1e-6 relative (the
+JAX package divides in float64, the port in float32), gradients to
+``1e-5 * max(1, max|g_jax|)``, corners at N 3 to 2 ulp
+(tests/test_torch_view.py says why). `map_location` is an alias of
+`device` (fault F1 of the port).
 """
 
 import os
@@ -17,6 +26,7 @@ import pytest
 import torch
 
 import svox_t_tpu as st
+from svox_t_tpu.models.tree import WeightAccumulator as JaxWeightAccumulator
 from benchmarks import scenes as jscenes
 from svox_t_tpu.ops import query as jquery
 import svox_t_tpu_torch as stt
@@ -289,3 +299,292 @@ def test_entry_points_default_to_the_card(entry, tmp_path):
     }[entry]
     with pytest.raises((AssertionError, RuntimeError)):
         make()
+
+
+
+def _pair(rng, **kw):
+    """A JAX tree with its pool, the port's copy on the CPU with the same
+    pool, and the leaf centres (world space)."""
+    jt, feats, centers = build_tree(rng, **kw)
+    jt.features = feats
+    pt = _port(jt)
+    pt.features = torch.from_numpy(np.array(feats))
+    return jt, pt, centers
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(jax.device_get(x))
+
+
+def _assert_same_tree(pt, jt):
+    """Equal structure arrays, counts, leaves and frontier."""
+    np.testing.assert_array_equal(pt.child, jt.child)
+    np.testing.assert_array_equal(pt.data, np.asarray(jt.data))
+    np.testing.assert_array_equal(pt.parent_depth, jt.parent_depth)
+    assert (pt.n_internal, pt._n_free, pt.filled, pt.capacity) == \
+        (jt.n_internal, jt._n_free, jt.filled, jt.capacity)
+    np.testing.assert_array_equal(pt._all_leaves(), jt._all_leaves())
+    np.testing.assert_array_equal(pt._frontier, jt._frontier)
+
+# ---------------------------------------------------------------------
+# N3Tree entry points
+
+
+def test_forward_want_leaf_node_matches_jax():
+    rng = np.random.RandomState(44)
+    jt, pt, centers = _pair(rng, N=3, depth_limit=3)
+    pts = np.concatenate([centers[::3], centers[::5], rng.rand(25, 3).astype(np.float32)])
+    jv, jn, jd, jl = jt(jt.features, jnp.asarray(pts), want_node_ids=True, want_data_ids=True,
+                        want_leaf_node=True)
+    tv, tn, td, tl = pt(pt.features, pts, want_node_ids=True, want_data_ids=True,
+                        want_leaf_node=True)
+    for a, b in ((tv, jv), (tn, jn), (td, jd), (tl, jl)):
+        np.testing.assert_array_equal(_np(a), _np(b))
+    _, tl2 = pt(pt.features, pts, want_leaf_node=True)
+    assert torch.equal(tl2, tl)
+
+
+def test_set_matches_jax():
+    rng = np.random.RandomState(45)
+    jt, pt, centers = _pair(rng)
+    pts = centers[rng.permutation(len(centers))[:9]]
+    vals = rng.randn(9, 4).astype(np.float32)
+    jt.set(pts, vals)
+    pt.set(pts, vals)
+    np.testing.assert_array_equal(pt.features.numpy(), _np(jt.features))
+    np.testing.assert_array_equal(pt(pt.features, pts).numpy(), vals)
+
+
+def test_snap_matches_jax():
+    rng = np.random.RandomState(46)
+    jt, pt, centers = _pair(rng)
+    pts = (centers[:12] + 0.01 * rng.randn(12, 3)).astype(np.float32)
+    np.testing.assert_array_equal(_np(pt.snap(pts)), _np(jt.snap(pts)))
+
+
+def test_construct_tree_device_leaves_the_tree():
+    rng = np.random.RandomState(47)
+    jt, pt, centers = _pair(rng)
+    cloud = centers[rng.permutation(len(centers))]
+    spec = pt._spec()
+    before = pt.data.copy()
+    got = pt.construct_tree_device(spec, torch.from_numpy(cloud))
+    want = jt.construct_tree_device(jt._spec(), jnp.asarray(cloud))
+    np.testing.assert_array_equal(got.data_flat.numpy(), _np(want.data_flat))
+    np.testing.assert_array_equal(pt.data, before)
+
+
+@pytest.mark.parametrize("N", [2, 3])
+@pytest.mark.parametrize("op", ["mean", "none", "max"])
+def test_merge_and_shrink_match_jax(N, op):
+    rng = np.random.RandomState(50 + N)
+    jt, pt, _ = _pair(rng, N=N, depth_limit=4 if N == 2 else 3, n_random_refines=1)
+    j_op, t_op = {"mean": (np.mean, torch.mean), "none": (None, None),
+                  "max": (np.max, torch.amax)}[op]
+    sel = np.arange(min(3, len(jt._frontier)))
+    assert jt.merge(sel, op=j_op)
+    assert pt.merge(sel, op=t_op)
+    _assert_same_tree(pt, jt)
+    jf = _np(jt.features)
+    np.testing.assert_allclose(pt.features.numpy(), jf, rtol=1e-6, atol=0)
+    # a merged, unshrunk tree moves across with its freed nodes
+    back = stt.tree_from_numpy(stt.tree_state(jt), device="cpu")
+    _assert_same_tree(back, jt)
+    assert jt.shrink_to_fit() and pt.shrink_to_fit() and back.shrink_to_fit()
+    _assert_same_tree(pt, jt)
+    _assert_same_tree(back, jt)
+    leaves = jt._all_leaves()
+    np.testing.assert_array_max_ulp(_np(pt._calc_corners(leaves)), _np(jt._calc_corners(leaves)),
+                                    maxulp=0 if N == 2 else 2)
+    # nothing left to merge returns False
+    assert pt.merge(np.zeros(0, np.int64)) is False
+
+
+def test_merge_with_features_argument_and_root_guard():
+    rng = np.random.RandomState(53)
+    jt, pt, _ = _pair(rng, n_random_refines=1)
+    other = rng.randn(*jt.features.shape).astype(np.float32)
+    jt.merge(np.arange(2), features=jnp.asarray(other))
+    pt.merge(np.arange(2), features=torch.from_numpy(other.copy()))
+    np.testing.assert_allclose(pt.features.numpy(), _np(jt.features), rtol=1e-6, atol=0)
+    root = stt.N3Tree(N=2, data_dim=4, device="cpu")
+    with pytest.raises(RuntimeError):
+        root.merge()
+
+
+@pytest.mark.parametrize("dim", [None, 3])
+def test_frontier_reductions_match_jax(dim):
+    rng = np.random.RandomState(54)
+    jt, pt, _ = _pair(rng, n_random_refines=1)
+    np.testing.assert_array_equal(pt._frontier, jt._frontier)
+    for name in ("reduce_frontier", "max_frontier", "diam_frontier"):
+        want = np.asarray(getattr(jt, name)(dim=dim))
+        got = getattr(pt, name)(dim=dim)
+        assert isinstance(got, np.ndarray)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+        got_t = getattr(pt, name)(dim=dim, grad=True)
+        assert isinstance(got_t, torch.Tensor)
+        np.testing.assert_allclose(got_t.detach().numpy(), _np(getattr(jt, name)(dim=dim, grad=True)),
+                                   rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(pt.reduce_frontier(op=np.min, dim=dim),
+                               np.asarray(jt.reduce_frontier(op=np.min, dim=dim)), rtol=1e-6)
+
+    f = np.array(jt.features)
+    G = {n: rng.randn(*np.shape(getattr(jt, n)(dim=dim))).astype(np.float32)
+         for n in ("reduce_frontier", "max_frontier")}
+    for name, g in G.items():
+        gj = _np(jax.grad(lambda x: jnp.sum(getattr(jt, name)(dim=dim, grad=True, features=x) * g))(
+            jnp.asarray(f)))
+        x = torch.from_numpy(f.copy()).requires_grad_()
+        (gt,) = torch.autograd.grad((getattr(pt, name)(dim=dim, grad=True, features=x)
+                                     * torch.from_numpy(g)).sum(), x)
+        np.testing.assert_allclose(gt.numpy(), gj, rtol=0, atol=1e-5 * max(1.0, np.abs(gj).max()))
+        assert np.abs(gj).max() > 0
+
+
+def test_diam_frontier_gradient():
+    """The JAX package's diam_frontier gradient is NaN (the norm of the
+    zero diagonal differences); the port's is checked against jax.grad of
+    the same function with a norm that is 0 at 0."""
+    rng = np.random.RandomState(55)
+    jt, pt, _ = _pair(rng, n_random_refines=1)
+    f = np.array(jt.features)
+    nid = jt._frontier
+    g = rng.randn(len(nid)).astype(np.float32)
+
+    def diam(x):
+        v = jt._leaf_feature_values_jnp(x, nid)
+        d = v[:, :, None, :] - v[:, None, :, :]
+        sq = jnp.sum(d * d, axis=-1)
+        norm = jnp.where(sq > 0, jnp.sqrt(jnp.where(sq > 0, sq, 1.0)), 0.0)
+        return jnp.sum(jnp.max(norm, axis=(1, 2)) * g)
+
+    gj = _np(jax.grad(diam)(jnp.asarray(f)))
+    x = torch.from_numpy(f.copy()).requires_grad_()
+    (gt,) = torch.autograd.grad((pt.diam_frontier(grad=True, features=x) * torch.from_numpy(g)).sum(), x)
+    np.testing.assert_allclose(gt.numpy(), gj, rtol=0, atol=1e-5 * max(1.0, np.abs(gj).max()))
+    assert np.abs(gj).max() > 0
+
+
+@pytest.mark.parametrize("data_sel", [None, slice(1, 3), 2])
+def test_partial_and_clone_match_jax(data_sel):
+    rng = np.random.RandomState(56)
+    jt, pt, _ = _pair(rng, data_format="SH1", data_dim=4, n_random_refines=1)
+    jt.merge(np.arange(1))
+    pt.merge(np.arange(1))
+    j2 = jt.partial(data_sel) if data_sel is not None else jt.clone()
+    t2 = pt.partial(data_sel) if data_sel is not None else pt.clone()
+    _assert_same_tree(t2, j2)
+    assert t2.data_dim == j2.data_dim and t2.device == pt.device
+    assert repr(t2.data_format) == repr(j2.data_format)
+    np.testing.assert_allclose(t2.features.numpy(), _np(j2.features), rtol=1e-6, atol=0)
+    t2.features[:] = 0  # a copy: the source pool is untouched
+    assert float(pt.features.abs().sum()) > 0
+    assert pt.partial(device="cpu").device == torch.device("cpu")
+
+
+def test_refine_at_matches_jax():
+    jt = st.N3Tree(N=2, data_dim=4, depth_limit=5)
+    pt = stt.N3Tree(N=2, data_dim=4, depth_limit=5, device="cpu")
+    for t in (jt, pt):
+        t.refine()
+        t._refine_at(1, (0, 0, 0))
+        t._refine_at(2, (1, 0, 1))
+        t._refine_at(10, (0, 1, 0))
+        t._refine_at(10, (0, 1, 0))  # internal now: a no-op
+    _assert_same_tree(pt, jt)
+    with pytest.raises(ValueError):
+        pt._refine_at(0, (0, 0, 2))
+    t3 = stt.N3Tree(N=3, data_dim=4, depth_limit=1, device="cpu")
+    t3.refine()
+    n = t3.n_internal
+    assert t3._refine_at(1, (2, 2, 2)) is None and t3.n_internal == n  # at the depth limit
+
+
+def test_shrink_defrag_parent_links_port():
+    """After merge + shrink_to_fit every kept node's parent link
+    round-trips and every leaf keeps its corner (the JAX regression test
+    on the port)."""
+    t = stt.N3Tree(N=2, data_dim=4, depth_limit=5, device="cpu")
+    t.refine()
+    t._refine_at(1, (0, 0, 0))
+    t._refine_at(2, (0, 0, 0))
+    t._refine_at(10, (0, 0, 0))
+    before = {tuple(np.round(c, 6)) for c in t._calc_corners(t._all_leaves()).numpy()}
+    t.merge(np.asarray([0]))
+    assert t._n_free == 1
+    t.shrink_to_fit()
+    for c in t._calc_corners(t._all_leaves()).numpy():
+        assert tuple(np.round(c, 6)) in before
+    pd = t.parent_depth
+    for nid in range(1, t.n_internal):
+        pn, px, py, pz = map(int, t._unpack_index_np(np.asarray([pd[nid, 0]]))[0])
+        assert t.child[pn, px, py, pz] == nid - pn
+
+
+def test_index_helpers_and_shapes_match_jax():
+    rng = np.random.RandomState(57)
+    jt, pt, _ = _pair(rng, N=3, depth_limit=3)
+    leaves = jt._all_leaves()
+    packed = jt._pack_index_np(leaves)
+    np.testing.assert_array_equal(pt._unpack_index_np(packed), jt._unpack_index_np(packed))
+    np.testing.assert_array_equal(pt._unpack_index(torch.from_numpy(packed)), jt._unpack_index(packed))
+    np.testing.assert_array_equal(_np(pt._pack_index(torch.from_numpy(leaves))),
+                                  _np(jt._pack_index(leaves)))
+    for val in (2.5, [1.0], np.ones((3, 1), np.float32), np.arange(8, dtype=np.float32).reshape(2, 4)):
+        np.testing.assert_array_equal(_np(pt._make_val_tensor(val)), _np(jt._make_val_tensor(val)))
+    assert pt.ndim == jt.ndim == 2 and pt.shape == jt.shape and len(pt) == len(jt)
+    assert pt.size(0) == jt.size(0) and pt.size(1) == jt.size(1) and pt.numel() == jt.numel()
+    assert pt.max_depth == jt.max_depth
+
+
+def test_weight_accumulator_reads_through_aux():
+    rng = np.random.RandomState(58)
+    jt, pt, _ = _pair(rng, data_format="SH1", data_dim=4)
+    o = np.tile([[0.5, 0.5, -1.0]], (64, 1)).astype(np.float32)
+    d = np.concatenate([rng.rand(64, 2) * 0.6 - 0.3, np.ones((64, 1))], 1).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    r = stt.VolumeRenderer(pt, backend="tree")
+    with pt.accumulate_weights() as acc:
+        r(pt.features, stt.Rays(torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(d)))
+    w = acc()
+    assert torch.equal(w, pt[:].aux(acc.value)) and float(w.sum()) > 0
+    jacc = JaxWeightAccumulator(jt)
+    jacc.weight_accum = jnp.asarray(acc.value.numpy())
+    np.testing.assert_array_equal(w.numpy(), np.asarray(jacc()))
+
+
+# ---------------------------------------------------------------------
+# F1: map_location
+
+
+def test_map_location_builds_the_same_tree():
+    kw = dict(N=3, data_dim=7, depth_limit=3, init_refine=1, radius=0.8)
+    a = stt.N3Tree(**kw, map_location="cpu")
+    b = stt.N3Tree(**kw, device="cpu")
+    assert a.device == b.device == torch.device("cpu")
+    for name in ("child", "data", "parent_depth", "offset", "invradius"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    assert torch.equal(a.features, b.features)
+    assert stt.N3Tree(device="cpu", map_location=torch.device("cpu")).device.type == "cpu"
+    with pytest.raises(ValueError, match="disagree"):
+        stt.N3Tree(device="cpu", map_location="cuda")
+
+
+def test_load_jax_file_with_map_location(tmp_path):
+    rng = np.random.RandomState(59)
+    jt, feats, _ = build_tree(rng, data_format="SH1", data_dim=4, n_random_refines=1)
+    jt.features = feats
+    jt.merge(np.arange(1))
+    p = os.path.join(tmp_path, "jax.npz")
+    jt.save(p, shrink=False)
+    pt = stt.N3Tree.load(p, map_location="cpu")
+    ref = stt.N3Tree.load(p, device="cpu")
+    _assert_same_tree(pt, jt)
+    _assert_same_tree(ref, jt)
+    assert pt.device == torch.device("cpu")
+    np.testing.assert_array_equal(pt.features.numpy(), _np(jt.features))
+    with pytest.raises(ValueError, match="disagree"):
+        stt.N3Tree.load(p, map_location="cpu", device="cuda")
