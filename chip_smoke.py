@@ -17,7 +17,10 @@ baked forward march on one of bench.py's fast frames, whose march steps
 across those skip boxes, the baked instances of the forward march (SH9,
 SH9 with rotations, with weights), of the backward and of the four aux
 kernels, exact and fast;
-and the baked and tree-walk kernels bit for bit in exact mode), then
+and the baked and tree-walk kernels bit for bit in exact mode; then the
+trilinear (K4) instances of the six march kernels on both structures
+against their plain versions on every camera ray, and the two
+structures' exact interp renders and depths bit for bit), then
 drives the main paths through the public entry points on the depth-9 SH9
 shell scene at 800x800, with a seeded 32-joint skeleton for the aux and
 dynamic paths, each on the default baked backend and on the tree walk
@@ -59,7 +62,12 @@ dynamic paths, each on the default baked backend and on the tree walk
     equal to its plain version; then a weighted frame, `merge` of idle
     frontier nodes and `shrink_to_fit`, and `refine` of the leaves with
     the most weight, each edit re-baked and rendered exact on both
-    backends, bit for bit equal.
+    backends, bit for bit equal;
+  * trilinear interpolation: `VolumeRenderer(interp="trilinear")` on the
+    aux scene, an exact and a fast frame, one training step (image, mask
+    and motion-feature losses) with `backward()` inside
+    `accumulate_weights()`, `render_depth` and `motion_render`, through
+    the interp kernel instances only.
 
 The two backends' exact outputs are checked equal bit for bit on every
 serving path. Each path's launch counts are read from zero around it. It
@@ -171,6 +179,17 @@ OPS_P2V_ROW = 1
 OPS_P2V_VOXEL = 2
 OPS_P2V_FWD = 6
 OPS_P2V_BWD = 17
+# Trilinear interpolation (K4), per sample: the corner grid point, its
+# floor and weights, the reciprocal, 24 corner coordinates (an add and a
+# multiply each), 8 weight products and 8 sigma multiply-adds; per
+# contributing SH9 sample: 8 corners' color dot products (3 x 9
+# multiply-adds each) and their 3 x 8 weighted adds, the compositing as
+# in nearest mode, and in the backward 8 corners' gradient rows (27
+# products and adds each) and sigma column.
+OPS_CORNERS = 96
+OPS_FWD_SH9_INTERP = 8 * 54 + 48 + 21
+OPS_BWD_SH9_INTERP = 8 * 54 + 48 + 8 * 54 + 16 + 10
+OPS_OPACITY_BWD_INTERP = OPS_OPACITY_BWD + 8
 
 
 def card_line() -> str:
@@ -279,7 +298,21 @@ COUNTERS = {
     "assign": query_ops.ASSIGN,
     "unique_leaf": query_ops.UNIQUE_LEAF,
     "calc_corners": query_ops.CALC_CORNERS,
+    "render_fwd_interp": render_ops.RENDER_FWD_INTERP,
+    "render_bwd_interp": render_ops.RENDER_BWD_INTERP,
+    "opacity_bwd_interp": aux_ops.OPACITY_BWD_INTERP,
+    "first_hit_interp": aux_ops.FIRST_HIT_INTERP,
+    "mf_fwd_interp": aux_ops.MF_FWD_INTERP,
+    "mf_bwd_interp": aux_ops.MF_BWD_INTERP,
+    "render_fwd_baked_interp": render_ops.RENDER_FWD_BAKED_INTERP,
+    "render_bwd_baked_interp": render_ops.RENDER_BWD_BAKED_INTERP,
+    "opacity_bwd_baked_interp": aux_ops.OPACITY_BWD_BAKED_INTERP,
+    "first_hit_baked_interp": aux_ops.FIRST_HIT_BAKED_INTERP,
+    "mf_fwd_baked_interp": aux_ops.MF_FWD_BAKED_INTERP,
+    "mf_bwd_baked_interp": aux_ops.MF_BWD_BAKED_INTERP,
 }
+# The march kernels, each with its trilinear (K4) instances.
+MARCH_KERNELS = ("render_fwd", "render_bwd", "opacity_bwd", "first_hit", "mf_fwd", "mf_bwd")
 
 
 # The kernel-name suffix and the label of each backend in the output.
@@ -300,7 +333,7 @@ def check_bake_counts(counts: dict, backend: str, n: int) -> None:
               f"{counts['points_aabb']} times, not {n}")
     else:
         check(not any(v for k, v in counts.items()
-                      if k.endswith("_baked") or k in ("bake_refresh", "points_aabb", "bake_lookup")),
+                      if "_baked" in k or k in ("bake_refresh", "points_aabb", "bake_lookup")),
               "the tree backend launched a baked kernel")
 
 
@@ -327,68 +360,107 @@ def skeleton(rng: np.random.RandomState, M: int, device):
         torch.from_numpy(ji).to(device)
 
 
+def _lookup_loads(spec, pos, cells, cells_fh, mark, mark_fh):
+    """The leaves of the lookups at ``pos`` and each one's table loads: on
+    the tree its descent levels, on a bake its top entry and, under a
+    brick pointer, its brick (and mid) entry. Marks the entries that the
+    ``mark`` and ``mark_fh`` lookups touch in ``cells`` and ``cells_fh``."""
+    leaf = render_ops._locate(spec, pos)
+    if isinstance(spec, bake_ops.BakedTree):
+        p = traversal.clamp_coord(pos)
+        R = spec.R
+        tc = torch.clamp((p * R).to(torch.int32), max=R - 1)
+        top = (tc[:, 0] * R + tc[:, 1]) * R + tc[:, 2]
+        deep = leaf.node_flat >= spec.top.numel()
+        levels = 1.0 + deep.double() + (leaf.node_flat >= spec.top.numel() + spec.n_mid).double() * (
+            spec.mid is not None)
+        for marks, m in ((cells, mark), (cells_fh, mark_fh)):
+            marks[top[m].long()] = True
+            marks[leaf.node_flat[m & deep].long()] = True
+    else:
+        levels = torch.round(torch.log2(leaf.cube_sz) / float(np.log2(spec.N))).double()
+        cells[leaf.node_flat[mark].long()] = True
+        cells_fh[leaf.node_flat[mark_fh].long()] = True
+    return leaf, levels
+
+
 def march_census(spec, feats, origins, dirs, opt) -> dict:
     """What this run's data makes a march do, under the forward's rules
-    with exact options: rays that hit, samples, table loads, contributing
-    samples (resident, sigma > 0) and the distinct rows and structure
+    with exact options: rays that hit, samples, lookups and their table
+    loads, contributing samples and the distinct rows and structure
     entries they touch; the same up to each ray's first hit. On the tree
-    a sample's loads are its descent levels and an entry is a leaf cell
+    a lookup's loads are its descent levels and an entry is a leaf cell
     (a child and a data entry); on a bake the rays are culled as its
-    march culls them, a sample loads its top entry and, under a brick
+    march culls them, a lookup loads its top entry and, under a brick
     pointer, its brick entry, and an entry is one int32 of the tables.
-    Only the bounds read it."""
+    In nearest mode a sample makes one lookup and contributes where its
+    own row is resident and its sigma > 0; ``rows`` counts those rows.
+    Under ``opt.interp`` (K4) no ray is culled, a sample makes 9 lookups
+    (its own and its 8 corners') and contributes where the corners' sigma
+    is > 0: ``rows`` counts the corner rows of contributing samples (whose
+    colors the march reads), ``rows_sigma`` the corner rows whose sigma it
+    reads, ``own_rows`` the own rows of contributing samples that have one
+    (the LBS rows), and the first hit is the first contributing sample
+    with an own row, ``rows_fh`` the corner rows read up to it. Only the
+    bounds read it."""
     baked = isinstance(spec, bake_ops.BakedTree)
     o, d, invdir, _, tmin, tmax, hit = render_ops._ray_setup(spec, origins, dirs, opt)
     M = feats.shape[0]
     n_cells = spec.src_map.numel() if baked else spec.data_flat.numel()
     dev = origins.device
     cells, cells_fh = (torch.zeros(n_cells, dtype=torch.bool, device=dev) for _ in range(2))
-    rows, rows_fh = (torch.zeros(M, dtype=torch.bool, device=dev) for _ in range(2))
+    # One more slot than rows: M marks "no row".
+    rows, rows_sigma, own, rows_fh = (torch.zeros(M + 1, dtype=torch.bool, device=dev) for _ in range(4))
     n = {k: torch.zeros((), dtype=torch.float64, device=dev)
          for k in ("samples", "levels", "contrib", "fh_samples", "fh_levels")}
     t, active, searching = tmin, hit.clone(), hit.clone()
-    log_n = float(np.log2(spec.N))
     for _ in range(opt.max_steps):
         if not bool(active.any()):
             break
+        fh = searching & active
         pos = render_ops.sample_position(o, t, d)
-        leaf = render_ops._locate(spec, pos)
+        leaf, levels = _lookup_loads(spec, pos, cells, cells_fh, active, fh)
         dt = render_ops._step(leaf, invdir, opt.step_size, 0)
         idx = leaf.data_idx
-        res = active & (idx >= 0) & (idx < M)
-        sigma = torch.where(res, feats[torch.where(res, idx, 0).long(), -1], 0.0)
-        contrib = res & (sigma > 0)
-        if baked:
-            # the top entry of every sample, plus the entry the pointer leads to
-            p = traversal.clamp_coord(pos)
-            R = spec.R
-            tc = torch.clamp((p * R).to(torch.int32), max=R - 1)
-            top = (tc[:, 0] * R + tc[:, 1]) * R + tc[:, 2]
-            deep = leaf.node_flat >= spec.top.numel()
-            levels = 1.0 + deep.double() + (leaf.node_flat >= spec.top.numel() + spec.n_mid).double() * (
-                spec.mid is not None)
-            for mark, m in ((cells, active), (cells_fh, searching & active)):
-                mark[top[m].long()] = True
-                mark[leaf.node_flat[m & deep].long()] = True
+        res = (idx >= 0) & (idx < M)
+        own_row = torch.where(res, idx, M).long()
+        if opt.interp:
+            points, w = render_ops.corner_points(pos, leaf.cube_sz)
+            sigma = torch.zeros_like(t)
+            sample_rows = []
+            for p_c, w_c in zip(points, w):
+                leaf_c, lv_c = _lookup_loads(spec, p_c, cells, cells_fh, active, fh)
+                levels = levels + lv_c
+                r_c = leaf_c.data_idx
+                ok = (r_c >= 0) & (r_c < M)
+                r_c = torch.where(ok, r_c, M).long()
+                sigma = sigma + torch.where(ok, w_c * feats[torch.clamp(r_c, max=M - 1), -1], 0.0)
+                sample_rows.append(r_c)
+            contrib = active & (sigma > 0)
+            fh_read = fh
         else:
-            levels = torch.round(torch.log2(leaf.cube_sz) / log_n)
-            cells[leaf.node_flat[active].long()] = True
-            cells_fh[leaf.node_flat[searching & active].long()] = True
-        fh = searching & active
+            sigma = torch.where(res, feats[torch.clamp(own_row, max=M - 1), -1], 0.0)
+            sample_rows = [own_row]
+            contrib = active & res & (sigma > 0)
+            fh_read = fh & contrib
+        for r in sample_rows:
+            rows_sigma[r[active]] = True
+            rows[r[contrib]] = True
+            rows_fh[r[fh_read]] = True
+        own[own_row[contrib]] = True
         n["samples"] += active.sum()
         n["levels"] += levels[active].sum()
         n["contrib"] += contrib.sum()
         n["fh_samples"] += fh.sum()
         n["fh_levels"] += levels[fh].sum()
-        rows[idx[contrib].long()] = True
-        rows_fh[idx[fh & contrib].long()] = True
-        searching = searching & ~contrib
+        searching = searching & ~(contrib & res)
         t = torch.where(active, t + dt, t)
         active = active & (t < tmax)
     out = {k: int(v.item()) for k, v in n.items()}
     out.update(rays=origins.shape[0], hits=int(hit.sum()), cells=int(cells.sum()),
-               rows=int(rows.sum()), cells_fh=int(cells_fh.sum()), rows_fh=int(rows_fh.sum()),
-               baked=baked)
+               rows=int(rows[:M].sum()), cells_fh=int(cells_fh.sum()), rows_fh=int(rows_fh[:M].sum()),
+               rows_sigma=int(rows_sigma[:M].sum()), own_rows=int(own[:M].sum()),
+               lookups=(9 if opt.interp else 1) * out["samples"], baked=baked, interp=bool(opt.interp))
     return out
 
 
@@ -460,6 +532,41 @@ def march_bounds(c: dict, M: int, D: int) -> dict:
         "mf_fwd" + sfx: (B * 24 + R * lbs_row + C * cell_b + jtab + B * JOINT_DIM * 4,
                          march_ops + OPS_MF_FWD * c["contrib"]),
         "mf_bwd" + sfx: (B * 24 + B * JOINT_DIM * 4 + R * lbs_row + C * cell_b + 2 * jtab,
+                         march_ops + OPS_MF_BWD * c["contrib"]),
+    })
+
+
+def interp_bounds(c: dict, M: int, D: int) -> dict:
+    """bound_ms and bound_by of the six trilinear (K4) march instances on
+    one structure, from its interp `march_census` ``c``, as `march_bounds`
+    counts them: the sigma of every corner row read (4 bytes), the rest of
+    the rows of contributing samples' corners, the LBS tables of their own
+    rows; a lookup's ops per table load on the tree (OPS_LEVEL) and per
+    lookup on the bake (OPS_LOOKUP), plus OPS_CORNERS per sample."""
+    B = c["rays"]
+    if c["baked"]:
+        cell_b, sfx = 4, "_baked_interp"
+        look_ops, fh_look = OPS_LOOKUP * c["lookups"], OPS_LOOKUP * 9 * c["fh_samples"]
+    else:
+        cell_b, sfx = 8, "_interp"
+        look_ops, fh_look = OPS_LEVEL * c["levels"], OPS_LEVEL * c["fh_levels"]
+    march_ops = OPS_RAY * c["hits"] + look_ops + (OPS_SAMPLE + OPS_CORNERS) * c["samples"]
+    fh_ops = OPS_RAY * c["hits"] + fh_look + (OPS_SAMPLE + OPS_CORNERS) * c["fh_samples"]
+    rows_b = c["rows_sigma"] * 4 + c["rows"] * (D - 1) * 4
+    table_b = c["cells"] * cell_b
+    lbs_b = c["own_rows"] * N_BONES * 8
+    jtab = N_JOINTS * JOINT_DIM * 4
+    return _bounds({
+        "render_fwd" + sfx: (B * 36 + B * 16 + rows_b + table_b,
+                             march_ops + OPS_FWD_SH9_INTERP * c["contrib"]),
+        "render_bwd" + sfx: (B * 36 + 2 * B * 16 + rows_b + table_b + M * D * 4,
+                             march_ops + OPS_BWD_SH9_INTERP * c["contrib"]),
+        "opacity_bwd" + sfx: (B * 24 + 2 * B * 4 + c["rows_sigma"] * 4 + table_b + M * D * 4,
+                              march_ops + OPS_OPACITY_BWD_INTERP * c["contrib"]),
+        "first_hit" + sfx: (B * 24 + c["rows_fh"] * 4 + c["cells_fh"] * cell_b + B * 21, fh_ops),
+        "mf_fwd" + sfx: (B * 24 + c["rows_sigma"] * 4 + lbs_b + table_b + jtab + B * JOINT_DIM * 4,
+                         march_ops + OPS_MF_FWD * c["contrib"]),
+        "mf_bwd" + sfx: (B * 24 + B * JOINT_DIM * 4 + c["rows_sigma"] * 4 + lbs_b + table_b + 2 * jtab,
                          march_ops + OPS_MF_BWD * c["contrib"]),
     })
 
@@ -794,7 +901,7 @@ def main() -> None:
     build_s = b.seconds
     print(f"build: {build_s:.1f} s -> {b.path.name}")
     for line in b.log.splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
+        if line.startswith("== ") or "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
     # Scenes (NumPy, seeded) and device tables
@@ -862,6 +969,15 @@ def main() -> None:
         "calc_corners": dict(route="cuda", source="svox_t_tpu_torch/csrc/edit.cu",
                              replaces="svox_t_tpu/ops/query.py:167"),
     }
+    # The trilinear (K4) instances of the six march kernels: K2, K3 and K9a-d
+    # with K4's corners (svox_t_tpu/ops/render.py:635 `_interp_corners`,
+    # :676 `_gather_interp`).
+    march_src = dict(render_fwd="render_fwd", render_bwd="render_bwd", opacity_bwd="render_bwd",
+                     first_hit="render_aux", mf_fwd="render_aux", mf_bwd="render_aux")
+    for name in MARCH_KERNELS:
+        for sfx in ("_interp", "_baked_interp"):
+            kernels[name + sfx] = dict(route="cuda", source=f"svox_t_tpu_torch/csrc/{march_src[name]}{sfx}.cu",
+                                       replaces="svox_t_tpu/ops/render.py:635")
 
     # 3. Kernel vs plain
     tree = stt.tree_from_numpy(state, device=dev)
@@ -1343,6 +1459,98 @@ def main() -> None:
     print("backends: exact colors, alpha and depth of the baked and tree kernels equal bit for bit "
           f"on {B} rays (SH9, SH9+rot)")
 
+    # 3e. Trilinear interpolation (K4): the interp instances of the six
+    # march kernels on both structures against their plain versions, on
+    # every camera ray of the aux scene (its joints and LBS tables, the
+    # canonical pool), exact as the main path runs them (and the forward
+    # fast too); then the two structures' interp kernels against each
+    # other, exact colors, alpha and depth bit for bit.
+    irng = np.random.RandomState(7)
+    interp_r = stt.VolumeRenderer(tree, interp="trilinear")
+    interp_specs = {"_interp": aux_spec, "_baked_interp": aux_baked}
+    interp_plain_ms, interp_out = {}, {}
+    t_3e = time.perf_counter()
+    for sfx, ispec in interp_specs.items():
+        err = {name: 0.0 for name in MARCH_KERNELS}
+        for fast in (True, False):
+            opt = interp_r._get_options(fast)
+            mode = "fast" if fast else "exact"
+            with torch.no_grad():
+                out_k = render_ops.volume_render_cuda(ispec, feats, origins, dirs, dirs, opt)
+            out_p, p_ms = timed_once_ms(
+                lambda: render_ops.volume_render_plain(ispec, feats, origins, dirs, dirs, opt))
+            e = float((out_k - out_p).abs().max())
+            check(bool(torch.isfinite(out_k).all()) and e <= RENDER_ATOL,
+                  f"render_fwd{sfx} {mode}: kernel vs plain {e} > {RENDER_ATOL}")
+            err["render_fwd"] = max(err["render_fwd"], e)
+            print(f"interp render_fwd{sfx} {mode} ({B} rays): max_abs_err {e:.3g}, "
+                  f"hit share {float((out_k[:, -1] > 0).float().mean()):.3f}, plain {p_ms:.1f} ms")
+        del out_p
+        interp_plain_ms["render_fwd" + sfx] = p_ms
+        g_out = torch.from_numpy(irng.randn(*out_k.shape).astype(np.float32)).to(dev)
+        g_k = render_ops.volume_render_backward_cuda(ispec, feats, origins, dirs, dirs, g_out, opt,
+                                                     out_res=out_k)
+        g_p, interp_plain_ms["render_bwd" + sfx] = timed_once_ms(lambda: render_ops.volume_render_backward_plain(
+            ispec, feats, origins, dirs, dirs, g_out, opt, out_res=out_k))
+        err["render_bwd"] = atomic_err(g_k, g_p, f"render_bwd{sfx}")
+        check(float(g_k.abs().max()) > 0, f"render_bwd{sfx}: zero gradient")
+        print(f"interp render_bwd{sfx} exact (single pass): max_abs_err {err['render_bwd']:.3g} (max|g| "
+              f"{float(g_p.abs().max()):.4g}, {int((g_k != 0).any(dim=1).sum())} rows), "
+              f"plain {interp_plain_ms['render_bwd' + sfx]:.1f} ms")
+        del g_k, g_p
+        with torch.no_grad():
+            ok_, w_k = render_ops.volume_render_with_weight_accum_cuda(ispec, feats, origins, dirs, dirs, opt)
+        op_, w_p = render_ops.volume_render_with_weight_accum_plain(ispec, feats, origins, dirs, dirs, opt)
+        check(float((ok_ - op_).abs().max()) <= RENDER_ATOL, f"render_fwd{sfx} with weights: outputs")
+        err["render_fwd"] = max(err["render_fwd"], atomic_err(w_k, w_p, f"render_fwd{sfx} weights"))
+        check(float(w_k.sum()) > 0, f"render_fwd{sfx}: no weight accumulated")
+        alpha = out_k[:, -1:].contiguous()
+        g_a = torch.from_numpy(irng.randn(B, 1).astype(np.float32)).to(dev)
+        a_k = aux_ops.opacity_backward_cuda(ispec, feats, origins, dirs, g_a, opt, out_res=alpha)
+        a_p, interp_plain_ms["opacity_bwd" + sfx] = timed_once_ms(lambda: aux_ops.opacity_backward_plain(
+            ispec, feats, origins, dirs, g_a, opt, out_res=alpha))
+        err["opacity_bwd"] = atomic_err(a_k, a_p, f"opacity_bwd{sfx}")
+        check(not bool(a_k[:, :-1].any()) and float(a_k[:, -1].abs().max()) > 0,
+              f"opacity_bwd{sfx}: bad gradient")
+        h_k = aux_ops.first_hit_cuda(ispec, feats, origins, dirs, opt)
+        h_p, interp_plain_ms["first_hit" + sfx] = timed_once_ms(
+            lambda: aux_ops.first_hit_plain(ispec, feats, origins, dirs, opt))
+        check(all(torch.equal(a, b_) for a, b_ in zip(h_k[:3], h_p[:3])),
+              f"first_hit{sfx}: found, t_hit or rows differ")
+        err["first_hit"] = float((h_k[3] - h_p[3]).abs().max())
+        check(err["first_hit"] <= RENDER_ATOL and int(h_k[0].sum()) > 0, f"first_hit{sfx}: frac or no hit")
+        m_k = aux_ops.motion_feature_forward_cuda(ispec, jf_true, feats, origins, dirs, opt)
+        m_p, interp_plain_ms["mf_fwd" + sfx] = timed_once_ms(lambda: aux_ops.motion_feature_render_plain(
+            ispec, jf_true, feats, origins, dirs, opt))
+        err["mf_fwd"] = float((m_k - m_p).abs().max())
+        check(bool(torch.isfinite(m_k).all()) and err["mf_fwd"] <= RENDER_ATOL, f"mf_fwd{sfx}: {err['mf_fwd']}")
+        g_m = torch.from_numpy(irng.randn(B, JOINT_DIM).astype(np.float32)).to(dev)
+        b_k = aux_ops.motion_feature_backward_cuda(ispec, jf_true, feats, origins, dirs, g_m, opt)
+        b_p, interp_plain_ms["mf_bwd" + sfx] = timed_once_ms(lambda: aux_ops.motion_feature_backward_plain(
+            ispec, jf_true, feats, origins, dirs, g_m, opt))
+        err["mf_bwd"] = atomic_err(b_k, b_p, f"mf_bwd{sfx}")
+        check(float(b_k.abs().max()) > 0, f"mf_bwd{sfx}: zero gradient")
+        print(f"interp aux{sfx} exact ({B} rays): opacity VJP max_abs_err {err['opacity_bwd']:.3g}, first hit "
+              f"equal ({int(h_k[0].sum())} hits, {int((h_k[1] > 0).sum())} with a t_hit; frac "
+              f"{err['first_hit']:.3g}), motion features {err['mf_fwd']:.3g}, VJP {err['mf_bwd']:.3g}; "
+              f"plain ms {({k: round(v, 1) for k, v in interp_plain_ms.items() if k.endswith(sfx) and not k.startswith('render')})}")
+        for name, e in err.items():
+            kernels[name + sfx]["max_abs_err"] = e
+        with torch.no_grad():
+            interp_out[sfx] = (out_k, aux_ops.render_depth(ispec, feats, origins, dirs, opt))
+    check(torch.equal(interp_out["_interp"][0], interp_out["_baked_interp"][0]),
+          "interp: baked and tree exact outputs differ")
+    check(torch.equal(interp_out["_interp"][1], interp_out["_baked_interp"][1]),
+          "interp: baked and tree exact depths differ")
+    out_it = interp_out["_interp"][0]
+    with torch.no_grad():
+        out_n = render_ops.volume_render_cuda(aux_baked, feats, origins, dirs, dirs, sh_renderer._get_options(False))
+    print(f"interp backends: exact colors, alpha and depth of the baked and tree interp kernels equal bit for bit "
+          f"on {B} rays; hit share {float((out_it[:, -1] > 0).float().mean()):.4f} (nearest "
+          f"{float((out_n[:, -1] > 0).float().mean()):.4f}), max |interp - nearest| "
+          f"{float((out_it - out_n).abs().max()):.4g}; phase 3e {time.perf_counter() - t_3e:.1f} s")
+    del interp_out, out_it, out_n
+
     # 4. Main path, serving: three frames through the public entry points,
     # on the default baked backend (baked once, as at load; every re-point
     # then refreshes the bake) and on the tree walk.
@@ -1779,9 +1987,98 @@ def main() -> None:
     check(edit_counts["render_fwd_baked"] >= 4 and edit_counts["render_fwd"] >= 2,
           "tree editing: the renders did not run on both backends")
 
+    # 4j. Main path, trilinear interpolation (K4) through
+    # VolumeRenderer(interp="trilinear") on both backends, on the aux scene
+    # re-pointed at frame 1's cloud: an exact and a fast frame; one training
+    # step (image MSE, opacity mask loss and motion-feature MSE over the
+    # pool and the joint features) with backward() inside
+    # accumulate_weights(); render_depth and motion_render (the reference's
+    # hit point). Only interp instances of the march kernels may launch.
+    interp_counts, interp_frames, interp_frame_ms = {}, {}, {}
+    i_target = serve_images["baked"][0][0]
+    for backend in BACKENDS:
+        isfx = SUFFIX[backend] + "_interp"
+        i_tree = stt.tree_from_numpy(aux_state, device=dev)
+        i_r = stt.VolumeRenderer(i_tree, backend=backend, interp="trilinear")
+        i_r.compat_hit_point = 1
+        if backend == "baked":
+            i_tree._baked_spec()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            i_tree.construct_tree(frame_points[0])
+            img_e = i_r.render_persp(frame_feats[0], c2w, WIDTH, HEIGHT, fx=FX)
+            img_f = i_r.render_persp(frame_feats[0], c2w, WIDTH, HEIGHT, fx=FX, fast=True)
+            t_alpha = i_r.opacity_render(true_pool, cam_rays)
+            t_mf = i_r.motion_feature_render(true_pool, jf_true, sw, ji, cam_rays)
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3
+        i_pool = pool0.clone().requires_grad_()
+        i_jf = jf_init.clone().requires_grad_()
+        t0 = time.perf_counter()
+        with i_tree.accumulate_weights() as i_acc:
+            img = i_r.render_persp(i_pool, c2w, WIDTH, HEIGHT, fx=FX)
+            alpha = i_r.opacity_render(i_pool, cam_rays)
+            mf = i_r.motion_feature_render(i_pool, i_jf, sw, ji, cam_rays)
+            loss = (((img - i_target) ** 2).mean() + MASK_WEIGHT * ((alpha - t_alpha) ** 2).mean()
+                    + ((mf - t_mf) ** 2).mean())
+            loss.backward()
+        torch.cuda.synchronize()
+        step_ms_i = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            depth = i_r.render_depth(frame_feats[0], cam_rays)
+            motion = i_r.motion_render(frame_feats[0], cam_rays)
+        torch.cuda.synchronize()
+        counts = interp_counts[backend] = read_counts()
+        w = i_acc()
+        print(f"main path, interp ({LABEL[backend]}): launches {nonzero(counts)}; host ms: construct + exact "
+              f"+ fast frames + opacity and motion-feature targets {frame_ms:.3f}, training step "
+              f"{step_ms_i:.3f}; loss {float(loss):.8g}")
+        for name in MARCH_KERNELS:
+            check(counts[name + isfx] > 0, f"interp: {name + isfx} not launched")
+            check(all(counts[name + s] == 0 for s in ("", "_baked")),
+                  f"interp: a nearest-mode {name} instance launched")
+        check_bake_counts(counts, backend, 1)
+        for im in (img_e, img_f):
+            a = im[..., 3]
+            check(tuple(im.shape) == (HEIGHT, WIDTH, 4) and bool(torch.isfinite(im).all())
+                  and bool((a >= 0).all() and (a <= 1).all() and (a > 0).any() and (a == 0).any()),
+                  f"interp ({backend}): bad frame")
+        for name, x in (("pool", i_pool), ("joint features", i_jf)):
+            check(x.grad is not None and bool(torch.isfinite(x.grad).all()) and float(x.grad.abs().max()) > 0,
+                  f"interp ({backend}): bad {name} gradient")
+        check(bool(torch.isfinite(w).all()) and float(w.sum()) > 0, f"interp ({backend}): no weights")
+        found = depth[:, 0] > 0
+        check(bool(found.any()) and torch.equal(depth, motion[1]) and bool((motion[3][found] < M).all()),
+              f"interp ({backend}): bad depth or hit rows")
+        ref = render_ops.volume_render_plain(i_r._render_spec(), frame_feats[0], origins[sample[::8]],
+                                             dirs[sample[::8]], dirs[sample[::8]], i_r._get_options(False))
+        err = float((img_e.reshape(B, 4)[sample[::8]] - ref).abs().max())
+        check(err <= RENDER_ATOL, f"interp ({backend}): served frame vs plain {err}")
+        # The interp frame on the host clock: least of 3 warm exact frames.
+        dts = []
+        with torch.no_grad():
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                i_r.render_persp(frame_feats[0], c2w, WIDTH, HEIGHT, fx=FX)
+                torch.cuda.synchronize()
+                dts.append((time.perf_counter() - t0) * 1e3)
+        interp_frame_ms[backend] = min(dts)
+        print(f"interp frames ({backend}): hit share {float((img_e[..., 3] > 0).float().mean()):.4f}, exact "
+              f"frame vs plain on {sample[::8].numel()} pixels max_abs_err {err:.3g}; weights sum "
+              f"{float(w.sum()):.6g} on {int((w > 0).sum())} leaves; {int(found.sum())} depth hits; "
+              f"exact render_persp host ms (least of 3) {interp_frame_ms[backend]:.4f}")
+        interp_frames[backend] = (img_e, depth, motion)
+    check(all(torch.equal(a, b_) for a, b_ in zip(interp_frames["baked"][:2] + tuple(interp_frames["baked"][2]),
+                                                  interp_frames["tree"][:2] + tuple(interp_frames["tree"][2]))),
+          "interp: the backends' exact frames, depths or motion outputs differ")
+    print("interp: the backends' exact frames, depths and motion outputs equal bit for bit")
+
     phases = (*serve_counts.values(), *train_counts.values(), *aux_serve_counts.values(),
               *aux_train_counts.values(), *dyn_counts, vox_counts, *dyn_train_counts.values(),
-              pose_counts, *bench_counts.values(), edit_counts)
+              pose_counts, *bench_counts.values(), edit_counts, *interp_counts.values())
     for k in kernels:
         kernels[k]["launches"] = sum(c[k] for c in phases)
         check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
@@ -1922,6 +2219,37 @@ def main() -> None:
                   f"{kernels[name[: -len('_baked')]]['ms']:.4f} ms), plain {p_ms:.1f} ms "
                   f"(one call, phase 3d) [{card}]")
 
+        # The trilinear (K4) instances, exact, on the aux scene (canonical
+        # rows); plain: one call, phase 3e. The nearest-mode kernel of the
+        # same structure in the same turn, for comparison.
+        opt = interp_r._get_options(False)
+        opt_n = sh_renderer._get_options(False)
+        for sfx, ispec in interp_specs.items():
+            out = render_ops.volume_render_cuda(ispec, feats, origins, dirs, dirs, opt)
+            g_out = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(dev)
+            alpha = out[:, -1:].contiguous()
+            g_a = torch.from_numpy(rng.randn(B, 1).astype(np.float32)).to(dev)
+            g_m = torch.from_numpy(rng.randn(B, JOINT_DIM).astype(np.float32)).to(dev)
+            runs = {
+                "render_fwd": lambda o_=opt: render_ops.volume_render_cuda(ispec, feats, origins, dirs, dirs, o_),
+                "render_bwd": lambda o_=opt: render_ops.volume_render_backward_cuda(
+                    ispec, feats, origins, dirs, dirs, g_out, o_, out_res=out),
+                "opacity_bwd": lambda o_=opt: aux_ops.opacity_backward_cuda(
+                    ispec, feats, origins, dirs, g_a, o_, out_res=alpha),
+                "first_hit": lambda o_=opt: aux_ops.first_hit_cuda(ispec, feats, origins, dirs, o_),
+                "mf_fwd": lambda o_=opt: aux_ops.motion_feature_forward_cuda(
+                    ispec, jf_true, feats, origins, dirs, o_),
+                "mf_bwd": lambda o_=opt: aux_ops.motion_feature_backward_cuda(
+                    ispec, jf_true, feats, origins, dirs, g_m, o_),
+            }
+            for name, run_k in runs.items():
+                k_ms = time_ms(run_k, KERNEL_REPS)
+                n_ms = time_ms(lambda: run_k(opt_n), KERNEL_REPS)
+                kernels[name + sfx].update(ms=k_ms, plain_ms=interp_plain_ms[name + sfx])
+                print(f"time {name}{sfx} SH9 exact {WIDTH}x{HEIGHT}: kernel {k_ms:.4f} ms (nearest mode "
+                      f"{n_ms:.4f} ms in the same turn), plain {interp_plain_ms[name + sfx]:.1f} ms (one call, "
+                      f"phase 3e) [{card}]")
+
         # The bake's kernels at the main path's shapes; plain: one call,
         # phase 3d.
         runs = {
@@ -2037,6 +2365,10 @@ def main() -> None:
                               baked.top.numel() + baked.n_mid, gb.R))
     print(f"census (SH9 exact, {WIDTH}x{HEIGHT}, tree walk): {census}")
     print(f"census (SH9 exact, {WIDTH}x{HEIGHT}, bake): {census_b}")
+    for label, ispec in (("tree walk", aux_spec), ("bake", aux_baked)):
+        c_i = march_census(ispec, feats, origins, dirs, interp_r._get_options(False))
+        bounds.update(interp_bounds(c_i, M, 28))
+        print(f"census (SH9 exact, interp, {WIDTH}x{HEIGHT}, {label}): {c_i}")
     p2v_c = p2v_census(warped1, grid)
     bounds.update(dynamic_bounds(M, N_BONES, N_JOINTS, 28, P2V_N, p2v_c, touched))
     print(f"census (voxelize, {P2V_N}^3, W {grid.W}): {p2v_c}, {touched} voxels touched")

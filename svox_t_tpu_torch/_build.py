@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import NamedTuple
 
@@ -35,6 +36,15 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# The trilinear sources (`*_interp.cu`) hold the most kernel instances and
+# set the build's wall time; they also run their optimizer passes in
+# parallel threads. The other sources compile as before. The log gives
+# each source's seconds.
+SPLIT_FLAGS = ("-split-compile=0",)
+
+
+def _flags(src: Path):
+    return NVCC_FLAGS + (SPLIT_FLAGS if src.stem.endswith("_interp") else ())
 
 
 def _sources():
@@ -53,7 +63,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + SPLIT_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -62,7 +72,8 @@ def library_path() -> Path:
 
 class Build(NamedTuple):
     """Result of `build()`: the library path, the seconds the compile
-    took (0.0 when the library was already built) and nvcc's log."""
+    took (0.0 when the library was already built) and nvcc's log, one
+    section per source headed ``== <source> (<seconds> s)``."""
 
     path: Path
     seconds: float
@@ -82,14 +93,19 @@ def build() -> Build:
     jobs = []
     for src in sorted(CSRC.glob("*.cu")):
         obj = BUILD_DIR / f"{stem}.{src.stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        cmd = [nvcc, *_flags(src), "-c", "-o", str(obj), str(src)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         jobs.append((src, obj, proc))
-    logs, failed = [], []
-    for src, obj, proc in jobs:
+    def finish(proc):
         out, _ = proc.communicate()
-        logs.append(out)
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        results = list(pool.map(finish, [proc for _, _, proc in jobs]))
+    logs, failed = [], []
+    for (src, obj, proc), (out, secs) in zip(jobs, results):
+        logs.append(f"== {src.name} ({secs:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(f"{src.name} ({proc.returncode}):\n{out}")
     objs = [obj for _, obj, _ in jobs]

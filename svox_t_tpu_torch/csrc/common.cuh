@@ -1,5 +1,6 @@
 // Shared device functions of the octree kernels (K1), the baked lookup
-// (K6), the march step and the spherical bases of the march kernels.
+// (K6), the march step, trilinear interpolation (K4) and the spherical
+// bases of the march kernels.
 //
 // Replaces: svox_t_tpu/ops/traversal.py `descend` (the batched
 // fixed-trip-count descent), `dda_unit`, `get_delta_scale` and
@@ -417,6 +418,82 @@ __device__ __forceinline__ Leaf sample_leaf(const S& s, const Ray& r, float t,
 }
 
 // ---------------------------------------------------------------------
+// K4: trilinear interpolation. Replaces svox_t_tpu/ops/render.py
+// `_interp_corners` and `_gather_interp` (ops/render.py `interp_corners`,
+// `_interp`). A source that defines SVOX_INTERP 1 instantiates its march
+// kernels with kInterp: each sample then reads the 8 cells around it on
+// its own leaf's grid, each one S::lookup (a descent, or the baked
+// lookup), instead of its own row. The nearest-mode instances leave SVOX_INTERP
+// undefined, and every interp branch is an `if constexpr` that compiles
+// away there.
+
+#ifndef SVOX_INTERP
+#define SVOX_INTERP 0
+#endif
+constexpr bool kInterp = SVOX_INTERP != 0;
+
+// The structure's cull of a ray (S::cull), which is off under interp:
+// corner cells bleed sigma up to half a cell outside the occupied box.
+template <class S>
+__device__ __forceinline__ bool march_cull(const S& s, Ray& r, bool hit) {
+  if constexpr (kInterp) {
+    return hit;
+  } else {
+    return s.cull(r, hit);
+  }
+}
+
+// The 8 corners of a sample: each corner's row (-1 where it is not < M,
+// empty space, which adds nothing) and trilinear weight; corner
+// n = 4 i + 2 j + k.
+struct Corners {
+  int32_t row[8];
+  float w[8];
+};
+
+// The corners of the point (x, y, z) in a leaf of cube_sz cells a side:
+// g = p * cube_sz - 0.5, b = floor(g), corner (i, j, k) at
+// (b + (i + 0.5)) * (1 / cube_sz) per axis (the lookup clamps it to the
+// cube: clamp to the edge), weight (fx * fy) * fz with f = w or 1 - w,
+// w = g - b. The arithmetic is the plain version's, multiply by the
+// reciprocal included; with -fmad=false the corners are its bit for bit.
+// The 8 lookups do not depend on each other, so their load chains
+// overlap.
+template <class S>
+__device__ __forceinline__ Corners sample_corners(const S& s, const Ray& r, float t,
+                                                  float cube_sz, int M) {
+  float x, y, z;
+  sample_pos(r, t, x, y, z);
+  const float gx = x * cube_sz - 0.5f, gy = y * cube_sz - 0.5f, gz = z * cube_sz - 0.5f;
+  const float bx = floorf(gx), by = floorf(gy), bz = floorf(gz);
+  const float wx = gx - bx, wy = gy - by, wz = gz - bz;
+  const float inv = 1.f / cube_sz;
+  Corners c;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int i = n >> 2, j = (n >> 1) & 1, k = n & 1;
+    const int32_t row = s.lookup((bx + (i ? 1.5f : 0.5f)) * inv, (by + (j ? 1.5f : 0.5f)) * inv,
+                                 (bz + (k ? 1.5f : 0.5f)) * inv).row;
+    c.row[n] = static_cast<uint32_t>(row) < static_cast<uint32_t>(M) ? row : -1;
+    c.w[n] = ((i ? wx : 1.f - wx) * (j ? wy : 1.f - wy)) * (k ? wz : 1.f - wz);
+  }
+  return c;
+}
+
+// sum_n w_n * f(row_n) over the corners with a row, in corner order from
+// 0, as the plain version sums. f is linear in the row's features, so this
+// equals f of the interpolated row to rounding, without holding that row.
+template <class F>
+__device__ __forceinline__ float interp_sum(const Corners& c, F f) {
+  float s = 0.f;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (c.row[n] >= 0) s = s + c.w[n] * f(c.row[n]);
+  }
+  return s;
+}
+
+// ---------------------------------------------------------------------
 // Spherical bases (ops/sh.py), evaluated at a view direction as passed.
 
 // Feature formats, as utils/spec.py numbers them.
@@ -545,6 +622,49 @@ __device__ __forceinline__ void eval_basis(float x, float y, float z,
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+// The pre-sigmoid color c of a feature row (the interp marches; K2 and K3
+// keep theirs inline): row[c] (RGBA), or sum_k basis_k * row[c * nb + k]
+// summed over k in order (KB the basis capacity, nb its run-time size).
+template <int FMT, int KB>
+__device__ __forceinline__ float row_logit(const float* __restrict__ row, int c, int nb,
+                                           const float* basis) {
+  if constexpr (FMT == kRGBA) {
+    return __ldg(row + c);
+  } else {
+    const float* coef = row + c * nb;
+    float s = basis[0] * __ldg(coef);
+#pragma unroll
+    for (int k = 1; k < KB; ++k) {
+      if (k < nb) s = s + basis[k] * __ldg(coef + k);
+    }
+    return s;
+  }
+}
+
+// The pre-sigmoid colors of an interp sample: z[c] = sum_n w_n *
+// row_logit(row_n, c) over the corners with a row, in corner order from 0
+// (as `interp_sum`), for c < nc of the instance's KMAX. The corner loop is
+// not unrolled: 8 corners x KMAX colors x KB basis terms of straight-line
+// code per instance is more than the compiler finishes in a build's time.
+template <int FMT, int KB, int KMAX>
+__device__ __forceinline__ void interp_logits(const Corners& cn, const float* __restrict__ features,
+                                              int D, int nc, int nb, const float* basis,
+                                              float* z) {
+#pragma unroll
+  for (int c = 0; c < KMAX; ++c) z[c] = 0.f;
+#pragma unroll 1
+  for (int n = 0; n < 8; ++n) {
+    const int32_t row = cn.row[n];
+    if (row < 0) continue;
+    const float* f = features + static_cast<size_t>(row) * D;
+    const float w = cn.w[n];
+#pragma unroll
+    for (int c = 0; c < KMAX; ++c) {
+      if (c < nc) z[c] = z[c] + w * row_logit<FMT, KB>(f, c, nb, basis);
+    }
+  }
 }
 
 }  // namespace svox

@@ -55,6 +55,14 @@
 // or 32, template instances) with Kd a run-time bound inside, as K2 holds
 // colors; nb is a run-time loop bound.
 //
+// Trilinear interpolation (K4): render_aux_interp.cu and
+// render_aux_baked_interp.cu define SVOX_INTERP 1 (svox_first_hit_interp,
+// svox_mf_fwd_interp, svox_mf_bwd_interp and their _baked_interp twins).
+// No ray is culled or clamped to the box; a sample's sigma is its 8
+// corners' (sample_at), also in an empty leaf, which is then "over" but
+// not resident for the first hit, and attenuates without blending in the
+// motion-feature passes.
+//
 // Arithmetic follows the plain PyTorch versions (ops/render_aux.py)
 // operation for operation, and the library is built with -fmad=false, so
 // samples, hits and fractions agree bit for bit; only the order in which
@@ -93,7 +101,7 @@ using svox::Ray;
 __device__ __forceinline__ bool setup_ray(const March& m, int i, Ray& r,
                                           bool cube_hit = false) {
   const bool hit = svox::setup_ray(m.origins, m.dirs, m.offset, m.scaling, i, r);
-  const bool culled = m.st.cull(r, hit);
+  const bool culled = svox::march_cull(m.st, r, hit);
   return cube_hit ? hit : culled;
 }
 
@@ -111,7 +119,15 @@ __device__ __forceinline__ Sample sample_at(const March& m, const Ray& r, float 
   s.leaf = svox::sample_leaf(m.st, r, t, m.step_size, s.dt);
   s.idx = s.leaf.row;
   s.resident = static_cast<uint32_t>(s.idx) < static_cast<uint32_t>(m.M);
-  s.sigma = s.resident ? __ldg(m.features + static_cast<size_t>(s.idx) * m.D + m.D - 1) : 0.f;
+  if constexpr (svox::kInterp) {
+    // K4: the corners' sigma, also where the sample's own leaf is empty.
+    const svox::Corners cn = svox::sample_corners(m.st, r, t, s.leaf.cube_sz, m.M);
+    s.sigma = svox::interp_sum(cn, [&](int32_t row) {
+      return __ldg(m.features + static_cast<size_t>(row) * m.D + m.D - 1);
+    });
+  } else {
+    s.sigma = s.resident ? __ldg(m.features + static_cast<size_t>(s.idx) * m.D + m.D - 1) : 0.f;
+  }
   return s;
 }
 
@@ -279,6 +295,14 @@ __global__ void __launch_bounds__(kThreads) mf_bwd_kernel(const MotionParams p) 
     for (int step = 0; step < p.m.max_steps; ++step) {
       if (!(t < r.tmax)) break;
       const Sample s = sample_at(p.m, r, t);
+      if constexpr (svox::kInterp) {
+        // An empty leaf attenuates but has no LBS row to add to.
+        if (s.sigma > 0.f && !s.resident) {
+          L = L * expf((-s.dt * r.ds) * s.sigma);
+          t = t + s.dt;
+          continue;
+        }
+      }
       if (s.sigma > 0.f) {
         const float att = expf((-s.dt * r.ds) * s.sigma);
         const float weight = L * (1.f - att);

@@ -66,6 +66,14 @@
 // column with zero color gradients (ops/render_aux.py
 // `opacity_backward_plain`). Bound on an H100: as K3, the descent chain
 // per sample; one 4-byte atomic per contributing sample.
+//
+// Trilinear interpolation (K4): render_bwd_interp.cu and
+// render_bwd_baked_interp.cu define SVOX_INTERP 1 (svox_render_bwd_interp,
+// svox_opacity_bwd_interp and their _baked_interp twins), whose `march`
+// takes its `if constexpr (svox::kInterp)` step: no cull, every sample
+// reads its 8 corners, a sample contributes where the interpolated sigma
+// is > 0, and each of its gradients goes to the corners' rows, weighted
+// (8x the atomics; the simple version, not yet made fast).
 
 #pragma once
 
@@ -108,6 +116,16 @@ struct Ray : svox::Ray {
   float vx, vy, vz;
 };
 
+// Add v * w_n into column col of every corner's gradient row.
+template <class S>
+__device__ __forceinline__ void add_corners(const Params<S>& p, const svox::Corners& cn, int col,
+                                            float v) {
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    if (cn.row[n] >= 0) atomicAdd(p.grad + static_cast<size_t>(cn.row[n]) * p.D + col, cn.w[n] * v);
+  }
+}
+
 // One backward march. kColor: add the coefficient rows and sum accum
 // upward; kSigma: add the sigma column, with acc falling from its start.
 // kSigmaOnly: read only sigma and add dt*ds * (g_alpha * L_ray) (with
@@ -127,7 +145,77 @@ __device__ __forceinline__ void march(const Params<S>& p, const Ray& r,
     float dt;
     const svox::Leaf leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
     const int32_t idx = leaf.row;
-    if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
+    if constexpr (svox::kInterp) {
+      // K4: every sample reads its 8 corners and contributes where the
+      // interpolated sigma is > 0, also in an empty leaf; it rotates its
+      // basis by its own row's matrix (row 0 where that is empty, as in the
+      // JAX package), and each gradient goes into the corners' rows
+      // weighted by w_n: coefficient k of color c gets w_n * (a_c *
+      // basis_k), column D - 1 gets w_n * the sigma gradient. Up to 8x the
+      // atomics of nearest mode.
+      const svox::Corners cn = svox::sample_corners(p.st, r, t, leaf.cube_sz, p.M);
+      const float sigma = svox::interp_sum(cn, [&](int32_t row) {
+        return __ldg(p.features + static_cast<size_t>(row) * p.D + p.D - 1);
+      });
+      if (sigma > 0.f) {
+        const float att = expf((-dt * r.ds) * sigma);
+        if constexpr (kSigmaOnly) {
+          if constexpr (kSigma) add_corners(p, cn, p.D - 1, (dt * r.ds) * (g_alpha * L_ray));
+          L = L * att;
+          t = t + dt;
+          continue;
+        }
+        const float weight = L * (1.f - att);
+        if constexpr (FMT != svox::kRGBA && kRot) {
+          const int32_t gi = static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M) ? idx : 0;
+          const float* m = p.tmats + static_cast<size_t>(gi) * 16;
+          const float rx = (m[0] * r.vx + m[1] * r.vy) + m[2] * r.vz;
+          const float ry = (m[4] * r.vx + m[5] * r.vy) + m[6] * r.vz;
+          const float rz = (m[8] * r.vx + m[9] * r.vy) + m[10] * r.vz;
+          svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb, p.min_comp, p.max_comp,
+                                    basis);
+        }
+        float z[kMaxColor];
+        svox::interp_logits<FMT, kB, kMaxColor>(cn, p.features, p.D, nc, nb, basis, z);
+        float total_color = 0.f;
+#pragma unroll
+        for (int c = 0; c < kMaxColor; ++c) {
+          if (c < nc) {
+            const float s = svox::sigmoid(z[c]);
+            total_color = total_color + s * g[c];
+            if constexpr (kColor) {
+              const float a = (weight * (s * (1.f - s))) * g[c];
+              // The corner loop is not unrolled (see svox::interp_logits).
+#pragma unroll 1
+              for (int n = 0; n < 8; ++n) {
+                if (cn.row[n] < 0) continue;
+                float* grow = p.grad + static_cast<size_t>(cn.row[n]) * p.D;
+                const float w = cn.w[n];
+                if constexpr (FMT == svox::kRGBA) {
+                  atomicAdd(grow + c, w * a);
+                } else {
+#pragma unroll
+                  for (int k = 0; k < kB; ++k) {
+                    if (k < nb) atomicAdd(grow + c * nb + k, w * (a * basis[k]));
+                  }
+                }
+              }
+            }
+          }
+        }
+        const float L_after = L * att;
+        if constexpr (kSigma) {
+          const float acc_after = acc - weight * total_color;
+          const float dts = dt * r.ds;
+          add_corners(p, cn, p.D - 1,
+                      dts * (total_color * L_after - acc_after) + dts * (g_alpha * L_ray));
+          acc = acc_after;
+        } else {
+          acc = acc + weight * total_color;
+        }
+        L = L_after;
+      }
+    } else if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
       const float* row = p.features + static_cast<size_t>(idx) * p.D;
       float* grow = p.grad + static_cast<size_t>(idx) * p.D;
       const float sigma = __ldg(row + p.D - 1);
@@ -204,7 +292,7 @@ __global__ void __launch_bounds__(kThreads) render_bwd_kernel(const Params<S> p)
 
   // Rays that miss add nothing.
   Ray r;
-  if (!p.st.cull(r, svox::setup_ray(p.origins, p.dirs, p.offset, p.scaling, i, r))) return;
+  if (!svox::march_cull(p.st, r, svox::setup_ray(p.origins, p.dirs, p.offset, p.scaling, i, r))) return;
   r.vx = p.vdirs[3 * i + 0];
   r.vy = p.vdirs[3 * i + 1];
   r.vz = p.vdirs[3 * i + 2];
@@ -267,7 +355,7 @@ __global__ void __launch_bounds__(kThreads) opacity_bwd_kernel(const Params<S> p
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
   Ray r;
-  if (!p.st.cull(r, svox::setup_ray(p.origins, p.dirs, p.offset, p.scaling, i, r))) return;
+  if (!svox::march_cull(p.st, r, svox::setup_ray(p.origins, p.dirs, p.offset, p.scaling, i, r))) return;
   float L, acc = 0.f, L_ray;
   if (p.out_res != nullptr) {
     L_ray = 1.f - p.out_res[i];

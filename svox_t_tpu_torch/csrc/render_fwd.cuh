@@ -48,6 +48,18 @@
 // Arithmetic follows the plain PyTorch version (ops/render.py) operation
 // for operation, and the library is built with -fmad=false, so the sample
 // positions agree bit for bit with it.
+//
+// Trilinear interpolation (K4): render_fwd_interp.cu and
+// render_fwd_baked_interp.cu define SVOX_INTERP 1 (svox_render_fwd_interp,
+// svox_render_fwd_baked_interp). Their rays are not culled (march_cull);
+// every sample, in an empty leaf too, reads its 8 corners
+// (svox::sample_corners, 8 lookups), sums sigma over them and, where it
+// composites, each color's pre-sigmoid sum as sum_n w_n * (basis . row_n)
+// (interp_sum, row_logit), so no interpolated D-wide row is held; the own
+// row (0 where it is empty) only picks the rotation, and the weight adds
+// into the own cell. Bound on an H100: as above, with 9 lookup chains per
+// sample instead of one; the 8 corner chains are independent, so their
+// latency overlaps.
 
 #pragma once
 
@@ -102,7 +114,7 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params<S> p)
 
   svox::Ray r;
   const bool hit = svox::setup_ray(p.origins, p.dirs, p.offset, p.scaling, i, r);
-  if (!p.st.cull(r, hit)) {
+  if (!svox::march_cull(p.st, r, hit)) {
     for (int c = 0; c < nc; ++c) out[c] = p.bg;
     out[nc] = 0.f;
     return;
@@ -127,10 +139,42 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params<S> p)
     float dt;
     const svox::Leaf leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
     const int32_t idx = leaf.row;
-    // Rows >= M (and negative rows) are empty space. Their sigma is 0 and
-    // a sample with sigma 0 adds weight 0 and leaves L unchanged, so it is
-    // skipped.
-    if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
+    if constexpr (svox::kInterp) {
+      // K4: sigma and colors from the 8 corners, in every leaf; the own row
+      // (row 0 where it is empty, as in the JAX package) only rotates.
+      const svox::Corners cn = svox::sample_corners(p.st, r, t, leaf.cube_sz, p.M);
+      const float sigma = svox::interp_sum(cn, [&](int32_t row) {
+        return __ldg(p.features + static_cast<size_t>(row) * p.D + p.D - 1);
+      });
+      if (sigma > p.sigma_thresh) {
+        const float att = expf((-dt * r.ds) * sigma);
+        const float weight = L * (1.f - att);
+        if constexpr (FMT != svox::kRGBA && kRot) {
+          const int32_t gi = static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M) ? idx : 0;
+          const float* m = p.tmats + static_cast<size_t>(gi) * 16;
+          const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
+          const float ry = (m[4] * vx + m[5] * vy) + m[6] * vz;
+          const float rz = (m[8] * vx + m[9] * vy) + m[10] * vz;
+          svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb,
+                                    p.min_comp, p.max_comp, basis);
+        }
+        float z[kMaxColor];
+        svox::interp_logits<FMT, kB, kMaxColor>(cn, p.features, p.D, nc, nb, basis, z);
+#pragma unroll
+        for (int c = 0; c < kMaxColor; ++c) {
+          if (c < nc) acc[c] = acc[c] + weight * svox::sigmoid(z[c]);
+        }
+        if constexpr (kWeights) atomicAdd(p.waccum + p.st.tree_cell(leaf.flat), weight);
+        L = L * att;
+        if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
+          stopped = true;
+          break;
+        }
+      }
+    } else if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
+      // Rows >= M (and negative rows) are empty space. Their sigma is 0 and
+      // a sample with sigma 0 adds weight 0 and leaves L unchanged, so it is
+      // skipped.
       const float* row = p.features + static_cast<size_t>(idx) * p.D;
       const float sigma = __ldg(row + p.D - 1);
       if (sigma > p.sigma_thresh) {

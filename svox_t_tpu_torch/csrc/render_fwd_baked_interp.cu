@@ -1,0 +1,5 @@
+// The render_fwd.cuh kernels with trilinear interpolation (K4) on the bake.
+#define SVOX_STRUCTURE svox::Baked
+#define SVOX_SUFFIX _baked_interp
+#define SVOX_INTERP 1
+#include "render_fwd.cuh"

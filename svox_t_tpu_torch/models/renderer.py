@@ -35,8 +35,11 @@ the tree's bake (`N3Tree._baked_spec`, `ops/bake.py`): a dense top grid
 and brick atlas, the occupied-box cull, and in fast mode the box advance
 and the skip boxes. ``backend="tree"`` walks the octree. The two give the
 same exact-mode outputs bit for bit; fast mode differs between them, as
-in the JAX package. Trilinear interpolation and quantized pools raise
-NotImplementedError until the ROADMAP items that bring them land. Image
+in the JAX package. ``interp="trilinear"`` interpolates every sample from
+the 8 cells around it (K4, `ops/render.py` `interp_corners`) in every
+march and aux pass on both backends; the bake's box cull, box advance
+and skip boxes are then off, as in the JAX package. Quantized pools
+raise NotImplementedError until the ROADMAP item that brings them. Image
 renders march rays in pixel order: the JAX package's tile and cost orders
 only schedule work and do not change the image.
 """
@@ -99,20 +102,18 @@ class VolumeRenderer(nn.Module):
         round_size: int = 0,
     ):
         """`backend`: "baked" (default) renders through the tree's bake,
-        "tree" walks the octree. `chunk_size` and `round_size` schedule
-        work on a TPU; they are accepted and ignored."""
+        "tree" walks the octree. `interp`: "nearest" (0, leaf-constant
+        features) or "trilinear" (1, K4: each sample interpolates the 8
+        cells around it on its leaf's grid). `chunk_size` and `round_size`
+        schedule work on a TPU; they are accepted and ignored."""
         super().__init__()
         if backend not in ("baked", "tree"):
             raise ValueError(f"unknown backend {backend!r}")
-        if interp in ("trilinear", 1):
-            raise NotImplementedError(
-                "interp='trilinear' waits for K4 (ROADMAP.md §1 item 10)"
-            )
-        if interp not in ("nearest", 0):
+        if interp not in ("nearest", "trilinear", 0, 1):
             raise ValueError(f"unknown interp {interp!r}")
         self.tree = tree
         self.backend = backend
-        self.interp = 0
+        self.interp = 1 if interp in ("trilinear", 1) else 0
         self.chunk_size = chunk_size
         self.round_size = int(round_size)
         self.step_size = step_size

@@ -51,6 +51,18 @@ kernels take the structure as a template parameter (`csrc/common.cuh`
 ``TreeWalk`` / ``Baked``); the baked instances are their own entry points
 (``RENDER_FWD_BAKED``, ``RENDER_BWD_BAKED``).
 
+Trilinear interpolation (``opt.interp``, K4; JAX `_interp_corners`,
+`_gather_interp`): a sample's sigma and colors come from the 8 cells
+around it on its own leaf's grid (`interp_corners`), also where its own
+leaf is empty; every active sample is valid, and its own row (0 where it
+is empty) only picks its rotation. The corners' colors are summed as
+``sum_c w_c * (basis . row_c)`` per color (`_interp`), the order of the
+kernels, which hold no interpolated row; the gradients go to the
+corners' rows, weighted. The bake's box is not used at all (no cull, no
+clamp, no box advance) and skip boxes are off. The interp kernels are
+their own instances (``RENDER_FWD_INTERP``, ``RENDER_FWD_BAKED_INTERP``,
+...; `csrc/render_*_interp.cu`).
+
 The JAX package forms L as a per-round cumulative product and scatters
 gradients deterministically, while this port multiplies per sample and
 the kernels add gradients with float atomics, so the two agree to a few
@@ -61,6 +73,7 @@ from __future__ import annotations
 
 import ctypes
 from ctypes import c_float, c_int, c_void_p
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -91,6 +104,13 @@ RENDER_FWD = Kernel("svox_render_fwd", _FWD_ARGS)
 RENDER_BWD = Kernel("svox_render_bwd", _BWD_ARGS)
 RENDER_FWD_BAKED = Kernel("svox_render_fwd_baked", _FWD_ARGS)
 RENDER_BWD_BAKED = Kernel("svox_render_bwd_baked", _BWD_ARGS)
+# The trilinear (K4) instances: csrc/render_*_interp.cu, render_*_baked_interp.cu.
+RENDER_FWD_INTERP = Kernel("svox_render_fwd_interp", _FWD_ARGS)
+RENDER_BWD_INTERP = Kernel("svox_render_bwd_interp", _BWD_ARGS)
+RENDER_FWD_BAKED_INTERP = Kernel("svox_render_fwd_baked_interp", _FWD_ARGS)
+RENDER_BWD_BAKED_INTERP = Kernel("svox_render_bwd_baked_interp", _BWD_ARGS)
+_FWD_INSTANCES = (RENDER_FWD, RENDER_FWD_BAKED, RENDER_FWD_INTERP, RENDER_FWD_BAKED_INTERP)
+_BWD_INSTANCES = (RENDER_BWD, RENDER_BWD_BAKED, RENDER_BWD_INTERP, RENDER_BWD_BAKED_INTERP)
 # Color channels the kernels hold in registers, and the largest basis.
 KERNEL_MAX_COLORS = 16
 KERNEL_MAX_BASIS = 25
@@ -114,13 +134,15 @@ def _ray_setup(spec, origins, dirs, opt: RenderOptions = None, cube_hit: bool = 
     ``box_advance`` ``tmin`` moves to the box entry (fast mode only: it
     shifts the samples). ``cube_hit`` keeps ``hit`` the cube test and
     clamps only (the motion-feature passes output 0 for a cube miss but
-    the background for a hit that finds nothing)."""
+    the background for a hit that finds nothing). Under ``opt.interp``
+    the box is not used at all: corner cells bleed sigma up to half a
+    cell outside it (JAX `_clip_to_occupied`)."""
     o = world2tree(origins, spec.offset, spec.scaling)
     d, delta_scale = get_delta_scale(spec.scaling, dirs)
     invdir = 1.0 / (d + 1e-9)
     tmin, tmax = dda_unit(o, invdir)
     hit = ~((tmax < 0) | (tmin > tmax))
-    if opt is not None and isinstance(spec, BakedTree):
+    if opt is not None and isinstance(spec, BakedTree) and not opt.interp:
         lo, hi = spec.aabb_lo, spec.aabb_hi
         t1 = (lo - o) * invdir
         t2 = (hi - o) * invdir
@@ -200,15 +222,75 @@ def _sample_leaf(spec, opt: RenderOptions, rays, t):
     return leaf, _step(leaf, invdir, opt.step_size, effective_skip_base(spec, opt))
 
 
+def interp_corners(spec, pos, cube_sz):
+    """K4's corners (JAX `_interp_corners`): the 8 cells around (B, 3)
+    tree-space samples on their own leaves' grid, each leaf a point
+    sample at its cell centre. ``g = pos * cube_sz - 0.5``, ``b =
+    floor(g)``, corner (i, j, k) at ``(b + (i + 0.5)) * (1 / cube_sz)``
+    per axis (the lookup clamps it: clamp to the edge), weight ``(fx *
+    fy) * fz`` with ``f = w`` or ``1 - w``, ``w = g - b``.
+
+    :return: (rows (8, B) int32 of the corners' leaves, weights (8, B)),
+        corners in (i, j, k) order, k fastest
+    """
+    points, weights = corner_points(pos, cube_sz)
+    return torch.stack([_locate(spec, p).data_idx for p in points]), weights
+
+
+def corner_points(pos, cube_sz):
+    """The 8 corner points (8, B, 3), unclamped, and weights (8, B) of
+    `interp_corners`."""
+    g = pos * cube_sz[:, None] - 0.5
+    b = torch.floor(g)
+    w = g - b
+    inv = 1.0 / cube_sz
+    points, weights = [], []
+    for i in (0, 1):
+        for j in (0, 1):
+            for k in (0, 1):
+                ijk = (i, j, k)
+                points.append(torch.stack([(b[:, a] + (n + 0.5)) * inv for a, n in enumerate(ijk)], -1))
+                f = [w[:, a] if n else 1.0 - w[:, a] for a, n in enumerate(ijk)]
+                weights.append((f[0] * f[1]) * f[2])
+    return torch.stack(points), torch.stack(weights)
+
+
+class Corners(NamedTuple):
+    """A sample's 8 corners against a pool of M rows."""
+
+    rows: torch.Tensor  # (8, B) int64 rows, 0 where ok is False
+    ok: torch.Tensor    # (8, B) bool: the corner's row is < M
+    w: torch.Tensor     # (8, B) trilinear weights
+
+
+def _corners(spec, rays, t, leaf: LeafInfo, M: int) -> Corners:
+    """The corners of every ray's sample at t, in the leaf `_sample_leaf`
+    found there (plain)."""
+    o, d = rays[:2]
+    rows, w = interp_corners(spec, sample_position(o, t, d), leaf.cube_sz)
+    ok = (rows >= 0) & (rows < M)
+    return Corners(torch.where(ok, rows, 0).long(), ok, w)
+
+
+def _interp(c: Corners, values):
+    """``sum_c w_c * values(row_c)`` over the corners whose row is < M,
+    in corner order from 0, as the kernels sum (JAX `_gather_interp`
+    interpolates the row first; the sums are linear in it, so the two
+    agree to rounding). ``values`` maps (B,) rows to (B,) or (B, n)."""
+    s = 0.0
+    for n in range(8):
+        v = values(c.rows[n])
+        wv = (c.w[n][:, None] if v.ndim == 2 else c.w[n]) * v
+        ok = c.ok[n][:, None] if v.ndim == 2 else c.ok[n]
+        s = s + torch.where(ok, wv, 0.0)
+    return s
+
+
 def _check_supported(spec, features, origins, dirs, vdirs,
                      opt: RenderOptions) -> None:
     if hasattr(features, "q") and hasattr(features, "scale"):
         raise NotImplementedError(
             "quantized feature pools wait for K5 (ROADMAP.md §1 item 12)"
-        )
-    if opt.interp:
-        raise NotImplementedError(
-            "trilinear interpolation waits for K4 (ROADMAP.md §1 item 10)"
         )
     if opt.pool_axis is not None or opt.ray_axis is not None:
         raise NotImplementedError(
@@ -342,17 +424,25 @@ def _sum_cols(x):
     return s
 
 
-def _colors(feat, basis, opt: RenderOptions, n_color: int):
-    """Sigmoid colors per sample, (B, n_color); basis sums run over k in
+def _logits(feat, basis, opt: RenderOptions, n_color: int):
+    """Pre-sigmoid colors per row, (B, n_color); basis sums run over k in
     order, as in the kernel."""
     if opt.format == FORMAT_RGBA:
-        return _sigmoid(feat[:, :n_color])
+        return feat[:, :n_color]
     bd = opt.basis_dim
     coeffs = feat[:, : n_color * bd].reshape(feat.shape[0], n_color, bd)
     s = basis[:, None, 0] * coeffs[:, :, 0]
     for k in range(1, bd):
         s = s + basis[:, None, k] * coeffs[:, :, k]
-    return _sigmoid(s)
+    return s
+
+
+def _sample_colors(features, rows, corners, basis, opt: RenderOptions, n_color: int):
+    """Sigmoid colors of each ray's sample, (B, n_color): of its row, or
+    under interp of the corners' weighted pre-sigmoid sums (`_interp`)."""
+    if corners is None:
+        return _sigmoid(_logits(features[rows], basis, opt, n_color))
+    return _sigmoid(_interp(corners, lambda r: _logits(features[r], basis, opt, n_color)))
 
 
 def _rotated_basis(spec: TreeSpec, opt: RenderOptions, vdirs, rows, window):
@@ -403,6 +493,39 @@ def volume_render_with_weight_accum_plain(spec: TreeSpec, features: torch.Tensor
     return _march_plain(spec, features, origins, dirs, vdirs, opt, True)
 
 
+def _sample_sigma(spec, features, opt: RenderOptions, rays, t, active):
+    """Every ray's sample at t (plain): (leaf, dt, valid, rows, corners,
+    sigma). ``rows`` is the sample's own row where it is < M and the ray
+    active, else 0 (the row its rotation reads). Nearest mode: a sample is
+    ``valid`` where that row is < M, and sigma is the row's (corners
+    None); under ``opt.interp`` every active sample is valid and sigma is
+    the corners' interpolation (`_interp`), whatever its own row."""
+    M = features.shape[0]
+    leaf, dt = _sample_leaf(spec, opt, rays, t)
+    idx = leaf.data_idx
+    resident = active & (idx >= 0) & (idx < M)
+    rows = torch.where(resident, idx, 0).long()
+    if opt.interp:
+        corners = _corners(spec, rays, t, leaf, M)
+        sigma = torch.where(active, _interp(corners, lambda r: features[r, -1]), 0.0)
+        return leaf, dt, active, rows, corners, sigma
+    return leaf, dt, resident, rows, None, torch.where(resident, features[rows, -1], 0.0)
+
+
+def _scatter_rows(grad, rows, corners, contrib, vals) -> None:
+    """Add each contributing sample's gradient ``vals`` ((B, D) rows or
+    (B,) values) into ``grad`` at its row; under interp into its corners'
+    rows, ``w_c * vals``, where the corner's row is < M (JAX
+    `scatter_grads`)."""
+    if corners is None:
+        grad.index_add_(0, rows[contrib], vals[contrib])
+        return
+    for n in range(8):
+        ok = contrib & corners.ok[n]
+        w, v = corners.w[n][ok], vals[ok]
+        grad.index_add_(0, corners.rows[n][ok], (w[:, None] if v.ndim == 2 else w) * v)
+
+
 def _march_plain(spec, features, origins, dirs, vdirs, opt, want_weights):
     _check_supported(spec, features, origins, dirs, vdirs, opt)
     B = origins.shape[0]
@@ -426,16 +549,11 @@ def _march_plain(spec, features, origins, dirs, vdirs, opt, want_weights):
     for _ in range(opt.max_steps):
         if not bool(active.any()):
             break
-        leaf, dt = _sample_leaf(spec, opt, rays, t)
-        idx = leaf.data_idx
-        valid = active & (idx >= 0) & (idx < M)
-        rows = torch.where(valid, idx, 0).long()
-        feat = features[rows]
-        sigma = torch.where(valid, feat[:, -1], 0.0)
+        leaf, dt, valid, rows, corners, sigma = _sample_sigma(spec, features, opt, rays, t, active)
         contrib = valid & (sigma > opt.sigma_thresh)
         att = torch.exp(-dt * delta_scale * sigma)
         weight = L * (1.0 - att)
-        col = _colors(feat, basis.at(rows), opt, n_color)
+        col = _sample_colors(features, rows, corners, basis.at(rows), opt, n_color)
         out_c = torch.where(contrib[:, None], out_c + weight[:, None] * col, out_c)
         if want_weights:
             waccum.index_add_(0, _tree_cells(spec, leaf.node_flat[contrib]).long(),
@@ -465,8 +583,10 @@ def volume_render_backward_plain(spec: TreeSpec, features: torch.Tensor,
 
     The backward marches under its own rules: a ray takes samples while
     hit and ``t < tmax`` (a ray with tmin == tmax takes none), up to
-    ``max_steps``; a sample contributes where its row is < M and
-    ``sigma > 0``, whatever ``sigma_thresh`` is; there is no early stop.
+    ``max_steps``; a sample contributes where its row is < M (under
+    interp: any sample) and ``sigma > 0``, whatever ``sigma_thresh`` is;
+    there is no early stop. Under interp each row below goes to the
+    sample's corners' rows, times their weights.
     Per contributing sample, with ``weight = L * (1 - att)``,
     ``s`` the sigmoid colors and ``total_color = sum_c s_c g_c``:
 
@@ -514,7 +634,7 @@ def _march_bwd_plain(spec, features, opt, rays, basis, g, g_alpha, grad,
     rows, with ``acc`` summed upward; ``sigma``: the sigma column, with
     ``acc`` falling. Returns (final L, final acc)."""
     o, d, invdir, delta_scale, tmin, tmax, hit = rays
-    M, D = features.shape
+    D = features.shape[1]
     B = o.shape[0]
     n_color = g.shape[1]
     n_cc = n_color * opt.basis_dim if opt.format != FORMAT_RGBA else n_color
@@ -524,17 +644,12 @@ def _march_bwd_plain(spec, features, opt, rays, basis, g, g_alpha, grad,
         active = hit & (t < tmax)
         if not bool(active.any()):
             break
-        leaf, dt = _sample_leaf(spec, opt, rays, t)
-        idx = leaf.data_idx
-        valid = active & (idx >= 0) & (idx < M)
-        rows = torch.where(valid, idx, 0).long()
-        feat = features[rows]
-        sig = torch.where(valid, feat[:, -1], 0.0)
+        leaf, dt, valid, rows, corners, sig = _sample_sigma(spec, features, opt, rays, t, active)
         contrib = valid & (sig > 0.0)
         att = torch.exp(-dt * delta_scale * sig)
         weight = L * (1.0 - att)
         b = basis.at(rows)
-        s = _colors(feat, b, opt, n_color)
+        s = _sample_colors(features, rows, corners, b, opt, n_color)
         total_color = _sum_cols(s * g)
         L_after = L * att
         rows_full = torch.zeros(B, D, dtype=grad.dtype, device=grad.device)
@@ -551,7 +666,7 @@ def _march_bwd_plain(spec, features, opt, rays, basis, g, g_alpha, grad,
                                    + dts * (g_alpha * L_ray))
         else:
             acc_after = acc + weight * total_color
-        grad.index_add_(0, rows[contrib], rows_full[contrib])
+        _scatter_rows(grad, rows, corners, contrib, rows_full)
         acc = torch.where(contrib, acc_after, acc)
         L = torch.where(contrib, L_after, L)
         t = torch.where(active, t + dt, t)
@@ -575,15 +690,18 @@ def _check_kernel_tensors(spec, features, rays, name: str) -> None:
     _require(rays[0].shape[0] < 2 ** 31, "too many rays")
 
 
-def _kernel_for(spec, tree_kernel: Kernel, baked_kernel: Kernel) -> Kernel:
-    """The kernel instance for the structure ``spec`` is."""
-    return baked_kernel if isinstance(spec, BakedTree) else tree_kernel
+def _kernel_for(spec, opt: RenderOptions, instances) -> Kernel:
+    """The kernel of ``instances`` (tree walk, bake, tree walk interp, bake
+    interp) for the structure ``spec`` is and for ``opt.interp``."""
+    return instances[2 * bool(opt.interp) + isinstance(spec, BakedTree)]
 
 
 def _structure_arg(spec, opt: RenderOptions):
     """The structure argument of a march kernel (kept alive by the
-    returned reference for the call)."""
-    return ctypes.byref(structure_desc(spec, opt.box_advance, effective_skip_base(spec, opt)))
+    returned reference for the call). Under interp the box is not used, so
+    no box advance."""
+    box_advance = 0 if opt.interp else opt.box_advance
+    return ctypes.byref(structure_desc(spec, box_advance, effective_skip_base(spec, opt)))
 
 
 def _kernel_args(spec, features, origins, dirs, vdirs,
@@ -641,7 +759,8 @@ def volume_render_cuda(spec, features: torch.Tensor,
                        origins: torch.Tensor, dirs: torch.Tensor,
                        vdirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
     """Launch the forward-march kernel (csrc/render_fwd.cu, or its baked
-    instance csrc/render_fwd_baked.cu on a BakedTree): RGBA, SH
+    instance csrc/render_fwd_baked.cu on a BakedTree; under interp
+    render_fwd_interp.cu / render_fwd_baked_interp.cu): RGBA, SH
     (basis_dim 1, 4, 9, 16, 25), SG and ASG (basis_dim 1-25), exact and
     thresholded, with optional per-voxel rotation matrices."""
     return _march_cuda(spec, features, origins, dirs, vdirs, opt, False)[0]
@@ -664,7 +783,7 @@ def _march_cuda(spec, features, origins, dirs, vdirs, opt, want_weights):
               if want_weights else None)
     if out.shape[0] == 0:
         return out, waccum
-    _kernel_for(spec, RENDER_FWD, RENDER_FWD_BAKED)(
+    _kernel_for(spec, opt, _FWD_INSTANCES)(
         *args, opt.sigma_thresh, opt.stop_thresh, opt.max_steps,
         out.data_ptr(), None if waccum is None else waccum.data_ptr(), *_stream(dev),
     )
@@ -692,7 +811,7 @@ def volume_render_backward_cuda(spec: TreeSpec, features: torch.Tensor,
     grad = torch.zeros(M, D, dtype=torch.float32, device=dev)
     if M == 0 or origins.shape[0] == 0:
         return grad
-    _kernel_for(spec, RENDER_BWD, RENDER_BWD_BAKED)(
+    _kernel_for(spec, opt, _BWD_INSTANCES)(
         *args, opt.max_steps, grad_out.data_ptr(),
         out_res.data_ptr() if single else None, grad.data_ptr(), *_stream(dev),
     )

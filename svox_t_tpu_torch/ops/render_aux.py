@@ -24,8 +24,17 @@ the cull, box advance and skip boxes too, except that the motion-feature
 passes keep the cube test as their hit); the header of
 `csrc/render_aux.cuh` states what each pass adds to them. Joint indices
 are clamped to [0, J) where the motion-feature passes read or add a
-joint row, as a JAX gather clamps. `interp`, quantized pools and sharded
-options raise NotImplementedError, as in `ops/render.py`.
+joint row, as a JAX gather clamps.
+
+Under ``opt.interp`` (K4) every pass reads the trilinear sigma of its
+sample's corners (`render.interp_corners`), with no box cull, also in an
+empty leaf, as the JAX package does: the opacity VJP adds into the
+corners' rows; the first hit's t is the first sample over the threshold,
+its row the first such sample whose own row is < M; the motion-feature
+passes attenuate wherever sigma passes and blend only where the own row
+is < M. Each has its own interp kernel instance (`csrc/*_interp.cu`).
+Quantized pools and sharded options raise NotImplementedError, as in
+`ops/render.py`.
 
 State carried across from the JAX package: the tree (with its
 ``extra_data`` joints) moves with `tree_state`/`tree_from_numpy`; joint
@@ -46,8 +55,9 @@ from ..utils.spec import RenderOptions, TreeSpec
 from . import render as render_ops
 from .bake import BakedTree, StructureDesc
 from .bake import lookup as bake_lookup
-from .render import (_check_kernel_tensors, _kernel_for, _locate, _ray_setup, _require,
-                     _sample_leaf, _sigmoid, _stream, _structure_arg, sample_position)
+from .render import (Corners, _check_kernel_tensors, _corners, _interp, _kernel_for, _locate,
+                     _ray_setup, _require, _sample_leaf, _scatter_rows, _sigmoid, _stream,
+                     _structure_arg, sample_position)
 from .traversal import LeafInfo, tree2world
 
 # Leading arguments of the four aux entry points, in order.
@@ -76,6 +86,20 @@ OPACITY_BWD_BAKED = Kernel("svox_opacity_bwd_baked", _OPACITY_ARGS)
 FIRST_HIT_BAKED = Kernel("svox_first_hit_baked", _FIRST_HIT_ARGS)
 MF_FWD_BAKED = Kernel("svox_mf_fwd_baked", _MF_FWD_ARGS)
 MF_BWD_BAKED = Kernel("svox_mf_bwd_baked", _MF_BWD_ARGS)
+# The trilinear (K4) instances, on the tree walk and on the bake.
+OPACITY_BWD_INTERP = Kernel("svox_opacity_bwd_interp", _OPACITY_ARGS)
+FIRST_HIT_INTERP = Kernel("svox_first_hit_interp", _FIRST_HIT_ARGS)
+MF_FWD_INTERP = Kernel("svox_mf_fwd_interp", _MF_FWD_ARGS)
+MF_BWD_INTERP = Kernel("svox_mf_bwd_interp", _MF_BWD_ARGS)
+OPACITY_BWD_BAKED_INTERP = Kernel("svox_opacity_bwd_baked_interp", _OPACITY_ARGS)
+FIRST_HIT_BAKED_INTERP = Kernel("svox_first_hit_baked_interp", _FIRST_HIT_ARGS)
+MF_FWD_BAKED_INTERP = Kernel("svox_mf_fwd_baked_interp", _MF_FWD_ARGS)
+MF_BWD_BAKED_INTERP = Kernel("svox_mf_bwd_baked_interp", _MF_BWD_ARGS)
+# Each pass's instances in `render._kernel_for`'s order.
+_OPACITY_INSTANCES = (OPACITY_BWD, OPACITY_BWD_BAKED, OPACITY_BWD_INTERP, OPACITY_BWD_BAKED_INTERP)
+_FIRST_HIT_INSTANCES = (FIRST_HIT, FIRST_HIT_BAKED, FIRST_HIT_INTERP, FIRST_HIT_BAKED_INTERP)
+_MF_FWD_INSTANCES = (MF_FWD, MF_FWD_BAKED, MF_FWD_INTERP, MF_FWD_BAKED_INTERP)
+_MF_BWD_INSTANCES = (MF_BWD, MF_BWD_BAKED, MF_BWD_INTERP, MF_BWD_BAKED_INTERP)
 # Joint-feature columns the motion-feature kernels hold in registers, and
 # the largest joint table the backward sums in 48 KB of shared memory, in
 # floats: J * (Kd | 1), its rows padded to an odd stride.
@@ -106,17 +130,25 @@ class _Sample(NamedTuple):
     idx: torch.Tensor
     resident: torch.Tensor  # row < M
     rows: torch.Tensor      # idx where resident, else 0 (int64)
-    sigma: torch.Tensor     # 0 in empty space
+    sigma: torch.Tensor     # nearest: 0 in empty space; interp: the corners'
+    corners: Corners        # interp: the corners (`render.interp_corners`); else None
 
 
 def _sample(spec, features, opt: RenderOptions, rays, t) -> _Sample:
-    """One sample of every ray at t (plain): its leaf, step, row and sigma."""
+    """One sample of every ray at t (plain): its leaf, step, row and
+    sigma; under ``opt.interp`` the sigma interpolated from its corners,
+    also where its own leaf is empty."""
     leaf, dt = _sample_leaf(spec, opt, rays, t)
     idx = leaf.data_idx
-    resident = (idx >= 0) & (idx < features.shape[0])
+    M = features.shape[0]
+    resident = (idx >= 0) & (idx < M)
     rows = torch.where(resident, idx, 0).long()
+    if opt.interp:
+        corners = _corners(spec, rays, t, leaf, M)
+        return _Sample(leaf, dt, idx, resident, rows,
+                       _interp(corners, lambda r: features[r, -1]), corners)
     sigma = torch.where(resident, features[rows, -1], 0.0)
-    return _Sample(leaf, dt, idx, resident, rows, sigma)
+    return _Sample(leaf, dt, idx, resident, rows, sigma, None)
 
 
 # ---------------------------------------------------------------------------
@@ -182,10 +214,11 @@ def opacity_backward_plain(spec: TreeSpec, features: torch.Tensor, origins: torc
     """Plain PyTorch version of the opacity VJP kernel (K9a).
 
     The backward's rules: samples while hit and ``t < tmax``, a sample
-    contributes where its row is < M and ``sigma > 0``, no early stop.
-    Each contributing sample adds ``dt*ds * (g * L_ray)`` into column
-    D - 1, with ``L_ray = 1 - alpha`` (single pass) or the final L of a
-    first march under the same rules (two passes)."""
+    contributes where ``sigma > 0`` (nearest mode: its row is < M), no
+    early stop. Each contributing sample adds ``dt*ds * (g * L_ray)`` into
+    column D - 1 (under interp ``w_c`` times that into each corner's row),
+    with ``L_ray = 1 - alpha`` (single pass) or the final L of a first
+    march under the same rules (two passes)."""
     _check(spec, features, origins, dirs, opt)
     _check_alpha_grads(features, origins, grad_out, out_res)
     M, D = features.shape
@@ -214,10 +247,11 @@ def _opacity_march_plain(spec, features, opt, rays, gL, grad):
         if not bool(active.any()):
             break
         s = _sample(spec, features, opt, rays, t)
-        contrib = active & s.resident & (s.sigma > 0.0)
+        # sigma > 0 implies a resident row in nearest mode, not under interp.
+        contrib = active & (s.sigma > 0.0)
         att = torch.exp(-s.dt * delta_scale * s.sigma)
         if grad is not None:
-            col.index_add_(0, s.rows[contrib], ((s.dt * delta_scale) * gL)[contrib])
+            _scatter_rows(col, s.rows, s.corners, contrib, (s.dt * delta_scale) * gL)
         L = torch.where(contrib, L * att, L)
         t = torch.where(active, t + s.dt, t)
     if grad is not None:
@@ -243,7 +277,7 @@ def opacity_backward_cuda(spec: TreeSpec, features: torch.Tensor, origins: torch
     grad = torch.zeros(M, D, dtype=torch.float32, device=dev)
     if M == 0 or origins.shape[0] == 0:
         return grad
-    _kernel_for(spec, OPACITY_BWD, OPACITY_BWD_BAKED)(
+    _kernel_for(spec, opt, _OPACITY_INSTANCES)(
         *args, grad_out.data_ptr(), out_res.data_ptr() if single else None,
         grad.data_ptr(), *_stream(dev))
     return grad
@@ -322,7 +356,7 @@ def first_hit_cuda(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor
     frac = torch.zeros(B, 3, dtype=torch.float32, device=dev)
     if B == 0 or features.shape[0] == 0:
         return found, t_hit, row, frac
-    _kernel_for(spec, FIRST_HIT, FIRST_HIT_BAKED)(*args, opt.sigma_thresh, found.data_ptr(), t_hit.data_ptr(),
+    _kernel_for(spec, opt, _FIRST_HIT_INSTANCES)(*args, opt.sigma_thresh, found.data_ptr(), t_hit.data_ptr(),
               row.data_ptr(), frac.data_ptr(), *_stream(dev))
     return found, t_hit, row, frac
 
@@ -513,7 +547,7 @@ def motion_feature_forward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
     out = torch.empty(origins.shape[0], joint_features.shape[1], dtype=torch.float32, device=dev)
     if out.shape[0] == 0:
         return out
-    _kernel_for(spec, MF_FWD, MF_FWD_BAKED)(*args, opt.sigma_thresh, opt.stop_thresh, opt.background_brightness,
+    _kernel_for(spec, opt, _MF_FWD_INSTANCES)(*args, opt.sigma_thresh, opt.stop_thresh, opt.background_brightness,
            out.data_ptr(), *_stream(dev))
     return out
 
@@ -544,9 +578,10 @@ def motion_feature_backward_plain(spec: TreeSpec, joint_features: torch.Tensor,
                                   dirs: torch.Tensor, grad_out: torch.Tensor,
                                   opt: RenderOptions) -> torch.Tensor:
     """Plain PyTorch version of the motion-feature VJP kernel (K9d): the
-    backward's rules (samples while ``t < tmax``, gate ``sigma > 0``, no
-    early stop); per contributing sample and bone with ``sw > 0`` it adds
-    ``sw * ((weight * s) * (1 - s)) * g`` into the bone's joint row.
+    backward's rules (samples while ``t < tmax``, attenuation where
+    ``sigma > 0``, no early stop); per contributing sample (also a row
+    < M, which under interp is not implied) and bone with ``sw > 0`` it
+    adds ``sw * ((weight * s) * (1 - s)) * g`` into the bone's joint row.
 
     Every joint entry sums the terms of many rays and samples (~10^5 on
     an 800x800 image), so the terms, computed as the kernel computes
@@ -568,7 +603,8 @@ def motion_feature_backward_plain(spec: TreeSpec, joint_features: torch.Tensor,
         if not bool(active.any()):
             break
         s = _sample(spec, features, opt, rays, t)
-        contrib = active & s.resident & (s.sigma > 0.0)
+        gate = active & (s.sigma > 0.0)
+        contrib = gate & s.resident
         att = torch.exp(-s.dt * delta_scale * s.sigma)
         weight = L * (1.0 - att)
         sw_r, ji_r = sw[s.rows], ji[s.rows]
@@ -578,7 +614,7 @@ def motion_feature_backward_plain(spec: TreeSpec, joint_features: torch.Tensor,
             ok = contrib & (sw_r[:, n] > 0)
             grad.index_add_(0, ji_r[ok, n].clamp(0, J - 1).long(),
                             (sw_r[ok, n, None] * gb[ok]).double())
-        L = torch.where(contrib, L * att, L)
+        L = torch.where(gate, L * att, L)
         t = torch.where(active, t + s.dt, t)
     return grad.to(joint_features.dtype)
 
@@ -601,5 +637,5 @@ def motion_feature_backward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
     grad = torch.zeros(J, Kd, dtype=torch.float32, device=dev)
     if features.shape[0] == 0 or origins.shape[0] == 0:
         return grad
-    _kernel_for(spec, MF_BWD, MF_BWD_BAKED)(*args, grad_out.data_ptr(), grad.data_ptr(), *_stream(dev))
+    _kernel_for(spec, opt, _MF_BWD_INSTANCES)(*args, grad_out.data_ptr(), grad.data_ptr(), *_stream(dev))
     return grad

@@ -300,15 +300,7 @@ def test_unsupported_inputs_raise():
     with pytest.raises(ValueError, match="extra_data"):
         stt.VolumeRenderer(stt.tree_from_numpy(dict(stt.tree_state(jt), extra_data=None), device="cpu"), backend="tree").motion_render(
             _t(feats), trays)
-    interp = dataclasses.replace(tr._get_options(), interp=1)
-    spec = pt._spec(skinning_weights=lbs["sw"], joint_index=lbs["ji"])
     o, d = trays.origins, trays.dirs
-    for call in (lambda: taux.opacity_render(spec, _t(feats), o, d, interp),
-                 lambda: taux.render_depth(spec, _t(feats), o, d, interp),
-                 lambda: taux.motion_render(spec, _t(feats), o, d, interp),
-                 lambda: taux.motion_feature_render(spec, _t(lbs["jf"]), _t(feats), o, d, interp)):
-        with pytest.raises(NotImplementedError, match="K4"):
-            call()
     Quantized = collections.namedtuple("QuantizedFeatures", ["q", "scale", "zero"])
     qf = Quantized(torch.zeros(len(feats), 4, dtype=torch.int8), torch.ones(4), torch.zeros(4))
     with pytest.raises(NotImplementedError, match="K5"):

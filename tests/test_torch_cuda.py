@@ -8,8 +8,9 @@ JAX):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 The tests of the tree walk pass ``backend="tree"``; the baked backend
-(the default) has tests of its own at the end of the file, with the same
-tolerances.
+(the default) has tests of its own near the end of the file, and so do
+the trilinear (``interp="trilinear"``, K4) instances of every march
+kernel on both backends, with the same tolerances.
 
 Tolerances: construct_tree and the query forward must agree exactly, and
 so must the bake's lookup, refresh and skip-box regrowth,
@@ -1021,3 +1022,135 @@ def test_tree_editing_entry_points_use_the_kernels(cuda):
     cen = tree.tree2world(tree.corners_local + 0.5 * tree.lengths_local[:, None])
     _, leaf = tree(tree.features, cen, want_leaf_node=True)
     assert np.array_equal(leaf.cpu().numpy(), tree._all_leaves())
+
+
+# ---------------------------------------------------------------------------
+# Trilinear interpolation (K4): the interp instances of every march kernel.
+
+
+def _interp_kernels(backend):
+    """The interp instances a renderer of ``backend`` launches: forward,
+    backward, opacity VJP, first hit, motion features forward and VJP."""
+    sfx = "_BAKED_INTERP" if backend == "baked" else "_INTERP"
+    return ([getattr(trender, k + sfx) for k in ("RENDER_FWD", "RENDER_BWD")]
+            + [getattr(taux, k + sfx) for k in ("OPACITY_BWD", "FIRST_HIT", "MF_FWD", "MF_BWD")])
+
+
+def _launches(kernels):
+    return [k.launches for k in kernels]
+
+
+@pytest.mark.parametrize("backend", ["tree", "baked"])
+@pytest.mark.parametrize("fmt,ddim", [("RGBA", 4), ("SH9", 28), ("ASG9", 28)])
+@pytest.mark.parametrize("fast", [False, True])
+def test_interp_render_kernels_match_plain(cuda, backend, fmt, ddim, fast):
+    """VolumeRenderer(interp="trilinear") launches the interp forward and
+    backward instances; forward, gradient and weights against the plain
+    march, on a pool cut to 70% of the leaves (empty corners)."""
+    tree, feats, _ = _shell(cuda, fmt=fmt, ddim=ddim, seed=40)
+    feats = feats[: int(feats.shape[0] * 0.7)].contiguous()
+    o, d = _rays(cuda, 2048, seed=40)
+    r = stt.VolumeRenderer(tree, backend=backend, interp="trilinear")
+    kernels = _interp_kernels(backend)[:2]
+    before = _launches(kernels)
+    f = feats.clone().requires_grad_()
+    out = r(f, stt.Rays(o, d, d), fast=fast)
+    g_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(40)).to(cuda)
+    (g,) = torch.autograd.grad((out * g_out).sum(), f)
+    torch.cuda.synchronize()
+    assert _launches(kernels) == [b + 1 for b in before]
+    spec, opt = r._render_spec(), r._get_options(fast)
+    want = trender.volume_render_plain(spec, feats, o, d, d, opt)
+    torch.testing.assert_close(out.detach(), want, atol=ATOL, rtol=0)
+    _assert_atomic_close(g, trender.volume_render_backward_plain(spec, feats, o, d, d, g_out, opt,
+                                                                 out_res=want))
+    ok, wk = trender.volume_render_with_weight_accum_cuda(spec, feats, o, d, d, opt)
+    op, wp = trender.volume_render_with_weight_accum_plain(spec, feats, o, d, d, opt)
+    torch.testing.assert_close(ok, op, atol=ATOL, rtol=0)
+    _assert_atomic_close(wk, wp)
+    assert float(g.abs().max()) > 0 and float(want[:, -1].max()) > 0.5
+
+
+@pytest.mark.parametrize("backend", ["tree", "baked"])
+def test_interp_rotations_match_plain(cuda, backend):
+    """Per-voxel rotations under interp: an empty-leaf sample rotates by
+    row 0's matrix, as the plain version (and the JAX package) does."""
+    tree, feats, _ = _shell(cuda, fmt="SH9", ddim=28, seed=41)
+    feats = feats[: int(feats.shape[0] * 0.7)].contiguous()
+    M = feats.shape[0]
+    q = torch.randn(M, 3, 3, generator=torch.Generator().manual_seed(41))
+    rot = torch.eye(4).repeat(M, 1, 1)
+    rot[:, :3, :3] = torch.linalg.qr(q)[0]
+    rot = rot.to(cuda)
+    o, d = _rays(cuda, 2048, seed=41)
+    r = stt.VolumeRenderer(tree, backend=backend, interp="trilinear")
+    spec, opt = r._render_spec(rot), r._get_options(False)
+    got = trender.volume_render_cuda(spec, feats, o, d, d, opt)
+    torch.testing.assert_close(got, trender.volume_render_plain(spec, feats, o, d, d, opt),
+                               atol=ATOL, rtol=0)
+    g_out = torch.randn(got.shape, generator=torch.Generator().manual_seed(41)).to(cuda)
+    _assert_atomic_close(trender.volume_render_backward_cuda(spec, feats, o, d, d, g_out, opt, got),
+                         trender.volume_render_backward_plain(spec, feats, o, d, d, g_out, opt, got))
+
+
+@pytest.mark.parametrize("scene", ["shell", "n3"])
+def test_interp_baked_kernels_equal_tree_kernels_in_exact_mode(cuda, scene):
+    """Under interp neither backend culls, and every corner lookup finds the
+    same row on both: exact colors, alpha and depths bit for bit."""
+    if scene == "shell":
+        tree, feats, _ = _shell(cuda, depth=6, fmt="SH4", ddim=13, seed=42)
+        feats = feats[: int(feats.shape[0] * 0.7)].contiguous()
+    else:
+        tree, M, _ = _occupancy_tree(cuda, seed=42)
+        feats = torch.randn(M, 13, generator=torch.Generator().manual_seed(42)).to(cuda)
+        feats[:, -1] = feats[:, -1].abs() * 20
+    o, d = _rays(cuda, 4096, seed=42)
+    opt = stt.VolumeRenderer(tree, interp="trilinear")._get_options(False)
+    want = trender.volume_render_cuda(tree._spec(), feats, o, d, d, opt)
+    want_depth = taux.render_depth(tree._spec(), feats, o, d, opt)
+    torch.testing.assert_close(want, trender.volume_render_plain(tree._spec(), feats, o, d, d, opt),
+                               atol=ATOL, rtol=0)
+    for label, baked in _bakes(tree):
+        assert torch.equal(trender.volume_render_cuda(baked, feats, o, d, d, opt), want), label
+        assert torch.equal(taux.render_depth(baked, feats, o, d, opt), want_depth), label
+    assert float(want[:, -1].max()) > 0.5
+
+
+@pytest.mark.parametrize("backend", ["tree", "baked"])
+@pytest.mark.parametrize("fast", [False, True])
+def test_interp_aux_kernels_match_plain(cuda, backend, fast):
+    """The aux interp instances, each launched once through the renderer:
+    opacity VJP, first hit, motion-feature forward and VJP."""
+    tree, feats, _ = _shell(cuda, seed=43)
+    feats = feats[: int(feats.shape[0] * 0.7)].contiguous()
+    o, d = _rays(cuda, 2048, seed=43)
+    rays = stt.Rays(o, d, d)
+    r = stt.VolumeRenderer(tree, backend=backend, interp="trilinear")
+    opt = r._get_options(fast)
+    jf, sw, ji = _lbs(cuda, feats.shape[0], 7, 16, 4, seed=43)
+    kernels = _interp_kernels(backend)[2:]
+    before = _launches(kernels)
+    f = feats.clone().requires_grad_()
+    alpha = r.opacity_render(f, rays, fast=fast)
+    g = torch.randn(alpha.shape, generator=torch.Generator().manual_seed(43)).to(cuda)
+    (gf,) = torch.autograd.grad((alpha * g).sum(), f)
+    depth = r.render_depth(feats, rays, fast=fast)
+    x = jf.clone().requires_grad_()
+    mf = r.motion_feature_render(feats, x, sw, ji, rays, fast=fast)
+    gm = torch.randn(mf.shape, generator=torch.Generator().manual_seed(44)).to(cuda)
+    (gx,) = torch.autograd.grad((mf * gm).sum(), x)
+    torch.cuda.synchronize()
+    assert _launches(kernels) == [b + 1 for b in before]
+    spec = (tree._baked_spec if backend == "baked" else tree._spec)(skinning_weights=sw, joint_index=ji)
+    _assert_atomic_close(gf, taux.opacity_backward_plain(spec, feats, o, d, g, opt,
+                                                         out_res=alpha.detach()))
+    hit = taux.first_hit(spec, feats, o, d, opt)
+    want_hit = taux.first_hit_plain(spec, feats, o, d, opt)
+    for name, a, b in zip(("found", "t_hit", "row"), hit[:3], want_hit[:3]):
+        assert torch.equal(a, b), name
+    torch.testing.assert_close(hit[3], want_hit[3], atol=ATOL, rtol=0)
+    assert torch.equal(depth, taux.render_depth(spec, feats, o, d, opt))
+    torch.testing.assert_close(mf.detach(), taux.motion_feature_render_plain(spec, jf, feats, o, d, opt),
+                               atol=ATOL, rtol=0)
+    _assert_atomic_close(gx, taux.motion_feature_backward_plain(spec, jf, feats, o, d, gm, opt))
+    assert float(gf.abs().max()) > 0 and float(gx.abs().max()) > 0

@@ -269,8 +269,6 @@ def test_requires_grad_flows():
 
 def test_unported_options_raise():
     rng, jt, pt, feats, rays = _scene(10)
-    with pytest.raises(NotImplementedError, match="K4"):
-        stt.VolumeRenderer(pt, interp="trilinear", backend="tree")
     r = stt.VolumeRenderer(pt, backend="tree")
     Quantized = collections.namedtuple("QuantizedFeatures", ["q", "scale", "zero"])
     qf = Quantized(torch.zeros(len(feats), 4, dtype=torch.int8), torch.ones(4), torch.zeros(4))
