@@ -20,7 +20,14 @@ kernels, exact and fast;
 and the baked and tree-walk kernels bit for bit in exact mode; then the
 trilinear (K4) instances of the six march kernels on both structures
 against their plain versions on every camera ray, and the two
-structures' exact interp renders and depths bit for bit), then
+structures' exact interp renders and depths bit for bit; then the
+feature pools' instances (K5): every bf16 and int8 instance of the march
+kernels, on both structures, nearest and interp, its forwards equal bit
+for bit to the float32 kernels on the widened (or dequantized) pool on
+every camera ray and each instance against its plain version on the
+same rays, the bf16 backward and opacity VJP also after their cast to
+bf16, the two structures' renders bit for bit, and the bf16 point query),
+then
 drives the main paths through the public entry points on the depth-9 SH9
 shell scene at 800x800, with a seeded 32-joint skeleton for the aux and
 dynamic paths, each on the default baked backend and on the tree walk
@@ -67,7 +74,15 @@ dynamic paths, each on the default baked backend and on the tree walk
     aux scene, an exact and a fast frame, one training step (image, mask
     and motion-feature losses) with `backward()` inside
     `accumulate_weights()`, `render_depth` and `motion_render`, through
-    the interp kernel instances only.
+    the interp kernel instances only;
+  * bf16 and int8 pools (`pool_path`): bench.py's deep serving on a bf16
+    pool and on its `quantize_features` (`deep9_ms`, `deep9_mrays_s`,
+    `deep9_int8_ms`, `deep9_int8_mrays_s`, `deep9_int8_max_err`), a bf16
+    forward + backward (`fwd_bwd_bf16_ms`), a bf16 training step (opacity,
+    motion features with bf16 joint features, point query), the aux
+    passes on the int8 pool, one bf16 `render_dynamic_frames` call equal
+    to the same call on the widened pool, and the same pools under
+    interp, each through the pool instances.
 
 The two backends' exact outputs are checked equal bit for bit on every
 serving path. Each path's launch counts are read from zero around it. It
@@ -82,6 +97,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -313,6 +329,27 @@ COUNTERS = {
 }
 # The march kernels, each with its trilinear (K4) instances.
 MARCH_KERNELS = ("render_fwd", "render_bwd", "opacity_bwd", "first_hit", "mf_fwd", "mf_bwd")
+# K5: the march kernels' bf16 and int8 pool instances, by name
+# (<kernel><structure suffix>_<pool>): every one for both pools but the
+# backward and the opacity VJP, bf16 only (a quantized pool takes no
+# gradient); and the bf16 point query.
+POOL_KINDS = ("bf16", "i8")
+POOL_INSTANCES = {
+    "render_fwd": render_ops._FWD_INSTANCES, "render_bwd": render_ops._BWD_INSTANCES,
+    "opacity_bwd": aux_ops._OPACITY_INSTANCES, "first_hit": aux_ops._FIRST_HIT_INSTANCES,
+    "mf_fwd": aux_ops._MF_FWD_INSTANCES, "mf_bwd": aux_ops._MF_BWD_INSTANCES,
+}
+POOL_KERNELS = {f"{base}{sfx}_{kind}": inst[kind][i]
+                for base, inst in POOL_INSTANCES.items() for kind in POOL_KINDS if kind in inst
+                for i, sfx in enumerate(render_ops._STRUCT_SUFFIXES)}
+COUNTERS.update(POOL_KERNELS)
+COUNTERS.update(query_fwd_bf16=query_ops.QUERY_FWD_BF16, query_bwd_bf16=query_ops.QUERY_BWD_BF16)
+# Bytes of a pool element.
+POOL_ELEM = {"f32": 4, "bf16": 2, "i8": 1}
+# bench.py:100: frames per timed call of its sustained loops; bench.py:615:
+# the seeded rays of its int8 error.
+N_SUSTAIN = 4
+INT8_ERR_RAYS = 8192
 
 
 # The kernel-name suffix and the label of each backend in the output.
@@ -502,15 +539,20 @@ def _bounds(work: dict) -> dict:
     return out
 
 
-def march_bounds(c: dict, M: int, D: int) -> dict:
+def march_bounds(c: dict, M: int, D: int, kind: str = "f32") -> dict:
     """bound_ms and bound_by of the march kernels at the main path's
     shapes, from the census `c` of the SH9 camera march on one structure
-    (the tree's kernels, or with ``c["baked"]`` their baked instances).
-    Each input is read once and each output written once: rays 12 bytes
-    per vector; a march reads the rows and structure entries that its
-    samples touch (a tree cell is a child and a data entry, 8 bytes; a
-    baked entry 4); gradients of the pool are (M, D) outputs."""
+    (the tree's kernels, or with ``c["baked"]`` their baked instances),
+    for a pool of type ``kind`` (K5: the instances named with _bf16 or
+    _i8; a pool value is 4, 2 or 1 bytes, and an int8 pool adds its scale
+    and zero, 8 bytes a column). Each input is read once and each output
+    written once: rays 12 bytes per vector; a march reads the rows and
+    structure entries that its samples touch (a tree cell is a child and a
+    data entry, 8 bytes; a baked entry 4); gradients of the pool are
+    float32 (M, D) outputs whatever its type."""
     B, R, C = c["rays"], c["rows"], c["cells"]
+    e, q = POOL_ELEM[kind], 8 * D if kind == "i8" else 0
+    psfx = "" if kind == "f32" else "_" + kind
     if c["baked"]:
         cell_b, sfx = 4, "_baked"
         march_ops = OPS_RAY * c["hits"] + (OPS_LOOKUP + OPS_SAMPLE) * c["samples"]
@@ -519,31 +561,34 @@ def march_bounds(c: dict, M: int, D: int) -> dict:
         cell_b, sfx = 8, ""
         march_ops = OPS_RAY * c["hits"] + OPS_LEVEL * c["levels"] + OPS_SAMPLE * c["samples"]
         fh_ops = OPS_RAY * c["hits"] + OPS_LEVEL * c["fh_levels"] + OPS_SAMPLE * c["fh_samples"]
-    lbs_row = 4 + N_BONES * 8  # sigma, skinning weights and joint indices
+    lbs_row = e + N_BONES * 8  # sigma, skinning weights and joint indices
     jtab = N_JOINTS * JOINT_DIM * 4
-    return _bounds({
-        "render_fwd" + sfx: (B * 36 + B * 16 + R * D * 4 + C * cell_b,
+    return _bounds({k + psfx: v for k, v in {
+        "render_fwd" + sfx: (B * 36 + B * 16 + R * D * e + q + C * cell_b,
                              march_ops + OPS_FWD_SH9 * c["contrib"]),
-        "render_bwd" + sfx: (B * 36 + 2 * B * 16 + R * D * 4 + C * cell_b + M * D * 4,
+        "render_bwd" + sfx: (B * 36 + 2 * B * 16 + R * D * e + q + C * cell_b + M * D * 4,
                              march_ops + OPS_BWD_SH9 * c["contrib"]),
-        "opacity_bwd" + sfx: (B * 24 + 2 * B * 4 + R * 4 + C * cell_b + M * D * 4,
+        "opacity_bwd" + sfx: (B * 24 + 2 * B * 4 + R * e + q + C * cell_b + M * D * 4,
                               march_ops + OPS_OPACITY_BWD * c["contrib"]),
-        "first_hit" + sfx: (B * 24 + c["rows_fh"] * 4 + c["cells_fh"] * cell_b + B * 21, fh_ops),
-        "mf_fwd" + sfx: (B * 24 + R * lbs_row + C * cell_b + jtab + B * JOINT_DIM * 4,
+        "first_hit" + sfx: (B * 24 + c["rows_fh"] * e + q + c["cells_fh"] * cell_b + B * 21, fh_ops),
+        "mf_fwd" + sfx: (B * 24 + R * lbs_row + q + C * cell_b + jtab + B * JOINT_DIM * 4,
                          march_ops + OPS_MF_FWD * c["contrib"]),
-        "mf_bwd" + sfx: (B * 24 + B * JOINT_DIM * 4 + R * lbs_row + C * cell_b + 2 * jtab,
+        "mf_bwd" + sfx: (B * 24 + B * JOINT_DIM * 4 + R * lbs_row + q + C * cell_b + 2 * jtab,
                          march_ops + OPS_MF_BWD * c["contrib"]),
-    })
+    }.items()})
 
 
-def interp_bounds(c: dict, M: int, D: int) -> dict:
+def interp_bounds(c: dict, M: int, D: int, kind: str = "f32") -> dict:
     """bound_ms and bound_by of the six trilinear (K4) march instances on
     one structure, from its interp `march_census` ``c``, as `march_bounds`
-    counts them: the sigma of every corner row read (4 bytes), the rest of
-    the rows of contributing samples' corners, the LBS tables of their own
-    rows; a lookup's ops per table load on the tree (OPS_LEVEL) and per
-    lookup on the bake (OPS_LOOKUP), plus OPS_CORNERS per sample."""
+    counts them (a pool of type ``kind`` as there): the sigma of every
+    corner row read, the rest of the rows of contributing samples'
+    corners, the LBS tables of their own rows; a lookup's ops per table
+    load on the tree (OPS_LEVEL) and per lookup on the bake (OPS_LOOKUP),
+    plus OPS_CORNERS per sample."""
     B = c["rays"]
+    e, q = POOL_ELEM[kind], 8 * D if kind == "i8" else 0
+    psfx = "" if kind == "f32" else "_" + kind
     if c["baked"]:
         cell_b, sfx = 4, "_baked_interp"
         look_ops, fh_look = OPS_LOOKUP * c["lookups"], OPS_LOOKUP * 9 * c["fh_samples"]
@@ -552,23 +597,24 @@ def interp_bounds(c: dict, M: int, D: int) -> dict:
         look_ops, fh_look = OPS_LEVEL * c["levels"], OPS_LEVEL * c["fh_levels"]
     march_ops = OPS_RAY * c["hits"] + look_ops + (OPS_SAMPLE + OPS_CORNERS) * c["samples"]
     fh_ops = OPS_RAY * c["hits"] + fh_look + (OPS_SAMPLE + OPS_CORNERS) * c["fh_samples"]
-    rows_b = c["rows_sigma"] * 4 + c["rows"] * (D - 1) * 4
+    rows_b = c["rows_sigma"] * e + c["rows"] * (D - 1) * e + q
+    sig_b = c["rows_sigma"] * e + q
     table_b = c["cells"] * cell_b
     lbs_b = c["own_rows"] * N_BONES * 8
     jtab = N_JOINTS * JOINT_DIM * 4
-    return _bounds({
+    return _bounds({k + psfx: v for k, v in {
         "render_fwd" + sfx: (B * 36 + B * 16 + rows_b + table_b,
                              march_ops + OPS_FWD_SH9_INTERP * c["contrib"]),
         "render_bwd" + sfx: (B * 36 + 2 * B * 16 + rows_b + table_b + M * D * 4,
                              march_ops + OPS_BWD_SH9_INTERP * c["contrib"]),
-        "opacity_bwd" + sfx: (B * 24 + 2 * B * 4 + c["rows_sigma"] * 4 + table_b + M * D * 4,
+        "opacity_bwd" + sfx: (B * 24 + 2 * B * 4 + sig_b + table_b + M * D * 4,
                               march_ops + OPS_OPACITY_BWD_INTERP * c["contrib"]),
-        "first_hit" + sfx: (B * 24 + c["rows_fh"] * 4 + c["cells_fh"] * cell_b + B * 21, fh_ops),
-        "mf_fwd" + sfx: (B * 24 + c["rows_sigma"] * 4 + lbs_b + table_b + jtab + B * JOINT_DIM * 4,
+        "first_hit" + sfx: (B * 24 + c["rows_fh"] * e + q + c["cells_fh"] * cell_b + B * 21, fh_ops),
+        "mf_fwd" + sfx: (B * 24 + sig_b + lbs_b + table_b + jtab + B * JOINT_DIM * 4,
                          march_ops + OPS_MF_FWD * c["contrib"]),
-        "mf_bwd" + sfx: (B * 24 + B * JOINT_DIM * 4 + c["rows_sigma"] * 4 + lbs_b + table_b + 2 * jtab,
+        "mf_bwd" + sfx: (B * 24 + B * JOINT_DIM * 4 + sig_b + lbs_b + table_b + 2 * jtab,
                          march_ops + OPS_MF_BWD * c["contrib"]),
-    })
+    }.items()})
 
 
 def kernel_bounds(M: int, D: int, n_cells: int, Q: int, q_levels: int, e: dict) -> dict:
@@ -583,12 +629,17 @@ def kernel_bounds(M: int, D: int, n_cells: int, Q: int, q_levels: int, e: dict) 
     leaf's child and data entries in; each element of the new (M, D)
     pool reads one of its old value and its winner's value, and is
     written once); unique_leaf_nodes of e["ids"] ids into as many 16-byte rows
-    (its flags are scratch, and it does no float operation)."""
+    (its flags are scratch, and it does no float operation). The bf16
+    query (K5) reads and writes 2-byte values and adds into a float32
+    gradient."""
     return _bounds({
         "construct_tree": (Q * 12 + Q * 4 + 2 * n_cells * 4, OPS_LEVEL * q_levels),
         "query_fwd": (Q * 12 + Q * 8 + min(Q, M) * D * 4 + Q * D * 4 + Q * 8,
                       OPS_LEVEL * q_levels),
         "query_bwd": (Q * 4 + Q * D * 4 + M * D * 4, Q * D),
+        "query_fwd_bf16": (Q * 12 + Q * 8 + min(Q, M) * D * 2 + Q * D * 2 + Q * 8,
+                           OPS_LEVEL * q_levels),
+        "query_bwd_bf16": (Q * 4 + Q * D * 2 + M * D * 4, Q * D),
         "points_aabb": (Q * 12 + n_cells * 4 + 24, OPS_LEVEL * q_levels + 9 * Q),
         "calc_corners": (e["rows"] * 28 + e["nodes"] * 8, 6 * e["steps"]),
         "assign": (e["points"] * (12 + 8) + 2 * M * D * 4, OPS_LEVEL * e["levels"]),
@@ -651,6 +702,295 @@ def dynamic_bounds(Q: int, nb: int, J: int, F: int, n: int, c: dict, touched: in
         ms, by = bound(n_bytes, n_ops)
         out[name] = dict(bound_ms=ms, bound_by=by, bound_bytes=n_bytes, bound_ops=n_ops)
     return out
+
+
+def pool_of(kind: str, feats: torch.Tensor):
+    """(the float32 pool ``feats`` as a pool of type ``kind``, the float32
+    pool its kernels read: bf16 widened exactly, int8 dequantized with the
+    kernels' two roundings)."""
+    if kind == "bf16":
+        p = feats.to(torch.bfloat16)
+        return p, p.float()
+    q = stt.quantize_features(feats)
+    return q, q.dequantize()
+
+
+def bf16_cast_err(got32: torch.Tensor, want32: torch.Tensor, what: str) -> float:
+    """A float32 gradient sum held to another after both are cast to bf16:
+    each element within one bf16 ulp of the larger plus the two sums'
+    difference (the cast adds at most one ulp to it). Returns the largest
+    bf16 difference."""
+    a, b = got32.to(torch.bfloat16).float(), want32.to(torch.bfloat16).float()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    over = (a - b).abs() - (ulp + (got32 - want32).abs())
+    check(not bool((over > 0).any()), f"{what}: bf16 casts more than one ulp apart")
+    return float((a - b).abs().max())
+
+
+def pool_kernel_phase(specs: dict, feats, jf, origins, dirs, renderers: dict, kernels: dict,
+                      dev) -> dict:
+    """Phase 3f (K5): every bf16 and int8 march instance on all of the aux
+    scene's camera rays, on both structures (``specs``: "" the tree walk,
+    "_baked" the bake) and both interp modes (``renderers``: "" nearest,
+    "_interp"), exact. The forwards (K2, K9b, K9c) equal the float32
+    kernels on the widened pool bit for bit; each instance against its
+    plain version on the same rays (the bf16 backward and opacity VJP as
+    float32 sums, and after their cast to bf16, and the backward also
+    against the float32 kernel); the two structures' exact renders and
+    depths with each pool bit for bit. Returns each instance's plain ms."""
+    B = origins.shape[0]
+    rng = np.random.RandomState(8)
+    plain_ms, renders = {}, {}
+    t0 = time.perf_counter()
+    for kind in POOL_KINDS:
+        pool, wide = pool_of(kind, feats)
+        check(bool(((wide[:, -1] > 0) == (feats[:, -1] > 0)).all()),
+              f"{kind} pool: a sigma changed sign (the march census would differ)")
+        for isfx, r in renderers.items():
+            opt = r._get_options(False)
+            for ssfx, spec in specs.items():
+                sfx = ssfx + isfx + "_" + kind
+                err = {}
+                with torch.no_grad():
+                    out = render_ops.volume_render_cuda(spec, pool, origins, dirs, dirs, opt)
+                    ok_, w_k = render_ops.volume_render_with_weight_accum_cuda(
+                        spec, pool, origins, dirs, dirs, opt)
+                    _, w_r = render_ops.volume_render_with_weight_accum_cuda(
+                        spec, wide, origins, dirs, dirs, opt)
+                    check(torch.equal(out, render_ops.volume_render_cuda(spec, wide, origins, dirs, dirs, opt))
+                          and torch.equal(ok_, out), f"render_fwd{sfx}: not the float32 kernel's output")
+                    atomic_err(w_k, w_r, f"render_fwd{sfx} weights vs the float32 kernel")
+                    hit = aux_ops.first_hit_cuda(spec, pool, origins, dirs, opt)
+                    hit_r = aux_ops.first_hit_cuda(spec, wide, origins, dirs, opt)
+                    check(all(torch.equal(a, b_) for a, b_ in zip(hit, hit_r)),
+                          f"first_hit{sfx}: not the float32 kernel's hits")
+                    mf = aux_ops.motion_feature_forward_cuda(spec, jf, pool, origins, dirs, opt)
+                    check(torch.equal(mf, aux_ops.motion_feature_forward_cuda(spec, jf, wide, origins,
+                                                                              dirs, opt)),
+                          f"mf_fwd{sfx}: not the float32 kernel's output")
+                    renders[(kind, isfx, ssfx)] = (out, aux_ops.render_depth(spec, pool, origins, dirs, opt))
+                    # Against the plain versions on the same rays.
+                    out_p, plain_ms["render_fwd" + sfx] = timed_once_ms(
+                        lambda: render_ops.volume_render_plain(spec, pool, origins, dirs, dirs, opt))
+                    err["render_fwd"] = float((out - out_p).abs().max())
+                    check(err["render_fwd"] <= RENDER_ATOL, f"render_fwd{sfx}: kernel vs plain {err['render_fwd']}")
+                    del out_p
+                    h_p, plain_ms["first_hit" + sfx] = timed_once_ms(
+                        lambda: aux_ops.first_hit_plain(spec, pool, origins, dirs, opt))
+                    check(all(torch.equal(a, b_) for a, b_ in zip(hit[:3], h_p[:3])),
+                          f"first_hit{sfx}: found, t_hit or rows differ from plain")
+                    err["first_hit"] = float((hit[3] - h_p[3]).abs().max())
+                    check(err["first_hit"] <= RENDER_ATOL and int(hit[0].sum()) > 0, f"first_hit{sfx}: frac")
+                    del h_p
+                    m_p, plain_ms["mf_fwd" + sfx] = timed_once_ms(
+                        lambda: aux_ops.motion_feature_render_plain(spec, jf, pool, origins, dirs, opt))
+                    err["mf_fwd"] = float((mf - m_p).abs().max())
+                    check(err["mf_fwd"] <= RENDER_ATOL, f"mf_fwd{sfx}: kernel vs plain {err['mf_fwd']}")
+                    del m_p
+                g_m = torch.from_numpy(rng.randn(B, JOINT_DIM).astype(np.float32)).to(dev)
+                b_k = aux_ops.motion_feature_backward_cuda(spec, jf, pool, origins, dirs, g_m, opt)
+                b_p, plain_ms["mf_bwd" + sfx] = timed_once_ms(
+                    lambda: aux_ops.motion_feature_backward_plain(spec, jf, pool, origins, dirs, g_m, opt))
+                err["mf_bwd"] = atomic_err(b_k, b_p, f"mf_bwd{sfx}")
+                check(float(b_k.abs().max()) > 0, f"mf_bwd{sfx}: zero gradient")
+                cast = {}
+                if kind == "bf16":
+                    g_out = torch.from_numpy(rng.randn(B, 4).astype(np.float32)).to(dev)
+                    g_k = render_ops.volume_render_backward_cuda(spec, pool, origins, dirs, dirs, g_out, opt,
+                                                                 out)
+                    g_p, plain_ms["render_bwd" + sfx] = timed_once_ms(
+                        lambda: render_ops.volume_render_backward_plain(spec, pool, origins, dirs, dirs,
+                                                                        g_out, opt, out))
+                    err["render_bwd"] = atomic_err(g_k, g_p, f"render_bwd{sfx}")
+                    cast["render_bwd"] = bf16_cast_err(g_k, g_p, f"render_bwd{sfx}")
+                    check(g_k.dtype == torch.float32 and float(g_k.abs().max()) > 0, f"render_bwd{sfx}: gradient")
+                    del g_p
+                    atomic_err(g_k, render_ops.volume_render_backward_cuda(spec, wide, origins, dirs, dirs,
+                                                                           g_out, opt, out),
+                               f"render_bwd{sfx} vs the float32 kernel")
+                    alpha = out[:, -1:].contiguous()
+                    g_a = torch.from_numpy(rng.randn(B, 1).astype(np.float32)).to(dev)
+                    a_k = aux_ops.opacity_backward_cuda(spec, pool, origins, dirs, g_a, opt, out_res=alpha)
+                    a_p, plain_ms["opacity_bwd" + sfx] = timed_once_ms(
+                        lambda: aux_ops.opacity_backward_plain(spec, pool, origins, dirs, g_a, opt,
+                                                               out_res=alpha))
+                    err["opacity_bwd"] = atomic_err(a_k, a_p, f"opacity_bwd{sfx}")
+                    cast["opacity_bwd"] = bf16_cast_err(a_k, a_p, f"opacity_bwd{sfx}")
+                    del a_p
+                for name, e in err.items():
+                    kernels[name + sfx]["max_abs_err"] = e
+                print(f"pool {sfx[1:]} ({B} rays, kernel and plain): forward, first hit and motion "
+                      f"features equal to the float32 kernels on the widened pool bit for bit; vs plain "
+                      f"max_abs_err {({k: float(f'{v:.3g}') for k, v in err.items()})}, bf16 casts "
+                      f"{({k: float(f'{v:.3g}') for k, v in cast.items()})}; plain ms "
+                      f"{({k: round(v, 1) for k, v in plain_ms.items() if k.endswith(sfx)})}")
+        for isfx in renderers:
+            a, b_ = renders[(kind, isfx, "")], renders[(kind, isfx, "_baked")]
+            check(torch.equal(a[0], b_[0]) and torch.equal(a[1], b_[1]),
+                  f"{kind}{isfx}: the backends' exact renders or depths differ")
+    print(f"pool backends: exact colors, alpha and depth of the baked and tree instances equal bit "
+          f"for bit with bf16 and int8 pools, nearest and interp; phase 3f "
+          f"{time.perf_counter() - t0:.1f} s")
+    return plain_ms
+
+
+def query_bf16_check(spec, feats, points, kernels: dict, dev) -> None:
+    """The bf16 point query (K5) against its plain version: values equal,
+    the float32 gradient sum within the atomic tolerance and its bf16 cast
+    within one ulp."""
+    pool = feats.to(torch.bfloat16)
+    v_k, n_k, d_k = query_ops.query_forward_cuda(spec, pool, points)
+    (v_p, n_p, d_p), fwd_ms = timed_once_ms(lambda: query_ops.query_forward_plain(spec, pool, points))
+    check(v_k.dtype == torch.bfloat16 and torch.equal(v_k, v_p) and torch.equal(n_k, n_p)
+          and torch.equal(d_k, d_p), "query_fwd_bf16: kernel and plain version disagree")
+    g_v = torch.from_numpy(np.random.RandomState(11).randn(*v_k.shape).astype(np.float32)).to(dev)
+    g_v = g_v.to(torch.bfloat16)
+    g_k = query_ops.query_backward_cuda(d_k, g_v, feats.shape[0])
+    g_p, bwd_ms = timed_once_ms(lambda: query_ops.query_backward_plain(d_p, g_v, feats.shape[0]))
+    err = atomic_err(g_k, g_p, "query_bwd_bf16")
+    cast = bf16_cast_err(g_k, g_p, "query_bwd_bf16")
+    kernels["query_fwd_bf16"]["max_abs_err"] = 0.0
+    kernels["query_bwd_bf16"]["max_abs_err"] = err
+    print(f"query bf16: {points.shape[0]} points, bf16 values and ids equal to plain, grad max_abs_err "
+          f"{err:.3g} (bf16 cast {cast:.3g}); plain {fwd_ms:.2f} / {bwd_ms:.2f} ms")
+
+
+def pool_path(backend: str, aux_state: dict, feats, jf, sw, ji, rig, cam_rays, c2w, dev) -> dict:
+    """Phase 4k (K5), the main path with bf16 and int8 pools through the
+    public entry points on ``backend``, on the aux scene (the canonical
+    rows): bench.py's deep serving (`bench.py:583-632`:
+    `VolumeRenderer(tree, step_size=1e-3)`, the pool cast to bf16, the
+    exact 800x800 frame at fx 880, N_SUSTAIN frames per timed call, the
+    least of 3) and its int8 form (`quantize_features`, and the int8
+    render's largest error against the float32 render of the bf16 pool on
+    8,192 seeded rays); a bf16 forward + backward; a bf16 training step
+    (opacity mask, motion-feature and point-query losses, bf16 joint
+    features) and first-hit depth; the aux passes on the int8 pool
+    (opacity, depth, motion render, motion features with the joint
+    features' gradient); one bf16 `render_dynamic_frames` call on the deep
+    dynamic rig (``rig``: poses, src, points, weights, indices), equal bit
+    for bit to the same call on the widened pool; and with
+    interp="trilinear" a bf16 frame and training step and the int8 frame,
+    depth and motion features. Returns the launch counts, the times and
+    outputs."""
+    tree = stt.tree_from_numpy(aux_state, device=dev)
+    r = stt.VolumeRenderer(tree, backend=backend, step_size=1e-3)
+    ri = stt.VolumeRenderer(tree, backend=backend, interp="trilinear")
+    if backend == "baked":
+        tree._baked_spec()
+    B = cam_rays.origins.shape[0]
+    o_b, d_b = render_ops.cam2world_rays(torch.as_tensor(orbit_camera(), device=dev), WIDTH, HEIGHT,
+                                         BENCH_FX, BENCH_FX)
+    bench_rays = stt.Rays(o_b.contiguous(), d_b.contiguous(), d_b.contiguous())
+    dpool = feats.to(torch.bfloat16)
+    res = dict(ms={})
+    reset_counts()
+    with torch.no_grad():
+        # bench.py's deep9 keys: N_SUSTAIN frames of perturbed pools per
+        # timed call (made before the clock starts), the least of 3.
+        def sustained(pools):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            total = float(sum(r(p_, bench_rays).sum() for p_ in pools))
+            check(np.isfinite(total), "deep9: non-finite frame")
+            return (time.perf_counter() - t0) * 1e3 / len(pools)
+
+        r(dpool, bench_rays)
+        stacks = [[(feats * (1.0 + 1e-2 * (i + 1) + 1e-3 * j)).to(torch.bfloat16) for j in range(N_SUSTAIN)]
+                  for i in range(3)]
+        res["ms"]["deep9_ms"] = min(sustained(st_) for st_ in stacks)
+        del stacks
+        q0 = stt.quantize_features(dpool.float())
+        sel = torch.from_numpy(np.random.RandomState(0).choice(B, INT8_ERR_RAYS, replace=False)).to(dev)
+        sel_rays = stt.Rays(*(x[sel].contiguous() for x in bench_rays))
+        res["deep9_int8_max_err"] = float((r(q0, sel_rays) - r(dpool.float(), sel_rays)).abs().max())
+        r(q0, bench_rays)
+        qstacks = [[stt.quantize_features(dpool.float() * (1.0 + 1e-2 * (i + 1) + 1e-3 * j))
+                    for j in range(N_SUSTAIN)] for i in range(3)]
+        res["ms"]["deep9_int8_ms"] = min(sustained(st_) for st_ in qstacks)
+        del qstacks
+    # A bf16 forward + backward (CUDA events over KERNEL_REPS calls).
+    g_img = torch.from_numpy(np.random.RandomState(9).randn(B, 4).astype(np.float32)).to(dev)
+    fb_pool = dpool.clone().requires_grad_()
+
+    def fwd_bwd():
+        return torch.autograd.grad((r(fb_pool, cam_rays) * g_img).sum(), fb_pool)[0]
+
+    g_fb = fwd_bwd()
+    check(g_fb.dtype == torch.bfloat16 and bool(torch.isfinite(g_fb).all()) and float(g_fb.abs().max()) > 0,
+          "bf16 fwd+bwd: bad gradient")
+    res["ms"]["fwd_bwd_bf16_ms"] = time_ms(fwd_bwd, KERNEL_REPS)
+    # A bf16 training step: opacity mask, motion features (bf16 joint
+    # features) and a point-query prior; then the first-hit depth.
+    with torch.no_grad():
+        t_alpha = r.opacity_render(feats, cam_rays)
+        t_mf = r.motion_feature_render(feats, jf, sw, ji, cam_rays)
+    pool = dpool.clone().requires_grad_()
+    jfb = jf.to(torch.bfloat16).requires_grad_()
+    prior_pts = rig[2][torch.from_numpy(np.random.RandomState(10).permutation(rig[2].shape[0])[:N_PRIOR_POINTS]).to(dev)]
+    loss = (MASK_WEIGHT * ((r.opacity_render(pool, cam_rays) - t_alpha) ** 2).mean()
+            + ((r.motion_feature_render(pool, jfb, sw, ji, cam_rays) - t_mf) ** 2).mean()
+            + PRIOR_WEIGHT * tree(pool, prior_pts)[:, -1].float().abs().mean())
+    loss.backward()
+    for name, x in (("pool", pool), ("joint features", jfb)):
+        check(x.grad is not None and x.grad.dtype == torch.bfloat16 and bool(torch.isfinite(x.grad).all())
+              and float(x.grad.float().abs().max()) > 0, f"bf16 training step: bad {name} gradient")
+    with torch.no_grad():
+        depth_b = r.render_depth(dpool, cam_rays)
+        check(torch.equal(depth_b, r.render_depth(dpool.float(), cam_rays)), "bf16 depth: not the float32 kernel's")
+        # The aux passes on the int8 pool.
+        alpha_q = r.opacity_render(q0, cam_rays)
+        depth_q = r.render_depth(q0, cam_rays)
+        motion_q = r.motion_render(q0, cam_rays)
+        wide_q = q0.dequantize()
+        check(torch.equal(alpha_q, r.opacity_render(wide_q, cam_rays))
+              and torch.equal(depth_q, r.render_depth(wide_q, cam_rays))
+              and torch.equal(depth_q, motion_q[1]), "int8 aux passes: not the float32 kernels' outputs")
+    x = jf.clone().requires_grad_()
+    mf_q = r.motion_feature_render(q0, x, sw, ji, cam_rays)
+    (g_x,) = torch.autograd.grad(((mf_q - t_mf) ** 2).mean(), x)
+    check(bool(torch.isfinite(g_x).all()) and float(g_x.abs().max()) > 0, "int8 motion features: bad gradient")
+    # One bf16 render_dynamic_frames call on the deep dynamic rig, and the
+    # same call on the widened pool: equal bit for bit.
+    dyn_tree = stt.tree_from_numpy(aux_state, device=dev)
+    dyn_r = stt.VolumeRenderer(dyn_tree, backend=backend)
+    if backend == "baked":
+        dyn_tree._baked_spec()  # the host bake, at load: not part of the call's time
+    dyn_kw = dict(c2w=c2w, width=WIDTH, height=HEIGHT, fx=FX, viewdir_rotation=True, with_depth=True,
+                  update_tree=False)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cols, deps = dyn_r.render_dynamic_frames(dpool, *rig, **dyn_kw)
+        torch.cuda.synchronize()
+        res["ms"]["dynamic_bf16_call_ms"] = (time.perf_counter() - t0) * 1e3
+        cols_w, deps_w = dyn_r.render_dynamic_frames(dpool.float(), *rig, **dyn_kw)
+    check(torch.equal(cols, cols_w) and torch.equal(deps, deps_w),
+          "bf16 render_dynamic_frames: not the float32 call on the widened pool")
+    check(bool((cols[..., 3] > 0).any()), "bf16 render_dynamic_frames: no hit")
+    # Trilinear: a bf16 frame and training step, depth; the int8 frame,
+    # depth and motion features with the joint features' gradient.
+    pool_i = dpool.clone().requires_grad_()
+    jfb_i = jf.to(torch.bfloat16).requires_grad_()
+    img = ri.render_persp(pool_i, c2w, WIDTH, HEIGHT, fx=FX)
+    loss_i = ((img ** 2).mean() + MASK_WEIGHT * (ri.opacity_render(pool_i, cam_rays) ** 2).mean()
+              + (ri.motion_feature_render(pool_i, jfb_i, sw, ji, cam_rays) ** 2).mean())
+    loss_i.backward()
+    check(pool_i.grad.dtype == torch.bfloat16 and float(pool_i.grad.float().abs().max()) > 0
+          and jfb_i.grad.dtype == torch.bfloat16, "bf16 interp step: bad gradients")
+    with torch.no_grad():
+        di_b = ri.render_depth(dpool, cam_rays)
+        img_q = ri(q0, cam_rays)
+        di_q = ri.render_depth(q0, cam_rays)
+        check(torch.equal(img_q, ri(wide_q, cam_rays)) and torch.equal(di_q, ri.render_depth(wide_q, cam_rays)),
+              "int8 interp: not the float32 kernels' outputs")
+    x_i = jf.clone().requires_grad_()
+    (g_xi,) = torch.autograd.grad((ri.motion_feature_render(q0, x_i, sw, ji, cam_rays) ** 2).mean(), x_i)
+    check(float(g_xi.abs().max()) > 0 and bool((di_b > 0).any()), "int8 interp: bad gradient or no depth")
+    torch.cuda.synchronize()
+    res["counts"] = read_counts()
+    return res
 
 
 def train(tree, true_pool, pool0, centers, perms, prior_points, steps,
@@ -899,7 +1239,7 @@ def main() -> None:
     # 2. Build
     b = _build.build()
     build_s = b.seconds
-    print(f"build: {build_s:.1f} s -> {b.path.name}")
+    print(f"build: {build_s:.1f} s on {os.cpu_count()} CPUs, one nvcc per source -> {b.path.name}")
     for line in b.log.splitlines():
         if line.startswith("== ") or "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
@@ -978,6 +1318,17 @@ def main() -> None:
         for sfx in ("_interp", "_baked_interp"):
             kernels[name + sfx] = dict(route="cuda", source=f"svox_t_tpu_torch/csrc/{march_src[name]}{sfx}.cu",
                                        replaces="svox_t_tpu/ops/render.py:635")
+    # K5: the bf16 and int8 pool instances of the march kernels (each its
+    # header compiled with the macros of `_build.POOL_INSTANCES`), and the
+    # bf16 point query (svox_t_tpu/ops/render.py:248 `_gather_features`
+    # with `QuantizedFeatures` :71, inside K2, K3, K9a-d and K8b).
+    for name in POOL_KERNELS:
+        base = next(b_ for b_ in MARCH_KERNELS if name.startswith(b_))
+        kernels[name] = dict(route="cuda", source=f"svox_t_tpu_torch/csrc/{march_src[base]}.cuh",
+                             replaces="svox_t_tpu/ops/render.py:248")
+    for name in ("query_fwd_bf16", "query_bwd_bf16"):
+        kernels[name] = dict(route="cuda", source="svox_t_tpu_torch/csrc/query_bf16.cu",
+                             replaces="svox_t_tpu/ops/render.py:248")
 
     # 3. Kernel vs plain
     tree = stt.tree_from_numpy(state, device=dev)
@@ -1551,6 +1902,15 @@ def main() -> None:
           f"{float((out_it - out_n).abs().max()):.4g}; phase 3e {time.perf_counter() - t_3e:.1f} s")
     del interp_out, out_it, out_n
 
+    # 3f. Feature pools (K5): every bf16 and int8 instance against the
+    # float32 kernels and its plain version, both structures, both interp
+    # modes; the bf16 point query.
+    pool_plain_ms = pool_kernel_phase({"": aux_spec, "_baked": aux_baked}, feats, jf_true, origins, dirs,
+                                      {"": sh_renderer, "_interp": interp_r}, kernels, dev)
+    query_bf16_check(spec, feats, q_points, kernels, dev)
+    print(f"pool bytes ({M} rows x 28 channels): float32 {M * 28 * 4 / 1e6:.1f} MB, bf16 "
+          f"{M * 28 * 2 / 1e6:.1f} MB, int8 {(M * 28 + 2 * 28 * 4) / 1e6:.1f} MB [{card}]")
+
     # 4. Main path, serving: three frames through the public entry points,
     # on the default baked backend (baked once, as at load; every re-point
     # then refreshes the bake) and on the tree walk.
@@ -2076,9 +2436,39 @@ def main() -> None:
           "interp: the backends' exact frames, depths or motion outputs differ")
     print("interp: the backends' exact frames, depths and motion outputs equal bit for bit")
 
+    # 4k. Main path, bf16 and int8 pools (K5) on both backends
+    # (`pool_path`): bench.py's deep serving and its int8 form, a bf16
+    # forward + backward, a bf16 training step, the aux passes on the int8
+    # pool, a bf16 dynamic call, and the same under interp.
+    pool_counts, pool_ms = {}, {}
+    rig = (poses, src, centers, rig_sw, rig_ji)
+    for backend in BACKENDS:
+        res = pool_path(backend, aux_state, feats, jf_true, sw, ji, rig, cam_rays, c2w, dev)
+        counts = pool_counts[backend] = res["counts"]
+        want = [k for k in POOL_KERNELS if ("_baked" in k) == (backend == "baked")]
+        missing = [k for k in want + ["query_fwd_bf16", "query_bwd_bf16"] if counts[k] == 0]
+        check(not missing, f"pool path ({backend}): not launched: {missing}")
+        if backend == "tree":
+            check_bake_counts(counts, backend, 0)
+        pool_ms[backend] = res["ms"]
+        ms = res["ms"]
+        print(f"main path, bf16/int8 pools ({LABEL[backend]}): launches {nonzero(counts)}; deep9_ms "
+              f"{ms['deep9_ms']:.4f}, deep9_mrays_s {B / ms['deep9_ms'] / 1e3:.3f}, deep9_int8_ms "
+              f"{ms['deep9_int8_ms']:.4f}, deep9_int8_mrays_s {B / ms['deep9_int8_ms'] / 1e3:.3f}, "
+              f"deep9_int8_max_err {res['deep9_int8_max_err']:.5g} ({INT8_ERR_RAYS} rays), fwd_bwd_bf16_ms "
+              f"{ms['fwd_bwd_bf16_ms']:.4f}, bf16 render_dynamic_frames call ({N_FRAMES} frames) "
+              f"{ms['dynamic_bf16_call_ms']:.3f} ms; host clock, synchronized; bench.py's cost plan "
+              f"(`plan`, ROADMAP item 15) is a schedule the port accepts and ignores [{card}]")
+    ms = pool_ms["baked"]
+    print(f"bench.py deep9 keys (default bake, as bench.py renders): deep9_ms {ms['deep9_ms']:.4f}, "
+          f"deep9_mrays_s {B / ms['deep9_ms'] / 1e3:.3f}, deep9_int8_ms {ms['deep9_int8_ms']:.4f}, "
+          f"deep9_int8_mrays_s {B / ms['deep9_int8_ms'] / 1e3:.3f}, fwd_bwd_bf16_ms "
+          f"{ms['fwd_bwd_bf16_ms']:.4f} [{card}]")
+
     phases = (*serve_counts.values(), *train_counts.values(), *aux_serve_counts.values(),
               *aux_train_counts.values(), *dyn_counts, vox_counts, *dyn_train_counts.values(),
-              pose_counts, *bench_counts.values(), edit_counts, *interp_counts.values())
+              pose_counts, *bench_counts.values(), edit_counts, *interp_counts.values(),
+              *pool_counts.values())
     for k in kernels:
         kernels[k]["launches"] = sum(c[k] for c in phases)
         check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
@@ -2165,6 +2555,21 @@ def main() -> None:
         print(f"time query ({M} points, D 28): forward kernel {qf_ms:.4f} ms, plain {qf_plain_ms:.4f} ms; "
               f"backward kernel {qb_ms:.4f} ms, plain {qb_plain_ms:.4f} ms, "
               f"index_add_ {qb_lib_ms:.4f} ms [{card}]")
+        # The bf16 query (K5) on the same points; its library call sums
+        # the bf16 gradients in a bf16 buffer, as the JAX package does.
+        fb0, g_vb = f0.to(torch.bfloat16), g_v.to(torch.bfloat16)
+        times = dict(
+            fwd=time_ms(lambda: query_ops.query_forward_cuda(spec_t, fb0, qpts), KERNEL_REPS),
+            fwd_plain=time_ms(lambda: query_ops.query_forward_plain(spec_t, fb0, qpts), 3),
+            bwd=time_ms(lambda: query_ops.query_backward_cuda(didx, g_vb, M), KERNEL_REPS),
+            bwd_plain=time_ms(lambda: query_ops.query_backward_plain(didx, g_vb, M), 3),
+            lib=time_ms(lambda: torch.zeros(M, 28, dtype=torch.bfloat16, device=dev).index_add_(
+                0, didx_l, g_vb), KERNEL_REPS))
+        kernels["query_fwd_bf16"].update(ms=times["fwd"], plain_ms=times["fwd_plain"])
+        kernels["query_bwd_bf16"].update(ms=times["bwd"], plain_ms=times["bwd_plain"], library_ms=times["lib"])
+        print(f"time query bf16 ({M} points, D 28): forward kernel {times['fwd']:.4f} ms, plain "
+              f"{times['fwd_plain']:.4f} ms; backward kernel {times['bwd']:.4f} ms, plain "
+              f"{times['bwd_plain']:.4f} ms, index_add_ (bf16 sums) {times['lib']:.4f} ms [{card}]")
 
         # The aux kernels, on the aux scene pointed at the canonical rows.
         for fast in (False, True):
@@ -2249,6 +2654,43 @@ def main() -> None:
                 print(f"time {name}{sfx} SH9 exact {WIDTH}x{HEIGHT}: kernel {k_ms:.4f} ms (nearest mode "
                       f"{n_ms:.4f} ms in the same turn), plain {interp_plain_ms[name + sfx]:.1f} ms (one call, "
                       f"phase 3e) [{card}]")
+
+        # The pool instances (K5), exact, on the aux scene's camera rays;
+        # plain: one call on the same rays, phase 3f. The float32
+        # instance on the same structure in the same turn, for comparison.
+        for pk in POOL_KINDS:
+            pool, _ = pool_of(pk, feats)
+            for isfx, rend in (("", sh_renderer), ("_interp", interp_r)):
+                opt = rend._get_options(False)
+                for ssfx, pspec in (("", aux_spec), ("_baked", aux_baked)):
+                    sfx = ssfx + isfx
+                    out = render_ops.volume_render_cuda(pspec, feats, origins, dirs, dirs, opt)
+                    alpha = out[:, -1:].contiguous()
+                    g_out = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(dev)
+                    g_a = torch.from_numpy(rng.randn(B, 1).astype(np.float32)).to(dev)
+                    g_m = torch.from_numpy(rng.randn(B, JOINT_DIM).astype(np.float32)).to(dev)
+                    runs = {
+                        "render_fwd": lambda p_: render_ops.volume_render_cuda(pspec, p_, origins, dirs, dirs, opt),
+                        "render_bwd": lambda p_: render_ops.volume_render_backward_cuda(
+                            pspec, p_, origins, dirs, dirs, g_out, opt, out_res=out),
+                        "opacity_bwd": lambda p_: aux_ops.opacity_backward_cuda(
+                            pspec, p_, origins, dirs, g_a, opt, out_res=alpha),
+                        "first_hit": lambda p_: aux_ops.first_hit_cuda(pspec, p_, origins, dirs, opt),
+                        "mf_fwd": lambda p_: aux_ops.motion_feature_forward_cuda(
+                            pspec, jf_true, p_, origins, dirs, opt),
+                        "mf_bwd": lambda p_: aux_ops.motion_feature_backward_cuda(
+                            pspec, jf_true, p_, origins, dirs, g_m, opt),
+                    }
+                    for name, run_k in runs.items():
+                        key = f"{name}{sfx}_{pk}"
+                        if key not in kernels:
+                            continue
+                        k_ms = time_ms(lambda: run_k(pool), KERNEL_REPS)
+                        f_ms = time_ms(lambda: run_k(feats), KERNEL_REPS)
+                        kernels[key].update(ms=k_ms, plain_ms=pool_plain_ms[key])
+                        print(f"time {key} SH9 exact {WIDTH}x{HEIGHT}: kernel {k_ms:.4f} ms (float32 pool "
+                              f"{f_ms:.4f} ms in the same turn), plain {pool_plain_ms[key]:.1f} ms (one call, "
+                              f"phase 3f) [{card}]")
 
         # The bake's kernels at the main path's shapes; plain: one call,
         # phase 3d.
@@ -2365,9 +2807,17 @@ def main() -> None:
                               baked.top.numel() + baked.n_mid, gb.R))
     print(f"census (SH9 exact, {WIDTH}x{HEIGHT}, tree walk): {census}")
     print(f"census (SH9 exact, {WIDTH}x{HEIGHT}, bake): {census_b}")
+    # The pool instances (K5) take the same samples as the float32 ones
+    # (their forwards are equal bit for bit, and no sigma changed sign;
+    # phase 3f), so the same census with the pool's bytes.
+    for pk in POOL_KINDS:
+        for c_ in (census, census_b):
+            bounds.update({k: v for k, v in march_bounds(c_, M, 28, pk).items() if k in kernels})
     for label, ispec in (("tree walk", aux_spec), ("bake", aux_baked)):
         c_i = march_census(ispec, feats, origins, dirs, interp_r._get_options(False))
         bounds.update(interp_bounds(c_i, M, 28))
+        for pk in POOL_KINDS:
+            bounds.update({k: v for k, v in interp_bounds(c_i, M, 28, pk).items() if k in kernels})
         print(f"census (SH9 exact, interp, {WIDTH}x{HEIGHT}, {label}): {c_i}")
     p2v_c = p2v_census(warped1, grid)
     bounds.update(dynamic_bounds(M, N_BONES, N_JOINTS, 28, P2V_N, p2v_c, touched))
@@ -2388,7 +2838,8 @@ def main() -> None:
     print(card)
     print(json.dumps({"kernels": [dict(name=k, **{key: v[key] for key in keys})
                                   for k, v in kernels.items()]}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": 1}}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

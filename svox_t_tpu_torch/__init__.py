@@ -18,7 +18,8 @@ distances, and LBS-blended joint features. The dynamic
 frame loop (`VolumeRenderer.render_dynamic_frames`) LBS-warps the
 canonical cloud per frame (`warp_vertices`), re-points the tree and
 renders; `voxelize` splats a cloud into a density grid, and
-`render_frames` / `render_persp_frames` render a stack of pools. The
+`render_frames` / `render_persp_frames` render a stack of pools. A pool
+is float32 or bfloat16, or int8 through `quantize_features` (K5). The
 renderer marches the tree's bake by default (`ops/bake.py`: a dense top
 grid and brick atlas, refreshed at every re-point), as the JAX package
 does; `backend="tree"` walks the octree. Entry points run on the CUDA
@@ -39,7 +40,8 @@ from .utils.spec import (NDCConfig, Rays, RenderOptions, TreeSpec,
 from .utils.dataformat import DataFormat, LocalIndex
 from .ops.sh import eval_sh, eval_sh_bases
 from .utils.builders import tree_from_occupancy, tree_structure_from_occupancy
-from .utils.convert import tree_from_numpy, tree_state
+from .utils.convert import quantized_from_numpy, tree_from_numpy, tree_state
+from .ops.render import QuantizedFeatures, quantize_features
 from .ops.render_aux import (motion_feature_render, motion_render,
                              opacity_render, render_depth)
 from .ops.warp import (blend_transformation_matrix, get_transformation_matrix,
@@ -65,6 +67,7 @@ __all__ = [
     "tree_structure_from_occupancy",
     "tree_from_numpy",
     "tree_state",
+    "quantized_from_numpy",
     "opacity_render",
     "render_depth",
     "motion_render",
@@ -73,6 +76,8 @@ __all__ = [
     "blend_transformation_matrix",
     "warp_vertices",
     "voxelize",
+    "QuantizedFeatures",
+    "quantize_features",
     "make_tree_spec",
     "DATA_SENTINEL",
     "__version__",

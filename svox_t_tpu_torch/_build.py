@@ -9,6 +9,11 @@ package imports on machines without CUDA. The library lands in
 sources and flags, so an edited source rebuilds and an unchanged one
 loads the library already built.
 
+The march headers (`render_fwd.cuh`, `render_bwd.cuh`, `render_aux.cuh`)
+are instantiated once per compile: the float32 instances by the
+`render_*.cu` sources, the bf16 and int8 pool instances (K5) from the
+`POOL_INSTANCES` table, whose macros go to nvcc as ``-D`` flags.
+
 ``-fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch versions round them: the march's sample positions then
 agree bit for bit with the plain version, and a descent can never pick a
@@ -36,15 +41,67 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-# The trilinear sources (`*_interp.cu`) hold the most kernel instances and
-# set the build's wall time; they also run their optimizer passes in
-# parallel threads. The other sources compile as before. The log gives
-# each source's seconds.
+# The trilinear compiles (`*_interp*`, float32, bf16 and int8 pools) hold
+# the most kernel instances and set the build's wall time; they also run
+# their optimizer passes in parallel threads. The others compile as
+# before. The log gives each compile's seconds.
 SPLIT_FLAGS = ("-split-compile=0",)
 
 
-def _flags(src: Path):
-    return NVCC_FLAGS + (SPLIT_FLAGS if src.stem.endswith("_interp") else ())
+# The pool types of each march header that the JAX package reaches (K5):
+# an int8 pool takes no gradient, so the backward header has no int8
+# instance. Each is built on both structures, nearest and trilinear.
+POOL_INSTANCES = {"render_fwd": ("bf16", "i8"), "render_bwd": ("bf16",),
+                  "render_aux": ("bf16", "i8")}
+_STRUCTURES = {"": "svox::TreeWalk", "_baked": "svox::Baked"}
+_POOL_TYPES = {"bf16": "svox::PoolBF16", "i8": "svox::PoolI8"}
+
+
+class Unit(NamedTuple):
+    """One nvcc compile: its name (of the object and in the log), its
+    source, and the macros (``-D`` flags) it is compiled with."""
+
+    name: str
+    source: Path
+    defines: tuple
+
+
+def units(csrc: Path = CSRC) -> list:
+    """Every compile of the library: each `.cu` source of ``csrc``, then
+    each pool instance of `POOL_INSTANCES`, named as the float32 source
+    with the pool type's suffix (``render_fwd_baked_interp_bf16``)."""
+    out = [Unit(p.stem, p, ()) for p in sorted(csrc.glob("*.cu"))]
+    for header, kinds in POOL_INSTANCES.items():
+        for ssfx, structure in _STRUCTURES.items():
+            for isfx in ("", "_interp"):
+                for kind in kinds:
+                    sfx = f"{ssfx}{isfx}_{kind}"
+                    defines = (f"-DSVOX_STRUCTURE={structure}", f"-DSVOX_SUFFIX={sfx}",
+                               f"-DSVOX_POOL={_POOL_TYPES[kind]}")
+                    if isfx:
+                        defines += ("-DSVOX_INTERP=1",)
+                    out.append(Unit(header + sfx, csrc / f"{header}.cuh", defines))
+    return out
+
+
+def source_args(unit: Unit, stub: Path) -> list:
+    """nvcc's input arguments for ``unit``: a `.cu` source as it is; for a
+    pool instance its ``-D`` flags, the header's directory and ``stub``, a
+    one-line `.cu` written here that includes the header."""
+    if not unit.defines:
+        return [str(unit.source)]
+    stub.write_text(f'#include "{unit.source.name}"\n')
+    return [*unit.defines, f"-I{unit.source.parent}", str(stub)]
+
+
+def _flags(unit: Unit):
+    return NVCC_FLAGS + (SPLIT_FLAGS if "_interp" in unit.name else ())
+
+
+def _label(unit: Unit) -> str:
+    if not unit.defines:
+        return unit.source.name
+    return f"{unit.name} ({unit.source.name} {' '.join(unit.defines)})"
 
 
 def _sources():
@@ -64,6 +121,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + SPLIT_FLAGS).encode())
+    h.update(repr([(u.name, u.defines) for u in units()]).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -73,7 +131,8 @@ def library_path() -> Path:
 class Build(NamedTuple):
     """Result of `build()`: the library path, the seconds the compile
     took (0.0 when the library was already built) and nvcc's log, one
-    section per source headed ``== <source> (<seconds> s)``."""
+    section per compile headed ``== <source> (<seconds> s)`` (a pool
+    instance: ``== <name> (<header> <-D flags>) (<seconds> s)``)."""
 
     path: Path
     seconds: float
@@ -82,7 +141,7 @@ class Build(NamedTuple):
 
 def build() -> Build:
     """Compile the kernels unless a library for these sources exists:
-    one nvcc per source file, run in parallel, then one link."""
+    one nvcc per compile unit, run in parallel, then one link."""
     path = library_path()
     if path.exists():
         return Build(path, 0.0, "")
@@ -90,13 +149,14 @@ def build() -> Build:
     stem = f"{path.stem}.{os.getpid()}"
     nvcc = _nvcc()
     t0 = time.perf_counter()
-    jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        obj = BUILD_DIR / f"{stem}.{src.stem}.o"
-        cmd = [nvcc, *_flags(src), "-c", "-o", str(obj), str(src)]
+    jobs, stubs = [], []
+    for unit in units():
+        obj = BUILD_DIR / f"{stem}.{unit.name}.o"
+        stubs.append(BUILD_DIR / f"{stem}.{unit.name}.cu")
+        cmd = [nvcc, *_flags(unit), "-c", "-o", str(obj), *source_args(unit, stubs[-1])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs.append((src, obj, proc))
+        jobs.append((unit, obj, proc))
     def finish(proc):
         out, _ = proc.communicate()
         return out, time.perf_counter() - t0
@@ -104,10 +164,10 @@ def build() -> Build:
     with ThreadPoolExecutor(len(jobs)) as pool:
         results = list(pool.map(finish, [proc for _, _, proc in jobs]))
     logs, failed = [], []
-    for (src, obj, proc), (out, secs) in zip(jobs, results):
-        logs.append(f"== {src.name} ({secs:.1f} s)\n{out}")
+    for (unit, obj, proc), (out, secs) in zip(jobs, results):
+        logs.append(f"== {_label(unit)} ({secs:.1f} s)\n{out}")
         if proc.returncode != 0:
-            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+            failed.append(f"{_label(unit)} ({proc.returncode}):\n{out}")
     objs = [obj for _, obj, _ in jobs]
     try:
         if failed:
@@ -123,8 +183,8 @@ def build() -> Build:
             )
         os.replace(tmp, path)
     finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
+        for f in objs + stubs:
+            f.unlink(missing_ok=True)
     return Build(path, time.perf_counter() - t0, "".join(logs))
 
 

@@ -1,6 +1,6 @@
 // Shared device functions of the octree kernels (K1), the baked lookup
-// (K6), the march step, trilinear interpolation (K4) and the spherical
-// bases of the march kernels.
+// (K6), the march step, trilinear interpolation (K4), the feature pool's
+// row loads (K5) and the spherical bases of the march kernels.
 //
 // Replaces: svox_t_tpu/ops/traversal.py `descend` (the batched
 // fixed-trip-count descent), `dda_unit`, `get_delta_scale` and
@@ -33,12 +33,15 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
-// Entry-point names of a structure's kernel instances: a source defines
-// SVOX_STRUCTURE and SVOX_SUFFIX (empty for the tree walk, _baked for the
-// bake) and includes a march header, whose entry SVOX_NAME(svox_x) is then
-// svox_x or svox_x_baked.
+// Entry-point names of a structure's kernel instances: a source (or the
+// build's -D flags, for a pool type) defines SVOX_STRUCTURE and
+// SVOX_SUFFIX (empty for the tree walk, _baked for the bake; then _interp,
+// then _bf16 or _i8 for a pool type, SVOX_POOL) and includes a march
+// header, whose entry SVOX_NAME(svox_x) is then svox_x,
+// svox_x_baked, ...
 #define SVOX_CAT2(a, b) a##b
 #define SVOX_CAT(a, b) SVOX_CAT2(a, b)
 #define SVOX_NAME(base) SVOX_CAT(base, SVOX_SUFFIX)
@@ -418,6 +421,93 @@ __device__ __forceinline__ Leaf sample_leaf(const S& s, const Ray& r, float t,
 }
 
 // ---------------------------------------------------------------------
+// K5: the feature pool's element type. Replaces svox_t_tpu/ops/render.py
+// `_gather_features` (with `QuantizedFeatures`, `_pack_features`): the
+// JAX package gathers whole rows, dequantizes or upcasts them, and packs
+// a large pool G rows to a table row for the TPU's gather; that packing
+// is a TPU table layout and has no counterpart here. An instance that
+// defines SVOX_POOL (svox::PoolBF16 or svox::PoolI8) instantiates its
+// kernels for that pool; the others keep svox::PoolF32. A kernel holds
+// the pool as svox::Pool, forms a row's address as pool + row * D (for
+// PoolF32 the pointer arithmetic of before) and reads a column with ld,
+// which returns float32 right after the load:
+//   PoolF32:  a float pointer; ld is __ldg, as before K5, so the float32
+//             instances compile to the code they compiled to before.
+//   PoolBF16: 2-byte loads; a bf16 value widens to float32 exactly (its
+//             bits are the float's top 16).
+//   PoolI8:   1-byte loads and per-column scale and zero (D floats each,
+//             read through __ldg: they stay in L1); the column is
+//             float(q) * scale + zero, a multiply and an add, each rounded
+//             (the library is built with -fmad=false), as the plain version
+//             (ops/render.py `gather_rows`) and the JAX package compute it.
+// A row address is a "pointer" of the pool's type: adding k moves to
+// column + k (for PoolI8 the scale and zero move with it), so the march
+// code indexes rows as it indexes a float row. The bf16 and int8 sources
+// run SG and ASG of every size on their 25-term instance (kFloatPool,
+// launch_basis): 20 more sources with every capacity made the build more
+// than twice as long.
+// Bound on an H100: the pool is the march's largest table (157 MB in
+// float32 at depth 9 SH9); bf16 halves and int8 quarters the bytes of
+// every row a sample reads, which moves the march's byte bound and, for
+// the rows that miss L2, its latency. The work per sample is unchanged.
+
+using PoolF32 = const float*;
+using PoolBF16 = const uint16_t*;
+
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const uint16_t* p) {
+  return __uint_as_float(static_cast<uint32_t>(__ldg(p)) << 16);
+}
+
+// An int8 pool: rows of D values and the per-column scale and zero.
+struct PoolI8 {
+  const int8_t* q;
+  const float* scale;
+  const float* zero;
+};
+
+// A column of an int8 row: its value and its column's scale and zero.
+struct QPtr {
+  const int8_t* q;
+  const float* scale;
+  const float* zero;
+  __device__ __forceinline__ QPtr operator+(int k) const { return {q + k, scale + k, zero + k}; }
+  __device__ __forceinline__ QPtr operator-(int k) const { return {q - k, scale - k, zero - k}; }
+};
+
+// The int8 pool at element offset `off` (a row start): its value at
+// column 0 of that row.
+__device__ __forceinline__ QPtr operator+(const PoolI8& f, size_t off) {
+  return {f.q + off, f.scale, f.zero};
+}
+__device__ __forceinline__ float ld(const QPtr& p) {
+  return static_cast<float>(__ldg(p.q)) * __ldg(p.scale) + __ldg(p.zero);
+}
+
+// The pool a C entry point is given: features (M, D) of the pool's type,
+// and for an int8 pool the (D,) float32 scale and zero (else null).
+template <class P>
+inline P make_pool(const void* features, const float* scale, const float* zero);
+template <>
+inline PoolF32 make_pool<PoolF32>(const void* features, const float*, const float*) {
+  return static_cast<const float*>(features);
+}
+template <>
+inline PoolBF16 make_pool<PoolBF16>(const void* features, const float*, const float*) {
+  return static_cast<const uint16_t*>(features);
+}
+template <>
+inline PoolI8 make_pool<PoolI8>(const void* features, const float* scale, const float* zero) {
+  return {static_cast<const int8_t*>(features), scale, zero};
+}
+
+#ifndef SVOX_POOL
+#define SVOX_POOL svox::PoolF32
+#endif
+using Pool = SVOX_POOL;
+constexpr bool kFloatPool = std::is_same<Pool, PoolF32>::value;
+
+// ---------------------------------------------------------------------
 // K4: trilinear interpolation. Replaces svox_t_tpu/ops/render.py
 // `_interp_corners` and `_gather_interp` (ops/render.py `interp_corners`,
 // `_interp`). A source that defines SVOX_INTERP 1 instantiates its march
@@ -627,17 +717,17 @@ __device__ __forceinline__ float sigmoid(float x) {
 // The pre-sigmoid color c of a feature row (the interp marches; K2 and K3
 // keep theirs inline): row[c] (RGBA), or sum_k basis_k * row[c * nb + k]
 // summed over k in order (KB the basis capacity, nb its run-time size).
-template <int FMT, int KB>
-__device__ __forceinline__ float row_logit(const float* __restrict__ row, int c, int nb,
-                                           const float* basis) {
+// R is a row address of the pool's type (pool + row * D).
+template <int FMT, int KB, class R>
+__device__ __forceinline__ float row_logit(const R row, int c, int nb, const float* basis) {
   if constexpr (FMT == kRGBA) {
-    return __ldg(row + c);
+    return ld(row + c);
   } else {
-    const float* coef = row + c * nb;
-    float s = basis[0] * __ldg(coef);
+    const R coef = row + c * nb;
+    float s = basis[0] * ld(coef);
 #pragma unroll
     for (int k = 1; k < KB; ++k) {
-      if (k < nb) s = s + basis[k] * __ldg(coef + k);
+      if (k < nb) s = s + basis[k] * ld(coef + k);
     }
     return s;
   }
@@ -648,17 +738,16 @@ __device__ __forceinline__ float row_logit(const float* __restrict__ row, int c,
 // (as `interp_sum`), for c < nc of the instance's KMAX. The corner loop is
 // not unrolled: 8 corners x KMAX colors x KB basis terms of straight-line
 // code per instance is more than the compiler finishes in a build's time.
-template <int FMT, int KB, int KMAX>
-__device__ __forceinline__ void interp_logits(const Corners& cn, const float* __restrict__ features,
-                                              int D, int nc, int nb, const float* basis,
-                                              float* z) {
+template <int FMT, int KB, int KMAX, class P>
+__device__ __forceinline__ void interp_logits(const Corners& cn, const P features, int D, int nc,
+                                              int nb, const float* basis, float* z) {
 #pragma unroll
   for (int c = 0; c < KMAX; ++c) z[c] = 0.f;
 #pragma unroll 1
   for (int n = 0; n < 8; ++n) {
     const int32_t row = cn.row[n];
     if (row < 0) continue;
-    const float* f = features + static_cast<size_t>(row) * D;
+    const auto f = features + static_cast<size_t>(row) * D;
     const float w = cn.w[n];
 #pragma unroll
     for (int c = 0; c < KMAX; ++c) {

@@ -1,0 +1,101 @@
+// K8b (query part) for a bf16 feature pool (K5): the point query's forward
+// and backward, as csrc/query.cu computes them for a float32 pool.
+//
+// Replaces: svox_t_tpu/ops/query.py `query` / `_query_impl` and
+// `_query_bwd` on a bf16 pool. The JAX forward gathers bf16 rows, so its
+// values are bf16; its backward adds bf16 value gradients into a bf16
+// (M, D) buffer. Here the forward copies the row's 2-byte values as they
+// are (exact), and the backward adds each value gradient, widened to
+// float32 exactly, into a float32 (M, D) buffer with atomicAdd; the
+// wrapper casts that sum to bf16 once (ops/query.py). A row that k points
+// read thus rounds once where JAX rounds k times.
+//
+// Bound on an H100: as csrc/query.cu — the descent's latency forward, the
+// atomics backward — with half the pool and value bytes forward and half
+// the gradient bytes read backward. The design is csrc/query.cu's: one
+// thread per point forward, one per (point, column) backward,
+// column-fastest so a warp's atomics fall on neighbouring addresses.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__global__ void query_fwd_bf16_kernel(const float* __restrict__ points, int Q, int world,
+                                      const int32_t* __restrict__ child,
+                                      const int32_t* __restrict__ data, int N, int n_levels,
+                                      const float* __restrict__ offset,
+                                      const float* __restrict__ scaling,
+                                      const uint16_t* __restrict__ features, int M, int D,
+                                      uint16_t* __restrict__ values,
+                                      int32_t* __restrict__ node_flat,
+                                      int32_t* __restrict__ data_idx) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= Q) return;
+  float x = points[3 * i + 0], y = points[3 * i + 1], z = points[3 * i + 2];
+  if (world) {  // world2tree: offset + scaling * pos
+    x = offset[0] + scaling[0] * x;
+    y = offset[1] + scaling[1] * y;
+    z = offset[2] + scaling[2] * z;
+  }
+  const svox::Leaf leaf = svox::descend(child, N, n_levels, x, y, z);
+  const int32_t idx = __ldg(data + leaf.flat);
+  node_flat[i] = leaf.flat;
+  data_idx[i] = idx;
+  uint16_t* v = values + static_cast<size_t>(i) * D;
+  if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(M)) {
+    const uint16_t* row = features + static_cast<size_t>(idx) * D;
+    for (int j = 0; j < D; ++j) v[j] = __ldg(row + j);
+  } else {
+    for (int j = 0; j < D; ++j) v[j] = 0;  // bf16 +0
+  }
+}
+
+__global__ void query_bwd_bf16_kernel(const int32_t* __restrict__ data_idx,
+                                      const uint16_t* __restrict__ grad_values, int Q, int M,
+                                      int D, float* __restrict__ grad) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<int64_t>(Q) * D) return;
+  const int i = static_cast<int>(e / D);
+  const int j = static_cast<int>(e - static_cast<int64_t>(i) * D);
+  const int32_t idx = __ldg(data_idx + i);
+  if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(M)) {
+    atomicAdd(grad + static_cast<size_t>(idx) * D + j, svox::ld(grad_values + e));
+  }
+}
+
+}  // namespace
+
+// As svox_query_fwd, with features (M, D) bf16 and values (Q, D) bf16 out.
+// Returns a cudaError_t.
+extern "C" int svox_query_fwd_bf16(const float* points, int Q, int world,
+                                   const int32_t* child, const int32_t* data, int N,
+                                   int n_levels, const float* offset, const float* scaling,
+                                   const void* features, int M, int D, void* values,
+                                   int32_t* node_flat, int32_t* data_idx, int device,
+                                   cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (Q <= 0) return cudaSuccess;
+  query_fwd_bf16_kernel<<<(Q + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      points, Q, world, child, data, N, n_levels, offset, scaling,
+      static_cast<const uint16_t*>(features), M, D, static_cast<uint16_t*>(values), node_flat,
+      data_idx);
+  return cudaGetLastError();
+}
+
+// As svox_query_bwd, with grad_values (Q, D) bf16; grad (M, D) f32, zeroed
+// by the caller. Returns a cudaError_t.
+extern "C" int svox_query_bwd_bf16(const int32_t* data_idx, const void* grad_values, int Q,
+                                   int M, int D, float* grad, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const int64_t n = static_cast<int64_t>(Q) * D;
+  if (n <= 0 || M <= 0) return cudaSuccess;
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  query_bwd_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      data_idx, static_cast<const uint16_t*>(grad_values), Q, M, D, grad);
+  return cudaGetLastError();
+}

@@ -55,6 +55,13 @@
 // or 32, template instances) with Kd a run-time bound inside, as K2 holds
 // colors; nb is a run-time loop bound.
 //
+// Feature pools (K5): the build (_build.POOL_INSTANCES) also defines
+// SVOX_POOL (svox::PoolBF16, svox::PoolI8) on each structure, nearest and
+// interp (svox_first_hit_bf16, ..., svox_mf_bwd_baked_interp_i8). The
+// three passes read only a row's sigma, column D - 1: one 2-byte or
+// 1-byte load (and the column's scale and zero) per sample, in float32
+// from there on. The joint table stays float32.
+//
 // Trilinear interpolation (K4): render_aux_interp.cu and
 // render_aux_baked_interp.cu define SVOX_INTERP 1 (svox_first_hit_interp,
 // svox_mf_fwd_interp, svox_mf_bwd_interp and their _baked_interp twins).
@@ -87,7 +94,7 @@ struct March {
   int B;
   const float* offset;
   const float* scaling;
-  const float* features;
+  svox::Pool features;
   int M;
   int D;
   float step_size;
@@ -123,10 +130,10 @@ __device__ __forceinline__ Sample sample_at(const March& m, const Ray& r, float 
     // K4: the corners' sigma, also where the sample's own leaf is empty.
     const svox::Corners cn = svox::sample_corners(m.st, r, t, s.leaf.cube_sz, m.M);
     s.sigma = svox::interp_sum(cn, [&](int32_t row) {
-      return __ldg(m.features + static_cast<size_t>(row) * m.D + m.D - 1);
+      return svox::ld(m.features + static_cast<size_t>(row) * m.D + m.D - 1);
     });
   } else {
-    s.sigma = s.resident ? __ldg(m.features + static_cast<size_t>(s.idx) * m.D + m.D - 1) : 0.f;
+    s.sigma = s.resident ? svox::ld(m.features + static_cast<size_t>(s.idx) * m.D + m.D - 1) : 0.f;
   }
   return s;
 }
@@ -368,21 +375,23 @@ cudaError_t run_mf(const MotionParams& p, bool backward, int device, cudaStream_
 
 // Leading arguments of the three entry points: s the structure
 // (svox::StructDesc, host memory); rays (B, 3) f32 (origins, dirs; world
-// space); offset/scaling (3,) f32; features (M, D) f32 (only column D - 1
-// is read). All pointers but s are device pointers. Each returns a
-// cudaError_t.
+// space); offset/scaling (3,) f32; features (M, D) of the source's pool
+// type, with scale and zero (D,) f32 for an int8 pool, else null (only
+// column D - 1 is read). All pointers but s are device pointers. Each
+// returns a cudaError_t.
 
 // K9b. found (B,) bool, t_hit (B,) f32, row (B,) i32, frac (B, 3) f32.
 extern "C" int SVOX_NAME(svox_first_hit)(
     const svox::StructDesc* s, const float* origins, const float* dirs, int B,
-    const float* offset, const float* scaling, const float* features, int M, int D,
-    float step_size, int max_steps, float sigma_thresh, bool* found,
-    float* t_hit, int32_t* row, float* frac, int device, cudaStream_t stream) {
+    const float* offset, const float* scaling, const void* features, const float* scale,
+    const float* zero, int M, int D, float step_size, int max_steps, float sigma_thresh,
+    bool* found, float* t_hit, int32_t* row, float* frac, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B <= 0) return cudaSuccess;
-  const FirstHitParams p{{S::from(*s), origins, dirs, B, offset,
-                          scaling, features, M, D, step_size, max_steps},
+  const FirstHitParams p{{S::from(*s), origins, dirs, B, offset, scaling,
+                          svox::make_pool<svox::Pool>(features, scale, zero), M, D, step_size,
+                          max_steps},
                          sigma_thresh, found, t_hit, row, frac};
   const dim3 grid((B + kThreads - 1) / kThreads);
   first_hit_kernel<<<grid, kThreads, 0, stream>>>(p);
@@ -393,12 +402,13 @@ extern "C" int SVOX_NAME(svox_first_hit)(
 // i32; out (B, Kd) f32.
 extern "C" int SVOX_NAME(svox_mf_fwd)(
     const svox::StructDesc* s, const float* origins, const float* dirs, int B,
-    const float* offset, const float* scaling, const float* features, int M, int D,
-    float step_size, int max_steps, const float* jf, int J, int Kd,
-    const float* sw, const int32_t* ji, int nb, float sigma_thresh,
+    const float* offset, const float* scaling, const void* features, const float* scale,
+    const float* zero, int M, int D, float step_size, int max_steps, const float* jf, int J,
+    int Kd, const float* sw, const int32_t* ji, int nb, float sigma_thresh,
     float stop_thresh, float bg, float* out, int device, cudaStream_t stream) {
-  const MotionParams p{{S::from(*s), origins, dirs, B, offset,
-                        scaling, features, M, D, step_size, max_steps},
+  const MotionParams p{{S::from(*s), origins, dirs, B, offset, scaling,
+                        svox::make_pool<svox::Pool>(features, scale, zero), M, D, step_size,
+                        max_steps},
                        jf, J, Kd, sw, ji, nb, sigma_thresh, stop_thresh, bg,
                        nullptr, out};
   return run_mf(p, false, device, stream);
@@ -408,12 +418,13 @@ extern "C" int SVOX_NAME(svox_mf_fwd)(
 // zeroed by the caller; J * (Kd | 1) <= 12288.
 extern "C" int SVOX_NAME(svox_mf_bwd)(
     const svox::StructDesc* s, const float* origins, const float* dirs, int B,
-    const float* offset, const float* scaling, const float* features, int M, int D,
-    float step_size, int max_steps, const float* jf, int J, int Kd,
-    const float* sw, const int32_t* ji, int nb, const float* grad_out,
+    const float* offset, const float* scaling, const void* features, const float* scale,
+    const float* zero, int M, int D, float step_size, int max_steps, const float* jf, int J,
+    int Kd, const float* sw, const int32_t* ji, int nb, const float* grad_out,
     float* grad, int device, cudaStream_t stream) {
-  const MotionParams p{{S::from(*s), origins, dirs, B, offset,
-                        scaling, features, M, D, step_size, max_steps},
+  const MotionParams p{{S::from(*s), origins, dirs, B, offset, scaling,
+                        svox::make_pool<svox::Pool>(features, scale, zero), M, D, step_size,
+                        max_steps},
                        jf, J, Kd, sw, ji, nb, 0.f, 0.f, 0.f, grad_out, grad};
   return run_mf(p, true, device, stream);
 }

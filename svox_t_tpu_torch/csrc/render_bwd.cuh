@@ -67,6 +67,13 @@
 // `opacity_backward_plain`). Bound on an H100: as K3, the descent chain
 // per sample; one 4-byte atomic per contributing sample.
 //
+// Feature pools (K5): the build defines SVOX_POOL svox::PoolBF16
+// on each structure, nearest and interp (svox_render_bwd_bf16,
+// svox_opacity_bwd_bf16, ...): the row loads are bf16, the arithmetic and
+// the atomics into the (M, D) gradient float32; the wrapper casts the
+// float32 gradient to bf16 once. A quantized pool takes no gradient, so
+// there is no int8 instance.
+//
 // Trilinear interpolation (K4): render_bwd_interp.cu and
 // render_bwd_baked_interp.cu define SVOX_INTERP 1 (svox_render_bwd_interp,
 // svox_opacity_bwd_interp and their _baked_interp twins), whose `march`
@@ -93,7 +100,7 @@ struct Params {
   int B;
   const float* offset;
   const float* scaling;
-  const float* features;
+  svox::Pool features;
   int M;
   int D;
   const float* tmats;
@@ -155,7 +162,7 @@ __device__ __forceinline__ void march(const Params<S>& p, const Ray& r,
       // atomics of nearest mode.
       const svox::Corners cn = svox::sample_corners(p.st, r, t, leaf.cube_sz, p.M);
       const float sigma = svox::interp_sum(cn, [&](int32_t row) {
-        return __ldg(p.features + static_cast<size_t>(row) * p.D + p.D - 1);
+        return svox::ld(p.features + static_cast<size_t>(row) * p.D + p.D - 1);
       });
       if (sigma > 0.f) {
         const float att = expf((-dt * r.ds) * sigma);
@@ -216,9 +223,9 @@ __device__ __forceinline__ void march(const Params<S>& p, const Ray& r,
         L = L_after;
       }
     } else if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
-      const float* row = p.features + static_cast<size_t>(idx) * p.D;
+      const auto row = p.features + static_cast<size_t>(idx) * p.D;
       float* grow = p.grad + static_cast<size_t>(idx) * p.D;
-      const float sigma = __ldg(row + p.D - 1);
+      const float sigma = svox::ld(row + p.D - 1);
       if (sigma > 0.f) {
         const float att = expf((-dt * r.ds) * sigma);
         if constexpr (kSigmaOnly) {
@@ -242,13 +249,13 @@ __device__ __forceinline__ void march(const Params<S>& p, const Ray& r,
           if (c < nc) {
             float s;
             if constexpr (FMT == svox::kRGBA) {
-              s = svox::sigmoid(__ldg(row + c));
+              s = svox::sigmoid(svox::ld(row + c));
             } else {
-              const float* coef = row + c * nb;
-              float z = basis[0] * __ldg(coef);
+              const auto coef = row + c * nb;
+              float z = basis[0] * svox::ld(coef);
 #pragma unroll
               for (int k = 1; k < kB; ++k) {
-                if (k < nb) z = z + basis[k] * __ldg(coef + k);
+                if (k < nb) z = z + basis[k] * svox::ld(coef + k);
               }
               s = svox::sigmoid(z);
             }
@@ -369,15 +376,23 @@ __global__ void __launch_bounds__(kThreads) opacity_bwd_kernel(const Params<S> p
 }
 
 // Basis instances hold 1, 4, 9, 16 or 25 terms (svox::basis_capacity).
+// The bf16 and int8 pool instances (K5) run SG and ASG of every size on the
+// 25-term instance, behind its run-time bound: the same result, fewer
+// instances to compile.
 template <class S, int FMT>
 cudaError_t launch_basis(const Params<S>& p, cudaStream_t stream) {
-  switch (svox::basis_capacity(FMT, p.basis_dim)) {
-    case 1: return launch<S, FMT, 1>(p, stream);
-    case 4: return launch<S, FMT, 4>(p, stream);
-    case 9: return launch<S, FMT, 9>(p, stream);
-    case 16: return launch<S, FMT, 16>(p, stream);
-    case 25: return launch<S, FMT, 25>(p, stream);
-    default: return cudaErrorInvalidValue;
+  if constexpr (FMT != svox::kSH && !svox::kFloatPool) {
+    if (svox::basis_capacity(FMT, p.basis_dim) == 0) return cudaErrorInvalidValue;
+    return launch<S, FMT, svox::kMaxBasis>(p, stream);
+  } else {
+    switch (svox::basis_capacity(FMT, p.basis_dim)) {
+      case 1: return launch<S, FMT, 1>(p, stream);
+      case 4: return launch<S, FMT, 4>(p, stream);
+      case 9: return launch<S, FMT, 9>(p, stream);
+      case 16: return launch<S, FMT, 16>(p, stream);
+      case 25: return launch<S, FMT, 25>(p, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -385,14 +400,15 @@ cudaError_t launch_basis(const Params<S>& p, cudaStream_t stream) {
 
 // Arguments as svox_render_fwd, plus grad_out (B, n_color + 1) f32,
 // out_res (B, n_color + 1) f32 (the forward output: single pass) or null
-// (two passes), and grad (M, D) f32, zeroed by the caller. All pointers
-// but s are device pointers. Returns a cudaError_t.
+// (two passes), and grad (M, D) f32 whatever the pool's type, zeroed by
+// the caller. All pointers but s are device pointers. Returns a
+// cudaError_t.
 extern "C" int SVOX_NAME(svox_render_bwd)(
     const svox::StructDesc* s, const float* origins, const float* dirs,
     const float* vdirs, int B,
-    const float* offset, const float* scaling, const float* features, int M,
-    int D, const float* tmats, int format, const float* extra, int ld_extra,
-    int basis_dim, int min_comp, int max_comp, int n_color, float step_size,
+    const float* offset, const float* scaling, const void* features, const float* scale,
+    const float* zero, int M, int D, const float* tmats, int format, const float* extra,
+    int ld_extra, int basis_dim, int min_comp, int max_comp, int n_color, float step_size,
     float bg, int max_steps, const float* grad_out, const float* out_res,
     float* grad, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -401,9 +417,9 @@ extern "C" int SVOX_NAME(svox_render_bwd)(
   if (n_color < 0 || n_color > kMaxColor) return cudaErrorInvalidValue;
   using S = SVOX_STRUCTURE;
   const Params<S> p{S::from(*s), origins, dirs, vdirs, B,
-                    offset, scaling, features, M, D, tmats, extra, ld_extra,
-                    basis_dim, min_comp, max_comp, n_color, step_size, bg,
-                    max_steps, grad_out, out_res, grad};
+                    offset, scaling, svox::make_pool<svox::Pool>(features, scale, zero), M, D,
+                    tmats, extra, ld_extra, basis_dim, min_comp, max_comp, n_color, step_size,
+                    bg, max_steps, grad_out, out_res, grad};
   switch (format) {
     case svox::kRGBA: return launch<S, svox::kRGBA, 0>(p, stream);
     case svox::kSH: return launch_basis<S, svox::kSH>(p, stream);
@@ -420,15 +436,16 @@ extern "C" int SVOX_NAME(svox_render_bwd)(
 // device pointers. Returns a cudaError_t.
 extern "C" int SVOX_NAME(svox_opacity_bwd)(
     const svox::StructDesc* s, const float* origins, const float* dirs, int B,
-    const float* offset, const float* scaling, const float* features, int M, int D,
-    float step_size, int max_steps, const float* grad_out,
+    const float* offset, const float* scaling, const void* features, const float* scale,
+    const float* zero, int M, int D, float step_size, int max_steps, const float* grad_out,
     const float* out_res, float* grad, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (B <= 0 || M <= 0) return cudaSuccess;
   using S = SVOX_STRUCTURE;
   const Params<S> p{S::from(*s), origins, dirs, dirs, B,
-                    offset, scaling, features, M, D, nullptr, nullptr, 0,
+                    offset, scaling, svox::make_pool<svox::Pool>(features, scale, zero), M, D,
+                    nullptr, nullptr, 0,
                     0, 0, 0, 0, step_size, 0.f,
                     max_steps, grad_out, out_res, grad};
   const dim3 grid((B + kThreads - 1) / kThreads);

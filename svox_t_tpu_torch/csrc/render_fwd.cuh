@@ -49,6 +49,11 @@
 // for operation, and the library is built with -fmad=false, so the sample
 // positions agree bit for bit with it.
 //
+// Feature pools (K5): the build (_build.POOL_INSTANCES) also defines
+// SVOX_POOL (svox::PoolBF16, svox::PoolI8) on each structure, nearest and
+// interp (svox_render_fwd_bf16, ..._baked_interp_i8): every row load is
+// svox::ld of the pool's type, float32 from there on (common.cuh).
+//
 // Trilinear interpolation (K4): render_fwd_interp.cu and
 // render_fwd_baked_interp.cu define SVOX_INTERP 1 (svox_render_fwd_interp,
 // svox_render_fwd_baked_interp). Their rays are not culled (march_cull);
@@ -79,7 +84,7 @@ struct Params {
   int B;
   const float* offset;
   const float* scaling;
-  const float* features;
+  svox::Pool features;
   int M;
   int D;
   const float* tmats;
@@ -144,7 +149,7 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params<S> p)
       // (row 0 where it is empty, as in the JAX package) only rotates.
       const svox::Corners cn = svox::sample_corners(p.st, r, t, leaf.cube_sz, p.M);
       const float sigma = svox::interp_sum(cn, [&](int32_t row) {
-        return __ldg(p.features + static_cast<size_t>(row) * p.D + p.D - 1);
+        return svox::ld(p.features + static_cast<size_t>(row) * p.D + p.D - 1);
       });
       if (sigma > p.sigma_thresh) {
         const float att = expf((-dt * r.ds) * sigma);
@@ -175,8 +180,8 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params<S> p)
       // Rows >= M (and negative rows) are empty space. Their sigma is 0 and
       // a sample with sigma 0 adds weight 0 and leaves L unchanged, so it is
       // skipped.
-      const float* row = p.features + static_cast<size_t>(idx) * p.D;
-      const float sigma = __ldg(row + p.D - 1);
+      const auto row = p.features + static_cast<size_t>(idx) * p.D;
+      const float sigma = svox::ld(row + p.D - 1);
       if (sigma > p.sigma_thresh) {
         const float att = expf((-dt * r.ds) * sigma);
         const float weight = L * (1.f - att);
@@ -193,13 +198,13 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params<S> p)
           if (c < nc) {
             float s;
             if constexpr (FMT == svox::kRGBA) {
-              s = __ldg(row + c);
+              s = svox::ld(row + c);
             } else {
-              const float* coef = row + c * nb;
-              s = basis[0] * __ldg(coef);
+              const auto coef = row + c * nb;
+              s = basis[0] * svox::ld(coef);
 #pragma unroll
               for (int k = 1; k < kB; ++k) {
-                if (k < nb) s = s + basis[k] * __ldg(coef + k);
+                if (k < nb) s = s + basis[k] * svox::ld(coef + k);
               }
             }
             acc[c] = acc[c] + weight * svox::sigmoid(s);
@@ -250,15 +255,23 @@ cudaError_t launch(const Params<S>& p, cudaStream_t stream) {
 }
 
 // Basis instances hold 1, 4, 9, 16 or 25 terms (svox::basis_capacity).
+// The bf16 and int8 pool instances (K5) run SG and ASG of every size on the
+// 25-term instance, behind its run-time bound: the same result, fewer
+// instances to compile.
 template <class S, int FMT>
 cudaError_t launch_basis(const Params<S>& p, cudaStream_t stream) {
-  switch (svox::basis_capacity(FMT, p.basis_dim)) {
-    case 1: return launch<S, FMT, 1>(p, stream);
-    case 4: return launch<S, FMT, 4>(p, stream);
-    case 9: return launch<S, FMT, 9>(p, stream);
-    case 16: return launch<S, FMT, 16>(p, stream);
-    case 25: return launch<S, FMT, 25>(p, stream);
-    default: return cudaErrorInvalidValue;
+  if constexpr (FMT != svox::kSH && !svox::kFloatPool) {
+    if (svox::basis_capacity(FMT, p.basis_dim) == 0) return cudaErrorInvalidValue;
+    return launch<S, FMT, svox::kMaxBasis>(p, stream);
+  } else {
+    switch (svox::basis_capacity(FMT, p.basis_dim)) {
+      case 1: return launch<S, FMT, 1>(p, stream);
+      case 4: return launch<S, FMT, 4>(p, stream);
+      case 9: return launch<S, FMT, 9>(p, stream);
+      case 16: return launch<S, FMT, 16>(p, stream);
+      case 25: return launch<S, FMT, 25>(p, stream);
+      default: return cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -266,16 +279,17 @@ cudaError_t launch_basis(const Params<S>& p, cudaStream_t stream) {
 
 // s: the structure (svox::StructDesc, host memory); rays (B, 3) f32:
 // origins, dirs, vdirs (world space); offset/scaling (3,) f32; features
-// (M, D) f32; tmats (M, 4, 4) f32 or null; extra (basis_dim, ld_extra) f32
+// (M, D) of the source's pool type (svox::Pool: f32, bf16 or int8), with
+// scale and zero (D,) f32 for an int8 pool, else null; tmats (M, 4, 4) f32 or null; extra (basis_dim, ld_extra) f32
 // for SG/ASG (else null); out (B, n_color + 1) f32; waccum (n_tree_cells,)
 // f32 or null. format: 0 RGBA, 1 SH, 2 SG, 3 ASG. All pointers but s are
 // device pointers. Returns a cudaError_t.
 extern "C" int SVOX_NAME(svox_render_fwd)(
     const svox::StructDesc* s, const float* origins, const float* dirs,
     const float* vdirs, int B,
-    const float* offset, const float* scaling, const float* features, int M,
-    int D, const float* tmats, int format, const float* extra, int ld_extra,
-    int basis_dim, int min_comp, int max_comp, int n_color, float step_size,
+    const float* offset, const float* scaling, const void* features, const float* scale,
+    const float* zero, int M, int D, const float* tmats, int format, const float* extra,
+    int ld_extra, int basis_dim, int min_comp, int max_comp, int n_color, float step_size,
     float bg, float sigma_thresh, float stop_thresh, int max_steps,
     float* out, float* waccum, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
@@ -284,9 +298,9 @@ extern "C" int SVOX_NAME(svox_render_fwd)(
   if (n_color < 0 || n_color > kMaxColor) return cudaErrorInvalidValue;
   using S = SVOX_STRUCTURE;
   const Params<S> p{S::from(*s), origins, dirs, vdirs, B,
-                    offset, scaling, features, M, D, tmats, extra, ld_extra,
-                    basis_dim, min_comp, max_comp, n_color, step_size, bg,
-                    sigma_thresh, stop_thresh, max_steps, out, waccum};
+                    offset, scaling, svox::make_pool<svox::Pool>(features, scale, zero), M, D,
+                    tmats, extra, ld_extra, basis_dim, min_comp, max_comp, n_color, step_size,
+                    bg, sigma_thresh, stop_thresh, max_steps, out, waccum};
   switch (format) {
     case svox::kRGBA: return launch<S, svox::kRGBA, 0>(p, stream);
     case svox::kSH: return launch_basis<S, svox::kSH>(p, stream);

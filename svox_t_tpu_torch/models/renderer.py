@@ -38,8 +38,11 @@ same exact-mode outputs bit for bit; fast mode differs between them, as
 in the JAX package. ``interp="trilinear"`` interpolates every sample from
 the 8 cells around it (K4, `ops/render.py` `interp_corners`) in every
 march and aux pass on both backends; the bake's box cull, box advance
-and skip boxes are then off, as in the JAX package. Quantized pools
-raise NotImplementedError until the ROADMAP item that brings them. Image
+and skip boxes are then off, as in the JAX package. A feature pool is a
+float32 or bfloat16 tensor (rendered, differentiated and queried in its
+own type, its gradient bf16 too), or an int8 `QuantizedFeatures`
+(`quantize_features`; every render and aux pass takes one, and it takes
+no gradient); the frame loops take float32 or bf16 stacks. Image
 renders march rays in pixel order: the JAX package's tile and cost orders
 only schedule work and do not change the image.
 """
@@ -234,6 +237,12 @@ class VolumeRenderer(nn.Module):
                                "accumulate_weights(); use forward() or render_persp() there")
 
     def _pool(self, features):
+        """A pool or stack on the tree's device: a tensor or a quantized
+        pool in its own type (JAX `_as_features` and `jnp.asarray`), so
+        that a type with no kernel instance raises on the card; a host
+        array as float32."""
+        if isinstance(features, (torch.Tensor, render_ops.QuantizedFeatures)):
+            return features.to(self.tree.device)
         return torch.as_tensor(features, dtype=torch.float32, device=self.tree.device)
 
     def render_frames(self, features_frames, rays: Rays,

@@ -35,19 +35,22 @@ CONSTRUCT_TREE = Kernel(
      c_void_p, c_void_p,                  # offset, scaling
      c_void_p, c_void_p, c_int, c_void_p],  # winner, out, device, stream
 )
-QUERY_FWD = Kernel(
-    "svox_query_fwd",
-    [c_void_p, c_int, c_int,                  # points, Q, world
-     c_void_p, c_void_p, c_int, c_int,        # child, data, N, n_levels
-     c_void_p, c_void_p, c_void_p, c_int, c_int,  # offset, scaling, features, M, D
-     c_void_p, c_void_p, c_void_p,            # values, node_flat, data_idx
-     c_int, c_void_p],                        # device, stream
-)
-QUERY_BWD = Kernel(
-    "svox_query_bwd",
-    [c_void_p, c_void_p, c_int, c_int, c_int,  # data_idx, grad_values, Q, M, D
-     c_void_p, c_int, c_void_p],               # grad, device, stream
-)
+_QUERY_FWD_ARGS = [c_void_p, c_int, c_int,                  # points, Q, world
+                   c_void_p, c_void_p, c_int, c_int,        # child, data, N, n_levels
+                   c_void_p, c_void_p, c_void_p, c_int, c_int,  # offset, scaling, features, M, D
+                   c_void_p, c_void_p, c_void_p,            # values, node_flat, data_idx
+                   c_int, c_void_p]                         # device, stream
+_QUERY_BWD_ARGS = [c_void_p, c_void_p, c_int, c_int, c_int,  # data_idx, grad_values, Q, M, D
+                   c_void_p, c_int, c_void_p]                # grad, device, stream
+QUERY_FWD = Kernel("svox_query_fwd", _QUERY_FWD_ARGS)
+QUERY_BWD = Kernel("svox_query_bwd", _QUERY_BWD_ARGS)
+# K5: the bf16 pool's instances (csrc/query_bf16.cu): bf16 values, and a
+# backward that reads bf16 value gradients and sums them in float32. The
+# JAX query takes no quantized pool.
+QUERY_FWD_BF16 = Kernel("svox_query_fwd_bf16", _QUERY_FWD_ARGS)
+QUERY_BWD_BF16 = Kernel("svox_query_bwd_bf16", _QUERY_BWD_ARGS)
+_QUERY_FWD = {torch.float32: QUERY_FWD, torch.bfloat16: QUERY_FWD_BF16}
+_QUERY_BWD = {torch.float32: QUERY_BWD, torch.bfloat16: QUERY_BWD_BF16}
 POINTS_AABB = Kernel(
     "svox_points_aabb",
     [c_void_p, c_int, c_int,                  # points, Q, world
@@ -136,6 +139,9 @@ def construct_tree_cuda(spec: TreeSpec, points: torch.Tensor) -> torch.Tensor:
 
 def _check_query(spec: TreeSpec, features: torch.Tensor, points: torch.Tensor) -> None:
     _check_points(spec, points)
+    if not isinstance(features, torch.Tensor):
+        raise ValueError("the point query takes a float32 or bfloat16 pool tensor (the JAX "
+                         "package's query takes no quantized pool)")
     if features.ndim != 2:
         raise ValueError(f"features must be (M, D), got {tuple(features.shape)}")
     if features.device != points.device:
@@ -147,13 +153,15 @@ def query(spec: TreeSpec, features: torch.Tensor, points: torch.Tensor, world: b
 
     :param points: (Q, 3) float32 query points (world space, or tree
         space when ``world`` is False).
-    :return: (values (Q, D), node_ids (Q,) packed leaf ids,
-              data_ids (Q,) feature rows — >= n_features where empty)
+    :return: (values (Q, D) in the pool's type (float32 or bf16),
+              node_ids (Q,) packed leaf ids, data_ids (Q,) feature rows —
+              >= n_features where empty)
 
     Empty leaves return zero values. The gradient of ``values`` adds into
-    the feature rows the points read (duplicates sum); the ids carry no
-    gradient.
+    the feature rows the points read (duplicates sum, in float32), and
+    comes back in the pool's type; the ids carry no gradient.
     """
+    _check_query(spec, features, points)
     return _QueryFn.apply(spec, features, points, world)
 
 
@@ -168,6 +176,7 @@ class _QueryFn(torch.autograd.Function):
         ctx.mark_non_differentiable(node_flat, data_idx)
         ctx.save_for_backward(data_idx)
         ctx.pool_shape = tuple(features.shape)
+        ctx.pool_dtype = features.dtype
         return values, node_flat, data_idx
 
     @staticmethod
@@ -178,7 +187,8 @@ class _QueryFn(torch.autograd.Function):
         (data_idx,) = ctx.saved_tensors
         M, _ = ctx.pool_shape
         bwd = query_backward_cuda if grad_values.is_cuda else query_backward_plain
-        return None, bwd(data_idx, grad_values.contiguous(), M), None, None
+        grad = bwd(data_idx, grad_values.contiguous(), M)
+        return None, grad.to(ctx.pool_dtype), None, None
 
 
 def query_forward_plain(spec: TreeSpec, features: torch.Tensor, points: torch.Tensor,
@@ -199,37 +209,45 @@ def query_forward_plain(spec: TreeSpec, features: torch.Tensor, points: torch.Te
 
 def query_backward_plain(data_idx: torch.Tensor, grad_values: torch.Tensor, M: int):
     """Plain PyTorch version of the query backward kernel: (M, D) feature
-    gradient, value gradients added into rows data_idx < M."""
+    gradient, value gradients added into rows data_idx < M, summed in
+    float32 (float64 for float64 gradients) whatever their type."""
     D = grad_values.shape[1]
-    grad = torch.zeros(M, D, dtype=grad_values.dtype, device=grad_values.device)
+    dtype = torch.promote_types(grad_values.dtype, torch.float32)
+    grad = torch.zeros(M, D, dtype=dtype, device=grad_values.device)
     valid = (data_idx >= 0) & (data_idx < M)
-    grad.index_add_(0, data_idx[valid].long(), grad_values[valid])
+    grad.index_add_(0, data_idx[valid].long(), grad_values[valid].to(dtype))
     return grad
 
 
 def query_forward_cuda(spec: TreeSpec, features: torch.Tensor, points: torch.Tensor,
                        world: bool = True):
-    """Launch the query forward kernel (csrc/query.cu)."""
+    """Launch the query forward kernel (csrc/query.cu; for a bf16 pool
+    csrc/query_bf16.cu, whose values are bf16)."""
     _check_query(spec, features, points)
     tables = (spec.child_flat, spec.data_flat, spec.offset, spec.scaling)
     if not points.is_cuda or any(t.device != points.device for t in (features, *tables)):
         raise ValueError("query_forward_cuda needs points, features and tree on one CUDA device")
-    for t, dtype in zip((*tables, features),
-                        (torch.int32, torch.int32, torch.float32, torch.float32, torch.float32)):
+    for t, dtype in zip(tables, (torch.int32, torch.int32, torch.float32, torch.float32)):
         if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError("child/data must be contiguous int32, offset/scaling/features float32")
+            raise ValueError("child/data must be contiguous int32, offset/scaling float32")
+    kernel = _QUERY_FWD.get(features.dtype)
+    if kernel is None:
+        raise ValueError(f"the query kernels have no instance for a {features.dtype} pool: "
+                         "float32 or bfloat16")
+    if not features.is_contiguous():
+        raise ValueError("query_forward_cuda needs a contiguous pool")
     Q = points.shape[0]
     M, D = features.shape
     if Q >= 2 ** 31 or spec.child_flat.numel() >= 2 ** 31:
         raise ValueError("query_forward_cuda takes fewer than 2^31 points and cells")
     points = points.contiguous()
     dev = points.device
-    values = torch.empty(Q, D, dtype=torch.float32, device=dev)
+    values = torch.empty(Q, D, dtype=features.dtype, device=dev)
     node_flat = torch.empty(Q, dtype=torch.int32, device=dev)
     data_idx = torch.empty(Q, dtype=torch.int32, device=dev)
     if Q == 0:
         return values, node_flat, data_idx
-    QUERY_FWD(
+    kernel(
         points.data_ptr(), Q, int(bool(world)),
         spec.child_flat.data_ptr(), spec.data_flat.data_ptr(), spec.N, spec.n_levels,
         spec.offset.data_ptr(), spec.scaling.data_ptr(), features.data_ptr(), M, D,
@@ -240,12 +258,16 @@ def query_forward_cuda(spec: TreeSpec, features: torch.Tensor, points: torch.Ten
 
 
 def query_backward_cuda(data_idx: torch.Tensor, grad_values: torch.Tensor, M: int):
-    """Launch the query backward kernel (csrc/query.cu) into a zeroed
-    (M, D) gradient."""
+    """Launch the query backward kernel (csrc/query.cu; for bf16 value
+    gradients csrc/query_bf16.cu) into a zeroed float32 (M, D) gradient."""
     if not (data_idx.is_cuda and grad_values.device == data_idx.device):
         raise ValueError("query_backward_cuda needs data_idx and grad_values on one CUDA device")
-    if data_idx.dtype != torch.int32 or grad_values.dtype != torch.float32:
-        raise ValueError("data_idx must be int32 and grad_values float32")
+    if data_idx.dtype != torch.int32:
+        raise ValueError("data_idx must be int32")
+    kernel = _QUERY_BWD.get(grad_values.dtype)
+    if kernel is None:
+        raise ValueError(f"the query kernels have no instance for {grad_values.dtype} "
+                         "gradients: float32 or bfloat16")
     if not (data_idx.is_contiguous() and grad_values.is_contiguous()):
         raise ValueError("query_backward_cuda needs contiguous tensors")
     Q, D = grad_values.shape
@@ -255,7 +277,7 @@ def query_backward_cuda(data_idx: torch.Tensor, grad_values: torch.Tensor, M: in
     grad = torch.zeros(M, D, dtype=torch.float32, device=dev)
     if M == 0 or Q * D == 0:
         return grad
-    QUERY_BWD(
+    kernel(
         data_idx.data_ptr(), grad_values.data_ptr(), Q, M, D, grad.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -63,6 +63,19 @@ clamp, no box advance) and skip boxes are off. The interp kernels are
 their own instances (``RENDER_FWD_INTERP``, ``RENDER_FWD_BAKED_INTERP``,
 ...; `csrc/render_*_interp.cu`).
 
+Feature pools (K5; JAX `_gather_features`, `QuantizedFeatures`): a pool is
+a float32 or bfloat16 (M, D) tensor, or a `QuantizedFeatures` (int8 rows
+with per-channel float32 ``scale`` and ``zero``, `quantize_features`).
+Every march reads the pool in its own type and turns each row it gathers
+into float32 right after the gather (`gather_rows`: a bf16 value exactly,
+an int8 one as ``float(q) * scale[c] + zero[c]``, a multiply and an add,
+each rounded); sigma, colors, compositing and gradients are then float32
+arithmetic, whatever the pool. The backward sums a bf16 pool's gradient
+in a float32 (M, D) buffer and casts it once at the end; a quantized pool
+takes no gradient (JAX: a zero cotangent). Each pool type has its own
+kernel instances (``RENDER_FWD_BF16``, ``RENDER_FWD_I8``, ...;
+`_build.POOL_INSTANCES`), and a type without one raises on CUDA.
+
 The JAX package forms L as a per-round cumulative product and scatters
 gradients deterministically, while this port multiplies per sample and
 the kernels add gradients with float atomics, so the two agree to a few
@@ -90,7 +103,8 @@ from .traversal import LeafInfo, dda_unit, descend, get_delta_scale, world2tree
 _MARCH_ARGS = [
     ctypes.POINTER(StructureDesc),                  # tree or bake
     c_void_p, c_void_p, c_void_p, c_int,            # origins, dirs, vdirs, B
-    c_void_p, c_void_p, c_void_p, c_int, c_int,     # offset, scaling, features, M, D
+    c_void_p, c_void_p,                             # offset, scaling
+    c_void_p, c_void_p, c_void_p, c_int, c_int,     # features, scale, zero, M, D
     c_void_p, c_int, c_void_p, c_int,               # tmats, format, extra, ld_extra
     c_int, c_int, c_int, c_int,                     # basis_dim, min/max_comp, n_color
     c_float, c_float,                               # step, bg
@@ -100,17 +114,32 @@ _FWD_ARGS = _MARCH_ARGS + [c_float, c_float, c_int,  # sigma/stop thresh, max_st
 _BWD_ARGS = _MARCH_ARGS + [c_int,                   # max_steps
                            c_void_p, c_void_p, c_void_p,  # grad_out, out_res, grad
                            c_int, c_void_p]         # device, stream
-RENDER_FWD = Kernel("svox_render_fwd", _FWD_ARGS)
-RENDER_BWD = Kernel("svox_render_bwd", _BWD_ARGS)
-RENDER_FWD_BAKED = Kernel("svox_render_fwd_baked", _FWD_ARGS)
-RENDER_BWD_BAKED = Kernel("svox_render_bwd_baked", _BWD_ARGS)
-# The trilinear (K4) instances: csrc/render_*_interp.cu, render_*_baked_interp.cu.
-RENDER_FWD_INTERP = Kernel("svox_render_fwd_interp", _FWD_ARGS)
-RENDER_BWD_INTERP = Kernel("svox_render_bwd_interp", _BWD_ARGS)
-RENDER_FWD_BAKED_INTERP = Kernel("svox_render_fwd_baked_interp", _FWD_ARGS)
-RENDER_BWD_BAKED_INTERP = Kernel("svox_render_bwd_baked_interp", _BWD_ARGS)
-_FWD_INSTANCES = (RENDER_FWD, RENDER_FWD_BAKED, RENDER_FWD_INTERP, RENDER_FWD_BAKED_INTERP)
-_BWD_INSTANCES = (RENDER_BWD, RENDER_BWD_BAKED, RENDER_BWD_INTERP, RENDER_BWD_BAKED_INTERP)
+# The entry-point suffixes of a march kernel's instances: the structure and
+# interpolation (in `_kernel_for`'s order: tree walk, bake, tree walk
+# interp, bake interp), then the pool type (K5).
+_STRUCT_SUFFIXES = ("", "_baked", "_interp", "_baked_interp")
+POOL_SUFFIX = {"f32": "", "bf16": "_bf16", "i8": "_i8"}
+
+
+def march_instances(base: str, args, pools) -> dict:
+    """{pool type: (tree, bake, tree interp, bake interp) kernels} of the
+    entry point ``svox_<base>``, for the pool types it has instances of."""
+    return {pool: tuple(Kernel(f"svox_{base}{s}{POOL_SUFFIX[pool]}", args) for s in _STRUCT_SUFFIXES)
+            for pool in pools}
+
+
+# K2 has float32, bf16 and int8 instances; K3 float32 and bf16 (a
+# quantized pool takes no gradient).
+_FWD_INSTANCES = march_instances("render_fwd", _FWD_ARGS, ("f32", "bf16", "i8"))
+_BWD_INSTANCES = march_instances("render_bwd", _BWD_ARGS, ("f32", "bf16"))
+RENDER_FWD, RENDER_FWD_BAKED, RENDER_FWD_INTERP, RENDER_FWD_BAKED_INTERP = _FWD_INSTANCES["f32"]
+(RENDER_FWD_BF16, RENDER_FWD_BAKED_BF16, RENDER_FWD_INTERP_BF16,
+ RENDER_FWD_BAKED_INTERP_BF16) = _FWD_INSTANCES["bf16"]
+(RENDER_FWD_I8, RENDER_FWD_BAKED_I8, RENDER_FWD_INTERP_I8,
+ RENDER_FWD_BAKED_INTERP_I8) = _FWD_INSTANCES["i8"]
+RENDER_BWD, RENDER_BWD_BAKED, RENDER_BWD_INTERP, RENDER_BWD_BAKED_INTERP = _BWD_INSTANCES["f32"]
+(RENDER_BWD_BF16, RENDER_BWD_BAKED_BF16, RENDER_BWD_INTERP_BF16,
+ RENDER_BWD_BAKED_INTERP_BF16) = _BWD_INSTANCES["bf16"]
 # Color channels the kernels hold in registers, and the largest basis.
 KERNEL_MAX_COLORS = 16
 KERNEL_MAX_BASIS = 25
@@ -122,6 +151,96 @@ def _basis_window(opt: RenderOptions) -> np.ndarray:
     """0/1 mask over basis components [min_comp, max_comp]."""
     idx = np.arange(opt.basis_dim)
     return ((idx >= opt.min_comp) & (idx <= opt.max_comp)).astype(np.float32)
+
+
+class QuantizedFeatures(NamedTuple):
+    """An int8 affine-quantized feature pool (JAX `QuantizedFeatures`):
+    row r's column c is ``float(q[r, c]) * scale[c] + zero[c]``, formed
+    in float32 after each gather (a multiply and an add, each rounded).
+    Renders take it where they take a pool; it takes no gradient."""
+
+    q: torch.Tensor      # (M, D) int8
+    scale: torch.Tensor  # (D,) float32
+    zero: torch.Tensor   # (D,) float32
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    @property
+    def ndim(self) -> int:
+        return self.q.ndim
+
+    @property
+    def device(self) -> torch.device:
+        return self.q.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.q.dtype
+
+    def to(self, device) -> "QuantizedFeatures":
+        return QuantizedFeatures(*(t.to(device) for t in self))
+
+    def dequantize(self) -> torch.Tensor:
+        """The (M, D) float32 pool the marches read, row for row."""
+        return self.q.to(torch.float32) * self.scale + self.zero
+
+
+def quantize_features(features, bits: int = 8) -> QuantizedFeatures:
+    """Per-channel affine int8 quantization of an (M, D) pool (JAX
+    `quantize_features`): ``scale = max(hi - lo, 1e-12) / 254``, ``zero =
+    (lo + hi) / 2``, ``q = clip(round((f - zero) / scale), -127, 127)``
+    with round-half-even, lo and hi the channel's min and max. An empty
+    pool gets scale 1 and zero 0. The divisions are true divisions (by a
+    tensor: on CUDA PyTorch divides by a Python scalar through its
+    reciprocal)."""
+    if bits != 8:
+        raise ValueError("int8 is the supported quantized pool width")
+    features = torch.as_tensor(features).to(torch.float32)
+    if features.ndim != 2:
+        raise ValueError(f"features must be (M, D), got {tuple(features.shape)}")
+    M, D = features.shape
+    dev = features.device
+    if M == 0:
+        return QuantizedFeatures(torch.zeros((0, D), dtype=torch.int8, device=dev),
+                                 torch.ones(D, device=dev), torch.zeros(D, device=dev))
+    lo = features.amin(dim=0)
+    hi = features.amax(dim=0)
+    scale = torch.clamp(hi - lo, min=1e-12) / torch.full_like(lo, 254.0)
+    zero = (lo + hi) * 0.5
+    q = torch.clamp(torch.round((features - zero) / scale), -127, 127).to(torch.int8)
+    return QuantizedFeatures(q, scale, zero)
+
+
+def pool_kind(features) -> str:
+    """The pool type's key in the kernel instance tables: "f32", "bf16",
+    "i8" (a `QuantizedFeatures`), else the dtype's name."""
+    if isinstance(features, QuantizedFeatures):
+        return "i8"
+    return {torch.float32: "f32", torch.bfloat16: "bf16"}.get(
+        features.dtype, str(features.dtype).replace("torch.", ""))
+
+
+def pool_dtype(features) -> torch.dtype:
+    """The float type a gathered row comes back in: float32, or float64
+    for a float64 pool."""
+    if isinstance(features, QuantizedFeatures):
+        return torch.float32
+    return torch.promote_types(features.dtype, torch.float32)
+
+
+def gather_rows(features, rows, col=None):
+    """K5's plain version (JAX `_gather_features`): the pool's rows
+    ``rows`` (each < M), or their column ``col``, in `pool_dtype`, turned
+    into that type right after the gather as the kernels do (a bf16 value
+    exactly; an int8 one dequantized)."""
+    if isinstance(features, QuantizedFeatures):
+        if col is None:
+            return features.q[rows].to(torch.float32) * features.scale + features.zero
+        return features.q[rows, col].to(torch.float32) * features.scale[col] + features.zero[col]
+    x = features[rows] if col is None else features[rows, col]
+    return x.to(pool_dtype(features))
 
 
 def _ray_setup(spec, origins, dirs, opt: RenderOptions = None, cube_hit: bool = False):
@@ -286,12 +405,20 @@ def _interp(c: Corners, values):
     return s
 
 
+def _check_quantized(features: QuantizedFeatures) -> None:
+    q, scale, zero = features
+    if q.dtype != torch.int8 or q.ndim != 2:
+        raise ValueError(f"a quantized pool's q must be (M, D) int8, got {tuple(q.shape)} {q.dtype}")
+    for name, t in (("scale", scale), ("zero", zero)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (q.shape[1],) or t.device != q.device:
+            raise ValueError(f"a quantized pool's {name} must be ({q.shape[1]},) float32 on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+
+
 def _check_supported(spec, features, origins, dirs, vdirs,
                      opt: RenderOptions) -> None:
-    if hasattr(features, "q") and hasattr(features, "scale"):
-        raise NotImplementedError(
-            "quantized feature pools wait for K5 (ROADMAP.md §1 item 12)"
-        )
+    if isinstance(features, QuantizedFeatures):
+        _check_quantized(features)
     if opt.pool_axis is not None or opt.ray_axis is not None:
         raise NotImplementedError(
             "sharded rendering waits for ROADMAP.md §1 item 17"
@@ -348,23 +475,31 @@ def volume_render_backward(spec: TreeSpec, features: torch.Tensor,
                            origins: torch.Tensor, dirs: torch.Tensor,
                            vdirs: torch.Tensor, grad_out: torch.Tensor,
                            opt: RenderOptions, out_res=None) -> torch.Tensor:
-    """Gradient of a render with respect to the feature pool, (M, D).
+    """Gradient of a render with respect to the feature pool, (M, D), in
+    the pool's type: summed in float32 (`pool_dtype`) and cast once.
 
     With ``out_res`` (the forward output) and exact options
     (``sigma_thresh == 0``, ``stop_thresh <= 0``) the backward takes one
-    pass; otherwise two.
+    pass; otherwise two. A quantized pool takes no gradient.
     """
-    if origins.is_cuda:
-        return volume_render_backward_cuda(spec, features, origins, dirs, vdirs,
-                                           grad_out, opt, out_res)
-    return volume_render_backward_plain(spec, features, origins, dirs, vdirs,
-                                        grad_out, opt, out_res)
+    if isinstance(features, QuantizedFeatures):
+        raise TypeError("a quantized feature pool takes no gradient")
+    march = volume_render_backward_cuda if origins.is_cuda else volume_render_backward_plain
+    return march(spec, features, origins, dirs, vdirs, grad_out, opt, out_res).to(features.dtype)
 
 
 def _render(spec, features, origins, dirs, vdirs, opt, want_weights):
     if origins.is_cuda:
         return _march_cuda(spec, features, origins, dirs, vdirs, opt, want_weights)
     return _march_plain(spec, features, origins, dirs, vdirs, opt, want_weights)
+
+
+def _save(ctx, spec, features, opt, *tensors) -> None:
+    """Keep what a render Function's backward reads. A quantized pool
+    (not a tensor) takes no gradient, and nothing is kept for it."""
+    ctx.spec, ctx.opt = spec, opt
+    if not isinstance(features, QuantizedFeatures):
+        ctx.save_for_backward(features, *tensors)
 
 
 def _grad_features(ctx, grad_out):
@@ -384,8 +519,7 @@ class _VolumeRenderFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, spec, features, origins, dirs, vdirs, opt):
         out, _ = _render(spec, features, origins, dirs, vdirs, opt, False)
-        ctx.save_for_backward(features, origins, dirs, vdirs, out)
-        ctx.spec, ctx.opt = spec, opt
+        _save(ctx, spec, features, opt, origins, dirs, vdirs, out)
         return out
 
     @staticmethod
@@ -401,8 +535,7 @@ class _VolumeRenderWeightsFn(torch.autograd.Function):
     def forward(ctx, spec, features, origins, dirs, vdirs, opt):
         out, waccum = _render(spec, features, origins, dirs, vdirs, opt, True)
         ctx.mark_non_differentiable(waccum)
-        ctx.save_for_backward(features, origins, dirs, vdirs, out)
-        ctx.spec, ctx.opt = spec, opt
+        _save(ctx, spec, features, opt, origins, dirs, vdirs, out)
         return out, waccum
 
     @staticmethod
@@ -439,10 +572,12 @@ def _logits(feat, basis, opt: RenderOptions, n_color: int):
 
 def _sample_colors(features, rows, corners, basis, opt: RenderOptions, n_color: int):
     """Sigmoid colors of each ray's sample, (B, n_color): of its row, or
-    under interp of the corners' weighted pre-sigmoid sums (`_interp`)."""
+    under interp of the corners' weighted pre-sigmoid sums (`_interp`);
+    every row in `pool_dtype` before any arithmetic (`gather_rows`)."""
     if corners is None:
-        return _sigmoid(_logits(features[rows], basis, opt, n_color))
-    return _sigmoid(_interp(corners, lambda r: _logits(features[r], basis, opt, n_color)))
+        return _sigmoid(_logits(gather_rows(features, rows), basis, opt, n_color))
+    return _sigmoid(_interp(corners, lambda r: _logits(gather_rows(features, r), basis, opt,
+                                                       n_color)))
 
 
 def _rotated_basis(spec: TreeSpec, opt: RenderOptions, vdirs, rows, window):
@@ -507,9 +642,10 @@ def _sample_sigma(spec, features, opt: RenderOptions, rays, t, active):
     rows = torch.where(resident, idx, 0).long()
     if opt.interp:
         corners = _corners(spec, rays, t, leaf, M)
-        sigma = torch.where(active, _interp(corners, lambda r: features[r, -1]), 0.0)
+        sigma = torch.where(active, _interp(corners, lambda r: gather_rows(features, r, -1)), 0.0)
         return leaf, dt, active, rows, corners, sigma
-    return leaf, dt, resident, rows, None, torch.where(resident, features[rows, -1], 0.0)
+    return leaf, dt, resident, rows, None, torch.where(resident, gather_rows(features, rows, -1),
+                                                       0.0)
 
 
 def _scatter_rows(grad, rows, corners, contrib, vals) -> None:
@@ -531,7 +667,7 @@ def _march_plain(spec, features, origins, dirs, vdirs, opt, want_weights):
     B = origins.shape[0]
     M, D = features.shape
     dev = origins.device
-    dtype = torch.promote_types(features.dtype, origins.dtype)
+    dtype = torch.promote_types(pool_dtype(features), origins.dtype)
     n_color = get_out_data_dim(opt.format, opt.basis_dim, D) - 1
     rays = _ray_setup(spec, origins, dirs, opt)
     o, d, invdir, delta_scale, tmin, tmax, hit = rays
@@ -579,7 +715,9 @@ def volume_render_backward_plain(spec: TreeSpec, features: torch.Tensor,
                                  vdirs: torch.Tensor, grad_out: torch.Tensor,
                                  opt: RenderOptions, out_res=None) -> torch.Tensor:
     """Plain PyTorch version of the backward-march kernel: the gradient of
-    a render with respect to the feature pool, (M, D).
+    a render with respect to the feature pool, (M, D), summed in
+    `pool_dtype` (float32 for a bf16 pool; `volume_render_backward` casts
+    it to the pool's type).
 
     The backward marches under its own rules: a ray takes samples while
     hit and ``t < tmax`` (a ray with tmin == tmax takes none), up to
@@ -606,7 +744,7 @@ def volume_render_backward_plain(spec: TreeSpec, features: torch.Tensor,
     _check_ray_grads(features, opt, origins, grad_out, out_res)
     B = origins.shape[0]
     M, D = features.shape
-    grad = torch.zeros(M, D, dtype=features.dtype, device=features.device)
+    grad = torch.zeros(M, D, dtype=pool_dtype(features), device=features.device)
     if M == 0 or B == 0:
         return grad
     n_color = get_out_data_dim(opt.format, opt.basis_dim, D) - 1
@@ -678,22 +816,41 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _pool_tensors(features):
+    """The tensors of a pool: (features,) or a quantized pool's three."""
+    return tuple(features) if isinstance(features, QuantizedFeatures) else (features,)
+
+
+def pool_args(features):
+    """The (features, scale, zero) pointers of a march kernel: scale and
+    zero are null but for an int8 pool."""
+    if isinstance(features, QuantizedFeatures):
+        return tuple(t.data_ptr() for t in features)
+    return features.data_ptr(), None, None
+
+
 def _check_kernel_tensors(spec, features, rays, name: str) -> None:
     """Devices, layouts and types of a march kernel's rays, pool and
-    tables."""
+    tables. The pool's type picks the kernel instance (`_kernel_for`)."""
     dev = features.device
-    for t in (features, *rays):
+    for t in (*_pool_tensors(features), *rays):
         _require(t.is_cuda and t.device == dev, f"{name} needs all tensors on one CUDA device")
         _require(t.is_contiguous(), f"{name} needs contiguous tensors")
-        _require(t.dtype == torch.float32, "rays and features must be float32")
+    for t in rays:
+        _require(t.dtype == torch.float32, "rays must be float32")
     check_structure(spec, dev, name)
     _require(rays[0].shape[0] < 2 ** 31, "too many rays")
 
 
-def _kernel_for(spec, opt: RenderOptions, instances) -> Kernel:
-    """The kernel of ``instances`` (tree walk, bake, tree walk interp, bake
-    interp) for the structure ``spec`` is and for ``opt.interp``."""
-    return instances[2 * bool(opt.interp) + isinstance(spec, BakedTree)]
+def _kernel_for(spec, opt: RenderOptions, instances: dict, features) -> Kernel:
+    """The kernel of ``instances`` (`march_instances`) for the pool's type
+    (K5), the structure ``spec`` is and ``opt.interp``. A pool type with
+    no instance raises: the port never converts a pool to run another."""
+    kind = pool_kind(features)
+    if kind not in instances:
+        raise ValueError(f"{instances['f32'][0].symbol} has no kernel instance for a {kind} "
+                         f"feature pool (instances: {', '.join(instances)})")
+    return instances[kind][2 * bool(opt.interp) + isinstance(spec, BakedTree)]
 
 
 def _structure_arg(spec, opt: RenderOptions):
@@ -742,7 +899,7 @@ def _kernel_args(spec, features, origins, dirs, vdirs,
                  and ex.dtype == torch.float32, "extra_data must be contiguous float32 on the features' device")
     args = (
         _structure_arg(spec, opt), origins.data_ptr(), dirs.data_ptr(), vdirs.data_ptr(), B,
-        spec.offset.data_ptr(), spec.scaling.data_ptr(), features.data_ptr(), M, D,
+        spec.offset.data_ptr(), spec.scaling.data_ptr(), *pool_args(features), M, D,
         None if tm is None else tm.data_ptr(), fmt,
         None if ex is None else ex.data_ptr(), 0 if ex is None else ex.shape[1],
         0 if fmt == FORMAT_RGBA else bd, opt.min_comp, opt.max_comp, n_color,
@@ -760,9 +917,10 @@ def volume_render_cuda(spec, features: torch.Tensor,
                        vdirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
     """Launch the forward-march kernel (csrc/render_fwd.cu, or its baked
     instance csrc/render_fwd_baked.cu on a BakedTree; under interp
-    render_fwd_interp.cu / render_fwd_baked_interp.cu): RGBA, SH
-    (basis_dim 1, 4, 9, 16, 25), SG and ASG (basis_dim 1-25), exact and
-    thresholded, with optional per-voxel rotation matrices."""
+    render_fwd_interp.cu / render_fwd_baked_interp.cu; for a bf16 or int8
+    pool the same sources with _bf16 / _i8): RGBA, SH (basis_dim 1, 4, 9,
+    16, 25), SG and ASG (basis_dim 1-25), exact and thresholded, with
+    optional per-voxel rotation matrices."""
     return _march_cuda(spec, features, origins, dirs, vdirs, opt, False)[0]
 
 
@@ -775,15 +933,15 @@ def volume_render_with_weight_accum_cuda(spec: TreeSpec, features: torch.Tensor,
 
 
 def _march_cuda(spec, features, origins, dirs, vdirs, opt, want_weights):
-    args, n_color = _kernel_args(spec, features, origins, dirs, vdirs, opt,
-                                 "volume_render_cuda")
+    args, n_color = _kernel_args(spec, features, origins, dirs, vdirs, opt, "volume_render_cuda")
+    kernel = _kernel_for(spec, opt, _FWD_INSTANCES, features)
     dev = features.device
     out = torch.empty(origins.shape[0], n_color + 1, dtype=torch.float32, device=dev)
     waccum = (torch.zeros(_n_tree_cells(spec), dtype=torch.float32, device=dev)
               if want_weights else None)
     if out.shape[0] == 0:
         return out, waccum
-    _kernel_for(spec, opt, _FWD_INSTANCES)(
+    kernel(
         *args, opt.sigma_thresh, opt.stop_thresh, opt.max_steps,
         out.data_ptr(), None if waccum is None else waccum.data_ptr(), *_stream(dev),
     )
@@ -795,11 +953,13 @@ def volume_render_backward_cuda(spec: TreeSpec, features: torch.Tensor,
                                 vdirs: torch.Tensor, grad_out: torch.Tensor,
                                 opt: RenderOptions, out_res=None) -> torch.Tensor:
     """Launch the backward-march kernel (csrc/render_bwd.cu, or
-    csrc/render_bwd_baked.cu on a BakedTree) into a zeroed
-    (M, D) gradient; single pass when `volume_render_backward_plain`
-    takes one. An empty pool or ray batch returns zeros without a launch."""
+    csrc/render_bwd_baked.cu on a BakedTree; a bf16 pool's instances of
+    csrc/render_bwd.cuh) into a zeroed float32 (M, D) gradient;
+    single pass when `volume_render_backward_plain` takes one. An empty
+    pool or ray batch returns zeros without a launch."""
     args, n_color = _kernel_args(spec, features, origins, dirs, vdirs, opt,
                                  "volume_render_backward_cuda")
+    kernel = _kernel_for(spec, opt, _BWD_INSTANCES, features)
     _check_ray_grads(features, opt, origins, grad_out, out_res)
     single = opt.sigma_thresh == 0.0 and opt.stop_thresh <= 0.0 and out_res is not None
     for t in (grad_out, out_res if single else None):
@@ -811,7 +971,7 @@ def volume_render_backward_cuda(spec: TreeSpec, features: torch.Tensor,
     grad = torch.zeros(M, D, dtype=torch.float32, device=dev)
     if M == 0 or origins.shape[0] == 0:
         return grad
-    _kernel_for(spec, opt, _BWD_INSTANCES)(
+    kernel(
         *args, opt.max_steps, grad_out.data_ptr(),
         out_res.data_ptr() if single else None, grad.data_ptr(), *_stream(dev),
     )

@@ -33,8 +33,16 @@ corners' rows; the first hit's t is the first sample over the threshold,
 its row the first such sample whose own row is < M; the motion-feature
 passes attenuate wherever sigma passes and blend only where the own row
 is < M. Each has its own interp kernel instance (`csrc/*_interp.cu`).
-Quantized pools and sharded options raise NotImplementedError, as in
-`ops/render.py`.
+
+The pool is a float32 or bf16 tensor or a `render.QuantizedFeatures`
+(K5, as in `ops/render.py`): every pass reads its sigma column in the
+pool's type and turns it into float32 right after the gather
+(`render.gather_rows`). The opacity VJP sums a bf16 pool's gradient in
+float32 and casts it once; a quantized pool takes no gradient, but
+`motion_feature_render` over one still differentiates with respect to
+the joint features. The first-hit and motion-feature kernels have bf16
+and int8 instances (``_BF16``, ``_I8``), the opacity VJP bf16 ones.
+Sharded options raise NotImplementedError, as in `ops/render.py`.
 
 State carried across from the JAX package: the tree (with its
 ``extra_data`` joints) moves with `tree_state`/`tree_from_numpy`; joint
@@ -55,16 +63,18 @@ from ..utils.spec import RenderOptions, TreeSpec
 from . import render as render_ops
 from .bake import BakedTree, StructureDesc
 from .bake import lookup as bake_lookup
-from .render import (Corners, _check_kernel_tensors, _corners, _interp, _kernel_for, _locate,
-                     _ray_setup, _require, _sample_leaf, _scatter_rows, _sigmoid, _stream,
-                     _structure_arg, sample_position)
+from .render import (Corners, QuantizedFeatures, _check_kernel_tensors, _corners, _interp,
+                     _kernel_for, _locate, _ray_setup, _require, _sample_leaf, _scatter_rows,
+                     _sigmoid, _stream, _structure_arg, gather_rows, march_instances, pool_args,
+                     pool_dtype, sample_position)
 from .traversal import LeafInfo, tree2world
 
 # Leading arguments of the four aux entry points, in order.
 _AUX_ARGS = [
     ctypes.POINTER(StructureDesc),                  # tree or bake
     c_void_p, c_void_p, c_int,                      # origins, dirs, B
-    c_void_p, c_void_p, c_void_p, c_int, c_int,     # offset, scaling, features, M, D
+    c_void_p, c_void_p,                             # offset, scaling
+    c_void_p, c_void_p, c_void_p, c_int, c_int,     # features, scale, zero, M, D
     c_float, c_int,                                 # step, max_steps
 ]
 _OPACITY_ARGS = _AUX_ARGS + [c_void_p, c_void_p, c_void_p,  # grad_out, out_res, grad
@@ -77,29 +87,30 @@ _MF_ARGS = _AUX_ARGS + [c_void_p, c_int, c_int,     # joint_features, J, Kd
 _MF_FWD_ARGS = _MF_ARGS + [c_float, c_float, c_float,   # sigma/stop thresh, bg
                            c_void_p, c_int, c_void_p]   # out, device, stream
 _MF_BWD_ARGS = _MF_ARGS + [c_void_p, c_void_p, c_int, c_void_p]  # grad_out, grad, device, stream
-OPACITY_BWD = Kernel("svox_opacity_bwd", _OPACITY_ARGS)
-FIRST_HIT = Kernel("svox_first_hit", _FIRST_HIT_ARGS)
-MF_FWD = Kernel("svox_mf_fwd", _MF_FWD_ARGS)
-MF_BWD = Kernel("svox_mf_bwd", _MF_BWD_ARGS)
-# The instances on a BakedTree.
-OPACITY_BWD_BAKED = Kernel("svox_opacity_bwd_baked", _OPACITY_ARGS)
-FIRST_HIT_BAKED = Kernel("svox_first_hit_baked", _FIRST_HIT_ARGS)
-MF_FWD_BAKED = Kernel("svox_mf_fwd_baked", _MF_FWD_ARGS)
-MF_BWD_BAKED = Kernel("svox_mf_bwd_baked", _MF_BWD_ARGS)
-# The trilinear (K4) instances, on the tree walk and on the bake.
-OPACITY_BWD_INTERP = Kernel("svox_opacity_bwd_interp", _OPACITY_ARGS)
-FIRST_HIT_INTERP = Kernel("svox_first_hit_interp", _FIRST_HIT_ARGS)
-MF_FWD_INTERP = Kernel("svox_mf_fwd_interp", _MF_FWD_ARGS)
-MF_BWD_INTERP = Kernel("svox_mf_bwd_interp", _MF_BWD_ARGS)
-OPACITY_BWD_BAKED_INTERP = Kernel("svox_opacity_bwd_baked_interp", _OPACITY_ARGS)
-FIRST_HIT_BAKED_INTERP = Kernel("svox_first_hit_baked_interp", _FIRST_HIT_ARGS)
-MF_FWD_BAKED_INTERP = Kernel("svox_mf_fwd_baked_interp", _MF_FWD_ARGS)
-MF_BWD_BAKED_INTERP = Kernel("svox_mf_bwd_baked_interp", _MF_BWD_ARGS)
-# Each pass's instances in `render._kernel_for`'s order.
-_OPACITY_INSTANCES = (OPACITY_BWD, OPACITY_BWD_BAKED, OPACITY_BWD_INTERP, OPACITY_BWD_BAKED_INTERP)
-_FIRST_HIT_INSTANCES = (FIRST_HIT, FIRST_HIT_BAKED, FIRST_HIT_INTERP, FIRST_HIT_BAKED_INTERP)
-_MF_FWD_INSTANCES = (MF_FWD, MF_FWD_BAKED, MF_FWD_INTERP, MF_FWD_BAKED_INTERP)
-_MF_BWD_INSTANCES = (MF_BWD, MF_BWD_BAKED, MF_BWD_INTERP, MF_BWD_BAKED_INTERP)
+# Each pass's instances (`render.march_instances`): the opacity VJP for
+# float32 and bf16 pools (a quantized pool takes no gradient), the others
+# for int8 pools too.
+_OPACITY_INSTANCES = march_instances("opacity_bwd", _OPACITY_ARGS, ("f32", "bf16"))
+_FIRST_HIT_INSTANCES = march_instances("first_hit", _FIRST_HIT_ARGS, ("f32", "bf16", "i8"))
+_MF_FWD_INSTANCES = march_instances("mf_fwd", _MF_FWD_ARGS, ("f32", "bf16", "i8"))
+_MF_BWD_INSTANCES = march_instances("mf_bwd", _MF_BWD_ARGS, ("f32", "bf16", "i8"))
+OPACITY_BWD, OPACITY_BWD_BAKED, OPACITY_BWD_INTERP, OPACITY_BWD_BAKED_INTERP = \
+    _OPACITY_INSTANCES["f32"]
+FIRST_HIT, FIRST_HIT_BAKED, FIRST_HIT_INTERP, FIRST_HIT_BAKED_INTERP = _FIRST_HIT_INSTANCES["f32"]
+MF_FWD, MF_FWD_BAKED, MF_FWD_INTERP, MF_FWD_BAKED_INTERP = _MF_FWD_INSTANCES["f32"]
+MF_BWD, MF_BWD_BAKED, MF_BWD_INTERP, MF_BWD_BAKED_INTERP = _MF_BWD_INSTANCES["f32"]
+(OPACITY_BWD_BF16, OPACITY_BWD_BAKED_BF16, OPACITY_BWD_INTERP_BF16,
+ OPACITY_BWD_BAKED_INTERP_BF16) = _OPACITY_INSTANCES["bf16"]
+(FIRST_HIT_BF16, FIRST_HIT_BAKED_BF16, FIRST_HIT_INTERP_BF16,
+ FIRST_HIT_BAKED_INTERP_BF16) = _FIRST_HIT_INSTANCES["bf16"]
+(FIRST_HIT_I8, FIRST_HIT_BAKED_I8, FIRST_HIT_INTERP_I8,
+ FIRST_HIT_BAKED_INTERP_I8) = _FIRST_HIT_INSTANCES["i8"]
+(MF_FWD_BF16, MF_FWD_BAKED_BF16, MF_FWD_INTERP_BF16, MF_FWD_BAKED_INTERP_BF16) = \
+    _MF_FWD_INSTANCES["bf16"]
+(MF_FWD_I8, MF_FWD_BAKED_I8, MF_FWD_INTERP_I8, MF_FWD_BAKED_INTERP_I8) = _MF_FWD_INSTANCES["i8"]
+(MF_BWD_BF16, MF_BWD_BAKED_BF16, MF_BWD_INTERP_BF16, MF_BWD_BAKED_INTERP_BF16) = \
+    _MF_BWD_INSTANCES["bf16"]
+(MF_BWD_I8, MF_BWD_BAKED_I8, MF_BWD_INTERP_I8, MF_BWD_BAKED_INTERP_I8) = _MF_BWD_INSTANCES["i8"]
 # Joint-feature columns the motion-feature kernels hold in registers, and
 # the largest joint table the backward sums in 48 KB of shared memory, in
 # floats: J * (Kd | 1), its rows padded to an odd stride.
@@ -119,7 +130,7 @@ def _aux_args(spec: TreeSpec, features, origins, dirs, opt: RenderOptions, name:
     M, D = features.shape
     return (
         _structure_arg(spec, opt), origins.data_ptr(), dirs.data_ptr(), origins.shape[0],
-        spec.offset.data_ptr(), spec.scaling.data_ptr(), features.data_ptr(), M, D,
+        spec.offset.data_ptr(), spec.scaling.data_ptr(), *pool_args(features), M, D,
         opt.step_size, opt.max_steps,
     )
 
@@ -136,8 +147,8 @@ class _Sample(NamedTuple):
 
 def _sample(spec, features, opt: RenderOptions, rays, t) -> _Sample:
     """One sample of every ray at t (plain): its leaf, step, row and
-    sigma; under ``opt.interp`` the sigma interpolated from its corners,
-    also where its own leaf is empty."""
+    sigma (in `render.pool_dtype`); under ``opt.interp`` the sigma
+    interpolated from its corners, also where its own leaf is empty."""
     leaf, dt = _sample_leaf(spec, opt, rays, t)
     idx = leaf.data_idx
     M = features.shape[0]
@@ -146,8 +157,8 @@ def _sample(spec, features, opt: RenderOptions, rays, t) -> _Sample:
     if opt.interp:
         corners = _corners(spec, rays, t, leaf, M)
         return _Sample(leaf, dt, idx, resident, rows,
-                       _interp(corners, lambda r: features[r, -1]), corners)
-    sigma = torch.where(resident, features[rows, -1], 0.0)
+                       _interp(corners, lambda r: gather_rows(features, r, -1)), corners)
+    sigma = torch.where(resident, gather_rows(features, rows, -1), 0.0)
     return _Sample(leaf, dt, idx, resident, rows, sigma, None)
 
 
@@ -171,8 +182,7 @@ class _OpacityFn(torch.autograd.Function):
     def forward(ctx, spec, features, origins, dirs, opt):
         out, _ = render_ops._render(spec, features, origins, dirs, dirs, opt, False)
         alpha = out[:, -1:].contiguous()
-        ctx.save_for_backward(features, origins, dirs, alpha)
-        ctx.spec, ctx.opt = spec, opt
+        render_ops._save(ctx, spec, features, opt, origins, dirs, alpha)
         return alpha
 
     @staticmethod
@@ -200,12 +210,14 @@ def _check_alpha_grads(features, origins, grad_out, out_res) -> None:
 def opacity_backward(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
                      dirs: torch.Tensor, grad_out: torch.Tensor, opt: RenderOptions,
                      out_res=None) -> torch.Tensor:
-    """Gradient of `opacity_render` with respect to the pool, (M, D), zero
-    but in column D - 1. With ``out_res`` (the forward alpha) and exact
-    options it takes one pass, otherwise two."""
-    if origins.is_cuda:
-        return opacity_backward_cuda(spec, features, origins, dirs, grad_out, opt, out_res)
-    return opacity_backward_plain(spec, features, origins, dirs, grad_out, opt, out_res)
+    """Gradient of `opacity_render` with respect to the pool, (M, D) in
+    the pool's type (summed in float32, cast once), zero but in column
+    D - 1. With ``out_res`` (the forward alpha) and exact options it takes
+    one pass, otherwise two. A quantized pool takes no gradient."""
+    if isinstance(features, QuantizedFeatures):
+        raise TypeError("a quantized feature pool takes no gradient")
+    march = opacity_backward_cuda if origins.is_cuda else opacity_backward_plain
+    return march(spec, features, origins, dirs, grad_out, opt, out_res).to(features.dtype)
 
 
 def opacity_backward_plain(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
@@ -218,11 +230,12 @@ def opacity_backward_plain(spec: TreeSpec, features: torch.Tensor, origins: torc
     early stop. Each contributing sample adds ``dt*ds * (g * L_ray)`` into
     column D - 1 (under interp ``w_c`` times that into each corner's row),
     with ``L_ray = 1 - alpha`` (single pass) or the final L of a first
-    march under the same rules (two passes)."""
+    march under the same rules (two passes). Summed in `render.pool_dtype`
+    (float32 for a bf16 pool)."""
     _check(spec, features, origins, dirs, opt)
     _check_alpha_grads(features, origins, grad_out, out_res)
     M, D = features.shape
-    grad = torch.zeros(M, D, dtype=features.dtype, device=features.device)
+    grad = torch.zeros(M, D, dtype=pool_dtype(features), device=features.device)
     if M == 0 or origins.shape[0] == 0:
         return grad
     rays = _ray_setup(spec, origins, dirs, opt)
@@ -263,9 +276,10 @@ def opacity_backward_cuda(spec: TreeSpec, features: torch.Tensor, origins: torch
                           dirs: torch.Tensor, grad_out: torch.Tensor, opt: RenderOptions,
                           out_res=None) -> torch.Tensor:
     """Launch the opacity VJP kernel (K9a, `csrc/render_bwd.cu`) into a
-    zeroed (M, D) gradient. An empty pool or ray batch returns zeros
-    without a launch."""
+    zeroed float32 (M, D) gradient. An empty pool or ray batch returns
+    zeros without a launch."""
     args = _aux_args(spec, features, origins, dirs, opt, "opacity_backward_cuda")
+    kernel = _kernel_for(spec, opt, _OPACITY_INSTANCES, features)
     _check_alpha_grads(features, origins, grad_out, out_res)
     single = _single_pass(opt, out_res)
     for t in (grad_out, out_res if single else None):
@@ -277,7 +291,7 @@ def opacity_backward_cuda(spec: TreeSpec, features: torch.Tensor, origins: torch
     grad = torch.zeros(M, D, dtype=torch.float32, device=dev)
     if M == 0 or origins.shape[0] == 0:
         return grad
-    _kernel_for(spec, opt, _OPACITY_INSTANCES)(
+    kernel(
         *args, grad_out.data_ptr(), out_res.data_ptr() if single else None,
         grad.data_ptr(), *_stream(dev))
     return grad
@@ -348,6 +362,7 @@ def first_hit_cuda(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor
                    dirs: torch.Tensor, opt: RenderOptions):
     """Launch the first-hit kernel (K9b, `csrc/render_aux.cu`)."""
     args = _aux_args(spec, features, origins, dirs, opt, "first_hit_cuda")
+    kernel = _kernel_for(spec, opt, _FIRST_HIT_INSTANCES, features)
     B = origins.shape[0]
     dev = features.device
     found = torch.zeros(B, dtype=torch.bool, device=dev)
@@ -356,8 +371,8 @@ def first_hit_cuda(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor
     frac = torch.zeros(B, 3, dtype=torch.float32, device=dev)
     if B == 0 or features.shape[0] == 0:
         return found, t_hit, row, frac
-    _kernel_for(spec, opt, _FIRST_HIT_INSTANCES)(*args, opt.sigma_thresh, found.data_ptr(), t_hit.data_ptr(),
-              row.data_ptr(), frac.data_ptr(), *_stream(dev))
+    kernel(*args, opt.sigma_thresh, found.data_ptr(), t_hit.data_ptr(), row.data_ptr(),
+           frac.data_ptr(), *_stream(dev))
     return found, t_hit, row, frac
 
 
@@ -409,8 +424,9 @@ def motion_render(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
 def motion_feature_render(spec: TreeSpec, joint_features: torch.Tensor,
                           features: torch.Tensor, origins: torch.Tensor,
                           dirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
-    """Volumetric LBS-feature render, (B, Kd), differentiable with respect
-    to ``joint_features`` (J, Kd); ``spec.skinning_weights`` and
+    """Volumetric LBS-feature render, (B, Kd) float32, differentiable with
+    respect to ``joint_features`` (J, Kd; float32 or bf16, whose gradient
+    comes back in its type); ``spec.skinning_weights`` and
     ``spec.joint_index`` (M, n_bones) give each pool row its bones. The
     gradient is the JAX package's corrected one: exact for
     ``stop_thresh == 0``; under fast options it ignores early stop, as
@@ -429,7 +445,10 @@ class _MotionFeatureFn(torch.autograd.Function):
             out = motion_feature_forward_cuda(spec, joint_features, features, origins, dirs, opt)
         else:
             out = motion_feature_render_plain(spec, joint_features, features, origins, dirs, opt)
-        ctx.save_for_backward(joint_features, features, origins, dirs)
+        # A quantized pool is not a tensor: it is kept on ctx as it is.
+        ctx.quantized = features if isinstance(features, QuantizedFeatures) else None
+        ctx.save_for_backward(joint_features, origins, dirs,
+                              *(() if ctx.quantized is not None else (features,)))
         ctx.spec, ctx.opt = spec, opt
         return out
 
@@ -437,7 +456,8 @@ class _MotionFeatureFn(torch.autograd.Function):
     def backward(ctx, grad_out):
         if not ctx.needs_input_grad[1]:
             return None, None, None, None, None, None
-        joint_features, features, origins, dirs = ctx.saved_tensors
+        joint_features, origins, dirs, *pool = ctx.saved_tensors
+        features = ctx.quantized if ctx.quantized is not None else pool[0]
         grad = motion_feature_backward(ctx.spec, joint_features, features, origins, dirs,
                                        grad_out.contiguous(), ctx.opt)
         return None, grad, None, None, None, None
@@ -460,10 +480,16 @@ def _lbs_tables(spec: TreeSpec, joint_features, features):
     return sw, ji
 
 
+def _float_table(t):
+    """A float32 (or float64) copy of a joint table, as the kernels read it."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def _blend(sw_r, ji_r, joint_features, ok):
     """LBS blend per sample, (B, Kd): bones in order, weight sw where
     sw > 0 and the sample is ``ok``, else 0."""
     J = joint_features.shape[0]
+    joint_features = _float_table(joint_features)
     b = torch.zeros(sw_r.shape[0], joint_features.shape[1], dtype=joint_features.dtype,
                     device=joint_features.device)
     for n in range(sw_r.shape[1]):
@@ -485,7 +511,8 @@ def motion_feature_render_plain(spec: TreeSpec, joint_features: torch.Tensor,
     rays = _ray_setup(spec, origins, dirs, opt, cube_hit=True)
     delta_scale, tmin, tmax, hit = rays[3:]
     can_stop = opt.stop_thresh > 0.0
-    out = torch.zeros(B, joint_features.shape[1], dtype=joint_features.dtype, device=origins.device)
+    out = torch.zeros(B, joint_features.shape[1], dtype=_float_table(joint_features).dtype,
+                      device=origins.device)
     L = torch.ones_like(tmin)
     stopped = torch.zeros_like(hit)
     t = tmin
@@ -515,7 +542,9 @@ def motion_feature_render_plain(spec: TreeSpec, joint_features: torch.Tensor,
 
 def _mf_kernel_args(spec, joint_features, features, origins, dirs, opt, name, backward):
     """Check a motion-feature kernel's inputs, sizes first, and return
-    its arguments up to nb (`_MF_ARGS`)."""
+    (its arguments up to nb (`_MF_ARGS`), the float32 joint table they
+    point at, which the caller keeps alive until the launch). A bf16
+    joint table is read as float32, as the JAX package reads it."""
     sw, ji = _lbs_tables(spec, joint_features, features)
     J, Kd = joint_features.shape
     if Kd > KERNEL_MAX_JOINT_DIM:
@@ -530,25 +559,29 @@ def _mf_kernel_args(spec, joint_features, features, origins, dirs, opt, name, ba
         )
     args = _aux_args(spec, features, origins, dirs, opt, name)
     for t in (sw, ji, joint_features):
-        _require(t.is_cuda and t.is_contiguous(), f"{name} needs contiguous CUDA LBS tables")
-    _require(sw.dtype == torch.float32 and joint_features.dtype == torch.float32,
-             "skinning_weights and joint_features must be float32")
+        _require(t.is_cuda, f"{name} needs CUDA LBS tables")
+    for t in (sw, ji):
+        _require(t.is_contiguous(), f"{name} needs contiguous LBS tables")
+    _require(joint_features.is_floating_point(), "joint_features must be a float table")
+    _require(sw.dtype == torch.float32, "skinning_weights must be float32")
     _require(ji.dtype == torch.int32, "joint_index must be int32")
-    return args + (joint_features.data_ptr(), J, Kd, sw.data_ptr(), ji.data_ptr(), sw.shape[1])
+    jf = joint_features.detach().to(torch.float32).contiguous()
+    return args + (jf.data_ptr(), J, Kd, sw.data_ptr(), ji.data_ptr(), sw.shape[1]), jf
 
 
 def motion_feature_forward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
                                 features: torch.Tensor, origins: torch.Tensor,
                                 dirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
     """Launch the motion-feature forward kernel (K9c, `csrc/render_aux.cu`)."""
-    args = _mf_kernel_args(spec, joint_features, features, origins, dirs, opt,
-                           "motion_feature_forward_cuda", backward=False)
+    args, _jf = _mf_kernel_args(spec, joint_features, features, origins, dirs, opt,
+                                "motion_feature_forward_cuda", backward=False)
+    kernel = _kernel_for(spec, opt, _MF_FWD_INSTANCES, features)
     dev = features.device
     out = torch.empty(origins.shape[0], joint_features.shape[1], dtype=torch.float32, device=dev)
     if out.shape[0] == 0:
         return out
-    _kernel_for(spec, opt, _MF_FWD_INSTANCES)(*args, opt.sigma_thresh, opt.stop_thresh, opt.background_brightness,
-           out.data_ptr(), *_stream(dev))
+    kernel(*args, opt.sigma_thresh, opt.stop_thresh, opt.background_brightness, out.data_ptr(),
+           *_stream(dev))
     return out
 
 
@@ -557,12 +590,11 @@ def motion_feature_backward(spec: TreeSpec, joint_features: torch.Tensor,
                             dirs: torch.Tensor, grad_out: torch.Tensor,
                             opt: RenderOptions) -> torch.Tensor:
     """Gradient of `motion_feature_render` with respect to the joint
-    features, (J, Kd)."""
-    if origins.is_cuda:
-        return motion_feature_backward_cuda(spec, joint_features, features, origins, dirs,
-                                            grad_out, opt)
-    return motion_feature_backward_plain(spec, joint_features, features, origins, dirs,
-                                         grad_out, opt)
+    features, (J, Kd) in their type (summed in float32 on the card, in
+    float64 in the plain version, and cast once)."""
+    march = motion_feature_backward_cuda if origins.is_cuda else motion_feature_backward_plain
+    return march(spec, joint_features, features, origins, dirs, grad_out,
+                 opt).to(joint_features.dtype)
 
 
 def _check_mf_grad(joint_features, origins, grad_out) -> None:
@@ -586,14 +618,17 @@ def motion_feature_backward_plain(spec: TreeSpec, joint_features: torch.Tensor,
     Every joint entry sums the terms of many rays and samples (~10^5 on
     an 800x800 image), so the terms, computed as the kernel computes
     them, are summed in float64: this version is then the exact sum the
-    kernel's float32 atomics approximate."""
+    kernel's float32 atomics approximate. It comes back in float32 (float64
+    for a float64 table); `motion_feature_backward` casts it to the joint
+    table's type."""
     _check(spec, features, origins, dirs, opt)
     sw, ji = _lbs_tables(spec, joint_features, features)
     _check_mf_grad(joint_features, origins, grad_out)
     J = joint_features.shape[0]
     grad = torch.zeros_like(joint_features, dtype=torch.float64)
+    out_dtype = _float_table(joint_features).dtype
     if features.shape[0] == 0 or origins.shape[0] == 0:
-        return grad.to(joint_features.dtype)
+        return grad.to(out_dtype)
     rays = _ray_setup(spec, origins, dirs, opt, cube_hit=True)
     delta_scale, tmin, tmax, hit = rays[3:]
     t = tmin
@@ -616,7 +651,7 @@ def motion_feature_backward_plain(spec: TreeSpec, joint_features: torch.Tensor,
                             (sw_r[ok, n, None] * gb[ok]).double())
         L = torch.where(gate, L * att, L)
         t = torch.where(active, t + s.dt, t)
-    return grad.to(joint_features.dtype)
+    return grad.to(out_dtype)
 
 
 def motion_feature_backward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
@@ -624,11 +659,12 @@ def motion_feature_backward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
                                  dirs: torch.Tensor, grad_out: torch.Tensor,
                                  opt: RenderOptions) -> torch.Tensor:
     """Launch the motion-feature VJP kernel (K9d, `csrc/render_aux.cu`)
-    into a zeroed (J, Kd) gradient. Each block sums its rays into a copy
-    of the joint table in shared memory, so J * (Kd | 1) is at most
+    into a zeroed float32 (J, Kd) gradient. Each block sums its rays into
+    a copy of the joint table in shared memory, so J * (Kd | 1) is at most
     `KERNEL_MAX_JOINT_TABLE`."""
-    args = _mf_kernel_args(spec, joint_features, features, origins, dirs, opt,
-                           "motion_feature_backward_cuda", backward=True)
+    args, _jf = _mf_kernel_args(spec, joint_features, features, origins, dirs, opt,
+                                "motion_feature_backward_cuda", backward=True)
+    kernel = _kernel_for(spec, opt, _MF_BWD_INSTANCES, features)
     _check_mf_grad(joint_features, origins, grad_out)
     J, Kd = joint_features.shape
     _require(grad_out.is_contiguous() and grad_out.dtype == torch.float32,
@@ -637,5 +673,5 @@ def motion_feature_backward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
     grad = torch.zeros(J, Kd, dtype=torch.float32, device=dev)
     if features.shape[0] == 0 or origins.shape[0] == 0:
         return grad
-    _kernel_for(spec, opt, _MF_BWD_INSTANCES)(*args, grad_out.data_ptr(), grad.data_ptr(), *_stream(dev))
+    kernel(*args, grad_out.data_ptr(), grad.data_ptr(), *_stream(dev))
     return grad

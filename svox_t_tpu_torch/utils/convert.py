@@ -5,14 +5,18 @@ Both packages keep the same three arrays: structure (`child`,
 feature pool. `tree_state` reads a tree of either package into a dict of
 NumPy arrays; `tree_from_numpy` builds this package's `N3Tree` from such
 a dict. The feature pool is not part of the state: it stays a separate
-tensor that the caller passes to every render.
+tensor that the caller passes to every render; an int8 pool of the JAX
+package (its `QuantizedFeatures`) moves with `quantized_from_numpy`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from ..models.tree import N3Tree
+from ..ops.render import QuantizedFeatures
 from .dataformat import DataFormat
 
 
@@ -78,3 +82,12 @@ def tree_from_numpy(state: dict, device="cuda") -> N3Tree:
     tree.invradius = np.asarray(state["invradius"], np.float32).copy()
     tree._invalidate()
     return tree
+
+
+def quantized_from_numpy(q, scale, zero, device="cuda") -> QuantizedFeatures:
+    """This package's int8 pool from the arrays of another's (the JAX
+    package's `QuantizedFeatures` fields): q (M, D) int8, scale and zero
+    (D,) float32, copied to ``device`` as they are."""
+    return QuantizedFeatures(torch.as_tensor(np.array(q, np.int8), device=device),
+                             torch.as_tensor(np.array(scale, np.float32), device=device),
+                             torch.as_tensor(np.array(zero, np.float32), device=device))

@@ -11,7 +11,6 @@ tests/test_torch_render.py). Gradients against `jax.grad`:
 Hits (`found`, data_idx) must agree exactly.
 """
 
-import collections
 import dataclasses
 
 import jax
@@ -301,10 +300,15 @@ def test_unsupported_inputs_raise():
         stt.VolumeRenderer(stt.tree_from_numpy(dict(stt.tree_state(jt), extra_data=None), device="cpu"), backend="tree").motion_render(
             _t(feats), trays)
     o, d = trays.origins, trays.dirs
-    Quantized = collections.namedtuple("QuantizedFeatures", ["q", "scale", "zero"])
-    qf = Quantized(torch.zeros(len(feats), 4, dtype=torch.int8), torch.ones(4), torch.zeros(4))
-    with pytest.raises(NotImplementedError, match="K5"):
-        tr.opacity_render(qf, trays)
+    # An int8 quantized pool (K5; it raised NotImplementedError before):
+    # the opacity render equals the JAX package's on the same pool.
+    jq = st.quantize_features(jnp.asarray(feats))
+    qf = stt.quantized_from_numpy(*(np.asarray(a) for a in jq), device="cpu")
+    jr = st.VolumeRenderer(jt, backend="tree")
+    want = jr.opacity_render(jq, st.Rays(*(jnp.asarray(x) for x in rays)))
+    got = tr.opacity_render(qf, trays)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert not got.requires_grad and float(got.max()) > 0.5
     with pytest.raises(ValueError, match="skinning_weights"):
         taux.motion_feature_render(pt._spec(), _t(lbs["jf"]), _t(feats), o, d, tr._get_options())
 

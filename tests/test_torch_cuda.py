@@ -10,7 +10,11 @@ JAX):
 The tests of the tree walk pass ``backend="tree"``; the baked backend
 (the default) has tests of its own near the end of the file, and so do
 the trilinear (``interp="trilinear"``, K4) instances of every march
-kernel on both backends, with the same tolerances.
+kernel on both backends, with the same tolerances, and the bf16 and int8
+pool instances (K5) of every march, aux and query kernel: each forward
+equal bit for bit to the float32 kernel on the pool widened to float32
+(an int8 pool dequantized as the kernels dequantize it), each held to
+its plain version as above.
 
 Tolerances: construct_tree and the query forward must agree exactly, and
 so must the bake's lookup, refresh and skip-box regrowth,
@@ -1154,3 +1158,195 @@ def test_interp_aux_kernels_match_plain(cuda, backend, fast):
                                atol=ATOL, rtol=0)
     _assert_atomic_close(gx, taux.motion_feature_backward_plain(spec, jf, feats, o, d, gm, opt))
     assert float(gf.abs().max()) > 0 and float(gx.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K5: bf16 and int8 feature pools
+
+
+def _pool_of(kind, feats):
+    """The float32 pool ``feats`` in pool type ``kind``, and the float32
+    pool the kernels read from it (bf16 widened, int8 dequantized)."""
+    if kind == "bf16":
+        p = feats.to(torch.bfloat16)
+        return p, p.float()
+    q = stt.quantize_features(feats)
+    return q, q.dequantize()
+
+
+def _pool_kernels(names, backend, interp, kind):
+    sfx = ("_BAKED" if backend == "baked" else "") + ("_INTERP" if interp else "") + "_" + kind.upper()
+    return [getattr(trender if k.startswith("RENDER") else taux, k + sfx) for k in names]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "i8"])
+@pytest.mark.parametrize("backend", ["tree", "baked"])
+@pytest.mark.parametrize("interp", [False, True])
+@pytest.mark.parametrize("fmt,ddim", [("RGBA", 4), ("SH9", 28), ("SG9", 28)])
+def test_pool_render_kernels_equal_f32_kernel(cuda, kind, backend, interp, fmt, ddim):
+    """The bf16 and int8 instances of the forward march (and the bf16
+    backward) through the renderer: the forward equal bit for bit to the
+    float32 kernel on the widened pool, exact and fast, with and without
+    weights; against the plain version at ATOL; the bf16 gradient's float32
+    sum against the plain version's, and its bf16 cast within one ulp of
+    the cast of that sum."""
+    tree, feats, _ = _shell(cuda, fmt=fmt, ddim=ddim, seed=50)
+    feats = feats[: int(feats.shape[0] * 0.7)].contiguous()
+    pool, wide = _pool_of(kind, feats)
+    o, d = _rays(cuda, 2048, seed=50)
+    r = stt.VolumeRenderer(tree, backend=backend, interp="trilinear" if interp else "nearest")
+    spec = r._render_spec()
+    fwd = _pool_kernels(["RENDER_FWD"], backend, interp, kind)
+    for fast in (False, True):
+        opt = r._get_options(fast)
+        before = _launches(fwd)
+        out = trender.volume_render_cuda(spec, pool, o, d, d, opt)
+        ok, wk = trender.volume_render_with_weight_accum_cuda(spec, pool, o, d, d, opt)
+        torch.cuda.synchronize()
+        assert _launches(fwd) == [before[0] + 2]
+        assert torch.equal(out, trender.volume_render_cuda(spec, wide, o, d, d, opt))
+        ow, ww = trender.volume_render_with_weight_accum_cuda(spec, wide, o, d, d, opt)
+        assert torch.equal(ok, ow) and torch.equal(ok, out)
+        _assert_atomic_close(wk, ww)
+        torch.testing.assert_close(out, trender.volume_render_plain(spec, pool, o, d, d, opt),
+                                   atol=ATOL, rtol=0)
+    if kind == "bf16":
+        opt = r._get_options(False)
+        (bwd,) = _pool_kernels(["RENDER_BWD"], backend, interp, kind)
+        before = bwd.launches
+        f = pool.clone().requires_grad_()
+        out = r(f, stt.Rays(o, d, d))
+        g_out = torch.randn(out.shape, generator=torch.Generator().manual_seed(50)).to(cuda)
+        (g,) = torch.autograd.grad((out * g_out).sum(), f)
+        torch.cuda.synchronize()
+        assert bwd.launches == before + 1 and g.dtype == torch.bfloat16
+        buf = trender.volume_render_backward_cuda(spec, pool, o, d, d, g_out, opt, out.detach())
+        want = trender.volume_render_backward_plain(spec, pool, o, d, d, g_out, opt, out.detach())
+        assert buf.dtype == torch.float32 and want.dtype == torch.float32
+        _assert_atomic_close(buf, want)
+        _assert_atomic_close(buf, trender.volume_render_backward_cuda(spec, wide, o, d, d, g_out, opt,
+                                                                      out.detach()))
+        _assert_bf16_ulp(g, want)
+        assert float(g.float().abs().max()) > 0
+    else:
+        with pytest.raises(ValueError, match="no kernel instance for a i8"):
+            trender.volume_render_backward_cuda(spec, pool, o, d, d, torch.zeros_like(out), opt)
+
+
+def _assert_bf16_ulp(got, want32):
+    """A bf16 cast of float32 sums that differ from ``want32`` by atomic
+    order: each element within one bf16 ulp of ``want32`` plus the float32
+    tolerance of `_assert_atomic_close`."""
+    w = want32.float()
+    ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w.abs().clamp_min(1e-30)).exponent - 8)
+    tol = ulp + 1e-5 * max(1.0, float(w.abs().max()))
+    assert bool(((got.float() - w).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("kind", ["bf16", "i8"])
+@pytest.mark.parametrize("backend", ["tree", "baked"])
+@pytest.mark.parametrize("interp", [False, True])
+def test_pool_aux_kernels_equal_f32_kernel(cuda, kind, backend, interp):
+    """The aux passes' pool instances through the renderer: first hit and
+    the motion-feature forward equal bit for bit to the float32 kernels on
+    the widened pool and to their plain versions as in the float32 tests;
+    the motion-feature VJP (bf16 joint features too) and, for bf16, the
+    opacity VJP against their plain versions."""
+    tree, feats, _ = _shell(cuda, seed=51)
+    feats = feats[: int(feats.shape[0] * 0.7)].contiguous()
+    pool, wide = _pool_of(kind, feats)
+    o, d = _rays(cuda, 2048, seed=51)
+    rays = stt.Rays(o, d, d)
+    r = stt.VolumeRenderer(tree, backend=backend, interp="trilinear" if interp else "nearest")
+    jf, sw, ji = _lbs(cuda, feats.shape[0], 7, 16, 4, seed=51)
+    spec = (tree._baked_spec if backend == "baked" else tree._spec)(skinning_weights=sw, joint_index=ji)
+    kernels = _pool_kernels(["FIRST_HIT", "MF_FWD", "MF_BWD"], backend, interp, kind)
+    for fast in (False, True):
+        opt = r._get_options(fast)
+        before = _launches(kernels)
+        depth = r.render_depth(pool, rays, fast=fast)
+        x = jf.to(torch.bfloat16).requires_grad_() if kind == "bf16" else jf.clone().requires_grad_()
+        mf = r.motion_feature_render(pool, x, sw, ji, rays, fast=fast)
+        gm = torch.randn(mf.shape, generator=torch.Generator().manual_seed(52)).to(cuda)
+        (gx,) = torch.autograd.grad((mf * gm).sum(), x)
+        torch.cuda.synchronize()
+        assert _launches(kernels) == [b + 1 for b in before] and gx.dtype == x.dtype
+        assert torch.equal(depth, taux.render_depth(spec, wide, o, d, opt))
+        hit, want_hit = taux.first_hit(spec, pool, o, d, opt), taux.first_hit_plain(spec, pool, o, d, opt)
+        for a, b in zip(hit[:3], want_hit[:3]):
+            assert torch.equal(a, b)
+        torch.testing.assert_close(hit[3], want_hit[3], atol=ATOL, rtol=0)
+        x32 = x.detach().float()
+        assert torch.equal(mf.detach(), taux.motion_feature_forward_cuda(spec, x32, wide, o, d, opt))
+        torch.testing.assert_close(mf.detach(), taux.motion_feature_render_plain(spec, x32, pool, o, d, opt),
+                                   atol=ATOL, rtol=0)
+        want = taux.motion_feature_backward_plain(spec, x32, pool, o, d, gm, opt)
+        _assert_atomic_close(taux.motion_feature_backward_cuda(spec, x, pool, o, d, gm, opt), want)
+        if kind == "bf16":
+            _assert_bf16_ulp(gx, want)
+            (op,) = _pool_kernels(["OPACITY_BWD"], backend, interp, kind)
+            before = op.launches
+            f = pool.clone().requires_grad_()
+            alpha = r.opacity_render(f, rays, fast=fast)
+            ga = torch.randn(alpha.shape, generator=torch.Generator().manual_seed(53)).to(cuda)
+            (gf,) = torch.autograd.grad((alpha * ga).sum(), f)
+            torch.cuda.synchronize()
+            assert op.launches == before + 1 and gf.dtype == torch.bfloat16
+            want_a = taux.opacity_backward_plain(spec, pool, o, d, ga, opt, out_res=alpha.detach())
+            _assert_atomic_close(taux.opacity_backward_cuda(spec, pool, o, d, ga, opt,
+                                                            out_res=alpha.detach()), want_a)
+            _assert_bf16_ulp(gf, want_a)
+        else:
+            alpha = r.opacity_render(pool, rays, fast=fast)
+            assert not alpha.requires_grad
+            with pytest.raises(ValueError, match="no kernel instance for a i8"):
+                taux.opacity_backward_cuda(spec, pool, o, d, torch.zeros_like(alpha), opt)
+        assert float(gx.float().abs().max()) > 0
+
+
+def test_query_bf16_kernels_match_plain(cuda):
+    """The bf16 query instances through N3Tree.forward: bf16 values equal
+    to the plain version's, a bf16 gradient whose float32 sum matches."""
+    tree, feats, centers = _shell(cuda, fmt="SH9", ddim=28, seed=54)
+    spec = tree._spec()
+    g = torch.Generator().manual_seed(54)
+    pts = torch.cat([centers[torch.randperm(len(centers), generator=g).to(cuda)],
+                     centers[:300], torch.rand(500, 3, generator=g).to(cuda)])
+    f = feats[: int(len(feats) * 0.9)].to(torch.bfloat16).contiguous()
+    before = (tquery.QUERY_FWD_BF16.launches, tquery.QUERY_BWD_BF16.launches)
+    x = f.clone().requires_grad_()
+    v = tree(x, pts)
+    gv = torch.randn(v.shape, generator=g).to(cuda).to(torch.bfloat16)
+    (gx,) = torch.autograd.grad((v * gv).sum(), x)
+    torch.cuda.synchronize()
+    assert (tquery.QUERY_FWD_BF16.launches, tquery.QUERY_BWD_BF16.launches) == (before[0] + 1, before[1] + 1)
+    vp, _, dp = tquery.query_forward_plain(spec, f, pts)
+    assert v.dtype == torch.bfloat16 and torch.equal(v.detach(), vp)
+    want = tquery.query_backward_plain(dp, gv, f.shape[0])
+    got = tquery.query_backward_cuda(dp, gv.contiguous(), f.shape[0])
+    assert got.dtype == torch.float32 and gx.dtype == torch.bfloat16
+    _assert_atomic_close(got, want)
+    _assert_bf16_ulp(gx, want)
+
+
+def test_pool_types_without_an_instance_raise(cuda):
+    """A pool type with no kernel instance raises; it is never converted
+    to run another instance."""
+    tree, feats, _ = _shell(cuda, depth=4)
+    o, d = _rays(cuda, 16)
+    r = stt.VolumeRenderer(tree)
+    half = feats.to(torch.float16)
+    with pytest.raises(ValueError, match="no kernel instance for a float16"):
+        r(half, stt.Rays(o, d, d))
+    with pytest.raises(ValueError, match="no kernel instance for a float16"):
+        r.render_depth(half, stt.Rays(o, d, d))
+    with pytest.raises(ValueError, match="no kernel instance for a float16"):
+        r.render_frames(half[None], stt.Rays(o, d, d))
+    with pytest.raises(ValueError, match="float16 pool"):
+        tree(half, o[:4])
+    q = stt.quantize_features(feats)
+    with pytest.raises(TypeError, match="no gradient"):
+        trender.volume_render_backward(r._render_spec(), q, o, d, d,
+                                       torch.zeros(o.shape[0], 4, device=cuda), r._get_options())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tree(q, o[:4])

@@ -19,7 +19,6 @@ port's march is within ATOL of the nearer of the oracle and the
 production march (see test_golden_scenes_march_matches_jax_oracle).
 """
 
-import collections
 import os
 
 import jax.numpy as jnp
@@ -268,12 +267,19 @@ def test_requires_grad_flows():
 
 
 def test_unported_options_raise():
+    """The options that once raised here now render: an int8 quantized
+    pool (K5; it raised NotImplementedError before) equals the JAX
+    package's render of the same pool within ATOL and takes no gradient;
+    weight accumulation collects weights."""
     rng, jt, pt, feats, rays = _scene(10)
     r = stt.VolumeRenderer(pt, backend="tree")
-    Quantized = collections.namedtuple("QuantizedFeatures", ["q", "scale", "zero"])
-    qf = Quantized(torch.zeros(len(feats), 4, dtype=torch.int8), torch.ones(4), torch.zeros(4))
-    with pytest.raises(NotImplementedError, match="K5"):
-        r(qf, _trays(rays))
+    jq = st.quantize_features(jnp.asarray(feats))
+    qf = stt.quantized_from_numpy(*(np.asarray(a) for a in jq), device="cpu")
+    out = r(qf, _trays(rays))
+    want = jrender.volume_render(jt._spec(), jq, *(jnp.asarray(x) for x in rays),
+                                 st.VolumeRenderer(jt, backend="tree")._get_options(False))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert not out.requires_grad and float(out[:, -1].max()) > 0.5
     # Weight accumulation, which raised here before, now collects weights.
     with pt.accumulate_weights() as acc:
         out = r(_t(feats), _trays(rays))

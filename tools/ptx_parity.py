@@ -1,19 +1,26 @@
-"""Compare the PTX of the nearest-mode march sources with another copy of
-the kernel sources, on a machine with nvcc.
+"""Compare the PTX of the kernel sources with another copy of them, on a
+machine with nvcc.
 
-    python3 tools/ptx_parity.py OTHER_CSRC_DIR
+    python3 tools/ptx_parity.py OTHER_CSRC_DIR [SOURCE ...]
 
 OTHER_CSRC_DIR holds another version of `svox_t_tpu_torch/csrc` (for
-example the parent commit's, unpacked with `git archive`). The six
-nearest-mode sources, `render_{fwd,bwd,aux}{,_baked}.cu`, are compiled to
-PTX from both directories with the build's code-generation flags, all at
-once. Anonymous-namespace names (they hash the file's path) and comment
-lines are normalized away; the script prints each source's PTX lines and
-how many lines differ, and exits nonzero if any source differs.
+example the parent commit's, unpacked with `git archive`). Every compile
+unit that both trees hold (a unit only one of them has is listed and
+skipped) is compiled to PTX from both with the build's code-generation
+flags, all at once. A tree's units are those its `_build.units` lists:
+this tree's, and the other's when its `_build.py` lies beside
+OTHER_CSRC_DIR and has `units` (else the other's `.cu` sources): the
+`.cu` sources and the pool instances of the march headers. Anonymous-namespace
+and internal names (they hash the file's path) and comment lines are
+normalized away; the script prints each unit's PTX lines and how many
+lines differ, with the first lines of each difference, and exits nonzero
+if any unit differs. Naming units (e.g. `render_bwd`,
+`render_fwd_baked_bf16`) compares only those.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import re
 import subprocess
 import sys
@@ -24,9 +31,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from svox_t_tpu_torch import _build  # noqa: E402
 
-SOURCES = ("render_fwd", "render_fwd_baked", "render_bwd", "render_bwd_baked", "render_aux",
-           "render_aux_baked")
-ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_[0-9]+_\w+?_cu_[0-9a-f]+")
+DIFF_LINES_SHOWN = 40
+# With the length prefix of a mangled name, which counts the path's characters.
+ANON = re.compile(r"\d*_GLOBAL__N__[0-9a-f]+_[0-9]+_\w+?_cu_[0-9a-f]+"
+                  r"|\d*_INTERNAL_[0-9a-f]{8}_[0-9]+_\w+?_cu_[0-9a-f]{8}")
 
 
 def ptx_flags() -> list:
@@ -39,6 +47,20 @@ def ptx_flags() -> list:
     return ["-arch=sm_90a", *flags]
 
 
+def units_of(csrc: Path) -> dict:
+    """The compile units of the tree that holds ``csrc``, by name."""
+    build_py = csrc.parent / "_build.py"
+    if csrc != _build.CSRC and build_py.exists():
+        spec = importlib.util.spec_from_file_location("other_build", build_py)
+        other = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(other)
+        if hasattr(other, "units"):
+            return {u.name: u for u in other.units(csrc)}
+    if csrc != _build.CSRC:
+        return {p.stem: _build.Unit(p.stem, p, ()) for p in csrc.glob("*.cu")}
+    return {u.name: u for u in _build.units()}
+
+
 def normalized(path: Path) -> Path:
     out = path.with_suffix(".norm")
     lines = [ANON.sub("ANON", ln) for ln in path.read_text().splitlines() if not ln.startswith("//")]
@@ -49,26 +71,34 @@ def normalized(path: Path) -> Path:
 def main() -> None:
     other = Path(sys.argv[1]).resolve()
     nvcc = _build._nvcc()
+    trees = {"other": units_of(other), "this": units_of(_build.CSRC)}
+    here, there = set(trees["this"]), set(trees["other"])
+    sources = sorted((here & there) & set(sys.argv[2:]) if sys.argv[2:] else here & there)
+    for name in sorted(here ^ there):
+        print(f"{name}: only in {'this tree' if name in here else other}; not compared")
     with tempfile.TemporaryDirectory() as tmp:
         jobs = {}
-        for name in SOURCES:
-            for tag, csrc in (("other", other), ("this", _build.CSRC)):
+        for name in sources:
+            for tag, units in trees.items():
                 ptx = Path(tmp) / f"{name}.{tag}.ptx"
+                args = _build.source_args(units[name], Path(tmp) / f"{name}.{tag}.cu")
                 jobs[name, tag] = (ptx, subprocess.Popen(
-                    [nvcc, *ptx_flags(), "-ptx", "-o", str(ptx), str(csrc / f"{name}.cu")],
+                    [nvcc, *ptx_flags(), "-ptx", "-o", str(ptx), *args],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for (name, tag), (_, proc) in jobs.items():
             out, _ = proc.communicate()
             if proc.returncode != 0:
-                raise SystemExit(f"nvcc failed on {tag} {name}.cu:\n{out}")
+                raise SystemExit(f"nvcc failed on {tag} {name}:\n{out}")
         differ = False
-        for name in SOURCES:
+        for name in sources:
             a, b = (normalized(jobs[name, tag][0]) for tag in ("other", "this"))
             diff = subprocess.run(["diff", str(a), str(b)], capture_output=True, text=True).stdout
             n = len(diff.splitlines())
             differ |= n > 0
             print(f"{name}: {len(b.read_text().splitlines())} PTX lines, {n} diff lines against "
                   f"{other}")
+            if n:
+                print("\n".join(diff.splitlines()[:DIFF_LINES_SHOWN]))
     sys.exit(1 if differ else 0)
 
 
