@@ -27,6 +27,14 @@ for bit to the float32 kernels on the widened (or dequantized) pool on
 every camera ray and each instance against its plain version on the
 same rays, the bf16 backward and opacity VJP also after their cast to
 bf16, the two structures' renders bit for bit, and the bf16 point query),
+then the recorded sample tapes (K13: the count and record kernels equal
+to their plain versions on every camera ray, both structures, exact and
+fast, compacted and not; the replay forward equal to the forward march
+bit for bit, with rotations and with weights, and across bench.py's
+skip boxes; its bf16 and int8 instances equal to the float32 one on the
+widened pools; the replay backward against plain and the backward march;
+an indirect tape replayed after a re-point equal to the march on the
+re-pointed tree),
 then
 drives the main paths through the public entry points on the depth-9 SH9
 shell scene at 800x800, with a seeded 32-joint skeleton for the aux and
@@ -82,7 +90,15 @@ dynamic paths, each on the default baked backend and on the tree walk
     motion features with bf16 joint features, point query), the aux
     passes on the int8 pool, one bf16 `render_dynamic_frames` call equal
     to the same call on the widened pool, and the same pools under
-    interp, each through the pool instances.
+    interp, each through the pool instances;
+  * recorded sample tapes (`tape_path`): three frames of
+    `VolumeRenderer.render_persp_tape` (exact and fast) with the frames'
+    pools, bit for bit equal to `render_persp`, and two Adam steps through
+    `render_persp_tape` + `backward()`, one inside `accumulate_weights()`;
+    then bench.py's tape keys beside the march on the same rays
+    (`tape_record_ms`, `fwd_tape_ms`, `tape_fwd_bwd_seq_ms` on its
+    depth-7 headline scene; `deep9_tape_ms`, `deep9_tape_mrays_s`,
+    `deep9_tape_int8_mrays_s`).
 
 The two backends' exact outputs are checked equal bit for bit on every
 serving path. Each path's launch counts are read from zero around it. It
@@ -113,6 +129,7 @@ from svox_t_tpu_torch.ops import p2v as p2v_ops
 from svox_t_tpu_torch.ops import query as query_ops
 from svox_t_tpu_torch.ops import render as render_ops
 from svox_t_tpu_torch.ops import render_aux as aux_ops
+from svox_t_tpu_torch.ops import tape as tape_ops
 from svox_t_tpu_torch.ops import traversal
 from svox_t_tpu_torch.ops import warp as warp_ops
 from svox_t_tpu_torch.utils.scenes import (bench_dynamic_cloud, build_shell_tree,
@@ -344,6 +361,15 @@ POOL_KERNELS = {f"{base}{sfx}_{kind}": inst[kind][i]
                 for i, sfx in enumerate(render_ops._STRUCT_SUFFIXES)}
 COUNTERS.update(POOL_KERNELS)
 COUNTERS.update(query_fwd_bf16=query_ops.QUERY_FWD_BF16, query_bwd_bf16=query_ops.QUERY_BWD_BF16)
+# K13: the tape recorder on each structure, the replay per pool type.
+TAPE_KERNELS = {
+    "tape_count": tape_ops.TAPE_COUNT, "tape_count_baked": tape_ops.TAPE_COUNT_BAKED,
+    "tape_record": tape_ops.TAPE_RECORD, "tape_record_baked": tape_ops.TAPE_RECORD_BAKED,
+    "tape_replay_fwd": tape_ops.TAPE_REPLAY_FWD, "tape_replay_fwd_bf16": tape_ops.TAPE_REPLAY_FWD_BF16,
+    "tape_replay_fwd_i8": tape_ops.TAPE_REPLAY_FWD_I8, "tape_replay_bwd": tape_ops.TAPE_REPLAY_BWD,
+    "tape_replay_bwd_bf16": tape_ops.TAPE_REPLAY_BWD_BF16,
+}
+COUNTERS.update(TAPE_KERNELS)
 # Bytes of a pool element.
 POOL_ELEM = {"f32": 4, "bf16": 2, "i8": 1}
 # bench.py:100: frames per timed call of its sustained loops; bench.py:615:
@@ -993,6 +1019,398 @@ def pool_path(backend: str, aux_state: dict, feats, jf, sw, ji, rig, cam_rays, c
     return res
 
 
+def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, centers, skip_case, opts,
+                      kernels, dev) -> dict:
+    """Phase 3g (K13): the tape kernels against their plain versions on all
+    of the depth-9 shell's camera rays, on both structures (``tree_spec``,
+    ``baked``), exact and fast (``opts``), compacted and not: K13a's counts
+    and K13b's streams exactly equal; K13c equal to K2 bit for bit (also
+    with rotations, and with weights: the weights, atomic sums, at the
+    atomic tolerance), and to plain at the march tolerance; the bf16 and
+    int8 K13c equal to the float32 K13c on the widened or dequantized pool
+    bit for bit; K13d against plain and K3 at the atomic tolerance (float32
+    and bf16); a fast frame whose march steps across skip boxes
+    (``skip_case``: bench.py's frame 1 on its bake), K13c against K2 bit
+    for bit and plain; an indirect tape replayed after a re-point equal to
+    K2 on the re-pointed tree (tree walk). Returns each kernel's plain ms
+    and what the times and bounds read: the exact compacted tape, its
+    sample counts, and the tapes' counts."""
+    t_3g = time.perf_counter()
+    M = feats.shape[0]
+    rng = np.random.RandomState(13)
+    plain_ms, err, stats = {}, {}, {}
+
+    def note(name, e):
+        err[name] = max(err.get(name, 0.0), e)
+
+    with torch.no_grad():
+        for sfx, spec in (("_baked", baked), ("", tree_spec)):
+            for fast in (False, True):
+                opt = opts[fast]
+                mode = "fast" if fast else "exact"
+                n_occ, n_tot = tape_ops.count_samples_cuda(spec, M, origins, dirs, opt)
+                (p_occ, p_tot), plain_ms["tape_count" + sfx, fast] = timed_once_ms(
+                    lambda: tape_ops.count_samples_plain(spec, M, origins, dirs, opt))
+                check(torch.equal(n_occ, p_occ) and torch.equal(n_tot, p_tot),
+                      f"tape_count{sfx} {mode}: kernel and plain counts differ")
+                out_k2, w_k2 = render_ops.volume_render_with_weight_accum_cuda(
+                    spec, feats, origins, dirs, dirs, opt)
+                for compact in (False, True):
+                    label = f"{sfx or '_tree'} {mode} {'compact' if compact else 'full'}"
+                    tp = tape_ops.record_tape(spec, M, origins, dirs, dirs, opt, compact=compact,
+                                              record_t=True)
+                    want, plain_ms["tape_record" + sfx, fast, compact] = timed_once_ms(
+                        lambda: tape_ops.record_samples_plain(spec, M, origins, dirs, opt, tp.offsets,
+                                                              compact, True, True, True))
+                    check(torch.equal(tp.counts, n_occ if compact else n_tot),
+                          f"tape {label}: counts are not K13a's")
+                    for name, a, b_ in zip(("idx", "dt", "cell", "tval", "dscale"),
+                                           (tp.idx, tp.dt, tp.cell, tp.tval, tp.dscale), want):
+                        check(torch.equal(a, b_), f"tape_record {label}: kernel and plain {name} differ")
+                    stats[sfx, fast, compact] = tp.n_samples
+                    out = tape_ops.replay_forward_cuda(tp, feats, opt, spec)[0]
+                    check(torch.equal(out, out_k2), f"tape_replay_fwd {label}: not K2 bit for bit")
+                    out_w, w = tape_ops.replay_forward_cuda(tp, feats, opt, spec, True)
+                    check(torch.equal(out_w, out_k2), f"tape_replay_fwd {label} weights: outputs not K2's")
+                    w_err = atomic_err(w, w_k2, f"tape_replay_fwd {label} weights vs K2")
+                    (out_p, w_p), plain_ms["tape_replay_fwd", sfx, fast, compact] = timed_once_ms(
+                        lambda: tape_ops.replay_forward_plain(tp, feats, opt, spec, True))
+                    e = float((out - out_p).abs().max())
+                    check(e <= RENDER_ATOL, f"tape_replay_fwd {label}: kernel vs plain {e}")
+                    note("tape_replay_fwd", max(e, atomic_err(w, w_p, f"tape_replay_fwd {label} weights")))
+                    line = (f"tape {label}: {tp.n_samples} samples (S {tp.S}), counts and streams equal to "
+                            f"plain; replay equal to K2 bit for bit, weights vs K2 {w_err:.3g}, vs plain "
+                            f"{e:.3g}")
+                    if not fast:
+                        rspec = spec.with_(transformation_matrices=rot)
+                        check(torch.equal(tape_ops.replay_forward_cuda(tp, feats, opt, rspec)[0],
+                                          render_ops.volume_render_cuda(rspec, feats, origins, dirs, dirs,
+                                                                        opt)),
+                              f"tape_replay_fwd {label} with rotations: not K2 bit for bit")
+                        g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(dev)
+                        kinds = (("", feats),) + ((("_bf16", feats.to(torch.bfloat16)),) if compact else ())
+                        for psfx, pool in kinds:
+                            g_k = tape_ops.replay_backward_cuda(tp, pool, opt, g, out, spec)
+                            g_p, plain_ms["tape_replay_bwd" + psfx, sfx, compact] = timed_once_ms(
+                                lambda: tape_ops.replay_backward_plain(tp, pool, opt, g, out, spec))
+                            g_3 = render_ops.volume_render_backward_cuda(spec, pool, origins, dirs, dirs, g,
+                                                                         opt, out_res=out)
+                            eb = atomic_err(g_k, g_p, f"tape_replay_bwd{psfx} {label}")
+                            e3 = atomic_err(g_k, g_3, f"tape_replay_bwd{psfx} {label} vs K3")
+                            check(float(g_k.abs().max()) > 0, f"tape_replay_bwd{psfx} {label}: zero gradient")
+                            note("tape_replay_bwd" + psfx, eb)
+                            line += f"; bwd{psfx} vs plain {eb:.3g}, vs K3 {e3:.3g}"
+                    if not fast and compact:
+                        for kind in POOL_KINDS:
+                            pool, wide = pool_of(kind, feats)
+                            got = tape_ops.replay_forward_cuda(tp, pool, opt, spec)[0]
+                            check(torch.equal(got, tape_ops.replay_forward_cuda(tp, wide, opt, spec)[0]),
+                                  f"tape_replay_fwd_{kind} {label}: not the float32 kernel on the widened pool")
+                            p_, plain_ms["tape_replay_fwd_" + kind, sfx] = timed_once_ms(
+                                lambda: tape_ops.replay_forward_plain(tp, pool, opt, spec)[0])
+                            e = float((got - p_).abs().max())
+                            check(e <= RENDER_ATOL, f"tape_replay_fwd_{kind} {label}: kernel vs plain {e}")
+                            note("tape_replay_fwd_" + kind, e)
+                        line += "; bf16 and int8 replays equal to the float32 kernel on the widened pools"
+                        if sfx == "_baked":
+                            stats["tape"] = tp
+                    print(line)
+                    del tp, want
+        # Fast mode across skip boxes: bench.py's frame 1 on its bake.
+        gb_sp, gb_feats, gb_o, gb_d, gb_v, gb_opt = skip_case
+        Mg = gb_feats.shape[0]
+        n_occ, n_tot = tape_ops.count_samples_cuda(gb_sp, Mg, gb_o, gb_d, gb_opt)
+        check(all(torch.equal(a, b_) for a, b_ in zip(
+            (n_occ, n_tot), tape_ops.count_samples_plain(gb_sp, Mg, gb_o, gb_d, gb_opt))),
+              "tape_count_baked across skip boxes: kernel and plain differ")
+        for compact in (False, True):
+            tp = tape_ops.record_tape(gb_sp, Mg, gb_o, gb_d, gb_v, gb_opt, compact=compact)
+            want = tape_ops.record_samples_plain(gb_sp, Mg, gb_o, gb_d, gb_opt, tp.offsets, compact)
+            check(all(torch.equal(a, b_) for a, b_ in zip((tp.idx, tp.dt, tp.cell, tp.dscale),
+                                                          (want[0], want[1], want[2], want[4]))),
+                  "tape_record_baked across skip boxes: kernel and plain differ")
+            out = tape_ops.replay_forward_cuda(tp, gb_feats, gb_opt, gb_sp)[0]
+            check(torch.equal(out, render_ops.volume_render_cuda(gb_sp, gb_feats, gb_o, gb_d, gb_v, gb_opt)),
+                  "tape_replay_fwd across skip boxes: not K2 bit for bit")
+            e = float((out - tape_ops.replay_forward_plain(tp, gb_feats, gb_opt, gb_sp)[0]).abs().max())
+            check(e <= RENDER_ATOL, f"tape_replay_fwd across skip boxes: kernel vs plain {e}")
+            note("tape_replay_fwd", e)
+            print(f"tape across skip boxes (bench.py's fast frame 1, {'compact' if compact else 'full'}): "
+                  f"{tp.n_samples} samples; streams equal to plain, replay equal to K2 bit for bit, vs "
+                  f"plain {e:.3g}")
+        # An indirect tape replayed after a re-point (tree walk).
+        itree = stt.tree_from_numpy(state, device=dev)
+        ispec = itree._spec()
+        opt = opts[False]
+        tp = tape_ops.record_tape(ispec, M, origins, dirs, dirs, opt, indirect=True)
+        itree.construct_tree(centers[torch.from_numpy(rng.permutation(M)).to(dev)])
+        ispec2 = itree._spec()
+        check(not torch.equal(ispec2.data_flat, ispec.data_flat), "the re-point changed no row")
+        table = tape_ops.pack_index_table(ispec2.data_flat)
+        out = tape_ops.replay_forward_cuda(tp, feats, opt, ispec2, False, table)[0]
+        check(torch.equal(out, render_ops.volume_render_cuda(ispec2, feats, origins, dirs, dirs, opt)),
+              "indirect tape replay after a re-point: not K2 on the re-pointed tree bit for bit")
+        e = float((out - tape_ops.replay_forward_plain(tp, feats, opt, ispec2, False, table)[0]).abs().max())
+        check(e <= RENDER_ATOL, f"indirect tape replay: kernel vs plain {e}")
+        note("tape_replay_fwd", e)
+        g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(dev)
+        note("tape_replay_bwd", atomic_err(
+            tape_ops.replay_backward_cuda(tp, feats, opt, g, out, ispec2, table),
+            tape_ops.replay_backward_plain(tp, feats, opt, g, out, ispec2, table), "indirect tape_replay_bwd"))
+        print(f"indirect tape ({tp.n_samples} cells) after a re-point of {M} rows: replay equal to K2 on the "
+              f"re-pointed tree bit for bit, vs plain {e:.3g}")
+        del tp, itree
+    for name in ("tape_count", "tape_count_baked", "tape_record", "tape_record_baked"):
+        kernels[name]["max_abs_err"] = 0.0
+    for name, e in err.items():
+        kernels[name]["max_abs_err"] = e
+    print(f"phase 3g {time.perf_counter() - t_3g:.1f} s")
+    return dict(plain_ms=plain_ms, samples=stats)
+
+
+def tape_path(backend: str, state: dict, frame_feats, true_pool, pool0, c2w, dev) -> dict:
+    """Phase 4l (K13), the tape path through the public entry points on
+    ``backend``: three frames of `render_persp_tape` (exact and fast) with
+    the frames' pools, then two Adam steps through `render_persp_tape` +
+    `backward()` toward a target image, the second inside
+    `accumulate_weights()`. Launch counts are read around these; then the
+    frames are checked equal to `render_persp` bit for bit. The first frame's
+    pool also renders as bf16 and int8, and a bf16 pool takes a gradient.
+    Returns the counts, the losses and the host ms of the frames."""
+    tree = stt.tree_from_numpy(state, device=dev)
+    r = stt.VolumeRenderer(tree, backend=backend)
+    if backend == "baked":
+        tree._baked_spec()
+    frames, frame_ms = [], []
+    reset_counts()
+    with torch.no_grad():
+        for f in frame_feats:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames.append([r.render_persp_tape(f, c2w, WIDTH, HEIGHT, fx=FX, fast=fast)
+                           for fast in (False, True)])
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        target = r.render_persp_tape(true_pool, c2w, WIDTH, HEIGHT, fx=FX)
+        # The bf16 and int8 pools' replays (K5 instances of K13c).
+        pools = {"bf16": frame_feats[0].to(torch.bfloat16), "i8": stt.quantize_features(frame_feats[0])}
+        pool_frames = {k: r.render_persp_tape(p_, c2w, WIDTH, HEIGHT, fx=FX) for k, p_ in pools.items()}
+    # A bf16 pool's gradient through the bf16 K13d.
+    pool_b = pool0.to(torch.bfloat16).requires_grad_()
+    ((r.render_persp_tape(pool_b, c2w, WIDTH, HEIGHT, fx=FX) - target) ** 2).mean().backward()
+    pool = pool0.clone().requires_grad_()
+    adam = torch.optim.Adam([pool], lr=LR)
+    losses = []
+    for step in range(2):
+        with tree.accumulate_weights() if step else contextlib.nullcontext() as acc:
+            img = r.render_persp_tape(pool, c2w, WIDTH, HEIGHT, fx=FX)
+            loss = ((img - target) ** 2).mean()
+            adam.zero_grad()
+            loss.backward()
+            adam.step()
+        losses.append(float(loss.detach()))
+    counts = read_counts()
+    weights = acc.value
+    check(losses[1] < losses[0], f"tape steps: the loss did not fall {losses}")
+    for x in (pool, pool_b):
+        check(x.grad.dtype == x.dtype and bool(torch.isfinite(x.grad).all()) and float(x.grad.abs().max()) > 0,
+              f"tape step: bad {x.dtype} gradient")
+    alpha_sum = float(img.detach()[..., -1].sum())
+    check(abs(float(weights.sum()) - alpha_sum) <= 1e-4 * alpha_sum,
+          f"tape step: weights sum {float(weights.sum())} != alpha sum {alpha_sum}")
+    with torch.no_grad():
+        for f, (img_e, img_f) in zip(frame_feats, frames):
+            check(torch.equal(img_e, r.render_persp(f, c2w, WIDTH, HEIGHT, fx=FX)),
+                  f"render_persp_tape ({backend}) is not render_persp bit for bit")
+            check(torch.equal(img_f, r.render_persp(f, c2w, WIDTH, HEIGHT, fx=FX, fast=True)),
+                  f"fast render_persp_tape ({backend}) is not render_persp bit for bit")
+        for k, p_ in pools.items():
+            check(torch.equal(pool_frames[k], r.render_persp(p_, c2w, WIDTH, HEIGHT, fx=FX)),
+                  f"{k} render_persp_tape ({backend}) is not render_persp bit for bit")
+    return dict(counts=counts, losses=losses, frame_ms=frame_ms)
+
+
+def tape_times(backend: str, scenes: dict, dev, card: str) -> dict:
+    """bench.py's tape keys (`bench.py:173-282`, `:634-665`) on ``backend``,
+    each beside the march on the same rays, made once (as bench.py's
+    `fwd_sustained` marches them). Its headline configuration
+    (`bench.py:40-59`): `build_shell_tree(depth=7)`, SH9,
+    `VolumeRenderer(tree, step_size=1e-3)`, the orbit camera at 800x800, fx
+    880: `tape_record_ms` (a second `record_persp` after a warm one, host
+    clock, synchronized); `fwd_tape_ms`, `render_tape` of N_SUSTAIN
+    perturbed pools per timed call, the least of 3, beside `fwd_ms`, the
+    renderer's `forward` on the tape's rays timed the same way;
+    `tape_fwd_bwd_seq_ms`, a forward and backward per pool in turn, beside
+    `fwd_bwd_seq_ms`, the march's. The deep configuration
+    (`bench.py:583-665`): the depth-9 shell, its pool in bf16:
+    `deep9_tape_ms`, `deep9_tape_mrays_s` and, on its int8 form,
+    `deep9_tape_int8_mrays_s`, beside `deep9_ms`. ``scenes``: depth ->
+    (tree state, float32 pool)."""
+    res = {}
+    B = WIDTH * HEIGHT
+
+    def sustained(render, pools):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = float(sum(render(p_).sum() for p_ in pools))
+        check(np.isfinite(total), "non-finite frame")
+        return (time.perf_counter() - t0) * 1e3 / len(pools)
+
+    def least(render, make):
+        render(make(0, 0))
+        return min(sustained(render, [make(i + 1, j) for j in range(N_SUSTAIN)]) for i in range(3))
+
+    def seq(render, make):
+        def run(pools):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for p_ in pools:
+                x = p_.clone().requires_grad_()
+                torch.autograd.grad(render(x).sum(), x)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / len(pools)
+        run([make(0, 0)])
+        return min(run([make(i + 1, j) for j in range(N_SUSTAIN)]) for i in range(3))
+
+    for depth in (7, DEPTH):
+        st_, f_np = scenes[depth]
+        tree = stt.tree_from_numpy(st_, device=dev)
+        r = stt.VolumeRenderer(tree, backend=backend, step_size=1e-3)
+        f0 = torch.from_numpy(f_np).to(dev)
+        if depth == DEPTH:
+            f0 = f0.to(torch.bfloat16)
+        persp = dict(c2w=orbit_camera(), width=WIDTH, height=HEIGHT, fx=BENCH_FX)
+        make = lambda i, j: f0 * (1.0 + 1e-2 * i + 1e-3 * j)  # noqa: E731
+        with torch.no_grad():
+            tape = r.record_persp(features=f0, **persp)
+            rays = stt.Rays(tape.origins, tape.dirs, tape.vdirs)
+            if depth == 7:
+                r._tape_cache.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tape = r.record_persp(features=f0, **persp)
+                torch.cuda.synchronize()
+                res["tape_record_ms"] = (time.perf_counter() - t0) * 1e3
+                res["fwd_tape_ms"] = least(lambda p_: r.render_tape(tape, p_), make)
+                res["fwd_ms"] = least(lambda p_: r(p_, rays), make)
+            else:
+                res["deep9_tape_ms"] = least(lambda p_: r.render_tape(tape, p_), make)
+                res["deep9_ms"] = least(lambda p_: r(p_, rays), make)
+                res["deep9_tape_int8_ms"] = least(
+                    lambda p_: r.render_tape(tape, p_),
+                    lambda i, j: stt.quantize_features(f0.float() * (1.0 + 1e-2 * i + 1e-3 * j)))
+        if depth == 7:
+            res["tape_fwd_bwd_seq_ms"] = seq(lambda x: r.render_tape(tape, x), make)
+            res["fwd_bwd_seq_ms"] = seq(lambda x: r(x, rays), make)
+        del tree, r, f0, tape, rays
+    for k in ("deep9_tape", "deep9_tape_int8", "deep9"):
+        res[k + "_mrays_s"] = B / res[k + "_ms"] / 1e3
+    print(f"bench.py tape keys ({LABEL[backend]}; host clock, synchronized, {N_SUSTAIN} frames per timed "
+          f"call, least of 3; the march on the tape's rays, made once): tape_record_ms "
+          f"{res['tape_record_ms']:.4f}, fwd_tape_ms {res['fwd_tape_ms']:.4f} (march fwd_ms "
+          f"{res['fwd_ms']:.4f}), tape_fwd_bwd_seq_ms {res['tape_fwd_bwd_seq_ms']:.4f} (march "
+          f"{res['fwd_bwd_seq_ms']:.4f}); deep9_tape_ms {res['deep9_tape_ms']:.4f}, deep9_tape_mrays_s "
+          f"{res['deep9_tape_mrays_s']:.3f}, deep9_tape_int8_mrays_s {res['deep9_tape_int8_mrays_s']:.3f} "
+          f"(march deep9_ms {res['deep9_ms']:.4f}, {res['deep9_mrays_s']:.3f} Mrays/s) [{card}]")
+    return res
+
+
+def tape_bounds(c: dict, c_b: dict, n_samples: dict, M: int, D: int) -> dict:
+    """bound_ms and bound_by of the tape kernels, from the SH9 camera
+    march's census on each structure (``c`` the tree walk, ``c_b`` the
+    bake) and the exact tapes' sample counts (``n_samples``; (structure
+    suffix, fast, compact) -> samples). Each input read once, each output
+    written once: K13a walks as K2 (its rays and the structure entries its
+    samples touch; operations as the march's walk) and writes 8 bytes a
+    ray; K13b walks again, reads the offsets, and writes the compacted
+    tape as the timed call records it (row, step and cell: 12 bytes a
+    sample) and dscale; K13c reads the offsets, the row and step streams,
+    dscale and the view direction, the rows its samples touch, and writes
+    the output, with K2's compositing operations per contributing sample;
+    K13d also reads the output and its gradient and writes the float32
+    (M, D) gradient. The replay's pool instances read 2 or 1 bytes a
+    value (int8 adds 8 bytes of scale and zero a column)."""
+    out = {}
+    for sfx, cc in (("", c), ("_baked", c_b)):
+        B = cc["rays"]
+        cell_b = 4 if cc["baked"] else 8
+        if cc["baked"]:
+            walk_ops = OPS_RAY * cc["hits"] + (OPS_LOOKUP + OPS_SAMPLE) * cc["samples"]
+        else:
+            walk_ops = OPS_RAY * cc["hits"] + OPS_LEVEL * cc["levels"] + OPS_SAMPLE * cc["samples"]
+        n = n_samples[sfx, False, True]
+        out["tape_count" + sfx] = (B * 24 + cc["cells"] * cell_b + B * 8, walk_ops)
+        out["tape_record" + sfx] = (B * 24 + (B + 1) * 4 + cc["cells"] * cell_b + n * 12 + B * 4, walk_ops)
+    n, R, B = n_samples["_baked", False, True], c_b["rows"], c_b["rays"]
+    stream = (B + 1) * 4 + n * 8 + B * 16
+    for kind, e in POOL_ELEM.items():
+        psfx = "" if kind == "f32" else "_" + kind
+        q = 8 * D if kind == "i8" else 0
+        out["tape_replay_fwd" + psfx] = (stream + R * D * e + q + B * 16, OPS_FWD_SH9 * c_b["contrib"])
+        if kind != "i8":
+            out["tape_replay_bwd" + psfx] = (stream + 2 * B * 16 + R * D * e + M * D * 4,
+                                             OPS_BWD_SH9 * c_b["contrib"])
+    return _bounds(out)
+
+
+def tape_kernel_times(tp, specs: dict, feats, origins, dirs, opt, plain_ms: dict, kernels: dict, dev,
+                      card: str) -> None:
+    """Times of the tape kernels (CUDA events over KERNEL_REPS calls) on the
+    depth-9 shell's camera rays, exact: K13a and K13b on each structure
+    (``specs``: "" the tree walk, "_baked" the bake; the compacted tape
+    with cells, as `record_tape` records it), K13c and K13d on the
+    compacted tape ``tp`` with each pool instance, each beside the march
+    kernel on the same rays in the same turn (K2, K3); plain: one call,
+    phase 3g."""
+    M = feats.shape[0]
+    with torch.no_grad():
+        for sfx, spec in specs.items():
+            n_occ, _ = tape_ops.count_samples_cuda(spec, M, origins, dirs, opt)
+            offsets = torch.zeros(n_occ.shape[0] + 1, dtype=torch.int32, device=dev)
+            offsets[1:] = torch.cumsum(n_occ, 0)
+            c_ms = time_ms(lambda: tape_ops.count_samples_cuda(spec, M, origins, dirs, opt), KERNEL_REPS)
+            r_ms = time_ms(lambda: tape_ops.record_samples_cuda(spec, M, origins, dirs, opt, offsets, True,
+                                                                True, True, False), KERNEL_REPS)
+            k2_ms = time_ms(lambda: render_ops.volume_render_cuda(spec, feats, origins, dirs, dirs, opt),
+                            KERNEL_REPS)
+            kernels["tape_count" + sfx].update(ms=c_ms, plain_ms=plain_ms["tape_count" + sfx, False])
+            kernels["tape_record" + sfx].update(ms=r_ms, plain_ms=plain_ms["tape_record" + sfx, False, True])
+            print(f"time tape_count{sfx} / tape_record{sfx} (SH9 exact {WIDTH}x{HEIGHT}, compacted, "
+                  f"{tp.n_samples} samples): kernel {c_ms:.4f} / {r_ms:.4f} ms (K2 on the same rays "
+                  f"{k2_ms:.4f} ms), plain {plain_ms['tape_count' + sfx, False]:.1f} / "
+                  f"{plain_ms['tape_record' + sfx, False, True]:.1f} ms (one call, phase 3g) [{card}]")
+        spec = specs["_baked"]
+        k2_ms = time_ms(lambda: render_ops.volume_render_cuda(spec, feats, origins, dirs, dirs, opt), KERNEL_REPS)
+        out = tape_ops.replay_forward_cuda(tp, feats, opt, spec)[0]
+        g = torch.from_numpy(np.random.RandomState(14).randn(*out.shape).astype(np.float32)).to(dev)
+        for kind in ("f32", *POOL_KINDS):
+            psfx = "" if kind == "f32" else "_" + kind
+            pool = feats if kind == "f32" else pool_of(kind, feats)[0]
+            f_ms = time_ms(lambda: tape_ops.replay_forward_cuda(tp, pool, opt, spec), KERNEL_REPS)
+            m_ms = time_ms(lambda: render_ops.volume_render_cuda(spec, pool, origins, dirs, dirs, opt),
+                           KERNEL_REPS)
+            p_ms = plain_ms["tape_replay_fwd", "_baked", False, True] if kind == "f32" else \
+                plain_ms["tape_replay_fwd" + psfx, "_baked"]
+            kernels["tape_replay_fwd" + psfx].update(ms=f_ms, plain_ms=p_ms)
+            line = (f"time tape_replay_fwd{psfx} (SH9 exact {WIDTH}x{HEIGHT}, {tp.n_samples} samples): kernel "
+                    f"{f_ms:.4f} ms, K2 on the bake{psfx and ' ' + kind} {m_ms:.4f} ms in the same turn "
+                    f"({m_ms / f_ms:.3f}x), plain {p_ms:.1f} ms")
+            if kind != "i8":
+                b_ms = time_ms(lambda: tape_ops.replay_backward_cuda(tp, pool, opt, g, out, spec), KERNEL_REPS)
+                k3_ms = time_ms(lambda: render_ops.volume_render_backward_cuda(
+                    spec, pool, origins, dirs, dirs, g, opt, out_res=out), KERNEL_REPS)
+                bp_ms = plain_ms["tape_replay_bwd" + psfx, "_baked", True]
+                kernels["tape_replay_bwd" + psfx].update(ms=b_ms, plain_ms=bp_ms)
+                line += (f"; tape_replay_bwd{psfx} kernel {b_ms:.4f} ms, K3 {k3_ms:.4f} ms "
+                         f"({k3_ms / b_ms:.3f}x), plain {bp_ms:.1f} ms")
+            print(line + f" (plain: one call, phase 3g) [{card}]")
+        if tp.n_samples:
+            full = tape_ops.record_tape(spec, M, origins, dirs, dirs, opt, compact=False)
+            u_ms = time_ms(lambda: tape_ops.replay_forward_cuda(full, feats, opt, spec), KERNEL_REPS)
+            print(f"time tape_replay_fwd on the uncompacted tape ({full.n_samples} samples): {u_ms:.4f} ms "
+                  f"(K2 {k2_ms:.4f} ms) [{card}]")
+
+
 def train(tree, true_pool, pool0, centers, perms, prior_points, steps,
           width=WIDTH, height=HEIGHT, fx=FX, accumulate_at=-1, after_step=None,
           backend="baked"):
@@ -1329,6 +1747,18 @@ def main() -> None:
     for name in ("query_fwd_bf16", "query_bwd_bf16"):
         kernels[name] = dict(route="cuda", source="svox_t_tpu_torch/csrc/query_bf16.cu",
                              replaces="svox_t_tpu/ops/render.py:248")
+    # K13: the tape recorder (svox_t_tpu/ops/tape.py:260 `_count_samples`,
+    # :302 `_record_chunks`) and replay (:705 `_replay_fwd_impl`, :962
+    # `_replay_bwd_impl`).
+    for name in TAPE_KERNELS:
+        base, sfx = name.split("_baked")[0], "_baked" if "_baked" in name else ""
+        if base in ("tape_count", "tape_record"):
+            src, line = f"tape_record{sfx}.cu", 260 if base == "tape_count" else 302
+        else:
+            src = "tape_replay.cuh" if name.endswith(("_bf16", "_i8")) else name + ".cu"
+            line = 705 if "_fwd" in name else 962
+        kernels[name] = dict(route="cuda", source=f"svox_t_tpu_torch/csrc/{src}",
+                             replaces=f"svox_t_tpu/ops/tape.py:{line}")
 
     # 3. Kernel vs plain
     tree = stt.tree_from_numpy(state, device=dev)
@@ -1911,6 +2341,14 @@ def main() -> None:
     print(f"pool bytes ({M} rows x 28 channels): float32 {M * 28 * 4 / 1e6:.1f} MB, bf16 "
           f"{M * 28 * 2 / 1e6:.1f} MB, int8 {(M * 28 + 2 * 28 * 4) / 1e6:.1f} MB [{card}]")
 
+    # 3g. Recorded sample tapes (K13): the count, record and replay kernels
+    # against their plain versions and the march kernels, both structures,
+    # exact and fast, compacted and not.
+    tape_res = tape_kernel_phase(
+        state, spec, baked, feats, rot, origins, dirs, centers,
+        (gb_sp, bench_feats, gb_o, gb_d, gb_v, gb_opt),
+        {fast: sh_renderer._get_options(fast) for fast in (False, True)}, kernels, dev)
+
     # 4. Main path, serving: three frames through the public entry points,
     # on the default baked backend (baked once, as at load; every re-point
     # then refreshes the bake) and on the tree walk.
@@ -2465,10 +2903,34 @@ def main() -> None:
           f"deep9_int8_mrays_s {B / ms['deep9_int8_ms'] / 1e3:.3f}, fwd_bwd_bf16_ms "
           f"{ms['fwd_bwd_bf16_ms']:.4f} [{card}]")
 
+    # 4l. Main path, recorded sample tapes (K13) on both backends
+    # (`tape_path`): three frames of render_persp_tape with the frames'
+    # pools, exact and fast, bit for bit equal to render_persp; two Adam
+    # steps through render_persp_tape + backward(), one inside
+    # accumulate_weights(); then bench.py's tape keys beside the march.
+    tape_counts, tape_ms = {}, {}
+    bench7 = build_shell_tree(depth=7, data_format="SH9", data_dim=28)[:2]
+    for backend in BACKENDS:
+        sfx = SUFFIX[backend]
+        res = tape_path(backend, state, frame_feats, true_pool, pool0, c2w, dev)
+        counts = tape_counts[backend] = res["counts"]
+        print(f"main path, tapes ({LABEL[backend]}): launches {nonzero(counts)}, loss "
+              f"{[round(x, 8) for x in res['losses']]}, host ms per frame (exact + fast replays; the first "
+              f"records both tapes) {[round(x, 3) for x in res['frame_ms']]}; frames equal to render_persp "
+              f"bit for bit")
+        want = {"tape_count" + sfx: 2, "tape_record" + sfx: 2, "tape_replay_fwd": 2 * N_FRAMES + 3,
+                "tape_replay_bwd": 2, "tape_replay_fwd_bf16": 2, "tape_replay_fwd_i8": 1,
+                "tape_replay_bwd_bf16": 1, "render_fwd" + sfx: 0, "render_bwd" + sfx: 0}
+        for k, n in want.items():
+            check(counts[k] == n, f"tape path ({backend}): {k} launched {counts[k]} times, not {n}")
+        check_bake_counts(counts, backend, 0)
+        tape_ms[backend] = tape_times(backend, {7: bench7, DEPTH: (state, feats_np)}, dev, card)
+    del bench7
+
     phases = (*serve_counts.values(), *train_counts.values(), *aux_serve_counts.values(),
               *aux_train_counts.values(), *dyn_counts, vox_counts, *dyn_train_counts.values(),
               pose_counts, *bench_counts.values(), edit_counts, *interp_counts.values(),
-              *pool_counts.values())
+              *pool_counts.values(), *tape_counts.values())
     for k in kernels:
         kernels[k]["launches"] = sum(c[k] for c in phases)
         check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
@@ -2751,6 +3213,11 @@ def main() -> None:
         print(f"time warp_bwd J 2 nb 2 ({M} points): kernel {w2_ms:.4f} ms, dT only "
               f"{w2_dt_ms:.4f} ms [{card}]")
 
+    # The tape kernels (K13) on the depth-9 shell before its re-points
+    # (phase 3g's structures and tape), each beside the march kernel.
+    tape_kernel_times(tape_res["samples"].pop("tape"), {"": spec, "_baked": baked}, feats, origins, dirs,
+                      sh_renderer._get_options(False), tape_res["plain_ms"], kernels, dev, card)
+
     # Forward + backward of a render loss, as bench.py names it:
     # fwd_bwd_ms sustained (CUDA events over KERNEL_REPS calls),
     # fwd_bwd_single_call_ms one synchronized call on the host clock (min of 3).
@@ -2821,6 +3288,7 @@ def main() -> None:
         print(f"census (SH9 exact, interp, {WIDTH}x{HEIGHT}, {label}): {c_i}")
     p2v_c = p2v_census(warped1, grid)
     bounds.update(dynamic_bounds(M, N_BONES, N_JOINTS, 28, P2V_N, p2v_c, touched))
+    bounds.update(tape_bounds(census, census_b, tape_res["samples"], M, 28))
     print(f"census (voxelize, {P2V_N}^3, W {grid.W}): {p2v_c}, {touched} voxels touched")
     for k, b in bounds.items():
         kernels[k].update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])

@@ -18,7 +18,10 @@ distances, and LBS-blended joint features. The dynamic
 frame loop (`VolumeRenderer.render_dynamic_frames`) LBS-warps the
 canonical cloud per frame (`warp_vertices`), re-points the tree and
 renders; `voxelize` splats a cloud into a density grid, and
-`render_frames` / `render_persp_frames` render a stack of pools. A pool
+`render_frames` / `render_persp_frames` render a stack of pools. Recorded
+sample tapes (`record_tape`, `replay_render`; `VolumeRenderer.record_rays`
+/ `render_tape`, `render_persp_tape`) record a ray batch's samples once
+and replay any pool over them with no structure walk. A pool
 is float32 or bfloat16, or int8 through `quantize_features` (K5). The
 renderer marches the tree's bake by default (`ops/bake.py`: a dense top
 grid and brick atlas, refreshed at every re-point), as the JAX package
@@ -47,6 +50,8 @@ from .ops.render_aux import (motion_feature_render, motion_render,
 from .ops.warp import (blend_transformation_matrix, get_transformation_matrix,
                        warp_vertices)
 from .ops.p2v import voxelize
+from .ops.tape import (RayTape, pack_index_table, record_tape, replay_render,
+                       replay_render_weighted)
 
 __all__ = [
     "N3Tree",
@@ -76,6 +81,11 @@ __all__ = [
     "blend_transformation_matrix",
     "warp_vertices",
     "voxelize",
+    "RayTape",
+    "record_tape",
+    "replay_render",
+    "replay_render_weighted",
+    "pack_index_table",
     "QuantizedFeatures",
     "quantize_features",
     "make_tree_spec",

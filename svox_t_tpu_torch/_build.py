@@ -12,7 +12,9 @@ loads the library already built.
 The march headers (`render_fwd.cuh`, `render_bwd.cuh`, `render_aux.cuh`)
 are instantiated once per compile: the float32 instances by the
 `render_*.cu` sources, the bf16 and int8 pool instances (K5) from the
-`POOL_INSTANCES` table, whose macros go to nvcc as ``-D`` flags.
+`POOL_INSTANCES` table, whose macros go to nvcc as ``-D`` flags. The tape
+replay header (`tape_replay.cuh`, K13c/d) has no structure or interp axis:
+its passes compile once per pool type (`FLAT_HEADERS`).
 
 ``-fmad=false`` keeps every multiply and add separately rounded, as the
 plain PyTorch versions round them: the march's sample positions then
@@ -52,7 +54,13 @@ SPLIT_FLAGS = ("-split-compile=0",)
 # an int8 pool takes no gradient, so the backward header has no int8
 # instance. Each is built on both structures, nearest and trilinear.
 POOL_INSTANCES = {"render_fwd": ("bf16", "i8"), "render_bwd": ("bf16",),
-                  "render_aux": ("bf16", "i8")}
+                  "render_aux": ("bf16", "i8"), "tape_replay_fwd": ("bf16", "i8"),
+                  "tape_replay_bwd": ("bf16",)}
+# The entries of POOL_INSTANCES with no structure or interp axis: each is
+# a pass of a header (its -D flag), compiled once per pool type; the
+# float32 pool's compile is the `.cu` source of the entry's name.
+FLAT_HEADERS = {"tape_replay_fwd": ("tape_replay", "-DSVOX_TAPE_PASS=0"),
+                "tape_replay_bwd": ("tape_replay", "-DSVOX_TAPE_PASS=1")}
 _STRUCTURES = {"": "svox::TreeWalk", "_baked": "svox::Baked"}
 _POOL_TYPES = {"bf16": "svox::PoolBF16", "i8": "svox::PoolI8"}
 
@@ -69,9 +77,16 @@ class Unit(NamedTuple):
 def units(csrc: Path = CSRC) -> list:
     """Every compile of the library: each `.cu` source of ``csrc``, then
     each pool instance of `POOL_INSTANCES`, named as the float32 source
-    with the pool type's suffix (``render_fwd_baked_interp_bf16``)."""
+    with the pool type's suffix (``render_fwd_baked_interp_bf16``,
+    ``tape_replay_fwd_bf16``)."""
     out = [Unit(p.stem, p, ()) for p in sorted(csrc.glob("*.cu"))]
     for header, kinds in POOL_INSTANCES.items():
+        if header in FLAT_HEADERS:
+            source, pass_flag = FLAT_HEADERS[header]
+            for kind in kinds:
+                defines = (pass_flag, f"-DSVOX_SUFFIX=_{kind}", f"-DSVOX_POOL={_POOL_TYPES[kind]}")
+                out.append(Unit(f"{header}_{kind}", csrc / f"{source}.cuh", defines))
+            continue
         for ssfx, structure in _STRUCTURES.items():
             for isfx in ("", "_interp"):
                 for kind in kinds:

@@ -1,0 +1,442 @@
+// K13c and K13d: the replay of a recorded sample tape, forward and
+// backward. No structure walk, so no structure axis: a compile picks the
+// pass with SVOX_TAPE_PASS (0 the forward, svox_tape_replay_fwd; 1 the
+// backward, svox_tape_replay_bwd) and the pool type with SVOX_POOL (K5).
+// tape_replay_fwd.cu and tape_replay_bwd.cu are the float32 pool's
+// compiles; the bf16 and int8 instances come from `_build.POOL_INSTANCES`
+// (svox_tape_replay_fwd_bf16, ..._fwd_i8, ..._bwd_bf16; a quantized pool
+// takes no gradient).
+//
+// Replaces: svox_t_tpu/ops/tape.py `_replay_fwd_impl` (K13c, with its
+// weight accumulation and `_resolve_cells`) and `_replay_bwd_impl` (K13d,
+// exact mode). The TPU version replayed (K, C) rounds of count-sorted
+// chunks through flat round programs; here one thread replays one ray's
+// run of the flat tape (tape_record.cuh): samples offsets[i] to
+// offsets[i + 1], each a streamed (row, dt) pair.
+//
+// Per sample the radiometry is K2's (render_fwd.cuh) operation for
+// operation, and the backward's K3's single pass (render_bwd.cuh): rows
+// outside [0, M) are empty space; the forward composites where sigma >
+// sigma_thresh (att = exp((-dt * delta_scale) * sigma), weight = L * (1 -
+// att), colors as K2), stops where stop_thresh > 0 and L <= stop_thresh
+// (then colors scale by 1 / (1 - L) and no background is added), adds each
+// weight into its recorded tree cell with weights, and finalizes as K2. A
+// ray with no samples (a miss) gives bg + 0 and alpha 0, K2's miss row bit
+// for bit. The backward (exact options only; the wrapper takes K3 for
+// thresholded ones) starts acc at sum_c out_c g_c and L_ray = 1 - alpha
+// from the saved forward output, and per sample with sigma > 0 adds the
+// coefficient rows and the sigma column with float atomicAdd.
+//
+// A data-indirect tape holds tree cells; its row is table[cell], the
+// frame's flat index table (JAX `_resolve_cells`): a cell outside the
+// table, a negative entry or one >= M is empty. The choice is made once per
+// ray (table null or not), and each branch inlines its own sample loop, so
+// a direct tape pays no per-sample test: on an H100 a test per sample cost
+// this kernel 7.5-8.2% (tools/tape_resolve_ab.py), at the price of compile
+// time.
+//
+// Bound on an H100: the replay has no descent. A sample is two streamed
+// loads (row 4 bytes, dt 4 bytes; a neighbouring thread's run lies
+// elsewhere, so a warp's loads are not coalesced) and, where the row is
+// occupied, one feature-row load (28 floats at SH9) and K2's few dozen
+// flops: latency-bound on the row loads, with no dependent chain between
+// samples but the compositing. The design answer is K2's: a ray per
+// thread, basis and color sums in registers, format, rotation and the
+// basis capacity as template parameters, small blocks. The backward adds
+// K3's atomics.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kMaxColor = 16;
+
+struct Params {
+  const int32_t* offsets;  // (B + 1,)
+  const int32_t* idx;      // rows, or tree cells on a data-indirect tape
+  const float* dt;
+  const int32_t* cell;     // tree cells (weights)
+  const float* dscale;
+  const float* vdirs;
+  int B;
+  const int32_t* table;    // data-indirect: the flat index table, else null
+  int n_table;
+  svox::Pool features;
+  int M;
+  int D;
+  const float* tmats;
+  const float* extra;
+  int ld_extra;
+  int basis_dim;
+  int min_comp;
+  int max_comp;
+  int n_color;
+  float bg;
+  float sigma_thresh;
+  float stop_thresh;
+  float* out;
+  float* waccum;
+  const float* grad_out;
+  const float* out_res;
+  float* grad;
+};
+
+// The row of sample k: the recorded row, or on a data-indirect tape the
+// table's entry for the recorded cell (-1, empty, outside the table).
+template <bool kIndirect>
+__device__ __forceinline__ int32_t sample_row(const Params& p, int32_t k) {
+  const int32_t v = __ldg(p.idx + k);
+  if constexpr (kIndirect) {
+    return static_cast<uint32_t>(v) < static_cast<uint32_t>(p.n_table) ? __ldg(p.table + v) : -1;
+  } else {
+    return v;
+  }
+}
+
+#if SVOX_TAPE_PASS == 0
+
+// K13c on ray i. FMT: svox::kRGBA / kSH / kSG / kASG; BD: basis capacity
+// (0 for RGBA); kRot: per-voxel rotation. With p.waccum, each compositing
+// sample adds its weight at its recorded cell: a run-time test, since the
+// cell is read from its stream only there (K2 makes weights a template
+// parameter to keep the leaf id out of the plain march's live registers).
+template <int FMT, int BD, bool kRot, bool kIndirect>
+__device__ __forceinline__ void replay_fwd(const Params& p, int i) {
+  constexpr int kB = FMT == svox::kRGBA ? 1 : BD;
+  const int nc = p.n_color;
+  const int nb = FMT == svox::kSH ? BD : p.basis_dim;
+  float* out = p.out + static_cast<size_t>(i) * (nc + 1);
+
+  const float vx = p.vdirs[3 * i + 0];
+  const float vy = p.vdirs[3 * i + 1];
+  const float vz = p.vdirs[3 * i + 2];
+  float basis[kB];
+  if constexpr (FMT != svox::kRGBA && !kRot) {
+    svox::eval_basis<FMT, BD>(vx, vy, vz, p.extra, p.ld_extra, nb, p.min_comp,
+                              p.max_comp, basis);
+  }
+
+  float acc[kMaxColor];
+#pragma unroll
+  for (int c = 0; c < kMaxColor; ++c) acc[c] = 0.f;
+  const float ds = p.dscale[i];
+  float L = 1.f;
+  bool stopped = false;
+  const int32_t end = p.offsets[i + 1];
+  for (int32_t k = p.offsets[i]; k < end; ++k) {
+    const int32_t idx = sample_row<kIndirect>(p, k);
+    if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
+      const auto row = p.features + static_cast<size_t>(idx) * p.D;
+      const float sigma = svox::ld(row + p.D - 1);
+      if (sigma > p.sigma_thresh) {
+        const float dt = __ldg(p.dt + k);
+        const float att = expf((-dt * ds) * sigma);
+        const float weight = L * (1.f - att);
+        if constexpr (FMT != svox::kRGBA && kRot) {
+          const float* m = p.tmats + static_cast<size_t>(idx) * 16;
+          const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
+          const float ry = (m[4] * vx + m[5] * vy) + m[6] * vz;
+          const float rz = (m[8] * vx + m[9] * vy) + m[10] * vz;
+          svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb,
+                                    p.min_comp, p.max_comp, basis);
+        }
+#pragma unroll
+        for (int c = 0; c < kMaxColor; ++c) {
+          if (c < nc) {
+            float s;
+            if constexpr (FMT == svox::kRGBA) {
+              s = svox::ld(row + c);
+            } else {
+              const auto coef = row + c * nb;
+              s = basis[0] * svox::ld(coef);
+#pragma unroll
+              for (int k2 = 1; k2 < kB; ++k2) {
+                if (k2 < nb) s = s + basis[k2] * svox::ld(coef + k2);
+              }
+            }
+            acc[c] = acc[c] + weight * svox::sigmoid(s);
+          }
+        }
+        if (p.waccum != nullptr) atomicAdd(p.waccum + __ldg(p.cell + k), weight);
+        L = L * att;
+        if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
+          stopped = true;
+          break;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int c = 0; c < kMaxColor; ++c) {
+    if (c < nc) {
+      if (stopped) {
+        out[c] = acc[c] * (1.f / (1.f - L));
+      } else {
+        out[c] = acc[c] + L * p.bg;
+      }
+    }
+  }
+  out[nc] = 1.f - L;
+}
+
+template <int FMT, int BD, bool kRot>
+__global__ void __launch_bounds__(kThreads) replay_fwd_kernel(const Params p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.B) return;
+  if (p.table != nullptr) {
+    replay_fwd<FMT, BD, kRot, true>(p, i);
+  } else {
+    replay_fwd<FMT, BD, kRot, false>(p, i);
+  }
+}
+
+template <int FMT, int BD>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  const dim3 grid((p.B + kThreads - 1) / kThreads);
+  if constexpr (FMT != svox::kRGBA) {
+    if (p.tmats != nullptr) {
+      replay_fwd_kernel<FMT, BD, true><<<grid, kThreads, 0, stream>>>(p);
+      return cudaGetLastError();
+    }
+  }
+  replay_fwd_kernel<FMT, BD, false><<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+#else  // SVOX_TAPE_PASS == 1
+
+// K13d on ray i, exact options: K3's single pass over the tape's samples.
+template <int FMT, int BD, bool kRot, bool kIndirect>
+__device__ __forceinline__ void replay_bwd(const Params& p, int i) {
+  constexpr int kB = FMT == svox::kRGBA ? 1 : BD;
+  const int nc = p.n_color;
+  const int nb = FMT == svox::kSH ? BD : p.basis_dim;
+  const float vx = p.vdirs[3 * i + 0];
+  const float vy = p.vdirs[3 * i + 1];
+  const float vz = p.vdirs[3 * i + 2];
+  float basis[kB];
+  if constexpr (FMT != svox::kRGBA && !kRot) {
+    svox::eval_basis<FMT, BD>(vx, vy, vz, p.extra, p.ld_extra, nb, p.min_comp, p.max_comp,
+                              basis);
+  }
+  const float* go = p.grad_out + static_cast<size_t>(i) * (nc + 1);
+  float g[kMaxColor];
+#pragma unroll
+  for (int c = 0; c < kMaxColor; ++c) g[c] = c < nc ? go[c] : 0.f;
+  const float g_alpha = go[nc];
+  // Sums over colors run in channel order, as K3 sums them.
+  const float* o = p.out_res + static_cast<size_t>(i) * (nc + 1);
+  float acc = o[0] * g[0];
+#pragma unroll
+  for (int c = 1; c < kMaxColor; ++c) {
+    if (c < nc) acc = acc + o[c] * g[c];
+  }
+  const float L_ray = 1.f - o[nc];
+  const float ds = p.dscale[i];
+  float L = 1.f;
+  const int32_t end = p.offsets[i + 1];
+  for (int32_t k = p.offsets[i]; k < end; ++k) {
+    const int32_t idx = sample_row<kIndirect>(p, k);
+    if (static_cast<uint32_t>(idx) >= static_cast<uint32_t>(p.M)) continue;
+    const auto row = p.features + static_cast<size_t>(idx) * p.D;
+    float* grow = p.grad + static_cast<size_t>(idx) * p.D;
+    const float sigma = svox::ld(row + p.D - 1);
+    if (!(sigma > 0.f)) continue;
+    const float dt = __ldg(p.dt + k);
+    const float att = expf((-dt * ds) * sigma);
+    const float weight = L * (1.f - att);
+    if constexpr (FMT != svox::kRGBA && kRot) {
+      const float* m = p.tmats + static_cast<size_t>(idx) * 16;
+      const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
+      const float ry = (m[4] * vx + m[5] * vy) + m[6] * vz;
+      const float rz = (m[8] * vx + m[9] * vy) + m[10] * vz;
+      svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb, p.min_comp, p.max_comp,
+                                basis);
+    }
+    float total_color = 0.f;
+#pragma unroll
+    for (int c = 0; c < kMaxColor; ++c) {
+      if (c < nc) {
+        float s;
+        if constexpr (FMT == svox::kRGBA) {
+          s = svox::sigmoid(svox::ld(row + c));
+        } else {
+          const auto coef = row + c * nb;
+          float z = basis[0] * svox::ld(coef);
+#pragma unroll
+          for (int k2 = 1; k2 < kB; ++k2) {
+            if (k2 < nb) z = z + basis[k2] * svox::ld(coef + k2);
+          }
+          s = svox::sigmoid(z);
+        }
+        total_color = total_color + s * g[c];
+        const float a = (weight * (s * (1.f - s))) * g[c];
+        if constexpr (FMT == svox::kRGBA) {
+          atomicAdd(grow + c, a);
+        } else {
+#pragma unroll
+          for (int k2 = 0; k2 < kB; ++k2) {
+            if (k2 < nb) atomicAdd(grow + c * nb + k2, a * basis[k2]);
+          }
+        }
+      }
+    }
+    const float L_after = L * att;
+    const float acc_after = acc - weight * total_color;
+    const float dts = dt * ds;
+    atomicAdd(grow + p.D - 1, dts * (total_color * L_after - acc_after) + dts * (g_alpha * L_ray));
+    acc = acc_after;
+    L = L_after;
+  }
+}
+
+template <int FMT, int BD, bool kRot>
+__global__ void __launch_bounds__(kThreads) replay_bwd_kernel(const Params p) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.B) return;
+  if (p.table != nullptr) {
+    replay_bwd<FMT, BD, kRot, true>(p, i);
+  } else {
+    replay_bwd<FMT, BD, kRot, false>(p, i);
+  }
+}
+
+template <int FMT, int BD>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  const dim3 grid((p.B + kThreads - 1) / kThreads);
+  if constexpr (FMT != svox::kRGBA) {
+    if (p.tmats != nullptr) {
+      replay_bwd_kernel<FMT, BD, true><<<grid, kThreads, 0, stream>>>(p);
+      return cudaGetLastError();
+    }
+  }
+  replay_bwd_kernel<FMT, BD, false><<<grid, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+#endif  // SVOX_TAPE_PASS
+
+// Basis instances hold 1, 4, 9, 16 or 25 terms (svox::basis_capacity); the
+// bf16 and int8 pools run SG and ASG of every size on the 25-term instance,
+// as K2 and K3 do.
+template <int FMT>
+cudaError_t launch_basis(const Params& p, cudaStream_t stream) {
+  if constexpr (FMT != svox::kSH && !svox::kFloatPool) {
+    if (svox::basis_capacity(FMT, p.basis_dim) == 0) return cudaErrorInvalidValue;
+    return launch<FMT, svox::kMaxBasis>(p, stream);
+  } else {
+    switch (svox::basis_capacity(FMT, p.basis_dim)) {
+      case 1: return launch<FMT, 1>(p, stream);
+      case 4: return launch<FMT, 4>(p, stream);
+      case 9: return launch<FMT, 9>(p, stream);
+      case 16: return launch<FMT, 16>(p, stream);
+      case 25: return launch<FMT, 25>(p, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+}
+
+cudaError_t launch_format(const Params& p, int format, cudaStream_t stream) {
+  switch (format) {
+    case svox::kRGBA: return launch<svox::kRGBA, 0>(p, stream);
+    case svox::kSH: return launch_basis<svox::kSH>(p, stream);
+    case svox::kSG: return launch_basis<svox::kSG>(p, stream);
+    case svox::kASG: return launch_basis<svox::kASG>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+Params make_params(const int32_t* offsets, const int32_t* idx, const float* dt,
+                   const float* dscale, const float* vdirs, int B, const int32_t* table,
+                   int n_table, const void* features, const float* scale, const float* zero, int M,
+                   int D, const float* tmats, const float* extra, int ld_extra, int basis_dim,
+                   int min_comp, int max_comp, int n_color) {
+  Params p{};
+  p.offsets = offsets;
+  p.idx = idx;
+  p.dt = dt;
+  p.dscale = dscale;
+  p.vdirs = vdirs;
+  p.B = B;
+  p.table = table;
+  p.n_table = n_table;
+  p.features = svox::make_pool<svox::Pool>(features, scale, zero);
+  p.M = M;
+  p.D = D;
+  p.tmats = tmats;
+  p.extra = extra;
+  p.ld_extra = ld_extra;
+  p.basis_dim = basis_dim;
+  p.min_comp = min_comp;
+  p.max_comp = max_comp;
+  p.n_color = n_color;
+  return p;
+}
+
+}  // namespace
+
+#if SVOX_TAPE_PASS == 0
+
+// K13c. The tape: offsets (B + 1,) int32, idx (offsets[B],) int32 rows (or
+// tree cells with a table), dt (offsets[B],) f32, cell (offsets[B],) int32
+// tree cells or null (needed with waccum), dscale (B,) f32, vdirs (B, 3)
+// f32; table (n_table,) int32 the flat index table of a data-indirect tape,
+// else null; features (M, D) of the source's pool type, with scale and zero
+// (D,) f32 for an int8 pool, else null; tmats (M, 4, 4) f32 or null; extra
+// (basis_dim, ld_extra) f32 for SG/ASG, else null; out (B, n_color + 1)
+// f32; waccum (n_cells,) f32 or null. format: 0 RGBA, 1 SH, 2 SG, 3 ASG.
+// All pointers are device pointers. Returns a cudaError_t.
+extern "C" int SVOX_NAME(svox_tape_replay_fwd)(
+    const int32_t* offsets, const int32_t* idx, const float* dt, const int32_t* cell,
+    const float* dscale, const float* vdirs, int B, const int32_t* table, int n_table,
+    const void* features, const float* scale, const float* zero, int M, int D,
+    const float* tmats, int format, const float* extra, int ld_extra, int basis_dim,
+    int min_comp, int max_comp, int n_color, float bg, float sigma_thresh, float stop_thresh,
+    float* out, float* waccum, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (B <= 0) return cudaSuccess;
+  if (n_color < 0 || n_color > kMaxColor) return cudaErrorInvalidValue;
+  if (waccum != nullptr && cell == nullptr) return cudaErrorInvalidValue;
+  Params p = make_params(offsets, idx, dt, dscale, vdirs, B, table, n_table, features, scale,
+                         zero, M, D, tmats, extra, ld_extra, basis_dim, min_comp, max_comp,
+                         n_color);
+  p.cell = cell;
+  p.bg = bg;
+  p.sigma_thresh = sigma_thresh;
+  p.stop_thresh = stop_thresh;
+  p.out = out;
+  p.waccum = waccum;
+  return launch_format(p, format, stream);
+}
+
+#else
+
+// K13d. The tape and pool as svox_tape_replay_fwd (no cells); grad_out and
+// out_res (B, n_color + 1) f32, the output gradient and the forward output
+// (exact options); grad (M, D) f32 whatever the pool's type, zeroed by the
+// caller. All pointers are device pointers. Returns a cudaError_t.
+extern "C" int SVOX_NAME(svox_tape_replay_bwd)(
+    const int32_t* offsets, const int32_t* idx, const float* dt, const float* dscale,
+    const float* vdirs, int B, const int32_t* table, int n_table, const void* features,
+    const float* scale, const float* zero, int M, int D, const float* tmats, int format,
+    const float* extra, int ld_extra, int basis_dim, int min_comp, int max_comp, int n_color,
+    const float* grad_out, const float* out_res, float* grad, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (B <= 0 || M <= 0) return cudaSuccess;
+  if (n_color < 0 || n_color > kMaxColor) return cudaErrorInvalidValue;
+  Params p = make_params(offsets, idx, dt, dscale, vdirs, B, table, n_table, features, scale,
+                         zero, M, D, tmats, extra, ld_extra, basis_dim, min_comp, max_comp,
+                         n_color);
+  p.grad_out = grad_out;
+  p.out_res = out_res;
+  p.grad = grad;
+  return launch_format(p, format, stream);
+}
+
+#endif

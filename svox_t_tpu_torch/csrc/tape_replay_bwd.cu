@@ -1,0 +1,4 @@
+// The tape_replay.cuh backward (K13d) on a float32 pool.
+#define SVOX_TAPE_PASS 1
+#define SVOX_SUFFIX 
+#include "tape_replay.cuh"

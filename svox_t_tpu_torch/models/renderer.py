@@ -13,6 +13,8 @@ the aux passes:
   render_persp_frames(features_frames, c2w, width, height, fx, fy, ...)
   render_dynamic_frames(features, tgt_poses, src_pose, points,
                         skinning_weights, joint_index, rays | c2w, ...)
+  record_rays(rays, features | n_features, ...) / render_tape(tape, features)
+  record_persp(c2w, width, height, fx, ...) / render_persp_tape(features, c2w, ...)
 
 `forward`, `render_persp`, `opacity_render` and the three frame loops
 are differentiable with respect to ``features``, `motion_feature_render`
@@ -45,6 +47,16 @@ own type, its gradient bf16 too), or an int8 `QuantizedFeatures`
 no gradient); the frame loops take float32 or bf16 stacks. Image
 renders march rays in pixel order: the JAX package's tile and cost orders
 only schedule work and do not change the image.
+
+Recorded sample tapes (`ops/tape.py`): `record_rays` records the samples
+of a ray batch once per (rays x structure x geometry), and `render_tape`
+replays any feature pool over them with no structure walk, equal to
+`forward` bit for bit (compacted or not), differentiable with respect to
+the pool and adding weights inside ``tree.accumulate_weights()``.
+`record_persp` records a camera's rays in the pixel order `render_persp`
+renders and caches the tape on (camera, size, the tree's layout and
+occupancy versions, geometry, compaction, record_t); `render_persp_tape`
+is `render_persp` through that cache.
 """
 
 from __future__ import annotations
@@ -56,6 +68,7 @@ from ..ops import bake as bake_ops
 from ..ops import query as query_ops
 from ..ops import render as render_ops
 from ..ops import render_aux as aux_ops
+from ..ops import tape as tape_ops
 from ..ops import warp as warp_ops
 from ..utils.dataformat import DataFormat
 from ..utils.spec import NDCConfig, Rays, RenderOptions
@@ -132,6 +145,9 @@ class VolumeRenderer(nn.Module):
             self.data_format = DataFormat("" if ddim == 4 else f"SH{(ddim - 1) // 3}")
         if self.max_comp < 0:
             self.max_comp += self.data_format.basis_dim
+        # Recorded camera tapes (record_persp), oldest first.
+        self._tape_cache = {}
+        self._tape_cache_max = 4
 
     def _render(self, spec, features, origins, dirs, vdirs, opt):
         """Render, adding per-leaf weights into an active accumulator."""
@@ -418,6 +434,103 @@ class VolumeRenderer(nn.Module):
         if with_depth:
             return _finish(colors), _finish(depths)
         return _finish(colors)
+
+    # --- recorded sample tapes (ops/tape.py) --------------------------
+
+    def record_rays(self, rays: Rays, features=None, n_features=None,
+                    fast=False, compact=True, record_cells=True,
+                    chunk_size=0, group_size=1, spec=None, opt=None,
+                    indirect=False, record_t=False):
+        """Record a `RayTape` for this ray batch against the renderer's
+        structure (`ops/tape.py` `record_tape`); `render_tape` then replays
+        only the radiometry. Pass ``features`` (or ``n_features``): the
+        pool's row count is the occupied/empty split the tape is compacted
+        against. ``spec`` / ``opt`` override the recording structure and
+        options; ``indirect=True`` records a cell-indexed tape.
+        ``chunk_size`` and ``group_size`` schedule the JAX package's TPU
+        layout; they are accepted and ignored."""
+        del chunk_size, group_size
+        if n_features is None:
+            if features is None:
+                raise ValueError(
+                    "pass features or n_features (the feature-pool row "
+                    "count defines the occupied/empty split)"
+                )
+            n_features = features.shape[0]
+        if opt is None:
+            opt = self._get_options(fast)
+        if spec is None:
+            spec = self._render_spec()
+        return tape_ops.record_tape(
+            spec, int(n_features), rays.origins, rays.dirs, rays.viewdirs, opt,
+            compact=compact, record_cells=record_cells, indirect=indirect, record_t=record_t,
+        )
+
+    def render_tape(self, tape, features, fast=False,
+                    transformation_matrices=None, unsort=True):
+        """Render by replaying a recorded tape; differentiable with respect
+        to ``features`` (exact mode: the tape backward; thresholded modes
+        take the backward march). Equal to `forward` on the recorded rays
+        bit for bit. Inside ``tree.accumulate_weights()`` it adds its
+        per-leaf weights. ``unsort`` is accepted for the JAX API: rows come
+        back in ray order either way."""
+        spec = self._render_spec(transformation_matrices)
+        opt = self._get_options(fast)
+        features = self._pool(features)
+        if self.tree._weight_accum is None:
+            return tape_ops.replay_render(tape, features, opt, spec, unsort=unsort)
+        out, waccum = tape_ops.replay_render_weighted(tape, features, opt, spec, unsort=unsort)
+        self.tree._weight_accum.add_(waccum.reshape(self.tree._weight_accum.shape))
+        return out
+
+    def record_persp(self, c2w, width=800, height=800, fx=1111.111,
+                     fy=None, fast=False, features=None, n_features=None,
+                     compact=True, group_size=0, record_t=False):
+        """Record (and cache) a tape of a perspective camera's rays, in the
+        pixel order `render_persp` renders. Cached FIFO on (camera, size,
+        the tree's layout and occupancy versions, geometry, compaction,
+        record_t); a cached ``record_t=True`` tape also serves
+        ``record_t=False`` requests. ``group_size`` is accepted for the
+        JAX API and ignored."""
+        del group_size
+        if fy is None:
+            fy = fx
+        opt = self._get_options(fast)
+        spec = self._render_spec()
+        c2w_key = torch.as_tensor(c2w, dtype=torch.float32).cpu().numpy().tobytes()
+
+        def mk_key(rt):
+            return ("tape", c2w_key, int(width), int(height), float(fx), float(fy),
+                    self.tree._ver, self.tree._occ_ver, tape_ops._geom_key(spec, opt),
+                    bool(compact), rt)
+
+        key = mk_key(bool(record_t))
+        hit = self._tape_cache.get(key)
+        if hit is None and not record_t:
+            hit = self._tape_cache.get(mk_key(True))
+        if hit is not None:
+            return hit
+        rays = Rays(*self._camera_rays(c2w, width, height, fx, fy, opt))
+        tape = self.record_rays(rays, features=features, n_features=n_features, compact=compact,
+                                spec=spec, opt=opt, record_t=bool(record_t))
+        while len(self._tape_cache) >= self._tape_cache_max:
+            self._tape_cache.pop(next(iter(self._tape_cache)))
+        self._tape_cache[key] = tape
+        return tape
+
+    def render_persp_tape(self, features, c2w, width=800, height=800,
+                          fx=1111.111, fy=None, fast=False, compact=True,
+                          group_size=0):
+        """`render_persp` through a cached recorded tape: the first call
+        per (camera, structure, geometry) records, later calls replay only
+        the radiometry. Differentiable with respect to ``features``.
+
+        :return: (height, width, n_color + 1)
+        """
+        tape = self.record_persp(c2w, width, height, fx, fy, fast=fast, features=features,
+                                 compact=compact, group_size=group_size)
+        out = self.render_tape(tape, features, fast=fast)
+        return out.reshape(int(height), int(width), -1)
 
     def _get_options(self, fast=False) -> RenderOptions:
         """Build the RenderOptions of a call."""

@@ -867,6 +867,19 @@ def _kernel_args(spec, features, origins, dirs, vdirs,
     arguments of `_MARCH_ARGS`, n_color). The checks on formats and sizes
     come first, then devices, types and layouts."""
     _check_supported(spec, features, origins, dirs, vdirs, opt)
+    n_color = check_format(spec, features, opt)
+    _check_kernel_tensors(spec, features, (origins, dirs, vdirs), name)
+    args = (
+        _structure_arg(spec, opt), origins.data_ptr(), dirs.data_ptr(), vdirs.data_ptr(),
+        origins.shape[0], spec.offset.data_ptr(), spec.scaling.data_ptr(),
+        *radiometry_args(spec, features, opt, n_color), opt.step_size, opt.background_brightness,
+    )
+    return args, n_color
+
+
+def check_format(spec, features, opt: RenderOptions) -> int:
+    """Check the format and basis of a kernel's pool against the kernels'
+    capacities (SG/ASG need ``spec.extra_data``) and return n_color."""
     fmt, bd = opt.format, opt.basis_dim
     if fmt == FORMAT_SH and bd not in SH_DIM_TO_DEG:
         raise ValueError(f"SH basis_dim must be one of {sorted(SH_DIM_TO_DEG)}")
@@ -878,14 +891,21 @@ def _kernel_args(spec, features, origins, dirs, vdirs,
                  f"SG/ASG need extra_data of at least ({bd}, {_EXTRA_WIDTH[fmt]})")
     elif fmt not in (FORMAT_RGBA, FORMAT_SH):
         raise ValueError(f"unknown format {fmt}")
-    B = origins.shape[0]
-    M, D = features.shape
-    n_color = get_out_data_dim(fmt, bd, D) - 1
+    n_color = get_out_data_dim(fmt, bd, features.shape[1]) - 1
     if n_color > KERNEL_MAX_COLORS:
         raise NotImplementedError(
             f"the march kernels take at most {KERNEL_MAX_COLORS} color channels, got {n_color}"
         )
-    _check_kernel_tensors(spec, features, (origins, dirs, vdirs), name)
+    return n_color
+
+
+def radiometry_args(spec, features, opt: RenderOptions, n_color: int) -> tuple:
+    """The pool and radiometry arguments a march or tape kernel shares,
+    features to n_color (`_MARCH_ARGS`), after checking the rotation
+    matrices and SG/ASG lobes of ``spec`` (which needs only
+    ``transformation_matrices`` and ``extra_data``) on the pool's device."""
+    fmt, bd = opt.format, opt.basis_dim
+    M, D = features.shape
     dev = features.device
     tm = spec.transformation_matrices if fmt != FORMAT_RGBA else None
     if tm is not None:
@@ -897,15 +917,11 @@ def _kernel_args(spec, features, origins, dirs, vdirs,
     if ex is not None:
         _require(ex.is_cuda and ex.device == dev and ex.is_contiguous()
                  and ex.dtype == torch.float32, "extra_data must be contiguous float32 on the features' device")
-    args = (
-        _structure_arg(spec, opt), origins.data_ptr(), dirs.data_ptr(), vdirs.data_ptr(), B,
-        spec.offset.data_ptr(), spec.scaling.data_ptr(), *pool_args(features), M, D,
-        None if tm is None else tm.data_ptr(), fmt,
+    return (
+        *pool_args(features), M, D, None if tm is None else tm.data_ptr(), fmt,
         None if ex is None else ex.data_ptr(), 0 if ex is None else ex.shape[1],
         0 if fmt == FORMAT_RGBA else bd, opt.min_comp, opt.max_comp, n_color,
-        opt.step_size, opt.background_brightness,
     )
-    return args, n_color
 
 
 def _stream(dev: torch.device):

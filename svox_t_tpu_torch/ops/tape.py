@@ -1,0 +1,752 @@
+"""Recorded sample tapes (K13): the counterpart of `svox_t_tpu/ops/tape.py`
+for the static tape path.
+
+A ray's samples (row, step) depend only on the ray, the tree's structure
+and the march's geometry options, not on the feature values. A tape
+records them once per (rays x structure x geometry); a replay then
+composites any feature pool over them with no structure walk: the
+serving path for a fixed camera and animated features, and a training
+step's forward and backward.
+
+The layout is the GPU's, not the TPU's: rays stay in input order, and ray
+i's samples are one run of a flat buffer, ``offsets[i]`` to
+``offsets[i + 1]`` (``offsets`` the cumulative sum of ``counts``). The
+JAX package's count-sorted chunks, round programs, zero-chunk prefix and
+block grouping schedule a TPU and have no counterpart here; ``inv_pos`` is
+the identity, and `record_tape` accepts ``chunk_size``,
+``prog_round_size`` and ``group_size`` and ignores them.
+
+  * `record_tape`: K13a counts each ray's samples (occupied, total) by
+    walking it as the forward march K2 walks it, every step taken; the
+    offsets are their cumulative sum; K13b walks again and writes each
+    ray's run: every sample, or with ``compact`` only the occupied ones
+    (rows in [0, n_features)), with its row and step, optionally its tree
+    cell (weights; on the bake through ``src_map``) and its march
+    parameter t (``record_t``). The recorded t-chain is the march's.
+  * `replay_render`, `replay_render_weighted`: K13c composites the runs
+    with K2's radiometry, sample for sample (exact or thresholded, early
+    stop, rotations, SG/ASG, float32, bf16 and int8 pools, weights into
+    the recorded cells), so a replay equals the march bit for bit,
+    compacted or not: compaction drops only samples the march skips.
+    Differentiable with respect to the pool: in exact mode K13d runs the
+    backward march K3's single pass over the runs; thresholded modes take
+    K3 itself over the tape's rays (which needs ``spec``).
+  * Data-indirect tapes (``indirect=True``) record tree cells instead of
+    rows and survive `construct_tree` re-pointing: a replay resolves each
+    sample's row through the frame's index table (`pack_index_table`; a
+    negative entry or one >= M is empty). Record them against the union
+    occupancy of the frames they serve, in exact geometry.
+
+Every op dispatches on the device of its tensors: on CUDA it launches its
+kernel (`csrc/tape_record.cu`, `csrc/tape_replay.cuh`) or raises; on the
+CPU it runs its plain PyTorch version, which follows the kernel operation
+for operation and the plain march's sample chain (`ops/render.py`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from ctypes import c_float, c_int, c_void_p
+from typing import Optional
+
+import torch
+
+from .._build import Kernel
+from ..utils.spec import DATA_SENTINEL, FORMAT_RGBA, RenderOptions, get_out_data_dim
+from .bake import BakedTree, StructureDesc, check_structure
+from .render import (POOL_SUFFIX, QuantizedFeatures, _Basis, _check_quantized, _n_tree_cells,
+                     _pool_tensors, _ray_setup, _require, _sample_colors, _sample_leaf,
+                     _scatter_rows, _stream, _structure_arg, _sum_cols, _tree_cells,
+                     check_format, effective_skip_base, gather_rows, pool_dtype, pool_kind,
+                     radiometry_args, volume_render_backward)
+
+__all__ = ["RayTape", "record_tape", "replay_render", "replay_render_weighted",
+           "pack_index_table", "unsort_output"]
+
+_WALK_ARGS = [
+    ctypes.POINTER(StructureDesc),               # tree or bake
+    c_void_p, c_void_p, c_int,                   # origins, dirs, B
+    c_void_p, c_void_p,                          # offset, scaling
+    c_int, c_float, c_int,                       # n_rows, step, max_steps
+]
+_COUNT_ARGS = _WALK_ARGS + [c_void_p, c_void_p, c_int, c_void_p]  # n_occ, n_tot, device, stream
+_RECORD_ARGS = _WALK_ARGS + [c_void_p, c_int,                   # offsets, compact
+                             c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,  # idx, dt, cell, t, dscale
+                             c_int, c_void_p]
+# The pool and radiometry arguments of a replay kernel (`radiometry_args`).
+_POOL_ARGS = [c_void_p, c_void_p, c_void_p, c_int, c_int,   # features, scale, zero, M, D
+              c_void_p, c_int, c_void_p, c_int,             # tmats, format, extra, ld_extra
+              c_int, c_int, c_int, c_int]                   # basis_dim, min/max_comp, n_color
+_REPLAY_FWD_ARGS = ([c_void_p, c_void_p, c_void_p, c_void_p,  # offsets, idx, dt, cell
+                     c_void_p, c_void_p, c_int,               # dscale, vdirs, B
+                     c_void_p, c_int] + _POOL_ARGS            # table, n_table
+                    + [c_float, c_float, c_float,             # bg, sigma/stop thresh
+                       c_void_p, c_void_p, c_int, c_void_p])  # out, waccum, device, stream
+_REPLAY_BWD_ARGS = ([c_void_p, c_void_p, c_void_p,            # offsets, idx, dt
+                     c_void_p, c_void_p, c_int,               # dscale, vdirs, B
+                     c_void_p, c_int] + _POOL_ARGS            # table, n_table
+                    + [c_void_p, c_void_p, c_void_p,          # grad_out, out_res, grad
+                       c_int, c_void_p])
+
+TAPE_COUNT = Kernel("svox_tape_count", _COUNT_ARGS)
+TAPE_COUNT_BAKED = Kernel("svox_tape_count_baked", _COUNT_ARGS)
+TAPE_RECORD = Kernel("svox_tape_record", _RECORD_ARGS)
+TAPE_RECORD_BAKED = Kernel("svox_tape_record_baked", _RECORD_ARGS)
+# K13c has float32, bf16 and int8 instances; K13d float32 and bf16 (a
+# quantized pool takes no gradient).
+_REPLAY_FWD = {k: Kernel(f"svox_tape_replay_fwd{POOL_SUFFIX[k]}", _REPLAY_FWD_ARGS)
+               for k in ("f32", "bf16", "i8")}
+_REPLAY_BWD = {k: Kernel(f"svox_tape_replay_bwd{POOL_SUFFIX[k]}", _REPLAY_BWD_ARGS)
+               for k in ("f32", "bf16")}
+TAPE_REPLAY_FWD, TAPE_REPLAY_FWD_BF16, TAPE_REPLAY_FWD_I8 = _REPLAY_FWD.values()
+TAPE_REPLAY_BWD, TAPE_REPLAY_BWD_BF16 = _REPLAY_BWD.values()
+
+
+class _NoSpec:
+    """Stand-in when no spec is supplied at replay: no per-voxel
+    transformation matrices, no SG/ASG extra data."""
+
+    transformation_matrices = None
+    extra_data = None
+
+
+_NOSPEC = _NoSpec()
+
+
+def _geom_key(spec, opt: RenderOptions) -> tuple:
+    """The options that determine sample POSITIONS (the recorded
+    t-chain). Tapes are valid only under the exact geometry they were
+    recorded with; everything else (thresholds, background, basis
+    window) is replay-time radiometry."""
+    return (
+        float(opt.step_size), int(opt.max_steps), int(opt.box_advance),
+        int(effective_skip_base(spec, opt)), int(opt.interp),
+    )
+
+
+def _check_geom(tape, spec, opt: RenderOptions):
+    if not tape.geom:
+        return
+    if spec is not None:
+        key = _geom_key(spec, opt)
+    else:
+        # No spec at replay: the skip-base slot cannot be recomputed;
+        # check the opt-derived geometry only.
+        key = (float(opt.step_size), int(opt.max_steps),
+               int(opt.box_advance), tape.geom[3], int(opt.interp))
+    if key != tape.geom:
+        raise ValueError(
+            f"tape was recorded under geometry {tape.geom} but replay "
+            f"options give {key} — sample positions would not match; "
+            "re-record the tape"
+        )
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RayTape:
+    """A recorded march (JAX `RayTape`, in the GPU's layout): ray i's
+    samples are entries ``offsets[i]`` to ``offsets[i + 1]`` of the flat
+    streams, rays in input order.
+
+    Flat streams, one entry per sample:
+      idx:  int32 feature row (tree cell on a data-indirect tape); rows
+            outside [0, n_features) are empty space, as in the march.
+      dt:   float32 step length (the recorded t-chain; never recomputed).
+      cell: int32 tree cell (src_map-resolved on a bake), for weight
+            accumulation, or None.
+      tval: float32 march parameter t at the sample (``record_t``), or None.
+    Per ray: offsets (B + 1,) int32, counts (B,) int32, origins, dirs,
+    vdirs (B, 3) float32 (the basis and the thresholded backward), dscale
+    (B,) float32 delta_scale.
+
+    Meta: n_rays, S (the largest count), compact, n_features (the pool's
+    row count at record time), n_cells (the weight table's size), geom
+    (`_geom_key`), indirect.
+    """
+
+    idx: torch.Tensor
+    dt: torch.Tensor
+    cell: Optional[torch.Tensor]
+    offsets: torch.Tensor
+    counts: torch.Tensor
+    origins: torch.Tensor
+    dirs: torch.Tensor
+    vdirs: torch.Tensor
+    dscale: torch.Tensor
+    n_rays: int
+    S: int
+    compact: bool
+    n_features: int
+    n_cells: int
+    geom: tuple = ()
+    tval: Optional[torch.Tensor] = None
+    indirect: bool = False
+
+    @property
+    def n_samples(self) -> int:
+        """Samples recorded (the sum of counts)."""
+        return int(self.idx.shape[0])
+
+    @property
+    def inv_pos(self) -> torch.Tensor:
+        """Row of ray i in the replay's output: i (rays stay in input order)."""
+        return torch.arange(self.n_rays, dtype=torch.int32, device=self.dt.device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.dt.device
+
+
+# ---------------------------------------------------------------------------
+# Recording (K13a, K13b)
+
+
+def _walk_plain(spec, opt: RenderOptions, rays):
+    """Every step of the plain march's sample chain (`_march_plain`), for
+    every ray: yields (active, leaf, t, dt) per step, a hit ray's first
+    sample at tmin, out at t >= tmax or max_steps samples."""
+    tmin, tmax, hit = rays[4:]
+    t, active = tmin, hit.clone()
+    for _ in range(opt.max_steps):
+        if not bool(active.any()):
+            break
+        leaf, dt = _sample_leaf(spec, opt, rays, t)
+        yield active, leaf, t, dt
+        t = torch.where(active, t + dt, t)
+        active = active & (t < tmax)
+
+
+def _occupied(rows, n_rows: int):
+    return (rows >= 0) & (rows < n_rows)
+
+
+def count_samples_plain(spec, n_rows: int, origins, dirs, opt: RenderOptions):
+    """Plain PyTorch version of K13a: per ray (occupied, total) int32
+    sample counts of the march's walk."""
+    rays = _ray_setup(spec, origins, dirs, opt)
+    n_occ = torch.zeros(origins.shape[0], dtype=torch.int32, device=origins.device)
+    n_tot = torch.zeros_like(n_occ)
+    for active, leaf, _, _ in _walk_plain(spec, opt, rays):
+        n_tot += active.to(torch.int32)
+        n_occ += (active & _occupied(leaf.data_idx, n_rows)).to(torch.int32)
+    return n_occ, n_tot
+
+
+def record_samples_plain(spec, n_rows: int, origins, dirs, opt: RenderOptions, offsets,
+                         compact: bool, want_idx=True, want_cell=True, want_t=False):
+    """Plain PyTorch version of K13b: (idx, dt, cell, tval, dscale), the
+    flat streams of every ray's run at ``offsets`` (None for a stream not
+    wanted) and the per-ray delta_scale."""
+    rays = _ray_setup(spec, origins, dirs, opt)
+    total = int(offsets[-1])
+    dev = origins.device
+    ints = lambda want: torch.zeros(total, dtype=torch.int32, device=dev) if want else None  # noqa: E731
+    idx, cell = ints(want_idx), ints(want_cell)
+    dt_out = torch.zeros(total, dtype=torch.float32, device=dev)
+    tval = torch.zeros(total, dtype=torch.float32, device=dev) if want_t else None
+    k = offsets[:-1].long()
+    end = offsets[1:].long()
+    for active, leaf, t, dt in _walk_plain(spec, opt, rays):
+        w = active & (k < end)
+        if compact:
+            w = w & _occupied(leaf.data_idx, n_rows)
+        pos = k[w]
+        if idx is not None:
+            idx[pos] = leaf.data_idx[w].to(torch.int32)
+        dt_out[pos] = dt[w]
+        if cell is not None:
+            cell[pos] = _tree_cells(spec, leaf.node_flat[w]).to(torch.int32)
+        if tval is not None:
+            tval[pos] = t[w]
+        k = k + w.long()
+    return idx, dt_out, cell, tval, rays[3]
+
+
+def _walk_args(spec, origins, dirs, opt: RenderOptions, n_rows: int, name: str):
+    """Check the count and record kernels' inputs and return their shared
+    leading arguments (`_WALK_ARGS`)."""
+    dev = origins.device
+    for t in (origins, dirs):
+        _require(t.is_cuda and t.device == dev and t.is_contiguous() and t.dtype == torch.float32,
+                 f"{name} needs contiguous float32 rays on one CUDA device")
+    check_structure(spec, dev, name)
+    _require(origins.shape[0] < 2 ** 31, "too many rays")
+    return (_structure_arg(spec, opt), origins.data_ptr(), dirs.data_ptr(), origins.shape[0],
+            spec.offset.data_ptr(), spec.scaling.data_ptr(), int(n_rows), opt.step_size,
+            opt.max_steps)
+
+
+def count_samples_cuda(spec, n_rows: int, origins, dirs, opt: RenderOptions):
+    """Launch K13a (csrc/tape_record.cu, or tape_record_baked.cu on a
+    BakedTree): per ray (occupied, total) int32 counts."""
+    args = _walk_args(spec, origins, dirs, opt, n_rows, "count_samples_cuda")
+    n_occ = torch.empty(origins.shape[0], dtype=torch.int32, device=origins.device)
+    n_tot = torch.empty_like(n_occ)
+    if origins.shape[0]:
+        kernel = TAPE_COUNT_BAKED if isinstance(spec, BakedTree) else TAPE_COUNT
+        kernel(*args, n_occ.data_ptr(), n_tot.data_ptr(), *_stream(origins.device))
+    return n_occ, n_tot
+
+
+def record_samples_cuda(spec, n_rows: int, origins, dirs, opt: RenderOptions, offsets,
+                        compact: bool, want_idx=True, want_cell=True, want_t=False):
+    """Launch K13b (csrc/tape_record.cu, or tape_record_baked.cu on a
+    BakedTree): the flat streams and dscale, as `record_samples_plain`."""
+    args = _walk_args(spec, origins, dirs, opt, n_rows, "record_samples_cuda")
+    dev = origins.device
+    B = origins.shape[0]
+    _require(offsets.is_cuda and offsets.device == dev and offsets.dtype == torch.int32
+             and offsets.is_contiguous() and tuple(offsets.shape) == (B + 1,),
+             "offsets must be contiguous (B + 1,) int32 on the rays' device")
+    total = int(offsets[-1])
+    ints = lambda want: torch.empty(total, dtype=torch.int32, device=dev) if want else None  # noqa: E731
+    idx, cell = ints(want_idx), ints(want_cell)
+    dt = torch.empty(total, dtype=torch.float32, device=dev)
+    tval = torch.empty(total, dtype=torch.float32, device=dev) if want_t else None
+    dscale = torch.empty(B, dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    if B:
+        kernel = TAPE_RECORD_BAKED if isinstance(spec, BakedTree) else TAPE_RECORD
+        kernel(*args, offsets.data_ptr(), int(bool(compact)), ptr(idx), dt.data_ptr(), ptr(cell),
+               ptr(tval), dscale.data_ptr(), *_stream(dev))
+    return idx, dt, cell, tval, dscale
+
+
+def record_tape(spec, n_features: int, origins, dirs, vdirs,
+                opt: RenderOptions, *, compact: bool = True,
+                record_cells: bool = True,
+                chunk_size: int = 0,
+                prog_round_size: int = 0,
+                group_size: int = 1,
+                indirect: bool = False,
+                record_t: bool = False) -> RayTape:
+    """Record a :class:`RayTape` for these rays against this structure
+    (a TreeSpec or a BakedTree), on the structure's device.
+
+    The tape is valid while the tree STRUCTURE and the march-geometry
+    options (step_size, max_steps, box_advance, skip boxes, cull box)
+    are unchanged; feature VALUES are free to change between replays.
+    `n_features` is the feature-pool row bound (the occupied/empty
+    split). ``chunk_size``, ``prog_round_size`` and ``group_size``
+    schedule the JAX package's TPU layout; they are accepted and ignored.
+
+    ``indirect=True`` records a data-indirect (cell-indexed) tape that
+    survives `construct_tree` re-pointing: `spec` must carry the UNION
+    occupancy over every frame the tape will serve, and replays take the
+    frame's index table (`pack_index_table`). ``record_t=True`` also
+    records each sample's march parameter t (`RayTape.tval`).
+    """
+    del chunk_size, prog_round_size, group_size
+    if opt.interp:
+        raise ValueError("tapes do not support opt.interp (corner cells "
+                         "would need a structure walk at replay)")
+    if indirect:
+        record_cells = True
+        if opt.box_advance or effective_skip_base(spec, opt):
+            raise ValueError(
+                "indirect tapes require exact geometry (box_advance=0, "
+                "skip_boxes off): occupancy-driven position shifts do "
+                "not survive re-pointing"
+            )
+    dev = spec.device
+    origins, dirs, vdirs = (torch.as_tensor(r, dtype=torch.float32, device=dev).contiguous()
+                            for r in (origins, dirs, vdirs))
+    on_card = origins.is_cuda
+    count = count_samples_cuda if on_card else count_samples_plain
+    record = record_samples_cuda if on_card else record_samples_plain
+    n_occ, n_tot = count(spec, int(n_features), origins, dirs, opt)
+    counts = n_occ if compact else n_tot
+    B = origins.shape[0]
+    offsets = torch.zeros(B + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(counts.long(), 0)
+    total = int(offsets[-1])
+    if total >= 2 ** 31:
+        raise ValueError(f"the tape would hold {total} samples; int32 offsets address fewer "
+                         "than 2^31: record fewer rays per tape")
+    offsets = offsets.to(torch.int32)
+    idx, dt, cell, tval, dscale = record(spec, int(n_features), origins, dirs, opt, offsets,
+                                         compact, want_idx=not indirect, want_cell=record_cells,
+                                         want_t=record_t)
+    if indirect:
+        # The cell stream IS the sample stream.
+        idx = cell
+    return RayTape(
+        idx=idx, dt=dt, cell=cell if record_cells else None, offsets=offsets,
+        counts=counts.to(torch.int32), origins=origins, dirs=dirs, vdirs=vdirs,
+        dscale=dscale.contiguous(), n_rays=int(B), S=int(counts.max()) if B else 0,
+        compact=bool(compact), n_features=int(n_features), n_cells=_n_tree_cells(spec),
+        geom=_geom_key(spec, opt), tval=tval, indirect=bool(indirect),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Data-indirect tapes
+
+
+def pack_index_table(data_flat, width: int = 32):
+    """Pack a flat int32 index table into the (rows, width) layout
+    data-indirect replays resolve cells through (JAX `pack_index_table`;
+    padded with the empty sentinel). The kernels read it flat."""
+    data_flat = torch.as_tensor(data_flat).to(torch.int32).reshape(-1)
+    pad = (-data_flat.shape[0]) % width
+    if pad:
+        data_flat = torch.cat([data_flat, torch.full((pad,), int(DATA_SENTINEL), dtype=torch.int32,
+                                                     device=data_flat.device)])
+    return data_flat.reshape(-1, width)
+
+
+def _check_indirect(tape: RayTape, index_table):
+    if tape.indirect and index_table is None:
+        raise ValueError(
+            "data-indirect tape: pass index_table "
+            "(pack_index_table(data_flat) of the frame to render)"
+        )
+    if index_table is not None and not tape.indirect:
+        raise ValueError(
+            "index_table passed but the tape was not recorded with "
+            "indirect=True"
+        )
+    if tape.indirect:
+        # Structure guard: a STRUCTURE change resizes the cell space and
+        # silently mis-routes every resolve.
+        n = int(index_table.shape[0]) * int(index_table.shape[1])
+        w = int(index_table.shape[1])
+        if not (tape.n_cells <= n < tape.n_cells + w):
+            raise ValueError(
+                f"index table covers {n} cells (padded, width {w}) but "
+                f"the tape was recorded against {tape.n_cells} — the "
+                "tree STRUCTURE changed; re-record the tape"
+            )
+
+
+def _resolve_cells(table, cells):
+    """Rows of recorded tree cells through a flat index table (JAX
+    `_resolve_cells`): -1 (empty) for a cell outside the table; a negative
+    entry or one >= M reads as empty where it is used."""
+    ok = (cells >= 0) & (cells < table.shape[0])
+    if table.shape[0] == 0:
+        return torch.full_like(cells, -1)
+    return torch.where(ok, table[torch.where(ok, cells, 0).long()], -1)
+
+
+# ---------------------------------------------------------------------------
+# Replay (K13c, K13d)
+
+
+def _check_replay(tape: RayTape, features, opt: RenderOptions, spec, index_table) -> None:
+    if opt.interp:
+        raise ValueError("tapes do not support opt.interp")
+    if opt.pool_axis is not None or opt.ray_axis is not None:
+        raise NotImplementedError("sharded rendering waits for ROADMAP.md §1 item 17")
+    _check_indirect(tape, index_table)
+    _check_geom(tape, spec, opt)
+    if isinstance(features, QuantizedFeatures):
+        _check_quantized(features)
+    if features.ndim != 2:
+        raise ValueError(f"features must be (M, D), got {tuple(features.shape)}")
+    if features.shape[0] != tape.n_features:
+        raise ValueError(
+            f"feature pool has {features.shape[0]} rows but the tape was "
+            f"recorded against {tape.n_features} — the structure changed; "
+            "re-record the tape"
+        )
+    devices = {t.device for t in _pool_tensors(features)} | {tape.device}
+    if index_table is not None:
+        devices.add(index_table.device)
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+
+
+def _flat_table(index_table):
+    return None if index_table is None else index_table.reshape(-1)
+
+
+def _slots(tape: RayTape, table):
+    """Per sample slot k = 0 .. S - 1 of every ray: (k, live, pos, row),
+    ``live`` where ray i has a k-th sample, ``pos`` its flat position (0
+    where it has none), ``row`` its (resolved) row."""
+    start, counts = tape.offsets[:-1].long(), tape.counts.long()
+    for k in range(tape.S):
+        live = k < counts
+        pos = torch.where(live, start + k, 0)
+        row = tape.idx[pos]
+        if table is not None:
+            row = _resolve_cells(table, row)
+        yield live, pos, row
+
+
+def replay_forward_plain(tape: RayTape, features, opt: RenderOptions, spec=None,
+                         want_weights: bool = False, index_table=None):
+    """Plain PyTorch version of K13c: (out (B, n_color + 1), waccum or
+    None). Composites each ray's samples as `_march_plain` composites its
+    steps, all rays at once per sample slot, so a replay of a tape of
+    the march's samples equals the plain march bit for bit."""
+    spec_v = spec if spec is not None else _NOSPEC
+    B = tape.n_rays
+    M, D = features.shape
+    dev = tape.device
+    dtype = torch.promote_types(pool_dtype(features), tape.dt.dtype)
+    n_color = get_out_data_dim(opt.format, opt.basis_dim, D) - 1
+    basis = _Basis(spec_v, opt, tape.vdirs)
+    can_stop = opt.stop_thresh > 0.0
+    waccum = None
+    if want_weights:
+        if tape.cell is None:
+            raise ValueError("tape recorded with record_cells=False")
+        waccum = torch.zeros(tape.n_cells, dtype=torch.float32, device=dev)
+    L = torch.ones(B, dtype=dtype, device=dev)
+    out_c = torch.zeros(B, n_color, dtype=dtype, device=dev)
+    stopped = torch.zeros(B, dtype=torch.bool, device=dev)
+    # With an empty pool no sample can contribute (the march skips too).
+    slots = _slots(tape, _flat_table(index_table)) if M else ()
+    for live, pos, row in slots:
+        valid = live & ~stopped & (row >= 0) & (row < M)
+        rows = torch.where(valid, row, 0).long()
+        sigma = torch.where(valid, gather_rows(features, rows, -1), 0.0)
+        contrib = valid & (sigma > opt.sigma_thresh)
+        att = torch.exp(-tape.dt[pos] * tape.dscale * sigma)
+        weight = L * (1.0 - att)
+        col = _sample_colors(features, rows, None, basis.at(rows), opt, n_color)
+        out_c = torch.where(contrib[:, None], out_c + weight[:, None] * col, out_c)
+        if want_weights:
+            waccum.index_add_(0, tape.cell[pos][contrib].long(), weight[contrib].to(waccum.dtype))
+        L = torch.where(contrib, L * att, L)
+        if can_stop:
+            stop = contrib & (L <= opt.stop_thresh)
+            out_c = torch.where(stop[:, None], out_c * (1.0 / (1.0 - L))[:, None], out_c)
+            stopped = stopped | stop
+    out_c = torch.where(stopped[:, None], out_c, out_c + (L * opt.background_brightness)[:, None])
+    return torch.cat([out_c, (1.0 - L)[:, None]], dim=-1), waccum
+
+
+def replay_backward_plain(tape: RayTape, features, opt: RenderOptions, grad_out, out_res,
+                          spec=None, index_table=None):
+    """Plain PyTorch version of K13d (exact options): the pool gradient
+    (M, D) in `pool_dtype`, the plain backward march's single pass
+    (`_march_bwd_plain`) over the tape's samples: acc from the saved
+    output, a sample contributes where its row is < M and sigma > 0."""
+    spec_v = spec if spec is not None else _NOSPEC
+    B = tape.n_rays
+    M, D = features.shape
+    grad = torch.zeros(M, D, dtype=pool_dtype(features), device=tape.device)
+    if M == 0 or B == 0:
+        return grad
+    n_color = get_out_data_dim(opt.format, opt.basis_dim, D) - 1
+    n_cc = n_color * opt.basis_dim if opt.format != FORMAT_RGBA else n_color
+    basis = _Basis(spec_v, opt, tape.vdirs)
+    g, g_alpha = grad_out[:, :n_color], grad_out[:, n_color]
+    acc = _sum_cols(out_res[:, :n_color] * g)
+    L_ray = 1.0 - out_res[:, n_color]
+    L = torch.ones(B, dtype=grad.dtype, device=grad.device)
+    for live, pos, row in _slots(tape, _flat_table(index_table)):
+        valid = live & (row >= 0) & (row < M)
+        rows = torch.where(valid, row, 0).long()
+        sig = torch.where(valid, gather_rows(features, rows, -1), 0.0)
+        contrib = valid & (sig > 0.0)
+        dt = tape.dt[pos]
+        att = torch.exp(-dt * tape.dscale * sig)
+        weight = L * (1.0 - att)
+        b = basis.at(rows)
+        s = _sample_colors(features, rows, None, b, opt, n_color)
+        total_color = _sum_cols(s * g)
+        L_after = L * att
+        rows_full = torch.zeros(B, D, dtype=grad.dtype, device=grad.device)
+        a = (weight[:, None] * (s * (1.0 - s))) * g
+        rows_full[:, :n_cc] = a if b is None else (a[:, :, None] * b[:, None, :]).reshape(B, n_cc)
+        acc_after = acc - weight * total_color
+        dts = dt * tape.dscale
+        rows_full[:, D - 1] = dts * (total_color * L_after - acc_after) + dts * (g_alpha * L_ray)
+        _scatter_rows(grad, rows, None, contrib, rows_full)
+        acc = torch.where(contrib, acc_after, acc)
+        L = torch.where(contrib, L_after, L)
+    return grad
+
+
+def _tape_args(tape: RayTape, features, index_table, name: str):
+    """Check a replay kernel's tape, pool and table on one CUDA device and
+    return the tape's leading arguments after dt (dscale, vdirs, B) and
+    the table's (table, n_table)."""
+    dev = tape.device
+    ints = [tape.offsets, tape.idx] + ([] if tape.cell is None else [tape.cell])
+    floats = [tape.dt, tape.dscale, tape.vdirs]
+    table = _flat_table(index_table)
+    if table is not None:
+        ints.append(table)
+    for t in (*_pool_tensors(features), *ints, *floats):
+        _require(t.is_cuda and t.device == dev, f"{name} needs all tensors on one CUDA device")
+        _require(t.is_contiguous(), f"{name} needs contiguous tensors")
+    _require(all(t.dtype == torch.int32 for t in ints), f"{name}: tape streams and table must be int32")
+    _require(all(t.dtype == torch.float32 for t in floats), f"{name}: dt, dscale and vdirs must be float32")
+    _require(tuple(tape.offsets.shape) == (tape.n_rays + 1,), "offsets must be (B + 1,)")
+    return ((tape.dscale.data_ptr(), tape.vdirs.data_ptr(), tape.n_rays),
+            (None, 0) if table is None else (table.data_ptr(), table.shape[0]))
+
+
+def _replay_kernel(instances: dict, features) -> Kernel:
+    kind = pool_kind(features)
+    if kind not in instances:
+        raise ValueError(f"{instances['f32'].symbol} has no kernel instance for a {kind} "
+                         f"feature pool (instances: {', '.join(instances)})")
+    return instances[kind]
+
+
+def replay_forward_cuda(tape: RayTape, features, opt: RenderOptions, spec=None,
+                        want_weights: bool = False, index_table=None):
+    """Launch K13c (csrc/tape_replay_fwd.cu; the bf16 and int8 pools'
+    instances of csrc/tape_replay.cuh): (out, waccum or None)."""
+    spec_v = spec if spec is not None else _NOSPEC
+    n_color = check_format(spec_v, features, opt)
+    kernel = _replay_kernel(_REPLAY_FWD, features)
+    ray_args, table_args = _tape_args(tape, features, index_table, "replay_forward_cuda")
+    rad = radiometry_args(spec_v, features, opt, n_color)
+    dev = tape.device
+    if want_weights and tape.cell is None:
+        raise ValueError("tape recorded with record_cells=False")
+    out = torch.empty(tape.n_rays, n_color + 1, dtype=torch.float32, device=dev)
+    waccum = torch.zeros(tape.n_cells, dtype=torch.float32, device=dev) if want_weights else None
+    if tape.n_rays:
+        kernel(tape.offsets.data_ptr(), tape.idx.data_ptr(), tape.dt.data_ptr(),
+               tape.cell.data_ptr() if want_weights else None, *ray_args, *table_args, *rad,
+               opt.background_brightness, opt.sigma_thresh, opt.stop_thresh, out.data_ptr(),
+               None if waccum is None else waccum.data_ptr(), *_stream(dev))
+    return out, waccum
+
+
+def replay_backward_cuda(tape: RayTape, features, opt: RenderOptions, grad_out, out_res,
+                         spec=None, index_table=None):
+    """Launch K13d (csrc/tape_replay_bwd.cu; the bf16 pool's instance of
+    csrc/tape_replay.cuh) into a zeroed float32 (M, D) gradient, exact
+    options. An empty pool or tape returns zeros without a launch."""
+    spec_v = spec if spec is not None else _NOSPEC
+    n_color = check_format(spec_v, features, opt)
+    kernel = _replay_kernel(_REPLAY_BWD, features)
+    ray_args, table_args = _tape_args(tape, features, index_table, "replay_backward_cuda")
+    rad = radiometry_args(spec_v, features, opt, n_color)
+    for t in (grad_out, out_res):
+        _require(t.is_cuda and t.device == tape.device and t.is_contiguous()
+                 and t.dtype == torch.float32 and tuple(t.shape) == (tape.n_rays, n_color + 1),
+                 f"grad_out and out_res must be contiguous ({tape.n_rays}, {n_color + 1}) float32")
+    M, D = features.shape
+    grad = torch.zeros(M, D, dtype=torch.float32, device=tape.device)
+    if M and tape.n_rays:
+        kernel(tape.offsets.data_ptr(), tape.idx.data_ptr(), tape.dt.data_ptr(), *ray_args,
+               *table_args, *rad, grad_out.data_ptr(), out_res.data_ptr(), grad.data_ptr(),
+               *_stream(tape.device))
+    return grad
+
+
+def replay_forward(tape: RayTape, features, opt: RenderOptions, spec=None,
+                   want_weights: bool = False, index_table=None):
+    """The replay forward, (out (B, n_color + 1), waccum or None), on the
+    tape's device: K13c on CUDA, its plain version on the CPU."""
+    _check_replay(tape, features, opt, spec, index_table)
+    run = replay_forward_cuda if tape.dt.is_cuda else replay_forward_plain
+    return run(tape, features, opt, spec, want_weights, index_table)
+
+
+def replay_backward(tape: RayTape, features, opt: RenderOptions, grad_out, out_res,
+                    spec=None, index_table=None):
+    """Gradient of a replay with respect to the pool, (M, D) in the pool's
+    type (summed in float32 and cast once). Exact mode (sigma_thresh == 0,
+    stop_thresh <= 0): K13d over the tape (its plain version on the CPU).
+    Thresholded modes fall back to the backward march K3 over the tape's
+    rays, which needs ``spec`` and a direct tape."""
+    if isinstance(features, QuantizedFeatures):
+        raise TypeError("a quantized feature pool takes no gradient")
+    _check_replay(tape, features, opt, spec, index_table)
+    if not (opt.sigma_thresh == 0.0 and opt.stop_thresh <= 0.0):
+        if tape.indirect:
+            raise ValueError(
+                "thresholded gradients are not supported on data-indirect "
+                "tapes (the march-backward fallback needs a fixed spec); "
+                "use exact mode (sigma_thresh=0, stop_thresh=0)"
+            )
+        if spec is None:
+            raise ValueError(
+                "thresholded tape gradients need `spec` (march-backward "
+                "fallback)"
+            )
+        return volume_render_backward(spec, features, tape.origins, tape.dirs, tape.vdirs,
+                                      grad_out, opt, out_res=out_res)
+    run = replay_backward_cuda if tape.dt.is_cuda else replay_backward_plain
+    return run(tape, features, opt, grad_out, out_res, spec, index_table).to(features.dtype)
+
+
+def _save(ctx, tape, features, index_table, opt, spec, out) -> None:
+    ctx.tape, ctx.index_table, ctx.opt, ctx.spec = tape, index_table, opt, spec
+    if not isinstance(features, QuantizedFeatures):
+        ctx.save_for_backward(features, out)
+
+
+def _grad_features(ctx, grad_out):
+    if not ctx.needs_input_grad[1]:
+        return None
+    features, out = ctx.saved_tensors
+    return replay_backward(ctx.tape, features, ctx.opt, grad_out.contiguous(), out, ctx.spec,
+                           ctx.index_table)
+
+
+class _ReplayFn(torch.autograd.Function):
+    """`replay_render` (JAX: `_replay_call`'s custom_vjp): the gradient
+    goes to the pool only."""
+
+    @staticmethod
+    def forward(ctx, tape, features, index_table, opt, spec):
+        out, _ = replay_forward(tape, features, opt, spec, False, index_table)
+        _save(ctx, tape, features, index_table, opt, spec, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return None, _grad_features(ctx, grad_out), None, None, None
+
+
+class _ReplayWeightsFn(torch.autograd.Function):
+    """`replay_render_weighted` (JAX: `_replay_call_w`): the weights carry
+    no gradient."""
+
+    @staticmethod
+    def forward(ctx, tape, features, index_table, opt, spec):
+        out, waccum = replay_forward(tape, features, opt, spec, True, index_table)
+        ctx.mark_non_differentiable(waccum)
+        _save(ctx, tape, features, index_table, opt, spec, out)
+        return out, waccum
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_waccum):
+        del grad_waccum
+        return None, _grad_features(ctx, grad_out), None, None, None
+
+
+def unsort_output(tape: RayTape, out_sorted):
+    """Replay output rows in the original ray order: the port's tapes keep
+    rays in input order, so this is the identity (JAX `unsort_output`)."""
+    del tape
+    return out_sorted
+
+
+def replay_render(tape: RayTape, features, opt: RenderOptions, spec=None,
+                  *, unsort: bool = True, index_table=None):
+    """Render by replaying a recorded tape — differentiable with respect
+    to ``features`` (exact mode: K13d; thresholded modes: the backward
+    march over the tape's rays). ``spec`` supplies per-voxel
+    transformation matrices and SG/ASG extra data, and the skip-box base
+    of the geometry check. ``index_table`` (data-indirect tapes only):
+    the frame's `pack_index_table`. ``unsort`` is accepted for the JAX
+    API: rows are in input order either way.
+
+    Returns (B, n_color + 1)."""
+    del unsort
+    return _ReplayFn.apply(tape, features, index_table, opt, spec)
+
+
+def replay_render_weighted(tape: RayTape, features, opt: RenderOptions,
+                           spec=None, *, unsort: bool = True,
+                           index_table=None):
+    """Replay + weight accumulation (as `volume_render_with_weight_accum`:
+    differentiable with respect to ``features`` through the colors; the
+    weights, (n_cells,) float32 summed per tree cell, carry no gradient).
+    Returns (out, waccum)."""
+    del unsort
+    return _ReplayWeightsFn.apply(tape, features, index_table, opt, spec)

@@ -6,7 +6,8 @@ feature pool. `tree_state` reads a tree of either package into a dict of
 NumPy arrays; `tree_from_numpy` builds this package's `N3Tree` from such
 a dict. The feature pool is not part of the state: it stays a separate
 tensor that the caller passes to every render; an int8 pool of the JAX
-package (its `QuantizedFeatures`) moves with `quantized_from_numpy`.
+package (its `QuantizedFeatures`) moves with `quantized_from_numpy`, a
+recorded sample tape (its `RayTape`) with `tape_from_jax`.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from ..models.tree import N3Tree
 from ..ops.render import QuantizedFeatures
+from ..ops.tape import RayTape
 from .dataformat import DataFormat
 
 
@@ -91,3 +93,47 @@ def quantized_from_numpy(q, scale, zero, device="cuda") -> QuantizedFeatures:
     return QuantizedFeatures(torch.as_tensor(np.array(q, np.int8), device=device),
                              torch.as_tensor(np.array(scale, np.float32), device=device),
                              torch.as_tensor(np.array(zero, np.float32), device=device))
+
+
+def tape_from_jax(arrays, device="cuda") -> RayTape:
+    """This package's `RayTape` from the arrays and meta of a JAX package
+    `RayTape` (a mapping of its field names): the chunk layout ``idx``,
+    ``dt`` and the optional ``cell`` and ``tval`` (n_chunks, S, C),
+    ``counts`` and ``dscale`` (n_chunks, C), ``origins``, ``dirs`` and
+    ``vdirs`` (n_chunks, C, 3), ``inv_pos`` (n_rays,), and ``n_features``,
+    ``n_cells``, ``compact``, ``geom``, ``indirect``. Ray i's run is its
+    chunk column's first ``counts`` samples, at slot ``inv_pos[i]``; the
+    rays come out in input order, on ``device``."""
+    idx = np.asarray(arrays["idx"])
+    n_chunks, S, C = idx.shape
+    inv = np.asarray(arrays["inv_pos"], np.int64)
+    chunk, lane = inv // C, inv % C
+    counts = np.asarray(arrays["counts"], np.int64).reshape(-1)[inv]
+    offsets = np.zeros(inv.shape[0] + 1, np.int64)
+    offsets[1:] = np.cumsum(counts)
+    ray = np.repeat(np.arange(inv.shape[0]), counts)
+    slot = np.arange(offsets[-1]) - offsets[ray]
+
+    def stream(name, dtype):
+        a = arrays.get(name)
+        if a is None or np.asarray(a).size == 0:
+            return None
+        a = np.asarray(a, dtype)[chunk[ray], slot, lane[ray]]
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    def per_ray(name):
+        a = np.asarray(arrays[name], np.float32)
+        return torch.as_tensor(np.ascontiguousarray(a.reshape(n_chunks * C, *a.shape[2:])[inv]),
+                               device=device)
+
+    return RayTape(
+        idx=stream("idx", np.int32), dt=stream("dt", np.float32), cell=stream("cell", np.int32),
+        offsets=torch.as_tensor(offsets.astype(np.int32), device=device),
+        counts=torch.as_tensor(counts.astype(np.int32), device=device),
+        origins=per_ray("origins"), dirs=per_ray("dirs"), vdirs=per_ray("vdirs"),
+        dscale=per_ray("dscale"), n_rays=int(inv.shape[0]),
+        S=int(counts.max()) if counts.size else 0, compact=bool(arrays["compact"]),
+        n_features=int(arrays["n_features"]), n_cells=int(arrays["n_cells"]),
+        geom=tuple(arrays.get("geom", ())), tval=stream("tval", np.float32),
+        indirect=bool(arrays.get("indirect", False)),
+    )

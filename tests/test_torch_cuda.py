@@ -14,7 +14,11 @@ kernel on both backends, with the same tolerances, and the bf16 and int8
 pool instances (K5) of every march, aux and query kernel: each forward
 equal bit for bit to the float32 kernel on the pool widened to float32
 (an int8 pool dequantized as the kernels dequantize it), each held to
-its plain version as above.
+its plain version as above. The recorded-tape kernels (K13) come last:
+the count and record kernels equal to their plain versions exactly, the
+replay forward equal to the forward march kernel bit for bit, the replay
+backward against plain and the backward march kernel at the atomic
+tolerance.
 
 Tolerances: construct_tree and the query forward must agree exactly, and
 so must the bake's lookup, refresh and skip-box regrowth,
@@ -45,6 +49,7 @@ from svox_t_tpu_torch.ops import p2v as tp2v
 from svox_t_tpu_torch.ops import query as tquery
 from svox_t_tpu_torch.ops import render as trender
 from svox_t_tpu_torch.ops import render_aux as taux
+from svox_t_tpu_torch.ops import tape as ttape
 from svox_t_tpu_torch.ops import traversal as ttrav
 from svox_t_tpu_torch.ops import warp as twarp
 from svox_t_tpu_torch.utils.scenes import (build_shell_tree, joint_pose_sequence, orbit_camera,
@@ -1350,3 +1355,133 @@ def test_pool_types_without_an_instance_raise(cuda):
                                        torch.zeros(o.shape[0], 4, device=cuda), r._get_options())
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tree(q, o[:4])
+
+
+# ---------------------------------------------------------------------------
+# Recorded sample tapes (K13): the count and record kernels equal to their
+# plain versions exactly; the replay forward equal to the forward march
+# kernel bit for bit (exact and thresholded, compacted or not), its weights
+# and the replay backward atomic sums; pool instances equal to the float32
+# kernel on the widened pool.
+
+
+def _tape_scene(cuda, backend, fmt="SH9", ddim=28, seed=61, depth=6):
+    tree, feats, centers = _shell(cuda, depth=depth, fmt=fmt, ddim=ddim, seed=seed)
+    spec = tree._baked_spec() if backend == "baked" else tree._spec()
+    o, d = _rays(cuda, 2048, seed=seed)
+    return tree, spec, feats, centers, o, d
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("compact", [False, True])
+def test_tape_record_kernels_match_plain(cuda, backend, fast, compact):
+    tree, spec, feats, _, o, d = _tape_scene(cuda, backend)
+    opt = stt.VolumeRenderer(tree, backend=backend)._get_options(fast)
+    M = feats.shape[0]
+    count = ttape.TAPE_COUNT_BAKED if backend == "baked" else ttape.TAPE_COUNT
+    record = ttape.TAPE_RECORD_BAKED if backend == "baked" else ttape.TAPE_RECORD
+    before = (count.launches, record.launches)
+    tp = ttape.record_tape(spec, M, o, d, d, opt, compact=compact, record_t=True)
+    torch.cuda.synchronize()
+    assert (count.launches, record.launches) == (before[0] + 1, before[1] + 1)
+    n_occ, n_tot = ttape.count_samples_plain(spec, M, o, d, opt)
+    assert torch.equal(tp.counts, n_occ if compact else n_tot)
+    want = ttape.record_samples_plain(spec, M, o, d, opt, tp.offsets, compact, True, True, True)
+    for got, w in zip((tp.idx, tp.dt, tp.cell, tp.tval, tp.dscale), want):
+        assert torch.equal(got, w)
+    assert tp.n_samples > 0
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("compact", [False, True])
+def test_tape_replay_kernel_equals_march_kernel(cuda, backend, fast, compact):
+    tree, spec, feats, _, o, d = _tape_scene(cuda, backend, seed=62)
+    M = feats.shape[0]
+    q = torch.randn(M, 3, 3, generator=torch.Generator().manual_seed(62))
+    rot = torch.eye(4).repeat(M, 1, 1)
+    rot[:, :3, :3] = torch.linalg.qr(q)[0]
+    r = stt.VolumeRenderer(tree, backend=backend)
+    opt = r._get_options(fast)
+    tp = ttape.record_tape(spec, M, o, d, d, opt, compact=compact)
+    for rspec in (spec, spec.with_(transformation_matrices=rot.to(cuda))):
+        before = ttape.TAPE_REPLAY_FWD.launches
+        out, w = ttape.replay_render_weighted(tp, feats, opt, rspec)
+        torch.cuda.synchronize()
+        assert ttape.TAPE_REPLAY_FWD.launches == before + 1
+        want, w_want = trender.volume_render_with_weight_accum_cuda(rspec, feats, o, d, d, opt)
+        assert torch.equal(out, want)
+        _assert_atomic_close(w, w_want)
+        plain, w_plain = ttape.replay_forward_plain(tp, feats, opt, rspec, True)
+        torch.testing.assert_close(out, plain, atol=ATOL, rtol=0)
+        _assert_atomic_close(w, w_plain)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "i8"])
+def test_tape_replay_pool_instances(cuda, kind):
+    tree, spec, feats, _, o, d = _tape_scene(cuda, "baked", seed=63)
+    opt = stt.VolumeRenderer(tree)._get_options(False)
+    tp = ttape.record_tape(spec, feats.shape[0], o, d, d, opt)
+    pool = feats.to(torch.bfloat16) if kind == "bf16" else stt.quantize_features(feats)
+    wide = pool.float() if kind == "bf16" else pool.dequantize()
+    k = ttape.TAPE_REPLAY_FWD_BF16 if kind == "bf16" else ttape.TAPE_REPLAY_FWD_I8
+    before = k.launches
+    got = ttape.replay_render(tp, pool, opt, spec)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1
+    assert torch.equal(got, ttape.replay_render(tp, wide, opt, spec))
+    torch.testing.assert_close(got, ttape.replay_forward_plain(tp, pool, opt, spec)[0], atol=ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+def test_tape_replay_backward_matches_plain(cuda, backend, kind):
+    tree, spec, feats, _, o, d = _tape_scene(cuda, backend, seed=64)
+    opt = stt.VolumeRenderer(tree, backend=backend)._get_options(False)
+    tp = ttape.record_tape(spec, feats.shape[0], o, d, d, opt)
+    pool = feats if kind == "f32" else feats.to(torch.bfloat16)
+    x = pool.clone().requires_grad_()
+    out = ttape.replay_render(tp, x, opt, spec)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(64)).to(cuda)
+    k = ttape.TAPE_REPLAY_BWD if kind == "f32" else ttape.TAPE_REPLAY_BWD_BF16
+    before = k.launches
+    (gx,) = torch.autograd.grad((out * g).sum(), x)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1 and gx.dtype == pool.dtype
+    got = ttape.replay_backward_cuda(tp, pool, opt, g, out.detach(), spec)
+    want = ttape.replay_backward_plain(tp, pool, opt, g, out.detach(), spec)
+    _assert_atomic_close(got, want)
+    k3 = trender.volume_render_backward_cuda(spec, pool, o, d, d, g, opt, out_res=out.detach())
+    _assert_atomic_close(got, k3)
+    assert float(got.abs().max()) > 0
+
+
+def test_tape_indirect_replay_after_repoint(cuda):
+    """An indirect tape replayed after construct_tree equals the forward
+    march kernel on the re-pointed tree bit for bit (tree walk)."""
+    tree, spec, feats, centers, o, d = _tape_scene(cuda, "tree", seed=65)
+    opt = stt.VolumeRenderer(tree, backend="tree")._get_options(False)
+    M = feats.shape[0]
+    tp = ttape.record_tape(spec, M, o, d, d, opt, indirect=True)
+    tree.construct_tree(centers[torch.randperm(M, generator=torch.Generator().manual_seed(65)).to(cuda)])
+    spec2 = tree._spec()
+    assert not torch.equal(spec2.data_flat, spec.data_flat)
+    table = ttape.pack_index_table(spec2.data_flat)
+    got = ttape.replay_render(tp, feats, opt, spec2, index_table=table)
+    assert torch.equal(got, trender.volume_render_cuda(spec2, feats, o, d, d, opt))
+    torch.testing.assert_close(got, ttape.replay_forward_plain(tp, feats, opt, spec2, False, table)[0],
+                               atol=ATOL, rtol=0)
+
+
+def test_render_persp_tape_uses_the_kernels(cuda):
+    tree, feats, _ = _shell(cuda, depth=6)
+    r = stt.VolumeRenderer(tree)
+    counters = (ttape.TAPE_COUNT_BAKED, ttape.TAPE_RECORD_BAKED, ttape.TAPE_REPLAY_FWD)
+    before = [k.launches for k in counters]
+    imgs = [r.render_persp_tape(feats * s, orbit_camera(), 64, 48, fx=70.0) for s in (1.0, 0.5)]
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 2]
+    for s, img in zip((1.0, 0.5), imgs):
+        assert torch.equal(img, r.render_persp(feats * s, orbit_camera(), 64, 48, fx=70.0))

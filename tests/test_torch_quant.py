@@ -316,9 +316,11 @@ def test_bf16_dynamic_frames_equal_the_eager_loop():
 def test_every_pool_instance_has_a_compile_unit(tmp_path):
     """Each bf16 and int8 march kernel the wrappers dispatch to is built by
     exactly one compile unit of `_build.units()`: its header with the
-    instance's macros, included by a one-line stub."""
+    instance's macros, included by a one-line stub; so is each bf16 and
+    int8 tape replay kernel (K13c/d, a header with no structure axis)."""
     from svox_t_tpu_torch import _build
     from svox_t_tpu_torch.ops import render_aux as taux
+    from svox_t_tpu_torch.ops import tape as ttape
 
     header = {"render_fwd": "render_fwd", "render_bwd": "render_bwd", "opacity_bwd": "render_bwd",
               "first_hit": "render_aux", "mf_fwd": "render_aux", "mf_bwd": "render_aux"}
@@ -330,8 +332,15 @@ def test_every_pool_instance_has_a_compile_unit(tmp_path):
         for pool in ("bf16", "i8"):
             for kernel in table.get(pool, ()):
                 want.add(header[base] + kernel.symbol[len("svox_" + base):])
+    for table in (ttape._REPLAY_FWD, ttape._REPLAY_BWD):
+        for pool in ("bf16", "i8"):
+            if pool in table:
+                want.add(table[pool].symbol[len("svox_"):])
     units = {u.name: u for u in _build.units() if u.defines}
-    assert set(units) == want and len(want) == 20
+    assert set(units) == want and len(want) == 23
+    t = units["tape_replay_bwd_bf16"]
+    assert set(t.defines) == {"-DSVOX_TAPE_PASS=1", "-DSVOX_SUFFIX=_bf16", "-DSVOX_POOL=svox::PoolBF16"}
+    assert t.source == _build.CSRC / "tape_replay.cuh"
     u = units["render_bwd_baked_interp_bf16"]
     assert set(u.defines) == {"-DSVOX_STRUCTURE=svox::Baked", "-DSVOX_SUFFIX=_baked_interp_bf16",
                               "-DSVOX_POOL=svox::PoolBF16", "-DSVOX_INTERP=1"}
