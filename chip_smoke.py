@@ -34,7 +34,10 @@ bit for bit, with rotations and with weights, and across bench.py's
 skip boxes; its bf16 and int8 instances equal to the float32 one on the
 widened pools; the replay backward against plain and the backward march;
 an indirect tape replayed after a re-point equal to the march on the
-re-pointed tree),
+re-pointed tree; the depth replay K13f equal to its plain version and to
+the first-hit kernel bit for bit on every tape, direct and indirect; the
+multi-frame backward K13e on a stack of 4 pools, float32 and bf16,
+against its plain version and 4 calls of the single-frame backward),
 then
 drives the main paths through the public entry points on the depth-9 SH9
 shell scene at 800x800, with a seeded 32-joint skeleton for the aux and
@@ -98,7 +101,22 @@ dynamic paths, each on the default baked backend and on the tree walk
     then bench.py's tape keys beside the march on the same rays
     (`tape_record_ms`, `fwd_tape_ms`, `tape_fwd_bwd_seq_ms` on its
     depth-7 headline scene; `deep9_tape_ms`, `deep9_tape_mrays_s`,
-    `deep9_tape_int8_mrays_s`).
+    `deep9_tape_int8_mrays_s`);
+  * temporal tapes (`dynamic_tape_path`): on the deep dynamic scene,
+    `record_dynamic_persp` (a data-indirect tape against the animation's
+    union occupancy, compacted and not), `render_dynamic_tape_frames`
+    exact, fast and uncompacted with rotations and depth (K13c and K13f per
+    frame), held to `render_dynamic_frames` (uncompacted bit for bit,
+    compacted within 2e-6, depths bit for bit), a two-frame pool stack's
+    gradient through `render_tape_frames` (float32 and bf16: K13e) against
+    per-frame K13d, a 3-view rig frame (`render_persp_rig_tape`) equal to
+    `render_persp` per view; the host ms of a deep frame with the tape passed
+    in and through the cache key; then bench.py's temporal keys
+    (`dynamic_tape_record_s`, `dynamic_tape_record_warm_s`,
+    `dynamic_tape_frame_ms`, `dynamic_tape_fast_frame_ms` on its dynamic
+    cloud; `deep9_dyn_record_s`, `deep9_dyn_tape_frame_ms`,
+    `deep9_dyn_tape_mrays_s` on its deep cloud; `tape_fwd_bwd_ms`,
+    `tape_fwd_bwd_mrays_s`, a 16-frame stack's gradient) beside the march's.
 
 The two backends' exact outputs are checked equal bit for bit on every
 serving path. Each path's launch counts are read from zero around it. It
@@ -132,9 +150,9 @@ from svox_t_tpu_torch.ops import render_aux as aux_ops
 from svox_t_tpu_torch.ops import tape as tape_ops
 from svox_t_tpu_torch.ops import traversal
 from svox_t_tpu_torch.ops import warp as warp_ops
-from svox_t_tpu_torch.utils.scenes import (bench_dynamic_cloud, build_shell_tree,
-                                           joint_pose_sequence, orbit_camera, random_lobes,
-                                           skin_to_nearest_joints)
+from svox_t_tpu_torch.utils.scenes import (bench_deep_dynamic_cloud, bench_dynamic_cloud,
+                                           build_shell_tree, joint_pose_sequence, orbit_camera,
+                                           random_lobes, skin_to_nearest_joints)
 
 DEPTH = 9
 WIDTH = HEIGHT = 800
@@ -368,8 +386,13 @@ TAPE_KERNELS = {
     "tape_replay_fwd": tape_ops.TAPE_REPLAY_FWD, "tape_replay_fwd_bf16": tape_ops.TAPE_REPLAY_FWD_BF16,
     "tape_replay_fwd_i8": tape_ops.TAPE_REPLAY_FWD_I8, "tape_replay_bwd": tape_ops.TAPE_REPLAY_BWD,
     "tape_replay_bwd_bf16": tape_ops.TAPE_REPLAY_BWD_BF16,
+    "tape_replay_bwd_frames": tape_ops.TAPE_REPLAY_BWD_FRAMES,
+    "tape_replay_bwd_frames_bf16": tape_ops.TAPE_REPLAY_BWD_FRAMES_BF16,
+    "tape_depth": tape_ops.TAPE_DEPTH,
 }
 COUNTERS.update(TAPE_KERNELS)
+# K13e's stack in phases 3g and 5: N_STACK pools over the deep shell's tape.
+N_STACK = 4
 # Bytes of a pool element.
 POOL_ELEM = {"f32": 4, "bf16": 2, "i8": 1}
 # bench.py:100: frames per timed call of its sustained loops; bench.py:615:
@@ -754,6 +777,19 @@ def bf16_cast_err(got32: torch.Tensor, want32: torch.Tensor, what: str) -> float
     return float((a - b).abs().max())
 
 
+def bf16_grad_err(got: torch.Tensor, want32: torch.Tensor, what: str) -> float:
+    """A bf16 gradient (a float32 sum cast once) held to another float32
+    sum: within one bf16 ulp plus the atomic tolerance of the sum. Returns
+    the largest difference."""
+    a, b = got.float(), want32.to(torch.bfloat16).float()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(1e-30)
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    tol = ATOMIC_RTOL * max(1.0, float(want32.abs().max()))
+    check(bool(torch.isfinite(a).all()) and not bool(((a - b).abs() > ulp + tol).any()),
+          f"{what}: more than one bf16 ulp and the atomic tolerance apart")
+    return float((a - b).abs().max())
+
+
 def pool_kernel_phase(specs: dict, feats, jf, origins, dirs, renderers: dict, kernels: dict,
                       dev) -> dict:
     """Phase 3f (K5): every bf16 and int8 march instance on all of the aux
@@ -1029,10 +1065,15 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
     atomic tolerance), and to plain at the march tolerance; the bf16 and
     int8 K13c equal to the float32 K13c on the widened or dequantized pool
     bit for bit; K13d against plain and K3 at the atomic tolerance (float32
-    and bf16); a fast frame whose march steps across skip boxes
+    and bf16); K13f equal to its plain version and to K9b's render_depth
+    bit for bit on every tape; K13e on a stack of N_STACK pools (float32
+    and bf16) over the bake's compacted exact tape against its plain
+    version and N_STACK K13d calls at the atomic tolerance; a fast frame
+    whose march steps across skip boxes
     (``skip_case``: bench.py's frame 1 on its bake), K13c against K2 bit
     for bit and plain; an indirect tape replayed after a re-point equal to
-    K2 on the re-pointed tree (tree walk). Returns each kernel's plain ms
+    K2 on the re-pointed tree (tree walk), its depth (K13f through the
+    table) to plain and K9b. Returns each kernel's plain ms
     and what the times and bounds read: the exact compacted tape, its
     sample counts, and the tapes' counts."""
     t_3g = time.perf_counter()
@@ -1081,6 +1122,16 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
                     line = (f"tape {label}: {tp.n_samples} samples (S {tp.S}), counts and streams equal to "
                             f"plain; replay equal to K2 bit for bit, weights vs K2 {w_err:.3g}, vs plain "
                             f"{e:.3g}")
+                    # K13f: the depth replay equal to its plain version and to
+                    # K9b's render_depth bit for bit.
+                    dep = tape_ops.replay_depth_cuda(tp, feats, opt.sigma_thresh)
+                    dep_p, plain_ms["tape_depth", sfx, fast, compact] = timed_once_ms(
+                        lambda: tape_ops.replay_depth_plain(tp, feats, opt.sigma_thresh))
+                    check(torch.equal(dep, dep_p), f"tape_depth {label}: kernel and plain differ")
+                    check(torch.equal(dep, aux_ops.render_depth(spec, feats, origins, dirs, opt)),
+                          f"tape_depth {label}: not K9b's render_depth bit for bit")
+                    check(bool((dep > 0).any()), f"tape_depth {label}: no hit")
+                    line += "; depth equal to plain and to K9b bit for bit"
                     if not fast:
                         rspec = spec.with_(transformation_matrices=rot)
                         check(torch.equal(tape_ops.replay_forward_cuda(tp, feats, opt, rspec)[0],
@@ -1116,6 +1167,25 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
                             stats["tape"] = tp
                     print(line)
                     del tp, want
+        # K13e: N_STACK pools over the bake's compacted exact tape, float32
+        # and bf16, against its plain version and against N_STACK K13d calls.
+        tp, opt = stats["tape"], opts[False]
+        for psfx, dtype in (("", torch.float32), ("_bf16", torch.bfloat16)):
+            stack = torch.stack([feats * (1.0 + 0.1 * n) for n in range(N_STACK)]).to(dtype)
+            outs = torch.stack([tape_ops.replay_forward_cuda(tp, f, opt, baked)[0] for f in stack])
+            g = torch.from_numpy(rng.randn(*outs.shape).astype(np.float32)).to(dev)
+            g_k = tape_ops.replay_backward_frames_cuda(tp, stack, opt, g, outs, baked)
+            g_p, plain_ms["tape_replay_bwd_frames" + psfx] = timed_once_ms(
+                lambda: tape_ops.replay_backward_frames_plain(tp, stack, opt, g, outs, baked))
+            eb = atomic_err(g_k, g_p, f"tape_replay_bwd_frames{psfx}")
+            e_d = max(atomic_err(g_k[n], tape_ops.replay_backward_cuda(tp, stack[n], opt, g[n], outs[n], baked),
+                                 f"tape_replay_bwd_frames{psfx} frame {n} vs K13d") for n in range(N_STACK))
+            check(all(float(g_k[n].abs().max()) > 0 for n in range(N_STACK)),
+                  f"tape_replay_bwd_frames{psfx}: a frame without gradient")
+            note("tape_replay_bwd_frames" + psfx, eb)
+            print(f"tape_replay_bwd_frames{psfx} ({N_STACK} frames, {tp.n_samples} samples): vs plain {eb:.3g}, "
+                  f"vs {N_STACK} K13d calls {e_d:.3g} (max|g| {float(g_p.abs().max()):.4g})")
+            del stack, outs, g, g_k, g_p
         # Fast mode across skip boxes: bench.py's frame 1 on its bake.
         gb_sp, gb_feats, gb_o, gb_d, gb_v, gb_opt = skip_case
         Mg = gb_feats.shape[0]
@@ -1142,7 +1212,7 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
         itree = stt.tree_from_numpy(state, device=dev)
         ispec = itree._spec()
         opt = opts[False]
-        tp = tape_ops.record_tape(ispec, M, origins, dirs, dirs, opt, indirect=True)
+        tp = tape_ops.record_tape(ispec, M, origins, dirs, dirs, opt, indirect=True, record_t=True)
         itree.construct_tree(centers[torch.from_numpy(rng.permutation(M)).to(dev)])
         ispec2 = itree._spec()
         check(not torch.equal(ispec2.data_flat, ispec.data_flat), "the re-point changed no row")
@@ -1157,10 +1227,19 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
         note("tape_replay_bwd", atomic_err(
             tape_ops.replay_backward_cuda(tp, feats, opt, g, out, ispec2, table),
             tape_ops.replay_backward_plain(tp, feats, opt, g, out, ispec2, table), "indirect tape_replay_bwd"))
+        # K13f through the table, on a pool whose every third sigma is
+        # negative: the first hit moves with the frame.
+        dpool = feats.clone()
+        dpool[::3, -1] = -1.0
+        dep = tape_ops.replay_depth_cuda(tp, dpool, opt.sigma_thresh, table)
+        check(torch.equal(dep, tape_ops.replay_depth_plain(tp, dpool, opt.sigma_thresh, table)),
+              "indirect tape_depth: kernel and plain differ")
+        check(torch.equal(dep, aux_ops.render_depth(ispec2, dpool, origins, dirs, opt)),
+              "indirect tape_depth: not K9b on the re-pointed tree bit for bit")
         print(f"indirect tape ({tp.n_samples} cells) after a re-point of {M} rows: replay equal to K2 on the "
-              f"re-pointed tree bit for bit, vs plain {e:.3g}")
-        del tp, itree
-    for name in ("tape_count", "tape_count_baked", "tape_record", "tape_record_baked"):
+              f"re-pointed tree bit for bit, vs plain {e:.3g}; depth equal to plain and to K9b bit for bit")
+        del tp, itree, dpool
+    for name in ("tape_count", "tape_count_baked", "tape_record", "tape_record_baked", "tape_depth"):
         kernels[name]["max_abs_err"] = 0.0
     for name, e in err.items():
         kernels[name]["max_abs_err"] = e
@@ -1315,6 +1394,248 @@ def tape_times(backend: str, scenes: dict, dev, card: str) -> dict:
     return res
 
 
+def dynamic_tape_path(backend: str, state: dict, feats, rig, c2w, dev) -> dict:
+    """Phase 4m (K13e, K13f), the temporal tape path through the public
+    entry points on ``backend``, on the deep dynamic scene (``rig``: the
+    leaf centres skinned to the seeded skeleton, N_FRAMES poses):
+    `record_dynamic_persp` (compacted and not, with t), then
+    `render_dynamic_tape_frames` exact, fast and uncompacted, each with
+    rotations and depth; a two-frame pool stack's gradient through
+    `render_tape_frames` (float32 and bf16; K13e); a 3-view 800x800 rig tape
+    frame (`render_persp_rig_tape`). Launch counts are read around these;
+    then the frames are checked against `render_dynamic_frames` on the same
+    inputs (uncompacted exact bit for bit, compacted within 2e-6, depths
+    bit for bit; fast mode against the fused loop with the box advance and
+    skip boxes off), the gradients against per-frame K13d calls, and each
+    rig view against `render_persp` bit for bit. Then the host ms of a
+    frame with the tape passed in and through the cache key (which hashes
+    the animation on the host). Returns the counts, the exact outputs, the
+    times and the compacted tape with frame 0's index table."""
+    tree = stt.tree_from_numpy(state, device=dev)
+    r = stt.VolumeRenderer(tree, backend=backend)
+    if backend == "baked":
+        tree._baked_spec()
+    kw = dict(c2w=c2w, width=WIDTH, height=HEIGHT, fx=FX, update_tree=False, with_depth=True)
+    cams = np.stack([orbit_camera(theta=t) for t in (0.5, 2.6, 4.7)])
+    stack2 = torch.stack([feats, feats * 1.05])
+    g2 = torch.from_numpy(np.random.RandomState(15).randn(2, WIDTH * HEIGHT, 4).astype(np.float32)).to(dev)
+    res, out, grads = {}, {}, {}
+    reset_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tape = r.record_dynamic_persp(c2w, *rig, WIDTH, HEIGHT, FX, record_t=True)
+        torch.cuda.synchronize()
+        res["record_ms"] = (time.perf_counter() - t0) * 1e3
+        r.record_dynamic_persp(c2w, *rig, WIDTH, HEIGHT, FX, compact=False, record_t=True)
+        for name, fast, compact in (("exact", False, True), ("fast", True, True), ("full", False, False)):
+            out[name] = r.render_dynamic_tape_frames(feats, *rig, fast=fast, compact=compact, **kw)
+        st_tape = r.record_persp(c2w, WIDTH, HEIGHT, FX, features=feats)
+        rig_img = r.render_persp_rig_tape(feats, cams, WIDTH, HEIGHT, FX)
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        x = stack2.to(dtype).detach().requires_grad_()
+        o = r.render_tape_frames(st_tape, x)
+        (o * g2).sum().backward()
+        grads[kind] = (x.detach(), o.detach(), x.grad)
+    counts = read_counts()
+    sfx = SUFFIX[backend]
+    n_fr = N_FRAMES
+    want = {"tape_replay_fwd": 3 * n_fr + 2 + 1, "tape_replay_fwd_bf16": 2, "tape_depth": 3 * n_fr,
+            "tape_replay_bwd_frames": 1, "tape_replay_bwd_frames_bf16": 1, "tape_replay_bwd": 0,
+            "warp_fwd": 2 * n_fr + 3 * n_fr, "construct_tree": 2 * n_fr + 3 * n_fr,
+            "tape_count" + sfx: 4, "tape_record" + sfx: 4, "render_fwd" + sfx: 0, "first_hit" + sfx: 0}
+    for k, n in want.items():
+        check(counts[k] == n, f"dynamic tape path ({backend}): {k} launched {counts[k]} times, not {n}")
+    if backend == "baked":
+        check(counts["points_aabb"] == 2 * n_fr and counts["bake_refresh"] == 2,
+              "dynamic tape path: the union pre-pass did not refresh the bake once per record")
+    else:
+        check_bake_counts(counts, backend, 0)
+    with torch.no_grad():
+        fused = r.render_dynamic_frames(feats, *rig, **kw)
+        check(torch.equal(out["full"][0], fused[0]) and torch.equal(out["full"][1], fused[1]),
+              f"uncompacted dynamic tape ({backend}): not render_dynamic_frames bit for bit")
+        e_c = float((out["exact"][0] - fused[0]).abs().max())
+        check(e_c <= 2e-6 and torch.equal(out["exact"][1], fused[1]),
+              f"compacted dynamic tape ({backend}): {e_c} from render_dynamic_frames, or depths differ")
+        r_nb = stt.VolumeRenderer(tree, backend=backend)
+        r_nb.box_advance = r_nb.skip_boxes = 0
+        fused_f = r_nb.render_dynamic_frames(feats, *rig, fast=True, **kw)
+        e_f = float((out["fast"][0] - fused_f[0]).abs().max())
+        check(e_f <= 2e-6 and torch.equal(out["fast"][1], fused_f[1]),
+              f"fast dynamic tape ({backend}): {e_f} from the fused loop without box advance, or depths differ")
+        cols, deps = out["exact"]
+        check(tuple(cols.shape) == (N_FRAMES, HEIGHT, WIDTH, 4) and tuple(deps.shape) == (N_FRAMES, HEIGHT, WIDTH, 1)
+              and bool(torch.isfinite(cols).all()) and bool((deps > 0).any()) and bool((cols[..., 3] == 0).any()),
+              "dynamic tape frames: shapes, non-finite values, or no hit or no miss")
+        opt = r._get_options(False)
+        spec = r._render_spec()
+        e_g = {}
+        for kind, (x, o, gx) in grads.items():
+            check(gx.dtype == x.dtype and float(gx.float().abs().max()) > 0, f"{kind} stack gradient")
+            err = atomic_err if kind == "f32" else bf16_grad_err
+            e_g[kind] = max(err(gx[n], tape_ops.replay_backward_cuda(st_tape, x[n], opt, g2[n], o[n], spec),
+                                f"render_tape_frames {kind} frame {n} vs K13d") for n in range(2))
+        for v in range(len(cams)):
+            check(torch.equal(rig_img[v], r.render_persp(feats, cams[v], WIDTH, HEIGHT, fx=FX)),
+                  f"rig tape view {v} ({backend}): not render_persp bit for bit")
+    print(f"main path, dynamic tapes ({LABEL[backend]}): launches {nonzero(counts)}; record "
+          f"{res['record_ms']:.3f} ms ({tape.n_samples} cells of {tape.n_rays} rays); uncompacted frames equal "
+          f"to render_dynamic_frames bit for bit, compacted {e_c:.3g}, fast {e_f:.3g} from it, depths bit for "
+          f"bit; two-frame stack gradients vs K13d {e_g['f32']:.3g} (bf16 {e_g['bf16']:.3g}); {len(cams)}-view "
+          f"rig frame equal to render_persp bit for bit")
+    # Host ms per frame, least of 3 calls: the tape passed in, and the way
+    # bench.py calls it (recorded already: a cache hit, whose key hashes the
+    # animation's arrays on the host).
+    with torch.no_grad():
+        for label, fast, tp in (("explicit", False, tape), ("cached", False, None), ("cached_fast", True, None)):
+            dts = []
+            for i in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r.render_dynamic_tape_frames(feats * (1.0 + 1e-3 * i), *rig, tape=tp, fast=fast, **kw)
+                torch.cuda.synchronize()
+                dts.append((time.perf_counter() - t0) * 1e3 / N_FRAMES)
+            res[label + "_frame_ms"] = min(dts[1:])
+        tk = stt.get_transformation_matrix(rig[1], rig[0][0])
+        warped, _ = stt.warp_vertices(tk, *rig[2:])
+        table = tape_ops.pack_index_table(query_ops.construct_tree(tree._spec(), warped))
+    print(f"main path, dynamic tapes ({LABEL[backend]}): host ms per frame (least of 3 calls of {N_FRAMES} frames, "
+          f"exact, rotations and depth) with the tape passed in {res['explicit_frame_ms']:.4f}, through the cache "
+          f"key {res['cached_frame_ms']:.4f} (fast {res['cached_fast_frame_ms']:.4f})")
+    return dict(counts=counts, exact=out["exact"], ms=res, depth_case=(tape, table))
+
+
+def dynamic_tape_times(make_bench_tree, bench_cloud, deep_state, bench7, c2w, dev, card) -> dict:
+    """bench.py's temporal tape keys on the default bake, as bench.py times
+    them (host clock, `float(outs.sum())` per call, least of 3 after a warm
+    call, per frame). bench.py's dynamic cloud (`bench.py:676-772`,
+    ``make_bench_tree`` its tree, baked as bench.py's fused frames leave
+    it): `dynamic_tape_record_s` (a first `record_dynamic_persp`) and
+    `dynamic_tape_record_warm_s` (again after clearing the cache);
+    `dynamic_tape_frame_ms` and `dynamic_tape_fast_frame_ms` (four frames of
+    `render_dynamic_tape_frames` per call). Its deep cloud (`bench.py:791-846`,
+    `bench_deep_dynamic_cloud`: the depth-9 shell, its table reset and
+    pointed at 40,000 points, step 1e-3): `deep9_dyn_record_s` (which bakes the
+    re-pointed tree on the host, as bench.py's does), `deep9_dyn_tape_frame_ms`,
+    `deep9_dyn_tape_mrays_s`. The headline depth-7 scene (``bench7``):
+    `tape_fwd_bwd_ms`, a 16-frame stack's gradient through
+    `replay_render_frames` (one K13e launch) per call, / 16, and
+    `tape_fwd_bwd_mrays_s` (`bench.py:204-265`). The animation's arrays are
+    NumPy, as bench.py passes them."""
+    res = {}
+    B = WIDTH * HEIGHT
+    persp = dict(c2w=c2w, width=WIDTH, height=HEIGHT, fx=BENCH_FX, update_tree=False)
+
+    def timed_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def least(run):
+        run(0)
+        return min(timed_s(lambda: run(i + 1)) for i in range(3))
+
+    args = [bench_cloud[k] for k in ("poses", "src_pose", "points", "skinning_weights", "joint_index")]
+    n_fr = args[0].shape[0]
+    feats = torch.from_numpy(bench_cloud["features"]).to(dev)
+    tree = make_bench_tree()
+    tree._baked_spec()
+    r = stt.VolumeRenderer(tree)
+    with torch.no_grad():
+        rec = lambda: r.record_dynamic_persp(c2w, *args, WIDTH, HEIGHT, BENCH_FX)  # noqa: E731
+        res["dynamic_tape_record_s"] = timed_s(rec)
+        r._tape_cache.clear()
+        res["dynamic_tape_record_warm_s"] = timed_s(rec)
+        for fast, key in ((False, "dynamic_tape_frame_ms"), (True, "dynamic_tape_fast_frame_ms")):
+            res[key] = least(lambda i: float(r.render_dynamic_tape_frames(
+                feats * (1.0 + 1e-3 * i), *args, fast=fast, **persp).sum())) * 1e3 / n_fr
+        deep = bench_deep_dynamic_cloud()
+        dargs = [deep[k] for k in ("poses", "src_pose", "points", "skinning_weights", "joint_index")]
+        dfeats = torch.from_numpy(deep["features"]).to(dev)
+        dtree = stt.tree_from_numpy(dict(deep_state, data=np.full_like(deep_state["data"], stt.DATA_SENTINEL)),
+                                    device=dev)
+        dtree.construct_tree(deep["points"])
+        dr = stt.VolumeRenderer(dtree, step_size=1e-3)
+        res["deep9_dyn_record_s"] = timed_s(lambda: dr.record_dynamic_persp(c2w, *dargs, WIDTH, HEIGHT, BENCH_FX))
+        dd_s = least(lambda i: float(dr.render_dynamic_tape_frames(
+            dfeats * (1.0 + 1e-3 * i), *dargs, **persp).sum())) / dargs[0].shape[0]
+        res["deep9_dyn_tape_frame_ms"] = dd_s * 1e3
+        res["deep9_dyn_tape_mrays_s"] = B / dd_s / 1e6
+        del dtree, dr
+    t7 = stt.tree_from_numpy(bench7[0], device=dev)
+    r7 = stt.VolumeRenderer(t7, step_size=1e-3)
+    f7 = torch.from_numpy(bench7[1]).to(dev)
+    tp7 = r7.record_persp(c2w, WIDTH, HEIGHT, BENCH_FX, features=f7, group_size=1)
+    opt7 = r7._get_options(False)
+    n_bwd = 16
+    scales = 1.0 + 1e-7 * torch.arange(n_bwd, dtype=torch.float32, device=dev)
+
+    def fwd_bwd(i):
+        fs = (f7 * (1.0 + 1e-7 * (i + 1)))[None] * scales[:, None, None]
+        fs.requires_grad_()
+        (g,) = torch.autograd.grad(tape_ops.replay_render_frames(tp7, fs, opt7).sum(), fs)
+        return float(g.sum())
+
+    before = tape_ops.TAPE_REPLAY_BWD_FRAMES.launches
+    bwd_s = least(fwd_bwd) / n_bwd
+    check(tape_ops.TAPE_REPLAY_BWD_FRAMES.launches - before == 4, "tape_fwd_bwd: not one K13e per call")
+    res["tape_fwd_bwd_ms"] = bwd_s * 1e3
+    res["tape_fwd_bwd_mrays_s"] = B / bwd_s / 1e6
+    print(f"bench.py temporal tape keys (default bake; host clock, synchronized, least of 3 calls after a warm "
+          f"one): dynamic_tape_record_s {res['dynamic_tape_record_s']:.4f}, dynamic_tape_record_warm_s "
+          f"{res['dynamic_tape_record_warm_s']:.4f}, dynamic_tape_frame_ms {res['dynamic_tape_frame_ms']:.4f}, "
+          f"dynamic_tape_fast_frame_ms {res['dynamic_tape_fast_frame_ms']:.4f}; deep9_dyn_record_s "
+          f"{res['deep9_dyn_record_s']:.4f}, deep9_dyn_tape_frame_ms {res['deep9_dyn_tape_frame_ms']:.4f}, "
+          f"deep9_dyn_tape_mrays_s {res['deep9_dyn_tape_mrays_s']:.3f}; tape_fwd_bwd_ms "
+          f"{res['tape_fwd_bwd_ms']:.4f}, tape_fwd_bwd_mrays_s {res['tape_fwd_bwd_mrays_s']:.3f} [{card}]")
+    return res
+
+
+def depth_census(tp, feats, sigma_thresh: float, table=None) -> dict:
+    """What K13f reads on tape ``tp``: per ray the samples up to its first
+    hit (all of its run without one), the resident ones among them (a sigma
+    value each), and its hits (a t value each)."""
+    B, n = tp.n_rays, tp.n_samples
+    dev = tp.device
+    rows = tp.idx if table is None else tape_ops._resolve_cells(table.reshape(-1), tp.idx)
+    ok = (rows >= 0) & (rows < feats.shape[0])
+    sigma = feats[torch.where(ok, rows, 0).long(), -1].float()
+    pos = torch.arange(n, device=dev)
+    ray = torch.repeat_interleave(torch.arange(B, device=dev), tp.counts.long())
+    first = torch.full((B,), n, dtype=torch.long, device=dev).scatter_reduce(
+        0, ray, torch.where(ok & (sigma > sigma_thresh), pos, n), "amin")
+    found = first < n
+    read = pos < torch.where(found, first + 1, tp.offsets[1:].long())[ray]
+    return dict(rays=B, read=int(read.sum()), resident=int((read & ok).sum()), hits=int(found.sum()),
+                indirect=table is not None, elem=POOL_ELEM[render_ops.pool_kind(feats)])
+
+
+def tape_frames_bounds(c_b: dict, n: int, M: int, D: int, dc: dict) -> dict:
+    """bound_ms and bound_by of K13e and K13f. K13e over N_STACK frames of
+    the bake's compacted exact tape (``n`` samples; ``c_b`` the bake's
+    census): one read of the streams (offsets, row and step, dscale and the
+    view direction) and N_STACK times K13d's rows, output, output gradient
+    and (M, D) float32 gradient, with N_STACK times K13d's operations. K13f
+    on the tape of ``dc`` (`depth_census`): the offsets and dscale, the
+    idx stream up to each ray's hit with a table entry each on an indirect
+    tape, a sigma value per resident sample read, a t value per hit, and
+    the (B,) output; a compare per sample read and a multiply per hit."""
+    R, B = c_b["rows"], c_b["rays"]
+    stream = (B + 1) * 4 + n * 8 + B * 16
+    out = {}
+    for kind, e in (("f32", 4), ("bf16", 2)):
+        psfx = "" if kind == "f32" else "_" + kind
+        out["tape_replay_bwd_frames" + psfx] = (
+            stream + N_STACK * (2 * B * 16 + R * D * e + M * D * 4), N_STACK * OPS_BWD_SH9 * c_b["contrib"])
+    Bd = dc["rays"]
+    out["tape_depth"] = ((Bd + 1) * 4 + Bd * 4 + dc["read"] * (8 if dc["indirect"] else 4)
+                         + dc["resident"] * dc["elem"] + dc["hits"] * 4 + Bd * 4, dc["read"] + dc["hits"])
+    return _bounds(out)
+
+
 def tape_bounds(c: dict, c_b: dict, n_samples: dict, M: int, D: int) -> dict:
     """bound_ms and bound_by of the tape kernels, from the SH9 camera
     march's census on each structure (``c`` the tree walk, ``c_b`` the
@@ -1409,6 +1730,50 @@ def tape_kernel_times(tp, specs: dict, feats, origins, dirs, opt, plain_ms: dict
             u_ms = time_ms(lambda: tape_ops.replay_forward_cuda(full, feats, opt, spec), KERNEL_REPS)
             print(f"time tape_replay_fwd on the uncompacted tape ({full.n_samples} samples): {u_ms:.4f} ms "
                   f"(K2 {k2_ms:.4f} ms) [{card}]")
+
+
+def tape_frames_kernel_times(tp, spec, feats, origins, dirs, opt, depth_case, plain_ms: dict, kernels: dict,
+                             dev, card: str) -> dict:
+    """Times of K13e and K13f (CUDA events over KERNEL_REPS calls). K13e on
+    N_STACK pools (float32, bf16) over the bake's compacted exact tape
+    ``tp``, beside N_STACK K13d calls, one K13d call and one K3 call on the
+    first pool in the same turn (K13d / K3 is the ratio that says whether
+    the frame axis moved K13d). K13f on the main path's tape (``depth_case``:
+    phase 4m's compacted dynamic tape on the bake and frame 0's index
+    table), and on ``tp`` beside K9b's first-hit kernel on the same rays.
+    Plain: one call (K13e's from phase 3g). Returns K13f's census on the
+    main path's tape (`depth_census`)."""
+    with torch.no_grad():
+        for psfx, dtype in (("", torch.float32), ("_bf16", torch.bfloat16)):
+            stack = torch.stack([feats * (1.0 + 0.1 * n) for n in range(N_STACK)]).to(dtype)
+            outs = torch.stack([tape_ops.replay_forward_cuda(tp, f, opt, spec)[0] for f in stack])
+            g = torch.from_numpy(np.random.RandomState(16).randn(*outs.shape).astype(np.float32)).to(dev)
+            e_ms = time_ms(lambda: tape_ops.replay_backward_frames_cuda(tp, stack, opt, g, outs, spec),
+                           KERNEL_REPS)
+            d_ms = time_ms(lambda: [tape_ops.replay_backward_cuda(tp, stack[n], opt, g[n], outs[n], spec)
+                                    for n in range(N_STACK)], KERNEL_REPS)
+            one_ms = time_ms(lambda: tape_ops.replay_backward_cuda(tp, stack[0], opt, g[0], outs[0], spec),
+                             KERNEL_REPS)
+            k3_ms = time_ms(lambda: render_ops.volume_render_backward_cuda(
+                spec, stack[0], origins, dirs, dirs, g[0], opt, out_res=outs[0]), KERNEL_REPS)
+            p_ms = plain_ms["tape_replay_bwd_frames" + psfx]
+            kernels["tape_replay_bwd_frames" + psfx].update(ms=e_ms, plain_ms=p_ms)
+            print(f"time tape_replay_bwd_frames{psfx} (SH9 exact {WIDTH}x{HEIGHT}, {N_STACK} frames, "
+                  f"{tp.n_samples} samples): kernel {e_ms:.4f} ms, {N_STACK} K13d calls {d_ms:.4f} ms "
+                  f"({d_ms / e_ms:.3f}x) in the same turn; one K13d {one_ms:.4f} ms, K3 {k3_ms:.4f} ms "
+                  f"(K13d / K3 {one_ms / k3_ms:.4f}); plain {p_ms:.1f} ms (one call, phase 3g) [{card}]")
+            del stack, outs, g
+        dtp, table = depth_case
+        d_ms = time_ms(lambda: tape_ops.replay_depth_cuda(dtp, feats, opt.sigma_thresh, table), KERNEL_REPS)
+        _, dp_ms = timed_once_ms(lambda: tape_ops.replay_depth_plain(dtp, feats, opt.sigma_thresh, table))
+        s_ms = time_ms(lambda: tape_ops.replay_depth_cuda(tp, feats, opt.sigma_thresh), KERNEL_REPS)
+        fh_ms = time_ms(lambda: aux_ops.first_hit_cuda(spec, feats, origins, dirs, opt), KERNEL_REPS)
+        kernels["tape_depth"].update(ms=d_ms, plain_ms=dp_ms)
+        print(f"time tape_depth (exact {WIDTH}x{HEIGHT}): the main path's indirect tape ({dtp.n_samples} cells, "
+              f"frame 0's table) kernel {d_ms:.4f} ms, plain {dp_ms:.1f} ms (one call); the bake's direct tape "
+              f"({tp.n_samples} samples) {s_ms:.4f} ms, K9b's first hit on the bake's rays {fh_ms:.4f} ms in "
+              f"the same turn, plain {plain_ms['tape_depth', '_baked', False, True]:.1f} ms (phase 3g) [{card}]")
+        return depth_census(dtp, feats, opt.sigma_thresh, table)
 
 
 def train(tree, true_pool, pool0, centers, perms, prior_points, steps,
@@ -1750,13 +2115,19 @@ def main() -> None:
     # K13: the tape recorder (svox_t_tpu/ops/tape.py:260 `_count_samples`,
     # :302 `_record_chunks`) and replay (:705 `_replay_fwd_impl`, :962
     # `_replay_bwd_impl`).
+    # K13e, the frame axis of the replay backward (:1215
+    # `_replay_bwd_frames_impl`), and K13f, the depth replay (:1311
+    # `_replay_depth_impl`).
     for name in TAPE_KERNELS:
         base, sfx = name.split("_baked")[0], "_baked" if "_baked" in name else ""
         if base in ("tape_count", "tape_record"):
             src, line = f"tape_record{sfx}.cu", 260 if base == "tape_count" else 302
+        elif name == "tape_depth":
+            src, line = "tape_depth.cu", 1311
         else:
-            src = "tape_replay.cuh" if name.endswith(("_bf16", "_i8")) else name + ".cu"
-            line = 705 if "_fwd" in name else 962
+            src = ("tape_replay.cuh" if name.endswith(("_bf16", "_i8"))
+                   else name.replace("_frames", "") + ".cu")
+            line = 705 if "_fwd" in name else 1215 if "_frames" in name else 962
         kernels[name] = dict(route="cuda", source=f"svox_t_tpu_torch/csrc/{src}",
                              replaces=f"svox_t_tpu/ops/tape.py:{line}")
 
@@ -2925,12 +3296,41 @@ def main() -> None:
             check(counts[k] == n, f"tape path ({backend}): {k} launched {counts[k]} times, not {n}")
         check_bake_counts(counts, backend, 0)
         tape_ms[backend] = tape_times(backend, {7: bench7, DEPTH: (state, feats_np)}, dev, card)
+
+    # 4m. Main path, the temporal tape path (K13e, K13f) on both backends
+    # (`dynamic_tape_path`): the deep dynamic scene's data-indirect tape,
+    # recorded once against the animation's union occupancy; its frames
+    # exact, fast and uncompacted with rotations and depth, held to
+    # render_dynamic_frames; a two-frame stack's gradient through
+    # render_tape_frames; a 3-view rig frame. Then bench.py's temporal tape
+    # keys on the default bake, beside the march's.
+    t_4m = time.perf_counter()
+    dyn_tape_counts, dyn_tape_ms, dyn_tape_exact = {}, {}, {}
+    for backend in BACKENDS:
+        res = dynamic_tape_path(backend, state, feats, rig, c2w, dev)
+        dyn_tape_counts[backend], dyn_tape_ms[backend] = res["counts"], res["ms"]
+        dyn_tape_exact[backend] = res["exact"]
+        if backend == "baked":
+            depth_case = res["depth_case"]
+    check(all(torch.equal(a, b_) for a, b_ in zip(dyn_tape_exact["baked"], dyn_tape_exact["tree"])),
+          "the backends' exact dynamic tape frames differ")
+    del dyn_tape_exact
+    dyn_tape_keys = dynamic_tape_times(bench_tree_on_card, bd, state, bench7, c2w, dev, card)
+    print(f"temporal tapes beside the march (default bake): dynamic_tape_frame_ms "
+          f"{dyn_tape_keys['dynamic_tape_frame_ms']:.4f} vs dynamic_fused_frame_ms "
+          f"{bench_ms['dynamic_fused_frame_ms']:.4f}, dynamic_tape_fast_frame_ms "
+          f"{dyn_tape_keys['dynamic_tape_fast_frame_ms']:.4f} vs dynamic_fast_frame_ms "
+          f"{bench_ms['dynamic_fast_frame_ms']:.4f}; tape_fwd_bwd_ms {dyn_tape_keys['tape_fwd_bwd_ms']:.4f} vs "
+          f"tape_fwd_bwd_seq_ms {tape_ms['baked']['tape_fwd_bwd_seq_ms']:.4f}; deep dynamic frame (rotations, "
+          f"depth) through the tape {dyn_tape_ms['baked']['explicit_frame_ms']:.4f} (cache key "
+          f"{dyn_tape_ms['baked']['cached_frame_ms']:.4f}) vs dynamic_deep9_baked_frame_ms "
+          f"{dyn_ms['dynamic_deep9_baked_frame_ms']:.4f}; phase 4m {time.perf_counter() - t_4m:.1f} s [{card}]")
     del bench7
 
     phases = (*serve_counts.values(), *train_counts.values(), *aux_serve_counts.values(),
               *aux_train_counts.values(), *dyn_counts, vox_counts, *dyn_train_counts.values(),
               pose_counts, *bench_counts.values(), edit_counts, *interp_counts.values(),
-              *pool_counts.values(), *tape_counts.values())
+              *pool_counts.values(), *tape_counts.values(), *dyn_tape_counts.values())
     for k in kernels:
         kernels[k]["launches"] = sum(c[k] for c in phases)
         check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
@@ -3215,8 +3615,12 @@ def main() -> None:
 
     # The tape kernels (K13) on the depth-9 shell before its re-points
     # (phase 3g's structures and tape), each beside the march kernel.
-    tape_kernel_times(tape_res["samples"].pop("tape"), {"": spec, "_baked": baked}, feats, origins, dirs,
+    tp9 = tape_res["samples"].pop("tape")
+    tape_kernel_times(tp9, {"": spec, "_baked": baked}, feats, origins, dirs,
                       sh_renderer._get_options(False), tape_res["plain_ms"], kernels, dev, card)
+    dcensus = tape_frames_kernel_times(tp9, baked, feats, origins, dirs, sh_renderer._get_options(False),
+                                       depth_case, tape_res["plain_ms"], kernels, dev, card)
+    del tp9, depth_case
 
     # Forward + backward of a render loss, as bench.py names it:
     # fwd_bwd_ms sustained (CUDA events over KERNEL_REPS calls),
@@ -3289,6 +3693,8 @@ def main() -> None:
     p2v_c = p2v_census(warped1, grid)
     bounds.update(dynamic_bounds(M, N_BONES, N_JOINTS, 28, P2V_N, p2v_c, touched))
     bounds.update(tape_bounds(census, census_b, tape_res["samples"], M, 28))
+    bounds.update(tape_frames_bounds(census_b, tape_res["samples"]["_baked", False, True], M, 28, dcensus))
+    print(f"census (K13f on the main path's dynamic tape, frame 0): {dcensus}")
     print(f"census (voxelize, {P2V_N}^3, W {grid.W}): {p2v_c}, {touched} voxels touched")
     for k, b in bounds.items():
         kernels[k].update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])

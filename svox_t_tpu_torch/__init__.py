@@ -19,9 +19,13 @@ frame loop (`VolumeRenderer.render_dynamic_frames`) LBS-warps the
 canonical cloud per frame (`warp_vertices`), re-points the tree and
 renders; `voxelize` splats a cloud into a density grid, and
 `render_frames` / `render_persp_frames` render a stack of pools. Recorded
-sample tapes (`record_tape`, `replay_render`; `VolumeRenderer.record_rays`
-/ `render_tape`, `render_persp_tape`) record a ray batch's samples once
-and replay any pool over them with no structure walk. A pool
+sample tapes (`record_tape`, `replay_render`, `replay_render_frames`,
+`replay_depth`; `VolumeRenderer.record_rays` / `render_tape`,
+`render_persp_tape`, `render_persp_rig_tape`, `render_tape_frames`) record
+a ray batch's samples once and replay any pool, or a stack of pools, over
+them with no structure walk; `render_dynamic_tape_frames` serves an
+animation through one data-indirect tape recorded against its union
+occupancy. A pool
 is float32 or bfloat16, or int8 through `quantize_features` (K5). The
 renderer marches the tree's bake by default (`ops/bake.py`: a dense top
 grid and brick atlas, refreshed at every re-point), as the JAX package
@@ -50,8 +54,8 @@ from .ops.render_aux import (motion_feature_render, motion_render,
 from .ops.warp import (blend_transformation_matrix, get_transformation_matrix,
                        warp_vertices)
 from .ops.p2v import voxelize
-from .ops.tape import (RayTape, pack_index_table, record_tape, replay_render,
-                       replay_render_weighted)
+from .ops.tape import (RayTape, pack_index_table, record_tape, replay_depth, replay_render,
+                       replay_render_frames, replay_render_weighted)
 
 __all__ = [
     "N3Tree",
@@ -85,6 +89,8 @@ __all__ = [
     "record_tape",
     "replay_render",
     "replay_render_weighted",
+    "replay_render_frames",
+    "replay_depth",
     "pack_index_table",
     "QuantizedFeatures",
     "quantize_features",

@@ -13,7 +13,7 @@ The march headers (`render_fwd.cuh`, `render_bwd.cuh`, `render_aux.cuh`)
 are instantiated once per compile: the float32 instances by the
 `render_*.cu` sources, the bf16 and int8 pool instances (K5) from the
 `POOL_INSTANCES` table, whose macros go to nvcc as ``-D`` flags. The tape
-replay header (`tape_replay.cuh`, K13c/d) has no structure or interp axis:
+replay header (`tape_replay.cuh`, K13c-e) has no structure or interp axis:
 its passes compile once per pool type (`FLAT_HEADERS`).
 
 ``-fmad=false`` keeps every multiply and add separately rounded, as the

@@ -1,18 +1,25 @@
-// K13c and K13d: the replay of a recorded sample tape, forward and
+// K13c, K13d and K13e: the replay of a recorded sample tape, forward and
 // backward. No structure walk, so no structure axis: a compile picks the
 // pass with SVOX_TAPE_PASS (0 the forward, svox_tape_replay_fwd; 1 the
-// backward, svox_tape_replay_bwd) and the pool type with SVOX_POOL (K5).
-// tape_replay_fwd.cu and tape_replay_bwd.cu are the float32 pool's
-// compiles; the bf16 and int8 instances come from `_build.POOL_INSTANCES`
-// (svox_tape_replay_fwd_bf16, ..._fwd_i8, ..._bwd_bf16; a quantized pool
-// takes no gradient).
+// backward, svox_tape_replay_bwd and svox_tape_replay_bwd_frames) and the
+// pool type with SVOX_POOL (K5). tape_replay_fwd.cu and tape_replay_bwd.cu
+// are the float32 pool's compiles; the bf16 and int8 instances come from
+// `_build.POOL_INSTANCES` (svox_tape_replay_fwd_bf16, ..._fwd_i8,
+// ..._bwd_bf16, ..._bwd_frames_bf16; a quantized pool takes no gradient).
 //
 // Replaces: svox_t_tpu/ops/tape.py `_replay_fwd_impl` (K13c, with its
-// weight accumulation and `_resolve_cells`) and `_replay_bwd_impl` (K13d,
-// exact mode). The TPU version replayed (K, C) rounds of count-sorted
-// chunks through flat round programs; here one thread replays one ray's
-// run of the flat tape (tape_record.cuh): samples offsets[i] to
-// offsets[i + 1], each a streamed (row, dt) pair.
+// weight accumulation and `_resolve_cells`), `_replay_bwd_impl` (K13d,
+// exact mode) and `_replay_bwd_frames_impl` (K13e: N independent replay
+// gradients of one tape over a stack of N pools). The TPU version replayed
+// (K, C) rounds of count-sorted chunks through flat round programs, and
+// K13e flushed the N frames' rows in one wide scatter; here one thread
+// replays one ray's run of the flat tape (tape_record.cuh): samples
+// offsets[i] to offsets[i + 1], each a streamed (row, dt) pair. The
+// backward has a frame axis, blockIdx.y: thread (i, n) runs ray i's single
+// pass on frame n's pool rows, grad_out[n, i] and out[n, i] and adds into
+// grad[n]. K13d is its launch with one frame; K13e launches the N frames
+// at once, and the frames read the same tape streams, which stay in L2
+// after the first frame's blocks have read them.
 //
 // Per sample the radiometry is K2's (render_fwd.cuh) operation for
 // operation, and the backward's K3's single pass (render_bwd.cuh): rows
@@ -43,7 +50,9 @@
 // samples but the compositing. The design answer is K2's: a ray per
 // thread, basis and color sums in registers, format, rotation and the
 // basis capacity as template parameters, small blocks. The backward adds
-// K3's atomics.
+// K3's atomics. K13e's bound is N times K13d's rows and gradient bytes plus
+// one read of the streams: the frame axis lets the N frames' blocks share
+// the streams through L2 instead of N launches each reading them.
 
 #pragma once
 
@@ -82,6 +91,7 @@ struct Params {
   const float* grad_out;
   const float* out_res;
   float* grad;
+  int n_frames;            // the backward's frame axis (1 but for K13e)
 };
 
 // The row of sample k: the recorded row, or on a data-indirect tape the
@@ -209,12 +219,18 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 #else  // SVOX_TAPE_PASS == 1
 
-// K13d on ray i, exact options: K3's single pass over the tape's samples.
+// K13d on ray i of frame n, exact options: K3's single pass over the
+// tape's samples. Frame n's pool, gradient, output and output gradient lie
+// n (M, D) and n (B, n_color + 1) blocks into their stacks.
 template <int FMT, int BD, bool kRot, bool kIndirect>
-__device__ __forceinline__ void replay_bwd(const Params& p, int i) {
+__device__ __forceinline__ void replay_bwd(const Params& p, int i, int n) {
   constexpr int kB = FMT == svox::kRGBA ? 1 : BD;
   const int nc = p.n_color;
   const int nb = FMT == svox::kSH ? BD : p.basis_dim;
+  const size_t frame_pool = static_cast<size_t>(n) * p.M * p.D;
+  const auto features = p.features + frame_pool;
+  float* const grad = p.grad + frame_pool;
+  const size_t ray = static_cast<size_t>(n) * p.B + i;
   const float vx = p.vdirs[3 * i + 0];
   const float vy = p.vdirs[3 * i + 1];
   const float vz = p.vdirs[3 * i + 2];
@@ -223,13 +239,13 @@ __device__ __forceinline__ void replay_bwd(const Params& p, int i) {
     svox::eval_basis<FMT, BD>(vx, vy, vz, p.extra, p.ld_extra, nb, p.min_comp, p.max_comp,
                               basis);
   }
-  const float* go = p.grad_out + static_cast<size_t>(i) * (nc + 1);
+  const float* go = p.grad_out + ray * (nc + 1);
   float g[kMaxColor];
 #pragma unroll
   for (int c = 0; c < kMaxColor; ++c) g[c] = c < nc ? go[c] : 0.f;
   const float g_alpha = go[nc];
   // Sums over colors run in channel order, as K3 sums them.
-  const float* o = p.out_res + static_cast<size_t>(i) * (nc + 1);
+  const float* o = p.out_res + ray * (nc + 1);
   float acc = o[0] * g[0];
 #pragma unroll
   for (int c = 1; c < kMaxColor; ++c) {
@@ -242,8 +258,8 @@ __device__ __forceinline__ void replay_bwd(const Params& p, int i) {
   for (int32_t k = p.offsets[i]; k < end; ++k) {
     const int32_t idx = sample_row<kIndirect>(p, k);
     if (static_cast<uint32_t>(idx) >= static_cast<uint32_t>(p.M)) continue;
-    const auto row = p.features + static_cast<size_t>(idx) * p.D;
-    float* grow = p.grad + static_cast<size_t>(idx) * p.D;
+    const auto row = features + static_cast<size_t>(idx) * p.D;
+    float* grow = grad + static_cast<size_t>(idx) * p.D;
     const float sigma = svox::ld(row + p.D - 1);
     if (!(sigma > 0.f)) continue;
     const float dt = __ldg(p.dt + k);
@@ -299,15 +315,15 @@ __global__ void __launch_bounds__(kThreads) replay_bwd_kernel(const Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
   if (p.table != nullptr) {
-    replay_bwd<FMT, BD, kRot, true>(p, i);
+    replay_bwd<FMT, BD, kRot, true>(p, i, blockIdx.y);
   } else {
-    replay_bwd<FMT, BD, kRot, false>(p, i);
+    replay_bwd<FMT, BD, kRot, false>(p, i, blockIdx.y);
   }
 }
 
 template <int FMT, int BD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.B + kThreads - 1) / kThreads);
+  const dim3 grid((p.B + kThreads - 1) / kThreads, p.n_frames);
   if constexpr (FMT != svox::kRGBA) {
     if (p.tmats != nullptr) {
       replay_bwd_kernel<FMT, BD, true><<<grid, kThreads, 0, stream>>>(p);
@@ -374,6 +390,7 @@ Params make_params(const int32_t* offsets, const int32_t* idx, const float* dt,
   p.min_comp = min_comp;
   p.max_comp = max_comp;
   p.n_color = n_color;
+  p.n_frames = 1;
   return p;
 }
 
@@ -416,27 +433,45 @@ extern "C" int SVOX_NAME(svox_tape_replay_fwd)(
 
 #else
 
-// K13d. The tape and pool as svox_tape_replay_fwd (no cells); grad_out and
-// out_res (B, n_color + 1) f32, the output gradient and the forward output
-// (exact options); grad (M, D) f32 whatever the pool's type, zeroed by the
-// caller. All pointers are device pointers. Returns a cudaError_t.
-extern "C" int SVOX_NAME(svox_tape_replay_bwd)(
+// K13e. The tape as svox_tape_replay_fwd (no cells); features (N, M, D) of
+// the source's pool type, a stack of N pools (tmats and extra shared by
+// the frames); grad_out and out_res (N, B, n_color + 1) f32, each frame's
+// output gradient and forward output (exact options); grad (N, M, D) f32
+// whatever the pool's type, zeroed by the caller. N <= 65535 (the grid's
+// y extent). All pointers are device pointers. Returns a cudaError_t.
+extern "C" int SVOX_NAME(svox_tape_replay_bwd_frames)(
     const int32_t* offsets, const int32_t* idx, const float* dt, const float* dscale,
     const float* vdirs, int B, const int32_t* table, int n_table, const void* features,
     const float* scale, const float* zero, int M, int D, const float* tmats, int format,
     const float* extra, int ld_extra, int basis_dim, int min_comp, int max_comp, int n_color,
-    const float* grad_out, const float* out_res, float* grad, int device, cudaStream_t stream) {
+    const float* grad_out, const float* out_res, float* grad, int n_frames, int device,
+    cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B <= 0 || M <= 0) return cudaSuccess;
-  if (n_color < 0 || n_color > kMaxColor) return cudaErrorInvalidValue;
+  if (B <= 0 || M <= 0 || n_frames <= 0) return cudaSuccess;
+  if (n_color < 0 || n_color > kMaxColor || n_frames > 65535) return cudaErrorInvalidValue;
   Params p = make_params(offsets, idx, dt, dscale, vdirs, B, table, n_table, features, scale,
                          zero, M, D, tmats, extra, ld_extra, basis_dim, min_comp, max_comp,
                          n_color);
   p.grad_out = grad_out;
   p.out_res = out_res;
   p.grad = grad;
+  p.n_frames = n_frames;
   return launch_format(p, format, stream);
+}
+
+// K13d: K13e's launch with one frame. grad_out and out_res (B, n_color +
+// 1) f32; grad (M, D) f32, zeroed by the caller.
+extern "C" int SVOX_NAME(svox_tape_replay_bwd)(
+    const int32_t* offsets, const int32_t* idx, const float* dt, const float* dscale,
+    const float* vdirs, int B, const int32_t* table, int n_table, const void* features,
+    const float* scale, const float* zero, int M, int D, const float* tmats, int format,
+    const float* extra, int ld_extra, int basis_dim, int min_comp, int max_comp, int n_color,
+    const float* grad_out, const float* out_res, float* grad, int device, cudaStream_t stream) {
+  return SVOX_NAME(svox_tape_replay_bwd_frames)(
+      offsets, idx, dt, dscale, vdirs, B, table, n_table, features, scale, zero, M, D, tmats,
+      format, extra, ld_extra, basis_dim, min_comp, max_comp, n_color, grad_out, out_res, grad, 1,
+      device, stream);
 }
 
 #endif

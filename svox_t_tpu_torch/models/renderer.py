@@ -15,6 +15,11 @@ the aux passes:
                         skinning_weights, joint_index, rays | c2w, ...)
   record_rays(rays, features | n_features, ...) / render_tape(tape, features)
   record_persp(c2w, width, height, fx, ...) / render_persp_tape(features, c2w, ...)
+  record_persp_rig(c2ws, ...) / render_persp_rig_tape(features, c2ws, ...)
+  render_tape_frames(tape, features_frames, transformation_matrices_frames=None)
+  record_dynamic_rays(rays, tgt_poses, ...) / record_dynamic_persp(c2w, tgt_poses, ...)
+  render_dynamic_tape_frames(features, tgt_poses, src_pose, points,
+                             skinning_weights, joint_index, rays | c2w | tape, ...)
 
 `forward`, `render_persp`, `opacity_render` and the three frame loops
 are differentiable with respect to ``features``, `motion_feature_render`
@@ -56,11 +61,23 @@ the pool and adding weights inside ``tree.accumulate_weights()``.
 `record_persp` records a camera's rays in the pixel order `render_persp`
 renders and caches the tape on (camera, size, the tree's layout and
 occupancy versions, geometry, compaction, record_t); `render_persp_tape`
-is `render_persp` through that cache.
+is `render_persp` through that cache. `record_persp_rig` records V cameras'
+pixels as one tape in (view, pixel) order (`render_persp_rig_tape`), and
+`render_tape_frames` replays a stack of pools over one tape, its backward
+one K13e launch for the stack. The dynamic tapes serve the Artemis frame
+without a structure walk: `record_dynamic_persp` / `record_dynamic_rays`
+re-point the tree by every frame of an animation (the union occupancy) and
+record a data-indirect tape against it, once; `render_dynamic_tape_frames`
+then warps, re-points and packs the frame's index table per frame and
+replays the tape through it (K13c, and K13f for ``with_depth``).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -513,10 +530,13 @@ class VolumeRenderer(nn.Module):
         rays = Rays(*self._camera_rays(c2w, width, height, fx, fy, opt))
         tape = self.record_rays(rays, features=features, n_features=n_features, compact=compact,
                                 spec=spec, opt=opt, record_t=bool(record_t))
+        self._tape_cache_put(key, tape)
+        return tape
+
+    def _tape_cache_put(self, key, tape) -> None:
         while len(self._tape_cache) >= self._tape_cache_max:
             self._tape_cache.pop(next(iter(self._tape_cache)))
         self._tape_cache[key] = tape
-        return tape
 
     def render_persp_tape(self, features, c2w, width=800, height=800,
                           fx=1111.111, fy=None, fast=False, compact=True,
@@ -531,6 +551,277 @@ class VolumeRenderer(nn.Module):
                                  compact=compact, group_size=group_size)
         out = self.render_tape(tape, features, fast=fast)
         return out.reshape(int(height), int(width), -1)
+
+    def record_persp_rig(self, c2ws, width=800, height=800, fx=1111.111,
+                         fy=None, fast=False, features=None, n_features=None,
+                         compact=True, group_size=0, record_t=False):
+        """Record (and cache) one tape of a V-camera capture rig: every
+        view's pixels in (view, pixel) order, recorded together, so that a
+        frame of the whole rig is one replay (`render_persp_rig_tape`, or
+        `render_tape_frames` for an animation). Cached FIFO like
+        `record_persp`, a ``record_t=True`` tape also serving
+        ``record_t=False`` requests. ``group_size`` is accepted for the JAX
+        API and ignored.
+
+        :param c2ws: (V, 3|4, 4) camera-to-world matrices
+        :return: a RayTape with n_rays == V * width * height
+        """
+        del group_size
+        if fy is None:
+            fy = fx
+        opt = self._get_options(fast)
+        spec = self._render_spec()
+        c2ws = torch.as_tensor(c2ws, dtype=torch.float32)
+        if c2ws.ndim != 3:
+            raise ValueError(f"c2ws must be (V, 4, 4), got {tuple(c2ws.shape)}")
+        c2w_key = c2ws.cpu().numpy().tobytes()
+
+        def mk_key(rt):
+            return ("rig", c2w_key, int(width), int(height), float(fx), float(fy),
+                    self.tree._ver, self.tree._occ_ver, tape_ops._geom_key(spec, opt),
+                    bool(compact), rt)
+
+        key = mk_key(bool(record_t))
+        hit = self._tape_cache.get(key)
+        if hit is None and not record_t:
+            hit = self._tape_cache.get(mk_key(True))
+        if hit is not None:
+            return hit
+        views = [self._camera_rays(c2w, width, height, fx, fy, opt) for c2w in c2ws]
+        rays = Rays(*(torch.cat([v[k] for v in views]).contiguous() for k in range(3)))
+        tape = self.record_rays(rays, features=features, n_features=n_features, compact=compact,
+                                spec=spec, opt=opt, record_t=bool(record_t))
+        self._tape_cache_put(key, tape)
+        return tape
+
+    def render_persp_rig_tape(self, features, c2ws, width=800, height=800,
+                              fx=1111.111, fy=None, fast=False, compact=True,
+                              group_size=0):
+        """Render a whole multi-view rig through one cached rig tape
+        (`record_persp_rig`); differentiable with respect to ``features``.
+
+        :return: (V, height, width, n_color + 1)
+        """
+        tape = self.record_persp_rig(c2ws, width, height, fx, fy, fast=fast, features=features,
+                                     compact=compact, group_size=group_size)
+        out = self.render_tape(tape, features, fast=fast)
+        return out.reshape(len(c2ws), int(height), int(width), -1)
+
+    def render_tape_frames(self, tape, features_frames,
+                           transformation_matrices_frames=None, fast=False,
+                           unsort=True):
+        """T animation frames over one recorded tape (`render_frames`' tape
+        counterpart): frame k replays ``features_frames[k]``. Without
+        per-frame matrices the stack goes through `replay_render_frames`,
+        whose backward takes the T gradients in one K13e launch; with
+        ``transformation_matrices_frames`` (T, M, 4, 4) each frame is a
+        `render_tape` with its rotations. Differentiable with respect to the
+        stack. Not inside ``tree.accumulate_weights()``.
+
+        :return: (T, B, n_color + 1)
+        """
+        self._check_no_accumulator("render_tape_frames")
+        opt = self._get_options(fast)
+        features_frames = self._pool(features_frames)
+        if transformation_matrices_frames is None:
+            return tape_ops.replay_render_frames(tape, features_frames, opt, self._render_spec(),
+                                                 unsort=unsort)
+        tms = self._frame_mats(transformation_matrices_frames, features_frames)
+        return torch.stack([tape_ops.replay_render(tape, f, opt, self._render_spec(tm), unsort=unsort)
+                            for f, tm in zip(tape_ops.frame_pools(features_frames), tms)])
+
+    # --- data-indirect (dynamic) tapes ----------------------------------
+
+    def _dyn_geom_options(self, fast=False) -> RenderOptions:
+        """The options of a dynamic tape's record and replay: the box
+        advance and the skip boxes are off (they move samples with the
+        occupancy, which changes every frame); the thresholds of ``fast``
+        stay, as replay-time radiometry."""
+        return dataclasses.replace(self._get_options(fast), box_advance=0, skip_boxes=0)
+
+    def _dyn_inputs(self, tgt_poses, src_pose, points, skinning_weights, joint_index):
+        dev = self.tree.device
+        f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+        return (f32(tgt_poses), f32(src_pose), f32(points), f32(skinning_weights),
+                torch.as_tensor(joint_index, dtype=torch.int32, device=dev))
+
+    def _dyn_union(self, tgt_poses, src_pose, points, skinning_weights, joint_index):
+        """(union structure, Q): the structure a dynamic tape records
+        against. The tree is re-pointed by every frame of the animation
+        (warp and `construct_tree`, the table carried from frame to frame:
+        stale pointers persist, so the last table's occupancy is the union
+        over the frames); on the bake it is refreshed once from that table
+        under the union of the bake's box and the points' leaf boxes."""
+        tgt_poses, src_pose, points, sw, ji = self._dyn_inputs(
+            tgt_poses, src_pose, points, skinning_weights, joint_index)
+        spec = self.tree._spec()
+        baked = self.tree._baked_spec() if self.backend == "baked" else None
+        lo, hi = (baked.aabb_lo, baked.aabb_hi) if baked is not None else (None, None)
+        with torch.no_grad():
+            for tgt in tgt_poses:
+                tk = warp_ops.get_transformation_matrix(src_pose, tgt)
+                warped, _ = warp_ops.warp_vertices(tk, points, sw, ji)
+                new_flat = query_ops.construct_tree(spec, warped)
+                if baked is not None:
+                    lo, hi = query_ops.points_leaf_aabb(spec, warped, union=(lo, hi))
+                spec = spec.with_(data_flat=new_flat)
+            if baked is not None:
+                spec = bake_ops.refresh(baked, spec.data_flat, lo, hi)
+        return spec, int(points.shape[0])
+
+    def _dyn_cache_key(self, tag, parts):
+        """A dynamic tape's cache key: ``tag``, an MD5 of the animation's
+        arrays (copied to the host and hashed on every call, as in the JAX
+        package) and the tree's layout version."""
+        h = hashlib.md5()
+        for p in parts:
+            h.update(np.ascontiguousarray(p).tobytes())
+        return (tag, h.hexdigest(), self.tree._ver)
+
+    def record_dynamic_rays(self, rays: Rays, tgt_poses, src_pose, points,
+                            skinning_weights, joint_index, compact=True,
+                            group_size=1, record_t=False):
+        """Record a data-indirect tape of a ray batch over an animation: the
+        tape survives every re-point the animation makes, and a replay
+        resolves rows through the frame's index table. ``group_size`` is
+        accepted for the JAX API and ignored."""
+        del group_size
+        spec_u, Q = self._dyn_union(tgt_poses, src_pose, points, skinning_weights, joint_index)
+        return self.record_rays(rays, n_features=Q, compact=compact, spec=spec_u,
+                                opt=self._dyn_geom_options(False), indirect=True,
+                                record_t=record_t)
+
+    def record_dynamic_persp(self, c2w, tgt_poses, src_pose, points,
+                             skinning_weights, joint_index, width=800,
+                             height=800, fx=1111.111, fy=None,
+                             compact=True, group_size=0, record_t=False):
+        """Record (and cache) a data-indirect tape of a camera's pixels over
+        an animation: one structure walk serves every frame of
+        `render_dynamic_tape_frames`. The cache key covers the camera, the
+        image size, compaction, record_t, the geometry, the tree's layout
+        version and the animation's arrays; a ``record_t=True`` tape also
+        serves ``record_t=False`` requests. ``group_size`` is accepted for
+        the JAX API and ignored."""
+        del group_size
+        if fy is None:
+            fy = fx
+        opt = self._dyn_geom_options(False)
+        host = lambda x, dtype: torch.as_tensor(x).detach().cpu().numpy().astype(dtype)  # noqa: E731
+        parts = (host(c2w, np.float32), host(tgt_poses, np.float32), host(src_pose, np.float32),
+                 host(points, np.float32), host(skinning_weights, np.float32),
+                 host(joint_index, np.int32))
+
+        def mk_key(rt):
+            return self._dyn_cache_key(
+                ("dyn", int(width), int(height), float(fx), float(fy), bool(compact), rt,
+                 (float(opt.step_size), int(opt.max_steps), int(opt.interp))), parts)
+
+        key = mk_key(bool(record_t))
+        hit = self._tape_cache.get(key)
+        if hit is None and not record_t:
+            hit = self._tape_cache.get(mk_key(True))
+        if hit is not None:
+            return hit
+        spec_u, Q = self._dyn_union(tgt_poses, src_pose, points, skinning_weights, joint_index)
+        rays = Rays(*self._camera_rays(c2w, width, height, fx, fy, opt))
+        tape = self.record_rays(rays, n_features=Q, compact=compact, spec=spec_u, opt=opt,
+                                indirect=True, record_t=bool(record_t))
+        self._tape_cache_put(key, tape)
+        return tape
+
+    def render_dynamic_tape_frames(self, features, tgt_poses, src_pose,
+                                   points, skinning_weights, joint_index,
+                                   tape=None, rays: Rays = None, c2w=None,
+                                   width=800, height=800, fx=1111.111,
+                                   fy=None, fast=False,
+                                   viewdir_rotation=True, update_tree=True,
+                                   compact=True, group_size=0,
+                                   with_depth=False):
+        """`render_dynamic_frames` through a data-indirect tape: per frame k
+        LBS-warp the canonical cloud by pose k, re-point the tree
+        (`construct_tree`, the table carried from frame to frame), pack the
+        frame's index table (`pack_index_table`) and replay the tape's
+        radiometry with this frame's pool, rows resolved through the table
+        (K13c) and the blended matrices as rotations when
+        ``viewdir_rotation``; with ``with_depth`` also the tape's first-hit
+        depth (K13f). No structure walk and no bake refresh in the frame
+        loop. The first call per (camera, animation, structure) records the
+        tape (`record_dynamic_persp` / `record_dynamic_rays`, with
+        ``record_t`` when ``with_depth``), or pass ``tape``. The record and
+        the replays take the options of ``fast`` with the box advance and
+        skip boxes off. Equal to `render_dynamic_frames` under those
+        options, bit for bit with ``compact=False``. Differentiable with
+        respect to ``features``. ``update_tree`` leaves the tree pointed at
+        the last frame, its bake refreshed under the frames' leaf boxes
+        joined to the bake's box. ``group_size`` is accepted for the JAX API
+        and ignored.
+
+        :param features: (Q, data_dim) shared or (T, Q, data_dim) per-frame
+            pool
+        :return: (T, B, n_color + 1) for rays or an explicit tape, (T, H, W,
+            n_color + 1) for a camera; with_depth returns (colors, depths),
+            depths (T, B, 1) / (T, H, W, 1)
+        """
+        if tape is None and (rays is None) == (c2w is None):
+            raise ValueError("pass exactly one of rays and c2w (or an explicit tape)")
+        self._check_no_accumulator("render_dynamic_tape_frames")
+        if tape is None:
+            if c2w is not None:
+                tape = self.record_dynamic_persp(c2w, tgt_poses, src_pose, points, skinning_weights,
+                                                 joint_index, width, height, fx, fy, compact=compact,
+                                                 group_size=group_size, record_t=with_depth)
+            else:
+                tape = self.record_dynamic_rays(rays, tgt_poses, src_pose, points, skinning_weights,
+                                                joint_index, compact=compact, record_t=with_depth)
+        if not tape.indirect:
+            raise ValueError("tape is not data-indirect; record with "
+                             "record_dynamic_persp/record_dynamic_rays")
+        if with_depth and tape.tval is None:
+            raise ValueError("with_depth needs a tape recorded with record_t=True")
+        opt = self._dyn_geom_options(fast)
+        tgt_poses, src_pose, points, sw, ji = self._dyn_inputs(
+            tgt_poses, src_pose, points, skinning_weights, joint_index)
+        T = tgt_poses.shape[0]
+        features = self._pool(features)
+        if features.ndim == 3 and features.shape[0] != T:
+            raise ValueError(f"a per-frame pool stack must have T = {T} frames, got "
+                             f"{features.shape[0]}")
+        pools = tape_ops.frame_pools(features) if features.ndim == 3 else [features] * T
+        tree_spec = spec = self.tree._spec()
+        # The occupied box is carried only where a bake will take it; as in
+        # the JAX package it starts empty, not at the bake's box.
+        keep_box = update_tree and self.tree._cached_baked is not None
+        dev = self.tree.device
+        lo, hi = torch.ones(3, device=dev), torch.zeros(3, device=dev)
+        colors, depths = [], []
+        for k in range(T):
+            with torch.no_grad():
+                tk = warp_ops.get_transformation_matrix(src_pose, tgt_poses[k])
+                warped, mats = warp_ops.warp_vertices(tk, points, sw, ji)
+                new_flat = query_ops.construct_tree(spec, warped)
+                if keep_box:
+                    lo, hi = query_ops.points_leaf_aabb(spec, warped, union=(lo, hi))
+                spec = spec.with_(data_flat=new_flat)
+                table = tape_ops.pack_index_table(new_flat)
+            sp = tree_spec.with_(transformation_matrices=mats) if viewdir_rotation else tree_spec
+            colors.append(tape_ops.replay_render(tape, pools[k], opt, sp, index_table=table))
+            if with_depth:
+                depths.append(tape_ops.replay_depth(tape, pools[k], opt, sp, index_table=table))
+        if update_tree:
+            if keep_box:
+                # the tree's bake keeps its old rows: its box joins the union
+                old = self.tree._cached_baked
+                lo, hi = torch.minimum(lo, old.aabb_lo), torch.maximum(hi, old.aabb_hi)
+            self.tree._adopt_data_flat(spec, spec.data_flat, lo if keep_box else None,
+                                       hi if keep_box else None)
+
+        def _finish(outs):
+            out = torch.stack(outs)
+            return out if c2w is None else out.reshape(T, int(height), int(width), -1)
+
+        if with_depth:
+            return _finish(colors), _finish(depths)
+        return _finish(colors)
 
     def _get_options(self, fast=False) -> RenderOptions:
         """Build the RenderOptions of a call."""

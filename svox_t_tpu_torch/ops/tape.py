@@ -1,5 +1,4 @@
-"""Recorded sample tapes (K13): the counterpart of `svox_t_tpu/ops/tape.py`
-for the static tape path.
+"""Recorded sample tapes (K13): the counterpart of `svox_t_tpu/ops/tape.py`.
 
 A ray's samples (row, step) depend only on the ray, the tree's structure
 and the march's geometry options, not on the feature values. A tape
@@ -31,6 +30,15 @@ the identity, and `record_tape` accepts ``chunk_size``,
     Differentiable with respect to the pool: in exact mode K13d runs the
     backward march K3's single pass over the runs; thresholded modes take
     K3 itself over the tape's rays (which needs ``spec``).
+  * `replay_render_frames`: one tape over a stack of N pools, (N, B,
+    n_color + 1): the forward is K13c once per frame; the backward, N
+    independent gradients (N, M, D), is K13e in exact mode, one launch of
+    K13d's kernel with a frame axis (thresholded modes take the per-frame
+    backward, K3 over the tape's rays).
+  * `replay_depth`: first-hit depth from a tape recorded with
+    ``record_t`` (K13f): per ray the t of the first sample whose row is
+    resident and whose sigma exceeds sigma_thresh, times delta_scale;
+    `render_depth` bit for bit on the recorded rays.
   * Data-indirect tapes (``indirect=True``) record tree cells instead of
     rows and survive `construct_tree` re-pointing: a replay resolves each
     sample's row through the frame's index table (`pack_index_table`; a
@@ -38,9 +46,10 @@ the identity, and `record_tape` accepts ``chunk_size``,
     occupancy of the frames they serve, in exact geometry.
 
 Every op dispatches on the device of its tensors: on CUDA it launches its
-kernel (`csrc/tape_record.cu`, `csrc/tape_replay.cuh`) or raises; on the
-CPU it runs its plain PyTorch version, which follows the kernel operation
-for operation and the plain march's sample chain (`ops/render.py`).
+kernel (`csrc/tape_record.cu`, `csrc/tape_replay.cuh`, `csrc/tape_depth.cu`)
+or raises; on the CPU it runs its plain PyTorch version, which follows the
+kernel operation for operation and the plain march's sample chain
+(`ops/render.py`).
 """
 
 from __future__ import annotations
@@ -62,7 +71,7 @@ from .render import (POOL_SUFFIX, QuantizedFeatures, _Basis, _check_quantized, _
                      radiometry_args, volume_render_backward)
 
 __all__ = ["RayTape", "record_tape", "replay_render", "replay_render_weighted",
-           "pack_index_table", "unsort_output"]
+           "replay_render_frames", "replay_depth", "pack_index_table", "unsort_output"]
 
 _WALK_ARGS = [
     ctypes.POINTER(StructureDesc),               # tree or bake
@@ -88,6 +97,11 @@ _REPLAY_BWD_ARGS = ([c_void_p, c_void_p, c_void_p,            # offsets, idx, dt
                      c_void_p, c_int] + _POOL_ARGS            # table, n_table
                     + [c_void_p, c_void_p, c_void_p,          # grad_out, out_res, grad
                        c_int, c_void_p])
+_REPLAY_BWD_FRAMES_ARGS = _REPLAY_BWD_ARGS[:-2] + [c_int, c_int, c_void_p]  # n_frames, device, stream
+_DEPTH_ARGS = [c_void_p, c_void_p, c_void_p, c_void_p, c_int,   # offsets, idx, tval, dscale, B
+               c_void_p, c_int,                                 # table, n_table
+               c_void_p, c_int, c_int, c_int, c_float,          # features, bf16, M, D, sigma_thresh
+               c_void_p, c_int, c_void_p]                       # depth, device, stream
 
 TAPE_COUNT = Kernel("svox_tape_count", _COUNT_ARGS)
 TAPE_COUNT_BAKED = Kernel("svox_tape_count_baked", _COUNT_ARGS)
@@ -99,8 +113,15 @@ _REPLAY_FWD = {k: Kernel(f"svox_tape_replay_fwd{POOL_SUFFIX[k]}", _REPLAY_FWD_AR
                for k in ("f32", "bf16", "i8")}
 _REPLAY_BWD = {k: Kernel(f"svox_tape_replay_bwd{POOL_SUFFIX[k]}", _REPLAY_BWD_ARGS)
                for k in ("f32", "bf16")}
+# K13e, the backward's frame axis: float32 and bf16 as K13d.
+_REPLAY_BWD_FRAMES = {k: Kernel(f"svox_tape_replay_bwd_frames{POOL_SUFFIX[k]}",
+                                _REPLAY_BWD_FRAMES_ARGS) for k in ("f32", "bf16")}
 TAPE_REPLAY_FWD, TAPE_REPLAY_FWD_BF16, TAPE_REPLAY_FWD_I8 = _REPLAY_FWD.values()
 TAPE_REPLAY_BWD, TAPE_REPLAY_BWD_BF16 = _REPLAY_BWD.values()
+TAPE_REPLAY_BWD_FRAMES, TAPE_REPLAY_BWD_FRAMES_BF16 = _REPLAY_BWD_FRAMES.values()
+# K13f reads a float32 or a bf16 pool's sigma column (one symbol, both
+# instances).
+TAPE_DEPTH = Kernel("svox_tape_depth", _DEPTH_ARGS)
 
 
 class _NoSpec:
@@ -750,3 +771,208 @@ def replay_render_weighted(tape: RayTape, features, opt: RenderOptions,
     Returns (out, waccum)."""
     del unsort
     return _ReplayWeightsFn.apply(tape, features, index_table, opt, spec)
+
+
+# ---------------------------------------------------------------------------
+# A stack of frames (K13e)
+
+
+def frame_pools(features_frames) -> list:
+    """The N pools of an (N, M, D) stack: a tensor's frames, or for an
+    int8 stack (`QuantizedFeatures` with q (N, M, D) and scale and zero
+    (N, D), as the JAX package scans one) each frame's quantized pool."""
+    if features_frames.ndim != 3:
+        raise ValueError(f"features_frames must be (N, M, D), got {tuple(features_frames.shape)}")
+    if isinstance(features_frames, QuantizedFeatures):
+        q, scale, zero = features_frames
+        return [QuantizedFeatures(q[n], scale[n], zero[n]) for n in range(q.shape[0])]
+    return list(features_frames.unbind(0))
+
+
+def replay_backward_frames_plain(tape: RayTape, features_frames, opt: RenderOptions, grad_outs, outs,
+                                 spec=None, index_table=None):
+    """Plain PyTorch version of K13e (exact options): the N frames'
+    gradients (N, M, D) in `pool_dtype`, each the plain K13d of its frame."""
+    if not features_frames.shape[0]:
+        return torch.zeros(features_frames.shape, dtype=pool_dtype(features_frames),
+                           device=features_frames.device)
+    return torch.stack([replay_backward_plain(tape, f, opt, g, o, spec, index_table)
+                        for f, g, o in zip(features_frames.unbind(0), grad_outs.unbind(0),
+                                           outs.unbind(0))])
+
+
+def replay_backward_frames_cuda(tape: RayTape, features_frames, opt: RenderOptions, grad_outs, outs,
+                                spec=None, index_table=None):
+    """Launch K13e (csrc/tape_replay_bwd.cu's frame axis; the bf16 stack's
+    instance of csrc/tape_replay.cuh) once for all N frames of a contiguous
+    (N, M, D) stack, into a zeroed float32 (N, M, D) gradient, exact
+    options. An empty pool, tape or stack returns zeros without a launch."""
+    spec_v = spec if spec is not None else _NOSPEC
+    N, M, D = features_frames.shape
+    frame0 = features_frames[0] if N else features_frames.new_empty(M, D)
+    n_color = check_format(spec_v, frame0, opt)
+    kernel = _replay_kernel(_REPLAY_BWD_FRAMES, features_frames)
+    ray_args, table_args = _tape_args(tape, features_frames, index_table, "replay_backward_frames_cuda")
+    rad = radiometry_args(spec_v, frame0, opt, n_color)
+    for t in (grad_outs, outs):
+        _require(t.is_cuda and t.device == tape.device and t.is_contiguous()
+                 and t.dtype == torch.float32 and tuple(t.shape) == (N, tape.n_rays, n_color + 1),
+                 f"grad_outs and outs must be contiguous ({N}, {tape.n_rays}, {n_color + 1}) float32")
+    _require(N <= 65535, "K13e takes at most 65535 frames")
+    grad = torch.zeros(N, M, D, dtype=torch.float32, device=tape.device)
+    if N and M and tape.n_rays:
+        kernel(tape.offsets.data_ptr(), tape.idx.data_ptr(), tape.dt.data_ptr(), *ray_args,
+               *table_args, *rad, grad_outs.data_ptr(), outs.data_ptr(), grad.data_ptr(), N,
+               *_stream(tape.device))
+    return grad
+
+
+def replay_backward_frames(tape: RayTape, features_frames, opt: RenderOptions, grad_outs, outs,
+                           spec=None, index_table=None):
+    """Gradients of N independent replays of one tape, (N, M, D) in the
+    stack's type (summed in float32 and cast once). Exact mode: K13e over
+    the tape for all frames at once (its plain version on the CPU).
+    Thresholded modes take each frame's `replay_backward`, the backward
+    march K3 over the tape's rays, as the JAX package's per-frame fallback
+    does."""
+    if isinstance(features_frames, QuantizedFeatures):
+        raise TypeError("a quantized feature pool takes no gradient")
+    pools = frame_pools(features_frames)
+    for f in pools:
+        _check_replay(tape, f, opt, spec, index_table)
+    if pools and not (opt.sigma_thresh == 0.0 and opt.stop_thresh <= 0.0):
+        return torch.stack([replay_backward(tape, f, opt, g, o, spec, index_table)
+                            for f, g, o in zip(pools, grad_outs.unbind(0), outs.unbind(0))])
+    run = replay_backward_frames_cuda if tape.dt.is_cuda else replay_backward_frames_plain
+    return run(tape, features_frames, opt, grad_outs, outs, spec, index_table).to(features_frames.dtype)
+
+
+class _ReplayFramesFn(torch.autograd.Function):
+    """`replay_render_frames` (JAX: `_replay_call_frames`' custom_vjp): the
+    forward is K13c per frame, the backward one K13e for the stack."""
+
+    @staticmethod
+    def forward(ctx, tape, features_frames, index_table, opt, spec):
+        outs = [replay_forward(tape, f, opt, spec, False, index_table)[0]
+                for f in frame_pools(features_frames)]
+        n_color = get_out_data_dim(opt.format, opt.basis_dim, features_frames.shape[2]) - 1
+        outs = torch.stack(outs) if outs else torch.empty(0, tape.n_rays, n_color + 1, device=tape.device)
+        _save(ctx, tape, features_frames, index_table, opt, spec, outs)
+        return outs
+
+    @staticmethod
+    def backward(ctx, grad_outs):
+        grad = None
+        if ctx.needs_input_grad[1]:
+            features_frames, outs = ctx.saved_tensors
+            grad = replay_backward_frames(ctx.tape, features_frames, ctx.opt, grad_outs.contiguous(),
+                                          outs, ctx.spec, ctx.index_table)
+        return None, grad, None, None, None
+
+
+def replay_render_frames(tape: RayTape, features_frames, opt: RenderOptions, spec=None,
+                         *, unsort: bool = True, index_table=None):
+    """Replay one tape over a stack of N pools ``features_frames`` (N, M,
+    D): frame n is ``replay_render(tape, features_frames[n], ...)`` bit for
+    bit. Differentiable with respect to the stack: the N gradients are
+    independent (frames share the tape's samples, not values) and come
+    from one K13e launch in exact mode. ``spec`` and ``index_table`` are
+    shared by the frames; ``unsort`` as in `replay_render`.
+
+    Returns (N, B, n_color + 1)."""
+    del unsort
+    if features_frames.ndim != 3:
+        raise ValueError(f"features_frames must be (N, M, D), got {tuple(features_frames.shape)}")
+    return _ReplayFramesFn.apply(tape, features_frames, index_table, opt, spec)
+
+
+# ---------------------------------------------------------------------------
+# Depth replay (K13f)
+
+
+def replay_depth_plain(tape: RayTape, features, sigma_thresh: float, index_table=None):
+    """Plain PyTorch version of K13f: (B, 1) float32, per ray tval * dscale
+    of its first sample whose (resolved) row lies in [0, M) and whose sigma,
+    as float32, exceeds ``sigma_thresh``; 0 for a ray with none."""
+    B, n = tape.n_rays, tape.n_samples
+    M = features.shape[0]
+    dev = tape.device
+    if M == 0 or n == 0:
+        return torch.zeros(B, 1, dtype=torch.float32, device=dev)
+    rows = tape.idx if index_table is None else _resolve_cells(_flat_table(index_table), tape.idx)
+    ok = (rows >= 0) & (rows < M)
+    sigma = features[torch.where(ok, rows, 0).long(), -1].to(torch.float32)
+    pos = torch.arange(n, device=dev)
+    hit = torch.where(ok & (sigma > sigma_thresh), pos, n)
+    ray = torch.repeat_interleave(torch.arange(B, device=dev), tape.counts.long())
+    first = torch.full((B,), n, dtype=torch.long, device=dev).scatter_reduce(0, ray, hit, "amin")
+    found = first < n
+    t = tape.tval[torch.where(found, first, 0)]
+    return torch.where(found, t * tape.dscale, 0.0)[:, None]
+
+
+def replay_depth_cuda(tape: RayTape, features, sigma_thresh: float, index_table=None):
+    """Launch K13f (csrc/tape_depth.cu) on a float32 or bf16 pool: (B, 1)."""
+    dev = tape.device
+    kind = pool_kind(features)
+    if kind not in ("f32", "bf16"):
+        raise ValueError(f"svox_tape_depth has no kernel instance for a {kind} feature pool "
+                         "(instances: f32, bf16)")
+    table = _flat_table(index_table)
+    ints = [tape.offsets, tape.idx] + ([] if table is None else [table])
+    floats = [tape.tval, tape.dscale]
+    for t in (features, *ints, *floats):
+        _require(t.is_cuda and t.device == dev and t.is_contiguous(),
+                 "replay_depth_cuda needs contiguous tensors on one CUDA device")
+    _require(all(t.dtype == torch.int32 for t in ints), "replay_depth_cuda: tape streams and table must be int32")
+    _require(all(t.dtype == torch.float32 for t in floats), "replay_depth_cuda: tval and dscale must be float32")
+    _require(tuple(tape.offsets.shape) == (tape.n_rays + 1,), "offsets must be (B + 1,)")
+    M, D = features.shape
+    depth = torch.empty(tape.n_rays, 1, dtype=torch.float32, device=dev)
+    if tape.n_rays:
+        TAPE_DEPTH(tape.offsets.data_ptr(), tape.idx.data_ptr(), tape.tval.data_ptr(),
+                   tape.dscale.data_ptr(), tape.n_rays,
+                   None if table is None else table.data_ptr(), 0 if table is None else table.shape[0],
+                   features.data_ptr(), int(kind == "bf16"), M, D, sigma_thresh, depth.data_ptr(),
+                   *_stream(dev))
+    return depth
+
+
+def replay_depth(tape: RayTape, features, opt: RenderOptions, spec=None,
+                 *, unsort: bool = True, index_table=None):
+    """First-hit depth by tape replay (JAX `replay_depth`): per ray the
+    march parameter t of the first sample whose sigma exceeds
+    ``opt.sigma_thresh`` in a resident leaf, times delta_scale, 0 where
+    none: `render_depth` on the recorded rays, bit for bit. Needs a tape
+    recorded with ``record_t=True``; a data-indirect tape resolves
+    residency through ``index_table``, so depth follows each frame's
+    occupancy. Not differentiable; nearest mode only. K13f on CUDA, its
+    plain version on the CPU. ``unsort`` is accepted for the JAX API.
+
+    Returns (B, 1) float32."""
+    del unsort
+    if tape.tval is None:
+        raise ValueError("tape has no per-sample t — record with record_t=True for depth replay")
+    if opt.interp:
+        raise ValueError("tapes do not support opt.interp")
+    if isinstance(features, QuantizedFeatures):
+        raise NotImplementedError("replay_depth: pass the float pool (quantized pools are an "
+                                  "inference color path)")
+    if opt.pool_axis is not None:
+        raise NotImplementedError("replay_depth: sharded pools not supported")
+    _check_indirect(tape, index_table)
+    _check_geom(tape, spec, opt)
+    if features.ndim != 2:
+        raise ValueError(f"features must be (M, D), got {tuple(features.shape)}")
+    if features.shape[0] != tape.n_features:
+        raise ValueError(
+            f"feature pool has {features.shape[0]} rows but the tape was "
+            f"recorded against {tape.n_features} — the structure changed; "
+            "re-record the tape"
+        )
+    devices = {features.device, tape.device} | ({index_table.device} if index_table is not None else set())
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
+    run = replay_depth_cuda if tape.dt.is_cuda else replay_depth_plain
+    with torch.no_grad():
+        return run(tape, features, float(opt.sigma_thresh), index_table)

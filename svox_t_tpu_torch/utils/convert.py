@@ -95,18 +95,38 @@ def quantized_from_numpy(q, scale, zero, device="cuda") -> QuantizedFeatures:
                              torch.as_tensor(np.array(zero, np.float32), device=device))
 
 
+def _output_slots(arrays, n_slots: int) -> np.ndarray:
+    """The slot of the JAX tape's padded layout that its replay returns as
+    output row i (JAX `unsort_output`): ``inv_pos[i]``, or on a grouped
+    tape (``group`` > 1) the block gather ``ginv`` that JAX's unsort uses
+    in its place, followed by the transpose of ``out_blocks`` from
+    block-major back to raster order (per view on a rig tape)."""
+    group = int(arrays.get("group") or 1)
+    if group <= 1:
+        return np.asarray(arrays["inv_pos"], np.int64)
+    slots = np.arange(n_slots).reshape(-1, group)[np.asarray(arrays["ginv"], np.int64)].reshape(-1)
+    if arrays.get("out_blocks"):
+        nbh, nbw, bh, bw = arrays["out_blocks"]
+        slots = slots.reshape(-1, nbh, nbw, bh, bw).swapaxes(2, 3).reshape(-1)
+    return slots
+
+
 def tape_from_jax(arrays, device="cuda") -> RayTape:
     """This package's `RayTape` from the arrays and meta of a JAX package
     `RayTape` (a mapping of its field names): the chunk layout ``idx``,
     ``dt`` and the optional ``cell`` and ``tval`` (n_chunks, S, C),
     ``counts`` and ``dscale`` (n_chunks, C), ``origins``, ``dirs`` and
-    ``vdirs`` (n_chunks, C, 3), ``inv_pos`` (n_rays,), and ``n_features``,
-    ``n_cells``, ``compact``, ``geom``, ``indirect``. Ray i's run is its
-    chunk column's first ``counts`` samples, at slot ``inv_pos[i]``; the
-    rays come out in input order, on ``device``."""
+    ``vdirs`` (n_chunks, C, 3), ``inv_pos`` (n_rays,), on a grouped tape
+    ``group``, ``ginv`` and ``out_blocks``, and ``n_features``,
+    ``n_cells``, ``compact``, ``geom``, ``indirect``. Ray i is the output
+    row i of JAX's replay: its run is the first ``counts`` samples of the
+    chunk column at the slot JAX's unsort reads for row i (`_output_slots`:
+    ``inv_pos[i]``, or the group gather on a grouped tape, such as a rig
+    tape in (view, pixel) order). The rays come out in that order, on
+    ``device``, a data-indirect tape with its cells and ``tval``."""
     idx = np.asarray(arrays["idx"])
     n_chunks, S, C = idx.shape
-    inv = np.asarray(arrays["inv_pos"], np.int64)
+    inv = _output_slots(arrays, n_chunks * C)
     chunk, lane = inv // C, inv % C
     counts = np.asarray(arrays["counts"], np.int64).reshape(-1)[inv]
     offsets = np.zeros(inv.shape[0] + 1, np.int64)

@@ -247,3 +247,37 @@ def bench_dynamic_cloud() -> dict:
         poses.append(np.stack([np.eye(4, dtype=np.float32), rot]))
     return dict(points=pts, features=feats, skinning_weights=sw, joint_index=ji,
                 poses=np.stack(poses), src_pose=np.stack([np.eye(4, dtype=np.float32)] * 2))
+
+
+def bench_deep_dynamic_cloud() -> dict:
+    """The deep dynamic configuration of `bench.py` (its ``deep9_dyn_*``
+    keys), in NumPy: 40,000 points (seed 2) on the sphere of radius 0.30
+    about the cube's centre, a pool of 4 columns (colors 0-1, densities
+    8-9), two joints (the second rotating about z by 0.4 sin(2 pi i / 4) in
+    frame i of 4) with weights from the z coordinate. It runs on the
+    depth-9 SH9 shell (`build_shell_tree(depth=9)`) with its index table
+    reset to `DATA_SENTINEL` and re-pointed at the canonical points, through
+    ``VolumeRenderer(tree, step_size=1e-3)`` at 800x800, fx 880: with SH9 and
+    a 4-column pool a frame renders alpha alone (``(3 // 9) + 1`` output
+    channels), as in bench.py.
+
+    :return: dict of points, features, skinning_weights, joint_index,
+        poses (4, 2, 4, 4) and src_pose (2, 4, 4)
+    """
+    n_points, n_frames = 40000, 4
+    rng = np.random.RandomState(2)
+    u = rng.randn(n_points, 3)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    pts = (0.5 + 0.30 * u).astype(np.float32)
+    feats = np.concatenate([rng.rand(n_points, 3), 8.0 + rng.rand(n_points, 1)],
+                           axis=1).astype(np.float32)
+    sw = np.stack([1.0 - pts[:, 2], pts[:, 2]], axis=1).astype(np.float32)
+    ji = np.tile(np.array([0, 1], np.int32), (n_points, 1))
+    poses = []
+    for i in range(n_frames):
+        a = 0.4 * np.sin(2 * np.pi * i / n_frames)
+        c, s = np.cos(a), np.sin(a)
+        rot = np.array([[c, -s, 0, 0], [s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+        poses.append(np.stack([np.eye(4, dtype=np.float32), rot]))
+    return dict(points=pts, features=feats, skinning_weights=sw, joint_index=ji,
+                poses=np.stack(poses), src_pose=np.stack([np.eye(4, dtype=np.float32)] * 2))

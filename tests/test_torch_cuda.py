@@ -1485,3 +1485,103 @@ def test_render_persp_tape_uses_the_kernels(cuda):
     assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 2]
     for s, img in zip((1.0, 0.5), imgs):
         assert torch.equal(img, r.render_persp(feats * s, orbit_camera(), 64, 48, fx=70.0))
+
+
+# ---------------------------------------------------------------------------
+# The temporal tape path: K13e (the tape backward's frame axis) against its
+# plain version and against per-frame K13d at the atomic tolerance; K13f
+# (depth replay) equal to its plain version and to the first-hit kernel
+# K9b bit for bit; `render_dynamic_tape_frames` equal to
+# `render_dynamic_frames` bit for bit.
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("compact", [False, True])
+def test_tape_replay_frames_backward_matches_plain(cuda, kind, compact):
+    tree, spec, feats, _, o, d = _tape_scene(cuda, "baked", seed=66)
+    opt = stt.VolumeRenderer(tree)._get_options(False)
+    tp = ttape.record_tape(spec, feats.shape[0], o, d, d, opt, compact=compact)
+    stack = torch.stack([feats * (1.0 + 0.1 * n) for n in range(3)])
+    stack = stack if kind == "f32" else stack.to(torch.bfloat16)
+    x = stack.clone().requires_grad_()
+    out = ttape.replay_render_frames(tp, x, opt, spec)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(66)).to(cuda)
+    k = ttape.TAPE_REPLAY_BWD_FRAMES if kind == "f32" else ttape.TAPE_REPLAY_BWD_FRAMES_BF16
+    before = k.launches
+    (gx,) = torch.autograd.grad((out * g).sum(), x)
+    torch.cuda.synchronize()
+    assert k.launches == before + 1 and gx.dtype == stack.dtype
+    got = ttape.replay_backward_frames_cuda(tp, stack, opt, g, out.detach(), spec)
+    _assert_atomic_close(got, ttape.replay_backward_frames_plain(tp, stack, opt, g, out.detach(), spec))
+    for n in range(3):
+        assert torch.equal(out[n].detach(), ttape.replay_forward_cuda(tp, stack[n], opt, spec)[0])
+        k13d = ttape.replay_backward_cuda(tp, stack[n], opt, g[n].contiguous(), out[n].detach(), spec)
+        _assert_atomic_close(got[n], k13d)
+    assert float(got.abs().max()) > 0
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("compact", [False, True])
+def test_tape_depth_kernel_equals_first_hit(cuda, backend, fast, compact):
+    tree, spec, feats, _, o, d = _tape_scene(cuda, backend, seed=67)
+    opt = stt.VolumeRenderer(tree, backend=backend)._get_options(fast)
+    tp = ttape.record_tape(spec, feats.shape[0], o, d, d, opt, compact=compact, record_t=True)
+    for pool in (feats, feats.to(torch.bfloat16)):
+        before = ttape.TAPE_DEPTH.launches
+        got = ttape.replay_depth(tp, pool, opt, spec)
+        torch.cuda.synchronize()
+        assert ttape.TAPE_DEPTH.launches == before + 1
+        assert torch.equal(got, ttape.replay_depth_plain(tp, pool, opt.sigma_thresh))
+        assert torch.equal(got, taux.render_depth(spec, pool, o, d, opt))
+        assert (got > 0).any()
+
+
+def test_tape_depth_kernel_indirect(cuda):
+    """An indirect tape's depth after a re-point: equal to plain and to K9b
+    on the re-pointed tree (tree walk)."""
+    tree, spec, feats, centers, o, d = _tape_scene(cuda, "tree", seed=68)
+    opt = stt.VolumeRenderer(tree, backend="tree")._get_options(False)
+    M = feats.shape[0]
+    tp = ttape.record_tape(spec, M, o, d, d, opt, indirect=True, record_t=True)
+    half = centers[torch.randperm(M, generator=torch.Generator().manual_seed(68)).to(cuda)[: M // 2]]
+    tree.construct_tree(half)
+    spec2 = tree._spec()
+    table = ttape.pack_index_table(spec2.data_flat)
+    pool = feats.clone()
+    pool[::3, -1] = -1.0
+    got = ttape.replay_depth(tp, pool, opt, spec2, index_table=table)
+    assert torch.equal(got, ttape.replay_depth_plain(tp, pool, opt.sigma_thresh, table))
+    assert torch.equal(got, taux.render_depth(spec2, pool, o, d, opt))
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("compact", [False, True])
+def test_render_dynamic_tape_frames_uses_the_kernels(cuda, backend, compact):
+    """render_dynamic_tape_frames on the shell with a 6-joint rig: per frame
+    one warp, construct_tree, replay and depth replay (no march), equal to
+    render_dynamic_frames bit for bit, colors and depths, exact and fast
+    (the fused loop with the box advance and skip boxes off)."""
+    state, feats_np, centers_np = build_shell_tree(depth=5, data_format="SH4", data_dim=13, seed=5)
+    joints = np.random.RandomState(5).uniform(0.3, 0.7, (6, 3)).astype(np.float32)
+    sw, ji = skin_to_nearest_joints(centers_np, joints, 4)
+    poses = joint_pose_sequence(joints, 3, seed=5)
+    src = np.tile(np.eye(4, dtype=np.float32), (6, 1, 1))
+    feats = torch.from_numpy(feats_np).to(cuda)
+    tree = stt.tree_from_numpy(state, device=cuda)
+    r = stt.VolumeRenderer(tree, backend=backend)
+    r.box_advance = r.skip_boxes = 0
+    kw = dict(c2w=orbit_camera(), width=64, height=48, fx=70.0, update_tree=False, with_depth=True)
+    march = trender.RENDER_FWD_BAKED if backend == "baked" else trender.RENDER_FWD
+    counters = (twarp.WARP_FWD, tquery.CONSTRUCT_TREE, ttape.TAPE_REPLAY_FWD, ttape.TAPE_DEPTH, march)
+    r.record_dynamic_persp(orbit_camera(), poses, src, centers_np, sw, ji, 64, 48, 70.0,
+                           compact=compact, record_t=True)
+    for fast in (False, True):
+        before = [k.launches for k in counters]
+        cols, deps = r.render_dynamic_tape_frames(feats, poses, src, centers_np, sw, ji, fast=fast,
+                                                  compact=compact, **kw)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(counters, before)] == [3, 3, 3, 3, 0]
+        want_c, want_d = r.render_dynamic_frames(feats, poses, src, centers_np, sw, ji, fast=fast, **kw)
+        assert torch.equal(cols, want_c) and torch.equal(deps, want_d)
+        assert (deps > 0).any()
