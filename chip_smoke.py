@@ -38,7 +38,12 @@ re-pointed tree; the depth replay K13f equal to its plain version and to
 the first-hit kernel bit for bit on every tape, direct and indirect; the
 multi-frame backward K13e on a stack of 4 pools, float32 and bf16,
 against its plain version and 4 calls of the single-frame backward),
-then
+then minibatch tape training and the dense-grid weight pass (phase 3h,
+K14 and K12: the run gather K14a on a 65,536-ray subset of bench.py's
+4-view rig tape with duplicate ids, compacted and not, with cells, and
+the SGD update K14c bit for bit; the L2 cotangent K14b bit for bit, its
+loss within 1e-6 relative; K12 on the depth-9 shell's 512^3 density grid
+bit for bit on both outputs), then
 drives the main paths through the public entry points on the depth-9 SH9
 shell scene at 800x800, with a seeded 32-joint skeleton for the aux and
 dynamic paths, each on the default baked backend and on the tree walk
@@ -116,7 +121,22 @@ dynamic paths, each on the default baked backend and on the tree walk
     `dynamic_tape_frame_ms`, `dynamic_tape_fast_frame_ms` on its dynamic
     cloud; `deep9_dyn_record_s`, `deep9_dyn_tape_frame_ms`,
     `deep9_dyn_tape_mrays_s` on its deep cloud; `tape_fwd_bwd_ms`,
-    `tape_fwd_bwd_mrays_s`, a 16-frame stack's gradient) beside the march's.
+    `tape_fwd_bwd_mrays_s`, a 16-frame stack's gradient) beside the march's;
+  * minibatch tape training (phase 4n, `minibatch_path`, on bench.py's
+    headline configuration: the depth-7 SH9 shell, step_size 1e-3, a
+    4-view 800x800 rig at fx 880 recorded by `record_persp_rig`, targets
+    the replay of the true pool, training from pool * 0.9 at lr 0.05):
+    bench.py's keys `minibatch_source_s`, `minibatch_step_ms` and
+    `minibatch_fwd_bwd_mrays_s` (32 steps of 65,536 ids from seed 7),
+    `minibatch256k_*` (8 steps of 262,144), `tape_train_chain_step_ms`
+    and `tape_train_chain_mrays_s` (`train_steps`, 8 steps on the
+    640,000-ray tape), each the least of 3 calls with the next pack's
+    prep overlapped; one random-batch SGD step through the march beside
+    them; `train_minibatches` and `train_steps` held to eager chains of
+    `replay_render_rows` / `replay_render`, autograd and f - lr * g, at
+    lr 0.05 and at an lr that moves the pool visibly (the update itself);
+  * the dense-grid weight pass (phase 4o): `grid_weight_render` on the
+    depth-9 shell's 512^3 density grid through the 800x800 orbit camera.
 
 The two backends' exact outputs are checked equal bit for bit on every
 serving path. Each path's launch counts are read from zero around it. It
@@ -143,16 +163,18 @@ import torch
 import svox_t_tpu_torch as stt
 from svox_t_tpu_torch import _build
 from svox_t_tpu_torch.ops import bake as bake_ops
+from svox_t_tpu_torch.ops import grid as grid_ops
 from svox_t_tpu_torch.ops import p2v as p2v_ops
 from svox_t_tpu_torch.ops import query as query_ops
 from svox_t_tpu_torch.ops import render as render_ops
 from svox_t_tpu_torch.ops import render_aux as aux_ops
 from svox_t_tpu_torch.ops import tape as tape_ops
+from svox_t_tpu_torch.ops import tape_subset as subset_ops
 from svox_t_tpu_torch.ops import traversal
 from svox_t_tpu_torch.ops import warp as warp_ops
 from svox_t_tpu_torch.utils.scenes import (bench_deep_dynamic_cloud, bench_dynamic_cloud,
-                                           build_shell_tree, joint_pose_sequence, orbit_camera,
-                                           random_lobes, skin_to_nearest_joints)
+                                           build_shell_tree, dense_density_grid, joint_pose_sequence,
+                                           orbit_camera, random_lobes, skin_to_nearest_joints)
 
 DEPTH = 9
 WIDTH = HEIGHT = 800
@@ -278,6 +300,31 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int, names=None, cold: bool = True) -> float:
+    """Device ms per call of ``fn``, from `torch.profiler`: the summed time
+    of the kernels whose names contain one of ``names`` (None: every kernel
+    but the L2 flush's fill), after one warm-up call. A kernel shorter than the host's dispatch of its call leaves the
+    card idle between back-to-back calls, which CUDA events around them
+    count (`time_ms`); this counts the kernels alone. ``cold``: a 128 MB
+    write before each call evicts the 50 MB L2, so the kernel reads its
+    inputs from HBM, as the bounds count them."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda") if cold else None
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            if cold:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation
+              and (any(n in e.name for n in names) if names else "FillFunctor" not in e.name)]
+    check(len(events) >= reps, f"the profiler recorded no kernel named {names}")
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+
+
 def timed_once_ms(fn):
     """(result, device ms) of one call, measured with CUDA events."""
     torch.cuda.synchronize()
@@ -391,6 +438,31 @@ TAPE_KERNELS = {
     "tape_depth": tape_ops.TAPE_DEPTH,
 }
 COUNTERS.update(TAPE_KERNELS)
+# K14 (minibatch tape training) and K12 (the dense-grid weight pass).
+MB_KERNELS = {"subset_gather": subset_ops.SUBSET_GATHER, "l2_cotangent": subset_ops.L2_COTANGENT,
+              "sgd_update": subset_ops.SGD_UPDATE, "grid_weight": grid_ops.GRID_WEIGHT}
+COUNTERS.update(MB_KERNELS)
+# bench.py's minibatch cell (bench.py:284-407): MB_VIEWS rig views; N_MB
+# steps of B_MB ids, N_MB2 of B_MB2; train_steps' N_CHAIN steps; lr MB_LR.
+# The eager-chain check runs N_EAGER steps of B_MB rays.
+MB_VIEWS = 4
+N_MB, B_MB = 32, 65536
+N_MB2, B_MB2 = 8, 262144
+N_CHAIN = 8
+MB_LR = 0.05
+N_EAGER = 4
+LOSS_RTOL = 1e-6  # K14b's loss against plain and eager chains (relative)
+# At bench.py's lr a step moves the features below float32 resolution, so
+# the update itself is checked with an lr chosen at the first step to move
+# the largest feature step to UPDATE_MOVE * max|f|, within UPDATE_RTOL of
+# the eager chain's update relative to its largest entry.
+UPDATE_MOVE = 1e-2
+UPDATE_RTOL = 1e-3
+# K12 per sample: the position (3), clamps and scale (9), floor and clamp
+# (6), the fraction (3), the in-voxel DDA (18), the step (3) and the sigma
+# test (1); per contributing sample the exp, weight and transmittance (6).
+OPS_GRID_SAMPLE = 43
+OPS_GRID_CONTRIB = 6
 # K13e's stack in phases 3g and 5: N_STACK pools over the deep shell's tape.
 N_STACK = 4
 # Bytes of a pool element.
@@ -1776,6 +1848,405 @@ def tape_frames_kernel_times(tp, spec, feats, origins, dirs, opt, depth_case, pl
         return depth_census(dtp, feats, opt.sigma_thresh, table)
 
 
+def minibatch_scene(dev) -> dict:
+    """bench.py's minibatch cell (`bench.py:314-336`) on its headline
+    configuration (`bench.py:40-59`): the depth-7 SH9 shell under
+    `VolumeRenderer(tree, step_size=1e-3)` (the default bake), a MB_VIEWS-view
+    rig of `orbit_camera(theta=0.9 v, phi=0.3 + 0.1 v)` at WIDTH x HEIGHT, fx
+    BENCH_FX, recorded by `record_persp_rig` (compacted), and the targets: the
+    rig's replay of the true pool, its colour columns."""
+    st_, f_np, _ = build_shell_tree(depth=7, data_format="SH9", data_dim=28)
+    tree = stt.tree_from_numpy(st_, device=dev)
+    r = stt.VolumeRenderer(tree, step_size=1e-3)
+    f0 = torch.from_numpy(f_np).to(dev)
+    c2ws = np.stack([orbit_camera(theta=0.9 * v, phi=0.3 + 0.1 * v) for v in range(MB_VIEWS)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rig = r.record_persp_rig(c2ws, WIDTH, HEIGHT, fx=BENCH_FX, features=f0)
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t0
+    spec, opt = r._render_spec(), r._get_options(False)
+    with torch.no_grad():
+        tgt = stt.replay_render(rig, f0, opt, spec)[:, :3].contiguous()
+    return dict(tree=tree, r=r, f0=f0, c2ws=c2ws, rig=rig, spec=spec, opt=opt, tgt=tgt, record_s=record_s)
+
+
+def grid_scene(centers_np, sigma_np, dev) -> dict:
+    """K12 at full width: the depth-9 shell's sigma on its own (2^DEPTH)^3
+    grid (`dense_density_grid`: each occupied leaf's sigma at its cell, 0
+    elsewhere), the WIDTH x HEIGHT orbit camera at FX, exact options
+    (step_size 1e-3, max_steps 1024), world space = grid space."""
+    reso = 2 ** DEPTH
+    data = torch.from_numpy(dense_density_grid(centers_np, sigma_np, reso)).to(dev)
+    cam = stt.CameraSpec(c2w=torch.as_tensor(orbit_camera(), device=dev), fx=FX, fy=FX, width=WIDTH,
+                         height=HEIGHT)
+    opt = stt.RenderOptions(step_size=1e-3)
+    offset = torch.zeros(3, device=dev)
+    scaling = torch.ones(3, device=dev)
+    origins, dirs = render_ops.cam2world_rays(cam.c2w, WIDTH, HEIGHT, FX, FX)
+    return dict(data=data, cam=cam, opt=opt, offset=offset, scaling=scaling,
+                origins=origins.contiguous(), dirs=dirs.contiguous())
+
+
+def grid_census(g: dict) -> dict:
+    """What K12 reads and does on ``g`` (`grid_scene`), from its plain
+    version's sample chain: the rays, the samples taken, the distinct
+    voxels they read and the contributing samples."""
+    data, opt = g["data"], g["opt"]
+    reso = data.shape[0]
+    flat = data.reshape(-1)
+    from types import SimpleNamespace
+    o, d, invdir, ds, tmin, tmax, hit = render_ops._ray_setup(
+        SimpleNamespace(offset=g["offset"], scaling=g["scaling"]), g["origins"], g["dirs"])
+    seen = torch.zeros(reso ** 3, dtype=torch.bool, device=data.device)
+    res = torch.full_like(tmin, float(reso))
+    t, active = tmin, hit
+    samples = contrib = 0
+    for _ in range(opt.max_steps):
+        if not bool(active.any()):
+            break
+        pos = traversal.clamp_coord(render_ops.sample_position(o, t, d)) * reso
+        uvw = torch.clamp(torch.floor(pos), max=reso - 1)
+        sub_tmin, sub_tmax = traversal.dda_unit(pos - uvw, invdir)
+        uvw = uvw.long()
+        node = ((uvw[:, 0] * reso + uvw[:, 1]) * reso + uvw[:, 2])[active]
+        seen[node] = True
+        samples += int(active.sum())
+        contrib += int((flat[node] > opt.sigma_thresh).sum())
+        t = t + (sub_tmax - sub_tmin) / res + opt.step_size
+        active = active & (t < tmax)
+    return dict(rays=int(g["origins"].shape[0]), samples=samples, voxels=int(seen.sum()), contrib=contrib,
+                reso=reso)
+
+
+def subset_kernel_phase(mb: dict, g: dict, kernels: dict, dev, card: str) -> dict:
+    """Phase 3h (K14, K12): each new kernel against its plain version at the
+    main paths' shapes, then its time: the kernels' from the profiler
+    with L2 flushed (`device_ms`; warm, and their CUDA-event time, the
+    host's dispatch rate, printed beside it); the plain version's (one
+    call) and, for K14c, the PyTorch call's (`pool.add_(grad,
+    alpha=-lr)`, timed alike). K14a on a B_MB-ray with-replacement
+    subset of the rig tape (duplicate ids included), compacted and not,
+    with the cell stream, bit for bit (timed as training gathers: row and
+    step streams); K14b on that subset's replay against the rig targets
+    bit for bit (nonzero), its loss within LOSS_RTOL relative; K14c with
+    K13d's float32 gradient of that loss and a seeded unit-scale one, bit
+    for bit; K12 on ``g`` (`grid_scene`), both outputs bit for bit, timed
+    alone by the profiler and with its outputs' zeroing by CUDA events.
+    Returns the census of the bounds."""
+    t_3h = time.perf_counter()
+    rig, spec, opt, tgt, f0 = mb["rig"], mb["spec"], mb["opt"], mb["tgt"], mb["f0"]
+    rng = np.random.RandomState(8)
+    ids_np = rng.randint(0, rig.n_rays, B_MB)
+    ids_np[:16] = ids_np[16:32]  # duplicates, certain
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+    plain_ms = {}
+    full = mb["r"].record_persp_rig(mb["c2ws"], WIDTH, HEIGHT, fx=BENCH_FX, features=f0, compact=False)
+    for label, tp in (("compacted", rig), ("uncompacted", full)):
+        src = subset_ops.TapeRowSource(tp, keep_cells=True)
+        offsets = torch.from_numpy(subset_ops._subset_plan(src, ids_np)[1]).to(dev)
+        got = subset_ops.subset_gather_cuda(tp, ids, offsets, False, True, True)
+        want, p_ms = timed_once_ms(lambda: subset_ops.subset_gather_plain(tp, ids, offsets, False, True, True))
+        for name, a, b_ in zip(got._fields, got, want):
+            check((a is None) == (b_ is None) and (a is None or torch.equal(a, b_)),
+                  f"subset_gather ({label}): {name} differs from plain")
+        print(f"subset_gather ({label} rig tape, {tp.n_samples} samples; {B_MB} ids, duplicates included; "
+              f"row, step and cell streams, rays): {got.idx.shape[0]} samples, equal to plain bit for bit")
+        plain_ms[label] = p_ms
+    del full, got, want
+    src = subset_ops.TapeRowSource(rig)
+    offsets_np = subset_ops._subset_plan(src, ids_np)[1]
+    offsets = torch.from_numpy(offsets_np).to(dev)
+    n_sub = int(offsets_np[-1])
+    call = lambda: subset_ops.subset_gather_cuda(rig, ids, offsets, False, False, False, n_sub)  # noqa: E731
+    k_ms, w_ms = device_ms(call, KERNEL_REPS, ("gather_kernel",)), \
+        device_ms(call, KERNEL_REPS, ("gather_kernel",), cold=False)
+    e_ms = time_ms(call, KERNEL_REPS)
+    _, p_ms = timed_once_ms(lambda: subset_ops.subset_gather_plain(rig, ids, offsets, False, False, False))
+    kernels["subset_gather"].update(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0, library_ms=None)
+    print(f"time subset_gather ({B_MB} rays, {n_sub} samples, row and step streams as training gathers): "
+          f"kernel {k_ms:.4f} ms on the card (profiler, L2 cold; warm {w_ms:.4f}), {e_ms:.4f} ms a call back "
+          f"to back (CUDA events), plain {p_ms:.2f} ms (one call) [{card}]")
+
+    # K14b on the subset's replay; K14c with K13d's gradient of that loss.
+    sub = subset_ops.subset_tape(src, ids_np, with_rays=False)
+    pool = (f0 * 0.9).contiguous()
+    with torch.no_grad():
+        out = tape_ops.replay_forward_cuda(sub, pool, opt, spec)[0]
+    W, inv_bw = 3, 1.0 / (B_MB * 3)
+    g_k, l_k = subset_ops.l2_cotangent_cuda(out, tgt, ids, W, inv_bw)
+    (g_p, l_p), p_ms = timed_once_ms(lambda: subset_ops.l2_cotangent_plain(out, tgt, ids, W, inv_bw))
+    e = float((g_k - g_p).abs().max())
+    l_err = abs(float(l_k) - float(l_p))
+    check(torch.equal(g_k, g_p) and bool(g_p[:, :W].any()) and float(l_p) > 0
+          and l_err <= LOSS_RTOL * float(l_p), f"l2_cotangent: grad {e}, loss {float(l_k)} vs {float(l_p)}")
+    call = lambda: subset_ops.l2_cotangent_cuda(out, tgt, ids, W, inv_bw)  # noqa: E731
+    names = ("cotangent_kernel", "loss_kernel")
+    k_ms, w_ms = device_ms(call, KERNEL_REPS, names), device_ms(call, KERNEL_REPS, names, cold=False)
+    e_ms = time_ms(call, KERNEL_REPS)
+    kernels["l2_cotangent"].update(ms=k_ms, plain_ms=p_ms, max_abs_err=e, library_ms=None)
+    print(f"l2_cotangent ({B_MB} rows, W {W}): grad max_abs_err {e:.3g}, loss {float(l_k):.8g} vs plain "
+          f"{float(l_p):.8g}; kernels {k_ms:.4f} ms on the card (profiler, both passes, L2 cold; warm "
+          f"{w_ms:.4f}), {e_ms:.4f} ms a call back to back, plain {p_ms:.2f} ms (one call) [{card}]")
+    grad = tape_ops.replay_backward_cuda(sub, pool, opt, g_k, out, spec)
+    # K13d's gradient of this loss is below a bf16 ulp of most rows, so a
+    # seeded unit-scale gradient also runs, whose update moves every row.
+    g_unit = torch.from_numpy(np.random.RandomState(10).randn(*pool.shape).astype(np.float32)).to(dev)
+    for gg in (g_unit, grad):
+        got = subset_ops.sgd_cuda(pool.clone(), gg, MB_LR)
+        want, p_ms = timed_once_ms(lambda: subset_ops.sgd_plain(pool.clone(), gg, MB_LR))
+        check(torch.equal(got, want), "sgd_update: kernel and plain differ")
+        check(gg is grad or bool((got != pool).any()), "sgd_update: the unit gradient moved nothing")
+    work = pool.clone()
+    call = lambda: subset_ops.sgd_cuda(work, grad, MB_LR)  # noqa: E731
+    lib = lambda: work.add_(grad, alpha=-MB_LR)  # noqa: E731
+    k_ms, w_ms = device_ms(call, KERNEL_REPS, ("sgd_f32",)), device_ms(call, KERNEL_REPS, ("sgd_f32",), cold=False)
+    lib_ms, lw_ms = device_ms(lib, KERNEL_REPS), device_ms(lib, KERNEL_REPS, cold=False)
+    e_ms, le_ms = time_ms(call, KERNEL_REPS), time_ms(lib, KERNEL_REPS)
+    kernels["sgd_update"].update(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0, library_ms=lib_ms)
+    print(f"time sgd_update (float32 pool {tuple(pool.shape)}): kernel {k_ms:.4f} ms on the card "
+          f"(profiler, L2 cold; warm {w_ms:.4f}), {e_ms:.4f} ms a call back to back; pool.add_(grad, "
+          f"alpha=-lr) {lib_ms:.4f} ms (warm {lw_ms:.4f}; {le_ms:.4f} back to back); plain "
+          f"{p_ms:.2f} ms (one call) [{card}]")
+    pool_elems = pool.numel()
+    del sub, out, g_k, g_p, grad, got, want, work, g_unit
+
+    # K12 on the depth-9 shell's density grid.
+    args = (g["data"], g["origins"], g["dirs"], g["offset"], g["scaling"], g["opt"])
+    gw, gh = grid_ops.grid_weight_cuda(*args)
+    (pw, ph), p_ms = timed_once_ms(lambda: grid_ops.grid_weight_plain(*args))
+    check(torch.equal(gw, pw) and torch.equal(gh, ph), "grid_weight: kernel and plain differ")
+    call = lambda: grid_ops.grid_weight_cuda(*args)  # noqa: E731
+    k_ms, z_ms = device_ms(call, KERNEL_REPS, ("grid_kernel",)), time_ms(call, KERNEL_REPS)
+    kernels["grid_weight"].update(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0, library_ms=None)
+    print(f"grid_weight ({g['data'].shape[0]}^3 grid, {g['origins'].shape[0]} rays): weights and hits equal to "
+          f"plain bit for bit ({int((gh > 0).sum())} voxels hit, {float(gh.sum()):.0f} hits, max weight "
+          f"{float(gw.max()):.6f}); kernel {k_ms:.4f} ms on the card (profiler), {z_ms:.4f} ms a call with the "
+          f"outputs' zeroing (CUDA events), plain {p_ms:.1f} ms "
+          f"(one call) [{card}]")
+    del gw, gh, pw, ph
+    census = dict(B=B_MB, n_sub=n_sub, C=4, W=W, pool=pool_elems, grid=grid_census(g))
+    print(f"census (K14 on the rig tape, K12 on the grid): {census}; phase 3h {time.perf_counter() - t_3h:.1f} s")
+    return census
+
+
+def minibatch_bounds(c: dict) -> dict:
+    """bound_ms and bound_by of K14 and K12 at phase 3h's timed shapes
+    (``c``, its census). K14a as training gathers: the ids, new offsets and
+    each chosen ray's two source offsets read, its run of row and step
+    streams read and written (8 bytes a sample each way), its view
+    direction and dscale read and written and its count written. K14b: the
+    replay rows, target rows and ids read, the cotangent rows written; 5
+    operations per loss element. K14c: the float32 pool and gradient read,
+    the pool written; 2 operations per value. K12: the rays read, the sigma
+    of every distinct voxel its samples land in read, both (reso^3) float32
+    grids written; OPS_GRID_SAMPLE per sample and OPS_GRID_CONTRIB per
+    contributing sample."""
+    B, n = c["B"], c["n_sub"]
+    gc = c["grid"]
+    return _bounds({
+        "subset_gather": (B * 4 + (B + 1) * 4 + B * 8 + n * 16 + B * 16 + B * 20, 0),
+        "l2_cotangent": (B * c["C"] * 4 + B * c["W"] * 4 + B * 4 + B * c["C"] * 4, 5 * B * c["W"]),
+        "sgd_update": (c["pool"] * 12, 2 * c["pool"]),
+        "grid_weight": (gc["rays"] * 24 + gc["voxels"] * 4 + 2 * gc["reso"] ** 3 * 4,
+                        OPS_GRID_SAMPLE * gc["samples"] + OPS_GRID_CONTRIB * gc["contrib"]),
+    })
+
+
+def eager_chain(f_start, n_steps: int, err_fn, n_terms: int, lr=None):
+    """(features, losses, lr) after ``n_steps`` of f - lr * g from
+    ``f_start``, g the autograd gradient of sum(err_fn(f, n)^2) / n_terms at
+    step n (the losses in float64). ``lr`` None: chosen at the first step so
+    that the largest entry of the first step is UPDATE_MOVE * max|f_start|."""
+    f, losses = f_start, []
+    for n in range(n_steps):
+        ff = f.clone().requires_grad_()
+        err = err_fn(ff, n)
+        g, = torch.autograd.grad((err * err).sum() / n_terms, ff)
+        losses.append(float((err.detach().double() ** 2).sum() / n_terms))
+        if lr is None:
+            lr = UPDATE_MOVE * float(f_start.abs().max()) / float(g.abs().max())
+        f = f - lr * g
+    return f, losses, lr
+
+
+def hold_losses(what: str, got, want) -> None:
+    """Each step's loss ``got`` within LOSS_RTOL of the eager chain's."""
+    for n, w in enumerate(want):
+        check(abs(float(got[n]) - w) <= LOSS_RTOL * abs(w), f"{what} step {n}: loss {float(got[n])} vs the "
+              f"eager chain's {w}")
+
+
+def hold_update(what: str, f_k, f_e, f_start) -> float:
+    """The chain's update f_k - f_start against the eager chain's f_e -
+    f_start: the largest difference over the eager update's largest entry,
+    checked against UPDATE_RTOL (a chain that moves nothing fails)."""
+    d_e = f_e - f_start
+    scale = float(d_e.abs().max())
+    err = float(((f_k - f_start) - d_e).abs().max())
+    check(scale > 0 and err <= UPDATE_RTOL * scale,
+          f"{what}: update off the eager chain's by {err} (its largest entry {scale})")
+    return err / scale
+
+
+def minibatch_path(mb: dict, dev, card: str) -> dict:
+    """Phase 4n (K14), minibatch tape training through the public entry
+    points on ``mb`` (`minibatch_scene`), timed as bench.py times it
+    (`bench.py:284-407`; host clock, least of 3 calls, each call followed
+    by the next pack's prep, overlapped with the card, and a read of the
+    result): `minibatch_source_s` (the `TapeRowSource`), `minibatch_step_ms`
+    and `minibatch_fwd_bwd_mrays_s` (N_MB steps of B_MB with-replacement ids
+    from seed 7), `minibatch256k_*` (N_MB2 steps of B_MB2),
+    `tape_train_chain_step_ms` and `tape_train_chain_mrays_s` (`train_steps`,
+    N_CHAIN steps on the 640,000-ray tape of the orbit camera), each from
+    pool * 0.9 at lr MB_LR. Launch counts are read around these. Then one
+    random-batch SGD step through the march (`VolumeRenderer.forward` +
+    `backward()` on B_MB rig rays, least of 3), and the trainers held to
+    eager chains (`eager_chain`) of `replay_render_rows` (N_EAGER steps of
+    B_MB rays) or `replay_render` (`train_steps`, 2 steps): at MB_LR the
+    losses within LOSS_RTOL relative and `train_minibatches`' features
+    within 1e-5 * max(1, max|f|); at an lr that moves the pool the update
+    itself (`hold_update`)."""
+    r, rig, spec, opt, tgt, f0 = mb["r"], mb["rig"], mb["spec"], mb["opt"], mb["tgt"], mb["f0"]
+    n_rig = rig.n_rays
+    res = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src = stt.TapeRowSource(rig)
+    res["minibatch_source_s"] = time.perf_counter() - t0
+    rng_mb = np.random.RandomState(7)
+
+    def least(n_steps, batch):
+        def prep():
+            return subset_ops.prep_minibatches(src, rng_mb.randint(0, n_rig, size=(n_steps, batch)))
+
+        pack = prep()
+        f_out, losses, _ = stt.train_minibatches(src, pack, tgt, f0 * 0.9, opt, lr=MB_LR, spec=spec)
+        check(bool(torch.isfinite(losses).all()) and bool(torch.isfinite(f_out).all()),
+              "train_minibatches: non-finite losses or features")
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f_out, losses, _ = stt.train_minibatches(src, pack, tgt, f0 * (0.9 + 1e-6 * i), opt, lr=MB_LR,
+                                                     spec=spec)
+            pack = prep()
+            float(f_out.sum())
+            times.append(time.perf_counter() - t0)
+        return min(times) / n_steps
+
+    step_s = least(N_MB, B_MB)
+    res["minibatch_step_ms"] = step_s * 1e3
+    res["minibatch_fwd_bwd_mrays_s"] = B_MB / step_s / 1e6
+    step_s = least(N_MB2, B_MB2)
+    res["minibatch256k_step_ms"] = step_s * 1e3
+    res["minibatch256k_fwd_bwd_mrays_s"] = B_MB2 / step_s / 1e6
+    tape_tr = r.record_persp(orbit_camera(), WIDTH, HEIGHT, fx=BENCH_FX, features=f0)
+    with torch.no_grad():
+        tgt_chain = stt.replay_render(tape_tr, f0, opt, spec)[:, :3].contiguous()
+
+    def chain_run(i):
+        f_out, losses, _ = stt.train_steps(tape_tr, tgt_chain, f0 * (0.9 + 1e-6 * i), opt, N_CHAIN, lr=MB_LR,
+                                           spec=spec)
+        float(f_out.sum())
+        return losses
+
+    # At bench.py's lr the steps move this loss (about 5.6e-6) by less than
+    # its float32 resolution: it must stay finite and must not rise.
+    losses = chain_run(0)
+    check(bool(torch.isfinite(losses).all()) and float(losses[-1]) <= float(losses[0]),
+          f"train_steps: losses {losses.tolist()}")
+    times = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        chain_run(i + 1)
+        times.append(time.perf_counter() - t0)
+    chain_s = min(times) / N_CHAIN
+    res["tape_train_chain_step_ms"] = chain_s * 1e3
+    res["tape_train_chain_mrays_s"] = tape_tr.n_rays / chain_s / 1e6
+    counts = read_counts()
+
+    # One random-batch SGD step through the march on B_MB rig rays.
+    ids = torch.from_numpy(np.random.RandomState(7).randint(0, n_rig, B_MB)).to(dev)
+    rays = stt.Rays(rig.origins[ids].contiguous(), rig.dirs[ids].contiguous(), rig.vdirs[ids].contiguous())
+    tgt_b = tgt[ids]
+    pool = (f0 * 0.9).requires_grad_()
+
+    def march_step():
+        loss = ((r(pool, rays)[:, :3] - tgt_b) ** 2).sum() / (B_MB * 3)
+        pool.grad = None
+        loss.backward()
+        with torch.no_grad():
+            pool.sub_(MB_LR * pool.grad)
+
+    march_step()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        march_step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    res["march_minibatch_step_ms"] = min(times) * 1e3
+
+    # train_minibatches and train_steps against eager chains of the public
+    # calls: at MB_LR the features and losses, at an lr that moves the pool
+    # the update itself.
+    ids_e = np.random.RandomState(9).randint(0, n_rig, (N_EAGER, B_MB))
+    rows = [torch.from_numpy(ids_n).to(dev) for ids_n in ids_e]
+    f_start = f0 * 0.9
+
+    def mb_err(ff, n):
+        return stt.replay_render_rows(src, ids_e[n], ff, opt, spec)[:, :3] - tgt[rows[n]]
+
+    def chain_err(ff, n):
+        return stt.replay_render(tape_tr, ff, opt, spec)[:, :3] - tgt_chain
+
+    f_e, l_e, _ = eager_chain(f_start, N_EAGER, mb_err, B_MB * 3, MB_LR)
+    f_k, l_k, _ = stt.train_minibatches(src, ids_e, tgt, f_start, opt, lr=MB_LR, spec=spec)
+    hold_losses("train_minibatches", l_k, l_e)
+    e = float((f_k - f_e).abs().max())
+    check(e <= 1e-5 * max(1.0, float(f_e.abs().max())), f"train_minibatches vs the eager chain: {e}")
+    f_e, _, lr_u = eager_chain(f_start, N_EAGER, mb_err, B_MB * 3)
+    f_k, _, _ = stt.train_minibatches(src, ids_e, tgt, f_start, opt, lr=lr_u, spec=spec)
+    e_u = hold_update("train_minibatches", f_k, f_e, f_start)
+    _, l_e, _ = eager_chain(f_start, 2, chain_err, tape_tr.n_rays * 3, MB_LR)
+    hold_losses("train_steps", stt.train_steps(tape_tr, tgt_chain, f_start, opt, 2, lr=MB_LR, spec=spec)[1], l_e)
+    f_e, _, lr_c = eager_chain(f_start, 2, chain_err, tape_tr.n_rays * 3)
+    f_k = stt.train_steps(tape_tr, tgt_chain, f_start, opt, 2, lr=lr_c, spec=spec)[0]
+    e_c = hold_update("train_steps", f_k, f_e, f_start)
+    print(f"train_minibatches ({N_EAGER} steps of {B_MB} rays) vs the eager chain of replay_render_rows, "
+          f"autograd and f - lr * g: at lr {MB_LR} features max_abs_err {e:.3g}, losses "
+          f"{[round(float(x), 9) for x in l_k]} within {LOSS_RTOL} relative; at lr {lr_u:.6g} the update off by "
+          f"{e_u:.3g} of its largest entry; train_steps (2 steps, {tape_tr.n_rays} rays) losses within "
+          f"{LOSS_RTOL} relative, at lr {lr_c:.6g} the update off by {e_c:.3g} of its largest entry")
+    return dict(counts=counts, ms=res)
+
+
+def grid_path(g: dict) -> dict:
+    """Phase 4o (K12): `grid_weight_render` through the public entry point
+    on ``g`` (`grid_scene`), launch counts read around it and host ms,
+    synchronized; the outputs' shape, bounds (weights in [0, 1]) and
+    support (hits only on voxels whose sigma exceeds the threshold)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gw, gh = stt.grid_weight_render(g["data"], g["cam"], g["opt"], g["offset"], g["scaling"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    reso = g["data"].shape[0]
+    check(gw.shape == gh.shape == (reso,) * 3, "grid_weight_render: wrong output shape")
+    check(float(gw.min()) >= 0.0 and float(gw.max()) <= 1.0 + 1e-5 and float(gh.sum()) > 0,
+          "grid_weight_render: weights outside [0, 1] or no hits")
+    check(not bool(gh[g["data"] <= g["opt"].sigma_thresh].any()), "grid_weight_render: a hit on an empty voxel")
+    print(f"main path, grid_weight_render ({reso}^3, {WIDTH}x{HEIGHT}): {int((gh > 0).sum())} voxels hit of "
+          f"{int((g['data'] > 0).sum())} occupied, max weight {float(gw.max()):.6f}, host ms {ms:.3f}, "
+          f"launches {nonzero(counts)}")
+    return dict(counts=counts, ms=ms)
+
+
 def train(tree, true_pool, pool0, centers, perms, prior_points, steps,
           width=WIDTH, height=HEIGHT, fx=FX, accumulate_at=-1, after_step=None,
           backend="baked"):
@@ -2130,6 +2601,15 @@ def main() -> None:
             line = 705 if "_fwd" in name else 1215 if "_frames" in name else 962
         kernels[name] = dict(route="cuda", source=f"svox_t_tpu_torch/csrc/{src}",
                              replaces=f"svox_t_tpu/ops/tape.py:{line}")
+    # K14: minibatch tape training (svox_t_tpu/ops/tape_subset.py:280
+    # `_gather_subset`, :623 the loss and cotangent of `_train_impl`, :429
+    # `_sgd`); K12: svox_t_tpu/ops/grid.py:22 `grid_weight_render`.
+    for name, (src, line) in {"subset_gather": ("tape_subset.cu", "tape_subset.py:280"),
+                              "l2_cotangent": ("tape_subset.cu", "tape_subset.py:623"),
+                              "sgd_update": ("tape_subset.cu", "tape_subset.py:429"),
+                              "grid_weight": ("grid.cu", "grid.py:22")}.items():
+        kernels[name] = dict(route="cuda", source=f"svox_t_tpu_torch/csrc/{src}",
+                             replaces=f"svox_t_tpu/ops/{line}")
 
     # 3. Kernel vs plain
     tree = stt.tree_from_numpy(state, device=dev)
@@ -2719,6 +3199,13 @@ def main() -> None:
         state, spec, baked, feats, rot, origins, dirs, centers,
         (gb_sp, bench_feats, gb_o, gb_d, gb_v, gb_opt),
         {fast: sh_renderer._get_options(fast) for fast in (False, True)}, kernels, dev)
+
+    # 3h. Minibatch tape training (K14) and the dense-grid weight pass (K12)
+    # against their plain versions at the main paths' shapes: bench.py's
+    # minibatch rig and the depth-9 shell's density grid.
+    mb = minibatch_scene(dev)
+    gscene = grid_scene(centers_np, feats_np[:, -1], dev)
+    mb_census = subset_kernel_phase(mb, gscene, kernels, dev, card)
 
     # 4. Main path, serving: three frames through the public entry points,
     # on the default baked backend (baked once, as at load; every re-point
@@ -3327,10 +3814,34 @@ def main() -> None:
           f"{dyn_ms['dynamic_deep9_baked_frame_ms']:.4f}; phase 4m {time.perf_counter() - t_4m:.1f} s [{card}]")
     del bench7
 
+    # 4n. Main path, minibatch tape training (K14) on bench.py's minibatch
+    # cell (`minibatch_path`): its keys, the march's random-batch step
+    # beside them, train_minibatches held to the eager chain of public calls.
+    t_4n = time.perf_counter()
+    mb_res = minibatch_path(mb, dev, card)
+    mb_counts = mb_res["counts"]
+    steps = 4 * N_MB + 4 * N_MB2
+    want = {"subset_gather": steps, "l2_cotangent": steps + 4 * N_CHAIN, "sgd_update": steps + 4 * N_CHAIN,
+            "tape_replay_bwd": steps + 4 * N_CHAIN, "render_fwd_baked": 0, "render_bwd_baked": 0}
+    for k, n in want.items():
+        check(mb_counts[k] == n, f"minibatch path: {k} launched {mb_counts[k]} times, not {n}")
+    ms = mb_res["ms"]
+    print(f"main path, minibatch tape training: launches {nonzero(mb_counts)}; rig record "
+          f"{mb['record_s'] * 1e3:.1f} ms ({mb['rig'].n_rays} rays, {mb['rig'].n_samples} samples) [{card}]")
+    print(f"bench.py minibatch keys (default bake; host clock, least of 3 calls, next pack's prep overlapped): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in ms.items() if k != "march_minibatch_step_ms")
+          + f"; beside them one random-batch SGD step through the march (forward + backward + SGD, {B_MB} "
+          f"rays) {ms['march_minibatch_step_ms']:.4f} ms; phase 4n {time.perf_counter() - t_4n:.1f} s [{card}]")
+    # 4o. Main path, the dense-grid weight pass (K12) at full width.
+    grid_res = grid_path(gscene)
+    check(grid_res["counts"]["grid_weight"] == 1, "grid path: grid_weight did not launch once")
+    del mb, gscene
+
     phases = (*serve_counts.values(), *train_counts.values(), *aux_serve_counts.values(),
               *aux_train_counts.values(), *dyn_counts, vox_counts, *dyn_train_counts.values(),
               pose_counts, *bench_counts.values(), edit_counts, *interp_counts.values(),
-              *pool_counts.values(), *tape_counts.values(), *dyn_tape_counts.values())
+              *pool_counts.values(), *tape_counts.values(), *dyn_tape_counts.values(), mb_counts,
+              grid_res["counts"])
     for k in kernels:
         kernels[k]["launches"] = sum(c[k] for c in phases)
         check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
@@ -3694,6 +4205,7 @@ def main() -> None:
     bounds.update(dynamic_bounds(M, N_BONES, N_JOINTS, 28, P2V_N, p2v_c, touched))
     bounds.update(tape_bounds(census, census_b, tape_res["samples"], M, 28))
     bounds.update(tape_frames_bounds(census_b, tape_res["samples"]["_baked", False, True], M, 28, dcensus))
+    bounds.update(minibatch_bounds(mb_census))
     print(f"census (K13f on the main path's dynamic tape, frame 0): {dcensus}")
     print(f"census (voxelize, {P2V_N}^3, W {grid.W}): {p2v_c}, {touched} voxels touched")
     for k, b in bounds.items():

@@ -25,7 +25,11 @@ sample tapes (`record_tape`, `replay_render`, `replay_render_frames`,
 a ray batch's samples once and replay any pool, or a stack of pools, over
 them with no structure walk; `render_dynamic_tape_frames` serves an
 animation through one data-indirect tape recorded against its union
-occupancy. A pool
+occupancy. Minibatch training replays random ray subsets of a recorded
+(rig) tape (`TapeRowSource`, `subset_tape`, `replay_render_rows`,
+`train_minibatches`; `train_steps` over a whole tape: gather, replay, L2
+cotangent, tape backward and SGD per step), and `grid_weight_render`
+marches a dense sigma grid for PlenOctrees-style pruning. A pool
 is float32 or bfloat16, or int8 through `quantize_features` (K5). The
 renderer marches the tree's bake by default (`ops/bake.py`: a dense top
 grid and brick atlas, refreshed at every re-point), as the JAX package
@@ -56,6 +60,9 @@ from .ops.warp import (blend_transformation_matrix, get_transformation_matrix,
 from .ops.p2v import voxelize
 from .ops.tape import (RayTape, pack_index_table, record_tape, replay_depth, replay_render,
                        replay_render_frames, replay_render_weighted)
+from .ops.tape_subset import (TapeRowSource, replay_render_rows, subset_tape, train_minibatches,
+                              train_steps)
+from .ops.grid import grid_weight_render
 
 __all__ = [
     "N3Tree",
@@ -92,6 +99,12 @@ __all__ = [
     "replay_render_frames",
     "replay_depth",
     "pack_index_table",
+    "TapeRowSource",
+    "subset_tape",
+    "replay_render_rows",
+    "train_minibatches",
+    "train_steps",
+    "grid_weight_render",
     "QuantizedFeatures",
     "quantize_features",
     "make_tree_spec",

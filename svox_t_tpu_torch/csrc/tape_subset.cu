@@ -1,0 +1,212 @@
+// K14: minibatch tape training. K14a gathers chosen rays' runs of a
+// recorded tape into a standalone tape (svox_subset_gather); K14b forms the
+// masked L2 loss's cotangent and the step's loss (svox_l2_cotangent); K14c
+// applies the SGD update to the pool in place (svox_sgd_update).
+//
+// Replaces: svox_t_tpu/ops/tape_subset.py `_gather_subset` (with
+// `subset_tape`), the loss inside `_train_impl` / `_train_steps_impl`
+// (`jax.value_and_grad` of sum(err * err) / (B * W)), and `_sgd`. On the TPU
+// the gather was one row gather of a packed int32 matrix (a ray's samples,
+// view direction, delta_scale and count, count-sorted into chunks), and
+// the loss and update were fused into the scanned step by XLA. Here a tape
+// is ray-major already (tape_record.cuh: ray i's samples are entries
+// offsets[i] to offsets[i + 1] of flat streams), so a subset is a copy of
+// runs with new offsets, made on the host from the source's host counts.
+//
+// Bound on an H100: bytes, all three. K14a reads and writes each chosen
+// run once (4 bytes a sample per stream: row, step, [t], [cell]) and 32 to
+// 56 bytes a ray. One warp copies one run: the lanes read and write
+// neighbouring entries, so a run moves in coalesced 128-byte lines, and a
+// ray's constants ride on the first lanes. Short runs leave lanes idle,
+// which a copy can afford. K14b reads a replay row and a target row per
+// ray and writes the cotangent row: a thread per ray, and the loss from
+// per-block partial sums in a fixed order, summed by a second one-block
+// pass, so the loss is deterministic and stays on the card. K14c reads the
+// pool and its float32 gradient once and writes the pool once: a
+// grid-stride loop of coalesced elements.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// K14a: warp w of the grid copies ray i = ids[w]'s run of the source
+// streams to entries dst_offsets[w] .. dst_offsets[w + 1] of the new ones,
+// and its per-ray constants to row w. A null stream pointer skips it.
+__global__ void __launch_bounds__(kThreads) gather_kernel(
+    const int32_t* __restrict__ src_offsets, const int32_t* __restrict__ ids,
+    const int32_t* __restrict__ dst_offsets, int B,
+    const int32_t* __restrict__ idx_src, int32_t* __restrict__ idx_dst,
+    const float* __restrict__ dt_src, float* __restrict__ dt_dst,
+    const float* __restrict__ t_src, float* __restrict__ t_dst,
+    const int32_t* __restrict__ cell_src, int32_t* __restrict__ cell_dst,
+    const float* __restrict__ vdirs_src, float* __restrict__ vdirs_dst,
+    const float* __restrict__ ds_src, float* __restrict__ ds_dst,
+    int32_t* __restrict__ counts_dst,
+    const float* __restrict__ o_src, float* __restrict__ o_dst,
+    const float* __restrict__ d_src, float* __restrict__ d_dst) {
+  const int w = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= B) return;
+  const int32_t i = __ldg(ids + w);
+  const int32_t s0 = __ldg(src_offsets + i);
+  const int32_t n = __ldg(src_offsets + i + 1) - s0;
+  const int32_t d0 = __ldg(dst_offsets + w);
+  for (int32_t k = lane; k < n; k += 32) {
+    idx_dst[d0 + k] = __ldg(idx_src + s0 + k);
+    dt_dst[d0 + k] = __ldg(dt_src + s0 + k);
+    if (t_dst != nullptr) t_dst[d0 + k] = __ldg(t_src + s0 + k);
+    if (cell_dst != nullptr) cell_dst[d0 + k] = __ldg(cell_src + s0 + k);
+  }
+  if (lane < 3) {
+    vdirs_dst[3 * w + lane] = __ldg(vdirs_src + 3 * i + lane);
+    if (o_dst != nullptr) {
+      o_dst[3 * w + lane] = __ldg(o_src + 3 * i + lane);
+      d_dst[3 * w + lane] = __ldg(d_src + 3 * i + lane);
+    }
+  } else if (lane == 3) {
+    ds_dst[w] = __ldg(ds_src + i);
+  } else if (lane == 4) {
+    counts_dst[w] = n;
+  }
+}
+
+// Sum of v over the block, on thread 0 (a fixed order: warp shuffles, then
+// the warps' sums by warp 0).
+template <class T>
+__device__ __forceinline__ T block_sum(T v) {
+  __shared__ T warp_sums[32];
+  for (int off = 16; off > 0; off /= 2) v += __shfl_down_sync(0xffffffffu, v, off);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  v = 0;
+  if (warp == 0) {
+    const int n_warps = (blockDim.x + 31) / 32;
+    v = lane < n_warps ? warp_sums[lane] : T(0);
+    for (int off = 16; off > 0; off /= 2) v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// K14b, pass 1: thread i takes ray i's replay row out[i] (C columns) and
+// its target row targets[r] (r = ids[i], or i without ids). Columns c < W:
+// err = out - target, cotangent (err * inv_bw) * 2 (the JAX autodiff of
+// sum(err * err) * inv_bw); columns >= W: 0. partials[block] = the block's
+// sum of err * err.
+__global__ void __launch_bounds__(kThreads) cotangent_kernel(
+    const float* __restrict__ out, int B, int C, const float* __restrict__ targets, int ld_tgt,
+    const int32_t* __restrict__ ids, int W, float inv_bw, float* __restrict__ grad_out,
+    float* __restrict__ partials) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float sq = 0.f;
+  if (i < B) {
+    const int64_t r = ids != nullptr ? __ldg(ids + i) : i;
+    for (int c = 0; c < C; ++c) {
+      float g = 0.f;
+      if (c < W) {
+        const float err = __ldg(out + static_cast<int64_t>(i) * C + c) -
+                          __ldg(targets + r * ld_tgt + c);
+        sq += err * err;
+        g = (err * inv_bw) * 2.f;
+      }
+      grad_out[static_cast<int64_t>(i) * C + c] = g;
+    }
+  }
+  sq = block_sum(sq);
+  if (threadIdx.x == 0) partials[blockIdx.x] = sq;
+}
+
+// K14b, pass 2 (one block): loss = float(sum of the partials, in double, in
+// a fixed order) * inv_bw.
+__global__ void __launch_bounds__(1024) loss_kernel(const float* __restrict__ partials, int n,
+                                                    float inv_bw, float* __restrict__ loss) {
+  double s = 0.0;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) s += static_cast<double>(partials[k]);
+  s = block_sum(s);
+  if (threadIdx.x == 0) *loss = static_cast<float>(s) * inv_bw;
+}
+
+// K14c on a float32 pool: f = f - lr * g, the product and the difference
+// each rounded (the library is built with -fmad=false).
+__global__ void __launch_bounds__(kThreads) sgd_f32_kernel(float* __restrict__ f,
+                                                           const float* __restrict__ g,
+                                                           int64_t n, float lr) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; k < n; k += stride) {
+    f[k] = f[k] - lr * __ldg(g + k);
+  }
+}
+
+}  // namespace
+
+// K14a. src_offsets (n_src + 1,) i32 the source tape's offsets; ids (B,) i32
+// the chosen rays (duplicates allowed, each < n_src); dst_offsets (B + 1,)
+// i32 the new tape's offsets (exclusive sums of the chosen counts). Streams
+// of the source and of the new tape, the latter dst_offsets[B] long: idx
+// i32, dt f32, t f32 and cell i32 (null to skip both). Per ray: vdirs (., 3)
+// f32, dscale f32, counts_dst i32 (written), origins and dirs (., 3) f32
+// (null to skip both). All pointers are device pointers. Returns a
+// cudaError_t.
+extern "C" int svox_subset_gather(const int32_t* src_offsets, const int32_t* ids,
+                                  const int32_t* dst_offsets, int B,
+                                  const int32_t* idx_src, int32_t* idx_dst,
+                                  const float* dt_src, float* dt_dst,
+                                  const float* t_src, float* t_dst,
+                                  const int32_t* cell_src, int32_t* cell_dst,
+                                  const float* vdirs_src, float* vdirs_dst,
+                                  const float* ds_src, float* ds_dst, int32_t* counts_dst,
+                                  const float* o_src, float* o_dst,
+                                  const float* d_src, float* d_dst,
+                                  int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (B <= 0) return cudaSuccess;
+  if ((t_dst != nullptr && t_src == nullptr) || (cell_dst != nullptr && cell_src == nullptr) ||
+      (o_dst != nullptr && (o_src == nullptr || d_src == nullptr || d_dst == nullptr))) {
+    return cudaErrorInvalidValue;
+  }
+  const int grid = (B + kWarps - 1) / kWarps;
+  gather_kernel<<<grid, kThreads, 0, stream>>>(
+      src_offsets, ids, dst_offsets, B, idx_src, idx_dst, dt_src, dt_dst, t_src, t_dst, cell_src,
+      cell_dst, vdirs_src, vdirs_dst, ds_src, ds_dst, counts_dst, o_src, o_dst, d_src, d_dst);
+  return cudaGetLastError();
+}
+
+// K14b. out (B, C) f32 replay rows; targets (n_targets, ld_tgt) f32 with
+// ld_tgt >= W; ids (B,) i32 target row per ray, or null for row i; W <= C
+// loss columns; inv_bw = float32(1 / (B * W)); grad_out (B, C) f32
+// (written); partials ((B + 255) / 256,) f32 scratch; loss one f32
+// (written). All pointers are device pointers. Returns a cudaError_t.
+extern "C" int svox_l2_cotangent(const float* out, int B, int C, const float* targets, int ld_tgt,
+                                 const int32_t* ids, int W, float inv_bw, float* grad_out,
+                                 float* partials, float* loss, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (W < 0 || W > C || ld_tgt < W) return cudaErrorInvalidValue;
+  const int n_blocks = (B + kThreads - 1) / kThreads;
+  if (B > 0) {
+    cotangent_kernel<<<n_blocks, kThreads, 0, stream>>>(out, B, C, targets, ld_tgt, ids, W, inv_bw,
+                                                        grad_out, partials);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  loss_kernel<<<1, 1024, 0, stream>>>(partials, n_blocks, inv_bw, loss);
+  return cudaGetLastError();
+}
+
+// K14c. features (n,) f32, updated in place; grad (n,) f32. All pointers
+// are device pointers. Returns a cudaError_t.
+extern "C" int svox_sgd_update(float* features, const float* grad, long long n, float lr,
+                               int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (n <= 0) return cudaSuccess;
+  const long long want = (n + kThreads - 1) / kThreads;
+  const int grid = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  sgd_f32_kernel<<<grid, kThreads, 0, stream>>>(features, grad, n, lr);
+  return cudaGetLastError();
+}

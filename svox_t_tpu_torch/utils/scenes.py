@@ -136,6 +136,19 @@ def build_opaque_tree(depth: int = 7, data_format: str = "SH9",
     return state, feats, centers
 
 
+def dense_density_grid(centers: np.ndarray, sigma: np.ndarray, reso: int) -> np.ndarray:
+    """The dense (reso, reso, reso) float32 sigma grid of a shell tree whose
+    occupied leaves are all at resolution ``reso`` (`build_shell_tree`'s
+    are, at 2**depth): each leaf's sigma at its cell floor(centre * reso),
+    0 elsewhere (`grid_weight_render`'s input, in world space = tree space)."""
+    cell = np.floor(np.asarray(centers, np.float64) * reso).astype(np.int64)
+    if cell.size and (cell.min() < 0 or cell.max() >= reso):
+        raise ValueError(f"leaf centres outside the {reso}^3 grid")
+    grid = np.zeros((reso, reso, reso), np.float32)
+    grid[cell[:, 0], cell[:, 1], cell[:, 2]] = sigma
+    return grid
+
+
 def random_lobes(data_format: str, basis_dim: int, seed: int = 0) -> np.ndarray:
     """Seeded ``extra_data`` for an SG or ASG pool: (basis_dim, 4) rows
     [lambda, mu_xyz] with unit mu, or (basis_dim, 11) rows

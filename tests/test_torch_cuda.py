@@ -18,7 +18,12 @@ its plain version as above. The recorded-tape kernels (K13) come last:
 the count and record kernels equal to their plain versions exactly, the
 replay forward equal to the forward march kernel bit for bit, the replay
 backward against plain and the backward march kernel at the atomic
-tolerance.
+tolerance. Minibatch tape training (K14) and the dense-grid weight pass
+(K12) close the file: the run gather, the SGD update and K12 equal to
+their plain versions bit for bit, the L2 cotangent within 1e-6 (its loss
+within ``1e-6 * max(1, |loss|)``: the kernel sums in another order), the
+trainers against an eager chain of the public calls; each wrapper raises
+when its kernel is missing.
 
 Tolerances: construct_tree and the query forward must agree exactly, and
 so must the bake's lookup, refresh and skip-box regrowth,
@@ -45,11 +50,13 @@ import torch
 
 import svox_t_tpu_torch as stt
 from svox_t_tpu_torch.ops import bake as tbake
+from svox_t_tpu_torch.ops import grid as tgrid
 from svox_t_tpu_torch.ops import p2v as tp2v
 from svox_t_tpu_torch.ops import query as tquery
 from svox_t_tpu_torch.ops import render as trender
 from svox_t_tpu_torch.ops import render_aux as taux
 from svox_t_tpu_torch.ops import tape as ttape
+from svox_t_tpu_torch.ops import tape_subset as tsub
 from svox_t_tpu_torch.ops import traversal as ttrav
 from svox_t_tpu_torch.ops import warp as twarp
 from svox_t_tpu_torch.utils.scenes import (build_shell_tree, joint_pose_sequence, orbit_camera,
@@ -1585,3 +1592,214 @@ def test_render_dynamic_tape_frames_uses_the_kernels(cuda, backend, compact):
         want_c, want_d = r.render_dynamic_frames(feats, poses, src, centers_np, sw, ji, fast=fast, **kw)
         assert torch.equal(cols, want_c) and torch.equal(deps, want_d)
         assert (deps > 0).any()
+
+
+# ---------------------------------------------------------------------------
+# Minibatch tape training (K14a-c) and the dense-grid weight pass (K12).
+
+
+def _subset_case(cuda, compact=True, record_t=True):
+    tree, spec, feats, _, o, d = _tape_scene(cuda, "baked", seed=71)
+    opt = stt.VolumeRenderer(tree)._get_options(False)
+    tp = ttape.record_tape(spec, feats.shape[0], o, d, d, opt, compact=compact, record_t=record_t)
+    return tree, spec, feats, opt, tp
+
+
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("with_rays", [False, True])
+def test_subset_gather_kernel_matches_plain(cuda, compact, with_rays):
+    _, _, _, _, tp = _subset_case(cuda, compact)
+    rng = np.random.RandomState(72)
+    ids_np = np.concatenate([rng.randint(0, tp.n_rays, 3000), [0, 0, tp.n_rays - 1]])
+    src = tsub.TapeRowSource(tp, keep_cells=True)
+    offsets_np = tsub._subset_plan(src, ids_np)[1]
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(cuda)
+    offsets = torch.from_numpy(offsets_np).to(cuda)
+    before = tsub.SUBSET_GATHER.launches
+    got = tsub.subset_gather_cuda(tp, ids, offsets, True, True, with_rays)
+    torch.cuda.synchronize()
+    assert tsub.SUBSET_GATHER.launches == before + 1
+    want = tsub.subset_gather_plain(tp, ids, offsets, True, True, with_rays)
+    for name, g, w in zip(got._fields, got, want):
+        assert (g is None) == (w is None) == (name in ("origins", "dirs") and not with_rays), name
+        assert g is None or torch.equal(g, w), name
+    assert got.idx.shape[0] == int(offsets_np[-1]) > 0
+
+
+def test_subset_replay_equals_full_replay_kernel(cuda):
+    """K13c over a subset (duplicate ids) equals the full replay's rows bit
+    for bit; its gradient equals the masked full gradient."""
+    _, spec, feats, opt, tp = _subset_case(cuda)
+    ids = np.random.RandomState(73).randint(0, tp.n_rays, 1500)
+    full = ttape.replay_render(tp, feats, opt, spec)
+    out = tsub.replay_render_rows(tp, ids, feats, opt, spec)
+    assert torch.equal(out, full[torch.from_numpy(ids).to(cuda)])
+    f = feats.clone().requires_grad_()
+    g_sub, = torch.autograd.grad(tsub.replay_render_rows(tp, ids, f, opt, spec).sum(), f)
+    mult = torch.bincount(torch.from_numpy(ids), minlength=tp.n_rays).float().to(cuda)
+    g_full, = torch.autograd.grad((ttape.replay_render(tp, f, opt, spec) * mult[:, None]).sum(), f)
+    tol = 1e-5 * max(1.0, float(g_full.abs().max()))
+    assert float((g_sub - g_full).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("with_ids", [False, True])
+@pytest.mark.parametrize("W", [3, 4])
+def test_l2_cotangent_kernel_matches_plain(cuda, with_ids, W):
+    rng = np.random.RandomState(74)
+    B = 70000
+    out = torch.from_numpy(rng.rand(B, 4).astype(np.float32)).to(cuda)
+    targets = torch.from_numpy(rng.rand(B + 99, 5).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(rng.randint(0, B + 99, B).astype(np.int32)).to(cuda) if with_ids else None
+    inv_bw = 1.0 / (B * W)
+    loss = torch.empty(3, device=cuda)
+    before = tsub.L2_COTANGENT.launches
+    g, l_ = tsub.l2_cotangent_cuda(out, targets, ids, W, inv_bw, loss[1:2])
+    torch.cuda.synchronize()
+    assert tsub.L2_COTANGENT.launches == before + 1
+    gw, lw = tsub.l2_cotangent_plain(out, targets, ids, W, inv_bw)
+    assert torch.equal(g, gw) and bool(gw[:, :W].any()) and not g[:, W:].any()
+    assert abs(float(loss[1]) - float(lw)) <= 1e-6 * float(lw)
+    assert float(l_) == float(loss[1])
+
+
+def test_sgd_kernel_matches_plain(cuda):
+    rng = np.random.RandomState(75)
+    f = torch.from_numpy(rng.randn(100003, 7).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(100003, 7).astype(np.float32) * 0.3).to(cuda)
+    before = tsub.SGD_UPDATE.launches
+    got = tsub.sgd_cuda(f.clone(), g, 0.05)
+    torch.cuda.synchronize()
+    assert tsub.SGD_UPDATE.launches == before + 1
+    assert torch.equal(got, tsub.sgd_plain(f.clone(), g, 0.05))
+    assert not torch.equal(got, f)
+    with pytest.raises(ValueError, match="float32 pool"):
+        tsub.sgd_cuda(f.to(torch.bfloat16), g, 0.05)
+
+
+def _eager_chain(f_start, n_steps, err_fn, n_terms, lr=None):
+    """(features, losses) after n_steps of f - lr * g, g the autograd
+    gradient of sum(err_fn(f, n)^2) / n_terms; lr None: chosen at the first
+    step so that its largest entry is 1e-2 * max|f_start|."""
+    f, losses = f_start, []
+    for n in range(n_steps):
+        ff = f.clone().requires_grad_()
+        err = err_fn(ff, n)
+        g, = torch.autograd.grad((err * err).sum() / n_terms, ff)
+        losses.append(float((err.detach().double() ** 2).sum() / n_terms))
+        lr = 1e-2 * float(f_start.abs().max()) / float(g.abs().max()) if lr is None else lr
+        f = f - lr * g
+    return f, losses, lr
+
+
+def _assert_update(f_k, f_e, f_start):
+    """The chain's update within 1e-3 of the eager chain's, relative to its
+    largest entry (a chain that moves nothing fails)."""
+    d_e = f_e - f_start
+    scale = float(d_e.abs().max())
+    assert scale > 0 and float(((f_k - f_start) - d_e).abs().max()) <= 1e-3 * scale
+
+
+def test_train_minibatches_uses_the_kernels(cuda):
+    """Per step one K14a, K13c, K14b, K13d and K14c; the features within
+    1e-5 * max(1, max|f|) of an eager chain of the public calls, the losses
+    within 1e-6 relative; the caller's pool unchanged."""
+    _, spec, feats, opt, tp = _subset_case(cuda)
+    tgt = ttape.replay_render(tp, feats, opt, spec)[:, :3]
+    src = tsub.TapeRowSource(tp)
+    ids_b = np.random.RandomState(76).randint(0, tp.n_rays, (4, 1024))
+    f0 = feats * 0.9
+    counters = (tsub.SUBSET_GATHER, ttape.TAPE_REPLAY_FWD, tsub.L2_COTANGENT, ttape.TAPE_REPLAY_BWD,
+                tsub.SGD_UPDATE)
+    before = [k.launches for k in counters]
+    f_out, losses, _ = tsub.train_minibatches(src, tsub.prep_minibatches(src, ids_b), tgt, f0, opt,
+                                              lr=0.05, spec=spec)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [4] * 5
+    assert torch.equal(f0, feats * 0.9)
+
+    def err_fn(ff, n):
+        ids = ids_b[n]
+        return tsub.replay_render_rows(src, ids, ff, opt, spec)[:, :3] - tgt[torch.from_numpy(ids).to(cuda)]
+
+    f, want, _ = _eager_chain(f0, 4, err_fn, 1024 * 3, 0.05)
+    for n, w in enumerate(want):
+        assert abs(w - float(losses[n])) <= 1e-6 * w
+    assert float((f_out - f).abs().max()) <= 1e-5 * max(1.0, float(f.abs().max()))
+    f, _, lr = _eager_chain(f0, 4, err_fn, 1024 * 3)
+    _assert_update(tsub.train_minibatches(src, ids_b, tgt, f0, opt, lr=lr, spec=spec)[0], f, f0)
+
+
+def test_train_steps_uses_the_kernels(cuda):
+    _, spec, feats, opt, tp = _subset_case(cuda)
+    tgt = ttape.replay_render(tp, feats, opt, spec)[:, :3]
+    counters = (tsub.SUBSET_GATHER, ttape.TAPE_REPLAY_FWD, tsub.L2_COTANGENT, ttape.TAPE_REPLAY_BWD,
+                tsub.SGD_UPDATE)
+    before = [k.launches for k in counters]
+    f_out, losses, _ = tsub.train_steps(tp, tgt, feats * 0.9, opt, 3, lr=0.05, spec=spec)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [0, 3, 3, 3, 3]
+
+    def err_fn(ff, n):
+        return ttape.replay_render(tp, ff, opt, spec)[:, :3] - tgt
+
+    f0 = feats * 0.9
+    f, want, _ = _eager_chain(f0, 3, err_fn, tp.n_rays * 3, 0.05)
+    for n, w in enumerate(want):
+        assert abs(w - float(losses[n])) <= 1e-6 * w
+    assert float((f_out - f).abs().max()) <= 1e-5 * max(1.0, float(f.abs().max()))
+    assert losses[-1] < losses[0]
+    f, _, lr = _eager_chain(f0, 3, err_fn, tp.n_rays * 3)
+    _assert_update(tsub.train_steps(tp, tgt, f0, opt, 3, lr=lr, spec=spec)[0], f, f0)
+
+
+@pytest.mark.parametrize("ndc", [False, True])
+def test_grid_weight_kernel_matches_plain(cuda, ndc):
+    """K12 equals its plain version bit for bit on both outputs."""
+    rng = np.random.RandomState(77)
+    reso = 40
+    data = torch.from_numpy((rng.rand(reso, reso, reso) * 30).astype(np.float32)).to(cuda)
+    data[torch.from_numpy(rng.rand(reso, reso, reso) < 0.7).to(cuda)] = 0.0
+    if ndc:
+        opt = stt.RenderOptions(step_size=1e-2, sigma_thresh=0.5, max_steps=200, ndc_width=64,
+                                ndc_height=48, ndc_focal=60.0)
+        cam = stt.CameraSpec(c2w=torch.eye(4, device=cuda), fx=60.0, fy=60.0, width=64, height=48)
+        offset = scaling = [0.5, 0.5, 0.5]
+    else:
+        opt = stt.RenderOptions(step_size=1e-3, sigma_thresh=1e-4, max_steps=256)
+        cam = stt.CameraSpec(c2w=torch.as_tensor(orbit_camera(), device=cuda), fx=70.0, fy=70.0,
+                             width=64, height=48)
+        offset, scaling = [0.0] * 3, [1.0] * 3
+    before = tgrid.GRID_WEIGHT.launches
+    gw, gh = stt.grid_weight_render(data, cam, opt, offset, scaling)
+    torch.cuda.synchronize()
+    assert tgrid.GRID_WEIGHT.launches == before + 1
+    o, d = trender.cam2world_rays(cam.c2w, cam.width, cam.height, cam.fx, cam.fy)
+    if ndc:
+        d, o = trender.world2ndc(opt, d, o)
+    vec = lambda v: torch.tensor(v, dtype=torch.float32, device=cuda)  # noqa: E731
+    pw, ph = tgrid.grid_weight_plain(data, o.contiguous(), d.contiguous(), vec(offset), vec(scaling), opt)
+    assert torch.equal(gw, pw) and torch.equal(gh, ph)
+    assert float(gh.sum()) > 0 and 0 < float(gw.max()) <= 1.0
+
+
+def test_k14_k12_raise_without_their_kernels(cuda, monkeypatch):
+    """On CUDA tensors each wrapper launches its kernel or raises: with a
+    kernel's entry point missing from the library the call fails, and
+    nothing falls back to the plain version."""
+    _, spec, feats, opt, tp = _subset_case(cuda)
+    tgt = torch.zeros(tp.n_rays, 3, device=cuda)
+    calls = {
+        tsub.SUBSET_GATHER: lambda: tsub.subset_tape(tp, np.arange(8)),
+        tsub.L2_COTANGENT: lambda: tsub.train_steps(tp, tgt, feats, opt, 1, spec=spec),
+        tsub.SGD_UPDATE: lambda: tsub.train_steps(tp, tgt, feats, opt, 1, spec=spec),
+        tgrid.GRID_WEIGHT: lambda: stt.grid_weight_render(
+            torch.ones(8, 8, 8, device=cuda), stt.CameraSpec(c2w=torch.eye(4, device=cuda), width=4,
+                                                             height=4, fx=4.0, fy=4.0),
+            stt.RenderOptions(), [0.0] * 3, [1.0] * 3),
+    }
+    for kernel, call in calls.items():
+        with monkeypatch.context() as m:
+            m.setattr(kernel, "symbol", kernel.symbol + "_missing")
+            m.setattr(kernel, "_fn", None)
+            with pytest.raises(AttributeError, match="_missing"):
+                call()
