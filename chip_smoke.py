@@ -43,7 +43,11 @@ K14 and K12: the run gather K14a on a 65,536-ray subset of bench.py's
 4-view rig tape with duplicate ids, compacted and not, with cells, and
 the SGD update K14c bit for bit; the L2 cotangent K14b bit for bit, its
 loss within 1e-6 relative; K12 on the depth-9 shell's 512^3 density grid
-bit for bit on both outputs), then
+bit for bit on both outputs), then the ray schedules' cost walk (phase 3i,
+K15: its counts equal to its plain version's on every camera ray, both
+structures, exact and fast with and without the pool's sigma column, the
+rays whose transmittance comes within 1e-6 of the stop counted and
+printed), then
 drives the main paths through the public entry points on the depth-9 SH9
 shell scene at 800x800, with a seeded 32-joint skeleton for the aux and
 dynamic paths, each on the default baked backend and on the tree walk
@@ -92,8 +96,8 @@ dynamic paths, each on the default baked backend and on the tree walk
     `accumulate_weights()`, `render_depth` and `motion_render`, through
     the interp kernel instances only;
   * bf16 and int8 pools (`pool_path`): bench.py's deep serving on a bf16
-    pool and on its `quantize_features` (`deep9_ms`, `deep9_mrays_s`,
-    `deep9_int8_ms`, `deep9_int8_mrays_s`, `deep9_int8_max_err`), a bf16
+    pool and on its `quantize_features` in pixel order (`deep9_noplan_ms`,
+    `deep9_int8_noplan_ms`; `deep9_int8_max_err`), a bf16
     forward + backward (`fwd_bwd_bf16_ms`), a bf16 training step (opacity,
     motion features with bf16 joint features, point query), the aux
     passes on the int8 pool, one bf16 `render_dynamic_frames` call equal
@@ -136,7 +140,21 @@ dynamic paths, each on the default baked backend and on the tree walk
     `replay_render_rows` / `replay_render`, autograd and f - lr * g, at
     lr 0.05 and at an lr that moves the pool visibly (the update itself);
   * the dense-grid weight pass (phase 4o): `grid_weight_render` on the
-    depth-9 shell's 512^3 density grid through the 800x800 orbit camera.
+    depth-9 shell's 512^3 density grid through the 800x800 orbit camera;
+  * cost-ordered ray schedules (phase 4p, `plan_path`): three frames of
+    `render_persp(schedule="cost")` (exact and fast; the first call of each
+    mode makes its `plan_persp` plan, K15 on the block centres), a training
+    step through the planned render, and `render_dynamic_frames(
+    schedule="union")` on the deep dynamic scene, each equal to the tile
+    order (pixel order) bit for bit, the gradient at the atomic tolerance;
+    then bench.py's planning keys (`plan_times`): `plan_exact_ms`,
+    `plan_fast_ms`, `plan_opaque_ms`, `plan_deep_ms`, `plan_block_ms`, the
+    marches on cost-ordered rays as bench.py times them (`fwd_ms`,
+    `fwd_march_mrays_s`, `fast_mode_ms`, `opaque_fast_ms`, `deep9_ms`,
+    `deep9_int8_ms`), `fwd_march_blockplan_mrays_s`, `orbit32_planned_*` and
+    `orbit32_cached_*`, and the planned exact march against pixel order in
+    turns. The pixel-order marches are `fwd_march_noplan_ms` (phase 4l) and
+    `deep9_noplan_ms` (phases 4k, 4l).
 
 The two backends' exact outputs are checked equal bit for bit on every
 serving path. Each path's launch counts are read from zero around it. It
@@ -162,19 +180,22 @@ import torch
 
 import svox_t_tpu_torch as stt
 from svox_t_tpu_torch import _build
+from svox_t_tpu_torch.models import renderer as renderer_mod
 from svox_t_tpu_torch.ops import bake as bake_ops
 from svox_t_tpu_torch.ops import grid as grid_ops
 from svox_t_tpu_torch.ops import p2v as p2v_ops
 from svox_t_tpu_torch.ops import query as query_ops
 from svox_t_tpu_torch.ops import render as render_ops
 from svox_t_tpu_torch.ops import render_aux as aux_ops
+from svox_t_tpu_torch.ops import schedule as sched_ops
 from svox_t_tpu_torch.ops import tape as tape_ops
 from svox_t_tpu_torch.ops import tape_subset as subset_ops
 from svox_t_tpu_torch.ops import traversal
 from svox_t_tpu_torch.ops import warp as warp_ops
 from svox_t_tpu_torch.utils.scenes import (bench_deep_dynamic_cloud, bench_dynamic_cloud,
-                                           build_shell_tree, dense_density_grid, joint_pose_sequence,
-                                           orbit_camera, random_lobes, skin_to_nearest_joints)
+                                           build_opaque_tree, build_shell_tree, dense_density_grid,
+                                           joint_pose_sequence, orbit_camera, random_lobes,
+                                           skin_to_nearest_joints)
 
 DEPTH = 9
 WIDTH = HEIGHT = 800
@@ -442,6 +463,8 @@ COUNTERS.update(TAPE_KERNELS)
 MB_KERNELS = {"subset_gather": subset_ops.SUBSET_GATHER, "l2_cotangent": subset_ops.L2_COTANGENT,
               "sgd_update": subset_ops.SGD_UPDATE, "grid_weight": grid_ops.GRID_WEIGHT}
 COUNTERS.update(MB_KERNELS)
+# K15, the ray schedules' cost walk, on each structure.
+COUNTERS.update(march_cost=sched_ops.MARCH_COST, march_cost_baked=sched_ops.MARCH_COST_BAKED)
 # bench.py's minibatch cell (bench.py:284-407): MB_VIEWS rig views; N_MB
 # steps of B_MB ids, N_MB2 of B_MB2; train_steps' N_CHAIN steps; lr MB_LR.
 # The eager-chain check runs N_EAGER steps of B_MB rays.
@@ -463,6 +486,9 @@ UPDATE_RTOL = 1e-3
 # test (1); per contributing sample the exp, weight and transmittance (6).
 OPS_GRID_SAMPLE = 43
 OPS_GRID_CONTRIB = 6
+# K15 per sample that changes the transmittance: the step's optical depth
+# (two products), the exp as 3 operations and the new transmittance (1).
+OPS_COST_STOP = 6
 # K13e's stack in phases 3g and 5: N_STACK pools over the deep shell's tape.
 N_STACK = 4
 # Bytes of a pool element.
@@ -996,7 +1022,8 @@ def pool_path(backend: str, aux_state: dict, feats, jf, sw, ji, rig, cam_rays, c
     rows): bench.py's deep serving (`bench.py:583-632`:
     `VolumeRenderer(tree, step_size=1e-3)`, the pool cast to bf16, the
     exact 800x800 frame at fx 880, N_SUSTAIN frames per timed call, the
-    least of 3) and its int8 form (`quantize_features`, and the int8
+    least of 3; here in pixel order, `deep9_noplan_ms`) and its int8 form
+    (`quantize_features`, and the int8
     render's largest error against the float32 render of the bf16 pool on
     8,192 seeded rays); a bf16 forward + backward; a bf16 training step
     (opacity mask, motion-feature and point-query losses, bf16 joint
@@ -1033,7 +1060,7 @@ def pool_path(backend: str, aux_state: dict, feats, jf, sw, ji, rig, cam_rays, c
         r(dpool, bench_rays)
         stacks = [[(feats * (1.0 + 1e-2 * (i + 1) + 1e-3 * j)).to(torch.bfloat16) for j in range(N_SUSTAIN)]
                   for i in range(3)]
-        res["ms"]["deep9_ms"] = min(sustained(st_) for st_ in stacks)
+        res["ms"]["deep9_noplan_ms"] = min(sustained(st_) for st_ in stacks)
         del stacks
         q0 = stt.quantize_features(dpool.float())
         sel = torch.from_numpy(np.random.RandomState(0).choice(B, INT8_ERR_RAYS, replace=False)).to(dev)
@@ -1042,7 +1069,7 @@ def pool_path(backend: str, aux_state: dict, feats, jf, sw, ji, rig, cam_rays, c
         r(q0, bench_rays)
         qstacks = [[stt.quantize_features(dpool.float() * (1.0 + 1e-2 * (i + 1) + 1e-3 * j))
                     for j in range(N_SUSTAIN)] for i in range(3)]
-        res["ms"]["deep9_int8_ms"] = min(sustained(st_) for st_ in qstacks)
+        res["ms"]["deep9_int8_noplan_ms"] = min(sustained(st_) for st_ in qstacks)
         del qstacks
     # A bf16 forward + backward (CUDA events over KERNEL_REPS calls).
     g_img = torch.from_numpy(np.random.RandomState(9).randn(B, 4).astype(np.float32)).to(dev)
@@ -1389,14 +1416,15 @@ def tape_times(backend: str, scenes: dict, dev, card: str) -> dict:
     `VolumeRenderer(tree, step_size=1e-3)`, the orbit camera at 800x800, fx
     880: `tape_record_ms` (a second `record_persp` after a warm one, host
     clock, synchronized); `fwd_tape_ms`, `render_tape` of N_SUSTAIN
-    perturbed pools per timed call, the least of 3, beside `fwd_ms`, the
-    renderer's `forward` on the tape's rays timed the same way;
-    `tape_fwd_bwd_seq_ms`, a forward and backward per pool in turn, beside
-    `fwd_bwd_seq_ms`, the march's. The deep configuration
-    (`bench.py:583-665`): the depth-9 shell, its pool in bf16:
-    `deep9_tape_ms`, `deep9_tape_mrays_s` and, on its int8 form,
-    `deep9_tape_int8_mrays_s`, beside `deep9_ms`. ``scenes``: depth ->
-    (tree state, float32 pool)."""
+    perturbed pools per timed call, the least of 3, beside
+    `fwd_march_noplan_ms`, the renderer's `forward` on the tape's rays in
+    pixel order timed the same way; `tape_fwd_bwd_seq_ms`, a forward and
+    backward per pool in turn, beside `fwd_bwd_seq_ms`, the march's. The
+    deep configuration (`bench.py:583-665`): the depth-9 shell, its pool in
+    bf16: `deep9_tape_ms`, `deep9_tape_mrays_s` and, on its int8 form,
+    `deep9_tape_int8_mrays_s`, beside `deep9_noplan_ms`. (bench.py's `fwd_ms`
+    and `deep9_ms` march cost-ordered rays: `plan_times`.) ``scenes``: depth
+    -> (tree state, float32 pool)."""
     res = {}
     B = WIDTH * HEIGHT
 
@@ -1443,10 +1471,10 @@ def tape_times(backend: str, scenes: dict, dev, card: str) -> dict:
                 torch.cuda.synchronize()
                 res["tape_record_ms"] = (time.perf_counter() - t0) * 1e3
                 res["fwd_tape_ms"] = least(lambda p_: r.render_tape(tape, p_), make)
-                res["fwd_ms"] = least(lambda p_: r(p_, rays), make)
+                res["fwd_march_noplan_ms"] = least(lambda p_: r(p_, rays), make)
             else:
                 res["deep9_tape_ms"] = least(lambda p_: r.render_tape(tape, p_), make)
-                res["deep9_ms"] = least(lambda p_: r(p_, rays), make)
+                res["deep9_noplan_ms"] = least(lambda p_: r(p_, rays), make)
                 res["deep9_tape_int8_ms"] = least(
                     lambda p_: r.render_tape(tape, p_),
                     lambda i, j: stt.quantize_features(f0.float() * (1.0 + 1e-2 * i + 1e-3 * j)))
@@ -1454,15 +1482,17 @@ def tape_times(backend: str, scenes: dict, dev, card: str) -> dict:
             res["tape_fwd_bwd_seq_ms"] = seq(lambda x: r.render_tape(tape, x), make)
             res["fwd_bwd_seq_ms"] = seq(lambda x: r(x, rays), make)
         del tree, r, f0, tape, rays
-    for k in ("deep9_tape", "deep9_tape_int8", "deep9"):
+    for k in ("deep9_tape", "deep9_tape_int8", "deep9_noplan", "fwd_march_noplan"):
         res[k + "_mrays_s"] = B / res[k + "_ms"] / 1e3
     print(f"bench.py tape keys ({LABEL[backend]}; host clock, synchronized, {N_SUSTAIN} frames per timed "
           f"call, least of 3; the march on the tape's rays, made once): tape_record_ms "
-          f"{res['tape_record_ms']:.4f}, fwd_tape_ms {res['fwd_tape_ms']:.4f} (march fwd_ms "
-          f"{res['fwd_ms']:.4f}), tape_fwd_bwd_seq_ms {res['tape_fwd_bwd_seq_ms']:.4f} (march "
+          f"{res['tape_record_ms']:.4f}, fwd_tape_ms {res['fwd_tape_ms']:.4f} (march in pixel order "
+          f"fwd_march_noplan_ms {res['fwd_march_noplan_ms']:.4f}, fwd_march_noplan_mrays_s "
+          f"{res['fwd_march_noplan_mrays_s']:.3f}), tape_fwd_bwd_seq_ms {res['tape_fwd_bwd_seq_ms']:.4f} (march "
           f"{res['fwd_bwd_seq_ms']:.4f}); deep9_tape_ms {res['deep9_tape_ms']:.4f}, deep9_tape_mrays_s "
           f"{res['deep9_tape_mrays_s']:.3f}, deep9_tape_int8_mrays_s {res['deep9_tape_int8_mrays_s']:.3f} "
-          f"(march deep9_ms {res['deep9_ms']:.4f}, {res['deep9_mrays_s']:.3f} Mrays/s) [{card}]")
+          f"(march in pixel order deep9_noplan_ms {res['deep9_noplan_ms']:.4f}, "
+          f"{res['deep9_noplan_mrays_s']:.3f} Mrays/s) [{card}]")
     return res
 
 
@@ -1715,7 +1745,8 @@ def tape_bounds(c: dict, c_b: dict, n_samples: dict, M: int, D: int) -> dict:
     suffix, fast, compact) -> samples). Each input read once, each output
     written once: K13a walks as K2 (its rays and the structure entries its
     samples touch; operations as the march's walk) and writes 8 bytes a
-    ray; K13b walks again, reads the offsets, and writes the compacted
+    ray, K15 in exact mode the same walk and 4 bytes a ray (its fast mode:
+    `cost_bound`); K13b walks again, reads the offsets, and writes the compacted
     tape as the timed call records it (row, step and cell: 12 bytes a
     sample) and dscale; K13c reads the offsets, the row and step streams,
     dscale and the view direction, the rows its samples touch, and writes
@@ -1733,6 +1764,8 @@ def tape_bounds(c: dict, c_b: dict, n_samples: dict, M: int, D: int) -> dict:
             walk_ops = OPS_RAY * cc["hits"] + OPS_LEVEL * cc["levels"] + OPS_SAMPLE * cc["samples"]
         n = n_samples[sfx, False, True]
         out["tape_count" + sfx] = (B * 24 + cc["cells"] * cell_b + B * 8, walk_ops)
+        # K15 exact: K13a's walk, one count written (no sigma read).
+        out["march_cost" + sfx] = (B * 24 + cc["cells"] * cell_b + B * 4, walk_ops)
         out["tape_record" + sfx] = (B * 24 + (B + 1) * 4 + cc["cells"] * cell_b + n * 12 + B * 4, walk_ops)
     n, R, B = n_samples["_baked", False, True], c_b["rows"], c_b["rays"]
     stream = (B + 1) * 4 + n * 8 + B * 16
@@ -2247,6 +2280,355 @@ def grid_path(g: dict) -> dict:
     return dict(counts=counts, ms=ms)
 
 
+def cost_census(spec, origins, dirs, opt, sigmas, M: int) -> dict:
+    """What K15's walk does on this run's data under ``opt`` (its bound):
+    the rays that take a step, the samples, their lookups' table loads and
+    the distinct structure entries they touch (as `march_census` counts
+    them), and with a sigma column (``sigmas``, used when stop_thresh > 0)
+    the distinct rows whose sigma the walk reads and the samples that change
+    the transmittance."""
+    baked = isinstance(spec, bake_ops.BakedTree)
+    o, d, invdir, ds, tmin, tmax, hit = render_ops._ray_setup(spec, origins, dirs, opt)
+    skip = render_ops.effective_skip_base(spec, opt)
+    n_cells = spec.src_map.numel() if baked else spec.data_flat.numel()
+    dev = origins.device
+    cells, unused = (torch.zeros(n_cells, dtype=torch.bool, device=dev) for _ in range(2))
+    rows = torch.zeros(M + 1, dtype=torch.bool, device=dev)
+    use_stop = opt.stop_thresh > 0 and sigmas is not None
+    n = {k: torch.zeros((), dtype=torch.float64, device=dev) for k in ("samples", "levels", "contrib")}
+    t, active = tmin, hit & (tmin < tmax)
+    L = torch.ones_like(t)
+    steppers = int(active.sum())
+    for _ in range(opt.max_steps):
+        if not bool(active.any()):
+            break
+        leaf, levels = _lookup_loads(spec, render_ops.sample_position(o, t, d), cells, unused, active,
+                                     active)
+        dt = render_ops._step(leaf, invdir, opt.step_size, skip)
+        if use_stop:
+            idx = leaf.data_idx
+            occ = active & (idx >= 0) & (idx < M)
+            rows[torch.where(occ, idx, M).long()] = True
+            sig = torch.where(occ, sigmas[torch.where(occ, idx, 0).long()], 0.0)
+            contrib = occ & (sig > opt.sigma_thresh)
+            L = torch.where(contrib, L * torch.exp(-dt * ds * sig), L)
+            n["contrib"] += contrib.sum()
+        n["samples"] += active.sum()
+        n["levels"] += levels[active].sum()
+        t = torch.where(active, t + dt, t)
+        active = active & (t < tmax)
+        if use_stop:
+            active = active & (L > opt.stop_thresh)
+    out = {k: int(v.item()) for k, v in n.items()}
+    out.update(rays=origins.shape[0], hits=steppers, cells=int(cells.sum()), sigma_rows=int(rows[:M].sum()),
+               baked=baked)
+    return out
+
+
+def cost_bound(c: dict) -> dict:
+    """bound_ms and bound_by of K15 from its census ``c``: the rays read
+    once (24 bytes), the structure entries the walk touches (a tree cell 8
+    bytes, a baked entry 4), the sigma of each distinct row read (4 bytes)
+    and the counts written (4 bytes a ray); operations as the march's walk,
+    plus OPS_COST_STOP a sample that changes the transmittance."""
+    cell_b = 4 if c["baked"] else 8
+    if c["baked"]:
+        ops = OPS_RAY * c["hits"] + (OPS_LOOKUP + OPS_SAMPLE) * c["samples"]
+    else:
+        ops = OPS_RAY * c["hits"] + OPS_LEVEL * c["levels"] + OPS_SAMPLE * c["samples"]
+    B = c["rays"]
+    return _bounds({"k15": (B * 24 + c["cells"] * cell_b + c["sigma_rows"] * 4 + B * 4,
+                            ops + OPS_COST_STOP * c["contrib"])})["k15"]
+
+
+def cost_kernel_phase(specs: dict, feats, origins, dirs, opts: dict, kernels: dict) -> dict:
+    """Phase 3i (K15): the cost walk against its plain version on all of
+    the depth-9 shell's camera rays, on both structures (``specs``), exact,
+    fast without and with the pool's sigma column (the predicted early
+    stop): the counts equal on every ray but those whose transmittance comes
+    within 1e-6 of stop_thresh, which are counted and printed with how many
+    of them differ. Returns the plain ms of each case and K15's census in
+    fast mode with sigmas (its bound)."""
+    t_3i = time.perf_counter()
+    M = feats.shape[0]
+    sig = feats[:, -1].contiguous()
+    plain_ms, census, near = {}, {}, {}
+    with torch.no_grad():
+        for sfx, spec in specs.items():
+            for mode, opt, s in (("exact", opts[False], None), ("fast", opts[True], None),
+                                 ("fast+sigma", opts[True], sig)):
+                got = sched_ops.ray_costs(spec, origins, dirs, opt, M, s)
+                args = (spec, origins, dirs, render_ops.effective_skip_base(spec, opt), M, opt.step_size,
+                        opt.max_steps, opt.interp, opt.box_advance, opt.sigma_thresh, opt.stop_thresh, s)
+                (want, margin), plain_ms[sfx, mode] = timed_once_ms(
+                    lambda: sched_ops.march_cost_plain(*args, return_margin=True))
+                close = margin <= 1e-6
+                differ = got != want
+                n_far = int((differ & ~close).sum())
+                check(n_far == 0, f"march_cost{sfx} {mode}: {n_far} rays differ from plain away from the stop")
+                near[sfx, mode] = (int(close.sum()), int(differ.sum()))
+                print(f"march_cost{sfx} {mode}: {origins.shape[0]} rays, counts equal to plain on every ray "
+                      f"away from the stop; {near[sfx, mode][0]} rays within 1e-6 of stop_thresh, "
+                      f"{near[sfx, mode][1]} of them differ; {int((got > 0).sum())} rays take a step, "
+                      f"{int(got.sum())} steps, most {int(got.max())}")
+            census[sfx] = cost_census(spec, origins, dirs, opts[True], sig, M)
+            print(f"census (K15 fast with sigmas{sfx and ', bake' or ', tree walk'}): {census[sfx]}")
+            kernels["march_cost" + sfx]["max_abs_err"] = float(max(near[sfx, m][1] for m in
+                                                                   ("exact", "fast", "fast+sigma")))
+    print(f"phase 3i {time.perf_counter() - t_3i:.1f} s")
+    return dict(plain_ms=plain_ms, census=census)
+
+
+def cost_kernel_times(specs: dict, feats, origins, dirs, opts: dict, cost_res: dict, kernels: dict,
+                      card: str) -> None:
+    """Times of K15 (CUDA events over KERNEL_REPS calls) on the depth-9
+    shell's camera rays before its re-points, on each structure: exact
+    (the kernels line) and fast with the pool's sigma column (the predicted
+    stop; kept in ``cost_res["fast_ms"]``), beside K13a, the same walk, in the
+    same turn. Plain: one call, phase 3i."""
+    M = feats.shape[0]
+    sig = feats[:, -1].contiguous()
+    cost_res["fast_ms"] = {}
+    with torch.no_grad():
+        for sfx, spec in specs.items():
+            ms = {}
+            for mode, opt, s_ in (("exact", opts[False], None), ("fast+sigma", opts[True], sig)):
+                args = (spec, origins, dirs, render_ops.effective_skip_base(spec, opt), M, opt.step_size,
+                        opt.max_steps, opt.interp, opt.box_advance, opt.sigma_thresh, opt.stop_thresh, s_)
+                ms[mode] = time_ms(lambda: sched_ops.march_cost_cuda(*args), KERNEL_REPS)
+            k13a = time_ms(lambda: tape_ops.count_samples_cuda(spec, M, origins, dirs, opts[False]), KERNEL_REPS)
+            plain = cost_res["plain_ms"]
+            kernels["march_cost" + sfx].update(ms=ms["exact"], plain_ms=plain[sfx, "exact"])
+            cost_res["fast_ms"][sfx] = ms["fast+sigma"]
+            print(f"time march_cost{sfx} ({WIDTH}x{HEIGHT} SH9 camera rays): kernel exact {ms['exact']:.4f} ms, "
+                  f"fast with sigmas {ms['fast+sigma']:.4f} ms (K13a, the same walk, {k13a:.4f} ms in the same "
+                  f"turn); plain {plain[sfx, 'exact']:.1f} / {plain[sfx, 'fast+sigma']:.1f} ms (one call, "
+                  f"phase 3i) [{card}]")
+
+
+def plan_path(backend: str, state: dict, frame_feats, true_pool, pool0, feats, rig, c2w, dev) -> dict:
+    """Phase 4p (K15), the planning path through the public entry points on
+    ``backend``: three frames of `render_persp(schedule="cost")` (exact and
+    fast) with the frames' pools, whose first call per mode makes and caches
+    its plan (`plan_persp`, block 4); one Adam step through the planned
+    `render_persp` + `backward()` toward the planned target; one
+    `render_dynamic_frames(schedule="union")` call on the deep dynamic scene
+    (``rig``, rotations and depth), which plans against the animation's union
+    occupancy. Launch counts are read around these; then every output is
+    checked equal to the tile order's bit for bit and the planned gradient
+    against the tile order's at the atomic tolerance, and the dynamic call
+    is timed under both schedules in turns (host clock, synchronized).
+    Returns the counts and the host ms of the frames (the first of each
+    mode plans)."""
+    tree = stt.tree_from_numpy(state, device=dev)
+    r = stt.VolumeRenderer(tree, backend=backend)
+    if backend == "baked":
+        tree._baked_spec()
+    dyn_kw = dict(c2w=c2w, width=WIDTH, height=HEIGHT, fx=FX, update_tree=False, with_depth=True)
+    frames, frame_ms = [], []
+    reset_counts()
+    with torch.no_grad():
+        for f in frame_feats:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            frames.append([r.render_persp(f, c2w, WIDTH, HEIGHT, fx=FX, fast=fast, schedule="cost")
+                           for fast in (False, True)])
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+        target = r.render_persp(true_pool, c2w, WIDTH, HEIGHT, fx=FX, schedule="cost")
+        dyn = r.render_dynamic_frames(feats, *rig, schedule="union", **dyn_kw)
+    pool = pool0.clone().requires_grad_()
+    adam = torch.optim.Adam([pool], lr=LR)
+    loss = ((r.render_persp(pool, c2w, WIDTH, HEIGHT, fx=FX, schedule="cost") - target) ** 2).mean()
+    adam.zero_grad()
+    loss.backward()
+    adam.step()
+    counts = read_counts()
+    sfx = SUFFIX[backend]
+    other = "_baked" if backend == "tree" else ""
+    want = {"march_cost" + sfx: 3, "march_cost" + other: 0, "render_fwd" + sfx: 2 * N_FRAMES + 2 + N_FRAMES,
+            "render_bwd" + sfx: 1}
+    for k, n in want.items():
+        check(counts[k] == n, f"plan path ({backend}): {k} launched {counts[k]} times, not {n}")
+    check(len(r._plan_cache) == 3, f"plan path ({backend}): {len(r._plan_cache)} plans cached, not 3")
+    with torch.no_grad():
+        for f, (img_e, img_f) in zip(frame_feats, frames):
+            check(torch.equal(img_e, r.render_persp(f, c2w, WIDTH, HEIGHT, fx=FX)),
+                  f"render_persp(schedule='cost') ({backend}) is not the tile order's image bit for bit")
+            check(torch.equal(img_f, r.render_persp(f, c2w, WIDTH, HEIGHT, fx=FX, fast=True)),
+                  f"fast render_persp(schedule='cost') ({backend}) is not the tile order's bit for bit")
+        tile = r.render_dynamic_frames(feats, *rig, **dyn_kw)
+        check(torch.equal(dyn[0], tile[0]) and torch.equal(dyn[1], tile[1]),
+              f"render_dynamic_frames(schedule='union') ({backend}) is not the tile order's bit for bit")
+
+        def call_ms(schedule):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render_dynamic_frames(feats, *rig, schedule=schedule, **dyn_kw)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        turn = [call_ms(k) for k in ("tile", "union", "union", "tile")]
+    pool_t = pool0.clone().requires_grad_()
+    ((r.render_persp(pool_t, c2w, WIDTH, HEIGHT, fx=FX) - target) ** 2).mean().backward()
+    g_err = atomic_err(pool.grad, pool_t.grad, f"planned gradient ({backend}) vs the tile order's")
+    check(float(pool.grad.abs().max()) > 0, f"plan path ({backend}): zero gradient")
+    print(f"main path, planning ({LABEL[backend]}): launches {nonzero(counts)}; loss {float(loss.detach()):.8f}; "
+          f"frames and the union dynamic call equal to the tile order bit for bit, the planned gradient within "
+          f"{g_err:.3g}; host ms per frame (exact + fast; the first plans both) "
+          f"{[round(x, 3) for x in frame_ms]}; a {N_FRAMES}-frame render_dynamic_frames call in turns (tile, "
+          f"union, union, tile; the union plan cached, its key hashing the animation each call): tile "
+          f"{min(turn[0], turn[3]):.3f} ms, union {min(turn[1], turn[2]):.3f} ms")
+    return dict(counts=counts, frame_ms=frame_ms)
+
+
+def plan_times(bench7, deep, dev, card: str) -> dict:
+    """bench.py's planning keys (`bench.py:65-82`, `:413-455`, `:476-573`,
+    `:583-632`) on the default bake, each plan timed as bench.py times it
+    (a warm call, then the least of two, host clock, synchronized) and each
+    march as `tape_times` times one (N_SUSTAIN perturbed pools per call, the
+    least of 3). The headline scene (``bench7``: the depth-7 SH9 shell,
+    `VolumeRenderer(tree, step_size=1e-3)`, the orbit camera at 800x800, fx
+    880, rays in 32x32 tile order as bench.py makes them): `plan_exact_ms` and
+    `plan_fast_ms` (`cost_order` with the pool's sigma column) and the march
+    on the rays in plan order, `fwd_ms` / `fwd_march_mrays_s` and
+    `fast_mode_ms` / `fast_mode_mrays_s`; its opaque form
+    (`build_opaque_tree`): `plan_opaque_ms`, `opaque_fast_ms` /
+    `opaque_fast_mrays_s`; the block plan through `plan_persp` (block 4):
+    `plan_block_ms` and `fwd_march_blockplan_mrays_s`; a 32-camera orbit 2
+    degrees apart with one block plan made inside the timing
+    (`orbit32_planned_frame_ms` / `_mrays_s`) and with cached per-camera
+    plans, each group of 4 cameras under its first camera's plan
+    (`orbit32_cached_*`). The deep scene (``deep``: the depth-9 shell and
+    its pool, in bf16): `plan_deep_ms`, `deep9_ms` / `deep9_mrays_s` and the
+    int8 form `deep9_int8_ms` / `deep9_int8_mrays_s` on the planned rays.
+    Beside them, in turns with the planned march (pixel order, plan, plan,
+    pixel order), the exact march in pixel order on the same scenes: the
+    A/B of whether the cost order pays on the card."""
+    res = {}
+    B = WIDTH * HEIGHT
+    c2w = orbit_camera()
+    o_px, d_px = render_ops.cam2world_rays(torch.as_tensor(c2w, device=dev), WIDTH, HEIGHT, BENCH_FX, BENCH_FX)
+    # bench.py's tile order (32x32: the renderer's chunk_size 1024).
+    tile = renderer_mod._tile_order(stt.RenderOptions(chunk_size=1024), WIDTH, HEIGHT, dev)
+    o_t, d_t = o_px.index_select(0, tile).contiguous(), d_px.index_select(0, tile).contiguous()
+    pixel_rays = stt.Rays(o_px.contiguous(), d_px.contiguous(), d_px.contiguous())
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def plan_ms(fn):
+        fn()
+        (out, a), (_, b_) = host_ms(fn), host_ms(fn)
+        return out, min(a, b_)
+
+    def in_order(order):
+        o_, d_ = o_t.index_select(0, order), d_t.index_select(0, order)
+        return stt.Rays(o_, d_, d_)
+
+    def sustained(render, pools):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total = float(sum(render(p_).sum() for p_ in pools))
+        check(np.isfinite(total), "non-finite frame")
+        return (time.perf_counter() - t0) * 1e3 / len(pools)
+
+    def least(render, make):
+        render(make(0, 0))
+        return min(sustained(render, [make(i + 1, j) for j in range(N_SUSTAIN)]) for i in range(3))
+
+    def turns(planned, plain, make):
+        """(planned ms, pixel-order ms), each the least of its two turns."""
+        t = [least(plain, make), least(planned, make), least(planned, make), least(plain, make)]
+        return min(t[1], t[2]), min(t[0], t[3])
+
+    ab = {}
+    with torch.no_grad():
+        # The headline scene, exact and fast, and its opaque form.
+        for name, (st_, f_np) in (("shell", bench7), ("opaque", build_opaque_tree(depth=7)[:2])):
+            tree = stt.tree_from_numpy(st_, device=dev)
+            r = stt.VolumeRenderer(tree, step_size=1e-3)
+            baked = tree._baked_spec()
+            f0 = torch.from_numpy(f_np).to(dev)
+            make = lambda i, j: f0 * (1.0 + 1e-2 * i + 1e-3 * j)  # noqa: E731
+            for fast in ((False, True) if name == "shell" else (True,)):
+                opt = r._get_options(fast)
+                key = "opaque" if name == "opaque" else ("fast" if fast else "exact")
+                order, res[f"plan_{key}_ms"] = plan_ms(
+                    lambda: sched_ops.cost_order(baked, o_t, d_t, opt, f0.shape[0], f0[:, -1]))
+                rays = in_order(order)
+                if key == "exact":
+                    res["fwd_ms"], ab["fwd"] = turns(lambda p_: r(p_, rays), lambda p_: r(p_, pixel_rays),
+                                                     make)
+                else:
+                    res[f"{'opaque_fast' if name == 'opaque' else 'fast_mode'}_ms"] = least(
+                        lambda p_: r(p_, rays, fast=True), make)
+            if name == "opaque":
+                continue
+            # The block plan through the renderer, and the orbit.
+            r.plan_persp(c2w, WIDTH, HEIGHT, fx=BENCH_FX, features=f0)
+            r._plan_cache.clear()
+            (perm_b, _), res["plan_block_ms"] = host_ms(
+                lambda: r.plan_persp(c2w, WIDTH, HEIGHT, fx=BENCH_FX, features=f0))
+            block_rays = stt.Rays(*(x.index_select(0, perm_b) for x in pixel_rays))
+            res["fwd_march_blockplan_mrays_s"] = B / least(lambda p_: r(p_, block_rays), make) / 1e3
+            cams = [torch.as_tensor(orbit_camera(theta=0.5 + i * np.deg2rad(2.0)), device=dev)
+                    for i in range(32)]
+
+            def orbit(perm_of, pool):
+                acc = torch.zeros((), device=dev)
+                for i, cam in enumerate(cams):
+                    o_, d_ = render_ops.cam2world_rays(cam, WIDTH, HEIGHT, BENCH_FX, BENCH_FX)
+                    p_ = perm_of(i)
+                    o_, d_ = o_.index_select(0, p_), d_.index_select(0, p_)
+                    acc = acc + r(pool * (1.0 + 1e-7 * (i // 4)), stt.Rays(o_, d_, d_)).sum()
+                return float(acc)
+
+            def planned_orbit():
+                r._plan_cache.clear()
+                perm = r.plan_persp(cams[0], WIDTH, HEIGHT, fx=BENCH_FX, features=f0)[0]
+                return orbit(lambda i: perm, f0)
+
+            planned_orbit()
+            _, ms = host_ms(planned_orbit)
+            res["orbit32_planned_frame_ms"] = ms / 32
+            perms = [r.plan_persp(cam, WIDTH, HEIGHT, fx=BENCH_FX, features=f0, block=1)[0] for cam in cams]
+            orbit(lambda i: perms[i - i % 4], f0)
+            _, ms = host_ms(lambda: orbit(lambda i: perms[i - i % 4], f0 * 1.01))
+            res["orbit32_cached_frame_ms"] = ms / 32
+            del tree, r, baked, f0, rays, block_rays, perms
+        # The deep scene, bf16 and its int8 form.
+        tree = stt.tree_from_numpy(deep[0], device=dev)
+        r = stt.VolumeRenderer(tree, step_size=1e-3)
+        baked = tree._baked_spec()
+        f32 = torch.from_numpy(deep[1]).to(dev)
+        f0 = f32.to(torch.bfloat16)
+        opt = r._get_options(False)
+        order, res["plan_deep_ms"] = plan_ms(
+            lambda: sched_ops.cost_order(baked, o_t, d_t, opt, f0.shape[0], f0[:, -1]))
+        rays = in_order(order)
+        make = lambda i, j: (f32 * (1.0 + 1e-2 * i + 1e-3 * j)).to(torch.bfloat16)  # noqa: E731
+        res["deep9_ms"], ab["deep9"] = turns(lambda p_: r(p_, rays), lambda p_: r(p_, pixel_rays), make)
+        res["deep9_int8_ms"] = least(lambda p_: r(p_, rays),
+                                     lambda i, j: stt.quantize_features(f32 * (1.0 + 1e-2 * i + 1e-3 * j)))
+        del tree, r, baked, f0, f32, rays
+    for k in ("fwd", "fast_mode", "opaque_fast", "deep9", "deep9_int8", "orbit32_planned_frame",
+              "orbit32_cached_frame"):
+        res[k.replace("_frame", "") + "_mrays_s"] = B / res[k + "_ms"] / 1e3
+    res["fwd_march_mrays_s"] = res.pop("fwd_mrays_s")
+    print("bench.py planning keys (default bake; plans: host clock, synchronized, least of 2 after a warm "
+          "call; marches: N_SUSTAIN frames per timed call, least of 3): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in res.items()) + f" [{card}]")
+    print(f"cost order against pixel order in turns (pixel, plan, plan, pixel; least of each): headline exact "
+          f"{res['fwd_ms']:.4f} vs {ab['fwd']:.4f} ms ({ab['fwd'] / res['fwd_ms']:.3f}x), deep9 bf16 "
+          f"{res['deep9_ms']:.4f} vs {ab['deep9']:.4f} ms ({ab['deep9'] / res['deep9_ms']:.3f}x) [{card}]")
+    return res
+
+
 def train(tree, true_pool, pool0, centers, perms, prior_points, steps,
           width=WIDTH, height=HEIGHT, fx=FX, accumulate_at=-1, after_step=None,
           backend="baked"):
@@ -2610,6 +2992,11 @@ def main() -> None:
                               "grid_weight": ("grid.cu", "grid.py:22")}.items():
         kernels[name] = dict(route="cuda", source=f"svox_t_tpu_torch/csrc/{src}",
                              replaces=f"svox_t_tpu/ops/{line}")
+    # K15: the ray schedules' cost walk (svox_t_tpu/ops/schedule.py:51
+    # `march_cost`), a third kernel of the tape recorder's compile units.
+    for sfx in ("", "_baked"):
+        kernels["march_cost" + sfx] = dict(route="cuda", source=f"svox_t_tpu_torch/csrc/tape_record{sfx}.cu",
+                                           replaces="svox_t_tpu/ops/schedule.py:51")
 
     # 3. Kernel vs plain
     tree = stt.tree_from_numpy(state, device=dev)
@@ -3207,6 +3594,12 @@ def main() -> None:
     gscene = grid_scene(centers_np, feats_np[:, -1], dev)
     mb_census = subset_kernel_phase(mb, gscene, kernels, dev, card)
 
+    # 3i. The ray schedules' cost walk (K15) against its plain version on
+    # every camera ray, both structures, exact and fast (with and without
+    # the pool's sigma column).
+    cost_res = cost_kernel_phase({"": spec, "_baked": baked}, feats, origins, dirs,
+                                 {fast: sh_renderer._get_options(fast) for fast in (False, True)}, kernels)
+
     # 4. Main path, serving: three frames through the public entry points,
     # on the default baked backend (baked once, as at load; every re-point
     # then refreshes the bake) and on the tree walk.
@@ -3748,18 +4141,14 @@ def main() -> None:
             check_bake_counts(counts, backend, 0)
         pool_ms[backend] = res["ms"]
         ms = res["ms"]
-        print(f"main path, bf16/int8 pools ({LABEL[backend]}): launches {nonzero(counts)}; deep9_ms "
-              f"{ms['deep9_ms']:.4f}, deep9_mrays_s {B / ms['deep9_ms'] / 1e3:.3f}, deep9_int8_ms "
-              f"{ms['deep9_int8_ms']:.4f}, deep9_int8_mrays_s {B / ms['deep9_int8_ms'] / 1e3:.3f}, "
-              f"deep9_int8_max_err {res['deep9_int8_max_err']:.5g} ({INT8_ERR_RAYS} rays), fwd_bwd_bf16_ms "
+        print(f"main path, bf16/int8 pools ({LABEL[backend]}): launches {nonzero(counts)}; rays in pixel "
+              f"order: deep9_noplan_ms {ms['deep9_noplan_ms']:.4f} ({B / ms['deep9_noplan_ms'] / 1e3:.3f} "
+              f"Mrays/s), deep9_int8_noplan_ms {ms['deep9_int8_noplan_ms']:.4f} "
+              f"({B / ms['deep9_int8_noplan_ms'] / 1e3:.3f} Mrays/s); deep9_int8_max_err "
+              f"{res['deep9_int8_max_err']:.5g} ({INT8_ERR_RAYS} rays), fwd_bwd_bf16_ms "
               f"{ms['fwd_bwd_bf16_ms']:.4f}, bf16 render_dynamic_frames call ({N_FRAMES} frames) "
-              f"{ms['dynamic_bf16_call_ms']:.3f} ms; host clock, synchronized; bench.py's cost plan "
-              f"(`plan`, ROADMAP item 15) is a schedule the port accepts and ignores [{card}]")
-    ms = pool_ms["baked"]
-    print(f"bench.py deep9 keys (default bake, as bench.py renders): deep9_ms {ms['deep9_ms']:.4f}, "
-          f"deep9_mrays_s {B / ms['deep9_ms'] / 1e3:.3f}, deep9_int8_ms {ms['deep9_int8_ms']:.4f}, "
-          f"deep9_int8_mrays_s {B / ms['deep9_int8_ms'] / 1e3:.3f}, fwd_bwd_bf16_ms "
-          f"{ms['fwd_bwd_bf16_ms']:.4f} [{card}]")
+              f"{ms['dynamic_bf16_call_ms']:.3f} ms; host clock, synchronized (bench.py's deep9_ms marches "
+              f"cost-ordered rays: phase 4p) [{card}]")
 
     # 4l. Main path, recorded sample tapes (K13) on both backends
     # (`tape_path`): three frames of render_persp_tape with the frames'
@@ -3812,7 +4201,6 @@ def main() -> None:
           f"depth) through the tape {dyn_tape_ms['baked']['explicit_frame_ms']:.4f} (cache key "
           f"{dyn_tape_ms['baked']['cached_frame_ms']:.4f}) vs dynamic_deep9_baked_frame_ms "
           f"{dyn_ms['dynamic_deep9_baked_frame_ms']:.4f}; phase 4m {time.perf_counter() - t_4m:.1f} s [{card}]")
-    del bench7
 
     # 4n. Main path, minibatch tape training (K14) on bench.py's minibatch
     # cell (`minibatch_path`): its keys, the march's random-batch step
@@ -3837,11 +4225,24 @@ def main() -> None:
     check(grid_res["counts"]["grid_weight"] == 1, "grid path: grid_weight did not launch once")
     del mb, gscene
 
+    # 4p. Main path, cost-ordered ray schedules (K15) on both backends
+    # (`plan_path`): planned frames, a planned training step and the union
+    # plan of the dynamic loop, each equal to the tile order; then bench.py's
+    # planning keys on the default bake (`plan_times`).
+    t_4p = time.perf_counter()
+    plan_counts = {}
+    for backend in BACKENDS:
+        plan_counts[backend] = plan_path(backend, state, frame_feats, true_pool, pool0, feats, rig, c2w,
+                                         dev)["counts"]
+    plan_times(bench7, (state, feats_np), dev, card)
+    del bench7
+    print(f"phase 4p {time.perf_counter() - t_4p:.1f} s")
+
     phases = (*serve_counts.values(), *train_counts.values(), *aux_serve_counts.values(),
               *aux_train_counts.values(), *dyn_counts, vox_counts, *dyn_train_counts.values(),
               pose_counts, *bench_counts.values(), edit_counts, *interp_counts.values(),
               *pool_counts.values(), *tape_counts.values(), *dyn_tape_counts.values(), mb_counts,
-              grid_res["counts"])
+              grid_res["counts"], *plan_counts.values())
     for k in kernels:
         kernels[k]["launches"] = sum(c[k] for c in phases)
         check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
@@ -4132,6 +4533,9 @@ def main() -> None:
     dcensus = tape_frames_kernel_times(tp9, baked, feats, origins, dirs, sh_renderer._get_options(False),
                                        depth_case, tape_res["plain_ms"], kernels, dev, card)
     del tp9, depth_case
+    cost_kernel_times({"": spec, "_baked": baked}, feats, origins, dirs,
+                      {fast: sh_renderer._get_options(fast) for fast in (False, True)}, cost_res, kernels,
+                      card)
 
     # Forward + backward of a render loss, as bench.py names it:
     # fwd_bwd_ms sustained (CUDA events over KERNEL_REPS calls),
@@ -4206,6 +4610,12 @@ def main() -> None:
     bounds.update(tape_bounds(census, census_b, tape_res["samples"], M, 28))
     bounds.update(tape_frames_bounds(census_b, tape_res["samples"]["_baked", False, True], M, 28, dcensus))
     bounds.update(minibatch_bounds(mb_census))
+    for sfx, c_ in cost_res["census"].items():
+        b_ = cost_bound(c_)
+        print(f"bound march_cost{sfx} fast with sigmas: {b_['bound_bytes'] / 1e6:.2f} MB, "
+              f"{b_['bound_ops'] / 1e9:.4f} Gop -> {b_['bound_ms']:.5f} ms ({b_['bound_by']}); kernel "
+              f"{cost_res['fast_ms'][sfx]:.4f} ms, {b_['bound_ms'] / cost_res['fast_ms'][sfx]:.3f} of the "
+              f"bound [{card}]")
     print(f"census (K13f on the main path's dynamic tape, frame 0): {dcensus}")
     print(f"census (voxelize, {P2V_N}^3, W {grid.W}): {p2v_c}, {touched} voxels touched")
     for k, b in bounds.items():

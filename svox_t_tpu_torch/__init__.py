@@ -29,7 +29,11 @@ occupancy. Minibatch training replays random ray subsets of a recorded
 (rig) tape (`TapeRowSource`, `subset_tape`, `replay_render_rows`,
 `train_minibatches`; `train_steps` over a whole tape: gather, replay, L2
 cotangent, tape backward and SGD per step), and `grid_weight_render`
-marches a dense sigma grid for PlenOctrees-style pruning. A pool
+marches a dense sigma grid for PlenOctrees-style pruning. Cost-ordered
+ray schedules (`VolumeRenderer.plan_rays`, `plan_persp`, `schedule="cost"`
+and `"union"`; `ops.ray_costs`, `ops.cost_order`) sort rays by their
+predicted march cost without changing an output, and
+`native.quantize_median_cut` is the host median-cut quantizer. A pool
 is float32 or bfloat16, or int8 through `quantize_features` (K5). The
 renderer marches the tree's bake by default (`ops/bake.py`: a dense top
 grid and brick atlas, refreshed at every re-point), as the JAX package

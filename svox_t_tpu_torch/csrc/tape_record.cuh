@@ -1,7 +1,8 @@
-// K13a and K13b: the tape recorder's count and record walks, on either
-// structure. Included by tape_record.cu (the tree walk: svox_tape_count,
-// svox_tape_record) and tape_record_baked.cu (the bake: the same names
-// with _baked), which define SVOX_STRUCTURE and SVOX_SUFFIX first.
+// K13a and K13b: the tape recorder's count and record walks, and K15, the
+// cost walk of the ray schedules, on either structure. Included by
+// tape_record.cu (the tree walk: svox_tape_count, svox_tape_record,
+// svox_march_cost) and tape_record_baked.cu (the bake: the same names with
+// _baked), which define SVOX_STRUCTURE and SVOX_SUFFIX first.
 //
 // Replaces: svox_t_tpu/ops/tape.py `_count_samples` (K13a) and
 // `_record_chunks` (K13b). The TPU version recorded rays sorted by sample
@@ -31,6 +32,19 @@
 // no feature row read); K13b adds 8-16 streamed bytes written per sample.
 // The design answer is K2's: one thread per ray, small blocks, so enough
 // warps are resident to hide the chains.
+//
+// K15 replaces svox_t_tpu/ops/schedule.py `march_cost`: per ray the number
+// of steps of the same walk (K13a's total), capped at max_steps, the cost
+// a plan sorts rays by. Two differences from K13a, both JAX's: under
+// `interp` (a run-time flag, tested once per ray; these units compile
+// without kInterp) the cull and the box advance are off, and a hit ray
+// with tmin >= tmax takes no step. With a sigma column (float32, one value
+// per row; given only when stop_thresh > 0) the walk also carries the
+// transmittance, L *= exp(-dt * delta_scale * sigma) on each occupied
+// sample whose sigma exceeds sigma_thresh, and the ray retires after the
+// step whose L is at most stop_thresh; that step is counted. Writes one
+// int32 a ray. Bound as K13a, plus one dependent sigma load per occupied
+// sample in the predicted-stop mode.
 
 #pragma once
 
@@ -117,6 +131,45 @@ __global__ void __launch_bounds__(kThreads) record_kernel(const Params<S> p) {
   p.dscale[i] = r.ds;
 }
 
+// K15's arguments beside the walk's.
+template <class S>
+struct CostParams {
+  Params<S> w;
+  int interp;
+  float sigma_thresh;
+  float stop_thresh;
+  const float* sigmas;  // null: no stop prediction
+  int32_t* cost;
+};
+
+template <class S>
+__global__ void __launch_bounds__(kThreads) cost_kernel(const CostParams<S> c) {
+  const Params<S>& p = c.w;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.B) return;
+  svox::Ray r;
+  bool hit = svox::setup_ray(p.origins, p.dirs, p.offset, p.scaling, i, r);
+  if (!c.interp) hit = p.st.cull(r, hit);
+  int32_t n = 0;
+  if (hit && r.tmin < r.tmax) {
+    const bool stop = c.sigmas != nullptr;
+    float t = r.tmin, L = 1.f;
+    while (n < p.max_steps) {
+      float dt;
+      const svox::Leaf leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
+      if (stop && occupied(p, leaf)) {
+        const float sig = __ldg(c.sigmas + leaf.row);
+        if (sig > c.sigma_thresh) L = L * expf((-dt * r.ds) * sig);
+      }
+      t = t + dt;
+      ++n;
+      if (!(t < r.tmax)) break;
+      if (stop && !(L > c.stop_thresh)) break;
+    }
+  }
+  c.cost[i] = n;
+}
+
 template <class S>
 Params<S> make_params(const svox::StructDesc* s, const float* origins, const float* dirs, int B,
                       const float* offset, const float* scaling, int n_rows, float step_size,
@@ -178,5 +231,29 @@ extern "C" int SVOX_NAME(svox_tape_record)(
   p.tval = tval;
   p.dscale = dscale;
   record_kernel<S><<<(B + kThreads - 1) / kThreads, kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// K15. As svox_tape_count, plus interp (nonzero: no cull and no box
+// advance), sigma_thresh and stop_thresh, sigmas (n_rows float32 density
+// values, or null: the walk then never stops early), and cost (B,) int32
+// out: each ray's step count, at most max_steps. Returns a cudaError_t.
+extern "C" int SVOX_NAME(svox_march_cost)(
+    const svox::StructDesc* s, const float* origins, const float* dirs, int B,
+    const float* offset, const float* scaling, int n_rows, float step_size, int max_steps,
+    int interp, float sigma_thresh, float stop_thresh, const float* sigmas, int32_t* cost,
+    int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (B <= 0) return cudaSuccess;
+  using S = SVOX_STRUCTURE;
+  CostParams<S> c{};
+  c.w = make_params<S>(s, origins, dirs, B, offset, scaling, n_rows, step_size, max_steps);
+  c.interp = interp;
+  c.sigma_thresh = sigma_thresh;
+  c.stop_thresh = stop_thresh;
+  c.sigmas = sigmas;
+  c.cost = cost;
+  cost_kernel<S><<<(B + kThreads - 1) / kThreads, kThreads, 0, stream>>>(c);
   return cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 the aux passes:
 
   forward(features, rays, transformation_matrices=None, fast=False)
-  render_persp(features, c2w, width, height, fx, fy, fast=False)
+  render_persp(features, c2w, width, height, fx, fy, fast=False, schedule="tile")
+  plan_rays(rays, fast=False) / plan_persp(c2w, width, height, fx, ...)
   opacity_render(features, rays, fast=False)
   render_depth(features, rays, fast=False)
   motion_render(features, rays, fast=False)
@@ -49,9 +50,20 @@ and skip boxes are then off, as in the JAX package. A feature pool is a
 float32 or bfloat16 tensor (rendered, differentiated and queried in its
 own type, its gradient bf16 too), or an int8 `QuantizedFeatures`
 (`quantize_features`; every render and aux pass takes one, and it takes
-no gradient); the frame loops take float32 or bf16 stacks. Image
-renders march rays in pixel order: the JAX package's tile and cost orders
-only schedule work and do not change the image.
+no gradient); the frame loops take float32 or bf16 stacks.
+
+Ray schedules (`ops/schedule.py`, K15): `plan_rays` and `plan_persp`
+return a cost-ordered permutation of a ray batch or of a camera's pixels
+and its inverse, int32 tensors on the tree's device. The cost is each
+ray's step count of the march's walk (with the density column, the
+predicted early stop), sorted stably over the tile order, so that a warp's
+rays take alike numbers of steps. ``schedule="cost"`` in `render_persp`,
+`render_persp_frames` and `render_dynamic_frames` marches a camera's rays
+in the cached plan's order and unsorts the output; ``schedule="union"``
+(the dynamic loop) plans against the animation's union occupancy. A plan
+never changes an output: every schedule renders bit for bit the image of
+``"tile"``, which marches in pixel order (only the weight accumulator's
+atomics add in another order).
 
 Recorded sample tapes (`ops/tape.py`): `record_rays` records the samples
 of a ray batch once per (rays x structure x geometry), and `render_tape`
@@ -85,12 +97,51 @@ from ..ops import bake as bake_ops
 from ..ops import query as query_ops
 from ..ops import render as render_ops
 from ..ops import render_aux as aux_ops
+from ..ops import schedule as schedule_ops
 from ..ops import tape as tape_ops
 from ..ops import warp as warp_ops
 from ..utils.dataformat import DataFormat
 from ..utils.spec import NDCConfig, Rays, RenderOptions
 
 __all__ = ["VolumeRenderer", "Rays", "NDCConfig", "convert_to_ndc"]
+
+# Cost plans a renderer keeps (plan_persp, the union plan): the oldest
+# goes once there are more.
+_PLAN_CACHE_MAX = 32
+
+
+def _inverse_perm(perm: torch.Tensor) -> torch.Tensor:
+    """The inverse of an int32 permutation, on its device."""
+    inv = torch.empty_like(perm)
+    inv[perm.long()] = torch.arange(perm.numel(), dtype=perm.dtype, device=perm.device)
+    return inv
+
+
+def _tile_order(opt: RenderOptions, width: int, height: int, device):
+    """The pixel order a plan sorts over (JAX `_tile_order` and
+    `_tile_perm`), int32 on ``device``: (tile x tile) blocks of
+    max(8, isqrt(chunk_size)) pixels a side in row-major order, row-major
+    within a block; None when chunk_size <= 0 (the plan then sorts pixel
+    order)."""
+    if opt.chunk_size <= 0:
+        return None
+    tile = max(8, int(np.sqrt(opt.chunk_size)))
+    iy = torch.arange(height, device=device)[:, None]
+    ix = torch.arange(width, device=device)[None, :]
+    tid = (iy // tile) * -(-width // tile) + ix // tile
+    return torch.argsort((tid * (width * height) + iy * width + ix).reshape(-1)).to(torch.int32)
+
+
+def _in_order(rays, perm):
+    """A camera's (origins, dirs, viewdirs) gathered into plan order."""
+    if perm is None:
+        return rays
+    return tuple(r.index_select(0, perm) for r in rays)
+
+
+def _unsort(out, inv, axis: int = 0):
+    """Rows of ``out`` back in pixel order (through the plan's inverse)."""
+    return out if inv is None else out.index_select(axis, inv)
 
 
 def convert_to_ndc(origins, directions, focal, w, h, near=1.0):
@@ -165,6 +216,8 @@ class VolumeRenderer(nn.Module):
         # Recorded camera tapes (record_persp), oldest first.
         self._tape_cache = {}
         self._tape_cache_max = 4
+        # Cost plans (plan_persp, the union plan), oldest first.
+        self._plan_cache = {}
 
     def _render(self, spec, features, origins, dirs, vdirs, opt):
         """Render, adding per-leaf weights into an active accumulator."""
@@ -203,16 +256,20 @@ class VolumeRenderer(nn.Module):
         ``features``.
 
         :param c2w: (3,4) or (4,4) camera-to-world matrix
-        :param schedule: "tile" or "cost"; both render the same image, and
-            this package marches in pixel order for either
+        :param schedule: "tile" (pixel order) or "cost": the rays marched
+            in the order of the cached `plan_persp` plan, the output unsorted
+            through its inverse; the image is the same bit for bit
         :return: (height, width, n_color + 1)
         """
         del cuda
         if schedule not in ("tile", "cost"):
             raise ValueError(f"unknown schedule {schedule!r}")
         opt = self._get_options(fast)
-        rays = self._camera_rays(c2w, width, height, fx, fy, opt)
-        out = self._render(self._render_spec(), features, *rays, opt)
+        perm = inv = None
+        if schedule == "cost":
+            perm, inv = self.plan_persp(c2w, width, height, fx, fy, fast, features=features)
+        rays = _in_order(self._camera_rays(c2w, width, height, fx, fy, opt), perm)
+        out = _unsort(self._render(self._render_spec(), features, *rays, opt), inv)
         return out.reshape(int(height), int(width), -1)
 
     def _camera_rays(self, c2w, width, height, fx, fy, opt):
@@ -306,8 +363,10 @@ class VolumeRenderer(nn.Module):
         (3|4, 4) camera shared by every frame, whose rays are made once, or
         a (T, 3|4, 4) camera path.
 
-        :param schedule: "tile" or "cost"; both render the same images, and
-            this package marches in pixel order for either
+        :param schedule: "tile" (pixel order) or "cost": with one shared
+            camera, its rays marched in the order of the `plan_persp` plan
+            made with frame 0's pool and every frame unsorted (a camera path
+            keeps pixel order); the images are the same bit for bit
         :return: (T, height, width, n_color + 1)
         """
         if schedule not in ("tile", "cost"):
@@ -316,8 +375,12 @@ class VolumeRenderer(nn.Module):
         opt = self._get_options(fast)
         features_frames = self._pool(features_frames)
         tms = self._frame_mats(transformation_matrices_frames, features_frames)
-        rays = self._frame_rays(c2w, features_frames.shape[0], width, height, fx, fy, opt)
-        outs = [render_ops.volume_render(self._render_spec(tm), f, *r, opt)
+        perm = inv = None
+        if schedule == "cost" and torch.as_tensor(c2w).ndim == 2:
+            perm, inv = self.plan_persp(c2w, width, height, fx, fy, fast,
+                                        features=features_frames[0])
+        rays = self._frame_rays(c2w, features_frames.shape[0], width, height, fx, fy, opt, perm)
+        outs = [_unsort(render_ops.volume_render(self._render_spec(tm), f, *r, opt), inv)
                 for f, tm, r in zip(features_frames.unbind(0), tms, rays)]
         return torch.stack(outs).reshape(len(outs), int(height), int(width), -1)
 
@@ -335,12 +398,13 @@ class VolumeRenderer(nn.Module):
                              f"{T}, got {tuple(tms.shape)}")
         return list(tms.unbind(0))
 
-    def _frame_rays(self, c2w, T, width, height, fx, fy, opt):
+    def _frame_rays(self, c2w, T, width, height, fx, fy, opt, perm=None):
         """T (origins, dirs, viewdirs) triples: one camera's rays made once
-        and shared, or one per frame of a (T, 3|4, 4) path."""
+        and shared (gathered into the order of ``perm``, a plan of it), or
+        one per frame of a (T, 3|4, 4) path."""
         c2w = torch.as_tensor(c2w, dtype=torch.float32, device=self.tree.device)
         if c2w.ndim == 2:
-            return [self._camera_rays(c2w, width, height, fx, fy, opt)] * T
+            return [_in_order(self._camera_rays(c2w, width, height, fx, fy, opt), perm)] * T
         if c2w.ndim != 3 or c2w.shape[0] != T:
             raise ValueError(f"a c2w path must be (T, 3|4, 4) with T = {T}, got "
                              f"{tuple(c2w.shape)}")
@@ -376,8 +440,12 @@ class VolumeRenderer(nn.Module):
         :param update_tree: leave the tree pointed at the last frame; False
             leaves its table untouched
         :param with_depth: also return per-frame first-hit depths
-        :param schedule: "tile", "cost" or "union"; with a camera all three
-            march in pixel order and render the same images; raw rays take
+        :param schedule: "tile" (pixel order), "cost" (one fixed camera's
+            rays in the order of the `plan_persp` plan on the canonical-pose
+            structure with frame 0's pool) or "union" (a plan against the
+            animation's union occupancy, `_plan_dyn_union`, which no frame of
+            it makes stale); all three render the same images bit for bit. A
+            camera path or an NDC renderer keeps pixel order; raw rays take
             "tile" only
         :return: (T, B, n_color + 1) for rays, (T, H, W, n_color + 1) for a
             camera; with_depth returns (colors, depths), depths (T, B, 1) /
@@ -400,10 +468,18 @@ class VolumeRenderer(nn.Module):
             raise ValueError(f"a per-frame pool stack must have T = {T} frames, got "
                              f"{features.shape[0]}")
         pools = features.unbind(0) if features.ndim == 3 else [features] * T
+        perm = inv = None
         if rays is not None:
             frame_rays = [(rays.origins, rays.dirs, rays.viewdirs)] * T
         else:
-            frame_rays = self._frame_rays(c2w, T, width, height, fx, fy, opt)
+            if torch.as_tensor(c2w).ndim == 2 and opt.ndc_width < 0:
+                if schedule == "cost":
+                    perm, inv = self.plan_persp(c2w, width, height, fx, fy, fast, features=pools[0])
+                elif schedule == "union":
+                    perm, inv = self._plan_dyn_union(c2w, width, height, fx, fy, fast, tgt_poses,
+                                                     src_pose, points, skinning_weights,
+                                                     joint_index, features)
+            frame_rays = self._frame_rays(c2w, T, width, height, fx, fy, opt, perm)
         src_pose = torch.as_tensor(src_pose, dtype=torch.float32, device=dev)
         points = torch.as_tensor(points, dtype=torch.float32, device=dev)
         sw = torch.as_tensor(skinning_weights, dtype=torch.float32, device=dev)
@@ -445,12 +521,141 @@ class VolumeRenderer(nn.Module):
                                        hi if keep_box else None)
 
         def _finish(outs):
-            out = torch.stack(outs)
+            out = _unsort(torch.stack(outs), inv, 1)
             return out if rays is not None else out.reshape(T, int(height), int(width), -1)
 
         if with_depth:
             return _finish(colors), _finish(depths)
         return _finish(colors)
+
+    # --- cost-ordered ray schedules (ops/schedule.py) ------------------
+
+    def plan_rays(self, rays: Rays, fast=False, n_rows=None, features=None):
+        """A cost-ordered schedule of a ray batch (`ops/schedule.py`):
+        (perm, inv), int32 permutations on the rays' device. Render
+        ``rays[perm]`` and read the outputs back through ``inv``: the
+        outputs are the same bit for bit, so a plan may serve many frames
+        and only ever goes stale (slower), never wrong.
+
+        :param n_rows: the occupied-row bound of the cost walk (default:
+            the rows of ``features``, else of the tree's pool)
+        :param features: the pool that will be rendered: its row count and
+            density column drive the cost (the predicted early stop in fast
+            mode); default the tree's own pool
+        """
+        opt = self._get_options(fast)
+        n_rows, sigmas = self._plan_sigmas(features, n_rows)
+        perm = schedule_ops.cost_order(self._render_spec(), rays.origins, rays.dirs, opt, n_rows,
+                                       sigmas)
+        return perm, _inverse_perm(perm)
+
+    def _plan_sigmas(self, features, n_rows):
+        """(n_rows, sigmas) of a plan's cost walk: a float pool's density
+        column (a bf16 one widened; `ray_costs`), the first n_rows rows; a
+        quantized pool, an odd one, or one with fewer than n_rows rows gives
+        its row count only (no stop prediction), as in the JAX package."""
+        src = self.tree.features if features is None else features
+        if isinstance(src, render_ops.QuantizedFeatures):
+            return int(src.q.shape[0] if n_rows is None else n_rows), None
+        src = self._pool(src)
+        if n_rows is None:
+            n_rows = int(src.shape[0])
+        ok = src.ndim == 2 and int(src.shape[0]) >= n_rows
+        return int(n_rows), src[:n_rows, -1] if ok else None
+
+    def plan_persp(self, c2w, width=800, height=800, fx=1111.111, fy=None, fast=False,
+                   n_rows=None, features=None, block=4):
+        """A cost-ordered schedule of a perspective camera's pixels (see
+        `plan_rays`): (perm, inv), int32 on the tree's device, the stable
+        cost sort over the tile order. Cached (FIFO, 32 plans) on the
+        camera, the image size, fx, fy, the tree's layout and occupancy
+        versions, the options and ``block``; ``render_persp(...,
+        schedule="cost")`` uses it.
+
+        ``block`` > 1 costs one ray per (block x block) pixel block, its
+        centre, and gives that cost to the whole block: block^2 fewer rays
+        walked. A size that ``block`` does not divide takes block 1, the
+        per-pixel plan."""
+        if fy is None:
+            fy = fx
+        opt = self._get_options(fast)
+        c2w_np = torch.as_tensor(c2w, dtype=torch.float32).cpu().numpy()
+        bs = int(block)
+        if bs < 1 or int(width) % bs or int(height) % bs:
+            bs = 1
+        key = (c2w_np.tobytes(), int(width), int(height), float(fx), float(fy), self.tree._ver,
+               self.tree._occ_ver, opt, bs)
+        hit = self._plan_cache.get(key)
+        if hit is not None:
+            return hit
+        n_rows, sigmas = self._plan_sigmas(features, n_rows)
+        plan = self._plan_persp_core(self._render_spec(), opt, c2w_np, width, height, fx, fy,
+                                     n_rows, sigmas, bs)
+        self._plan_cache_put(key, plan)
+        return plan
+
+    def _plan_persp_core(self, spec, opt, c2w_np, width, height, fx, fy, n_rows, sigmas, bs):
+        """The uncached camera plan (`plan_persp`, the union plan): the
+        camera's rays (NDC-warped as the march takes them), the cost walk
+        on every block centre (``bs`` > 1) or every pixel, and the stable
+        sort of the costs over the tile order; the sort runs on the card."""
+        dev = self.tree.device
+        width, height = int(width), int(height)
+        origins, dirs = render_ops.cam2world_rays(
+            torch.as_tensor(c2w_np, device=dev), width, height, float(fx), float(fy))
+        if opt.ndc_width >= 0:
+            dirs, origins = render_ops.world2ndc(opt, dirs, origins)
+        if bs > 1:
+            h2, w2 = height // bs, width // bs
+            iy = torch.arange(h2, device=dev)[:, None] * bs + bs // 2
+            ix = torch.arange(w2, device=dev)[None, :] * bs + bs // 2
+            centers = (iy * width + ix).reshape(-1)
+            cost = schedule_ops.ray_costs(spec, origins[centers], dirs[centers], opt, n_rows,
+                                          sigmas).reshape(h2, w2)
+            cost = cost.repeat_interleave(bs, 0).repeat_interleave(bs, 1).reshape(-1)
+        else:
+            cost = schedule_ops.ray_costs(spec, origins, dirs, opt, n_rows, sigmas)
+        tperm = _tile_order(opt, width, height, dev)
+        if tperm is None:
+            perm = torch.sort(cost, stable=True).indices.to(torch.int32)
+        else:
+            perm = tperm[torch.sort(cost[tperm.long()], stable=True).indices]
+        return perm, _inverse_perm(perm)
+
+    def _plan_cache_put(self, key, plan) -> None:
+        while len(self._plan_cache) > _PLAN_CACHE_MAX:
+            self._plan_cache.pop(next(iter(self._plan_cache)))
+        self._plan_cache[key] = plan
+
+    def _plan_dyn_union(self, c2w, width, height, fx, fy, fast, tgt_poses, src_pose, points,
+                        skinning_weights, joint_index, features, block=4):
+        """A camera plan against the animation's union occupancy
+        (`_dyn_union`: every frame's re-point, on the bake the union box),
+        cached on the camera, the size, the options, ``block``, the
+        animation's arrays and the tree's layout version. A ray cheap under
+        the union is cheap in every frame, so no frame of the animation
+        makes it stale. A per-frame pool stack is costed with each point's
+        largest density over the frames."""
+        if fy is None:
+            fy = fx
+        opt = self._get_options(fast)
+        parts = self._dyn_parts(c2w, tgt_poses, src_pose, points, skinning_weights, joint_index)
+        key = self._dyn_cache_key(
+            ("uplan", int(width), int(height), float(fx), float(fy), opt, int(block)), parts)
+        hit = self._plan_cache.get(key)
+        if hit is not None:
+            return hit
+        spec_u, Q = self._dyn_union(tgt_poses, src_pose, points, skinning_weights, joint_index)
+        sigmas = None
+        if isinstance(features, torch.Tensor) and features.ndim in (2, 3) and features.shape[-2] == Q:
+            col = features[..., -1].detach().float()
+            sigmas = col.amax(dim=0) if features.ndim == 3 else col
+        bs = int(block)
+        if bs < 1 or int(width) % bs or int(height) % bs:
+            bs = 1
+        plan = self._plan_persp_core(spec_u, opt, parts[0], width, height, fx, fy, Q, sigmas, bs)
+        self._plan_cache_put(key, plan)
+        return plan
 
     # --- recorded sample tapes (ops/tape.py) --------------------------
 
@@ -669,6 +874,15 @@ class VolumeRenderer(nn.Module):
                 spec = bake_ops.refresh(baked, spec.data_flat, lo, hi)
         return spec, int(points.shape[0])
 
+    @staticmethod
+    def _dyn_parts(c2w, tgt_poses, src_pose, points, skinning_weights, joint_index):
+        """The camera and the animation's arrays as host NumPy arrays, the
+        parts of a dynamic cache key (`_dyn_cache_key`)."""
+        host = lambda x, dtype: torch.as_tensor(x).detach().cpu().numpy().astype(dtype)  # noqa: E731
+        return (host(c2w, np.float32), host(tgt_poses, np.float32), host(src_pose, np.float32),
+                host(points, np.float32), host(skinning_weights, np.float32),
+                host(joint_index, np.int32))
+
     def _dyn_cache_key(self, tag, parts):
         """A dynamic tape's cache key: ``tag``, an MD5 of the animation's
         arrays (copied to the host and hashed on every call, as in the JAX
@@ -706,10 +920,7 @@ class VolumeRenderer(nn.Module):
         if fy is None:
             fy = fx
         opt = self._dyn_geom_options(False)
-        host = lambda x, dtype: torch.as_tensor(x).detach().cpu().numpy().astype(dtype)  # noqa: E731
-        parts = (host(c2w, np.float32), host(tgt_poses, np.float32), host(src_pose, np.float32),
-                 host(points, np.float32), host(skinning_weights, np.float32),
-                 host(joint_index, np.int32))
+        parts = self._dyn_parts(c2w, tgt_poses, src_pose, points, skinning_weights, joint_index)
 
         def mk_key(rt):
             return self._dyn_cache_key(

@@ -1,0 +1,3 @@
+from .schedule import cost_order, ray_costs
+
+__all__ = ["cost_order", "ray_costs"]

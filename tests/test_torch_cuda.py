@@ -23,7 +23,12 @@ tolerance. Minibatch tape training (K14) and the dense-grid weight pass
 their plain versions bit for bit, the L2 cotangent within 1e-6 (its loss
 within ``1e-6 * max(1, |loss|)``: the kernel sums in another order), the
 trainers against an eager chain of the public calls; each wrapper raises
-when its kernel is missing.
+when its kernel is missing. The ray schedules' cost walk (K15) ends the
+file: its counts equal to the plain version's exactly on both structures,
+exact, fast with and without the density column, under interp and below
+the step cap (in fast mode with densities leaving out the rays whose
+transmittance comes within 1e-6 of the stop, and counting them), and the
+planned renders equal to the tile order bit for bit.
 
 Tolerances: construct_tree and the query forward must agree exactly, and
 so must the bake's lookup, refresh and skip-box regrowth,
@@ -55,6 +60,7 @@ from svox_t_tpu_torch.ops import p2v as tp2v
 from svox_t_tpu_torch.ops import query as tquery
 from svox_t_tpu_torch.ops import render as trender
 from svox_t_tpu_torch.ops import render_aux as taux
+from svox_t_tpu_torch.ops import schedule as tsched
 from svox_t_tpu_torch.ops import tape as ttape
 from svox_t_tpu_torch.ops import tape_subset as tsub
 from svox_t_tpu_torch.ops import traversal as ttrav
@@ -1803,3 +1809,61 @@ def test_k14_k12_raise_without_their_kernels(cuda, monkeypatch):
             m.setattr(kernel, "_fn", None)
             with pytest.raises(AttributeError, match="_missing"):
                 call()
+
+
+# ---------------------------------------------------------------------------
+# The ray schedules' cost walk (K15): counts equal to the plain version's on
+# both structures; the planned renders equal to the tile order bit for bit.
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("case", ["exact", "fast", "fast_sigmas", "interp", "cap"])
+def test_march_cost_kernel_matches_plain(cuda, backend, case):
+    tree, spec, feats, _, o, d = _tape_scene(cuda, backend, seed=65)
+    opt = stt.VolumeRenderer(tree, backend=backend)._get_options(case.startswith("fast"))
+    if case == "interp":
+        opt = dataclasses.replace(opt, interp=1)
+    if case == "cap":
+        opt = dataclasses.replace(opt, max_steps=7)
+    M = feats.shape[0]
+    sigmas = feats[:, -1].contiguous() * 50.0 if case == "fast_sigmas" else None
+    kernel = tsched.MARCH_COST_BAKED if backend == "baked" else tsched.MARCH_COST
+    before = kernel.launches
+    got = tsched.ray_costs(spec, o, d, opt, M, sigmas)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    args = (spec, o, d, tsched.effective_skip_base(spec, opt), M, opt.step_size, opt.max_steps,
+            opt.interp, opt.box_advance, opt.sigma_thresh, opt.stop_thresh, sigmas)
+    want, margin = tsched.march_cost_plain(*args, return_margin=True)
+    keep = margin > 1e-6
+    assert torch.equal(got[keep], want[keep])
+    assert int((~keep).sum()) <= 8
+    assert int(got.max()) > 0 and int(got.max()) <= opt.max_steps
+    if case == "fast_sigmas":
+        assert bool((got < tsched.ray_costs(spec, o, d, opt, M)).any())
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+def test_planned_renders_equal_tile_order(cuda, backend):
+    tree, feats, _ = _shell(cuda, seed=66)
+    r = stt.VolumeRenderer(tree, backend=backend)
+    cam = torch.as_tensor(orbit_camera(), device=cuda)
+    kernel = tsched.MARCH_COST_BAKED if backend == "baked" else tsched.MARCH_COST
+    for fast in (False, True):
+        before = kernel.launches
+        img = r.render_persp(feats, cam, 64, 48, 70.0, fast=fast, schedule="cost")
+        assert kernel.launches == before + 1
+        assert torch.equal(img, r.render_persp(feats, cam, 64, 48, 70.0, fast=fast))
+    perm, inv = r.plan_persp(cam, 64, 48, 70.0)
+    assert perm.is_cuda and perm.dtype == torch.int32
+    assert torch.equal(perm[inv.long()], torch.arange(64 * 48, dtype=torch.int32, device=cuda))
+
+
+def test_march_cost_raises_without_its_kernel(cuda, monkeypatch):
+    """On CUDA rays `march_cost` launches K15 or raises."""
+    tree, spec, feats, _, o, d = _tape_scene(cuda, "baked", seed=67)
+    opt = stt.VolumeRenderer(tree)._get_options(False)
+    monkeypatch.setattr(tsched.MARCH_COST_BAKED, "symbol", "svox_march_cost_baked_missing")
+    monkeypatch.setattr(tsched.MARCH_COST_BAKED, "_fn", None)
+    with pytest.raises(AttributeError, match="_missing"):
+        tsched.ray_costs(spec, o, d, opt, feats.shape[0])
