@@ -32,16 +32,21 @@ to their plain versions on every camera ray, both structures, exact and
 fast, compacted and not; the replay forward equal to the forward march
 bit for bit, with rotations and with weights, and across bench.py's
 skip boxes; its bf16 and int8 instances equal to the float32 one on the
-widened pools; the replay backward against plain and the backward march;
+widened pools; the replay backward against plain and the backward march,
+each of its vector widths 4 and 1 against plain;
 an indirect tape replayed after a re-point equal to the march on the
 re-pointed tree; the depth replay K13f equal to its plain version and to
 the first-hit kernel bit for bit on every tape, direct and indirect; the
 multi-frame backward K13e on a stack of 4 pools, float32 and bf16,
-against its plain version and 4 calls of the single-frame backward),
+each width against its plain version, and against 4 calls of the
+single-frame backward),
 then minibatch tape training and the dense-grid weight pass (phase 3h,
 K14 and K12: the run gather K14a on a 65,536-ray subset of bench.py's
 4-view rig tape with duplicate ids, compacted and not, with cells, and
-the SGD update K14c bit for bit; the L2 cotangent K14b bit for bit, its
+the SGD update K14c bit for bit, timed beside `pool.add_` in turns, L2
+cold and warm (K14C_PAIRS rounds each, their spread printed); the tape
+backward K13d at that subset's shape, widths 4 and 1 against plain on a
+seeded unit-scale cotangent and timed in turns; the L2 cotangent K14b bit for bit, its
 loss within 1e-6 relative; K12 on the depth-9 shell's 512^3 density grid
 bit for bit on both outputs), then the ray schedules' cost walk (phase 3i,
 K15: its counts equal to its plain version's on every camera ray, both
@@ -157,7 +162,12 @@ dynamic paths, each on the default baked backend and on the tree walk
     `deep9_noplan_ms` (phases 4k, 4l).
 
 The two backends' exact outputs are checked equal bit for bit on every
-serving path. Each path's launch counts are read from zero around it. It
+serving path. Each path's launch counts are read from zero around it (and
+the SH9 tape paths' backward launches are all the vector instance). The
+redesigned kernels (K13d, K13e) are timed beside their width-1 instance,
+the earlier design, in turns (`prev_ms` in the kernels line), and ptxas's
+registers and spills of the tape backward's instances are printed by
+width. It
 prints kernel and plain-version times and each kernel's bound with the
 card's name and power limit, the whole run's seconds, one JSON line
 describing the kernels, and as its last line {"ok": true, "device":
@@ -170,6 +180,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -319,6 +330,43 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def in_turns(new, old, timer) -> tuple:
+    """(new ms, old ms): ``timer(fn)`` of an earlier design ``old`` and its
+    redesign ``new`` in turns (old, new, new, old), each the mean of its
+    two."""
+    o1, n1, n2, o2 = timer(old), timer(new), timer(new), timer(old)
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def paired_device_ms(new, old, names, pairs: int, cold: bool = True) -> list:
+    """[(new ms, old ms)] of ``pairs`` rounds of calls in turns (old, new,
+    new, old), each the mean of its round's two kernels, from one
+    `torch.profiler` session: ``new`` launches one kernel whose name
+    contains one of ``names``, ``old`` one kernel of another name (fills
+    aside). ``cold`` as in `device_ms`."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda") if cold else None
+    new()
+    old()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(pairs):
+            for fn in (old, new, new, old):
+                if cold:
+                    flush.zero_()
+                fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not e.is_user_annotation and "FillFunctor" not in e.name),
+                    key=lambda e: e.time_range.start)
+    is_new = [any(n in e.name for n in names) for e in events]
+    check(is_new == [False, True, True, False] * pairs,
+          f"in-turns profile of {names}: {len(events)} kernels recorded, not {4 * pairs} in turns: "
+          f"{sorted({e.name[:80] for e in events})}")
+    ms = [e.time_range.elapsed_us() / 1e3 for e in events]
+    return [((ms[4 * i + 1] + ms[4 * i + 2]) / 2, (ms[4 * i] + ms[4 * i + 3]) / 2) for i in range(pairs)]
 
 
 def device_ms(fn, reps: int, names=None, cold: bool = True) -> float:
@@ -473,6 +521,7 @@ N_MB, B_MB = 32, 65536
 N_MB2, B_MB2 = 8, 262144
 N_CHAIN = 8
 MB_LR = 0.05
+K14C_PAIRS = 20  # rounds of K14c and pool.add_ in turns, L2 cold and warm each
 N_EAGER = 4
 LOSS_RTOL = 1e-6  # K14b's loss against plain and eager chains (relative)
 # At bench.py's lr a step moves the features below float32 resolution, so
@@ -524,10 +573,66 @@ def check_bake_counts(counts: dict, backend: str, n: int) -> None:
 def reset_counts() -> None:
     for k in COUNTERS.values():
         k.launches = 0
+    for w in tape_ops.BWD_WIDTH_LAUNCHES:
+        tape_ops.BWD_WIDTH_LAUNCHES[w] = 0
 
 
 def read_counts() -> dict:
-    return {name: k.launches for name, k in COUNTERS.items()}
+    """Each counter's launches, and K13d / K13e's launches by vector width
+    (``bwd_width_<w>``, both entry points and pool types)."""
+    counts = {name: k.launches for name, k in COUNTERS.items()}
+    counts.update({f"bwd_width_{w}": n for w, n in tape_ops.BWD_WIDTH_LAUNCHES.items()})
+    return counts
+
+
+def check_bwd_widths(counts: dict, what: str) -> None:
+    """On an SH9 path (D = 28, contiguous pools) every K13d and K13e launch
+    is the 16-byte vector instance."""
+    n_bwd = sum(counts[k] for k in ("tape_replay_bwd", "tape_replay_bwd_bf16", "tape_replay_bwd_frames",
+                                     "tape_replay_bwd_frames_bf16"))
+    check(n_bwd > 0 and counts["bwd_width_4"] == n_bwd,
+          f"{what}: {n_bwd} tape backward launches, {counts['bwd_width_4']} of them the vector instance")
+
+
+# ptxas's lines in the build log: a kernel's entry and its registers and spills.
+PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+PTXAS_USED = re.compile(r"Used (\d+) registers")
+PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+# K13d / K13e's kernel instances: format, basis capacity, rotation, width.
+BWD_INSTANCE = re.compile(r"replay_bwd_kernelILi(\d+)ELi(\d+)ELb([01])ELi(\d+)E")
+
+
+def ptxas_summary(log: str) -> None:
+    """Print the registers and spills of the tape backward's instances by
+    vector width (each compile unit: the range over formats and bases, and
+    the SH9 instances) and of K14c's, from the build log."""
+    unit, entry, spill = None, None, None
+    rows = []
+    for line in log.splitlines():
+        if line.startswith("== "):
+            unit = line[3:].split(" (")[0]
+        elif (m := PTXAS_ENTRY.search(line)):
+            entry = m.group(1)
+        elif (m := PTXAS_SPILL.search(line)):
+            spill = int(m.group(1)) + int(m.group(2))
+        elif (m := PTXAS_USED.search(line)) and entry is not None:
+            rows.append((unit, entry, int(m.group(1)), spill or 0))
+            entry = spill = None
+    for u in sorted({r[0] for r in rows if r[0] and "tape_replay_bwd" in r[0]}):
+        for w in (1, 4):
+            got = [(r[2], r[3], b_) for r in rows if r[0] == u
+                   for b_ in [BWD_INSTANCE.search(r[1])] if b_ and int(b_.group(4)) == w]
+            if not got:
+                continue
+            sh9 = [f"{'rot ' if b_.group(3) == '1' else ''}{r_} regs, {sp} B spilled" for r_, sp, b_ in got
+                   if b_.group(1) == "1" and b_.group(2) == "9"]
+            where = "the row in registers, n_color 3" if w > 1 else "scalar"
+            print(f"  ptxas {u} width {w} ({where}): {len(got)} instances, {min(g[0] for g in got)}-"
+                  f"{max(g[0] for g in got)} registers, {sum(g[1] for g in got)} bytes spilled in all; SH9: "
+                  + "; ".join(sh9))
+    for r in rows:
+        if r[0] and "tape_subset" in r[0] and "sgd_f32_kernel" in r[1]:
+            print(f"  ptxas {r[0]} {r[1]}: {r[2]} registers, {r[3]} bytes spilled")
 
 
 def skeleton(rng: np.random.RandomState, M: int, device):
@@ -1248,8 +1353,12 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
                             eb = atomic_err(g_k, g_p, f"tape_replay_bwd{psfx} {label}")
                             e3 = atomic_err(g_k, g_3, f"tape_replay_bwd{psfx} {label} vs K3")
                             check(float(g_k.abs().max()) > 0, f"tape_replay_bwd{psfx} {label}: zero gradient")
+                            # Width 1, the earlier scalar design, too.
+                            eb = max(eb, atomic_err(
+                                tape_ops.replay_backward_cuda(tp, pool, opt, g, out, spec, width=1), g_p,
+                                f"tape_replay_bwd{psfx} {label} width 1"))
                             note("tape_replay_bwd" + psfx, eb)
-                            line += f"; bwd{psfx} vs plain {eb:.3g}, vs K3 {e3:.3g}"
+                            line += f"; bwd{psfx} (widths 4, 1) vs plain {eb:.3g}, vs K3 {e3:.3g}"
                     if not fast and compact:
                         for kind in POOL_KINDS:
                             pool, wide = pool_of(kind, feats)
@@ -1277,12 +1386,15 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
             g_p, plain_ms["tape_replay_bwd_frames" + psfx] = timed_once_ms(
                 lambda: tape_ops.replay_backward_frames_plain(tp, stack, opt, g, outs, baked))
             eb = atomic_err(g_k, g_p, f"tape_replay_bwd_frames{psfx}")
+            eb = max(eb, atomic_err(tape_ops.replay_backward_frames_cuda(tp, stack, opt, g, outs, baked, width=1),
+                                    g_p, f"tape_replay_bwd_frames{psfx} width 1"))
             e_d = max(atomic_err(g_k[n], tape_ops.replay_backward_cuda(tp, stack[n], opt, g[n], outs[n], baked),
                                  f"tape_replay_bwd_frames{psfx} frame {n} vs K13d") for n in range(N_STACK))
             check(all(float(g_k[n].abs().max()) > 0 for n in range(N_STACK)),
                   f"tape_replay_bwd_frames{psfx}: a frame without gradient")
             note("tape_replay_bwd_frames" + psfx, eb)
-            print(f"tape_replay_bwd_frames{psfx} ({N_STACK} frames, {tp.n_samples} samples): vs plain {eb:.3g}, "
+            print(f"tape_replay_bwd_frames{psfx} ({N_STACK} frames, {tp.n_samples} samples): widths 4 and 1 "
+                  f"vs plain {eb:.3g}, "
                   f"vs {N_STACK} K13d calls {e_d:.3g} (max|g| {float(g_p.abs().max()):.4g})")
             del stack, outs, g, g_k, g_p
         # Fast mode across skip boxes: bench.py's frame 1 on its bake.
@@ -1548,6 +1660,7 @@ def dynamic_tape_path(backend: str, state: dict, feats, rig, c2w, dev) -> dict:
             "tape_count" + sfx: 4, "tape_record" + sfx: 4, "render_fwd" + sfx: 0, "first_hit" + sfx: 0}
     for k, n in want.items():
         check(counts[k] == n, f"dynamic tape path ({backend}): {k} launched {counts[k]} times, not {n}")
+    check_bwd_widths(counts, f"dynamic tape path ({backend})")
     if backend == "baked":
         check(counts["points_aabb"] == 2 * n_fr and counts["bake_refresh"] == 2,
               "dynamic tape path: the union pre-pass did not refresh the bake once per record")
@@ -1786,7 +1899,8 @@ def tape_kernel_times(tp, specs: dict, feats, origins, dirs, opt, plain_ms: dict
     (``specs``: "" the tree walk, "_baked" the bake; the compacted tape
     with cells, as `record_tape` records it), K13c and K13d on the
     compacted tape ``tp`` with each pool instance, each beside the march
-    kernel on the same rays in the same turn (K2, K3); plain: one call,
+    kernel on the same rays in the same turn (K2, K3), K13d also beside its
+    width-1 instance (the earlier design) in turns; plain: one call,
     phase 3g."""
     M = feats.shape[0]
     with torch.no_grad():
@@ -1822,13 +1936,17 @@ def tape_kernel_times(tp, specs: dict, feats, origins, dirs, opt, plain_ms: dict
                     f"{f_ms:.4f} ms, K2 on the bake{psfx and ' ' + kind} {m_ms:.4f} ms in the same turn "
                     f"({m_ms / f_ms:.3f}x), plain {p_ms:.1f} ms")
             if kind != "i8":
-                b_ms = time_ms(lambda: tape_ops.replay_backward_cuda(tp, pool, opt, g, out, spec), KERNEL_REPS)
+                b_ms, b1_ms = in_turns(
+                    lambda: tape_ops.replay_backward_cuda(tp, pool, opt, g, out, spec),
+                    lambda: tape_ops.replay_backward_cuda(tp, pool, opt, g, out, spec, width=1),
+                    lambda fn: time_ms(fn, KERNEL_REPS))
                 k3_ms = time_ms(lambda: render_ops.volume_render_backward_cuda(
                     spec, pool, origins, dirs, dirs, g, opt, out_res=out), KERNEL_REPS)
                 bp_ms = plain_ms["tape_replay_bwd" + psfx, "_baked", True]
-                kernels["tape_replay_bwd" + psfx].update(ms=b_ms, plain_ms=bp_ms)
-                line += (f"; tape_replay_bwd{psfx} kernel {b_ms:.4f} ms, K3 {k3_ms:.4f} ms "
-                         f"({k3_ms / b_ms:.3f}x), plain {bp_ms:.1f} ms")
+                kernels["tape_replay_bwd" + psfx].update(ms=b_ms, plain_ms=bp_ms, prev_ms=b1_ms)
+                line += (f"; tape_replay_bwd{psfx} kernel {b_ms:.4f} ms, its width-1 instance (the earlier "
+                         f"design) {b1_ms:.4f} ms in turns ({b1_ms / b_ms:.3f}x), "
+                         f"K3 {k3_ms:.4f} ms ({k3_ms / b_ms:.3f}x), plain {bp_ms:.1f} ms")
             print(line + f" (plain: one call, phase 3g) [{card}]")
         if tp.n_samples:
             full = tape_ops.record_tape(spec, M, origins, dirs, dirs, opt, compact=False)
@@ -1841,7 +1959,8 @@ def tape_frames_kernel_times(tp, spec, feats, origins, dirs, opt, depth_case, pl
                              dev, card: str) -> dict:
     """Times of K13e and K13f (CUDA events over KERNEL_REPS calls). K13e on
     N_STACK pools (float32, bf16) over the bake's compacted exact tape
-    ``tp``, beside N_STACK K13d calls, one K13d call and one K3 call on the
+    ``tp``, beside its width-1 instance (the earlier design) in turns,
+    N_STACK K13d calls, one K13d call and one K3 call on the
     first pool in the same turn (K13d / K3 is the ratio that says whether
     the frame axis moved K13d). K13f on the main path's tape (``depth_case``:
     phase 4m's compacted dynamic tape on the bake and frame 0's index
@@ -1853,8 +1972,10 @@ def tape_frames_kernel_times(tp, spec, feats, origins, dirs, opt, depth_case, pl
             stack = torch.stack([feats * (1.0 + 0.1 * n) for n in range(N_STACK)]).to(dtype)
             outs = torch.stack([tape_ops.replay_forward_cuda(tp, f, opt, spec)[0] for f in stack])
             g = torch.from_numpy(np.random.RandomState(16).randn(*outs.shape).astype(np.float32)).to(dev)
-            e_ms = time_ms(lambda: tape_ops.replay_backward_frames_cuda(tp, stack, opt, g, outs, spec),
-                           KERNEL_REPS)
+            e_ms, e1_ms = in_turns(
+                lambda: tape_ops.replay_backward_frames_cuda(tp, stack, opt, g, outs, spec),
+                lambda: tape_ops.replay_backward_frames_cuda(tp, stack, opt, g, outs, spec, width=1),
+                lambda fn: time_ms(fn, KERNEL_REPS))
             d_ms = time_ms(lambda: [tape_ops.replay_backward_cuda(tp, stack[n], opt, g[n], outs[n], spec)
                                     for n in range(N_STACK)], KERNEL_REPS)
             one_ms = time_ms(lambda: tape_ops.replay_backward_cuda(tp, stack[0], opt, g[0], outs[0], spec),
@@ -1862,9 +1983,10 @@ def tape_frames_kernel_times(tp, spec, feats, origins, dirs, opt, depth_case, pl
             k3_ms = time_ms(lambda: render_ops.volume_render_backward_cuda(
                 spec, stack[0], origins, dirs, dirs, g[0], opt, out_res=outs[0]), KERNEL_REPS)
             p_ms = plain_ms["tape_replay_bwd_frames" + psfx]
-            kernels["tape_replay_bwd_frames" + psfx].update(ms=e_ms, plain_ms=p_ms)
+            kernels["tape_replay_bwd_frames" + psfx].update(ms=e_ms, plain_ms=p_ms, prev_ms=e1_ms)
             print(f"time tape_replay_bwd_frames{psfx} (SH9 exact {WIDTH}x{HEIGHT}, {N_STACK} frames, "
-                  f"{tp.n_samples} samples): kernel {e_ms:.4f} ms, {N_STACK} K13d calls {d_ms:.4f} ms "
+                  f"{tp.n_samples} samples): kernel {e_ms:.4f} ms, its width-1 instance (the earlier design) "
+                  f"{e1_ms:.4f} ms in turns ({e1_ms / e_ms:.3f}x), {N_STACK} K13d calls {d_ms:.4f} ms "
                   f"({d_ms / e_ms:.3f}x) in the same turn; one K13d {one_ms:.4f} ms, K3 {k3_ms:.4f} ms "
                   f"(K13d / K3 {one_ms / k3_ms:.4f}); plain {p_ms:.1f} ms (one call, phase 3g) [{card}]")
             del stack, outs, g
@@ -2021,7 +2143,29 @@ def subset_kernel_phase(mb: dict, g: dict, kernels: dict, dev, card: str) -> dic
     print(f"l2_cotangent ({B_MB} rows, W {W}): grad max_abs_err {e:.3g}, loss {float(l_k):.8g} vs plain "
           f"{float(l_p):.8g}; kernels {k_ms:.4f} ms on the card (profiler, both passes, L2 cold; warm "
           f"{w_ms:.4f}), {e_ms:.4f} ms a call back to back, plain {p_ms:.2f} ms (one call) [{card}]")
+    # K13d at the minibatch step's shape: the vector instance the step
+    # launches and the width-1 one (the earlier design), each against plain
+    # on a seeded unit-scale cotangent (the loss's own, g_k, is about 1e-8,
+    # below the atomic tolerance's absolute floor), then timed in turns on
+    # g_k, L2 cold and warm (a step finds the pool in L2).
     grad = tape_ops.replay_backward_cuda(sub, pool, opt, g_k, out, spec)
+    g_c = torch.from_numpy(np.random.RandomState(11).randn(*out.shape).astype(np.float32)).to(dev)
+    bwd_p, bp_ms = timed_once_ms(lambda: tape_ops.replay_backward_plain(sub, pool, opt, g_c, out, spec))
+    check(float(bwd_p.abs().max()) > 0, "tape_replay_bwd (minibatch subset): zero plain gradient")
+    e_b = max(atomic_err(tape_ops.replay_backward_cuda(sub, pool, opt, g_c, out, spec, width=w), bwd_p,
+                         f"tape_replay_bwd width {w} (minibatch subset)") for w in (4, 1))
+    mb_bwd = {}
+    for cold in (True, False):
+        mb_bwd[cold] = in_turns(lambda: tape_ops.replay_backward_cuda(sub, pool, opt, g_k, out, spec),
+                                lambda: tape_ops.replay_backward_cuda(sub, pool, opt, g_k, out, spec, width=1),
+                                lambda fn: device_ms(fn, KERNEL_REPS, ("replay_bwd_kernel",), cold=cold))
+    print(f"time tape_replay_bwd at the minibatch step's shape ({B_MB} rays, {sub.n_samples} samples; widths 4 "
+          f"and 1 vs plain {e_b:.3g} on a unit cotangent, max|plain| {float(bwd_p.abs().max()):.4g}): kernel "
+          f"{mb_bwd[True][0]:.4f} ms on the card (profiler, L2 cold; warm "
+          f"{mb_bwd[False][0]:.4f}), its width-1 instance (the earlier design) {mb_bwd[True][1]:.4f} (warm "
+          f"{mb_bwd[False][1]:.4f}) in turns ({mb_bwd[True][1] / mb_bwd[True][0]:.3f}x cold, "
+          f"{mb_bwd[False][1] / mb_bwd[False][0]:.3f}x warm); plain {bp_ms:.2f} ms (one call) [{card}]")
+    del bwd_p, g_c
     # K13d's gradient of this loss is below a bf16 ulp of most rows, so a
     # seeded unit-scale gradient also runs, whose update moves every row.
     g_unit = torch.from_numpy(np.random.RandomState(10).randn(*pool.shape).astype(np.float32)).to(dev)
@@ -2030,17 +2174,28 @@ def subset_kernel_phase(mb: dict, g: dict, kernels: dict, dev, card: str) -> dic
         want, p_ms = timed_once_ms(lambda: subset_ops.sgd_plain(pool.clone(), gg, MB_LR))
         check(torch.equal(got, want), "sgd_update: kernel and plain differ")
         check(gg is grad or bool((got != pool).any()), "sgd_update: the unit gradient moved nothing")
+    # K14c against the one PyTorch call of the same function in turns,
+    # K14C_PAIRS rounds L2 cold and warm: the medians and the spread of the
+    # rounds' ratios (the earlier scalar kernel is gone; its times stay in
+    # PERF.md).
     work = pool.clone()
     call = lambda: subset_ops.sgd_cuda(work, grad, MB_LR)  # noqa: E731
     lib = lambda: work.add_(grad, alpha=-MB_LR)  # noqa: E731
-    k_ms, w_ms = device_ms(call, KERNEL_REPS, ("sgd_f32",)), device_ms(call, KERNEL_REPS, ("sgd_f32",), cold=False)
-    lib_ms, lw_ms = device_ms(lib, KERNEL_REPS), device_ms(lib, KERNEL_REPS, cold=False)
+    sgd = {}
+    for cold in (True, False):
+        pairs = paired_device_ms(call, lib, ("sgd_f32",), K14C_PAIRS, cold)
+        ratios = sorted(k / lb for k, lb in pairs)
+        sgd[cold] = (statistics.median(k for k, _ in pairs), statistics.median(lb for _, lb in pairs), ratios)
+    (k_ms, lib_ms, r_cold), (w_ms, lw_ms, r_warm) = sgd[True], sgd[False]
     e_ms, le_ms = time_ms(call, KERNEL_REPS), time_ms(lib, KERNEL_REPS)
     kernels["sgd_update"].update(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0, library_ms=lib_ms)
+    spread = lambda r: (f"median {statistics.median(r):.3f}, rounds {r[0]:.3f}-{r[-1]:.3f}, "  # noqa: E731
+                        f"{sum(x < 1 for x in r)} of {len(r)} below 1")
     print(f"time sgd_update (float32 pool {tuple(pool.shape)}): kernel {k_ms:.4f} ms on the card "
-          f"(profiler, L2 cold; warm {w_ms:.4f}), {e_ms:.4f} ms a call back to back; pool.add_(grad, "
-          f"alpha=-lr) {lib_ms:.4f} ms (warm {lw_ms:.4f}; {le_ms:.4f} back to back); plain "
-          f"{p_ms:.2f} ms (one call) [{card}]")
+          f"(profiler, L2 cold, median of {K14C_PAIRS} rounds; warm {w_ms:.4f}), {e_ms:.4f} ms a call back to "
+          f"back; pool.add_(grad, alpha=-lr) {lib_ms:.4f} ms (warm {lw_ms:.4f}; {le_ms:.4f} back to back); "
+          f"kernel / pool.add_ in turns: {spread(r_cold)} cold; {spread(r_warm)} warm; plain {p_ms:.2f} ms "
+          f"(one call) [{card}]")
     pool_elems = pool.numel()
     del sub, out, g_k, g_p, grad, got, want, work, g_unit
 
@@ -2879,6 +3034,7 @@ def main() -> None:
     for line in b.log.splitlines():
         if line.startswith("== ") or "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
+    ptxas_summary(b.log)
 
     # Scenes (NumPy, seeded) and device tables
     t0 = time.perf_counter()
@@ -4170,6 +4326,7 @@ def main() -> None:
                 "tape_replay_bwd_bf16": 1, "render_fwd" + sfx: 0, "render_bwd" + sfx: 0}
         for k, n in want.items():
             check(counts[k] == n, f"tape path ({backend}): {k} launched {counts[k]} times, not {n}")
+        check_bwd_widths(counts, f"tape path ({backend})")
         check_bake_counts(counts, backend, 0)
         tape_ms[backend] = tape_times(backend, {7: bench7, DEPTH: (state, feats_np)}, dev, card)
 
@@ -4213,6 +4370,7 @@ def main() -> None:
             "tape_replay_bwd": steps + 4 * N_CHAIN, "render_fwd_baked": 0, "render_bwd_baked": 0}
     for k, n in want.items():
         check(mb_counts[k] == n, f"minibatch path: {k} launched {mb_counts[k]} times, not {n}")
+    check_bwd_widths(mb_counts, "minibatch path")
     ms = mb_res["ms"]
     print(f"main path, minibatch tape training: launches {nonzero(mb_counts)}; rig record "
           f"{mb['record_s'] * 1e3:.1f} ms ({mb['rig'].n_rays} rays, {mb['rig'].n_samples} samples) [{card}]")
@@ -4629,8 +4787,12 @@ def main() -> None:
           f"[{card}]")
 
     # 7. Result lines
+    # prev_ms: the earlier design's time in this run (K13d and K13e: their
+    # width-1 instance in the same turn), else null.
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "prev_ms")
+    for v in kernels.values():
+        v.setdefault("prev_ms", None)
     print(card)
     print(json.dumps({"kernels": [dict(name=k, **{key: v[key] for key in keys})
                                   for k, v in kernels.items()]}))

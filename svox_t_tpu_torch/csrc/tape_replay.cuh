@@ -49,10 +49,31 @@
 // flops: latency-bound on the row loads, with no dependent chain between
 // samples but the compositing. The design answer is K2's: a ray per
 // thread, basis and color sums in registers, format, rotation and the
-// basis capacity as template parameters, small blocks. The backward adds
-// K3's atomics. K13e's bound is N times K13d's rows and gradient bytes plus
-// one read of the streams: the frame axis lets the N frames' blocks share
-// the streams through L2 instead of N launches each reading them.
+// basis capacity as template parameters, small blocks. K13e's bound is N
+// times K13d's rows and gradient bytes plus one read of the streams: the
+// frame axis lets the N frames' blocks share the streams through L2 instead
+// of N launches each reading them.
+//
+// The backward's gradient (K13d, K13e) is the tape's heaviest traffic: per
+// occupied sample it reads a D-float row and adds D floats at that row with
+// float atomics, and the 32 lanes of a warp hold 32 different rows, so
+// each atomic instruction is up to 32 separate L2 reductions (1,373,886
+// samples x 28 at SH9 on the deep shell's tape: about 38.5M reductions
+// against a byte bound of 0.10 ms). A thread keeps one ray (the acc / L
+// chain runs along it) and moves its row in vectors instead: the width-4
+// instance (a template parameter chosen once per launch by the wrapper)
+// loads the row 4 columns at a time (16 bytes of a float32 row, 8 of a
+// bf16 one) into registers, overwrites each column with its addend once
+// read, and adds the row with Hopper's vector float atomics (atomicAdd on
+// float4, red.global.add.v4.f32: compute capability 9.x, each element
+// atomic on its own): 7 loads and 7 reductions a sample at SH9 instead of
+// 28 and 28. It exists for the three-colour RGBA, SH1 and SH9 rows with
+// no spare column (D = 4, 4, 28: the main paths), where n_color and D are
+// template constants and the addends fall in row order in registers.
+// Every other row (SH4, SH16, SG, ASG, spare columns) takes width 1, the
+// scalar design: staging the row in shared memory to vectorize those was
+// slower than width 1 at the minibatch step's shape on an H100. The sums
+// are the same; only the atomics' grouping, and so their order, differs.
 
 #pragma once
 
@@ -92,6 +113,7 @@ struct Params {
   const float* out_res;
   float* grad;
   int n_frames;            // the backward's frame axis (1 but for K13e)
+  int width;               // the backward's vector width (1 or 4)
 };
 
 // The row of sample k: the recorded row, or on a data-indirect tape the
@@ -219,14 +241,57 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 #else  // SVOX_TAPE_PASS == 1
 
+// Four consecutive columns of a pool row, widened to float32: one 16-byte
+// load of a float32 row, one 8-byte load of a bf16 row (a bf16 value is
+// the top 16 bits of its float32). The column is aligned to 4 elements.
+__device__ __forceinline__ float4 load_cols(const float* col) {
+  return __ldg(reinterpret_cast<const float4*>(col));
+}
+__device__ __forceinline__ float4 load_cols(const uint16_t* col) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(col));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Column e of the sample's row: the register copy (W = 4), or the pool's.
+template <int W, class Row>
+__device__ __forceinline__ float row_col(const Row& row, const float* buf, int e) {
+  if constexpr (W == 4) {
+    return buf[e];
+  } else {
+    return svox::ld(row + e);
+  }
+}
+
+// The addend of gradient column e: put in the register row in place of the
+// column (W = 4), or added at once with a float atomic.
+template <int W>
+__device__ __forceinline__ void put_grad(float* grow, float* buf, int e, float v) {
+  if constexpr (W == 4) {
+    buf[e] = v;
+  } else {
+    atomicAdd(grow + e, v);
+  }
+}
+
 // K13d on ray i of frame n, exact options: K3's single pass over the
 // tape's samples. Frame n's pool, gradient, output and output gradient lie
-// n (M, D) and n (B, n_color + 1) blocks into their stacks.
-template <int FMT, int BD, bool kRot, bool kIndirect>
+// n (M, D) and n (B, n_color + 1) blocks into their stacks. W is the vector
+// width: 1 reads the row a column at a time and adds each addend with a
+// float atomic; 4 (three colours, D = 3 * BD + 1, or 4 for RGBA: n_color
+// and D are constants) copies the row into registers 4 columns a load,
+// overwrites each column with its addend once read, and adds the row 4
+// columns at a time with Hopper's vector float atomics. The sums and their
+// rounding are the same; only the grouping of the atomics differs.
+template <int FMT, int BD, bool kRot, bool kIndirect, int W>
 __device__ __forceinline__ void replay_bwd(const Params& p, int i, int n) {
   constexpr int kB = FMT == svox::kRGBA ? 1 : BD;
-  const int nc = p.n_color;
+  constexpr bool kVec = W == 4;
+  constexpr int kD = kVec ? (FMT == svox::kRGBA ? 3 : 3 * BD) + 1 : 1;
+  const int nc = kVec ? 3 : p.n_color;
   const int nb = FMT == svox::kSH ? BD : p.basis_dim;
+  const int D = kVec ? kD : p.D;
+  float buf[kD];
   const size_t frame_pool = static_cast<size_t>(n) * p.M * p.D;
   const auto features = p.features + frame_pool;
   float* const grad = p.grad + frame_pool;
@@ -258,9 +323,9 @@ __device__ __forceinline__ void replay_bwd(const Params& p, int i, int n) {
   for (int32_t k = p.offsets[i]; k < end; ++k) {
     const int32_t idx = sample_row<kIndirect>(p, k);
     if (static_cast<uint32_t>(idx) >= static_cast<uint32_t>(p.M)) continue;
-    const auto row = features + static_cast<size_t>(idx) * p.D;
-    float* grow = grad + static_cast<size_t>(idx) * p.D;
-    const float sigma = svox::ld(row + p.D - 1);
+    const auto row = features + static_cast<size_t>(idx) * D;
+    float* grow = grad + static_cast<size_t>(idx) * D;
+    const float sigma = svox::ld(row + D - 1);
     if (!(sigma > 0.f)) continue;
     const float dt = __ldg(p.dt + k);
     const float att = expf((-dt * ds) * sigma);
@@ -273,30 +338,40 @@ __device__ __forceinline__ void replay_bwd(const Params& p, int i, int n) {
       svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb, p.min_comp, p.max_comp,
                                 basis);
     }
+    if constexpr (kVec) {
+#pragma unroll
+      for (int e = 0; e < kD; e += 4) {
+        const float4 v = load_cols(row + e);
+        buf[e] = v.x;
+        buf[e + 1] = v.y;
+        buf[e + 2] = v.z;
+        buf[e + 3] = v.w;
+      }
+    }
     float total_color = 0.f;
 #pragma unroll
     for (int c = 0; c < kMaxColor; ++c) {
       if (c < nc) {
         float s;
         if constexpr (FMT == svox::kRGBA) {
-          s = svox::sigmoid(svox::ld(row + c));
+          s = svox::sigmoid(row_col<W>(row, buf, c));
         } else {
-          const auto coef = row + c * nb;
-          float z = basis[0] * svox::ld(coef);
+          const int e0 = c * nb;
+          float z = basis[0] * row_col<W>(row, buf, e0);
 #pragma unroll
           for (int k2 = 1; k2 < kB; ++k2) {
-            if (k2 < nb) z = z + basis[k2] * svox::ld(coef + k2);
+            if (k2 < nb) z = z + basis[k2] * row_col<W>(row, buf, e0 + k2);
           }
           s = svox::sigmoid(z);
         }
         total_color = total_color + s * g[c];
         const float a = (weight * (s * (1.f - s))) * g[c];
         if constexpr (FMT == svox::kRGBA) {
-          atomicAdd(grow + c, a);
+          put_grad<W>(grow, buf, c, a);
         } else {
 #pragma unroll
           for (int k2 = 0; k2 < kB; ++k2) {
-            if (k2 < nb) atomicAdd(grow + c * nb + k2, a * basis[k2]);
+            if (k2 < nb) put_grad<W>(grow, buf, c * nb + k2, a * basis[k2]);
           }
         }
       }
@@ -304,34 +379,55 @@ __device__ __forceinline__ void replay_bwd(const Params& p, int i, int n) {
     const float L_after = L * att;
     const float acc_after = acc - weight * total_color;
     const float dts = dt * ds;
-    atomicAdd(grow + p.D - 1, dts * (total_color * L_after - acc_after) + dts * (g_alpha * L_ray));
+    put_grad<W>(grow, buf, D - 1,
+                dts * (total_color * L_after - acc_after) + dts * (g_alpha * L_ray));
+    if constexpr (kVec) {
+#pragma unroll
+      for (int e = 0; e < kD; e += 4) {
+        atomicAdd(reinterpret_cast<float4*>(grow + e),
+                  make_float4(buf[e], buf[e + 1], buf[e + 2], buf[e + 3]));
+      }
+    }
     acc = acc_after;
     L = L_after;
   }
 }
 
-template <int FMT, int BD, bool kRot>
+template <int FMT, int BD, bool kRot, int W>
 __global__ void __launch_bounds__(kThreads) replay_bwd_kernel(const Params p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
   if (p.table != nullptr) {
-    replay_bwd<FMT, BD, kRot, true>(p, i, blockIdx.y);
+    replay_bwd<FMT, BD, kRot, true, W>(p, i, blockIdx.y);
   } else {
-    replay_bwd<FMT, BD, kRot, false>(p, i, blockIdx.y);
+    replay_bwd<FMT, BD, kRot, false, W>(p, i, blockIdx.y);
   }
 }
 
-template <int FMT, int BD>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+template <int FMT, int BD, int W>
+cudaError_t launch_width(const Params& p, cudaStream_t stream) {
   const dim3 grid((p.B + kThreads - 1) / kThreads, p.n_frames);
   if constexpr (FMT != svox::kRGBA) {
     if (p.tmats != nullptr) {
-      replay_bwd_kernel<FMT, BD, true><<<grid, kThreads, 0, stream>>>(p);
+      replay_bwd_kernel<FMT, BD, true, W><<<grid, kThreads, 0, stream>>>(p);
       return cudaGetLastError();
     }
   }
-  replay_bwd_kernel<FMT, BD, false><<<grid, kThreads, 0, stream>>>(p);
+  replay_bwd_kernel<FMT, BD, false, W><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The launch's vector width (p.width, 1 or 4, alignment checked by the
+// entry point). Width 4 exists for the three-colour RGBA, SH1 and SH9 rows
+// with no spare column (D = 4, 4, 28) and refuses any other row.
+template <int FMT, int BD>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+  if (p.width == 1) return launch_width<FMT, BD, 1>(p, stream);
+  if constexpr (FMT == svox::kRGBA || (FMT == svox::kSH && (BD == 1 || BD == 9))) {
+    constexpr int kD3 = (FMT == svox::kRGBA ? 3 : 3 * BD) + 1;
+    if (p.n_color == 3 && p.D == kD3) return launch_width<FMT, BD, 4>(p, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 #endif  // SVOX_TAPE_PASS
@@ -391,6 +487,7 @@ Params make_params(const int32_t* offsets, const int32_t* idx, const float* dt,
   p.max_comp = max_comp;
   p.n_color = n_color;
   p.n_frames = 1;
+  p.width = 1;
   return p;
 }
 
@@ -438,16 +535,26 @@ extern "C" int SVOX_NAME(svox_tape_replay_fwd)(
 // the frames); grad_out and out_res (N, B, n_color + 1) f32, each frame's
 // output gradient and forward output (exact options); grad (N, M, D) f32
 // whatever the pool's type, zeroed by the caller. N <= 65535 (the grid's
-// y extent). All pointers are device pointers. Returns a cudaError_t.
+// y extent). width: the vector width, 1 or 4; 4 takes only the three-colour
+// RGBA, SH1 and SH9 rows (D = 4, 4, 28), with grad and features aligned to
+// 4 elements. All pointers are device pointers. Returns a cudaError_t.
 extern "C" int SVOX_NAME(svox_tape_replay_bwd_frames)(
     const int32_t* offsets, const int32_t* idx, const float* dt, const float* dscale,
     const float* vdirs, int B, const int32_t* table, int n_table, const void* features,
     const float* scale, const float* zero, int M, int D, const float* tmats, int format,
     const float* extra, int ld_extra, int basis_dim, int min_comp, int max_comp, int n_color,
-    const float* grad_out, const float* out_res, float* grad, int n_frames, int device,
+    const float* grad_out, const float* out_res, float* grad, int n_frames, int width, int device,
     cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (width != 1 && width != 4) return cudaErrorInvalidValue;
+  if (width == 4) {
+    constexpr size_t elem = sizeof(std::remove_pointer_t<svox::Pool>);
+    if (reinterpret_cast<uintptr_t>(grad) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(features) % (elem * 4) != 0) {
+      return cudaErrorInvalidValue;
+    }
+  }
   if (B <= 0 || M <= 0 || n_frames <= 0) return cudaSuccess;
   if (n_color < 0 || n_color > kMaxColor || n_frames > 65535) return cudaErrorInvalidValue;
   Params p = make_params(offsets, idx, dt, dscale, vdirs, B, table, n_table, features, scale,
@@ -457,21 +564,23 @@ extern "C" int SVOX_NAME(svox_tape_replay_bwd_frames)(
   p.out_res = out_res;
   p.grad = grad;
   p.n_frames = n_frames;
+  p.width = width;
   return launch_format(p, format, stream);
 }
 
 // K13d: K13e's launch with one frame. grad_out and out_res (B, n_color +
-// 1) f32; grad (M, D) f32, zeroed by the caller.
+// 1) f32; grad (M, D) f32, zeroed by the caller; width as K13e's.
 extern "C" int SVOX_NAME(svox_tape_replay_bwd)(
     const int32_t* offsets, const int32_t* idx, const float* dt, const float* dscale,
     const float* vdirs, int B, const int32_t* table, int n_table, const void* features,
     const float* scale, const float* zero, int M, int D, const float* tmats, int format,
     const float* extra, int ld_extra, int basis_dim, int min_comp, int max_comp, int n_color,
-    const float* grad_out, const float* out_res, float* grad, int device, cudaStream_t stream) {
+    const float* grad_out, const float* out_res, float* grad, int width, int device,
+    cudaStream_t stream) {
   return SVOX_NAME(svox_tape_replay_bwd_frames)(
       offsets, idx, dt, dscale, vdirs, B, table, n_table, features, scale, zero, M, D, tmats,
       format, extra, ld_extra, basis_dim, min_comp, max_comp, n_color, grad_out, out_res, grad, 1,
-      device, stream);
+      width, device, stream);
 }
 
 #endif

@@ -22,8 +22,14 @@
 // ray and writes the cotangent row: a thread per ray, and the loss from
 // per-block partial sums in a fixed order, summed by a second one-block
 // pass, so the loss is deterministic and stays on the card. K14c reads the
-// pool and its float32 gradient once and writes the pool once: a
-// grid-stride loop of coalesced elements.
+// pool and its float32 gradient once and writes the pool once (12 bytes an
+// element: 29.6 MB, 0.0088 ms at 3.35 TB/s, for bench.py's 88,008 x 28
+// pool): each thread moves 16 bytes an access, kUnroll vectors of pool and
+// gradient in flight, as PyTorch's own elementwise kernels do; the grid
+// is sized from the element count (at most two waves of the SMs), the
+// gradient streams past L2 (evict-first), and a slice of a pool that does
+// not start on 16 bytes takes a scalar head, as a count that is not a
+// multiple of 4 takes a scalar tail.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -131,13 +137,63 @@ __global__ void __launch_bounds__(1024) loss_kernel(const float* __restrict__ pa
 }
 
 // K14c on a float32 pool: f = f - lr * g, the product and the difference
-// each rounded (the library is built with -fmad=false).
-__global__ void __launch_bounds__(kThreads) sgd_f32_kernel(float* __restrict__ f,
+// each rounded (the library is built with -fmad=false). 16 bytes a thread
+// and access: the n_vec float4 vectors from f + head, kUnroll of them in
+// flight per thread (a block's kSgdThreads * kUnroll vectors are neighbours,
+// so each load is coalesced), the pool loaded and stored as usual (the next
+// step's replay reads it from L2), the gradient, read once, with
+// evict-first loads (__ldcs). kGVec: the gradient is 16-byte aligned at
+// g + head as well, else its four columns load one by one. The first head
+// (< 4) elements, up to f's 16-byte boundary, and the last tail (< 4) take
+// a scalar step each on the first threads of the grid. 128-thread blocks,
+// 4 vectors a thread: on an H100 it ties with pool.add_, L2 cold and warm
+// (chip_smoke.py times the two in turns).
+constexpr int kSgdThreads = 128;
+constexpr int kUnroll = 4;
+
+__device__ __forceinline__ float sgd_step(float f, float g, float lr) { return f - lr * g; }
+
+template <bool kGVec>
+__device__ __forceinline__ float4 load_grad(const float* g, int64_t v) {
+  if constexpr (kGVec) {
+    return __ldcs(reinterpret_cast<const float4*>(g) + v);
+  } else {
+    return make_float4(__ldcs(g + 4 * v), __ldcs(g + 4 * v + 1), __ldcs(g + 4 * v + 2),
+                       __ldcs(g + 4 * v + 3));
+  }
+}
+
+template <bool kGVec>
+__global__ void __launch_bounds__(kSgdThreads) sgd_f32_kernel(float* __restrict__ f,
                                                            const float* __restrict__ g,
-                                                           int64_t n, float lr) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; k < n; k += stride) {
-    f[k] = f[k] - lr * __ldg(g + k);
+                                                           int head, int64_t n_vec, int tail,
+                                                           float lr) {
+  const int64_t t = blockIdx.x * static_cast<int64_t>(kSgdThreads) + threadIdx.x;
+  if (t < head) f[t] = sgd_step(f[t], __ldcs(g + t), lr);
+  const int64_t last = head + 4 * n_vec;
+  if (t < tail) f[last + t] = sgd_step(f[last + t], __ldcs(g + last + t), lr);
+  float4* fv = reinterpret_cast<float4*>(f + head);
+  const float* gv = g + head;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kSgdThreads * kUnroll;
+  for (int64_t base = blockIdx.x * static_cast<int64_t>(kSgdThreads) * kUnroll + threadIdx.x;
+       base < n_vec; base += step) {
+    float4 a[kUnroll], b[kUnroll];
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int64_t v = base + j * kSgdThreads;
+      if (v < n_vec) {
+        a[j] = fv[v];
+        b[j] = load_grad<kGVec>(gv, v);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kUnroll; ++j) {
+      const int64_t v = base + j * kSgdThreads;
+      if (v < n_vec) {
+        fv[v] = make_float4(sgd_step(a[j].x, b[j].x, lr), sgd_step(a[j].y, b[j].y, lr),
+                            sgd_step(a[j].z, b[j].z, lr), sgd_step(a[j].w, b[j].w, lr));
+      }
+    }
   }
 }
 
@@ -199,14 +255,32 @@ extern "C" int svox_l2_cotangent(const float* out, int B, int C, const float* ta
 }
 
 // K14c. features (n,) f32, updated in place; grad (n,) f32. All pointers
-// are device pointers. Returns a cudaError_t.
+// are device pointers. The grid covers the vectors once, up to two waves
+// of the card's SMs (kSgdThreads-thread blocks, 16 resident a SM), and
+// strides beyond. Returns a cudaError_t.
 extern "C" int svox_sgd_update(float* features, const float* grad, long long n, float lr,
                                int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (n <= 0) return cudaSuccess;
-  const long long want = (n + kThreads - 1) / kThreads;
-  const int grid = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
-  sgd_f32_kernel<<<grid, kThreads, 0, stream>>>(features, grad, n, lr);
+  int n_sm = 0;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const uintptr_t fa = reinterpret_cast<uintptr_t>(features);
+  const long long to_aligned = static_cast<long long>((16 - fa % 16) % 16) / 4;
+  const long long head = to_aligned < n ? to_aligned : n;
+  const long long n_vec = (n - head) / 4;
+  const int tail = static_cast<int>(n - head - 4 * n_vec);
+  const long long want = (n_vec + kSgdThreads * kUnroll - 1) / (kSgdThreads * kUnroll);
+  const long long cap = 2LL * 16 * n_sm;
+  const int grid = static_cast<int>(want < 1 ? 1 : want < cap ? want : cap);
+  const bool g_vec = (reinterpret_cast<uintptr_t>(grad + head)) % 16 == 0;
+  if (g_vec) {
+    sgd_f32_kernel<true><<<grid, kSgdThreads, 0, stream>>>(features, grad, static_cast<int>(head), n_vec,
+                                                        tail, lr);
+  } else {
+    sgd_f32_kernel<false><<<grid, kSgdThreads, 0, stream>>>(features, grad, static_cast<int>(head),
+                                                         n_vec, tail, lr);
+  }
   return cudaGetLastError();
 }

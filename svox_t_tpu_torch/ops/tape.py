@@ -62,7 +62,7 @@ from typing import Optional
 import torch
 
 from .._build import Kernel
-from ..utils.spec import DATA_SENTINEL, FORMAT_RGBA, RenderOptions, get_out_data_dim
+from ..utils.spec import DATA_SENTINEL, FORMAT_RGBA, FORMAT_SH, RenderOptions, get_out_data_dim
 from .bake import BakedTree, StructureDesc, check_structure
 from .render import (POOL_SUFFIX, QuantizedFeatures, _Basis, _check_quantized, _n_tree_cells,
                      _pool_tensors, _ray_setup, _require, _sample_colors, _sample_leaf,
@@ -96,8 +96,8 @@ _REPLAY_BWD_ARGS = ([c_void_p, c_void_p, c_void_p,            # offsets, idx, dt
                      c_void_p, c_void_p, c_int,               # dscale, vdirs, B
                      c_void_p, c_int] + _POOL_ARGS            # table, n_table
                     + [c_void_p, c_void_p, c_void_p,          # grad_out, out_res, grad
-                       c_int, c_void_p])
-_REPLAY_BWD_FRAMES_ARGS = _REPLAY_BWD_ARGS[:-2] + [c_int, c_int, c_void_p]  # n_frames, device, stream
+                       c_int, c_int, c_void_p])               # width, device, stream
+_REPLAY_BWD_FRAMES_ARGS = _REPLAY_BWD_ARGS[:-3] + [c_int, c_int, c_int, c_void_p]  # n_frames, width, ...
 _DEPTH_ARGS = [c_void_p, c_void_p, c_void_p, c_void_p, c_int,   # offsets, idx, tval, dscale, B
                c_void_p, c_int,                                 # table, n_table
                c_void_p, c_int, c_int, c_int, c_float,          # features, bf16, M, D, sigma_thresh
@@ -122,6 +122,10 @@ TAPE_REPLAY_BWD_FRAMES, TAPE_REPLAY_BWD_FRAMES_BF16 = _REPLAY_BWD_FRAMES.values(
 # K13f reads a float32 or a bf16 pool's sigma column (one symbol, both
 # instances).
 TAPE_DEPTH = Kernel("svox_tape_depth", _DEPTH_ARGS)
+# K13d and K13e launch one of two instances of their kernel, by the
+# vector width in which a sample's row moves (`replay_bwd_width`): launches
+# of both entry points (either pool type) by width, beside their counts.
+BWD_WIDTH_LAUNCHES = {1: 0, 4: 0}
 
 
 class _NoSpec:
@@ -604,6 +608,30 @@ def _tape_args(tape: RayTape, features, index_table, name: str):
             (None, 0) if table is None else (table.data_ptr(), table.shape[0]))
 
 
+def replay_bwd_width(fmt: int, basis_dim: int, D: int, pool_ptr: int, pool_elem: int,
+                     grad_ptr: int) -> int:
+    """The vector width of a K13d / K13e launch: 4 for the three-colour
+    rows with no spare column (RGBA at D = 4, SH1 at D = 4, SH9 at D = 28)
+    when the pool (``pool_ptr``, ``pool_elem`` bytes a value) and the
+    float32 gradient (``grad_ptr``) are aligned to 4 values, else 1."""
+    if fmt == FORMAT_RGBA:
+        three = D == 4
+    else:
+        three = fmt == FORMAT_SH and (basis_dim, D) in ((1, 4), (9, 28))
+    return 4 if three and grad_ptr % 16 == 0 and pool_ptr % (4 * pool_elem) == 0 else 1
+
+
+def _launch_bwd(kernel: Kernel, head: tuple, features, grad, opt: RenderOptions, tail: tuple,
+                width: Optional[int]) -> None:
+    """Launch K13d or K13e (``kernel``): its arguments before the width,
+    the width (`replay_bwd_width` unless given), then ``tail``."""
+    if width is None:
+        width = replay_bwd_width(opt.format, opt.basis_dim, features.shape[-1], features.data_ptr(),
+                                 features.element_size(), grad.data_ptr())
+    kernel(*head, width, *tail)
+    BWD_WIDTH_LAUNCHES[width] += 1
+
+
 def _replay_kernel(instances: dict, features) -> Kernel:
     kind = pool_kind(features)
     if kind not in instances:
@@ -635,10 +663,13 @@ def replay_forward_cuda(tape: RayTape, features, opt: RenderOptions, spec=None,
 
 
 def replay_backward_cuda(tape: RayTape, features, opt: RenderOptions, grad_out, out_res,
-                         spec=None, index_table=None):
+                         spec=None, index_table=None, width: Optional[int] = None):
     """Launch K13d (csrc/tape_replay_bwd.cu; the bf16 pool's instance of
     csrc/tape_replay.cuh) into a zeroed float32 (M, D) gradient, exact
-    options. An empty pool or tape returns zeros without a launch."""
+    options. An empty pool or tape returns zeros without a launch.
+    ``width``: the vector instance (1 or 4) instead of
+    `replay_bwd_width`'s; the kernel refuses one the row or the pointers
+    do not allow (a comparison of the instances passes it)."""
     spec_v = spec if spec is not None else _NOSPEC
     n_color = check_format(spec_v, features, opt)
     kernel = _replay_kernel(_REPLAY_BWD, features)
@@ -651,9 +682,9 @@ def replay_backward_cuda(tape: RayTape, features, opt: RenderOptions, grad_out, 
     M, D = features.shape
     grad = torch.zeros(M, D, dtype=torch.float32, device=tape.device)
     if M and tape.n_rays:
-        kernel(tape.offsets.data_ptr(), tape.idx.data_ptr(), tape.dt.data_ptr(), *ray_args,
-               *table_args, *rad, grad_out.data_ptr(), out_res.data_ptr(), grad.data_ptr(),
-               *_stream(tape.device))
+        _launch_bwd(kernel, (tape.offsets.data_ptr(), tape.idx.data_ptr(), tape.dt.data_ptr(), *ray_args,
+                             *table_args, *rad, grad_out.data_ptr(), out_res.data_ptr(), grad.data_ptr()),
+                    features, grad, opt, _stream(tape.device), width)
     return grad
 
 
@@ -802,11 +833,12 @@ def replay_backward_frames_plain(tape: RayTape, features_frames, opt: RenderOpti
 
 
 def replay_backward_frames_cuda(tape: RayTape, features_frames, opt: RenderOptions, grad_outs, outs,
-                                spec=None, index_table=None):
+                                spec=None, index_table=None, width: Optional[int] = None):
     """Launch K13e (csrc/tape_replay_bwd.cu's frame axis; the bf16 stack's
     instance of csrc/tape_replay.cuh) once for all N frames of a contiguous
     (N, M, D) stack, into a zeroed float32 (N, M, D) gradient, exact
-    options. An empty pool, tape or stack returns zeros without a launch."""
+    options. An empty pool, tape or stack returns zeros without a launch.
+    ``width`` as `replay_backward_cuda`'s."""
     spec_v = spec if spec is not None else _NOSPEC
     N, M, D = features_frames.shape
     frame0 = features_frames[0] if N else features_frames.new_empty(M, D)
@@ -821,9 +853,9 @@ def replay_backward_frames_cuda(tape: RayTape, features_frames, opt: RenderOptio
     _require(N <= 65535, "K13e takes at most 65535 frames")
     grad = torch.zeros(N, M, D, dtype=torch.float32, device=tape.device)
     if N and M and tape.n_rays:
-        kernel(tape.offsets.data_ptr(), tape.idx.data_ptr(), tape.dt.data_ptr(), *ray_args,
-               *table_args, *rad, grad_outs.data_ptr(), outs.data_ptr(), grad.data_ptr(), N,
-               *_stream(tape.device))
+        _launch_bwd(kernel, (tape.offsets.data_ptr(), tape.idx.data_ptr(), tape.dt.data_ptr(), *ray_args,
+                             *table_args, *rad, grad_outs.data_ptr(), outs.data_ptr(), grad.data_ptr(), N),
+                    features_frames, grad, opt, _stream(tape.device), width)
     return grad
 
 

@@ -17,7 +17,8 @@ equal bit for bit to the float32 kernel on the pool widened to float32
 its plain version as above. The recorded-tape kernels (K13) come last:
 the count and record kernels equal to their plain versions exactly, the
 replay forward equal to the forward march kernel bit for bit, the replay
-backward against plain and the backward march kernel at the atomic
+backward (each vector width the row allows, and the one the wrapper
+picks) against plain and the backward march kernel at the atomic
 tolerance. Minibatch tape training (K14) and the dense-grid weight pass
 (K12) close the file: the run gather, the SGD update and K12 equal to
 their plain versions bit for bit, the L2 cotangent within 1e-6 (its loss
@@ -1448,27 +1449,73 @@ def test_tape_replay_pool_instances(cuda, kind):
                                rtol=0)
 
 
-@pytest.mark.parametrize("backend", ["baked", "tree"])
-@pytest.mark.parametrize("kind", ["f32", "bf16"])
-def test_tape_replay_backward_matches_plain(cuda, backend, kind):
-    tree, spec, feats, _, o, d = _tape_scene(cuda, backend, seed=64)
+# The replay backward's cases: (format, data_dim, the vector width the
+# wrapper picks: 4 only for the three-colour rows with no spare column).
+# SH9 at D = 32 leaves columns 27-30 between the colors and sigma without
+# gradient; SG7 runs on the 9-term instance.
+BWD_CASES = {"sh9": ("SH9", 28, 4), "sh9_bf16": ("SH9", 28, 4), "sh9_rot": ("SH9", 28, 4),
+             "rgba": ("RGBA", 4, 4), "sh4": ("SH4", 13, 1), "sg7": ("SG7", 22, 1),
+             "sh9_d32": ("SH9", 32, 1), "indirect": ("SH9", 28, 4)}
+# Every case on both structures, but the indirect tape (a tree walk's cells).
+BWD_COMBOS = [(b, c) for c in BWD_CASES for b in ("baked", "tree") if c != "indirect" or b == "tree"]
+
+
+def _bwd_case(cuda, backend, case, seed, compact=True):
+    """(spec, pool, tape, index table or None, rays, options, width) of a
+    BWD_CASES case: the tape recorded on ``backend``'s structure, exact;
+    the indirect tape replayed after a re-point, through its table."""
+    fmt, ddim, width = BWD_CASES[case]
+    tree, spec, feats, centers, o, d = _tape_scene(cuda, backend, fmt=fmt, ddim=ddim, seed=seed)
     opt = stt.VolumeRenderer(tree, backend=backend)._get_options(False)
-    tp = ttape.record_tape(spec, feats.shape[0], o, d, d, opt)
-    pool = feats if kind == "f32" else feats.to(torch.bfloat16)
+    M = feats.shape[0]
+    if case == "sh9_rot":
+        q = torch.randn(M, 3, 3, generator=torch.Generator().manual_seed(seed))
+        rot = torch.eye(4).repeat(M, 1, 1)
+        rot[:, :3, :3] = torch.linalg.qr(q)[0]
+        spec = spec.with_(transformation_matrices=rot.to(cuda))
+    tp = ttape.record_tape(spec, M, o, d, d, opt, compact=compact, indirect=case == "indirect")
+    table = None
+    if case == "indirect":
+        tree.construct_tree(centers[torch.randperm(M, generator=torch.Generator().manual_seed(seed)).to(cuda)])
+        spec = tree._spec()
+        table = ttape.pack_index_table(spec.data_flat)
+    pool = feats.to(torch.bfloat16) if case == "sh9_bf16" else feats
+    return spec, pool, tp, table, (o, d), opt, width
+
+
+@pytest.mark.parametrize("backend,case", BWD_COMBOS)
+def test_tape_replay_backward_matches_plain(cuda, backend, case):
+    """K13d through autograd launches the width `replay_bwd_width` picks
+    (4 for RGBA, SH1 and SH9 rows with three colours and no spare column,
+    else 1); each width the row allows, launched by hand, against plain and
+    K3 at the atomic tolerance; width 4 on any other row raises."""
+    spec, pool, tp, table, (o, d), opt, width = _bwd_case(cuda, backend, case, seed=64)
     x = pool.clone().requires_grad_()
-    out = ttape.replay_render(tp, x, opt, spec)
+    out = ttape.replay_render(tp, x, opt, spec, index_table=table)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(64)).to(cuda)
-    k = ttape.TAPE_REPLAY_BWD if kind == "f32" else ttape.TAPE_REPLAY_BWD_BF16
-    before = k.launches
+    k = ttape.TAPE_REPLAY_BWD_BF16 if pool.dtype == torch.bfloat16 else ttape.TAPE_REPLAY_BWD
+    before, w_before = k.launches, ttape.BWD_WIDTH_LAUNCHES[width]
     (gx,) = torch.autograd.grad((out * g).sum(), x)
     torch.cuda.synchronize()
     assert k.launches == before + 1 and gx.dtype == pool.dtype
-    got = ttape.replay_backward_cuda(tp, pool, opt, g, out.detach(), spec)
-    want = ttape.replay_backward_plain(tp, pool, opt, g, out.detach(), spec)
+    assert ttape.BWD_WIDTH_LAUNCHES[width] == w_before + 1
+    out = out.detach()
+    want = ttape.replay_backward_plain(tp, pool, opt, g, out, spec, table)
+    k3 = trender.volume_render_backward_cuda(spec, pool, o, d, d, g, opt, out_res=out)
+    got = ttape.replay_backward_cuda(tp, pool, opt, g, out, spec, table)
     _assert_atomic_close(got, want)
-    k3 = trender.volume_render_backward_cuda(spec, pool, o, d, d, g, opt, out_res=out.detach())
     _assert_atomic_close(got, k3)
+    for w in (1, 4):
+        if w > width:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                ttape.replay_backward_cuda(tp, pool, opt, g, out, spec, table, width=w)
+            continue
+        before = ttape.BWD_WIDTH_LAUNCHES[w]
+        _assert_atomic_close(ttape.replay_backward_cuda(tp, pool, opt, g, out, spec, table, width=w), want)
+        assert ttape.BWD_WIDTH_LAUNCHES[w] == before + 1
     assert float(got.abs().max()) > 0
+    if case == "sh9_d32":
+        assert not want[:, 27:31].any() and not got[:, 27:31].any()
 
 
 def test_tape_indirect_replay_after_repoint(cuda):
@@ -1508,27 +1555,36 @@ def test_render_persp_tape_uses_the_kernels(cuda):
 # `render_dynamic_frames` bit for bit.
 
 
-@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
 @pytest.mark.parametrize("compact", [False, True])
-def test_tape_replay_frames_backward_matches_plain(cuda, kind, compact):
-    tree, spec, feats, _, o, d = _tape_scene(cuda, "baked", seed=66)
-    opt = stt.VolumeRenderer(tree)._get_options(False)
-    tp = ttape.record_tape(spec, feats.shape[0], o, d, d, opt, compact=compact)
-    stack = torch.stack([feats * (1.0 + 0.1 * n) for n in range(3)])
-    stack = stack if kind == "f32" else stack.to(torch.bfloat16)
+def test_tape_replay_frames_backward_matches_plain(cuda, case, compact):
+    """K13e (3 frames; the bake, the indirect tape on the tree walk)
+    through autograd launches `replay_bwd_width`'s width; each width the
+    row allows against plain and against per-frame K13d at the atomic
+    tolerance."""
+    backend = "tree" if case == "indirect" else "baked"
+    spec, pool, tp, table, _, opt, width = _bwd_case(cuda, backend, case, seed=66, compact=compact)
+    stack = torch.stack([pool.float() * (1.0 + 0.1 * n) for n in range(3)]).to(pool.dtype)
     x = stack.clone().requires_grad_()
-    out = ttape.replay_render_frames(tp, x, opt, spec)
+    out = ttape.replay_render_frames(tp, x, opt, spec, index_table=table)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(66)).to(cuda)
-    k = ttape.TAPE_REPLAY_BWD_FRAMES if kind == "f32" else ttape.TAPE_REPLAY_BWD_FRAMES_BF16
-    before = k.launches
+    k = ttape.TAPE_REPLAY_BWD_FRAMES_BF16 if pool.dtype == torch.bfloat16 else ttape.TAPE_REPLAY_BWD_FRAMES
+    before, w_before = k.launches, ttape.BWD_WIDTH_LAUNCHES[width]
     (gx,) = torch.autograd.grad((out * g).sum(), x)
     torch.cuda.synchronize()
     assert k.launches == before + 1 and gx.dtype == stack.dtype
-    got = ttape.replay_backward_frames_cuda(tp, stack, opt, g, out.detach(), spec)
-    _assert_atomic_close(got, ttape.replay_backward_frames_plain(tp, stack, opt, g, out.detach(), spec))
+    assert ttape.BWD_WIDTH_LAUNCHES[width] == w_before + 1
+    out = out.detach()
+    want = ttape.replay_backward_frames_plain(tp, stack, opt, g, out, spec, table)
+    got = ttape.replay_backward_frames_cuda(tp, stack, opt, g, out, spec, table)
+    _assert_atomic_close(got, want)
+    for w in (1, 4):
+        if w <= width:
+            _assert_atomic_close(ttape.replay_backward_frames_cuda(tp, stack, opt, g, out, spec, table, width=w),
+                                 want)
     for n in range(3):
-        assert torch.equal(out[n].detach(), ttape.replay_forward_cuda(tp, stack[n], opt, spec)[0])
-        k13d = ttape.replay_backward_cuda(tp, stack[n], opt, g[n].contiguous(), out[n].detach(), spec)
+        assert torch.equal(out[n], ttape.replay_forward_cuda(tp, stack[n], opt, spec, False, table)[0])
+        k13d = ttape.replay_backward_cuda(tp, stack[n], opt, g[n].contiguous(), out[n], spec, table)
         _assert_atomic_close(got[n], k13d)
     assert float(got.abs().max()) > 0
 
@@ -1668,16 +1724,39 @@ def test_l2_cotangent_kernel_matches_plain(cuda, with_ids, W):
     assert float(l_) == float(loss[1])
 
 
-def test_sgd_kernel_matches_plain(cuda):
+@pytest.mark.parametrize("case", ["numel_mod4_0", "numel_mod4_1", "numel_mod4_2", "numel_mod4_3",
+                                  "row_slice", "flat_slice", "both_slices"])
+def test_sgd_kernel_matches_plain(cuda, case):
+    """K14c equals `sgd_plain` bit for bit on D = 7 pools of each numel % 4
+    (the scalar tail), on contiguous slices that start off 16 bytes (the
+    scalar head; the gradient aligned or not, as the pool), and leaves the
+    elements before a slice as they were."""
     rng = np.random.RandomState(75)
-    f = torch.from_numpy(rng.randn(100003, 7).astype(np.float32)).to(cuda)
-    g = torch.from_numpy(rng.randn(100003, 7).astype(np.float32) * 0.3).to(cuda)
+    rows = {"numel_mod4_0": 100000, "numel_mod4_1": 100003, "numel_mod4_2": 100002,
+            "numel_mod4_3": 100001}.get(case, 100004)
+    base = torch.from_numpy(rng.randn(rows, 7).astype(np.float32)).to(cuda)
+    gbase = torch.from_numpy(rng.randn(rows, 7).astype(np.float32) * 0.3).to(cuda)
+    if case.startswith("numel"):
+        f, g = base, gbase
+        assert f.numel() % 4 == int(case[-1])
+    elif case == "row_slice":
+        f, g = base[1:], gbase[1:].clone()
+    elif case == "flat_slice":
+        f, g = base.view(-1)[1:], gbase.view(-1)[1:].clone()
+    else:
+        f, g = base[1:], gbase[1:]
+    assert f.is_contiguous() and g.is_contiguous()
+    assert case.startswith("numel") or f.data_ptr() % 16 != 0
+    f0 = f.clone()
+    want = tsub.sgd_plain(f.clone(), g, 0.05)
+    first = base.view(-1)[:base.numel() - f.numel()].clone()  # before the slice
     before = tsub.SGD_UPDATE.launches
-    got = tsub.sgd_cuda(f.clone(), g, 0.05)
+    got = tsub.sgd_cuda(f, g, 0.05)
     torch.cuda.synchronize()
-    assert tsub.SGD_UPDATE.launches == before + 1
-    assert torch.equal(got, tsub.sgd_plain(f.clone(), g, 0.05))
-    assert not torch.equal(got, f)
+    assert tsub.SGD_UPDATE.launches == before + 1 and got.data_ptr() == f.data_ptr()
+    assert torch.equal(got, want)
+    assert not torch.equal(got, f0)
+    assert torch.equal(base.view(-1)[:first.numel()], first)
     with pytest.raises(ValueError, match="float32 pool"):
         tsub.sgd_cuda(f.to(torch.bfloat16), g, 0.05)
 
@@ -1716,11 +1795,12 @@ def test_train_minibatches_uses_the_kernels(cuda):
     f0 = feats * 0.9
     counters = (tsub.SUBSET_GATHER, ttape.TAPE_REPLAY_FWD, tsub.L2_COTANGENT, ttape.TAPE_REPLAY_BWD,
                 tsub.SGD_UPDATE)
-    before = [k.launches for k in counters]
+    before, w4 = [k.launches for k in counters], ttape.BWD_WIDTH_LAUNCHES[4]
     f_out, losses, _ = tsub.train_minibatches(src, tsub.prep_minibatches(src, ids_b), tgt, f0, opt,
                                               lr=0.05, spec=spec)
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(counters, before)] == [4] * 5
+    assert ttape.BWD_WIDTH_LAUNCHES[4] - w4 == 4  # SH9: the 16-byte vector instance
     assert torch.equal(f0, feats * 0.9)
 
     def err_fn(ff, n):
@@ -1740,10 +1820,11 @@ def test_train_steps_uses_the_kernels(cuda):
     tgt = ttape.replay_render(tp, feats, opt, spec)[:, :3]
     counters = (tsub.SUBSET_GATHER, ttape.TAPE_REPLAY_FWD, tsub.L2_COTANGENT, ttape.TAPE_REPLAY_BWD,
                 tsub.SGD_UPDATE)
-    before = [k.launches for k in counters]
+    before, w4 = [k.launches for k in counters], ttape.BWD_WIDTH_LAUNCHES[4]
     f_out, losses, _ = tsub.train_steps(tp, tgt, feats * 0.9, opt, 3, lr=0.05, spec=spec)
     torch.cuda.synchronize()
     assert [k.launches - b for k, b in zip(counters, before)] == [0, 3, 3, 3, 3]
+    assert ttape.BWD_WIDTH_LAUNCHES[4] - w4 == 3  # SH9: the 16-byte vector instance
 
     def err_fn(ff, n):
         return ttape.replay_render(tp, ff, opt, spec)[:, :3] - tgt

@@ -35,6 +35,7 @@ import svox_t_tpu_torch as stt
 from svox_t_tpu_torch.ops import render as trender
 from svox_t_tpu_torch.ops import tape as ttape
 from svox_t_tpu_torch.utils.convert import tape_from_jax
+from svox_t_tpu_torch.utils.spec import FORMAT_ASG, FORMAT_RGBA, FORMAT_SG, FORMAT_SH
 
 from helpers import build_tree, make_rays
 
@@ -298,14 +299,19 @@ def test_replay_cases_match_jax(case):
         np.testing.assert_array_equal(got[:, :-1].numpy(), 1.0)
 
 
+@pytest.mark.parametrize("fmt", ["RGBA", "SH4", "SH9", "SH9-rot"])
 @pytest.mark.parametrize("mode", ["exact-compact", "exact-full", "fast-compact"])
-def test_replay_gradients(mode):
+def test_replay_gradients(mode, fmt):
     """The replay's pool gradient against JAX's replay VJP and the port's
-    march VJP; fast mode takes the backward-march fallback."""
+    march VJP, in each format (D = 4, 13 and 28, the tape backward's
+    vector widths 4, 1 and 4 on the card) and with per-voxel rotations;
+    fast mode takes the backward-march fallback."""
     fast, compact = mode.startswith("fast"), mode.endswith("compact")
-    jtp, _, ttp = _tapes("SH9", "baked", fast, compact)
-    jt, pt, feats, rays, same = _shared("SH9")
-    jspec, tspec = _specs(jt, pt, "baked")
+    base = fmt.split("-")[0]
+    jtp, _, ttp = _tapes(base, "baked", fast, compact)
+    jt, pt, feats, rays, same = _shared(base)
+    kw = {"transformation_matrices": _rotations(feats.shape[0])} if fmt.endswith("-rot") else {}
+    jspec, tspec = _specs(jt, pt, "baked", **kw)
     opt = _options(jt, fast)
     r = _trays(rays)
     g_j = np.asarray(jax.grad(lambda f: jnp.sum(jtape.replay_render(jtp, f, opt, jspec) ** 2))(
@@ -318,6 +324,22 @@ def test_replay_gradients(mode):
     if not fast:  # fast mode: the packages' rays may start an ulp apart (module docstring)
         np.testing.assert_allclose(f.grad.numpy(), g_j, atol=_gtol(g_j))
     assert float(f.grad.abs().max()) > 0
+
+
+@pytest.mark.parametrize("fmt,bd,D,pool_off,elem,grad_off,want", [
+    ("SH", 9, 28, 0, 4, 0, 4), ("SH", 9, 28, 0, 2, 0, 4), ("SH", 1, 4, 0, 4, 0, 4), ("RGBA", 0, 4, 0, 4, 0, 4),
+    ("RGBA", 0, 4, 0, 2, 0, 4), ("SH", 4, 13, 0, 4, 0, 1), ("SH", 9, 32, 0, 4, 0, 1), ("SH", 16, 49, 0, 4, 0, 1),
+    ("SG", 9, 28, 0, 4, 0, 1), ("SG", 7, 22, 0, 4, 0, 1), ("ASG", 9, 28, 0, 4, 0, 1), ("RGBA", 0, 8, 0, 4, 0, 1),
+    ("SH", 9, 28, 4, 4, 0, 1), ("SH", 9, 28, 8, 4, 0, 1), ("SH", 9, 28, 0, 4, 8, 1), ("SH", 9, 28, 4, 2, 0, 1),
+    ("SH", 9, 28, 8, 2, 0, 4)])
+def test_replay_bwd_width(fmt, bd, D, pool_off, elem, grad_off, want):
+    """K13d / K13e's vector width from the format, basis and row width and
+    the pool's and the gradient's alignment (fake pointers): 4 for the
+    three-colour RGBA, SH1 and SH9 rows with no spare column on 4-value
+    boundaries, else 1."""
+    base = 1 << 20
+    code = {"RGBA": FORMAT_RGBA, "SH": FORMAT_SH, "SG": FORMAT_SG, "ASG": FORMAT_ASG}[fmt]
+    assert ttape.replay_bwd_width(code, bd, D, base + pool_off, elem, base + grad_off) == want
 
 
 def test_replay_bf16_gradient_and_quantized():

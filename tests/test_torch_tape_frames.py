@@ -243,6 +243,51 @@ def test_replay_frames_match_jax(compact):
         assert torch.equal(g[n], fn.grad)
 
 
+# The format cases of the frame axis: data_dim of each format (as
+# tests/test_torch_tape.py's FORMATS), SH9 also with per-voxel rotations.
+FRAME_FORMATS = {"RGBA": 4, "SH4": 13, "SH9": 28, "SH9-rot": 28}
+
+
+@functools.lru_cache(maxsize=None)
+def _format_scene(fmt):
+    """(JAX tree, port tree, pool (numpy), rays) of a depth-5 shell in
+    format ``fmt`` (SH9's rotations come with the specs)."""
+    rng = np.random.RandomState(12)
+    jt, feats, _ = build_tree(rng, N=2, data_dim=FRAME_FORMATS[fmt], depth_limit=5, n_random_refines=2,
+                              data_format=fmt.split("-")[0], occupy=_shell)
+    return jt, stt.tree_from_numpy(stt.tree_state(jt), device="cpu"), np.array(feats), make_rays(rng, N_RAYS)
+
+
+@pytest.mark.parametrize("fmt", list(FRAME_FORMATS))
+def test_replay_frames_formats_match_jax(fmt):
+    """The frame axis's forward and gradients (its plain version on the CPU)
+    against JAX's `replay_render_frames` in each format (D = 4, 13, 28:
+    on the card the tape backward's vector widths 4, 1 and 4) and with
+    rotations, on the bake's compacted exact tape."""
+    jt, pt, feats, rays = _format_scene(fmt)
+    jspec, tspec = jt._baked_spec(), pt._baked_spec()
+    if fmt.endswith("-rot"):
+        rng = np.random.RandomState(13)
+        tm = np.tile(np.eye(4, dtype=np.float32), (feats.shape[0], 1, 1))
+        ang = rng.rand(feats.shape[0]).astype(np.float32) * 0.5
+        tm[:, 0, 0], tm[:, 0, 1] = np.cos(ang), -np.sin(ang)
+        tm[:, 1, 0], tm[:, 1, 1] = np.sin(ang), np.cos(ang)
+        jspec, tspec = jt._baked_spec(transformation_matrices=tm), pt._baked_spec(
+            transformation_matrices=_t(tm))
+    opt = _opt(jt)
+    M = feats.shape[0]
+    jtp = jtape.record_tape(jspec, M, rays.origins, rays.dirs, rays.viewdirs, opt)
+    r = _trays(rays)
+    ttp = ttape.record_tape(tspec, M, r.origins, r.dirs, r.viewdirs, opt)
+    stack = np.stack([feats * (1.0 + 0.03 * i) for i in range(N_FRAMES)])
+    G = np.random.RandomState(6).randn(N_FRAMES, N_RAYS, 4).astype(np.float32)  # 3 colors + alpha
+    want, g_want = _frames_grad_jax(jtp, stack, opt, jspec, jnp.asarray(G))
+    out, g = _frames_grad_port(ttp, stack, opt, tspec, _t(G))
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL)
+    np.testing.assert_allclose(g.numpy(), g_want, atol=_gtol(g_want))
+    assert float(g.abs().max()) > 0
+
+
 def test_replay_frames_are_independent():
     """A cotangent on frame 1 alone gives frame 1 a gradient and frames 0
     and 2 none."""
