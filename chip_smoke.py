@@ -31,22 +31,29 @@ then the recorded sample tapes (K13: the count and record kernels equal
 to their plain versions on every camera ray, both structures, exact and
 fast, compacted and not; the replay forward equal to the forward march
 bit for bit, with rotations and with weights, and across bench.py's
-skip boxes; its bf16 and int8 instances equal to the float32 one on the
-widened pools; the replay backward against plain and the backward march,
-each of its vector widths 4 and 1 against plain;
+skip boxes, its vector widths 4 and 1 equal bit for bit; its bf16 and
+int8 instances equal to the float32 one on the widened pools and to the
+march's pool instances, widths 4 and 1 bit for bit; the replay backward
+against plain and the backward march, each of its vector widths 4 and 1
+against plain;
 an indirect tape replayed after a re-point equal to the march on the
 re-pointed tree; the depth replay K13f equal to its plain version and to
 the first-hit kernel bit for bit on every tape, direct and indirect; the
 multi-frame backward K13e on a stack of 4 pools, float32 and bf16,
 each width against its plain version, and against 4 calls of the
-single-frame backward),
+single-frame backward; the forward's frame axis on stacks of 4 pools,
+float32, bf16 and int8, each width equal to 4 single K13c launches bit
+for bit and against its plain version),
 then minibatch tape training and the dense-grid weight pass (phase 3h,
 K14 and K12: the run gather K14a on a 65,536-ray subset of bench.py's
 4-view rig tape with duplicate ids, compacted and not, with cells, and
 the SGD update K14c bit for bit, timed beside `pool.add_` in turns, L2
 cold and warm (K14C_PAIRS rounds each, their spread printed); the tape
 backward K13d at that subset's shape, widths 4 and 1 against plain on a
-seeded unit-scale cotangent and timed in turns; the L2 cotangent K14b bit for bit, its
+seeded unit-scale cotangent and timed in turns; the replay forward K13c at
+that shape, widths 4 and 1 bit for bit equal to each other and to the
+forward march on the subset's rays (float32, bf16 and int8 pools), against
+plain, and timed in turns, L2 cold and warm, beside its byte bound; the L2 cotangent K14b bit for bit, its
 loss within 1e-6 relative; K12 on the depth-9 shell's 512^3 density grid
 bit for bit on both outputs), then the ray schedules' cost walk (phase 3i,
 K15: its counts equal to its plain version's on every camera ray, both
@@ -121,9 +128,10 @@ dynamic paths, each on the default baked backend and on the tree walk
     union occupancy, compacted and not), `render_dynamic_tape_frames`
     exact, fast and uncompacted with rotations and depth (K13c and K13f per
     frame), held to `render_dynamic_frames` (uncompacted bit for bit,
-    compacted within 2e-6, depths bit for bit), a two-frame pool stack's
-    gradient through `render_tape_frames` (float32 and bf16: K13e) against
-    per-frame K13d, a 3-view rig frame (`render_persp_rig_tape`) equal to
+    compacted within 2e-6, depths bit for bit), a two-frame pool stack
+    through `render_tape_frames` (float32, bf16 and int8: one launch of
+    K13c's frame axis each, every frame equal to K13c bit for bit; the
+    float32 and bf16 gradients, K13e, against per-frame K13d), a 3-view rig frame (`render_persp_rig_tape`) equal to
     `render_persp` per view; the host ms of a deep frame with the tape passed
     in and through the cache key; then bench.py's temporal keys
     (`dynamic_tape_record_s`, `dynamic_tape_record_warm_s`,
@@ -163,11 +171,13 @@ dynamic paths, each on the default baked backend and on the tree walk
 
 The two backends' exact outputs are checked equal bit for bit on every
 serving path. Each path's launch counts are read from zero around it (and
-the SH9 tape paths' backward launches are all the vector instance). The
-redesigned kernels (K13d, K13e) are timed beside their width-1 instance,
-the earlier design, in turns (`prev_ms` in the kernels line), and ptxas's
-registers and spills of the tape backward's instances are printed by
-width. It
+the SH9 tape paths' forward and backward launches are all the vector
+instance). The redesigned kernels (K13c and its frame axis, K13d, K13e)
+are timed beside their width-1 instance in turns (K13d's and K13e's the
+earlier design, K13c's the scalar row; `prev_ms` in the kernels line), the forward's frame axis also beside N
+single launches, and ptxas's registers and spills of the tape forward's
+and backward's instances are printed by width (the forward's must not
+spill). It
 prints kernel and plain-version times and each kernel's bound with the
 card's name and power limit, the whole run's seconds, one JSON line
 describing the kernels, and as its last line {"ok": true, "device":
@@ -500,7 +510,10 @@ TAPE_KERNELS = {
     "tape_count": tape_ops.TAPE_COUNT, "tape_count_baked": tape_ops.TAPE_COUNT_BAKED,
     "tape_record": tape_ops.TAPE_RECORD, "tape_record_baked": tape_ops.TAPE_RECORD_BAKED,
     "tape_replay_fwd": tape_ops.TAPE_REPLAY_FWD, "tape_replay_fwd_bf16": tape_ops.TAPE_REPLAY_FWD_BF16,
-    "tape_replay_fwd_i8": tape_ops.TAPE_REPLAY_FWD_I8, "tape_replay_bwd": tape_ops.TAPE_REPLAY_BWD,
+    "tape_replay_fwd_i8": tape_ops.TAPE_REPLAY_FWD_I8,
+    "tape_replay_fwd_frames": tape_ops.TAPE_REPLAY_FWD_FRAMES,
+    "tape_replay_fwd_frames_bf16": tape_ops.TAPE_REPLAY_FWD_FRAMES_BF16,
+    "tape_replay_fwd_frames_i8": tape_ops.TAPE_REPLAY_FWD_FRAMES_I8, "tape_replay_bwd": tape_ops.TAPE_REPLAY_BWD,
     "tape_replay_bwd_bf16": tape_ops.TAPE_REPLAY_BWD_BF16,
     "tape_replay_bwd_frames": tape_ops.TAPE_REPLAY_BWD_FRAMES,
     "tape_replay_bwd_frames_bf16": tape_ops.TAPE_REPLAY_BWD_FRAMES_BF16,
@@ -573,15 +586,18 @@ def check_bake_counts(counts: dict, backend: str, n: int) -> None:
 def reset_counts() -> None:
     for k in COUNTERS.values():
         k.launches = 0
-    for w in tape_ops.BWD_WIDTH_LAUNCHES:
-        tape_ops.BWD_WIDTH_LAUNCHES[w] = 0
+    for widths in (tape_ops.BWD_WIDTH_LAUNCHES, tape_ops.FWD_WIDTH_LAUNCHES):
+        for w in widths:
+            widths[w] = 0
 
 
 def read_counts() -> dict:
-    """Each counter's launches, and K13d / K13e's launches by vector width
-    (``bwd_width_<w>``, both entry points and pool types)."""
+    """Each counter's launches, and the tape replay's launches by vector
+    width: K13d / K13e's (``bwd_width_<w>``) and K13c's and its frame
+    axis's (``fwd_width_<w>``), all entry points and pool types."""
     counts = {name: k.launches for name, k in COUNTERS.items()}
     counts.update({f"bwd_width_{w}": n for w, n in tape_ops.BWD_WIDTH_LAUNCHES.items()})
+    counts.update({f"fwd_width_{w}": n for w, n in tape_ops.FWD_WIDTH_LAUNCHES.items()})
     return counts
 
 
@@ -594,18 +610,28 @@ def check_bwd_widths(counts: dict, what: str) -> None:
           f"{what}: {n_bwd} tape backward launches, {counts['bwd_width_4']} of them the vector instance")
 
 
+def check_fwd_widths(counts: dict, what: str) -> None:
+    """On an SH9 path (D = 28, aligned pools) every launch of K13c and of
+    its frame axis (every pool type) is the 16-byte vector instance."""
+    n_fwd = sum(counts[k] for k in TAPE_KERNELS if k.startswith("tape_replay_fwd"))
+    check(n_fwd > 0 and counts["fwd_width_4"] == n_fwd,
+          f"{what}: {n_fwd} tape forward launches, {counts['fwd_width_4']} of them the vector instance")
+
+
 # ptxas's lines in the build log: a kernel's entry and its registers and spills.
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 PTXAS_USED = re.compile(r"Used (\d+) registers")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
-# K13d / K13e's kernel instances: format, basis capacity, rotation, width.
-BWD_INSTANCE = re.compile(r"replay_bwd_kernelILi(\d+)ELi(\d+)ELb([01])ELi(\d+)E")
+# The tape replay's kernel instances (K13c: fwd; K13d / K13e: bwd): format,
+# basis capacity, rotation, width.
+REPLAY_INSTANCE = re.compile(r"replay_(fwd|bwd)_kernel(?:_wide)?ILi(\d+)ELi(\d+)ELb([01])ELi(\d+)E")
 
 
 def ptxas_summary(log: str) -> None:
-    """Print the registers and spills of the tape backward's instances by
-    vector width (each compile unit: the range over formats and bases, and
-    the SH9 instances) and of K14c's, from the build log."""
+    """Print the registers and spills of the tape forward's and backward's
+    instances by vector width (each compile unit: the range over formats
+    and bases, and the SH9 instances) and of K14c's, from the build log.
+    Fails if a forward instance spills."""
     unit, entry, spill = None, None, None
     rows = []
     for line in log.splitlines():
@@ -618,18 +644,24 @@ def ptxas_summary(log: str) -> None:
         elif (m := PTXAS_USED.search(line)) and entry is not None:
             rows.append((unit, entry, int(m.group(1)), spill or 0))
             entry = spill = None
-    for u in sorted({r[0] for r in rows if r[0] and "tape_replay_bwd" in r[0]}):
+    fwd_spill = fwd_n = 0
+    for u in sorted({r[0] for r in rows if r[0] and "tape_replay_" in r[0]}):
         for w in (1, 4):
             got = [(r[2], r[3], b_) for r in rows if r[0] == u
-                   for b_ in [BWD_INSTANCE.search(r[1])] if b_ and int(b_.group(4)) == w]
+                   for b_ in [REPLAY_INSTANCE.search(r[1])] if b_ and int(b_.group(5)) == w]
             if not got:
                 continue
-            sh9 = [f"{'rot ' if b_.group(3) == '1' else ''}{r_} regs, {sp} B spilled" for r_, sp, b_ in got
-                   if b_.group(1) == "1" and b_.group(2) == "9"]
+            sh9 = [f"{'rot ' if b_.group(4) == '1' else ''}{r_} regs, {sp} B spilled" for r_, sp, b_ in got
+                   if b_.group(2) == "1" and b_.group(3) == "9"]
             where = "the row in registers, n_color 3" if w > 1 else "scalar"
+            if got[0][2].group(1) == "fwd":
+                fwd_n += len(got)
+                fwd_spill += sum(g[1] for g in got)
             print(f"  ptxas {u} width {w} ({where}): {len(got)} instances, {min(g[0] for g in got)}-"
                   f"{max(g[0] for g in got)} registers, {sum(g[1] for g in got)} bytes spilled in all; SH9: "
                   + "; ".join(sh9))
+    if log:
+        check(fwd_n > 0 and fwd_spill == 0, f"ptxas: {fwd_n} tape forward instances, {fwd_spill} bytes spilled")
     for r in rows:
         if r[0] and "tape_subset" in r[0] and "sgd_f32_kernel" in r[1]:
             print(f"  ptxas {r[0]} {r[1]}: {r[2]} registers, {r[3]} bytes spilled")
@@ -965,6 +997,17 @@ def pool_of(kind: str, feats: torch.Tensor):
         return p, p.float()
     q = stt.quantize_features(feats)
     return q, q.dequantize()
+
+
+def stack_of(kind: str, frames: list):
+    """The (N, M, D) stack of float32 pools ``frames`` as a stack of type
+    ``kind`` (an int8 stack: each frame quantized on its own, q (N, M, D),
+    scale and zero (N, D)) and its frames as single pools."""
+    if kind == "i8":
+        qs = [stt.quantize_features(f) for f in frames]
+        return stt.QuantizedFeatures(*(torch.stack(x).contiguous() for x in zip(*qs))), qs
+    stack = torch.stack(frames).to(torch.bfloat16 if kind == "bf16" else torch.float32)
+    return stack, list(stack.unbind(0))
 
 
 def bf16_cast_err(got32: torch.Tensor, want32: torch.Tensor, what: str) -> float:
@@ -1318,14 +1361,20 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
                     out_w, w = tape_ops.replay_forward_cuda(tp, feats, opt, spec, True)
                     check(torch.equal(out_w, out_k2), f"tape_replay_fwd {label} weights: outputs not K2's")
                     w_err = atomic_err(w, w_k2, f"tape_replay_fwd {label} weights vs K2")
+                    # Width 1, the scalar row, with and without weights.
+                    out_1, w_1 = tape_ops.replay_forward_cuda(tp, feats, opt, spec, True, width=1)
+                    check(torch.equal(out_1, out_k2) and torch.equal(
+                        tape_ops.replay_forward_cuda(tp, feats, opt, spec, width=1)[0], out_k2),
+                          f"tape_replay_fwd {label} width 1: not K2 bit for bit")
+                    w_err = max(w_err, atomic_err(w_1, w_k2, f"tape_replay_fwd {label} width 1 weights vs K2"))
                     (out_p, w_p), plain_ms["tape_replay_fwd", sfx, fast, compact] = timed_once_ms(
                         lambda: tape_ops.replay_forward_plain(tp, feats, opt, spec, True))
                     e = float((out - out_p).abs().max())
                     check(e <= RENDER_ATOL, f"tape_replay_fwd {label}: kernel vs plain {e}")
                     note("tape_replay_fwd", max(e, atomic_err(w, w_p, f"tape_replay_fwd {label} weights")))
                     line = (f"tape {label}: {tp.n_samples} samples (S {tp.S}), counts and streams equal to "
-                            f"plain; replay equal to K2 bit for bit, weights vs K2 {w_err:.3g}, vs plain "
-                            f"{e:.3g}")
+                            f"plain; replay (widths 4 and 1) equal to K2 bit for bit, weights vs K2 {w_err:.3g}, "
+                            f"vs plain {e:.3g}")
                     # K13f: the depth replay equal to its plain version and to
                     # K9b's render_depth bit for bit.
                     dep = tape_ops.replay_depth_cuda(tp, feats, opt.sigma_thresh)
@@ -1338,9 +1387,9 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
                     line += "; depth equal to plain and to K9b bit for bit"
                     if not fast:
                         rspec = spec.with_(transformation_matrices=rot)
-                        check(torch.equal(tape_ops.replay_forward_cuda(tp, feats, opt, rspec)[0],
-                                          render_ops.volume_render_cuda(rspec, feats, origins, dirs, dirs,
-                                                                        opt)),
+                        k2_r = render_ops.volume_render_cuda(rspec, feats, origins, dirs, dirs, opt)
+                        check(all(torch.equal(tape_ops.replay_forward_cuda(tp, feats, opt, rspec, width=w_)[0], k2_r)
+                                  for w_ in (4, 1)),
                               f"tape_replay_fwd {label} with rotations: not K2 bit for bit")
                         g = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(dev)
                         kinds = (("", feats),) + ((("_bf16", feats.to(torch.bfloat16)),) if compact else ())
@@ -1365,22 +1414,43 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
                             got = tape_ops.replay_forward_cuda(tp, pool, opt, spec)[0]
                             check(torch.equal(got, tape_ops.replay_forward_cuda(tp, wide, opt, spec)[0]),
                                   f"tape_replay_fwd_{kind} {label}: not the float32 kernel on the widened pool")
+                            check(torch.equal(got, tape_ops.replay_forward_cuda(tp, pool, opt, spec, width=1)[0]),
+                                  f"tape_replay_fwd_{kind} {label}: widths 4 and 1 differ")
+                            check(torch.equal(got, render_ops.volume_render_cuda(spec, pool, origins, dirs, dirs,
+                                                                                 opt)),
+                                  f"tape_replay_fwd_{kind} {label}: not K2's {kind} instance bit for bit")
                             p_, plain_ms["tape_replay_fwd_" + kind, sfx] = timed_once_ms(
                                 lambda: tape_ops.replay_forward_plain(tp, pool, opt, spec)[0])
                             e = float((got - p_).abs().max())
                             check(e <= RENDER_ATOL, f"tape_replay_fwd_{kind} {label}: kernel vs plain {e}")
                             note("tape_replay_fwd_" + kind, e)
-                        line += "; bf16 and int8 replays equal to the float32 kernel on the widened pools"
+                        line += ("; bf16 and int8 replays (widths 4 and 1) equal to the float32 kernel on the "
+                                 "widened pools and to K2's pool instances")
                         if sfx == "_baked":
                             stats["tape"] = tp
                     print(line)
                     del tp, want
-        # K13e: N_STACK pools over the bake's compacted exact tape, float32
-        # and bf16, against its plain version and against N_STACK K13d calls.
+        # K13c's frame axis on N_STACK pools over the bake's compacted exact
+        # tape, float32, bf16 and int8, each width against N_STACK single
+        # K13c launches bit for bit and against its plain version; K13e on
+        # the float32 and bf16 stacks against its plain version and against
+        # N_STACK K13d calls.
         tp, opt = stats["tape"], opts[False]
-        for psfx, dtype in (("", torch.float32), ("_bf16", torch.bfloat16)):
-            stack = torch.stack([feats * (1.0 + 0.1 * n) for n in range(N_STACK)]).to(dtype)
-            outs = torch.stack([tape_ops.replay_forward_cuda(tp, f, opt, baked)[0] for f in stack])
+        for psfx, kind in (("", "f32"), ("_bf16", "bf16"), ("_i8", "i8")):
+            stack, frames = stack_of(kind, [feats * (1.0 + 0.1 * n) for n in range(N_STACK)])
+            outs = torch.stack([tape_ops.replay_forward_cuda(tp, f, opt, baked)[0] for f in frames])
+            check(all(torch.equal(tape_ops.replay_forward_frames_cuda(tp, stack, opt, baked, width=w_), outs)
+                      for w_ in (4, 1)), f"tape_replay_fwd_frames{psfx}: not {N_STACK} K13c launches bit for bit")
+            o_p, plain_ms["tape_replay_fwd_frames" + psfx] = timed_once_ms(
+                lambda: tape_ops.replay_forward_frames_plain(tp, stack, opt, baked))
+            e = float((outs - o_p).abs().max())
+            check(e <= RENDER_ATOL and not torch.equal(outs[0], outs[-1]),
+                  f"tape_replay_fwd_frames{psfx}: kernel vs plain {e}, or the frames are equal")
+            note("tape_replay_fwd_frames" + psfx, e)
+            print(f"tape_replay_fwd_frames{psfx} ({N_STACK} frames, {tp.n_samples} samples): widths 4 and 1 equal "
+                  f"to {N_STACK} K13c launches bit for bit, vs plain {e:.3g}")
+            if kind == "i8":
+                continue
             g = torch.from_numpy(rng.randn(*outs.shape).astype(np.float32)).to(dev)
             g_k = tape_ops.replay_backward_frames_cuda(tp, stack, opt, g, outs, baked)
             g_p, plain_ms["tape_replay_bwd_frames" + psfx] = timed_once_ms(
@@ -1396,7 +1466,7 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
             print(f"tape_replay_bwd_frames{psfx} ({N_STACK} frames, {tp.n_samples} samples): widths 4 and 1 "
                   f"vs plain {eb:.3g}, "
                   f"vs {N_STACK} K13d calls {e_d:.3g} (max|g| {float(g_p.abs().max()):.4g})")
-            del stack, outs, g, g_k, g_p
+            del stack, frames, outs, o_p, g, g_k, g_p
         # Fast mode across skip boxes: bench.py's frame 1 on its bake.
         gb_sp, gb_feats, gb_o, gb_d, gb_v, gb_opt = skip_case
         Mg = gb_feats.shape[0]
@@ -1411,8 +1481,9 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
                                                           (want[0], want[1], want[2], want[4]))),
                   "tape_record_baked across skip boxes: kernel and plain differ")
             out = tape_ops.replay_forward_cuda(tp, gb_feats, gb_opt, gb_sp)[0]
-            check(torch.equal(out, render_ops.volume_render_cuda(gb_sp, gb_feats, gb_o, gb_d, gb_v, gb_opt)),
-                  "tape_replay_fwd across skip boxes: not K2 bit for bit")
+            check(torch.equal(out, render_ops.volume_render_cuda(gb_sp, gb_feats, gb_o, gb_d, gb_v, gb_opt))
+                  and torch.equal(out, tape_ops.replay_forward_cuda(tp, gb_feats, gb_opt, gb_sp, width=1)[0]),
+                  "tape_replay_fwd across skip boxes (widths 4 and 1): not K2 bit for bit")
             e = float((out - tape_ops.replay_forward_plain(tp, gb_feats, gb_opt, gb_sp)[0]).abs().max())
             check(e <= RENDER_ATOL, f"tape_replay_fwd across skip boxes: kernel vs plain {e}")
             note("tape_replay_fwd", e)
@@ -1429,8 +1500,9 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
         check(not torch.equal(ispec2.data_flat, ispec.data_flat), "the re-point changed no row")
         table = tape_ops.pack_index_table(ispec2.data_flat)
         out = tape_ops.replay_forward_cuda(tp, feats, opt, ispec2, False, table)[0]
-        check(torch.equal(out, render_ops.volume_render_cuda(ispec2, feats, origins, dirs, dirs, opt)),
-              "indirect tape replay after a re-point: not K2 on the re-pointed tree bit for bit")
+        check(torch.equal(out, render_ops.volume_render_cuda(ispec2, feats, origins, dirs, dirs, opt))
+              and torch.equal(out, tape_ops.replay_forward_cuda(tp, feats, opt, ispec2, False, table, width=1)[0]),
+              "indirect tape replay after a re-point (widths 4 and 1): not K2 on the re-pointed tree bit for bit")
         e = float((out - tape_ops.replay_forward_plain(tp, feats, opt, ispec2, False, table)[0]).abs().max())
         check(e <= RENDER_ATOL, f"indirect tape replay: kernel vs plain {e}")
         note("tape_replay_fwd", e)
@@ -1614,8 +1686,9 @@ def dynamic_tape_path(backend: str, state: dict, feats, rig, c2w, dev) -> dict:
     leaf centres skinned to the seeded skeleton, N_FRAMES poses):
     `record_dynamic_persp` (compacted and not, with t), then
     `render_dynamic_tape_frames` exact, fast and uncompacted, each with
-    rotations and depth; a two-frame pool stack's gradient through
-    `render_tape_frames` (float32 and bf16; K13e); a 3-view 800x800 rig tape
+    rotations and depth; a two-frame pool stack through
+    `render_tape_frames` (float32 and bf16 with gradients, K13c's frame axis
+    and K13e; int8 forward only); a 3-view 800x800 rig tape
     frame (`render_persp_rig_tape`). Launch counts are read around these;
     then the frames are checked against `render_dynamic_frames` on the same
     inputs (uncompacted exact bit for bit, compacted within 2e-6, depths
@@ -1651,16 +1724,21 @@ def dynamic_tape_path(backend: str, state: dict, feats, rig, c2w, dev) -> dict:
         o = r.render_tape_frames(st_tape, x)
         (o * g2).sum().backward()
         grads[kind] = (x.detach(), o.detach(), x.grad)
+    with torch.no_grad():
+        q_stack, q_frames = stack_of("i8", list(stack2.unbind(0)))
+        q_out = r.render_tape_frames(st_tape, q_stack)
     counts = read_counts()
     sfx = SUFFIX[backend]
     n_fr = N_FRAMES
-    want = {"tape_replay_fwd": 3 * n_fr + 2 + 1, "tape_replay_fwd_bf16": 2, "tape_depth": 3 * n_fr,
+    want = {"tape_replay_fwd": 3 * n_fr + 1, "tape_replay_fwd_bf16": 0, "tape_replay_fwd_frames": 1,
+            "tape_replay_fwd_frames_bf16": 1, "tape_replay_fwd_frames_i8": 1, "tape_depth": 3 * n_fr,
             "tape_replay_bwd_frames": 1, "tape_replay_bwd_frames_bf16": 1, "tape_replay_bwd": 0,
             "warp_fwd": 2 * n_fr + 3 * n_fr, "construct_tree": 2 * n_fr + 3 * n_fr,
             "tape_count" + sfx: 4, "tape_record" + sfx: 4, "render_fwd" + sfx: 0, "first_hit" + sfx: 0}
     for k, n in want.items():
         check(counts[k] == n, f"dynamic tape path ({backend}): {k} launched {counts[k]} times, not {n}")
     check_bwd_widths(counts, f"dynamic tape path ({backend})")
+    check_fwd_widths(counts, f"dynamic tape path ({backend})")
     if backend == "baked":
         check(counts["points_aabb"] == 2 * n_fr and counts["bake_refresh"] == 2,
               "dynamic tape path: the union pre-pass did not refresh the bake once per record")
@@ -1687,17 +1765,22 @@ def dynamic_tape_path(backend: str, state: dict, feats, rig, c2w, dev) -> dict:
         spec = r._render_spec()
         e_g = {}
         for kind, (x, o, gx) in grads.items():
+            check(all(torch.equal(o[n], tape_ops.replay_forward_cuda(st_tape, x[n], opt, spec)[0]) for n in range(2)),
+                  f"render_tape_frames {kind}: a frame is not K13c's bit for bit")
             check(gx.dtype == x.dtype and float(gx.float().abs().max()) > 0, f"{kind} stack gradient")
             err = atomic_err if kind == "f32" else bf16_grad_err
             e_g[kind] = max(err(gx[n], tape_ops.replay_backward_cuda(st_tape, x[n], opt, g2[n], o[n], spec),
                                 f"render_tape_frames {kind} frame {n} vs K13d") for n in range(2))
+        check(all(torch.equal(q_out[n], tape_ops.replay_forward_cuda(st_tape, q_frames[n], opt, spec)[0])
+                  for n in range(2)), "render_tape_frames int8: a frame is not K13c's bit for bit")
         for v in range(len(cams)):
             check(torch.equal(rig_img[v], r.render_persp(feats, cams[v], WIDTH, HEIGHT, fx=FX)),
                   f"rig tape view {v} ({backend}): not render_persp bit for bit")
     print(f"main path, dynamic tapes ({LABEL[backend]}): launches {nonzero(counts)}; record "
           f"{res['record_ms']:.3f} ms ({tape.n_samples} cells of {tape.n_rays} rays); uncompacted frames equal "
           f"to render_dynamic_frames bit for bit, compacted {e_c:.3g}, fast {e_f:.3g} from it, depths bit for "
-          f"bit; two-frame stack gradients vs K13d {e_g['f32']:.3g} (bf16 {e_g['bf16']:.3g}); {len(cams)}-view "
+          f"bit; two-frame stacks' forwards (float32, bf16, int8; one launch each) equal to K13c per frame bit "
+          f"for bit, gradients vs K13d {e_g['f32']:.3g} (bf16 {e_g['bf16']:.3g}); {len(cams)}-view "
           f"rig frame equal to render_persp bit for bit")
     # Host ms per frame, least of 3 calls: the tape passed in, and the way
     # bench.py calls it (recorded already: a cache hit, whose key hashes the
@@ -1735,7 +1818,7 @@ def dynamic_tape_times(make_bench_tree, bench_cloud, deep_state, bench7, c2w, de
     re-pointed tree on the host, as bench.py's does), `deep9_dyn_tape_frame_ms`,
     `deep9_dyn_tape_mrays_s`. The headline depth-7 scene (``bench7``):
     `tape_fwd_bwd_ms`, a 16-frame stack's gradient through
-    `replay_render_frames` (one K13e launch) per call, / 16, and
+    `replay_render_frames` (one launch of K13c's frame axis, one of K13e) per call, / 16, and
     `tape_fwd_bwd_mrays_s` (`bench.py:204-265`). The animation's arrays are
     NumPy, as bench.py passes them."""
     res = {}
@@ -1829,11 +1912,14 @@ def depth_census(tp, feats, sigma_thresh: float, table=None) -> dict:
 
 
 def tape_frames_bounds(c_b: dict, n: int, M: int, D: int, dc: dict) -> dict:
-    """bound_ms and bound_by of K13e and K13f. K13e over N_STACK frames of
-    the bake's compacted exact tape (``n`` samples; ``c_b`` the bake's
-    census): one read of the streams (offsets, row and step, dscale and the
-    view direction) and N_STACK times K13d's rows, output, output gradient
-    and (M, D) float32 gradient, with N_STACK times K13d's operations. K13f
+    """bound_ms and bound_by of K13c's frame axis, K13e and K13f. Over
+    N_STACK frames of the bake's compacted exact tape (``n`` samples;
+    ``c_b`` the bake's census) each reads the streams once (offsets, row
+    and step, dscale and the view direction); K13c's frame axis N_STACK
+    times K13c's rows (int8: with each frame's scale and zero) and output,
+    with N_STACK times K13c's operations; K13e N_STACK times K13d's rows,
+    output, output gradient and (M, D) float32 gradient, with N_STACK times
+    K13d's operations. K13f
     on the tape of ``dc`` (`depth_census`): the offsets and dscale, the
     idx stream up to each ray's hit with a table entry each on an indirect
     tape, a sigma value per resident sample read, a t value per hit, and
@@ -1841,8 +1927,13 @@ def tape_frames_bounds(c_b: dict, n: int, M: int, D: int, dc: dict) -> dict:
     R, B = c_b["rows"], c_b["rays"]
     stream = (B + 1) * 4 + n * 8 + B * 16
     out = {}
-    for kind, e in (("f32", 4), ("bf16", 2)):
+    for kind, e in POOL_ELEM.items():
         psfx = "" if kind == "f32" else "_" + kind
+        q = 8 * D if kind == "i8" else 0
+        out["tape_replay_fwd_frames" + psfx] = (stream + N_STACK * (R * D * e + q + B * 16),
+                                                 N_STACK * OPS_FWD_SH9 * c_b["contrib"])
+        if kind == "i8":
+            continue
         out["tape_replay_bwd_frames" + psfx] = (
             stream + N_STACK * (2 * B * 16 + R * D * e + M * D * 4), N_STACK * OPS_BWD_SH9 * c_b["contrib"])
     Bd = dc["rays"]
@@ -1899,9 +1990,9 @@ def tape_kernel_times(tp, specs: dict, feats, origins, dirs, opt, plain_ms: dict
     (``specs``: "" the tree walk, "_baked" the bake; the compacted tape
     with cells, as `record_tape` records it), K13c and K13d on the
     compacted tape ``tp`` with each pool instance, each beside the march
-    kernel on the same rays in the same turn (K2, K3), K13d also beside its
-    width-1 instance (the earlier design) in turns; plain: one call,
-    phase 3g."""
+    kernel on the same rays in the same turn (K2, K3) and beside its width-1
+    instance in turns (K13c's: the scalar row, a column at a time; K13d's:
+    the earlier design); plain: one call, phase 3g."""
     M = feats.shape[0]
     with torch.no_grad():
         for sfx, spec in specs.items():
@@ -1926,14 +2017,17 @@ def tape_kernel_times(tp, specs: dict, feats, origins, dirs, opt, plain_ms: dict
         for kind in ("f32", *POOL_KINDS):
             psfx = "" if kind == "f32" else "_" + kind
             pool = feats if kind == "f32" else pool_of(kind, feats)[0]
-            f_ms = time_ms(lambda: tape_ops.replay_forward_cuda(tp, pool, opt, spec), KERNEL_REPS)
+            f_ms, f1_ms = in_turns(lambda: tape_ops.replay_forward_cuda(tp, pool, opt, spec),
+                                   lambda: tape_ops.replay_forward_cuda(tp, pool, opt, spec, width=1),
+                                   lambda fn: time_ms(fn, KERNEL_REPS))
             m_ms = time_ms(lambda: render_ops.volume_render_cuda(spec, pool, origins, dirs, dirs, opt),
                            KERNEL_REPS)
             p_ms = plain_ms["tape_replay_fwd", "_baked", False, True] if kind == "f32" else \
                 plain_ms["tape_replay_fwd" + psfx, "_baked"]
-            kernels["tape_replay_fwd" + psfx].update(ms=f_ms, plain_ms=p_ms)
+            kernels["tape_replay_fwd" + psfx].update(ms=f_ms, plain_ms=p_ms, prev_ms=f1_ms)
             line = (f"time tape_replay_fwd{psfx} (SH9 exact {WIDTH}x{HEIGHT}, {tp.n_samples} samples): kernel "
-                    f"{f_ms:.4f} ms, K2 on the bake{psfx and ' ' + kind} {m_ms:.4f} ms in the same turn "
+                    f"{f_ms:.4f} ms, its width-1 instance (the scalar row) {f1_ms:.4f} ms in turns "
+                    f"({f1_ms / f_ms:.3f}x), K2 on the bake{psfx and ' ' + kind} {m_ms:.4f} ms in the same turn "
                     f"({m_ms / f_ms:.3f}x), plain {p_ms:.1f} ms")
             if kind != "i8":
                 b_ms, b1_ms = in_turns(
@@ -1957,7 +2051,11 @@ def tape_kernel_times(tp, specs: dict, feats, origins, dirs, opt, plain_ms: dict
 
 def tape_frames_kernel_times(tp, spec, feats, origins, dirs, opt, depth_case, plain_ms: dict, kernels: dict,
                              dev, card: str) -> dict:
-    """Times of K13e and K13f (CUDA events over KERNEL_REPS calls). K13e on
+    """Times of K13c's frame axis, K13e and K13f (CUDA events over
+    KERNEL_REPS calls). K13c's frame axis on N_STACK pools (float32, bf16,
+    int8) over the bake's compacted exact tape ``tp``, beside its width-1
+    instance (the scalar row) in turns and N_STACK single K13c calls
+    in the same turn. K13e on
     N_STACK pools (float32, bf16) over the bake's compacted exact tape
     ``tp``, beside its width-1 instance (the earlier design) in turns,
     N_STACK K13d calls, one K13d call and one K3 call on the
@@ -1968,9 +2066,22 @@ def tape_frames_kernel_times(tp, spec, feats, origins, dirs, opt, depth_case, pl
     Plain: one call (K13e's from phase 3g). Returns K13f's census on the
     main path's tape (`depth_census`)."""
     with torch.no_grad():
+        for psfx, kind in (("", "f32"), ("_bf16", "bf16"), ("_i8", "i8")):
+            stack, frames = stack_of(kind, [feats * (1.0 + 0.1 * n) for n in range(N_STACK)])
+            a_ms, a1_ms = in_turns(lambda: tape_ops.replay_forward_frames_cuda(tp, stack, opt, spec),
+                                   lambda: tape_ops.replay_forward_frames_cuda(tp, stack, opt, spec, width=1),
+                                   lambda fn: time_ms(fn, KERNEL_REPS))
+            n_ms = time_ms(lambda: [tape_ops.replay_forward_cuda(tp, f, opt, spec) for f in frames], KERNEL_REPS)
+            p_ms = plain_ms["tape_replay_fwd_frames" + psfx]
+            kernels["tape_replay_fwd_frames" + psfx].update(ms=a_ms, plain_ms=p_ms, prev_ms=a1_ms)
+            print(f"time tape_replay_fwd_frames{psfx} (SH9 exact {WIDTH}x{HEIGHT}, {N_STACK} frames, "
+                  f"{tp.n_samples} samples): kernel {a_ms:.4f} ms, its width-1 instance (the scalar row) "
+                  f"{a1_ms:.4f} ms in turns ({a1_ms / a_ms:.3f}x), {N_STACK} K13c calls {n_ms:.4f} ms "
+                  f"({n_ms / a_ms:.3f}x) in the same turn; plain {p_ms:.1f} ms (one call, phase 3g) [{card}]")
+            del stack, frames
         for psfx, dtype in (("", torch.float32), ("_bf16", torch.bfloat16)):
             stack = torch.stack([feats * (1.0 + 0.1 * n) for n in range(N_STACK)]).to(dtype)
-            outs = torch.stack([tape_ops.replay_forward_cuda(tp, f, opt, spec)[0] for f in stack])
+            outs = tape_ops.replay_forward_frames_cuda(tp, stack, opt, spec)
             g = torch.from_numpy(np.random.RandomState(16).randn(*outs.shape).astype(np.float32)).to(dev)
             e_ms, e1_ms = in_turns(
                 lambda: tape_ops.replay_backward_frames_cuda(tp, stack, opt, g, outs, spec),
@@ -2166,6 +2277,42 @@ def subset_kernel_phase(mb: dict, g: dict, kernels: dict, dev, card: str) -> dic
           f"{mb_bwd[False][1]:.4f}) in turns ({mb_bwd[True][1] / mb_bwd[True][0]:.3f}x cold, "
           f"{mb_bwd[False][1] / mb_bwd[False][0]:.3f}x warm); plain {bp_ms:.2f} ms (one call) [{card}]")
     del bwd_p, g_c
+    # K13c at the minibatch step's shape: widths 4 and 1 equal to each other
+    # and to the forward march K2 on the subset's rays bit for bit (float32,
+    # bf16 and int8 pools), against plain; then timed in turns, L2 cold and
+    # warm, beside the subset's byte bound (streams, the distinct rows it
+    # reads, its rays' dscale and direction, its output).
+    sub_r = subset_ops.subset_tape(src, ids_np)
+    for kind, p_ in (("f32", pool), *((k_, pool_of(k_, pool)[0]) for k_ in POOL_KINDS)):
+        o4 = tape_ops.replay_forward_cuda(sub_r, p_, opt, spec)[0]
+        check(torch.equal(o4, tape_ops.replay_forward_cuda(sub_r, p_, opt, spec, width=1)[0])
+              and torch.equal(o4, render_ops.volume_render_cuda(spec, p_, sub_r.origins, sub_r.dirs, sub_r.vdirs,
+                                                                opt)),
+              f"tape_replay_fwd {kind} (minibatch subset): widths 4 and 1 and K2 not equal bit for bit")
+        check(torch.equal(o4, out) if kind == "f32" else True, "tape_replay_fwd (minibatch subset): not the step's")
+    fwd_p, fp_ms = timed_once_ms(lambda: tape_ops.replay_forward_plain(sub, pool, opt, spec)[0])
+    e_f = float((out - fwd_p).abs().max())
+    check(e_f <= RENDER_ATOL, f"tape_replay_fwd (minibatch subset): kernel vs plain {e_f}")
+    rows = sub.idx.long()
+    rows = rows[(rows >= 0) & (rows < pool.shape[0])]
+    n_rows = int(torch.unique(rows).numel())
+    n_contrib = int((pool[rows, -1] > opt.sigma_thresh).sum())
+    sub_bytes = (B_MB + 1) * 4 + sub.n_samples * 8 + B_MB * 16 + n_rows * pool.shape[1] * 4 + B_MB * 16
+    sub_bound, sub_by = bound(sub_bytes, OPS_FWD_SH9 * n_contrib)
+    mb_fwd = {}
+    for cold in (True, False):
+        mb_fwd[cold] = in_turns(lambda: tape_ops.replay_forward_cuda(sub, pool, opt, spec),
+                                lambda: tape_ops.replay_forward_cuda(sub, pool, opt, spec, width=1),
+                                lambda fn: device_ms(fn, KERNEL_REPS, ("replay_fwd_kernel",), cold=cold))
+    print(f"time tape_replay_fwd at the minibatch step's shape ({B_MB} rays, {sub.n_samples} samples, {n_rows} "
+          f"distinct rows; widths 4 and 1 equal bit for bit to each other and to K2 on the subset's rays, float32, "
+          f"bf16 and int8; vs plain {e_f:.3g}): kernel {mb_fwd[True][0]:.4f} ms on the card (profiler, L2 cold; "
+          f"warm {mb_fwd[False][0]:.4f}), its width-1 instance (the scalar row) {mb_fwd[True][1]:.4f} (warm "
+          f"{mb_fwd[False][1]:.4f}) in turns ({mb_fwd[True][1] / mb_fwd[True][0]:.3f}x cold, "
+          f"{mb_fwd[False][1] / mb_fwd[False][0]:.3f}x warm); bound {sub_bound:.5f} ms ({sub_by}; "
+          f"{sub_bytes / 1e6:.2f} MB), {sub_bound / mb_fwd[True][0]:.3f} of it cold; plain {fp_ms:.2f} ms (one "
+          f"call) [{card}]")
+    del sub_r, fwd_p, rows
     # K13d's gradient of this loss is below a bf16 ulp of most rows, so a
     # seeded unit-scale gradient also runs, whose update moves every row.
     g_unit = torch.from_numpy(np.random.RandomState(10).randn(*pool.shape).astype(np.float32)).to(dev)
@@ -4327,6 +4474,7 @@ def main() -> None:
         for k, n in want.items():
             check(counts[k] == n, f"tape path ({backend}): {k} launched {counts[k]} times, not {n}")
         check_bwd_widths(counts, f"tape path ({backend})")
+        check_fwd_widths(counts, f"tape path ({backend})")
         check_bake_counts(counts, backend, 0)
         tape_ms[backend] = tape_times(backend, {7: bench7, DEPTH: (state, feats_np)}, dev, card)
 
@@ -4371,6 +4519,7 @@ def main() -> None:
     for k, n in want.items():
         check(mb_counts[k] == n, f"minibatch path: {k} launched {mb_counts[k]} times, not {n}")
     check_bwd_widths(mb_counts, "minibatch path")
+    check_fwd_widths(mb_counts, "minibatch path")
     ms = mb_res["ms"]
     print(f"main path, minibatch tape training: launches {nonzero(mb_counts)}; rig record "
           f"{mb['record_s'] * 1e3:.1f} ms ({mb['rig'].n_rays} rays, {mb['rig'].n_samples} samples) [{card}]")
@@ -4787,8 +4936,9 @@ def main() -> None:
           f"[{card}]")
 
     # 7. Result lines
-    # prev_ms: the earlier design's time in this run (K13d and K13e: their
-    # width-1 instance in the same turn), else null.
+    # prev_ms: the width-1 instance's time in this run, in turns (K13c and
+    # its frame axis: the scalar row; K13d and K13e: the earlier design),
+    # else null.
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "prev_ms")
     for v in kernels.values():

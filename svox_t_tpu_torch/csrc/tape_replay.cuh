@@ -1,25 +1,27 @@
 // K13c, K13d and K13e: the replay of a recorded sample tape, forward and
 // backward. No structure walk, so no structure axis: a compile picks the
-// pass with SVOX_TAPE_PASS (0 the forward, svox_tape_replay_fwd; 1 the
-// backward, svox_tape_replay_bwd and svox_tape_replay_bwd_frames) and the
-// pool type with SVOX_POOL (K5). tape_replay_fwd.cu and tape_replay_bwd.cu
-// are the float32 pool's compiles; the bf16 and int8 instances come from
-// `_build.POOL_INSTANCES` (svox_tape_replay_fwd_bf16, ..._fwd_i8,
-// ..._bwd_bf16, ..._bwd_frames_bf16; a quantized pool takes no gradient).
+// pass with SVOX_TAPE_PASS (0 the forward, svox_tape_replay_fwd and
+// svox_tape_replay_fwd_frames; 1 the backward, svox_tape_replay_bwd and
+// svox_tape_replay_bwd_frames) and the pool type with SVOX_POOL (K5).
+// tape_replay_fwd.cu and tape_replay_bwd.cu are the float32 pool's
+// compiles; the bf16 and int8 instances come from `_build.POOL_INSTANCES`
+// (svox_tape_replay_fwd_bf16, ..._fwd_frames_i8, ..._bwd_bf16,
+// ..._bwd_frames_bf16; a quantized pool takes no gradient).
 //
 // Replaces: svox_t_tpu/ops/tape.py `_replay_fwd_impl` (K13c, with its
-// weight accumulation and `_resolve_cells`), `_replay_bwd_impl` (K13d,
-// exact mode) and `_replay_bwd_frames_impl` (K13e: N independent replay
-// gradients of one tape over a stack of N pools). The TPU version replayed
-// (K, C) rounds of count-sorted chunks through flat round programs, and
-// K13e flushed the N frames' rows in one wide scatter; here one thread
-// replays one ray's run of the flat tape (tape_record.cuh): samples
-// offsets[i] to offsets[i + 1], each a streamed (row, dt) pair. The
-// backward has a frame axis, blockIdx.y: thread (i, n) runs ray i's single
-// pass on frame n's pool rows, grad_out[n, i] and out[n, i] and adds into
-// grad[n]. K13d is its launch with one frame; K13e launches the N frames
-// at once, and the frames read the same tape streams, which stay in L2
-// after the first frame's blocks have read them.
+// weight accumulation and `_resolve_cells`; its frame axis the scan of
+// `_replay_call_frames`), `_replay_bwd_impl` (K13d, exact mode) and
+// `_replay_bwd_frames_impl` (K13e: N independent replay gradients of one
+// tape over a stack of N pools). The TPU version replayed (K, C) rounds of
+// count-sorted chunks through flat round programs, and K13e flushed the N
+// frames' rows in one wide scatter; here one thread replays one ray's run
+// of the flat tape (tape_record.cuh): samples offsets[i] to offsets[i + 1],
+// each a streamed (row, dt) pair. Both passes have a frame axis,
+// blockIdx.y: thread (i, n) runs ray i on frame n's pool rows and writes
+// (and for the backward reads) frame n's output rows. K13c and K13d are
+// their launches with one frame; svox_tape_replay_fwd_frames and K13e
+// launch the N frames at once, and the frames read the same tape streams,
+// which stay in L2 after the first frame's blocks have read them.
 //
 // Per sample the radiometry is K2's (render_fwd.cuh) operation for
 // operation, and the backward's K3's single pass (render_bwd.cuh): rows
@@ -46,13 +48,34 @@
 // loads (row 4 bytes, dt 4 bytes; a neighbouring thread's run lies
 // elsewhere, so a warp's loads are not coalesced) and, where the row is
 // occupied, one feature-row load (28 floats at SH9) and K2's few dozen
-// flops: latency-bound on the row loads, with no dependent chain between
-// samples but the compositing. The design answer is K2's: a ray per
-// thread, basis and color sums in registers, format, rotation and the
+// flops: latency-bound, with no dependent chain between samples but the
+// compositing. The scalar design paid two or three dependent round trips
+// a sample: the row's sigma, then its dt and its 27 coefficients one load
+// each, and the next sample's row index only after this sample had
+// composited; at the minibatch step's shape (about 1.9 samples a ray,
+// about 15 warps an SM) nothing hid them, and the forward took longer than
+// its own backward. The forward (K13c) answers with changes to its loads,
+// none to its arithmetic or its order. Its width-4 instance (the
+// three-colour RGBA, SH1 and SH9 rows with no spare column, as the
+// backward's) moves a row, sigma included, in one round trip of 16-byte
+// loads (8 of a bf16 row, 4 of an int8 one with its columns' scale and
+// zero) into registers; width 1 keeps the scalar row. And both widths load
+// ahead: before sample k composites, sample k + 1's step, cell and recorded
+// row or cell; at width 4 that row also resolved (through the table on an
+// indirect tape) and loaded whole into a second register row, and sample
+// k + 2's recorded row or cell before that. A sample whose row is resident
+// then composites from registers with no load in its way. On an H100
+// (tools/tape_fwd_ab.py) the row loaded ahead beat the row loaded in its
+// own sample's iteration, sigma first or whole, at the deep tape's and the
+// minibatch step's shapes, though its SH9 instance holds 90 registers
+// against 56; the scalar row was slower with its row resolved ahead, so it
+// resolves the row in the sample's own iteration. Otherwise K2's design: a ray
+// per thread, basis and color sums in registers, format, rotation and the
 // basis capacity as template parameters, small blocks. K13e's bound is N
 // times K13d's rows and gradient bytes plus one read of the streams: the
-// frame axis lets the N frames' blocks share the streams through L2 instead
-// of N launches each reading them.
+// frame axis lets the N frames' blocks share the streams through L2
+// instead of N launches each reading them; the forward's frame axis does
+// the same for N replays.
 //
 // The backward's gradient (K13d, K13e) is the tape's heaviest traffic: per
 // occupied sample it reads a D-float row and adds D floats at that row with
@@ -112,15 +135,14 @@ struct Params {
   const float* grad_out;
   const float* out_res;
   float* grad;
-  int n_frames;            // the backward's frame axis (1 but for K13e)
-  int width;               // the backward's vector width (1 or 4)
+  int n_frames;            // the frame axis (1 but for the frames entries)
+  int width;               // the vector width (1 or 4)
 };
 
-// The row of sample k: the recorded row, or on a data-indirect tape the
-// table's entry for the recorded cell (-1, empty, outside the table).
+// The row of a recorded value v: v itself, or on a data-indirect tape the
+// table's entry for the recorded cell v (-1, empty, outside the table).
 template <bool kIndirect>
-__device__ __forceinline__ int32_t sample_row(const Params& p, int32_t k) {
-  const int32_t v = __ldg(p.idx + k);
+__device__ __forceinline__ int32_t resolve_row(const Params& p, int32_t v) {
   if constexpr (kIndirect) {
     return static_cast<uint32_t>(v) < static_cast<uint32_t>(p.n_table) ? __ldg(p.table + v) : -1;
   } else {
@@ -128,19 +150,143 @@ __device__ __forceinline__ int32_t sample_row(const Params& p, int32_t k) {
   }
 }
 
+// The row of sample k.
+template <bool kIndirect>
+__device__ __forceinline__ int32_t sample_row(const Params& p, int32_t k) {
+  return resolve_row<kIndirect>(p, __ldg(p.idx + k));
+}
+
+// Bytes of a pool value.
+template <class P>
+struct PoolElem {
+  static constexpr size_t value = sizeof(std::remove_pointer_t<P>);
+};
+template <>
+struct PoolElem<svox::PoolI8> {
+  static constexpr size_t value = sizeof(int8_t);
+};
+
+// Whether a width-4 launch may load the pool's rows 4 values at a time:
+// the pool aligned to 4 values, an int8 pool's scale and zero to 16 bytes
+// (the rows of D = 4 or 28 values then keep the alignment; so do the frames
+// of a stack).
+bool vector_aligned(const void* features, const float* scale, const float* zero) {
+  constexpr size_t elem = PoolElem<svox::Pool>::value;
+  return reinterpret_cast<uintptr_t>(features) % (elem * 4) == 0 &&
+         reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(zero) % 16 == 0;
+}
+
+// Four consecutive columns of a pool row, widened to float32: one 16-byte
+// load of a float32 row, one 8-byte load of a bf16 row (a bf16 value is
+// the top 16 bits of its float32), one 4-byte load of an int8 row with
+// 16-byte loads of its columns' scale and zero, each value dequantized as
+// svox::ld does (a multiply, then an add, each rounded). The column is
+// aligned to 4 elements.
+__device__ __forceinline__ float4 load_cols(const float* col) {
+  return __ldg(reinterpret_cast<const float4*>(col));
+}
+__device__ __forceinline__ float4 load_cols(const uint16_t* col) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(col));
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float4 load_cols(const svox::QPtr& col) {
+  const char4 q = __ldg(reinterpret_cast<const char4*>(col.q));
+  const float4 s = __ldg(reinterpret_cast<const float4*>(col.scale));
+  const float4 z = __ldg(reinterpret_cast<const float4*>(col.zero));
+  return make_float4(static_cast<float>(q.x) * s.x + z.x, static_cast<float>(q.y) * s.y + z.y,
+                     static_cast<float>(q.z) * s.z + z.z, static_cast<float>(q.w) * s.w + z.w);
+}
+
+// Columns e .. e + 3 of a row into the register row.
+template <class Row>
+__device__ __forceinline__ void load_row4(const Row& row, float* buf, int e) {
+  const float4 v = load_cols(row + e);
+  buf[e] = v.x;
+  buf[e + 1] = v.y;
+  buf[e + 2] = v.z;
+  buf[e + 3] = v.w;
+}
+
+// The whole of pool row r, when r is in [0, M), into the register row b
+// (rows of kD values, kD a multiple of 4).
+template <int kD, class P>
+__device__ __forceinline__ void load_row(const P& features, int32_t r, int M, float* b) {
+  if (static_cast<uint32_t>(r) < static_cast<uint32_t>(M)) {
+    const auto row = features + static_cast<size_t>(r) * kD;
+#pragma unroll
+    for (int e = 0; e < kD; e += 4) load_row4(row, b, e);
+  }
+}
+
+// Column e of the sample's row: the register copy (W = 4), or the pool's.
+template <int W, class Row>
+__device__ __forceinline__ float row_col(const Row& row, const float* buf, int e) {
+  if constexpr (W == 4) {
+    return buf[e];
+  } else {
+    return svox::ld(row + e);
+  }
+}
+
+// The pre-sigmoid colour c of the sample's row: column c (RGBA), or
+// sum_k basis_k * column c * nb + k, summed over k in order (as K2 sums it).
+template <int FMT, int kB, int W, class Row>
+__device__ __forceinline__ float color_logit(const Row& row, const float* buf, int c, int nb,
+                                             const float* basis) {
+  if constexpr (FMT == svox::kRGBA) {
+    return row_col<W>(row, buf, c);
+  } else {
+    const int e0 = c * nb;
+    float s = basis[0] * row_col<W>(row, buf, e0);
+#pragma unroll
+    for (int k2 = 1; k2 < kB; ++k2) {
+      if (k2 < nb) s = s + basis[k2] * row_col<W>(row, buf, e0 + k2);
+    }
+    return s;
+  }
+}
+
+// Frame n's pool in a stack of (M, D) pools, off = n * M * D values in (an
+// int8 stack's scale and zero: qoff = n * D values in).
+__device__ __forceinline__ const float* frame_features(const float* f, size_t off, size_t) {
+  return f + off;
+}
+__device__ __forceinline__ const uint16_t* frame_features(const uint16_t* f, size_t off, size_t) {
+  return f + off;
+}
+__device__ __forceinline__ svox::PoolI8 frame_features(const svox::PoolI8& f, size_t off,
+                                                       size_t qoff) {
+  return {f.q + off, f.scale + qoff, f.zero + qoff};
+}
+
 #if SVOX_TAPE_PASS == 0
 
-// K13c on ray i. FMT: svox::kRGBA / kSH / kSG / kASG; BD: basis capacity
-// (0 for RGBA); kRot: per-voxel rotation. With p.waccum, each compositing
-// sample adds its weight at its recorded cell: a run-time test, since the
-// cell is read from its stream only there (K2 makes weights a template
-// parameter to keep the leaf id out of the plain march's live registers).
-template <int FMT, int BD, bool kRot, bool kIndirect>
-__device__ __forceinline__ void replay_fwd(const Params& p, int i) {
+// K13c on ray i of frame n. FMT: svox::kRGBA / kSH / kSG / kASG; BD: basis
+// capacity (0 for RGBA); kRot: per-voxel rotation; W: the vector width.
+// Frame n's pool and output lie n (M, D) and n (B, n_color + 1) blocks into
+// their stacks. W = 1 reads the row a column at a time, sigma first; W = 4
+// (three colours, D = 3 * BD + 1, or 4 for RGBA: n_color and D are
+// constants) loads the whole row into registers, 4 columns a load. Either
+// width loads sample k + 1's step, cell and recorded row or cell before
+// sample k composites; W = 4 also resolves that row and loads it whole, and
+// loads sample k + 2's recorded value (guarded at the run's end; after the
+// stop_thresh break they go unused). With p.waccum, each compositing
+// sample adds its weight at its recorded cell: a run-time test (K2 makes
+// weights a template parameter to keep the leaf id out of the plain
+// march's live registers), uniform across the launch.
+template <int FMT, int BD, bool kRot, bool kIndirect, int W>
+__device__ __forceinline__ void replay_fwd(const Params& p, int i, int n) {
   constexpr int kB = FMT == svox::kRGBA ? 1 : BD;
-  const int nc = p.n_color;
+  constexpr bool kVec = W == 4;
+  constexpr int kD = kVec ? (FMT == svox::kRGBA ? 3 : 3 * BD) + 1 : 1;
+  const int nc = kVec ? 3 : p.n_color;
   const int nb = FMT == svox::kSH ? BD : p.basis_dim;
-  float* out = p.out + static_cast<size_t>(i) * (nc + 1);
+  const int D = kVec ? kD : p.D;
+  const auto features = frame_features(p.features, static_cast<size_t>(n) * p.M * p.D,
+                                       static_cast<size_t>(n) * p.D);
+  float* out = p.out + (static_cast<size_t>(n) * p.B + i) * (nc + 1);
 
   const float vx = p.vdirs[3 * i + 0];
   const float vy = p.vdirs[3 * i + 1];
@@ -154,51 +300,86 @@ __device__ __forceinline__ void replay_fwd(const Params& p, int i) {
   float acc[kMaxColor];
 #pragma unroll
   for (int c = 0; c < kMaxColor; ++c) acc[c] = 0.f;
+  float buf[kD];
   const float ds = p.dscale[i];
   float L = 1.f;
   bool stopped = false;
+  int32_t k = p.offsets[i];
   const int32_t end = p.offsets[i + 1];
-  for (int32_t k = p.offsets[i]; k < end; ++k) {
-    const int32_t idx = sample_row<kIndirect>(p, k);
-    if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
-      const auto row = p.features + static_cast<size_t>(idx) * p.D;
-      const float sigma = svox::ld(row + p.D - 1);
-      if (sigma > p.sigma_thresh) {
-        const float dt = __ldg(p.dt + k);
-        const float att = expf((-dt * ds) * sigma);
-        const float weight = L * (1.f - att);
-        if constexpr (FMT != svox::kRGBA && kRot) {
-          const float* m = p.tmats + static_cast<size_t>(idx) * 16;
-          const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
-          const float ry = (m[4] * vx + m[5] * vy) + m[6] * vz;
-          const float rz = (m[8] * vx + m[9] * vy) + m[10] * vz;
-          svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb,
-                                    p.min_comp, p.max_comp, basis);
-        }
+  // Loaded one sample ahead of their use: sample k's step and cell, and its
+  // row, as recorded at W = 1, resolved at W = 4 with its values in nbuf;
+  // at W = 4 also sample k + 1's recorded row or cell (the scalar row
+  // measured slower with its row resolved ahead).
+  int32_t next = 0;
+  float dt_next = 0.f;
+  int32_t cell_next = 0;
+  int32_t v_after = 0;
+  float nbuf[kD];
+  if (k < end) {
+    next = __ldg(p.idx + k);
+    dt_next = __ldg(p.dt + k);
+    if (p.waccum != nullptr) cell_next = __ldg(p.cell + k);
+    if constexpr (kVec) {
+      next = resolve_row<kIndirect>(p, next);
+      load_row<kD>(features, next, p.M, nbuf);
+      if (k + 1 < end) v_after = __ldg(p.idx + k + 1);
+    }
+  }
+  for (; k < end; ++k) {
+    const int32_t cur = next;
+    const float dt = dt_next;
+    const int32_t cell = cell_next;
+    if constexpr (kVec) {
 #pragma unroll
-        for (int c = 0; c < kMaxColor; ++c) {
-          if (c < nc) {
-            float s;
-            if constexpr (FMT == svox::kRGBA) {
-              s = svox::ld(row + c);
-            } else {
-              const auto coef = row + c * nb;
-              s = basis[0] * svox::ld(coef);
+      for (int e = 0; e < kD; ++e) buf[e] = nbuf[e];
+    }
+    if (k + 1 < end) {
+      dt_next = __ldg(p.dt + k + 1);
+      if (p.waccum != nullptr) cell_next = __ldg(p.cell + k + 1);
+      if constexpr (kVec) {
+        next = resolve_row<kIndirect>(p, v_after);
+        load_row<kD>(features, next, p.M, nbuf);
+        if (k + 2 < end) v_after = __ldg(p.idx + k + 2);
+      } else {
+        next = __ldg(p.idx + k + 1);
+      }
+    }
+    const int32_t idx = kVec ? cur : resolve_row<kIndirect>(p, cur);
+    if (static_cast<uint32_t>(idx) >= static_cast<uint32_t>(p.M)) continue;
+    const auto row = features + static_cast<size_t>(idx) * D;
+    const float sigma = row_col<W>(row, buf, D - 1);
+    if (!(sigma > p.sigma_thresh)) continue;
+    const float att = expf((-dt * ds) * sigma);
+    const float weight = L * (1.f - att);
+    if constexpr (FMT != svox::kRGBA && kRot) {
+      const float* m = p.tmats + static_cast<size_t>(idx) * 16;
+      const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
+      const float ry = (m[4] * vx + m[5] * vy) + m[6] * vz;
+      const float rz = (m[8] * vx + m[9] * vy) + m[10] * vz;
+      svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb, p.min_comp, p.max_comp,
+                                basis);
+    }
+    if constexpr (!kVec && kB >= 16) {
+      // The scalar row's 16- and 25-term colours one at a time: unrolled
+      // over 16 colours, their loads wanted more registers than a thread
+      // has, and the int8 pool's instances spilled 7.5 KB (ptxas, H100).
+#pragma unroll 1
+      for (int c = 0; c < nc; ++c) {
+        acc[c] = acc[c] + weight * svox::sigmoid(color_logit<FMT, kB, W>(row, buf, c, nb, basis));
+      }
+    } else {
 #pragma unroll
-              for (int k2 = 1; k2 < kB; ++k2) {
-                if (k2 < nb) s = s + basis[k2] * svox::ld(coef + k2);
-              }
-            }
-            acc[c] = acc[c] + weight * svox::sigmoid(s);
-          }
-        }
-        if (p.waccum != nullptr) atomicAdd(p.waccum + __ldg(p.cell + k), weight);
-        L = L * att;
-        if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
-          stopped = true;
-          break;
+      for (int c = 0; c < kMaxColor; ++c) {
+        if (c < nc) {
+          acc[c] = acc[c] + weight * svox::sigmoid(color_logit<FMT, kB, W>(row, buf, c, nb, basis));
         }
       }
+    }
+    if (p.waccum != nullptr) atomicAdd(p.waccum + cell, weight);
+    L = L * att;
+    if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
+      stopped = true;
+      break;
     }
   }
 
@@ -215,53 +396,53 @@ __device__ __forceinline__ void replay_fwd(const Params& p, int i) {
   out[nc] = 1.f - L;
 }
 
-template <int FMT, int BD, bool kRot>
-__global__ void __launch_bounds__(kThreads) replay_fwd_kernel(const Params p) {
+// K13c on this thread's ray and frame: the table's branch taken once.
+template <int FMT, int BD, bool kRot, int W>
+__device__ __forceinline__ void replay_fwd_ray(const Params& p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
   if (p.table != nullptr) {
-    replay_fwd<FMT, BD, kRot, true>(p, i);
+    replay_fwd<FMT, BD, kRot, true, W>(p, i, blockIdx.y);
   } else {
-    replay_fwd<FMT, BD, kRot, false>(p, i);
+    replay_fwd<FMT, BD, kRot, false, W>(p, i, blockIdx.y);
   }
 }
 
-template <int FMT, int BD>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const dim3 grid((p.B + kThreads - 1) / kThreads);
-  if constexpr (FMT != svox::kRGBA) {
-    if (p.tmats != nullptr) {
-      replay_fwd_kernel<FMT, BD, true><<<grid, kThreads, 0, stream>>>(p);
-      return cudaGetLastError();
-    }
+template <int FMT, int BD, bool kRot, int W>
+__global__ void __launch_bounds__(kThreads) replay_fwd_kernel(const Params p) {
+  replay_fwd_ray<FMT, BD, kRot, W>(p);
+}
+
+// The scalar row's 16- and 25-term instances: under ptxas's own register
+// limit (64 or 128) their rolled colour loop still spilled (88 bytes in the
+// int8 pool's, H100); one block an SM lets them use up to 255 registers.
+// The other instances keep the limit: given the same freedom, ptxas spent
+// more registers on the SH9 ones (150 at int8 width 4, against 96).
+template <int FMT, int BD, bool kRot, int W>
+__global__ void __launch_bounds__(kThreads, 1) replay_fwd_kernel_wide(const Params p) {
+  replay_fwd_ray<FMT, BD, kRot, W>(p);
+}
+
+template <int FMT, int BD, bool kRot, int W>
+cudaError_t launch_rot(const Params& p, cudaStream_t stream) {
+  const dim3 grid((p.B + kThreads - 1) / kThreads, p.n_frames);
+  if constexpr (W == 1 && BD >= 16) {
+    replay_fwd_kernel_wide<FMT, BD, kRot, W><<<grid, kThreads, 0, stream>>>(p);
+  } else {
+    replay_fwd_kernel<FMT, BD, kRot, W><<<grid, kThreads, 0, stream>>>(p);
   }
-  replay_fwd_kernel<FMT, BD, false><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-#else  // SVOX_TAPE_PASS == 1
-
-// Four consecutive columns of a pool row, widened to float32: one 16-byte
-// load of a float32 row, one 8-byte load of a bf16 row (a bf16 value is
-// the top 16 bits of its float32). The column is aligned to 4 elements.
-__device__ __forceinline__ float4 load_cols(const float* col) {
-  return __ldg(reinterpret_cast<const float4*>(col));
-}
-__device__ __forceinline__ float4 load_cols(const uint16_t* col) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(col));
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-
-// Column e of the sample's row: the register copy (W = 4), or the pool's.
-template <int W, class Row>
-__device__ __forceinline__ float row_col(const Row& row, const float* buf, int e) {
-  if constexpr (W == 4) {
-    return buf[e];
-  } else {
-    return svox::ld(row + e);
+template <int FMT, int BD, int W>
+cudaError_t launch_width(const Params& p, cudaStream_t stream) {
+  if constexpr (FMT != svox::kRGBA) {
+    if (p.tmats != nullptr) return launch_rot<FMT, BD, true, W>(p, stream);
   }
+  return launch_rot<FMT, BD, false, W>(p, stream);
 }
+
+#else  // SVOX_TAPE_PASS == 1
 
 // The addend of gradient column e: put in the register row in place of the
 // column (W = 4), or added at once with a float atomic.
@@ -340,13 +521,7 @@ __device__ __forceinline__ void replay_bwd(const Params& p, int i, int n) {
     }
     if constexpr (kVec) {
 #pragma unroll
-      for (int e = 0; e < kD; e += 4) {
-        const float4 v = load_cols(row + e);
-        buf[e] = v.x;
-        buf[e + 1] = v.y;
-        buf[e + 2] = v.z;
-        buf[e + 3] = v.w;
-      }
+      for (int e = 0; e < kD; e += 4) load_row4(row, buf, e);
     }
     float total_color = 0.f;
 #pragma unroll
@@ -417,6 +592,8 @@ cudaError_t launch_width(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+#endif  // SVOX_TAPE_PASS
+
 // The launch's vector width (p.width, 1 or 4, alignment checked by the
 // entry point). Width 4 exists for the three-colour RGBA, SH1 and SH9 rows
 // with no spare column (D = 4, 4, 28) and refuses any other row.
@@ -429,8 +606,6 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   }
   return cudaErrorInvalidValue;
 }
-
-#endif  // SVOX_TAPE_PASS
 
 // Basis instances hold 1, 4, 9, 16 or 25 terms (svox::basis_capacity); the
 // bf16 and int8 pools run SG and ASG of every size on the 25-term instance,
@@ -495,27 +670,25 @@ Params make_params(const int32_t* offsets, const int32_t* idx, const float* dt,
 
 #if SVOX_TAPE_PASS == 0
 
-// K13c. The tape: offsets (B + 1,) int32, idx (offsets[B],) int32 rows (or
-// tree cells with a table), dt (offsets[B],) f32, cell (offsets[B],) int32
-// tree cells or null (needed with waccum), dscale (B,) f32, vdirs (B, 3)
-// f32; table (n_table,) int32 the flat index table of a data-indirect tape,
-// else null; features (M, D) of the source's pool type, with scale and zero
-// (D,) f32 for an int8 pool, else null; tmats (M, 4, 4) f32 or null; extra
-// (basis_dim, ld_extra) f32 for SG/ASG, else null; out (B, n_color + 1)
-// f32; waccum (n_cells,) f32 or null. format: 0 RGBA, 1 SH, 2 SG, 3 ASG.
-// All pointers are device pointers. Returns a cudaError_t.
-extern "C" int SVOX_NAME(svox_tape_replay_fwd)(
-    const int32_t* offsets, const int32_t* idx, const float* dt, const int32_t* cell,
-    const float* dscale, const float* vdirs, int B, const int32_t* table, int n_table,
-    const void* features, const float* scale, const float* zero, int M, int D,
-    const float* tmats, int format, const float* extra, int ld_extra, int basis_dim,
-    int min_comp, int max_comp, int n_color, float bg, float sigma_thresh, float stop_thresh,
-    float* out, float* waccum, int device, cudaStream_t stream) {
+namespace {
+
+// K13c over n_frames pools (svox_tape_replay_fwd_frames; one frame with
+// the cells and weights: svox_tape_replay_fwd).
+cudaError_t replay_fwd_entry(const int32_t* offsets, const int32_t* idx, const float* dt,
+                             const int32_t* cell, const float* dscale, const float* vdirs, int B,
+                             const int32_t* table, int n_table, const void* features,
+                             const float* scale, const float* zero, int M, int D,
+                             const float* tmats, int format, const float* extra, int ld_extra,
+                             int basis_dim, int min_comp, int max_comp, int n_color, float bg,
+                             float sigma_thresh, float stop_thresh, float* out, float* waccum,
+                             int n_frames, int width, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B <= 0) return cudaSuccess;
-  if (n_color < 0 || n_color > kMaxColor) return cudaErrorInvalidValue;
-  if (waccum != nullptr && cell == nullptr) return cudaErrorInvalidValue;
+  if (width != 1 && width != 4) return cudaErrorInvalidValue;
+  if (width == 4 && !vector_aligned(features, scale, zero)) return cudaErrorInvalidValue;
+  if (B <= 0 || n_frames <= 0) return cudaSuccess;
+  if (n_color < 0 || n_color > kMaxColor || n_frames > 65535) return cudaErrorInvalidValue;
+  if (waccum != nullptr && (cell == nullptr || n_frames != 1)) return cudaErrorInvalidValue;
   Params p = make_params(offsets, idx, dt, dscale, vdirs, B, table, n_table, features, scale,
                          zero, M, D, tmats, extra, ld_extra, basis_dim, min_comp, max_comp,
                          n_color);
@@ -525,7 +698,55 @@ extern "C" int SVOX_NAME(svox_tape_replay_fwd)(
   p.stop_thresh = stop_thresh;
   p.out = out;
   p.waccum = waccum;
+  p.n_frames = n_frames;
+  p.width = width;
   return launch_format(p, format, stream);
+}
+
+}  // namespace
+
+// K13c. The tape: offsets (B + 1,) int32, idx (offsets[B],) int32 rows (or
+// tree cells with a table), dt (offsets[B],) f32, cell (offsets[B],) int32
+// tree cells or null (needed with waccum), dscale (B,) f32, vdirs (B, 3)
+// f32; table (n_table,) int32 the flat index table of a data-indirect tape,
+// else null; features (M, D) of the source's pool type, with scale and zero
+// (D,) f32 for an int8 pool, else null; tmats (M, 4, 4) f32 or null; extra
+// (basis_dim, ld_extra) f32 for SG/ASG, else null; out (B, n_color + 1)
+// f32; waccum (n_cells,) f32 or null. format: 0 RGBA, 1 SH, 2 SG, 3 ASG.
+// width: the vector width, 1 or 4; 4 takes only the three-colour RGBA, SH1
+// and SH9 rows (D = 4, 4, 28), with the pool aligned to 4 values (an int8
+// pool's scale and zero to 16 bytes). All pointers are device pointers.
+// Returns a cudaError_t.
+extern "C" int SVOX_NAME(svox_tape_replay_fwd)(
+    const int32_t* offsets, const int32_t* idx, const float* dt, const int32_t* cell,
+    const float* dscale, const float* vdirs, int B, const int32_t* table, int n_table,
+    const void* features, const float* scale, const float* zero, int M, int D,
+    const float* tmats, int format, const float* extra, int ld_extra, int basis_dim,
+    int min_comp, int max_comp, int n_color, float bg, float sigma_thresh, float stop_thresh,
+    float* out, float* waccum, int width, int device, cudaStream_t stream) {
+  return replay_fwd_entry(offsets, idx, dt, cell, dscale, vdirs, B, table, n_table, features,
+                          scale, zero, M, D, tmats, format, extra, ld_extra, basis_dim, min_comp,
+                          max_comp, n_color, bg, sigma_thresh, stop_thresh, out, waccum, 1, width,
+                          device, stream);
+}
+
+// K13c's frame axis: the tape as svox_tape_replay_fwd (no cells or
+// weights); features (N, M, D) of the source's pool type, a stack of N
+// pools, with scale and zero (N, D) f32 for an int8 stack (tmats and extra
+// shared by the frames); out (N, B, n_color + 1) f32, frame n equal to
+// svox_tape_replay_fwd on pool n bit for bit. N <= 65535 (the grid's y
+// extent); width as svox_tape_replay_fwd's. Returns a cudaError_t.
+extern "C" int SVOX_NAME(svox_tape_replay_fwd_frames)(
+    const int32_t* offsets, const int32_t* idx, const float* dt, const float* dscale,
+    const float* vdirs, int B, const int32_t* table, int n_table, const void* features,
+    const float* scale, const float* zero, int M, int D, const float* tmats, int format,
+    const float* extra, int ld_extra, int basis_dim, int min_comp, int max_comp, int n_color,
+    float bg, float sigma_thresh, float stop_thresh, float* out, int n_frames, int width,
+    int device, cudaStream_t stream) {
+  return replay_fwd_entry(offsets, idx, dt, nullptr, dscale, vdirs, B, table, n_table, features,
+                          scale, zero, M, D, tmats, format, extra, ld_extra, basis_dim, min_comp,
+                          max_comp, n_color, bg, sigma_thresh, stop_thresh, out, nullptr, n_frames,
+                          width, device, stream);
 }
 
 #else
@@ -548,12 +769,9 @@ extern "C" int SVOX_NAME(svox_tape_replay_bwd_frames)(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (width != 1 && width != 4) return cudaErrorInvalidValue;
-  if (width == 4) {
-    constexpr size_t elem = sizeof(std::remove_pointer_t<svox::Pool>);
-    if (reinterpret_cast<uintptr_t>(grad) % 16 != 0 ||
-        reinterpret_cast<uintptr_t>(features) % (elem * 4) != 0) {
-      return cudaErrorInvalidValue;
-    }
+  if (width == 4 && (reinterpret_cast<uintptr_t>(grad) % 16 != 0 ||
+                     !vector_aligned(features, scale, zero))) {
+    return cudaErrorInvalidValue;
   }
   if (B <= 0 || M <= 0 || n_frames <= 0) return cudaSuccess;
   if (n_color < 0 || n_color > kMaxColor || n_frames > 65535) return cudaErrorInvalidValue;

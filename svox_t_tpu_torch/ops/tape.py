@@ -31,10 +31,12 @@ the identity, and `record_tape` accepts ``chunk_size``,
     backward march K3's single pass over the runs; thresholded modes take
     K3 itself over the tape's rays (which needs ``spec``).
   * `replay_render_frames`: one tape over a stack of N pools, (N, B,
-    n_color + 1): the forward is K13c once per frame; the backward, N
-    independent gradients (N, M, D), is K13e in exact mode, one launch of
-    K13d's kernel with a frame axis (thresholded modes take the per-frame
-    backward, K3 over the tape's rays).
+    n_color + 1): the forward is one launch of K13c's kernel with a frame
+    axis (`replay_forward_frames`); the backward, N independent gradients
+    (N, M, D), is K13e in exact mode, one launch of K13d's kernel with a
+    frame axis (thresholded modes take the per-frame backward, K3 over the
+    tape's rays). K13c-e each have a vector instance for the three-colour
+    RGBA, SH1 and SH9 rows (`replay_fwd_width`, `replay_bwd_width`).
   * `replay_depth`: first-hit depth from a tape recorded with
     ``record_t`` (K13f): per ray the t of the first sample whose row is
     resident and whose sigma exceeds sigma_thresh, times delta_scale;
@@ -91,7 +93,14 @@ _REPLAY_FWD_ARGS = ([c_void_p, c_void_p, c_void_p, c_void_p,  # offsets, idx, dt
                      c_void_p, c_void_p, c_int,               # dscale, vdirs, B
                      c_void_p, c_int] + _POOL_ARGS            # table, n_table
                     + [c_float, c_float, c_float,             # bg, sigma/stop thresh
-                       c_void_p, c_void_p, c_int, c_void_p])  # out, waccum, device, stream
+                       c_void_p, c_void_p,                    # out, waccum
+                       c_int, c_int, c_void_p])               # width, device, stream
+_REPLAY_FWD_FRAMES_ARGS = ([c_void_p, c_void_p, c_void_p,     # offsets, idx, dt
+                            c_void_p, c_void_p, c_int,        # dscale, vdirs, B
+                            c_void_p, c_int] + _POOL_ARGS     # table, n_table
+                           + [c_float, c_float, c_float,      # bg, sigma/stop thresh
+                              c_void_p, c_int,                # out, n_frames
+                              c_int, c_int, c_void_p])        # width, device, stream
 _REPLAY_BWD_ARGS = ([c_void_p, c_void_p, c_void_p,            # offsets, idx, dt
                      c_void_p, c_void_p, c_int,               # dscale, vdirs, B
                      c_void_p, c_int] + _POOL_ARGS            # table, n_table
@@ -107,16 +116,19 @@ TAPE_COUNT = Kernel("svox_tape_count", _COUNT_ARGS)
 TAPE_COUNT_BAKED = Kernel("svox_tape_count_baked", _COUNT_ARGS)
 TAPE_RECORD = Kernel("svox_tape_record", _RECORD_ARGS)
 TAPE_RECORD_BAKED = Kernel("svox_tape_record_baked", _RECORD_ARGS)
-# K13c has float32, bf16 and int8 instances; K13d float32 and bf16 (a
-# quantized pool takes no gradient).
+# K13c has float32, bf16 and int8 instances, and so has its frame axis;
+# K13d float32 and bf16 (a quantized pool takes no gradient).
 _REPLAY_FWD = {k: Kernel(f"svox_tape_replay_fwd{POOL_SUFFIX[k]}", _REPLAY_FWD_ARGS)
                for k in ("f32", "bf16", "i8")}
+_REPLAY_FWD_FRAMES = {k: Kernel(f"svox_tape_replay_fwd_frames{POOL_SUFFIX[k]}", _REPLAY_FWD_FRAMES_ARGS)
+                      for k in ("f32", "bf16", "i8")}
 _REPLAY_BWD = {k: Kernel(f"svox_tape_replay_bwd{POOL_SUFFIX[k]}", _REPLAY_BWD_ARGS)
                for k in ("f32", "bf16")}
 # K13e, the backward's frame axis: float32 and bf16 as K13d.
 _REPLAY_BWD_FRAMES = {k: Kernel(f"svox_tape_replay_bwd_frames{POOL_SUFFIX[k]}",
                                 _REPLAY_BWD_FRAMES_ARGS) for k in ("f32", "bf16")}
 TAPE_REPLAY_FWD, TAPE_REPLAY_FWD_BF16, TAPE_REPLAY_FWD_I8 = _REPLAY_FWD.values()
+TAPE_REPLAY_FWD_FRAMES, TAPE_REPLAY_FWD_FRAMES_BF16, TAPE_REPLAY_FWD_FRAMES_I8 = _REPLAY_FWD_FRAMES.values()
 TAPE_REPLAY_BWD, TAPE_REPLAY_BWD_BF16 = _REPLAY_BWD.values()
 TAPE_REPLAY_BWD_FRAMES, TAPE_REPLAY_BWD_FRAMES_BF16 = _REPLAY_BWD_FRAMES.values()
 # K13f reads a float32 or a bf16 pool's sigma column (one symbol, both
@@ -126,6 +138,8 @@ TAPE_DEPTH = Kernel("svox_tape_depth", _DEPTH_ARGS)
 # vector width in which a sample's row moves (`replay_bwd_width`): launches
 # of both entry points (either pool type) by width, beside their counts.
 BWD_WIDTH_LAUNCHES = {1: 0, 4: 0}
+# The same for K13c and its frame axis (`replay_fwd_width`; every pool type).
+FWD_WIDTH_LAUNCHES = {1: 0, 4: 0}
 
 
 class _NoSpec:
@@ -608,17 +622,46 @@ def _tape_args(tape: RayTape, features, index_table, name: str):
             (None, 0) if table is None else (table.data_ptr(), table.shape[0]))
 
 
+def _vector_row(fmt: int, basis_dim: int, D: int) -> bool:
+    """Whether a row has a width-4 instance: the three-colour rows with no
+    spare column (RGBA at D = 4, SH1 at D = 4, SH9 at D = 28)."""
+    if fmt == FORMAT_RGBA:
+        return D == 4
+    return fmt == FORMAT_SH and (basis_dim, D) in ((1, 4), (9, 28))
+
+
+def replay_fwd_width(fmt: int, basis_dim: int, D: int, pool_ptr: int, pool_elem: int,
+                     scale_ptrs=()) -> int:
+    """The vector width of a K13c launch (or of its frame axis): 4 for the
+    three-colour rows with no spare column when the pool (``pool_ptr``,
+    ``pool_elem`` bytes a value) is aligned to 4 values and the float32
+    ``scale_ptrs`` (an int8 pool's scale and zero) to 16 bytes, else 1."""
+    aligned = pool_ptr % (4 * pool_elem) == 0 and all(q % 16 == 0 for q in scale_ptrs)
+    return 4 if _vector_row(fmt, basis_dim, D) and aligned else 1
+
+
 def replay_bwd_width(fmt: int, basis_dim: int, D: int, pool_ptr: int, pool_elem: int,
                      grad_ptr: int) -> int:
     """The vector width of a K13d / K13e launch: 4 for the three-colour
     rows with no spare column (RGBA at D = 4, SH1 at D = 4, SH9 at D = 28)
     when the pool (``pool_ptr``, ``pool_elem`` bytes a value) and the
     float32 gradient (``grad_ptr``) are aligned to 4 values, else 1."""
-    if fmt == FORMAT_RGBA:
-        three = D == 4
-    else:
-        three = fmt == FORMAT_SH and (basis_dim, D) in ((1, 4), (9, 28))
-    return 4 if three and grad_ptr % 16 == 0 and pool_ptr % (4 * pool_elem) == 0 else 1
+    aligned = grad_ptr % 16 == 0 and pool_ptr % (4 * pool_elem) == 0
+    return 4 if _vector_row(fmt, basis_dim, D) and aligned else 1
+
+
+def _launch_fwd(kernel: Kernel, head: tuple, features, opt: RenderOptions, tail: tuple,
+                width: Optional[int]) -> None:
+    """Launch K13c or its frame axis (``kernel``): its arguments before the
+    width, the width (`replay_fwd_width` unless given), then ``tail``."""
+    if width is None:
+        q, scales = features, ()
+        if isinstance(features, QuantizedFeatures):
+            q, scales = features.q, (features.scale.data_ptr(), features.zero.data_ptr())
+        width = replay_fwd_width(opt.format, opt.basis_dim, features.shape[-1], q.data_ptr(),
+                                 q.element_size(), scales)
+    kernel(*head, width, *tail)
+    FWD_WIDTH_LAUNCHES[width] += 1
 
 
 def _launch_bwd(kernel: Kernel, head: tuple, features, grad, opt: RenderOptions, tail: tuple,
@@ -641,9 +684,12 @@ def _replay_kernel(instances: dict, features) -> Kernel:
 
 
 def replay_forward_cuda(tape: RayTape, features, opt: RenderOptions, spec=None,
-                        want_weights: bool = False, index_table=None):
+                        want_weights: bool = False, index_table=None, width: Optional[int] = None):
     """Launch K13c (csrc/tape_replay_fwd.cu; the bf16 and int8 pools'
-    instances of csrc/tape_replay.cuh): (out, waccum or None)."""
+    instances of csrc/tape_replay.cuh): (out, waccum or None). ``width``:
+    the vector instance (1 or 4) instead of `replay_fwd_width`'s; the
+    kernel refuses one the row or the pool's alignment does not allow (a
+    comparison of the instances passes it)."""
     spec_v = spec if spec is not None else _NOSPEC
     n_color = check_format(spec_v, features, opt)
     kernel = _replay_kernel(_REPLAY_FWD, features)
@@ -655,10 +701,11 @@ def replay_forward_cuda(tape: RayTape, features, opt: RenderOptions, spec=None,
     out = torch.empty(tape.n_rays, n_color + 1, dtype=torch.float32, device=dev)
     waccum = torch.zeros(tape.n_cells, dtype=torch.float32, device=dev) if want_weights else None
     if tape.n_rays:
-        kernel(tape.offsets.data_ptr(), tape.idx.data_ptr(), tape.dt.data_ptr(),
-               tape.cell.data_ptr() if want_weights else None, *ray_args, *table_args, *rad,
-               opt.background_brightness, opt.sigma_thresh, opt.stop_thresh, out.data_ptr(),
-               None if waccum is None else waccum.data_ptr(), *_stream(dev))
+        _launch_fwd(kernel, (tape.offsets.data_ptr(), tape.idx.data_ptr(), tape.dt.data_ptr(),
+                             tape.cell.data_ptr() if want_weights else None, *ray_args, *table_args, *rad,
+                             opt.background_brightness, opt.sigma_thresh, opt.stop_thresh, out.data_ptr(),
+                             None if waccum is None else waccum.data_ptr()),
+                    features, opt, _stream(dev), width)
     return out, waccum
 
 
@@ -820,6 +867,57 @@ def frame_pools(features_frames) -> list:
     return list(features_frames.unbind(0))
 
 
+def replay_forward_frames_plain(tape: RayTape, features_frames, opt: RenderOptions, spec=None,
+                                index_table=None):
+    """Plain PyTorch version of K13c's frame axis: (N, B, n_color + 1), frame
+    n the plain K13c (`replay_forward_plain`) of pool n."""
+    outs = [replay_forward_plain(tape, f, opt, spec, False, index_table)[0]
+            for f in frame_pools(features_frames)]
+    if outs:
+        return torch.stack(outs)
+    n_color = get_out_data_dim(opt.format, opt.basis_dim, features_frames.shape[2]) - 1
+    return torch.empty(0, tape.n_rays, n_color + 1, dtype=pool_dtype(features_frames), device=tape.device)
+
+
+def replay_forward_frames_cuda(tape: RayTape, features_frames, opt: RenderOptions, spec=None,
+                               index_table=None, width: Optional[int] = None):
+    """Launch K13c's frame axis (csrc/tape_replay_fwd.cu's
+    `svox_tape_replay_fwd_frames`; the bf16 and int8 stacks' instances of
+    csrc/tape_replay.cuh) once for all N frames of a contiguous (N, M, D)
+    stack (an int8 stack: q (N, M, D), scale and zero (N, D)): (N, B,
+    n_color + 1) float32, frame n `replay_forward_cuda` on pool n bit for
+    bit. An empty tape or stack launches nothing. ``width`` as
+    `replay_forward_cuda`'s."""
+    spec_v = spec if spec is not None else _NOSPEC
+    N, M, D = features_frames.shape
+    if not N:
+        n_color = get_out_data_dim(opt.format, opt.basis_dim, D) - 1
+        return torch.empty(0, tape.n_rays, n_color + 1, dtype=torch.float32, device=tape.device)
+    frame0 = frame_pools(features_frames)[0]
+    n_color = check_format(spec_v, frame0, opt)
+    kernel = _replay_kernel(_REPLAY_FWD_FRAMES, features_frames)
+    ray_args, table_args = _tape_args(tape, features_frames, index_table, "replay_forward_frames_cuda")
+    rad = radiometry_args(spec_v, frame0, opt, n_color)
+    _require(N <= 65535, "K13c's frame axis takes at most 65535 frames")
+    out = torch.empty(N, tape.n_rays, n_color + 1, dtype=torch.float32, device=tape.device)
+    if tape.n_rays:
+        _launch_fwd(kernel, (tape.offsets.data_ptr(), tape.idx.data_ptr(), tape.dt.data_ptr(), *ray_args,
+                             *table_args, *rad, opt.background_brightness, opt.sigma_thresh,
+                             opt.stop_thresh, out.data_ptr(), N),
+                    features_frames, opt, _stream(tape.device), width)
+    return out
+
+
+def replay_forward_frames(tape: RayTape, features_frames, opt: RenderOptions, spec=None,
+                          index_table=None):
+    """N replays of one tape over a stack of N pools, (N, B, n_color + 1):
+    K13c's frame axis on CUDA (one launch), its plain version on the CPU."""
+    for f in frame_pools(features_frames):
+        _check_replay(tape, f, opt, spec, index_table)
+    run = replay_forward_frames_cuda if tape.dt.is_cuda else replay_forward_frames_plain
+    return run(tape, features_frames, opt, spec, index_table)
+
+
 def replay_backward_frames_plain(tape: RayTape, features_frames, opt: RenderOptions, grad_outs, outs,
                                  spec=None, index_table=None):
     """Plain PyTorch version of K13e (exact options): the N frames'
@@ -881,14 +979,12 @@ def replay_backward_frames(tape: RayTape, features_frames, opt: RenderOptions, g
 
 class _ReplayFramesFn(torch.autograd.Function):
     """`replay_render_frames` (JAX: `_replay_call_frames`' custom_vjp): the
-    forward is K13c per frame, the backward one K13e for the stack."""
+    forward is one launch of K13c's frame axis for the stack, the backward
+    one K13e."""
 
     @staticmethod
     def forward(ctx, tape, features_frames, index_table, opt, spec):
-        outs = [replay_forward(tape, f, opt, spec, False, index_table)[0]
-                for f in frame_pools(features_frames)]
-        n_color = get_out_data_dim(opt.format, opt.basis_dim, features_frames.shape[2]) - 1
-        outs = torch.stack(outs) if outs else torch.empty(0, tape.n_rays, n_color + 1, device=tape.device)
+        outs = replay_forward_frames(tape, features_frames, opt, spec, index_table)
         _save(ctx, tape, features_frames, index_table, opt, spec, outs)
         return outs
 

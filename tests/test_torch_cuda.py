@@ -1518,6 +1518,88 @@ def test_tape_replay_backward_matches_plain(cuda, backend, case):
         assert not want[:, 27:31].any() and not got[:, 27:31].any()
 
 
+def _fwd_pools(pool):
+    """The case's pool as float32, bf16 and int8 (label, pool)."""
+    f = pool.float()
+    return (("f32", f), ("bf16", f.to(torch.bfloat16)), ("i8", stt.quantize_features(f)))
+
+
+@pytest.mark.parametrize("backend,case", BWD_COMBOS)
+def test_tape_replay_forward_widths_match(cuda, backend, case):
+    """K13c's width 4 (the row in 16-, 8- or 4-byte loads) equals its width
+    1 (the scalar row) bit for bit on every BWD_CASES row, float32, bf16
+    and int8 pools, with and without weights (the weights too), exact and
+    fast (thresholded, stop_thresh > 0: the stream prefetch's guard at the
+    break); the launch picks `replay_fwd_width`'s width, and width 4 on
+    any other row raises. Exact outputs also equal K2 bit for bit."""
+    spec, pool, tp, table, (o, d), opt, width = _bwd_case(cuda, backend, case, seed=68)
+    tree_opts = [opt]
+    if case != "indirect":  # indirect tapes are recorded in exact geometry
+        fast = dataclasses.replace(opt, sigma_thresh=0.01, stop_thresh=0.01)
+        tree_opts.append(fast)
+    for o_ in tree_opts:
+        tp_ = tp if o_ is opt else ttape.record_tape(spec, pool.shape[0], o, d, d, o_)
+        assert o_ is opt or o_.stop_thresh > 0
+        for kind, p in _fwd_pools(pool):
+            label = f"{case} {backend} {kind} stop {o_.stop_thresh}"
+            for weights in (False, True):
+                before = ttape.FWD_WIDTH_LAUNCHES[width]
+                out, w = ttape.replay_forward_cuda(tp_, p, o_, spec, weights, table)
+                torch.cuda.synchronize()
+                assert ttape.FWD_WIDTH_LAUNCHES[width] == before + 1, label
+                out1, w1 = ttape.replay_forward_cuda(tp_, p, o_, spec, weights, table, width=1)
+                assert torch.equal(out, out1), label
+                if weights:
+                    _assert_atomic_close(w, w1)
+                if width == 1:
+                    with pytest.raises(RuntimeError, match="CUDA error"):
+                        ttape.replay_forward_cuda(tp_, p, o_, spec, weights, table, width=4)
+                else:
+                    assert torch.equal(out, ttape.replay_forward_cuda(tp_, p, o_, spec, weights, table,
+                                                                      width=4)[0])
+            torch.testing.assert_close(out, ttape.replay_forward_plain(tp_, p, o_, spec, False, table)[0],
+                                       atol=ATOL, rtol=0)
+            if table is None and o_ is opt:
+                assert torch.equal(out, trender.volume_render_cuda(spec, p, o, d, d, o_)), label
+        if o_ is not opt:
+            assert bool((out[:, -1] >= 1.0 - o_.stop_thresh).any()), "no ray stopped"
+
+
+@pytest.mark.parametrize("case", ["sh9", "rgba", "sh4", "indirect"])
+def test_tape_replay_frames_forward_equals_single_launches(cuda, case):
+    """K13c's frame axis (3 frames; a direct tape on the bake, the indirect
+    one on the tree walk) equals 3 single K13c launches bit for bit, each
+    width the row allows, for float32, bf16 and int8 stacks; through
+    `replay_render_frames` it launches once; an empty stack launches
+    nothing."""
+    backend = "tree" if case == "indirect" else "baked"
+    spec, pool, tp, table, _, opt, width = _bwd_case(cuda, backend, case, seed=69)
+    scaled = [_fwd_pools(pool.float() * (1.0 + 0.1 * n)) for n in range(3)]
+    for i, kind in enumerate(("f32", "bf16", "i8")):
+        frames = [s[i][1] for s in scaled]
+        if kind == "i8":
+            stack = stt.QuantizedFeatures(*(torch.stack(x).contiguous() for x in zip(*frames)))
+        else:
+            stack = torch.stack(frames)
+        k = ttape._REPLAY_FWD_FRAMES[kind]
+        before, w_before = k.launches, ttape.FWD_WIDTH_LAUNCHES[width]
+        out = ttape.replay_render_frames(tp, stack, opt, spec, index_table=table)
+        torch.cuda.synchronize()
+        assert k.launches == before + 1 and ttape.FWD_WIDTH_LAUNCHES[width] == w_before + 1
+        assert out.shape == (3, tp.n_rays, 4)
+        for w in (1, 4):
+            if w <= width:
+                assert torch.equal(ttape.replay_forward_frames_cuda(tp, stack, opt, spec, table, width=w), out)
+        for n in range(3):
+            assert torch.equal(out[n], ttape.replay_forward_cuda(tp, frames[n], opt, spec, False, table)[0])
+        torch.testing.assert_close(out, ttape.replay_forward_frames_plain(tp, stack, opt, spec, table),
+                                   atol=ATOL, rtol=0)
+        assert not torch.equal(out[0], out[2])
+    before = ttape.TAPE_REPLAY_FWD_FRAMES.launches
+    assert ttape.replay_forward_frames_cuda(tp, pool.float()[None][:0], opt, spec, table).shape == (0, tp.n_rays, 4)
+    assert ttape.TAPE_REPLAY_FWD_FRAMES.launches == before
+
+
 def test_tape_indirect_replay_after_repoint(cuda):
     """An indirect tape replayed after construct_tree equals the forward
     march kernel on the re-pointed tree bit for bit (tree walk)."""

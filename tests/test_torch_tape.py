@@ -342,6 +342,28 @@ def test_replay_bwd_width(fmt, bd, D, pool_off, elem, grad_off, want):
     assert ttape.replay_bwd_width(code, bd, D, base + pool_off, elem, base + grad_off) == want
 
 
+@pytest.mark.parametrize("fmt,bd,D,pool_off,elem,scale_off,want", [
+    ("SH", 9, 28, 0, 4, None, 4), ("SH", 9, 28, 0, 2, None, 4), ("SH", 9, 28, 0, 1, 0, 4),
+    ("SH", 1, 4, 0, 4, None, 4), ("RGBA", 0, 4, 0, 4, None, 4), ("RGBA", 0, 4, 0, 1, 0, 4),
+    ("SH", 4, 13, 0, 4, None, 1), ("SH", 9, 32, 0, 4, None, 1), ("SH", 16, 49, 0, 4, None, 1),
+    ("SG", 9, 28, 0, 4, None, 1), ("SG", 7, 22, 0, 1, 0, 1), ("ASG", 9, 28, 0, 4, None, 1),
+    ("RGBA", 0, 8, 0, 4, None, 1), ("SH", 9, 28, 4, 4, None, 1), ("SH", 9, 28, 8, 4, None, 1),
+    ("SH", 9, 28, 16, 4, None, 4), ("SH", 9, 28, 4, 2, None, 1), ("SH", 9, 28, 8, 2, None, 4),
+    ("SH", 9, 28, 2, 1, 0, 1), ("SH", 9, 28, 4, 1, 0, 4), ("SH", 9, 28, 0, 1, 4, 1),
+    ("SH", 9, 28, 0, 1, 8, 1), ("SH", 9, 28, 0, 1, 32, 4)])
+def test_replay_fwd_width(fmt, bd, D, pool_off, elem, scale_off, want):
+    """K13c's vector width from the format, basis and row width and the
+    pool's alignment (fake pointers; an int8 pool, one byte a value, also
+    its scale and zero): 4 for the three-colour RGBA, SH1 and SH9 rows with
+    no spare column whose pool lies on a 4-value boundary (and an int8
+    pool's scale and zero on 16 bytes), else 1. Unlike the backward's, no
+    gradient pointer takes part."""
+    base = 1 << 20
+    code = {"RGBA": FORMAT_RGBA, "SH": FORMAT_SH, "SG": FORMAT_SG, "ASG": FORMAT_ASG}[fmt]
+    scales = () if scale_off is None else (base + scale_off, base + 4096 + scale_off)
+    assert ttape.replay_fwd_width(code, bd, D, base + pool_off, elem, scales) == want
+
+
 def test_replay_bf16_gradient_and_quantized():
     """A bf16 pool's gradient comes back bf16, its float32 sum within a bf16
     ulp of the float32 pool's; an int8 pool takes none."""

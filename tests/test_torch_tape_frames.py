@@ -288,6 +288,52 @@ def test_replay_frames_formats_match_jax(fmt):
     assert float(g.abs().max()) > 0
 
 
+@pytest.mark.parametrize("case", ["full", "compact", "indirect", "bf16", *(f"fmt-{f}" for f in FRAME_FORMATS)])
+def test_replay_forward_frames_plain_matches_jax(case):
+    """The frame axis's forward on the CPU, `replay_forward_frames_plain`,
+    against JAX's `replay_render_frames` forward on the cases above (the
+    scene's tapes uncompacted, compacted and data-indirect, a bf16 stack,
+    each format with rotations for SH9); `replay_render_frames` on the CPU
+    equals it bit for bit, and so does each frame's `replay_forward_plain`."""
+    index = (None, None)
+    if case.startswith("fmt-"):
+        fmt = case[4:]
+        jt, pt, feats, rays = _format_scene(fmt)
+        jspec, tspec = jt._baked_spec(), pt._baked_spec()
+        if fmt.endswith("-rot"):
+            tm = np.tile(np.eye(4, dtype=np.float32), (feats.shape[0], 1, 1))
+            ang = np.random.RandomState(13).rand(feats.shape[0]).astype(np.float32) * 0.5
+            tm[:, 0, 0], tm[:, 0, 1] = np.cos(ang), -np.sin(ang)
+            tm[:, 1, 0], tm[:, 1, 1] = np.sin(ang), np.cos(ang)
+            jspec, tspec = jt._baked_spec(transformation_matrices=tm), pt._baked_spec(
+                transformation_matrices=_t(tm))
+        opt = _opt(jt)
+        r = _trays(rays)
+        jtp = jtape.record_tape(jspec, feats.shape[0], rays.origins, rays.dirs, rays.viewdirs, opt)
+        ttp = ttape.record_tape(tspec, feats.shape[0], r.origins, r.dirs, r.viewdirs, opt)
+        stack = np.stack([feats * (1.0 + 0.03 * i) for i in range(N_FRAMES)])
+    else:
+        jt, pt, _, _, _, stack = _scene()
+        indirect = case == "indirect"
+        jtp, ttp, jspec, tspec, opt = _record(False, case != "full", indirect=indirect,
+                                              backend="tree" if indirect else "baked")
+        if indirect:
+            jspec, tspec = jt._spec(), pt._spec()
+            index = (jtape.pack_index_table(jspec.data_flat), ttape.pack_index_table(tspec.data_flat))
+    fs = _t(stack)
+    if case == "bf16":
+        fs = fs.to(torch.bfloat16)
+        stack = fs.float().numpy()
+    want = np.asarray(jtape.replay_render_frames(jtp, jnp.asarray(stack), opt, jspec, index_table=index[0]))
+    got = ttape.replay_forward_frames_plain(ttp, fs, opt, tspec, index[1])
+    assert got.shape == (N_FRAMES, N_RAYS, want.shape[-1]) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    assert torch.equal(ttape.replay_render_frames(ttp, fs, opt, tspec, index_table=index[1]), got)
+    for n in range(N_FRAMES):
+        assert torch.equal(got[n], ttape.replay_forward_plain(ttp, fs[n], opt, tspec, False, index[1])[0])
+    assert (got[..., -1] > 0).any()
+
+
 def test_replay_frames_are_independent():
     """A cotangent on frame 1 alone gives frame 1 a gradient and frames 0
     and 2 none."""

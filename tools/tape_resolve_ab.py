@@ -7,7 +7,8 @@ ray: each branch (index table or none) inlines its own sample loop, so a
 direct tape's samples pay no test. This script compiles the float32
 forward twice with nvcc into two small libraries: the header as it is
 (per ray), and a copy whose sample loop tests the table per sample
-(per sample, the one-loop alternative). It records the depth-9 SH9 shell's
+(per sample, the one-loop alternative), each launched at width 4 (the
+SH9 row in 16-byte loads). It records the depth-9 SH9 shell's
 compacted exact tape of the 800x800 orbit camera with the plain recorder
 (no library build needed), then times the two replays in ten alternating
 pairs (CUDA events over REPS launches each), on the direct tape and on a
@@ -41,9 +42,11 @@ from svox_t_tpu_torch.utils.scenes import build_shell_tree, orbit_camera  # noqa
 PAIRS = 10
 REPS = 20
 # The per-ray dispatch of the header and its per-sample replacement.
-PER_RAY = ("  if (p.table != nullptr) {\n    replay_fwd<FMT, BD, kRot, true>(p, i);\n  } else {\n"
-           "    replay_fwd<FMT, BD, kRot, false>(p, i);\n  }\n")
-PER_SAMPLE_CALL = "  replay_fwd<FMT, BD, kRot, false>(p, i);\n"
+PER_RAY = ("  if (p.table != nullptr) {\n    replay_fwd<FMT, BD, kRot, true, W>(p, i, blockIdx.y);\n"
+           "  } else {\n    replay_fwd<FMT, BD, kRot, false, W>(p, i, blockIdx.y);\n  }\n")
+PER_SAMPLE_CALL = "  replay_fwd<FMT, BD, kRot, false, W>(p, i, blockIdx.y);\n"
+# The SH9 row's vector width, as `replay_fwd_width` picks it for the pool.
+WIDTH = 4
 RESOLVE = "  if constexpr (kIndirect) {\n    return static_cast<uint32_t>(v)"
 RESOLVE_PER_SAMPLE = "  if (kIndirect || p.table != nullptr) {\n    return static_cast<uint32_t>(v)"
 
@@ -120,7 +123,7 @@ def main() -> None:
             err = fns[name](offsets.data_ptr(), idx.data_ptr(), dt.data_ptr(), None, dscale.data_ptr(),
                             d.data_ptr(), o.shape[0], *tab, *rad,
                             opt.background_brightness, opt.sigma_thresh, opt.stop_thresh, out.data_ptr(),
-                            None, dev.index, stream)
+                            None, WIDTH, dev.index, stream)
             if err:
                 raise RuntimeError(f"{name} {kind}: CUDA error {err}")
 
