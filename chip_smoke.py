@@ -172,12 +172,20 @@ dynamic paths, each on the default baked backend and on the tree walk
 The two backends' exact outputs are checked equal bit for bit on every
 serving path. Each path's launch counts are read from zero around it (and
 the SH9 tape paths' forward and backward launches are all the vector
-instance). The redesigned kernels (K13c and its frame axis, K13d, K13e)
-are timed beside their width-1 instance in turns (K13d's and K13e's the
-earlier design, K13c's the scalar row; `prev_ms` in the kernels line), the forward's frame axis also beside N
-single launches, and ptxas's registers and spills of the tape forward's
-and backward's instances are printed by width (the forward's must not
-spill). It
+instance, as are the SH9 serving paths' forward-march launches: phases 4,
+4e, 4k and the march keys of 4l). The forward march's widths 4 and 1 are
+held bit for bit in phases 3, 3d and 3f (both structures, float32, bf16
+and int8, exact and fast, with rotations and weights) at its callers' two
+shapes: the deep camera and bench.py's depth-7 headline shell at fx 880
+in pixel order. The redesigned kernels (K2, K13c and its frame axis, K13d,
+K13e) are timed beside their width-1 instance in turns (K2's, K13d's and
+K13e's the earlier design, K13c's the scalar row; `prev_ms` in the
+kernels line), K2 also at the headline shape and with rotations, the
+forward's frame axis also beside N single launches; ptxas's registers and
+spills of the tape forward's and backward's instances and of K2's are
+printed by width, K2's with their blocks an SM (no tape forward and no
+nearest K2 instance may spill), and the census's samples per hitting ray
+and 128-ray blocks are set against the resident blocks (`K2 waves`). It
 prints kernel and plain-version times and each kernel's bound with the
 card's name and power limit, the whole run's seconds, one JSON line
 describing the kernels, and as its last line {"ok": true, "device":
@@ -586,18 +594,21 @@ def check_bake_counts(counts: dict, backend: str, n: int) -> None:
 def reset_counts() -> None:
     for k in COUNTERS.values():
         k.launches = 0
-    for widths in (tape_ops.BWD_WIDTH_LAUNCHES, tape_ops.FWD_WIDTH_LAUNCHES):
+    for widths in (tape_ops.BWD_WIDTH_LAUNCHES, tape_ops.FWD_WIDTH_LAUNCHES, render_ops.FWD_WIDTH_LAUNCHES):
         for w in widths:
             widths[w] = 0
 
 
 def read_counts() -> dict:
-    """Each counter's launches, and the tape replay's launches by vector
-    width: K13d / K13e's (``bwd_width_<w>``) and K13c's and its frame
-    axis's (``fwd_width_<w>``), all entry points and pool types."""
+    """Each counter's launches, and the tape replay's and the forward
+    march's launches by vector width: K13d / K13e's (``bwd_width_<w>``),
+    K13c's and its frame axis's (``fwd_width_<w>``) and K2's
+    (``march_width_<w>``; its interp instances at width 1), all entry
+    points, structures and pool types."""
     counts = {name: k.launches for name, k in COUNTERS.items()}
     counts.update({f"bwd_width_{w}": n for w, n in tape_ops.BWD_WIDTH_LAUNCHES.items()})
     counts.update({f"fwd_width_{w}": n for w, n in tape_ops.FWD_WIDTH_LAUNCHES.items()})
+    counts.update({f"march_width_{w}": n for w, n in render_ops.FWD_WIDTH_LAUNCHES.items()})
     return counts
 
 
@@ -618,6 +629,15 @@ def check_fwd_widths(counts: dict, what: str) -> None:
           f"{what}: {n_fwd} tape forward launches, {counts['fwd_width_4']} of them the vector instance")
 
 
+def check_march_widths(counts: dict, what: str) -> None:
+    """On an SH9 path (D = 28, aligned pools and rotations) every nearest
+    K2 launch (either structure, every pool type) is the 16-byte vector
+    instance; only the interp instances launch width 1."""
+    n = sum(v for k, v in counts.items() if k.startswith("render_fwd") and "_interp" not in k)
+    check(n > 0 and counts["march_width_4"] == n,
+          f"{what}: {n} nearest forward-march launches, {counts['march_width_4']} of them the vector instance")
+
+
 # ptxas's lines in the build log: a kernel's entry and its registers and spills.
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 PTXAS_USED = re.compile(r"Used (\d+) registers")
@@ -625,13 +645,28 @@ PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 # The tape replay's kernel instances (K13c: fwd; K13d / K13e: bwd): format,
 # basis capacity, rotation, width.
 REPLAY_INSTANCE = re.compile(r"replay_(fwd|bwd)_kernel(?:_wide)?ILi(\d+)ELi(\d+)ELb([01])ELi(\d+)E")
+# K2's kernel instances: structure, format, basis capacity, rotation,
+# weights, width.
+MARCH_INSTANCE = re.compile(
+    r"render_fwd_kernel(?:_wide)?IN4svox\d+(TreeWalk|Baked)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELi(\d+)E")
+# An H100 SM: 65,536 registers (allocated per warp in units of 256, so a
+# thread's count rounds up to a multiple of 8) and 2,048 threads.
+SM_REGISTERS, SM_THREADS, N_SMS = 65536, 2048, 132
 
 
-def ptxas_summary(log: str) -> None:
+def blocks_per_sm(regs: int, threads: int = 128) -> int:
+    """Resident blocks of ``threads`` threads an SM holds at ``regs``
+    registers a thread (no shared memory)."""
+    return min(SM_THREADS // threads, SM_REGISTERS // (-(-regs // 8) * 8 * threads))
+
+
+def ptxas_summary(log: str) -> dict:
     """Print the registers and spills of the tape forward's and backward's
-    instances by vector width (each compile unit: the range over formats
-    and bases, and the SH9 instances) and of K14c's, from the build log.
-    Fails if a forward instance spills."""
+    instances and of K2's by vector width (each compile unit: the range over
+    formats and bases, and the SH9 instances with their blocks an SM) and of
+    K14c's, from the build log. Fails if a tape forward instance or a
+    nearest K2 instance spills. Returns {(K2 unit, width): registers of its
+    plain SH9 instance (no rotation, no weights)}."""
     unit, entry, spill = None, None, None
     rows = []
     for line in log.splitlines():
@@ -665,6 +700,56 @@ def ptxas_summary(log: str) -> None:
     for r in rows:
         if r[0] and "tape_subset" in r[0] and "sgd_f32_kernel" in r[1]:
             print(f"  ptxas {r[0]} {r[1]}: {r[2]} registers, {r[3]} bytes spilled")
+    march_spill = march_n = 0
+    sh9_regs = {}
+    for u in sorted({r[0] for r in rows if r[0] and r[0].startswith("render_fwd")}):
+        for w in (1, 4):
+            got = [(r[2], r[3], m) for r in rows if r[0] == u
+                   for m in [MARCH_INSTANCE.search(r[1])] if m and int(m.group(6)) == w]
+            if not got:
+                continue
+            sh9 = []
+            for r_, sp, m in got:
+                if m.group(2) == "1" and m.group(3) == "9":
+                    sh9.append(f"{'rot ' if m.group(4) == '1' else ''}{'weights ' if m.group(5) == '1' else ''}"
+                               f"{r_} regs ({blocks_per_sm(r_)} blocks/SM), {sp} B spilled")
+                    if m.group(4) == m.group(5) == "0":
+                        sh9_regs[u, w] = r_
+            if "_interp" not in u:
+                march_n += len(got)
+                march_spill += sum(g[1] for g in got)
+            where = "the row in registers, n_color 3" if w > 1 else "scalar"
+            print(f"  ptxas {u} width {w} ({where}): {len(got)} instances, {min(g[0] for g in got)}-"
+                  f"{max(g[0] for g in got)} registers, {sum(g[1] for g in got)} bytes spilled in all; SH9: "
+                  + "; ".join(sh9))
+    if log:
+        check(march_n > 0 and march_spill == 0,
+              f"ptxas: {march_n} nearest K2 instances, {march_spill} bytes spilled")
+    return sh9_regs
+
+
+def k2_width_check(cases, what: str) -> int:
+    """K2's width 4 (the row in vectors; on the bake with a float32 pool the
+    next lookup ahead) against its width 1 (the earlier loop) bit for bit:
+    each (label, spec, pool, renderer, origins, dirs) of ``cases``, exact
+    and fast, without and with weights (those at the atomic tolerance),
+    both widths launched by hand.
+    Returns the number of comparisons."""
+    n = 0
+    with torch.no_grad():
+        for label, spec, pool, rend, o, d in cases:
+            for fast in (False, True):
+                opt = rend._get_options(fast)
+                for weights in (False, True):
+                    got = [render_ops.volume_render_with_weight_accum_cuda(spec, pool, o, d, d, opt, width=w)
+                           if weights else (render_ops.volume_render_cuda(spec, pool, o, d, d, opt, width=w), None)
+                           for w in (4, 1)]
+                    mode = f"{what} {label} {'fast' if fast else 'exact'}{' weights' if weights else ''}"
+                    check(torch.equal(got[0][0], got[1][0]), f"render_fwd {mode}: widths 4 and 1 differ")
+                    if weights:
+                        atomic_err(got[0][1], got[1][1], f"render_fwd {mode}: width 4 weights vs width 1")
+                    n += 1
+    return n
 
 
 def skeleton(rng: np.random.RandomState, M: int, device):
@@ -723,7 +808,10 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
     reads, ``own_rows`` the own rows of contributing samples that have one
     (the LBS rows), and the first hit is the first contributing sample
     with an own row, ``rows_fh`` the corner rows read up to it. Only the
-    bounds read it."""
+    bounds read it. Per ray (K2's one-wave question): the samples of each
+    ray that marches (max, p99) and of each hitting ray, one with a
+    contributing sample (max, p99, median), and the 128-ray blocks (K2's)
+    that hold a marching or a hitting ray."""
     baked = isinstance(spec, bake_ops.BakedTree)
     o, d, invdir, _, tmin, tmax, hit = render_ops._ray_setup(spec, origins, dirs, opt)
     M = feats.shape[0]
@@ -735,9 +823,12 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
     n = {k: torch.zeros((), dtype=torch.float64, device=dev)
          for k in ("samples", "levels", "contrib", "fh_samples", "fh_levels")}
     t, active, searching = tmin, hit.clone(), hit.clone()
+    per_ray = torch.zeros(origins.shape[0], dtype=torch.int32, device=dev)
+    hits_ray = torch.zeros(origins.shape[0], dtype=torch.bool, device=dev)
     for _ in range(opt.max_steps):
         if not bool(active.any()):
             break
+        per_ray += active.int()
         fh = searching & active
         pos = render_ops.sample_position(o, t, d)
         leaf, levels = _lookup_loads(spec, pos, cells, cells_fh, active, fh)
@@ -769,6 +860,7 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
             rows[r[contrib]] = True
             rows_fh[r[fh_read]] = True
         own[own_row[contrib]] = True
+        hits_ray |= contrib
         n["samples"] += active.sum()
         n["levels"] += levels[active].sum()
         n["contrib"] += contrib.sum()
@@ -782,6 +874,23 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
                rows=int(rows[:M].sum()), cells_fh=int(cells_fh.sum()), rows_fh=int(rows_fh[:M].sum()),
                rows_sigma=int(rows_sigma[:M].sum()), own_rows=int(own[:M].sum()),
                lookups=(9 if opt.interp else 1) * out["samples"], baked=baked, interp=bool(opt.interp))
+    marching = per_ray > 0
+    n_blocks = -(-origins.shape[0] // 128)
+
+    def blocks(mask):
+        padded = torch.zeros(n_blocks * 128, dtype=torch.bool, device=dev)
+        padded[:mask.numel()] = mask
+        return int(padded.view(n_blocks, 128).any(1).sum())
+
+    def q(x, p_):
+        return int(torch.quantile(x.double(), p_)) if x.numel() else 0
+
+    s_m, s_h = per_ray[marching], per_ray[hits_ray]
+    out.update(marching=int(marching.sum()), hitting=int(hits_ray.sum()),
+               samples_max=int(s_m.max()) if s_m.numel() else 0, samples_p99=q(s_m, 0.99),
+               samples_hit_max=int(s_h.max()) if s_h.numel() else 0, samples_hit_p99=q(s_h, 0.99),
+               samples_hit_median=q(s_h, 0.5), blocks=n_blocks, blocks_marching=blocks(marching),
+               blocks_hit=blocks(hits_ray))
     return out
 
 
@@ -3181,7 +3290,7 @@ def main() -> None:
     for line in b.log.splitlines():
         if line.startswith("== ") or "Compiling entry" in line or "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
-    ptxas_summary(b.log)
+    march_regs = ptxas_summary(b.log)
 
     # Scenes (NumPy, seeded) and device tables
     t0 = time.perf_counter()
@@ -3373,6 +3482,38 @@ def main() -> None:
                 check(abs(total - alpha_sum) <= 1e-4 * abs(alpha_sum),
                       f"exact waccum sum {total} != alpha sum {alpha_sum}")
     kernels["render_fwd"]["max_abs_err"] = worst
+
+    # K2's widths 4 and 1 bit for bit at its callers' two shapes: (a) this
+    # scene's camera; (b) bench.py's depth-7 headline shell at 800x800, fx
+    # BENCH_FX, rays in pixel order (`fwd_march_noplan_ms`), with seeded
+    # rotations too. Phases 3d and 3f repeat it on the bake and the pools.
+    bench7 = build_shell_tree(depth=7, data_format="SH9", data_dim=28)[:2]
+    tree7 = stt.tree_from_numpy(bench7[0], device=dev)
+    feats7 = torch.from_numpy(bench7[1]).to(dev)
+    r7 = stt.VolumeRenderer(tree7, step_size=1e-3)
+    o7, d7 = render_ops.cam2world_rays(torch.as_tensor(orbit_camera(), device=dev), WIDTH, HEIGHT, BENCH_FX,
+                                       BENCH_FX)
+    o7, d7 = o7.contiguous(), d7.contiguous()
+    rot7 = random_rotations(feats7.shape[0], np.random.RandomState(15), dev)
+
+    def width_cases(structure: str, pools: dict) -> list:
+        """K2's SH9 cases on ``structure`` (``tree`` or ``baked``) at
+        shapes (a) and (b), with and without rotations, for each pool of
+        ``pools`` ({kind: (deep pool, headline pool)})."""
+        out = []
+        for kind, (p_a, p_b) in pools.items():
+            for label, t_, p_, rend, o_, d_, rm in (("a", tree, p_a, sh_renderer, origins, dirs, rot),
+                                                     ("b", tree7, p_b, r7, o7, d7, rot7)):
+                sp = t_._baked_spec if structure == "baked" else t_._spec
+                out += [(f"({label}) SH9 {kind}", sp(), p_, rend, o_, d_),
+                        (f"({label}) SH9+rot {kind}", sp(transformation_matrices=rm), p_, rend, o_, d_)]
+        return out
+
+    t_w = time.perf_counter()
+    n_w = k2_width_check(width_cases("tree", {"f32": (feats, feats7)})
+                         + [("(a) RGBA f32", cases[0][1], cases[0][2], cases[0][3], origins, dirs)], "tree walk")
+    print(f"render_fwd widths 4 and 1 equal bit for bit: {n_w} comparisons (shapes (a) and (b), SH9, SH9+rot and "
+          f"RGBA, exact and fast, with and without weights), {time.perf_counter() - t_w:.1f} s")
 
     # K3 against plain: one seeded grad_out per case.
     bwd_cases = [
@@ -3709,6 +3850,10 @@ def main() -> None:
                       f"baked exact waccum sum {total} != alpha sum {alpha_sum}")
             print(f"render_fwd_baked+waccum SH9 {'fast' if fast else 'exact'}: out max_abs_err "
                   f"{err:.3g}, waccum max_abs_err {w_err:.3g}, sum {total:.6g}")
+    t_w = time.perf_counter()
+    n_w = k2_width_check(width_cases("baked", {"f32": (feats, feats7)}), "bake")
+    print(f"render_fwd_baked widths 4 and 1 equal bit for bit: {n_w} comparisons (shapes (a) and (b), SH9 and "
+          f"SH9+rot, exact and fast, with and without weights), {time.perf_counter() - t_w:.1f} s")
     for fast in (False, True):
         opt = sh_renderer._get_options(fast)
         with torch.no_grad():
@@ -3876,6 +4021,13 @@ def main() -> None:
     # 3f. Feature pools (K5): every bf16 and int8 instance against the
     # float32 kernels and its plain version, both structures, both interp
     # modes; the bf16 point query.
+    t_w = time.perf_counter()
+    pools_w = {k_: (pool_of(k_, feats)[0], pool_of(k_, feats7)[0]) for k_ in POOL_KINDS}
+    n_w = sum(k2_width_check(width_cases(s_, pools_w), f"{s_} pools") for s_ in ("tree", "baked"))
+    print(f"render_fwd pool instances (bf16, int8) widths 4 and 1 equal bit for bit on both structures: {n_w} "
+          f"comparisons (shapes (a) and (b), SH9 and SH9+rot, exact and fast, with and without weights), "
+          f"{time.perf_counter() - t_w:.1f} s")
+    del pools_w
     pool_plain_ms = pool_kernel_phase({"": aux_spec, "_baked": aux_baked}, feats, jf_true, origins, dirs,
                                       {"": sh_renderer, "_interp": interp_r}, kernels, dev)
     query_bf16_check(spec, feats, q_points, kernels, dev)
@@ -3936,6 +4088,7 @@ def main() -> None:
         check(counts["construct_tree"] == N_FRAMES, "construct_tree kernel not launched per frame")
         check(counts["render_fwd" + sfx] == 2 * N_FRAMES, "render kernel not launched per render")
         check_bake_counts(counts, backend, N_FRAMES)
+        check_march_widths(counts, f"serving ({backend})")
         # Outputs are right: shape, finite, alpha in [0, 1], hits and misses,
         # and a strided pixel sample equal to the plain version on the same
         # frame state.
@@ -4122,6 +4275,7 @@ def main() -> None:
                       f"{N_FRAMES} frames, launches {nonzero(counts)}")
                 for k in ("warp_fwd", "construct_tree", "render_fwd" + sfx, "first_hit" + sfx):
                     check(counts[k] == N_FRAMES, f"dynamic serving: {k} launched {counts[k]} times")
+                check_march_widths(counts, f"dynamic serving ({backend})")
                 if backend == "baked":  # the exact call adopts its last table: one more refresh
                     check(counts["points_aabb"] == N_FRAMES
                           and counts["bake_refresh"] == N_FRAMES + (0 if fast else 1),
@@ -4440,6 +4594,7 @@ def main() -> None:
         want = [k for k in POOL_KERNELS if ("_baked" in k) == (backend == "baked")]
         missing = [k for k in want + ["query_fwd_bf16", "query_bwd_bf16"] if counts[k] == 0]
         check(not missing, f"pool path ({backend}): not launched: {missing}")
+        check_march_widths(counts, f"pool path ({backend})")
         if backend == "tree":
             check_bake_counts(counts, backend, 0)
         pool_ms[backend] = res["ms"]
@@ -4459,7 +4614,6 @@ def main() -> None:
     # steps through render_persp_tape + backward(), one inside
     # accumulate_weights(); then bench.py's tape keys beside the march.
     tape_counts, tape_ms = {}, {}
-    bench7 = build_shell_tree(depth=7, data_format="SH9", data_dim=28)[:2]
     for backend in BACKENDS:
         sfx = SUFFIX[backend]
         res = tape_path(backend, state, frame_feats, true_pool, pool0, c2w, dev)
@@ -4476,7 +4630,9 @@ def main() -> None:
         check_bwd_widths(counts, f"tape path ({backend})")
         check_fwd_widths(counts, f"tape path ({backend})")
         check_bake_counts(counts, backend, 0)
+        reset_counts()
         tape_ms[backend] = tape_times(backend, {7: bench7, DEPTH: (state, feats_np)}, dev, card)
+        check_march_widths(read_counts(), f"tape path's march keys ({backend})")
 
     # 4m. Main path, the temporal tape path (K13e, K13f) on both backends
     # (`dynamic_tape_path`): the deep dynamic scene's data-indirect tape,
@@ -4567,19 +4723,26 @@ def main() -> None:
         ct_plain_ms = time_ms(lambda: query_ops.construct_tree_plain(spec_t, pts), 3)
         kernels["construct_tree"].update(ms=ct_ms, plain_ms=ct_plain_ms)
         print(f"time construct_tree ({M} points): kernel {ct_ms:.4f} ms, plain {ct_plain_ms:.4f} ms [{card}]")
+        def k2_turns(spec_, pool_, o_, d_, opt_):
+            """(width 4 ms, width 1 ms) of K2 in turns (`in_turns`)."""
+            return in_turns(lambda: render_ops.volume_render_cuda(spec_, pool_, o_, d_, d_, opt_),
+                            lambda: render_ops.volume_render_cuda(spec_, pool_, o_, d_, d_, opt_, width=1),
+                            lambda fn: time_ms(fn, KERNEL_REPS))
+
         for fast in (False, True):
             opt = renderer._get_options(fast)
-            k_ms = time_ms(lambda: render_ops.volume_render_cuda(spec_t, f0, origins, dirs, dirs, opt), KERNEL_REPS)
+            k_ms, k1_ms = k2_turns(spec_t, f0, origins, dirs, opt)
             p_ms = time_ms(lambda: render_ops.volume_render_plain(spec_t, f0, origins, dirs, dirs, opt), 1)
             w_ms = time_ms(lambda: render_ops.volume_render_with_weight_accum_cuda(
                 spec_t, f0, origins, dirs, dirs, opt), KERNEL_REPS)
             mode = "fast" if fast else "exact"
             print(f"time render_fwd SH9 {mode} {WIDTH}x{HEIGHT}: kernel {k_ms:.4f} ms "
-                  f"({B / k_ms / 1e3:.2f} Mrays/s), plain {p_ms:.1f} ms "
+                  f"({B / k_ms / 1e3:.2f} Mrays/s), its width-1 instance (the earlier loop) {k1_ms:.4f} ms in "
+                  f"turns ({k1_ms / k_ms:.3f}x), plain {p_ms:.1f} ms "
                   f"({B / p_ms / 1e3:.4f} Mrays/s); with weight accumulation kernel {w_ms:.4f} ms, "
                   f"plain {fwd_plain_ms[('SH9+waccum', fast)]:.1f} ms (one call, phase 3) [{card}]")
             if not fast:
-                kernels["render_fwd"].update(ms=k_ms, plain_ms=p_ms)
+                kernels["render_fwd"].update(ms=k_ms, plain_ms=p_ms, prev_ms=k1_ms)
             out = render_ops.volume_render_cuda(spec_t, f0, origins, dirs, dirs, opt)
             g_out = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(dev)
             b_ms = time_ms(lambda: render_ops.volume_render_backward_cuda(
@@ -4595,8 +4758,7 @@ def main() -> None:
         for fast in (False, True):
             opt = sh_renderer._get_options(fast)
             mode = "fast" if fast else "exact"
-            kb_ms = time_ms(lambda: render_ops.volume_render_cuda(spec_bt, f0, origins, dirs, dirs, opt),
-                            KERNEL_REPS)
+            kb_ms, kb1_ms = k2_turns(spec_bt, f0, origins, dirs, opt)
             tree_fwd_ms[fast] = time_ms(lambda: render_ops.volume_render_cuda(
                 spec_t, f0, origins, dirs, dirs, opt), KERNEL_REPS)
             wb_ms = time_ms(lambda: render_ops.volume_render_with_weight_accum_cuda(
@@ -4606,14 +4768,29 @@ def main() -> None:
             bb_ms = time_ms(lambda: render_ops.volume_render_backward_cuda(
                 spec_bt, f0, origins, dirs, dirs, g_out, opt, out_res=out), KERNEL_REPS)
             print(f"time render_fwd_baked SH9 {mode} {WIDTH}x{HEIGHT}: kernel {kb_ms:.4f} ms "
-                  f"({B / kb_ms / 1e3:.2f} Mrays/s; the tree walk's kernel {tree_fwd_ms[fast]:.4f} ms "
+                  f"({B / kb_ms / 1e3:.2f} Mrays/s; its width-1 instance (the earlier loop) {kb1_ms:.4f} ms in "
+                  f"turns ({kb1_ms / kb_ms:.3f}x); the tree walk's kernel {tree_fwd_ms[fast]:.4f} ms "
                   f"in the same turn), with weight accumulation {wb_ms:.4f} ms, plain "
                   f"{baked_plain_ms[('SH9', fast)]:.1f} ms (one call, phase 3d); render_bwd_baked "
                   f"({'two passes' if fast else 'single pass'}) kernel {bb_ms:.4f} ms, plain "
                   f"{baked_plain_ms[('bwd', fast)]:.1f} ms (one call, phase 3d) [{card}]")
             if not fast:
-                kernels["render_fwd_baked"].update(ms=kb_ms, plain_ms=baked_plain_ms[("SH9", False)])
+                kernels["render_fwd_baked"].update(ms=kb_ms, plain_ms=baked_plain_ms[("SH9", False)],
+                                                   prev_ms=kb1_ms)
                 kernels["render_bwd_baked"].update(ms=bb_ms, plain_ms=baked_plain_ms[("bwd", False)])
+        # Shape (b), bench.py's headline shell in pixel order, and shape (a)
+        # with rotations (the dynamic frames'), exact, on both structures.
+        opt7 = r7._get_options(False)
+        for label, t_, p_, o_, d_, opt_, rm in (("(b) headline", tree7, feats7, o7, d7, opt7, None),
+                                                ("(a) SH9+rot", tree, feats, origins, dirs,
+                                                 sh_renderer._get_options(False), rot)):
+            line = []
+            for s_ in ("tree", "baked"):
+                sp = (t_._baked_spec if s_ == "baked" else t_._spec)(transformation_matrices=rm)
+                a_ms, a1_ms = k2_turns(sp, p_, o_, d_, opt_)
+                line.append(f"{s_} {a_ms:.4f} ms, width 1 {a1_ms:.4f} ({a1_ms / a_ms:.3f}x)")
+            print(f"time render_fwd {label} exact {WIDTH}x{HEIGHT}, width 4 against width 1 (the earlier loop) in "
+                  f"turns: " + "; ".join(line) + f" [{card}]")
         for name, cspec, cfeats, rend in cases[3:]:
             opt = rend._get_options(False)
             l_ms = time_ms(lambda: render_ops.volume_render_cuda(cspec, cfeats, origins, dirs, dirs, opt),
@@ -4766,11 +4943,17 @@ def main() -> None:
                         key = f"{name}{sfx}_{pk}"
                         if key not in kernels:
                             continue
-                        k_ms = time_ms(lambda: run_k(pool), KERNEL_REPS)
+                        width_1 = ""
+                        if name == "render_fwd" and not isfx:
+                            k_ms, k1_ms = k2_turns(pspec, pool, origins, dirs, opt)
+                            kernels[key]["prev_ms"] = k1_ms
+                            width_1 = f", its width-1 instance {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
+                        else:
+                            k_ms = time_ms(lambda: run_k(pool), KERNEL_REPS)
                         f_ms = time_ms(lambda: run_k(feats), KERNEL_REPS)
                         kernels[key].update(ms=k_ms, plain_ms=pool_plain_ms[key])
-                        print(f"time {key} SH9 exact {WIDTH}x{HEIGHT}: kernel {k_ms:.4f} ms (float32 pool "
-                              f"{f_ms:.4f} ms in the same turn), plain {pool_plain_ms[key]:.1f} ms (one call, "
+                        print(f"time {key} SH9 exact {WIDTH}x{HEIGHT}: kernel {k_ms:.4f} ms{width_1} (float32 "
+                              f"pool {f_ms:.4f} ms in the same turn), plain {pool_plain_ms[key]:.1f} ms (one call, "
                               f"phase 3f) [{card}]")
 
         # The bake's kernels at the main path's shapes; plain: one call,
@@ -4900,6 +5083,21 @@ def main() -> None:
                               baked.top.numel() + baked.n_mid, gb.R))
     print(f"census (SH9 exact, {WIDTH}x{HEIGHT}, tree walk): {census}")
     print(f"census (SH9 exact, {WIDTH}x{HEIGHT}, bake): {census_b}")
+    # K2's one-wave question: the 128-ray blocks that march or hold a hit
+    # against the blocks the card holds at once at each width's registers.
+    for label, c_, unit in (("tree walk", census, "render_fwd.cu"), ("bake", census_b, "render_fwd_baked.cu")):
+        waves = []
+        for w in (4, 1):
+            if (unit, w) in march_regs:
+                resident = N_SMS * blocks_per_sm(march_regs[unit, w])
+                waves.append(f"width {w}: {march_regs[unit, w]} registers, {resident} resident blocks, "
+                             f"{c_['blocks_marching'] / resident:.2f} waves of marching blocks, "
+                             f"{c_['blocks_hit'] / resident:.2f} of hit blocks")
+        print(f"K2 waves ({label}, SH9 exact): {c_['hitting']} hitting rays of {c_['rays']} ({c_['marching']} "
+              f"march), samples per hitting ray max {c_['samples_hit_max']}, p99 {c_['samples_hit_p99']}, median "
+              f"{c_['samples_hit_median']} (per marching ray max {c_['samples_max']}, p99 {c_['samples_p99']}); "
+              f"128-ray blocks: {c_['blocks']}, {c_['blocks_marching']} marching, {c_['blocks_hit']} with a hit; "
+              + "; ".join(waves))
     # The pool instances (K5) take the same samples as the float32 ones
     # (their forwards are equal bit for bit, and no sigma changed sign;
     # phase 3f), so the same census with the pool's bytes.
@@ -4937,8 +5135,8 @@ def main() -> None:
 
     # 7. Result lines
     # prev_ms: the width-1 instance's time in this run, in turns (K13c and
-    # its frame axis: the scalar row; K13d and K13e: the earlier design),
-    # else null.
+    # its frame axis: the scalar row; K13d and K13e, and K2 and its nearest
+    # pool instances: the earlier design), else null.
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "prev_ms")
     for v in kernels.values():

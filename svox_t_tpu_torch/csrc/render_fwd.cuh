@@ -35,15 +35,39 @@
 // Bound on an H100: latency. A sample is a dependent chain of depth
 // child-table loads (on the bake: two or three table loads), one
 // data-table load and one feature-row load, then a few dozen flops; the
-// tables of the depth-9 scene (9.5 MB child, 9.5 MB data, 157 MB pool) are mostly L2 and HBM reads with no reuse inside a
-// thread. The design answer is occupancy: a ray per thread, the basis and
-// the color sums held in registers (format, rotation and the basis
-// capacity are template parameters, so every basis index is a
-// compile-time constant; SG/ASG sizes between capacities run behind a
-// run-time bound), and small blocks, so enough warps are resident to
-// hide the chains. Rays in a warp are neighbouring pixels, so their
-// descents touch the same nodes. The weight atomics are one per
-// compositing sample into a 9.5 MB buffer that stays in L2.
+// tables of the depth-9 scene (9.5 MB child, 9.5 MB data, 157 MB pool) are
+// mostly L2 and HBM reads with no reuse inside a thread. The design answer
+// is occupancy: a ray per thread, the basis and the color sums held in
+// registers (format, rotation and the basis capacity are template
+// parameters, so every basis index is a compile-time constant; SG/ASG
+// sizes between capacities run behind a run-time bound), and small
+// blocks, so enough warps are resident to hide the chains. Rays in a warp
+// are neighbouring pixels, so their descents touch the same nodes. The
+// weight atomics are one per compositing sample into a 9.5 MB buffer that
+// stays in L2.
+//
+// The earlier loop ran each sample as one serial chain: the lookup, then
+// the row's sigma (one scalar load, and the branch on it), then its
+// colour coefficients (27 scalar loads at SH9), then the compositing, and
+// only then the next sample's lookup. The deep camera's marching rays fill
+// 2-4 waves of blocks (chip_smoke.py's `K2 waves`), so resident warps hide
+// the chains, and registers, which bound them, are the price of any
+// overlap inside a thread. The width-4 instance (the three-colour RGBA, SH1
+// and SH9 rows with no spare column, as K13c's; n_color and D template
+// constants) changes loads and their order, never the arithmetic or its
+// order: a row moves, sigma included, in one round trip of 16-byte loads
+// (8 of a bf16 row, 4 of an int8 one with its columns' scale and zero) into
+// registers. On the bake with a float32 pool it also starts the loads of a
+// sample's row, the 3x3 block of its rotation (three 16-byte loads) and its
+// weight cell (src_map), then the next sample's lookup, under the
+// conditions on which the loop would reach it, and only then composites:
+// the next position depends only on this sample's lookup, so the row's
+// round trip overlaps the next lookup (kLookAhead). Loading the next
+// sample's row into a second register row lost (more registers, fewer
+// resident warps). Width 1 (every other row: SH4, SH16, SG, ASG, spare
+// columns; and every interp instance) is the earlier loop's text, so it
+// compiles as before but for the few instances that spilled (kWide).
+// tools/render_fwd_ab.py times the designs, beside an earlier checkout's.
 //
 // Arithmetic follows the plain PyTorch version (ops/render.py) operation
 // for operation, and the library is built with -fmad=false, so the sample
@@ -101,19 +125,57 @@ struct Params {
   int max_steps;
   float* out;
   float* waccum;
+  int width;  // the vector width (1 or 4)
 };
+
+// Whether a width-4 instance on structure S starts sample k's loads (its
+// row, rotation and weight cell), then sample k + 1's lookup, before
+// sample k composites, so that the loads are in flight during the lookup's
+// chain. It pays on the bake with a float32 pool, whose lookup is short
+// (two or three table loads) and whose row is the largest, so that the
+// row's round trip is a large part of a sample's chain. On the tree walk,
+// and on the bake with a bf16 or int8 pool, the row held in registers
+// across the lookup costs more resident warps than the overlap saves.
+// tools/render_fwd_ab.py times every choice (its `ahead_only` design, the
+// lookup ahead at width 1, patches the width-4 loop to take width 1).
+template <class S>
+constexpr bool kLookAhead = S::kBaked && svox::kFloatPool;
+
+// The 3x3 block of row r's rotation, tmats[r][:3, :3], into m (row major):
+// three 16-byte loads (kVec, tmats aligned to 16 bytes), or nine scalars.
+template <bool kVec>
+__device__ __forceinline__ void load_rot(const float* tmats, int32_t r, float* m) {
+  const float* t = tmats + static_cast<size_t>(r) * 16;
+  if constexpr (kVec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(t));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(t + 4));
+    const float4 c = __ldg(reinterpret_cast<const float4*>(t + 8));
+    m[0] = a.x, m[1] = a.y, m[2] = a.z;
+    m[3] = b.x, m[4] = b.y, m[5] = b.z;
+    m[6] = c.x, m[7] = c.y, m[8] = c.z;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) m[k] = __ldg(t + (k / 3) * 4 + k % 3);
+  }
+}
 
 // FMT: svox::kRGBA / kSH / kSG / kASG. BD: basis capacity (0 for RGBA;
 // svox::basis_capacity). kRot: per-voxel rotation of the view direction by
 // tmats[row][:3, :3]. kWeights: accumulate weights into p.waccum (a
 // template parameter, so that the plain render keeps the leaf id out of
-// its live registers).
-template <class S, int FMT, int BD, bool kRot, bool kWeights>
-__global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params<S> p) {
+// its live registers). W: the vector width of a nearest sample's row: 1
+// runs the earlier loop, which reads the row a column at a time, sigma
+// first (so do the interp instances); 4 (three colours, D = 3 * BD + 1, or
+// 4 for RGBA: n_color and D are constants) loads the whole row into
+// registers, 4 columns a load.
+template <class S, int FMT, int BD, bool kRot, bool kWeights, int W>
+__device__ __forceinline__ void render_fwd_ray(const Params<S>& p) {
+  static_assert(W == 1 || (W == 4 && !svox::kInterp), "width 4 has nearest instances only");
   constexpr int kB = FMT == svox::kRGBA ? 1 : BD;
+  constexpr int kD = (FMT == svox::kRGBA ? 3 : 3 * BD) + 1;  // width 4's row
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
-  const int nc = p.n_color;
+  const int nc = W == 4 ? 3 : p.n_color;
   const int nb = FMT == svox::kSH ? BD : p.basis_dim;
   float* out = p.out + static_cast<size_t>(i) * (nc + 1);
 
@@ -140,86 +202,171 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params<S> p)
   float t = r.tmin;
   float L = 1.f;
   bool stopped = false;
-  for (int step = 0; step < p.max_steps; ++step) {
-    float dt;
-    const svox::Leaf leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
-    const int32_t idx = leaf.row;
-    if constexpr (svox::kInterp) {
-      // K4: sigma and colors from the 8 corners, in every leaf; the own row
-      // (row 0 where it is empty, as in the JAX package) only rotates.
-      const svox::Corners cn = svox::sample_corners(p.st, r, t, leaf.cube_sz, p.M);
-      const float sigma = svox::interp_sum(cn, [&](int32_t row) {
-        return svox::ld(p.features + static_cast<size_t>(row) * p.D + p.D - 1);
-      });
-      if (sigma > p.sigma_thresh) {
-        const float att = expf((-dt * r.ds) * sigma);
-        const float weight = L * (1.f - att);
-        if constexpr (FMT != svox::kRGBA && kRot) {
-          const int32_t gi = static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M) ? idx : 0;
-          const float* m = p.tmats + static_cast<size_t>(gi) * 16;
-          const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
-          const float ry = (m[4] * vx + m[5] * vy) + m[6] * vz;
-          const float rz = (m[8] * vx + m[9] * vy) + m[10] * vz;
-          svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb,
-                                    p.min_comp, p.max_comp, basis);
-        }
-        float z[kMaxColor];
-        svox::interp_logits<FMT, kB, kMaxColor>(cn, p.features, p.D, nc, nb, basis, z);
+  if constexpr (W == 1) {
+    // The earlier loop, kept as it was so that it compiles as it did: the
+    // reference width 4 is timed and held against.
+    for (int step = 0; step < p.max_steps; ++step) {
+      float dt;
+      const svox::Leaf leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
+      const int32_t idx = leaf.row;
+      if constexpr (svox::kInterp) {
+        // K4: sigma and colors from the 8 corners, in every leaf; the own row
+        // (row 0 where it is empty, as in the JAX package) only rotates.
+        const svox::Corners cn = svox::sample_corners(p.st, r, t, leaf.cube_sz, p.M);
+        const float sigma = svox::interp_sum(cn, [&](int32_t row) {
+          return svox::ld(p.features + static_cast<size_t>(row) * p.D + p.D - 1);
+        });
+        if (sigma > p.sigma_thresh) {
+          const float att = expf((-dt * r.ds) * sigma);
+          const float weight = L * (1.f - att);
+          if constexpr (FMT != svox::kRGBA && kRot) {
+            const int32_t gi = static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M) ? idx : 0;
+            const float* m = p.tmats + static_cast<size_t>(gi) * 16;
+            const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
+            const float ry = (m[4] * vx + m[5] * vy) + m[6] * vz;
+            const float rz = (m[8] * vx + m[9] * vy) + m[10] * vz;
+            svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb,
+                                      p.min_comp, p.max_comp, basis);
+          }
+          float z[kMaxColor];
+          svox::interp_logits<FMT, kB, kMaxColor>(cn, p.features, p.D, nc, nb, basis, z);
 #pragma unroll
-        for (int c = 0; c < kMaxColor; ++c) {
-          if (c < nc) acc[c] = acc[c] + weight * svox::sigmoid(z[c]);
-        }
-        if constexpr (kWeights) atomicAdd(p.waccum + p.st.tree_cell(leaf.flat), weight);
-        L = L * att;
-        if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
-          stopped = true;
-          break;
-        }
-      }
-    } else if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
-      // Rows >= M (and negative rows) are empty space. Their sigma is 0 and
-      // a sample with sigma 0 adds weight 0 and leaves L unchanged, so it is
-      // skipped.
-      const auto row = p.features + static_cast<size_t>(idx) * p.D;
-      const float sigma = svox::ld(row + p.D - 1);
-      if (sigma > p.sigma_thresh) {
-        const float att = expf((-dt * r.ds) * sigma);
-        const float weight = L * (1.f - att);
-        if constexpr (FMT != svox::kRGBA && kRot) {
-          const float* m = p.tmats + static_cast<size_t>(idx) * 16;
-          const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
-          const float ry = (m[4] * vx + m[5] * vy) + m[6] * vz;
-          const float rz = (m[8] * vx + m[9] * vy) + m[10] * vz;
-          svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb,
-                                    p.min_comp, p.max_comp, basis);
-        }
-#pragma unroll
-        for (int c = 0; c < kMaxColor; ++c) {
-          if (c < nc) {
-            float s;
-            if constexpr (FMT == svox::kRGBA) {
-              s = svox::ld(row + c);
-            } else {
-              const auto coef = row + c * nb;
-              s = basis[0] * svox::ld(coef);
-#pragma unroll
-              for (int k = 1; k < kB; ++k) {
-                if (k < nb) s = s + basis[k] * svox::ld(coef + k);
-              }
-            }
-            acc[c] = acc[c] + weight * svox::sigmoid(s);
+          for (int c = 0; c < kMaxColor; ++c) {
+            if (c < nc) acc[c] = acc[c] + weight * svox::sigmoid(z[c]);
+          }
+          if constexpr (kWeights) atomicAdd(p.waccum + p.st.tree_cell(leaf.flat), weight);
+          L = L * att;
+          if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
+            stopped = true;
+            break;
           }
         }
-        if constexpr (kWeights) atomicAdd(p.waccum + p.st.tree_cell(leaf.flat), weight);
-        L = L * att;
-        if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
-          stopped = true;
-          break;
+      } else if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
+        // Rows >= M (and negative rows) are empty space. Their sigma is 0 and
+        // a sample with sigma 0 adds weight 0 and leaves L unchanged, so it is
+        // skipped.
+        const auto row = p.features + static_cast<size_t>(idx) * p.D;
+        const float sigma = svox::ld(row + p.D - 1);
+        if (sigma > p.sigma_thresh) {
+          const float att = expf((-dt * r.ds) * sigma);
+          const float weight = L * (1.f - att);
+          if constexpr (FMT != svox::kRGBA && kRot) {
+            const float* m = p.tmats + static_cast<size_t>(idx) * 16;
+            const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
+            const float ry = (m[4] * vx + m[5] * vy) + m[6] * vz;
+            const float rz = (m[8] * vx + m[9] * vy) + m[10] * vz;
+            svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb,
+                                      p.min_comp, p.max_comp, basis);
+          }
+#pragma unroll
+          for (int c = 0; c < kMaxColor; ++c) {
+            if (c < nc) {
+              float s;
+              if constexpr (FMT == svox::kRGBA) {
+                s = svox::ld(row + c);
+              } else {
+                const auto coef = row + c * nb;
+                s = basis[0] * svox::ld(coef);
+#pragma unroll
+                for (int k = 1; k < kB; ++k) {
+                  if (k < nb) s = s + basis[k] * svox::ld(coef + k);
+                }
+              }
+              acc[c] = acc[c] + weight * svox::sigmoid(s);
+            }
+          }
+          if constexpr (kWeights) atomicAdd(p.waccum + p.st.tree_cell(leaf.flat), weight);
+          L = L * att;
+          if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
+            stopped = true;
+            break;
+          }
         }
       }
+      t = t + dt;
+      if (!(t < r.tmax)) break;
     }
-    t = t + dt;
-    if (!(t < r.tmax)) break;
+
+  } else {
+    // Width 4. With the lookup ahead (kLookAhead: the bake), sample k's
+    // loads (its whole row, the 3x3 block of its rotation and, with
+    // weights, its tree cell) start, then sample k + 1's lookup, where the
+    // earlier loop would make it (step + 1 < max_steps and t + dt < tmax),
+    // then sample k composites: the next position and step depend only on
+    // this sample's lookup, never on the compositing, so this sample's
+    // loads are in flight during the next lookup's chain. After the
+    // stop_thresh break the lookup made ahead goes unused. Without it (the
+    // tree walk) a sample's row is loaded after its own lookup.
+    constexpr bool kAhead = kLookAhead<S>;
+    constexpr int kRotN = FMT != svox::kRGBA && kRot ? 9 : 1;
+    float dt = 0.f;
+    svox::Leaf leaf{};
+    if constexpr (kAhead) leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
+    for (int step = 0; step < p.max_steps; ++step) {
+      if constexpr (!kAhead) leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
+      const int32_t idx = leaf.row;
+      const int32_t flat = leaf.flat;
+      const float dt_k = dt;
+      // Rows >= M (and negative rows) are empty space, skipped as in the
+      // earlier loop.
+      const bool resident = static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M);
+      const auto row = p.features + static_cast<size_t>(idx) * kD;
+      float buf[kD];
+      float m[kRotN];
+      int32_t cell = 0;
+      float sigma = 0.f;
+      if (resident) {
+        svox::load_row<kD>(p.features, idx, p.M, buf);
+        if constexpr (kAhead) {
+          if constexpr (kRotN == 9) load_rot<true>(p.tmats, idx, m);
+          if constexpr (kWeights) cell = p.st.tree_cell(flat);
+        }
+      }
+      bool more = false;
+      float t_next = 0.f;
+      if constexpr (kAhead) {
+        t_next = t + dt_k;
+        more = step + 1 < p.max_steps && t_next < r.tmax;
+        if (more) leaf = svox::sample_leaf(p.st, r, t_next, p.step_size, dt);
+      }
+      if (resident) {
+        sigma = svox::row_col<W>(row, buf, kD - 1);
+        if (sigma > p.sigma_thresh) {
+          const float att = expf((-dt_k * r.ds) * sigma);
+          const float weight = L * (1.f - att);
+          if constexpr (FMT != svox::kRGBA && kRot) {
+            if constexpr (!kAhead) load_rot<false>(p.tmats, idx, m);
+            const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
+            const float ry = (m[3] * vx + m[4] * vy) + m[5] * vz;
+            const float rz = (m[6] * vx + m[7] * vy) + m[8] * vz;
+            svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb,
+                                      p.min_comp, p.max_comp, basis);
+          }
+#pragma unroll
+          for (int c = 0; c < kMaxColor; ++c) {
+            if (c < nc) {
+              acc[c] = acc[c] + weight * svox::sigmoid(
+                  svox::color_logit<FMT, kB, W>(row, buf, c, nb, basis));
+            }
+          }
+          if constexpr (kWeights) {
+            atomicAdd(p.waccum + (kAhead ? cell : p.st.tree_cell(flat)), weight);
+          }
+          L = L * att;
+          if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
+            stopped = true;
+            break;
+          }
+        }
+      }
+      if constexpr (kAhead) {
+        if (!more) break;
+        t = t_next;
+      } else {
+        t = t + dt_k;
+        if (!(t < r.tmax)) break;
+      }
+    }
   }
 
 #pragma unroll
@@ -235,23 +382,79 @@ __global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params<S> p)
   out[nc] = 1.f - L;
 }
 
-template <class S, int FMT, int BD, bool kRot>
-cudaError_t launch_weights(const Params<S>& p, cudaStream_t stream) {
+template <class S, int FMT, int BD, bool kRot, bool kWeights, int W>
+__global__ void __launch_bounds__(kThreads) render_fwd_kernel(const Params<S> p) {
+  render_fwd_ray<S, FMT, BD, kRot, kWeights, W>(p);
+}
+
+// The nearest width-1 instances that spill under ptxas's own register
+// limit (8-480 bytes each, CUDA 12.8 for sm_90a; tools/render_fwd_ab.py's
+// `own_limit` design lists them): on the bake, float32 SG1 with rotations
+// and ASG1 with rotations and no weights, and bf16 SH9 with weights and no
+// rotations; on the tree walk, int8 SH4 and int8 SH16 with weights, both
+// without rotations. They launch with kWideBlocks blocks of 128 an SM, a
+// limit of 80 registers, and none spills. They run within 1.5% of the
+// earlier spilling kernels, but bf16 SH9 with weights on the bake (a pool
+// off its 8-byte alignment: an aligned one takes width 4), 20% slower at
+// 77 registers against 72. One block an SM (`wide_1`) cost the bake's SG1
+// and ASG1 with rotations 29%. Every other instance keeps ptxas's own
+// limit: given one block an SM, the bake's SH9 and SG9 width-1 instances
+// ran 5-23% slower (`all_wide`).
+constexpr int kWideBlocks = 6;
+template <class S, int FMT, int BD, bool kRot, bool kWeights>
+constexpr bool kWide =
+    S::kBaked ? (svox::kFloatPool && BD == 1 && kRot &&
+                 (FMT == svox::kSG || (FMT == svox::kASG && !kWeights))) ||
+                    (std::is_same<svox::Pool, svox::PoolBF16>::value && FMT == svox::kSH &&
+                     BD == 9 && kWeights && !kRot)
+              : std::is_same<svox::Pool, svox::PoolI8>::value && FMT == svox::kSH && !kRot &&
+                    (BD == 4 || (BD == 16 && kWeights));
+
+template <class S, int FMT, int BD, bool kRot, bool kWeights, int W>
+__global__ void __launch_bounds__(kThreads, kWideBlocks) render_fwd_kernel_wide(const Params<S> p) {
+  render_fwd_ray<S, FMT, BD, kRot, kWeights, W>(p);
+}
+
+template <class S, int FMT, int BD, bool kRot, bool kWeights, int W>
+void launch_kernel(const Params<S>& p, cudaStream_t stream) {
   const dim3 grid((p.B + kThreads - 1) / kThreads);
-  if (p.waccum != nullptr) {
-    render_fwd_kernel<S, FMT, BD, kRot, true><<<grid, kThreads, 0, stream>>>(p);
+  if constexpr (W == 1 && !svox::kInterp && kWide<S, FMT, BD, kRot, kWeights>) {
+    render_fwd_kernel_wide<S, FMT, BD, kRot, kWeights, W><<<grid, kThreads, 0, stream>>>(p);
   } else {
-    render_fwd_kernel<S, FMT, BD, kRot, false><<<grid, kThreads, 0, stream>>>(p);
+    render_fwd_kernel<S, FMT, BD, kRot, kWeights, W><<<grid, kThreads, 0, stream>>>(p);
+  }
+}
+
+template <class S, int FMT, int BD, bool kRot, int W>
+cudaError_t launch_weights(const Params<S>& p, cudaStream_t stream) {
+  if (p.waccum != nullptr) {
+    launch_kernel<S, FMT, BD, kRot, true, W>(p, stream);
+  } else {
+    launch_kernel<S, FMT, BD, kRot, false, W>(p, stream);
   }
   return cudaGetLastError();
 }
 
+template <class S, int FMT, int BD, int W>
+cudaError_t launch_rot(const Params<S>& p, cudaStream_t stream) {
+  if constexpr (FMT != svox::kRGBA) {
+    if (p.tmats != nullptr) return launch_weights<S, FMT, BD, true, W>(p, stream);
+  }
+  return launch_weights<S, FMT, BD, false, W>(p, stream);
+}
+
+// The launch's vector width (p.width, 1 or 4, alignment checked by the
+// entry point). Width 4 exists in nearest mode for the three-colour RGBA,
+// SH1 and SH9 rows with no spare column (D = 4, 4, 28), as K13c's, and
+// refuses any other row.
 template <class S, int FMT, int BD>
 cudaError_t launch(const Params<S>& p, cudaStream_t stream) {
-  if constexpr (FMT != svox::kRGBA) {
-    if (p.tmats != nullptr) return launch_weights<S, FMT, BD, true>(p, stream);
+  if (p.width == 1) return launch_rot<S, FMT, BD, 1>(p, stream);
+  if constexpr (!svox::kInterp && (FMT == svox::kRGBA || (FMT == svox::kSH && (BD == 1 || BD == 9)))) {
+    constexpr int kD3 = (FMT == svox::kRGBA ? 3 : 3 * BD) + 1;
+    if (p.n_color == 3 && p.D == kD3) return launch_rot<S, FMT, BD, 4>(p, stream);
   }
-  return launch_weights<S, FMT, BD, false>(p, stream);
+  return cudaErrorInvalidValue;
 }
 
 // Basis instances hold 1, 4, 9, 16 or 25 terms (svox::basis_capacity).
@@ -282,7 +485,10 @@ cudaError_t launch_basis(const Params<S>& p, cudaStream_t stream) {
 // (M, D) of the source's pool type (svox::Pool: f32, bf16 or int8), with
 // scale and zero (D,) f32 for an int8 pool, else null; tmats (M, 4, 4) f32 or null; extra (basis_dim, ld_extra) f32
 // for SG/ASG (else null); out (B, n_color + 1) f32; waccum (n_tree_cells,)
-// f32 or null. format: 0 RGBA, 1 SH, 2 SG, 3 ASG. All pointers but s are
+// f32 or null. format: 0 RGBA, 1 SH, 2 SG, 3 ASG. width: the vector width,
+// 1 or 4; 4 takes only the nearest instances' three-colour RGBA, SH1 and
+// SH9 rows (D = 4, 4, 28), with the pool aligned to 4 values (an int8
+// pool's scale and zero, and tmats, to 16 bytes). All pointers but s are
 // device pointers. Returns a cudaError_t.
 extern "C" int SVOX_NAME(svox_render_fwd)(
     const svox::StructDesc* s, const float* origins, const float* dirs,
@@ -291,16 +497,21 @@ extern "C" int SVOX_NAME(svox_render_fwd)(
     const float* zero, int M, int D, const float* tmats, int format, const float* extra,
     int ld_extra, int basis_dim, int min_comp, int max_comp, int n_color, float step_size,
     float bg, float sigma_thresh, float stop_thresh, int max_steps,
-    float* out, float* waccum, int device, cudaStream_t stream) {
+    float* out, float* waccum, int width, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (width != 1 && width != 4) return cudaErrorInvalidValue;
+  if (width == 4 && (!svox::vector_aligned(features, scale, zero) ||
+                     reinterpret_cast<uintptr_t>(tmats) % 16 != 0)) {
+    return cudaErrorInvalidValue;
+  }
   if (B <= 0) return cudaSuccess;
   if (n_color < 0 || n_color > kMaxColor) return cudaErrorInvalidValue;
   using S = SVOX_STRUCTURE;
   const Params<S> p{S::from(*s), origins, dirs, vdirs, B,
                     offset, scaling, svox::make_pool<svox::Pool>(features, scale, zero), M, D,
                     tmats, extra, ld_extra, basis_dim, min_comp, max_comp, n_color, step_size,
-                    bg, sigma_thresh, stop_thresh, max_steps, out, waccum};
+                    bg, sigma_thresh, stop_thresh, max_steps, out, waccum, width};
   switch (format) {
     case svox::kRGBA: return launch<S, svox::kRGBA, 0>(p, stream);
     case svox::kSH: return launch_basis<S, svox::kSH>(p, stream);

@@ -156,97 +156,12 @@ __device__ __forceinline__ int32_t sample_row(const Params& p, int32_t k) {
   return resolve_row<kIndirect>(p, __ldg(p.idx + k));
 }
 
-// Bytes of a pool value.
-template <class P>
-struct PoolElem {
-  static constexpr size_t value = sizeof(std::remove_pointer_t<P>);
-};
-template <>
-struct PoolElem<svox::PoolI8> {
-  static constexpr size_t value = sizeof(int8_t);
-};
-
-// Whether a width-4 launch may load the pool's rows 4 values at a time:
-// the pool aligned to 4 values, an int8 pool's scale and zero to 16 bytes
-// (the rows of D = 4 or 28 values then keep the alignment; so do the frames
-// of a stack).
-bool vector_aligned(const void* features, const float* scale, const float* zero) {
-  constexpr size_t elem = PoolElem<svox::Pool>::value;
-  return reinterpret_cast<uintptr_t>(features) % (elem * 4) == 0 &&
-         reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(zero) % 16 == 0;
-}
-
-// Four consecutive columns of a pool row, widened to float32: one 16-byte
-// load of a float32 row, one 8-byte load of a bf16 row (a bf16 value is
-// the top 16 bits of its float32), one 4-byte load of an int8 row with
-// 16-byte loads of its columns' scale and zero, each value dequantized as
-// svox::ld does (a multiply, then an add, each rounded). The column is
-// aligned to 4 elements.
-__device__ __forceinline__ float4 load_cols(const float* col) {
-  return __ldg(reinterpret_cast<const float4*>(col));
-}
-__device__ __forceinline__ float4 load_cols(const uint16_t* col) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(col));
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-__device__ __forceinline__ float4 load_cols(const svox::QPtr& col) {
-  const char4 q = __ldg(reinterpret_cast<const char4*>(col.q));
-  const float4 s = __ldg(reinterpret_cast<const float4*>(col.scale));
-  const float4 z = __ldg(reinterpret_cast<const float4*>(col.zero));
-  return make_float4(static_cast<float>(q.x) * s.x + z.x, static_cast<float>(q.y) * s.y + z.y,
-                     static_cast<float>(q.z) * s.z + z.z, static_cast<float>(q.w) * s.w + z.w);
-}
-
-// Columns e .. e + 3 of a row into the register row.
-template <class Row>
-__device__ __forceinline__ void load_row4(const Row& row, float* buf, int e) {
-  const float4 v = load_cols(row + e);
-  buf[e] = v.x;
-  buf[e + 1] = v.y;
-  buf[e + 2] = v.z;
-  buf[e + 3] = v.w;
-}
-
-// The whole of pool row r, when r is in [0, M), into the register row b
-// (rows of kD values, kD a multiple of 4).
-template <int kD, class P>
-__device__ __forceinline__ void load_row(const P& features, int32_t r, int M, float* b) {
-  if (static_cast<uint32_t>(r) < static_cast<uint32_t>(M)) {
-    const auto row = features + static_cast<size_t>(r) * kD;
-#pragma unroll
-    for (int e = 0; e < kD; e += 4) load_row4(row, b, e);
-  }
-}
-
-// Column e of the sample's row: the register copy (W = 4), or the pool's.
-template <int W, class Row>
-__device__ __forceinline__ float row_col(const Row& row, const float* buf, int e) {
-  if constexpr (W == 4) {
-    return buf[e];
-  } else {
-    return svox::ld(row + e);
-  }
-}
-
-// The pre-sigmoid colour c of the sample's row: column c (RGBA), or
-// sum_k basis_k * column c * nb + k, summed over k in order (as K2 sums it).
-template <int FMT, int kB, int W, class Row>
-__device__ __forceinline__ float color_logit(const Row& row, const float* buf, int c, int nb,
-                                             const float* basis) {
-  if constexpr (FMT == svox::kRGBA) {
-    return row_col<W>(row, buf, c);
-  } else {
-    const int e0 = c * nb;
-    float s = basis[0] * row_col<W>(row, buf, e0);
-#pragma unroll
-    for (int k2 = 1; k2 < kB; ++k2) {
-      if (k2 < nb) s = s + basis[k2] * row_col<W>(row, buf, e0 + k2);
-    }
-    return s;
-  }
-}
+// The pool row's vector loads, shared with K2 (common.cuh).
+using svox::color_logit;
+using svox::load_row;
+using svox::load_row4;
+using svox::row_col;
+using svox::vector_aligned;
 
 // Frame n's pool in a stack of (M, D) pools, off = n * M * D values in (an
 // int8 stack's scale and zero: qoff = n * D values in).

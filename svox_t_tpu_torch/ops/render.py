@@ -110,7 +110,8 @@ _MARCH_ARGS = [
     c_float, c_float,                               # step, bg
 ]
 _FWD_ARGS = _MARCH_ARGS + [c_float, c_float, c_int,  # sigma/stop thresh, max_steps
-                           c_void_p, c_void_p, c_int, c_void_p]  # out, waccum, device, stream
+                           c_void_p, c_void_p,      # out, waccum
+                           c_int, c_int, c_void_p]  # width, device, stream
 _BWD_ARGS = _MARCH_ARGS + [c_int,                   # max_steps
                            c_void_p, c_void_p, c_void_p,  # grad_out, out_res, grad
                            c_int, c_void_p]         # device, stream
@@ -140,6 +141,10 @@ RENDER_FWD, RENDER_FWD_BAKED, RENDER_FWD_INTERP, RENDER_FWD_BAKED_INTERP = _FWD_
 RENDER_BWD, RENDER_BWD_BAKED, RENDER_BWD_INTERP, RENDER_BWD_BAKED_INTERP = _BWD_INSTANCES["f32"]
 (RENDER_BWD_BF16, RENDER_BWD_BAKED_BF16, RENDER_BWD_INTERP_BF16,
  RENDER_BWD_BAKED_INTERP_BF16) = _BWD_INSTANCES["bf16"]
+# K2's launches by the vector width in which a nearest sample's row moves
+# (`render_fwd_width`; the interp instances run width 1), beside their
+# counts, every structure and pool type.
+FWD_WIDTH_LAUNCHES = {1: 0, 4: 0}
 # Color channels the kernels hold in registers, and the largest basis.
 KERNEL_MAX_COLORS = 16
 KERNEL_MAX_BASIS = 25
@@ -930,25 +935,63 @@ def _stream(dev: torch.device):
 
 def volume_render_cuda(spec, features: torch.Tensor,
                        origins: torch.Tensor, dirs: torch.Tensor,
-                       vdirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
+                       vdirs: torch.Tensor, opt: RenderOptions, width=None) -> torch.Tensor:
     """Launch the forward-march kernel (csrc/render_fwd.cu, or its baked
     instance csrc/render_fwd_baked.cu on a BakedTree; under interp
     render_fwd_interp.cu / render_fwd_baked_interp.cu; for a bf16 or int8
     pool the same sources with _bf16 / _i8): RGBA, SH (basis_dim 1, 4, 9,
     16, 25), SG and ASG (basis_dim 1-25), exact and thresholded, with
-    optional per-voxel rotation matrices."""
-    return _march_cuda(spec, features, origins, dirs, vdirs, opt, False)[0]
+    optional per-voxel rotation matrices. ``width``: the vector instance
+    (1 or 4) instead of `render_fwd_width`'s; the kernel refuses one the
+    row, the mode or the pointers' alignment does not allow (a comparison
+    of the instances passes it)."""
+    return _march_cuda(spec, features, origins, dirs, vdirs, opt, False, width)[0]
 
 
 def volume_render_with_weight_accum_cuda(spec: TreeSpec, features: torch.Tensor,
                                          origins: torch.Tensor, dirs: torch.Tensor,
-                                         vdirs: torch.Tensor, opt: RenderOptions):
+                                         vdirs: torch.Tensor, opt: RenderOptions, width=None):
     """Launch the forward-march kernel with weight accumulation:
-    (out, waccum (capacity * N^3,), summed per tree cell)."""
-    return _march_cuda(spec, features, origins, dirs, vdirs, opt, True)
+    (out, waccum (capacity * N^3,), summed per tree cell). ``width`` as
+    `volume_render_cuda`'s."""
+    return _march_cuda(spec, features, origins, dirs, vdirs, opt, True, width)
 
 
-def _march_cuda(spec, features, origins, dirs, vdirs, opt, want_weights):
+def _vector_row(fmt: int, basis_dim: int, D: int) -> bool:
+    """Whether a row has a width-4 instance (K2, K13c-e): the three-colour
+    rows with no spare column (RGBA at D = 4, SH1 at D = 4, SH9 at D = 28)."""
+    if fmt == FORMAT_RGBA:
+        return D == 4
+    return fmt == FORMAT_SH and (basis_dim, D) in ((1, 4), (9, 28))
+
+
+def render_fwd_width(fmt: int, basis_dim: int, D: int, pool_ptr: int, pool_elem: int,
+                     scale_ptrs=()) -> int:
+    """The vector width of a nearest K2 launch (and of K13c's): 4 for the
+    three-colour rows with no spare column when the pool (``pool_ptr``,
+    ``pool_elem`` bytes a value) is aligned to 4 values and the float32
+    ``scale_ptrs`` (an int8 pool's scale and zero; K2's rotation matrices,
+    read in 16-byte rows) to 16 bytes, else 1."""
+    aligned = pool_ptr % (4 * pool_elem) == 0 and all(q % 16 == 0 for q in scale_ptrs)
+    return 4 if _vector_row(fmt, basis_dim, D) and aligned else 1
+
+
+def _fwd_width(spec, features, opt: RenderOptions) -> int:
+    """`render_fwd_width` of a K2 launch on ``spec`` and ``features``
+    (1 under interp, whose instances have no other)."""
+    if opt.interp:
+        return 1
+    q, ptrs = features, []
+    if isinstance(features, QuantizedFeatures):
+        q, ptrs = features.q, [features.scale.data_ptr(), features.zero.data_ptr()]
+    tm = spec.transformation_matrices if opt.format != FORMAT_RGBA else None
+    if tm is not None:
+        ptrs.append(tm.data_ptr())
+    return render_fwd_width(opt.format, opt.basis_dim, features.shape[1], q.data_ptr(), q.element_size(),
+                            ptrs)
+
+
+def _march_cuda(spec, features, origins, dirs, vdirs, opt, want_weights, width=None):
     args, n_color = _kernel_args(spec, features, origins, dirs, vdirs, opt, "volume_render_cuda")
     kernel = _kernel_for(spec, opt, _FWD_INSTANCES, features)
     dev = features.device
@@ -957,10 +1000,13 @@ def _march_cuda(spec, features, origins, dirs, vdirs, opt, want_weights):
               if want_weights else None)
     if out.shape[0] == 0:
         return out, waccum
+    if width is None:
+        width = _fwd_width(spec, features, opt)
     kernel(
         *args, opt.sigma_thresh, opt.stop_thresh, opt.max_steps,
-        out.data_ptr(), None if waccum is None else waccum.data_ptr(), *_stream(dev),
+        out.data_ptr(), None if waccum is None else waccum.data_ptr(), width, *_stream(dev),
     )
+    FWD_WIDTH_LAUNCHES[width] += 1
     return out, waccum
 
 

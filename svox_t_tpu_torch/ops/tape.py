@@ -64,13 +64,13 @@ from typing import Optional
 import torch
 
 from .._build import Kernel
-from ..utils.spec import DATA_SENTINEL, FORMAT_RGBA, FORMAT_SH, RenderOptions, get_out_data_dim
+from ..utils.spec import DATA_SENTINEL, FORMAT_RGBA, RenderOptions, get_out_data_dim
 from .bake import BakedTree, StructureDesc, check_structure
 from .render import (POOL_SUFFIX, QuantizedFeatures, _Basis, _check_quantized, _n_tree_cells,
                      _pool_tensors, _ray_setup, _require, _sample_colors, _sample_leaf,
-                     _scatter_rows, _stream, _structure_arg, _sum_cols, _tree_cells,
+                     _scatter_rows, _stream, _structure_arg, _sum_cols, _tree_cells, _vector_row,
                      check_format, effective_skip_base, gather_rows, pool_dtype, pool_kind,
-                     radiometry_args, volume_render_backward)
+                     radiometry_args, render_fwd_width, volume_render_backward)
 
 __all__ = ["RayTape", "record_tape", "replay_render", "replay_render_weighted",
            "replay_render_frames", "replay_depth", "pack_index_table", "unsort_output"]
@@ -622,22 +622,8 @@ def _tape_args(tape: RayTape, features, index_table, name: str):
             (None, 0) if table is None else (table.data_ptr(), table.shape[0]))
 
 
-def _vector_row(fmt: int, basis_dim: int, D: int) -> bool:
-    """Whether a row has a width-4 instance: the three-colour rows with no
-    spare column (RGBA at D = 4, SH1 at D = 4, SH9 at D = 28)."""
-    if fmt == FORMAT_RGBA:
-        return D == 4
-    return fmt == FORMAT_SH and (basis_dim, D) in ((1, 4), (9, 28))
-
-
-def replay_fwd_width(fmt: int, basis_dim: int, D: int, pool_ptr: int, pool_elem: int,
-                     scale_ptrs=()) -> int:
-    """The vector width of a K13c launch (or of its frame axis): 4 for the
-    three-colour rows with no spare column when the pool (``pool_ptr``,
-    ``pool_elem`` bytes a value) is aligned to 4 values and the float32
-    ``scale_ptrs`` (an int8 pool's scale and zero) to 16 bytes, else 1."""
-    aligned = pool_ptr % (4 * pool_elem) == 0 and all(q % 16 == 0 for q in scale_ptrs)
-    return 4 if _vector_row(fmt, basis_dim, D) and aligned else 1
+# K13c's rows take K2's vector widths (the same rows, the same alignment).
+replay_fwd_width = render_fwd_width
 
 
 def replay_bwd_width(fmt: int, basis_dim: int, D: int, pool_ptr: int, pool_elem: int,

@@ -1372,6 +1372,109 @@ def test_pool_types_without_an_instance_raise(cuda):
 
 
 # ---------------------------------------------------------------------------
+# K2's vector widths: width 4 (the three-colour rows in 16-, 8- or 4-byte
+# loads; on the bake with a float32 pool a sample's loads, then the next
+# sample's lookup, before it composites) equal to width 1 bit for bit.
+
+# (format, data_dim, the width `render_fwd_width` picks): 4 only for the
+# three-colour rows with no spare column; SH9 at D = 32 leaves columns 27-30
+# unread; SG7 runs on the 9-term instance.
+FWD_CASES = {"sh9": ("SH9", 28, 4), "sh9_rot": ("SH9", 28, 4), "rgba": ("RGBA", 4, 4),
+             "sh1": ("SH1", 4, 4), "sh4": ("SH4", 13, 1), "sg7": ("SG7", 22, 1),
+             "sh9_d32": ("SH9", 32, 1)}
+
+
+def _qr_rotations(M, seed):
+    """(M, 4, 4) float32 rotations from the QR of seeded normal matrices."""
+    q = torch.randn(M, 3, 3, generator=torch.Generator().manual_seed(seed))
+    rot = torch.eye(4).repeat(M, 1, 1)
+    rot[:, :3, :3] = torch.linalg.qr(q)[0]
+    return rot
+
+
+def _march(spec, pool, o, d, opt, weights, width=None):
+    """(out, waccum or None) of K2 through its wrappers."""
+    if weights:
+        return trender.volume_render_with_weight_accum_cuda(spec, pool, o, d, d, opt, width=width)
+    return trender.volume_render_cuda(spec, pool, o, d, d, opt, width=width), None
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_render_fwd_widths_match(cuda, backend, case):
+    """K2's width 4 equals its width 1 (the earlier loop) bit for bit on
+    every FWD_CASES row, float32, bf16 and int8 pools, with and without
+    weights (the weights at the atomic tolerance), exact, fast, thresholded
+    with stop_thresh > 0 (the break after a lookup made ahead) and with a
+    small max_steps that cuts rays mid-march; the launch picks
+    `render_fwd_width`'s width and counts it, and width 4 on any other row
+    raises. Float32 outputs also against plain."""
+    fmt, ddim, width = FWD_CASES[case]
+    tree, spec, feats, _, o, d = _tape_scene(cuda, backend, fmt=fmt, ddim=ddim, seed=70)
+    if case == "sh9_rot":
+        spec = spec.with_(transformation_matrices=_qr_rotations(feats.shape[0], 70).to(cuda))
+    r = stt.VolumeRenderer(tree, backend=backend)
+    base = r._get_options(False)
+    opts = {"exact": base, "fast": r._get_options(True),
+            "stop": dataclasses.replace(base, sigma_thresh=0.01, stop_thresh=0.01),
+            "max_steps": dataclasses.replace(base, max_steps=5)}
+    for name, o_ in opts.items():
+        for kind, p in _fwd_pools(feats):
+            label = f"{case} {backend} {kind} {name}"
+            for weights in (False, True):
+                before = trender.FWD_WIDTH_LAUNCHES[width]
+                out, w = _march(spec, p, o, d, o_, weights)
+                torch.cuda.synchronize()
+                assert trender.FWD_WIDTH_LAUNCHES[width] == before + 1, label
+                out1, w1 = _march(spec, p, o, d, o_, weights, width=1)
+                assert torch.equal(out, out1), label
+                if weights:
+                    _assert_atomic_close(w, w1)
+                if width == 1:
+                    with pytest.raises(RuntimeError, match="CUDA error"):
+                        _march(spec, p, o, d, o_, weights, width=4)
+                else:
+                    assert torch.equal(out, _march(spec, p, o, d, o_, weights, width=4)[0]), label
+            if kind == "f32":
+                torch.testing.assert_close(out, trender.volume_render_plain(spec, p, o, d, d, o_),
+                                           atol=ATOL, rtol=0)
+        if name == "stop":
+            assert bool((out[:, -1] >= 1.0 - o_.stop_thresh).any()), "no ray stopped"
+
+
+def test_render_fwd_misaligned_pointers_take_width_1(cuda):
+    """A pool view off its 16-byte alignment, an int8 pool whose scale is
+    off it, or rotation matrices off it take width 1 (and width 4 on them
+    raises), with the aligned launch's output bit for bit; so do interp
+    launches, whose instances have width 1 only."""
+    tree, spec, feats, _, o, d = _tape_scene(cuda, "baked", seed=71)
+    opt = stt.VolumeRenderer(tree)._get_options(False)
+    M, D = feats.shape
+    rot = _qr_rotations(M, 71).to(cuda)
+    shifted = torch.empty(M * D + 1, device=cuda)[1:].view(M, D)
+    shifted.copy_(feats)
+    q = stt.quantize_features(feats)
+    q_off = stt.QuantizedFeatures(q.q, torch.empty(D + 1, device=cuda)[1:].copy_(q.scale), q.zero)
+    rot_off = torch.empty(M * 16 + 1, device=cuda)[1:].view(M, 4, 4)
+    rot_off.copy_(rot)
+    # (spec, pool, their aligned counterparts)
+    cases = ((spec, shifted, spec, feats), (spec, q_off, spec, q),
+             (spec.with_(transformation_matrices=rot_off), feats, spec.with_(transformation_matrices=rot), feats))
+    for sp, pool, sp_a, pool_a in cases:
+        assert trender._fwd_width(sp, pool, opt) == 1 and trender._fwd_width(sp_a, pool_a, opt) == 4
+        want = trender.volume_render_cuda(sp_a, pool_a, o, d, d, opt)
+        before = trender.FWD_WIDTH_LAUNCHES[1]
+        assert torch.equal(trender.volume_render_cuda(sp, pool, o, d, d, opt), want)
+        assert trender.FWD_WIDTH_LAUNCHES[1] == before + 1
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            trender.volume_render_cuda(sp, pool, o, d, d, opt, width=4)
+    interp = dataclasses.replace(opt, interp=1)
+    assert trender._fwd_width(spec, feats, interp) == 1
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        trender.volume_render_cuda(spec, feats, o, d, d, interp, width=4)
+
+
+# ---------------------------------------------------------------------------
 # Recorded sample tapes (K13): the count and record kernels equal to their
 # plain versions exactly; the replay forward equal to the forward march
 # kernel bit for bit (exact and thresholded, compacted or not), its weights

@@ -307,3 +307,25 @@ def test_kernel_wrapper_rejects_cpu_and_wide_colors():
             call(pt._spec(), wide, *trays, rgba)
     with pytest.raises(NotImplementedError, match="16 color channels"):
         trender.volume_render_backward_cuda(pt._spec(), wide, *trays, torch.zeros(len(trays[0]), 18), rgba)
+
+
+@pytest.mark.parametrize("fmt,bd,D,pool_off,elem,extra_offs,want", [
+    ("SH", 9, 28, 0, 4, (), 4), ("SH", 9, 28, 0, 2, (), 4), ("SH", 9, 28, 0, 1, (0, 0), 4),
+    ("SH", 1, 4, 0, 4, (), 4), ("RGBA", 0, 4, 0, 4, (), 4), ("RGBA", 0, 4, 0, 1, (0, 0), 4),
+    ("SH", 4, 13, 0, 4, (), 1), ("SH", 9, 32, 0, 4, (), 1), ("SH", 16, 49, 0, 4, (), 1),
+    ("SG", 9, 28, 0, 4, (), 1), ("ASG", 9, 28, 0, 2, (), 1), ("RGBA", 0, 8, 0, 4, (), 1),
+    ("SH", 9, 28, 4, 4, (), 1), ("SH", 9, 28, 16, 4, (), 4), ("SH", 9, 28, 4, 2, (), 1),
+    ("SH", 9, 28, 8, 2, (), 4), ("SH", 9, 28, 2, 1, (0, 0), 1), ("SH", 9, 28, 4, 1, (0, 0), 4),
+    ("SH", 9, 28, 0, 1, (8, 0), 1), ("SH", 9, 28, 0, 4, (64,), 4), ("SH", 9, 28, 0, 4, (4,), 1),
+    ("SH", 9, 28, 0, 2, (12,), 1), ("SH", 9, 28, 0, 1, (0, 0, 32), 4)])
+def test_render_fwd_width(fmt, bd, D, pool_off, elem, extra_offs, want):
+    """K2's vector width from the format, basis and row width and the
+    alignment of its pointers (fake ones): 4 for the three-colour RGBA, SH1
+    and SH9 rows with no spare column whose pool lies on a 4-value
+    boundary and whose float32 pointers (an int8 pool's scale and zero, the
+    rotation matrices) lie on 16 bytes, else 1; K13c takes the same."""
+    base = 1 << 20
+    code = {"RGBA": stt.utils.spec.FORMAT_RGBA, "SH": stt.utils.spec.FORMAT_SH,
+            "SG": stt.utils.spec.FORMAT_SG, "ASG": stt.utils.spec.FORMAT_ASG}[fmt]
+    ptrs = [base + 4096 * (k + 1) + off for k, off in enumerate(extra_offs)]
+    assert trender.render_fwd_width(code, bd, D, base + pool_off, elem, ptrs) == want
