@@ -185,7 +185,17 @@ forward's frame axis also beside N single launches; ptxas's registers and
 spills of the tape forward's and backward's instances and of K2's are
 printed by width, K2's with their blocks an SM (no tape forward and no
 nearest K2 instance may spill), and the census's samples per hitting ray
-and 128-ray blocks are set against the resident blocks (`K2 waves`). It
+and 128-ray blocks are set against the resident blocks (`K2 waves`).
+The trilinear march (K2+K4) has the same two widths: the SH9
+interp launches on aligned pools must be width 4 too (phases 4j and 4k),
+its width 4 is timed beside its width 1 in turns (`prev_ms`), and a census
+line per structure gives the table loads of its lookups as the width-4
+kernel makes them (the own corner's row reused, on the tree walk the own
+path too), with the own row alone, and with 9 lookups from the root, and
+its bound counted from the kernel's lookups (the kernels line's) and from
+9 lookups (`K2+K4 census`, from `ops/corner_lookup.py`'s mirror over the
+march's samples); phase 4m also
+times a `record_dynamic_persp` call that hits the cache (D1's key). It
 prints kernel and plain-version times and each kernel's bound with the
 card's name and power limit, the whole run's seconds, one JSON line
 describing the kernels, and as its last line {"ok": true, "device":
@@ -211,6 +221,7 @@ import svox_t_tpu_torch as stt
 from svox_t_tpu_torch import _build
 from svox_t_tpu_torch.models import renderer as renderer_mod
 from svox_t_tpu_torch.ops import bake as bake_ops
+from svox_t_tpu_torch.ops import corner_lookup
 from svox_t_tpu_torch.ops import grid as grid_ops
 from svox_t_tpu_torch.ops import p2v as p2v_ops
 from svox_t_tpu_torch.ops import query as query_ops
@@ -358,29 +369,50 @@ def in_turns(new, old, timer) -> tuple:
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
+def profiled_kernels(run, enough, what: str) -> list:
+    """The device kernels (fills aside, in start order) of one
+    `torch.profiler` session around ``run()``. A session at times comes
+    back without some of its calls' device events (seen in phases 3h and
+    4n on an H100): one whose kernels fail ``enough`` is run again, at most
+    twice, and each retry is printed with ``what``."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(3):
+        if attempt:
+            print(f"profiler retry: {what}: {len(events)} device kernels recorded; attempt {attempt + 1} of 3")
+        with torch.profiler.profile(activities=acts) as prof:
+            run()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not e.is_user_annotation and "FillFunctor" not in e.name),
+                        key=lambda e: e.time_range.start)
+        if enough(events):
+            break
+    return events
+
+
 def paired_device_ms(new, old, names, pairs: int, cold: bool = True) -> list:
     """[(new ms, old ms)] of ``pairs`` rounds of calls in turns (old, new,
     new, old), each the mean of its round's two kernels, from one
-    `torch.profiler` session: ``new`` launches one kernel whose name
-    contains one of ``names``, ``old`` one kernel of another name (fills
-    aside). ``cold`` as in `device_ms`."""
+    `torch.profiler` session (`profiled_kernels`): ``new`` launches one
+    kernel whose name contains one of ``names``, ``old`` one kernel of
+    another name (fills aside). ``cold`` as in `device_ms`."""
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda") if cold else None
     new()
     old()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def run():
         for _ in range(pairs):
             for fn in (old, new, new, old):
                 if cold:
                     flush.zero_()
                 fn()
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                     and not e.is_user_annotation and "FillFunctor" not in e.name),
-                    key=lambda e: e.time_range.start)
-    is_new = [any(n in e.name for n in names) for e in events]
-    check(is_new == [False, True, True, False] * pairs,
+
+    def in_order(events):
+        return [any(n in e.name for n in names) for e in events] == [False, True, True, False] * pairs
+
+    events = profiled_kernels(run, in_order, f"in-turns profile of {names}")
+    check(in_order(events),
           f"in-turns profile of {names}: {len(events)} kernels recorded, not {4 * pairs} in turns: "
           f"{sorted({e.name[:80] for e in events})}")
     ms = [e.time_range.elapsed_us() / 1e3 for e in events]
@@ -388,9 +420,10 @@ def paired_device_ms(new, old, names, pairs: int, cold: bool = True) -> list:
 
 
 def device_ms(fn, reps: int, names=None, cold: bool = True) -> float:
-    """Device ms per call of ``fn``, from `torch.profiler`: the summed time
-    of the kernels whose names contain one of ``names`` (None: every kernel
-    but the L2 flush's fill), after one warm-up call. A kernel shorter than the host's dispatch of its call leaves the
+    """Device ms per call of ``fn``, from `torch.profiler`
+    (`profiled_kernels`): the summed time of the kernels whose names
+    contain one of ``names`` (None: every kernel but the L2 flush's fill),
+    after one warm-up call. A kernel shorter than the host's dispatch of its call leaves the
     card idle between back-to-back calls, which CUDA events around them
     count (`time_ms`); this counts the kernels alone. ``cold``: a 128 MB
     write before each call evicts the 50 MB L2, so the kernel reads its
@@ -398,16 +431,17 @@ def device_ms(fn, reps: int, names=None, cold: bool = True) -> float:
     flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda") if cold else None
     fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def run():
         for _ in range(reps):
             if cold:
                 flush.zero_()
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-              and not e.is_user_annotation
-              and (any(n in e.name for n in names) if names else "FillFunctor" not in e.name)]
+
+    def named(events):
+        return [e for e in events if any(n in e.name for n in names)] if names else events
+
+    events = named(profiled_kernels(run, lambda ev: len(named(ev)) >= reps, f"{names or 'every kernel'}"))
     check(len(events) >= reps, f"the profiler recorded no kernel named {names}")
     return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
 
@@ -602,8 +636,8 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     """Each counter's launches, and the tape replay's and the forward
     march's launches by vector width: K13d / K13e's (``bwd_width_<w>``),
-    K13c's and its frame axis's (``fwd_width_<w>``) and K2's
-    (``march_width_<w>``; its interp instances at width 1), all entry
+    K13c's and its frame axis's (``fwd_width_<w>``) and K2's, nearest and
+    interp (``march_width_<w>``), all entry
     points, structures and pool types."""
     counts = {name: k.launches for name, k in COUNTERS.items()}
     counts.update({f"bwd_width_{w}": n for w, n in tape_ops.BWD_WIDTH_LAUNCHES.items()})
@@ -630,12 +664,12 @@ def check_fwd_widths(counts: dict, what: str) -> None:
 
 
 def check_march_widths(counts: dict, what: str) -> None:
-    """On an SH9 path (D = 28, aligned pools and rotations) every nearest
-    K2 launch (either structure, every pool type) is the 16-byte vector
-    instance; only the interp instances launch width 1."""
-    n = sum(v for k, v in counts.items() if k.startswith("render_fwd") and "_interp" not in k)
+    """On an SH9 path (D = 28, aligned pools and rotations) every K2 launch,
+    nearest and interp (K2+K4; either structure, every pool type), is the
+    16-byte vector instance."""
+    n = sum(v for k, v in counts.items() if k.startswith("render_fwd"))
     check(n > 0 and counts["march_width_4"] == n,
-          f"{what}: {n} nearest forward-march launches, {counts['march_width_4']} of them the vector instance")
+          f"{what}: {n} forward-march launches, {counts['march_width_4']} of them the vector instance")
 
 
 # ptxas's lines in the build log: a kernel's entry and its registers and spills.
@@ -807,8 +841,15 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
     colors the march reads), ``rows_sigma`` the corner rows whose sigma it
     reads, ``own_rows`` the own rows of contributing samples that have one
     (the LBS rows), and the first hit is the first contributing sample
-    with an own row, ``rows_fh`` the corner rows read up to it. Only the
-    bounds read it. Per ray (K2's one-wave question): the samples of each
+    with an own row, ``rows_fh`` the corner rows read up to it; ``k4_loads``
+    counts the table loads of K2+K4's lookups as its width-4 kernel makes
+    them (`ops/corner_lookup.py`'s mirror: the own lookup and the 7 other
+    corners, reusing the own row and, on the tree walk, the own path),
+    ``k4_lookups`` those lookups, ``k4_loads_own`` the loads with the own row
+    alone reused, ``k4_loads_root`` of 9 lookups from the root (a tree
+    walk's load is a child-table level or its data entry, one data entry a
+    lookup; a bake's a table entry). Only the bounds and the census
+    lines read it. Per ray (K2's one-wave question): the samples of each
     ray that marches (max, p99) and of each hitting ray, one with a
     contributing sample (max, p99, median), and the 128-ray blocks (K2's)
     that hold a marching or a hitting ray."""
@@ -821,7 +862,8 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
     # One more slot than rows: M marks "no row".
     rows, rows_sigma, own, rows_fh = (torch.zeros(M + 1, dtype=torch.bool, device=dev) for _ in range(4))
     n = {k: torch.zeros((), dtype=torch.float64, device=dev)
-         for k in ("samples", "levels", "contrib", "fh_samples", "fh_levels")}
+         for k in ("samples", "levels", "contrib", "fh_samples", "fh_levels", "k4_loads", "k4_lookups",
+                   "k4_loads_own", "k4_loads_root")}
     t, active, searching = tmin, hit.clone(), hit.clone()
     per_ray = torch.zeros(origins.shape[0], dtype=torch.int32, device=dev)
     hits_ray = torch.zeros(origins.shape[0], dtype=torch.bool, device=dev)
@@ -838,6 +880,13 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
         own_row = torch.where(res, idx, M).long()
         if opt.interp:
             points, w = render_ops.corner_points(pos, leaf.cube_sz)
+            # K2+K4's table loads (corner_lookup's mirror of its lookups):
+            # the width-4 kernel's, with lever 1 alone, and 9 from the root.
+            cl = corner_lookup.corner_lookups(spec, pos[active], leaf.cube_sz[active])
+            n["k4_loads"] += cl.loads.sum()
+            n["k4_lookups"] += cl.lookups.sum()
+            n["k4_loads_own"] += cl.loads_own.sum()
+            n["k4_loads_root"] += cl.loads_root.sum()
             sigma = torch.zeros_like(t)
             sample_rows = []
             for p_c, w_c in zip(points, w):
@@ -971,24 +1020,31 @@ def march_bounds(c: dict, M: int, D: int, kind: str = "f32") -> dict:
     }.items()})
 
 
-def interp_bounds(c: dict, M: int, D: int, kind: str = "f32") -> dict:
+def interp_bounds(c: dict, M: int, D: int, kind: str = "f32", nine: bool = False) -> dict:
     """bound_ms and bound_by of the six trilinear (K4) march instances on
     one structure, from its interp `march_census` ``c``, as `march_bounds`
     counts them (a pool of type ``kind`` as there): the sigma of every
     corner row read, the rest of the rows of contributing samples'
-    corners, the LBS tables of their own rows; a lookup's ops per table
-    load on the tree (OPS_LEVEL) and per lookup on the bake (OPS_LOOKUP),
-    plus OPS_CORNERS per sample."""
+    corners, the LBS tables of their own rows; a lookup's ops per
+    child-table level on the tree (OPS_LEVEL) and per lookup on the bake
+    (OPS_LOOKUP), plus OPS_CORNERS per sample. The lookups are the 9 a
+    sample makes from the root, but the forward's (K2+K4): those its
+    width-4 kernel makes (``k4_loads``, ``k4_lookups``; on the tree walk its
+    child-table levels are its loads less one data load a lookup), or with
+    ``nine`` 9 from the root as well, as the earlier kernel made them."""
     B = c["rays"]
     e, q = POOL_ELEM[kind], 8 * D if kind == "i8" else 0
     psfx = "" if kind == "f32" else "_" + kind
     if c["baked"]:
         cell_b, sfx = 4, "_baked_interp"
         look_ops, fh_look = OPS_LOOKUP * c["lookups"], OPS_LOOKUP * 9 * c["fh_samples"]
+        fwd_look = OPS_LOOKUP * c["k4_lookups"]
     else:
         cell_b, sfx = 8, "_interp"
         look_ops, fh_look = OPS_LEVEL * c["levels"], OPS_LEVEL * c["fh_levels"]
+        fwd_look = OPS_LEVEL * (c["k4_loads"] - c["k4_lookups"])
     march_ops = OPS_RAY * c["hits"] + look_ops + (OPS_SAMPLE + OPS_CORNERS) * c["samples"]
+    fwd_ops = march_ops if nine else march_ops - look_ops + fwd_look
     fh_ops = OPS_RAY * c["hits"] + fh_look + (OPS_SAMPLE + OPS_CORNERS) * c["fh_samples"]
     rows_b = c["rows_sigma"] * e + c["rows"] * (D - 1) * e + q
     sig_b = c["rows_sigma"] * e + q
@@ -997,7 +1053,7 @@ def interp_bounds(c: dict, M: int, D: int, kind: str = "f32") -> dict:
     jtab = N_JOINTS * JOINT_DIM * 4
     return _bounds({k + psfx: v for k, v in {
         "render_fwd" + sfx: (B * 36 + B * 16 + rows_b + table_b,
-                             march_ops + OPS_FWD_SH9_INTERP * c["contrib"]),
+                             fwd_ops + OPS_FWD_SH9_INTERP * c["contrib"]),
         "render_bwd" + sfx: (B * 36 + 2 * B * 16 + rows_b + table_b + M * D * 4,
                              march_ops + OPS_BWD_SH9_INTERP * c["contrib"]),
         "opacity_bwd" + sfx: (B * 24 + 2 * B * 4 + sig_b + table_b + M * D * 4,
@@ -1804,8 +1860,9 @@ def dynamic_tape_path(backend: str, state: dict, feats, rig, c2w, dev) -> dict:
     bit for bit; fast mode against the fused loop with the box advance and
     skip boxes off), the gradients against per-frame K13d calls, and each
     rig view against `render_persp` bit for bit. Then the host ms of a
-    frame with the tape passed in and through the cache key (which hashes
-    the animation on the host). Returns the counts, the exact outputs, the
+    frame with the tape passed in and through the cache key (the
+    animation's tensors keyed by identity and version), and of a
+    `record_dynamic_persp` call that hits the cache. Returns the counts, the exact outputs, the
     times and the compacted tape with frame 0's index table."""
     tree = stt.tree_from_numpy(state, device=dev)
     r = stt.VolumeRenderer(tree, backend=backend)
@@ -1892,8 +1949,9 @@ def dynamic_tape_path(backend: str, state: dict, feats, rig, c2w, dev) -> dict:
           f"for bit, gradients vs K13d {e_g['f32']:.3g} (bf16 {e_g['bf16']:.3g}); {len(cams)}-view "
           f"rig frame equal to render_persp bit for bit")
     # Host ms per frame, least of 3 calls: the tape passed in, and the way
-    # bench.py calls it (recorded already: a cache hit, whose key hashes the
-    # animation's arrays on the host).
+    # bench.py calls it (recorded already: a cache hit, the animation's
+    # tensors keyed by identity and version); and the host ms of one
+    # `record_dynamic_persp` call that hits the cache (its key alone).
     with torch.no_grad():
         for label, fast, tp in (("explicit", False, tape), ("cached", False, None), ("cached_fast", True, None)):
             dts = []
@@ -1904,12 +1962,22 @@ def dynamic_tape_path(backend: str, state: dict, feats, rig, c2w, dev) -> dict:
                 torch.cuda.synchronize()
                 dts.append((time.perf_counter() - t0) * 1e3 / N_FRAMES)
             res[label + "_frame_ms"] = min(dts[1:])
+        dts = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hit = r.record_dynamic_persp(c2w, *rig, WIDTH, HEIGHT, FX, record_t=True)
+            torch.cuda.synchronize()
+            dts.append((time.perf_counter() - t0) * 1e3)
+            check(hit is tape, f"dynamic tapes ({backend}): record_dynamic_persp missed its cache")
+        res["key_ms"] = min(dts[1:])
         tk = stt.get_transformation_matrix(rig[1], rig[0][0])
         warped, _ = stt.warp_vertices(tk, *rig[2:])
         table = tape_ops.pack_index_table(query_ops.construct_tree(tree._spec(), warped))
     print(f"main path, dynamic tapes ({LABEL[backend]}): host ms per frame (least of 3 calls of {N_FRAMES} frames, "
           f"exact, rotations and depth) with the tape passed in {res['explicit_frame_ms']:.4f}, through the cache "
-          f"key {res['cached_frame_ms']:.4f} (fast {res['cached_fast_frame_ms']:.4f})")
+          f"key {res['cached_frame_ms']:.4f} (fast {res['cached_fast_frame_ms']:.4f}); a record_dynamic_persp "
+          f"call that hits the cache {res['key_ms']:.4f} ms")
     return dict(counts=counts, exact=out["exact"], ms=res, depth_case=(tape, table))
 
 
@@ -2888,7 +2956,7 @@ def plan_path(backend: str, state: dict, frame_feats, true_pool, pool0, feats, r
           f"frames and the union dynamic call equal to the tile order bit for bit, the planned gradient within "
           f"{g_err:.3g}; host ms per frame (exact + fast; the first plans both) "
           f"{[round(x, 3) for x in frame_ms]}; a {N_FRAMES}-frame render_dynamic_frames call in turns (tile, "
-          f"union, union, tile; the union plan cached, its key hashing the animation each call): tile "
+          f"union, union, tile; the union plan cached, keyed by the animation tensors' identities): tile "
           f"{min(turn[0], turn[3]):.3f} ms, union {min(turn[1], turn[2]):.3f} ms")
     return dict(counts=counts, frame_ms=frame_ms)
 
@@ -4537,6 +4605,7 @@ def main() -> None:
             motion = i_r.motion_render(frame_feats[0], cam_rays)
         torch.cuda.synchronize()
         counts = interp_counts[backend] = read_counts()
+        check_march_widths(counts, f"interp path ({backend})")
         w = i_acc()
         print(f"main path, interp ({LABEL[backend]}): launches {nonzero(counts)}; host ms: construct + exact "
               f"+ fast frames + opacity and motion-feature targets {frame_ms:.3f}, training step "
@@ -4660,7 +4729,7 @@ def main() -> None:
           f"{bench_ms['dynamic_fast_frame_ms']:.4f}; tape_fwd_bwd_ms {dyn_tape_keys['tape_fwd_bwd_ms']:.4f} vs "
           f"tape_fwd_bwd_seq_ms {tape_ms['baked']['tape_fwd_bwd_seq_ms']:.4f}; deep dynamic frame (rotations, "
           f"depth) through the tape {dyn_tape_ms['baked']['explicit_frame_ms']:.4f} (cache key "
-          f"{dyn_tape_ms['baked']['cached_frame_ms']:.4f}) vs dynamic_deep9_baked_frame_ms "
+          f"{dyn_tape_ms['baked']['cached_frame_ms']:.4f}; the key's call {dyn_tape_ms['baked']['key_ms']:.4f}) vs dynamic_deep9_baked_frame_ms "
           f"{dyn_ms['dynamic_deep9_baked_frame_ms']:.4f}; phase 4m {time.perf_counter() - t_4m:.1f} s [{card}]")
 
     # 4n. Main path, minibatch tape training (K14) on bench.py's minibatch
@@ -4906,12 +4975,26 @@ def main() -> None:
                     ispec, jf_true, feats, origins, dirs, g_m, o_),
             }
             for name, run_k in runs.items():
-                k_ms = time_ms(run_k, KERNEL_REPS)
+                width_1 = ""
+                if name == "render_fwd":
+                    # K2+K4 at width 4 against its width 1 (the same corner
+                    # lookups, the scalar row) in turns.
+                    k_ms, k1_ms = k2_turns(ispec, feats, origins, dirs, opt)
+                    kernels[name + sfx]["prev_ms"] = k1_ms
+                    width_1 = f", its width-1 instance {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
+                else:
+                    k_ms = time_ms(run_k, KERNEL_REPS)
                 n_ms = time_ms(lambda: run_k(opt_n), KERNEL_REPS)
                 kernels[name + sfx].update(ms=k_ms, plain_ms=interp_plain_ms[name + sfx])
-                print(f"time {name}{sfx} SH9 exact {WIDTH}x{HEIGHT}: kernel {k_ms:.4f} ms (nearest mode "
+                print(f"time {name}{sfx} SH9 exact {WIDTH}x{HEIGHT}: kernel {k_ms:.4f} ms{width_1} (nearest mode "
                       f"{n_ms:.4f} ms in the same turn), plain {interp_plain_ms[name + sfx]:.1f} ms (one call, "
                       f"phase 3e) [{card}]")
+                if name == "render_fwd":
+                    with torch.no_grad():
+                        rot_spec = ispec.with_(transformation_matrices=rot)
+                        r_ms, r1_ms = k2_turns(rot_spec, feats, origins, dirs, opt)
+                    print(f"time render_fwd{sfx} SH9+rot exact {WIDTH}x{HEIGHT}: kernel {r_ms:.4f} ms, its "
+                          f"width-1 instance {r1_ms:.4f} ms in turns ({r1_ms / r_ms:.3f}x) [{card}]")
 
         # The pool instances (K5), exact, on the aux scene's camera rays;
         # plain: one call on the same rays, phase 3f. The float32
@@ -4944,7 +5027,7 @@ def main() -> None:
                         if key not in kernels:
                             continue
                         width_1 = ""
-                        if name == "render_fwd" and not isfx:
+                        if name == "render_fwd":
                             k_ms, k1_ms = k2_turns(pspec, pool, origins, dirs, opt)
                             kernels[key]["prev_ms"] = k1_ms
                             width_1 = f", its width-1 instance {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
@@ -5110,6 +5193,25 @@ def main() -> None:
         for pk in POOL_KINDS:
             bounds.update({k: v for k, v in interp_bounds(c_i, M, 28, pk).items() if k in kernels})
         print(f"census (SH9 exact, interp, {WIDTH}x{HEIGHT}, {label}): {c_i}")
+        # K2+K4's lookups: the table loads a sample makes as the width-4
+        # kernel makes them (render_fwd.cuh kCornerReuse: levers 1-2 on the
+        # tree walk, the own corner's row and the own path reused; lever 1
+        # on the bake), with lever 1 alone, and with 9 lookups from the
+        # root, from corner_lookup's mirror; and render_fwd's bound counted
+        # from the kernel's lookups (the kernels line's) and from 9 lookups
+        # from the root (the earlier kernel's count).
+        sam = max(c_i["samples"], 1)
+        fwd = "render_fwd" + ("_baked_interp" if c_i["baked"] else "_interp")
+        b_k, b_9 = bounds[fwd], interp_bounds(c_i, M, 28, nine=True)[fwd]
+        levers = "lever 1" if c_i["baked"] else "levers 1-2"
+        print(f"K2+K4 census ({label}, SH9 exact interp): {c_i['marching']} marching rays of {c_i['rays']}, "
+              f"{c_i['samples']} samples; table loads of the lookups: the width-4 kernel's ({levers}) "
+              f"{c_i['k4_loads']} ({c_i['k4_loads'] / sam:.3f} a sample, {c_i['k4_lookups'] / sam:.3f} lookups), "
+              f"lever 1 alone {c_i['k4_loads_own']} ({c_i['k4_loads_own'] / sam:.3f}), 9 from the root "
+              f"{c_i['k4_loads_root']} ({c_i['k4_loads_root'] / sam:.3f}); the width-4 kernel's "
+              f"{c_i['k4_loads_root'] / max(c_i['k4_loads'], 1):.3f}x fewer than 9 from the root; bound of {fwd} "
+              f"{b_k['bound_ms']:.5f} ms ({b_k['bound_by']}) counting the kernel's lookups, "
+              f"{b_9['bound_ms']:.5f} ms ({b_9['bound_by']}) counting 9 lookups from the root [{card}]")
     p2v_c = p2v_census(warped1, grid)
     bounds.update(dynamic_bounds(M, N_BONES, N_JOINTS, 28, P2V_N, p2v_c, touched))
     bounds.update(tape_bounds(census, census_b, tape_res["samples"], M, 28))

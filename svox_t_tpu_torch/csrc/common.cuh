@@ -209,6 +209,18 @@ __host__ __device__ constexpr int ipow(int b, int e) {
   return r;
 }
 
+// K2+K4's corner lookups (render_fwd.cuh's interp instances): the tree
+// walk's own descent keeps the node of each of its first kPathLevels levels
+// in shared memory, kPathStride (the block's threads) apart.
+constexpr int kPathLevels = 16;
+constexpr int kPathStride = 128;
+
+// The integer cell of a corner at a leaf's resolution 2^sh a side, of its
+// clamped coordinate x: exact (a power-of-two scale and a truncation).
+__device__ __forceinline__ unsigned pow2_cell(float x, int sh) {
+  return static_cast<unsigned>(x * __int_as_float((sh + 127) << 23));
+}
+
 // The octree walk: descend, then the leaf's row.
 struct TreeWalk {
   static constexpr bool kBaked = false;
@@ -228,6 +240,103 @@ struct TreeWalk {
   __device__ __forceinline__ int32_t tree_cell(int32_t c) const { return c; }
   // No occupied box: the cube test stands.
   __device__ __forceinline__ bool cull(Ray&, bool hit) const { return hit; }
+
+  // What a sample's own descent keeps for its corners (K2+K4): the leaf's
+  // cell at its own resolution (descend_cell's), its level (n_levels where
+  // no leaf was found) and, at path[lvl * kPathStride], the node of each
+  // level it passed.
+  struct Keep {
+    int cx, cy, cz, level;
+    int32_t* path;
+  };
+
+  // lookup(), keeping what corner_row reuses.
+  __device__ __forceinline__ Leaf lookup_keep(float x, float y, float z, Keep& k) const {
+    x = clamp_coord(x);
+    y = clamp_coord(y);
+    z = clamp_coord(z);
+    const float Nf = static_cast<float>(N);
+    const float hi = static_cast<float>(N - 1);
+    int32_t node = 0;
+    float cube = Nf;
+    int32_t leaf = 0;
+    k.cx = k.cy = k.cz = 0;
+    k.level = n_levels;
+    for (int lvl = 0; lvl < n_levels; ++lvl) {
+      if (lvl < kPathLevels) k.path[lvl * kPathStride] = node;
+      const int u = level_step(x, Nf, hi);
+      const int v = level_step(y, Nf, hi);
+      const int w = level_step(z, Nf, hi);
+      k.cx = k.cx * N + u;
+      k.cy = k.cy * N + v;
+      k.cz = k.cz * N + w;
+      const int32_t flat = ((node * N + u) * N + v) * N + w;
+      const int32_t skip = __ldg(child + flat);
+      if (skip == 0) {
+        leaf = flat;
+        k.level = lvl;
+        break;
+      }
+      node += skip;
+      cube *= Nf;
+    }
+    Leaf l{leaf, cube, x, y, z};
+    l.row = __ldg(data + leaf);
+    return l;
+  }
+
+  // The row of a corner point (x, y, z) of a sample whose own descent kept
+  // k and found own_row: lookup(x, y, z).row bit for bit. For N a power of
+  // two the corner's descent follows the own one down to the first level m
+  // at which their cells' digits part (the corner's cell at the leaf's
+  // resolution differs from the own one by at most 1 on each axis, so
+  // usually at the last level or two): it starts at the own path's node of
+  // level m, the fraction there frac(x * N^m) computed at once (level_step
+  // is exact for such N: a scale by N, a floor, a subtraction), and a
+  // corner in the own cell takes the own row with no load. Any other N
+  // descends from the root.
+  __device__ __forceinline__ int32_t corner_row(float x, float y, float z, const Keep& k,
+                                                int32_t own_row) const {
+    x = clamp_coord(x);
+    y = clamp_coord(y);
+    z = clamp_coord(z);
+    int m = 0;
+    int32_t node = 0;
+    if ((N & (N - 1)) == 0) {
+      const int L = __ffs(N) - 1;
+      const int sh = L * (k.level + 1);
+      const unsigned diff = (pow2_cell(x, sh) ^ static_cast<unsigned>(k.cx)) |
+                            (pow2_cell(y, sh) ^ static_cast<unsigned>(k.cy)) |
+                            (pow2_cell(z, sh) ^ static_cast<unsigned>(k.cz));
+      if (diff == 0) return own_row;
+      const int bits = 32 - __clz(diff);
+      m = min(k.level + 1 - (L == 1 ? bits : (bits + L - 1) / L), kPathLevels - 1);
+      node = k.path[m * kPathStride];
+      const float nm = __int_as_float((L * m + 127) << 23);
+      x = x * nm;
+      y = y * nm;
+      z = z * nm;
+      x = x - floorf(x);
+      y = y - floorf(y);
+      z = z - floorf(z);
+    }
+    const float Nf = static_cast<float>(N);
+    const float hi = static_cast<float>(N - 1);
+    int32_t leaf = 0;
+    for (int lvl = m; lvl < n_levels; ++lvl) {
+      const int u = level_step(x, Nf, hi);
+      const int v = level_step(y, Nf, hi);
+      const int w = level_step(z, Nf, hi);
+      const int32_t flat = ((node * N + u) * N + v) * N + w;
+      const int32_t skip = __ldg(child + flat);
+      if (skip == 0) {
+        leaf = flat;
+        break;
+      }
+      node += skip;
+    }
+    return __ldg(data + leaf);
+  }
 };
 
 constexpr int kRowBits = 27;
@@ -356,6 +465,87 @@ struct Baked {
   }
 
   __device__ __forceinline__ int32_t tree_cell(int32_t c) const { return __ldg(src_map + c); }
+
+  // What a sample's own lookup keeps for its corners (K2+K4): its cell at
+  // the leaf's resolution (the finest-grid floor's leading depth + 1
+  // digits).
+  struct Keep {
+    int cx, cy, cz;
+  };
+
+  // The stage cells of a clamped point's finest-grid cell, as lookup()
+  // computes them.
+  __device__ __forceinline__ void stage_cells(float x, float y, float z, int& gx, int& gy, int& gz,
+                                              int& tx, int& ty, int& tz, int& mx, int& my, int& mz,
+                                              int& bx, int& by, int& bz) const {
+    if (log2N >= 0) {
+      const float Gf = static_cast<float>(G);
+      gx = min(static_cast<int>(x * Gf), G - 1);
+      gy = min(static_cast<int>(y * Gf), G - 1);
+      gz = min(static_cast<int>(z * Gf), G - 1);
+      tx = gx >> sh_top, ty = gy >> sh_top, tz = gz >> sh_top;
+      mx = (gx >> sh_brick) & (M1 - 1), my = (gy >> sh_brick) & (M1 - 1);
+      mz = (gz >> sh_brick) & (M1 - 1);
+      bx = gx & (Bk - 1), by = gy & (Bk - 1), bz = gz & (Bk - 1);
+    } else {
+      chain(x, D, gx);
+      chain(y, D, gy);
+      chain(z, D, gz);
+      const int st = G / R;
+      tx = gx / st, ty = gy / st, tz = gz / st;
+      mx = (gx / Bk) % M1, my = (gy / Bk) % M1, mz = (gz / Bk) % M1;
+      bx = gx % Bk, by = gy % Bk, bz = gz % Bk;
+    }
+  }
+
+  // lookup(), keeping the own cell for the corners (svox::corners_keep).
+  __device__ __forceinline__ Leaf lookup_keep(float x, float y, float z, Keep& k) const {
+    x = clamp_coord(x);
+    y = clamp_coord(y);
+    z = clamp_coord(z);
+    int gx, gy, gz, tx, ty, tz, mx, my, mz, bx, by, bz;
+    stage_cells(x, y, z, gx, gy, gz, tx, ty, tz, mx, my, mz, bx, by, bz);
+    int32_t cell = (tx * R + ty) * R + tz;
+    int32_t e = __ldg(top + cell);
+    if (mid_levels > 0) {
+      if (e < 0) {
+        const int32_t m = (((-e - 1) * M1 + mx) * M1 + my) * M1 + mz;
+        e = __ldg(mid + m);
+        cell = n_top + m;
+        if (e < 0) {
+          const int32_t f = (((-e - 1) * Bk + bx) * Bk + by) * Bk + bz;
+          e = __ldg(brick + f);
+          cell = n_top + n_mid + f;
+        }
+      }
+    } else if (brick_levels > 0 && e < 0) {
+      const int32_t b = (((-e - 1) * Bk + bx) * Bk + by) * Bk + bz;
+      e = __ldg(brick + b);
+      cell = n_top + b;
+    }
+    const int depth = static_cast<int>(static_cast<uint32_t>(e) >> kRowBits);
+    Leaf l;
+    l.flat = cell;
+    l.row = e & kRowMask;
+    if (log2N >= 0) {
+      const int below = log2N * (D - depth - 1);
+      k.cx = gx >> below, k.cy = gy >> below, k.cz = gz >> below;
+      l.cube_sz = __int_as_float(((depth + 1) * log2N + 127) << 23);
+      const float sx = x * l.cube_sz, sy = y * l.cube_sz, sz = z * l.cube_sz;
+      l.fx = sx - floorf(sx);
+      l.fy = sy - floorf(sy);
+      l.fz = sz - floorf(sz);
+    } else {
+      const int below = ipow(N, D - depth - 1);
+      k.cx = gx / below, k.cy = gy / below, k.cz = gz / below;
+      int g;
+      l.cube_sz = static_cast<float>(ipow(N, depth + 1));
+      l.fx = chain(x, depth + 1, g);
+      l.fy = chain(y, depth + 1, g);
+      l.fz = chain(z, depth + 1, g);
+    }
+    return l;
+  }
 
   // The exact cull against the occupied box: a ray that misses it, or an
   // inverted (empty) box, renders the background; the march ends at the
@@ -853,6 +1043,121 @@ __device__ __forceinline__ void interp_logits(const Corners& cn, const P feature
       if (c < nc) z[c] = z[c] + w * row_logit<FMT, KB>(f, c, nb, basis);
     }
   }
+}
+
+// ---------------------------------------------------------------------
+// K2+K4: the forward march's corners and corner rows (render_fwd.cuh's
+// interp instances only; K3+K4, K9+K4 and the tapes keep sample_corners and
+// interp_logits, so their code is unchanged).
+
+// sample_leaf through S::lookup_keep: the leaf, its step, and what the
+// sample's corners reuse.
+template <class S>
+__device__ __forceinline__ Leaf sample_leaf_keep(const S& s, const Ray& r, float t,
+                                                 float step_size, float& dt,
+                                                 typename S::Keep& k) {
+  float x, y, z;
+  sample_pos(r, t, x, y, z);
+  const Leaf l = s.lookup_keep(x, y, z, k);
+  dt = step_dt(s, l, r, step_size);
+  return l;
+}
+
+// sample_corners from the sample's own lookup (own, kept in k), bit for
+// bit. On each axis exactly one of b and b + 1 is the own cell (b = floor(p
+// * cube_sz - 0.5), the own cell floor(p * cube_sz) on the leaf's grid), so
+// one corner lies in the own leaf, whose row the own lookup found (kReuse
+// >= 1). The other 7 are looked up in the order of their offsets from it
+// (mask 1 to 7, the same for every thread of a warp, so no lane idles
+// while another looks up), by TreeWalk::corner_row, which starts on the
+// own descent's path (kReuse 2, the tree walk only), or S::lookup (kReuse
+// 1); the rows then return to corner
+// order (three conditional swaps of pairs, one per axis). Where a clamped
+// sample has neither b nor b + 1 as its cell on an axis, all 8 corners are
+// looked up.
+template <int kReuse, class S>
+__device__ __forceinline__ Corners corners_keep(const S& s, const Ray& r, float t, const Leaf& own,
+                                                const typename S::Keep& k, int M) {
+  float x, y, z;
+  sample_pos(r, t, x, y, z);
+  const float cube_sz = own.cube_sz;
+  const float gx = x * cube_sz - 0.5f, gy = y * cube_sz - 0.5f, gz = z * cube_sz - 0.5f;
+  const float bx = floorf(gx), by = floorf(gy), bz = floorf(gz);
+  const float wx = gx - bx, wy = gy - by, wz = gz - bz;
+  const float inv = 1.f / cube_sz;
+  Corners c;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int i = n >> 2, j = (n >> 1) & 1, kk = n & 1;
+    c.w[n] = ((i ? wx : 1.f - wx) * (j ? wy : 1.f - wy)) * (kk ? wz : 1.f - wz);
+  }
+  const int ibx = static_cast<int>(bx), iby = static_cast<int>(by), ibz = static_cast<int>(bz);
+  const bool known = (ibx == k.cx || ibx + 1 == k.cx) && (iby == k.cy || iby + 1 == k.cy) &&
+                     (ibz == k.cz || ibz + 1 == k.cz);
+  const int own_n = known ? ((ibx + 1 == k.cx) << 2) | ((iby + 1 == k.cy) << 1) | (ibz + 1 == k.cz) : 0;
+  int32_t rows[8];
+#pragma unroll
+  for (int mask = 0; mask < 8; ++mask) {
+    const int n = own_n ^ mask;
+    const float px = (bx + ((n >> 2) ? 1.5f : 0.5f)) * inv;
+    const float py = (by + (((n >> 1) & 1) ? 1.5f : 0.5f)) * inv;
+    const float pz = (bz + ((n & 1) ? 1.5f : 0.5f)) * inv;
+    if (mask == 0 && known) {
+      rows[0] = own.row;
+    } else if constexpr (kReuse >= 2) {
+      rows[mask] = s.corner_row(px, py, pz, k, own.row);
+    } else {
+      rows[mask] = s.lookup(px, py, pz).row;
+    }
+  }
+  // rows[mask] is corner own_n ^ mask's: swap the pairs along each axis
+  // on which the own corner is the upper one.
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    const bool flip = (own_n >> b) & 1;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      if (!(n & (1 << b))) {
+        const int32_t lo = rows[n], hi = rows[n | (1 << b)];
+        rows[n] = flip ? hi : lo;
+        rows[n | (1 << b)] = flip ? lo : hi;
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    c.row[n] = static_cast<uint32_t>(rows[n]) < static_cast<uint32_t>(M) ? rows[n] : -1;
+  }
+  return c;
+}
+
+// The sigma and pre-sigmoid colours of an interp sample of a three-colour
+// row with no spare column (kD = 4 or 28: RGBA, SH1, SH9) in one pass over
+// its corners, each corner's whole row loaded once in 16-, 8- or 4-byte
+// loads (load_row4) and only one corner's row live at a time: sigma =
+// sum_n w_n * row_n[kD - 1] and z[c] = sum_n w_n * color_logit(row_n, c),
+// each in corner order from 0, as interp_sum and interp_logits sum them.
+// basis must be ready (a rotation's, from the own row, before the pass).
+template <int FMT, int KB, int kD, class P>
+__device__ __forceinline__ float interp_row4_pass(const Corners& cn, const P features, int nb,
+                                                  const float* basis, float* z) {
+  float sigma = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) z[c] = 0.f;
+#pragma unroll 1
+  for (int n = 0; n < 8; ++n) {
+    const int32_t row = cn.row[n];
+    if (row < 0) continue;
+    const auto f = features + static_cast<size_t>(row) * kD;
+    float buf[kD];
+#pragma unroll
+    for (int e = 0; e < kD; e += 4) load_row4(f, buf, e);
+    const float w = cn.w[n];
+    sigma = sigma + w * buf[kD - 1];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) z[c] = z[c] + w * color_logit<FMT, KB, 4>(f, buf, c, nb, basis);
+  }
+  return sigma;
 }
 
 }  // namespace svox

@@ -65,7 +65,7 @@
 // round trip overlaps the next lookup (kLookAhead). Loading the next
 // sample's row into a second register row lost (more registers, fewer
 // resident warps). Width 1 (every other row: SH4, SH16, SG, ASG, spare
-// columns; and every interp instance) is the earlier loop's text, so it
+// columns) is the earlier loop's text, so it
 // compiles as before but for the few instances that spilled (kWide).
 // tools/render_fwd_ab.py times the designs, beside an earlier checkout's.
 //
@@ -81,14 +81,36 @@
 // Trilinear interpolation (K4): render_fwd_interp.cu and
 // render_fwd_baked_interp.cu define SVOX_INTERP 1 (svox_render_fwd_interp,
 // svox_render_fwd_baked_interp). Their rays are not culled (march_cull);
-// every sample, in an empty leaf too, reads its 8 corners
-// (svox::sample_corners, 8 lookups), sums sigma over them and, where it
-// composites, each color's pre-sigmoid sum as sum_n w_n * (basis . row_n)
-// (interp_sum, row_logit), so no interpolated D-wide row is held; the own
-// row (0 where it is empty) only picks the rotation, and the weight adds
-// into the own cell. Bound on an H100: as above, with 9 lookup chains per
-// sample instead of one; the 8 corner chains are independent, so their
-// latency overlaps.
+// every sample, in an empty leaf too, reads its 8 corners, sums sigma over
+// them and, where it composites, each color's pre-sigmoid sum as sum_n w_n
+// * (basis . row_n), so no interpolated D-wide row is held; the own row (0
+// where it is empty) only picks the rotation, and the weight adds into the
+// own cell. Bound on an H100: the corner lookups and rows. The earlier
+// loop made 9 lookups a sample, one after the other (each a loop with a
+// data-dependent exit; on the depth-9 tree walk 9 chains of about 11
+// dependent loads), and read every corner row a column at a time. The
+// redesign changes loads and their order, never the arithmetic or its
+// order. svox::corners_keep finds the corners from the sample's own lookup
+// (S::lookup_keep): the corner in the own cell takes the own row (lever 1;
+// on each axis one of b and b + 1 is the own cell), and on the tree walk
+// each other corner's descent may start on the own path (lever 2,
+// TreeWalk::corner_row: for N a power of two at the own path's node of the
+// first level whose digits part, usually the last one or two).
+// kCornerReuse picks the levers per structure, format and width. At width
+// 4 (the RGBA, SH1 and SH9 rows with no spare column, as nearest) a
+// corner's whole row moves in 16-, 8- or 4-byte loads, one corner's row
+// live at a time in the rolled corner loop, sigma and colours summed in
+// one pass. No lookup is made ahead (registers spent on overlap lose the
+// resident warps of a multi-wave march, as K2's lookup ahead showed) and
+// nothing is culled (a coarse empty leaf's corners reach a whole cell of
+// its size, so no box cull is exact). The interp instances keep ptxas's
+// own register limit: bounds of 4 and 5 blocks an SM for all of them
+// spilled 16-29 KB and cost the SH9 main path 5-15%. Under it two width-4
+// instances spill 24 bytes each (CUDA 12.8 for sm_90a: the tree walk's
+// int8 SH9 with weights, the bake's bf16 SH9 with rotations and weights);
+// at 6 blocks an SM (80 registers) they spill nothing but ran 11-12%
+// slower (`wide_interp`). tools/render_fwd_ab.py --interp times the
+// designs beside an earlier checkout's.
 
 #pragma once
 
@@ -141,6 +163,33 @@ struct Params {
 template <class S>
 constexpr bool kLookAhead = S::kBaked && svox::kFloatPool;
 
+// K2+K4's corner lookups (svox::corners_keep) by structure, format and
+// width: 2 reuses the own lookup's row and starts each other corner's
+// descent on the own path (the tree walk only, TreeWalk::corner_row), 1
+// only its row (each other corner a lookup from the root), 0 none
+// (svox::sample_corners, the earlier loop's 9 lookups). From
+// tools/render_fwd_ab.py --interp against the earlier kernel in turns
+// (PERF.md §6): at width 4 the tree walk gains most with both, the bake
+// with the row alone (its lookup is two loads; a reuse of the own lookup's
+// table entries lost 2% to the registers it kept); at width 1 the reuse
+// lost on the tree walk (up to 12% on SG9 and int8 SH9) and on the bake's
+// 25-term SG/ASG instances of the bf16 and int8 pools (7% on SG9), so those
+// keep the 9 lookups.
+template <class S, int FMT, int W>
+constexpr int kCornerReuse = W == 4 ? (S::kBaked ? 1 : 2)
+                                    : (S::kBaked && (svox::kFloatPool || FMT == svox::kSH) ? 1 : 0);
+
+static_assert(kThreads == svox::kPathStride, "a block's threads are its path stride");
+
+// The tree walk's per-thread slot of the own descent's path (shared memory,
+// svox::kPathLevels levels, svox::kPathStride apart). A template, so that
+// only the instances that read it hold the array.
+template <class S>
+__device__ __forceinline__ int32_t* path_slot() {
+  __shared__ int32_t path[svox::kPathLevels * svox::kPathStride];
+  return path + threadIdx.x;
+}
+
 // The 3x3 block of row r's rotation, tmats[r][:3, :3], into m (row major):
 // three 16-byte loads (kVec, tmats aligned to 16 bytes), or nine scalars.
 template <bool kVec>
@@ -159,18 +208,29 @@ __device__ __forceinline__ void load_rot(const float* tmats, int32_t r, float* m
   }
 }
 
+// The basis at the view direction rotated by m (row major, load_rot).
+template <int FMT, int BD, class P>
+__device__ __forceinline__ void rotated_basis(const P& p, const float* m, float vx, float vy, float vz,
+                                              int nb, float* basis) {
+  const float rx = (m[0] * vx + m[1] * vy) + m[2] * vz;
+  const float ry = (m[3] * vx + m[4] * vy) + m[5] * vz;
+  const float rz = (m[6] * vx + m[7] * vy) + m[8] * vz;
+  svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb, p.min_comp, p.max_comp, basis);
+}
+
 // FMT: svox::kRGBA / kSH / kSG / kASG. BD: basis capacity (0 for RGBA;
 // svox::basis_capacity). kRot: per-voxel rotation of the view direction by
 // tmats[row][:3, :3]. kWeights: accumulate weights into p.waccum (a
 // template parameter, so that the plain render keeps the leaf id out of
-// its live registers). W: the vector width of a nearest sample's row: 1
-// runs the earlier loop, which reads the row a column at a time, sigma
-// first (so do the interp instances); 4 (three colours, D = 3 * BD + 1, or
-// 4 for RGBA: n_color and D are constants) loads the whole row into
-// registers, 4 columns a load.
+// its live registers). W: the vector width of a sample's row: 1 runs the
+// earlier loop, which reads the row a column at a time, sigma first (so do
+// the interp instances, from each corner's row); 4 (three colours, D = 3 *
+// BD + 1, or 4 for RGBA: n_color and D are constants) loads the whole row
+// into registers, 4 columns a load (under interp each corner's row in turn,
+// sigma and colours in one pass).
 template <class S, int FMT, int BD, bool kRot, bool kWeights, int W>
 __device__ __forceinline__ void render_fwd_ray(const Params<S>& p) {
-  static_assert(W == 1 || (W == 4 && !svox::kInterp), "width 4 has nearest instances only");
+  static_assert(W == 1 || W == 4, "widths 1 and 4");
   constexpr int kB = FMT == svox::kRGBA ? 1 : BD;
   constexpr int kD = (FMT == svox::kRGBA ? 3 : 3 * BD) + 1;  // width 4's row
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -202,23 +262,51 @@ __device__ __forceinline__ void render_fwd_ray(const Params<S>& p) {
   float t = r.tmin;
   float L = 1.f;
   bool stopped = false;
-  if constexpr (W == 1) {
-    // The earlier loop, kept as it was so that it compiles as it did: the
-    // reference width 4 is timed and held against.
+  if constexpr (svox::kInterp) {
+    // K4: sigma and colors from the 8 corners, in every leaf; the own row
+    // (row 0 where it is empty, as in the JAX package) only rotates. The
+    // own lookup keeps what the corners reuse (svox::corners_keep,
+    // kCornerReuse); at width 4 each corner's row moves in 16-byte loads,
+    // one row live at a time, sigma and colours in one pass (the rotation's
+    // basis first, where any corner has a row).
+    constexpr int kReuse = kCornerReuse<S, FMT, W>;
+    typename S::Keep keep;
+    if constexpr (!S::kBaked && kReuse > 0) keep.path = path_slot<S>();
     for (int step = 0; step < p.max_steps; ++step) {
       float dt;
-      const svox::Leaf leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
+      svox::Leaf leaf;
+      svox::Corners cn;
+      if constexpr (kReuse == 0) {
+        leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
+        cn = svox::sample_corners(p.st, r, t, leaf.cube_sz, p.M);
+      } else {
+        leaf = svox::sample_leaf_keep(p.st, r, t, p.step_size, dt, keep);
+        cn = svox::corners_keep<kReuse>(p.st, r, t, leaf, keep, p.M);
+      }
       const int32_t idx = leaf.row;
-      if constexpr (svox::kInterp) {
-        // K4: sigma and colors from the 8 corners, in every leaf; the own row
-        // (row 0 where it is empty, as in the JAX package) only rotates.
-        const svox::Corners cn = svox::sample_corners(p.st, r, t, leaf.cube_sz, p.M);
-        const float sigma = svox::interp_sum(cn, [&](int32_t row) {
+      float sigma;
+      float z[W == 4 ? 3 : kMaxColor];
+      if constexpr (W == 4) {
+        if constexpr (FMT != svox::kRGBA && kRot) {
+          bool any = false;
+#pragma unroll
+          for (int n = 0; n < 8; ++n) any = any || cn.row[n] >= 0;
+          if (any) {
+            float m[9];
+            load_rot<true>(p.tmats, static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M) ? idx : 0, m);
+            rotated_basis<FMT, BD>(p, m, vx, vy, vz, nb, basis);
+          }
+        }
+        sigma = svox::interp_row4_pass<FMT, kB, kD>(cn, p.features, nb, basis, z);
+      } else {
+        sigma = svox::interp_sum(cn, [&](int32_t row) {
           return svox::ld(p.features + static_cast<size_t>(row) * p.D + p.D - 1);
         });
-        if (sigma > p.sigma_thresh) {
-          const float att = expf((-dt * r.ds) * sigma);
-          const float weight = L * (1.f - att);
+      }
+      if (sigma > p.sigma_thresh) {
+        const float att = expf((-dt * r.ds) * sigma);
+        const float weight = L * (1.f - att);
+        if constexpr (W == 1) {
           if constexpr (FMT != svox::kRGBA && kRot) {
             const int32_t gi = static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M) ? idx : 0;
             const float* m = p.tmats + static_cast<size_t>(gi) * 16;
@@ -228,20 +316,30 @@ __device__ __forceinline__ void render_fwd_ray(const Params<S>& p) {
             svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, nb,
                                       p.min_comp, p.max_comp, basis);
           }
-          float z[kMaxColor];
           svox::interp_logits<FMT, kB, kMaxColor>(cn, p.features, p.D, nc, nb, basis, z);
-#pragma unroll
-          for (int c = 0; c < kMaxColor; ++c) {
-            if (c < nc) acc[c] = acc[c] + weight * svox::sigmoid(z[c]);
-          }
-          if constexpr (kWeights) atomicAdd(p.waccum + p.st.tree_cell(leaf.flat), weight);
-          L = L * att;
-          if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
-            stopped = true;
-            break;
-          }
         }
-      } else if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
+#pragma unroll
+        for (int c = 0; c < (W == 4 ? 3 : kMaxColor); ++c) {
+          if (c < nc) acc[c] = acc[c] + weight * svox::sigmoid(z[c]);
+        }
+        if constexpr (kWeights) atomicAdd(p.waccum + p.st.tree_cell(leaf.flat), weight);
+        L = L * att;
+        if (p.stop_thresh > 0.f && L <= p.stop_thresh) {
+          stopped = true;
+          break;
+        }
+      }
+      t = t + dt;
+      if (!(t < r.tmax)) break;
+    }
+  } else if constexpr (W == 1) {
+    // The earlier loop, kept as it was so that it compiles as it did: the
+    // reference width 4 is timed and held against.
+    for (int step = 0; step < p.max_steps; ++step) {
+      float dt;
+      const svox::Leaf leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
+      const int32_t idx = leaf.row;
+      if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
         // Rows >= M (and negative rows) are empty space. Their sigma is 0 and
         // a sample with sigma 0 adds weight 0 and leaves L unchanged, so it is
         // skipped.
@@ -450,7 +548,7 @@ cudaError_t launch_rot(const Params<S>& p, cudaStream_t stream) {
 template <class S, int FMT, int BD>
 cudaError_t launch(const Params<S>& p, cudaStream_t stream) {
   if (p.width == 1) return launch_rot<S, FMT, BD, 1>(p, stream);
-  if constexpr (!svox::kInterp && (FMT == svox::kRGBA || (FMT == svox::kSH && (BD == 1 || BD == 9)))) {
+  if constexpr (FMT == svox::kRGBA || (FMT == svox::kSH && (BD == 1 || BD == 9))) {
     constexpr int kD3 = (FMT == svox::kRGBA ? 3 : 3 * BD) + 1;
     if (p.n_color == 3 && p.D == kD3) return launch_rot<S, FMT, BD, 4>(p, stream);
   }

@@ -88,6 +88,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import weakref
 
 import numpy as np
 import torch
@@ -108,6 +109,49 @@ __all__ = ["VolumeRenderer", "Rays", "NDCConfig", "convert_to_ndc"]
 # Cost plans a renderer keeps (plan_persp, the union plan): the oldest
 # goes once there are more.
 _PLAN_CACHE_MAX = 32
+
+
+class _TensorKey:
+    """A CUDA tensor as a part of a dynamic cache key (`_key_part`): its
+    identity, its in-place version counter (``Tensor._version``), shape,
+    dtype and device, with no copy of its contents. The key holds a weak
+    reference and compares identities with ``is``: Python reuses an ``id``
+    once its object is gone, so the ``id`` alone could match another
+    tensor. An in-place edit through torch bumps the version, so the key
+    misses; a tensor with equal contents but another identity misses too (a
+    new record, never a stale one). A write that bypasses the counter
+    (through ``.data`` or a raw pointer) is not seen: such a caller passes
+    its tape in."""
+
+    __slots__ = ("ref", "sig")
+
+    def __init__(self, t: torch.Tensor):
+        self.ref = weakref.ref(t)
+        self.sig = (id(t), t._version, tuple(t.shape), t.dtype, t.device)
+
+    def __hash__(self):
+        return hash(self.sig)
+
+    def __eq__(self, other):
+        if not isinstance(other, _TensorKey) or self.sig != other.sig:
+            return False
+        t = self.ref()
+        return t is not None and t is other.ref()
+
+
+def _key_part(x, dtype):
+    """A part of a dynamic cache key: a CUDA tensor by identity and version
+    (`_TensorKey`: its contents stay on the card, unhashed); a CPU tensor, a
+    NumPy array or a list by an MD5 of its contents as ``dtype`` and its
+    shape. A CPU tensor may share its memory with a NumPy array
+    (``torch.from_numpy``), whose edits bump no version, and costs no copy
+    from the card to hash."""
+    if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            return _TensorKey(x)
+        x = x.detach().numpy()
+    a = np.ascontiguousarray(np.asarray(x, dtype=dtype))
+    return (a.shape, hashlib.md5(a.tobytes()).hexdigest())
 
 
 def _inverse_perm(perm: torch.Tensor) -> torch.Tensor:
@@ -632,7 +676,8 @@ class VolumeRenderer(nn.Module):
         """A camera plan against the animation's union occupancy
         (`_dyn_union`: every frame's re-point, on the bake the union box),
         cached on the camera, the size, the options, ``block``, the
-        animation's arrays and the tree's layout version. A ray cheap under
+        animation's arrays and the tree's layout and index-table versions
+        (`_dyn_cache_key`). A ray cheap under
         the union is cheap in every frame, so no frame of the animation
         makes it stale. A per-frame pool stack is costed with each point's
         largest density over the frames."""
@@ -653,7 +698,7 @@ class VolumeRenderer(nn.Module):
         bs = int(block)
         if bs < 1 or int(width) % bs or int(height) % bs:
             bs = 1
-        plan = self._plan_persp_core(spec_u, opt, parts[0], width, height, fx, fy, Q, sigmas, bs)
+        plan = self._plan_persp_core(spec_u, opt, c2w, width, height, fx, fy, Q, sigmas, bs)
         self._plan_cache_put(key, plan)
         return plan
 
@@ -876,21 +921,28 @@ class VolumeRenderer(nn.Module):
 
     @staticmethod
     def _dyn_parts(c2w, tgt_poses, src_pose, points, skinning_weights, joint_index):
-        """The camera and the animation's arrays as host NumPy arrays, the
-        parts of a dynamic cache key (`_dyn_cache_key`)."""
-        host = lambda x, dtype: torch.as_tensor(x).detach().cpu().numpy().astype(dtype)  # noqa: E731
-        return (host(c2w, np.float32), host(tgt_poses, np.float32), host(src_pose, np.float32),
-                host(points, np.float32), host(skinning_weights, np.float32),
-                host(joint_index, np.int32))
+        """The camera and the animation's arrays as parts of a dynamic cache
+        key (`_dyn_cache_key`): CUDA tensors by identity and version, CPU
+        tensors, NumPy arrays and lists by an MD5 of their contents
+        (`_key_part`)."""
+        return (_key_part(c2w, np.float32), _key_part(tgt_poses, np.float32),
+                _key_part(src_pose, np.float32), _key_part(points, np.float32),
+                _key_part(skinning_weights, np.float32), _key_part(joint_index, np.int32))
 
     def _dyn_cache_key(self, tag, parts):
-        """A dynamic tape's cache key: ``tag``, an MD5 of the animation's
-        arrays (copied to the host and hashed on every call, as in the JAX
-        package) and the tree's layout version."""
-        h = hashlib.md5()
-        for p in parts:
-            h.update(np.ascontiguousarray(p).tobytes())
-        return (tag, h.hexdigest(), self.tree._ver)
+        """A dynamic tape's or union plan's cache key: ``tag``, the parts
+        (`_dyn_parts`), the tree's layout version and its index table's
+        version: a tape recorded against one table's union is stale once
+        the table changes."""
+        return (tag, parts, self.tree._ver, self.tree._occ_ver)
+
+    def _dyn_tape_key(self, parts, width, height, fx, fy, compact, record_t):
+        if fy is None:
+            fy = fx
+        opt = self._dyn_geom_options(False)
+        return self._dyn_cache_key(
+            ("dyn", int(width), int(height), float(fx), float(fy), bool(compact), bool(record_t),
+             (float(opt.step_size), int(opt.max_steps), int(opt.interp))), parts)
 
     def record_dynamic_rays(self, rays: Rays, tgt_poses, src_pose, points,
                             skinning_weights, joint_index, compact=True,
@@ -913,19 +965,23 @@ class VolumeRenderer(nn.Module):
         an animation: one structure walk serves every frame of
         `render_dynamic_tape_frames`. The cache key covers the camera, the
         image size, compaction, record_t, the geometry, the tree's layout
-        version and the animation's arrays; a ``record_t=True`` tape also
+        and index-table versions and the animation's arrays
+        (`_dyn_cache_key`); a ``record_t=True`` tape also
         serves ``record_t=False`` requests. ``group_size`` is accepted for
         the JAX API and ignored."""
         del group_size
+        parts = self._dyn_parts(c2w, tgt_poses, src_pose, points, skinning_weights, joint_index)
+        return self._record_dynamic_persp(parts, c2w, tgt_poses, src_pose, points, skinning_weights,
+                                          joint_index, width, height, fx, fy, compact, record_t)
+
+    def _record_dynamic_persp(self, parts, c2w, tgt_poses, src_pose, points, skinning_weights,
+                              joint_index, width, height, fx, fy, compact, record_t):
         if fy is None:
             fy = fx
         opt = self._dyn_geom_options(False)
-        parts = self._dyn_parts(c2w, tgt_poses, src_pose, points, skinning_weights, joint_index)
 
         def mk_key(rt):
-            return self._dyn_cache_key(
-                ("dyn", int(width), int(height), float(fx), float(fy), bool(compact), rt,
-                 (float(opt.step_size), int(opt.max_steps), int(opt.interp))), parts)
+            return self._dyn_tape_key(parts, width, height, fx, fy, compact, rt)
 
         key = mk_key(bool(record_t))
         hit = self._tape_cache.get(key)
@@ -976,11 +1032,18 @@ class VolumeRenderer(nn.Module):
         if tape is None and (rays is None) == (c2w is None):
             raise ValueError("pass exactly one of rays and c2w (or an explicit tape)")
         self._check_no_accumulator("render_dynamic_tape_frames")
+        del group_size
+        tape_key = None
         if tape is None:
             if c2w is not None:
-                tape = self.record_dynamic_persp(c2w, tgt_poses, src_pose, points, skinning_weights,
-                                                 joint_index, width, height, fx, fy, compact=compact,
-                                                 group_size=group_size, record_t=with_depth)
+                parts = self._dyn_parts(c2w, tgt_poses, src_pose, points, skinning_weights, joint_index)
+                tape = self._record_dynamic_persp(parts, c2w, tgt_poses, src_pose, points,
+                                                  skinning_weights, joint_index, width, height, fx,
+                                                  fy, compact, with_depth)
+                rt = tape.tval is not None
+
+                def tape_key():
+                    return self._dyn_tape_key(parts, width, height, fx, fy, compact, rt)
             else:
                 tape = self.record_dynamic_rays(rays, tgt_poses, src_pose, points, skinning_weights,
                                                 joint_index, compact=compact, record_t=with_depth)
@@ -1023,8 +1086,17 @@ class VolumeRenderer(nn.Module):
                 # the tree's bake keeps its old rows: its box joins the union
                 old = self.tree._cached_baked
                 lo, hi = torch.minimum(lo, old.aabb_lo), torch.maximum(hi, old.aabb_hi)
+            old_key = tape_key() if tape_key is not None else None
             self.tree._adopt_data_flat(spec, spec.data_flat, lo if keep_box else None,
                                        hi if keep_box else None)
+            # Re-file the camera's tape under the adopted table's version.
+            # The union this animation makes from that table is the one the
+            # tape was recorded on: its frames write the same cells and stale
+            # pointers keep the rest; on the bake the refresh reads only the
+            # table, and the carried box already holds the frames' leaf boxes.
+            if old_key is not None and (self.backend == "tree" or keep_box):
+                self._tape_cache.pop(old_key, None)
+                self._tape_cache_put(tape_key(), tape)
 
         def _finish(outs):
             out = torch.stack(outs)

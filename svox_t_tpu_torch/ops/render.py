@@ -141,9 +141,9 @@ RENDER_FWD, RENDER_FWD_BAKED, RENDER_FWD_INTERP, RENDER_FWD_BAKED_INTERP = _FWD_
 RENDER_BWD, RENDER_BWD_BAKED, RENDER_BWD_INTERP, RENDER_BWD_BAKED_INTERP = _BWD_INSTANCES["f32"]
 (RENDER_BWD_BF16, RENDER_BWD_BAKED_BF16, RENDER_BWD_INTERP_BF16,
  RENDER_BWD_BAKED_INTERP_BF16) = _BWD_INSTANCES["bf16"]
-# K2's launches by the vector width in which a nearest sample's row moves
-# (`render_fwd_width`; the interp instances run width 1), beside their
-# counts, every structure and pool type.
+# K2's launches by the vector width in which a sample's row (nearest) or
+# its corners' rows (interp) move (`render_fwd_width`), beside their counts,
+# every structure and pool type.
 FWD_WIDTH_LAUNCHES = {1: 0, 4: 0}
 # Color channels the kernels hold in registers, and the largest basis.
 KERNEL_MAX_COLORS = 16
@@ -967,7 +967,7 @@ def _vector_row(fmt: int, basis_dim: int, D: int) -> bool:
 
 def render_fwd_width(fmt: int, basis_dim: int, D: int, pool_ptr: int, pool_elem: int,
                      scale_ptrs=()) -> int:
-    """The vector width of a nearest K2 launch (and of K13c's): 4 for the
+    """The vector width of a K2 launch, nearest or interp (and of K13c's): 4 for the
     three-colour rows with no spare column when the pool (``pool_ptr``,
     ``pool_elem`` bytes a value) is aligned to 4 values and the float32
     ``scale_ptrs`` (an int8 pool's scale and zero; K2's rotation matrices,
@@ -977,10 +977,8 @@ def render_fwd_width(fmt: int, basis_dim: int, D: int, pool_ptr: int, pool_elem:
 
 
 def _fwd_width(spec, features, opt: RenderOptions) -> int:
-    """`render_fwd_width` of a K2 launch on ``spec`` and ``features``
-    (1 under interp, whose instances have no other)."""
-    if opt.interp:
-        return 1
+    """`render_fwd_width` of a K2 launch on ``spec`` and ``features``, nearest
+    or interp (K2+K4 reads each corner's row at the same widths)."""
     q, ptrs = features, []
     if isinstance(features, QuantizedFeatures):
         q, ptrs = features.q, [features.scale.data_ptr(), features.zero.data_ptr()]

@@ -1445,8 +1445,8 @@ def test_render_fwd_widths_match(cuda, backend, case):
 def test_render_fwd_misaligned_pointers_take_width_1(cuda):
     """A pool view off its 16-byte alignment, an int8 pool whose scale is
     off it, or rotation matrices off it take width 1 (and width 4 on them
-    raises), with the aligned launch's output bit for bit; so do interp
-    launches, whose instances have width 1 only."""
+    raises), with the aligned launch's output bit for bit, nearest and
+    interp (K2+K4 has both widths since its redesign)."""
     tree, spec, feats, _, o, d = _tape_scene(cuda, "baked", seed=71)
     opt = stt.VolumeRenderer(tree)._get_options(False)
     M, D = feats.shape
@@ -1469,9 +1469,86 @@ def test_render_fwd_misaligned_pointers_take_width_1(cuda):
         with pytest.raises(RuntimeError, match="CUDA error"):
             trender.volume_render_cuda(sp, pool, o, d, d, opt, width=4)
     interp = dataclasses.replace(opt, interp=1)
-    assert trender._fwd_width(spec, feats, interp) == 1
+    assert trender._fwd_width(spec, shifted, interp) == 1 and trender._fwd_width(spec, feats, interp) == 4
+    want = trender.volume_render_cuda(spec, feats, o, d, d, interp)
+    assert torch.equal(trender.volume_render_cuda(spec, shifted, o, d, d, interp), want)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        trender.volume_render_cuda(spec, feats, o, d, d, interp, width=4)
+        trender.volume_render_cuda(spec, shifted, o, d, d, interp, width=4)
+
+
+# K2+K4's widths (the redesigned trilinear march: the own corner's row and
+# the own lookup's loads reused, the corner rows in 16-byte vectors at width
+# 4), each against width 1 and the plain version: (format, data_dim, width,
+# rotations).
+INTERP_FWD_CASES = {"sh9": ("SH9", 28, 4, False), "sh9_rot": ("SH9", 28, 4, True),
+                    "rgba": ("RGBA", 4, 4, False), "sh1_rot": ("SH1", 4, 4, True),
+                    "sh4_rot": ("SH4", 13, 1, True), "sg9": ("SG9", 28, 1, False),
+                    "sg9_rot": ("SG9", 28, 1, True)}
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("case", list(INTERP_FWD_CASES))
+def test_render_fwd_interp_widths_match(cuda, backend, case):
+    """K2+K4 on a pool cut to 70% of the leaves (empty corners), float32,
+    bf16 and int8, exact, fast and with a small max_steps, with and without
+    weights: width 4 equals width 1 bit for bit where the row has it (the
+    weights at the atomic tolerance), the launch takes `render_fwd_width`'s
+    width and counts it, width 4 on any other row raises, and each pool's
+    width-1 output equals the float32 kernel's on the widened or dequantized
+    pool; float32 against the plain version."""
+    fmt, ddim, width, rot = INTERP_FWD_CASES[case]
+    tree, spec, feats, _, o, d = _tape_scene(cuda, backend, fmt=fmt, ddim=ddim, seed=72)
+    feats = feats[: int(feats.shape[0] * 0.7)].contiguous()
+    if rot:
+        spec = spec.with_(transformation_matrices=_qr_rotations(feats.shape[0], 72).to(cuda))
+    r = stt.VolumeRenderer(tree, backend=backend, interp="trilinear")
+    base = r._get_options(False)
+    opts = {"exact": base, "fast": r._get_options(True), "max_steps": dataclasses.replace(base, max_steps=5)}
+    for name, o_ in opts.items():
+        for kind, p in _fwd_pools(feats):
+            label = f"{case} {backend} {kind} {name}"
+            for weights in (False, True):
+                before = trender.FWD_WIDTH_LAUNCHES[width]
+                out, w = _march(spec, p, o, d, o_, weights)
+                torch.cuda.synchronize()
+                assert trender.FWD_WIDTH_LAUNCHES[width] == before + 1, label
+                out1, w1 = _march(spec, p, o, d, o_, weights, width=1)
+                assert torch.equal(out, out1), label
+                if weights:
+                    _assert_atomic_close(w, w1)
+                if width == 1:
+                    with pytest.raises(RuntimeError, match="CUDA error"):
+                        _march(spec, p, o, d, o_, weights, width=4)
+            wide = p.float() if kind != "i8" else p.q.float() * p.scale + p.zero
+            assert torch.equal(out, _march(spec, wide.contiguous(), o, d, o_, False)[0]), label
+            if kind == "f32":
+                torch.testing.assert_close(out, trender.volume_render_plain(spec, p, o, d, d, o_),
+                                           atol=ATOL, rtol=0)
+    assert float(out[:, -1].max()) > 0.5
+
+
+@pytest.mark.parametrize("case", ["sh9_rot", "sg9_rot", "rgba"])
+def test_render_fwd_interp_tree_equals_bake(cuda, case):
+    """K2+K4's tree walk (its corners' descents from the own path) and bake
+    (its corners reusing the own lookup's entries) give the same exact
+    outputs bit for bit, float32, bf16 and int8, with and without weights
+    (the weights, summed per tree cell, at the atomic tolerance)."""
+    fmt, ddim, _, rot = INTERP_FWD_CASES[case]
+    tree, spec, feats, _, o, d = _tape_scene(cuda, "tree", fmt=fmt, ddim=ddim, seed=73)
+    feats = feats[: int(feats.shape[0] * 0.7)].contiguous()
+    baked = tree._baked_spec()
+    if rot:
+        tm = _qr_rotations(feats.shape[0], 73).to(cuda)
+        spec, baked = spec.with_(transformation_matrices=tm), baked.with_(transformation_matrices=tm)
+    opt = stt.VolumeRenderer(tree, interp="trilinear")._get_options(False)
+    for kind, p in _fwd_pools(feats):
+        for weights in (False, True):
+            got_t, w_t = _march(spec, p, o, d, opt, weights)
+            got_b, w_b = _march(baked, p, o, d, opt, weights)
+            assert torch.equal(got_t, got_b), f"{case} {kind} weights={weights}"
+            if weights:
+                _assert_atomic_close(w_b, w_t)
+    assert float(got_t[:, -1].max()) > 0.5
 
 
 # ---------------------------------------------------------------------------
@@ -1839,6 +1916,54 @@ def test_render_dynamic_tape_frames_uses_the_kernels(cuda, backend, compact):
         want_c, want_d = r.render_dynamic_frames(feats, poses, src, centers_np, sw, ji, fast=fast, **kw)
         assert torch.equal(cols, want_c) and torch.equal(deps, want_d)
         assert (deps > 0).any()
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+def test_dynamic_tape_cache_key_on_the_card(cuda, backend):
+    """The dynamic tape's cache key (D1): the same animation twice with
+    update_tree=True records once (the record kernels launch once; the tape
+    is re-filed under the adopted table's version), its tape equal to a
+    fresh record bit for bit; another animation adopted in between makes
+    the next call record again; CUDA tensors key by identity and version,
+    so an in-place edit records again, as does an equal tensor of another
+    identity, and the same tensor unedited hits."""
+    state, feats_np, centers_np = build_shell_tree(depth=5, data_format="SH4", data_dim=13, seed=6)
+    joints = np.random.RandomState(6).uniform(0.3, 0.7, (6, 3)).astype(np.float32)
+    sw, ji = skin_to_nearest_joints(centers_np, joints, 4)
+    poses = joint_pose_sequence(joints, 3, seed=6)
+    other = joint_pose_sequence(joints, 3, seed=7)
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+            for x in (poses, np.tile(np.eye(4, dtype=np.float32), (6, 1, 1)), centers_np, sw, ji)]
+    feats = torch.from_numpy(feats_np).to(cuda)
+    tree = stt.tree_from_numpy(state, device=cuda)
+    r = stt.VolumeRenderer(tree, backend=backend)
+    kw = dict(c2w=orbit_camera(), width=64, height=48, fx=70.0)
+    rec = ttape.TAPE_RECORD_BAKED if backend == "baked" else ttape.TAPE_RECORD
+    before = rec.launches
+    r.render_dynamic_tape_frames(feats, *args, **kw)
+    r.render_dynamic_tape_frames(feats, *args, **kw)
+    torch.cuda.synchronize()
+    assert rec.launches == before + 1
+    tape = r.record_dynamic_persp(kw["c2w"], *args, 64, 48, 70.0)
+    assert rec.launches == before + 1
+    fresh = stt.VolumeRenderer(tree, backend=backend).record_dynamic_persp(kw["c2w"], *args, 64, 48, 70.0)
+    for f in dataclasses.fields(tape):
+        a, b = getattr(tape, f.name), getattr(fresh, f.name)
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b, f.name
+    r.render_dynamic_tape_frames(feats, torch.from_numpy(other).to(cuda), *args[1:], **kw)
+    got = r.render_dynamic_tape_frames(feats, *args, update_tree=False, **kw)
+    want = stt.VolumeRenderer(tree, backend=backend).render_dynamic_tape_frames(feats, *args, update_tree=False, **kw)
+    assert torch.equal(got, want)
+    n = rec.launches
+    args[2].add_(0.0)
+    r.render_dynamic_tape_frames(feats, *args, update_tree=False, **kw)
+    torch.cuda.synchronize()
+    assert rec.launches == n + 1
+    r.render_dynamic_tape_frames(feats, *args, update_tree=False, **kw)
+    args[2] = args[2].clone()
+    r.render_dynamic_tape_frames(feats, *args, update_tree=False, **kw)
+    torch.cuda.synchronize()
+    assert rec.launches == n + 2
 
 
 # ---------------------------------------------------------------------------

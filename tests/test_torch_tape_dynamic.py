@@ -22,6 +22,8 @@ march skips), and fast mode does so against `render_dynamic_frames` with
 (tests/test_tape_dynamic.py). The JAX results are computed once per module.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ import torch
 import svox_t_tpu as st
 import svox_t_tpu_torch as stt
 from svox_t_tpu_torch.ops import query as tquery
+from svox_t_tpu_torch.ops import tape as tape_ops
 
 ATOL = 1e-5
 IMG_ATOL = 3e-5
@@ -372,3 +375,180 @@ def test_dynamic_tape_guards(scene):
     tree.refine(sel=tuple(tree._all_leaves()[:1].T))
     with pytest.raises(ValueError, match="STRUCTURE"):
         r.render_dynamic_tape_frames(f, *s.lbs(), tape=no_t, update_tree=False)
+
+
+# ---------------------------------------------------------------------------
+# The dynamic cache key (D1): the index table's version, the re-file after
+# the renderer's own adoption, tensors by identity and in-place version.
+
+
+def _poses_b(poses):
+    """Animation B: animation A with joint 1 moved to (-0.1, -0.15 - 0.05 k, 0)
+    in frame k."""
+    b = poses.copy()
+    for k in range(len(b)):
+        b[k, 1, :3, 3] = (-0.1, -0.15 - 0.05 * k, 0.0)
+    return b
+
+
+def _tapes_equal(a, b):
+    """Every stream and field of two tapes, bit for bit."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            assert isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor), f.name
+            assert torch.equal(x, y), f.name
+        else:
+            assert x == y, f.name
+
+
+def _specs_equal(a, b):
+    """Every table, box and field of two render structures, bit for bit."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, torch.Tensor):
+            assert torch.equal(x, y), f.name
+        elif not isinstance(x, np.ndarray):
+            assert x == y, f.name
+
+
+def test_dynamic_tape_stale_table_repro(scene):
+    """ROADMAP's D1 repro: animation A, then B, both with update_tree=True
+    (each adopts its last frame's table), then A with update_tree=False,
+    equals a fresh renderer's image on the same tree exactly. Keyed on the
+    layout version alone, the third call replayed the tape recorded against
+    the first table's union (363 of 960 pixels off by up to 0.892)."""
+    s = scene
+    tree = s.port_tree()
+    r = _nofast_box(stt.VolumeRenderer(tree, backend="tree"))
+    f = _t(s.rgba)
+    poses_b = _poses_b(s.poses)
+    kw = dict(c2w=s.c2w, width=W, height=H, fx=FX)
+    lbs_b = (poses_b,) + s.lbs()[1:]
+    r.render_dynamic_tape_frames(f, *s.lbs(), update_tree=True, **kw)
+    r.render_dynamic_tape_frames(f, *lbs_b, update_tree=True, **kw)
+    got = r.render_dynamic_tape_frames(f, *s.lbs(), update_tree=False, **kw)
+    fresh = _nofast_box(stt.VolumeRenderer(tree, backend="tree"))
+    want = fresh.render_dynamic_tape_frames(f, *s.lbs(), update_tree=False, **kw)
+    assert got.shape == (T_FRAMES, H, W, 4)
+    assert torch.equal(got, want)
+    fused = fresh.render_dynamic_frames(f, *s.lbs(), update_tree=False, **kw)
+    assert torch.equal(got, fused)
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+def test_dynamic_tape_refiled_after_adoption(scene, monkeypatch, backend):
+    """The same animation twice with update_tree=True records once: the
+    first call re-files its tape under the adopted table's version. The
+    union the animation makes from the adopted table equals the one the
+    tape was recorded on, and the re-filed tape equals a fresh record on
+    the adopted tree, bit for bit."""
+    s = scene
+    tree = s.port_tree()
+    r = stt.VolumeRenderer(tree, backend=backend)
+    calls = []
+    record = tape_ops.record_tape
+
+    def counting(*a, **k):
+        calls.append(1)
+        return record(*a, **k)
+
+    monkeypatch.setattr(tape_ops, "record_tape", counting)
+    f = _t(s.rgba)
+    kw = dict(c2w=s.c2w, width=W, height=H, fx=FX, with_depth=True)
+    union_before = r._dyn_union(*s.lbs())[0]
+    first = r.render_dynamic_tape_frames(f, *s.lbs(), **kw)
+    v = tree._occ_ver
+    union_after = r._dyn_union(*s.lbs())[0]
+    _specs_equal(union_before, union_after)
+    tape = r.record_dynamic_persp(s.c2w, *s.lbs(), width=W, height=H, fx=FX, record_t=True)
+    assert len(calls) == 1 and len(r._tape_cache) == 1
+    second = r.render_dynamic_tape_frames(f, *s.lbs(), **kw)
+    assert len(calls) == 1 and tree._occ_ver == v + 1 and len(r._tape_cache) == 1
+    assert r.record_dynamic_persp(s.c2w, *s.lbs(), width=W, height=H, fx=FX, record_t=True) is tape
+    fresh = stt.VolumeRenderer(tree, backend=backend).record_dynamic_persp(
+        s.c2w, *s.lbs(), width=W, height=H, fx=FX, record_t=True)
+    assert len(calls) == 2
+    _tapes_equal(tape, fresh)
+    assert first[0].shape == second[0].shape == (T_FRAMES, H, W, 4)
+
+
+def _counting_records(monkeypatch):
+    """A list that gains an entry at each `tape.record_tape` call."""
+    calls = []
+    record = tape_ops.record_tape
+
+    def counting(*a, **k):
+        calls.append(1)
+        return record(*a, **k)
+
+    monkeypatch.setattr(tape_ops, "record_tape", counting)
+    return calls
+
+
+def test_dynamic_cache_key_tensors(scene, monkeypatch):
+    """CPU tensors, NumPy arrays and lists key by their contents: the same
+    or equal tensors of another identity hit, an in-place edit that leaves
+    the contents as they were hits, one that changes them re-records, as
+    does an edit of a NumPy array that a tensor shares
+    (``torch.from_numpy``), which bumps no version. The union plan takes the
+    same key. (CUDA tensors key by identity and version:
+    `test_tensor_key_identity_and_version` here, and on the card
+    tests/test_torch_cuda.py `test_dynamic_tape_cache_key_on_the_card`.)"""
+    s = scene
+    r = stt.VolumeRenderer(s.port_tree())
+    calls = _counting_records(monkeypatch)
+    cam = dict(width=W, height=H, fx=FX)
+    poses, src, pts, sw, ji = (_t(x) for x in s.lbs())
+    c2w_t = _t(s.c2w)
+    tp = r.record_dynamic_persp(c2w_t, poses, src, pts, sw, ji, **cam)
+    assert len(calls) == 1
+    assert r.record_dynamic_persp(_t(s.c2w), poses, src, pts.clone(), sw, ji, **cam) is tp
+    pts.add_(0.0)
+    assert r.record_dynamic_persp(c2w_t, poses, src, pts, sw, ji, **cam) is tp
+    assert len(calls) == 1
+    pts[0, 0] += 1e-3
+    again = r.record_dynamic_persp(c2w_t, poses, src, pts, sw, ji, **cam)
+    assert again is not tp and len(calls) == 2
+    shared = np.array(s.lbs()[2], copy=True)
+    pts_np = torch.from_numpy(shared)
+    tp_np = r.record_dynamic_persp(c2w_t, poses, src, pts_np, sw, ji, **cam)
+    assert tp_np is tp and len(calls) == 2
+    shared[0, 0] += 1e-3
+    assert pts_np._version == 0
+    assert r.record_dynamic_persp(c2w_t, poses, src, pts_np, sw, ji, **cam) is again
+    assert len(calls) == 2
+    shared[1, 1] += 1e-3
+    assert r.record_dynamic_persp(c2w_t, poses, src, pts_np, sw, ji, **cam) is not again
+    assert len(calls) == 3
+    host = [np.array(x, copy=True) for x in s.lbs()]
+    tp_host = r.record_dynamic_persp(s.c2w.tolist(), *host, **cam)
+    assert tp_host is tp and len(calls) == 3
+    host[2][0, 0] += 1e-3
+    assert r.record_dynamic_persp(s.c2w.copy(), *host, **cam) is again
+    assert len(calls) == 3
+    plan = r._plan_dyn_union(c2w_t, W, H, FX, FX, False, poses, src, pts, sw, ji, None, block=1)
+    assert r._plan_dyn_union(c2w_t, W, H, FX, FX, False, poses, src, pts.clone(), sw, ji, None, block=1) is plan
+    sw.mul_(0.5)
+    assert r._plan_dyn_union(c2w_t, W, H, FX, FX, False, poses, src, pts, sw, ji, None, block=1) is not plan
+
+
+def test_tensor_key_identity_and_version():
+    """The key of a CUDA tensor (`_TensorKey`, shown here on CPU tensors):
+    equal for the same tensor at the same version, unequal after an
+    in-place edit (its version bumps, even where the contents stay), for an
+    equal tensor of another identity, and once its tensor is gone, even if
+    Python hands its ``id`` to a new tensor."""
+    from svox_t_tpu_torch.models.renderer import _TensorKey
+
+    t = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    k = _TensorKey(t)
+    assert k == _TensorKey(t) and hash(k) == hash(_TensorKey(t))
+    assert k != _TensorKey(t.clone())
+    t.add_(0.0)
+    assert k != _TensorKey(t) and _TensorKey(t) == _TensorKey(t)
+    u = torch.zeros(5)
+    ku = _TensorKey(u)
+    del u
+    v = torch.zeros(5)
+    assert ku != _TensorKey(v)

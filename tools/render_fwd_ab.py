@@ -55,6 +55,45 @@ bake):
 
 The outputs of every design (and of ``parent``) are checked equal bit for
 bit. Needs one CUDA GPU and nvcc.
+
+    python3 tools/render_fwd_ab.py --interp [--parent DIR] [--designs A,B,...]
+
+times K2+K4, the trilinear march (`render_fwd.cuh`'s interp instances, both
+structures, every pool type), instead. Its designs, each a text patch of
+the header:
+
+  * ``no_lever``: the 9 lookups from the root, as before (`kCornerReuse`
+    0);
+  * ``lever1``: the own corner's row reused (lever 1), the other 7 corners
+    looked up from the root (`kCornerReuse` 1);
+  * ``levers12``: on the tree walk the corner descents started on the own
+    path too (lever 2; `kCornerReuse` 2), on the bake lever 1;
+  * ``shipped``: the header as it is (`kCornerReuse` by structure, format
+    and width; at width 4 one pass over each corner's whole row, form (b));
+  * ``form_a``: at width 4 the sigma column of every corner first, then
+    the colour columns in vectors where sigma passes;
+  * ``wide_interp``: the two width-4 instances that spill under ptxas's own
+    limit (the tree walk's int8 SH9 with weights, the bake's bf16 SH9 with
+    rotations and weights) at `kWideBlocks` blocks an SM (only their two
+    compile units);
+  * ``bound_4``, ``bound_5``: the interp instances launched with a bound
+    of 4 or 5 blocks an SM;
+  * ``parent``: that commit's header (its interp instances at width 1).
+
+The bake's lever 2 (the own lookup's table entries reused by the corners
+at the same index) lost 2% and is not rebuilt here (PERF.md). Each design
+but ``form_a`` and ``wide_interp`` runs at width 1 (scalar rows) and,
+for the three-colour rows, at width 4 (the row in 16-, 8- or 4-byte
+loads); ``wide_interp`` only on the instances it changes.
+``--designs`` builds and times only the named ones (and ``parent``).
+
+It prints each library's interp kernels, the registers of their SH9
+instances and every one that spills, then times the designs in turns
+(as above) at phase 3e's and 4j's shapes: the depth-9 SH9 shell on the
+800x800 orbit camera (640,000 rays), exact and fast, with and without
+rotations and weights, on float32, bf16 and int8 pools, and the width-1
+families (SH4, SH16, SG9, ASG25); outputs bit for bit against ``parent``
+(or ``no_lever`` at width 1).
 """
 
 from __future__ import annotations
@@ -90,8 +129,62 @@ REPS = 20
 
 K2_UNITS = ("render_fwd", "render_fwd_baked", "render_fwd_bf16", "render_fwd_baked_bf16",
             "render_fwd_i8", "render_fwd_baked_i8")
-POOL_OF_UNIT = {"render_fwd": "f32", "render_fwd_baked": "f32"}
-POOL_OF_UNIT.update({u: u.rsplit("_", 1)[1] for u in K2_UNITS[2:]})
+INTERP_UNITS = ("render_fwd_interp", "render_fwd_baked_interp", "render_fwd_interp_bf16",
+                "render_fwd_baked_interp_bf16", "render_fwd_interp_i8", "render_fwd_baked_interp_i8")
+POOL_OF_UNIT = {u: "f32" for u in K2_UNITS[:2] + INTERP_UNITS[:2]}
+POOL_OF_UNIT.update({u: u.rsplit("_", 1)[1] for u in K2_UNITS[2:] + INTERP_UNITS[2:]})
+REUSE = re.compile(r"constexpr int kCornerReuse =.*?;\n", re.S)
+LAUNCH_WIDE = "  if constexpr (W == 1 && !svox::kInterp && kWide<S, FMT, BD, kRot, kWeights>) {"
+# `wide_interp`: the two width-4 interp instances that spill 24 bytes under
+# ptxas's own limit launched as render_fwd_kernel_wide (kWideBlocks).
+WIDE_INTERP = (LAUNCH_WIDE,
+               "  if constexpr ((W == 1 && !svox::kInterp && kWide<S, FMT, BD, kRot, kWeights>) ||\n"
+               "                (W == 4 && svox::kInterp && FMT == svox::kSH && BD == 9 && kWeights &&\n"
+               "                 (S::kBaked ? std::is_same<svox::Pool, svox::PoolBF16>::value && kRot\n"
+               "                            : std::is_same<svox::Pool, svox::PoolI8>::value && !kRot))) {")
+# form (a): the colour pass of a width-4 interp sample over each corner's
+# colour columns in vectors, after the sigma column's pass (interp_sum).
+FORM_A_LOGITS = """// interp_logits of a three-colour row with no spare column, each corner's
+// colour columns loaded in vectors (one row live at a time).
+template <int FMT, int KB, int kD, class P>
+__device__ __forceinline__ void interp_logits_row4(const svox::Corners& cn, const P features, int nb,
+                                                   const float* basis, float* z) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) z[c] = 0.f;
+#pragma unroll 1
+  for (int n = 0; n < 8; ++n) {
+    const int32_t row = cn.row[n];
+    if (row < 0) continue;
+    const auto f = features + static_cast<size_t>(row) * kD;
+    float buf[kD];
+#pragma unroll
+    for (int e = 0; e < kD; e += 4) svox::load_row4(f, buf, e);
+    const float w = cn.w[n];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) z[c] = z[c] + w * svox::color_logit<FMT, KB, 4>(f, buf, c, nb, basis);
+  }
+}
+
+"""
+RAY_DOC = "// FMT: svox::kRGBA / kSH / kSG / kASG. BD: basis capacity"
+FORM_A = (
+    (RAY_DOC, FORM_A_LOGITS + RAY_DOC),
+    ("      if constexpr (W == 4) {\n        if constexpr (FMT != svox::kRGBA && kRot) {\n          bool any",
+     "      if constexpr (false) {\n        if constexpr (FMT != svox::kRGBA && kRot) {\n          bool any"),
+    ("          svox::interp_logits<FMT, kB, kMaxColor>(cn, p.features, p.D, nc, nb, basis, z);\n        }\n",
+     "          svox::interp_logits<FMT, kB, kMaxColor>(cn, p.features, p.D, nc, nb, basis, z);\n"
+     "        } else {\n"
+     "          if constexpr (FMT != svox::kRGBA && kRot) {\n"
+     "            float m[9];\n"
+     "            load_rot<true>(p.tmats, static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M) ? idx : 0, m);\n"
+     "            rotated_basis<FMT, BD>(p, m, vx, vy, vz, nb, basis);\n"
+     "          }\n"
+     "          interp_logits_row4<FMT, kB, kD>(cn, p.features, nb, basis, z);\n"
+     "        }\n"),
+)
+# The march kernel's launch bound (`bound_*`: only the interp units are
+# built under those designs).
+KERNEL_BOUND = "__global__ void __launch_bounds__(kThreads) render_fwd_kernel("
 LOOK_AHEAD = "constexpr bool kLookAhead = S::kBaked && svox::kFloatPool;\n"
 WIDE = re.compile(r"constexpr bool kWide =.*?;\n", re.S)
 WIDE_BLOCKS = re.compile(r"constexpr int kWideBlocks = \d+;\n")
@@ -105,7 +198,7 @@ SH9_SG9 = ("  if (basis_dim != 9) return cudaErrorInvalidValue;\n"
 # where the row is read a column at a time: sigma is loaded with the
 # rotation (in scalars) and weight cell before the next lookup.
 AHEAD_ONLY = (
-    ("  if constexpr (W == 1) {\n    // The earlier loop", "  if constexpr (false) {\n    // The earlier loop"),
+    ("if constexpr (W == 1) {\n    // The earlier loop", "if constexpr (false) {\n    // The earlier loop"),
     (LOOK_AHEAD, "constexpr bool kLookAhead = true;\n"),
     ("      const auto row = p.features + static_cast<size_t>(idx) * kD;\n",
      "      const int D = W == 4 ? kD : p.D;\n      const auto row = p.features + static_cast<size_t>(idx) * D;\n"),
@@ -131,6 +224,43 @@ DESIGNS = {
     "all_wide_6": (((SWITCH, SH9_SG9), (WIDE, "constexpr bool kWide = true;\n"),
                     (WIDE_BLOCKS, "constexpr int kWideBlocks = 6;\n")), K2_UNITS[:2]),
 }
+# K2+K4's designs (--interp): {design: text patches of render_fwd.cuh}; a
+# design whose patch leaves the header as it is shares the shipped library.
+INTERP_DESIGNS = {
+    "shipped": ((), INTERP_UNITS),
+    "no_lever": (((REUSE, "constexpr int kCornerReuse = 0;\n"),), INTERP_UNITS),
+    "lever1": (((REUSE, "constexpr int kCornerReuse = 1;\n"),), INTERP_UNITS),
+    "levers12": (((REUSE, "constexpr int kCornerReuse = S::kBaked ? 1 : 2;\n"),), INTERP_UNITS),
+    "form_a": (FORM_A, INTERP_UNITS),
+    "wide_interp": ((WIDE_INTERP,), ("render_fwd_interp_i8", "render_fwd_baked_interp_bf16")),
+    "bound_4": (((KERNEL_BOUND, KERNEL_BOUND.replace("(kThreads)", "(kThreads, 4)")),), INTERP_UNITS),
+    "bound_5": (((KERNEL_BOUND, KERNEL_BOUND.replace("(kThreads)", "(kThreads, 5)")),), INTERP_UNITS),
+}
+# The (case label, structure) on which wide_interp changes an instance.
+WIDE_INTERP_CASES = {("SH9 int8 weights", "tree"), ("SH9 bf16 rot weights", "baked")}
+# (label, format, basis, pool type, rotations, weights, fast) of the interp
+# cases: the SH9 main path's rows (phase 3e, 4j, 4k) and the width-1
+# families.
+INTERP_CASES = (
+    ("SH9", FORMAT_SH, 9, "f32", False, False, False),
+    ("SH9 fast", FORMAT_SH, 9, "f32", False, False, True),
+    ("SH9 rot", FORMAT_SH, 9, "f32", True, False, False),
+    ("SH9 weights", FORMAT_SH, 9, "f32", False, True, False),
+    ("SH9 rot weights", FORMAT_SH, 9, "f32", True, True, False),
+    ("SH9 bf16", FORMAT_SH, 9, "bf16", False, False, False),
+    ("SH9 bf16 rot", FORMAT_SH, 9, "bf16", True, False, False),
+    ("SH9 int8", FORMAT_SH, 9, "i8", False, False, False),
+    ("SH9 int8 rot", FORMAT_SH, 9, "i8", True, False, False),
+    ("SH9 int8 weights", FORMAT_SH, 9, "i8", False, True, False),
+    ("SH9 bf16 rot weights", FORMAT_SH, 9, "bf16", True, True, False),
+    ("SH4", FORMAT_SH, 4, "f32", False, False, False),
+    ("SH4 int8", FORMAT_SH, 4, "i8", False, False, False),
+    ("SH16", FORMAT_SH, 16, "f32", False, False, False),
+    ("SG9", FORMAT_SG, 9, "f32", False, False, False),
+    ("SG9 rot weights", FORMAT_SG, 9, "f32", True, True, False),
+    ("SG9 bf16", FORMAT_SG, 9, "bf16", False, False, False),
+    ("ASG25", FORMAT_ASG, 25, "f32", False, False, False),
+)
 # (design, library, width) of each timed run of the float32 designs: every
 # design on the SH9 shapes, the width-1 ones on the SG9 pool.
 RUNS = (("shipped", "shipped", 4), ("all_ahead", "all_ahead", 4), ("row_only", "row_only", 4),
@@ -174,19 +304,24 @@ K2_INSTANCE = re.compile(
     r"render_fwd_kernel(?:_wide)?IN4svox\d+(TreeWalk|Baked)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E(?:Li(\d+)E)?")
 
 
-def design_sources(workdir: Path, parent: Path | None) -> dict:
-    """{library: (its csrc directory, its compile units)}: each design's
-    sources copied to ``workdir`` and its header patched, and the parent's
-    sources as they are."""
+def design_sources(workdir: Path, parent: Path | None, designs: dict, parent_units=K2_UNITS) -> tuple:
+    """({library: (its csrc directory, its compile units)}, {design: the
+    library it shares}): each design's sources copied to ``workdir`` and its
+    header patched (a design whose patches leave the shipped header as it is
+    shares the shipped library), and the parent's sources as they are.
+    ``designs``: {design: (patches, units)}."""
     src = (_build.CSRC / "render_fwd.cuh").read_text()
-    out = {}
-    for name, (patches, units) in DESIGNS.items():
+    out, alias = {}, {}
+    for name, (patches, units) in designs.items():
         text = src
         for old, new in patches:
             n = len(old.findall(text)) if isinstance(old, re.Pattern) else text.count(old)
             if n != 1:
                 raise RuntimeError(f"render_fwd.cuh changed: design {name}'s patch no longer applies")
             text = old.sub(new, text) if isinstance(old, re.Pattern) else text.replace(old, new)
+        if name != "shipped" and text == src and "shipped" in designs:
+            alias[name] = "shipped"
+            continue
         d = workdir / name
         d.mkdir()
         for f in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
@@ -194,8 +329,8 @@ def design_sources(workdir: Path, parent: Path | None) -> dict:
         (d / "render_fwd.cuh").write_text(text)
         out[name] = (d, units)
     if parent is not None:
-        out["parent"] = (parent / "svox_t_tpu_torch" / "csrc", K2_UNITS)
-    return out
+        out["parent"] = (parent / "svox_t_tpu_torch" / "csrc", parent_units)
+    return out, alias
 
 
 def compile_libraries(workdir: Path, sources: dict) -> dict:
@@ -212,7 +347,7 @@ def compile_libraries(workdir: Path, sources: dict) -> dict:
     def compile_unit(job):
         name, unit = job
         obj = workdir / f"{name}.{unit.name}.o"
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-c", "-o", str(obj),
+        cmd = [nvcc, *_build._flags(unit), "-c", "-o", str(obj),
                *_build.source_args(unit, workdir / f"{name}.{unit.name}.cu")]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -261,17 +396,18 @@ def instance_name(unit: str, m: re.Match) -> str:
     structure, fmt, bd, rot, weights, width = m.groups()
     fmt = {"0": "RGBA", "1": "SH", "2": "SG", "3": "ASG"}[fmt]
     width = width or "1"
-    return (f"{structure} {POOL_OF_UNIT[unit]} {fmt}{bd if fmt != 'RGBA' else ''}{' rot' if rot == '1' else ''}"
+    return (f"{structure}{' interp' if '_interp' in unit else ''} {POOL_OF_UNIT[unit]} "
+            f"{fmt}{bd if fmt != 'RGBA' else ''}{' rot' if rot == '1' else ''}"
             f"{' weights' if weights == '1' else ''} width {width}{' wide' if '_wide' in m.group(0) else ''}")
 
 
 def report(name: str, rows: list) -> None:
     k2 = [(unit, r, s, m) for unit, e, r, s in rows for m in [K2_INSTANCE.search(e)] if m]
     sh9 = [f"{instance_name(u, m)} {r} regs ({cs.blocks_per_sm(r)} blocks/SM)" for u, r, s, m in k2
-           if m.group(2) == "1" and m.group(3) == "9" and m.group(4) == m.group(5) == "0"]
+           if m.group(2) == "1" and m.group(3) == "9" and m.group(5) == "0"]
     spills = [f"{instance_name(u, m)} {r} regs {s} B" for u, r, s, m in k2 if s]
     wide = [f"{instance_name(u, m)} {r} regs" for u, r, s, m in k2 if "_wide" in m.group(0)]
-    print(f"ptxas {name}: {len(k2)} nearest K2 kernels, {sum(s for *_, s, _ in k2)} bytes spilled in all")
+    print(f"ptxas {name}: {len(k2)} K2 kernels, {sum(s for *_, s, _ in k2)} bytes spilled in all")
     print(f"  SH9: {'; '.join(sh9)}")
     print(f"  spilling ({len(spills)}): {'; '.join(spills) if spills else 'none'}")
     if wide:
@@ -285,7 +421,7 @@ def load_entries(libs: dict, parent_has_width: bool) -> dict:
     for name, path in libs.items():
         lib = ctypes.CDLL(str(path))
         for pool_sfx in ("", "_bf16", "_i8"):
-            for sfx in ("", "_baked"):
+            for sfx in ("", "_baked", "_interp", "_baked_interp"):
                 fn = getattr(lib, f"svox_render_fwd{sfx}{pool_sfx}", None)
                 if fn is None:
                     continue
@@ -358,10 +494,72 @@ def scenes(dev) -> tuple:
     return out, fam
 
 
+def interp_scenes(dev) -> dict:
+    """{label: {structure: (spec, pool, origins, dirs, options)}} of
+    `INTERP_CASES` (K2+K4): the depth-9 SH9 shell on the 800x800 orbit
+    camera, with its SH9 pool or a seeded one, seeded rotations and lobes."""
+    state, feats_np, _ = build_shell_tree(depth=cs.DEPTH, data_format="SH9", data_dim=28)
+    tree = stt.tree_from_numpy(state, device=dev)
+    feats = torch.from_numpy(feats_np).to(dev)
+    M = feats.shape[0]
+    rend = stt.VolumeRenderer(tree, interp="trilinear")
+    o, d = cs.camera_rays(dev)
+    rot = cs.random_rotations(M, np.random.RandomState(0), dev)
+    base = {"tree": tree._spec(), "baked": tree._baked_spec()}
+    spin = {k: s.with_(transformation_matrices=rot) for k, s in base.items()}
+    lobes = {f: torch.from_numpy(random_lobes(FMT_NAME[f], 25, seed=1)).to(dev) for f in (FORMAT_SG, FORMAT_ASG)}
+    out = {}
+    for i, (label, fmt, bd, kind, has_rot, _, fast) in enumerate(INTERP_CASES):
+        D = 3 * bd + 1
+        pool = as_pool(kind, feats if D == 28 and fmt == FORMAT_SH else seeded_device_pool(M, D, 10 + i, dev))
+        opt = dataclasses.replace(rend._get_options(fast), format=fmt, basis_dim=bd)
+        ex = lobes[fmt][:bd].contiguous() if fmt in lobes else None
+        out[label] = {k: (s.with_(extra_data=ex) if ex is not None else s, pool, o, d, opt)
+                      for k, s in (spin if has_rot else base).items()}
+    return out
+
+
+def time_interp(cases: dict, in_turns, with_parent: bool, designs, card: str) -> None:
+    """K2+K4's ``designs`` in turns on ``cases`` (`interp_scenes`), outputs
+    bit for bit against the first run (``parent`` where given)."""
+    runs = {}
+    w1 = [d for d in ("no_lever", "lever1", "levers12", "bound_4", "bound_5", "shipped") if d in designs]
+    w4 = [d for d in ("no_lever", "lever1", "levers12", "form_a", "bound_4", "bound_5", "shipped") if d in designs]
+    for label, fmt, bd, *_ in INTERP_CASES:
+        vec = render_ops._vector_row(fmt, bd, 3 * bd + 1)
+        for st_ in ("baked", "tree"):
+            r = (("parent", "parent", 1),) if with_parent else ()
+            r += tuple((f"{d}_w1", d, 1) for d in w1)
+            if vec:
+                r += tuple((f"{d}_w4", d, 4) for d in w4)
+                if "wide_interp" in designs and (label, st_) in WIDE_INTERP_CASES:
+                    r += (("wide_interp_w4", "wide_interp", 4),)
+            runs[label, st_] = r
+    keys, times = in_turns(cases, runs, {c[0]: c[5] for c in INTERP_CASES})
+    ref = "parent" if with_parent else runs[keys[0]][0][0]
+    print(f"K2+K4 designs in turns, {ROUNDS} rounds, outputs equal bit for bit to {ref}; CUDA events over {REPS} "
+          f"launches; depth-{cs.DEPTH} SH9 shell {cs.WIDTH}x{cs.HEIGHT} fx {cs.FX}, the scene's SH9 pool or a "
+          f"seeded one [{card}]")
+    res = {}
+    for k in keys:
+        base = statistics.median(times[ref, k])
+        for run in runs[k]:
+            v = times[run[0], k]
+            med = statistics.median(v)
+            res[f"{run[0]}_{k[0].replace(' ', '_')}_{k[1]}_ms"] = med
+            print(f"  {k[0]:16s} {k[1]:6s} {run[0]:12s} width {run[2]}: median {med:.4f} ms "
+                  f"({base / med:.3f}x {ref}), rounds {[round(x, 4) for x in v]}")
+    print(json.dumps(res))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="a checkout of an earlier commit whose K2 is timed beside this one's")
+    ap.add_argument("--interp", action="store_true",
+                    help="time K2+K4's designs (the trilinear march) instead of the nearest march's")
+    ap.add_argument("--designs", default=None,
+                    help="with --interp: a comma-separated subset of the designs to build and time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("render_fwd_ab.py needs a CUDA GPU")
@@ -371,10 +569,20 @@ def main() -> None:
     card = cs.card_line()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        libs = compile_libraries(Path(tmp), design_sources(Path(tmp), args.parent))
+        if args.interp:
+            chosen = args.designs.split(",") if args.designs else list(INTERP_DESIGNS)
+            unknown = set(chosen) - set(INTERP_DESIGNS)
+            if unknown:
+                raise SystemExit(f"unknown designs {sorted(unknown)}; known: {sorted(INTERP_DESIGNS)}")
+            designs = {k: v for k, v in INTERP_DESIGNS.items() if k in chosen}
+            sources, alias = design_sources(Path(tmp), args.parent, designs, INTERP_UNITS)
+        else:
+            sources, alias = design_sources(Path(tmp), args.parent, DESIGNS)
+        libs = compile_libraries(Path(tmp), sources)
+        libs.update({a: libs[t] for a, t in alias.items()})
         fns = load_entries(libs, parent_has_width)
-        print(f"builds: {time.perf_counter() - t0:.1f} s")
-        shapes, families = scenes(dev)
+        print(f"builds: {time.perf_counter() - t0:.1f} s" + "".join(
+            f"; {a} is the {t} library" for a, t in alias.items()))
         stream = torch.cuda.current_stream(dev).cuda_stream
         outs, waccs = {}, []
 
@@ -388,7 +596,8 @@ def main() -> None:
             waccs.append(wacc)  # held for the launches, which write it
             kind = "f32" if isinstance(pool, torch.Tensor) and pool.dtype == torch.float32 else (
                 "bf16" if isinstance(pool, torch.Tensor) else "i8")
-            fn, has_width = fns[lib, cs.SUFFIX[structure] + render_ops.POOL_SUFFIX[kind]]
+            isfx = "_interp" if opt.interp else ""
+            fn, has_width = fns[lib, cs.SUFFIX[structure] + isfx + render_ops.POOL_SUFFIX[kind]]
             if width is None:  # the parent's own choice
                 width = render_ops._fwd_width(spec, pool, opt)
             tail = (width, dev.index, stream) if has_width else (dev.index, stream)
@@ -417,6 +626,10 @@ def main() -> None:
                         raise AssertionError(f"{k}: {ck[0]} differs from {runs[k][0][0]}")
             return keys, times
 
+        if args.interp:
+            time_interp(interp_scenes(dev), in_turns, args.parent is not None, designs, card)
+            return
+        shapes, families = scenes(dev)
         res = {}
         parent_run = (("parent", "parent", None),) if args.parent is not None else ()
         runs = {(s, st_): (RUNS_W1 if s.startswith("deep_sg") else RUNS) + parent_run
