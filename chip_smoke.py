@@ -628,21 +628,23 @@ def check_bake_counts(counts: dict, backend: str, n: int) -> None:
 def reset_counts() -> None:
     for k in COUNTERS.values():
         k.launches = 0
-    for widths in (tape_ops.BWD_WIDTH_LAUNCHES, tape_ops.FWD_WIDTH_LAUNCHES, render_ops.FWD_WIDTH_LAUNCHES):
+    for widths in (tape_ops.BWD_WIDTH_LAUNCHES, tape_ops.FWD_WIDTH_LAUNCHES, render_ops.FWD_WIDTH_LAUNCHES,
+                   render_ops.MARCH_BWD_WIDTH_LAUNCHES):
         for w in widths:
             widths[w] = 0
 
 
 def read_counts() -> dict:
-    """Each counter's launches, and the tape replay's and the forward
-    march's launches by vector width: K13d / K13e's (``bwd_width_<w>``),
-    K13c's and its frame axis's (``fwd_width_<w>``) and K2's, nearest and
-    interp (``march_width_<w>``), all entry
-    points, structures and pool types."""
+    """Each counter's launches, and the tape replay's and the marches'
+    launches by vector width: K13d / K13e's (``bwd_width_<w>``), K13c's and
+    its frame axis's (``fwd_width_<w>``), K2's, nearest and interp
+    (``march_width_<w>``), and K3's, nearest and interp
+    (``march_bwd_width_<w>``), all entry points, structures and pool types."""
     counts = {name: k.launches for name, k in COUNTERS.items()}
     counts.update({f"bwd_width_{w}": n for w, n in tape_ops.BWD_WIDTH_LAUNCHES.items()})
     counts.update({f"fwd_width_{w}": n for w, n in tape_ops.FWD_WIDTH_LAUNCHES.items()})
     counts.update({f"march_width_{w}": n for w, n in render_ops.FWD_WIDTH_LAUNCHES.items()})
+    counts.update({f"march_bwd_width_{w}": n for w, n in render_ops.MARCH_BWD_WIDTH_LAUNCHES.items()})
     return counts
 
 
@@ -672,6 +674,38 @@ def check_march_widths(counts: dict, what: str) -> None:
           f"{what}: {n} forward-march launches, {counts['march_width_4']} of them the vector instance")
 
 
+def check_march_bwd_widths(counts: dict, what: str) -> None:
+    """On an SH9 training path (D = 28, aligned pools and rotations) every
+    K3 launch, nearest and interp (K3+K4; either structure, float32 and
+    bf16 pools), is the 16-byte vector instance."""
+    n = sum(v for k, v in counts.items() if k.startswith("render_bwd"))
+    check(n > 0 and counts["march_bwd_width_4"] == n,
+          f"{what}: {n} backward-march launches, {counts['march_bwd_width_4']} of them the vector instance")
+
+
+def k3_width_check(spec, pool, origins, dirs, g_out, opt, out_res, what: str) -> tuple:
+    """K3 (K3+K4 under interp) at every width the row takes (4 and 1 for the
+    three-colour rows with no spare column, `render_ops._fwd_width`; else 1),
+    each launched by hand, against one call of its plain version on the same
+    inputs: within ATOMIC_RTOL * max(1, max|plain|), and a gradient in the
+    plain version's rows and no other. Returns (the worst error, the plain
+    ms, the rows with a gradient, the widths)."""
+    g_p, p_ms = timed_once_ms(lambda: render_ops.volume_render_backward_plain(
+        spec, pool, origins, dirs, dirs, g_out, opt, out_res=out_res))
+    rows = (g_p != 0).any(dim=1)
+    widths = (4, 1) if render_ops._fwd_width(spec, pool, opt) == 4 else (1,)
+    worst = 0.0
+    for w in widths:
+        g_k = render_ops.volume_render_backward_cuda(spec, pool, origins, dirs, dirs, g_out, opt,
+                                                     out_res=out_res, width=w)
+        worst = max(worst, atomic_err(g_k, g_p, f"render_bwd {what} width {w}"))
+        check(torch.equal((g_k != 0).any(dim=1), rows), f"render_bwd {what} width {w}: rows with a gradient differ")
+        del g_k
+    n_rows = int(rows.sum())
+    check(n_rows > 0, f"render_bwd {what}: zero gradient")
+    return worst, p_ms, n_rows, widths
+
+
 # ptxas's lines in the build log: a kernel's entry and its registers and spills.
 PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 PTXAS_USED = re.compile(r"Used (\d+) registers")
@@ -683,6 +717,8 @@ REPLAY_INSTANCE = re.compile(r"replay_(fwd|bwd)_kernel(?:_wide)?ILi(\d+)ELi(\d+)
 # weights, width.
 MARCH_INSTANCE = re.compile(
     r"render_fwd_kernel(?:_wide)?IN4svox\d+(TreeWalk|Baked)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELi(\d+)E")
+# K3's kernel instances: structure, format, basis capacity, rotation, width.
+BWD_INSTANCE = re.compile(r"render_bwd_kernelIN4svox\d+(TreeWalk|Baked)ELi(\d+)ELi(\d+)ELb([01])ELi(\d+)E")
 # An H100 SM: 65,536 registers (allocated per warp in units of 256, so a
 # thread's count rounds up to a multiple of 8) and 2,048 threads.
 SM_REGISTERS, SM_THREADS, N_SMS = 65536, 2048, 132
@@ -696,11 +732,11 @@ def blocks_per_sm(regs: int, threads: int = 128) -> int:
 
 def ptxas_summary(log: str) -> dict:
     """Print the registers and spills of the tape forward's and backward's
-    instances and of K2's by vector width (each compile unit: the range over
-    formats and bases, and the SH9 instances with their blocks an SM) and of
-    K14c's, from the build log. Fails if a tape forward instance or a
-    nearest K2 instance spills. Returns {(K2 unit, width): registers of its
-    plain SH9 instance (no rotation, no weights)}."""
+    instances, of K2's and of K3's by vector width (each compile unit: the
+    range over formats and bases, and the SH9 instances with their blocks an
+    SM) and of K14c's, from the build log. Fails if a tape forward instance
+    or a nearest K2 instance spills. Returns {(K2 or K3 unit, width):
+    registers of its plain SH9 instance (no rotation, no weights)}."""
     unit, entry, spill = None, None, None
     rows = []
     for line in log.splitlines():
@@ -759,6 +795,24 @@ def ptxas_summary(log: str) -> dict:
     if log:
         check(march_n > 0 and march_spill == 0,
               f"ptxas: {march_n} nearest K2 instances, {march_spill} bytes spilled")
+    # K3 and K3+K4 by width: the SH9 instances' registers and spills.
+    for u in sorted({r[0] for r in rows if r[0] and r[0].startswith("render_bwd")}):
+        for w in (1, 4):
+            got = [(r[2], r[3], m) for r in rows if r[0] == u
+                   for m in [BWD_INSTANCE.search(r[1])] if m and int(m.group(5)) == w]
+            if not got:
+                continue
+            sh9 = []
+            for r_, sp, m in got:
+                if m.group(2) == "1" and m.group(3) == "9":
+                    sh9.append(f"{'rot ' if m.group(4) == '1' else ''}{r_} regs ({blocks_per_sm(r_)} blocks/SM), "
+                               f"{sp} B spilled")
+                    if m.group(4) == "0":
+                        sh9_regs[u, w] = r_
+            where = "the row in registers, vector atomics" if w > 1 else "scalar"
+            print(f"  ptxas {u} width {w} ({where}): {len(got)} instances, {min(g[0] for g in got)}-"
+                  f"{max(g[0] for g in got)} registers, {sum(g[1] for g in got)} bytes spilled in all; SH9: "
+                  + "; ".join(sh9))
     return sh9_regs
 
 
@@ -848,7 +902,9 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
     ``k4_lookups`` those lookups, ``k4_loads_own`` the loads with the own row
     alone reused, ``k4_loads_root`` of 9 lookups from the root (a tree
     walk's load is a child-table level or its data entry, one data entry a
-    lookup; a bake's a table entry). Only the bounds and the census
+    lookup; a bake's a table entry); ``contrib_corners`` counts the
+    contributing samples' corners that have a row (each takes the sample's
+    gradient row, K3+K4; in nearest mode it is ``contrib``). Only the bounds and the census
     lines read it. Per ray (K2's one-wave question): the samples of each
     ray that marches (max, p99) and of each hitting ray, one with a
     contributing sample (max, p99, median), and the 128-ray blocks (K2's)
@@ -863,7 +919,7 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
     rows, rows_sigma, own, rows_fh = (torch.zeros(M + 1, dtype=torch.bool, device=dev) for _ in range(4))
     n = {k: torch.zeros((), dtype=torch.float64, device=dev)
          for k in ("samples", "levels", "contrib", "fh_samples", "fh_levels", "k4_loads", "k4_lookups",
-                   "k4_loads_own", "k4_loads_root")}
+                   "k4_loads_own", "k4_loads_root", "contrib_corners")}
     t, active, searching = tmin, hit.clone(), hit.clone()
     per_ray = torch.zeros(origins.shape[0], dtype=torch.int32, device=dev)
     hits_ray = torch.zeros(origins.shape[0], dtype=torch.bool, device=dev)
@@ -908,6 +964,7 @@ def march_census(spec, feats, origins, dirs, opt) -> dict:
             rows_sigma[r[active]] = True
             rows[r[contrib]] = True
             rows_fh[r[fh_read]] = True
+            n["contrib_corners"] += (r[contrib] < M).sum()
         own[own_row[contrib]] = True
         hits_ray |= contrib
         n["samples"] += active.sum()
@@ -1028,10 +1085,11 @@ def interp_bounds(c: dict, M: int, D: int, kind: str = "f32", nine: bool = False
     corners, the LBS tables of their own rows; a lookup's ops per
     child-table level on the tree (OPS_LEVEL) and per lookup on the bake
     (OPS_LOOKUP), plus OPS_CORNERS per sample. The lookups are the 9 a
-    sample makes from the root, but the forward's (K2+K4): those its
-    width-4 kernel makes (``k4_loads``, ``k4_lookups``; on the tree walk its
-    child-table levels are its loads less one data load a lookup), or with
-    ``nine`` 9 from the root as well, as the earlier kernel made them."""
+    sample makes from the root, but the forward's (K2+K4) and the
+    backward's (K3+K4): those their width-4 kernels make (``k4_loads``,
+    ``k4_lookups``; on the tree walk its child-table levels are its loads
+    less one data load a lookup), or with ``nine`` 9 from the root as well,
+    as the earlier kernels made them."""
     B = c["rays"]
     e, q = POOL_ELEM[kind], 8 * D if kind == "i8" else 0
     psfx = "" if kind == "f32" else "_" + kind
@@ -1044,7 +1102,7 @@ def interp_bounds(c: dict, M: int, D: int, kind: str = "f32", nine: bool = False
         look_ops, fh_look = OPS_LEVEL * c["levels"], OPS_LEVEL * c["fh_levels"]
         fwd_look = OPS_LEVEL * (c["k4_loads"] - c["k4_lookups"])
     march_ops = OPS_RAY * c["hits"] + look_ops + (OPS_SAMPLE + OPS_CORNERS) * c["samples"]
-    fwd_ops = march_ops if nine else march_ops - look_ops + fwd_look
+    k4_ops = march_ops if nine else march_ops - look_ops + fwd_look
     fh_ops = OPS_RAY * c["hits"] + fh_look + (OPS_SAMPLE + OPS_CORNERS) * c["fh_samples"]
     rows_b = c["rows_sigma"] * e + c["rows"] * (D - 1) * e + q
     sig_b = c["rows_sigma"] * e + q
@@ -1053,9 +1111,9 @@ def interp_bounds(c: dict, M: int, D: int, kind: str = "f32", nine: bool = False
     jtab = N_JOINTS * JOINT_DIM * 4
     return _bounds({k + psfx: v for k, v in {
         "render_fwd" + sfx: (B * 36 + B * 16 + rows_b + table_b,
-                             fwd_ops + OPS_FWD_SH9_INTERP * c["contrib"]),
+                             k4_ops + OPS_FWD_SH9_INTERP * c["contrib"]),
         "render_bwd" + sfx: (B * 36 + 2 * B * 16 + rows_b + table_b + M * D * 4,
-                             march_ops + OPS_BWD_SH9_INTERP * c["contrib"]),
+                             k4_ops + OPS_BWD_SH9_INTERP * c["contrib"]),
         "opacity_bwd" + sfx: (B * 24 + 2 * B * 4 + sig_b + table_b + M * D * 4,
                               march_ops + OPS_OPACITY_BWD_INTERP * c["contrib"]),
         "first_hit" + sfx: (B * 24 + c["rows_fh"] * e + q + c["cells_fh"] * cell_b + B * 21, fh_ops),
@@ -1278,10 +1336,25 @@ def pool_kernel_phase(specs: dict, feats, jf, origins, dirs, renderers: dict, ke
                     err["render_bwd"] = atomic_err(g_k, g_p, f"render_bwd{sfx}")
                     cast["render_bwd"] = bf16_cast_err(g_k, g_p, f"render_bwd{sfx}")
                     check(g_k.dtype == torch.float32 and float(g_k.abs().max()) > 0, f"render_bwd{sfx}: gradient")
-                    del g_p
+                    # The earlier loop (width 1) on the same inputs, and the
+                    # rows that take a gradient at both widths.
+                    g_1 = render_ops.volume_render_backward_cuda(spec, pool, origins, dirs, dirs, g_out, opt,
+                                                                 out, width=1)
+                    err["render_bwd"] = max(err["render_bwd"], atomic_err(g_1, g_p, f"render_bwd{sfx} width 1"))
+                    rows_p = (g_p != 0).any(dim=1)
+                    check(torch.equal((g_k != 0).any(dim=1), rows_p) and torch.equal((g_1 != 0).any(dim=1), rows_p),
+                          f"render_bwd{sfx}: rows with a gradient differ from plain")
+                    del g_p, g_1
                     atomic_err(g_k, render_ops.volume_render_backward_cuda(spec, wide, origins, dirs, dirs,
                                                                            g_out, opt, out),
                                f"render_bwd{sfx} vs the float32 kernel")
+                    # Fast mode (two passes) at both widths.
+                    f_opt = r._get_options(True)
+                    with torch.no_grad():
+                        out_f = render_ops.volume_render_cuda(spec, pool, origins, dirs, dirs, f_opt)
+                    e_, _, _, _ = k3_width_check(spec, pool, origins, dirs, g_out, f_opt, out_f, f"{sfx} fast")
+                    err["render_bwd"] = max(err["render_bwd"], e_)
+                    del out_f
                     alpha = out[:, -1:].contiguous()
                     g_a = torch.from_numpy(rng.randn(B, 1).astype(np.float32)).to(dev)
                     a_k = aux_ops.opacity_backward_cuda(spec, pool, origins, dirs, g_a, opt, out_res=alpha)
@@ -3583,12 +3656,14 @@ def main() -> None:
     print(f"render_fwd widths 4 and 1 equal bit for bit: {n_w} comparisons (shapes (a) and (b), SH9, SH9+rot and "
           f"RGBA, exact and fast, with and without weights), {time.perf_counter() - t_w:.1f} s")
 
-    # K3 against plain: one seeded grad_out per case.
+    # K3 against plain: one seeded grad_out per case, each width the row
+    # takes (4: the row in vectors, vector atomics; 1: the earlier loop).
     bwd_cases = [
         ("SH9 exact", tree._spec(), feats, sh_renderer, False),
         ("SH9 fast", tree._spec(), feats, sh_renderer, True),
         ("RGBA exact", rgba_tree._spec(), rgba_feats, cases[0][3], False),
         ("SH9+rot exact", tree._spec(transformation_matrices=rot), feats, sh_renderer, False),
+        ("SH9+rot fast", tree._spec(transformation_matrices=rot), feats, sh_renderer, True),
         ("SG9 exact", lobe_trees["SG"]._spec(), lobe_pool, cases[3][3], False),
     ]
     worst = 0.0
@@ -3598,16 +3673,10 @@ def main() -> None:
         with torch.no_grad():
             out = render_ops.volume_render_cuda(cspec, cfeats, origins, dirs, dirs, opt)
         g_out = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(dev)
-        g_k = render_ops.volume_render_backward_cuda(cspec, cfeats, origins, dirs, dirs,
-                                                     g_out, opt, out_res=out)
-        g_p, bwd_plain_ms[name] = timed_once_ms(lambda: render_ops.volume_render_backward_plain(
-            cspec, cfeats, origins, dirs, dirs, g_out, opt, out_res=out))
-        err = atomic_err(g_k, g_p, f"render_bwd {name}")
+        err, bwd_plain_ms[name], nz, ws = k3_width_check(cspec, cfeats, origins, dirs, g_out, opt, out, name)
         worst = max(worst, err)
-        nz = int((g_k != 0).any(dim=1).sum())
-        check(nz > 0, f"render_bwd {name}: zero gradient")
-        print(f"render_bwd {name}: max_abs_err {err:.3g} (max|g| {float(g_p.abs().max()):.4g}), "
-              f"{nz} rows with a gradient, plain {bwd_plain_ms[name]:.1f} ms")
+        print(f"render_bwd {name}: widths {ws} max_abs_err {err:.3g}, {nz} rows with a gradient, plain "
+              f"{bwd_plain_ms[name]:.1f} ms")
     kernels["render_bwd"]["max_abs_err"] = worst
 
     # K8b query against plain: leaf centres in a seeded order plus seeded
@@ -3924,18 +3993,17 @@ def main() -> None:
           f"SH9+rot, exact and fast, with and without weights), {time.perf_counter() - t_w:.1f} s")
     for fast in (False, True):
         opt = sh_renderer._get_options(fast)
-        with torch.no_grad():
-            out = render_ops.volume_render_cuda(baked, feats, origins, dirs, dirs, opt)
-        g_out = torch.from_numpy(brng.randn(*out.shape).astype(np.float32)).to(dev)
-        g_k = render_ops.volume_render_backward_cuda(baked, feats, origins, dirs, dirs, g_out, opt,
-                                                     out_res=out)
-        g_p, baked_plain_ms[("bwd", fast)] = timed_once_ms(lambda: render_ops.volume_render_backward_plain(
-            baked, feats, origins, dirs, dirs, g_out, opt, out_res=out))
-        err = atomic_err(g_k, g_p, f"render_bwd_baked fast={fast}")
-        check(float(g_k.abs().max()) > 0, "render_bwd_baked: zero gradient")
-        worst["render_bwd_baked"] = max(worst["render_bwd_baked"], err)
-        print(f"render_bwd_baked SH9 {'fast' if fast else 'exact'}: max_abs_err {err:.3g} "
-              f"(max|g| {float(g_p.abs().max()):.4g}), plain {baked_plain_ms[('bwd', fast)]:.1f} ms")
+        for label, bspec in (("SH9", baked), ("SH9+rot", baked_rot)):
+            with torch.no_grad():
+                out = render_ops.volume_render_cuda(bspec, feats, origins, dirs, dirs, opt)
+            g_out = torch.from_numpy(brng.randn(*out.shape).astype(np.float32)).to(dev)
+            err, p_ms, nz, ws = k3_width_check(bspec, feats, origins, dirs, g_out, opt, out,
+                                               f"baked {label} fast={fast}")
+            if label == "SH9":
+                baked_plain_ms[("bwd", fast)] = p_ms
+            worst["render_bwd_baked"] = max(worst["render_bwd_baked"], err)
+            print(f"render_bwd_baked {label} {'fast' if fast else 'exact'}: widths {ws} max_abs_err {err:.3g}, "
+                  f"{nz} rows with a gradient, plain {p_ms:.1f} ms")
     for k_, v in worst.items():
         kernels[k_]["max_abs_err"] = v
 
@@ -4022,17 +4090,22 @@ def main() -> None:
                   f"hit share {float((out_k[:, -1] > 0).float().mean()):.3f}, plain {p_ms:.1f} ms")
         del out_p
         interp_plain_ms["render_fwd" + sfx] = p_ms
-        g_out = torch.from_numpy(irng.randn(*out_k.shape).astype(np.float32)).to(dev)
-        g_k = render_ops.volume_render_backward_cuda(ispec, feats, origins, dirs, dirs, g_out, opt,
-                                                     out_res=out_k)
-        g_p, interp_plain_ms["render_bwd" + sfx] = timed_once_ms(lambda: render_ops.volume_render_backward_plain(
-            ispec, feats, origins, dirs, dirs, g_out, opt, out_res=out_k))
-        err["render_bwd"] = atomic_err(g_k, g_p, f"render_bwd{sfx}")
-        check(float(g_k.abs().max()) > 0, f"render_bwd{sfx}: zero gradient")
-        print(f"interp render_bwd{sfx} exact (single pass): max_abs_err {err['render_bwd']:.3g} (max|g| "
-              f"{float(g_p.abs().max()):.4g}, {int((g_k != 0).any(dim=1).sum())} rows), "
-              f"plain {interp_plain_ms['render_bwd' + sfx]:.1f} ms")
-        del g_k, g_p
+        # K3+K4 at both widths against plain: exact (single pass, the main
+        # path's), with seeded rotations too, and fast (two passes).
+        for label, bspec, fast in (("exact (single pass)", ispec, False),
+                                   ("exact (single pass) rot", ispec.with_(transformation_matrices=rot), False),
+                                   ("fast (two passes)", ispec, True)):
+            b_opt = interp_r._get_options(fast)
+            with torch.no_grad():
+                out_b = render_ops.volume_render_cuda(bspec, feats, origins, dirs, dirs, b_opt)
+            g_out = torch.from_numpy(irng.randn(*out_b.shape).astype(np.float32)).to(dev)
+            e_, p_ms, nz, ws = k3_width_check(bspec, feats, origins, dirs, g_out, b_opt, out_b, f"{sfx} {label}")
+            if bspec is ispec and not fast:
+                interp_plain_ms["render_bwd" + sfx] = p_ms
+            err["render_bwd"] = max(err["render_bwd"], e_)
+            print(f"interp render_bwd{sfx} {label}: widths {ws} max_abs_err {e_:.3g}, {nz} rows with a gradient, "
+                  f"plain {p_ms:.1f} ms")
+            del out_b
         with torch.no_grad():
             ok_, w_k = render_ops.volume_render_with_weight_accum_cuda(ispec, feats, origins, dirs, dirs, opt)
         op_, w_p = render_ops.volume_render_with_weight_accum_plain(ispec, feats, origins, dirs, dirs, opt)
@@ -4207,6 +4280,7 @@ def main() -> None:
         check(counts["construct_tree"] == steps + 1, "construct_tree not launched per step")
         check(counts["render_fwd" + sfx] == steps + 1, "render_fwd not launched per step")
         check(counts["render_bwd" + sfx] == steps, "render_bwd not launched once per step")
+        check_march_bwd_widths(counts, f"training ({backend})")
         check(counts["query_fwd"] == steps and counts["query_bwd"] == steps,
               "query kernels not launched per step")
         check_bake_counts(counts, backend, steps + 1)
@@ -4606,6 +4680,7 @@ def main() -> None:
         torch.cuda.synchronize()
         counts = interp_counts[backend] = read_counts()
         check_march_widths(counts, f"interp path ({backend})")
+        check_march_bwd_widths(counts, f"interp path ({backend})")
         w = i_acc()
         print(f"main path, interp ({LABEL[backend]}): launches {nonzero(counts)}; host ms: construct + exact "
               f"+ fast frames + opacity and motion-feature targets {frame_ms:.3f}, training step "
@@ -4664,6 +4739,7 @@ def main() -> None:
         missing = [k for k in want + ["query_fwd_bf16", "query_bwd_bf16"] if counts[k] == 0]
         check(not missing, f"pool path ({backend}): not launched: {missing}")
         check_march_widths(counts, f"pool path ({backend})")
+        check_march_bwd_widths(counts, f"pool path ({backend})")
         if backend == "tree":
             check_bake_counts(counts, backend, 0)
         pool_ms[backend] = res["ms"]
@@ -4798,6 +4874,15 @@ def main() -> None:
                             lambda: render_ops.volume_render_cuda(spec_, pool_, o_, d_, d_, opt_, width=1),
                             lambda fn: time_ms(fn, KERNEL_REPS))
 
+        def k3_turns(spec_, pool_, o_, d_, g_, opt_, out_):
+            """(width 4 ms, width 1 ms) of K3 in turns (`in_turns`), each call
+            the wrapper's (a zeroed gradient, the launch)."""
+            return in_turns(lambda: render_ops.volume_render_backward_cuda(spec_, pool_, o_, d_, d_, g_, opt_,
+                                                                           out_res=out_),
+                            lambda: render_ops.volume_render_backward_cuda(spec_, pool_, o_, d_, d_, g_, opt_,
+                                                                           out_res=out_, width=1),
+                            lambda fn: time_ms(fn, KERNEL_REPS))
+
         for fast in (False, True):
             opt = renderer._get_options(fast)
             k_ms, k1_ms = k2_turns(spec_t, f0, origins, dirs, opt)
@@ -4814,15 +4899,15 @@ def main() -> None:
                 kernels["render_fwd"].update(ms=k_ms, plain_ms=p_ms, prev_ms=k1_ms)
             out = render_ops.volume_render_cuda(spec_t, f0, origins, dirs, dirs, opt)
             g_out = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(dev)
-            b_ms = time_ms(lambda: render_ops.volume_render_backward_cuda(
-                spec_t, f0, origins, dirs, dirs, g_out, opt, out_res=out), KERNEL_REPS)
+            b_ms, b1_ms = k3_turns(spec_t, f0, origins, dirs, g_out, opt, out)
             bp_ms = time_ms(lambda: render_ops.volume_render_backward_plain(
                 spec_t, f0, origins, dirs, dirs, g_out, opt, out_res=out), 1)
             passes = "two passes" if fast else "single pass"
-            print(f"time render_bwd SH9 {mode} ({passes}) {WIDTH}x{HEIGHT}: kernel {b_ms:.4f} ms, "
+            print(f"time render_bwd SH9 {mode} ({passes}) {WIDTH}x{HEIGHT}: kernel {b_ms:.4f} ms, its width-1 "
+                  f"instance (the earlier loop) {b1_ms:.4f} ms in turns ({b1_ms / b_ms:.3f}x), "
                   f"plain {bp_ms:.1f} ms [{card}]")
             if not fast:
-                kernels["render_bwd"].update(ms=b_ms, plain_ms=bp_ms)
+                kernels["render_bwd"].update(ms=b_ms, plain_ms=bp_ms, prev_ms=b1_ms)
         tree_fwd_ms = {}
         for fast in (False, True):
             opt = sh_renderer._get_options(fast)
@@ -4834,32 +4919,39 @@ def main() -> None:
                 spec_bt, f0, origins, dirs, dirs, opt), KERNEL_REPS)
             out = render_ops.volume_render_cuda(spec_bt, f0, origins, dirs, dirs, opt)
             g_out = torch.from_numpy(rng.randn(*out.shape).astype(np.float32)).to(dev)
-            bb_ms = time_ms(lambda: render_ops.volume_render_backward_cuda(
-                spec_bt, f0, origins, dirs, dirs, g_out, opt, out_res=out), KERNEL_REPS)
+            bb_ms, bb1_ms = k3_turns(spec_bt, f0, origins, dirs, g_out, opt, out)
             print(f"time render_fwd_baked SH9 {mode} {WIDTH}x{HEIGHT}: kernel {kb_ms:.4f} ms "
                   f"({B / kb_ms / 1e3:.2f} Mrays/s; its width-1 instance (the earlier loop) {kb1_ms:.4f} ms in "
                   f"turns ({kb1_ms / kb_ms:.3f}x); the tree walk's kernel {tree_fwd_ms[fast]:.4f} ms "
                   f"in the same turn), with weight accumulation {wb_ms:.4f} ms, plain "
                   f"{baked_plain_ms[('SH9', fast)]:.1f} ms (one call, phase 3d); render_bwd_baked "
-                  f"({'two passes' if fast else 'single pass'}) kernel {bb_ms:.4f} ms, plain "
-                  f"{baked_plain_ms[('bwd', fast)]:.1f} ms (one call, phase 3d) [{card}]")
+                  f"({'two passes' if fast else 'single pass'}) kernel {bb_ms:.4f} ms, width 1 {bb1_ms:.4f} ms "
+                  f"in turns ({bb1_ms / bb_ms:.3f}x), plain {baked_plain_ms[('bwd', fast)]:.1f} ms (one call, "
+                  f"phase 3d) [{card}]")
             if not fast:
                 kernels["render_fwd_baked"].update(ms=kb_ms, plain_ms=baked_plain_ms[("SH9", False)],
                                                    prev_ms=kb1_ms)
-                kernels["render_bwd_baked"].update(ms=bb_ms, plain_ms=baked_plain_ms[("bwd", False)])
+                kernels["render_bwd_baked"].update(ms=bb_ms, plain_ms=baked_plain_ms[("bwd", False)],
+                                                   prev_ms=bb1_ms)
         # Shape (b), bench.py's headline shell in pixel order, and shape (a)
         # with rotations (the dynamic frames'), exact, on both structures.
         opt7 = r7._get_options(False)
         for label, t_, p_, o_, d_, opt_, rm in (("(b) headline", tree7, feats7, o7, d7, opt7, None),
                                                 ("(a) SH9+rot", tree, feats, origins, dirs,
                                                  sh_renderer._get_options(False), rot)):
-            line = []
+            line, line_b = [], []
             for s_ in ("tree", "baked"):
                 sp = (t_._baked_spec if s_ == "baked" else t_._spec)(transformation_matrices=rm)
                 a_ms, a1_ms = k2_turns(sp, p_, o_, d_, opt_)
                 line.append(f"{s_} {a_ms:.4f} ms, width 1 {a1_ms:.4f} ({a1_ms / a_ms:.3f}x)")
+                out_ = render_ops.volume_render_cuda(sp, p_, o_, d_, d_, opt_)
+                g_ = torch.from_numpy(rng.randn(*out_.shape).astype(np.float32)).to(dev)
+                a_ms, a1_ms = k3_turns(sp, p_, o_, d_, g_, opt_, out_)
+                line_b.append(f"{s_} {a_ms:.4f} ms, width 1 {a1_ms:.4f} ({a1_ms / a_ms:.3f}x)")
             print(f"time render_fwd {label} exact {WIDTH}x{HEIGHT}, width 4 against width 1 (the earlier loop) in "
                   f"turns: " + "; ".join(line) + f" [{card}]")
+            print(f"time render_bwd {label} exact (single pass) {WIDTH}x{HEIGHT}, width 4 against width 1 (the "
+                  f"earlier loop) in turns: " + "; ".join(line_b) + f" [{card}]")
         for name, cspec, cfeats, rend in cases[3:]:
             opt = rend._get_options(False)
             l_ms = time_ms(lambda: render_ops.volume_render_cuda(cspec, cfeats, origins, dirs, dirs, opt),
@@ -4982,6 +5074,12 @@ def main() -> None:
                     k_ms, k1_ms = k2_turns(ispec, feats, origins, dirs, opt)
                     kernels[name + sfx]["prev_ms"] = k1_ms
                     width_1 = f", its width-1 instance {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
+                elif name == "render_bwd":
+                    # K3+K4 at width 4 against its width 1 (the earlier loop:
+                    # 9 lookups, scalar rows and atomics) in turns.
+                    k_ms, k1_ms = k3_turns(ispec, feats, origins, dirs, g_out, opt, out)
+                    kernels[name + sfx]["prev_ms"] = k1_ms
+                    width_1 = f", its width-1 instance (the earlier loop) {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
                 else:
                     k_ms = time_ms(run_k, KERNEL_REPS)
                 n_ms = time_ms(lambda: run_k(opt_n), KERNEL_REPS)
@@ -5029,6 +5127,10 @@ def main() -> None:
                         width_1 = ""
                         if name == "render_fwd":
                             k_ms, k1_ms = k2_turns(pspec, pool, origins, dirs, opt)
+                            kernels[key]["prev_ms"] = k1_ms
+                            width_1 = f", its width-1 instance {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
+                        elif name == "render_bwd":
+                            k_ms, k1_ms = k3_turns(pspec, pool, origins, dirs, g_out, opt, out)
                             kernels[key]["prev_ms"] = k1_ms
                             width_1 = f", its width-1 instance {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
                         else:
@@ -5166,6 +5268,9 @@ def main() -> None:
                               baked.top.numel() + baked.n_mid, gb.R))
     print(f"census (SH9 exact, {WIDTH}x{HEIGHT}, tree walk): {census}")
     print(f"census (SH9 exact, {WIDTH}x{HEIGHT}, bake): {census_b}")
+    print(f"K3 census (SH9 exact, {WIDTH}x{HEIGHT}): {census['contrib']} contributing samples; reductions into "
+          f"the (M, 28) gradient: width 1 (the earlier loop) {28 * census['contrib']} scalar, width 4 "
+          f"{7 * census['contrib']} vector (28 and 7 a sample)")
     # K2's one-wave question: the 128-ray blocks that march or hold a hit
     # against the blocks the card holds at once at each width's registers.
     for label, c_, unit in (("tree walk", census, "render_fwd.cu"), ("bake", census_b, "render_fwd_baked.cu")):
@@ -5212,6 +5317,17 @@ def main() -> None:
               f"{c_i['k4_loads_root'] / max(c_i['k4_loads'], 1):.3f}x fewer than 9 from the root; bound of {fwd} "
               f"{b_k['bound_ms']:.5f} ms ({b_k['bound_by']}) counting the kernel's lookups, "
               f"{b_9['bound_ms']:.5f} ms ({b_9['bound_by']}) counting 9 lookups from the root [{card}]")
+        # K3+K4's reductions: each contributing sample's gradient row into
+        # each of its corners that has a row, 28 scalar reductions a corner at
+        # width 1, 7 vector ones at width 4; its lookups are K2+K4's.
+        cc = c_i["contrib_corners"]
+        print(f"K3+K4 census ({label}, SH9 exact interp): {c_i['contrib']} contributing samples, {cc} corners with "
+              f"a row among them ({cc / max(c_i['contrib'], 1):.3f} a sample); reductions into the (M, 28) "
+              f"gradient: width 1 (the earlier loop) {28 * cc} scalar, width 4 {7 * cc} vector; lookups a sample: "
+              f"width 1 9, width 4 {c_i['k4_lookups'] / sam:.3f}; bound of {fwd.replace('fwd', 'bwd')} "
+              f"{bounds[fwd.replace('fwd', 'bwd')]['bound_ms']:.5f} ms counting the width-4 kernel's lookups, "
+              f"{interp_bounds(c_i, M, 28, nine=True)[fwd.replace('fwd', 'bwd')]['bound_ms']:.5f} ms counting 9 "
+              f"[{card}]")
     p2v_c = p2v_census(warped1, grid)
     bounds.update(dynamic_bounds(M, N_BONES, N_JOINTS, 28, P2V_N, p2v_c, touched))
     bounds.update(tape_bounds(census, census_b, tape_res["samples"], M, 28))
@@ -5237,12 +5353,16 @@ def main() -> None:
 
     # 7. Result lines
     # prev_ms: the width-1 instance's time in this run, in turns (K13c and
-    # its frame axis: the scalar row; K13d and K13e, and K2 and its nearest
-    # pool instances: the earlier design), else null.
+    # its frame axis: the scalar row; K13d and K13e, K2, K2+K4, K3 and K3+K4
+    # and their pool instances: the earlier design), else null. registers:
+    # ptxas's count for the width-4 plain SH9 instance of K3 and K3+K4 (no
+    # rotation), else null.
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "prev_ms")
-    for v in kernels.values():
+            "bound_ms", "bound_by", "library_ms", "prev_ms", "registers")
+    for k, v in kernels.items():
         v.setdefault("prev_ms", None)
+        unit = k if k.endswith("_bf16") else k + ".cu"
+        v["registers"] = march_regs.get((unit, 4)) if k.startswith("render_bwd") else None
     print(card)
     print(json.dumps({"kernels": [dict(name=k, **{key: v[key] for key in keys})
                                   for k, v in kernels.items()]}))

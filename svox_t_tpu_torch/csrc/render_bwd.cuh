@@ -49,6 +49,36 @@
 // operations that do not stall the thread); and no work at all for
 // samples in empty space or with sigma 0, which are most of a ray.
 //
+// Two vector widths (the template parameter W, as K2's and K13d's). Width
+// 1 is the earlier loop (`march`), kept as it was: every other row (SH4,
+// SH16, SG, ASG, spare columns) and the reference width 4 is timed and
+// held against. Width 4 (`march4`) takes the three-colour RGBA, SH1 and
+// SH9 rows with no spare column (D = 4, 4, 28; n_color and D template
+// constants, as K13c learned that run-time sizes cost 58%). The earlier
+// loop read a row a column at a time and issued one scalar reduction per
+// column (28 a contributing sample at SH9), and under interp one per
+// column per corner (224), after 9 lookups from the root: the reductions
+// into the 157 MB buffer, not the bytes, set its time. Width 4 changes
+// loads, lookups and the grouping of the atomics, never an addend: the
+// sample's row moves in 16-byte loads (8 of a bf16 row) into registers,
+// each column is overwritten with its addend once it has been read (as
+// K13d's put_grad), and the row is added with Hopper's vector float
+// atomics, 7 reductions at SH9 (1 at D = 4). Under interp the corners come
+// from the sample's own lookup (svox::corners_keep with K2+K4's levers,
+// kCornerReuse4), sigma and the colours from one pass over the corners'
+// rows in vectors (svox::interp_row4_pass), and the sample's gradient row
+// G is formed once in registers, then w_n * G is added into each corner's
+// row that exists: 56 vector reductions a sample at SH9 instead of 224
+// scalar ones. Measured on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6),
+// the reductions still hold 85-90% of K3+K4's time at the depth-9 SH9
+// camera (a build without them ran 6.7x and 12.8x faster on the tree walk
+// and the bake). Summing a warp's addends to one row first
+// (`__match_any_sync` and shuffles) ran 1.02-2.26x slower; bounds of 6 or
+// 8 blocks an SM won up to 8% on some cases, lost up to 12% on others and
+// spilled the width-1 instances, so the kernel keeps ptxas's own register
+// limit. tools/render_bwd_ab.py times the designs beside an earlier
+// checkout's.
+//
 // Arithmetic follows the plain PyTorch version (ops/render.py
 // `volume_render_backward_plain`) operation for operation, and the
 // library is built with -fmad=false, so the samples are the plain
@@ -80,7 +110,7 @@
 // takes its `if constexpr (svox::kInterp)` step: no cull, every sample
 // reads its 8 corners, a sample contributes where the interpolated sigma
 // is > 0, and each of its gradients goes to the corners' rows, weighted
-// (8x the atomics; the simple version, not yet made fast).
+// (8x the atomics; width 4 as above).
 
 #pragma once
 
@@ -116,6 +146,7 @@ struct Params {
   const float* grad_out;
   const float* out_res;  // forward output for the single pass, else null
   float* grad;
+  int width;  // the vector width (1 or 4)
 };
 
 // The tree-space ray and its view direction.
@@ -290,12 +321,193 @@ __device__ __forceinline__ void march(const Params<S>& p, const Ray& r,
   }
 }
 
-template <class S, int FMT, int BD, bool kRot>
+// K3+K4's corner lookups at width 4, as K2+K4's width 4 makes them
+// (render_fwd.cuh `kCornerReuse`): on the tree walk the own corner's row
+// and the other corners' descents started on the own path (levers 1-2), on
+// the bake the own corner's row (lever 1). The corner rows equal
+// svox::sample_corners' bit for bit (ops/corner_lookup.py mirrors them).
+template <class S>
+constexpr int kCornerReuse4 = S::kBaked ? 1 : 2;
+
+static_assert(kThreads == svox::kPathStride, "a block's threads are its path stride");
+
+// The tree walk's per-thread slot of the own descent's path (shared memory,
+// as render_fwd.cuh's). A template, so that only the instances that read
+// it hold the array.
+template <class S>
+__device__ __forceinline__ int32_t* path_slot() {
+  __shared__ int32_t path[svox::kPathLevels * svox::kPathStride];
+  return path + threadIdx.x;
+}
+
+// Add G (or w * G, kScale) into the gradient row grow of kD columns: every
+// column (the single pass: kColor and kSigma), the coefficient columns
+// (pass 1: kColor; the last vector's sigma lane 0, so 7 vectors at SH9,
+// which beat 6 vectors and 3 scalars in 7 of 8 cases, by up to 4%) or the
+// sigma column alone
+// (pass 2: kSigma), with Hopper's vector float atomics where more than one
+// column goes (grow is 16-byte aligned: kD is 4 or 28, and the launch
+// checks grad).
+template <int kD, bool kColor, bool kSigma, bool kScale>
+__device__ __forceinline__ void add_row4(float* grow, const float* G, float w) {
+  const auto v = [&](int e) { return kScale ? w * G[e] : G[e]; };
+  if constexpr (!kColor) {
+    atomicAdd(grow + kD - 1, v(kD - 1));
+  } else {
+#pragma unroll
+    for (int e = 0; e < kD; e += 4) {
+      atomicAdd(reinterpret_cast<float4*>(grow + e),
+                make_float4(v(e), v(e + 1), v(e + 2), kSigma || e + 3 != kD - 1 ? v(e + 3) : 0.f));
+    }
+  }
+}
+
+// The basis at the view direction rotated by row rr's 3x3 block
+// (tmats[rr][:3, :3] in three 16-byte loads: the width-4 launch checks
+// tmats' alignment), the arithmetic `march`'s.
+template <int FMT, int BD, class S>
+__device__ __forceinline__ void rotated_basis4(const Params<S>& p, int32_t rr, const Ray& r,
+                                               float* basis) {
+  const float4* m = reinterpret_cast<const float4*>(p.tmats + static_cast<size_t>(rr) * 16);
+  const float4 a = __ldg(m), b = __ldg(m + 1), c = __ldg(m + 2);
+  const float rx = (a.x * r.vx + a.y * r.vy) + a.z * r.vz;
+  const float ry = (b.x * r.vx + b.y * r.vy) + b.z * r.vz;
+  const float rz = (c.x * r.vx + c.y * r.vy) + c.z * r.vz;
+  svox::eval_basis<FMT, BD>(rx, ry, rz, p.extra, p.ld_extra, BD, p.min_comp, p.max_comp, basis);
+}
+
+// A contributing sample's colours at width 4, as `march` forms them: s_c =
+// sigmoid(z_c), total_color = sum_c s_c * g_c in channel order (returned),
+// and (kColor) G's coefficient column c * nb + k := a_c * basis_k (RGBA:
+// column c := a_c), a_c = (weight * (s_c (1 - s_c))) * g_c. Then the sigma
+// column's addend (kSigma) into G[kD - 1], acc, and L, as `march`.
+template <int FMT, int kB, int kD, bool kColor, bool kSigma>
+__device__ __forceinline__ void sample_grad4(const float* z, const float* g, const float* basis,
+                                             float weight, float att, float dts, float g_alpha,
+                                             float L_ray, float& L, float& acc, float* G) {
+  float total_color = 0.f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float s = svox::sigmoid(z[c]);
+    total_color = total_color + s * g[c];
+    if constexpr (kColor) {
+      const float a = (weight * (s * (1.f - s))) * g[c];
+      if constexpr (FMT == svox::kRGBA) {
+        G[c] = a;
+      } else {
+#pragma unroll
+        for (int k = 0; k < kB; ++k) G[c * kB + k] = a * basis[k];
+      }
+    }
+  }
+  const float L_after = L * att;
+  if constexpr (kSigma) {
+    const float acc_after = acc - weight * total_color;
+    G[kD - 1] = dts * (total_color * L_after - acc_after) + dts * (g_alpha * L_ray);
+    acc = acc_after;
+  } else {
+    acc = acc + weight * total_color;
+  }
+  L = L_after;
+}
+
+// `march` at width 4 (the three-colour RGBA, SH1 and SH9 rows with no
+// spare column: kD = 4, 4, 28), kSigmaOnly aside: the same samples, the
+// same addends, grouped into vector atomics (see the top of this file).
+// Nearest: the sample's row in registers, each column overwritten with its
+// addend once read, the row added in one go. Interp: the corners from the
+// own lookup, one pass over their rows in vectors for sigma and the
+// colours, the gradient row G in registers, w_n * G added into each
+// corner's row.
+template <class S, int FMT, int BD, bool kRot, bool kColor, bool kSigma>
+__device__ __forceinline__ void march4(const Params<S>& p, const Ray& r, float* basis, const float* g,
+                                       float g_alpha, float L_ray, float& L, float& acc) {
+  constexpr int kB = FMT == svox::kRGBA ? 1 : BD;
+  constexpr int kD = (FMT == svox::kRGBA ? 3 : 3 * BD) + 1;
+  float t = r.tmin;
+  L = 1.f;
+  if constexpr (svox::kInterp) {
+    typename S::Keep keep;
+    if constexpr (!S::kBaked) keep.path = path_slot<S>();
+    for (int step = 0; step < p.max_steps; ++step) {
+      if (!(t < r.tmax)) break;
+      float dt;
+      const svox::Leaf leaf = svox::sample_leaf_keep(p.st, r, t, p.step_size, dt, keep);
+      const svox::Corners cn = svox::corners_keep<kCornerReuse4<S>>(p.st, r, t, leaf, keep, p.M);
+      if constexpr (FMT != svox::kRGBA && kRot) {
+        // The own row's rotation (row 0 where it is empty), where a corner
+        // has a row: sigma is 0 otherwise.
+        bool any = false;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) any = any || cn.row[n] >= 0;
+        if (any) {
+          const int32_t idx = leaf.row;
+          rotated_basis4<FMT, BD>(p, static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M) ? idx : 0, r,
+                                  basis);
+        }
+      }
+      float z[3];
+      const float sigma = svox::interp_row4_pass<FMT, kB, kD>(cn, p.features, kB, basis, z);
+      if (sigma > 0.f) {
+        const float att = expf((-dt * r.ds) * sigma);
+        float G[kD];
+        sample_grad4<FMT, kB, kD, kColor, kSigma>(z, g, basis, L * (1.f - att), att, dt * r.ds, g_alpha,
+                                                  L_ray, L, acc, G);
+        // The corner loop is not unrolled, as svox::interp_row4_pass's.
+#pragma unroll 1
+        for (int n = 0; n < 8; ++n) {
+          if (cn.row[n] < 0) continue;
+          add_row4<kD, kColor, kSigma, true>(p.grad + static_cast<size_t>(cn.row[n]) * kD, G, cn.w[n]);
+        }
+      }
+      t = t + dt;
+    }
+  } else {
+    for (int step = 0; step < p.max_steps; ++step) {
+      if (!(t < r.tmax)) break;
+      float dt;
+      const svox::Leaf leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
+      const int32_t idx = leaf.row;
+      if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
+        const auto row = p.features + static_cast<size_t>(idx) * kD;
+        float G[kD];
+#pragma unroll
+        for (int e = 0; e < kD; e += 4) svox::load_row4(row, G, e);
+        const float sigma = G[kD - 1];
+        if (sigma > 0.f) {
+          const float att = expf((-dt * r.ds) * sigma);
+          if constexpr (FMT != svox::kRGBA && kRot) rotated_basis4<FMT, BD>(p, idx, r, basis);
+          // Every colour's sum before any of its columns is overwritten.
+          float z[3];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) z[c] = svox::color_logit<FMT, kB, 4>(row, G, c, kB, basis);
+          sample_grad4<FMT, kB, kD, kColor, kSigma>(z, g, basis, L * (1.f - att), att, dt * r.ds, g_alpha,
+                                                    L_ray, L, acc, G);
+          add_row4<kD, kColor, kSigma, false>(p.grad + static_cast<size_t>(idx) * kD, G, 1.f);
+        }
+      }
+      t = t + dt;
+    }
+  }
+}
+
+// One march of the launch's width: `march` (W = 1) or `march4`.
+template <class S, int FMT, int BD, bool kRot, int W, bool kColor, bool kSigma>
+__device__ __forceinline__ void march_w(const Params<S>& p, const Ray& r, float* basis, const float* g,
+                                        float g_alpha, float L_ray, float& L, float& acc) {
+  if constexpr (W == 4) {
+    march4<S, FMT, BD, kRot, kColor, kSigma>(p, r, basis, g, g_alpha, L_ray, L, acc);
+  } else {
+    march<S, FMT, BD, kRot, kColor, kSigma, false>(p, r, basis, g, g_alpha, L_ray, L, acc);
+  }
+}
+
+template <class S, int FMT, int BD, bool kRot, int W>
 __global__ void __launch_bounds__(kThreads) render_bwd_kernel(const Params<S> p) {
   constexpr int kB = FMT == svox::kRGBA ? 1 : BD;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
-  const int nc = p.n_color;
+  const int nc = W == 4 ? 3 : p.n_color;
 
   // Rays that miss add nothing.
   Ray r;
@@ -327,10 +539,10 @@ __global__ void __launch_bounds__(kThreads) render_bwd_kernel(const Params<S> p)
       if (c < nc) acc = acc + o[c] * g[c];
     }
     const float L_ray = 1.f - o[nc];
-    march<S, FMT, BD, kRot, true, true, false>(p, r, basis, g, g_alpha, L_ray, L, acc);
+    march_w<S, FMT, BD, kRot, W, true, true>(p, r, basis, g, g_alpha, L_ray, L, acc);
   } else {
     acc = 0.f;
-    march<S, FMT, BD, kRot, true, false, false>(p, r, basis, g, g_alpha, 0.f, L, acc);
+    march_w<S, FMT, BD, kRot, W, true, false>(p, r, basis, g, g_alpha, 0.f, L, acc);
     const float L_ray = L;
     float total_grad = g[0];
 #pragma unroll
@@ -338,21 +550,35 @@ __global__ void __launch_bounds__(kThreads) render_bwd_kernel(const Params<S> p)
       if (c < nc) total_grad = total_grad + g[c];
     }
     acc = acc + (L_ray * p.bg) * total_grad;
-    march<S, FMT, BD, kRot, false, true, false>(p, r, basis, g, g_alpha, L_ray, L, acc);
+    march_w<S, FMT, BD, kRot, W, false, true>(p, r, basis, g, g_alpha, L_ray, L, acc);
   }
 }
 
-template <class S, int FMT, int BD>
-cudaError_t launch(const Params<S>& p, cudaStream_t stream) {
+template <class S, int FMT, int BD, int W>
+cudaError_t launch_rot(const Params<S>& p, cudaStream_t stream) {
   const dim3 grid((p.B + kThreads - 1) / kThreads);
   if constexpr (FMT != svox::kRGBA) {
     if (p.tmats != nullptr) {
-      render_bwd_kernel<S, FMT, BD, true><<<grid, kThreads, 0, stream>>>(p);
+      render_bwd_kernel<S, FMT, BD, true, W><<<grid, kThreads, 0, stream>>>(p);
       return cudaGetLastError();
     }
   }
-  render_bwd_kernel<S, FMT, BD, false><<<grid, kThreads, 0, stream>>>(p);
+  render_bwd_kernel<S, FMT, BD, false, W><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The launch's vector width (p.width, 1 or 4, alignment checked by the
+// entry point). Width 4 exists for the three-colour RGBA, SH1 and SH9 rows
+// with no spare column (D = 4, 4, 28), nearest and interp, and refuses any
+// other row.
+template <class S, int FMT, int BD>
+cudaError_t launch(const Params<S>& p, cudaStream_t stream) {
+  if (p.width == 1) return launch_rot<S, FMT, BD, 1>(p, stream);
+  if constexpr (FMT == svox::kRGBA || (FMT == svox::kSH && (BD == 1 || BD == 9))) {
+    constexpr int kD3 = (FMT == svox::kRGBA ? 3 : 3 * BD) + 1;
+    if (p.n_color == 3 && p.D == kD3) return launch_rot<S, FMT, BD, 4>(p, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // K9a: the sigma-only instance. grad_out and out_res are (B, 1): g_alpha
@@ -401,8 +627,10 @@ cudaError_t launch_basis(const Params<S>& p, cudaStream_t stream) {
 // Arguments as svox_render_fwd, plus grad_out (B, n_color + 1) f32,
 // out_res (B, n_color + 1) f32 (the forward output: single pass) or null
 // (two passes), and grad (M, D) f32 whatever the pool's type, zeroed by
-// the caller. All pointers but s are device pointers. Returns a
-// cudaError_t.
+// the caller. width: the vector width, 1 or 4; 4 takes only the
+// three-colour RGBA, SH1 and SH9 rows (D = 4, 4, 28), with the pool aligned
+// to 4 values and tmats and grad to 16 bytes. All pointers but s are
+// device pointers. Returns a cudaError_t.
 extern "C" int SVOX_NAME(svox_render_bwd)(
     const svox::StructDesc* s, const float* origins, const float* dirs,
     const float* vdirs, int B,
@@ -410,16 +638,22 @@ extern "C" int SVOX_NAME(svox_render_bwd)(
     const float* zero, int M, int D, const float* tmats, int format, const float* extra,
     int ld_extra, int basis_dim, int min_comp, int max_comp, int n_color, float step_size,
     float bg, int max_steps, const float* grad_out, const float* out_res,
-    float* grad, int device, cudaStream_t stream) {
+    float* grad, int width, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
+  if (width != 1 && width != 4) return cudaErrorInvalidValue;
+  if (width == 4 && (!svox::vector_aligned(features, scale, zero) ||
+                     reinterpret_cast<uintptr_t>(tmats) % 16 != 0 ||
+                     reinterpret_cast<uintptr_t>(grad) % 16 != 0)) {
+    return cudaErrorInvalidValue;
+  }
   if (B <= 0 || M <= 0) return cudaSuccess;
   if (n_color < 0 || n_color > kMaxColor) return cudaErrorInvalidValue;
   using S = SVOX_STRUCTURE;
   const Params<S> p{S::from(*s), origins, dirs, vdirs, B,
                     offset, scaling, svox::make_pool<svox::Pool>(features, scale, zero), M, D,
                     tmats, extra, ld_extra, basis_dim, min_comp, max_comp, n_color, step_size,
-                    bg, max_steps, grad_out, out_res, grad};
+                    bg, max_steps, grad_out, out_res, grad, width};
   switch (format) {
     case svox::kRGBA: return launch<S, svox::kRGBA, 0>(p, stream);
     case svox::kSH: return launch_basis<S, svox::kSH>(p, stream);
@@ -447,7 +681,7 @@ extern "C" int SVOX_NAME(svox_opacity_bwd)(
                     offset, scaling, svox::make_pool<svox::Pool>(features, scale, zero), M, D,
                     nullptr, nullptr, 0,
                     0, 0, 0, 0, step_size, 0.f,
-                    max_steps, grad_out, out_res, grad};
+                    max_steps, grad_out, out_res, grad, 1};
   const dim3 grid((B + kThreads - 1) / kThreads);
   opacity_bwd_kernel<S><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();

@@ -114,7 +114,7 @@ _FWD_ARGS = _MARCH_ARGS + [c_float, c_float, c_int,  # sigma/stop thresh, max_st
                            c_int, c_int, c_void_p]  # width, device, stream
 _BWD_ARGS = _MARCH_ARGS + [c_int,                   # max_steps
                            c_void_p, c_void_p, c_void_p,  # grad_out, out_res, grad
-                           c_int, c_void_p]         # device, stream
+                           c_int, c_int, c_void_p]  # width, device, stream
 # The entry-point suffixes of a march kernel's instances: the structure and
 # interpolation (in `_kernel_for`'s order: tree walk, bake, tree walk
 # interp, bake interp), then the pool type (K5).
@@ -145,6 +145,9 @@ RENDER_BWD, RENDER_BWD_BAKED, RENDER_BWD_INTERP, RENDER_BWD_BAKED_INTERP = _BWD_
 # its corners' rows (interp) move (`render_fwd_width`), beside their counts,
 # every structure and pool type.
 FWD_WIDTH_LAUNCHES = {1: 0, 4: 0}
+# The same for K3 and K3+K4, the backward march (the same rule; the tape
+# backward's are `ops.tape.BWD_WIDTH_LAUNCHES`).
+MARCH_BWD_WIDTH_LAUNCHES = {1: 0, 4: 0}
 # Color channels the kernels hold in registers, and the largest basis.
 KERNEL_MAX_COLORS = 16
 KERNEL_MAX_BASIS = 25
@@ -978,7 +981,8 @@ def render_fwd_width(fmt: int, basis_dim: int, D: int, pool_ptr: int, pool_elem:
 
 def _fwd_width(spec, features, opt: RenderOptions) -> int:
     """`render_fwd_width` of a K2 launch on ``spec`` and ``features``, nearest
-    or interp (K2+K4 reads each corner's row at the same widths)."""
+    or interp (K2+K4 reads each corner's row at the same widths), and of a
+    K3 or K3+K4 launch (its gradient buffer is a fresh, aligned one)."""
     q, ptrs = features, []
     if isinstance(features, QuantizedFeatures):
         q, ptrs = features.q, [features.scale.data_ptr(), features.zero.data_ptr()]
@@ -1011,12 +1015,22 @@ def _march_cuda(spec, features, origins, dirs, vdirs, opt, want_weights, width=N
 def volume_render_backward_cuda(spec: TreeSpec, features: torch.Tensor,
                                 origins: torch.Tensor, dirs: torch.Tensor,
                                 vdirs: torch.Tensor, grad_out: torch.Tensor,
-                                opt: RenderOptions, out_res=None) -> torch.Tensor:
+                                opt: RenderOptions, out_res=None, width=None) -> torch.Tensor:
     """Launch the backward-march kernel (csrc/render_bwd.cu, or
-    csrc/render_bwd_baked.cu on a BakedTree; a bf16 pool's instances of
-    csrc/render_bwd.cuh) into a zeroed float32 (M, D) gradient;
+    csrc/render_bwd_baked.cu on a BakedTree; under interp
+    render_bwd_interp.cu / render_bwd_baked_interp.cu; a bf16 pool's
+    instances of csrc/render_bwd.cuh) into a zeroed float32 (M, D) gradient;
     single pass when `volume_render_backward_plain` takes one. An empty
-    pool or ray batch returns zeros without a launch."""
+    pool or ray batch returns zeros without a launch. The vector width is
+    K2's (`render_fwd_width`: 4 for the three-colour rows with no spare
+    column and aligned pointers, else 1); ``width`` (1 or 4) forces one,
+    and 4 on a row or pointers that do not allow it raises (a comparison of
+    the instances passes it)."""
+    if width not in (None, 1, 4):
+        raise ValueError(f"width must be 1 or 4, got {width!r}")
+    if width == 4 and _fwd_width(spec, features, opt) != 4:
+        raise ValueError("width 4 takes only the three-colour RGBA, SH1 and SH9 rows with no spare "
+                         "column (D = 4, 4, 28), the pool aligned to 4 values and the rotations to 16 bytes")
     args, n_color = _kernel_args(spec, features, origins, dirs, vdirs, opt,
                                  "volume_render_backward_cuda")
     kernel = _kernel_for(spec, opt, _BWD_INSTANCES, features)
@@ -1031,10 +1045,13 @@ def volume_render_backward_cuda(spec: TreeSpec, features: torch.Tensor,
     grad = torch.zeros(M, D, dtype=torch.float32, device=dev)
     if M == 0 or origins.shape[0] == 0:
         return grad
+    if width is None:
+        width = _fwd_width(spec, features, opt)
     kernel(
         *args, opt.max_steps, grad_out.data_ptr(),
-        out_res.data_ptr() if single else None, grad.data_ptr(), *_stream(dev),
+        out_res.data_ptr() if single else None, grad.data_ptr(), width, *_stream(dev),
     )
+    MARCH_BWD_WIDTH_LAUNCHES[width] += 1
     return grad
 
 

@@ -1442,6 +1442,49 @@ def test_render_fwd_widths_match(cuda, backend, case):
             assert bool((out[:, -1] >= 1.0 - o_.stop_thresh).any()), "no ray stopped"
 
 
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("interp", [False, True])
+@pytest.mark.parametrize("case", list(FWD_CASES))
+def test_render_bwd_widths_match(cuda, backend, interp, case):
+    """K3's and K3+K4's width 4 (the row in vectors, vector atomics; under
+    interp the corners from the own lookup) and width 1 (the earlier loop)
+    against plain on every FWD_CASES row, float32 and bf16 pools, exact
+    (single pass), fast (two passes) and with a small max_steps, within the
+    atomic tolerance, with a gradient in the plain version's rows and no
+    other; the launch takes `render_fwd_width`'s width and counts it in
+    MARCH_BWD_WIDTH_LAUNCHES, and width 4 on any other row raises in
+    Python."""
+    fmt, ddim, width = FWD_CASES[case]
+    tree, spec, feats, _, o, d = _tape_scene(cuda, backend, fmt=fmt, ddim=ddim, seed=72)
+    if case == "sh9_rot":
+        spec = spec.with_(transformation_matrices=_qr_rotations(feats.shape[0], 72).to(cuda))
+    r = stt.VolumeRenderer(tree, backend=backend, interp="trilinear" if interp else "nearest")
+    base = r._get_options(False)
+    opts = {"exact": base, "fast": r._get_options(True),
+            "max_steps": dataclasses.replace(base, max_steps=5)}
+    g_out = torch.randn(o.shape[0], 4, generator=torch.Generator().manual_seed(72)).to(cuda)
+    for name, o_ in opts.items():
+        for kind, p in _fwd_pools(feats)[:2]:
+            label = f"{case} {backend} interp={interp} {kind} {name}"
+            out = trender.volume_render_cuda(spec, p, o, d, d, o_)
+            g = g_out[:, :out.shape[1]].contiguous()
+            want = trender.volume_render_backward_plain(spec, p, o, d, d, g, o_, out_res=out)
+            rows = (want != 0).any(dim=1)
+            assert bool(rows.any()), label
+            before = trender.MARCH_BWD_WIDTH_LAUNCHES[width]
+            got = trender.volume_render_backward_cuda(spec, p, o, d, d, g, o_, out_res=out)
+            torch.cuda.synchronize()
+            assert trender.MARCH_BWD_WIDTH_LAUNCHES[width] == before + 1, label
+            for w in sorted({1, width}):
+                g_w = got if w == width else trender.volume_render_backward_cuda(
+                    spec, p, o, d, d, g, o_, out_res=out, width=w)
+                _assert_atomic_close(g_w, want)
+                assert torch.equal((g_w != 0).any(dim=1), rows), label
+            if width == 1:
+                with pytest.raises(ValueError, match="width 4 takes only"):
+                    trender.volume_render_backward_cuda(spec, p, o, d, d, g, o_, out_res=out, width=4)
+
+
 def test_render_fwd_misaligned_pointers_take_width_1(cuda):
     """A pool view off its 16-byte alignment, an int8 pool whose scale is
     off it, or rotation matrices off it take width 1 (and width 4 on them

@@ -304,20 +304,21 @@ K2_INSTANCE = re.compile(
     r"render_fwd_kernel(?:_wide)?IN4svox\d+(TreeWalk|Baked)ELi(\d+)ELi(\d+)ELb([01])ELb([01])E(?:Li(\d+)E)?")
 
 
-def design_sources(workdir: Path, parent: Path | None, designs: dict, parent_units=K2_UNITS) -> tuple:
+def design_sources(workdir: Path, parent: Path | None, designs: dict, parent_units=K2_UNITS,
+                   header: str = "render_fwd.cuh") -> tuple:
     """({library: (its csrc directory, its compile units)}, {design: the
     library it shares}): each design's sources copied to ``workdir`` and its
-    header patched (a design whose patches leave the shipped header as it is
-    shares the shipped library), and the parent's sources as they are.
+    ``header`` patched (a design whose patches leave the shipped header as it
+    is shares the shipped library), and the parent's sources as they are.
     ``designs``: {design: (patches, units)}."""
-    src = (_build.CSRC / "render_fwd.cuh").read_text()
+    src = (_build.CSRC / header).read_text()
     out, alias = {}, {}
     for name, (patches, units) in designs.items():
         text = src
         for old, new in patches:
             n = len(old.findall(text)) if isinstance(old, re.Pattern) else text.count(old)
             if n != 1:
-                raise RuntimeError(f"render_fwd.cuh changed: design {name}'s patch no longer applies")
+                raise RuntimeError(f"{header} changed: design {name}'s patch no longer applies")
             text = old.sub(new, text) if isinstance(old, re.Pattern) else text.replace(old, new)
         if name != "shipped" and text == src and "shipped" in designs:
             alias[name] = "shipped"
@@ -326,17 +327,18 @@ def design_sources(workdir: Path, parent: Path | None, designs: dict, parent_uni
         d.mkdir()
         for f in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
             shutil.copy(f, d / f.name)
-        (d / "render_fwd.cuh").write_text(text)
+        (d / header).write_text(text)
         out[name] = (d, units)
     if parent is not None:
         out["parent"] = (parent / "svox_t_tpu_torch" / "csrc", parent_units)
     return out, alias
 
 
-def compile_libraries(workdir: Path, sources: dict) -> dict:
+def compile_libraries(workdir: Path, sources: dict, report_rows=None) -> dict:
     """{library: path}: every unit of every library compiled at once, one
     nvcc each, then one link a library; prints the kernels, the SH9
-    instances' registers and each spilling nearest instance."""
+    instances' registers and each spilling nearest instance (``report_rows``
+    instead of `report`: another header's kernels)."""
     nvcc = _build._nvcc()
     jobs = []
     for name, (csrc, names) in sources.items():
@@ -372,7 +374,7 @@ def compile_libraries(workdir: Path, sources: dict) -> dict:
         for (n, unit), (_, log, _) in zip(jobs, done):
             if n == name:
                 rows += [(unit.name, *r) for r in ptxas_rows(log)]
-        report(name, rows)
+        (report_rows or report)(name, rows)
     return libs
 
 
