@@ -195,7 +195,16 @@ path too), with the own row alone, and with 9 lookups from the root, and
 its bound counted from the kernel's lookups (the kernels line's) and from
 9 lookups (`K2+K4 census`, from `ops/corner_lookup.py`'s mirror over the
 march's samples); phase 4m also
-times a `record_dynamic_persp` call that hits the cache (D1's key). It
+times a `record_dynamic_persp` call that hits the cache (D1's key). The
+motion-feature march (K9c, K9d) has a vector instance, width 4 (the LBS
+rows, the joint table and the output rows in 16-byte loads), which the
+wrappers launch where the tables are aligned (`mf_width`), and the scalar
+one, width 1: the aux training, interp and pool paths must launch only
+width 4 (`check_mf_widths`); each phase that holds K9c or K9d against its
+plain version holds width 1 too, on the same inputs; each instance is timed
+at width 4 in turns against width 1 on the same tables (`prev_ms`), beside
+the aux serving frame and training step of phases 4c-4d; ptxas's
+registers and spills of each K9c and K9d instance are printed. It
 prints kernel and plain-version times and each kernel's bound with the
 card's name and power limit, the whole run's seconds, one JSON line
 describing the kernels, and as its last line {"ok": true, "device":
@@ -367,6 +376,44 @@ def in_turns(new, old, timer) -> tuple:
     two."""
     o1, n1, n2, o2 = timer(old), timer(new), timer(new), timer(old)
     return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def mf_turns(spec, jf, pool, origins, dirs, opt, g_m=None) -> tuple:
+    """(ms, width-1 ms) of K9c (K9d with the cotangent ``g_m``) in turns
+    (`in_turns`): the vector instance (width 4) against the scalar one
+    (width 1, the earlier kernel's reads) on the same inputs. K9c's two
+    outputs must be equal bit for bit, K9d's gradients within ATOMIC_RTOL of
+    each other (each is held against the plain version where its phase
+    checks the kernel)."""
+    if g_m is None:
+        def run(w):
+            return aux_ops.motion_feature_forward_cuda(spec, jf, pool, origins, dirs, opt, width=w)
+    else:
+        def run(w):
+            return aux_ops.motion_feature_backward_cuda(spec, jf, pool, origins, dirs, g_m, opt, width=w)
+    what = "mf_bwd" if g_m is not None else "mf_fwd"
+    if g_m is None:
+        check(torch.equal(run(4), run(1)), f"{what}: widths 4 and 1 differ")
+    else:
+        atomic_err(run(1), run(4), f"{what}: width 1 against width 4")
+    return in_turns(lambda: run(4), lambda: run(1), lambda fn: time_ms(fn, KERNEL_REPS))
+
+
+MF_TURNS = "its width-1 instance (the earlier kernel's reads)"
+
+
+def mf_width_check(spec, jf, pool, origins, dirs, opt, out, want, g_m, want_g, what: str) -> tuple:
+    """K9c's and K9d's width-1 instances (the scalar reads) on the inputs
+    of a phase that holds their width-4 launches (``out`` and the gradient
+    it compares) against the plain versions (``want``, ``want_g``): K9c
+    equal to ``out`` bit for bit and within RENDER_ATOL of plain, K9d
+    within ATOMIC_RTOL of plain. Returns (K9c's error, K9d's)."""
+    m_1 = aux_ops.motion_feature_forward_cuda(spec, jf, pool, origins, dirs, opt, width=1)
+    check(torch.equal(m_1, out), f"mf_fwd{what} width 1: not the width-4 output")
+    err = float((m_1 - want).abs().max())
+    check(err <= RENDER_ATOL, f"mf_fwd{what} width 1: kernel vs plain {err}")
+    b_1 = aux_ops.motion_feature_backward_cuda(spec, jf, pool, origins, dirs, g_m, opt, width=1)
+    return err, atomic_err(b_1, want_g, f"mf_bwd{what} width 1")
 
 
 def profiled_kernels(run, enough, what: str) -> list:
@@ -629,7 +676,8 @@ def reset_counts() -> None:
     for k in COUNTERS.values():
         k.launches = 0
     for widths in (tape_ops.BWD_WIDTH_LAUNCHES, tape_ops.FWD_WIDTH_LAUNCHES, render_ops.FWD_WIDTH_LAUNCHES,
-                   render_ops.MARCH_BWD_WIDTH_LAUNCHES):
+                   render_ops.MARCH_BWD_WIDTH_LAUNCHES, aux_ops.MF_FWD_WIDTH_LAUNCHES,
+                   aux_ops.MF_BWD_WIDTH_LAUNCHES):
         for w in widths:
             widths[w] = 0
 
@@ -638,13 +686,16 @@ def read_counts() -> dict:
     """Each counter's launches, and the tape replay's and the marches'
     launches by vector width: K13d / K13e's (``bwd_width_<w>``), K13c's and
     its frame axis's (``fwd_width_<w>``), K2's, nearest and interp
-    (``march_width_<w>``), and K3's, nearest and interp
-    (``march_bwd_width_<w>``), all entry points, structures and pool types."""
+    (``march_width_<w>``), K3's, nearest and interp
+    (``march_bwd_width_<w>``), and K9c's and K9d's (``mf_fwd_width_<w>``,
+    ``mf_bwd_width_<w>``), all entry points, structures and pool types."""
     counts = {name: k.launches for name, k in COUNTERS.items()}
     counts.update({f"bwd_width_{w}": n for w, n in tape_ops.BWD_WIDTH_LAUNCHES.items()})
     counts.update({f"fwd_width_{w}": n for w, n in tape_ops.FWD_WIDTH_LAUNCHES.items()})
     counts.update({f"march_width_{w}": n for w, n in render_ops.FWD_WIDTH_LAUNCHES.items()})
     counts.update({f"march_bwd_width_{w}": n for w, n in render_ops.MARCH_BWD_WIDTH_LAUNCHES.items()})
+    counts.update({f"mf_fwd_width_{w}": n for w, n in aux_ops.MF_FWD_WIDTH_LAUNCHES.items()})
+    counts.update({f"mf_bwd_width_{w}": n for w, n in aux_ops.MF_BWD_WIDTH_LAUNCHES.items()})
     return counts
 
 
@@ -683,6 +734,16 @@ def check_march_bwd_widths(counts: dict, what: str) -> None:
           f"{what}: {n} backward-march launches, {counts['march_bwd_width_4']} of them the vector instance")
 
 
+def check_mf_widths(counts: dict, what: str) -> None:
+    """On a path with the aux scene's LBS tables (4 bones, Kd 16, aligned
+    tables and rows) every K9c and K9d launch (either structure, nearest
+    and interp, every pool type) is the vector instance, width 4."""
+    for name in ("mf_fwd", "mf_bwd"):
+        n = sum(v for k, v in counts.items() if k.startswith(name) and "_width_" not in k)
+        check(n > 0 and counts[f"{name}_width_4"] == n and counts[f"{name}_width_1"] == 0,
+              f"{what}: {n} {name} launches, {counts[f'{name}_width_4']} of them the vector instance")
+
+
 def k3_width_check(spec, pool, origins, dirs, g_out, opt, out_res, what: str) -> tuple:
     """K3 (K3+K4 under interp) at every width the row takes (4 and 1 for the
     three-colour rows with no spare column, `render_ops._fwd_width`; else 1),
@@ -719,6 +780,8 @@ MARCH_INSTANCE = re.compile(
     r"render_fwd_kernel(?:_wide)?IN4svox\d+(TreeWalk|Baked)ELi(\d+)ELi(\d+)ELb([01])ELb([01])ELi(\d+)E")
 # K3's kernel instances: structure, format, basis capacity, rotation, width.
 BWD_INSTANCE = re.compile(r"render_bwd_kernelIN4svox\d+(TreeWalk|Baked)ELi(\d+)ELi(\d+)ELb([01])ELi(\d+)E")
+# K9c and K9d: (kernel, Kd capacity, vector instance).
+MF_INSTANCE = re.compile(r"(mf_fwd|mf_bwd)_kernel(?:_7)?ILi(\d+)ELb([01])E")
 # An H100 SM: 65,536 registers (allocated per warp in units of 256, so a
 # thread's count rounds up to a multiple of 8) and 2,048 threads.
 SM_REGISTERS, SM_THREADS, N_SMS = 65536, 2048, 132
@@ -734,9 +797,11 @@ def ptxas_summary(log: str) -> dict:
     """Print the registers and spills of the tape forward's and backward's
     instances, of K2's and of K3's by vector width (each compile unit: the
     range over formats and bases, and the SH9 instances with their blocks an
-    SM) and of K14c's, from the build log. Fails if a tape forward instance
-    or a nearest K2 instance spills. Returns {(K2 or K3 unit, width):
-    registers of its plain SH9 instance (no rotation, no weights)}."""
+    SM), of K9c's and K9d's by Kd capacity and of K14c's, from the build
+    log. Fails if a tape forward instance or a nearest K2 instance spills.
+    Returns {(K2 or K3 unit, width): registers of its plain SH9 instance (no
+    rotation, no weights)} and {(render_aux unit, "mf_fwd" or "mf_bwd"):
+    registers of its JOINT_DIM vector instance}."""
     unit, entry, spill = None, None, None
     rows = []
     for line in log.splitlines():
@@ -813,6 +878,15 @@ def ptxas_summary(log: str) -> dict:
             print(f"  ptxas {u} width {w} ({where}): {len(got)} instances, {min(g[0] for g in got)}-"
                   f"{max(g[0] for g in got)} registers, {sum(g[1] for g in got)} bytes spilled in all; SH9: "
                   + "; ".join(sh9))
+    # K9c and K9d by Kd capacity; the main path's is 16.
+    for u in sorted({r[0] for r in rows if r[0] and r[0].startswith("render_aux")}):
+        got = [(m.group(1), int(m.group(2)), m.group(3) == "1", r[2], r[3]) for r in rows if r[0] == u
+               for m in [MF_INSTANCE.search(r[1])] if m]
+        for name, kd, vec, r_, sp in got:
+            if kd == JOINT_DIM and vec:
+                sh9_regs[u, name] = r_
+        print(f"  ptxas {u} K9c, K9d (Kd capacity, V: the vector instance: registers, bytes spilled): "
+              + "; ".join(f"{name}<{kd}{', V' if vec else ''}> {r_}, {sp}" for name, kd, vec, r_, sp in sorted(got)))
     return sh9_regs
 
 
@@ -1085,8 +1159,9 @@ def interp_bounds(c: dict, M: int, D: int, kind: str = "f32", nine: bool = False
     corners, the LBS tables of their own rows; a lookup's ops per
     child-table level on the tree (OPS_LEVEL) and per lookup on the bake
     (OPS_LOOKUP), plus OPS_CORNERS per sample. The lookups are the 9 a
-    sample makes from the root, but the forward's (K2+K4) and the
-    backward's (K3+K4): those their width-4 kernels make (``k4_loads``,
+    sample makes from the root, but the forward's (K2+K4), the backward's
+    (K3+K4) and the motion-feature passes' (K9c+K4, K9d+K4, which find
+    their corners as K2+K4 does): those their width-4 kernels make (``k4_loads``,
     ``k4_lookups``; on the tree walk its child-table levels are its loads
     less one data load a lookup), or with ``nine`` 9 from the root as well,
     as the earlier kernels made them."""
@@ -1118,9 +1193,9 @@ def interp_bounds(c: dict, M: int, D: int, kind: str = "f32", nine: bool = False
                               march_ops + OPS_OPACITY_BWD_INTERP * c["contrib"]),
         "first_hit" + sfx: (B * 24 + c["rows_fh"] * e + q + c["cells_fh"] * cell_b + B * 21, fh_ops),
         "mf_fwd" + sfx: (B * 24 + sig_b + lbs_b + table_b + jtab + B * JOINT_DIM * 4,
-                         march_ops + OPS_MF_FWD * c["contrib"]),
+                         k4_ops + OPS_MF_FWD * c["contrib"]),
         "mf_bwd" + sfx: (B * 24 + B * JOINT_DIM * 4 + sig_b + lbs_b + table_b + 2 * jtab,
-                         march_ops + OPS_MF_BWD * c["contrib"]),
+                         k4_ops + OPS_MF_BWD * c["contrib"]),
     }.items()})
 
 
@@ -1318,13 +1393,15 @@ def pool_kernel_phase(specs: dict, feats, jf, origins, dirs, renderers: dict, ke
                         lambda: aux_ops.motion_feature_render_plain(spec, jf, pool, origins, dirs, opt))
                     err["mf_fwd"] = float((mf - m_p).abs().max())
                     check(err["mf_fwd"] <= RENDER_ATOL, f"mf_fwd{sfx}: kernel vs plain {err['mf_fwd']}")
-                    del m_p
                 g_m = torch.from_numpy(rng.randn(B, JOINT_DIM).astype(np.float32)).to(dev)
                 b_k = aux_ops.motion_feature_backward_cuda(spec, jf, pool, origins, dirs, g_m, opt)
                 b_p, plain_ms["mf_bwd" + sfx] = timed_once_ms(
                     lambda: aux_ops.motion_feature_backward_plain(spec, jf, pool, origins, dirs, g_m, opt))
                 err["mf_bwd"] = atomic_err(b_k, b_p, f"mf_bwd{sfx}")
                 check(float(b_k.abs().max()) > 0, f"mf_bwd{sfx}: zero gradient")
+                e_1 = mf_width_check(spec, jf, pool, origins, dirs, opt, mf, m_p, g_m, b_p, sfx)
+                err["mf_fwd"], err["mf_bwd"] = max(err["mf_fwd"], e_1[0]), max(err["mf_bwd"], e_1[1])
+                del m_p
                 cast = {}
                 if kind == "bf16":
                     g_out = torch.from_numpy(rng.randn(B, 4).astype(np.float32)).to(dev)
@@ -3760,10 +3837,12 @@ def main() -> None:
             aux_spec, jf_true, feats, origins, dirs, g_m, opt))
         b_err = atomic_err(b_k, b_p, f"mf_bwd {mode}")
         check(float(b_k.abs().max()) > 0, "mf_bwd: zero gradient")
-        aux_err["mf_bwd"] = max(aux_err["mf_bwd"], b_err)
+        e_1 = mf_width_check(aux_spec, jf_true, feats, origins, dirs, opt, m_k, m_p, g_m, b_p, f" {mode}")
+        aux_err["mf_fwd"] = max(aux_err["mf_fwd"], e_1[0])
+        aux_err["mf_bwd"] = max(aux_err["mf_bwd"], b_err, e_1[1])
         print(f"motion features {mode}: forward max_abs_err {err:.3g}, plain {p_ms:.1f} ms; "
               f"VJP max_abs_err {b_err:.3g} (max|g| {float(b_p.abs().max()):.4g}), "
-              f"plain {bp_ms:.1f} ms")
+              f"plain {bp_ms:.1f} ms; width 1: forward equal, VJP max_abs_err {e_1[1]:.3g}")
     for k, v in aux_err.items():
         kernels[k]["max_abs_err"] = v
 
@@ -4039,6 +4118,8 @@ def main() -> None:
             aux_baked, jf_true, feats, origins, dirs, g_m, opt))
         e_b = atomic_err(b_k, b_p, f"mf_bwd_baked {mode}")
         check(float(b_k.abs().max()) > 0, "mf_bwd_baked: zero gradient")
+        e_1 = mf_width_check(aux_baked, jf_true, feats, origins, dirs, opt, m_k, m_p, g_m, b_p, f"_baked {mode}")
+        e_m, e_b = max(e_m, e_1[0]), max(e_b, e_1[1])
         for k_, e in (("opacity_bwd_baked", e_o), ("first_hit_baked", e_h), ("mf_fwd_baked", e_m),
                       ("mf_bwd_baked", e_b)):
             aux_err_b[k_] = max(aux_err_b[k_], e)
@@ -4138,6 +4219,8 @@ def main() -> None:
             ispec, jf_true, feats, origins, dirs, g_m, opt))
         err["mf_bwd"] = atomic_err(b_k, b_p, f"mf_bwd{sfx}")
         check(float(b_k.abs().max()) > 0, f"mf_bwd{sfx}: zero gradient")
+        e_1 = mf_width_check(ispec, jf_true, feats, origins, dirs, opt, m_k, m_p, g_m, b_p, sfx)
+        err["mf_fwd"], err["mf_bwd"] = max(err["mf_fwd"], e_1[0]), max(err["mf_bwd"], e_1[1])
         print(f"interp aux{sfx} exact ({B} rays): opacity VJP max_abs_err {err['opacity_bwd']:.3g}, first hit "
               f"equal ({int(h_k[0].sum())} hits, {int((h_k[1] > 0).sum())} with a t_hit; frac "
               f"{err['first_hit']:.3g}), motion features {err['mf_fwd']:.3g}, VJP {err['mf_bwd']:.3g}; "
@@ -4298,6 +4381,7 @@ def main() -> None:
     # the hit points) on the same camera rays, on both backends.
     cam_rays = stt.Rays(origins, dirs, dirs)
     aux_serve_counts, aux_outs = {}, {}
+    aux_frame_ms, aux_step_ms = {}, {}
     for backend in BACKENDS:
         sfx = SUFFIX[backend]
         aux_tree = stt.tree_from_numpy(aux_state, device=dev)
@@ -4320,6 +4404,7 @@ def main() -> None:
                 aux_frame_s.append(time.perf_counter() - t0)
                 aux_frames.append((img, alpha, depth, motion))
         counts = aux_serve_counts[backend] = read_counts()
+        aux_frame_ms[backend] = [round(x * 1e3, 3) for x in aux_frame_s]
         print(f"main path, aux serving ({LABEL[backend]}): {N_FRAMES} frames, launches "
               f"{nonzero(counts)}, host ms per frame (construct + render + opacity + depth + motion) "
               f"{[round(x * 1e3, 3) for x in aux_frame_s]}")
@@ -4367,6 +4452,7 @@ def main() -> None:
             aux_train_tree, true_pool, pool0, jf_true, jf_init, sw, ji, centers, perms, cam_rays,
             steps, backend=backend)
         counts = aux_train_counts[backend] = read_counts()
+        aux_step_ms[backend] = [round(x, 3) for x in a_step_ms]
         print(f"main path, aux training ({LABEL[backend]}): {steps} steps, launches {nonzero(counts)}, "
               f"loss {[round(x, 8) for x in a_losses]}, host ms per step "
               f"{[round(x, 3) for x in a_step_ms]}")
@@ -4375,6 +4461,7 @@ def main() -> None:
                 "mf_bwd" + sfx: steps}
         for k, n in want.items():
             check(counts[k] == n, f"aux training: {k} launched {counts[k]} times, not {n}")
+        check_mf_widths(counts, f"aux training ({backend})")
         check_bake_counts(counts, backend, steps + 1)
         check(a_losses[-1] < a_losses[0], "the aux loss did not fall")
         for name, x in (("pool", a_pool), ("joint features", a_jf)):
@@ -4681,6 +4768,7 @@ def main() -> None:
         counts = interp_counts[backend] = read_counts()
         check_march_widths(counts, f"interp path ({backend})")
         check_march_bwd_widths(counts, f"interp path ({backend})")
+        check_mf_widths(counts, f"interp path ({backend})")
         w = i_acc()
         print(f"main path, interp ({LABEL[backend]}): launches {nonzero(counts)}; host ms: construct + exact "
               f"+ fast frames + opacity and motion-feature targets {frame_ms:.3f}, training step "
@@ -4740,6 +4828,7 @@ def main() -> None:
         check(not missing, f"pool path ({backend}): not launched: {missing}")
         check_march_widths(counts, f"pool path ({backend})")
         check_march_bwd_widths(counts, f"pool path ({backend})")
+        check_mf_widths(counts, f"pool path ({backend})")
         if backend == "tree":
             check_bake_counts(counts, backend, 0)
         pool_ms[backend] = res["ms"]
@@ -5014,12 +5103,24 @@ def main() -> None:
                                aux_spec, jf_true, f0, origins, dirs, g_m, opt)),
             }
             for name, (run_k, run_p) in runs.items():
-                k_ms = time_ms(run_k, KERNEL_REPS)
+                turns = ""
+                if name.startswith("mf_"):
+                    k_ms, k1_ms = mf_turns(aux_spec, jf_true, f0, origins, dirs, opt,
+                                           g_m if name == "mf_bwd" else None)
+                    turns = f", {MF_TURNS} {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
+                    if not fast:
+                        kernels[name]["prev_ms"] = k1_ms
+                else:
+                    k_ms = time_ms(run_k, KERNEL_REPS)
                 p_ms = time_ms(run_p, 1)
                 print(f"time {name} SH9 {mode} {WIDTH}x{HEIGHT} (J {N_JOINTS}, Kd {JOINT_DIM}, "
-                      f"{N_BONES} bones): kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms [{card}]")
+                      f"{N_BONES} bones): kernel {k_ms:.4f} ms{turns}, plain {p_ms:.1f} ms [{card}]")
                 if not fast:
                     kernels[name].update(ms=k_ms, plain_ms=p_ms)
+
+        # The aux path's frames and steps beside the K9c and K9d times.
+        print(f"aux path beside K9c and K9d: serving frame host ms {aux_frame_ms} (phase 4c), training step host "
+              f"ms {aux_step_ms} (phase 4d) [{card}]")
 
         # The baked aux instances, exact, on the aux scene's bake.
         opt = sh_renderer._get_options(False)
@@ -5036,10 +5137,17 @@ def main() -> None:
                 aux_baked, jf_true, f0, origins, dirs, g_m, opt),
         }
         for name, run_k in runs.items():
-            k_ms = time_ms(run_k, KERNEL_REPS)
+            turns = ""
+            if name.startswith("mf_"):
+                k_ms, k1_ms = mf_turns(aux_baked, jf_true, f0, origins, dirs, opt,
+                                       g_m if name.startswith("mf_bwd") else None)
+                kernels[name]["prev_ms"] = k1_ms
+                turns = f", {MF_TURNS} {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
+            else:
+                k_ms = time_ms(run_k, KERNEL_REPS)
             p_ms = baked_plain_ms[(name[: -len("_baked")], False)]
             kernels[name].update(ms=k_ms, plain_ms=p_ms)
-            print(f"time {name} SH9 exact {WIDTH}x{HEIGHT}: kernel {k_ms:.4f} ms (tree walk "
+            print(f"time {name} SH9 exact {WIDTH}x{HEIGHT}: kernel {k_ms:.4f} ms{turns} (tree walk "
                   f"{kernels[name[: -len('_baked')]]['ms']:.4f} ms), plain {p_ms:.1f} ms "
                   f"(one call, phase 3d) [{card}]")
 
@@ -5080,6 +5188,11 @@ def main() -> None:
                     k_ms, k1_ms = k3_turns(ispec, feats, origins, dirs, g_out, opt, out)
                     kernels[name + sfx]["prev_ms"] = k1_ms
                     width_1 = f", its width-1 instance (the earlier loop) {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
+                elif name.startswith("mf_"):
+                    k_ms, k1_ms = mf_turns(ispec, jf_true, feats, origins, dirs, opt,
+                                           g_m if name == "mf_bwd" else None)
+                    kernels[name + sfx]["prev_ms"] = k1_ms
+                    width_1 = f", {MF_TURNS} {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
                 else:
                     k_ms = time_ms(run_k, KERNEL_REPS)
                 n_ms = time_ms(lambda: run_k(opt_n), KERNEL_REPS)
@@ -5133,6 +5246,11 @@ def main() -> None:
                             k_ms, k1_ms = k3_turns(pspec, pool, origins, dirs, g_out, opt, out)
                             kernels[key]["prev_ms"] = k1_ms
                             width_1 = f", its width-1 instance {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
+                        elif name.startswith("mf_"):
+                            k_ms, k1_ms = mf_turns(pspec, jf_true, pool, origins, dirs, opt,
+                                                   g_m if name == "mf_bwd" else None)
+                            kernels[key]["prev_ms"] = k1_ms
+                            width_1 = f", {MF_TURNS} {k1_ms:.4f} ms in turns ({k1_ms / k_ms:.3f}x)"
                         else:
                             k_ms = time_ms(lambda: run_k(pool), KERNEL_REPS)
                         f_ms = time_ms(lambda: run_k(feats), KERNEL_REPS)
@@ -5354,15 +5472,21 @@ def main() -> None:
     # 7. Result lines
     # prev_ms: the width-1 instance's time in this run, in turns (K13c and
     # its frame axis: the scalar row; K13d and K13e, K2, K2+K4, K3 and K3+K4
-    # and their pool instances: the earlier design), else null. registers:
-    # ptxas's count for the width-4 plain SH9 instance of K3 and K3+K4 (no
-    # rotation), else null.
+    # and their pool instances: the earlier design; K9c and K9d: the scalar
+    # instance, the earlier kernel's reads), else null.
+    # registers: ptxas's count for the width-4 plain SH9 instance of K3 and
+    # K3+K4 (no rotation) and for the Kd-16 instance of K9c and K9d, else
+    # null.
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "prev_ms", "registers")
     for k, v in kernels.items():
         v.setdefault("prev_ms", None)
         unit = k if k.endswith("_bf16") else k + ".cu"
         v["registers"] = march_regs.get((unit, 4)) if k.startswith("render_bwd") else None
+        if k.startswith(("mf_fwd", "mf_bwd")):
+            aux_unit = "render_aux" + k[len("mf_fwd"):]
+            v["registers"] = march_regs.get((aux_unit if aux_unit.endswith(("_bf16", "_i8")) else aux_unit + ".cu",
+                                             k[:len("mf_fwd")]))
     print(card)
     print(json.dumps({"kernels": [dict(name=k, **{key: v[key] for key in keys})
                                   for k, v in kernels.items()]}))

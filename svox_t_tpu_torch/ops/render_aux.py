@@ -84,9 +84,10 @@ _FIRST_HIT_ARGS = _AUX_ARGS + [c_float,                     # sigma_thresh
                                c_int, c_void_p]
 _MF_ARGS = _AUX_ARGS + [c_void_p, c_int, c_int,     # joint_features, J, Kd
                         c_void_p, c_void_p, c_int]  # skinning_weights, joint_index, nb
-_MF_FWD_ARGS = _MF_ARGS + [c_float, c_float, c_float,   # sigma/stop thresh, bg
-                           c_void_p, c_int, c_void_p]   # out, device, stream
-_MF_BWD_ARGS = _MF_ARGS + [c_void_p, c_void_p, c_int, c_void_p]  # grad_out, grad, device, stream
+_MF_FWD_ARGS = _MF_ARGS + [c_float, c_float, c_float,          # sigma/stop thresh, bg
+                           c_void_p, c_int, c_int, c_void_p]   # out, width, device, stream
+_MF_BWD_ARGS = _MF_ARGS + [c_void_p, c_void_p,                 # grad_out, grad
+                           c_int, c_int, c_void_p]             # width, device, stream
 # Each pass's instances (`render.march_instances`): the opacity VJP for
 # float32 and bf16 pools (a quantized pool takes no gradient), the others
 # for int8 pools too.
@@ -116,6 +117,14 @@ MF_BWD, MF_BWD_BAKED, MF_BWD_INTERP, MF_BWD_BAKED_INTERP = _MF_BWD_INSTANCES["f3
 # floats: J * (Kd | 1), its rows padded to an odd stride.
 KERNEL_MAX_JOINT_DIM = 32
 KERNEL_MAX_JOINT_TABLE = 12288
+# Shared memory the vector instances (width 4) of K9c and K9d may take for
+# the joint table and K9d's gradient table, in bytes (`csrc/render_aux.cuh`
+# kSmemBudget).
+KERNEL_MF_VECTOR_SMEM = 40 * 1024
+# Launches of K9c and of K9d by vector width (`mf_width`), every structure,
+# interp mode and pool type.
+MF_FWD_WIDTH_LAUNCHES = {1: 0, 4: 0}
+MF_BWD_WIDTH_LAUNCHES = {1: 0, 4: 0}
 
 
 def _check(spec: TreeSpec, features, origins, dirs, opt: RenderOptions) -> None:
@@ -569,19 +578,57 @@ def _mf_kernel_args(spec, joint_features, features, origins, dirs, opt, name, ba
     return args + (jf.data_ptr(), J, Kd, sw.data_ptr(), ji.data_ptr(), sw.shape[1]), jf
 
 
+def mf_width(J: int, Kd: int, nb: int, backward: bool, ptrs) -> int:
+    """The vector width of a K9c launch (K9d's with ``backward``): 4, the
+    instance that reads a contributing sample's skinning row in one float4
+    and its joint-index row in one int4 load, the joint table from a copy
+    in shared memory in float4s and the output (K9d: grad_out) row in
+    float4s, where nb is 4, Kd a multiple of 4, every pointer of ``ptrs``
+    (the skinning weights, the joint indices, and K9c's output or K9d's
+    grad_out) 16-byte aligned and the shared tables fit in
+    `KERNEL_MF_VECTOR_SMEM`; else 1, the scalar reads."""
+    jf_bytes = J * 4 * (((Kd + 3) // 4) | 1) * 4
+    table_bytes = (J * (Kd | 1) + 3) // 4 * 16 if backward else 0
+    vec = (nb == 4 and Kd % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+           and table_bytes + jf_bytes <= KERNEL_MF_VECTOR_SMEM)
+    return 4 if vec else 1
+
+
+def _mf_launch_width(args, backward: bool, row_ptr: int, width) -> int:
+    """The width of a motion-feature launch on ``args`` (`_mf_kernel_args`)
+    and its output (K9d: grad_out) row pointer: `mf_width`'s, or ``width``
+    where the caller forces one; 4 where the launch does not allow it
+    raises."""
+    J, Kd, sw_ptr, ji_ptr, nb = args[-5:]
+    rule = mf_width(J, Kd, nb, backward, (sw_ptr, ji_ptr, row_ptr))
+    if width is None:
+        return rule
+    if type(width) is not int or width not in (1, 4):
+        raise ValueError(f"the motion-feature kernels' width must be 1 or 4, got {width!r}")
+    if width == 4 and rule != 4:
+        raise ValueError("width 4 takes 4 bones, Kd a multiple of 4, LBS tables and the output (grad_out) "
+                         f"aligned to 16 bytes and at most {KERNEL_MF_VECTOR_SMEM} bytes of shared tables")
+    return width
+
+
 def motion_feature_forward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
                                 features: torch.Tensor, origins: torch.Tensor,
-                                dirs: torch.Tensor, opt: RenderOptions) -> torch.Tensor:
-    """Launch the motion-feature forward kernel (K9c, `csrc/render_aux.cu`)."""
+                                dirs: torch.Tensor, opt: RenderOptions, width=None) -> torch.Tensor:
+    """Launch the motion-feature forward kernel (K9c, `csrc/render_aux.cu`)
+    at `mf_width`'s width; ``width`` (1 or 4) forces one, and 4 where the
+    launch does not allow it raises (a comparison of the instances passes
+    it)."""
     args, _jf = _mf_kernel_args(spec, joint_features, features, origins, dirs, opt,
                                 "motion_feature_forward_cuda", backward=False)
     kernel = _kernel_for(spec, opt, _MF_FWD_INSTANCES, features)
     dev = features.device
     out = torch.empty(origins.shape[0], joint_features.shape[1], dtype=torch.float32, device=dev)
+    width = _mf_launch_width(args, False, out.data_ptr(), width)
     if out.shape[0] == 0:
         return out
     kernel(*args, opt.sigma_thresh, opt.stop_thresh, opt.background_brightness, out.data_ptr(),
-           *_stream(dev))
+           width, *_stream(dev))
+    MF_FWD_WIDTH_LAUNCHES[width] += 1
     return out
 
 
@@ -657,11 +704,12 @@ def motion_feature_backward_plain(spec: TreeSpec, joint_features: torch.Tensor,
 def motion_feature_backward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
                                  features: torch.Tensor, origins: torch.Tensor,
                                  dirs: torch.Tensor, grad_out: torch.Tensor,
-                                 opt: RenderOptions) -> torch.Tensor:
+                                 opt: RenderOptions, width=None) -> torch.Tensor:
     """Launch the motion-feature VJP kernel (K9d, `csrc/render_aux.cu`)
     into a zeroed float32 (J, Kd) gradient. Each block sums its rays into
     a copy of the joint table in shared memory, so J * (Kd | 1) is at most
-    `KERNEL_MAX_JOINT_TABLE`."""
+    `KERNEL_MAX_JOINT_TABLE`. The width is `mf_width`'s, or ``width`` as in
+    `motion_feature_forward_cuda`."""
     args, _jf = _mf_kernel_args(spec, joint_features, features, origins, dirs, opt,
                                 "motion_feature_backward_cuda", backward=True)
     kernel = _kernel_for(spec, opt, _MF_BWD_INSTANCES, features)
@@ -670,8 +718,10 @@ def motion_feature_backward_cuda(spec: TreeSpec, joint_features: torch.Tensor,
     _require(grad_out.is_contiguous() and grad_out.dtype == torch.float32,
              "grad_out must be contiguous float32")
     dev = features.device
+    width = _mf_launch_width(args, True, grad_out.data_ptr(), width)
     grad = torch.zeros(J, Kd, dtype=torch.float32, device=dev)
     if features.shape[0] == 0 or origins.shape[0] == 0:
         return grad
-    kernel(*args, grad_out.data_ptr(), grad.data_ptr(), *_stream(dev))
+    kernel(*args, grad_out.data_ptr(), grad.data_ptr(), width, *_stream(dev))
+    MF_BWD_WIDTH_LAUNCHES[width] += 1
     return grad

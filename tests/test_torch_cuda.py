@@ -14,7 +14,10 @@ kernel on both backends, with the same tolerances, and the bf16 and int8
 pool instances (K5) of every march, aux and query kernel: each forward
 equal bit for bit to the float32 kernel on the pool widened to float32
 (an int8 pool dequantized as the kernels dequantize it), each held to
-its plain version as above. The recorded-tape kernels (K13) come last:
+its plain version as above; the motion-feature kernels (K9c, K9d) have
+each instance held to plain at each Kd capacity and bone count, on aligned
+and unaligned LBS tables (their two instances) and at the joint table's
+limit. The recorded-tape kernels (K13) come last:
 the count and record kernels equal to their plain versions exactly, the
 replay forward equal to the forward march kernel bit for bit, the replay
 backward (each vector width the row allows, and the one the wrapper
@@ -1592,6 +1595,122 @@ def test_render_fwd_interp_tree_equals_bake(cuda, case):
             if weights:
                 _assert_atomic_close(w_b, w_t)
     assert float(got_t[:, -1].max()) > 0.5
+
+
+# ---------------------------------------------------------------------------
+# K9c and K9d, the motion-feature march, redesigned for Hopper: every
+# instance (both structures, nearest and interp, float32, bf16 and int8
+# pools) at each Kd capacity and bone count, at both widths: 4 (one float4
+# and one int4 load an LBS row at nb 4, the joint table from shared memory
+# in float4s), which the wrappers take where `mf_width` allows it, and 1
+# (scalar loads), forced and on LBS tables off their alignment; and K9d's
+# joint table at its limit (width 1 with more than 40 KB of shared memory:
+# the launch raises its dynamic shared-memory attribute, beside the tree
+# walk's interp path slots). (Kd, nb, J) of each case:
+MF_CASES = ((3, 1, 7), (16, 4, 32), (32, 5, 7), (16, 4, 200))
+
+
+def _mf_widths(counts, call):
+    """``call()``'s result and the width its one launch took (``counts``:
+    a width-launch counter of `ops/render_aux.py`)."""
+    before = dict(counts)
+    got = call()
+    launched = [w for w in counts if counts[w] != before[w]]
+    assert len(launched) == 1 and counts[launched[0]] == before[launched[0]] + 1, launched
+    return got, launched[0]
+
+
+def _mf_case(cuda, backend, interp, kind, seed):
+    """(renderer options by fast, pool, rays, feats): the shell's pool cut
+    to 70% of its rows, so that interp samples meet empty leaves, and rays
+    of which some miss the cube."""
+    tree, feats, _ = _shell(cuda, seed=seed)
+    feats = feats[: int(feats.shape[0] * 0.7)].contiguous()
+    pool = feats if kind == "f32" else _pool_of(kind, feats)[0]
+    o, d = _rays(cuda, 2048, seed=seed)
+    r = stt.VolumeRenderer(tree, backend=backend, interp="trilinear" if interp else "nearest")
+    return tree, r, pool, feats, o, d
+
+
+def _off16(t):
+    """A copy of t 4 bytes off its 16-byte alignment (a sliced tensor)."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape).copy_(t)
+
+
+def _mf_spec(tree, backend, jf, sw, ji):
+    if backend == "baked":
+        return tree._baked_spec(skinning_weights=sw, joint_index=ji)
+    return tree._spec(joint_features=jf, skinning_weights=sw, joint_index=ji)
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("interp", [False, True])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "i8"])
+def test_mf_fwd_instances_match_plain(cuda, backend, interp, kind):
+    """K9c on every MF_CASES row, exact and fast: within ATOL of plain,
+    zero on exactly the rays the plain version gives zero (the misses), at
+    `mf_width`'s width (4 on the aligned 4-bone rows); width 1, forced and
+    on LBS tables off their alignment, equal bit for bit to that launch,
+    where width 4 raises; a pool instance equal to the float32 kernel on
+    the widened pool."""
+    tree, r, pool, feats, o, d = _mf_case(cuda, backend, interp, kind, seed=81)
+    wide = feats if kind == "f32" else _pool_of(kind, feats)[1]
+    for kd, nb, J in MF_CASES:
+        jf, sw, ji = _lbs(cuda, feats.shape[0], J, kd, nb, seed=kd + nb + J)
+        spec = _mf_spec(tree, backend, jf, sw, ji)
+        spec_off = _mf_spec(tree, backend, jf, _off16(sw), _off16(ji))
+        for fast in (False, True):
+            opt = r._get_options(fast)
+            label = f"{backend} interp={interp} {kind} kd={kd} nb={nb} J={J} fast={fast}"
+            got, width = _mf_widths(taux.MF_FWD_WIDTH_LAUNCHES,
+                                    lambda: taux.motion_feature_forward_cuda(spec, jf, pool, o, d, opt))
+            assert width == (4 if (kd, nb, J) in ((16, 4, 32), (16, 4, 200)) else 1), label
+            want = taux.motion_feature_render_plain(spec, jf, pool, o, d, opt)
+            torch.testing.assert_close(got, want, atol=ATOL, rtol=0, msg=label)
+            assert torch.equal((got == 0).all(1), (want == 0).all(1)), label
+            assert bool((want == 0).all(1).any()) and bool((want != 0).any(1).any()), label
+            assert torch.equal(taux.motion_feature_forward_cuda(spec, jf, pool, o, d, opt, width=1), got), label
+            got_off, width = _mf_widths(taux.MF_FWD_WIDTH_LAUNCHES,
+                                        lambda: taux.motion_feature_forward_cuda(spec_off, jf, pool, o, d, opt))
+            assert width == 1 and torch.equal(got_off, got), label
+            with pytest.raises(ValueError, match="width 4 takes"):
+                taux.motion_feature_forward_cuda(spec_off, jf, pool, o, d, opt, width=4)
+            if kind != "f32":
+                assert torch.equal(taux.motion_feature_forward_cuda(spec, jf, wide, o, d, opt), got), label
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("interp", [False, True])
+@pytest.mark.parametrize("kind", ["f32", "bf16", "i8"])
+def test_mf_bwd_instances_match_plain(cuda, backend, interp, kind):
+    """K9d on every MF_CASES row, on aligned LBS tables and grad_out at
+    `mf_width`'s width (4 on the 4-bone rows whose tables fit in
+    KERNEL_MF_VECTOR_SMEM) and at width 1, on unaligned ones (width 1), and
+    at the joint-table limit (J * (Kd | 1) at KERNEL_MAX_JOINT_TABLE: width
+    1, more than 40 KB of shared memory, which the launch sets as its
+    dynamic shared-memory size; beside the tree walk's interp path slots),
+    within the atomic tolerance of plain, with a gradient in the plain
+    version's joint rows and no other."""
+    tree, r, pool, feats, o, d = _mf_case(cuda, backend, interp, kind, seed=82)
+    limit = (32, 4, taux.KERNEL_MAX_JOINT_TABLE // 33)
+    for kd, nb, J in MF_CASES + (limit,):
+        jf, sw, ji = _lbs(cuda, feats.shape[0], J, kd, nb, seed=kd + nb + J)
+        g = torch.randn(o.shape[0], kd, generator=torch.Generator().manual_seed(kd)).to(cuda)
+        for aligned in (True, False):
+            spec = _mf_spec(tree, backend, jf, *((sw, ji) if aligned else (_off16(sw), _off16(ji))))
+            g_in = g if aligned else _off16(g)
+            opt = r._get_options(False)
+            label = f"{backend} interp={interp} {kind} kd={kd} nb={nb} J={J} aligned={aligned}"
+            want = taux.motion_feature_backward_plain(spec, jf, pool, o, d, g, opt)
+            got, width = _mf_widths(taux.MF_BWD_WIDTH_LAUNCHES,
+                                    lambda: taux.motion_feature_backward_cuda(spec, jf, pool, o, d, g_in, opt))
+            assert width == (4 if aligned and (kd, nb, J) in ((16, 4, 32), (16, 4, 200)) else 1), label
+            runs = [got] + ([taux.motion_feature_backward_cuda(spec, jf, pool, o, d, g_in, opt, width=1)]
+                            if width == 4 else [])
+            for g_k in runs:
+                _assert_atomic_close(g_k, want)
+                assert torch.equal((g_k != 0).any(1), (want != 0).any(1)), label
+            assert float(want.abs().max()) > 0, label
 
 
 # ---------------------------------------------------------------------------
