@@ -204,7 +204,17 @@ width 4 (`check_mf_widths`); each phase that holds K9c or K9d against its
 plain version holds width 1 too, on the same inputs; each instance is timed
 at width 4 in turns against width 1 on the same tables (`prev_ms`), beside
 the aux serving frame and training step of phases 4c-4d; ptxas's
-registers and spills of each K9c and K9d instance are printed. It
+registers and spills of each K9c and K9d instance are printed. The
+first-hit march (K9b) prints a census line per structure, nearest and
+interp (`K9b census`, from `ops/first_hit_path.py`'s mirror: the own
+lookups' loads from the root against those of the designs that lost, the
+tree walk's path-started descents and the bake's reused top and mid
+entries, and under interp the lookups of 9 from the root against the
+kernel's), and
+its interp instances' bounds count the kernel's lookups, beside the bound
+counting 9 (`K9b+K4 bound`). construct_tree's time in phase 5 is given
+twice: CUDA events over back-to-back wrapper calls (the kernels line's
+``ms``) and its kernels' device time alone (``device_ms``). It
 prints kernel and plain-version times and each kernel's bound with the
 card's name and power limit, the whole run's seconds, one JSON line
 describing the kernels, and as its last line {"ok": true, "device":
@@ -215,6 +225,7 @@ CUDA GPU and does not fall back to the CPU.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -230,7 +241,7 @@ import svox_t_tpu_torch as stt
 from svox_t_tpu_torch import _build
 from svox_t_tpu_torch.models import renderer as renderer_mod
 from svox_t_tpu_torch.ops import bake as bake_ops
-from svox_t_tpu_torch.ops import corner_lookup
+from svox_t_tpu_torch.ops import corner_lookup, first_hit_path
 from svox_t_tpu_torch.ops import grid as grid_ops
 from svox_t_tpu_torch.ops import p2v as p2v_ops
 from svox_t_tpu_torch.ops import query as query_ops
@@ -1164,7 +1175,11 @@ def interp_bounds(c: dict, M: int, D: int, kind: str = "f32", nine: bool = False
     their corners as K2+K4 does): those their width-4 kernels make (``k4_loads``,
     ``k4_lookups``; on the tree walk its child-table levels are its loads
     less one data load a lookup), or with ``nine`` 9 from the root as well,
-    as the earlier kernels made them."""
+    as the earlier kernels made them. K9b+K4 (`first_hit`) counts the
+    lookups its kernel makes up to each ray's first hit (``k9b_loads``,
+    ``k9b_lookups`` from `ops/first_hit_path.py`'s census: the own lookup
+    and the corners as K2+K4 finds them), or with ``nine`` 9 from the root,
+    as the earlier kernel made them."""
     B = c["rays"]
     e, q = POOL_ELEM[kind], 8 * D if kind == "i8" else 0
     psfx = "" if kind == "f32" else "_" + kind
@@ -1172,10 +1187,14 @@ def interp_bounds(c: dict, M: int, D: int, kind: str = "f32", nine: bool = False
         cell_b, sfx = 4, "_baked_interp"
         look_ops, fh_look = OPS_LOOKUP * c["lookups"], OPS_LOOKUP * 9 * c["fh_samples"]
         fwd_look = OPS_LOOKUP * c["k4_lookups"]
+        if not nine:
+            fh_look = OPS_LOOKUP * c["k9b_lookups"]
     else:
         cell_b, sfx = 8, "_interp"
         look_ops, fh_look = OPS_LEVEL * c["levels"], OPS_LEVEL * c["fh_levels"]
         fwd_look = OPS_LEVEL * (c["k4_loads"] - c["k4_lookups"])
+        if not nine:
+            fh_look = OPS_LEVEL * (c["k9b_loads"] - c["k9b_lookups"])
     march_ops = OPS_RAY * c["hits"] + look_ops + (OPS_SAMPLE + OPS_CORNERS) * c["samples"]
     k4_ops = march_ops if nine else march_ops - look_ops + fwd_look
     fh_ops = OPS_RAY * c["hits"] + fh_look + (OPS_SAMPLE + OPS_CORNERS) * c["fh_samples"]
@@ -1197,6 +1216,29 @@ def interp_bounds(c: dict, M: int, D: int, kind: str = "f32", nine: bool = False
         "mf_bwd" + sfx: (B * 24 + B * JOINT_DIM * 4 + sig_b + lbs_b + table_b + 2 * jtab,
                          k4_ops + OPS_MF_BWD * c["contrib"]),
     }.items()})
+
+
+def k9b_census_line(c: dict, label: str, card: str) -> str:
+    """The `K9b census` line of `first_hit_path.first_hit_census`'s counts
+    on one structure: the own lookups' loads from the root (the shipped
+    kernel's) against those of the designs that lost (`tools/first_hit_ab.py`:
+    the tree walk's path-started descents, ``path``; the bake's samples in
+    their previous top or mid cell, ``top``), and under interp the lookups
+    of 9 from the root against the kernel's (`corners_keep`)."""
+    s = max(c["samples"], 1)
+    line = (f"K9b census ({label}{', interp' if c['interp'] else ''}): {c['hits']} rays hit the cube, "
+            f"{c['found']} found, {c['samples']} samples; own lookups' loads from the root {c['root_loads']} "
+            f"({c['root_loads'] / s:.3f} a sample)")
+    if c["baked"]:
+        line += (f"; in the previous top cell (the top design's reuse) {c['same_top'] / s:.3f} of the "
+                 f"samples, mid cell {c['same_mid'] / s:.3f}")
+    else:
+        line += (f"; the path design's, started on the previous sample's path, {c['path_loads']} "
+                 f"({c['path_loads'] / s:.3f}; {c['root_loads'] / max(c['path_loads'], 1):.3f}x fewer)")
+    if c["interp"]:
+        line += (f"; lookups a sample: 9 from the root ({c['loads_9'] / s:.3f} loads), the kernel's "
+                 f"{c['lookups_keep'] / s:.3f} ({c['loads_keep'] / s:.3f} loads)")
+    return line + f" [{card}]"
 
 
 def kernel_bounds(M: int, D: int, n_cells: int, Q: int, q_levels: int, e: dict) -> dict:
@@ -4955,8 +4997,16 @@ def main() -> None:
     with torch.no_grad():
         ct_ms = time_ms(lambda: query_ops.construct_tree_cuda(spec_t, pts), KERNEL_REPS)
         ct_plain_ms = time_ms(lambda: query_ops.construct_tree_plain(spec_t, pts), 3)
-        kernels["construct_tree"].update(ms=ct_ms, plain_ms=ct_plain_ms)
-        print(f"time construct_tree ({M} points): kernel {ct_ms:.4f} ms, plain {ct_plain_ms:.4f} ms [{card}]")
+        # The device's time of a call alone (its scatter and merge, L2
+        # flushed before each call): back-to-back calls through the wrapper
+        # leave the card idle while the host prepares the next one, which
+        # the CUDA events above count.
+        ct_dev = {cold: device_ms(lambda: query_ops.construct_tree_cuda(spec_t, pts), KERNEL_REPS,
+                                  ("scatter_kernel", "merge_kernel"), cold=cold) for cold in (True, False)}
+        kernels["construct_tree"].update(ms=ct_ms, plain_ms=ct_plain_ms, device_ms=ct_dev[True])
+        print(f"time construct_tree ({M} points): kernel {ct_ms:.4f} ms a call (CUDA events over {KERNEL_REPS} "
+              f"back-to-back wrapper calls), device {ct_dev[True]:.4f} ms (its kernels alone, L2 cold; warm "
+              f"{ct_dev[False]:.4f}), plain {ct_plain_ms:.4f} ms [{card}]")
         def k2_turns(spec_, pool_, o_, d_, opt_):
             """(width 4 ms, width 1 ms) of K2 in turns (`in_turns`)."""
             return in_turns(lambda: render_ops.volume_render_cuda(spec_, pool_, o_, d_, d_, opt_),
@@ -5412,6 +5462,15 @@ def main() -> None:
             bounds.update({k: v for k, v in march_bounds(c_, M, 28, pk).items() if k in kernels})
     for label, ispec in (("tree walk", aux_spec), ("bake", aux_baked)):
         c_i = march_census(ispec, feats, origins, dirs, interp_r._get_options(False))
+        # K9b's lookups up to each ray's first hit, nearest and interp, as
+        # its kernel makes them (first_hit_path's census); the interp
+        # instances' bounds count them.
+        for interp_fh in (False, True):
+            opt_fh = dataclasses.replace(interp_r._get_options(False), interp=int(interp_fh))
+            c_fh = first_hit_path.first_hit_census(ispec, feats, origins, dirs, opt_fh)
+            print(k9b_census_line(c_fh, label, card))
+        check(c_fh["samples"] == c_i["fh_samples"], "K9b census: not the interp march census's first-hit samples")
+        c_i.update(k9b_loads=c_fh["loads_keep"], k9b_lookups=c_fh["lookups_keep"])
         bounds.update(interp_bounds(c_i, M, 28))
         for pk in POOL_KINDS:
             bounds.update({k: v for k, v in interp_bounds(c_i, M, 28, pk).items() if k in kernels})
@@ -5438,6 +5497,11 @@ def main() -> None:
         # K3+K4's reductions: each contributing sample's gradient row into
         # each of its corners that has a row, 28 scalar reductions a corner at
         # width 1, 7 vector ones at width 4; its lookups are K2+K4's.
+        fh = "first_hit" + ("_baked_interp" if c_i["baked"] else "_interp")
+        print(f"K9b+K4 bound ({label}): {bounds[fh]['bound_ms']:.5f} ms ({bounds[fh]['bound_by']}) counting the "
+              f"kernel's lookups ({c_i['k9b_lookups'] / max(c_i['fh_samples'], 1):.3f} a sample), "
+              f"{interp_bounds(c_i, M, 28, nine=True)[fh]['bound_ms']:.5f} ms counting 9 lookups from the root "
+              f"(the earlier kernel's) [{card}]")
         cc = c_i["contrib_corners"]
         print(f"K3+K4 census ({label}, SH9 exact interp): {c_i['contrib']} contributing samples, {cc} corners with "
               f"a row among them ({cc / max(c_i['contrib'], 1):.3f} a sample); reductions into the (M, 28) "

@@ -65,10 +65,10 @@
 // render_aux_baked_interp.cu define SVOX_INTERP 1 (svox_first_hit_interp,
 // svox_mf_fwd_interp, svox_mf_bwd_interp and their _baked_interp twins).
 // No ray is culled or clamped to the box; a sample's sigma is its 8
-// corners' (sample_at; the motion-feature passes find the corners from the
-// sample's own lookup, sample_mf), also in an empty leaf, which is then "over" but
-// not resident for the first hit, and attenuates without blending in the
-// motion-feature passes.
+// corners' (the first hit and the motion-feature passes find the corners
+// from the sample's own lookup: sample_mf), also in an empty leaf,
+// which is then "over" but not resident for the first hit, and attenuates
+// without blending in the motion-feature passes.
 //
 // Arithmetic follows the plain PyTorch versions (ops/render_aux.py)
 // operation for operation, and the library is built with -fmad=false, so
@@ -138,8 +138,71 @@ __device__ __forceinline__ Sample sample_at(const March& m, const Ray& r, float 
   return s;
 }
 
+static_assert(kThreads == svox::kPathStride, "a block's threads are its path stride");
+
+// The tree walk's per-thread slot of the own descent's path (shared memory,
+// as render_fwd.cuh's). A template, so that only the instances that read
+// it hold the array.
+template <class T>
+__device__ __forceinline__ int32_t* path_slot() {
+  __shared__ int32_t path[svox::kPathLevels * svox::kPathStride];
+  return path + threadIdx.x;
+}
+
+// Templates on the structure T (= S), so that the branch a structure does
+// not take is not compiled for it. The tree walk's own lookup keeps its path
+// at any reuse level (TreeWalk::lookup_keep).
+template <class T, int kReuse>
+__device__ __forceinline__ void init_keep(typename T::Keep& keep) {
+  if constexpr (svox::kInterp && !T::kBaked && kReuse > 0) keep.path = path_slot<T>();
+}
+
+// The sample at t of the first hit and the motion-feature marches:
+// sample_at's, with the interp corners from the sample's own lookup.
+template <class T, int kReuse>
+__device__ __forceinline__ Sample sample_mf(const March& m, const Ray& r, float t,
+                                            typename T::Keep& keep) {
+  if constexpr (!svox::kInterp || kReuse == 0) {
+    return sample_at(m, r, t);
+  } else {
+    Sample s;
+    s.leaf = svox::sample_leaf_keep(m.st, r, t, m.step_size, s.dt, keep);
+    s.idx = s.leaf.row;
+    s.resident = static_cast<uint32_t>(s.idx) < static_cast<uint32_t>(m.M);
+    const svox::Corners cn = svox::corners_keep<kReuse>(m.st, r, t, s.leaf, keep, m.M);
+    s.sigma = svox::interp_sum(cn, [&](int32_t row) {
+      return svox::ld(m.features + static_cast<size_t>(row) * m.D + m.D - 1);
+    });
+    return s;
+  }
+}
+
 // ---------------------------------------------------------------------
 // K9b: first hit
+//
+// The Hopper design (tools/first_hit_ab.py times each lever against an
+// earlier commit's kernel, PERF.md §6). A sample reads one value, its row's
+// sigma, so the march is its lookups' chains of dependent loads and the
+// loop around them. Each instance takes what won at its callers' shapes:
+//  * kFhLoop: 0 the earlier kernel's loop (a sample's lookup, step and
+//    sigma at the top of each step: sample_at, or sample_mf's corners under
+//    interp); 1 the loop rotated, the next sample's lookup at the end of a
+//    step, after the branch (the tree walk's nearest instances: 1.12x on a
+//    float32 pool, a tie on bf16 and int8);
+//  * interp (K4): the corners from the sample's own lookup as K2+K4 finds
+//    them (sample_mf, svox::corners_keep<kFhReuse>: the own corner's row,
+//    and on the tree walk the other corner descents started on the own
+//    path), the sigma summed in corner order; an empty own leaf is then
+//    "over" but not resident.
+// The lookup ahead, the tree walk's descents started on the previous
+// sample's path and the bake's reused top and mid entries lost or tied on
+// every instance; tools/first_hit_designs.cuh keeps them for the tool.
+// Each lookup equals the root's bit for bit, so samples, hits and fractions
+// are the earlier kernel's.
+
+constexpr int kFhLoop = !S::kBaked && !svox::kInterp ? 1 : 0;
+constexpr int kFhReuse = svox::kInterp ? (S::kBaked ? 1 : 2) : 0;
+static_assert(kFhLoop == 0 || !svox::kInterp, "the rotated loop reads a nearest sample's sigma");
 
 struct FirstHitParams {
   March m;
@@ -159,26 +222,49 @@ __global__ void __launch_bounds__(kThreads) first_hit_kernel(const FirstHitParam
   Ray r;
   if (setup_ray(p.m, i, r)) {
     float t = r.tmin;
-    for (int step = 0; step < p.m.max_steps; ++step) {
-      const Sample s = sample_at(p.m, r, t);
-      if (s.sigma > p.sigma_thresh) {
-        const bool first = !found_t;
-        if (first) {
-          found_t = true;
-          t_hit = t;
-        }
-        if (s.resident) {
-          found = true;
-          same = first;
-          row = s.idx;
-          fx = s.leaf.fx;
-          fy = s.leaf.fy;
-          fz = s.leaf.fz;
-          break;
-        }
+    // A sample over the threshold: its t, and where it is resident, the hit.
+    auto over = [&](const svox::Leaf& l, bool resident, float ts) {
+      const bool first = !found_t;
+      if (first) {
+        found_t = true;
+        t_hit = ts;
       }
-      t = t + s.dt;
-      if (!(t < r.tmax)) break;
+      if (resident) {
+        found = true;
+        same = first;
+        row = l.row;
+        fx = l.fx;
+        fy = l.fy;
+        fz = l.fz;
+      }
+      return resident;
+    };
+    if constexpr (kFhLoop == 0) {
+      typename S::Keep keep;
+      init_keep<S, kFhReuse>(keep);
+      for (int step = 0; step < p.m.max_steps; ++step) {
+        const Sample s = sample_mf<S, kFhReuse>(p.m, r, t, keep);
+        if (s.sigma > p.sigma_thresh && over(s.leaf, s.resident, t)) break;
+        t = t + s.dt;
+        if (!(t < r.tmax)) break;
+      }
+    } else {
+      float x, y, z;
+      svox::sample_pos(r, t, x, y, z);
+      svox::Leaf l = p.m.st.lookup(x, y, z);
+      for (int step = 0; step < p.m.max_steps; ++step) {
+        const float dt = svox::step_dt(p.m.st, l, r, p.m.step_size);
+        const bool resident = static_cast<uint32_t>(l.row) < static_cast<uint32_t>(p.m.M);
+        const float sigma = resident ? svox::ld(p.m.features + static_cast<size_t>(l.row) * p.m.D + p.m.D - 1)
+                                     : 0.f;
+        const float t_next = t + dt;
+        const bool more = step + 1 < p.m.max_steps && t_next < r.tmax;
+        if (sigma > p.sigma_thresh && over(l, resident, t)) break;
+        if (!more) break;
+        t = t_next;
+        svox::sample_pos(r, t, x, y, z);
+        l = p.m.st.lookup(x, y, z);
+      }
     }
     if (found && !same) {
       // sigma_thresh < 0: t_hit lies before the resident sample.
@@ -277,7 +363,7 @@ __host__ __device__ constexpr int table_floats(int J, int kd) { return (J * tabl
 // (render_fwd.cuh kCornerReuse); K9d's, and both on the bake, the own
 // corner's row alone (1: the path's registers cost K9d more than its loads
 // save, tools/mf_ab.py's lever2_bwd); 0 is svox::sample_corners' 9 lookups
-// (sample_at, which K9b keeps). The rows equal sample_corners' bit for bit.
+// (sample_at). The rows equal sample_corners' bit for bit.
 template <bool kBackward>
 constexpr int kCornerReuseMf = S::kBaked || kBackward ? 1 : 2;
 
@@ -291,45 +377,6 @@ constexpr int kCornerReuseMf = S::kBaked || kBackward ? 1 : 2;
 // is no bound: its K9d ran 1.2x slower.
 template <bool kBackward, int KD>
 constexpr bool kMfBounded = KD == 16 && (!kBackward || (svox::kInterp && S::kBaked));
-
-static_assert(kThreads == svox::kPathStride, "a block's threads are its path stride");
-
-// The tree walk's per-thread slot of the own descent's path (shared memory,
-// as render_fwd.cuh's). A template, so that only the instances that read
-// it hold the array.
-template <class T>
-__device__ __forceinline__ int32_t* path_slot() {
-  __shared__ int32_t path[svox::kPathLevels * svox::kPathStride];
-  return path + threadIdx.x;
-}
-
-// Templates on the structure T (= S), so that the branch a structure does
-// not take is not compiled for it. The tree walk's own lookup keeps its path
-// at any reuse level (TreeWalk::lookup_keep).
-template <class T, int kReuse>
-__device__ __forceinline__ void init_keep(typename T::Keep& keep) {
-  if constexpr (svox::kInterp && !T::kBaked && kReuse > 0) keep.path = path_slot<T>();
-}
-
-// The motion-feature marches' sample at t: sample_at's, with the interp
-// corners from the sample's own lookup.
-template <class T, int kReuse>
-__device__ __forceinline__ Sample sample_mf(const March& m, const Ray& r, float t,
-                                            typename T::Keep& keep) {
-  if constexpr (!svox::kInterp || kReuse == 0) {
-    return sample_at(m, r, t);
-  } else {
-    Sample s;
-    s.leaf = svox::sample_leaf_keep(m.st, r, t, m.step_size, s.dt, keep);
-    s.idx = s.leaf.row;
-    s.resident = static_cast<uint32_t>(s.idx) < static_cast<uint32_t>(m.M);
-    const svox::Corners cn = svox::corners_keep<kReuse>(m.st, r, t, s.leaf, keep, m.M);
-    s.sigma = svox::interp_sum(cn, [&](int32_t row) {
-      return svox::ld(m.features + static_cast<size_t>(row) * m.D + m.D - 1);
-    });
-    return s;
-  }
-}
 
 // Copies jf into a shared table of rows row_stride(Kd) apart, zero past Kd.
 __device__ __forceinline__ void load_joint_table(const MotionParams& p, float* sjf) {

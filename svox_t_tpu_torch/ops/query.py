@@ -20,6 +20,7 @@ space.
 
 from __future__ import annotations
 
+import threading
 from ctypes import c_int, c_void_p
 
 import torch
@@ -110,30 +111,48 @@ def construct_tree_plain(spec: TreeSpec, points: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# The construct_tree kernel's winner scratch, one a (device, stream):
+# (>= n_cells,) int32, all -1 between calls (the kernel's merge resets the
+# cells it took), grown to the largest table seen. A lock a scratch: a
+# ctypes call releases the GIL, and two host threads must not interleave
+# their launches on one stream's scratch. A call that fails drops its
+# scratch, and the next call starts from a fresh one.
+_WINNERS = {}
+_WINNER_LOCKS = {}
+
+
 def construct_tree_cuda(spec: TreeSpec, points: torch.Tensor) -> torch.Tensor:
     """Launch the construct_tree kernel (csrc/construct_tree.cu)."""
     _check_points(spec, points)
-    tables = (spec.child_flat, spec.data_flat, spec.offset, spec.scaling)
-    if not points.is_cuda or any(t.device != points.device for t in tables):
+    child, data = spec.child_flat, spec.data_flat
+    dev = points.device
+    if not points.is_cuda or any(t.device != dev for t in (data, spec.offset, spec.scaling)):
         raise ValueError("construct_tree_cuda needs points and tree on one CUDA device")
-    for t, dtype in zip(tables, (torch.int32, torch.int32, torch.float32, torch.float32)):
-        if t.dtype != dtype or not t.is_contiguous():
-            raise ValueError("child/data must be contiguous int32, offset/scaling float32")
-    if points.shape[0] >= 2 ** 31 or spec.child_flat.numel() >= 2 ** 31:
+    if (child.dtype != torch.int32 or data.dtype != torch.int32 or spec.offset.dtype != torch.float32
+            or spec.scaling.dtype != torch.float32 or not (child.is_contiguous() and data.is_contiguous())):
+        raise ValueError("child/data must be contiguous int32, offset/scaling float32")
+    n_cells = data.numel()
+    if child.numel() != n_cells:
+        raise ValueError(f"child ({child.numel()}) and data ({n_cells}) tables differ in size")
+    if points.shape[0] >= 2 ** 31 or n_cells >= 2 ** 31:
         raise ValueError("construct_tree_cuda takes fewer than 2^31 points and cells")
     points = points.contiguous()
-    n_cells = spec.data_flat.numel()
-    winner = torch.empty(n_cells, dtype=torch.int32, device=points.device)
-    out = torch.empty_like(spec.data_flat)
-    dev = points.device
-    CONSTRUCT_TREE(
-        points.data_ptr(), points.shape[0],
-        spec.child_flat.data_ptr(), spec.data_flat.data_ptr(), n_cells,
-        spec.N, spec.n_levels,
-        spec.offset.data_ptr(), spec.scaling.data_ptr(),
-        winner.data_ptr(), out.data_ptr(), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    out = torch.empty_like(data)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev.index, stream)
+    with _WINNER_LOCKS.get(key) or _WINNER_LOCKS.setdefault(key, threading.Lock()):
+        winner = _WINNERS.get(key)
+        if winner is None or winner.numel() < n_cells:
+            winner = _WINNERS[key] = torch.full((n_cells,), -1, dtype=torch.int32, device=dev)
+        try:
+            CONSTRUCT_TREE(
+                points.data_ptr(), points.shape[0], child.data_ptr(), data.data_ptr(), n_cells,
+                spec.N, spec.n_levels, spec.offset.data_ptr(), spec.scaling.data_ptr(),
+                winner.data_ptr(), out.data_ptr(), dev.index, stream,
+            )
+        except RuntimeError:
+            _WINNERS.pop(key, None)
+            raise
     return out
 
 

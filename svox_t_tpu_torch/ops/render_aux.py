@@ -369,16 +369,19 @@ def first_hit_plain(spec: TreeSpec, features: torch.Tensor, origins: torch.Tenso
 
 def first_hit_cuda(spec: TreeSpec, features: torch.Tensor, origins: torch.Tensor,
                    dirs: torch.Tensor, opt: RenderOptions):
-    """Launch the first-hit kernel (K9b, `csrc/render_aux.cu`)."""
+    """Launch the first-hit kernel (K9b, `csrc/render_aux.cu`), which
+    writes every element of its four outputs; an empty pool or ray batch
+    returns zeros without a launch."""
     args = _aux_args(spec, features, origins, dirs, opt, "first_hit_cuda")
     kernel = _kernel_for(spec, opt, _FIRST_HIT_INSTANCES, features)
     B = origins.shape[0]
     dev = features.device
-    found = torch.zeros(B, dtype=torch.bool, device=dev)
-    t_hit = torch.zeros(B, dtype=torch.float32, device=dev)
-    row = torch.zeros(B, dtype=torch.int32, device=dev)
-    frac = torch.zeros(B, 3, dtype=torch.float32, device=dev)
-    if B == 0 or features.shape[0] == 0:
+    alloc = torch.zeros if B == 0 or features.shape[0] == 0 else torch.empty
+    found = alloc(B, dtype=torch.bool, device=dev)
+    t_hit = alloc(B, dtype=torch.float32, device=dev)
+    row = alloc(B, dtype=torch.int32, device=dev)
+    frac = alloc(B, 3, dtype=torch.float32, device=dev)
+    if alloc is torch.zeros:
         return found, t_hit, row, frac
     kernel(*args, opt.sigma_thresh, found.data_ptr(), t_hit.data_ptr(), row.data_ptr(),
            frac.data_ptr(), *_stream(dev))

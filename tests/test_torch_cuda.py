@@ -2420,3 +2420,137 @@ def test_march_cost_raises_without_its_kernel(cuda, monkeypatch):
     monkeypatch.setattr(tsched.MARCH_COST_BAKED, "_fn", None)
     with pytest.raises(AttributeError, match="_missing"):
         tsched.ray_costs(spec, o, d, opt, feats.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# K9b, the first-hit march, redesigned for Hopper (the tree walk's next
+# descent started on the previous sample's path, the lookup ahead on the
+# bake, the interp corners from the own lookup), and K8a, construct_tree
+# (two points a scatter thread, the merge in vectors, the winner scratch
+# kept all -1 between calls).
+
+
+def _fh_trees(cuda):
+    """{N: (tree, pool)} for K9b's instances: the depth-5 SH9 shell (N = 2;
+    its pool cut to 70% of the leaves, so some leaves are empty) and trees
+    of N = 3 and N = 4 from occupancy grids (their pools seeded, a third of
+    the densities 0)."""
+    tree, feats, _ = _shell(cuda, seed=70)
+    out = {2: (tree, feats[: int(feats.shape[0] * 0.7)].contiguous())}
+    for N, depth in ((3, 3), (4, 3)):
+        t, M, _ = _occupancy_tree(cuda, N=N, depth=depth, seed=70 + N)
+        rng = np.random.RandomState(70 + N)
+        f = (rng.randn(M, 13) * 0.3).astype(np.float32)
+        f[:, -1] = np.abs(rng.randn(M)).astype(np.float32) * 30.0 * (rng.rand(M) > 0.33)
+        out[N] = (t, torch.from_numpy(f).to(cuda))
+    return out
+
+
+def _fh_rays(cuda, seed):
+    """Camera and random rays (some miss the cube), the first 64 of the
+    random ones starting inside it."""
+    o, d = _rays(cuda, 1024, seed=seed)
+    rng = np.random.RandomState(seed)
+    o[48 * 48:48 * 48 + 64] = torch.from_numpy(rng.rand(64, 3).astype(np.float32)).to(cuda)
+    return o.contiguous(), d
+
+
+def _assert_first_hit(got, want):
+    """found, t_hit and row bit for bit, frac within ATOL."""
+    for name, g, w in zip(("found", "t_hit", "row"), got[:3], want[:3]):
+        assert torch.equal(g, w), name
+    torch.testing.assert_close(got[3], want[3], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "i8"])
+@pytest.mark.parametrize("backend", ["tree", "baked"])
+@pytest.mark.parametrize("interp", [False, True])
+def test_first_hit_instances_match_plain(cuda, kind, backend, interp):
+    """Every K9b instance against its plain version on N = 2, 3 and 4 trees:
+    sigma_thresh 0, 5 and < 0 (the re-lookup at t_hit), a max_steps cut,
+    fast mode on the bake (box advance, skip boxes), rays that miss the cube
+    and rays that start inside it; one launch a call; an empty pool or ray
+    batch returns zeros without a launch."""
+    o, d = _fh_rays(cuda, seed=71)
+    for N, (tree, feats) in _fh_trees(cuda).items():
+        pool = feats if kind == "f32" else _pool_of(kind, feats)[0]
+        spec = tree._baked_spec() if backend == "baked" else tree._spec()
+        r = stt.VolumeRenderer(tree, backend=backend, interp="trilinear" if interp else "nearest")
+        kernel = (getattr(taux, "FIRST_HIT" + ("_BAKED" if backend == "baked" else "")
+                          + ("_INTERP" if interp else "")) if kind == "f32"
+                  else _pool_kernels(["FIRST_HIT"], backend, interp, kind)[0])
+        cases = [(False, 0.0, 1024), (False, 5.0, 1024), (False, -1.0, 1024), (False, 0.0, 9)]
+        if backend == "baked" and not interp:
+            cases += [(True, 0.0, 1024), (True, 5.0, 1024)]
+        for fast, thresh, max_steps in cases:
+            opt = dataclasses.replace(r._get_options(fast), sigma_thresh=thresh, max_steps=max_steps)
+            before = kernel.launches
+            got = taux.first_hit(spec, pool, o, d, opt)
+            torch.cuda.synchronize()
+            assert kernel.launches == before + 1
+            _assert_first_hit(got, taux.first_hit_plain(spec, pool, o, d, opt))
+            assert not bool(got[0].all()) and (max_steps < 1024 or bool(got[0].any())), (N, fast, thresh)
+        before = kernel.launches
+        empty = pool[:0] if kind != "i8" else stt.quantize_features(feats[:0])
+        for args in ((empty, o, d), (pool, o[:0], d[:0])):
+            got = taux.first_hit(spec, *args, r._get_options())
+            assert all(not bool(g.any()) for g in got) and got[0].shape[0] == args[1].shape[0]
+        assert kernel.launches == before
+
+
+def test_first_hit_path_reuse_on_a_deep_tree(cuda):
+    """The tree walk's path-started descents on a depth-7 shell (the march's
+    samples cross many leaves whose paths part at the last level or two),
+    nearest and interp: bit for bit the plain version."""
+    tree, feats, _ = _shell(cuda, depth=7, seed=72)
+    o, d = _rays(cuda, 4096, seed=72, size=96)
+    spec = tree._spec()
+    for interp in (False, True):
+        opt = stt.VolumeRenderer(tree, backend="tree", interp="trilinear" if interp else "nearest")._get_options()
+        _assert_first_hit(taux.first_hit(spec, feats, o, d, opt), taux.first_hit_plain(spec, feats, o, d, opt))
+
+
+def test_construct_tree_orders_and_kept_scratch(cuda):
+    """K8a equal to its plain version (torch.equal) with points in leaf
+    order, permuted, many points to one leaf (the largest id wins), points
+    outside the cube (clamped) and Q = 0; on N = 3; two calls in a row and
+    two trees of different sizes on one device, each leaving its stream's
+    scratch all -1; a call on another stream takes a scratch of its own."""
+    tree, _, centers = _shell(cuda, seed=73)
+    t3, M3, c3 = _occupancy_tree(cuda, N=3, depth=4, seed=73)
+    g = torch.Generator().manual_seed(73)
+    perm = torch.randperm(centers.shape[0], generator=g).to(cuda)
+    outside = (torch.rand(500, 3, generator=g) * 3 - 1).to(cuda)
+    many = centers[:7].repeat(300, 1)
+    cases = [(tree, centers), (tree, centers[perm]), (tree, torch.cat([centers[perm], many])),
+             (tree, outside), (tree, centers[:0]), (t3, c3), (t3, c3.flip(0)), (tree, centers[perm])]
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for t, pts in cases:
+        spec = t._spec()
+        before = tquery.CONSTRUCT_TREE.launches
+        got = tquery.construct_tree(spec, pts.contiguous())
+        torch.cuda.synchronize()
+        assert tquery.CONSTRUCT_TREE.launches == before + 1
+        assert torch.equal(got, tquery.construct_tree_plain(spec, pts.contiguous()))
+        scratch = tquery._WINNERS[(cuda.index, stream)]
+        assert scratch.numel() >= spec.data_flat.numel() and bool((scratch == -1).all())
+    side = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(side):
+        got = tquery.construct_tree(tree._spec(), centers[perm])
+    torch.cuda.synchronize()
+    assert torch.equal(got, tquery.construct_tree_plain(tree._spec(), centers[perm]))
+    assert (cuda.index, side.cuda_stream) in tquery._WINNERS
+    assert bool((tquery._WINNERS[(cuda.index, side.cuda_stream)] == -1).all())
+
+
+def test_construct_tree_rejects_bad_tables(cuda):
+    """The checks that reject bad inputs stay: CPU points, a table of
+    another type, tables of different sizes."""
+    tree, _, centers = _shell(cuda, seed=74)
+    spec = tree._spec()
+    with pytest.raises(ValueError, match="points on cpu"):
+        tquery.construct_tree_cuda(spec, centers.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        tquery.construct_tree_cuda(spec.with_(data_flat=spec.data_flat.long()), centers)
+    with pytest.raises(ValueError, match="differ in size"):
+        tquery.construct_tree_cuda(spec.with_(data_flat=spec.data_flat[:-8]), centers)
