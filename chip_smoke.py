@@ -212,8 +212,12 @@ tree walk's path-started descents and the bake's reused top and mid
 entries, and under interp the lookups of 9 from the root against the
 kernel's), and
 its interp instances' bounds count the kernel's lookups, beside the bound
-counting 9 (`K9b+K4 bound`). construct_tree's time in phase 5 is given
-twice: CUDA events over back-to-back wrapper calls (the kernels line's
+counting 9 (`K9b+K4 bound`); so do the opacity VJP's (`K9a+K4 bound`).
+The query forward's launches are counted by copy unit, and the training,
+pool and editing paths must launch only the widest unit their SH9 pools
+allow (16 bytes float32, 8 bf16: `check_query_units`); phase 6 holds every
+other unit of those rows, and the generic instance, to the plain version
+once. construct_tree's time in phase 5 is given twice: CUDA events over back-to-back wrapper calls (the kernels line's
 ``ms``) and its kernels' device time alone (``device_ms``). It
 prints kernel and plain-version times and each kernel's bound with the
 card's name and power limit, the whole run's seconds, one JSON line
@@ -688,7 +692,7 @@ def reset_counts() -> None:
         k.launches = 0
     for widths in (tape_ops.BWD_WIDTH_LAUNCHES, tape_ops.FWD_WIDTH_LAUNCHES, render_ops.FWD_WIDTH_LAUNCHES,
                    render_ops.MARCH_BWD_WIDTH_LAUNCHES, aux_ops.MF_FWD_WIDTH_LAUNCHES,
-                   aux_ops.MF_BWD_WIDTH_LAUNCHES):
+                   aux_ops.MF_BWD_WIDTH_LAUNCHES, query_ops.QUERY_FWD_UNIT_LAUNCHES):
         for w in widths:
             widths[w] = 0
 
@@ -699,7 +703,8 @@ def read_counts() -> dict:
     its frame axis's (``fwd_width_<w>``), K2's, nearest and interp
     (``march_width_<w>``), K3's, nearest and interp
     (``march_bwd_width_<w>``), and K9c's and K9d's (``mf_fwd_width_<w>``,
-    ``mf_bwd_width_<w>``), all entry points, structures and pool types."""
+    ``mf_bwd_width_<w>``), all entry points, structures and pool types; and
+    the query forward's by pool type and copy unit (``query_unit_f32_16``)."""
     counts = {name: k.launches for name, k in COUNTERS.items()}
     counts.update({f"bwd_width_{w}": n for w, n in tape_ops.BWD_WIDTH_LAUNCHES.items()})
     counts.update({f"fwd_width_{w}": n for w, n in tape_ops.FWD_WIDTH_LAUNCHES.items()})
@@ -707,7 +712,18 @@ def read_counts() -> dict:
     counts.update({f"march_bwd_width_{w}": n for w, n in render_ops.MARCH_BWD_WIDTH_LAUNCHES.items()})
     counts.update({f"mf_fwd_width_{w}": n for w, n in aux_ops.MF_FWD_WIDTH_LAUNCHES.items()})
     counts.update({f"mf_bwd_width_{w}": n for w, n in aux_ops.MF_BWD_WIDTH_LAUNCHES.items()})
+    counts.update({f"query_unit_{u.replace(' ', '_')}": n for u, n in query_ops.QUERY_FWD_UNIT_LAUNCHES.items()})
     return counts
+
+
+def check_query_units(counts: dict, what: str) -> None:
+    """On an SH9 path (D = 28, contiguous pools) every query forward launch
+    copies in the widest unit the row takes: 16 bytes for a float32 pool, 8
+    for a bf16 one (`ops/query.py` `query_unit`)."""
+    for name, kind, unit in (("query_fwd", "f32", 16), ("query_fwd_bf16", "bf16", 8)):
+        check(counts[f"query_unit_{kind}_{unit}"] == counts[name],
+              f"{what}: {counts[name]} {name} launches, {counts[f'query_unit_{kind}_{unit}']} of them in "
+              f"{unit}-byte units")
 
 
 def check_bwd_widths(counts: dict, what: str) -> None:
@@ -1169,10 +1185,10 @@ def interp_bounds(c: dict, M: int, D: int, kind: str = "f32", nine: bool = False
     corner row read, the rest of the rows of contributing samples'
     corners, the LBS tables of their own rows; a lookup's ops per
     child-table level on the tree (OPS_LEVEL) and per lookup on the bake
-    (OPS_LOOKUP), plus OPS_CORNERS per sample. The lookups are the 9 a
-    sample makes from the root, but the forward's (K2+K4), the backward's
-    (K3+K4) and the motion-feature passes' (K9c+K4, K9d+K4, which find
-    their corners as K2+K4 does): those their width-4 kernels make (``k4_loads``,
+    (OPS_LOOKUP), plus OPS_CORNERS per sample. The lookups are those the
+    kernels make: the forward's (K2+K4), the backward's (K3+K4), the
+    opacity VJP's (K9a+K4) and the motion-feature passes' (K9c+K4, K9d+K4),
+    which find their corners as K2+K4 does at width 4 (``k4_loads``,
     ``k4_lookups``; on the tree walk its child-table levels are its loads
     less one data load a lookup), or with ``nine`` 9 from the root as well,
     as the earlier kernels made them. K9b+K4 (`first_hit`) counts the
@@ -1209,7 +1225,7 @@ def interp_bounds(c: dict, M: int, D: int, kind: str = "f32", nine: bool = False
         "render_bwd" + sfx: (B * 36 + 2 * B * 16 + rows_b + table_b + M * D * 4,
                              k4_ops + OPS_BWD_SH9_INTERP * c["contrib"]),
         "opacity_bwd" + sfx: (B * 24 + 2 * B * 4 + sig_b + table_b + M * D * 4,
-                              march_ops + OPS_OPACITY_BWD_INTERP * c["contrib"]),
+                              k4_ops + OPS_OPACITY_BWD_INTERP * c["contrib"]),
         "first_hit" + sfx: (B * 24 + c["rows_fh"] * e + q + c["cells_fh"] * cell_b + B * 21, fh_ops),
         "mf_fwd" + sfx: (B * 24 + sig_b + lbs_b + table_b + jtab + B * JOINT_DIM * 4,
                          k4_ops + OPS_MF_FWD * c["contrib"]),
@@ -1241,6 +1257,14 @@ def k9b_census_line(c: dict, label: str, card: str) -> str:
     return line + f" [{card}]"
 
 
+def query_fwd_work(Q: int, M: int, D: int, itemsize: int, q_levels: int) -> tuple:
+    """(bytes, operations) of the query forward on Q points that descend
+    q_levels levels in all: each point (12 bytes) and its leaf's child and
+    data entries (8) in, at most min(Q, M) rows of D values of itemsize
+    bytes in, the (Q, D) values and the two (Q,) id columns out."""
+    return (Q * 12 + Q * 8 + min(Q, M) * D * itemsize + Q * D * itemsize + Q * 8, OPS_LEVEL * q_levels)
+
+
 def kernel_bounds(M: int, D: int, n_cells: int, Q: int, q_levels: int, e: dict) -> dict:
     """bound_ms and bound_by of the point kernels for Q points that
     descend q_levels levels in all (construct_tree, query and
@@ -1258,11 +1282,9 @@ def kernel_bounds(M: int, D: int, n_cells: int, Q: int, q_levels: int, e: dict) 
     gradient."""
     return _bounds({
         "construct_tree": (Q * 12 + Q * 4 + 2 * n_cells * 4, OPS_LEVEL * q_levels),
-        "query_fwd": (Q * 12 + Q * 8 + min(Q, M) * D * 4 + Q * D * 4 + Q * 8,
-                      OPS_LEVEL * q_levels),
+        "query_fwd": query_fwd_work(Q, M, D, 4, q_levels),
         "query_bwd": (Q * 4 + Q * D * 4 + M * D * 4, Q * D),
-        "query_fwd_bf16": (Q * 12 + Q * 8 + min(Q, M) * D * 2 + Q * D * 2 + Q * 8,
-                           OPS_LEVEL * q_levels),
+        "query_fwd_bf16": query_fwd_work(Q, M, D, 2, q_levels),
         "query_bwd_bf16": (Q * 4 + Q * D * 2 + M * D * 4, Q * D),
         "points_aabb": (Q * 12 + n_cells * 4 + 24, OPS_LEVEL * q_levels + 9 * Q),
         "calc_corners": (e["rows"] * 28 + e["nodes"] * 8, 6 * e["steps"]),
@@ -4408,6 +4430,7 @@ def main() -> None:
         check_march_bwd_widths(counts, f"training ({backend})")
         check(counts["query_fwd"] == steps and counts["query_bwd"] == steps,
               "query kernels not launched per step")
+        check_query_units(counts, f"training ({backend})")
         check_bake_counts(counts, backend, steps + 1)
         check(losses[-1] < losses[0] and image_losses[-1] < image_losses[0], "the loss did not fall")
         check(pool.grad is not None and bool(torch.isfinite(pool.grad).all()), "non-finite gradient")
@@ -4763,6 +4786,8 @@ def main() -> None:
         kernels[k]["max_abs_err"] = 0.0
     check(edit_counts["render_fwd_baked"] >= 4 and edit_counts["render_fwd"] >= 2,
           "tree editing: the renders did not run on both backends")
+    check(edit_counts["query_fwd"] > 0, "tree editing: query_fwd not launched")
+    check_query_units(edit_counts, "tree editing")
 
     # 4j. Main path, trilinear interpolation (K4) through
     # VolumeRenderer(interp="trilinear") on both backends, on the aux scene
@@ -4868,6 +4893,7 @@ def main() -> None:
         want = [k for k in POOL_KERNELS if ("_baked" in k) == (backend == "baked")]
         missing = [k for k in want + ["query_fwd_bf16", "query_bwd_bf16"] if counts[k] == 0]
         check(not missing, f"pool path ({backend}): not launched: {missing}")
+        check_query_units(counts, f"pool path ({backend})")
         check_march_widths(counts, f"pool path ({backend})")
         check_march_bwd_widths(counts, f"pool path ({backend})")
         check_mf_widths(counts, f"pool path ({backend})")
@@ -5128,6 +5154,23 @@ def main() -> None:
         print(f"time query bf16 ({M} points, D 28): forward kernel {times['fwd']:.4f} ms, plain "
               f"{times['fwd_plain']:.4f} ms; backward kernel {times['bwd']:.4f} ms, plain "
               f"{times['bwd_plain']:.4f} ms, index_add_ (bf16 sums) {times['lib']:.4f} ms [{card}]")
+        # Every other copy unit of the query forward on the same points
+        # (the narrower units a misaligned pool takes, forced) and the
+        # generic instance (D 24, a contiguous column slice, at its rule's
+        # unit), each against its plain version bit for bit, once.
+        held = []
+        for pool in (f0, fb0, f0[:, :24].contiguous(), fb0[:, :24].contiguous()):
+            want = query_ops.query_forward_plain(spec_t, pool, qpts)
+            rule = query_ops.query_unit(pool.shape[1], pool.dtype, (pool.data_ptr(),))
+            units = [u for u in query_ops.QUERY_UNITS[pool.dtype] if u < rule] if pool.shape[1] == 28 else [rule]
+            for u in units:
+                got = query_ops.query_forward_cuda(spec_t, pool, qpts, unit=u)
+                name = f"{'f32' if pool.dtype == torch.float32 else 'bf16'} D {pool.shape[1]} unit {u}"
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"query forward {name}: kernel and plain version disagree")
+                held.append(name)
+        print(f"query forward, every other instance on the {qpts.shape[0]} points: {', '.join(held)}: values and "
+              f"ids equal to plain")
 
         # The aux kernels, on the aux scene pointed at the canonical rows.
         for fast in (False, True):
@@ -5501,6 +5544,11 @@ def main() -> None:
         print(f"K9b+K4 bound ({label}): {bounds[fh]['bound_ms']:.5f} ms ({bounds[fh]['bound_by']}) counting the "
               f"kernel's lookups ({c_i['k9b_lookups'] / max(c_i['fh_samples'], 1):.3f} a sample), "
               f"{interp_bounds(c_i, M, 28, nine=True)[fh]['bound_ms']:.5f} ms counting 9 lookups from the root "
+              f"(the earlier kernel's) [{card}]")
+        op = "opacity_bwd" + ("_baked_interp" if c_i["baked"] else "_interp")
+        print(f"K9a+K4 bound ({label}): {bounds[op]['bound_ms']:.5f} ms ({bounds[op]['bound_by']}) counting the "
+              f"kernel's lookups (K2+K4's, {c_i['k4_lookups'] / sam:.3f} a sample), "
+              f"{interp_bounds(c_i, M, 28, nine=True)[op]['bound_ms']:.5f} ms counting 9 lookups from the root "
               f"(the earlier kernel's) [{card}]")
         cc = c_i["contrib_corners"]
         print(f"K3+K4 census ({label}, SH9 exact interp): {c_i['contrib']} contributing samples, {cc} corners with "

@@ -1047,9 +1047,9 @@ __device__ __forceinline__ void interp_logits(const Corners& cn, const P feature
 
 // ---------------------------------------------------------------------
 // K2+K4: the trilinear marches' corners and corner rows (render_fwd.cuh's
-// interp instances, render_bwd.cuh's K3+K4 at width 4 and render_aux.cuh's
-// K9b+K4, K9c+K4 and K9d+K4; K3+K4 at width 1, K9a+K4 and the tapes keep
-// sample_corners and interp_logits, so their code is unchanged).
+// interp instances, render_bwd.cuh's K3+K4 at width 4 and K9a+K4, and
+// render_aux.cuh's K9b+K4, K9c+K4 and K9d+K4; K3+K4 at width 1 and the tapes
+// keep sample_corners and interp_logits, so their code is unchanged).
 
 // sample_leaf through S::lookup_keep: the leaf, its step, and what the
 // sample's corners reuse.

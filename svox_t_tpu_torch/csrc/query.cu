@@ -4,20 +4,19 @@
 // descent, then a row gather with zeros for empty space) and `_query_bwd`
 // (a re-descent, then `zeros((M, D)).at[row].add(g)`).
 //
-// Forward: one thread per point descends from the root (common.cuh),
-// writes the leaf's packed cell id and its data-table entry, and copies
-// the feature row when the entry is < M, else zeros. Backward: one thread
-// per (point, column) adds the output gradient into row data_idx with
-// float atomicAdd when data_idx < M; duplicate points in one leaf sum.
-// The wrapper zeroes the gradient buffer.
+// Forward (csrc/query_fwd.cuh, shared with the bf16 pool's instance): each
+// lane descends its point and writes the leaf's packed cell id and its
+// data-table entry, then the warp copies its rows into its contiguous span
+// of the output in 16-, 8- or 4-byte units, zeros where the entry is not <
+// M. Backward: one thread per (point, column) adds the output gradient
+// into row data_idx with float atomicAdd when data_idx < M; duplicate
+// points in one leaf sum. The wrapper zeroes the gradient buffer.
 //
-// Bound on an H100: the forward is latency bound by the dependent
-// child-table loads of the descent (depth levels per point), then
-// bandwidth bound by the row copy; the backward is bound by its atomics
-// into the (M, D) buffer (157 MB at depth 9 SH9). The design answer is a
-// tiny per-thread footprint so that many warps hide the descent, and a
-// backward laid out column-fastest, so that a warp's atomics fall on
-// neighbouring addresses of a few rows.
+// Bound on an H100: the forward by the dependent child-table loads of the
+// descent (depth levels per point) and the copy of the rows (see
+// query_fwd.cuh); the backward by its atomics into the (M, D) buffer (157
+// MB at depth 9 SH9), laid out column-fastest, so that a warp's atomics
+// fall on neighbouring addresses of a few rows.
 //
 // K8b (points_leaf_aabb): the tree-space box of the leaves that hold a
 // point cloud. Replaces: svox_t_tpu/ops/query.py `points_leaf_aabb` (a
@@ -34,7 +33,7 @@
 // with one atomic per warp and coordinate spent 0.34 ms on 1.4M points
 // serialized on the six addresses (NVIDIA H100 80GB HBM3, 700 W).
 
-#include "common.cuh"
+#include "query_fwd.cuh"
 
 namespace {
 
@@ -110,36 +109,6 @@ __global__ void points_aabb_kernel(const float* __restrict__ points, int Q, int 
   }
 }
 
-__global__ void query_fwd_kernel(const float* __restrict__ points, int Q,
-                                 int world, const int32_t* __restrict__ child,
-                                 const int32_t* __restrict__ data, int N,
-                                 int n_levels, const float* __restrict__ offset,
-                                 const float* __restrict__ scaling,
-                                 const float* __restrict__ features, int M,
-                                 int D, float* __restrict__ values,
-                                 int32_t* __restrict__ node_flat,
-                                 int32_t* __restrict__ data_idx) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  float x = points[3 * i + 0], y = points[3 * i + 1], z = points[3 * i + 2];
-  if (world) {  // world2tree: offset + scaling * pos
-    x = offset[0] + scaling[0] * x;
-    y = offset[1] + scaling[1] * y;
-    z = offset[2] + scaling[2] * z;
-  }
-  const svox::Leaf leaf = svox::descend(child, N, n_levels, x, y, z);
-  const int32_t idx = __ldg(data + leaf.flat);
-  node_flat[i] = leaf.flat;
-  data_idx[i] = idx;
-  float* v = values + static_cast<size_t>(i) * D;
-  if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(M)) {
-    const float* row = features + static_cast<size_t>(idx) * D;
-    for (int j = 0; j < D; ++j) v[j] = __ldg(row + j);
-  } else {
-    for (int j = 0; j < D; ++j) v[j] = 0.f;
-  }
-}
-
 __global__ void query_bwd_kernel(const int32_t* __restrict__ data_idx,
                                  const float* __restrict__ grad_values,
                                  int Q, int M, int D,
@@ -158,22 +127,23 @@ __global__ void query_bwd_kernel(const int32_t* __restrict__ data_idx,
 
 // points (Q, 3) f32 (world space when world != 0, else tree space);
 // child/data (capacity * N^3,) i32; offset/scaling (3,) f32; features
-// (M, D) f32; values (Q, D) f32, node_flat and data_idx (Q,) i32 out. All
+// (M, D) f32; values (Q, D) f32, node_flat and data_idx (Q,) i32 out; unit
+// the bytes the warp's copy moves at a time (16, 8 or 4), which must divide
+// the row (D * 4 bytes) and the alignment of features and values. All
 // pointers are device pointers. Returns a cudaError_t.
 extern "C" int svox_query_fwd(const float* points, int Q, int world,
                               const int32_t* child, const int32_t* data,
                               int N, int n_levels, const float* offset,
                               const float* scaling, const float* features,
                               int M, int D, float* values, int32_t* node_flat,
-                              int32_t* data_idx, int device,
+                              int32_t* data_idx, int unit, int device,
                               cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (Q <= 0) return cudaSuccess;
-  query_fwd_kernel<<<(Q + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      points, Q, world, child, data, N, n_levels, offset, scaling, features,
-      M, D, values, node_flat, data_idx);
-  return cudaGetLastError();
+  const QueryArgs<float> a{points, Q, world, child, data, N, n_levels, offset, scaling,
+                           features, M, D, values, node_flat, data_idx};
+  return launch_query(a, unit, stream);
 }
 
 // data_idx (Q,) i32 from the forward; grad_values (Q, D) f32; grad (M, D)

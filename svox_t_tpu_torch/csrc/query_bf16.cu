@@ -10,47 +10,19 @@
 // wrapper casts that sum to bf16 once (ops/query.py). A row that k points
 // read thus rounds once where JAX rounds k times.
 //
-// Bound on an H100: as csrc/query.cu — the descent's latency forward, the
-// atomics backward — with half the pool and value bytes forward and half
-// the gradient bytes read backward. The design is csrc/query.cu's: one
-// thread per point forward, one per (point, column) backward,
-// column-fastest so a warp's atomics fall on neighbouring addresses.
+// Bound on an H100: as csrc/query.cu — the descent's latency and the row
+// copy forward, the atomics backward — with half the pool and value bytes
+// forward and half the gradient bytes read backward. The forward is
+// csrc/query_fwd.cuh's warp copy in 2-byte values: an SH9 row is 56 bytes,
+// so its widest unit is 8 bytes (16 divides no such row). The backward is
+// csrc/query.cu's: one thread per (point, column), column-fastest so a
+// warp's atomics fall on neighbouring addresses.
 
-#include "common.cuh"
+#include "query_fwd.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__global__ void query_fwd_bf16_kernel(const float* __restrict__ points, int Q, int world,
-                                      const int32_t* __restrict__ child,
-                                      const int32_t* __restrict__ data, int N, int n_levels,
-                                      const float* __restrict__ offset,
-                                      const float* __restrict__ scaling,
-                                      const uint16_t* __restrict__ features, int M, int D,
-                                      uint16_t* __restrict__ values,
-                                      int32_t* __restrict__ node_flat,
-                                      int32_t* __restrict__ data_idx) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= Q) return;
-  float x = points[3 * i + 0], y = points[3 * i + 1], z = points[3 * i + 2];
-  if (world) {  // world2tree: offset + scaling * pos
-    x = offset[0] + scaling[0] * x;
-    y = offset[1] + scaling[1] * y;
-    z = offset[2] + scaling[2] * z;
-  }
-  const svox::Leaf leaf = svox::descend(child, N, n_levels, x, y, z);
-  const int32_t idx = __ldg(data + leaf.flat);
-  node_flat[i] = leaf.flat;
-  data_idx[i] = idx;
-  uint16_t* v = values + static_cast<size_t>(i) * D;
-  if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(M)) {
-    const uint16_t* row = features + static_cast<size_t>(idx) * D;
-    for (int j = 0; j < D; ++j) v[j] = __ldg(row + j);
-  } else {
-    for (int j = 0; j < D; ++j) v[j] = 0;  // bf16 +0
-  }
-}
 
 __global__ void query_bwd_bf16_kernel(const int32_t* __restrict__ data_idx,
                                       const uint16_t* __restrict__ grad_values, int Q, int M,
@@ -67,22 +39,22 @@ __global__ void query_bwd_bf16_kernel(const int32_t* __restrict__ data_idx,
 
 }  // namespace
 
-// As svox_query_fwd, with features (M, D) bf16 and values (Q, D) bf16 out.
-// Returns a cudaError_t.
+// As svox_query_fwd, with features (M, D) bf16 and values (Q, D) bf16 out;
+// unit 16, 8, 4 or 2 bytes, dividing the row (D * 2 bytes) and the
+// alignment of features and values. Returns a cudaError_t.
 extern "C" int svox_query_fwd_bf16(const float* points, int Q, int world,
                                    const int32_t* child, const int32_t* data, int N,
                                    int n_levels, const float* offset, const float* scaling,
                                    const void* features, int M, int D, void* values,
-                                   int32_t* node_flat, int32_t* data_idx, int device,
+                                   int32_t* node_flat, int32_t* data_idx, int unit, int device,
                                    cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (Q <= 0) return cudaSuccess;
-  query_fwd_bf16_kernel<<<(Q + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      points, Q, world, child, data, N, n_levels, offset, scaling,
-      static_cast<const uint16_t*>(features), M, D, static_cast<uint16_t*>(values), node_flat,
-      data_idx);
-  return cudaGetLastError();
+  const QueryArgs<uint16_t> a{points, Q, world, child, data, N, n_levels, offset, scaling,
+                              static_cast<const uint16_t*>(features), M, D,
+                              static_cast<uint16_t*>(values), node_flat, data_idx};
+  return launch_query(a, unit, stream);
 }
 
 // As svox_query_bwd, with grad_values (Q, D) bf16; grad (M, D) f32, zeroed

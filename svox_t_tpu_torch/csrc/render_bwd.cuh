@@ -84,16 +84,16 @@
 // library is built with -fmad=false, so the samples are the plain
 // version's; only the order in which atomics sum differs.
 //
-// K9a, the opacity VJP (svox_opacity_bwd, `opacity_bwd_kernel`), runs the
-// sigma-only instance of this kernel's march (kSigmaOnly). Replaces: svox_t_tpu/ops/render_aux.py
-// `_opacity_bwd_impl`, the gradient of `opacity_render` (the forward is
-// K2's alpha column). A thread reads only the sigma column of a row: no
-// basis, no colors, no color gradients. Per contributing sample
-// (row < M, sigma > 0) it adds dt*ds * (g_alpha * L_ray) into column
-// D - 1. Single pass with the forward alpha (L_ray = 1 - alpha, exact
-// options); otherwise pass A forms L_ray under the backward's sigma > 0
-// rule and writes nothing, then pass B adds. This equals K3's sigma
-// column with zero color gradients (ops/render_aux.py
+// K9a, the opacity VJP (svox_opacity_bwd, `opacity_bwd_kernel`), runs a
+// sigma-only march of its own (`opacity_march`, below). Replaces:
+// svox_t_tpu/ops/render_aux.py `_opacity_bwd_impl`, the gradient of
+// `opacity_render` (the forward is K2's alpha column). A thread reads only
+// the sigma column of a row: no basis, no colors, no color gradients. Per
+// contributing sample (row < M, sigma > 0) it adds dt*ds * (g_alpha *
+// L_ray) into column D - 1. Single pass with the forward alpha (L_ray = 1 -
+// alpha, exact options); otherwise pass A forms L_ray under the backward's
+// sigma > 0 rule and writes nothing, then pass B adds. This equals K3's
+// sigma column with zero color gradients (ops/render_aux.py
 // `opacity_backward_plain`). Bound on an H100: as K3, the descent chain
 // per sample; one 4-byte atomic per contributing sample.
 //
@@ -166,9 +166,8 @@ __device__ __forceinline__ void add_corners(const Params<S>& p, const svox::Corn
 
 // One backward march. kColor: add the coefficient rows and sum accum
 // upward; kSigma: add the sigma column, with acc falling from its start.
-// kSigmaOnly: read only sigma and add dt*ds * (g_alpha * L_ray) (with
-// kSigma) or nothing (pass A). Returns the final L in L.
-template <class S, int FMT, int BD, bool kRot, bool kColor, bool kSigma, bool kSigmaOnly>
+// Returns the final L in L.
+template <class S, int FMT, int BD, bool kRot, bool kColor, bool kSigma>
 __device__ __forceinline__ void march(const Params<S>& p, const Ray& r,
                                       float* basis, const float* g,
                                       float g_alpha, float L_ray, float& L,
@@ -197,12 +196,6 @@ __device__ __forceinline__ void march(const Params<S>& p, const Ray& r,
       });
       if (sigma > 0.f) {
         const float att = expf((-dt * r.ds) * sigma);
-        if constexpr (kSigmaOnly) {
-          if constexpr (kSigma) add_corners(p, cn, p.D - 1, (dt * r.ds) * (g_alpha * L_ray));
-          L = L * att;
-          t = t + dt;
-          continue;
-        }
         const float weight = L * (1.f - att);
         if constexpr (FMT != svox::kRGBA && kRot) {
           const int32_t gi = static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M) ? idx : 0;
@@ -259,12 +252,6 @@ __device__ __forceinline__ void march(const Params<S>& p, const Ray& r,
       const float sigma = svox::ld(row + p.D - 1);
       if (sigma > 0.f) {
         const float att = expf((-dt * r.ds) * sigma);
-        if constexpr (kSigmaOnly) {
-          if constexpr (kSigma) atomicAdd(grow + p.D - 1, (dt * r.ds) * (g_alpha * L_ray));
-          L = L * att;
-          t = t + dt;
-          continue;
-        }
         const float weight = L * (1.f - att);
         if constexpr (FMT != svox::kRGBA && kRot) {
           const float* m = p.tmats + static_cast<size_t>(idx) * 16;
@@ -412,7 +399,7 @@ __device__ __forceinline__ void sample_grad4(const float* z, const float* g, con
 }
 
 // `march` at width 4 (the three-colour RGBA, SH1 and SH9 rows with no
-// spare column: kD = 4, 4, 28), kSigmaOnly aside: the same samples, the
+// spare column: kD = 4, 4, 28): the same samples, the
 // same addends, grouped into vector atomics (see the top of this file).
 // Nearest: the sample's row in registers, each column overwritten with its
 // addend once read, the row added in one go. Interp: the corners from the
@@ -498,7 +485,7 @@ __device__ __forceinline__ void march_w(const Params<S>& p, const Ray& r, float*
   if constexpr (W == 4) {
     march4<S, FMT, BD, kRot, kColor, kSigma>(p, r, basis, g, g_alpha, L_ray, L, acc);
   } else {
-    march<S, FMT, BD, kRot, kColor, kSigma, false>(p, r, basis, g, g_alpha, L_ray, L, acc);
+    march<S, FMT, BD, kRot, kColor, kSigma>(p, r, basis, g, g_alpha, L_ray, L, acc);
   }
 }
 
@@ -581,24 +568,124 @@ cudaError_t launch(const Params<S>& p, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-// K9a: the sigma-only instance. grad_out and out_res are (B, 1): g_alpha
-// and the forward alpha (single pass), or out_res is null (two passes).
+// ---------------------------------------------------------------------
+// K9a: the opacity VJP (see the top of this file). A sample reads one
+// value, its row's sigma (under interp its 8 corners' sigmas), so the march
+// is its lookups' chains of dependent loads; a contributing sample adds one
+// value (8 under interp). The Hopper design (tools/render_bwd_ab.py
+// --opacity times it against an earlier commit's kernel and against the
+// levers that did not ship, tools/opacity_designs.cuh; PERF.md §6, NVIDIA
+// H100 80GB HBM3 at 700 W):
+//  * interp: the corners from the sample's own lookup, as K2+K4 finds them
+//    (svox::corners_keep<kOpReuse>: 1 the own corner's row, on the bake; 2
+//    also the other corners' descents started on the own path, on the tree
+//    walk), in place of svox::sample_corners' 9 lookups from the root; the
+//    corner rows are sample_corners' bit for bit (ops/corner_lookup.py
+//    mirrors them). On the tree walk 1.12x against 9 lookups, 1.02x with
+//    the own row alone; on the bake a tie exact, 1.07x in two passes;
+//  * nearest, kOpAhead (the bake's float32 instance): the next sample's
+//    lookup issued before the sigma's test (the lookup ahead), 3-8% there;
+//    it lost up to 2% on the other exact instances, as on K2, and the loop
+//    rotated as K9b's tree walk tied, so they keep the earlier loop;
+//  * one kernel a mode (kTwoPass), so that the single pass, whose L is dead,
+//    issues no exp at all (its SASS has no MUFU.EX2): 1.04-1.07x on the tree
+//    walk's interp instances with 9 lookups.
 template <class S>
+constexpr int kOpReuse = S::kBaked ? 1 : 2;
+template <class S>
+constexpr bool kOpAhead = S::kBaked && svox::kFloatPool;
+
+// A contributing sample of the nearest march: with kAdd its add into column
+// D - 1 of its row, and its attenuation of L (dead with kAdd: the caller
+// drops it).
+template <class S, bool kAdd>
+__device__ __forceinline__ void opacity_sample(const Params<S>& p, const Ray& r, int32_t idx, float sigma,
+                                               float dt, float coef, float& L) {
+  if (sigma > 0.f) {
+    if constexpr (kAdd) atomicAdd(p.grad + static_cast<size_t>(idx) * p.D + p.D - 1, (dt * r.ds) * coef);
+    L = L * expf((-dt * r.ds) * sigma);
+  }
+}
+
+// K9a's march: kAdd false is pass A (the final L under the backward's
+// sigma > 0 rule, nothing written), true the adds of (dt * ds) * coef into
+// column D - 1 of every contributing sample's row, or w_n times that into
+// its corners' rows under interp. The samples and the rule are `march`'s.
+template <class S, bool kAdd>
+__device__ __forceinline__ float opacity_march(const Params<S>& p, const Ray& r, float coef) {
+  float t = r.tmin;
+  float L = 1.f;
+  if constexpr (svox::kInterp) {
+    typename S::Keep keep;
+    if constexpr (!S::kBaked) keep.path = path_slot<S>();
+    for (int step = 0; step < p.max_steps; ++step) {
+      if (!(t < r.tmax)) break;
+      float dt;
+      const svox::Leaf leaf = svox::sample_leaf_keep(p.st, r, t, p.step_size, dt, keep);
+      const svox::Corners cn = svox::corners_keep<kOpReuse<S>>(p.st, r, t, leaf, keep, p.M);
+      const float sigma = svox::interp_sum(cn, [&](int32_t row) {
+        return svox::ld(p.features + static_cast<size_t>(row) * p.D + p.D - 1);
+      });
+      if (sigma > 0.f) {
+        if constexpr (kAdd) add_corners(p, cn, p.D - 1, (dt * r.ds) * coef);
+        L = L * expf((-dt * r.ds) * sigma);
+      }
+      t = t + dt;
+    }
+  } else if constexpr (!kOpAhead<S>) {
+    for (int step = 0; step < p.max_steps; ++step) {
+      if (!(t < r.tmax)) break;
+      float dt;
+      const svox::Leaf leaf = svox::sample_leaf(p.st, r, t, p.step_size, dt);
+      const int32_t idx = leaf.row;
+      if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M)) {
+        const float sigma = svox::ld(p.features + static_cast<size_t>(idx) * p.D + p.D - 1);
+        opacity_sample<S, kAdd>(p, r, idx, sigma, dt, coef, L);
+      }
+      t = t + dt;
+    }
+  } else {
+    if (!(t < r.tmax) || p.max_steps <= 0) return L;
+    float x, y, z;
+    svox::sample_pos(r, t, x, y, z);
+    svox::Leaf leaf = p.st.lookup(x, y, z);
+    for (int step = 0;; ++step) {
+      const float dt = svox::step_dt(p.st, leaf, r, p.step_size);
+      const int32_t idx = leaf.row;
+      const bool resident = static_cast<uint32_t>(idx) < static_cast<uint32_t>(p.M);
+      const float sigma = resident ? svox::ld(p.features + static_cast<size_t>(idx) * p.D + p.D - 1) : 0.f;
+      const float t_next = t + dt;
+      const bool more = step + 1 < p.max_steps && t_next < r.tmax;
+      svox::Leaf next = leaf;
+      if (more) {
+        svox::sample_pos(r, t_next, x, y, z);
+        next = p.st.lookup(x, y, z);
+      }
+      opacity_sample<S, kAdd>(p, r, idx, sigma, dt, coef, L);
+      if (!more) break;
+      leaf = next;
+      t = t_next;
+    }
+  }
+  return L;
+}
+
+// K9a, one instance a mode: the single pass (grad_out and out_res (B, 1),
+// g_alpha and the forward alpha: L_ray = 1 - alpha) or, kTwoPass, pass A
+// for L_ray and then the adds.
+template <class S, bool kTwoPass>
 __global__ void __launch_bounds__(kThreads) opacity_bwd_kernel(const Params<S> p) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= p.B) return;
   Ray r;
   if (!svox::march_cull(p.st, r, svox::setup_ray(p.origins, p.dirs, p.offset, p.scaling, i, r))) return;
-  float L, acc = 0.f, L_ray;
-  if (p.out_res != nullptr) {
-    L_ray = 1.f - p.out_res[i];
+  float L_ray;
+  if constexpr (kTwoPass) {
+    L_ray = opacity_march<S, false>(p, r, 0.f);
   } else {
-    march<S, svox::kRGBA, 0, false, false, false, true>(p, r, nullptr, nullptr, 0.f, 0.f, L,
-                                                        acc);
-    L_ray = L;
+    L_ray = 1.f - p.out_res[i];
   }
-  march<S, svox::kRGBA, 0, false, false, true, true>(p, r, nullptr, nullptr, p.grad_out[i],
-                                                     L_ray, L, acc);
+  opacity_march<S, true>(p, r, p.grad_out[i] * L_ray);
 }
 
 // Basis instances hold 1, 4, 9, 16 or 25 terms (svox::basis_capacity).
@@ -683,6 +770,10 @@ extern "C" int SVOX_NAME(svox_opacity_bwd)(
                     0, 0, 0, 0, step_size, 0.f,
                     max_steps, grad_out, out_res, grad, 1};
   const dim3 grid((B + kThreads - 1) / kThreads);
-  opacity_bwd_kernel<S><<<grid, kThreads, 0, stream>>>(p);
+  if (out_res != nullptr) {
+    opacity_bwd_kernel<S, false><<<grid, kThreads, 0, stream>>>(p);
+  } else {
+    opacity_bwd_kernel<S, true><<<grid, kThreads, 0, stream>>>(p);
+  }
   return cudaGetLastError();
 }

@@ -8,7 +8,9 @@ of the JAX package's custom_vjp): values of the points' leaf rows, zeros
 in empty space, and a backward that adds the value gradients into the
 feature rows. On CUDA tensors each op launches its kernel
 (`csrc/construct_tree.cu`, `csrc/query.cu`, `csrc/edit.cu`) or raises; on
-CPU tensors its plain PyTorch version runs. `points_leaf_aabb`
+CPU tensors its plain PyTorch version runs. The query forward copies each
+warp's rows in the unit `query_unit` picks (`QUERY_FWD_UNIT_LAUNCHES`
+counts its launches by unit). `points_leaf_aabb`
 (`POINTS_AABB`) bounds the leaves of a point cloud, to keep the baked
 render structure's cull box current. The tree-editing ops: `assign`
 (`ASSIGN`) writes values into the pool rows that points address and
@@ -40,7 +42,7 @@ _QUERY_FWD_ARGS = [c_void_p, c_int, c_int,                  # points, Q, world
                    c_void_p, c_void_p, c_int, c_int,        # child, data, N, n_levels
                    c_void_p, c_void_p, c_void_p, c_int, c_int,  # offset, scaling, features, M, D
                    c_void_p, c_void_p, c_void_p,            # values, node_flat, data_idx
-                   c_int, c_void_p]                         # device, stream
+                   c_int, c_int, c_void_p]                  # unit, device, stream
 _QUERY_BWD_ARGS = [c_void_p, c_void_p, c_int, c_int, c_int,  # data_idx, grad_values, Q, M, D
                    c_void_p, c_int, c_void_p]                # grad, device, stream
 QUERY_FWD = Kernel("svox_query_fwd", _QUERY_FWD_ARGS)
@@ -51,6 +53,12 @@ QUERY_BWD = Kernel("svox_query_bwd", _QUERY_BWD_ARGS)
 QUERY_FWD_BF16 = Kernel("svox_query_fwd_bf16", _QUERY_FWD_ARGS)
 QUERY_BWD_BF16 = Kernel("svox_query_bwd_bf16", _QUERY_BWD_ARGS)
 _QUERY_FWD = {torch.float32: QUERY_FWD, torch.bfloat16: QUERY_FWD_BF16}
+# The query forward's copy units (`csrc/query_fwd.cuh`): the bytes a lane
+# moves at a time, widest first, by pool type; and its launches by pool
+# type and unit ("f32 16": a float32 pool copied in 16-byte units).
+QUERY_UNITS = {torch.float32: (16, 8, 4), torch.bfloat16: (16, 8, 4, 2)}
+_POOL_KIND = {torch.float32: "f32", torch.bfloat16: "bf16"}
+QUERY_FWD_UNIT_LAUNCHES = {f"{_POOL_KIND[t]} {u}": 0 for t, units in QUERY_UNITS.items() for u in units}
 _QUERY_BWD = {torch.float32: QUERY_BWD, torch.bfloat16: QUERY_BWD_BF16}
 POINTS_AABB = Kernel(
     "svox_points_aabb",
@@ -238,10 +246,43 @@ def query_backward_plain(data_idx: torch.Tensor, grad_values: torch.Tensor, M: i
     return grad
 
 
+def query_unit(D: int, dtype: torch.dtype, ptrs) -> int:
+    """The copy unit of a query forward launch: the widest of
+    `QUERY_UNITS[dtype]` (bytes) that divides the row (D values of
+    ``dtype``) and the address of every pointer of ``ptrs`` (the pool and
+    the output). A float32 SH9 row (112 bytes) takes 16, a bf16 one (56
+    bytes) 8; a pool that starts off a 16-byte boundary takes a narrower
+    unit."""
+    row = D * dtype.itemsize
+    for unit in QUERY_UNITS[dtype]:
+        if row % unit == 0 and all(p % unit == 0 for p in ptrs):
+            return unit
+    raise ValueError(f"no query unit for a {dtype} pool")
+
+
+def _query_launch_unit(D: int, dtype: torch.dtype, ptrs, unit) -> int:
+    """The unit of a launch: `query_unit`'s, or ``unit`` where the caller
+    forces one; a unit the pool type has no instance for, or that does not
+    divide the row and the pointers, raises."""
+    rule = query_unit(D, dtype, ptrs)
+    if unit is None:
+        return rule
+    if type(unit) is not int or unit not in QUERY_UNITS[dtype]:
+        raise ValueError(f"the query unit for a {dtype} pool must be one of {QUERY_UNITS[dtype]}, "
+                         f"got {unit!r}")
+    row = D * dtype.itemsize
+    if row % unit or any(p % unit for p in ptrs):
+        raise ValueError(f"a {unit}-byte query unit needs a row ({row} bytes) and pointers on "
+                         f"{unit} bytes; this launch takes at most {rule}")
+    return unit
+
+
 def query_forward_cuda(spec: TreeSpec, features: torch.Tensor, points: torch.Tensor,
-                       world: bool = True):
+                       world: bool = True, unit=None):
     """Launch the query forward kernel (csrc/query.cu; for a bf16 pool
-    csrc/query_bf16.cu, whose values are bf16)."""
+    csrc/query_bf16.cu, whose values are bf16) at `query_unit`'s copy unit;
+    ``unit`` (bytes) forces one, and a unit the launch does not allow
+    raises (a comparison of the instances passes it)."""
     _check_query(spec, features, points)
     tables = (spec.child_flat, spec.data_flat, spec.offset, spec.scaling)
     if not points.is_cuda or any(t.device != points.device for t in (features, *tables)):
@@ -264,6 +305,7 @@ def query_forward_cuda(spec: TreeSpec, features: torch.Tensor, points: torch.Ten
     values = torch.empty(Q, D, dtype=features.dtype, device=dev)
     node_flat = torch.empty(Q, dtype=torch.int32, device=dev)
     data_idx = torch.empty(Q, dtype=torch.int32, device=dev)
+    unit = _query_launch_unit(D, features.dtype, (features.data_ptr(), values.data_ptr()), unit)
     if Q == 0:
         return values, node_flat, data_idx
     kernel(
@@ -271,8 +313,9 @@ def query_forward_cuda(spec: TreeSpec, features: torch.Tensor, points: torch.Ten
         spec.child_flat.data_ptr(), spec.data_flat.data_ptr(), spec.N, spec.n_levels,
         spec.offset.data_ptr(), spec.scaling.data_ptr(), features.data_ptr(), M, D,
         values.data_ptr(), node_flat.data_ptr(), data_idx.data_ptr(),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
+        unit, dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
+    QUERY_FWD_UNIT_LAUNCHES[f"{_POOL_KIND[features.dtype]} {unit}"] += 1
     return values, node_flat, data_idx
 
 

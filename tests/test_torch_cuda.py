@@ -1351,6 +1351,101 @@ def test_query_bf16_kernels_match_plain(cuda):
     _assert_bf16_ulp(gx, want)
 
 
+def _query_points(cuda, centers, n_tail, seed):
+    """Every centre in a seeded order, a duplicated few and random points
+    (some in empty space), n_tail more so that the last warp is partial."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.cat([centers[torch.randperm(len(centers), generator=g).to(cuda)], centers[:300],
+                      torch.rand(500 + n_tail, 3, generator=g).to(cuda)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [28, 4, 5, 8])
+def test_query_forward_units_match_plain(cuda, dtype, D):
+    """Every copy unit the row and pointers allow (K8b, `query_fwd.cuh`:
+    the D = 28 and 4 instances and the generic one), bit for bit against
+    the plain version, each launch counted under its unit; the wrapper picks
+    the widest."""
+    tree, feats, centers = _shell(cuda, fmt="SH9", ddim=28, seed=57)
+    spec = tree._spec()
+    g = torch.Generator().manual_seed(57)
+    f = torch.randn(int(feats.shape[0] * 0.9), D, generator=g).to(cuda).to(dtype)
+    pts = _query_points(cuda, centers, 13, 57)
+    want = tquery.query_forward_plain(spec, f, pts)
+    rule = tquery.query_unit(D, dtype, (f.data_ptr(),))
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    for unit in [u for u in tquery.QUERY_UNITS[dtype] if u <= rule and (D * f.element_size()) % u == 0]:
+        before = dict(tquery.QUERY_FWD_UNIT_LAUNCHES)
+        got = tquery.query_forward_cuda(spec, f, pts, unit=unit)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (unit, D)
+        after = dict(tquery.QUERY_FWD_UNIT_LAUNCHES)
+        assert after[f"{kind} {unit}"] == before[f"{kind} {unit}"] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+    before = tquery.QUERY_FWD_UNIT_LAUNCHES[f"{kind} {rule}"]
+    got = tquery.query_forward_cuda(spec, f, pts)
+    assert tquery.QUERY_FWD_UNIT_LAUNCHES[f"{kind} {rule}"] == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_query_forward_misaligned_pool_takes_a_narrower_unit(cuda, dtype):
+    """A pool that starts 4 bytes (bf16: 2) past a 16-byte boundary takes
+    the 4-byte (2-byte) instance, named and counted; a forced wider unit
+    raises."""
+    tree, feats, centers = _shell(cuda, fmt="SH9", ddim=28, seed=58)
+    spec = tree._spec()
+    M, D = feats.shape
+    flat = torch.empty(M * D + 1, dtype=dtype, device=cuda)
+    f = flat[1:].view(M, D)
+    f.copy_(feats.to(dtype))
+    pts = _query_points(cuda, centers, 7, 58)
+    kind, narrow = ("f32", 4) if dtype == torch.float32 else ("bf16", 2)
+    assert tquery.query_unit(D, dtype, (f.data_ptr(),)) == narrow
+    before = tquery.QUERY_FWD_UNIT_LAUNCHES[f"{kind} {narrow}"]
+    got = tquery.query_forward_cuda(spec, f, pts)
+    torch.cuda.synchronize()
+    assert tquery.QUERY_FWD_UNIT_LAUNCHES[f"{kind} {narrow}"] == before + 1
+    want = tquery.query_forward_plain(spec, f, pts)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="this launch takes at most"):
+        tquery.query_forward_cuda(spec, f, pts, unit=8)
+    with pytest.raises(ValueError, match="must be one of"):
+        tquery.query_forward_cuda(spec, feats.to(dtype), pts, unit=3)
+
+
+@pytest.mark.parametrize("backend", ["tree", "baked"])
+@pytest.mark.parametrize("interp", [False, True])
+@pytest.mark.parametrize("pool", ["f32", "bf16"])
+@pytest.mark.parametrize("fast", [False, True])
+def test_opacity_instances_match_plain(cuda, backend, interp, pool, fast):
+    """Every K9a instance (structure, nearest or trilinear, float32 or
+    bf16) against its plain version within ATOMIC_RTOL, single pass and two
+    passes, on a cotangent that is 0 on a third of the rays (the rays that
+    return before their march) and with opaque rays."""
+    tree, feats, _ = _shell(cuda, seed=59)
+    feats = feats.clone()
+    feats[::2, -1] = feats[::2, -1].abs() * 1e4  # opaque rays: alpha 1.0 exactly
+    o, d = _rays(cuda, 2048, seed=59)
+    r = stt.VolumeRenderer(tree, backend=backend, interp="trilinear" if interp else "nearest")
+    opt = r._get_options(fast)
+    spec = tree._spec() if backend == "tree" else tree._baked_spec()
+    f = feats if pool == "f32" else feats.to(torch.bfloat16)
+    g = torch.randn(o.shape[0], 1, generator=torch.Generator().manual_seed(59)).to(cuda)
+    g[::3] = 0.0
+    alpha = trender.volume_render_cuda(spec, f, o, d, d, opt)[:, -1:].contiguous()
+    assert bool((alpha == 1.0).any())
+    counter = taux._kernel_for(spec, opt, taux._OPACITY_INSTANCES, f)
+    before = counter.launches
+    got = taux.opacity_backward_cuda(spec, f, o, d, g, opt, out_res=alpha)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = taux.opacity_backward_plain(spec, f, o, d, g, opt, out_res=alpha)
+    _assert_atomic_close(got, want)
+    assert not bool(got[:, :-1].any()) and float(got[:, -1].abs().max()) > 0
+
+
 def test_pool_types_without_an_instance_raise(cuda):
     """A pool type with no kernel instance raises; it is never converted
     to run another instance."""

@@ -1,0 +1,87 @@
+"""The A/B tools' designs of K8b's query forward (`tools/query_ab.py`) and of
+K9a, the opacity VJP (`tools/render_bwd_ab.py --opacity`), on the CPU: the
+kernels build only on a card, but each design is a text patch of the
+shipped header, and the designs that lost live in `tools/*_designs.cuh`.
+
+  * every design's patches apply to the header as it is (each exactly
+    once), and a design that launches a lost kernel finds it in the
+    designs file;
+  * the opacity designs file's levers default to the shipped kernel's, and
+    each design sets the levers it names;
+  * `chip_smoke.query_fwd_work`, the query forward's bytes and operations
+    that the smoke's phase 6 and `tools/query_ab.py` count, on a small case.
+"""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+TOOLS = Path(__file__).resolve().parent.parent / "tools"
+sys.path.insert(0, str(TOOLS))
+
+import query_ab  # noqa: E402
+import render_bwd_ab  # noqa: E402
+import render_fwd_ab  # noqa: E402
+
+import chip_smoke  # noqa: E402
+
+
+@pytest.mark.parametrize("design", sorted(query_ab.DESIGNS))
+def test_query_design_patches_apply(tmp_path, design):
+    sources = query_ab.design_sources(tmp_path, None, {design: query_ab.DESIGNS[design]})
+    text = (sources[design] / query_ab.HEADER).read_text()
+    assert (sources[design] / "query_designs.cuh").exists()
+    if design in ("p2", "bulk"):
+        assert f"return launch_{design}<T, U, kD>(a, stream);" in text
+        assert "query_fwd_kernel<T, U, kD><<<" not in text
+        assert f"cudaError_t launch_{design}(" in (TOOLS / "query_designs.cuh").read_text()
+    if design == "no_copy":
+        assert "copy_rows<T, U, kD>(a, idx" not in text
+
+
+def _spliced(tmp_path, design):
+    sources, alias = render_fwd_ab.design_sources(
+        tmp_path, None, {design: render_bwd_ab.OPACITY_DESIGNS[design]}, render_bwd_ab.BWD_UNITS, "render_bwd.cuh")
+    return (sources[design][0] / "render_bwd.cuh").read_text()
+
+
+# {design: (kOpReuse, kOpLoop, kOpSkip) as the spliced text sets them}.
+OPACITY_LEVERS = {
+    "none": ("0", "0", "false"),
+    "reuse": (render_bwd_ab.REUSE_LEVERS, "0", "false"),
+    "reuse1": ("svox::kInterp ? 1 : 0", "0", "false"),
+    "loop1": ("0", "1", "false"),
+    "loop2": ("0", "2", "false"),
+    "skip": (render_bwd_ab.REUSE_LEVERS, render_bwd_ab.LOOP_LEVERS, "true"),
+}
+
+
+@pytest.mark.parametrize("design", sorted(OPACITY_LEVERS))
+def test_opacity_design_sets_its_levers(tmp_path, design):
+    text = _spliced(tmp_path, design)
+    reuse, loop, skip = OPACITY_LEVERS[design]
+    assert f"constexpr int kOpReuse = {reuse};" in text
+    assert f"constexpr int kOpLoop = {loop};" in text
+    assert f"constexpr bool kOpSkip = {skip};" in text
+    assert text.count("opacity_bwd_kernel(const Params<S> p)") == 1
+    assert "return cudaErrorInvalidValue;" in text and render_bwd_ab.K3_SWITCH not in text
+
+
+def test_opacity_designs_file_defaults_are_the_shipped_levers(tmp_path):
+    designs = (TOOLS / "opacity_designs.cuh").read_text()
+    assert f"constexpr int kOpReuse = {render_bwd_ab.REUSE_LEVERS};" in designs
+    assert f"constexpr int kOpLoop = {render_bwd_ab.LOOP_LEVERS};" in designs
+    assert "constexpr bool kOpSkip = false;" in designs
+    shipped = _spliced(tmp_path, "shipped")
+    k9a = shipped.split("// K9a: the opacity VJP (see")[1]
+    assert "kOpSkip" not in shipped and "svox::sample_corners(" not in k9a
+
+
+def test_query_fwd_work_counts_bytes_and_levels():
+    # 10 points, 6 rows of 4 float32 values, 25 levels: points and entries
+    # 20 bytes a point, 6 rows read, 10 rows and 8 bytes of ids written.
+    n_bytes, n_ops = chip_smoke.query_fwd_work(10, 6, 4, 4, 25)
+    assert n_bytes == 10 * 20 + 6 * 16 + 10 * 16 + 10 * 8
+    assert n_ops == chip_smoke.OPS_LEVEL * 25
+    assert chip_smoke.query_fwd_work(10, 6, 4, 2, 25)[0] == 10 * 20 + 6 * 8 + 10 * 8 + 10 * 8

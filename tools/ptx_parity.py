@@ -1,7 +1,7 @@
 """Compare the PTX of the kernel sources with another copy of them, on a
 machine with nvcc.
 
-    python3 tools/ptx_parity.py OTHER_CSRC_DIR [SOURCE ...]
+    python3 tools/ptx_parity.py [--by-entry] OTHER_CSRC_DIR [SOURCE ...]
 
 OTHER_CSRC_DIR holds another version of `svox_t_tpu_torch/csrc` (for
 example the parent commit's, unpacked with `git archive`). Every compile
@@ -10,16 +10,22 @@ skipped) is compiled to PTX from both with the build's code-generation
 flags, all at once. A tree's units are those its `_build.units` lists:
 this tree's, and the other's when its `_build.py` lies beside
 OTHER_CSRC_DIR and has `units` (else the other's `.cu` sources): the
-`.cu` sources and the pool instances of the march headers. Anonymous-namespace
-and internal names (they hash the file's path) and comment lines are
+`.cu` sources and the pool instances of the march headers.
+Anonymous-namespace and internal names (they hash the file's path), the
+function ordinals in block labels and local depots, and comment lines are
 normalized away; the script prints each unit's PTX lines and how many
 lines differ, with the first lines of each difference, and exits nonzero
 if any unit differs. Naming units (e.g. `render_bwd`,
-`render_fwd_baked_bf16`) compares only those.
+`render_fwd_baked_bf16`) compares only those. With ``--by-entry`` each unit
+that differs is also compared function by function (each `.entry` and
+`.func` of its PTX, by name): it prints how many of them are identical and
+the diff lines of each that is not, so that a change to one kernel of a
+unit shows the unit's other kernels unchanged.
 """
 
 from __future__ import annotations
 
+import difflib
 import importlib.util
 import re
 import subprocess
@@ -61,14 +67,58 @@ def units_of(csrc: Path) -> dict:
     return {u.name: u for u in _build.units()}
 
 
+# A function's basic-block labels and local depot carry its ordinal in the
+# unit (`$L__BB12_3`, `__local_depot12`), which moves when a kernel is added
+# before it.
+ORDINAL = re.compile(r"(\$L__BB|__local_depot)\d+")
+
+
 def normalized(path: Path) -> Path:
     out = path.with_suffix(".norm")
-    lines = [ANON.sub("ANON", ln) for ln in path.read_text().splitlines() if not ln.startswith("//")]
+    lines = [ORDINAL.sub(r"\1", ANON.sub("ANON", ln)) for ln in path.read_text().splitlines()
+             if not ln.startswith("//")]
     out.write_text("\n".join(lines) + "\n")
     return out
 
 
+FUNCTION = re.compile(r"^(?:\.visible\s+|\.weak\s+)?\.(?:entry|func)\s+(?:\([^)]*\)\s*)?(\w+)")
+
+
+def functions(path: Path) -> dict:
+    """{name: its lines} of a normalized PTX file's functions, and the lines
+    before the first under ``""``."""
+    out, name = {"": []}, ""
+    for line in path.read_text().splitlines():
+        m = FUNCTION.match(line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+        out[name].append(line)
+    return out
+
+
+def by_entry(a: Path, b: Path) -> None:
+    fa, fb = functions(a), functions(b)
+    same = [n for n in fb if n in fa and fa[n] == fb[n]]
+    print(f"  by function: {len(same)} of {len(fb)} identical (the header counted as one)")
+    for n in fb:
+        if n in fa and fa[n] == fb[n]:
+            continue
+        if n not in fa:
+            print(f"  {n or 'header'}: only in this tree, {len(fb[n])} lines")
+            continue
+        diff = [d for d in difflib.unified_diff(fa[n], fb[n], lineterm="", n=0)
+                if d[:1] in "+-" and d[:3] not in ("+++", "---")]
+        print(f"  {n or 'header'}: {len(diff)} diff lines, the first: {diff[:4]}")
+    for n in fa:
+        if n not in fb:
+            print(f"  {n or 'header'}: only in {a.parent}, {len(fa[n])} lines")
+
+
 def main() -> None:
+    entries = "--by-entry" in sys.argv[1:]
+    if entries:
+        sys.argv.remove("--by-entry")
     other = Path(sys.argv[1]).resolve()
     nvcc = _build._nvcc()
     trees = {"other": units_of(other), "this": units_of(_build.CSRC)}
@@ -97,7 +147,9 @@ def main() -> None:
             differ |= n > 0
             print(f"{name}: {len(b.read_text().splitlines())} PTX lines, {n} diff lines against "
                   f"{other}")
-            if n:
+            if n and entries:
+                by_entry(a, b)
+            elif n:
                 print("\n".join(diff.splitlines()[:DIFF_LINES_SHOWN]))
     sys.exit(1 if differ else 0)
 

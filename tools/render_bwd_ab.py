@@ -1,6 +1,7 @@
 """Designs of the backward march (K3 and K3+K4) side by side, on one CUDA GPU.
 
     python3 tools/render_bwd_ab.py [--parent DIR] [--designs A,B,...] [--families]
+    python3 tools/render_bwd_ab.py --opacity [--parent DIR] [--designs A,B,...]
 
 `csrc/render_bwd.cuh` at vector width 4 (the three-colour RGBA, SH1 and SH9
 rows with no spare column) moves a sample's row in 16-byte loads and adds it
@@ -50,6 +51,33 @@ the bake):
     shares the header's march (nearest and interp, float32 and bf16, single
     pass and two passes): ``parent`` against ``shipped``.
 
+With ``--opacity`` it times K9a's designs instead, in libraries whose K3
+entry is stripped (it returns an error and instantiates no K3 kernel, so
+that each builds in seconds; the parent's too). Each design but
+``shipped`` puts `tools/opacity_designs.cuh` (every lever) in place of the
+header's K9a section and sets its three levers (`kOpReuse`, `kOpLoop`,
+`kOpSkip`):
+
+  * ``none``: 9 lookups from the root under interp, the earlier loop, no
+    skip (one kernel a mode and no other lever);
+  * ``reuse``: the interp corners from the own lookup, the own row on the
+    bake and also the path-started descents on the tree walk (K2+K4's
+    levers); ``reuse1``: the own row alone on both structures;
+  * ``loop1``: the rotated loop (K9b's); ``loop2``: the next sample's lookup
+    issued before the sigma's test (the lookup ahead);
+  * ``skip``: the shipped levers, and a ray whose coefficient g_alpha *
+    L_ray is 0 returns first;
+  * ``shipped``: the header as it is;
+
+on `OPACITY_CASES` (a seeded unit cotangent) and on the aux training
+step's mask loss (`MASK_CASES`: the cotangent of ``MASK_WEIGHT *
+mean((alpha - target)^2)`` with alpha and the target from two seeded pools,
+single pass), every instance (both structures, nearest and interp, float32
+and bf16). It prints the census of the mask loss's rays (a zero cotangent,
+an opaque ray, a zero coefficient) and counts the `MUFU.EX2` instructions
+of each K9a kernel in the shipped library's SASS (`cuobjdump`): the single
+pass's L is dead, so its kernels should issue none.
+
 Every design's gradient is held to the parent's (or, without one, to
 ``shipped`` at width 1) within ATOMIC_RTOL * max(1, max|reference|) (the
 atomics sum in another order), and the rows that receive a gradient must be
@@ -65,7 +93,9 @@ import ctypes
 import dataclasses
 import json
 import re
+import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -79,6 +109,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 import chip_smoke as cs  # noqa: E402
 import render_fwd_ab as fab  # noqa: E402
 import svox_t_tpu_torch as stt  # noqa: E402
+from svox_t_tpu_torch import _build  # noqa: E402
 from svox_t_tpu_torch.ops import render as render_ops  # noqa: E402
 from svox_t_tpu_torch.ops import render_aux as aux_ops  # noqa: E402
 from svox_t_tpu_torch.utils.scenes import build_shell_tree, orbit_camera, random_lobes  # noqa: E402
@@ -184,6 +215,50 @@ FAMILIES = (
 # (label, interp, pool type, fast) of K9a's cases.
 OPACITY_CASES = tuple((f"{'interp ' if i else ''}{k}{' fast' if f else ''}", i, k, f)
                       for i in (False, True) for k in ("f32", "bf16") for f in (False, True))
+# (label, interp, pool type) of K9a's mask-loss cases: exact, single pass.
+MASK_CASES = tuple((f"{'interp ' if i else ''}{k}", i, k) for i in (False, True) for k in ("f32", "bf16"))
+# K9a's designs: libraries with K3's entry stripped, the designs file in
+# place of the K9a section where a design sets a lever.
+K3_SWITCH = """  switch (format) {
+    case svox::kRGBA: return launch<S, svox::kRGBA, 0>(p, stream);
+    case svox::kSH: return launch_basis<S, svox::kSH>(p, stream);
+    case svox::kSG: return launch_basis<S, svox::kSG>(p, stream);
+    case svox::kASG: return launch_basis<S, svox::kASG>(p, stream);
+    default: return cudaErrorInvalidValue;
+  }
+"""
+STRIP_K3 = (K3_SWITCH, "  (void)p;\n  return cudaErrorInvalidValue;\n")
+# The header's K9a section, which the designs replace by
+# tools/opacity_designs.cuh (every lever, the shipped kernel's by default).
+OPACITY_DESIGNS_FILE = Path(__file__).resolve().parent / "opacity_designs.cuh"
+K9A_SECTION = re.compile(r"// -{69}\n// K9a: the opacity VJP.*?(?=// Basis instances hold)", re.S)
+OP_REUSE = re.compile(r"constexpr int kOpReuse = [^;]*;\n")
+OP_LOOP = re.compile(r"constexpr int kOpLoop = [^;]*;\n")
+OP_SKIP = re.compile(r"constexpr bool kOpSkip = [^;]*;\n")
+REUSE_LEVERS = "!svox::kInterp ? 0 : (S::kBaked ? 1 : 2)"
+LOOP_LEVERS = "S::kBaked && svox::kFloatPool ? 2 : 0"
+
+
+def op_levers(reuse: str, loop: str, skip: str) -> tuple:
+    """The patches that strip K3, put the designs file in place of the K9a
+    section and set its three levers."""
+    section = "// " + "-" * 69 + "\n// K9a: the opacity VJP, the designs file\n" + OPACITY_DESIGNS_FILE.read_text() + "\n"
+    return (STRIP_K3, (K9A_SECTION, lambda _: section), (OP_REUSE, f"constexpr int kOpReuse = {reuse};\n"),
+            (OP_LOOP, f"constexpr int kOpLoop = {loop};\n"), (OP_SKIP, f"constexpr bool kOpSkip = {skip};\n"))
+
+
+OPACITY_DESIGNS = {
+    "shipped": ((STRIP_K3,), BWD_UNITS),
+    "none": (op_levers("0", "0", "false"), BWD_UNITS),
+    "reuse": (op_levers(REUSE_LEVERS, "0", "false"), BWD_UNITS),
+    "reuse1": (op_levers("svox::kInterp ? 1 : 0", "0", "false"), BWD_UNITS),
+    "loop1": (op_levers("0", "1", "false"), BWD_UNITS),
+    "loop2": (op_levers("0", "2", "false"), BWD_UNITS),
+    "skip": (op_levers(REUSE_LEVERS, LOOP_LEVERS, "true"), BWD_UNITS),
+}
+# K9a's kernels: structure and mode (none before the kernel a mode).
+OPACITY_KERNEL = re.compile(r"opacity_bwd_kernelIN4svox\d+(TreeWalk|Baked)E(?:Lb([01])E)?")
+MASK_WEIGHT = 0.1  # chip_smoke.py's weight of the mask loss
 FMT_NAME = {FORMAT_SH: "SH", FORMAT_SG: "SG", FORMAT_ASG: "ASG"}
 # K3's kernel instances: structure, format, basis capacity, rotation, width
 # (none before the redesign).
@@ -208,6 +283,15 @@ def report(name: str, rows: list) -> None:
     print(f"ptxas {name}: {len(k3)} K3 kernels, {sum(s for *_, s, _ in k3)} bytes spilled in all")
     print(f"  SH9 and RGBA: {'; '.join(main)}")
     print(f"  spilling ({len(spills)}): {'; '.join(spills) if spills else 'none'}")
+
+
+def report_opacity(name: str, rows: list) -> None:
+    """Print a library's K9a kernels: registers and spills of each."""
+    k9a = [(unit, r, sp, m) for unit, e, r, sp in rows for m in [OPACITY_KERNEL.search(e)] if m]
+    mode = {"0": "single pass", "1": "two passes", None: "both modes"}
+    print(f"ptxas {name}: " + "; ".join(
+        f"{u} {mode[m.group(2)]} {r} regs ({cs.blocks_per_sm(r)} blocks/SM"
+        f"{f', {sp} B spilled' if sp else ''})" for u, r, sp, m in k9a))
 
 
 def load_entries(libs: dict, parent_has_width: bool) -> dict:
@@ -269,7 +353,50 @@ def scenes(dev) -> dict:
     for label, interp, kind, fast in OPACITY_CASES:
         out["opacity " + label] = {k: (s, fab.as_pool(kind, feats), o, d, rend[interp]._get_options(fast))
                                    for k, s in base.items()}
-    return out
+    targets = {}
+    rng = np.random.RandomState(5)
+    true_pool, pool0 = (cs.seeded_pool(rng, M, 28, dev) for _ in range(2))
+    for label, interp, kind in MASK_CASES:
+        out["opacity mask " + label] = {k: (s, fab.as_pool(kind, pool0), o, d, rend[interp]._get_options(False))
+                                        for k, s in base.items()}
+        targets["opacity mask " + label] = fab.as_pool(kind, true_pool)
+    return out, targets
+
+
+def opacity_sources(workdir: Path, parent: Path | None, designs: dict) -> dict:
+    """K9a's libraries: each design's header patched (`OPACITY_DESIGNS`),
+    and the parent's with its K3 entry stripped alike."""
+    sources, alias = fab.design_sources(workdir, None, designs, BWD_UNITS, "render_bwd.cuh")
+    if parent is not None:
+        d = workdir / "parent"
+        shutil.copytree(parent / "svox_t_tpu_torch" / "csrc", d)
+        text = (d / "render_bwd.cuh").read_text()
+        if text.count(K3_SWITCH) != 1:
+            raise RuntimeError("the parent's render_bwd.cuh: K3's switch not found")
+        (d / "render_bwd.cuh").write_text(text.replace(*STRIP_K3))
+        sources["parent"] = (d, BWD_UNITS)
+    return sources, alias
+
+
+def ex2_census(lib: Path) -> None:
+    """The MUFU.EX2 instructions of each K9a kernel in a library's SASS."""
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True)
+    if proc.returncode:
+        print(f"cuobjdump failed: {proc.stderr[:400]}")
+        return
+    counts, name = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            m = OPACITY_KERNEL.search(line)
+            name = f"{m.group(1)} {'two passes' if m.group(2) == '1' else 'single pass'}" if m and m.group(2) else None
+            if name:
+                counts[name] = counts.get(name, [])
+                counts[name].append(0)
+        elif name and "MUFU.EX2" in line:
+            counts[name][-1] += 1
+    print("K9a MUFU.EX2 in SASS (a kernel a compile unit: tree, bake x nearest, interp x f32, bf16): "
+          + "; ".join(f"{k} {v}" for k, v in counts.items()))
 
 
 def kind_of(pool) -> str:
@@ -283,33 +410,57 @@ def main() -> None:
     ap.add_argument("--designs", default=None, help="a comma-separated subset of the designs")
     ap.add_argument("--families", action="store_true",
                     help="also time the width-1 families and K9a against the parent")
+    ap.add_argument("--opacity", action="store_true", help="time K9a's designs instead of K3's")
+    ap.add_argument("--rounds", type=int, default=ROUNDS, help=f"rounds in turns (default {ROUNDS})")
     args = ap.parse_args()
+    rounds = args.rounds
     if not torch.cuda.is_available():
         raise SystemExit("render_bwd_ab.py needs a CUDA GPU")
-    chosen = args.designs.split(",") if args.designs else list(DESIGNS)
-    unknown = set(chosen) - set(DESIGNS)
+    table = OPACITY_DESIGNS if args.opacity else DESIGNS
+    chosen = args.designs.split(",") if args.designs else list(table)
+    unknown = set(chosen) - set(table)
     if unknown:
-        raise SystemExit(f"unknown designs {sorted(unknown)}; known: {sorted(DESIGNS)}")
-    designs = {k: v for k, v in DESIGNS.items() if k in chosen or k == "shipped"}
+        raise SystemExit(f"unknown designs {sorted(unknown)}; known: {sorted(table)}")
+    designs = {k: v for k, v in table.items() if k in chosen or k == "shipped"}
     parent_has_width = args.parent is not None and "float* grad, int width, int device" in (
         args.parent / "svox_t_tpu_torch" / "csrc" / "render_bwd.cuh").read_text()
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        sources, alias = fab.design_sources(Path(tmp), args.parent, designs, BWD_UNITS, "render_bwd.cuh")
-        libs = fab.compile_libraries(Path(tmp), sources, report)
+        if args.opacity:
+            sources, alias = opacity_sources(Path(tmp), args.parent, designs)
+        else:
+            sources, alias = fab.design_sources(Path(tmp), args.parent, designs, BWD_UNITS, "render_bwd.cuh")
+        libs = fab.compile_libraries(Path(tmp), sources, report_opacity if args.opacity else report)
         libs.update({a: libs[t] for a, t in alias.items()})
         fns = load_entries(libs, parent_has_width)
         print(f"builds: {time.perf_counter() - t0:.1f} s")
+        if args.opacity:
+            ex2_census(libs["shipped"])
         stream = torch.cuda.current_stream(dev).cuda_stream
         t0 = time.perf_counter()
-        cases = scenes(dev)
+        cases, targets = scenes(dev)
+        if args.opacity:
+            cases = {k: v for k, v in cases.items() if k.startswith("opacity")}
         rng = np.random.RandomState(17)
         grads_out, outs = {}, {}
         for label in cases:
             spec, pool, o, d, opt = cases[label]["baked"]
             n = 1 if label.startswith("opacity") else 4
+            if label in targets:
+                # The mask loss's cotangent: its alpha from this pool, the
+                # target's from the other.
+                with torch.no_grad():
+                    a = render_ops.volume_render_plain(spec, pool, o, d, d, opt)[:, -1:].contiguous()
+                    tgt = render_ops.volume_render_plain(spec, targets[label], o, d, d, opt)[:, -1:]
+                grads_out[label] = ((2.0 * MASK_WEIGHT / o.shape[0]) * (a - tgt)).contiguous()
+                outs[label] = a
+                g, coef = grads_out[label], grads_out[label] * (1.0 - a)
+                print(f"K9a census ({label}, the mask loss, {o.shape[0]} rays): zero cotangent "
+                      f"{int((g == 0).sum())}, opaque (alpha 1) {int((a == 1).sum())}, zero coefficient "
+                      f"{int((coef == 0).sum())}, alpha > 0 {int((a > 0).sum())}")
+                continue
             grads_out[label] = torch.from_numpy(rng.randn(o.shape[0], n).astype(np.float32)).to(dev)
             single = opt.sigma_thresh == 0.0 and opt.stop_thresh <= 0.0
             if single:
@@ -382,7 +533,7 @@ def main() -> None:
                 launches = [call(label, structure, lib, width, g) for _, lib, width in rs]
                 for run, _, _ in rs:
                     times[run, key] = []
-                for i in range(ROUNDS):
+                for i in range(rounds):
                     order = list(zip(rs, launches))
                     for (run, _, _), launch in (order if i % 2 == 0 else order[::-1]):
                         times[run, key].append(cs.time_ms(launch, REPS))
@@ -395,7 +546,7 @@ def main() -> None:
         res = {}
 
         def show(title, runs, times):
-            print(f"{title}, {ROUNDS} rounds in turns; gradients within ATOMIC_RTOL of the first run's and the "
+            print(f"{title}, {rounds} rounds in turns; gradients within ATOMIC_RTOL of the first run's and the "
                   f"same rows; CUDA events over {REPS} calls (zero the gradient, launch) [{card}]")
             for key, rs in runs.items():
                 base = statistics.median(times[rs[0][0], key])
@@ -407,6 +558,12 @@ def main() -> None:
                           f"({base / med:.3f}x {rs[0][0]}), rounds {[round(x, 4) for x in v]}")
 
         first = (("parent", "parent", None),) if args.parent is not None else ()
+        if args.opacity:
+            runs = {(label, st_): first + tuple((name, name, None) for name in designs)
+                    for label in cases for st_ in ("baked", "tree")}
+            show("K9a designs", runs, in_turns(runs))
+            print(json.dumps(res))
+            return
         runs = {}
         for label, interp, kind, _rot, fast, _shape in CASES:
             for st_ in ("baked", "tree"):
