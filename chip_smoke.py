@@ -431,16 +431,23 @@ def mf_width_check(spec, jf, pool, origins, dirs, opt, out, want, g_m, want_g, w
     return err, atomic_err(b_1, want_g, f"mf_bwd{what} width 1")
 
 
+PROFILER_ATTEMPTS = 6
+
+
 def profiled_kernels(run, enough, what: str) -> list:
     """The device kernels (fills aside, in start order) of one
     `torch.profiler` session around ``run()``. A session at times comes
     back without some of its calls' device events (seen in phases 3h and
-    4n on an H100): one whose kernels fail ``enough`` is run again, at most
-    twice, and each retry is printed with ``what``."""
+    4n on an H100, and once with no device event in three sessions in a
+    row): one whose kernels fail ``enough`` is run again, after a pause of
+    half a second a retry, at most PROFILER_ATTEMPTS - 1 times, and each
+    retry is printed with ``what``."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for attempt in range(3):
+    for attempt in range(PROFILER_ATTEMPTS):
         if attempt:
-            print(f"profiler retry: {what}: {len(events)} device kernels recorded; attempt {attempt + 1} of 3")
+            print(f"profiler retry: {what}: {len(events)} device kernels recorded; attempt {attempt + 1} of "
+                  f"{PROFILER_ATTEMPTS}")
+            time.sleep(0.5 * attempt)
         with torch.profiler.profile(activities=acts) as prof:
             run()
             torch.cuda.synchronize()
@@ -576,6 +583,7 @@ COUNTERS = {
     "bake_refresh": bake_ops.REFRESH,
     "grow_boxes": bake_ops.GROW_BOXES,
     "points_aabb": query_ops.POINTS_AABB,
+    "construct_tree_aabb": query_ops.CONSTRUCT_TREE_AABB,
     "assign": query_ops.ASSIGN,
     "unique_leaf": query_ops.UNIQUE_LEAF,
     "calc_corners": query_ops.CALC_CORNERS,
@@ -665,6 +673,11 @@ N_SUSTAIN = 4
 INT8_ERR_RAYS = 8192
 
 
+# Kernels that no main path launches, with the reason: each is held to its
+# plain version and timed all the same.
+OFF_PATH = {"points_aabb": "every re-point that keeps a box takes the fused construct_tree_aabb; "
+                           "points_leaf_aabb's own kernel serves direct callers"}
+
 # The kernel-name suffix and the label of each backend in the output.
 SUFFIX = {"baked": "_baked", "tree": ""}
 LABEL = {"baked": "baked, the default", "tree": "tree walk"}
@@ -676,14 +689,18 @@ def nonzero(counts: dict) -> dict:
 
 def check_bake_counts(counts: dict, backend: str, n: int) -> None:
     """On the baked backend every re-point refreshes the bake with the
-    points' leaf box (n times); the tree walk launches no baked kernel."""
+    points' leaf box (n times), the box from the fused re-point
+    (construct_tree_aabb), never from a points_leaf_aabb call of its own;
+    the tree walk launches no baked kernel and keeps no box."""
     if backend == "baked":
-        check(counts["points_aabb"] == n and counts["bake_refresh"] == n,
+        check(counts["construct_tree_aabb"] == n and counts["bake_refresh"] == n and counts["points_aabb"] == 0,
               f"the bake refreshed {counts['bake_refresh']} times and its box grown "
-              f"{counts['points_aabb']} times, not {n}")
+              f"{counts['construct_tree_aabb']} times by the fused re-point ({counts['points_aabb']} "
+              f"points_leaf_aabb calls), not {n}")
     else:
         check(not any(v for k, v in counts.items()
-                      if "_baked" in k or k in ("bake_refresh", "points_aabb", "bake_lookup")),
+                      if "_baked" in k or k in ("bake_refresh", "points_aabb", "bake_lookup",
+                                                "construct_tree_aabb")),
               "the tree backend launched a baked kernel")
 
 
@@ -704,7 +721,9 @@ def read_counts() -> dict:
     (``march_width_<w>``), K3's, nearest and interp
     (``march_bwd_width_<w>``), and K9c's and K9d's (``mf_fwd_width_<w>``,
     ``mf_bwd_width_<w>``), all entry points, structures and pool types; and
-    the query forward's by pool type and copy unit (``query_unit_f32_16``)."""
+    the query forward's by pool type and copy unit (``query_unit_f32_16``);
+    and ``repoint``, the re-points: construct_tree's launches, box-free or
+    fused with the points' leaf box (construct_tree_aabb)."""
     counts = {name: k.launches for name, k in COUNTERS.items()}
     counts.update({f"bwd_width_{w}": n for w, n in tape_ops.BWD_WIDTH_LAUNCHES.items()})
     counts.update({f"fwd_width_{w}": n for w, n in tape_ops.FWD_WIDTH_LAUNCHES.items()})
@@ -713,6 +732,7 @@ def read_counts() -> dict:
     counts.update({f"mf_fwd_width_{w}": n for w, n in aux_ops.MF_FWD_WIDTH_LAUNCHES.items()})
     counts.update({f"mf_bwd_width_{w}": n for w, n in aux_ops.MF_BWD_WIDTH_LAUNCHES.items()})
     counts.update({f"query_unit_{u.replace(' ', '_')}": n for u, n in query_ops.QUERY_FWD_UNIT_LAUNCHES.items()})
+    counts["repoint"] = counts["construct_tree"] + counts["construct_tree_aabb"]
     return counts
 
 
@@ -1268,7 +1288,9 @@ def query_fwd_work(Q: int, M: int, D: int, itemsize: int, q_levels: int) -> tupl
 def kernel_bounds(M: int, D: int, n_cells: int, Q: int, q_levels: int, e: dict) -> dict:
     """bound_ms and bound_by of the point kernels for Q points that
     descend q_levels levels in all (construct_tree, query and
-    points_leaf_aabb, which reads the child table and writes 24 bytes),
+    points_leaf_aabb, which reads the child table and writes 24 bytes,
+    and the two fused, construct_tree_aabb: construct_tree's bytes with the
+    union's 24 read and the box's 24 written, both's operations),
     and of the tree-editing kernels on the editing path's work ``e``:
     calc_corners of e["rows"] (Q, 4) rows (16 bytes in, 12 out) walking
     e["steps"] steps in all through the parent links of e["nodes"] nodes (8
@@ -1287,6 +1309,7 @@ def kernel_bounds(M: int, D: int, n_cells: int, Q: int, q_levels: int, e: dict) 
         "query_fwd_bf16": query_fwd_work(Q, M, D, 2, q_levels),
         "query_bwd_bf16": (Q * 4 + Q * D * 2 + M * D * 4, Q * D),
         "points_aabb": (Q * 12 + n_cells * 4 + 24, OPS_LEVEL * q_levels + 9 * Q),
+        "construct_tree_aabb": (Q * 12 + Q * 4 + 2 * n_cells * 4 + 48, OPS_LEVEL * q_levels + 9 * Q),
         "calc_corners": (e["rows"] * 28 + e["nodes"] * 8, 6 * e["steps"]),
         "assign": (e["points"] * (12 + 8) + 2 * M * D * 4, OPS_LEVEL * e["levels"]),
         "unique_leaf": (e["ids"] * 4 + e["ids"] * 16 + 4, 0),
@@ -2113,15 +2136,17 @@ def dynamic_tape_path(backend: str, state: dict, feats, rig, c2w, dev) -> dict:
     want = {"tape_replay_fwd": 3 * n_fr + 1, "tape_replay_fwd_bf16": 0, "tape_replay_fwd_frames": 1,
             "tape_replay_fwd_frames_bf16": 1, "tape_replay_fwd_frames_i8": 1, "tape_depth": 3 * n_fr,
             "tape_replay_bwd_frames": 1, "tape_replay_bwd_frames_bf16": 1, "tape_replay_bwd": 0,
-            "warp_fwd": 2 * n_fr + 3 * n_fr, "construct_tree": 2 * n_fr + 3 * n_fr,
+            "warp_fwd": 2 * n_fr + 3 * n_fr, "repoint": 2 * n_fr + 3 * n_fr,
             "tape_count" + sfx: 4, "tape_record" + sfx: 4, "render_fwd" + sfx: 0, "first_hit" + sfx: 0}
     for k, n in want.items():
         check(counts[k] == n, f"dynamic tape path ({backend}): {k} launched {counts[k]} times, not {n}")
     check_bwd_widths(counts, f"dynamic tape path ({backend})")
     check_fwd_widths(counts, f"dynamic tape path ({backend})")
     if backend == "baked":
-        check(counts["points_aabb"] == 2 * n_fr and counts["bake_refresh"] == 2,
-              "dynamic tape path: the union pre-pass did not refresh the bake once per record")
+        check(counts["construct_tree_aabb"] == 2 * n_fr and counts["points_aabb"] == 0
+              and counts["bake_refresh"] == 2,
+              "dynamic tape path: the union pre-pass did not refresh the bake once per record, its box "
+              "from the fused re-point")
     else:
         check_bake_counts(counts, backend, 0)
     with torch.no_grad():
@@ -2756,6 +2781,15 @@ def subset_kernel_phase(mb: dict, g: dict, kernels: dict, dev, card: str) -> dic
     return census
 
 
+def subset_gather_bytes(B: int, n: int, t: bool = False, cell: bool = False, rays: bool = False) -> int:
+    """Bytes K14a must move for B ids and n gathered samples: the ids, new
+    offsets and each chosen ray's two source offsets read; each sample's row
+    and step (and t, cell where copied) read and written, 4 bytes each way;
+    each ray's view direction and dscale read and written, its count
+    written (and its origin and direction read and written with ``rays``)."""
+    return B * 4 + (B + 1) * 4 + B * 8 + n * 8 * (2 + t + cell) + B * 16 + B * 20 + rays * B * 48
+
+
 def minibatch_bounds(c: dict) -> dict:
     """bound_ms and bound_by of K14 and K12 at phase 3h's timed shapes
     (``c``, its census). K14a as training gathers: the ids, new offsets and
@@ -2771,7 +2805,7 @@ def minibatch_bounds(c: dict) -> dict:
     B, n = c["B"], c["n_sub"]
     gc = c["grid"]
     return _bounds({
-        "subset_gather": (B * 4 + (B + 1) * 4 + B * 8 + n * 16 + B * 16 + B * 20, 0),
+        "subset_gather": (subset_gather_bytes(B, n), 0),
         "l2_cotangent": (B * c["C"] * 4 + B * c["W"] * 4 + B * 4 + B * c["C"] * 4, 5 * B * c["W"]),
         "sgd_update": (c["pool"] * 12, 2 * c["pool"]),
         "grid_weight": (gc["rays"] * 24 + gc["voxels"] * 4 + 2 * gc["reso"] ** 3 * 4,
@@ -3632,6 +3666,10 @@ def main() -> None:
                            replaces="svox_t_tpu/ops/bake.py:695"),
         "points_aabb": dict(route="cuda", source="svox_t_tpu_torch/csrc/query.cu",
                             replaces="svox_t_tpu/ops/query.py:142"),
+        # construct_tree (:130) and then points_leaf_aabb (:142) on the same
+        # points, in one descent.
+        "construct_tree_aabb": dict(route="cuda", source="svox_t_tpu_torch/csrc/construct_tree.cu",
+                                    replaces="svox_t_tpu/ops/query.py:142"),
         "assign": dict(route="cuda", source="svox_t_tpu_torch/csrc/edit.cu",
                        replaces="svox_t_tpu/ops/query.py:112"),
         "unique_leaf": dict(route="cuda", source="svox_t_tpu_torch/csrc/edit.cu",
@@ -4039,6 +4077,23 @@ def main() -> None:
     check(not torch.equal(ref_k.brick, baked.brick), "refresh changed no brick entry")
     kernels["bake_refresh"]["max_abs_err"] = 0.0
     kernels["points_aabb"]["max_abs_err"] = 0.0
+    # The fused re-point (K8a with K8b's box): its table and box equal to
+    # the plain version's and to the two calls above, with the bake's box as
+    # the union and without one.
+    t_fused = time.perf_counter()
+    union = (baked.aabb_lo, baked.aabb_hi)
+    fused = query_ops.construct_tree_aabb_cuda(spec, points, union=union)
+    fused_p, fused_plain_ms = timed_once_ms(lambda: query_ops.construct_tree_aabb_plain(spec, points, union))
+    check(all(torch.equal(a, b_) for a, b_ in zip(fused, fused_p)), "construct_tree_aabb: kernel and plain differ")
+    check(torch.equal(fused[0], new_flat) and torch.equal(fused[1], lo) and torch.equal(fused[2], hi),
+          "construct_tree_aabb: not construct_tree and points_leaf_aabb with the union")
+    fused0 = query_ops.construct_tree_aabb_cuda(spec, points)
+    check(torch.equal(fused0[0], new_flat) and torch.equal(fused0[1], box_k[0]) and torch.equal(fused0[2], box_k[1]),
+          "construct_tree_aabb: not construct_tree and points_leaf_aabb without a union")
+    kernels["construct_tree_aabb"]["max_abs_err"] = 0.0
+    print(f"construct_tree_aabb ({M} points): table and box equal to plain and to construct_tree + "
+          f"points_leaf_aabb, with the bake's box as the union and without (plain {fused_plain_ms:.1f} ms); "
+          f"{time.perf_counter() - t_fused:.2f} s")
     print(f"points_leaf_aabb ({M} points): {box_k[0].tolist()} - {box_k[1].tolist()}, equal to plain "
           f"(plain {aabb_plain_ms:.1f} ms); refresh ({ref_k.src_map.numel()} baked cells) equal to "
           f"plain (plain {refresh_plain_ms:.1f} ms)")
@@ -4373,7 +4428,7 @@ def main() -> None:
         counts = read_counts()
         print(f"main path, serving ({LABEL[backend]}): {N_FRAMES} frames, launches {nonzero(counts)}, "
               f"host ms per frame (construct + exact + fast) {[round(x * 1e3, 3) for x in frame_s]}")
-        check(counts["construct_tree"] == N_FRAMES, "construct_tree kernel not launched per frame")
+        check(counts["repoint"] == N_FRAMES, "construct_tree kernel not launched per frame")
         check(counts["render_fwd" + sfx] == 2 * N_FRAMES, "render kernel not launched per render")
         check_bake_counts(counts, backend, N_FRAMES)
         check_march_widths(counts, f"serving ({backend})")
@@ -4424,7 +4479,7 @@ def main() -> None:
               f"loss {[round(x, 8) for x in losses]}, image loss {[round(x, 8) for x in image_losses]}, "
               f"host ms per step {[round(x, 3) for x in step_ms[backend]]}")
         # construct_tree runs once more per call of train(): the target's pointing.
-        check(counts["construct_tree"] == steps + 1, "construct_tree not launched per step")
+        check(counts["repoint"] == steps + 1, "construct_tree not launched per step")
         check(counts["render_fwd" + sfx] == steps + 1, "render_fwd not launched per step")
         check(counts["render_bwd" + sfx] == steps, "render_bwd not launched once per step")
         check_march_bwd_widths(counts, f"training ({backend})")
@@ -4473,7 +4528,7 @@ def main() -> None:
         print(f"main path, aux serving ({LABEL[backend]}): {N_FRAMES} frames, launches "
               f"{nonzero(counts)}, host ms per frame (construct + render + opacity + depth + motion) "
               f"{[round(x * 1e3, 3) for x in aux_frame_s]}")
-        check(counts["construct_tree"] == N_FRAMES, "construct_tree not launched per frame")
+        check(counts["repoint"] == N_FRAMES, "construct_tree not launched per frame")
         check(counts["render_fwd" + sfx] == 2 * N_FRAMES, "render_fwd not launched by render + opacity")
         check(counts["first_hit" + sfx] == 2 * N_FRAMES, "first_hit not launched by depth + motion")
         check_bake_counts(counts, backend, N_FRAMES)
@@ -4521,7 +4576,7 @@ def main() -> None:
         print(f"main path, aux training ({LABEL[backend]}): {steps} steps, launches {nonzero(counts)}, "
               f"loss {[round(x, 8) for x in a_losses]}, host ms per step "
               f"{[round(x, 3) for x in a_step_ms]}")
-        want = {"construct_tree": steps + 1, "render_fwd" + sfx: 2 * (steps + 1),
+        want = {"repoint": steps + 1, "render_fwd" + sfx: 2 * (steps + 1),
                 "render_bwd" + sfx: steps, "opacity_bwd" + sfx: steps, "mf_fwd" + sfx: steps + 1,
                 "mf_bwd" + sfx: steps}
         for k, n in want.items():
@@ -4567,11 +4622,11 @@ def main() -> None:
                 dyn_counts.append(counts)
                 print(f"main path, dynamic serving ({LABEL[backend]}, {'fast' if fast else 'exact'}): "
                       f"{N_FRAMES} frames, launches {nonzero(counts)}")
-                for k in ("warp_fwd", "construct_tree", "render_fwd" + sfx, "first_hit" + sfx):
+                for k in ("warp_fwd", "repoint", "render_fwd" + sfx, "first_hit" + sfx):
                     check(counts[k] == N_FRAMES, f"dynamic serving: {k} launched {counts[k]} times")
                 check_march_widths(counts, f"dynamic serving ({backend})")
                 if backend == "baked":  # the exact call adopts its last table: one more refresh
-                    check(counts["points_aabb"] == N_FRAMES
+                    check(counts["construct_tree_aabb"] == N_FRAMES and counts["points_aabb"] == 0
                           and counts["bake_refresh"] == N_FRAMES + (0 if fast else 1),
                           "dynamic serving: the bake not refreshed per frame")
                 check(tuple(cols.shape) == (N_FRAMES, HEIGHT, WIDTH, 4)
@@ -4680,7 +4735,7 @@ def main() -> None:
               f"frames, launches {nonzero(counts)}, loss {[round(x, 8) for x in dyn_losses]}, host ms "
               f"per step {[round(x, 3) for x in dyn_step_ms[backend]]}")
         n_fr = steps * DYN_TRAIN_FRAMES
-        for k in ("warp_fwd", "construct_tree", "render_fwd" + sfx, "render_bwd" + sfx):
+        for k in ("warp_fwd", "repoint", "render_fwd" + sfx, "render_bwd" + sfx):
             check(counts[k] == n_fr, f"dynamic training: {k} launched {counts[k]} times")
         check_bake_counts(counts, backend, n_fr)
         check(dyn_losses[-1] < dyn_losses[0], "the dynamic training loss did not fall")
@@ -5010,7 +5065,10 @@ def main() -> None:
               grid_res["counts"], *plan_counts.values())
     for k in kernels:
         kernels[k]["launches"] = sum(c[k] for c in phases)
-        check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
+        if k in OFF_PATH:
+            check(kernels[k]["launches"] == 0, f"{k} launched on the main path: {OFF_PATH[k]}")
+        else:
+            check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
 
     # 5. Times (CUDA events, after one warm-up), on the serving trees as
     # the last frame left them: the tree walk's kernels on the tree's
@@ -5033,6 +5091,31 @@ def main() -> None:
         print(f"time construct_tree ({M} points): kernel {ct_ms:.4f} ms a call (CUDA events over {KERNEL_REPS} "
               f"back-to-back wrapper calls), device {ct_dev[True]:.4f} ms (its kernels alone, L2 cold; warm "
               f"{ct_dev[False]:.4f}), plain {ct_plain_ms:.4f} ms [{card}]")
+        # The fused re-point against the two calls it replaces, in turns,
+        # with the bake's box as the union (prev_ms: the two calls).
+        t_fused = time.perf_counter()
+        union = (spec_bt.aabb_lo, spec_bt.aabb_hi)
+
+        def fused_call():
+            return query_ops.construct_tree_aabb_cuda(spec_t, pts, union=union)
+
+        def two_calls():
+            return (query_ops.construct_tree_cuda(spec_t, pts),
+                    query_ops.points_leaf_aabb_cuda(spec_t, pts, union=union))
+
+        ctb_ms, two_ms = in_turns(fused_call, two_calls, lambda fn: time_ms(fn, KERNEL_REPS))
+        ctb_plain_ms = time_ms(lambda: query_ops.construct_tree_aabb_plain(spec_t, pts, union), 3)
+        ctb_dev = {cold: device_ms(fused_call, KERNEL_REPS, ("scatter_box_kernel", "merge_box_kernel"), cold=cold)
+                   for cold in (True, False)}
+        two_dev = {cold: device_ms(two_calls, KERNEL_REPS, ("scatter_kernel", "merge_kernel", "points_aabb"),
+                                   cold=cold) for cold in (True, False)}
+        kernels["construct_tree_aabb"].update(ms=ctb_ms, plain_ms=ctb_plain_ms, device_ms=ctb_dev[True],
+                                              prev_ms=two_ms)
+        print(f"time construct_tree_aabb ({M} points, a union): kernel {ctb_ms:.4f} ms a call (CUDA events over "
+              f"{KERNEL_REPS} back-to-back wrapper calls), construct_tree + points_leaf_aabb {two_ms:.4f} ms in turns "
+              f"({two_ms / ctb_ms:.3f}x); device {ctb_dev[True]:.4f} ms (its kernels alone, L2 cold; warm "
+              f"{ctb_dev[False]:.4f}), the two calls' kernels {two_dev[True]:.4f} (warm {two_dev[False]:.4f}); "
+              f"plain {ctb_plain_ms:.4f} ms; {time.perf_counter() - t_fused:.2f} s [{card}]")
         def k2_turns(spec_, pool_, o_, d_, opt_):
             """(width 4 ms, width 1 ms) of K2 in turns (`in_turns`)."""
             return in_turns(lambda: render_ops.volume_render_cuda(spec_, pool_, o_, d_, d_, opt_),
@@ -5585,7 +5668,8 @@ def main() -> None:
     # prev_ms: the width-1 instance's time in this run, in turns (K13c and
     # its frame axis: the scalar row; K13d and K13e, K2, K2+K4, K3 and K3+K4
     # and their pool instances: the earlier design; K9c and K9d: the scalar
-    # instance, the earlier kernel's reads), else null.
+    # instance, the earlier kernel's reads; construct_tree_aabb: the two
+    # calls it replaces, construct_tree and points_leaf_aabb), else null.
     # registers: ptxas's count for the width-4 plain SH9 instance of K3 and
     # K3+K4 (no rotation) and for the Kd-16 instance of K9c and K9d, else
     # null.

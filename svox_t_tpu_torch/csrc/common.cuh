@@ -107,6 +107,25 @@ __device__ __forceinline__ Leaf descend_cell(const int32_t* __restrict__ child,
   return Leaf{leaf, cube, x, y, z};
 }
 
+// Float atomic min and max through the ordered-int trick: a non-negative
+// float orders as a signed int, a negative one in reverse as an unsigned
+// int. Exact, so a box folded with them equals a plain min / max.
+__device__ __forceinline__ void atomic_min_float(float* a, float v) {
+  if (v >= 0.f) {
+    atomicMin(reinterpret_cast<int*>(a), __float_as_int(v));
+  } else {
+    atomicMax(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
+  }
+}
+
+__device__ __forceinline__ void atomic_max_float(float* a, float v) {
+  if (v >= 0.f) {
+    atomicMax(reinterpret_cast<int*>(a), __float_as_int(v));
+  } else {
+    atomicMin(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
+  }
+}
+
 // descend_cell without the cell, whose sums the compiler drops.
 __device__ __forceinline__ Leaf descend(const int32_t* __restrict__ child,
                                         int N, int n_levels,

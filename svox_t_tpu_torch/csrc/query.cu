@@ -39,22 +39,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__device__ __forceinline__ void atomic_min_float(float* a, float v) {
-  if (v >= 0.f) {
-    atomicMin(reinterpret_cast<int*>(a), __float_as_int(v));
-  } else {
-    atomicMax(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
-  }
-}
-
-__device__ __forceinline__ void atomic_max_float(float* a, float v) {
-  if (v >= 0.f) {
-    atomicMax(reinterpret_cast<int*>(a), __float_as_int(v));
-  } else {
-    atomicMin(reinterpret_cast<unsigned int*>(a), __float_as_uint(v));
-  }
-}
-
 __global__ void points_aabb_kernel(const float* __restrict__ points, int Q, int world,
                                    const int32_t* __restrict__ child, int N, int n_levels,
                                    const float* __restrict__ offset,
@@ -102,9 +86,9 @@ __global__ void points_aabb_kernel(const float* __restrict__ points, int Q, int 
       v = a < 3 ? fminf(v, part[w][a]) : fmaxf(v, part[w][a]);
     }
     if (a < 3) {
-      if (v < inf) atomic_min_float(lohi + a, v);
+      if (v < inf) svox::atomic_min_float(lohi + a, v);
     } else if (v > -inf) {
-      atomic_max_float(lohi + a, v);
+      svox::atomic_max_float(lohi + a, v);
     }
   }
 }

@@ -15,10 +15,18 @@
 //
 // Bound on an H100: bytes, all three. K14a reads and writes each chosen
 // run once (4 bytes a sample per stream: row, step, [t], [cell]) and 32 to
-// 56 bytes a ray. One warp copies one run: the lanes read and write
-// neighbouring entries, so a run moves in coalesced 128-byte lines, and a
-// ray's constants ride on the first lanes. Short runs leave lanes idle,
-// which a copy can afford. K14b reads a replay row and a target row per
+// 56 bytes a ray; it is bound by its chain of dependent loads (ids, then
+// the source offsets, then the run). A warp takes 32 rays, a lane a ray: it
+// loads its id, its run's start and length and its new offset (the ids and
+// new offsets coalesced), writes its ray's constants, and then the warp
+// copies the warp's contiguous span of the new streams, a lane an entry,
+// each entry finding its ray by a 5-step search over the lanes' new
+// offsets through shuffles (no memory access): stores are coalesced, loads
+// contiguous within a run, and the minibatch step's 65,536 ids are one wave
+// of warps that pays the chain once. The optional streams ([t], [cell], the
+// rays) are template parameters: as per-sample tests they cost up to
+// 1.43x (a tie at 262,144 ids), and a thread a ray lost 1.27-2.29x
+// (tools/subset_gather_designs.cuh, PERF.md §6). K14b reads a replay row and a target row per
 // ray and writes the cotangent row: a thread per ray, and the loss from
 // per-block partial sums in a fixed order, summed by a second one-block
 // pass, so the loss is deterministic and stays on the card. K14c reads the
@@ -37,47 +45,118 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
-// K14a: warp w of the grid copies ray i = ids[w]'s run of the source
-// streams to entries dst_offsets[w] .. dst_offsets[w + 1] of the new ones,
-// and its per-ray constants to row w. A null stream pointer skips it.
-__global__ void __launch_bounds__(kThreads) gather_kernel(
-    const int32_t* __restrict__ src_offsets, const int32_t* __restrict__ ids,
-    const int32_t* __restrict__ dst_offsets, int B,
-    const int32_t* __restrict__ idx_src, int32_t* __restrict__ idx_dst,
-    const float* __restrict__ dt_src, float* __restrict__ dt_dst,
-    const float* __restrict__ t_src, float* __restrict__ t_dst,
-    const int32_t* __restrict__ cell_src, int32_t* __restrict__ cell_dst,
-    const float* __restrict__ vdirs_src, float* __restrict__ vdirs_dst,
-    const float* __restrict__ ds_src, float* __restrict__ ds_dst,
-    int32_t* __restrict__ counts_dst,
-    const float* __restrict__ o_src, float* __restrict__ o_dst,
-    const float* __restrict__ d_src, float* __restrict__ d_dst) {
-  const int w = blockIdx.x * kWarps + threadIdx.x / 32;
+// K14a's pointers: the source tape's offsets, the chosen ids and the new
+// offsets (B + 1), then each stream's source and destination; a stream
+// that is not copied has null pointers (and its template flag off).
+struct GatherArgs {
+  const int32_t* src_offsets;
+  const int32_t* ids;
+  const int32_t* dst_offsets;
+  int B;
+  const int32_t* idx_src;
+  int32_t* idx_dst;
+  const float* dt_src;
+  float* dt_dst;
+  const float* t_src;
+  float* t_dst;
+  const int32_t* cell_src;
+  int32_t* cell_dst;
+  const float* vdirs_src;
+  float* vdirs_dst;
+  const float* ds_src;
+  float* ds_dst;
+  int32_t* counts_dst;
+  const float* o_src;
+  float* o_dst;
+  const float* d_src;
+  float* d_dst;
+};
+
+// 128-thread blocks: at B = 65,536 the grid's 2,048 warps are 512 blocks,
+// one wave spread over every SM.
+constexpr int kGatherThreads = 128;
+constexpr int kGatherWarps = kGatherThreads / 32;
+
+// K14a: warp w takes rays 32 w .. 32 w + 31 (lane l ray r = 32 w + l, id
+// ids[r]); their runs fill entries dst_offsets[32 w] .. dst_offsets[32 w +
+// n_own] of the new streams, which the warp copies a lane an entry. kT,
+// kCell: copy the t and cell streams; kRays: the origins and dirs.
+template <bool kT, bool kCell, bool kRays>
+__global__ void __launch_bounds__(kGatherThreads) gather_kernel(const GatherArgs a) {
   const int lane = threadIdx.x % 32;
-  if (w >= B) return;
-  const int32_t i = __ldg(ids + w);
-  const int32_t s0 = __ldg(src_offsets + i);
-  const int32_t n = __ldg(src_offsets + i + 1) - s0;
-  const int32_t d0 = __ldg(dst_offsets + w);
-  for (int32_t k = lane; k < n; k += 32) {
-    idx_dst[d0 + k] = __ldg(idx_src + s0 + k);
-    dt_dst[d0 + k] = __ldg(dt_src + s0 + k);
-    if (t_dst != nullptr) t_dst[d0 + k] = __ldg(t_src + s0 + k);
-    if (cell_dst != nullptr) cell_dst[d0 + k] = __ldg(cell_src + s0 + k);
+  const int r0 = (blockIdx.x * kGatherWarps + threadIdx.x / 32) * 32;
+  if (r0 >= a.B) return;  // the whole warp
+  const int n_own = min(32, a.B - r0);
+  const int r = r0 + lane;
+  // Lanes past B hold d0 = INT_MAX, so no entry's search stops on them.
+  int32_t i = 0, s0 = 0, n = 0, d0 = 0x7fffffff;
+  if (lane < n_own) {
+    i = __ldg(a.ids + r);
+    d0 = __ldg(a.dst_offsets + r);
+    s0 = __ldg(a.src_offsets + i);
+    n = __ldg(a.src_offsets + i + 1) - s0;
   }
-  if (lane < 3) {
-    vdirs_dst[3 * w + lane] = __ldg(vdirs_src + 3 * i + lane);
-    if (o_dst != nullptr) {
-      o_dst[3 * w + lane] = __ldg(o_src + 3 * i + lane);
-      d_dst[3 * w + lane] = __ldg(d_src + 3 * i + lane);
+  const int32_t first = __shfl_sync(kFull, d0, 0);
+  const int32_t len = __ldg(a.dst_offsets + r0 + n_own) - first;
+  // The ray's constants, from the lane that owns it.
+  if (lane < n_own) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      a.vdirs_dst[3 * r + c] = __ldg(a.vdirs_src + 3 * i + c);
+      if constexpr (kRays) {
+        a.o_dst[3 * r + c] = __ldg(a.o_src + 3 * i + c);
+        a.d_dst[3 * r + c] = __ldg(a.d_src + 3 * i + c);
+      }
     }
-  } else if (lane == 3) {
-    ds_dst[w] = __ldg(ds_src + i);
-  } else if (lane == 4) {
-    counts_dst[w] = n;
+    a.ds_dst[r] = __ldg(a.ds_src + i);
+    a.counts_dst[r] = n;
   }
+  for (int32_t q = 0; q < len; q += 32) {
+    const int32_t p = first + q + lane;
+    // Entry p's ray: the last lane k with d0[k] <= p (a zero-count ray
+    // shares its d0 with the next, which the search prefers).
+    int k = 0;
+    int32_t dk = first;
+#pragma unroll
+    for (int step = 16; step > 0; step /= 2) {
+      const int32_t dc = __shfl_sync(kFull, d0, k + step);
+      if (dc <= p) {
+        k += step;
+        dk = dc;
+      }
+    }
+    const int32_t src = __shfl_sync(kFull, s0, k) + (p - dk);
+    if (q + lane < len) {
+      a.idx_dst[p] = __ldg(a.idx_src + src);
+      a.dt_dst[p] = __ldg(a.dt_src + src);
+      if constexpr (kT) a.t_dst[p] = __ldg(a.t_src + src);
+      if constexpr (kCell) a.cell_dst[p] = __ldg(a.cell_src + src);
+    }
+  }
+}
+
+template <bool kT, bool kCell, bool kRays>
+cudaError_t launch_gather(const GatherArgs& a, cudaStream_t stream) {
+  const int warps = (a.B + 31) / 32;
+  const int grid = (warps + kGatherWarps - 1) / kGatherWarps;
+  gather_kernel<kT, kCell, kRays><<<grid, kGatherThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kT, bool kCell>
+cudaError_t launch_gather(const GatherArgs& a, bool rays, cudaStream_t stream) {
+  return rays ? launch_gather<kT, kCell, true>(a, stream) : launch_gather<kT, kCell, false>(a, stream);
+}
+
+// The instance of the streams a call copies.
+cudaError_t launch_gather(const GatherArgs& a, cudaStream_t stream) {
+  const bool t = a.t_dst != nullptr, cell = a.cell_dst != nullptr, rays = a.o_dst != nullptr;
+  if (t) {
+    return cell ? launch_gather<true, true>(a, rays, stream) : launch_gather<true, false>(a, rays, stream);
+  }
+  return cell ? launch_gather<false, true>(a, rays, stream) : launch_gather<false, false>(a, rays, stream);
 }
 
 // Sum of v over the block, on thread 0 (a fixed order: warp shuffles, then
@@ -225,11 +304,10 @@ extern "C" int svox_subset_gather(const int32_t* src_offsets, const int32_t* ids
       (o_dst != nullptr && (o_src == nullptr || d_src == nullptr || d_dst == nullptr))) {
     return cudaErrorInvalidValue;
   }
-  const int grid = (B + kWarps - 1) / kWarps;
-  gather_kernel<<<grid, kThreads, 0, stream>>>(
-      src_offsets, ids, dst_offsets, B, idx_src, idx_dst, dt_src, dt_dst, t_src, t_dst, cell_src,
-      cell_dst, vdirs_src, vdirs_dst, ds_src, ds_dst, counts_dst, o_src, o_dst, d_src, d_dst);
-  return cudaGetLastError();
+  const GatherArgs a{src_offsets, ids,    dst_offsets, B,        idx_src,   idx_dst,   dt_src,
+                     dt_dst,      t_src,  t_dst,       cell_src, cell_dst,  vdirs_src, vdirs_dst,
+                     ds_src,      ds_dst, counts_dst,  o_src,    o_dst,     d_src,     d_dst};
+  return launch_gather(a, stream);
 }
 
 // K14b. out (B, C) f32 replay rows; targets (n_targets, ld_tgt) f32 with

@@ -466,7 +466,8 @@ class VolumeRenderer(nn.Module):
         table the previous frame left: stale pointers persist), on the
         baked backend refresh the bake from that table with the occupied
         box grown by the points' leaf box (`points_leaf_aabb`, the union
-        carried from frame to frame) and, in fast mode, regrow its skip
+        carried from frame to frame; `construct_tree_aabb` computes the
+        table and the box in one descent) and, in fast mode, regrow its skip
         boxes, and render this frame's pool, with the blended matrices as
         per-voxel view-direction rotations when ``viewdir_rotation``.
         Equal to the eager loop of those public calls. Differentiable with
@@ -541,9 +542,10 @@ class VolumeRenderer(nn.Module):
             with torch.no_grad():
                 tk = warp_ops.get_transformation_matrix(src_pose, tgt_poses[k])
                 warped, mats = warp_ops.warp_vertices(tk, points, sw, ji)
-                new_flat = query_ops.construct_tree(spec, warped)
                 if keep_box:
-                    lo, hi = query_ops.points_leaf_aabb(spec, warped, union=(lo, hi))
+                    new_flat, lo, hi = query_ops.construct_tree_aabb(spec, warped, union=(lo, hi))
+                else:
+                    new_flat = query_ops.construct_tree(spec, warped)
                 spec = spec.with_(data_flat=new_flat)
                 sp = spec
                 if baked is not None:
@@ -911,9 +913,10 @@ class VolumeRenderer(nn.Module):
             for tgt in tgt_poses:
                 tk = warp_ops.get_transformation_matrix(src_pose, tgt)
                 warped, _ = warp_ops.warp_vertices(tk, points, sw, ji)
-                new_flat = query_ops.construct_tree(spec, warped)
                 if baked is not None:
-                    lo, hi = query_ops.points_leaf_aabb(spec, warped, union=(lo, hi))
+                    new_flat, lo, hi = query_ops.construct_tree_aabb(spec, warped, union=(lo, hi))
+                else:
+                    new_flat = query_ops.construct_tree(spec, warped)
                 spec = spec.with_(data_flat=new_flat)
             if baked is not None:
                 spec = bake_ops.refresh(baked, spec.data_flat, lo, hi)
@@ -1072,9 +1075,10 @@ class VolumeRenderer(nn.Module):
             with torch.no_grad():
                 tk = warp_ops.get_transformation_matrix(src_pose, tgt_poses[k])
                 warped, mats = warp_ops.warp_vertices(tk, points, sw, ji)
-                new_flat = query_ops.construct_tree(spec, warped)
                 if keep_box:
-                    lo, hi = query_ops.points_leaf_aabb(spec, warped, union=(lo, hi))
+                    new_flat, lo, hi = query_ops.construct_tree_aabb(spec, warped, union=(lo, hi))
+                else:
+                    new_flat = query_ops.construct_tree(spec, warped)
                 spec = spec.with_(data_flat=new_flat)
                 table = tape_ops.pack_index_table(new_flat)
             sp = tree_spec.with_(transformation_matrices=mats) if viewdir_rotation else tree_spec

@@ -215,13 +215,14 @@ class N3Tree:
         until a host-side structure op needs it."""
         spec = self._spec()
         points = torch.as_tensor(indices, dtype=torch.float32, device=self.device)
-        new_data_flat = query_ops.construct_tree(spec, points)
         lo = hi = None
         baked = self._cached_baked
         if baked is not None:
             # Old cells keep their rows: the box grows by the points' leaves.
-            lo, hi = query_ops.points_leaf_aabb(spec, points,
-                                                union=(baked.aabb_lo, baked.aabb_hi))
+            new_data_flat, lo, hi = query_ops.construct_tree_aabb(
+                spec, points, union=(baked.aabb_lo, baked.aabb_hi))
+        else:
+            new_data_flat = query_ops.construct_tree(spec, points)
         self._adopt_data_flat(spec, new_data_flat, lo, hi)
 
     def _adopt_data_flat(self, spec: TreeSpec, new_data_flat: torch.Tensor, lo=None, hi=None):

@@ -12,8 +12,10 @@ CPU tensors its plain PyTorch version runs. The query forward copies each
 warp's rows in the unit `query_unit` picks (`QUERY_FWD_UNIT_LAUNCHES`
 counts its launches by unit). `points_leaf_aabb`
 (`POINTS_AABB`) bounds the leaves of a point cloud, to keep the baked
-render structure's cull box current. The tree-editing ops: `assign`
-(`ASSIGN`) writes values into the pool rows that points address and
+render structure's cull box current; `construct_tree_aabb`
+(`CONSTRUCT_TREE_AABB`) re-points the tree and bounds the points' leaves
+in one descent, as the re-points that keep a box take it. The
+tree-editing ops: `assign` (`ASSIGN`) writes values into the pool rows that points address and
 returns the new pool; `unique_leaf_nodes` (`UNIQUE_LEAF`) lists the
 distinct leaves of packed ids in ascending order, padded with -1;
 `calc_corners` (`CALC_CORNERS`) gives leaf cells' lower corners in tree
@@ -37,6 +39,18 @@ CONSTRUCT_TREE = Kernel(
      c_void_p, c_void_p, c_int, c_int, c_int,  # child, data, n_cells, N, n_levels
      c_void_p, c_void_p,                  # offset, scaling
      c_void_p, c_void_p, c_int, c_void_p],  # winner, out, device, stream
+)
+# construct_tree with the points' leaf box in the same descent
+# (`construct_tree_aabb`): construct_tree's arguments, then the box
+# scratch, the union's two corners (or null) and the (6,) result.
+CONSTRUCT_TREE_AABB = Kernel(
+    "svox_construct_tree_aabb",
+    [c_void_p, c_int,                     # points, Q
+     c_void_p, c_void_p, c_int, c_int, c_int,  # child, data, n_cells, N, n_levels
+     c_void_p, c_void_p,                  # offset, scaling
+     c_void_p, c_void_p,                  # winner, out
+     c_void_p, c_void_p, c_void_p, c_void_p,  # box scratch, union lo, union hi, lohi
+     c_int, c_void_p],                    # device, stream
 )
 _QUERY_FWD_ARGS = [c_void_p, c_int, c_int,                  # points, Q, world
                    c_void_p, c_void_p, c_int, c_int,        # child, data, N, n_levels
@@ -119,23 +133,27 @@ def construct_tree_plain(spec: TreeSpec, points: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# The construct_tree kernel's winner scratch, one a (device, stream):
-# (>= n_cells,) int32, all -1 between calls (the kernel's merge resets the
-# cells it took), grown to the largest table seen. A lock a scratch: a
-# ctypes call releases the GIL, and two host threads must not interleave
-# their launches on one stream's scratch. A call that fails drops its
-# scratch, and the next call starts from a fresh one.
+# The construct_tree kernels' scratch, one a (device, stream): the winner,
+# (>= n_cells,) int32, all -1 between calls (the kernels' merge resets the
+# cells it took), grown to the largest table seen; and the box of
+# `construct_tree_aabb`, (6,) float32, (+inf x 3, -inf x 3) between calls
+# (its merge takes and resets it). A lock a stream: a ctypes call releases
+# the GIL, and two host threads must not interleave their launches on one
+# stream's scratch. A call that fails drops its stream's scratch, and the
+# next call starts from a fresh one.
 _WINNERS = {}
+_BOXES = {}
 _WINNER_LOCKS = {}
 
 
-def construct_tree_cuda(spec: TreeSpec, points: torch.Tensor) -> torch.Tensor:
-    """Launch the construct_tree kernel (csrc/construct_tree.cu)."""
+def _construct_args(spec: TreeSpec, points: torch.Tensor, what: str):
+    """The checked tables of a construct_tree launch: (points made
+    contiguous, n_cells)."""
     _check_points(spec, points)
     child, data = spec.child_flat, spec.data_flat
     dev = points.device
     if not points.is_cuda or any(t.device != dev for t in (data, spec.offset, spec.scaling)):
-        raise ValueError("construct_tree_cuda needs points and tree on one CUDA device")
+        raise ValueError(f"{what} needs points and tree on one CUDA device")
     if (child.dtype != torch.int32 or data.dtype != torch.int32 or spec.offset.dtype != torch.float32
             or spec.scaling.dtype != torch.float32 or not (child.is_contiguous() and data.is_contiguous())):
         raise ValueError("child/data must be contiguous int32, offset/scaling float32")
@@ -143,25 +161,85 @@ def construct_tree_cuda(spec: TreeSpec, points: torch.Tensor) -> torch.Tensor:
     if child.numel() != n_cells:
         raise ValueError(f"child ({child.numel()}) and data ({n_cells}) tables differ in size")
     if points.shape[0] >= 2 ** 31 or n_cells >= 2 ** 31:
-        raise ValueError("construct_tree_cuda takes fewer than 2^31 points and cells")
-    points = points.contiguous()
-    out = torch.empty_like(data)
+        raise ValueError(f"{what} takes fewer than 2^31 points and cells")
+    return points.contiguous(), n_cells
+
+
+def _launch_construct(spec: TreeSpec, points: torch.Tensor, n_cells: int, box_args=None):
+    """Launch construct_tree's C entry on the current stream with its
+    scratch, or with ``box_args`` (the union's two corners and the (6,)
+    result) its box form; returns the new table."""
+    dev = points.device
+    out = torch.empty_like(spec.data_flat)
     stream = torch.cuda.current_stream(dev).cuda_stream
     key = (dev.index, stream)
     with _WINNER_LOCKS.get(key) or _WINNER_LOCKS.setdefault(key, threading.Lock()):
         winner = _WINNERS.get(key)
         if winner is None or winner.numel() < n_cells:
             winner = _WINNERS[key] = torch.full((n_cells,), -1, dtype=torch.int32, device=dev)
+        kernel, box = CONSTRUCT_TREE, ()
+        if box_args is not None:
+            if key not in _BOXES:
+                inf = float("inf")
+                _BOXES[key] = torch.tensor([inf] * 3 + [-inf] * 3, dtype=torch.float32, device=dev)
+            kernel, box = CONSTRUCT_TREE_AABB, (_BOXES[key].data_ptr(), *box_args)
         try:
-            CONSTRUCT_TREE(
-                points.data_ptr(), points.shape[0], child.data_ptr(), data.data_ptr(), n_cells,
-                spec.N, spec.n_levels, spec.offset.data_ptr(), spec.scaling.data_ptr(),
-                winner.data_ptr(), out.data_ptr(), dev.index, stream,
+            kernel(
+                points.data_ptr(), points.shape[0], spec.child_flat.data_ptr(), spec.data_flat.data_ptr(),
+                n_cells, spec.N, spec.n_levels, spec.offset.data_ptr(), spec.scaling.data_ptr(),
+                winner.data_ptr(), out.data_ptr(), *box, dev.index, stream,
             )
         except RuntimeError:
             _WINNERS.pop(key, None)
+            _BOXES.pop(key, None)
             raise
     return out
+
+
+def construct_tree_cuda(spec: TreeSpec, points: torch.Tensor) -> torch.Tensor:
+    """Launch the construct_tree kernel (csrc/construct_tree.cu)."""
+    points, n_cells = _construct_args(spec, points, "construct_tree_cuda")
+    return _launch_construct(spec, points, n_cells)
+
+
+def construct_tree_aabb(spec: TreeSpec, points: torch.Tensor, union=None):
+    """`construct_tree` and `points_leaf_aabb` (world-space points) in one:
+    the new flat table and the tree-space box (lo, hi) of the leaves that
+    hold the points, joined with ``union`` (the occupied box so far) when
+    given. On CUDA one descent a point computes both.
+
+    :return: (table (capacity * N^3,) int32, lo (3,), hi (3,) float32)
+    """
+    if points.is_cuda:
+        return construct_tree_aabb_cuda(spec, points, union)
+    return construct_tree_aabb_plain(spec, points, union)
+
+
+def construct_tree_aabb_plain(spec: TreeSpec, points: torch.Tensor, union=None):
+    """Plain PyTorch version of the fused kernel: `construct_tree_plain`,
+    then `points_leaf_aabb_plain` with the union."""
+    table = construct_tree_plain(spec, points)
+    lo, hi = points_leaf_aabb_plain(spec, points, True, union)
+    return table, lo, hi
+
+
+def construct_tree_aabb_cuda(spec: TreeSpec, points: torch.Tensor, union=None):
+    """Launch the fused kernels (csrc/construct_tree.cu
+    `svox_construct_tree_aabb`): construct_tree's scatter also forms each
+    point's leaf box and folds it into the stream's box scratch, which its
+    merge joins with ``union`` into the result (read on the card) and
+    resets."""
+    points, n_cells = _construct_args(spec, points, "construct_tree_aabb_cuda")
+    dev = points.device
+    if union is None:
+        corners = (None, None)
+    else:
+        corners = tuple(torch.as_tensor(b, dtype=torch.float32, device=dev).reshape(3).contiguous()
+                        for b in union)
+    lohi = torch.empty(6, dtype=torch.float32, device=dev)
+    ptrs = tuple(None if c is None else c.data_ptr() for c in corners)
+    table = _launch_construct(spec, points, n_cells, (*ptrs, lohi.data_ptr()))
+    return table, lohi[:3], lohi[3:]
 
 
 def _check_query(spec: TreeSpec, features: torch.Tensor, points: torch.Tensor) -> None:

@@ -833,7 +833,8 @@ def test_baked_aux_kernels_match_plain(cuda, fast):
 @pytest.mark.parametrize("fast", [False, True])
 def test_baked_dynamic_frames_use_the_kernels_and_equal_the_eager_loop(cuda, fast):
     """render_dynamic_frames on the default backend: per frame one
-    points_leaf_aabb and one refresh (and in fast mode one skip-box
+    construct_tree_aabb (the table and the points' leaf box in one descent)
+    and one refresh (and in fast mode one skip-box
     regrowth, the depth-5 shell bakes with boxes), and the images, the
     table and the bake's box of the eager loop."""
     state, feats_np, centers_np = build_shell_tree(depth=5, data_format="SH4", data_dim=13, seed=5)
@@ -845,13 +846,15 @@ def test_baked_dynamic_frames_use_the_kernels_and_equal_the_eager_loop(cuda, fas
     tree = stt.tree_from_numpy(state, device=cuda)
     r = stt.VolumeRenderer(tree)
     assert tree._baked_spec().skip_base
-    counters = (tquery.POINTS_AABB, tbake.REFRESH, tbake.GROW_BOXES, trender.RENDER_FWD_BAKED)
+    counters = (tquery.CONSTRUCT_TREE_AABB, tbake.REFRESH, tbake.GROW_BOXES, trender.RENDER_FWD_BAKED,
+                tquery.CONSTRUCT_TREE, tquery.POINTS_AABB)
     before = [k.launches for k in counters]
     cols = r.render_dynamic_frames(feats, poses, src, centers_np, sw, ji, c2w=orbit_camera(),
                                    width=64, height=48, fx=70.0, fast=fast)
     torch.cuda.synchronize()
     grows = 3 + 1 if fast else 1  # the tree adopts the last table: one more regrowth
-    assert [k.launches - b for k, b in zip(counters, before)] == [3, 4, grows, 3]
+    # Each frame's re-point and leaf box: one fused call, no separate box.
+    assert [k.launches - b for k, b in zip(counters, before)] == [3, 4, grows, 3, 0, 0]
     eager = stt.tree_from_numpy(state, device=cuda)
     re = stt.VolumeRenderer(eager)
     eager._baked_spec()
@@ -2255,6 +2258,58 @@ def test_subset_gather_kernel_matches_plain(cuda, compact, with_rays):
     assert got.idx.shape[0] == int(offsets_np[-1]) > 0
 
 
+def _synthetic_tape(cuda, n_src, max_count, seed):
+    """A RayTape of random streams: counts in [0, max_count], a fifth of
+    the rays empty."""
+    rng = np.random.RandomState(seed)
+    counts = rng.randint(0, max_count + 1, n_src).astype(np.int32)
+    counts[rng.rand(n_src) < 0.2] = 0
+    offsets = np.zeros(n_src + 1, np.int32)
+    offsets[1:] = np.cumsum(counts)
+    S = int(offsets[-1])
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+
+    f = lambda *shape: t(rng.rand(*shape).astype(np.float32))  # noqa: E731
+    return ttape.RayTape(
+        idx=t(rng.randint(0, 1 << 30, S).astype(np.int32)), dt=f(S),
+        cell=t(rng.randint(0, 1 << 30, S).astype(np.int32)), offsets=t(offsets), counts=t(counts),
+        origins=f(n_src, 3), dirs=f(n_src, 3), vdirs=f(n_src, 3), dscale=f(n_src), n_rays=n_src,
+        S=int(counts.max()), compact=True, n_features=1 << 30, n_cells=1 << 30, geom=None, tval=f(S),
+        indirect=False)
+
+
+@pytest.mark.parametrize("want_t", [False, True])
+@pytest.mark.parametrize("want_cell", [False, True])
+@pytest.mark.parametrize("with_rays", [False, True])
+def test_subset_gather_streams_and_shapes(cuda, want_t, want_cell, with_rays):
+    """K14a's instance for every combination of the t, cell and ray streams,
+    bit for bit the plain version: B a multiple of 32 and not (a last warp
+    of 1 and of 31 rays), zero-count rays, runs longer than 32 samples (up
+    to 90), duplicate ids, a batch of only empty rays."""
+    tp = _synthetic_tape(cuda, 700, 90, seed=77)
+    rng = np.random.RandomState(78)
+    empty = np.flatnonzero(tp.counts.cpu().numpy() == 0)
+    for B in (1, 31, 32, 33, 1000, 2047):
+        ids_np = rng.randint(0, tp.n_rays, B)
+        ids_np[B // 2:B // 2 + 3] = ids_np[:3]
+        ids_np[-min(B, 5):] = empty[:min(B, 5)]
+        for ids_case in (ids_np, empty[:B]):
+            src = tsub.TapeRowSource(tp, keep_cells=True)
+            offsets_np = tsub._subset_plan(src, ids_case)[1]
+            ids = torch.from_numpy(ids_case.astype(np.int32)).to(cuda)
+            offsets = torch.from_numpy(offsets_np).to(cuda)
+            before = tsub.SUBSET_GATHER.launches
+            got = tsub.subset_gather_cuda(tp, ids, offsets, want_t, want_cell, with_rays)
+            torch.cuda.synchronize()
+            assert tsub.SUBSET_GATHER.launches == before + 1
+            want = tsub.subset_gather_plain(tp, ids, offsets, want_t, want_cell, with_rays)
+            for name, g, w in zip(got._fields, got, want):
+                assert (g is None) == (w is None), name
+                assert g is None or torch.equal(g, w), (name, B)
+
+
 def test_subset_replay_equals_full_replay_kernel(cuda):
     """K13c over a subset (duplicate ids) equals the full replay's rows bit
     for bit; its gradient equals the masked full gradient."""
@@ -2636,6 +2691,79 @@ def test_construct_tree_orders_and_kept_scratch(cuda):
     assert torch.equal(got, tquery.construct_tree_plain(tree._spec(), centers[perm]))
     assert (cuda.index, side.cuda_stream) in tquery._WINNERS
     assert bool((tquery._WINNERS[(cuda.index, side.cuda_stream)] == -1).all())
+
+
+def test_construct_tree_aabb_matches_plain(cuda):
+    """The fused re-point (construct_tree_aabb): its table equal to
+    construct_tree_plain's and its box to points_leaf_aabb_plain's with the
+    union (torch.equal), on N = 2 and N = 3, with and without a union (an
+    empty one, lo > hi, too), for points outside the cube, many points to
+    one leaf, Q = 0 and Q not a multiple of 512; one launch a call, the
+    stream's box scratch left at (+inf, -inf) and its winner all -1 after
+    each of the repeated calls; a call on another stream takes a scratch
+    of its own."""
+    tree, _, centers = _shell(cuda, seed=75)
+    t3, _, c3 = _occupancy_tree(cuda, N=3, depth=4, seed=75)
+    c3w = t3.tree2world(c3).contiguous()
+    g = torch.Generator().manual_seed(75)
+    perm = torch.randperm(centers.shape[0], generator=g).to(cuda)
+    outside = (torch.rand(777, 3, generator=g) * 3 - 1).to(cuda)
+    many = centers[:5].repeat(301, 1)
+    unions = (None, (torch.full((3,), 0.3, device=cuda), torch.full((3,), 0.6, device=cuda)),
+              (torch.ones(3, device=cuda), torch.zeros(3, device=cuda)))
+    cases = [(tree, centers[perm]), (tree, torch.cat([many, outside])), (tree, centers[:0]),
+             (tree, centers[:1000]), (t3, c3w), (t3, c3w[:513].flip(0)), (t3, outside)]
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    inf = float("inf")
+    kept = torch.tensor([inf] * 3 + [-inf] * 3, device=cuda)
+    for t, pts in cases:
+        spec = t._spec()
+        pts = pts.contiguous()
+        for union in unions:
+            before = (tquery.CONSTRUCT_TREE_AABB.launches, tquery.CONSTRUCT_TREE.launches,
+                      tquery.POINTS_AABB.launches)
+            table, lo, hi = tquery.construct_tree_aabb(spec, pts, union)
+            torch.cuda.synchronize()
+            after = (tquery.CONSTRUCT_TREE_AABB.launches, tquery.CONSTRUCT_TREE.launches,
+                     tquery.POINTS_AABB.launches)
+            assert after == (before[0] + 1, before[1], before[2])
+            want, wlo, whi = tquery.construct_tree_aabb_plain(spec, pts, union)
+            assert torch.equal(table, want)
+            assert torch.equal(lo, wlo) and torch.equal(hi, whi), (lo, hi, wlo, whi)
+            assert torch.equal(torch.cat([lo, hi]), torch.cat(
+                tquery.points_leaf_aabb_cuda(spec, pts, union=union)))
+            assert torch.equal(tquery._BOXES[(cuda.index, stream)], kept)
+            assert bool((tquery._WINNERS[(cuda.index, stream)] == -1).all())
+    side = torch.cuda.Stream(cuda)
+    spec = tree._spec()
+    with torch.cuda.stream(side):
+        got = tquery.construct_tree_aabb(spec, centers[perm], unions[1])
+    torch.cuda.synchronize()
+    want = tquery.construct_tree_aabb_plain(spec, centers[perm], unions[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(tquery._BOXES[(cuda.index, side.cuda_stream)], kept)
+
+
+def test_construct_tree_aabb_entry_points(cuda):
+    """N3Tree.construct_tree with a bake launches the fused kernel once and
+    nothing else of K8a or K8b; without a bake the box-free construct_tree.
+    The fused wrapper raises on CPU points."""
+    tree, _, centers = _shell(cuda, seed=76)
+    perm = torch.randperm(centers.shape[0], generator=torch.Generator().manual_seed(76)).to(cuda)
+    counters = (tquery.CONSTRUCT_TREE_AABB, tquery.CONSTRUCT_TREE, tquery.POINTS_AABB)
+    before = [k.launches for k in counters]
+    tree.construct_tree(centers[perm])
+    assert [k.launches - b for k, b in zip(counters, before)] == [0, 1, 0]
+    baked = tree._baked_spec()
+    want = tquery.construct_tree_aabb_plain(tree._spec(), centers, (baked.aabb_lo, baked.aabb_hi))
+    before = [k.launches for k in counters]
+    tree.construct_tree(centers)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 0, 0]
+    assert torch.equal(tree._spec().data_flat, want[0])
+    assert torch.equal(tree._baked_spec().aabb_lo, want[1]) and torch.equal(tree._baked_spec().aabb_hi, want[2])
+    with pytest.raises(ValueError, match="points on cpu"):
+        tquery.construct_tree_aabb_cuda(tree._spec(), centers.cpu())
 
 
 def test_construct_tree_rejects_bad_tables(cuda):

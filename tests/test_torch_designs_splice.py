@@ -1,7 +1,9 @@
-"""The A/B tools' designs of K8b's query forward (`tools/query_ab.py`) and of
-K9a, the opacity VJP (`tools/render_bwd_ab.py --opacity`), on the CPU: the
-kernels build only on a card, but each design is a text patch of the
-shipped header, and the designs that lost live in `tools/*_designs.cuh`.
+"""The A/B tools' designs of K8b's query forward (`tools/query_ab.py`), of
+K9a, the opacity VJP (`tools/render_bwd_ab.py --opacity`), of K14a, the
+subset gather (`tools/subset_gather_ab.py`), and of K8a with its box form
+(`tools/construct_tree_ab.py`), on the CPU: the kernels build only on a
+card, but each design is a text patch of the shipped source, and the
+designs that lost live in `tools/*_designs.cuh`.
 
   * every design's patches apply to the header as it is (each exactly
     once), and a design that launches a lost kernel finds it in the
@@ -9,7 +11,8 @@ shipped header, and the designs that lost live in `tools/*_designs.cuh`.
   * the opacity designs file's levers default to the shipped kernel's, and
     each design sets the levers it names;
   * `chip_smoke.query_fwd_work`, the query forward's bytes and operations
-    that the smoke's phase 6 and `tools/query_ab.py` count, on a small case.
+    that the smoke's phase 6 and `tools/query_ab.py` count, on a small case,
+    and `chip_smoke.subset_gather_bytes`, K14a's, likewise.
 """
 
 import sys
@@ -20,9 +23,11 @@ import pytest
 TOOLS = Path(__file__).resolve().parent.parent / "tools"
 sys.path.insert(0, str(TOOLS))
 
+import construct_tree_ab  # noqa: E402
 import query_ab  # noqa: E402
 import render_bwd_ab  # noqa: E402
 import render_fwd_ab  # noqa: E402
+import subset_gather_ab  # noqa: E402
 
 import chip_smoke  # noqa: E402
 
@@ -85,3 +90,42 @@ def test_query_fwd_work_counts_bytes_and_levels():
     assert n_bytes == 10 * 20 + 6 * 16 + 10 * 16 + 10 * 8
     assert n_ops == chip_smoke.OPS_LEVEL * 25
     assert chip_smoke.query_fwd_work(10, 6, 4, 2, 25)[0] == 10 * 20 + 6 * 8 + 10 * 8 + 10 * 8
+
+
+@pytest.mark.parametrize("design", sorted(subset_gather_ab.DESIGNS))
+def test_subset_gather_design_patches_apply(tmp_path, design):
+    sources = subset_gather_ab.design_sources(tmp_path, None, {design: subset_gather_ab.DESIGNS[design]})
+    csrc, units = sources[design]
+    text = (csrc / subset_gather_ab.SOURCE).read_text()
+    assert units == ("tape_subset",) and (csrc / subset_gather_ab.DESIGN_FILE).exists()
+    if design in ("thread", "runtime"):
+        assert f"return launch_{design}(a, stream);" in text
+        assert f'#include "{subset_gather_ab.DESIGN_FILE}"' in text
+        assert f"cudaError_t launch_{design}(" in (TOOLS / subset_gather_ab.DESIGN_FILE).read_text()
+    if design == "b256":
+        assert "constexpr int kGatherThreads = 256;" in text
+
+
+@pytest.mark.parametrize("design", sorted(construct_tree_ab.DESIGNS) + sorted(construct_tree_ab.BOX_DESIGNS))
+def test_construct_tree_design_patches_apply(tmp_path, design):
+    patches = {**construct_tree_ab.DESIGNS, **construct_tree_ab.BOX_DESIGNS}[design]
+    sources = construct_tree_ab.design_sources(tmp_path, None, {design: patches})
+    csrc, units = sources[design]
+    text = (csrc / "construct_tree.cu").read_text()
+    assert units == (construct_tree_ab.BOX_UNITS if design == "shipped" else construct_tree_ab.UNIT)
+    if design == "box_census":
+        assert text.count("atomicAdd(&g_box_atomics, 1u);") == 2
+        assert 'extern "C" unsigned int svox_box_atomics()' in text
+    if design == "box_early":
+        assert text.count("__ldcg(box + ") == 1 and "const float now = threadIdx.x < 6" in text
+    if design in ("box_noatomic", "box_nodiv"):
+        assert ("atomic_min_float(box" in text) == (design == "box_nodiv")
+        assert ("static_cast<float>(c[a]) / cube[k]" in text) == (design == "box_noatomic")
+
+
+def test_subset_gather_bytes_counts_streams():
+    B, n = 7, 100
+    base = B * 4 + (B + 1) * 4 + B * 8 + n * 16 + B * 16 + B * 20
+    assert chip_smoke.subset_gather_bytes(B, n) == base
+    assert chip_smoke.subset_gather_bytes(B, n, t=True, cell=True) == base + n * 16
+    assert chip_smoke.subset_gather_bytes(B, n, rays=True) == base + B * 48

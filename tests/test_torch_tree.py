@@ -127,6 +127,46 @@ def test_construct_tree_duplicates_largest_id_wins():
     np.testing.assert_array_equal(got[slots], expect)
 
 
+@pytest.mark.parametrize("N", [2, 3])
+@pytest.mark.parametrize("cloud_kind", ["leaves", "outside", "shared"])
+def test_construct_tree_aabb_matches_jax(N, cloud_kind):
+    """The fused re-point's plain version: its table equal to the JAX
+    package's construct_tree and its box to JAX's points_leaf_aabb joined
+    with the union by min / max, exactly, with no union, a box and an empty
+    one (lo > hi); on leaf centres in a random order, on points outside the
+    cube (clamped) among them, and on points that share leaves (where JAX
+    leaves the winner unspecified, the shared slots hold the largest id, as
+    construct_tree's)."""
+    rng = np.random.RandomState(40 + N)
+    jt, _, _ = build_tree(rng, N=N, depth_limit=4 if N == 2 else 3)
+    pt = _port(jt)
+    centers = _leaf_centers(jt)
+    cloud = centers[rng.permutation(len(centers))][: len(centers) // 2]
+    if cloud_kind == "outside":
+        cloud = np.concatenate([cloud, (rng.rand(40, 3) * 3 - 1).astype(np.float32)])
+    elif cloud_kind == "shared":
+        cloud = np.concatenate([cloud, cloud[:9], cloud[3:5]])
+    jtable = np.asarray(jquery.construct_tree(jt._spec(), jnp.asarray(cloud)))
+    jbox = [np.asarray(x) for x in jquery.points_leaf_aabb(jt._spec(), jnp.asarray(cloud))]
+    spec, pts = pt._spec(), torch.from_numpy(cloud)
+    slots = descend(spec, spec.offset + spec.scaling * pts).node_flat.numpy()
+    leaves, hits = np.unique(slots, return_counts=True)
+    once = ~np.isin(np.arange(spec.data_flat.numel()), leaves[hits > 1])
+    assert cloud_kind != "shared" or not once.all()
+    for u in (None, (np.full(3, 0.3, np.float32), np.full(3, 0.6, np.float32)),
+              (np.ones(3, np.float32), np.zeros(3, np.float32))):
+        jlo, jhi = jbox if u is None else (np.minimum(jbox[0], u[0]), np.maximum(jbox[1], u[1]))
+        tu = None if u is None else tuple(torch.from_numpy(x) for x in u)
+        for fn in (tquery.construct_tree_aabb, tquery.construct_tree_aabb_plain):
+            table, lo, hi = fn(spec, pts, tu)
+            np.testing.assert_array_equal(lo.numpy(), jlo)
+            np.testing.assert_array_equal(hi.numpy(), jhi)
+            np.testing.assert_array_equal(table.numpy()[once], jtable[once])
+            np.testing.assert_array_equal(table.numpy(), tquery.construct_tree_plain(spec, pts).numpy())
+            if cloud_kind == "shared":
+                np.testing.assert_array_equal(table.numpy()[slots[-2:]], [len(cloud) - 2, len(cloud) - 1])
+
+
 def test_construct_tree_cuda_rejects_cpu_tensors():
     """The kernel wrapper never runs its plain version in its place."""
     pt = _port(build_tree(np.random.RandomState(6))[0])

@@ -38,7 +38,25 @@ the cube's centre, in leaf order), it prints for each library:
     of the C entry alone (the launches' enqueue included), each the mean of
     HOST_CALLS calls with no synchronize inside.
 
-Needs one CUDA GPU and nvcc; builds no other kernel.
+Then the fused re-point (``box``: `construct_tree_aabb`, the table and the
+points' leaf box from one descent, `svox_construct_tree_aabb`) against the
+two calls it replaces (``two``: `construct_tree` and then
+`points_leaf_aabb`, this tree's wrappers and kernels; ``parent``: the same
+wrappers on the parent's two C entries), at both orders, without a union
+and with one (a fixed box inside the cube, as the bake's box would be): each
+call's CUDA-event time back to back and the device time of its K8a and K8b
+kernels from `torch.profiler` (L2 cold and warm), in turns (ROUNDS rounds,
+reversed every other round, the medians), the kernels a call launches (the
+wrappers' fills and copies included), and its host time; every result equal
+to `construct_tree_aabb_plain` (`torch.equal`, table and box). Beside them
+the box form's designs, each a text patch of the source: ``box_early`` (the
+scratch read before the block's reduction) and the censuses
+``box_noatomic`` (no read, no atomic) and ``box_nodiv`` (one division a
+point), which are timed and not checked; and ``box_census``, which counts
+the box scratch's float atomics of one call.
+
+Needs one CUDA GPU and nvcc; builds no other kernel (and the query unit,
+for `points_leaf_aabb`).
 """
 
 from __future__ import annotations
@@ -87,6 +105,48 @@ MEMSET = (
   if (err != cudaSuccess) return err;
   if (Q > 0) {"""),
 )
+# `box_census` (in the box section only): the shipped source with a count
+# of the box scratch's float atomics, read back by an entry of its own.
+BOX_CENSUS = (
+    ("      if (v < now) svox::atomic_min_float(box + a, v);\n",
+     "      if (v < now) {\n        svox::atomic_min_float(box + a, v);\n        atomicAdd(&g_box_atomics, 1u);\n"
+     "      }\n"),
+    ("      svox::atomic_max_float(box + a, v);\n",
+     "      svox::atomic_max_float(box + a, v);\n      atomicAdd(&g_box_atomics, 1u);\n"),
+    ("namespace {\n", "__device__ unsigned int g_box_atomics = 0;\n\nnamespace {\n"),
+    ('extern "C" const char* svox_error_string(int err) {',
+     'extern "C" unsigned int svox_box_atomics() {\n  unsigned int n = 0;\n'
+     '  cudaMemcpyFromSymbol(&n, g_box_atomics, sizeof(n));\n  const unsigned int zero = 0;\n'
+     '  cudaMemcpyToSymbol(g_box_atomics, &zero, sizeof(zero));\n  return n;\n}\n\n'
+     'extern "C" const char* svox_error_string(int err) {'),
+)
+FOLD_READ = "    const float now = __ldcg(box + a);\n"
+FOLD_ATOMICS = FOLD_READ + """    if (a < 3) {
+      if (v < now) svox::atomic_min_float(box + a, v);
+    } else if (v > now) {
+      svox::atomic_max_float(box + a, v);
+    }
+"""
+BOX_DIVS = """          lo[a] = fminf(lo[a], static_cast<float>(c[a]) / cube[k] - 1e-6f);
+          up[a] = fmaxf(up[a], static_cast<float>(c[a] + 1) / cube[k] + 1e-6f);
+"""
+# Designs of the box form (the box section): ``box_early`` reads the box
+# scratch before the block's reduction, not after it; the censuses
+# ``box_noatomic`` (no read and no atomic: the box is not folded) and
+# ``box_nodiv`` (one division a point, the box from its reciprocal: not
+# exact) are timed and not checked.
+BOX_DESIGNS = {
+    "box_census": BOX_CENSUS,
+    "box_early": (("  __shared__ float part[kThreads / 32][6];\n",
+                   "  __shared__ float part[kThreads / 32][6];\n"
+                   "  const float now = threadIdx.x < 6 ? __ldcg(box + threadIdx.x) : 0.f;\n"),
+                  (FOLD_READ, "")),
+    "box_noatomic": ((FOLD_ATOMICS, "    if (v == -12345.f) box[a] = v;\n"),),
+    "box_nodiv": (("        const int32_t c[3] = {cx[k], cy[k], cz[k]};\n",
+                   "        const int32_t c[3] = {cx[k], cy[k], cz[k]};\n        const float inv = 1.f / cube[k];\n"),
+                  (BOX_DIVS, BOX_DIVS.replace(" / cube[k]", " * inv"))),
+}
+BOX_UNCHECKED = ("box_noatomic", "box_nodiv")
 # {design: text patches of construct_tree.cu}.
 DESIGNS = {
     "shipped": (),
@@ -96,6 +156,10 @@ DESIGNS = {
     "scalar_merge": ((VEC, "    const bool vec = false;\n"),),
 }
 UNIT = ("construct_tree",)
+# The libraries the fused re-point is timed in: with the query unit, whose
+# svox_points_aabb is the second of the two calls it replaces.
+BOX_UNITS = ("construct_tree", "query")
+BOX_KERNELS = ("scatter", "merge", "points_aabb")
 PASSES = {"memset": ("Memset", "memset"), "scatter": ("scatter_kernel",), "merge": ("merge_kernel",)}
 
 
@@ -117,13 +181,14 @@ def design_sources(workdir: Path, parent: Path | None, designs: dict) -> dict:
         for f in list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh")):
             shutil.copy(f, d / f.name)
         (d / "construct_tree.cu").write_text(text)
-        out[name] = (d, UNIT)
+        out[name] = (d, BOX_UNITS if name in ("shipped", "parent") else UNIT)
     return out
 
 
 def report(name: str, rows: list) -> None:
     """Registers and spills of a library's K8a kernels."""
-    print(f"ptxas {name}: " + "; ".join(f"{e[:60]} {r} regs {s} B spilled" for _, e, r, s in rows))
+    print(f"ptxas {name}: " + "; ".join(f"{e[:60]} {r} regs {s} B spilled" for _, e, r, s in rows
+                                        if any(k in e for k in BOX_KERNELS)))
 
 
 def parent_wrapper(spec, points, fn, dev):
@@ -178,6 +243,118 @@ def host_us(fn) -> float:
     return (t1 - t0) / HOST_CALLS * 1e6
 
 
+def kernels_a_call(fn) -> list:
+    """The device kernels one call of ``fn`` launches (fills included)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name[:40] for e in sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                                         and not e.is_user_annotation), key=lambda e: e.time_range.start)]
+
+
+def box_section(libs: dict, spec, pts: dict, dev, card: str, res: dict) -> None:
+    """The fused re-point against the two calls it replaces (the module
+    docstring), at each order, without and with a union."""
+    entries = {}
+    for name in ("shipped", "parent"):
+        if name not in libs:
+            continue
+        lib = ctypes.CDLL(str(libs[name]))
+        for sym, kernel in (("svox_construct_tree", query_ops.CONSTRUCT_TREE),
+                            ("svox_points_aabb", query_ops.POINTS_AABB),
+                            ("svox_construct_tree_aabb", query_ops.CONSTRUCT_TREE_AABB)):
+            if name == "parent" and sym == "svox_construct_tree_aabb":
+                continue
+            fn = getattr(lib, sym)
+            fn.argtypes = kernel.argtypes
+            fn.restype = ctypes.c_int
+            entries[name, sym] = fn
+    box_union = (torch.full((3,), 0.25, device=dev), torch.full((3,), 0.75, device=dev))
+    for order, p in pts.items():
+        for union in (None, box_union):
+            tag = f"{order}, {'no union' if union is None else 'a union'}"
+            want = query_ops.construct_tree_aabb_plain(spec, p, union)
+
+            def box():
+                query_ops.CONSTRUCT_TREE_AABB._fn = entries["shipped", "svox_construct_tree_aabb"]
+                return query_ops.construct_tree_aabb_cuda(spec, p, union)
+
+            def two(lib):
+                def run():
+                    query_ops.CONSTRUCT_TREE._fn = entries[lib, "svox_construct_tree"]
+                    query_ops.POINTS_AABB._fn = entries[lib, "svox_points_aabb"]
+                    table = query_ops.construct_tree_cuda(spec, p)
+                    return (table, *query_ops.points_leaf_aabb_cuda(spec, p, union=union))
+                return run
+
+            def box_design(name):
+                lib = ctypes.CDLL(str(libs[name]))
+                fused = lib.svox_construct_tree_aabb
+                fused.argtypes = query_ops.CONSTRUCT_TREE_AABB.argtypes
+                fused.restype = ctypes.c_int
+
+                def run():
+                    query_ops.CONSTRUCT_TREE_AABB._fn = fused
+                    return query_ops.construct_tree_aabb_cuda(spec, p, union)
+                return run
+
+            runs = {"box": box}
+            runs.update({n: box_design(n) for n in libs if n.startswith("box_") and n != "box_census"})
+            runs["two"] = two("shipped")
+            if ("parent", "svox_construct_tree") in entries:
+                runs["parent"] = two("parent")
+
+            def held(name, got):
+                if name in BOX_UNCHECKED:
+                    return
+                cs.check(all(torch.equal(a, b) for a, b in zip(got, want)), f"{tag}: {name} differs from plain")
+
+            for name, fn in runs.items():
+                got = fn()
+                torch.cuda.synchronize()
+                held(name, got)
+            times = {(n, k): [] for n in runs for k in ("event", "cold", "warm")}
+            order_ = list(runs)
+            for rnd in range(ROUNDS):
+                for name in (order_ if rnd % 2 == 0 else order_[::-1]):
+                    fn = runs[name]
+                    times[name, "event"].append(cs.time_ms(fn, REPS))
+                    times[name, "cold"].append(cs.device_ms(fn, REPS, BOX_KERNELS, cold=True))
+                    times[name, "warm"].append(cs.device_ms(fn, REPS, BOX_KERNELS, cold=False))
+                    got = fn()
+                    torch.cuda.synchronize()
+                    held(name, got)
+            census = ctypes.CDLL(str(libs["box_census"]))
+            fused = census.svox_construct_tree_aabb
+            fused.argtypes = query_ops.CONSTRUCT_TREE_AABB.argtypes
+            fused.restype = ctypes.c_int
+            census.svox_box_atomics.restype = ctypes.c_uint
+            census.svox_box_atomics()
+            query_ops.CONSTRUCT_TREE_AABB._fn = fused
+            got = query_ops.construct_tree_aabb_cuda(spec, p, union)
+            torch.cuda.synchronize()
+            n_atomics = census.svox_box_atomics()
+            cs.check(all(torch.equal(a, b) for a, b in zip(got, want)), f"{tag}: box_census differs from plain")
+            n_blocks = -(-p.shape[0] // 512)
+            res[f"box {tag} atomics"] = n_atomics
+            print(f"fused re-point, {tag}: box {want[1].tolist()} - {want[2].tolist()}, equal to plain in every round; "
+                  f"{n_atomics} float atomics on the box scratch from {n_blocks} scatter blocks (6 coordinates "
+                  f"each) [{card}]")
+            for name, fn in runs.items():
+                ev, cold, warm = (statistics.median(times[name, k]) for k in ("event", "cold", "warm"))
+                ref = statistics.median(times[order_[-1], "event"])
+                ks = kernels_a_call(fn)
+                host = host_us(fn)
+                res[f"box {tag} {name}"] = dict(event_ms=ev, device_cold_ms=cold, device_warm_ms=warm, host_us=host,
+                                                kernels=len(ks))
+                print(f"  {name:8s} CUDA events a call {ev:.4f} ms ({ref / ev:.3f}x {order_[-1]}); device (K8a, K8b "
+                      f"kernels) L2 cold {cold:.4f}, warm {warm:.4f} ms; host {host:.1f} us; {len(ks)} kernels a call: "
+                      f"{ks}; event rounds {[round(x, 4) for x in times[name, 'event']]}")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
@@ -191,6 +368,7 @@ def main() -> None:
     if unknown:
         raise SystemExit(f"unknown designs {sorted(unknown)}; known: {sorted(DESIGNS)}")
     designs = {k: v for k, v in DESIGNS.items() if k in chosen or k == "shipped"}
+    designs.update(BOX_DESIGNS)
     dev = torch.device("cuda", 0)
     card = cs.card_line()
     res = {}
@@ -232,7 +410,8 @@ def main() -> None:
             for order, p in pts.items():
                 want = query_ops.construct_tree_plain(spec, p)
                 print(f"{order}: {p.shape[0]} points; {int((want != spec.data_flat).sum())} slots re-pointed")
-                runs = [n for n in (("parent",) if "parent" in fns else ()) + tuple(designs)]
+                runs = [n for n in (("parent",) if "parent" in fns else ()) + tuple(designs)
+                        if not n.startswith("box_")]
                 for name in runs:
                     entry(name, p)()
                     torch.cuda.synchronize()
@@ -281,6 +460,7 @@ def main() -> None:
                     res[f"{order} {name} wrapper"] = dict(event_ms=ev, host_us=whole, python_us=py, c_call_us=c_only)
                     print(f"  {name:12s} through its wrapper: CUDA events {ev:.4f} ms a call; host {whole:.1f} us a "
                           f"call: Python {py:.1f} us, the C call (its launches' enqueue) {c_only:.1f} us")
+        box_section(libs, spec, pts, dev, card, res)
     print(json.dumps(res))
 
 

@@ -86,7 +86,8 @@ FUNCTION = re.compile(r"^(?:\.visible\s+|\.weak\s+)?\.(?:entry|func)\s+(?:\([^)]
 
 def functions(path: Path) -> dict:
     """{name: its lines} of a normalized PTX file's functions, and the lines
-    before the first under ``""``."""
+    before the first under ``""``. A function's trailing blank lines are
+    dropped: they depend on what follows it in the unit."""
     out, name = {"": []}, ""
     for line in path.read_text().splitlines():
         m = FUNCTION.match(line)
@@ -94,6 +95,9 @@ def functions(path: Path) -> dict:
             name = m.group(1)
             out[name] = []
         out[name].append(line)
+    for lines in out.values():
+        while lines and not lines[-1].strip():
+            lines.pop()
     return out
 
 
