@@ -9,7 +9,10 @@ SG9 and ASG9, with weight accumulation; the backward march in five
 cases; the point query forward and backward; the aux kernels, exact and
 fast: the opacity VJP, the first hit, the motion-feature forward and
 backward; the LBS warp forward and backward, also at 2 joints and 2
-bones; the voxelize splat forward and backward; then the bake: the
+bones, with the census of the backward's register runs from their plain
+mirror; the voxelize splat forward, in the cloud's row order and
+shuffled, with the count of its blocks that took the shared tile against
+the plain mirror's, and backward; then the bake: the
 depth-9 shell baked on the host, the K6 point lookup on every leaf centre
 and 1M seeded points, K7a refresh after a re-point and points_leaf_aabb,
 exactly, K7b skip-box regrowth on bench.py's dynamic tree, exactly, the
@@ -3986,9 +3989,15 @@ def main() -> None:
             check(e <= EXACT_RTOL * max(1.0, float(b.abs().max())), f"warp_bwd {what} {name}: {e}")
             errs.append(e)
         check(float(got[0].abs().max()) > 0 and not bool(got[0][:, 3].any()), "warp_bwd: bad dT")
+        # The kernel's dT sum order through its plain mirror, and its census.
+        t_mirror = time.perf_counter()
+        runs_dT, census = warp_ops.warp_dT_runs_plain(T, centers, sw_, ji_, g_x, g_M)
+        atomic_err(runs_dT, want[0], f"warp_bwd {what}: the runs mirror")
         print(f"warp_bwd {what}: max_abs_err dT {errs[0]:.3g} (max|dT| "
               f"{float(want[0].abs().max()):.4g}), dx {errs[1]:.3g}, dw {errs[2]:.3g}, "
-              f"plain {ms:.2f} ms")
+              f"plain {ms:.2f} ms; K10 census (runs mirror, within ATOMIC_RTOL, "
+              f"{time.perf_counter() - t_mirror:.1f} s): {census}, against {12 * census['terms']} shared adds a "
+              f"point at a time")
         return max(errs), ms
 
     e32, warp_bwd_plain_ms = warp_bwd_check(T1, rig_sw, rig_ji, f"J {N_JOINTS} nb {N_BONES}")
@@ -4019,11 +4028,31 @@ def main() -> None:
         vb_err = max(vb_err, e)
     check(not bool(dk[1][:, :-1].any()) and float(dk[0].abs().max()) > 0,
           "voxelize_bwd: gradient outside the density column, or none")
-    kernels["voxelize_fwd"]["max_abs_err"] = v_err
+    # The serving frames' order: the same cloud in a random permutation, whose
+    # blocks' boxes are too large for the shared tile (the direct splat).
+    t_tiles = time.perf_counter()
+    shuffle = torch.from_numpy(np.random.RandomState(0).permutation(M)).to(dev)
+    warped_rand, feats_rand = warped1[shuffle].contiguous(), feats[shuffle].contiguous()
+    vs_err = atomic_err(p2v_ops.voxelize_forward_cuda(warped_rand, feats_rand, grid),
+                        p2v_ops.voxelize_forward_plain(warped_rand, feats_rand, grid), "voxelize_fwd shuffled")
+    tile_census = {}
+    for order, (pts_o, feats_o) in {"row order": (warped1, feats), "shuffled": (warped_rand, feats_rand)}.items():
+        vol_t, tiled = p2v_ops.voxelize_tiles_cuda(pts_o, feats_o, grid)
+        mirror_vol, census = p2v_ops.voxelize_forward_tiled_plain(pts_o, feats_o, grid)
+        want_o = vp if order == "row order" else None
+        if want_o is not None:
+            atomic_err(vol_t, want_o, "voxelize_fwd (census entry)")
+            atomic_err(mirror_vol, want_o, "voxelize_fwd: the tiled mirror")
+        check(tiled == census["tiled"], f"voxelize_fwd {order}: the kernel tiled {tiled} blocks, the mirror "
+              f"{census['tiled']}")
+        tile_census[order] = census
+    kernels["voxelize_fwd"]["max_abs_err"] = max(v_err, vs_err)
     kernels["voxelize_bwd"]["max_abs_err"] = vb_err
     print(f"voxelize ({M} points, {P2V_N}^3 grid, W {grid.W}): forward max_abs_err {v_err:.3g} "
-          f"(max {float(vp.max()):.4g}, {touched} voxels touched), plain {vox_fwd_plain_ms:.1f} ms; "
-          f"backward max_abs_err {vb_err:.3g}, plain {vox_bwd_plain_ms:.1f} ms")
+          f"(max {float(vp.max()):.4g}, {touched} voxels touched), shuffled {vs_err:.3g}, plain "
+          f"{vox_fwd_plain_ms:.1f} ms; backward max_abs_err {vb_err:.3g}, plain {vox_bwd_plain_ms:.1f} ms; "
+          f"K11 census (tiled mirror, its tiled blocks equal to the kernel's; the shuffled check and the census "
+          f"{time.perf_counter() - t_tiles:.1f} s): {tile_census}")
 
     # 3d. The bake (the default backend's structure): the depth-9 shell
     # baked on the host; the K6 point lookup, K7a refresh after a re-point
@@ -5493,6 +5522,20 @@ def main() -> None:
                                                                True, False, False), KERNEL_REPS)
         print(f"time warp_bwd J 2 nb 2 ({M} points): kernel {w2_ms:.4f} ms, dT only "
               f"{w2_dt_ms:.4f} ms [{card}]")
+        # K10's backward at its other callers' shapes, and K11's forward in
+        # the serving frames' random order (CUDA events, as above).
+        callers = {
+            "warp_bwd (b) the pose fit's call: g_x only, dT only": lambda: warp_ops.warp_backward_cuda(
+                T1, centers, rig_sw, rig_ji, g_x, None, True, False, False),
+            "warp_bwd (c) bench.py's rig, J 2 nb 2: g_x and g_M, dT only": lambda: warp_ops.warp_backward_cuda(
+                T2, centers, sw2, ji2, g_x, g_M, True, False, False),
+            "voxelize_fwd, the cloud in a random order": lambda: p2v_ops.voxelize_forward_cuda(
+                warped_rand, feats_rand, grid),
+        }
+        t_callers = time.perf_counter()
+        for what, run_k in callers.items():
+            print(f"time {what} ({M} points): kernel {time_ms(run_k, KERNEL_REPS):.4f} ms [{card}]")
+        print(f"the callers' shapes above: {time.perf_counter() - t_callers:.1f} s")
 
     # The tape kernels (K13) on the depth-9 shell before its re-points
     # (phase 3g's structures and tape), each beside the march kernel.

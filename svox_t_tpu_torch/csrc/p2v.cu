@@ -22,16 +22,29 @@
 // the last three in double, rounded once to float32.
 //
 // Bound on an H100: the forward writes the n^3 grid (67.9 MB at n = 257)
-// and does ~12 operations per window voxel and an exp and an atomic per
-// voxel within the radius; the backward reads the gradient at those
-// voxels. The atomics of neighbouring points fall on neighbouring voxels,
-// so they mostly hit L2. The design answer is one thread per point with
-// the window in registers and no staging: the points of a warp are
-// neighbours in the cloud's row order, so their windows overlap in L2.
+// and does ~12 operations per window voxel and an exp and an add per voxel
+// within the radius; the backward reads the gradient at those voxels. The
+// forward's cost is its adds: about 27 a point at the deep configuration,
+// each a float atomic in L2 onto lines that the neighbouring lanes' windows
+// share, and its walk: 188 window voxels a point, 27 within the radius. So
+// a point walks its window cut per axis to the indices within the radius
+// of it (`window_span`) and skips the rows that hold no voxel within, and a
+// block of kThreads consecutive points reduces their spans to one voxel box. If
+// the box holds at most kTileFloats voxels, the block zeroes a tile of it
+// in shared memory, splats its points there with shared adds, and adds each
+// non-zero tile voxel into the grid once. A block whose box is larger (a
+// cloud in a random order, points far apart) splats each voxel into the
+// grid directly, in the same launch. The backward is one thread per point
+// with the window in registers: it sums in window order and reads the
+// gradient through L1, and the points of a warp are neighbours in the
+// cloud's row order, so their windows overlap in L2.
 //
 // Arithmetic follows the plain PyTorch versions (ops/p2v.py) operation for
-// operation, and the library is built with -fmad=false; only the order of
-// the forward's atomics differs.
+// operation, and the library is built with -fmad=false; each forward term
+// is expf(-r2 / 2k^2) * dens as there, and only the order of the sums
+// differs.
+
+#include <climits>
 
 #include "common.cuh"
 
@@ -98,15 +111,131 @@ __device__ __forceinline__ void walk(const P2VParams& a, const Window& w, Fn&& f
   }
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+// Voxels a forward block's shared tile holds (16 KB).
+constexpr int kTileFloats = 4096;
+
+// The forward's walk of q's window: the indices lo + o, o < W, kept where
+// lo + o <= hi, i.e. [lo, min(hi, lo + W - 1)] an axis, cut per axis to the
+// indices whose offset d has d * d <= cr^2 (the others hold no voxel within
+// the radius, since r2 >= d * d). Returns false if an axis keeps none.
+__device__ __forceinline__ bool window_span(const P2VParams& a, const Window& w, int first[3],
+                                            int last[3]) {
+  bool any = true;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const int top = min(w.hi[i], w.lo[i] + a.W - 1);
+    first[i] = top + 1;
+    last[i] = top;
+    for (int k = w.lo[i]; k <= top; ++k) {
+      const float d = w.p[i] - (static_cast<float>(k) * a.vs[i] + a.corner[i]);
+      if (d * d <= a.cr2) {
+        first[i] = min(first[i], k);
+        last[i] = k;
+      }
+    }
+    any = any && first[i] <= last[i];
+  }
+  return any;
+}
+
+// Calls f(ix, iy, iz, r2) for every voxel of the span within the radius, in
+// (x, y, z) order, with d and r2 = (dx^2 + dy^2) + dz^2 formed as the
+// plain version forms them; an (x, y) row whose dx^2 + dy^2 already exceeds
+// cr^2 is skipped.
+template <typename Fn>
+__device__ __forceinline__ void walk_span(const P2VParams& a, const Window& w, const int first[3],
+                                          const int last[3], Fn&& f) {
+  for (int ix = first[0]; ix <= last[0]; ++ix) {
+    const float dx = w.p[0] - (static_cast<float>(ix) * a.vs[0] + a.corner[0]);
+    const float dx2 = dx * dx;
+    for (int iy = first[1]; iy <= last[1]; ++iy) {
+      const float dy = w.p[1] - (static_cast<float>(iy) * a.vs[1] + a.corner[1]);
+      const float s = dx2 + dy * dy;
+      if (s > a.cr2) continue;
+      for (int iz = first[2]; iz <= last[2]; ++iz) {
+        const float dz = w.p[2] - (static_cast<float>(iz) * a.vs[2] + a.corner[2]);
+        const float r2 = s + dz * dz;
+        if (r2 <= a.cr2) f(ix, iy, iz, r2);
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-voxelize_fwd_kernel(const P2VParams a, float* __restrict__ vol) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= a.Q) return;
-  const float dens = __ldg(a.features + static_cast<size_t>(q) * a.F + (a.F - 1));
-  const Window w = window(a, q);
-  walk(a, w, [&](size_t cell, float, float, float, float r2) {
-    atomicAdd(vol + cell, expf((-r2) / a.c2k) * dens);
-  });
+voxelize_fwd_kernel(const P2VParams a, float* __restrict__ vol, int* __restrict__ tiled) {
+  __shared__ float tile[kTileFloats];
+  __shared__ int part[kThreads / 32][6];
+  // Thread t takes the block's point (t % 32) * 8 + t / 32: a warp's lanes
+  // hold points 8 rows apart, so that neighbours in the cloud's order (whose
+  // windows start at one voxel) add into the tile from different warps, not
+  // from one warp's lanes into one address at once.
+  const int q =
+      blockIdx.x * kThreads + (threadIdx.x & 31) * (kThreads / 32) + (threadIdx.x >> 5);
+  Window w;
+  float dens = 0.f;
+  int first[3], last[3];
+  // The span's corners as six minima (first, -last); INT_MAX if none.
+  int ext[6] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX, INT_MAX, INT_MAX};
+  bool live = q < a.Q;
+  if (live) {
+    dens = __ldg(a.features + static_cast<size_t>(q) * a.F + (a.F - 1));
+    w = window(a, q);
+    live = window_span(a, w, first, last);
+  }
+  if (live) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      ext[i] = first[i];
+      ext[3 + i] = -last[i];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) ext[k] = __reduce_min_sync(kFull, ext[k]);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) part[threadIdx.x / 32][k] = ext[k];
+  }
+  __syncthreads();
+  int box[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    box[k] = part[0][k];
+#pragma unroll
+    for (int v = 1; v < kThreads / 32; ++v) box[k] = min(box[k], part[v][k]);
+  }
+  // A block none of whose points keeps a voxel has an empty box.
+  const bool none = box[0] == INT_MAX;
+  const int bx = none ? 0 : -box[3] - box[0] + 1, by = none ? 0 : -box[4] - box[1] + 1;
+  const int bz = none ? 0 : -box[5] - box[2] + 1;
+  if (static_cast<int64_t>(bx) * by * bz > kTileFloats) {
+    if (live) {
+      walk_span(a, w, first, last, [&](int ix, int iy, int iz, float r2) {
+        atomicAdd(vol + (static_cast<size_t>(ix) * a.n + iy) * a.n + iz, expf((-r2) / a.c2k) * dens);
+      });
+    }
+    return;
+  }
+  const int n_box = bx * by * bz;
+  for (int e = threadIdx.x; e < n_box; e += kThreads) tile[e] = 0.f;
+  __syncthreads();
+  if (live) {
+    walk_span(a, w, first, last, [&](int ix, int iy, int iz, float r2) {
+      atomicAdd(tile + ((ix - box[0]) * by + (iy - box[1])) * bz + (iz - box[2]),
+                expf((-r2) / a.c2k) * dens);
+    });
+  }
+  __syncthreads();
+  const int plane = by * bz;
+  for (int e = threadIdx.x; e < n_box; e += kThreads) {
+    const float v = tile[e];
+    if (v != 0.f) {
+      const int ix = box[0] + e / plane, r = e - (e / plane) * plane;
+      const int iy = box[1] + r / bz, iz = box[2] + (r - (r / bz) * bz);
+      atomicAdd(vol + (static_cast<size_t>(ix) * a.n + iy) * a.n + iz, v);
+    }
+  }
+  if (tiled != nullptr && threadIdx.x == 0) atomicAdd(tiled, 1);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -147,6 +276,18 @@ bool bad_sizes(int Q, int F, int n, int W) {
          static_cast<int64_t>(n) * n * n >= (int64_t{1} << 31);
 }
 
+cudaError_t voxelize_fwd(const float* points, const float* features, int Q, int F,
+                         const float* corner, const float* vs, int n, int W, float cr, float cr2,
+                         float c2k, float* vol, int* tiled, int device, cudaStream_t stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (bad_sizes(Q, F, n, W)) return cudaErrorInvalidValue;
+  if (Q == 0) return cudaSuccess;
+  const P2VParams a = params(points, features, Q, F, corner, vs, n, W, cr, cr2, c2k);
+  voxelize_fwd_kernel<<<(Q + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a, vol, tiled);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // points (Q, 3) f32; features (Q, F) f32 (only column F - 1 is read);
@@ -157,13 +298,18 @@ extern "C" int svox_voxelize_fwd(const float* points, const float* features, int
                                  const float* corner, const float* vs, int n, int W,
                                  float cr, float cr2, float c2k, float* vol, int device,
                                  cudaStream_t stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  if (bad_sizes(Q, F, n, W)) return cudaErrorInvalidValue;
-  if (Q == 0) return cudaSuccess;
-  const P2VParams a = params(points, features, Q, F, corner, vs, n, W, cr, cr2, c2k);
-  voxelize_fwd_kernel<<<(Q + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a, vol);
-  return cudaGetLastError();
+  return voxelize_fwd(points, features, Q, F, corner, vs, n, W, cr, cr2, c2k, vol, nullptr, device,
+                      stream);
+}
+
+// As svox_voxelize_fwd, and adds to *tiled (a device int) the number of
+// blocks whose box fit the shared tile (the rest splat into the grid).
+extern "C" int svox_voxelize_fwd_tiles(const float* points, const float* features, int Q, int F,
+                                       const float* corner, const float* vs, int n, int W,
+                                       float cr, float cr2, float c2k, float* vol, int* tiled,
+                                       int device, cudaStream_t stream) {
+  return voxelize_fwd(points, features, Q, F, corner, vs, n, W, cr, cr2, c2k, vol, tiled, device,
+                      stream);
 }
 
 // As svox_voxelize_fwd's inputs, plus grad_vol (n^3,) f32 and the outputs

@@ -37,6 +37,10 @@ _GRID_ARGS = [
     c_float, c_float, c_float,                    # cr, cr^2, 2 k^2
 ]
 VOXELIZE_FWD = Kernel("svox_voxelize_fwd", _GRID_ARGS + [c_void_p, c_int, c_void_p])
+# The same kernel with a count of the blocks that took the shared tile
+# (a census; the main paths launch VOXELIZE_FWD).
+VOXELIZE_FWD_TILES = Kernel("svox_voxelize_fwd_tiles",
+                            _GRID_ARGS + [c_void_p, c_void_p, c_int, c_void_p])
 VOXELIZE_BWD = Kernel(
     "svox_voxelize_bwd",
     _GRID_ARGS + [c_void_p, c_void_p, c_void_p,   # grad_vol, d_points, d_features
@@ -44,6 +48,10 @@ VOXELIZE_BWD = Kernel(
 )
 # Points per chunk of the plain versions' window walk.
 _PLAIN_CHUNK = 1 << 18
+# The forward kernel's points a block and voxels its shared tile holds
+# (`kThreads`, `kTileFloats` in csrc/p2v.cu).
+TILE_BLOCK = 256
+TILE_FLOATS = 4096
 
 
 class GridConsts(NamedTuple):
@@ -176,6 +184,91 @@ def voxelize_forward_plain(points, features, c: GridConsts) -> torch.Tensor:
     return vol.reshape(c.n, c.n, c.n, 1)
 
 
+def window_spans(points, c: GridConsts):
+    """The forward kernel's walk of each point's window (`window_span` in
+    csrc/p2v.cu): per axis the kept indices ``[lo, min(hi, lo + W - 1)]``
+    cut to those whose offset d has ``d * d <= cr^2``, ``(first (Q, 3),
+    last (Q, 3))`` int64, and whether every axis keeps one, (Q,) bool."""
+    lo, hi = _windows(points, c)
+    top = torch.minimum(hi, lo + (c.W - 1))
+    corner = torch.tensor(c.corner, dtype=torch.float32, device=points.device)
+    vs = torch.tensor(c.vs, dtype=torch.float32, device=points.device)
+    first = top + 1
+    last = top.clone()
+    for o in range(c.W):
+        k = lo + o
+        d = points - (k.float() * vs + corner)
+        ok = (k <= top) & (d * d <= c.cr2)
+        first = torch.where(ok, torch.minimum(first, k), first)
+        last = torch.where(ok, k, last)
+    return first, last, (first <= last).all(dim=1)
+
+
+def tile_boxes(points, c: GridConsts, block: int = TILE_BLOCK, cap: int = TILE_FLOATS):
+    """The forward kernel's blocks: per block of ``block`` consecutive
+    points the box of their spans (`window_spans`; a point with an empty
+    span adds nothing), ``(lo (B, 3), top (B, 3))`` int64 (a block with no
+    span: top < lo), and whether it fits a tile of ``cap`` voxels, (B,)
+    bool."""
+    first, last, live = window_spans(points, c)
+    Q = points.shape[0]
+    B = -(-Q // block)
+    pad = B * block - Q
+    big = torch.iinfo(torch.int64).max
+    first = torch.where(live[:, None], first, big)
+    last = torch.where(live[:, None], last, -1)
+    box_lo = torch.cat([first, first.new_full((pad, 3), big)]).reshape(B, block, 3).amin(dim=1)
+    box_top = torch.cat([last, last.new_full((pad, 3), -1)]).reshape(B, block, 3).amax(dim=1)
+    empty = ~torch.cat([live, live.new_zeros(pad)]).reshape(B, block).any(dim=1)
+    box_top = torch.where(empty[:, None], box_lo - 1, box_top)
+    return box_lo, box_top, (box_top - box_lo + 1).clamp(min=0).prod(dim=1) <= cap
+
+
+def voxelize_forward_tiled_plain(points, features, c: GridConsts, block: int = TILE_BLOCK,
+                                 cap: int = TILE_FLOATS):
+    """Plain mirror of the forward kernel's sum order: (volume (n, n, n,
+    1), census). A block whose box fits ``cap`` voxels sums its points'
+    terms into its tile (shared adds), then adds each non-zero tile voxel
+    into the grid (global adds); any other block adds its terms into the
+    grid. Terms are the plain version's; the census counts ``blocks``,
+    ``tiled`` blocks, ``shared_adds`` and ``global_adds``."""
+    _check(points, features)
+    dev = points.device
+    box_lo, box_top, tiled = tile_boxes(points, c, block, cap)
+    dims = (box_top - box_lo + 1).clamp(min=0)
+    size = torch.where(tiled, dims.prod(dim=1), 0)
+    start = torch.cumsum(size, 0) - size
+    tiles = torch.zeros(int(size.sum()), dtype=torch.float32, device=dev)
+    vol = torch.zeros(c.n ** 3, dtype=torch.float32, device=dev)
+    dens = features[:, -1]
+    n2 = c.n * c.n
+    shared = direct = 0
+    for rows, flat, valid, _, r2 in _walk(points, c):
+        contrib = torch.exp((-r2) / c.c2k) * dens[rows]
+        b = torch.arange(rows.start, rows.start + flat.shape[0], device=dev) // block
+        on_tile = valid & tiled[b]
+        off = valid & ~tiled[b]
+        ix, iy, iz = flat // n2, (flat // c.n) % c.n, flat % c.n
+        d, lo_b = dims[b], box_lo[b]
+        local = start[b] + ((ix - lo_b[:, 0]) * d[:, 1] + (iy - lo_b[:, 1])) * d[:, 2] + (iz - lo_b[:, 2])
+        tiles.index_add_(0, local[on_tile], contrib[on_tile])
+        vol.index_add_(0, flat[off], contrib[off])
+        shared += int(on_tile.sum())
+        direct += int(off.sum())
+    # Each tile's non-zero voxels into the grid, block by block.
+    tb = torch.repeat_interleave(torch.arange(tiled.shape[0], device=dev), size)
+    e = torch.arange(tiles.shape[0], device=dev) - start[tb]
+    d, lo_b = dims[tb], box_lo[tb]
+    plane = d[:, 1] * d[:, 2]
+    ix, r = lo_b[:, 0] + e // plane, e % plane
+    iy, iz = lo_b[:, 1] + r // d[:, 2], lo_b[:, 2] + r % d[:, 2]
+    keep = tiles != 0
+    vol.index_add_(0, ((ix * c.n + iy) * c.n + iz)[keep], tiles[keep])
+    census = dict(blocks=int(tiled.shape[0]), tiled=int(tiled.sum()), shared_adds=shared,
+                  global_adds=direct + int(keep.sum()))
+    return vol.reshape(c.n, c.n, c.n, 1), census
+
+
 def voxelize_backward_plain(points, features, c: GridConsts, grad_vol, want_points=True,
                             want_features=True):
     """Plain PyTorch version of the voxelize backward kernel: (d_points
@@ -225,6 +318,19 @@ def voxelize_forward_cuda(points, features, c: GridConsts) -> torch.Tensor:
     if points.shape[0]:
         VOXELIZE_FWD(*_grid_args(points, features, c), vol.data_ptr(), *_stream(dev))
     return vol.reshape(c.n, c.n, c.n, 1)
+
+
+def voxelize_tiles_cuda(points, features, c: GridConsts):
+    """The forward kernel with its census (`svox_voxelize_fwd_tiles`):
+    (volume, the number of blocks that took the shared tile)."""
+    _check_cuda(points, features, c, "voxelize_tiles_cuda")
+    dev = points.device
+    vol = torch.zeros(c.n ** 3, dtype=torch.float32, device=dev)
+    tiled = torch.zeros(1, dtype=torch.int32, device=dev)
+    if points.shape[0]:
+        VOXELIZE_FWD_TILES(*_grid_args(points, features, c), vol.data_ptr(), tiled.data_ptr(),
+                           *_stream(dev))
+    return vol.reshape(c.n, c.n, c.n, 1), int(tiled.item())
 
 
 def voxelize_backward_cuda(points, features, c: GridConsts, grad_vol, want_points=True,

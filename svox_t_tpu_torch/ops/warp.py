@@ -44,6 +44,14 @@ WARP_BWD = Kernel(
      c_int, c_void_p],                                             # device, stream
 )
 
+# The backward kernel's threads a block, points a thread sums in registers
+# and joints its register cache holds (`kThreads`, `kRun`, `kSlots` in
+# csrc/warp.cu).
+RUN_BLOCK = 256
+RUN_POINTS = 8
+RUN_SLOTS = 4
+WARP = 32
+
 
 def kernel_max_joints() -> int:
     """Largest joint count the backward kernel's shared (J, 12) table
@@ -209,6 +217,115 @@ def warp_backward_plain(T, x, w, ji, g_x, g_M, want_T=True, want_x=True, want_w=
             dT[:, :3, :].index_add_(0, jw[kb, b], terms.double())
         dT = dT.to(T.dtype)
     return dT, dx, dw
+
+
+def _warp_flush_adds(ids, rounds: int) -> tuple:
+    """The adds that csrc/warp.cu's `warp_flush` makes of the entries
+    ``ids`` (threads, k) (-1: none), threads in whole warps: (warp adds, a
+    joint's sum each; lane adds). An entry k whose joint is one in all 32
+    lanes is one warp add; then each of ``rounds`` rounds takes the joint of
+    the first lane's first entry left, a warp add if another lane's first
+    entry left names it too, else lane adds; the entries left after the
+    rounds are lane adds."""
+    k = ids.shape[1]
+    w = ids.reshape(-1, WARP, k)
+    uniform = (w == w[:, :1]).all(dim=1)
+    adds = int((uniform & (w[:, 0] >= 0)).sum())
+    left = (w >= 0) & ~uniform[:, None, :]
+    flat = w.reshape(-1, WARP * k)
+    rows = torch.arange(flat.shape[0], device=ids.device)
+    lane_adds = 0
+    for _ in range(rounds):
+        lw = left.reshape(-1, WARP * k)
+        has = lw.any(dim=1)
+        if not bool(has.any()):
+            break
+        j = torch.where(has, flat[rows, lw.int().argmax(dim=1)], -2)
+        # The first lane's first entry left names j; a joint that no other
+        # lane's first entry left names goes lane by lane.
+        mine = torch.where(left.any(dim=2), w.gather(2, left.int().argmax(dim=2, keepdim=True))[..., 0], -1)
+        take = left & (w == j[:, None, None])
+        shared = (mine == j[:, None]).sum(dim=1) >= 2
+        adds += int((has & shared).sum())
+        lane_adds += int((take & ~shared[:, None, None]).sum())
+        left = left & ~take
+    return adds, lane_adds + int(left.sum())
+
+
+def warp_dT_runs_plain(T, x, w, ji, g_x, g_M, block: int = RUN_BLOCK, run: int = RUN_POINTS,
+                       slots: int = RUN_SLOTS):
+    """Plain mirror of the backward kernel's dT sum order: (dT (J, 4, 4),
+    census). Warp v of block k takes ``run`` steps of 32 consecutive
+    points (lane l's step r: point k * block * run + v * 32 * run + r * 32
+    + l), and each thread sums each kept bone's term w_b G in float32 into
+    a cache of ``slots`` joints (a hit adds into its slot; a miss flushes
+    the least recently used slot into the block's table first); the run's
+    end flushes every slot. The block tables are summed into dT. The terms
+    are `warp_backward_plain`'s, summed into the tables lane by lane; the
+    kernel's warps add each flush joint by joint (`_warp_flush_adds`),
+    which the census counts: ``terms``, ``hits``, ``evictions`` (slots
+    flushed on a miss), ``evict_warp_adds`` and ``evict_lane_adds`` (their
+    adds), ``end_warp_adds`` and ``end_lane_adds`` (the run's end's), and
+    ``shared_adds`` (12 an add)."""
+    _check(T, x, w, ji)
+    Q, nb = w.shape
+    J = T.shape[0]
+    dev = T.device
+    G = _outer_grad(x, g_x, g_M)
+    if G is None:
+        G = torch.zeros(Q, 3, 4, dtype=T.dtype, device=dev)
+    G = G.reshape(Q, 12)
+    span = block * run
+    B = -(-Q // span)
+    # (threads, run): the point of each thread's step, Q and past for none.
+    q = torch.arange(B * span, device=dev).reshape(B, block // WARP, run, WARP).transpose(2, 3).reshape(-1, run)
+    n = q.shape[0]
+    blk = torch.arange(n, device=dev) // block
+    ids = torch.full((n, slots), -1, dtype=torch.int64, device=dev)
+    used = torch.full((n, slots), -1, dtype=torch.int64, device=dev)
+    sums = torch.zeros(n, slots, 12, dtype=torch.float32, device=dev)
+    table = torch.zeros(B * J, 12, dtype=torch.float32, device=dev)
+    rows = torch.arange(n, device=dev)
+    j = ji.long()
+    jw = torch.where(j < 0, j + J, j)
+    keep = (w > 0) & (jw >= 0) & (jw < J)
+    census = dict(terms=0, hits=0, evictions=0, evict_warp_adds=0, evict_lane_adds=0)
+    step = 0
+    for r in range(run):
+        qr = q[:, r]
+        live = qr < Q
+        qc = qr.clamp(max=max(Q - 1, 0))
+        for b in range(nb):
+            step += 1
+            ok = live & keep[qc, b]
+            jb = jw[qc, b]
+            term = w[qc, b, None] * G[qc]
+            hit = (ids == jb[:, None]) & ok[:, None]
+            sums = torch.where(hit[:, :, None], sums + term[:, None, :], sums)
+            used = torch.where(hit, step, used)
+            miss = ok & ~hit.any(dim=1)
+            victim = used.argmin(dim=1)
+            out = miss & (ids[rows, victim] >= 0)
+            table.index_add_(0, (blk * J + ids[rows, victim])[out], sums[rows, victim][out])
+            warp_adds, lane_adds = _warp_flush_adds(torch.where(out, ids[rows, victim], -1)[:, None], 2 * slots)
+            census["evict_warp_adds"] += warp_adds
+            census["evict_lane_adds"] += lane_adds
+            at = miss[:, None] & (torch.arange(slots, device=dev) == victim[:, None])
+            ids = torch.where(at, jb[:, None], ids)
+            used = torch.where(at, step, used)
+            sums = torch.where(at[:, :, None], term[:, None, :], sums)
+            census["terms"] += int(ok.sum())
+            census["hits"] += int(hit.any(dim=1).sum())
+            census["evictions"] += int(out.sum())
+    # The run's end: every slot left to the table.
+    live = ids >= 0
+    table.index_add_(0, (blk[:, None] * J + ids)[live], sums[live])
+    census["end_warp_adds"], census["end_lane_adds"] = _warp_flush_adds(ids, 2 * slots)
+    census["shared_adds"] = 12 * (census["evict_warp_adds"] + census["evict_lane_adds"]
+                                  + census["end_warp_adds"] + census["end_lane_adds"])
+    dT = torch.zeros(J, 4, 4, dtype=T.dtype, device=dev)
+    dT[:, :3, :] = table.reshape(B, J, 12).sum(dim=0).reshape(J, 3, 4)
+    return dT, census
 
 
 def _check_cuda(T, x, w, ji, name: str) -> None:

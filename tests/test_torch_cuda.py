@@ -551,6 +551,122 @@ def test_warp_backward_at_the_shared_table_limit(cuda):
         twarp.warp_backward_cuda(T2, x, w, ji, g_x, None)
 
 
+def _morton_cloud(Q, seed, bits=7):
+    """Q random points in the unit cube in Morton order of a 2^bits grid,
+    as the shell's rows go within a level."""
+    pts = np.random.RandomState(seed).rand(Q, 3).astype(np.float32)
+    g = (pts * (1 << bits)).astype(np.int64)
+    code = np.zeros(Q, np.int64)
+    for b in range(bits):
+        for a in range(3):
+            code |= ((g[:, a] >> b) & 1) << (3 * b + a)
+    return pts[np.argsort(code, kind="stable")]
+
+
+def _skinned_rig(cuda, Q, J, nb, seed):
+    """A Morton-ordered cloud skinned to its nb nearest of J seeded joints,
+    transforms near the identity: the rows of neighbouring points share
+    their joints, as the deep dynamic rig's do."""
+    pts = _morton_cloud(Q, seed)
+    joints = (0.3 + 0.4 * np.random.RandomState(seed + 1).rand(J, 3)).astype(np.float32)
+    sw, ji = skin_to_nearest_joints(pts, joints, nb)
+    rng = np.random.RandomState(seed + 2)
+    T = (np.eye(4) + 0.1 * rng.randn(J, 4, 4)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(cuda) for a in (T, pts, sw, ji))
+
+
+# The warp backward's callers (PERF.md §6): (a) phase 6, J 32, nb 4, both
+# output gradients, all three input gradients; (b) the pose fit, g_x only,
+# dT only; (c) bench.py's rig, J 2, nb 2, both output gradients, dT only.
+WARP_CALLERS = {"a": (32, 4, True, True, (True, True, True)),
+                "b": (32, 4, True, False, (True, False, False)),
+                "c": (2, 2, True, True, (True, False, False))}
+
+
+@pytest.mark.parametrize("shape", sorted(WARP_CALLERS))
+def test_warp_backward_at_its_callers_shapes(cuda, shape):
+    J, nb, with_gx, with_gm, want = WARP_CALLERS[shape]
+    T, x, w, ji = _skinned_rig(cuda, 200000, J, nb, seed=50 + J)
+    if shape == "c":
+        w = torch.stack([1.0 - x[:, 2], x[:, 2]], dim=1).contiguous()
+        ji = torch.tensor([0, 1], dtype=torch.int32, device=cuda).repeat(x.shape[0], 1)
+    gen = torch.Generator().manual_seed(J)
+    g_x = torch.randn(x.shape, generator=gen).to(cuda) if with_gx else None
+    g_M = torch.randn(x.shape[0], 4, 4, generator=gen).to(cuda) if with_gm else None
+    before = twarp.WARP_BWD.launches
+    got = twarp.warp_backward_cuda(T, x, w, ji, g_x, g_M, *want)
+    ref = twarp.warp_backward_plain(T, x, w, ji, g_x, g_M, *want)
+    _assert_atomic_close(got[0], ref[0])
+    for g_, r_ in zip(got[1:], ref[1:]):
+        assert (g_ is None) == (r_ is None) and (g_ is None or torch.equal(g_, r_))
+    runs = twarp.warp_dT_runs_plain(T, x, w, ji, g_x, g_M)[0]
+    _assert_atomic_close(runs, ref[0])
+    torch.cuda.synchronize()
+    assert twarp.WARP_BWD.launches == before + 1
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 4])
+def test_warp_backward_unaligned_rows(cuda, nb):
+    """Weights, ids and g_M off their 16-byte alignment (the scalar
+    instance), beside the aligned call, at the rows' tolerances."""
+    T, x, w, ji = _skinned_rig(cuda, 30000, 8, nb, seed=60 + nb)
+    gen = torch.Generator().manual_seed(nb)
+    g_x = torch.randn(x.shape, generator=gen).to(cuda)
+    g_M = torch.randn(x.shape[0], 4, 4, generator=gen).to(cuda)
+    w_off = torch.empty(w.numel() + 1, device=cuda)[1:].view_as(w).copy_(w)
+    ji_off = torch.empty(ji.numel() + 1, dtype=torch.int32, device=cuda)[1:].view_as(ji).copy_(ji)
+    gm_off = torch.empty(g_M.numel() + 1, device=cuda)[1:].view_as(g_M).copy_(g_M)
+    T_off = torch.empty(T.numel() + 1, device=cuda)[1:].view_as(T).copy_(T)
+    ref = twarp.warp_backward_plain(T, x, w, ji, g_x, g_M)
+    for args in ((T, x, w, ji, g_x, g_M), (T_off, x, w_off, ji_off, g_x, gm_off)):
+        dT, dx, dw = twarp.warp_backward_cuda(*args)
+        _assert_atomic_close(dT, ref[0])
+        assert torch.equal(dx, ref[1]) and torch.equal(dw, ref[2])
+
+
+def _voxelize_order(cloud, order):
+    """The Morton-ordered cloud in ``order``: as it is, shuffled, or its
+    first half as it is and its second half shuffled."""
+    Q = cloud.shape[0]
+    perm = torch.from_numpy(np.random.RandomState(70).permutation(Q)).to(cloud.device)
+    if order == "morton":
+        return cloud
+    if order == "shuffled":
+        return cloud[perm].contiguous()
+    tail = perm[perm >= Q // 2]
+    return torch.cat([cloud[: Q // 2], cloud[tail]])
+
+
+@pytest.mark.parametrize("order", ["morton", "shuffled", "half"])
+def test_voxelize_forward_tiles_match_plain(cuda, order):
+    """The tile path (Morton order), the direct splat (shuffled) and both
+    in one launch (half and half), each against plain, and the blocks that
+    took the tile counted as the plain mirror counts them."""
+    # Dense enough (in the cube [0.4, 0.6]^3) for most Morton blocks' boxes to fit the tile.
+    cloud = torch.from_numpy(0.4 + 0.2 * _morton_cloud(300000, 71)).to(cuda)
+    pts = _voxelize_order(cloud, order)
+    feats = (torch.rand(pts.shape[0], 2, generator=torch.Generator().manual_seed(72)) + 0.1).to(cuda)
+    c = tp2v.grid_consts([0, 0, 0], [1, 1, 1], 257, 0.00363, 0.00727)
+    want = tp2v.voxelize_forward_plain(pts, feats, c)
+    before = tp2v.VOXELIZE_FWD.launches
+    got = tp2v.voxelize_forward_cuda(pts, feats, c)
+    _assert_atomic_close(got, want)
+    counted, tiled = tp2v.voxelize_tiles_cuda(pts, feats, c)
+    _assert_atomic_close(counted, want)
+    mirror, census = tp2v.voxelize_forward_tiled_plain(pts, feats, c)
+    _assert_atomic_close(mirror, want)
+    assert tiled == census["tiled"] == int(tp2v.tile_boxes(pts, c)[2].sum())
+    blocks = census["blocks"]
+    if order == "morton":
+        assert tiled > blocks // 2
+    elif order == "shuffled":
+        assert tiled == 0
+    else:
+        assert 0 < tiled < blocks
+    torch.cuda.synchronize()
+    assert tp2v.VOXELIZE_FWD.launches == before + 1
+
+
 def _p2v_cloud(cuda, Q, F, seed):
     rng = np.random.RandomState(seed)
     pts = rng.rand(Q, 3).astype(np.float32)

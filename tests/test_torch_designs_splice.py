@@ -1,15 +1,18 @@
 """The A/B tools' designs of K8b's query forward (`tools/query_ab.py`), of
 K9a, the opacity VJP (`tools/render_bwd_ab.py --opacity`), of K14a, the
-subset gather (`tools/subset_gather_ab.py`), and of K8a with its box form
-(`tools/construct_tree_ab.py`), on the CPU: the kernels build only on a
-card, but each design is a text patch of the shipped source, and the
-designs that lost live in `tools/*_designs.cuh`.
+subset gather (`tools/subset_gather_ab.py`), of K8a with its box form
+(`tools/construct_tree_ab.py`), of K10's backward (`tools/warp_bwd_ab.py`)
+and of K11's forward (`tools/voxelize_ab.py`), on the CPU: the kernels
+build only on a card, but each design is a text patch of the shipped
+source, and the designs that lost live in `tools/*_designs.cuh`.
 
   * every design's patches apply to the header as it is (each exactly
     once), and a design that launches a lost kernel finds it in the
     designs file;
   * the opacity designs file's levers default to the shipped kernel's, and
-    each design sets the levers it names;
+    each design sets the levers it names; the K10 and K11 designs files
+    define no lever of their own sources, whose levers the plain mirrors
+    (`ops/warp.py`, `ops/p2v.py`) repeat;
   * `chip_smoke.query_fwd_work`, the query forward's bytes and operations
     that the smoke's phase 6 and `tools/query_ab.py` count, on a small case,
     and `chip_smoke.subset_gather_bytes`, K14a's, likewise.
@@ -28,8 +31,13 @@ import query_ab  # noqa: E402
 import render_bwd_ab  # noqa: E402
 import render_fwd_ab  # noqa: E402
 import subset_gather_ab  # noqa: E402
+import voxelize_ab  # noqa: E402
+import warp_bwd_ab  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from svox_t_tpu_torch import _build  # noqa: E402
+from svox_t_tpu_torch.ops import p2v as p2v_ops  # noqa: E402
+from svox_t_tpu_torch.ops import warp as warp_ops  # noqa: E402
 
 
 @pytest.mark.parametrize("design", sorted(query_ab.DESIGNS))
@@ -129,3 +137,67 @@ def test_subset_gather_bytes_counts_streams():
     assert chip_smoke.subset_gather_bytes(B, n) == base
     assert chip_smoke.subset_gather_bytes(B, n, t=True, cell=True) == base + n * 16
     assert chip_smoke.subset_gather_bytes(B, n, rays=True) == base + B * 48
+
+
+def _design_text(tool, tmp_path, design):
+    sources = warp_bwd_ab.design_sources(tmp_path, None, {design: tool.DESIGNS[design]}, tool.SOURCE,
+                                         tool.DESIGN_FILE, tool.UNIT)
+    csrc, units = sources[design]
+    assert units == tool.UNIT and (csrc / tool.DESIGN_FILE).exists()
+    return (csrc / tool.SOURCE).read_text()
+
+
+@pytest.mark.parametrize("design", sorted(warp_bwd_ab.DESIGNS))
+def test_warp_bwd_design_patches_apply(tmp_path, design):
+    text = _design_text(warp_bwd_ab, tmp_path, design)
+    spliced = f'#include "{warp_bwd_ab.DESIGN_FILE}"' in text
+    assert spliced == (design in ("tile", "slot_flush", "lane_flush"))
+    designs = (TOOLS / warp_bwd_ab.DESIGN_FILE).read_text()
+    if design == "tile":
+        assert "  return launch_tile(p, g, smem, vec_bones, stream);" in text
+        assert "cudaError_t launch_tile(" in designs
+    if design in ("slot_flush", "lane_flush"):
+        name = {"slot_flush": "cache_flush_slots", "lane_flush": "cache_flush_lanes"}[design]
+        assert f"    {name}(c, table);" in text and f"void {name}(" in designs
+    if design in ("r4", "r16"):
+        assert f"constexpr int kRun = {design[1:]};" in text
+    if design == "no_adds":
+        assert "cache_add(c, table," not in text
+    if design == "scalar":
+        assert "const bool vec_bones = false;" in text and "dx, dw, false, false};" in text
+    if design == "stride256":
+        assert "const int q = q0 + r * kThreads;" in text
+    if design == "evict_lane":
+        assert "warp_flush<1>(out, vs, table);" not in text
+    if design == "lb3":
+        assert "__launch_bounds__(kThreads, 3)\nwarp_bwd_kernel(" in text
+
+
+@pytest.mark.parametrize("design", sorted(voxelize_ab.DESIGNS))
+def test_voxelize_design_patches_apply(tmp_path, design):
+    text = _design_text(voxelize_ab, tmp_path, design)
+    if design in ("gather", "pairs", "no_atomics"):
+        assert f"  return launch_{design}(a, vol, tiled, stream);" in text
+        assert f'#include "{voxelize_ab.DESIGN_FILE}"' in text
+        assert f"cudaError_t launch_{design}(" in (TOOLS / voxelize_ab.DESIGN_FILE).read_text()
+        assert text.count("namespace {") == text.count("}  // namespace") == 2
+    if design.startswith("cap"):
+        assert ("constexpr int kTileFloats = 8192;" in text) == (design == "cap8k")
+    if design == "full_walk":
+        assert "if (s > a.cr2) continue;" not in text and "      if (true) {" in text
+
+
+def test_warp_p2v_designs_files_defaults_are_the_shipped_levers():
+    warp = (_build.CSRC / "warp.cu").read_text()
+    p2v = (_build.CSRC / "p2v.cu").read_text()
+    assert f"constexpr int kThreads = {warp_ops.RUN_BLOCK};" in warp
+    assert f"constexpr int kRun = {warp_ops.RUN_POINTS};" in warp
+    assert f"constexpr int kSlots = {warp_ops.RUN_SLOTS};" in warp
+    assert f"constexpr int kThreads = {p2v_ops.TILE_BLOCK};" in p2v
+    assert f"constexpr int kTileFloats = {p2v_ops.TILE_FLOATS};" in p2v
+    for name, levers in (("warp_designs.cuh", ("kThreads", "kRun", "kSlots", "kRowStride")),
+                         ("p2v_designs.cuh", ("kThreads", "kTileFloats"))):
+        designs = (TOOLS / name).read_text()
+        assert not any(f"constexpr int {lever} =" in designs for lever in levers)
+    # The shipped sources carry only what ships.
+    assert "tile_kernel" not in warp and "gather" not in p2v and "no_atomics" not in p2v

@@ -16,6 +16,7 @@ import torch
 
 import svox_t_tpu as st
 import svox_t_tpu_torch as stt
+from svox_t_tpu_torch.utils.scenes import skin_to_nearest_joints
 
 ATOL = 1e-6
 
@@ -249,3 +250,108 @@ def test_voxelize_grad_only_where_asked():
                                                  want_points=False)
     assert dp is None
     np.testing.assert_array_equal(df.numpy(), f.grad.numpy())
+
+
+# ---------------------------------------------------------------------------
+# The kernels' sum orders, through their plain mirrors
+# ---------------------------------------------------------------------------
+
+
+def _morton_cloud(seed, Q, bits=6):
+    """Q random points in the unit cube in Morton order of a 2^bits grid,
+    as the shell's rows go within a level."""
+    pts = np.random.RandomState(seed).rand(Q, 3).astype(np.float32)
+    g = (pts * (1 << bits)).astype(np.int64)
+    code = np.zeros(Q, np.int64)
+    for b in range(bits):
+        for a in range(3):
+            code |= ((g[:, a] >> b) & 1) << (3 * b + a)
+    return pts[np.argsort(code, kind="stable")]
+
+
+ORDERS = ("morton", "shuffled")
+
+
+def _ordered(a, order, seed=5):
+    if order == "morton":
+        return a
+    return a[np.random.RandomState(seed).permutation(len(a))]
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("nb", [2, 4])
+def test_warp_runs_mirror_matches_jax(order, nb):
+    """dT summed as the backward kernel sums it (runs of points, kThreads
+    apart, in a register cache of joints; `warp_dT_runs_plain`) against
+    the JAX package's VJP, on a cloud skinned to its nb nearest joints."""
+    Q, J = 4096, 6
+    pts = _morton_cloud(11, Q)
+    joints = np.random.RandomState(12).rand(J, 3).astype(np.float32)
+    sw, ji = skin_to_nearest_joints(pts, joints, nb)
+    rng = np.random.RandomState(13)
+    T = (np.eye(4) + 0.1 * rng.randn(J, 4, 4)).astype(np.float32)
+    g_x = rng.randn(Q, 3).astype(np.float32)
+    g_M = rng.randn(Q, 4, 4).astype(np.float32)
+    _, vjp = jax.vjp(lambda T_: st.warp_vertices(T_, jnp.asarray(pts), jnp.asarray(sw), jnp.asarray(ji)),
+                     jnp.asarray(T))
+    want = np.asarray(vjp((jnp.asarray(g_x), jnp.asarray(g_M)))[0])
+    perm = _ordered(np.arange(Q), order)
+    dT, census = stt.ops.warp.warp_dT_runs_plain(_t(T), *(_t(a[perm]) for a in (pts, sw, ji, g_x, g_M)))
+    assert _rel(dT.numpy(), want) <= 1e-5
+    assert census["terms"] == Q * nb
+    assert census["hits"] + census["evictions"] <= census["terms"]
+    adds = ("evict_warp_adds", "evict_lane_adds", "end_warp_adds", "end_lane_adds")
+    assert census["shared_adds"] == 12 * sum(census[k] for k in adds)
+    assert census["evict_warp_adds"] + census["evict_lane_adds"] <= census["evictions"]
+
+
+def test_warp_runs_mirror_one_rig():
+    """bench.py's rig (two joints, every point on both): every term after a
+    thread's first two hits its cache, nothing is evicted, and each warp
+    adds each joint once at its run's end."""
+    Q = 2 * stt.ops.warp.RUN_BLOCK * stt.ops.warp.RUN_POINTS
+    pts = _morton_cloud(14, Q)
+    sw = np.stack([1.0 - pts[:, 2], pts[:, 2]], 1).astype(np.float32)
+    ji = np.tile(np.array([0, 1], np.int32), (Q, 1))
+    T = (np.eye(4) + 0.1 * np.random.RandomState(15).randn(2, 4, 4)).astype(np.float32)
+    g_x = np.random.RandomState(16).randn(Q, 3).astype(np.float32)
+    dT, census = stt.ops.warp.warp_dT_runs_plain(_t(T), _t(pts), _t(sw), _t(ji), _t(g_x), None)
+    want = stt.ops.warp.warp_backward_plain(_t(T), _t(pts), _t(sw), _t(ji), _t(g_x), None, True, False, False)[0]
+    assert _rel(dT.numpy(), want.numpy()) <= 1e-5
+    threads = Q // stt.ops.warp.RUN_POINTS
+    assert census["evictions"] == 0 and census["end_lane_adds"] == 0
+    assert census["hits"] == 2 * Q - 2 * threads
+    assert census["end_warp_adds"] == 2 * threads // stt.ops.warp.WARP
+
+
+@pytest.mark.parametrize("order", ORDERS)
+@pytest.mark.parametrize("grid", sorted(GRIDS))
+def test_voxelize_tiled_mirror_matches_jax(order, grid):
+    """The volume summed as the forward kernel sums it (per block of
+    consecutive points a tile of their windows' box where it fits, else
+    straight into the grid; `voxelize_forward_tiled_plain`) against the
+    JAX package, with the kernel's tile and a small one that only some
+    blocks fit."""
+    pts = _ordered(_morton_cloud(21, 2048), order)
+    feats = (np.random.RandomState(22).rand(len(pts), 2) + 0.1).astype(np.float32)
+    args = GRIDS[grid]
+    want = np.asarray(st.voxelize(jnp.asarray(pts), jnp.asarray(feats), *args))
+    c = stt.ops.p2v.grid_consts(*args)
+    tiled = []
+    for cap in (stt.ops.p2v.TILE_FLOATS, 1100):
+        got, census = stt.ops.p2v.voxelize_forward_tiled_plain(_t(pts), _t(feats), c, block=128, cap=cap)
+        assert _rel(got.numpy(), want) <= 1e-5
+        _, _, fits = stt.ops.p2v.tile_boxes(_t(pts), c, block=128, cap=cap)
+        assert census["blocks"] == 16 and census["tiled"] == int(fits.sum())
+        if census["tiled"] == census["blocks"]:
+            assert census["shared_adds"] > census["global_adds"]
+        tiled.append(census["tiled"])
+    assert tiled[0] == 16
+    if order == "morton":
+        assert 0 < tiled[1] < 16
+    else:
+        assert tiled[1] == 0
