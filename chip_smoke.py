@@ -620,8 +620,11 @@ POOL_KERNELS = {f"{base}{sfx}_{kind}": inst[kind][i]
                 for i, sfx in enumerate(render_ops._STRUCT_SUFFIXES)}
 COUNTERS.update(POOL_KERNELS)
 COUNTERS.update(query_fwd_bf16=query_ops.QUERY_FWD_BF16, query_bwd_bf16=query_ops.QUERY_BWD_BF16)
-# K13: the tape recorder on each structure, the replay per pool type.
+# K13: the tape recorder on each structure (the one walk and its copy, and
+# the earlier count and record walks), the replay per pool type.
 TAPE_KERNELS = {
+    "tape_stage": tape_ops.TAPE_STAGE, "tape_stage_baked": tape_ops.TAPE_STAGE_BAKED,
+    "tape_copy": tape_ops.TAPE_COPY, "tape_copy_baked": tape_ops.TAPE_COPY_BAKED,
     "tape_count": tape_ops.TAPE_COUNT, "tape_count_baked": tape_ops.TAPE_COUNT_BAKED,
     "tape_record": tape_ops.TAPE_RECORD, "tape_record_baked": tape_ops.TAPE_RECORD_BAKED,
     "tape_replay_fwd": tape_ops.TAPE_REPLAY_FWD, "tape_replay_fwd_bf16": tape_ops.TAPE_REPLAY_FWD_BF16,
@@ -680,6 +683,9 @@ INT8_ERR_RAYS = 8192
 # plain version and timed all the same.
 OFF_PATH = {"points_aabb": "every re-point that keeps a box takes the fused construct_tree_aabb; "
                            "points_leaf_aabb's own kernel serves direct callers"}
+for _k in ("tape_count", "tape_count_baked", "tape_record", "tape_record_baked"):
+    OFF_PATH[_k] = ("record_tape walks each ray once (tape_stage, then tape_copy); the count and record "
+                    "walks serve direct callers (count_samples_cuda, record_samples_cuda)")
 
 # The kernel-name suffix and the label of each backend in the output.
 SUFFIX = {"baked": "_baked", "tree": ""}
@@ -1731,7 +1737,7 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
     t_3g = time.perf_counter()
     M = feats.shape[0]
     rng = np.random.RandomState(13)
-    plain_ms, err, stats = {}, {}, {}
+    plain_ms, err, stats, chunks = {}, {}, {}, {}
 
     def note(name, e):
         err[name] = max(err.get(name, 0.0), e)
@@ -1760,7 +1766,38 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
                     for name, a, b_ in zip(("idx", "dt", "cell", "tval", "dscale"),
                                            (tp.idx, tp.dt, tp.cell, tp.tval, tp.dscale), want):
                         check(torch.equal(a, b_), f"tape_record {label}: kernel and plain {name} differ")
+                    # The one walk (tape_stage, tape_copy) against the earlier
+                    # pair: K13b at K13a's offsets.
+                    pair = tape_ops.record_samples_cuda(spec, M, origins, dirs, opt, tp.offsets, compact, True,
+                                                        True, True)
+                    check(all(torch.equal(a, b_) for a, b_ in zip((tp.idx, tp.dt, tp.cell, tp.tval, tp.dscale),
+                                                                   pair)),
+                          f"tape {label}: the one-walk tape is not the count and record walks' bit for bit")
+                    del pair
+                    if compact and not fast:
+                        # An arena of one chunk: the walk reruns with the
+                        # capacity it reported, and the tape is the same.
+                        reruns = tape_ops.ARENA_RERUNS["reruns"]
+                        ov = tape_ops.record_streams(spec, M, origins, dirs, opt, True, True, True, True,
+                                                     capacity=1)
+                        check(tape_ops.ARENA_RERUNS["reruns"] == reruns + 1 and ov[2] == tp.S
+                              and all(torch.equal(a, b_) for a, b_ in zip(
+                                  ov[:2] + ov[3:], (tp.counts, tp.offsets, tp.idx, tp.dt, tp.cell, tp.tval,
+                                                    tp.dscale))),
+                              f"tape {label}: an arena of one chunk gives another tape")
+                        del ov
+                        st_p, plain_ms["tape_stage" + sfx] = timed_once_ms(
+                            lambda: tape_ops.stage_samples_plain(spec, M, origins, dirs, opt, True, True, True,
+                                                                 False))
+                        cp_p, plain_ms["tape_copy" + sfx] = timed_once_ms(
+                            lambda: tape_ops.copy_samples_plain(spec, opt, st_p, int(st_p.n_chunks[0]),
+                                                                tp.offsets, tp.n_samples))
+                        check(all(torch.equal(a, b_) for a, b_ in zip(cp_p[:3], (tp.idx, tp.dt, tp.cell))),
+                              f"tape {label}: the plain walk and copy differ from the kernels' tape")
+                        del st_p, cp_p
                     stats[sfx, fast, compact] = tp.n_samples
+                    if compact and not fast:
+                        chunks[sfx] = int(((tp.counts + tape_ops.ARENA_CHUNK - 1) // tape_ops.ARENA_CHUNK).sum())
                     out = tape_ops.replay_forward_cuda(tp, feats, opt, spec)[0]
                     check(torch.equal(out, out_k2), f"tape_replay_fwd {label}: not K2 bit for bit")
                     out_w, w = tape_ops.replay_forward_cuda(tp, feats, opt, spec, True)
@@ -1927,12 +1964,13 @@ def tape_kernel_phase(state, tree_spec, baked, feats, rot, origins, dirs, center
         print(f"indirect tape ({tp.n_samples} cells) after a re-point of {M} rows: replay equal to K2 on the "
               f"re-pointed tree bit for bit, vs plain {e:.3g}; depth equal to plain and to K9b bit for bit")
         del tp, itree, dpool
-    for name in ("tape_count", "tape_count_baked", "tape_record", "tape_record_baked", "tape_depth"):
+    for name in ("tape_stage", "tape_stage_baked", "tape_copy", "tape_copy_baked", "tape_count",
+                 "tape_count_baked", "tape_record", "tape_record_baked", "tape_depth"):
         kernels[name]["max_abs_err"] = 0.0
     for name, e in err.items():
         kernels[name]["max_abs_err"] = e
     print(f"phase 3g {time.perf_counter() - t_3g:.1f} s")
-    return dict(plain_ms=plain_ms, samples=stats)
+    return dict(plain_ms=plain_ms, samples=stats, chunks=chunks)
 
 
 def tape_path(backend: str, state: dict, frame_feats, true_pool, pool0, c2w, dev) -> dict:
@@ -2114,6 +2152,7 @@ def dynamic_tape_path(backend: str, state: dict, feats, rig, c2w, dev) -> dict:
     g2 = torch.from_numpy(np.random.RandomState(15).randn(2, WIDTH * HEIGHT, 4).astype(np.float32)).to(dev)
     res, out, grads = {}, {}, {}
     reset_counts()
+    reruns = tape_ops.ARENA_RERUNS["reruns"]
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2140,7 +2179,8 @@ def dynamic_tape_path(backend: str, state: dict, feats, rig, c2w, dev) -> dict:
             "tape_replay_fwd_frames_bf16": 1, "tape_replay_fwd_frames_i8": 1, "tape_depth": 3 * n_fr,
             "tape_replay_bwd_frames": 1, "tape_replay_bwd_frames_bf16": 1, "tape_replay_bwd": 0,
             "warp_fwd": 2 * n_fr + 3 * n_fr, "repoint": 2 * n_fr + 3 * n_fr,
-            "tape_count" + sfx: 4, "tape_record" + sfx: 4, "render_fwd" + sfx: 0, "first_hit" + sfx: 0}
+            "tape_stage" + sfx: 4 + tape_ops.ARENA_RERUNS["reruns"] - reruns, "tape_copy" + sfx: 4,
+            "render_fwd" + sfx: 0, "first_hit" + sfx: 0}
     for k, n in want.items():
         check(counts[k] == n, f"dynamic tape path ({backend}): {k} launched {counts[k]} times, not {n}")
     check_bwd_widths(counts, f"dynamic tape path ({backend})")
@@ -2361,7 +2401,7 @@ def tape_frames_bounds(c_b: dict, n: int, M: int, D: int, dc: dict) -> dict:
     return _bounds(out)
 
 
-def tape_bounds(c: dict, c_b: dict, n_samples: dict, M: int, D: int) -> dict:
+def tape_bounds(c: dict, c_b: dict, n_samples: dict, M: int, D: int, chunks: dict) -> dict:
     """bound_ms and bound_by of the tape kernels, from the SH9 camera
     march's census on each structure (``c`` the tree walk, ``c_b`` the
     bake) and the exact tapes' sample counts (``n_samples``; (structure
@@ -2371,7 +2411,12 @@ def tape_bounds(c: dict, c_b: dict, n_samples: dict, M: int, D: int) -> dict:
     ray, K15 in exact mode the same walk and 4 bytes a ray (its fast mode:
     `cost_bound`); K13b walks again, reads the offsets, and writes the compacted
     tape as the timed call records it (row, step and cell: 12 bytes a
-    sample) and dscale; K13c reads the offsets, the row and step streams,
+    sample) and dscale; the one walk (tape_stage) walks as K13a and writes
+    the counts, dscale, the staged samples (12 bytes a sample) and 8
+    bytes of owner a chunk (``chunks``: structure suffix -> the chunks of
+    the exact compacted tape); its copy (tape_copy) reads the staged
+    samples, the owners and the offsets and writes the tape (on the bake
+    also reading a src_map entry a sample); K13c reads the offsets, the row and step streams,
     dscale and the view direction, the rows its samples touch, and writes
     the output, with K2's compositing operations per contributing sample;
     K13d also reads the output and its gradient and writes the float32
@@ -2390,6 +2435,9 @@ def tape_bounds(c: dict, c_b: dict, n_samples: dict, M: int, D: int) -> dict:
         # K15 exact: K13a's walk, one count written (no sigma read).
         out["march_cost" + sfx] = (B * 24 + cc["cells"] * cell_b + B * 4, walk_ops)
         out["tape_record" + sfx] = (B * 24 + (B + 1) * 4 + cc["cells"] * cell_b + n * 12 + B * 4, walk_ops)
+        out["tape_stage" + sfx] = (B * 24 + cc["cells"] * cell_b + B * 12 + n * 12 + chunks[sfx] * 8, walk_ops)
+        out["tape_copy" + sfx] = (n * 12 + chunks[sfx] * 8 + (B + 1) * 4 + n * 12 + (n * 4 if cc["baked"] else 0),
+                                  0)
     n, R, B = n_samples["_baked", False, True], c_b["rows"], c_b["rays"]
     stream = (B + 1) * 4 + n * 8 + B * 16
     for kind, e in POOL_ELEM.items():
@@ -2429,6 +2477,37 @@ def tape_kernel_times(tp, specs: dict, feats, origins, dirs, opt, plain_ms: dict
                   f"{tp.n_samples} samples): kernel {c_ms:.4f} / {r_ms:.4f} ms (K2 on the same rays "
                   f"{k2_ms:.4f} ms), plain {plain_ms['tape_count' + sfx, False]:.1f} / "
                   f"{plain_ms['tape_record' + sfx, False, True]:.1f} ms (one call, phase 3g) [{card}]")
+            # The one walk and its copy, each alone, and the whole recording
+            # in turns with the earlier pair's as its record_tape launched
+            # it, host reads included: CUDA events over wrapper calls
+            # (tools/tape_record_ab.py times the kernels alone, L2 cold).
+            st = tape_ops.stage_samples_cuda(spec, M, origins, dirs, opt, True)
+            n_chunks, total = int(st.n_chunks[0]), int(offsets[-1])
+
+            def pair_tape():
+                n_o, _ = tape_ops.count_samples_cuda(spec, M, origins, dirs, opt)
+                offs = torch.zeros(n_o.shape[0] + 1, dtype=torch.int64, device=dev)
+                offs[1:] = torch.cumsum(n_o.long(), 0)
+                tape_ops.record_samples_cuda(spec, M, origins, dirs, opt, offs.to(torch.int32), True)
+                return int(n_o.max())
+
+            def one_walk():
+                return tape_ops.record_streams(spec, M, origins, dirs, opt, True)
+
+            reruns = tape_ops.ARENA_RERUNS["reruns"]
+            s_ms = time_ms(lambda: tape_ops.stage_samples_cuda(spec, M, origins, dirs, opt, True), KERNEL_REPS)
+            cp_ms = time_ms(lambda: tape_ops.copy_samples_cuda(spec, opt, st, n_chunks, offsets, total),
+                            KERNEL_REPS)
+            new_ms, old_ms = in_turns(one_walk, pair_tape, lambda fn: time_ms(fn, KERNEL_REPS))
+            check(tape_ops.ARENA_RERUNS["reruns"] == reruns, f"tape_stage{sfx}: the deep camera's arena ran short")
+            kernels["tape_stage" + sfx].update(ms=s_ms, plain_ms=plain_ms["tape_stage" + sfx], prev_ms=old_ms)
+            kernels["tape_copy" + sfx].update(ms=cp_ms, plain_ms=plain_ms["tape_copy" + sfx])
+            print(f"time tape_stage{sfx} / tape_copy{sfx} (the same rays, {n_chunks} chunks of "
+                  f"{tape_ops.ARENA_CHUNK}): kernel {s_ms:.4f} / {cp_ms:.4f} ms, plain "
+                  f"{plain_ms['tape_stage' + sfx]:.1f} / {plain_ms['tape_copy' + sfx]:.1f} ms; a recording in turns "
+                  f"(walk, cumsum, one host copy, copy against count, cumsum, record, three host reads): "
+                  f"{new_ms:.4f} / {old_ms:.4f} ms ({old_ms / new_ms:.3f}x) [{card}]")
+            del st
         spec = specs["_baked"]
         k2_ms = time_ms(lambda: render_ops.volume_render_cuda(spec, feats, origins, dirs, dirs, opt), KERNEL_REPS)
         out = tape_ops.replay_forward_cuda(tp, feats, opt, spec)[0]
@@ -3708,8 +3787,8 @@ def main() -> None:
     # `_replay_depth_impl`).
     for name in TAPE_KERNELS:
         base, sfx = name.split("_baked")[0], "_baked" if "_baked" in name else ""
-        if base in ("tape_count", "tape_record"):
-            src, line = f"tape_record{sfx}.cu", 260 if base == "tape_count" else 302
+        if base in ("tape_count", "tape_record", "tape_stage", "tape_copy"):
+            src, line = f"tape_record{sfx}.cu", 260 if base in ("tape_count", "tape_stage") else 302
         elif name == "tape_depth":
             src, line = "tape_depth.cu", 1311
         else:
@@ -4427,6 +4506,7 @@ def main() -> None:
     cost_res = cost_kernel_phase({"": spec, "_baked": baked}, feats, origins, dirs,
                                  {fast: sh_renderer._get_options(fast) for fast in (False, True)}, kernels)
 
+    arena_reruns = tape_ops.ARENA_RERUNS["reruns"]
     # 4. Main path, serving: three frames through the public entry points,
     # on the default baked backend (baked once, as at load; every re-point
     # then refreshes the bake) and on the tree walk.
@@ -5002,13 +5082,15 @@ def main() -> None:
     tape_counts, tape_ms = {}, {}
     for backend in BACKENDS:
         sfx = SUFFIX[backend]
+        reruns = tape_ops.ARENA_RERUNS["reruns"]
         res = tape_path(backend, state, frame_feats, true_pool, pool0, c2w, dev)
+        reruns = tape_ops.ARENA_RERUNS["reruns"] - reruns
         counts = tape_counts[backend] = res["counts"]
         print(f"main path, tapes ({LABEL[backend]}): launches {nonzero(counts)}, loss "
               f"{[round(x, 8) for x in res['losses']]}, host ms per frame (exact + fast replays; the first "
               f"records both tapes) {[round(x, 3) for x in res['frame_ms']]}; frames equal to render_persp "
               f"bit for bit")
-        want = {"tape_count" + sfx: 2, "tape_record" + sfx: 2, "tape_replay_fwd": 2 * N_FRAMES + 3,
+        want = {"tape_stage" + sfx: 2 + reruns, "tape_copy" + sfx: 2, "tape_replay_fwd": 2 * N_FRAMES + 3,
                 "tape_replay_bwd": 2, "tape_replay_fwd_bf16": 2, "tape_replay_fwd_i8": 1,
                 "tape_replay_bwd_bf16": 1, "render_fwd" + sfx: 0, "render_bwd" + sfx: 0}
         for k, n in want.items():
@@ -5098,6 +5180,8 @@ def main() -> None:
             check(kernels[k]["launches"] == 0, f"{k} launched on the main path: {OFF_PATH[k]}")
         else:
             check(kernels[k]["launches"] > 0, f"{k} not launched on the main path")
+    print(f"main path: the tape walks' arenas ran short {tape_ops.ARENA_RERUNS['reruns'] - arena_reruns} times "
+          f"(ARENA_RERUNS; each a rerun of tape_stage)")
 
     # 5. Times (CUDA events, after one warm-up), on the serving trees as
     # the last frame left them: the tree walk's kernels on the tree's
@@ -5686,7 +5770,7 @@ def main() -> None:
               f"[{card}]")
     p2v_c = p2v_census(warped1, grid)
     bounds.update(dynamic_bounds(M, N_BONES, N_JOINTS, 28, P2V_N, p2v_c, touched))
-    bounds.update(tape_bounds(census, census_b, tape_res["samples"], M, 28))
+    bounds.update(tape_bounds(census, census_b, tape_res["samples"], M, 28, tape_res["chunks"]))
     bounds.update(tape_frames_bounds(census_b, tape_res["samples"]["_baked", False, True], M, 28, dcensus))
     bounds.update(minibatch_bounds(mb_census))
     for sfx, c_ in cost_res["census"].items():
@@ -5712,7 +5796,9 @@ def main() -> None:
     # its frame axis: the scalar row; K13d and K13e, K2, K2+K4, K3 and K3+K4
     # and their pool instances: the earlier design; K9c and K9d: the scalar
     # instance, the earlier kernel's reads; construct_tree_aabb: the two
-    # calls it replaces, construct_tree and points_leaf_aabb), else null.
+    # calls it replaces, construct_tree and points_leaf_aabb; tape_stage:
+    # a recording by the count and record walks, in turns with one by the
+    # walk and its copy), else null.
     # registers: ptxas's count for the width-4 plain SH9 instance of K3 and
     # K3+K4 (no rotation) and for the Kd-16 instance of K9c and K9d, else
     # null.

@@ -15,13 +15,17 @@ block grouping schedule a TPU and have no counterpart here; ``inv_pos`` is
 the identity, and `record_tape` accepts ``chunk_size``,
 ``prog_round_size`` and ``group_size`` and ignores them.
 
-  * `record_tape`: K13a counts each ray's samples (occupied, total) by
-    walking it as the forward march K2 walks it, every step taken; the
-    offsets are their cumulative sum; K13b walks again and writes each
-    ray's run: every sample, or with ``compact`` only the occupied ones
-    (rows in [0, n_features)), with its row and step, optionally its tree
-    cell (weights; on the bake through ``src_map``) and its march
-    parameter t (``record_t``). The recorded t-chain is the march's.
+  * `record_tape`: K13a+K13b walks each ray once, as the forward march K2
+    walks it, every step taken: it counts the ray's samples (occupied,
+    total) and stages the recorded ones (every sample, or with ``compact``
+    only the occupied ones, rows in [0, n_features)) in an arena of
+    chunks; the offsets are the counts' cumulative sum; a copy kernel then
+    moves the staged samples into each ray's run: its row and step,
+    optionally its tree cell (weights; on the bake through ``src_map``) and
+    its march parameter t (``record_t``). The recorded t-chain is the
+    march's. The earlier two walks, K13a (`count_samples_cuda`) and K13b
+    (`record_samples_cuda`, each run written at its offset), stay for
+    direct callers and give the same tape.
   * `replay_render`, `replay_render_weighted`: K13c composites the runs
     with K2's radiometry, sample for sample (exact or thresholded, early
     stop, rotations, SG/ASG, float32, bf16 and int8 pools, weights into
@@ -59,7 +63,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from ctypes import c_float, c_int, c_void_p
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -116,6 +120,27 @@ TAPE_COUNT = Kernel("svox_tape_count", _COUNT_ARGS)
 TAPE_COUNT_BAKED = Kernel("svox_tape_count_baked", _COUNT_ARGS)
 TAPE_RECORD = Kernel("svox_tape_record", _RECORD_ARGS)
 TAPE_RECORD_BAKED = Kernel("svox_tape_record_baked", _RECORD_ARGS)
+_STAGE_ARGS = _WALK_ARGS + [c_int, c_void_p, c_void_p, c_void_p,  # compact, n_occ, n_tot, dscale
+                            c_void_p, c_int, c_void_p,             # n_chunks, capacity, owner
+                            c_void_p, c_void_p, c_void_p, c_void_p,  # arena idx, dt, flat, t
+                            c_int, c_void_p]
+_COPY_ARGS = [ctypes.POINTER(StructureDesc), c_int, c_void_p,     # structure, n_chunks, owner
+              c_void_p, c_void_p, c_void_p, c_void_p, c_void_p,   # arena idx, dt, flat, t; offsets
+              c_void_p, c_void_p, c_void_p, c_void_p,             # idx, dt, cell, t
+              c_int, c_void_p]
+TAPE_STAGE = Kernel("svox_tape_stage", _STAGE_ARGS)
+TAPE_STAGE_BAKED = Kernel("svox_tape_stage_baked", _STAGE_ARGS)
+TAPE_COPY = Kernel("svox_tape_copy", _COPY_ARGS)
+TAPE_COPY_BAKED = Kernel("svox_tape_copy_baked", _COPY_ARGS)
+# K13a+K13b's arena: chunks of ARENA_CHUNK entries (csrc/tape_record.cuh
+# kChunk), ARENA_RAY_ENTRIES[compact] entries a ray before the walk (a
+# ray's samples past its share take the entries of rays that record fewer;
+# the census, `ops/tape_census.py`, counts what the callers' shapes use). A
+# launch that needs more is rerun once with the capacity it reported:
+# ARENA_RERUNS["reruns"] counts those reruns.
+ARENA_CHUNK = 32
+ARENA_RAY_ENTRIES = {True: 16, False: 48}
+ARENA_RERUNS = {"reruns": 0}
 # K13c has float32, bf16 and int8 instances, and so has its frame axis;
 # K13d float32 and bf16 (a quantized pool takes no gradient).
 _REPLAY_FWD = {k: Kernel(f"svox_tape_replay_fwd{POOL_SUFFIX[k]}", _REPLAY_FWD_ARGS)
@@ -318,7 +343,9 @@ def _walk_args(spec, origins, dirs, opt: RenderOptions, n_rows: int, name: str):
 
 def count_samples_cuda(spec, n_rows: int, origins, dirs, opt: RenderOptions):
     """Launch K13a (csrc/tape_record.cu, or tape_record_baked.cu on a
-    BakedTree): per ray (occupied, total) int32 counts."""
+    BakedTree): per ray (occupied, total) int32 counts. `record_tape` counts
+    in its one walk (`stage_samples_cuda`); this walk serves direct
+    callers."""
     args = _walk_args(spec, origins, dirs, opt, n_rows, "count_samples_cuda")
     n_occ = torch.empty(origins.shape[0], dtype=torch.int32, device=origins.device)
     n_tot = torch.empty_like(n_occ)
@@ -331,7 +358,10 @@ def count_samples_cuda(spec, n_rows: int, origins, dirs, opt: RenderOptions):
 def record_samples_cuda(spec, n_rows: int, origins, dirs, opt: RenderOptions, offsets,
                         compact: bool, want_idx=True, want_cell=True, want_t=False):
     """Launch K13b (csrc/tape_record.cu, or tape_record_baked.cu on a
-    BakedTree): the flat streams and dscale, as `record_samples_plain`."""
+    BakedTree): the flat streams and dscale, as `record_samples_plain`,
+    each ray's run written in its walk at ``offsets`` (K13a's counts'
+    cumsum): with `count_samples_cuda`, the earlier two-walk recording,
+    which gives `record_tape`'s tape bit for bit."""
     args = _walk_args(spec, origins, dirs, opt, n_rows, "record_samples_cuda")
     dev = origins.device
     B = origins.shape[0]
@@ -344,12 +374,192 @@ def record_samples_cuda(spec, n_rows: int, origins, dirs, opt: RenderOptions, of
     dt = torch.empty(total, dtype=torch.float32, device=dev)
     tval = torch.empty(total, dtype=torch.float32, device=dev) if want_t else None
     dscale = torch.empty(B, dtype=torch.float32, device=dev)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     if B:
         kernel = TAPE_RECORD_BAKED if isinstance(spec, BakedTree) else TAPE_RECORD
-        kernel(*args, offsets.data_ptr(), int(bool(compact)), ptr(idx), dt.data_ptr(), ptr(cell),
-               ptr(tval), dscale.data_ptr(), *_stream(dev))
+        kernel(*args, offsets.data_ptr(), int(bool(compact)), _ptr(idx), dt.data_ptr(), _ptr(cell),
+               _ptr(tval), dscale.data_ptr(), *_stream(dev))
     return idx, dt, cell, tval, dscale
+
+
+class Staged(NamedTuple):
+    """What K13a+K13b's walk leaves: per ray the counts and delta_scale;
+    ``n_chunks`` (one int32 on the rays' device), the chunks the walk
+    needed; ``capacity`` the chunks the arena holds, ``owner`` (capacity,
+    2) int32 each chunk's (ray, ordinal), and the arena's streams,
+    capacity * ARENA_CHUNK entries (None where not recorded; ``flat``
+    holds leaf cells, resolved by the copy)."""
+
+    n_occ: torch.Tensor
+    n_tot: torch.Tensor
+    dscale: torch.Tensor
+    n_chunks: torch.Tensor
+    capacity: int
+    owner: torch.Tensor
+    idx: Optional[torch.Tensor]
+    dt: torch.Tensor
+    flat: Optional[torch.Tensor]
+    tval: Optional[torch.Tensor]
+
+
+def arena_capacity(n_rays: int, compact: bool) -> int:
+    """Chunks of the arena a walk of ``n_rays`` rays is launched with."""
+    return max(1, -(-n_rays * ARENA_RAY_ENTRIES[bool(compact)] // ARENA_CHUNK))
+
+
+def _arena(n_rays: int, capacity: int, want_idx: bool, want_cell: bool, want_t: bool, dev,
+           alloc=torch.zeros) -> Staged:
+    """A walk's outputs for `Staged`, each made by ``alloc``; the chunk
+    counter zeroed."""
+    _require(capacity * ARENA_CHUNK < 2 ** 31, "the arena would hold 2^31 entries: record fewer rays per tape")
+    n = capacity * ARENA_CHUNK
+
+    def stream(want, dtype):
+        return alloc(n, dtype=dtype, device=dev) if want else None
+
+    return Staged(alloc(n_rays, dtype=torch.int32, device=dev), alloc(n_rays, dtype=torch.int32, device=dev),
+                  alloc(n_rays, dtype=torch.float32, device=dev), torch.zeros(1, dtype=torch.int32, device=dev),
+                  capacity, alloc((capacity, 2), dtype=torch.int32, device=dev), stream(want_idx, torch.int32),
+                  stream(True, torch.float32), stream(want_cell, torch.int32), stream(want_t, torch.float32))
+
+
+def stage_samples_plain(spec, n_rows: int, origins, dirs, opt: RenderOptions, compact: bool,
+                        want_idx=True, want_cell=True, want_t=False, capacity=None) -> Staged:
+    """Plain PyTorch version of K13a+K13b's walk (`stage_kernel`): the
+    counts, delta_scale and the staged samples. Ray i's sample k (every
+    sample, or with ``compact`` the occupied ones) is entry k % ARENA_CHUNK
+    of its chunk k // ARENA_CHUNK; at each step the rays that start a chunk
+    take the next chunk numbers in ray order (on the card, in the order of
+    the warps' atomics). Chunks past ``capacity`` (default
+    `arena_capacity`) are counted in ``n_chunks`` and not written."""
+    B, dev = origins.shape[0], origins.device
+    capacity = arena_capacity(B, compact) if capacity is None else capacity
+    out = _arena(B, capacity, want_idx, want_cell, want_t, dev)
+    rays = _ray_setup(spec, origins, dirs, opt)
+    C = ARENA_CHUNK
+    k = torch.zeros(B, dtype=torch.long, device=dev)
+    chunk = torch.zeros(B, dtype=torch.long, device=dev)
+    taken = 0
+    for active, leaf, t, dt in _walk_plain(spec, opt, rays):
+        occ = active & _occupied(leaf.data_idx, n_rows)
+        out.n_tot.add_(active.to(torch.int32))
+        out.n_occ.add_(occ.to(torch.int32))
+        w = occ if compact else active
+        new = torch.nonzero(w & (k % C == 0)).reshape(-1)
+        chunk[new] = taken + torch.arange(new.shape[0], device=dev)
+        taken += int(new.shape[0])
+        own = new[chunk[new] < capacity]
+        out.owner[chunk[own]] = torch.stack((own, k[own] // C), 1).to(torch.int32)
+        w = w & (chunk < capacity)
+        q = chunk[w] * C + k[w] % C
+        if out.idx is not None:
+            out.idx[q] = leaf.data_idx[w].to(torch.int32)
+        out.dt[q] = dt[w]
+        if out.flat is not None:
+            out.flat[q] = leaf.node_flat[w].to(torch.int32)
+        if out.tval is not None:
+            out.tval[q] = t[w]
+        k = k + (occ if compact else active).long()
+    out.dscale.copy_(rays[3])
+    out.n_chunks.fill_(taken)
+    return out
+
+
+def copy_samples_plain(spec, opt: RenderOptions, staged: Staged, n_chunks: int, offsets, total: int):
+    """Plain PyTorch version of K13a+K13b's copy (`copy_kernel`): (idx, dt,
+    cell, tval), the staged samples moved into the runs at ``offsets``
+    (None for a stream not recorded); the cells resolved here."""
+    del opt
+    dev = staged.dt.device
+    C = ARENA_CHUNK
+    q = torch.arange(n_chunks * C, device=dev)
+    ray, ordinal = staged.owner[q // C].long().unbind(1)
+    j = ordinal * C + q % C
+    start = offsets[ray].long()
+    keep = j < offsets[ray + 1].long() - start
+    q, d = q[keep], (start + j)[keep]
+
+    def moved(src, dtype):
+        if src is None:
+            return None
+        out = torch.zeros(total, dtype=dtype, device=dev)
+        out[d] = src[q]
+        return out
+
+    cell = None
+    if staged.flat is not None:
+        cell = torch.zeros(total, dtype=torch.int32, device=dev)
+        cell[d] = _tree_cells(spec, staged.flat[q].long()).to(torch.int32)
+    return moved(staged.idx, torch.int32), moved(staged.dt, torch.float32), cell, moved(staged.tval, torch.float32)
+
+
+def stage_samples_cuda(spec, n_rows: int, origins, dirs, opt: RenderOptions, compact: bool,
+                       want_idx=True, want_cell=True, want_t=False, capacity=None) -> Staged:
+    """Launch K13a+K13b's walk (csrc/tape_record.cu, or tape_record_baked.cu
+    on a BakedTree): as `stage_samples_plain`."""
+    args = _walk_args(spec, origins, dirs, opt, n_rows, "stage_samples_cuda")
+    _require(want_idx or want_cell, "a tape records the row or the cell stream")
+    B, dev = origins.shape[0], origins.device
+    capacity = arena_capacity(B, compact) if capacity is None else capacity
+    st = _arena(B, capacity, want_idx, want_cell, want_t, dev, torch.empty)
+    if B:
+        kernel = TAPE_STAGE_BAKED if isinstance(spec, BakedTree) else TAPE_STAGE
+        kernel(*args, int(bool(compact)), st.n_occ.data_ptr(), st.n_tot.data_ptr(), st.dscale.data_ptr(),
+               st.n_chunks.data_ptr(), capacity, st.owner.data_ptr(), _ptr(st.idx), st.dt.data_ptr(),
+               _ptr(st.flat), _ptr(st.tval), *_stream(dev))
+    return st
+
+
+def copy_samples_cuda(spec, opt: RenderOptions, staged: Staged, n_chunks: int, offsets, total: int):
+    """Launch K13a+K13b's copy (csrc/tape_record.cu, or tape_record_baked.cu
+    on a BakedTree): as `copy_samples_plain`."""
+    dev = staged.dt.device
+    check_structure(spec, dev, "copy_samples_cuda")
+    _require(offsets.is_cuda and offsets.device == dev and offsets.dtype == torch.int32
+             and offsets.is_contiguous(), "offsets must be contiguous int32 on the arena's device")
+    _require(0 <= n_chunks <= staged.capacity, "more chunks than the arena holds")
+    ints = lambda src: None if src is None else torch.empty(total, dtype=torch.int32, device=dev)  # noqa: E731
+    floats = lambda src: None if src is None else torch.empty(total, dtype=torch.float32, device=dev)  # noqa: E731
+    idx, dt, cell, tval = ints(staged.idx), floats(staged.dt), ints(staged.flat), floats(staged.tval)
+    if n_chunks:
+        kernel = TAPE_COPY_BAKED if isinstance(spec, BakedTree) else TAPE_COPY
+        kernel(_structure_arg(spec, opt), n_chunks, staged.owner.data_ptr(), _ptr(staged.idx),
+               staged.dt.data_ptr(), _ptr(staged.flat), _ptr(staged.tval), offsets.data_ptr(), _ptr(idx),
+               dt.data_ptr(), _ptr(cell), _ptr(tval), *_stream(dev))
+    return idx, dt, cell, tval
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def record_streams(spec, n_rows: int, origins, dirs, opt: RenderOptions, compact: bool,
+                   want_idx=True, want_cell=True, want_t=False, capacity=None):
+    """A recording's streams, as `record_tape` takes them: K13a+K13b's walk
+    (with the arena's ``capacity``, default `arena_capacity`), the offsets
+    (an int32 cumsum of the counts), one host copy of the samples, the
+    longest run and the chunks the walk needed (a walk that needed more
+    than its arena reruns once with that capacity: ARENA_RERUNS), then the
+    copy. On the CPU the plain versions. Returns (counts, offsets (B + 1,)
+    int32, S, idx, dt, cell, tval, dscale)."""
+    on_card = origins.is_cuda
+    stage = stage_samples_cuda if on_card else stage_samples_plain
+    copy = copy_samples_cuda if on_card else copy_samples_plain
+    B = origins.shape[0]
+    capacity = arena_capacity(B, compact) if capacity is None else capacity
+    st = stage(spec, n_rows, origins, dirs, opt, compact, want_idx, want_cell, want_t, capacity)
+    counts = st.n_occ if compact else st.n_tot
+    offsets = torch.zeros(B + 1, dtype=torch.int32, device=origins.device)
+    torch.cumsum(counts, 0, dtype=torch.int32, out=offsets[1:])
+    total, S, n_chunks = (torch.stack((counts.sum(dtype=torch.int64), counts.max().long(), st.n_chunks[0].long()))
+                          .tolist() if B else (0, 0, 0))
+    if total >= 2 ** 31:
+        raise ValueError(f"the tape would hold {total} samples; int32 offsets address fewer "
+                         "than 2^31: record fewer rays per tape")
+    if n_chunks > capacity:
+        ARENA_RERUNS["reruns"] += 1
+        st = stage(spec, n_rows, origins, dirs, opt, compact, want_idx, want_cell, want_t, n_chunks)
+    idx, dt, cell, tval = copy(spec, opt, st, n_chunks, offsets, total)
+    return counts, offsets, S, idx, dt, cell, tval, st.dscale
 
 
 def record_tape(spec, n_features: int, origins, dirs, vdirs,
@@ -391,29 +601,17 @@ def record_tape(spec, n_features: int, origins, dirs, vdirs,
     dev = spec.device
     origins, dirs, vdirs = (torch.as_tensor(r, dtype=torch.float32, device=dev).contiguous()
                             for r in (origins, dirs, vdirs))
-    on_card = origins.is_cuda
-    count = count_samples_cuda if on_card else count_samples_plain
-    record = record_samples_cuda if on_card else record_samples_plain
-    n_occ, n_tot = count(spec, int(n_features), origins, dirs, opt)
-    counts = n_occ if compact else n_tot
     B = origins.shape[0]
-    offsets = torch.zeros(B + 1, dtype=torch.int64, device=dev)
-    offsets[1:] = torch.cumsum(counts.long(), 0)
-    total = int(offsets[-1])
-    if total >= 2 ** 31:
-        raise ValueError(f"the tape would hold {total} samples; int32 offsets address fewer "
-                         "than 2^31: record fewer rays per tape")
-    offsets = offsets.to(torch.int32)
-    idx, dt, cell, tval, dscale = record(spec, int(n_features), origins, dirs, opt, offsets,
-                                         compact, want_idx=not indirect, want_cell=record_cells,
-                                         want_t=record_t)
+    counts, offsets, S, idx, dt, cell, tval, dscale = record_streams(
+        spec, int(n_features), origins, dirs, opt, compact, want_idx=not indirect,
+        want_cell=record_cells, want_t=record_t)
     if indirect:
         # The cell stream IS the sample stream.
         idx = cell
     return RayTape(
         idx=idx, dt=dt, cell=cell if record_cells else None, offsets=offsets,
         counts=counts.to(torch.int32), origins=origins, dirs=dirs, vdirs=vdirs,
-        dscale=dscale.contiguous(), n_rays=int(B), S=int(counts.max()) if B else 0,
+        dscale=dscale.contiguous(), n_rays=int(B), S=int(S),
         compact=bool(compact), n_features=int(n_features), n_cells=_n_tree_cells(spec),
         geom=_geom_key(spec, opt), tval=tval, indirect=bool(indirect),
     )

@@ -18,7 +18,8 @@ its plain version as above; the motion-feature kernels (K9c, K9d) have
 each instance held to plain at each Kd capacity and bone count, on aligned
 and unaligned LBS tables (their two instances) and at the joint table's
 limit. The recorded-tape kernels (K13) come last:
-the count and record kernels equal to their plain versions exactly, the
+the one-walk recorder (K13a+K13b: its walk and copy) and the earlier count
+and record kernels equal to their plain versions exactly, the
 replay forward equal to the forward march kernel bit for bit, the replay
 backward (each vector width the row allows, and the one the wrapper
 picks) against plain and the backward march kernel at the atomic
@@ -1946,21 +1947,62 @@ def _tape_scene(cuda, backend, fmt="SH9", ddim=28, seed=61, depth=6):
 @pytest.mark.parametrize("fast", [False, True])
 @pytest.mark.parametrize("compact", [False, True])
 def test_tape_record_kernels_match_plain(cuda, backend, fast, compact):
+    """record_tape launches the one-walk kernels (K13a+K13b) once each (the
+    walk once more where its arena ran short) and not the earlier pair; its
+    tape equals the plain versions and the earlier pair (count_samples_cuda,
+    then K13b at its offsets) bit for bit."""
     tree, spec, feats, _, o, d = _tape_scene(cuda, backend)
     opt = stt.VolumeRenderer(tree, backend=backend)._get_options(fast)
     M = feats.shape[0]
-    count = ttape.TAPE_COUNT_BAKED if backend == "baked" else ttape.TAPE_COUNT
-    record = ttape.TAPE_RECORD_BAKED if backend == "baked" else ttape.TAPE_RECORD
-    before = (count.launches, record.launches)
+    sfx = "_BAKED" if backend == "baked" else ""
+    stage, copy = getattr(ttape, "TAPE_STAGE" + sfx), getattr(ttape, "TAPE_COPY" + sfx)
+    count, record = getattr(ttape, "TAPE_COUNT" + sfx), getattr(ttape, "TAPE_RECORD" + sfx)
+    before = [k.launches for k in (stage, copy, count, record)] + [ttape.ARENA_RERUNS["reruns"]]
     tp = ttape.record_tape(spec, M, o, d, d, opt, compact=compact, record_t=True)
     torch.cuda.synchronize()
-    assert (count.launches, record.launches) == (before[0] + 1, before[1] + 1)
+    after = [k.launches for k in (stage, copy, count, record)] + [ttape.ARENA_RERUNS["reruns"]]
+    stage_n, copy_n, count_n, record_n, reruns = [a - b for a, b in zip(after, before)]
+    assert (stage_n, copy_n, count_n, record_n) == (1 + reruns, 1, 0, 0) and reruns in (0, 1)
     n_occ, n_tot = ttape.count_samples_plain(spec, M, o, d, opt)
     assert torch.equal(tp.counts, n_occ if compact else n_tot)
     want = ttape.record_samples_plain(spec, M, o, d, opt, tp.offsets, compact, True, True, True)
-    for got, w in zip((tp.idx, tp.dt, tp.cell, tp.tval, tp.dscale), want):
-        assert torch.equal(got, w)
-    assert tp.n_samples > 0
+    k_occ, k_tot = ttape.count_samples_cuda(spec, M, o, d, opt)
+    assert torch.equal(k_occ, n_occ) and torch.equal(k_tot, n_tot)
+    pair = ttape.record_samples_cuda(spec, M, o, d, opt, tp.offsets, compact, True, True, True)
+    for got, w, p in zip((tp.idx, tp.dt, tp.cell, tp.tval, tp.dscale), want, pair):
+        assert torch.equal(got, w) and torch.equal(got, p)
+    assert tp.n_samples > 0 and tp.S == int(tp.counts.max())
+
+
+@pytest.mark.parametrize("backend", ["baked", "tree"])
+@pytest.mark.parametrize("case", ["overflow", "one_ray", "indirect", "no_cells", "fast_full"])
+def test_tape_stage_and_copy_kernels(cuda, backend, case):
+    """The one-walk kernels on the cases the recorder meets: an arena of one
+    chunk (the walk counts what it lacked, and the rerun with that capacity
+    gives the same tape), one ray, an indirect tape with t (cells, no
+    rows), the row stream alone, fast mode uncompacted; each stream equal
+    to the plain versions and to the earlier pair bit for bit."""
+    tree, spec, feats, _, o, d = _tape_scene(cuda, backend, seed=64)
+    opt = stt.VolumeRenderer(tree, backend=backend)._get_options(case == "fast_full")
+    M = feats.shape[0]
+    compact = case != "fast_full"
+    want_idx, want_cell, want_t = case != "indirect", case != "no_cells", case in ("indirect", "fast_full")
+    capacity = 1 if case == "overflow" else None
+    if case == "one_ray":
+        o, d = o[5:6].contiguous(), d[5:6].contiguous()
+    before = ttape.ARENA_RERUNS["reruns"]
+    got = ttape.record_streams(spec, M, o, d, opt, compact, want_idx, want_cell, want_t, capacity=capacity)
+    torch.cuda.synchronize()
+    assert ttape.ARENA_RERUNS["reruns"] - before == (1 if case == "overflow" else 0)
+    counts, offsets, S = got[:3]
+    n_occ, n_tot = ttape.count_samples_plain(spec, M, o, d, opt)
+    assert torch.equal(counts, n_occ if compact else n_tot) and S == int(counts.max())
+    assert torch.equal(offsets[1:], torch.cumsum(counts, 0).to(torch.int32))
+    plain = ttape.record_samples_plain(spec, M, o, d, opt, offsets, compact, want_idx, want_cell, want_t)
+    pair = ttape.record_samples_cuda(spec, M, o, d, opt, offsets, compact, want_idx, want_cell, want_t)
+    for g, p, q in zip(got[3:], plain, pair):
+        assert (g is None) == (p is None) == (q is None)
+        assert g is None or (torch.equal(g, p) and torch.equal(g, q))
 
 
 @pytest.mark.parametrize("backend", ["baked", "tree"])
@@ -2176,11 +2218,11 @@ def test_tape_indirect_replay_after_repoint(cuda):
 def test_render_persp_tape_uses_the_kernels(cuda):
     tree, feats, _ = _shell(cuda, depth=6)
     r = stt.VolumeRenderer(tree)
-    counters = (ttape.TAPE_COUNT_BAKED, ttape.TAPE_RECORD_BAKED, ttape.TAPE_REPLAY_FWD)
+    counters = (ttape.TAPE_COPY_BAKED, ttape.TAPE_RECORD_BAKED, ttape.TAPE_REPLAY_FWD)
     before = [k.launches for k in counters]
     imgs = [r.render_persp_tape(feats * s, orbit_camera(), 64, 48, fx=70.0) for s in (1.0, 0.5)]
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 2]
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 0, 2]
     for s, img in zip((1.0, 0.5), imgs):
         assert torch.equal(img, r.render_persp(feats * s, orbit_camera(), 64, 48, fx=70.0))
 
@@ -2314,7 +2356,7 @@ def test_dynamic_tape_cache_key_on_the_card(cuda, backend):
     tree = stt.tree_from_numpy(state, device=cuda)
     r = stt.VolumeRenderer(tree, backend=backend)
     kw = dict(c2w=orbit_camera(), width=64, height=48, fx=70.0)
-    rec = ttape.TAPE_RECORD_BAKED if backend == "baked" else ttape.TAPE_RECORD
+    rec = ttape.TAPE_COPY_BAKED if backend == "baked" else ttape.TAPE_COPY
     before = rec.launches
     r.render_dynamic_tape_frames(feats, *args, **kw)
     r.render_dynamic_tape_frames(feats, *args, **kw)

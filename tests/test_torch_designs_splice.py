@@ -1,8 +1,9 @@
 """The A/B tools' designs of K8b's query forward (`tools/query_ab.py`), of
 K9a, the opacity VJP (`tools/render_bwd_ab.py --opacity`), of K14a, the
 subset gather (`tools/subset_gather_ab.py`), of K8a with its box form
-(`tools/construct_tree_ab.py`), of K10's backward (`tools/warp_bwd_ab.py`)
-and of K11's forward (`tools/voxelize_ab.py`), on the CPU: the kernels
+(`tools/construct_tree_ab.py`), of K10's backward (`tools/warp_bwd_ab.py`),
+of K11's forward (`tools/voxelize_ab.py`) and of K13a+K13b, the tape
+recorder's walks (`tools/tape_record_ab.py`), on the CPU: the kernels
 build only on a card, but each design is a text patch of the shipped
 source, and the designs that lost live in `tools/*_designs.cuh`.
 
@@ -18,6 +19,7 @@ source, and the designs that lost live in `tools/*_designs.cuh`.
     and `chip_smoke.subset_gather_bytes`, K14a's, likewise.
 """
 
+import re
 import sys
 from pathlib import Path
 
@@ -31,6 +33,7 @@ import query_ab  # noqa: E402
 import render_bwd_ab  # noqa: E402
 import render_fwd_ab  # noqa: E402
 import subset_gather_ab  # noqa: E402
+import tape_record_ab  # noqa: E402
 import voxelize_ab  # noqa: E402
 import warp_bwd_ab  # noqa: E402
 
@@ -201,3 +204,34 @@ def test_warp_p2v_designs_files_defaults_are_the_shipped_levers():
         assert not any(f"constexpr int {lever} =" in designs for lever in levers)
     # The shipped sources carry only what ships.
     assert "tile_kernel" not in warp and "gather" not in p2v and "no_atomics" not in p2v
+
+
+# {design: the kernels of tools/tape_record_designs.cuh it launches or walks with}.
+TAPE_RECORD_LOST = {"runtime": ("launch_stage_runtime", "launch_copy_runtime"), "loop1": ("walk_rotated",),
+                    "scalar": ("launch_stage_scalar",),
+                    "warp": ("launch_stage_warp", "launch_copy_warp"), "stop": ("record_stop_kernel",),
+                    "resume": ("count_resume_kernel", "record_resume_kernel")}
+
+
+@pytest.mark.parametrize("design", sorted(tape_record_ab.DESIGNS))
+def test_tape_record_design_patches_apply(tmp_path, design):
+    sources = tape_record_ab.design_sources(tmp_path, None, {design: tape_record_ab.DESIGNS[design]})
+    csrc, units = sources[design]
+    assert units == tape_record_ab.UNITS and (csrc / tape_record_ab.DESIGN_FILE).exists()
+    text = (csrc / tape_record_ab.HEADER).read_text()
+    designs = (TOOLS / tape_record_ab.DESIGN_FILE).read_text()
+    lost = TAPE_RECORD_LOST.get(design, ())
+    assert (f'#include "{tape_record_ab.DESIGN_FILE}"' in text) == bool(lost)
+    for name in lost:
+        assert f"{name}<S>" in text or f"{name}(p, i, r," in text
+        assert re.search(rf"\b{name}\(", designs)
+    shipped = (_build.CSRC / tape_record_ab.HEADER).read_text()
+    assert not any(name in shipped for names in TAPE_RECORD_LOST.values() for name in names)
+    if design == "no_stores":
+        assert "    if (true) return;\n    const int32_t q = chunk * kChunk + e0;" in text
+    if design.startswith("flush"):
+        assert f"constexpr int kFlush = {design[5:]};" in text
+    if design in tape_record_ab.CHUNKS:
+        assert f"constexpr int kChunk = {tape_record_ab.CHUNKS[design]};" in text
+    if design in ("shipped", "pair"):
+        assert text == shipped
