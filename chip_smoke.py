@@ -57,8 +57,11 @@ seeded unit-scale cotangent and timed in turns; the replay forward K13c at
 that shape, widths 4 and 1 bit for bit equal to each other and to the
 forward march on the subset's rays (float32, bf16 and int8 pools), against
 plain, and timed in turns, L2 cold and warm, beside its byte bound; the L2 cotangent K14b bit for bit, its
-loss within 1e-6 relative; K12 on the depth-9 shell's 512^3 density grid
-bit for bit on both outputs), then the ray schedules' cost walk (phase 3i,
+loss within 1e-6 relative; K12, its occupancy pass and its march, each
+bit for bit against its plain version on the depth-9 shell's 512^3
+density grid, on a solid ball of the shell's outer radius and on a seeded
+100^3 grid with NaN and -inf sigmas, the pair timed by the profiler), then
+the ray schedules' cost walk (phase 3i,
 K15: its counts equal to its plain version's on every camera ray, both
 structures, exact and fast with and without the pool's sigma column, the
 rays whose transmittance comes within 1e-6 of the stop counted and
@@ -156,7 +159,8 @@ dynamic paths, each on the default baked backend and on the tree walk
     `replay_render_rows` / `replay_render`, autograd and f - lr * g, at
     lr 0.05 and at an lr that moves the pool visibly (the update itself);
   * the dense-grid weight pass (phase 4o): `grid_weight_render` on the
-    depth-9 shell's 512^3 density grid through the 800x800 orbit camera;
+    depth-9 shell's 512^3 density grid through the 800x800 orbit camera
+    (the occupancy pass and the march launch once each);
   * cost-ordered ray schedules (phase 4p, `plan_path`): three frames of
     `render_persp(schedule="cost")` (exact and fast; the first call of each
     mode makes its `plan_persp` plan, K15 on the block centres), a training
@@ -216,11 +220,16 @@ entries, and under interp the lookups of 9 from the root against the
 kernel's), and
 its interp instances' bounds count the kernel's lookups, beside the bound
 counting 9 (`K9b+K4 bound`); so do the opacity VJP's (`K9a+K4 bound`).
-The query forward's launches are counted by copy unit, and the training,
-pool and editing paths must launch only the widest unit their SH9 pools
-allow (16 bytes float32, 8 bf16: `check_query_units`); phase 6 holds every
-other unit of those rows, and the generic instance, to the plain version
-once. construct_tree's time in phase 5 is given twice: CUDA events over back-to-back wrapper calls (the kernels line's
+The query forward's and backward's launches are counted by unit, and the
+training, pool and editing paths must launch only the widest unit their
+SH9 pools allow (16 bytes float32, 8 bf16: `check_query_units`); phase 6
+holds every other unit of those rows, and the generic instance, to the
+plain version once, the backward on every leaf centre with a duplicated
+tenth and on a tenth of them. The bake's three kernels (K6's lookup, K7a,
+K7b) are timed in phase 6 by the profiler, kernels alone, L2 cold, beside
+their wrapper calls (where a profiler session records none of a kernel's
+launches, by CUDA events behind a busy stream, named in the kernels
+line's ``timer``). construct_tree's time in phase 5 is given twice: CUDA events over back-to-back wrapper calls (the kernels line's
 ``ms``) and its kernels' device time alone (``device_ms``). It
 prints kernel and plain-version times and each kernel's bound with the
 card's name and power limit, the whole run's seconds, one JSON line
@@ -437,6 +446,22 @@ def mf_width_check(spec, jf, pool, origins, dirs, opt, out, want, g_m, want_g, w
 PROFILER_ATTEMPTS = 6
 
 
+class ProfilerMissedKernel(AssertionError):
+    """A `torch.profiler` session that, after every retry, recorded fewer
+    launches of the kernels it was asked to time than were made; ``ms``:
+    the mean device ms of those it recorded (None if none)."""
+
+    def __init__(self, msg: str, ms=None):
+        super().__init__(msg)
+        self.ms = ms
+
+
+def recorded_names(events) -> str:
+    """The distinct names (cut to 60 characters) of a session's events, for
+    a retry's message."""
+    return ", ".join(sorted({e.name[:60] for e in events})) or "none"
+
+
 def profiled_kernels(run, enough, what: str) -> list:
     """The device kernels (fills aside, in start order) of one
     `torch.profiler` session around ``run()``. A session at times comes
@@ -448,8 +473,8 @@ def profiled_kernels(run, enough, what: str) -> list:
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(PROFILER_ATTEMPTS):
         if attempt:
-            print(f"profiler retry: {what}: {len(events)} device kernels recorded; attempt {attempt + 1} of "
-                  f"{PROFILER_ATTEMPTS}")
+            print(f"profiler retry: {what}: {len(events)} device kernels recorded ({recorded_names(events)}); "
+                  f"attempt {attempt + 1} of {PROFILER_ATTEMPTS}")
             time.sleep(0.5 * attempt)
         with torch.profiler.profile(activities=acts) as prof:
             run()
@@ -514,8 +539,53 @@ def device_ms(fn, reps: int, names=None, cold: bool = True) -> float:
         return [e for e in events if any(n in e.name for n in names)] if names else events
 
     events = named(profiled_kernels(run, lambda ev: len(named(ev)) >= reps, f"{names or 'every kernel'}"))
-    check(len(events) >= reps, f"the profiler recorded no kernel named {names}")
+    if len(events) < reps:
+        rec = sum(e.time_range.elapsed_us() for e in events) / 1e3 / len(events) if events else None
+        raise ProfilerMissedKernel(f"the profiler recorded {len(events)} of {reps} launches of a kernel named "
+                                   f"{names}" + (f" (their mean {rec:.4f} ms)" if events else ""), rec)
     return sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+
+
+# The sleep that holds the stream busy while the host enqueues a call timed
+# by `queued_ms` (about half a millisecond on an H100).
+QUEUE_SLEEP_CYCLES = 1_000_000
+
+
+def queued_ms(fn, reps: int, cold: bool = True) -> float:
+    """Device ms per call of ``fn`` from CUDA events around each call alone,
+    after one warm-up call: before each, a sleep kernel holds the stream
+    busy while the host enqueues the events and the call, so no dispatch
+    gap is counted (the kernels alone, as `device_ms` counts them, plus the
+    events' own few microseconds). ``cold`` as in `device_ms`."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda") if cold else None
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        if cold:
+            flush.zero_()
+        torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in marks) / reps
+
+
+def kernel_alone_ms(fn, reps: int, names) -> tuple:
+    """(ms, timer): a call's kernels alone, L2 cold: `device_ms` from the
+    profiler, or where every profiler session comes back without the
+    call's kernels (`ProfilerMissedKernel`: seen for `lookup_kernel` and
+    `refresh_kernel` in phase 6 on an H100, though a fresh process records
+    them, tools/profile_bake_kernels.py), `queued_ms` from CUDA events.
+    Any other failure raises."""
+    try:
+        return device_ms(fn, reps, names), "profiler"
+    except ProfilerMissedKernel as e:
+        print(f"{e}; timed by CUDA events behind a busy stream instead")
+        return queued_ms(fn, reps), "CUDA events behind a busy stream"
 
 
 def timed_once_ms(fn):
@@ -640,7 +710,8 @@ TAPE_KERNELS = {
 COUNTERS.update(TAPE_KERNELS)
 # K14 (minibatch tape training) and K12 (the dense-grid weight pass).
 MB_KERNELS = {"subset_gather": subset_ops.SUBSET_GATHER, "l2_cotangent": subset_ops.L2_COTANGENT,
-              "sgd_update": subset_ops.SGD_UPDATE, "grid_weight": grid_ops.GRID_WEIGHT}
+              "sgd_update": subset_ops.SGD_UPDATE, "grid_occupancy": grid_ops.GRID_OCCUPANCY,
+              "grid_weight": grid_ops.GRID_WEIGHT}
 COUNTERS.update(MB_KERNELS)
 # K15, the ray schedules' cost walk, on each structure.
 COUNTERS.update(march_cost=sched_ops.MARCH_COST, march_cost_baked=sched_ops.MARCH_COST_BAKED)
@@ -666,6 +737,9 @@ UPDATE_RTOL = 1e-3
 # test (1); per contributing sample the exp, weight and transmittance (6).
 OPS_GRID_SAMPLE = 43
 OPS_GRID_CONTRIB = 6
+# Phase 3h's third K12 check: a seeded GRID_NAN_RESO^3 grid (not a multiple
+# of the occupancy mask's brick) with NaN and -inf sigmas.
+GRID_NAN_RESO = 100
 # K15 per sample that changes the transmittance: the step's optical depth
 # (two products), the exp as 3 operations and the new transmittance (1).
 OPS_COST_STOP = 6
@@ -718,7 +792,8 @@ def reset_counts() -> None:
         k.launches = 0
     for widths in (tape_ops.BWD_WIDTH_LAUNCHES, tape_ops.FWD_WIDTH_LAUNCHES, render_ops.FWD_WIDTH_LAUNCHES,
                    render_ops.MARCH_BWD_WIDTH_LAUNCHES, aux_ops.MF_FWD_WIDTH_LAUNCHES,
-                   aux_ops.MF_BWD_WIDTH_LAUNCHES, query_ops.QUERY_FWD_UNIT_LAUNCHES):
+                   aux_ops.MF_BWD_WIDTH_LAUNCHES, query_ops.QUERY_FWD_UNIT_LAUNCHES,
+                   query_ops.QUERY_BWD_UNIT_LAUNCHES):
         for w in widths:
             widths[w] = 0
 
@@ -730,8 +805,8 @@ def read_counts() -> dict:
     (``march_width_<w>``), K3's, nearest and interp
     (``march_bwd_width_<w>``), and K9c's and K9d's (``mf_fwd_width_<w>``,
     ``mf_bwd_width_<w>``), all entry points, structures and pool types; and
-    the query forward's by pool type and copy unit (``query_unit_f32_16``);
-    and ``repoint``, the re-points: construct_tree's launches, box-free or
+    the query forward's by pool type and copy unit (``query_unit_f32_16``)
+    and its backward's (``query_bwd_unit_f32_16``); and ``repoint``, the re-points: construct_tree's launches, box-free or
     fused with the points' leaf box (construct_tree_aabb)."""
     counts = {name: k.launches for name, k in COUNTERS.items()}
     counts.update({f"bwd_width_{w}": n for w, n in tape_ops.BWD_WIDTH_LAUNCHES.items()})
@@ -741,6 +816,7 @@ def read_counts() -> dict:
     counts.update({f"mf_fwd_width_{w}": n for w, n in aux_ops.MF_FWD_WIDTH_LAUNCHES.items()})
     counts.update({f"mf_bwd_width_{w}": n for w, n in aux_ops.MF_BWD_WIDTH_LAUNCHES.items()})
     counts.update({f"query_unit_{u.replace(' ', '_')}": n for u, n in query_ops.QUERY_FWD_UNIT_LAUNCHES.items()})
+    counts.update({f"query_bwd_unit_{u.replace(' ', '_')}": n for u, n in query_ops.QUERY_BWD_UNIT_LAUNCHES.items()})
     counts["repoint"] = counts["construct_tree"] + counts["construct_tree_aabb"]
     return counts
 
@@ -748,10 +824,16 @@ def read_counts() -> dict:
 def check_query_units(counts: dict, what: str) -> None:
     """On an SH9 path (D = 28, contiguous pools) every query forward launch
     copies in the widest unit the row takes: 16 bytes for a float32 pool, 8
-    for a bf16 one (`ops/query.py` `query_unit`)."""
+    for a bf16 one (`ops/query.py` `query_unit`); and every query backward
+    launch moves the gradients in 16-byte units (float32) or 8-byte ones
+    (bf16, 4 values), added as float4s (`query_bwd_unit`)."""
     for name, kind, unit in (("query_fwd", "f32", 16), ("query_fwd_bf16", "bf16", 8)):
         check(counts[f"query_unit_{kind}_{unit}"] == counts[name],
               f"{what}: {counts[name]} {name} launches, {counts[f'query_unit_{kind}_{unit}']} of them in "
+              f"{unit}-byte units")
+    for name, kind, unit in (("query_bwd", "f32", 16), ("query_bwd_bf16", "bf16", 8)):
+        check(counts[f"query_bwd_unit_{kind}_{unit}"] == counts[name],
+              f"{what}: {counts[name]} {name} launches, {counts[f'query_bwd_unit_{kind}_{unit}']} of them in "
               f"{unit}-byte units")
 
 
@@ -2649,38 +2731,49 @@ def grid_scene(centers_np, sigma_np, dev) -> dict:
     scaling = torch.ones(3, device=dev)
     origins, dirs = render_ops.cam2world_rays(cam.c2w, WIDTH, HEIGHT, FX, FX)
     return dict(data=data, cam=cam, opt=opt, offset=offset, scaling=scaling,
-                origins=origins.contiguous(), dirs=dirs.contiguous())
+                origins=origins.contiguous(), dirs=dirs.contiguous(), shell=(centers_np, sigma_np))
+
+
+def grid_ball_scene(g: dict, centers_np, sigma_np) -> dict:
+    """``g`` (`grid_scene`) with a solid ball for its grid: every voxel whose
+    centre lies within the shell's outer radius (the farthest occupied leaf
+    centre from the grid's centre) at the shell's median sigma. A dense
+    scene, where K12's occupancy mask saves little."""
+    data = g["data"]
+    reso = data.shape[0]
+    r_out = float(np.linalg.norm(np.asarray(centers_np, np.float64) - 0.5, axis=1).max())
+    c = (torch.arange(reso, dtype=torch.float32, device=data.device) + 0.5) / reso - 0.5
+    d2 = (c[:, None, None] ** 2 + c[None, :, None] ** 2) + c[None, None, :] ** 2
+    ball = torch.zeros_like(data)
+    ball[d2 <= r_out ** 2] = float(np.median(sigma_np))
+    return dict(g, data=ball)
+
+
+def grid_nan_scene(g: dict) -> dict:
+    """``g`` (`grid_scene`) with a seeded GRID_NAN_RESO^3 grid for its grid:
+    3% of the voxels dense, 1% NaN, 1% -inf and 1% at the threshold (the
+    edge bricks partial, the occupancy pass's scalar path)."""
+    rng = np.random.RandomState(11)
+    n = GRID_NAN_RESO
+    data = np.where(rng.rand(n, n, n) < 0.03, rng.rand(n, n, n) * 50, 0).astype(np.float32)
+    u = rng.rand(n, n, n)
+    data[u < 0.01] = np.nan
+    data[(u >= 0.01) & (u < 0.02)] = -np.inf
+    data[(u >= 0.02) & (u < 0.03)] = g["opt"].sigma_thresh
+    return dict(g, data=torch.from_numpy(data).to(g["data"].device))
 
 
 def grid_census(g: dict) -> dict:
-    """What K12 reads and does on ``g`` (`grid_scene`), from its plain
-    version's sample chain: the rays, the samples taken, the distinct
-    voxels they read and the contributing samples."""
-    data, opt = g["data"], g["opt"]
-    reso = data.shape[0]
-    flat = data.reshape(-1)
-    from types import SimpleNamespace
-    o, d, invdir, ds, tmin, tmax, hit = render_ops._ray_setup(
-        SimpleNamespace(offset=g["offset"], scaling=g["scaling"]), g["origins"], g["dirs"])
-    seen = torch.zeros(reso ** 3, dtype=torch.bool, device=data.device)
-    res = torch.full_like(tmin, float(reso))
-    t, active = tmin, hit
-    samples = contrib = 0
-    for _ in range(opt.max_steps):
-        if not bool(active.any()):
-            break
-        pos = traversal.clamp_coord(render_ops.sample_position(o, t, d)) * reso
-        uvw = torch.clamp(torch.floor(pos), max=reso - 1)
-        sub_tmin, sub_tmax = traversal.dda_unit(pos - uvw, invdir)
-        uvw = uvw.long()
-        node = ((uvw[:, 0] * reso + uvw[:, 1]) * reso + uvw[:, 2])[active]
-        seen[node] = True
-        samples += int(active.sum())
-        contrib += int((flat[node] > opt.sigma_thresh).sum())
-        t = t + (sub_tmax - sub_tmin) / res + opt.step_size
-        active = active & (t < tmax)
-    return dict(rays=int(g["origins"].shape[0]), samples=samples, voxels=int(seen.sum()), contrib=contrib,
-                reso=reso)
+    """What K12 reads and does on ``g`` (`grid_scene`), from its masked
+    march's mirror (`ops.grid.grid_march_mirror`, held to the plain
+    version bit for bit): the rays, the samples taken, the distinct voxels
+    they read, the sigma loads in marked bricks and their distinct voxels,
+    the contributing samples, the marked bricks, the warps' iterations."""
+    args = (g["data"], g["origins"], g["dirs"], g["offset"], g["scaling"], g["opt"])
+    mw, mh, census = grid_ops.grid_march_mirror(*args, width=WIDTH)
+    pw, ph = grid_ops.grid_weight_plain(*args)
+    check(torch.equal(mw, pw) and torch.equal(mh, ph), "grid_march_mirror: not the plain version")
+    return census
 
 
 def subset_kernel_phase(mb: dict, g: dict, kernels: dict, dev, card: str) -> dict:
@@ -2844,21 +2937,44 @@ def subset_kernel_phase(mb: dict, g: dict, kernels: dict, dev, card: str) -> dic
     pool_elems = pool.numel()
     del sub, out, g_k, g_p, grad, got, want, work, g_unit
 
-    # K12 on the depth-9 shell's density grid.
-    args = (g["data"], g["origins"], g["dirs"], g["offset"], g["scaling"], g["opt"])
-    gw, gh = grid_ops.grid_weight_cuda(*args)
-    (pw, ph), p_ms = timed_once_ms(lambda: grid_ops.grid_weight_plain(*args))
-    check(torch.equal(gw, pw) and torch.equal(gh, ph), "grid_weight: kernel and plain differ")
-    call = lambda: grid_ops.grid_weight_cuda(*args)  # noqa: E731
-    k_ms, z_ms = device_ms(call, KERNEL_REPS, ("grid_kernel",)), time_ms(call, KERNEL_REPS)
-    kernels["grid_weight"].update(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0, library_ms=None)
-    print(f"grid_weight ({g['data'].shape[0]}^3 grid, {g['origins'].shape[0]} rays): weights and hits equal to "
-          f"plain bit for bit ({int((gh > 0).sum())} voxels hit, {float(gh.sum()):.0f} hits, max weight "
-          f"{float(gw.max()):.6f}); kernel {k_ms:.4f} ms on the card (profiler), {z_ms:.4f} ms a call with the "
-          f"outputs' zeroing (CUDA events), plain {p_ms:.1f} ms "
-          f"(one call) [{card}]")
-    del gw, gh, pw, ph
-    census = dict(B=B_MB, n_sub=n_sub, C=4, W=W, pool=pool_elems, grid=grid_census(g))
+    # K12 on the depth-9 shell's density grid (a), a solid ball (b) and a
+    # seeded grid with NaN and -inf sigmas: the occupancy pass and the
+    # march, each against its plain version bit for bit.
+    t_k12 = time.perf_counter()
+    for label, gg in (("shell", g), ("ball", grid_ball_scene(g, *g["shell"])), ("nan", grid_nan_scene(g))):
+        args = (gg["data"], gg["origins"], gg["dirs"], gg["offset"], gg["scaling"], gg["opt"])
+        mask = grid_ops.grid_occupancy_cuda(gg["data"], gg["opt"].sigma_thresh)
+        want_mask, mask_ms = timed_once_ms(lambda: grid_ops.grid_occupancy_plain(gg["data"], gg["opt"].sigma_thresh))
+        check(torch.equal(mask, want_mask), f"grid_occupancy ({label}): kernel and plain differ")
+        gw, gh = grid_ops.grid_weight_cuda(*args, width=WIDTH)
+        (pw, ph), p_ms = timed_once_ms(lambda: grid_ops.grid_weight_plain(*args))
+        check(torch.equal(gw, pw) and torch.equal(gh, ph), f"grid_weight ({label}): kernel and plain differ")
+        n_marked = int((((mask.long() & 0xFFFFFFFF)[:, None] >> torch.arange(32, device=dev)) & 1).sum())
+        print(f"grid_weight ({label}, {gg['data'].shape[0]}^3 grid, {gg['origins'].shape[0]} rays): mask "
+              f"({n_marked} bricks of {grid_ops.GRID_BRICK}^3 marked) and weights and hits equal to plain bit "
+              f"for bit ({int((gh > 0).sum())} voxels hit, {float(gh.sum()):.0f} hits, max weight "
+              f"{float(gw.max()):.6f})")
+        if label == "shell":
+            call = lambda: grid_ops.grid_weight_cuda(*args, width=WIDTH)  # noqa: E731
+            occ_ms = device_ms(call, KERNEL_REPS, ("occupancy_kernel",))
+            k_ms = device_ms(call, KERNEL_REPS, ("grid_kernel",))
+            both_ms = device_ms(call, KERNEL_REPS, ("occupancy_kernel", "grid_kernel"))
+            z_ms = time_ms(call, KERNEL_REPS)
+            whole_ms = queued_ms(call, KERNEL_REPS)
+            kernels["grid_weight"].update(ms=k_ms, plain_ms=p_ms, max_abs_err=0.0, library_ms=None)
+            kernels["grid_occupancy"].update(ms=occ_ms, plain_ms=mask_ms, max_abs_err=0.0, library_ms=None)
+            print(f"grid_weight (shell): occupancy pass {occ_ms:.4f} ms, march {k_ms:.4f} ms, the two {both_ms:.4f} "
+                  f"ms on the card (profiler, L2 cold); a call with the outputs' zero fill {whole_ms:.4f} ms (CUDA "
+                  f"events behind a busy stream, L2 cold), {z_ms:.4f} ms back to back; plain {mask_ms:.1f} ms and "
+                  f"{p_ms:.1f} ms (one call each) [{card}]")
+        del gw, gh, pw, ph, mask, want_mask
+    print(f"K12 checks: {time.perf_counter() - t_k12:.1f} s")
+    gc = grid_census(g)
+    gb = grid_bounds(gc)["grid_pass"]
+    print(f"bound grid_pass (a wrapper call: fill, occupancy pass, march): {gb['bound_bytes'] / 1e6:.2f} MB, "
+          f"{gb['bound_ops'] / 1e9:.4f} Gop -> {gb['bound_ms']:.5f} ms ({gb['bound_by']}); the call {whole_ms:.4f} "
+          f"ms, {gb['bound_ms'] / whole_ms:.3f} of the bound [{card}]")
+    census = dict(B=B_MB, n_sub=n_sub, C=4, W=W, pool=pool_elems, grid=gc)
     print(f"census (K14 on the rig tape, K12 on the grid): {census}; phase 3h {time.perf_counter() - t_3h:.1f} s")
     return census
 
@@ -2880,18 +2996,39 @@ def minibatch_bounds(c: dict) -> dict:
     direction and dscale read and written and its count written. K14b: the
     replay rows, target rows and ids read, the cotangent rows written; 5
     operations per loss element. K14c: the float32 pool and gradient read,
-    the pool written; 2 operations per value. K12: the rays read, the sigma
-    of every distinct voxel its samples land in read, both (reso^3) float32
-    grids written; OPS_GRID_SAMPLE per sample and OPS_GRID_CONTRIB per
-    contributing sample."""
+    the pool written; 2 operations per value. K12's two kernels:
+    `grid_bounds`."""
     B, n = c["B"], c["n_sub"]
-    gc = c["grid"]
-    return _bounds({
+    out = _bounds({
         "subset_gather": (subset_gather_bytes(B, n), 0),
         "l2_cotangent": (B * c["C"] * 4 + B * c["W"] * 4 + B * 4 + B * c["C"] * 4, 5 * B * c["W"]),
         "sgd_update": (c["pool"] * 12, 2 * c["pool"]),
-        "grid_weight": (gc["rays"] * 24 + gc["voxels"] * 4 + 2 * gc["reso"] ** 3 * 4,
-                        OPS_GRID_SAMPLE * gc["samples"] + OPS_GRID_CONTRIB * gc["contrib"]),
+    })
+    grid = grid_bounds(c["grid"])
+    out.update(grid_occupancy=grid["grid_occupancy"], grid_weight=grid["grid_weight"])
+    return out
+
+
+def grid_bounds(gc: dict) -> dict:
+    """bound_ms and bound_by of K12 from its census ``gc`` (`grid_census`).
+    ``grid_pass``, the whole function (a wrapper call: the outputs' zero
+    fill, the occupancy pass, the march): the rays read, the sigma of every
+    distinct voxel its samples land in read, both (reso^3) float32 grids
+    written; OPS_GRID_SAMPLE per sample and OPS_GRID_CONTRIB per
+    contributing sample. Its two kernels: ``grid_occupancy``, the grid read,
+    the mask written, a comparison a voxel; ``grid_weight``, the march: the
+    rays and the mask read, the sigma of the distinct voxels its samples
+    land in within marked bricks read, and the two output words of each
+    distinct voxel a contributing sample lands in read and written by its
+    atomics (the wrapper's fill writes the rest of the grids, outside the
+    kernel); the whole's operations."""
+    reso3 = gc["reso"] ** 3
+    ops = OPS_GRID_SAMPLE * gc["samples"] + OPS_GRID_CONTRIB * gc["contrib"]
+    mask_bytes = grid_ops.mask_words(gc["reso"], gc["brick"]) * 4
+    return _bounds({
+        "grid_pass": (gc["rays"] * 24 + gc["voxels"] * 4 + 2 * reso3 * 4, ops),
+        "grid_occupancy": (reso3 * 4 + mask_bytes, reso3),
+        "grid_weight": (gc["rays"] * 24 + mask_bytes + gc["voxels_marked"] * 4 + gc["voxels_contrib"] * 16, ops),
     })
 
 
@@ -3070,7 +3207,8 @@ def grid_path(g: dict) -> dict:
     """Phase 4o (K12): `grid_weight_render` through the public entry point
     on ``g`` (`grid_scene`), launch counts read around it and host ms,
     synchronized; the outputs' shape, bounds (weights in [0, 1]) and
-    support (hits only on voxels whose sigma exceeds the threshold)."""
+    support (hits only on voxels whose sigma exceeds the threshold).
+    The occupancy pass and the march each launch once."""
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3803,6 +3941,7 @@ def main() -> None:
     for name, (src, line) in {"subset_gather": ("tape_subset.cu", "tape_subset.py:280"),
                               "l2_cotangent": ("tape_subset.cu", "tape_subset.py:623"),
                               "sgd_update": ("tape_subset.cu", "tape_subset.py:429"),
+                              "grid_occupancy": ("grid.cu", "grid.py:22"),
                               "grid_weight": ("grid.cu", "grid.py:22")}.items():
         kernels[name] = dict(route="cuda", source=f"svox_t_tpu_torch/csrc/{src}",
                              replaces=f"svox_t_tpu/ops/{line}")
@@ -5153,7 +5292,8 @@ def main() -> None:
           f"rays) {ms['march_minibatch_step_ms']:.4f} ms; phase 4n {time.perf_counter() - t_4n:.1f} s [{card}]")
     # 4o. Main path, the dense-grid weight pass (K12) at full width.
     grid_res = grid_path(gscene)
-    check(grid_res["counts"]["grid_weight"] == 1, "grid path: grid_weight did not launch once")
+    check(grid_res["counts"]["grid_weight"] == 1 and grid_res["counts"]["grid_occupancy"] == 1,
+          "grid path: grid_occupancy and grid_weight did not launch once each")
     del mb, gscene
 
     # 4p. Main path, cost-ordered ray schedules (K15) on both backends
@@ -5325,6 +5465,8 @@ def main() -> None:
         _, _, didx = query_ops.query_forward_cuda(spec_t, f0, qpts)
         g_v = torch.from_numpy(rng.randn(M, 28).astype(np.float32)).to(dev)
         qb_ms = time_ms(lambda: query_ops.query_backward_cuda(didx, g_v, M), KERNEL_REPS)
+        qb_dev_ms, qb_how = kernel_alone_ms(lambda: query_ops.query_backward_cuda(didx, g_v, M), KERNEL_REPS,
+                                            ("query_bwd",))
         qb_plain_ms = time_ms(lambda: query_ops.query_backward_plain(didx, g_v, M), 3)
         check(bool((didx < M).all()), "a leaf centre in empty space")
         didx_l = didx.long()
@@ -5333,8 +5475,8 @@ def main() -> None:
         kernels["query_fwd"].update(ms=qf_ms, plain_ms=qf_plain_ms)
         kernels["query_bwd"].update(ms=qb_ms, plain_ms=qb_plain_ms, library_ms=qb_lib_ms)
         print(f"time query ({M} points, D 28): forward kernel {qf_ms:.4f} ms, plain {qf_plain_ms:.4f} ms; "
-              f"backward kernel {qb_ms:.4f} ms, plain {qb_plain_ms:.4f} ms, "
-              f"index_add_ {qb_lib_ms:.4f} ms [{card}]")
+              f"backward kernel {qb_ms:.4f} ms a wrapper call (its kernels alone {qb_dev_ms:.4f} ms, {qb_how}, "
+              f"L2 cold), plain {qb_plain_ms:.4f} ms, index_add_ {qb_lib_ms:.4f} ms [{card}]")
         # The bf16 query (K5) on the same points; its library call sums
         # the bf16 gradients in a bf16 buffer, as the JAX package does.
         fb0, g_vb = f0.to(torch.bfloat16), g_v.to(torch.bfloat16)
@@ -5367,6 +5509,27 @@ def main() -> None:
                 held.append(name)
         print(f"query forward, every other instance on the {qpts.shape[0]} points: {', '.join(held)}: values and "
               f"ids equal to plain")
+        # Likewise the query backward: every unit of the SH9 rows (forced)
+        # and the generic instance (D 24), on every id with a duplicated
+        # tenth (rows that take several points) and on a tenth of the ids,
+        # each within the atomic tolerance of its plain version, once.
+        held = []
+        tenth = didx.shape[0] // 10
+        for gv in (g_v, g_vb):
+            for ids_p, g_p, ids_what in ((torch.cat([didx, didx[:tenth]]), torch.cat([gv, gv[:tenth] * 0.5]),
+                                          "every id and a tenth twice"), (didx[:tenth], gv[:tenth], "a tenth")):
+                for g_d in (g_p, g_p[:, :24].contiguous()):
+                    want = query_ops.query_backward_plain(ids_p, g_d, M)
+                    rule = query_ops.query_bwd_unit(g_d.shape[1], g_d.dtype, (g_d.data_ptr(), 256))
+                    units = ([u for u in query_ops.QUERY_BWD_UNITS[g_d.dtype] if u <= rule]
+                             if g_d.shape[1] == 28 else [rule])
+                    for u in units:
+                        name = f"{'f32' if g_d.dtype == torch.float32 else 'bf16'} D {g_d.shape[1]} unit {u} ({ids_what})"
+                        atomic_err(query_ops.query_backward_cuda(ids_p, g_d, M, unit=u), want,
+                                   f"query backward {name}")
+                        held.append(name)
+        print(f"query backward, every instance ({M} points): {', '.join(held)}: within the atomic tolerance of "
+              f"plain")
 
         # The aux kernels, on the aux scene pointed at the canonical rows.
         for fast in (False, True):
@@ -5548,22 +5711,27 @@ def main() -> None:
                               f"pool {f_ms:.4f} ms in the same turn), plain {pool_plain_ms[key]:.1f} ms (one call, "
                               f"phase 3f) [{card}]")
 
-        # The bake's kernels at the main path's shapes; plain: one call,
-        # phase 3d.
+        # The bake's kernels at the main path's shapes: the bake's three
+        # kernels alone by the profiler, L2 cold, beside the CUDA-event time
+        # of back-to-back wrapper calls (a call shorter than its dispatch
+        # counts the host there); points_leaf_aabb by CUDA events. Plain:
+        # one call, phase 3d.
         runs = {
             "bake_lookup": (lambda: bake_ops.lookup_cuda(baked, lk_pts), lookup_plain_ms,
-                            f"{lk_pts.shape[0]} points"),
+                            f"{lk_pts.shape[0]} points", ("lookup_kernel",)),
             "bake_refresh": (lambda: bake_ops.refresh_cuda(baked, new_flat, lo, hi), refresh_plain_ms,
-                             f"{baked.src_map.numel()} baked cells"),
+                             f"{baked.src_map.numel()} baked cells", ("refresh_kernel",)),
             "grow_boxes": (lambda: bake_ops.grow_boxes_cuda(gb_ref), grow_plain_ms,
-                           f"{gb.R}^3 top grid"),
+                           f"{gb.R}^3 top grid", ("distance_pass", "pack_boxes_kernel")),
             "points_aabb": (lambda: query_ops.points_leaf_aabb_cuda(spec, points), aabb_plain_ms,
-                            f"{M} points"),
+                            f"{M} points", None),
         }
-        for name, (run_k, p_ms, what) in runs.items():
-            k_ms = time_ms(run_k, KERNEL_REPS)
-            kernels[name].update(ms=k_ms, plain_ms=p_ms)
-            print(f"time {name} ({what}): kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms (one call) [{card}]")
+        for name, (run_k, p_ms, what, names) in runs.items():
+            e_ms = time_ms(run_k, KERNEL_REPS)
+            k_ms, how = kernel_alone_ms(run_k, KERNEL_REPS, names) if names else (e_ms, "")
+            kernels[name].update(ms=k_ms, plain_ms=p_ms, timer=how or "CUDA events")
+            alone = f" alone ({how}, L2 cold), {e_ms:.4f} ms a wrapper call (CUDA events)" if names else ""
+            print(f"time {name} ({what}): kernel {k_ms:.4f} ms{alone}, plain {p_ms:.2f} ms (one call) [{card}]")
 
         # The warp and voxelize kernels at the deep configuration's shapes
         # (the warp backward forms all three gradients); plain: one call,
@@ -5802,10 +5970,14 @@ def main() -> None:
     # registers: ptxas's count for the width-4 plain SH9 instance of K3 and
     # K3+K4 (no rotation) and for the Kd-16 instance of K9c and K9d, else
     # null.
+    # timer: what timed ``ms`` where phase 6 takes a kernel alone by the
+    # profiler or, where its sessions record none of the kernel's launches,
+    # by CUDA events behind a busy stream (the bake's kernels), else null.
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms", "prev_ms", "registers")
+            "bound_ms", "bound_by", "library_ms", "prev_ms", "registers", "timer")
     for k, v in kernels.items():
         v.setdefault("prev_ms", None)
+        v.setdefault("timer", None)
         unit = k if k.endswith("_bf16") else k + ".cu"
         v["registers"] = march_regs.get((unit, 4)) if k.startswith("render_bwd") else None
         if k.startswith(("mf_fwd", "mf_bwd")):

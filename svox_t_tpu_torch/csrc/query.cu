@@ -8,15 +8,14 @@
 // lane descends its point and writes the leaf's packed cell id and its
 // data-table entry, then the warp copies its rows into its contiguous span
 // of the output in 16-, 8- or 4-byte units, zeros where the entry is not <
-// M. Backward: one thread per (point, column) adds the output gradient
-// into row data_idx with float atomicAdd when data_idx < M; duplicate
-// points in one leaf sum. The wrapper zeroes the gradient buffer.
+// M. Backward (csrc/query_bwd.cuh, shared likewise): a warp walks its 32
+// points' gradient rows and adds them into rows data_idx < M of the zeroed
+// gradient with vector atomicAdd; duplicate points in one leaf sum.
 //
 // Bound on an H100: the forward by the dependent child-table loads of the
 // descent (depth levels per point) and the copy of the rows (see
 // query_fwd.cuh); the backward by its atomics into the (M, D) buffer (157
-// MB at depth 9 SH9), laid out column-fastest, so that a warp's atomics
-// fall on neighbouring addresses of a few rows.
+// MB at depth 9 SH9; see query_bwd.cuh).
 //
 // K8b (points_leaf_aabb): the tree-space box of the leaves that hold a
 // point cloud. Replaces: svox_t_tpu/ops/query.py `points_leaf_aabb` (a
@@ -33,6 +32,7 @@
 // with one atomic per warp and coordinate spent 0.34 ms on 1.4M points
 // serialized on the six addresses (NVIDIA H100 80GB HBM3, 700 W).
 
+#include "query_bwd.cuh"
 #include "query_fwd.cuh"
 
 namespace {
@@ -93,20 +93,6 @@ __global__ void points_aabb_kernel(const float* __restrict__ points, int Q, int 
   }
 }
 
-__global__ void query_bwd_kernel(const int32_t* __restrict__ data_idx,
-                                 const float* __restrict__ grad_values,
-                                 int Q, int M, int D,
-                                 float* __restrict__ grad) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= static_cast<int64_t>(Q) * D) return;
-  const int i = static_cast<int>(e / D);
-  const int j = static_cast<int>(e - static_cast<int64_t>(i) * D);
-  const int32_t idx = __ldg(data_idx + i);
-  if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(M)) {
-    atomicAdd(grad + static_cast<size_t>(idx) * D + j, __ldg(grad_values + e));
-  }
-}
-
 }  // namespace
 
 // points (Q, 3) f32 (world space when world != 0, else tree space);
@@ -131,19 +117,15 @@ extern "C" int svox_query_fwd(const float* points, int Q, int world,
 }
 
 // data_idx (Q,) i32 from the forward; grad_values (Q, D) f32; grad (M, D)
-// f32, zeroed by the caller. Returns a cudaError_t.
-extern "C" int svox_query_bwd(const int32_t* data_idx, const float* grad_values,
-                              int Q, int M, int D, float* grad, int device,
-                              cudaStream_t stream) {
+// f32, zeroed by the caller; unit the bytes of grad_values a lane moves
+// at a time (16, 8 or 4), which must divide the row and the addresses of
+// grad_values and grad. Returns a cudaError_t.
+extern "C" int svox_query_bwd(const int32_t* data_idx, const float* grad_values, int Q, int M,
+                              int D, float* grad, int unit, int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int64_t n = static_cast<int64_t>(Q) * D;
-  if (n <= 0 || M <= 0) return cudaSuccess;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  query_bwd_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      data_idx, grad_values, Q, M, D, grad);
-  return cudaGetLastError();
+  const QueryBwdArgs<float> a{data_idx, grad_values, Q, M, D, grad};
+  return launch_query_bwd(a, unit, stream);
 }
 
 // K8b points_leaf_aabb. points (Q, 3) f32 (world space when world, else

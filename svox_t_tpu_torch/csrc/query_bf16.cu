@@ -15,29 +15,11 @@
 // forward and half the gradient bytes read backward. The forward is
 // csrc/query_fwd.cuh's warp copy in 2-byte values: an SH9 row is 56 bytes,
 // so its widest unit is 8 bytes (16 divides no such row). The backward is
-// csrc/query.cu's: one thread per (point, column), column-fastest so a
-// warp's atomics fall on neighbouring addresses.
+// csrc/query_bwd.cuh's warp walk, 8-byte units of an SH9 row (4 values)
+// widened to float32 and added with float4 atomics.
 
+#include "query_bwd.cuh"
 #include "query_fwd.cuh"
-
-namespace {
-
-constexpr int kThreads = 256;
-
-__global__ void query_bwd_bf16_kernel(const int32_t* __restrict__ data_idx,
-                                      const uint16_t* __restrict__ grad_values, int Q, int M,
-                                      int D, float* __restrict__ grad) {
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= static_cast<int64_t>(Q) * D) return;
-  const int i = static_cast<int>(e / D);
-  const int j = static_cast<int>(e - static_cast<int64_t>(i) * D);
-  const int32_t idx = __ldg(data_idx + i);
-  if (static_cast<uint32_t>(idx) < static_cast<uint32_t>(M)) {
-    atomicAdd(grad + static_cast<size_t>(idx) * D + j, svox::ld(grad_values + e));
-  }
-}
-
-}  // namespace
 
 // As svox_query_fwd, with features (M, D) bf16 and values (Q, D) bf16 out;
 // unit 16, 8, 4 or 2 bytes, dividing the row (D * 2 bytes) and the
@@ -57,17 +39,14 @@ extern "C" int svox_query_fwd_bf16(const float* points, int Q, int world,
   return launch_query(a, unit, stream);
 }
 
-// As svox_query_bwd, with grad_values (Q, D) bf16; grad (M, D) f32, zeroed
-// by the caller. Returns a cudaError_t.
+// As svox_query_bwd, with grad_values (Q, D) bf16; unit 8, 4 or 2 bytes
+// of grad_values (4, 2 or 1 values). Returns a cudaError_t.
 extern "C" int svox_query_bwd_bf16(const int32_t* data_idx, const void* grad_values, int Q,
-                                   int M, int D, float* grad, int device, cudaStream_t stream) {
+                                   int M, int D, float* grad, int unit, int device,
+                                   cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int64_t n = static_cast<int64_t>(Q) * D;
-  if (n <= 0 || M <= 0) return cudaSuccess;
-  const int64_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  query_bwd_bf16_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      data_idx, static_cast<const uint16_t*>(grad_values), Q, M, D, grad);
-  return cudaGetLastError();
+  const QueryBwdArgs<uint16_t> a{data_idx, static_cast<const uint16_t*>(grad_values), Q, M, D,
+                                 grad};
+  return launch_query_bwd(a, unit, stream);
 }

@@ -10,7 +10,8 @@ feature rows. On CUDA tensors each op launches its kernel
 (`csrc/construct_tree.cu`, `csrc/query.cu`, `csrc/edit.cu`) or raises; on
 CPU tensors its plain PyTorch version runs. The query forward copies each
 warp's rows in the unit `query_unit` picks (`QUERY_FWD_UNIT_LAUNCHES`
-counts its launches by unit). `points_leaf_aabb`
+counts its launches by unit), and the backward adds each warp's gradient
+rows in the unit `query_bwd_unit` picks (`QUERY_BWD_UNIT_LAUNCHES`). `points_leaf_aabb`
 (`POINTS_AABB`) bounds the leaves of a point cloud, to keep the baked
 render structure's cull box current; `construct_tree_aabb`
 (`CONSTRUCT_TREE_AABB`) re-points the tree and bounds the points' leaves
@@ -58,7 +59,7 @@ _QUERY_FWD_ARGS = [c_void_p, c_int, c_int,                  # points, Q, world
                    c_void_p, c_void_p, c_void_p,            # values, node_flat, data_idx
                    c_int, c_int, c_void_p]                  # unit, device, stream
 _QUERY_BWD_ARGS = [c_void_p, c_void_p, c_int, c_int, c_int,  # data_idx, grad_values, Q, M, D
-                   c_void_p, c_int, c_void_p]                # grad, device, stream
+                   c_void_p, c_int, c_int, c_void_p]         # grad, unit, device, stream
 QUERY_FWD = Kernel("svox_query_fwd", _QUERY_FWD_ARGS)
 QUERY_BWD = Kernel("svox_query_bwd", _QUERY_BWD_ARGS)
 # K5: the bf16 pool's instances (csrc/query_bf16.cu): bf16 values, and a
@@ -74,6 +75,12 @@ QUERY_UNITS = {torch.float32: (16, 8, 4), torch.bfloat16: (16, 8, 4, 2)}
 _POOL_KIND = {torch.float32: "f32", torch.bfloat16: "bf16"}
 QUERY_FWD_UNIT_LAUNCHES = {f"{_POOL_KIND[t]} {u}": 0 for t, units in QUERY_UNITS.items() for u in units}
 _QUERY_BWD = {torch.float32: QUERY_BWD, torch.bfloat16: QUERY_BWD_BF16}
+# The query backward's units (`csrc/query_bwd.cuh`): the bytes of the value
+# gradients a lane adds at a time (4, 2 or 1 values, one vector atomic into
+# the float32 gradient), widest first, by gradient type; and its launches
+# by type and unit ("f32 16": float32 gradients added in float4 units).
+QUERY_BWD_UNITS = {torch.float32: (16, 8, 4), torch.bfloat16: (8, 4, 2)}
+QUERY_BWD_UNIT_LAUNCHES = {f"{_POOL_KIND[t]} {u}": 0 for t, units in QUERY_BWD_UNITS.items() for u in units}
 POINTS_AABB = Kernel(
     "svox_points_aabb",
     [c_void_p, c_int, c_int,                  # points, Q, world
@@ -338,6 +345,21 @@ def query_unit(D: int, dtype: torch.dtype, ptrs) -> int:
     raise ValueError(f"no query unit for a {dtype} pool")
 
 
+def query_bwd_unit(D: int, dtype: torch.dtype, ptrs) -> int:
+    """The unit of a query backward launch: the widest of
+    `QUERY_BWD_UNITS[dtype]` (bytes of ``dtype`` value gradients, k values)
+    that divides the row (D values) and the gradients' address ``ptrs[0]``,
+    and whose k float32 values divide the float32 gradient's address
+    ``ptrs[1]``. Float32 SH9 gradients take 16 (float4 atomics), bf16 ones
+    8 (4 values widened to a float4)."""
+    row = D * dtype.itemsize
+    for unit in QUERY_BWD_UNITS[dtype]:
+        k = unit // dtype.itemsize
+        if row % unit == 0 and ptrs[0] % unit == 0 and ptrs[1] % (4 * k) == 0:
+            return unit
+    raise ValueError(f"no query backward unit for {dtype} gradients")
+
+
 def _query_launch_unit(D: int, dtype: torch.dtype, ptrs, unit) -> int:
     """The unit of a launch: `query_unit`'s, or ``unit`` where the caller
     forces one; a unit the pool type has no instance for, or that does not
@@ -397,9 +419,13 @@ def query_forward_cuda(spec: TreeSpec, features: torch.Tensor, points: torch.Ten
     return values, node_flat, data_idx
 
 
-def query_backward_cuda(data_idx: torch.Tensor, grad_values: torch.Tensor, M: int):
-    """Launch the query backward kernel (csrc/query.cu; for bf16 value
-    gradients csrc/query_bf16.cu) into a zeroed float32 (M, D) gradient."""
+def query_backward_cuda(data_idx: torch.Tensor, grad_values: torch.Tensor, M: int, unit=None):
+    """Launch the query backward kernel (csrc/query_bwd.cuh, compiled by
+    csrc/query.cu; for bf16 value gradients by csrc/query_bf16.cu): every
+    point's value gradients added into its row of a zeroed float32 (M, D)
+    gradient. The unit is the one `query_bwd_unit` picks, or ``unit``
+    (bytes of the value gradients) where the caller forces a narrower one;
+    a unit the launch does not allow raises."""
     if not (data_idx.is_cuda and grad_values.device == data_idx.device):
         raise ValueError("query_backward_cuda needs data_idx and grad_values on one CUDA device")
     if data_idx.dtype != torch.int32:
@@ -417,10 +443,18 @@ def query_backward_cuda(data_idx: torch.Tensor, grad_values: torch.Tensor, M: in
     grad = torch.zeros(M, D, dtype=torch.float32, device=dev)
     if M == 0 or Q * D == 0:
         return grad
-    kernel(
-        data_idx.data_ptr(), grad_values.data_ptr(), Q, M, D, grad.data_ptr(),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    if Q >= 2 ** 31 or M >= 2 ** 31:
+        raise ValueError("query_backward_cuda takes fewer than 2^31 points and rows")
+    ptrs = (grad_values.data_ptr(), grad.data_ptr())
+    rule = query_bwd_unit(D, grad_values.dtype, ptrs)
+    if unit is None:
+        unit = rule
+    elif type(unit) is not int or unit not in QUERY_BWD_UNITS[grad_values.dtype] or unit > rule:
+        raise ValueError(f"the query backward unit for {grad_values.dtype} gradients must be one of "
+                         f"{QUERY_BWD_UNITS[grad_values.dtype]} and at most {rule} here, got {unit!r}")
+    kernel(data_idx.data_ptr(), grad_values.data_ptr(), Q, M, D, grad.data_ptr(), unit,
+           dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    QUERY_BWD_UNIT_LAUNCHES[f"{_POOL_KIND[grad_values.dtype]} {unit}"] += 1
     return grad
 
 

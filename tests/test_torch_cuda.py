@@ -1509,6 +1509,62 @@ def test_query_forward_units_match_plain(cuda, dtype, D):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("points", ["every", "twelfth"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [28, 4, 6, 3])
+def test_query_backward_units_match_plain(cuda, dtype, D, points):
+    """Every unit of the query backward the row and pointers allow (K8b,
+    `query_bwd.cuh`: the D = 28 and 4 instances and the generic one), on
+    every leaf centre with duplicated points and points in empty space, and
+    on a twelfth of them, within the atomic tolerance of the plain version
+    with a partial last warp, each launch counted under its unit; the
+    wrapper picks the widest unit; a wider forced unit raises."""
+    tree, feats, centers = _shell(cuda, fmt="SH9", ddim=28, seed=59)
+    spec = tree._spec()
+    M = int(feats.shape[0] * 0.9)
+    pts = _query_points(cuda, centers, 11, 59)
+    if points == "twelfth":
+        pts = pts[: len(pts) // 12 + 5]
+    didx = tquery.query_forward_plain(spec, feats[:M], pts)[2]
+    g = torch.Generator().manual_seed(59)
+    gv = torch.randn(pts.shape[0], D, generator=g).to(cuda).to(dtype)
+    want = tquery.query_backward_plain(didx, gv, M)
+    kind = "f32" if dtype == torch.float32 else "bf16"
+    rule = tquery.query_bwd_unit(D, dtype, (gv.data_ptr(), 256))
+    assert rule == {(4, 28): 16, (4, 4): 16, (4, 6): 8, (4, 3): 4, (2, 28): 8, (2, 4): 8, (2, 6): 4,
+                    (2, 3): 2}[gv.element_size(), D]
+    for unit in [u for u in tquery.QUERY_BWD_UNITS[dtype] if u <= rule]:
+        before = dict(tquery.QUERY_BWD_UNIT_LAUNCHES)
+        got = tquery.query_backward_cuda(didx, gv, M, unit=unit)
+        torch.cuda.synchronize()
+        _assert_atomic_close(got, want)
+        after = dict(tquery.QUERY_BWD_UNIT_LAUNCHES)
+        assert after[f"{kind} {unit}"] == before[f"{kind} {unit}"] + 1
+        assert sum(after.values()) == sum(before.values()) + 1
+    before = tquery.QUERY_BWD_UNIT_LAUNCHES[f"{kind} {rule}"]
+    _assert_atomic_close(tquery.query_backward_cuda(didx, gv, M), want)
+    assert tquery.QUERY_BWD_UNIT_LAUNCHES[f"{kind} {rule}"] == before + 1
+    wider = [u for u in tquery.QUERY_BWD_UNITS[dtype] if u > rule]
+    if wider:
+        with pytest.raises(ValueError, match="at most"):
+            tquery.query_backward_cuda(didx, gv, M, unit=wider[-1])
+
+
+def test_query_backward_misaligned_gradients_take_a_narrower_unit(cuda):
+    """Value gradients 4 bytes past a 16-byte boundary take the 4-byte unit
+    (one value), within the atomic tolerance of plain."""
+    tree, feats, centers = _shell(cuda, fmt="SH9", ddim=28, seed=60)
+    spec = tree._spec()
+    M, D = feats.shape
+    pts = _query_points(cuda, centers, 5, 60)
+    didx = tquery.query_forward_plain(spec, feats, pts)[2]
+    flat = torch.randn(pts.shape[0] * D + 1, generator=torch.Generator().manual_seed(60)).to(cuda)
+    gv = flat[1:].view(-1, D)
+    before = tquery.QUERY_BWD_UNIT_LAUNCHES["f32 4"]
+    _assert_atomic_close(tquery.query_backward_cuda(didx, gv, M), tquery.query_backward_plain(didx, gv, M))
+    assert tquery.QUERY_BWD_UNIT_LAUNCHES["f32 4"] == before + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_query_forward_misaligned_pool_takes_a_narrower_unit(cuda, dtype):
     """A pool that starts 4 bytes (bf16: 2) past a 16-byte boundary takes
@@ -2636,10 +2692,10 @@ def test_grid_weight_kernel_matches_plain(cuda, ndc):
         cam = stt.CameraSpec(c2w=torch.as_tensor(orbit_camera(), device=cuda), fx=70.0, fy=70.0,
                              width=64, height=48)
         offset, scaling = [0.0] * 3, [1.0] * 3
-    before = tgrid.GRID_WEIGHT.launches
+    before = tgrid.GRID_WEIGHT.launches, tgrid.GRID_OCCUPANCY.launches
     gw, gh = stt.grid_weight_render(data, cam, opt, offset, scaling)
     torch.cuda.synchronize()
-    assert tgrid.GRID_WEIGHT.launches == before + 1
+    assert (tgrid.GRID_WEIGHT.launches, tgrid.GRID_OCCUPANCY.launches) == (before[0] + 1, before[1] + 1)
     o, d = trender.cam2world_rays(cam.c2w, cam.width, cam.height, cam.fx, cam.fy)
     if ndc:
         d, o = trender.world2ndc(opt, d, o)
@@ -2647,6 +2703,29 @@ def test_grid_weight_kernel_matches_plain(cuda, ndc):
     pw, ph = tgrid.grid_weight_plain(data, o.contiguous(), d.contiguous(), vec(offset), vec(scaling), opt)
     assert torch.equal(gw, pw) and torch.equal(gh, ph)
     assert float(gh.sum()) > 0 and 0 < float(gw.max()) <= 1.0
+
+
+@pytest.mark.parametrize("reso,thresh", [(40, 0.5), (37, 0.5), (16, -1.0), (24, float("nan"))])
+def test_grid_occupancy_kernel_matches_plain(cuda, reso, thresh):
+    """K12's occupancy pass equals its plain version bit for bit: whole
+    bricks (16-byte loads) and partial ones (the scalar walk), NaN and -inf
+    sigmas, a negative and a NaN threshold; and the march over it equals
+    the plain march."""
+    rng = np.random.RandomState(reso)
+    data = (rng.rand(reso, reso, reso) * 30).astype(np.float32)
+    data[rng.rand(reso, reso, reso) < 0.9] = 0.0
+    u = rng.rand(reso, reso, reso)
+    data[u < 0.01] = np.nan
+    data[(u >= 0.01) & (u < 0.02)] = -np.inf
+    data = torch.from_numpy(data).to(cuda)
+    mask = tgrid.grid_occupancy_cuda(data, thresh)
+    assert torch.equal(mask, tgrid.grid_occupancy_plain(data, thresh))
+    opt = stt.RenderOptions(step_size=1e-3, sigma_thresh=thresh, max_steps=300)
+    o, d = trender.cam2world_rays(torch.as_tensor(orbit_camera(), device=cuda), 40, 32, 50.0, 50.0)
+    args = (data, o.contiguous(), d.contiguous(), torch.zeros(3, device=cuda), torch.ones(3, device=cuda), opt)
+    gw, gh = tgrid.grid_weight_cuda(*args)
+    pw, ph = tgrid.grid_weight_plain(*args)
+    assert torch.equal(gw, pw) and torch.equal(gh, ph)
 
 
 def test_k14_k12_raise_without_their_kernels(cuda, monkeypatch):
@@ -2659,11 +2738,12 @@ def test_k14_k12_raise_without_their_kernels(cuda, monkeypatch):
         tsub.SUBSET_GATHER: lambda: tsub.subset_tape(tp, np.arange(8)),
         tsub.L2_COTANGENT: lambda: tsub.train_steps(tp, tgt, feats, opt, 1, spec=spec),
         tsub.SGD_UPDATE: lambda: tsub.train_steps(tp, tgt, feats, opt, 1, spec=spec),
-        tgrid.GRID_WEIGHT: lambda: stt.grid_weight_render(
+    }
+    for kernel in (tgrid.GRID_OCCUPANCY, tgrid.GRID_WEIGHT):
+        calls[kernel] = lambda: stt.grid_weight_render(
             torch.ones(8, 8, 8, device=cuda), stt.CameraSpec(c2w=torch.eye(4, device=cuda), width=4,
                                                              height=4, fx=4.0, fy=4.0),
-            stt.RenderOptions(), [0.0] * 3, [1.0] * 3),
-    }
+            stt.RenderOptions(), [0.0] * 3, [1.0] * 3)
     for kernel, call in calls.items():
         with monkeypatch.context() as m:
             m.setattr(kernel, "symbol", kernel.symbol + "_missing")

@@ -2,8 +2,10 @@
 K9a, the opacity VJP (`tools/render_bwd_ab.py --opacity`), of K14a, the
 subset gather (`tools/subset_gather_ab.py`), of K8a with its box form
 (`tools/construct_tree_ab.py`), of K10's backward (`tools/warp_bwd_ab.py`),
-of K11's forward (`tools/voxelize_ab.py`) and of K13a+K13b, the tape
-recorder's walks (`tools/tape_record_ab.py`), on the CPU: the kernels
+of K11's forward (`tools/voxelize_ab.py`), of K13a+K13b, the tape
+recorder's walks (`tools/tape_record_ab.py`), of K12, the dense-grid
+weight pass (`tools/grid_ab.py`), and of K8b's query backward
+(`tools/query_bwd_ab.py`), on the CPU: the kernels
 build only on a card, but each design is a text patch of the shipped
 source, and the designs that lost live in `tools/*_designs.cuh`.
 
@@ -16,7 +18,8 @@ source, and the designs that lost live in `tools/*_designs.cuh`.
     (`ops/warp.py`, `ops/p2v.py`) repeat;
   * `chip_smoke.query_fwd_work`, the query forward's bytes and operations
     that the smoke's phase 6 and `tools/query_ab.py` count, on a small case,
-    and `chip_smoke.subset_gather_bytes`, K14a's, likewise.
+    and `chip_smoke.subset_gather_bytes`, K14a's, likewise; `chip_smoke.grid_bounds`,
+    K12's, on a census.
 """
 
 import re
@@ -29,7 +32,9 @@ TOOLS = Path(__file__).resolve().parent.parent / "tools"
 sys.path.insert(0, str(TOOLS))
 
 import construct_tree_ab  # noqa: E402
+import grid_ab  # noqa: E402
 import query_ab  # noqa: E402
+import query_bwd_ab  # noqa: E402
 import render_bwd_ab  # noqa: E402
 import render_fwd_ab  # noqa: E402
 import subset_gather_ab  # noqa: E402
@@ -235,3 +240,72 @@ def test_tape_record_design_patches_apply(tmp_path, design):
         assert f"constexpr int kChunk = {tape_record_ab.CHUNKS[design]};" in text
     if design in ("shipped", "pair"):
         assert text == shipped
+
+
+@pytest.mark.parametrize("design", sorted(grid_ab.DESIGNS))
+def test_grid_design_patches_apply(tmp_path, design):
+    """Each K12 design's patches apply once to grid.cu; a spliced design
+    includes `tools/grid_designs.cuh` inside the anonymous namespace and
+    launches a kernel or launcher that file defines, in place of the
+    shipped march's 32-bit launch; a brick design sets the brick its mask
+    is sized for; only ``rows`` launches with no row width."""
+    sources = grid_ab.design_sources(tmp_path, None, {design: grid_ab.DESIGNS[design]})
+    csrc, units = sources[design]
+    text = (csrc / grid_ab.SOURCE).read_text()
+    assert units == ("grid",) and (csrc / grid_ab.DESIGN_FILE).exists()
+    brick = grid_ab.DESIGNS[design][1]
+    assert f"constexpr int kBrick = {brick};" in text
+    designs_text = (TOOLS / grid_ab.DESIGN_FILE).read_text()
+    if design in ("ahead", "smem"):
+        include = text.index(f'#include "{grid_ab.DESIGN_FILE}"')
+        assert include < text.index("}  // namespace")
+        assert grid_ab.LAUNCH not in text
+        name = {"ahead": "grid_kernel_ahead", "smem": "launch_smem"}[design]
+        assert f"{name}<kBrick, int>" in text and re.search(rf"\b{name}\(", designs_text)
+    else:
+        assert f'#include "{grid_ab.DESIGN_FILE}"' not in text
+    assert (design in grid_ab.ROWS) == (design == "rows")
+
+
+def test_grid_bounds_count_bytes_and_operations():
+    """The whole call writes both grids; the march reads the rays, the mask
+    and the marked voxels and writes only the contributing voxels' two
+    words (read and written by its atomics), the fill being the wrapper's."""
+    census = dict(rays=10, samples=100, voxels=50, voxels_marked=7, contrib=20, voxels_contrib=5, reso=16,
+                  brick=8)
+    b = chip_smoke.grid_bounds(census)
+    mask = 4 * 1
+    assert b["grid_pass"]["bound_bytes"] == 10 * 24 + 50 * 4 + 2 * 16 ** 3 * 4
+    assert b["grid_occupancy"]["bound_bytes"] == 16 ** 3 * 4 + mask
+    assert b["grid_weight"]["bound_bytes"] == 10 * 24 + mask + 7 * 4 + 5 * 16
+    ops = chip_smoke.OPS_GRID_SAMPLE * 100 + chip_smoke.OPS_GRID_CONTRIB * 20
+    assert b["grid_pass"]["bound_ops"] == b["grid_weight"]["bound_ops"] == ops
+
+
+@pytest.mark.parametrize("design", sorted(query_bwd_ab.DESIGNS))
+def test_query_bwd_design_patches_apply(tmp_path, design):
+    """Each K8b backward design's patches apply once to query_bwd.cuh or to
+    `tools/query_bwd_designs.cuh`: the header's designs keep the shipped
+    launch; a spliced design includes the designs file before the shipped
+    launcher and returns its own launch in place of the shipped kernel's,
+    and its patches of the rows kernel land in the designs file; every run
+    names a library, and the libraries that add into zeros are the walks'."""
+    sources = query_bwd_ab.design_sources(tmp_path, None, {design: query_bwd_ab.DESIGNS[design]})
+    csrc, units = sources[design]
+    text = (csrc / query_bwd_ab.HEADER).read_text()
+    extra = (csrc / query_bwd_ab.DESIGN_FILE).read_text()
+    assert units == ("query", "query_bf16")
+    shipped = "query_bwd_kernel<T, kW, kD><<<" in text
+    assert "owner[" not in (query_bwd_ab._build.CSRC / query_bwd_ab.HEADER).read_text()
+    if design in ("shipped", "t128"):
+        assert shipped and f'#include "{query_bwd_ab.DESIGN_FILE}"' not in text
+        assert ("kQueryBwdThreads = 128;" in text) == (design == "t128")
+    else:
+        assert not shipped and f"  return launch_{design if design in ('rows4', 'lane', 'points', 'flat') else 'dense'}" \
+            f"<T, kW, kD>(a, stream);" in text
+        assert text.index(f'#include "{query_bwd_ab.DESIGN_FILE}"') < text.index("cudaError_t launch_query_bwd_walk(")
+    assert ("__stcs(out + u, v);" in extra) == (design == "stcs")
+    assert ("if (__ballot_sync(0xffffffffu, own >= 0) == 0) {" in extra) == (design == "zfast")
+    assert ("  const int32_t own = -1;\n" in extra) == (design == "zeros")
+    assert {lib for lib, _ in query_bwd_ab.RUNS.values()} == set(query_bwd_ab.DESIGNS)
+    assert query_bwd_ab.ZEROED - {"parent"} == {"shipped", "t128", "lane", "points"}

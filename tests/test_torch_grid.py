@@ -1,6 +1,13 @@
 """svox_t_tpu_torch's dense-grid max-weight pass (K12, `grid_weight_render`)
 against the JAX package (CPU).
 
+The kernel's occupancy pass (`grid_occupancy_plain`) is held to a NumPy
+brute force, and its masked march (`grid_march_mirror`: sigma read only in
+marked bricks) to `grid_weight_plain` bit for bit and to the JAX package
+under the rules above, on the block and NDC scenes and on seeded grids with
+NaN and -inf sigmas, sigmas equal to the threshold and a negative
+threshold, at reso 20 and 16.
+
 `test_misc.py::test_grid_weight_render`'s scene (a solid block in a 16^3
 grid, a 24x24 camera) and an NDC case (a forward-facing camera over a
 seeded 20^3 grid, offset and scaling 0.5). Hit counts compare exactly and
@@ -152,3 +159,98 @@ def test_dense_density_grid_is_the_shell():
     rows = tree.forward(torch.from_numpy(feats), torch.from_numpy(c.astype(np.float32)))
     np.testing.assert_array_equal(grid.reshape(-1), rows[:, -1].numpy())
     assert (grid > 0).sum() == len(centers)
+
+
+def _seeded_scene(reso, thresh, seed):
+    """A seeded reso^3 grid over the block scene's camera: 2% of the voxels
+    dense (a few clusters), some NaN, -inf and exactly the threshold."""
+    rng = np.random.RandomState(seed)
+    data = np.zeros((reso, reso, reso), np.float32)
+    c = rng.randint(2, reso - 2, (3, 3))
+    for x, y, z in c:
+        data[x - 2:x + 2, y - 1:y + 2, z - 2:z + 1] = rng.rand() * 30 + 1
+    u = rng.rand(reso, reso, reso)
+    data[u < 0.01] = np.nan
+    data[(u >= 0.01) & (u < 0.02)] = -np.inf
+    data[(u >= 0.02) & (u < 0.03)] = thresh
+    data[(u >= 0.03) & (u < 0.035)] = 5.0
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, 3] = [0.45, 0.55, 2.5]
+    opt = dict(step_size=2e-3, sigma_thresh=thresh, max_steps=400)
+    return data, pose, 24.0, 24, opt, np.zeros(3, np.float32), np.ones(3, np.float32)
+
+
+def _occupancy_brute(data, thresh, brick):
+    reso = data.shape[0]
+    nb = -(-reso // brick)
+    flags = np.zeros(nb ** 3, bool)
+    with np.errstate(invalid="ignore"):
+        for bx in range(nb):
+            for by in range(nb):
+                for bz in range(nb):
+                    blk = data[bx * brick:(bx + 1) * brick, by * brick:(by + 1) * brick,
+                               bz * brick:(bz + 1) * brick]
+                    flags[(bx * nb + by) * nb + bz] = bool((blk > thresh).any())
+    words = np.zeros(-(-nb ** 3 // 32), np.uint32)
+    for b in np.flatnonzero(flags):
+        words[b >> 5] |= np.uint32(1 << (b & 31))
+    return words.view(np.int32)
+
+
+@pytest.mark.parametrize("brick", [4, 8, 16])
+@pytest.mark.parametrize("reso,thresh", [(16, 0.5), (20, 0.5), (20, -1.0), (13, 0.0),
+                                         (20, float("nan"))])
+def test_grid_occupancy_plain_matches_brute_force(reso, thresh, brick):
+    """The occupancy pass's plain version sets the bit of every brick (edge
+    bricks partial) with a voxel whose sigma exceeds the threshold: NaN
+    sigmas never do, a NaN threshold marks nothing, a negative one marks
+    the zeros too."""
+    data = _seeded_scene(reso, 0.5 if thresh != thresh else thresh, 3)[0]
+    got = tgrid.grid_occupancy_plain(torch.from_numpy(data), thresh, brick)
+    assert got.dtype == torch.int32 and got.shape == (tgrid.mask_words(reso, brick),)
+    np.testing.assert_array_equal(got.numpy(), _occupancy_brute(data, thresh, brick))
+    if thresh != thresh:
+        assert not got.any()
+
+
+_MIRROR_SCENES = {
+    "block": _block_scene,
+    "ndc": _ndc_scene,
+    "seeded20": lambda: _seeded_scene(20, 0.5, 5),
+    "seeded16": lambda: _seeded_scene(16, 0.5, 6),
+    "negative_thresh": lambda: _seeded_scene(20, -0.5, 7),
+    "zero_thresh16": lambda: _seeded_scene(16, 0.0, 8),
+}
+
+
+@pytest.mark.parametrize("brick", [8, 4])
+@pytest.mark.parametrize("scene", sorted(_MIRROR_SCENES))
+def test_grid_march_mirror_matches_plain_and_jax(scene, brick, monkeypatch):
+    """The kernel's masked march, mirrored in PyTorch, equals
+    `grid_weight_plain` bit for bit on every ray, and the JAX package
+    (hits exact, weights within 1e-6) on the rays whose setup agrees; its
+    census counts a sigma load for every sample in a marked brick, each
+    contributing sample once, and the voxels those samples land in."""
+    data, pose, f, wh, opt, offset, scaling = _MIRROR_SCENES[scene]()
+    topt = stt.RenderOptions(**opt)
+    keep, to, td = _same_setup(pose, f, wh, opt, offset, scaling)
+    assert keep.mean() > 0.9
+    args = (torch.from_numpy(offset), torch.from_numpy(scaling), topt)
+    tdata = torch.from_numpy(data)
+    mask = tgrid.grid_occupancy_plain(tdata, topt.sigma_thresh, brick)
+    gw, gh, census = tgrid.grid_march_mirror(tdata, to, td, *args, mask=mask, brick=brick, width=wh)
+    pw, ph = tgrid.grid_weight_plain(tdata, to, td, *args)
+    assert torch.equal(gw, pw) and torch.equal(gh, ph)
+    assert census["contrib"] == int(gh.sum()) > 0
+    assert census["voxels_contrib"] == int((gh > 0).sum()) <= census["voxels_marked"]
+    assert census["contrib"] <= census["loads"] <= census["samples"]
+    assert census["bricks"] == int(sum(bin(w & 0xFFFFFFFF).count("1") for w in mask.tolist()))
+    assert census["warp_steps"] * 32 >= census["samples"] and census["tile_warp_steps"] * 32 >= census["samples"]
+    o, d = jrender.cam2world_rays(jnp.asarray(pose), wh, wh, f, f)
+    monkeypatch.setattr(jgrid, "cam2world_rays", lambda *a: (o[keep], d[keep]))
+    gw, gh, _ = tgrid.grid_march_mirror(tdata, to[keep], td[keep], *args, mask=mask, brick=brick)
+    jcam = st.CameraSpec(c2w=jnp.asarray(pose), fx=f, fy=f, width=wh, height=wh)
+    jgw, jgh = st.grid_weight_render(jnp.asarray(data), jcam, st.RenderOptions(**opt), jnp.asarray(offset),
+                                     jnp.asarray(scaling))
+    np.testing.assert_array_equal(gh.numpy(), np.asarray(jgh))
+    np.testing.assert_allclose(gw.numpy(), np.asarray(jgw), atol=1e-6, rtol=0)

@@ -9,7 +9,12 @@ kernel runs:
     raises;
   * the query against the JAX package, float32 and bf16 pools at D = 1, 4,
     5 and 28, with duplicated points and points in empty leaves and past the
-    pool's last row: values, node ids and row ids exact, and the gradient.
+    pool's last row: values, node ids and row ids exact, and the gradient;
+  * the backward (`csrc/query_bwd.cuh`): `query_bwd_unit`, the widest of
+    4, 2, 1 values a unit that divides the row and the gradients' address
+    (its values the float32 gradient's), its launch counters, and the
+    gradient against `jax.vjp` of the JAX query at rows that take the 8-
+    and 4-byte units (and bf16's 4 and 2).
 """
 
 import jax
@@ -117,3 +122,71 @@ def test_query_matches_jax_at_each_width(scene, D, dtype):
                                      * torch.from_numpy(G)).sum(), x)
         np.testing.assert_allclose(gt.numpy(), np.asarray(gj), rtol=0,
                                    atol=1e-5 * max(1.0, float(np.abs(np.asarray(gj)).max())))
+
+
+# (D, dtype, address offsets in bytes of (value gradients, float32 gradient), want).
+BWD_UNIT_CASES = [
+    (28, F32, (0, 0), 16), (4, F32, (0, 0), 16), (6, F32, (0, 0), 8), (3, F32, (0, 0), 4),
+    (28, F32, (8, 0), 8), (28, F32, (4, 0), 4), (28, F32, (0, 8), 8), (28, F32, (0, 4), 4),
+    (28, BF16, (0, 0), 8), (4, BF16, (0, 0), 8), (6, BF16, (0, 0), 4), (3, BF16, (0, 0), 2),
+    (28, BF16, (4, 0), 4), (28, BF16, (2, 0), 2), (28, BF16, (0, 8), 4), (28, BF16, (0, 4), 2),
+]
+
+
+@pytest.mark.parametrize("D,dtype,offs,want", BWD_UNIT_CASES)
+def test_query_bwd_unit_rule(D, dtype, offs, want):
+    ptrs = tuple((1 << 20) + o for o in offs)
+    assert tquery.query_bwd_unit(D, dtype, ptrs) == want
+
+
+def test_query_bwd_unit_launches_are_counted_by_unit():
+    assert set(tquery.QUERY_BWD_UNIT_LAUNCHES) == {"f32 16", "f32 8", "f32 4", "bf16 8", "bf16 4", "bf16 2"}
+
+
+def test_query_backward_cuda_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        tquery.query_backward_cuda(torch.zeros(4, dtype=torch.int32), torch.zeros(4, 6), 5, unit=8)
+
+
+def _bf16_ulp(x):
+    """One bf16 ulp at |x| (float32 array)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.float32(2.0 ** -126))))
+    return np.exp2(e - 7)
+
+
+@pytest.mark.parametrize("D", [6, 3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_query_backward_matches_jax_vjp_at_narrow_units(scene, D, dtype):
+    """The port's query gradient against `jax.vjp` of the JAX query, at rows
+    whose width takes the 8- and 4-byte units (float32 D = 6, 3; bf16 4 and
+    2): float32 within 1e-5 * max(1, max|g|); bf16 (the JAX sum of a row's
+    k gradients in bf16, rounded k - 1 times, the port's in float32 cast
+    once) within max(k - 1, 1) bf16 ulps of the sum of their magnitudes
+    plus that."""
+    jt, pt, pts, n_rows, rng = scene
+    f = rng.randn(int(n_rows * 0.8), D).astype(np.float32)
+    bf = dtype == "bfloat16"
+    fj = jnp.asarray(f).astype(jnp.bfloat16 if bf else jnp.float32)
+    ft = torch.from_numpy(np.array(fj.astype(jnp.float32))).to(getattr(torch, dtype))
+    G = rng.randn(len(pts), D).astype(np.float32)
+    Gj = jnp.asarray(G).astype(fj.dtype)
+    unit = tquery.query_bwd_unit(D, ft.dtype, (1 << 20, 1 << 20))
+    assert unit == {("float32", 6): 8, ("float32", 3): 4, ("bfloat16", 6): 4, ("bfloat16", 3): 2}[dtype, D]
+    _, vjp = jax.vjp(lambda x: jquery.query(jt._spec(), x, jnp.asarray(pts), True)[0], fj)
+    (gj,) = vjp(Gj)
+    gj = np.asarray(gj.astype(jnp.float32))
+    x = ft.clone().requires_grad_()
+    (gt,) = torch.autograd.grad((tquery.query(pt._spec(), x, torch.from_numpy(pts))[0]
+                                 * torch.from_numpy(np.asarray(Gj.astype(jnp.float32))).to(ft.dtype)).sum(), x)
+    assert gt.dtype == ft.dtype
+    gt = gt.float().numpy()
+    tol = 1e-5 * max(1.0, float(np.abs(gj).max()))
+    if bf:
+        rows = tquery.query(pt._spec(), ft, torch.from_numpy(pts))[2].numpy()
+        ok = (rows >= 0) & (rows < len(f))
+        k = np.bincount(rows[ok], minlength=len(f))
+        mag = np.zeros_like(f)
+        np.add.at(mag, rows[ok], np.abs(np.asarray(Gj.astype(jnp.float32)))[ok])
+        tol = tol + np.maximum(k - 1, 1)[:, None] * _bf16_ulp(np.maximum(mag, np.abs(gt)))
+    assert np.all(np.abs(gt - gj) <= tol)
+    assert np.abs(gj).max() > 0
